@@ -1,0 +1,36 @@
+"""Device selection for the port: CUDA unless the caller asks for the CPU.
+
+Entry points take ``device=None`` and resolve it here.  With no GPU and
+no explicit CPU request they raise; they never drop to the CPU quietly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``; a CUDA request without a usable card
+    raises instead of falling back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def require_hopper(device=None) -> str:
+    """Raise unless the card is Hopper (compute capability 9.0), which
+    the sm_90a kernels need; returns the card's name."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the Hopper kernels need a CUDA device")
+    cap = torch.cuda.get_device_capability(dev)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"kernels are built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(dev)} has capability {cap}")
+    return torch.cuda.get_device_name(dev)
