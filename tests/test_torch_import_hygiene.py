@@ -1,5 +1,5 @@
-"""The port imports torch and numpy, never jax, jaxlib or the JAX package
-(vit_fpga_tpu), and it never drops to the CPU quietly."""
+"""The port imports torch and numpy, never jax, jaxlib, optax or the JAX
+package (vit_fpga_tpu), and it never drops to the CPU quietly."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "vit_fpga_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "vit_fpga_tpu"}
 
 
 def _port_files():
@@ -44,9 +44,10 @@ def test_port_sources_import_no_jax():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, vit_fpga_tpu_torch.models.vit, "
-            "vit_fpga_tpu_torch.runtime.serving; "
+            "vit_fpga_tpu_torch.runtime.serving, "
+            "vit_fpga_tpu_torch.train.trainer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'vit_fpga_tpu')); print(bad)")
+            "('jax', 'jaxlib', 'optax', 'vit_fpga_tpu')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

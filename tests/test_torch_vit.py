@@ -135,10 +135,15 @@ def test_vit_b16_bf16_full_width_matches_jax():
 
 
 def test_safe_softmax_not_ported_yet():
-    _, tcfg, _, tparams = _pair(7, dtype="float32", safe_softmax=True,
-                                **TINY)
-    with pytest.raises(NotImplementedError):
-        tvit.make_forward(tcfg, tparams, device="cpu")
+    """safe_softmax used to raise (its kernel K4 was not ported); it now
+    routes make_forward to the per-block encoder (plain K4/K5 on the CPU),
+    which matches the JAX forward with safe_softmax in f32."""
+    jcfg, tcfg, jparams, tparams = _pair(7, dtype="float32",
+                                         safe_softmax=True, **TINY)
+    img = _images(8, 2, 32)
+    want = np.asarray(jvit.forward_raw(jparams, jnp.asarray(img), jcfg))
+    got = tvit.make_forward(tcfg, tparams, device="cpu")(img).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_init_params_layout_matches_jax_and_is_seeded():

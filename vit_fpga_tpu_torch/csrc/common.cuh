@@ -1,27 +1,41 @@
-// Shared device code for the stats-chain kernels (attn_stats.cu, mlp_stats.cu).
+// Shared device code for the port's kernels.
 //
-//   gemm_bf16   C = epilogue(A' @ B): bf16 operands on nvcuda::wmma 16x16x16
-//               fragments with f32 accumulators.  A' is either A itself or
-//               the LayerNorm of A applied from per-row (mu, rstd) stats and
-//               per-column (scale, bias) to the A tiles in shared memory,
-//               so the normalised activations never reach device memory.  The epilogue adds an f32 bias, applies
-//               the activation in f32, rounds to bf16 and optionally adds a
-//               bf16 residual in bf16 (the JAX kernels' `x + y.astype(x.dtype)`).
+//   gemm_bf16   C = epilogue(op(A) @ op(B)): bf16 operands on nvcuda::wmma
+//               16x16x16 fragments with f32 accumulators.  Template flags
+//               pick the layouts: TA reads A stored (K, M) row-major (the
+//               product is A^T B, e.g. a weight gradient x^T dy summed over
+//               every token row), TB reads B stored (N, K) row-major (A B^T,
+//               e.g. a data gradient dy W^T); wmma col_major fragments give
+//               both transposes from the same shared-memory ring.  With LN
+//               (row-major A only) the LayerNorm of A is applied from
+//               per-row (mu, rstd) stats and per-column (scale, bias) to the
+//               A tiles in shared memory, so the normalised activations
+//               never reach device memory.  The epilogue adds an optional f32
+//               bias, applies the activation in f32 and writes f32, or rounds
+//               to bf16 and optionally adds a bf16 residual in bf16 (the JAX
+//               kernels' `x + y.astype(x.dtype)`).  The activation-backward
+//               epilogue (GemmArgs::aux) turns h = A B + bias into
+//               bf16(act(h)) and bf16(aux * act'(h)), and writes each block's
+//               column sums of aux * act'(h) (fixed order, no atomics).
 //   row_stats   per-row one-pass LayerNorm statistics in f32:
 //               mu = mean(x), rstd = 1/sqrt(max(mean(x^2) - mu^2, 0) + eps).
 //
 // Everything lives in the namespace VFT_NS, which each translation unit
 // defines before including this header: each gets its own copy of the
 // kernels, under a name that tells the launch sites apart in a trace.
-// Each unit's init entry point calls gemm_init() once per device before
-// its first launch; the launches themselves set no attributes.
+// Each unit's init entry point opts the GEMM variants it launches in to
+// their shared memory once per device (gemm_enable); the launches
+// themselves set no attributes.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef VFT_NS
 #error "define VFT_NS before including common.cuh"
@@ -31,6 +45,8 @@ namespace VFT_NS {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
+
+__host__ __device__ inline size_t round128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // Activation codes shared with vit_fpga_tpu_torch/ops/fused_mlp.py (_ACT_CODES).
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_TANH = 2, ACT_QUICK_GELU = 3, ACT_RELU = 4 };
@@ -54,6 +70,40 @@ __device__ __forceinline__ float apply_act(float h, int act) {
   }
 }
 
+// act(h) and act'(h) in the closed forms of
+// vit_fpga_tpu/ops/fused_mlp.py:_act_and_grad (erf-GELU's own derivative
+// for ACT_GELU).
+__device__ __forceinline__ void act_and_grad(float h, int act, float& a, float& d) {
+  switch (act) {
+    case ACT_GELU: {
+      const float cdf = 0.5f * (1.0f + erff(h * 0.7071067811865476f));
+      a = h * cdf;
+      d = cdf + h * 0.3989422804014327f * expf(-0.5f * h * h);
+      return;
+    }
+    case ACT_GELU_TANH: {
+      const float c = 0.7978845608028654f;
+      const float t = tanhf(c * (h + 0.044715f * h * h * h));
+      a = 0.5f * h * (1.0f + t);
+      d = 0.5f * (1.0f + t) + 0.5f * h * (1.0f - t * t) * c * (1.0f + 0.134145f * h * h);
+      return;
+    }
+    case ACT_QUICK_GELU: {
+      const float s = 1.0f / (1.0f + expf(-1.702f * h));
+      a = h * s;
+      d = s * (1.0f + 1.702f * h * (1.0f - s));
+      return;
+    }
+    case ACT_RELU:
+      a = fmaxf(h, 0.0f);
+      d = h > 0.0f ? 1.0f : 0.0f;
+      return;
+    default:
+      a = h;
+      d = 1.0f;
+  }
+}
+
 __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
@@ -72,9 +122,27 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return v;
 }
 
+__device__ __forceinline__ void load8f(const float* src, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+__device__ __forceinline__ void store8f(float* dst, const float* f) {
+  *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -83,9 +151,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // a 64 x 32 patch of 4 x 2 fragments.  Operand tiles are copied with
 // cp.async into a GEMM_STAGES-deep shared-memory ring, so the copies for
 // the next GEMM_STAGES - 1 k-steps are in flight while the tensor cores
-// work on this one.  With the LayerNorm prologue each thread normalises the
-// A chunks it copied, in shared memory, once they have landed, with the LN
-// scale and bias staged in shared memory (2 K floats after the ring).
+// work on this one.  A row-major tile is stored [m][k], a transposed one
+// [k][m] (and likewise for B), each row padded by 8 elements against bank
+// conflicts.  Edges are zero-filled: N and K (and M when TA) must be
+// multiples of 8.
+// With the LayerNorm prologue each thread normalises the A chunks it
+// copied, in shared memory, once they have landed, with the LN scale and
+// bias staged in shared memory (2 K floats after the ring).
 // ---------------------------------------------------------------------------
 
 constexpr int GEMM_BM = 128;
@@ -93,32 +165,54 @@ constexpr int GEMM_BN = 128;
 constexpr int GEMM_BK = 32;
 constexpr int GEMM_STAGES = 4;
 constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_A_LD = GEMM_BK + 8;   // bf16 elements; +8 breaks bank conflicts
-constexpr int GEMM_B_LD = GEMM_BN + 8;
 constexpr int GEMM_C_LD = 16 + 4;        // f32 staging of one fragment per warp
 constexpr int GEMM_MAX_LN_K = 4096;      // LN GEMMs stage K floats of scale and of bias
-constexpr int GEMM_A_STAGE = GEMM_BM * GEMM_A_LD;
-constexpr int GEMM_B_STAGE = GEMM_BK * GEMM_B_LD;
-constexpr size_t GEMM_SMEM_BYTES =
-    (size_t)GEMM_STAGES * (GEMM_A_STAGE + GEMM_B_STAGE) * sizeof(bf16);
-static_assert(GEMM_SMEM_BYTES >= (GEMM_THREADS / 32) * 16 * GEMM_C_LD * sizeof(float),
+
+// Row length (elements) and size of one operand tile in shared memory: a
+// [rows][BK] tile, or a [BK][rows] one when the operand is stored k-major
+// (A stored (K, M), B stored (K, N)).
+__host__ __device__ constexpr int tile_ld(bool kmajor, int rows) {
+  return kmajor ? rows + 8 : GEMM_BK + 8;
+}
+__host__ __device__ constexpr int tile_elems(bool kmajor, int rows) {
+  return kmajor ? GEMM_BK * (rows + 8) : rows * (GEMM_BK + 8);
+}
+
+template <bool TA, bool TB>
+__host__ __device__ constexpr size_t gemm_ring_bytes() {
+  return (size_t)GEMM_STAGES * (tile_elems(TA, GEMM_BM) + tile_elems(!TB, GEMM_BN)) * sizeof(bf16);
+}
+
+// Epilogue staging (one fragment per warp) plus the activation-backward
+// column sums ([2][GEMM_BN] f32) reuse the operand ring.
+static_assert(gemm_ring_bytes<true, false>() >=
+                  ((GEMM_THREADS / 32) * 16 * GEMM_C_LD + 2 * GEMM_BN) * sizeof(float),
               "the epilogue staging reuses the operand ring");
 
-inline size_t gemm_smem_bytes(bool ln, int k) {
-  return GEMM_SMEM_BYTES + (ln ? 2 * (size_t)k * sizeof(float) : 0);
+template <bool LN, bool TA, bool TB>
+inline size_t gemm_smem_bytes(int k) {
+  return gemm_ring_bytes<TA, TB>() + (LN ? 2 * (size_t)k * sizeof(float) : 0);
 }
 
 struct GemmArgs {
-  const bf16* A;         // (M, K) row-major
+  const bf16* A;         // (M, K) row-major; (K, M) row-major when TA
   const float* stats;    // (M, 2) f32 (mu, rstd) when the LN prologue is on
   const float* ln_scale; // (K,) f32
   const float* ln_bias;  // (K,) f32
-  const bf16* B;         // (K, N) row-major
-  const float* bias;     // (N,) f32
-  const bf16* residual;  // (M, N) or nullptr
-  bf16* C;               // (M, N)
+  const bf16* B;         // (K, N) row-major; (N, K) row-major when TB
+  const float* bias;     // (N,) f32 or nullptr
+  const bf16* residual;  // (M, N) bf16 or nullptr (bf16 output only)
+  void* C;               // (M, N) bf16, or f32 when c_f32
   int M, N, K;
   int act;
+  int c_f32;
+  // Activation-backward epilogue, on when aux != nullptr (bf16 output):
+  // h = acc + bias, C = bf16(act(h)), C2 = bf16(aux * act'(h)),
+  // col_partials[blockIdx.y * N + n] = sum over the block's rows of
+  // aux * act'(h) in f32.
+  const float* aux;      // (M, N) f32
+  bf16* C2;              // (M, N) bf16
+  float* col_partials;   // (ceil(M / GEMM_BM), N) f32
 };
 
 // 16-byte global -> shared copy; zero-fills the destination when !pred.
@@ -138,13 +232,59 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 2 blocks per SM: caps registers at 128 a thread.
-template <bool LN>
+// One operand's copy plan for this thread: two 8-element chunks per stage.
+// A chunk sits at shared offset `soff` of the stage; its global source is
+// `src + k0 * kstep` at k-step k0, valid while `ok` (inside M or N) and
+// k0 + koff < K.
+struct ChunkPlan {
+  const bf16* src[2];
+  size_t kstep[2];
+  int koff[2];
+  int soff[2];
+  bool ok[2];
+};
+
+// rows: GEMM_BM or GEMM_BN; r0: the block's first row (m0 or n0);
+// rdim: M or N.  Not transposed, the operand is (rdim, K) row-major (A, or
+// B stored (N, K)); transposed, it is (K, rdim) row-major.
+template <bool KMAJOR_ROWS>
+__device__ __forceinline__ void plan_chunks(ChunkPlan& pl, const bf16* base, int tid, int rows,
+                                            int r0, int rdim, int K) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = tid + i * GEMM_THREADS;
+    if (!KMAJOR_ROWS) {  // [rows][BK] tile: 4 chunks per row
+      const int r = c >> 2, kc = (c & 3) * 8;
+      pl.ok[i] = r0 + r < rdim;
+      pl.soff[i] = r * tile_ld(false, rows) + kc;
+      pl.koff[i] = kc;
+      pl.kstep[i] = 1;
+      pl.src[i] = base + (pl.ok[i] ? (size_t)(r0 + r) * K + kc : 0);
+    } else {  // [BK][rows] tile: rows / 8 chunks per k-row
+      const int cpr = rows / 8;
+      const int kr = c / cpr, rc = (c % cpr) * 8;
+      pl.ok[i] = r0 + rc < rdim;
+      pl.soff[i] = kr * tile_ld(true, rows) + rc;
+      pl.koff[i] = kr;
+      pl.kstep[i] = (size_t)rdim;
+      pl.src[i] = base + (pl.ok[i] ? (size_t)kr * rdim + r0 + rc : 0);
+    }
+  }
+}
+
+// B stored (K, N) row-major is the [BK][BN] (k-major) case; B stored
+// (N, K) row-major (TB) the [BN][BK] one.  A is the reverse.
+template <bool LN, bool TA, bool TB>
 __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) {
+  static_assert(!(LN && TA), "the LayerNorm prologue takes a row-major A");
+  constexpr int A_ELEMS = tile_elems(TA, GEMM_BM);
+  constexpr int B_ELEMS = tile_elems(!TB, GEMM_BN);
+  constexpr int A_LD = tile_ld(TA, GEMM_BM);
+  constexpr int B_LD = tile_ld(!TB, GEMM_BN);
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>(gemm_smem);
-  bf16* Bs = As + GEMM_STAGES * GEMM_A_STAGE;
-  float* ls_s = reinterpret_cast<float*>(gemm_smem + GEMM_SMEM_BYTES);  // LN only
+  bf16* Bs = As + GEMM_STAGES * A_ELEMS;
+  float* ls_s = reinterpret_cast<float*>(gemm_smem + gemm_ring_bytes<TA, TB>());  // LN only
   float* lb_s = ls_s + p.K;
 
   const int tid = threadIdx.x;
@@ -155,55 +295,45 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
   const int m0 = blockIdx.y * GEMM_BM;
   const int n0 = blockIdx.x * GEMM_BN;
 
-  // Each thread copies two 8-element chunks of A (rows fixed across k) and
-  // two of B (columns fixed across k) per stage.
-  int a_off[2], b_off[2];
-  const bf16* a_src[2];
-  const bf16* b_src[2];
-  bool a_ok[2], b_ok[2];
-  float a_mu[2], a_rs[2];
-  int a_col[2];
+  ChunkPlan pa, pb;
+  plan_chunks<TA>(pa, p.A, tid, GEMM_BM, m0, p.M, p.K);
+  plan_chunks<!TB>(pb, p.B, tid, GEMM_BN, n0, p.N, p.K);
+
+  float a_mu[2] = {0.0f, 0.0f}, a_rs[2] = {0.0f, 0.0f};
+  if (LN) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * GEMM_THREADS;
-    const int ar = c >> 2, ac = c & 3;
-    a_ok[i] = (m0 + ar) < p.M;
-    a_off[i] = ar * GEMM_A_LD + ac * 8;
-    a_col[i] = ac * 8;
-    a_src[i] = a_ok[i] ? p.A + (size_t)(m0 + ar) * p.K + ac * 8 : p.A;
-    a_mu[i] = 0.0f;
-    a_rs[i] = 0.0f;
-    if (LN && a_ok[i]) {
-      a_mu[i] = p.stats[2 * (size_t)(m0 + ar)];
-      a_rs[i] = p.stats[2 * (size_t)(m0 + ar) + 1];
+    for (int i = 0; i < 2; ++i) {
+      const int ar = (tid + i * GEMM_THREADS) >> 2;
+      if (pa.ok[i]) {
+        a_mu[i] = p.stats[2 * (size_t)(m0 + ar)];
+        a_rs[i] = p.stats[2 * (size_t)(m0 + ar) + 1];
+      }
     }
-    const int br = c >> 4, bc = c & 15;
-    b_ok[i] = (n0 + bc * 8) < p.N;
-    b_off[i] = br * GEMM_B_LD + bc * 8;
-    b_src[i] = b_ok[i] ? p.B + (size_t)br * p.N + n0 + bc * 8 : p.B;
   }
 
   auto load_stage = [&](int s, int k0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      cp_async16(As + s * GEMM_A_STAGE + a_off[i], a_ok[i] ? a_src[i] + k0 : p.A, a_ok[i]);
-      cp_async16(Bs + s * GEMM_B_STAGE + b_off[i],
-                 b_ok[i] ? b_src[i] + (size_t)k0 * p.N : p.B, b_ok[i]);
+      const bool va = pa.ok[i] && k0 + pa.koff[i] < p.K;
+      cp_async16(As + s * A_ELEMS + pa.soff[i], va ? pa.src[i] + k0 * pa.kstep[i] : p.A, va);
+      const bool vb = pb.ok[i] && k0 + pb.koff[i] < p.K;
+      cp_async16(Bs + s * B_ELEMS + pb.soff[i], vb ? pb.src[i] + k0 * pb.kstep[i] : p.B, vb);
     }
   };
 
   // xn = bf16(((f32(x) - mu) * rstd) * scale + bias), over this thread's
-  // own (landed) A chunks of stage s; padding rows stay zero.
+  // own (landed) A chunks of stage s; padding rows and columns stay zero.
   auto ln_stage = [&](int s, int k0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (!a_ok[i]) continue;
+      const int kc = pa.koff[i];
+      if (!pa.ok[i] || k0 + kc >= p.K) continue;
       // two halves of 4 values keep few registers live beside the
       // accumulators
-      uint2* dst = reinterpret_cast<uint2*>(As + s * GEMM_A_STAGE + a_off[i]);
+      uint2* dst = reinterpret_cast<uint2*>(As + s * A_ELEMS + pa.soff[i]);
 #pragma unroll
       for (int hlf = 0; hlf < 2; ++hlf) {
-        const int k = k0 + a_col[i] + 4 * hlf;
+        const int k = k0 + kc + 4 * hlf;
         const float4 sc = *reinterpret_cast<const float4*>(ls_s + k);
         const float4 bi = *reinterpret_cast<const float4*>(lb_s + k);
         uint2 v = dst[hlf];
@@ -219,13 +349,16 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
     }
   };
 
+  using ALayout = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
+  using BLayout = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
+
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  const int nk = p.K / GEMM_BK;
+  const int nk = (p.K + GEMM_BK - 1) / GEMM_BK;
 #pragma unroll
   for (int s = 0; s < GEMM_STAGES - 1; ++s) {
     if (s < nk) load_stage(s, s * GEMM_BK);
@@ -246,18 +379,24 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
     const int next = kt + GEMM_STAGES - 1;
     if (next < nk) load_stage(next % GEMM_STAGES, next * GEMM_BK);
     cp_async_commit();  // one group per step, empty or not, keeps the count
-    const bf16* as = As + s * GEMM_A_STAGE;
-    const bf16* bs = Bs + s * GEMM_B_STAGE;
+    const bf16* as = As + s * A_ELEMS;
+    const bf16* bs = Bs + s * B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> af[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], as + (wm * 64 + i * 16) * GEMM_A_LD + kk * 16, GEMM_A_LD);
+      for (int i = 0; i < 4; ++i) {
+        const int m = wm * 64 + i * 16;
+        wmma::load_matrix_sync(af[i], TA ? as + kk * 16 * A_LD + m : as + m * A_LD + kk * 16,
+                               A_LD);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], bs + (kk * 16) * GEMM_B_LD + wn * 32 + j * 16, GEMM_B_LD);
+      for (int j = 0; j < 2; ++j) {
+        const int n = wn * 32 + j * 16;
+        wmma::load_matrix_sync(bfr[j], TB ? bs + n * B_LD + kk * 16 : bs + kk * 16 * B_LD + n,
+                               B_LD);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -270,8 +409,15 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
   // Epilogue, one fragment at a time through the warp's staging tile: lane
   // L owns row L/2, columns 8*(L%2) .. +8.
   float* cs = reinterpret_cast<float*>(gemm_smem) + warp * 16 * GEMM_C_LD;
+  float* red = reinterpret_cast<float*>(gemm_smem) + (GEMM_THREADS / 32) * 16 * GEMM_C_LD;
+  const bool act_bwd = p.aux != nullptr;
   const int er = lane >> 1;
   const int ec = (lane & 1) * 8;
+  float colacc[2][8];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int t = 0; t < 8; ++t) colacc[j][t] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -282,53 +428,103 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
       const int gc = n0 + wn * 32 + j * 16 + ec;
       if (gr < p.M && gc < p.N) {
         float f[8];
-        const float4 c0 = *reinterpret_cast<const float4*>(cs + er * GEMM_C_LD + ec);
-        const float4 c1 = *reinterpret_cast<const float4*>(cs + er * GEMM_C_LD + ec + 4);
-        f[0] = c0.x; f[1] = c0.y; f[2] = c0.z; f[3] = c0.w;
-        f[4] = c1.x; f[5] = c1.y; f[6] = c1.z; f[7] = c1.w;
-        const float4 b0 = *reinterpret_cast<const float4*>(p.bias + gc);
-        const float4 b1 = *reinterpret_cast<const float4*>(p.bias + gc + 4);
-        const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        load8f(cs + er * GEMM_C_LD + ec, f);
+        if (p.bias != nullptr) {
+          float bi[8];
+          load8f(p.bias + gc, bi);
 #pragma unroll
-        for (int t = 0; t < 8; ++t) f[t] = apply_act(f[t] + bi[t], p.act);
-        uint4 y = pack8(f);
-        if (p.residual != nullptr) {
-          float r[8];
-          unpack8(*reinterpret_cast<const uint4*>(p.residual + (size_t)gr * p.N + gc), r);
-          unpack8(y, f);  // the residual adds the bf16-rounded product
-#pragma unroll
-          for (int t = 0; t < 8; ++t) f[t] = r[t] + f[t];
-          y = pack8(f);
+          for (int t = 0; t < 8; ++t) f[t] += bi[t];
         }
-        *reinterpret_cast<uint4*>(p.C + (size_t)gr * p.N + gc) = y;
+        const size_t off = (size_t)gr * p.N + gc;
+        if (act_bwd) {
+          float da[8], a[8], dh[8];
+          load8f(p.aux + off, da);
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            float d;
+            act_and_grad(f[t], p.act, a[t], d);
+            dh[t] = da[t] * d;
+            colacc[j][t] += dh[t];
+          }
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(p.C) + off) = pack8(a);
+          *reinterpret_cast<uint4*>(p.C2 + off) = pack8(dh);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) f[t] = apply_act(f[t], p.act);
+          if (p.c_f32) {
+            store8f(static_cast<float*>(p.C) + off, f);
+          } else {
+            uint4 y = pack8(f);
+            if (p.residual != nullptr) {
+              float r[8];
+              unpack8(*reinterpret_cast<const uint4*>(p.residual + off), r);
+              unpack8(y, f);  // the residual adds the bf16-rounded product
+#pragma unroll
+              for (int t = 0; t < 8; ++t) f[t] = r[t] + f[t];
+              y = pack8(f);
+            }
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(p.C) + off) = y;
+          }
+        }
       }
       __syncwarp();
     }
   }
+  if (act_bwd) {
+    // Column sums over the warp's 64 rows: lanes of one parity share their
+    // 8 columns, so a fixed xor tree over lane bits 1..4 adds the 16 rows
+    // of each fragment row group; then the two row-warps add in order.
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        float v = colacc[j][t];
+#pragma unroll
+        for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        colacc[j][t] = v;
+      }
+    if (lane < 2) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) red[wm * GEMM_BN + wn * 32 + j * 16 + lane * 8 + t] = colacc[j][t];
+    }
+    __syncthreads();
+    if (tid < GEMM_BN && n0 + tid < p.N)
+      p.col_partials[(size_t)blockIdx.y * p.N + n0 + tid] = red[tid] + red[GEMM_BN + tid];
+  }
 }
 
-// Opts both GEMM kinds in to the shared memory they may use (above the
+// Opts one GEMM variant in to the shared memory it may use (above the
 // 48 KB default), on the current device.
-inline cudaError_t gemm_init() {
-  cudaError_t err =
-      cudaFuncSetAttribute(gemm_bf16_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)gemm_smem_bytes(true, GEMM_MAX_LN_K));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(gemm_bf16_kernel<false>,
+template <bool LN, bool TA, bool TB>
+inline cudaError_t gemm_enable() {
+  return cudaFuncSetAttribute(gemm_bf16_kernel<LN, TA, TB>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)gemm_smem_bytes(false, 0));
+                              (int)gemm_smem_bytes<LN, TA, TB>(LN ? GEMM_MAX_LN_K : 0));
 }
 
-template <bool LN>
+// The two row-major variants the forward halves launch.
+inline cudaError_t gemm_init() {
+  cudaError_t err = gemm_enable<true, false, false>();
+  if (err != cudaSuccess) return err;
+  return gemm_enable<false, false, false>();
+}
+
+template <bool LN, bool TA, bool TB>
 inline cudaError_t launch_gemm_t(const GemmArgs& p, cudaStream_t stream) {
-  if (LN && p.K > GEMM_MAX_LN_K) return cudaErrorInvalidValue;
+  if ((LN && p.K > GEMM_MAX_LN_K) || (TA && p.M % 8) || p.N % 8 || p.K % 8)
+    return cudaErrorInvalidValue;
+  if (p.aux != nullptr && (p.c_f32 || p.C2 == nullptr || p.col_partials == nullptr))
+    return cudaErrorInvalidValue;
   const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM);
-  gemm_bf16_kernel<LN><<<grid, GEMM_THREADS, gemm_smem_bytes(LN, p.K), stream>>>(p);
+  gemm_bf16_kernel<LN, TA, TB><<<grid, GEMM_THREADS, gemm_smem_bytes<LN, TA, TB>(p.K), stream>>>(p);
   return cudaGetLastError();
 }
 
 inline cudaError_t launch_gemm(bool ln, const GemmArgs& p, cudaStream_t stream) {
-  return ln ? launch_gemm_t<true>(p, stream) : launch_gemm_t<false>(p, stream);
+  return ln ? launch_gemm_t<true, false, false>(p, stream)
+            : launch_gemm_t<false, false, false>(p, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Vision Transformer inference on PyTorch, serving through the
-stats-chain encoder (counterpart of the JAX package's models/vit.py).
+"""Vision Transformer on PyTorch (counterpart of the JAX package's
+models/vit.py): the serving forward through the stats-chain encoder, and
+the per-block encoder that training and ``safe_softmax`` configs take.
 
 Parameters keep the JAX layout (``init_params``): NHWC images, the patch
 kernel as (P*P*3, D) in (py, px, c) order, per-block arrays stacked on a
 leading depth axis, linear weights as (in, out).  The forward is
 
   preprocess -> _fused_embed (one f32-accumulated GEMM, padded rows)
-  -> _encoder_stats_chain: depth x [attn_block_stats -> fused_mlp_stats]
+  -> encoder: depth x [attn_block_stats -> fused_mlp_stats] (the chain),
+     or depth x _block = [attn_block -> fused_mlp] when ``safe_softmax``
+     or ``remat`` is set (differentiable: K4/K5 forward, K23/K24 backward)
   -> LayerNorm of the prefix row -> f32 head
 
 and runs the Hopper kernels on a CUDA device, their plain versions on
@@ -21,10 +24,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from ..ops.attn_block import attn_block_stats, attn_block_xla
+from ..ops.attn_block import attn_block, attn_block_stats, attn_block_xla
 from ..ops.common import pad_sublane, round_up, row_stats
-from ..ops.fused_mlp import fused_mlp_stats, fused_mlp_xla
+from ..ops.fused_mlp import fused_mlp, fused_mlp_stats, fused_mlp_xla
 from ..ops.patch_embed import embed_tokens_dotg
 from ..utils.platform import resolve_device
 
@@ -49,8 +53,9 @@ class ViTConfig:
     num_prefix_tokens: int = 1
     hidden_act: str = "gelu"         # gelu (erf) | gelu_tanh | quick_gelu
     # Exact max-subtract softmax instead of the max-free exp(clip(s)) fast
-    # path.  Its kernel (K4 in ROADMAP.md) is not ported yet.
+    # path; routes the encoder to the per-block kernels (K4, K5).
     safe_softmax: bool = False
+    remat: bool = False              # checkpoint each block (training)
     mean: Tuple[float, ...] = IMAGENET_MEAN
     std: Tuple[float, ...] = IMAGENET_STD
 
@@ -87,6 +92,18 @@ VARIANTS: Dict[str, Dict[str, int]] = {
     "vit_h14": dict(patch_size=14, hidden_dim=1280, depth=32, num_heads=16,
                     mlp_dim=5120),
 }
+
+
+def flops_per_image(cfg: ViTConfig) -> float:
+    """Analytic forward FLOPs (2 x MACs) per image, patch embed and head
+    included: the count of the JAX package's ``bench.py``
+    (``vit_flops_per_image``), on the unpadded sequence."""
+    n, d, m, l = cfg.seq_len, cfg.hidden_dim, cfg.mlp_dim, cfg.depth
+    p3 = cfg.patch_size * cfg.patch_size * 3
+    per_layer = (2 * n * d * 3 * d + 4 * n * n * d + 2 * n * d * d
+                 + 4 * n * d * m)
+    return (2 * cfg.n_patches * p3 * d + l * per_layer
+            + 2 * d * cfg.num_classes)
 
 
 def config(variant: str, image_size: int = 224, **overrides) -> ViTConfig:
@@ -236,18 +253,63 @@ def _fused_embed(params: Params, images: torch.Tensor, cfg: ViTConfig,
                              posb, cfg.patch_size, npre)
 
 
-def _check_chain(cfg: ViTConfig) -> None:
-    if cfg.safe_softmax:
-        raise NotImplementedError(
-            "safe_softmax routes to the exact-softmax attention kernel (K4), "
-            "which is not ported yet")
+def _stats_chain_supported(cfg: ViTConfig) -> bool:
+    """The chain serves unless the config asks for the exact softmax or
+    for remat (the JAX ``_stats_chain_supported``, without its TPU
+    planner checks)."""
+    return not (cfg.safe_softmax or cfg.remat)
+
+
+def _block(x: torch.Tensor, blk: Params, cfg: ViTConfig,
+           n_valid: int) -> torch.Tensor:
+    """One pre-LN transformer block on padded (B, n_pad, D) tokens,
+    differentiable (counterpart of the JAX ``_block``'s fused path).
+
+    The weight handling is the JAX package's: the attention half takes
+    the f32 ``wqkv``/``wo`` (cast to the compute dtype inside the kernel
+    wrapper, so their gradients stay f32), the MLP half takes ``w1``/``w2``
+    already cast to the compute dtype (so their gradients are rounded to
+    it)."""
+    b, n_pad, d = x.shape
+    dt = cfg.compute_dtype
+    x = attn_block(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
+                   blk["bqkv"], blk["wo"], blk["bo"], cfg.num_heads,
+                   cfg.ln_eps, n_valid, cfg.safe_softmax)
+    y = fused_mlp(x.reshape(b * n_pad, d), blk["ln2_scale"],
+                  blk["ln2_bias"], blk["w1"].to(dt), blk["b1"],
+                  blk["w2"].to(dt), blk["b2"], cfg.ln_eps, _hidden_act(cfg))
+    return y.reshape(b, n_pad, d)
+
+
+def _encoder_blocks(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
+                    n_valid: int) -> torch.Tensor:
+    """depth x :func:`_block`, each checkpointed when ``cfg.remat``.
+
+    The layers' weights come from one ``unbind`` of each stacked
+    parameter: its backward stacks the per-layer gradients once, where
+    indexing ``v[i]`` would add a full-size zero-filled gradient per
+    layer."""
+    layers = {k: v.unbind(0) for k, v in blocks.items()}
+    for i in range(cfg.depth):
+        blk = {k: v[i] for k, v in layers.items()}
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, x, blk, cfg, n_valid, use_reentrant=False)
+        else:
+            x = _block(x, blk, cfg, n_valid)
+    return x
 
 
 def _encoder_stats_chain(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
                          n_valid: int) -> torch.Tensor:
     """The serving encoder: each half consumes the previous half's
-    LayerNorm (mu, rstd) and emits the next half's."""
-    _check_chain(cfg)
+    LayerNorm (mu, rstd) and emits the next half's.  Its kernels have no
+    backward, so it refuses to run where a gradient is wanted."""
+    if torch.is_grad_enabled() and any(v.requires_grad
+                                       for v in blocks.values()):
+        raise NotImplementedError(
+            "the stats chain has no backward; set safe_softmax or remat "
+            "to train through the per-block kernels")
     b, n_pad, d = x.shape
     act = _hidden_act(cfg)
     st = row_stats(x, cfg.ln_eps)           # first LN1 stats, plain torch
@@ -295,7 +357,9 @@ def _forward_features(params: Params, images: torch.Tensor,
     n = cfg.seq_len
     n_pad = round_up(n, pad_sublane(cfg.compute_dtype))
     x = _fused_embed(params, images, cfg, n_pad)
-    x = _encoder_stats_chain(params["blocks"], x, cfg, n)
+    encoder = (_encoder_stats_chain if _stats_chain_supported(cfg)
+               else _encoder_blocks)
+    x = encoder(params["blocks"], x, cfg, n)
     return x[:, :n]
 
 
@@ -340,7 +404,6 @@ def make_forward(cfg: ViTConfig, params: Params, raw: bool = True,
     with the params: returns ``fn(images) -> logits`` that runs under
     ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``).  The
     params must already live there; numpy input is copied there."""
-    _check_chain(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda" and cfg.compute_dtype != torch.bfloat16:
         raise NotImplementedError(

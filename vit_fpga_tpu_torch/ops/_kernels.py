@@ -26,8 +26,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("attn_stats.cu", "mlp_stats.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
+           "attn_bwd.cu", "mlp_bwd.cu")
+HEADERS = ("common.cuh", "attn.cuh", "norm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -48,8 +49,21 @@ _SIGNATURES = {
     "vft_mlp_init": ([], ctypes.c_int),
     "vft_fused_mlp_stats": (
         [_P] * 11 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "vft_attn_block_init": ([], ctypes.c_int),
+    "vft_attn_block_fwd": ([_P] * 11 + [_I] * 6 + [_F, _F, _P], ctypes.c_int),
+    "vft_fused_mlp_init": ([], ctypes.c_int),
+    "vft_fused_mlp": ([_P] * 10 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "vft_attn_bwd_init": ([], ctypes.c_int),
+    "vft_attn_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
+    "vft_attn_block_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _P], ctypes.c_int),
+    "vft_mlp_bwd_init": ([], ctypes.c_int),
+    "vft_mlp_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
+    "vft_fused_mlp_bwd": ([_P] * 14 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
+# Each source's init entry point, run once per device before its launches.
+_INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
+          "vft_fused_mlp_init", "vft_attn_bwd_init", "vft_mlp_bwd_init")
 
 
 def _nvcc() -> str:
@@ -145,7 +159,7 @@ def launch_target() -> tuple[ctypes.CDLL, int]:
     if index not in _ready:
         with _lock:
             if index not in _ready:
-                check(lib.vft_attn_init(), "vft_attn_init")
-                check(lib.vft_mlp_init(), "vft_mlp_init")
+                for name in _INITS:
+                    check(getattr(lib, name)(), name)
                 _ready.add(index)
     return lib, torch.cuda.current_stream().cuda_stream

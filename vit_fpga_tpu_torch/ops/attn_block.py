@@ -1,28 +1,39 @@
 """Transformer attention half: LN -> QKV -> masked MHA -> out-proj ->
-+residual.
++residual, and its backward.
 
-``attn_block_stats`` is the stats-chain attention half.  On a CUDA tensor
-it launches the hand-written Hopper kernel in ``csrc/attn_stats.cu``; on a
-CPU tensor it runs the plain PyTorch version of the same arithmetic.
+Three Hopper kernels live here, each behind a wrapper that launches it on
+a CUDA tensor and runs its plain PyTorch version (same arithmetic) on a
+CPU tensor:
 
-Source note (kernel K1):
-  * replaces ``vit_fpga_tpu/ops/attn_block.py:_attn_stats_kernel`` with its
-    ``_mha_loop`` (wrapper ``attn_block_stats_pallas``);
-  * bound on the H100 by tensor-core operations: 8·R·D² flops for the
-    projections plus 4·B·H·n_pad·n_valid·dh for scores and PV (about
-    68 GFLOP, 69 us at 989 TFLOP/s, at ViT-B/16 batch 64) against about
-    44 MB of compulsory traffic;
-  * design: a bf16 wmma GEMM that applies the LayerNorm from the
-    producer's (mu, rstd) to its A tiles in shared memory and adds the QKV
-    bias in its epilogue; one attention block per (image, head) holding
-    the head's keys and values, with each warp's 16-row query tile, f32
-    scores and bf16 probabilities in shared memory; a second GEMM with
-    bias and residual in its epilogue; a per-row reduction for the next
-    stats.  qkv and the attention output round-trip through device memory
-    (later work: fuse them away, wgmma).
+* K1 ``attn_block_stats`` (``csrc/attn_stats.cu``), the stats-chain half
+  that serving runs: replaces ``vit_fpga_tpu/ops/attn_block.py:
+  _attn_stats_kernel`` (with its ``_mha_loop``);
+* K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
+  replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
+  one-pass LN statistics computed in the kernel and the exact
+  (``safe_softmax``) or max-free softmax;
+* K23 ``attn_block_bwd`` (``csrc/attn_bwd.cu``), K4's backward: replaces
+  ``_attn_bwd_kernel`` (wrapper ``attn_block_bwd_pallas``), the per-head
+  arithmetic of its non-pair branch.
 
-The softmax is the JAX kernels' max-free form, ``exp(clip(s, -70, 80))``
-with keys at or past ``n_valid`` masked, which equals the exact softmax of
+``attn_block`` is the differentiable half (``AttnBlockFunction``): K4
+forward, K23 backward, saving only the inputs, as the JAX ``custom_vjp``.
+
+Bounds on the H100 at ViT-B/16 batch 64 (R = 12 800 rows, D = 768), all
+set by tensor-core operations at 989 TFLOP/s: K1 and K4 8·R·D² +
+4·B·H·n_pad·n_valid·dh flops (68 GFLOP, 69 us) against about 44 MB of
+compulsory traffic; K23 22·R·D² + 12·B·H·n_pad·n_valid·dh (189 GFLOP,
+191 us) against under 100 MB.  Designs: bf16 wmma GEMMs (LN applied to
+the A tiles in shared memory, bias / residual in the epilogue, transposed
+layouts for the gradients), an attention block per (image, head) with
+scores and probabilities in shared memory; the backward sums every
+weight gradient over all rows in one transposed-A GEMM and every bias
+and LN gradient with fixed-order column sums.  qkv, the attention output
+and the backward's intermediates round-trip through device memory
+(later work: fuse them away, wgmma).
+
+The max-free softmax, ``exp(clip(s, -70, 80))`` with keys at or past
+``n_valid`` masked, equals the exact softmax of
 :func:`vit_fpga_tpu_torch.ops.attention.mha_qkv_xla` while every logit
 lies inside the clip window.
 """
@@ -35,18 +46,19 @@ import torch
 
 from . import _kernels
 from .attention import mha_qkv_xla
-from .common import check_activation, kernel_operand, row_stats
+from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
+                     row_stats)
 
 _NEG_INF = -1e30
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
 
 
-def _mha_maxfree(qkv: torch.Tensor, num_heads: int,
-                 n_valid: int) -> torch.Tensor:
-    """The JAX kernel's ``_mha_loop`` arithmetic on (B, N, 3D) qkv:
-    f32 scores, ``exp(clip(s))`` with masked keys, bf16(e) @ v in f32,
-    times 1 / sum(e), rounded to the qkv dtype."""
+def _mha_tpu(qkv: torch.Tensor, num_heads: int, n_valid: int,
+             safe_softmax: bool = False) -> torch.Tensor:
+    """The JAX kernels' ``_mha_loop`` arithmetic on (B, N, 3D) qkv:
+    f32 scores, masked keys, ``exp(s - max)`` (safe) or ``exp(clip(s))``,
+    bf16(e) @ v in f32, times 1 / sum(e), rounded to the qkv dtype."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     dh = d // num_heads
@@ -66,10 +78,13 @@ def _mha_maxfree(qkv: torch.Tensor, num_heads: int,
     s = q.float() @ k.float().transpose(-1, -2)
     if not q_scaled:
         s = s * scale
-    s = s.clamp(_EXP_LO, _EXP_HI)
+    if not safe_softmax:
+        s = s.clamp(_EXP_LO, _EXP_HI)
     if n_valid < n:
         keep = torch.arange(n, device=qkv.device) < n_valid
         s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    if safe_softmax:
+        s = s - s.amax(-1, keepdim=True)
     e = torch.exp(s)
     denom = e.sum(-1, keepdim=True)
     pv = (e.to(dt).float() @ v.float()) * (1.0 / denom)
@@ -108,8 +123,7 @@ def attn_block_stats_plain(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     xf = x.float()
     xn = ((xf - stats[..., 0:1]) * stats[..., 1:2] * ln_scale.float()
           + ln_bias.float()).to(x.dtype)
-    out = _attn_tail(x, xn, wqkv, bqkv, wo, bo, num_heads, n_valid,
-                     _mha_maxfree)
+    out = _attn_tail(x, xn, wqkv, bqkv, wo, bo, num_heads, n_valid, _mha_tpu)
     return out, (row_stats(out, eps) if emit_stats else None)
 
 
@@ -169,3 +183,220 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 
 
 attn_block_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 (per-block forward) and K23 (its backward)
+# ---------------------------------------------------------------------------
+
+def _cuda_geometry(x, num_heads, n_valid):
+    """Shape checks shared by the K4 / K23 launches: (b, n, d, n_valid)."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
+    b, n, d = x.shape
+    n_valid = n if n_valid is None else min(n_valid, n)
+    if d % num_heads or d % 32:
+        raise ValueError(f"kernel needs D divisible by 32 and by {num_heads} "
+                         f"heads (D={d})")
+    if d // num_heads != 64 or not 1 <= n_valid <= 256:
+        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
+                         f"(dh={d // num_heads}, n_valid={n_valid})")
+    check_activation(x, (b, n, d), torch.bfloat16, "x")
+    return b, n, d, n_valid
+
+
+def attn_block_fwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                         num_heads: int, eps: float = 1e-6,
+                         n_valid: int | None = None,
+                         safe_softmax: bool = False):
+    """Plain PyTorch version of the K4 kernel (same arithmetic): one-pass
+    LN statistics, then K1's tail with the chosen softmax."""
+    n = x.shape[1]
+    n_valid = n if n_valid is None else min(n_valid, n)
+    st = row_stats(x, eps)
+    xn = ((x.float() - st[..., 0:1]) * st[..., 1:2] * ln_scale.float()
+          + ln_bias.float()).to(x.dtype)
+    return _attn_tail(x, xn, wqkv, bqkv, wo, bo, num_heads, n_valid,
+                      lambda q, h, nv: _mha_tpu(q, h, nv, safe_softmax))
+
+
+def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
+                   eps: float = 1e-6, n_valid: int | None = None,
+                   safe_softmax: bool = False, residual: bool = True):
+    """Per-block attention half (K4): x (B, N, D) -> x + OutProj(MHA(QKV(
+    LN(x)))).  Query rows at or past ``n_valid`` are computed, keys there
+    masked.  A CPU tensor runs :func:`attn_block_fwd_plain`; a CUDA tensor
+    launches the kernel (bf16, head dim 64, n_valid <= 256) or raises."""
+    if not residual:
+        raise NotImplementedError(
+            "residual=False (the tensor-parallel partial) comes with the "
+            "multi-device port")
+    if x.device.type == "cpu":
+        return attn_block_fwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                    num_heads, eps=eps, n_valid=n_valid,
+                                    safe_softmax=safe_softmax)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid)
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
+    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
+    wqkv = kernel_operand(wqkv, (d, 3 * d), bf, dev, "wqkv")
+    bqkv = kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv")
+    wo = kernel_operand(wo, (d, d), bf, dev, "wo")
+    bo = kernel_operand(bo, (d,), f32, dev, "bo")
+    out = torch.empty_like(x)
+    stats = torch.empty((b * n, 2), dtype=f32, device=dev)
+    qkv = torch.empty((b * n, 3 * d), dtype=bf, device=dev)
+    ao = torch.empty((b * n, d), dtype=bf, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        err = lib.vft_attn_block_fwd(
+            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), qkv.data_ptr(), ao.data_ptr(), b, n, d,
+            num_heads, n_valid, int(safe_softmax), float(eps),
+            1.0 / math.sqrt(d // num_heads), stream)
+    _kernels.check(err, "attn_block_fwd")
+    attn_block_fwd.launches += 1
+    return out
+
+
+attn_block_fwd.launches = 0
+
+
+def attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,
+                         num_heads: int, eps: float = 1e-6,
+                         n_valid: int | None = None):
+    """Plain PyTorch version of the K23 kernel, the arithmetic of the JAX
+    ``_attn_bwd_kernel`` (per-head branch): returns
+    ``(dx, dls, dlb, dwqkv, dbqkv, dwo, dbo)``, dx in x's dtype and the
+    rest f32.  Exact max-subtract softmax, whatever the forward ran."""
+    dt = x.dtype
+    b, n, d = x.shape
+    dh = d // num_heads
+    n_valid = n if n_valid is None else min(n_valid, n)
+    scale = 1.0 / math.sqrt(dh)
+    xhat, rstd = ln_parts(x, eps)
+    xn = (xhat * ln_scale.float() + ln_bias.float()).to(dt)
+    w_qkv = wqkv.to(dt).float()
+    qkv = (xn.float() @ w_qkv + bqkv.float()).to(dt)
+    gf = g.to(dt).float()
+    gw = (gf @ wo.to(dt).float().T).to(dt)          # attention-out cotangent
+
+    def heads(t):                        # (B, N, w) -> (B, H, N, dh)
+        return t.reshape(b, n, num_heads, dh).transpose(1, 2).float()
+
+    q, k, v = (heads(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    gh = heads(gw)
+    s = (q @ k.transpose(-1, -2)) * scale
+    if n_valid < n:
+        keep = torch.arange(n, device=x.device) < n_valid
+        s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    pc = p.to(dt).float()
+    ao = (pc @ v).to(dt)                             # rounded as the TPU bwd
+    dv = (pc.transpose(-1, -2) @ gh).to(dt)
+    dp = gh @ v.transpose(-1, -2)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt).float()
+    dq = (ds @ k).to(dt)
+    dk = (ds.transpose(-1, -2) @ q).to(dt)
+
+    def merge(t):                        # (B, H, N, dh) -> (B*N, d)
+        return t.transpose(1, 2).reshape(b * n, d).float()
+
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    g2 = gf.reshape(b * n, d)
+    dwo = merge(ao).T @ g2
+    dwqkv = xn.reshape(b * n, d).float().T @ dqkv
+    dxn = (dqkv @ w_qkv.T).reshape(b, n, d)
+    dx_ln, dls, dlb = ln_backward(dxn, xhat, rstd, ln_scale)
+    return ((gf + dx_ln).to(dt), dls, dlb, dwqkv, dqkv.sum(0), dwo, g2.sum(0))
+
+
+def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
+                   eps: float = 1e-6, n_valid: int | None = None):
+    """Backward of the attention half (K23): the cotangent ``g`` of the
+    output -> ``(dx, dls, dlb, dwqkv, dbqkv, dwo, dbo)``, dx in x's dtype,
+    the weight, bias and LN gradients f32.  A CPU tensor runs
+    :func:`attn_block_bwd_plain`; a CUDA tensor launches the kernel
+    (bf16, head dim 64, n_valid <= n_pad <= 256, B * n_pad a multiple of
+    8) or raises."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,
+                                    num_heads, eps=eps, n_valid=n_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid)
+    if n > 256 or (b * n) % 8:
+        raise ValueError(f"backward kernel takes n_pad <= 256 and B*n_pad a "
+                         f"multiple of 8 (B={b}, n_pad={n})")
+    check_activation(g, (b, n, d), torch.bfloat16, "g")
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
+    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
+    wqkv = kernel_operand(wqkv, (d, 3 * d), bf, dev, "wqkv")
+    bqkv = kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv")
+    wo = kernel_operand(wo, (d, d), bf, dev, "wo")
+    dx = torch.empty_like(x)
+    dln = torch.empty((2 * d,), dtype=f32, device=dev)
+    dwqkv = torch.empty((d, 3 * d), dtype=f32, device=dev)
+    dbqkv = torch.empty((3 * d,), dtype=f32, device=dev)
+    dwo = torch.empty((d, d), dtype=f32, device=dev)
+    dbo = torch.empty((d,), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        work = torch.empty((lib.vft_attn_bwd_workspace(b, n, d),),
+                           dtype=torch.uint8, device=dev)
+        err = lib.vft_attn_block_bwd(
+            x.data_ptr(), g.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), dx.data_ptr(),
+            dln.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
+            dwo.data_ptr(), dbo.data_ptr(), work.data_ptr(), b, n, d,
+            num_heads, n_valid, float(eps), 1.0 / math.sqrt(d // num_heads),
+            stream)
+    _kernels.check(err, "attn_block_bwd")
+    attn_block_bwd.launches += 1
+    return dx, dln[:d], dln[d:], dwqkv, dbqkv, dwo, dbo
+
+
+attn_block_bwd.launches = 0
+
+
+class AttnBlockFunction(torch.autograd.Function):
+    """K4 forward, K23 backward.  Saves only the inputs and recomputes in
+    the backward (the JAX ``custom_vjp``'s residuals); each gradient comes
+    back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads,
+                eps, n_valid, safe_softmax):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo)
+        ctx.hyper = (num_heads, eps, n_valid)
+        return attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                              num_heads, eps=eps, n_valid=n_valid,
+                              safe_softmax=safe_softmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        prims = ctx.saved_tensors
+        x, ls, lb, wqkv, bqkv, wo, _ = prims
+        num_heads, eps, n_valid = ctx.hyper
+        grads = attn_block_bwd(x, ls, lb, wqkv, bqkv, wo,
+                               g.to(x.dtype).contiguous(), num_heads,
+                               eps=eps, n_valid=n_valid)
+        return tuple(gr.to(p.dtype) for gr, p in zip(grads, prims)) + (
+            None, None, None, None)
+
+
+def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
+               eps: float, n_valid: int | None = None,
+               safe_softmax: bool = False):
+    """Differentiable attention half (counterpart of the JAX
+    ``attn_block``): K4 forward, K23 backward on the card, their plain
+    versions on the CPU."""
+    return AttnBlockFunction.apply(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                   num_heads, eps, n_valid, safe_softmax)

@@ -1,4 +1,4 @@
-"""Shared shape helpers."""
+"""Shared shape and LayerNorm helpers."""
 
 from __future__ import annotations
 
@@ -29,6 +29,31 @@ def row_stats(x: torch.Tensor, eps: float) -> torch.Tensor:
     mu = xf.mean(-1, keepdim=True)
     var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
     return torch.cat([mu, torch.rsqrt(var + eps)], dim=-1)
+
+
+def ln_parts(x: torch.Tensor, eps: float):
+    """Two-pass f32 LayerNorm of each row of ``x`` (the JAX kernels'
+    ``jnp.var``): ``(xhat, rstd)`` with ``xhat = (x - mu) * rstd`` and
+    ``rstd = rsqrt(mean((x - mu)^2) + eps)``.  K5, K23 and K24 use this
+    form, K1 and K4 the one-pass :func:`row_stats`."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return (xf - mu) * rstd, rstd
+
+
+def ln_backward(dxn: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+                ln_scale: torch.Tensor):
+    """LayerNorm backward from the f32 cotangent ``dxn`` of the normalised
+    rows: ``(dx_ln, dscale, dbias)``, the arithmetic of the JAX backward
+    kernels."""
+    dxhat = dxn * ln_scale.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx_ln = (dxhat - m1 - xhat * m2) * rstd
+    rows = dxn.reshape(-1, dxn.shape[-1])
+    return (dx_ln, (rows * xhat.reshape(rows.shape)).sum(0), rows.sum(0))
 
 
 def kernel_operand(t: torch.Tensor, shape: tuple, dtype: torch.dtype,

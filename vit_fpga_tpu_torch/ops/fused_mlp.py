@@ -1,25 +1,36 @@
-"""Transformer MLP half: LN -> W1 -> act -> W2 -> +residual.
+"""Transformer MLP half: LN -> W1 -> act -> W2 -> +residual, and its
+backward.
 
-``fused_mlp_stats`` is the stats-chain MLP half.  On a CUDA tensor it
-launches the hand-written Hopper kernel in ``csrc/mlp_stats.cu``; on a CPU
-tensor it runs the plain PyTorch version of the same arithmetic.
+Three Hopper kernels live here, each behind a wrapper that launches it on
+a CUDA tensor and runs its plain PyTorch version (same arithmetic) on a
+CPU tensor:
 
-Source note (kernel K2):
-  * replaces ``vit_fpga_tpu/ops/fused_mlp.py:_mlp_stats_kernel`` (its
-    wrapper ``fused_mlp_stats_pallas``);
-  * bound on the H100 by tensor-core operations: 4·T·D·M flops (about
-    121 GFLOP, 122 us at 989 TFLOP/s, at ViT-B/16 batch 64) against about
-    49 MB of compulsory traffic;
-  * design: two bf16 wmma GEMMs with f32 accumulation; the LayerNorm is
-    applied from the producer's (mu, rstd) to the first GEMM's A tiles in
-    shared memory, the activation runs in that GEMM's epilogue, bias and
-    residual in the second's, and a per-row reduction emits the next
-    stats.  The (T, M) hidden tensor round-trips through device memory
-    (later work).
+* K2 ``fused_mlp_stats`` (``csrc/mlp_stats.cu``), the stats-chain half
+  that serving runs: replaces ``vit_fpga_tpu/ops/fused_mlp.py:
+  _mlp_stats_kernel``;
+* K5 ``fused_mlp_fwd`` (``csrc/mlp.cu``), the per-block half: replaces
+  ``_mlp_kernel`` (wrapper ``fused_mlp_pallas``), K2 with two-pass LN
+  statistics computed in the kernel and no stats output; its plain
+  version is :func:`fused_mlp_xla`;
+* K24 ``fused_mlp_bwd`` (``csrc/mlp_bwd.cu``), K5's backward: replaces
+  ``_mlp_bwd_with_b1_kernel`` (wrapper ``fused_mlp_bwd_pallas``).
 
-Semantics follow the JAX kernel: f32 LayerNorm from the stats, bf16
-GEMMs with f32 accumulation, activation in f32, residual add in the
-input dtype, one-pass f32 stats of the output.
+``fused_mlp`` is the differentiable half (``FusedMLPFunction``): K5
+forward, K24 backward, saving only the inputs, as the JAX ``custom_vjp``.
+
+Bounds on the H100 at ViT-B/16 batch 64 (T = 12 800 rows, D = 768,
+M = 3072), all set by tensor-core operations at 989 TFLOP/s: K2 and K5
+4·T·D·M flops (121 GFLOP, 122 us) against about 49 MB of compulsory
+traffic; K24 10·T·D·M (302 GFLOP, 305 us) against under 100 MB.
+Designs: bf16 wmma GEMMs with f32 accumulation, the LayerNorm applied to
+the first GEMM's A tiles in shared memory, the activation (or, in the
+backward, act and act' from their closed forms) in a GEMM epilogue, every
+weight gradient one transposed-A GEMM over all rows and every bias and LN
+gradient a fixed-order column sum.  The (T, M) hidden tensors round-trip
+through device memory (later work).
+
+Semantics follow the JAX kernels: f32 LayerNorm, bf16 GEMMs with f32
+accumulation, activation in f32, residual add in the input dtype.
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ import math
 import torch
 
 from . import _kernels
-from .common import check_activation, kernel_operand, row_stats
+from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
+                     row_stats)
 
 # Activation codes of csrc/common.cuh (enum Act).
 _ACT_CODES = {"gelu": 1, "gelu_tanh": 2, "quick_gelu": 3, "relu": 4}
@@ -135,3 +147,189 @@ def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
 
 
 fused_mlp_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 (per-block forward) and K24 (its backward)
+# ---------------------------------------------------------------------------
+
+def _cuda_geometry(x, w1):
+    """Shape checks shared by the K5 / K24 launches: (t, d, m)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
+    t, d = x.shape
+    m = w1.shape[-1]
+    if d % 32 or m % 32:
+        raise ValueError(f"kernel needs D and M divisible by 32 (D={d}, "
+                         f"M={m})")
+    check_activation(x, (t, d), torch.bfloat16, "x")
+    return t, d, m
+
+
+def fused_mlp_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6,
+                  act: str = "gelu", residual: bool = True):
+    """Per-block MLP half (K5): x (T, D) -> x + MLP(LN(x)).  A CPU tensor
+    runs :func:`fused_mlp_xla`, the same arithmetic; a CUDA tensor
+    launches the kernel (bf16) or raises."""
+    if not residual:
+        raise NotImplementedError(
+            "residual=False (the tensor-parallel partial) comes with the "
+            "multi-device port")
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return fused_mlp_xla(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+                             act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    t, d, m = _cuda_geometry(x, w1)
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
+    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
+    w1 = kernel_operand(w1, (d, m), bf, dev, "w1")
+    b1 = kernel_operand(b1, (m,), f32, dev, "b1")
+    w2 = kernel_operand(w2, (m, d), bf, dev, "w2")
+    b2 = kernel_operand(b2, (d,), f32, dev, "b2")
+    out = torch.empty_like(x)
+    stats = torch.empty((t, 2), dtype=f32, device=dev)
+    hidden = torch.empty((t, m), dtype=bf, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        err = lib.vft_fused_mlp(
+            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), hidden.data_ptr(), t, d, m, _ACT_CODES[act],
+            float(eps), stream)
+    _kernels.check(err, "fused_mlp_fwd")
+    fused_mlp_fwd.launches += 1
+    return out
+
+
+fused_mlp_fwd.launches = 0
+
+
+def _act_and_grad(h: torch.Tensor, kind: str):
+    """act(h), act'(h) on f32 ``h`` in the closed forms of the JAX
+    ``_act_and_grad``; ``"gelu"`` (erf, the f32 path) with its own
+    derivative."""
+    if kind == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+        return h * cdf, cdf + h * torch.exp(-0.5 * h * h) / math.sqrt(
+            2.0 * math.pi)
+    if kind == "gelu_tanh":
+        c = 0.7978845608028654
+        t = torch.tanh(c * (h + 0.044715 * h * h * h))
+        return (0.5 * h * (1.0 + t),
+                0.5 * (1.0 + t)
+                + 0.5 * h * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h))
+    if kind == "quick_gelu":
+        s = torch.sigmoid(1.702 * h)
+        return h * s, s * (1.0 + 1.702 * h * (1.0 - s))
+    if kind == "relu":
+        return torch.clamp_min(h, 0.0), (h > 0).to(h.dtype)
+    raise ValueError(kind)
+
+
+def fused_mlp_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, g,
+                        eps: float = 1e-6, act: str = "gelu_tanh"):
+    """Plain PyTorch version of the K24 kernel, the arithmetic of the JAX
+    ``_mlp_bwd_with_b1_kernel``: returns
+    ``(dx, dls, dlb, dw1, db1, dw2, db2)``, dx in x's dtype, the rest
+    f32."""
+    dt = x.dtype
+    xhat, rstd = ln_parts(x, eps)
+    xn = (xhat * ln_scale.float() + ln_bias.float()).to(dt).float()
+    w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
+    h = xn @ w1f + b1.float()
+    a, dact = _act_and_grad(h, act)
+    a = a.to(dt).float()
+    gf = g.to(dt).float()
+    dh = (gf @ w2f.T) * dact
+    dhc = dh.to(dt).float()
+    dxn = dhc @ w1f.T
+    dx_ln, dls, dlb = ln_backward(dxn, xhat, rstd, ln_scale)
+    return ((gf + dx_ln).to(dt), dls, dlb, xn.T @ dhc, dh.sum(0), a.T @ gf,
+            gf.sum(0))
+
+
+def fused_mlp_bwd(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float = 1e-6,
+                  act: str = "gelu_tanh"):
+    """Backward of the MLP half (K24): the cotangent ``g`` (T, D) ->
+    ``(dx, dls, dlb, dw1, db1, dw2, db2)``, dx in x's dtype, the weight,
+    bias and LN gradients f32.  A CPU tensor runs
+    :func:`fused_mlp_bwd_plain`; a CUDA tensor launches the kernel (bf16,
+    T a multiple of 8, D <= 2048) or raises."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_plain(x, ln_scale, ln_bias, w1, b1, w2, g,
+                                   eps=eps, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    t, d, m = _cuda_geometry(x, w1)
+    if t % 8 or d > 2048:
+        raise ValueError(f"backward kernel takes T a multiple of 8 and "
+                         f"D <= 2048 (T={t}, D={d})")
+    check_activation(g, (t, d), torch.bfloat16, "g")
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
+    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
+    w1 = kernel_operand(w1, (d, m), bf, dev, "w1")
+    b1 = kernel_operand(b1, (m,), f32, dev, "b1")
+    w2 = kernel_operand(w2, (m, d), bf, dev, "w2")
+    dx = torch.empty_like(x)
+    dln = torch.empty((2 * d,), dtype=f32, device=dev)
+    dw1 = torch.empty((d, m), dtype=f32, device=dev)
+    db1 = torch.empty((m,), dtype=f32, device=dev)
+    dw2 = torch.empty((m, d), dtype=f32, device=dev)
+    db2 = torch.empty((d,), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        work = torch.empty((lib.vft_mlp_bwd_workspace(t, d, m),),
+                           dtype=torch.uint8, device=dev)
+        err = lib.vft_fused_mlp_bwd(
+            x.data_ptr(), g.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dx.data_ptr(),
+            dln.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            db2.data_ptr(), work.data_ptr(), t, d, m, _ACT_CODES[act],
+            float(eps), stream)
+    _kernels.check(err, "fused_mlp_bwd")
+    fused_mlp_bwd.launches += 1
+    return dx, dln[:d], dln[d:], dw1, db1, dw2, db2
+
+
+fused_mlp_bwd.launches = 0
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """K5 forward, K24 backward.  Saves only the inputs and recomputes in
+    the backward (the JAX ``custom_vjp``'s residuals); each gradient comes
+    back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, act):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.hyper = (eps, act)
+        return fused_mlp_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps,
+                             act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        prims = ctx.saved_tensors
+        x, ls, lb, w1, b1, w2, _ = prims
+        eps, act = ctx.hyper
+        grads = fused_mlp_bwd(x, ls, lb, w1, b1, w2,
+                              g.to(x.dtype).contiguous(), eps=eps, act=act)
+        return tuple(gr.to(p.dtype) for gr, p in zip(grads, prims)) + (
+            None, None)
+
+
+def fused_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
+              act: str = "gelu"):
+    """Differentiable MLP half (counterpart of the JAX ``fused_mlp``): K5
+    forward, K24 backward on the card, their plain versions on the
+    CPU."""
+    return FusedMLPFunction.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, eps,
+                                  act)
