@@ -36,6 +36,19 @@ Phases, each of which raises on failure (exit code != 0):
               64 (finite losses, the last below the first; 12 launches
               each of K4, K5, K23 and K24 per step and none of K1, K2);
               the b64 SGD step's time, TFLOP/s and peak memory
+  9. int8     the dynamic int8 kernels K14, K15 and K16 against their
+              plain versions at b8 (every K14 mode, each K15 activation,
+              and K16 with 59 loud padding rows that must leave the valid
+              rows bit for bit as quiet ones do; this runs right after
+              the build) and at the path's b64 shapes, with each kernel's
+              time, its plain version's, a library yardstick's (LN +
+              torch._int_mm + the quant and dequant torch ops) and the
+              bound; ImageServer over make_forward_int8(vit_b16) answers
+              160 uint8 requests, 12 launches each of K16 and K15 and one
+              of K14 per batch and none of any bf16 kernel, logits within
+              a band of the CPU plain int8 forward, top-1 agreement with
+              the card's bf16 forward stated; then the int8 and bf16
+              forwards' ms per b64 batch, timed in turns
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak, same sheet
 H100_HBM_BYTES_PER_S = 3.35e12
 
 EPS = 1e-6
@@ -85,6 +99,25 @@ LOUD_RTOL = 1e-6
 STEP_LOSS_BAND = 1e-2
 STEP_BAND = 0.1
 TRAIN_LR = 3e-4          # the Trainer's (and the JAX Trainer's) default
+# Int8 kernel vs plain version: both quantize the same rows, sum the int8
+# products exactly and dequantize in the same order; only the order of the
+# f32 LN sums (and tanh's and exp's last ulp) differs.  That moves a row's
+# scale by an ulp, which flips a bf16 rounding now and then (BF16_TOL, as
+# for the bf16 kernels), and on rare elements moves an activation's rint
+# by one step: the output then moves by one quantization step of the last
+# GEMM, s_r * 127 * ws_n (the row scale of its int8 input times the
+# column's largest weight).  Band: BF16_TOL (1 + |b|) + INT8_STEPS steps.
+INT8_STEPS = 2
+# The int8 forward on the card vs the CPU plain int8 forward from the same
+# weights, relative to the largest logit.  A rint flip moves an element by
+# a whole quantization step, and the attention carries flips from every
+# token into the CLS row, layer after layer: two right implementations
+# that differ only in the order of f32 sums end some 3-5% apart at 12
+# layers.  The slice prints that floor (the plain versions on the card vs
+# on the CPU) beside the kernels' gap; the band is twice the largest such
+# gap read.  A wrong kernel moves every layer by far more (the mutation
+# copies: elementwise errors of 0.5 in one half).
+INT8_LOGITS_BAND = 0.1
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -723,12 +756,17 @@ TRAIN_KERNELS = ("attn_block_fwd", "fused_mlp_fwd", "attn_block_bwd",
 def _counters():
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
     return {"attn_block_stats": ab.attn_block_stats,
             "fused_mlp_stats": fm.fused_mlp_stats,
             "attn_block_fwd": ab.attn_block_fwd,
             "fused_mlp_fwd": fm.fused_mlp_fwd,
             "attn_block_bwd": ab.attn_block_bwd,
-            "fused_mlp_bwd": fm.fused_mlp_bwd}
+            "fused_mlp_bwd": fm.fused_mlp_bwd,
+            "int8_linear_fused": qf.int8_linear_fused,
+            "mlp_block_int8": qb.mlp_block_int8,
+            "attn_block_int8": qb.attn_block_int8}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -791,6 +829,394 @@ def phase_train_step_time(batch=64, lr=1e-4, iters=5):
     return dict(ms=ms, tflops=tflops, peak_mib=peak)
 
 
+# ---------------------------------------------------------------------------
+# The dynamic int8 path: K14, K15, K16
+# ---------------------------------------------------------------------------
+
+def _int8_weights(p, names):
+    """``p`` with each (K, N) weight in ``names`` replaced by its
+    quantize_weight_colwise pair: ``<name>_q`` int8 as a (K, N) view of
+    (N, K) storage (the layout the int8 forward prepares), ``<name>_s``."""
+    from vit_fpga_tpu_torch.models.quantized import _kmajor
+    from vit_fpga_tpu_torch.ops.quant_fused import quantize_weight_colwise
+    out = {k: v for k, v in p.items() if k not in names}
+    for k in names:
+        wq, ws = quantize_weight_colwise(p[k].cpu().numpy())
+        out[k + "_q"] = _kmajor(torch.from_numpy(wq).cuda())
+        out[k + "_s"] = torch.from_numpy(ws).cuda()
+    return out
+
+
+def _k16(fn, x, q, heads, n_valid):
+    return fn(x, q["ln_scale"], q["ln_bias"], q["wqkv_q"], q["wqkv_s"],
+              q["bqkv"], q["wo_q"], q["wo_s"], q["bo"], heads, eps=EPS,
+              n_valid=n_valid)
+
+
+def _k15(fn, x2, q, act):
+    return fn(x2, q["ln_scale"], q["ln_bias"], q["w1_q"], q["w1_s"], q["b1"],
+              q["w2_q"], q["w2_s"], q["b2"], eps=EPS, act=act)
+
+
+def _k14(fn, x, q, **kw):
+    return fn(x, q["w_q"], q["w_s"], q["b"], **kw)
+
+
+def _k16_step(x, q, heads, n_valid):
+    """One quantization step of K16's output: the plain version's
+    out-projection input scale sa_r times 127 times wos_n."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.attn_block import _mha_tpu
+    from vit_fpga_tpu_torch.ops.quant_fused import QMAX, _row_quant
+    xq, sx = _row_quant(qb._ln_f32(x, q["ln_scale"], q["ln_bias"], EPS))
+    qkv = qb._dequant(xq, q["wqkv_q"], sx, q["wqkv_s"], q["bqkv"]).to(x.dtype)
+    _, sa = _row_quant(_mha_tpu(qkv, heads, n_valid).float())
+    return sa * QMAX * q["wo_s"]
+
+
+def _k15_step(x2, q, act):
+    """One quantization step of K15's output: sh_r * 127 * w2s_n."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.quant_fused import QMAX, _row_quant
+    xq, sx = _row_quant(qb._ln_f32(x2, q["ln_scale"], q["ln_bias"], EPS))
+    h = qb._apply_act(qb._dequant(xq, q["w1_q"], sx, q["w1_s"], q["b1"]), act)
+    _, sh = _row_quant(h)
+    return sh * QMAX * q["w2_s"]
+
+
+def _k14_step(x, q, ln_eps=0.0, **_):
+    """One quantization step of K14's output: sx_r * 127 * ws_n, sx the
+    scale of the (LayerNormed) input row."""
+    from vit_fpga_tpu_torch.ops.quant_fused import QMAX, _row_quant
+    xf = x.float()
+    if ln_eps > 0:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + ln_eps) * q["ls"] + q["lb"]
+    _, sx = _row_quant(xf)
+    return sx * QMAX * q["w_s"]
+
+
+def _int8_parity(label, got, want, step, x=None, rows=(...,)):
+    """Kernel vs plain version elementwise within BF16_TOL (1 + |b|) +
+    INT8_STEPS * step, then the branch ``out - x`` (or, without a
+    residual, the output) in relative norm within BRANCH_TOL.  Returns
+    the max-abs error."""
+    torch.cuda.synchronize()
+    g, w, st = got[rows].float(), want[rows].float(), step[rows]
+    diff = (g - w).abs()
+    tol = BF16_TOL * (1.0 + w.abs()) + INT8_STEPS * st
+    bad = int((diff > tol).sum())
+    max_abs = float(diff.max())
+    print(f"  {label}: max_abs={max_abs:.3e} (tol {BF16_TOL:g} (1 + |b|) + "
+          f"{INT8_STEPS} steps, largest step {float(st.max()):.3e}, "
+          f"violations={bad})")
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version")
+    if x is not None:
+        _branch(f"{label} branch", g, w, x[rows])
+    else:
+        _relnorm(f"{label} norm", g, w, BRANCH_TOL)
+    return max_abs
+
+
+def _k14_inputs(t, d, classes, seed):
+    g = _gen(seed)
+    x = _randn(g, t, d).to(torch.bfloat16)
+    q = _int8_weights(dict(w=_randn(g, d, classes, std=0.02),
+                           b=_randn(g, classes, std=0.02),
+                           ls=_randn(g, d, std=0.1, mean=1.0),
+                           lb=_randn(g, d, std=0.1)), ("w",))
+    return x, q
+
+
+# K14's other modes at b8: (label, rows, input dtype, keyword arguments)
+K14_MODES = (
+    ("LN + gelu_tanh", 8, torch.bfloat16, dict(act="gelu_tanh", ln_eps=EPS)),
+    ("f32 out + quick_gelu", 8, torch.bfloat16,
+     dict(act="quick_gelu", out_dtype=torch.float32)),
+    ("f32 in + LN + relu", 8, torch.float32, dict(act="relu", ln_eps=EPS)),
+    ("ragged T=200 + LN", 200, torch.bfloat16, dict(ln_eps=EPS)),
+)
+
+
+def phase_int8_kernels(batch, n_pad=200, n_valid=197, d=768, heads=12,
+                       m=3072, classes=1000):
+    """K16, K15 and K14 against their plain versions at the path's shapes
+    for ``batch`` (K15 with every activation and K14 in every mode at
+    b8).  Returns {kernel name: largest max-abs error}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    worst = {}
+    x, _, p = _attn_inputs(batch, n_pad, d, seed=70 + batch)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    print(f"parity K16 attn_block_int8 ({batch}, {n_pad}, {d}), {heads} "
+          f"heads, n_valid={n_valid}")
+    worst["attn_block_int8"] = _int8_parity(
+        f"K16 b{batch}", _k16(qb.attn_block_int8, x, q, heads, n_valid),
+        _k16(qb.attn_block_int8_plain, x, q, heads, n_valid),
+        _k16_step(x, q, heads, n_valid), x)
+
+    rows = batch * n_pad
+    x2, _, p = _mlp_inputs(rows, d, m, seed=71 + batch)
+    q = _int8_weights(p, ("w1", "w2"))
+    print(f"parity K15 mlp_block_int8 ({rows}, {d}) x {m}")
+    worst["mlp_block_int8"] = 0.0
+    for act in MLP_ACTS if batch <= 8 else ("gelu_tanh",):
+        worst["mlp_block_int8"] = max(worst["mlp_block_int8"], _int8_parity(
+            f"K15 b{batch} {act}", _k15(qb.mlp_block_int8, x2, q, act),
+            _k15(qb.mlp_block_int8_plain, x2, q, act), _k15_step(x2, q, act),
+            x2))
+
+    x, q = _k14_inputs(batch, d, classes, seed=72 + batch)
+    print(f"parity K14 int8_linear_fused ({batch}, {d}) x {classes}")
+    worst["int8_linear_fused"] = _int8_parity(
+        f"K14 b{batch} head", _k14(qf.int8_linear_fused, x, q),
+        _k14(qf.int8_linear_fused_plain, x, q), _k14_step(x, q))
+    for label, t, dt, kw in K14_MODES if batch <= 8 else ():
+        xm, qm = _k14_inputs(t, d, classes, seed=73)
+        xm = xm.to(dt)
+        if "ln_eps" in kw:
+            kw = dict(kw, ln_scale=qm["ls"], ln_bias=qm["lb"])
+        got = _k14(qf.int8_linear_fused, xm, qm, **kw)
+        if got.dtype != kw.get("out_dtype", torch.bfloat16):
+            raise AssertionError(f"K14 {label}: output dtype {got.dtype}")
+        worst["int8_linear_fused"] = max(
+            worst["int8_linear_fused"], _int8_parity(
+                f"K14 {label}", got,
+                _k14(qf.int8_linear_fused_plain, xm, qm, **kw),
+                _k14_step(xm, qm, **kw)))
+    return worst
+
+
+def phase_int8_loud(batch=8, n_pad=256, n_valid=197, d=768, heads=12):
+    """K16 with 59 padding rows of huge spikes: the valid rows must equal,
+    bit for bit, the kernel's own on quiet padding rows (their keys are
+    masked), and match the plain version on the loud input."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    x, _, p = _attn_inputs(batch, n_pad, d, seed=80)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    loud = x.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 100] = -1e3
+    print(f"K16 loud padding ({batch}, {n_pad}, {d}): spikes in rows "
+          f"{n_valid}..{n_pad - 1}")
+    valid = (slice(None), slice(0, n_valid))
+    quiet_out = _k16(qb.attn_block_int8, x, q, heads, n_valid)
+    loud_out = _k16(qb.attn_block_int8, loud, q, heads, n_valid)
+    err = _int8_parity("K16 loud padding", loud_out,
+                       _k16(qb.attn_block_int8_plain, loud, q, heads,
+                            n_valid), _k16_step(loud, q, heads, n_valid),
+                       loud, rows=valid)
+    moved = float((loud_out[valid].float() - quiet_out[valid].float())
+                  .abs().max())
+    print(f"  K16 valid rows, loud vs quiet padding: max_abs={moved:.3e} "
+          f"(must be 0)")
+    if moved != 0.0:
+        raise AssertionError("K16: padding rows moved the valid rows")
+    return err
+
+
+def _bound_int8(int8_ops, bf16_flops, nbytes):
+    """The least time: int8 operations at the int8 peak plus bf16 ones at
+    the bf16 peak, or the bytes at the memory rate, whichever is larger."""
+    t_ops = (int8_ops / H100_INT8_OPS + bf16_flops / H100_BF16_FLOPS) * 1e3
+    t_mem = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _library_ms(fn, label):
+    """A yardstick's time, or None (printed) where PyTorch refuses it."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    try:
+        return time_cuda(fn)
+    except RuntimeError as e:
+        print(f"  library yardstick for {label} not run: {e}")
+        return None
+
+
+def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
+                      m=3072, classes=1000):
+    """Times at the int8 path's b64 shapes: each kernel, its plain
+    version, a library yardstick (F.layer_norm, the row quantization in
+    torch ops, torch._int_mm, the dequantization; SDPA for K16) and the
+    bound.  Returns {name: dict of times}."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    rows, dh, bf = batch * n_pad, d // heads, torch.bfloat16
+    rq = qf._row_quant
+    xa, _, pa = _attn_inputs(batch, n_pad, d, seed=90)
+    qa = _int8_weights(pa, ("wqkv", "wo"))
+    x2, _, pm = _mlp_inputs(rows, d, m, seed=91)
+    qm = _int8_weights(pm, ("w1", "w2"))
+    xh, qh = _k14_inputs(batch, d, classes, seed=92)
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+
+    def mm(aq, wq, sa, ws, b):     # (K, N) wq column-major, as _int_mm takes
+        return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+    def lib_attn():
+        h = F.layer_norm(xa.float(), (d,), qa["ln_scale"], qa["ln_bias"], EPS)
+        xq, sx = rq(h.reshape(rows, d))
+        qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"], qa["bqkv"]).to(bf)
+        qkv = qkv.view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        aq, sa = rq(ao.transpose(1, 2).reshape(rows, d).float())
+        y = mm(aq, qa["wo_q"], sa, qa["wo_s"], qa["bo"])
+        return xa.reshape(rows, d) + y.to(bf)
+
+    def lib_mlp():
+        h = F.layer_norm(x2.float(), (d,), qm["ln_scale"], qm["ln_bias"], EPS)
+        xq, sx = rq(h)
+        h = F.gelu(mm(xq, qm["w1_q"], sx, qm["w1_s"], qm["b1"]),
+                   approximate="tanh")
+        hq, sh = rq(h)
+        return x2 + mm(hq, qm["w2_q"], sh, qm["w2_s"], qm["b2"]).to(bf)
+
+    def lib_head():
+        xq, sx = rq(xh.float())
+        return mm(xq, qh["w_q"], sx, qh["w_s"], qh["b"]).to(bf)
+
+    vec = 4                                  # bytes of one f32 vector entry
+    cases = {
+        "attn_block_int8": (
+            lambda: _k16(qb.attn_block_int8, xa, qa, heads, n_valid),
+            lambda: _k16(qb.attn_block_int8_plain, xa, qa, heads, n_valid),
+            lib_attn, 8 * rows * d * d,
+            4 * batch * heads * n_pad * n_valid * dh,
+            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * vec),
+        "mlp_block_int8": (
+            lambda: _k15(qb.mlp_block_int8, x2, qm, "gelu_tanh"),
+            lambda: _k15(qb.mlp_block_int8_plain, x2, qm, "gelu_tanh"),
+            lib_mlp, 4 * rows * d * m, 0,
+            2 * rows * d * 2 + 2 * d * m + (4 * d + 2 * m) * vec),
+        "int8_linear_fused": (
+            lambda: _k14(qf.int8_linear_fused, xh, qh),
+            lambda: _k14(qf.int8_linear_fused_plain, xh, qh),
+            lib_head, 2 * batch * d * classes, 0,
+            batch * d * 2 + d * classes + 2 * classes * vec
+            + batch * classes * 2),
+    }
+    out = {}
+    for name, (kern, plain, lib, ops8, flops, nbytes) in cases.items():
+        ms = time_cuda(kern)
+        plain_ms = time_cuda(plain, iters=5, warmup=1)
+        lib_ms = _library_ms(lib, name)
+        bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"timing {name} b{batch}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 ops "
+              f"+ {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+    return out
+
+
+INT8_KERNELS = ("attn_block_int8", "mlp_block_int8", "int8_linear_fused")
+
+
+def phase_int8_slice(n_images=160, batch=64):
+    """ImageServer over make_forward_int8(vit_b16) answers ``n_images``
+    uint8 requests.  Returns (launch counts, the int8 forward, the card's
+    bf16 forward of the same weights, the config)."""
+    from unittest import mock
+
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    from vit_fpga_tpu_torch.utils.log import Metrics
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(5), device="cuda")
+    qparams = quantized.quantize_vit_fast(params)
+    fwd = quantized.make_forward_int8(cfg, qparams, raw=True)
+    images = np.random.default_rng(5).integers(
+        0, 256, (n_images, cfg.image_size, cfg.image_size, 3), np.uint8)
+    fwd(images[:batch])                 # first launch: library loads
+    torch.cuda.synchronize()
+    Metrics.reset()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with ImageServer(fwd, image_size=cfg.image_size,
+                     batch_size=batch) as server:
+        futs = [server.submit_raw(img) for img in images]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        pct = server.latency_percentiles()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"int8 slice: {len(results)}/{n_images} answered in "
+          f"{server.batches} batches, {wall:.3f} s, {n_images / wall:.1f} "
+          f"img/s, p50 {pct['p50']:.2f} ms, p99 {pct['p99']:.2f} ms")
+    print(f"int8 slice launches: {launches}")
+    if len(results) != n_images or server.served != n_images:
+        raise AssertionError("not every int8 request was answered")
+    for r in results:
+        if r.shape != (cfg.num_classes,) or not np.isfinite(r).all():
+            raise AssertionError(f"bad int8 logits row: shape {r.shape}")
+    want = {"attn_block_int8": cfg.depth * server.batches,
+            "mlp_block_int8": cfg.depth * server.batches,
+            "int8_linear_fused": server.batches}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{name} launched {n} times for "
+                                 f"{server.batches} int8 batches, want "
+                                 f"{want.get(name, 0)}")
+
+    cpu_fwd = quantized.make_forward_int8(cfg, _tree_to(qparams, "cpu"),
+                                          device="cpu")
+    idx = [0, batch - 1, batch, 2 * batch - 1, 2 * batch, n_images - 1]
+    ref = cpu_fwd(images[idx]).numpy()
+    got = np.stack([results[i] for i in idx])
+    # the floor: the same plain versions run on the card
+    with mock.patch.multiple(quantized,
+                             attn_block_int8=qb.attn_block_int8_plain,
+                             mlp_block_int8=qb.mlp_block_int8_plain,
+                             int8_linear_fused=qf.int8_linear_fused_plain):
+        floor = quantized.make_forward_int8(cfg, qparams)(images[idx])
+    floor = float(np.abs(floor.cpu().numpy() - ref).max() / np.abs(ref).max())
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"int8 slice logits of images {idx} vs CPU plain int8 forward: "
+          f"max_rel={rel:.3e} (band {INT8_LOGITS_BAND}; plain versions on "
+          f"the card vs the CPU: {floor:.3e}), top-1 agree "
+          f"{int((got.argmax(1) == ref.argmax(1)).sum())}/{len(idx)}")
+    if not rel <= INT8_LOGITS_BAND:
+        raise AssertionError("card int8 logits disagree with the CPU")
+    bf_fwd = vit.make_forward(cfg, params, raw=True)
+    bf = np.concatenate([bf_fwd(images[i:i + batch]).cpu().numpy()
+                         for i in range(0, n_images, batch)])
+    agree = int((bf.argmax(1) == np.stack(results).argmax(1)).sum())
+    rel_bf = float(np.abs(np.stack(results) - bf).max() / np.abs(bf).max())
+    print(f"int8 vs the card's bf16 forward (same weights): top-1 agree "
+          f"{agree}/{n_images}, max_rel {rel_bf:.3e} (stated, not gated)")
+    return launches, fwd, bf_fwd, cfg
+
+
+def phase_int8_forward_time(fwd_int8, fwd_bf16, cfg, batch=64):
+    """ms per b64 batch of the int8 and the bf16 forward on one seeded
+    uint8 batch on the card, timed in turns (bf16, int8, int8, bf16)."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    images = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+        np.uint8)).cuda()
+    runs = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        fn = fwd_bf16 if name == "bf16" else fwd_int8
+        runs[name].append(time_cuda(lambda: fn(images), iters=10, warmup=2))
+    for name, ms in runs.items():
+        mean = sum(ms) / len(ms)
+        print(f"forward {name} b{batch}: "
+              + " / ".join(f"{t:.3f}" for t in ms)
+              + f" ms per batch, {batch / mean * 1e3:.1f} img/s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -810,9 +1236,13 @@ def main() -> int:
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
 
+    errors = {}
+    for name, err in phase_int8_kernels(8).items():
+        errors[name] = err
+    errors["attn_block_int8"] = max(errors["attn_block_int8"],
+                                    phase_int8_loud())
     phase_parity()
     timing = phase_path_shapes()
-    errors = {}
     for batch in (8, 64):
         for name, err in phase_train_kernels(batch).items():
             errors[name] = max(errors.get(name, 0.0), err)
@@ -826,6 +1256,14 @@ def main() -> int:
     launches.update({k: v for k, v in phase_train_fit().items()
                      if k in TRAIN_KERNELS})
     phase_train_step_time()
+    for name, err in phase_int8_kernels(64).items():
+        errors[name] = max(errors[name], err)
+    for name, t in phase_int8_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    int8_launches, fwd_int8, fwd_bf16, cfg = phase_int8_slice()
+    launches.update({k: v for k, v in int8_launches.items()
+                     if k in INT8_KERNELS})
+    phase_int8_forward_time(fwd_int8, fwd_bf16, cfg)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -840,6 +1278,12 @@ def main() -> int:
                            "vit_fpga_tpu/ops/attn_block.py:734"),
         "fused_mlp_bwd": ("vit_fpga_tpu_torch/csrc/mlp_bwd.cu",
                           "vit_fpga_tpu/ops/fused_mlp.py:578"),
+        "int8_linear_fused": ("vit_fpga_tpu_torch/csrc/quant_linear.cu",
+                              "vit_fpga_tpu/ops/quant_fused.py:46"),
+        "mlp_block_int8": ("vit_fpga_tpu_torch/csrc/mlp_int8.cu",
+                           "vit_fpga_tpu/ops/quant_block.py:86"),
+        "attn_block_int8": ("vit_fpga_tpu_torch/csrc/attn_int8.cu",
+                            "vit_fpga_tpu/ops/quant_block.py:226"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -12,6 +12,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "optax", "vit_fpga_tpu"}
+INT8_MODULES = ("vit_fpga_tpu_torch.models.quantized",
+                "vit_fpga_tpu_torch.ops.quant_fused",
+                "vit_fpga_tpu_torch.ops.quant_block")
 
 
 def _port_files():
@@ -38,6 +41,9 @@ def test_port_sources_import_no_jax():
            for f in files}
     bad = {k: v for k, v in bad.items() if v}
     assert not bad, bad
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    for mod in INT8_MODULES:
+        assert mod.replace(".", "/") + ".py" in scanned, mod
     # the prefix trap: the port's own name starts with "vit_fpga_tpu"
     assert "vit_fpga_tpu_torch" not in FORBIDDEN
 
@@ -45,7 +51,9 @@ def test_port_sources_import_no_jax():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, vit_fpga_tpu_torch.models.vit, "
             "vit_fpga_tpu_torch.runtime.serving, "
-            "vit_fpga_tpu_torch.train.trainer; "
+            "vit_fpga_tpu_torch.train.trainer, "
+            "vit_fpga_tpu_torch.profile_forward, "
+            + ", ".join(INT8_MODULES) + "; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'vit_fpga_tpu')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1,0 +1,138 @@
+"""The port's int8 block halves (ops/quant_block.py, the plain versions of
+K15 and K16) against the JAX package's Pallas kernels in interpret mode,
+on the same numpy inputs at the shapes of tests/test_quant_block.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_fpga_tpu.ops import quant_block as jqb
+from vit_fpga_tpu.ops.quant_fused import quantize_weight_colwise
+from vit_fpga_tpu_torch.ops import quant_block as tqb
+
+# The plain versions repeat the Pallas bodies op for op in f32 (one-pass
+# LN, row quantization, exact int32 sums, the same dequantization and
+# activation forms, bf16 qkv and attention output, x + bf16(y)).  Only
+# the order of f32 sums differs (the LN statistics, the bf16 PV product),
+# which can flip a bf16 rounding of qkv or ao by one ulp; these inputs
+# give bit-exact outputs.  The band allows one bf16 ulp of the output
+# (at most 2^-7 relative).
+BF16_ULP = 2.0 ** -7
+
+
+def _mk(rng, shape, scale=0.1):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _bf16_pair(x):
+    xj = jnp.asarray(x, jnp.bfloat16)
+    return xj, torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+def _close(got, want):
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=BF16_ULP, atol=BF16_ULP)
+
+
+def _mlp_case(seed=0, t=40, d=64, m=128):
+    rng = np.random.default_rng(seed)
+    x = _mk(rng, (t, d), 1.0)
+    ls = _mk(rng, (d,)) + 1.0
+    lb = _mk(rng, (d,))
+    w1q, w1s = quantize_weight_colwise(_mk(rng, (d, m)))
+    w2q, w2s = quantize_weight_colwise(_mk(rng, (m, d)))
+    return x, (ls, lb, w1q, w1s, _mk(rng, (m,), 0.5), w2q, w2s,
+               _mk(rng, (d,), 0.5))
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu", "relu"])
+def test_mlp_block_int8_matches_pallas(act):
+    x, args = _mlp_case()
+    xj, xt = _bf16_pair(x)
+    want = jqb.mlp_block_int8(xj, *map(jnp.asarray, args), act=act,
+                              block_t=32, interpret=True)
+    got = tqb.mlp_block_int8(xt, *map(torch.from_numpy, args), act=act)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _close(got, want)
+
+
+def test_mlp_block_int8_quantizes_h_over_its_whole_row():
+    """h's scale is its whole row's absmax: scaling one column of W1 up
+    (so that column dominates every row of h) coarsens the quantization
+    of every other column, and the plain version follows the JAX kernel
+    there too."""
+    x, args = _mlp_case(seed=5)
+    ls, lb, w1q, w1s, b1, w2q, w2s, b2 = args
+    w1s = w1s.copy()
+    w1s[3] *= 40.0
+    args = (ls, lb, w1q, w1s, b1, w2q, w2s, b2)
+    xj, xt = _bf16_pair(x)
+    want = jqb.mlp_block_int8(xj, *map(jnp.asarray, args), block_t=32,
+                              interpret=True)
+    _close(tqb.mlp_block_int8(xt, *map(torch.from_numpy, args)), want)
+
+
+def _attn_case(seed=1, b=2, n=13, d=32):
+    rng = np.random.default_rng(seed)
+    x = _mk(rng, (b, n, d), 1.0)
+    ls = _mk(rng, (d,)) + 1.0
+    lb = _mk(rng, (d,))
+    wqkvq, wqkvs = quantize_weight_colwise(_mk(rng, (d, 3 * d)))
+    woq, wos = quantize_weight_colwise(_mk(rng, (d, d)))
+    return x, (ls, lb, wqkvq, wqkvs, _mk(rng, (3 * d,), 0.2), woq, wos,
+               _mk(rng, (d,), 0.2))
+
+
+@pytest.mark.parametrize("n_valid", [13, 9, 1])
+def test_attn_block_int8_matches_pallas(n_valid):
+    heads = 4
+    x, args = _attn_case()
+    xj, xt = _bf16_pair(x)
+    want = jqb.attn_block_int8(xj, *map(jnp.asarray, args), heads,
+                               n_valid=n_valid, interpret=True)
+    got = tqb.attn_block_int8(xt, *map(torch.from_numpy, args), heads,
+                              n_valid=n_valid)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    # rows at or past n_valid are garbage by contract on both sides
+    _close(got[:, :n_valid], want[:, :n_valid])
+
+
+def test_attn_block_int8_loud_padding_leaves_valid_rows_unchanged():
+    """Padding rows of huge, spiky values: their keys are masked, so the
+    valid rows equal the quiet run's exactly, and still match the JAX
+    kernel."""
+    heads, n_valid = 4, 9
+    x, args = _attn_case(seed=2)
+    loud = x.copy()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 5] = 3e3
+    loud[:, n_valid:, 17] = -1e3
+    targs = tuple(map(torch.from_numpy, args))
+    quiet_out = tqb.attn_block_int8(_bf16_pair(x)[1], *targs, heads,
+                                    n_valid=n_valid)
+    lj, lt = _bf16_pair(loud)
+    loud_out = tqb.attn_block_int8(lt, *targs, heads, n_valid=n_valid)
+    assert torch.equal(loud_out[:, :n_valid], quiet_out[:, :n_valid])
+    want = jqb.attn_block_int8(lj, *map(jnp.asarray, args), heads,
+                               n_valid=n_valid, interpret=True)
+    _close(loud_out[:, :n_valid], want[:, :n_valid])
+    # without the mask the padding keys would move the valid rows
+    unmasked = tqb.attn_block_int8(lt, *targs, heads, n_valid=None)
+    assert not torch.equal(unmasked[:, :n_valid], quiet_out[:, :n_valid])
+
+
+def test_int8_halves_cpu_run_plain_and_check_args():
+    x, args = _mlp_case(t=8)
+    before = tqb.mlp_block_int8.launches
+    tqb.mlp_block_int8(_bf16_pair(x)[1], *map(torch.from_numpy, args))
+    assert tqb.mlp_block_int8.launches == before
+    with pytest.raises(ValueError):
+        tqb.mlp_block_int8(_bf16_pair(x)[1], *map(torch.from_numpy, args),
+                           act="gelu")
+    xa, aargs = _attn_case()
+    before = tqb.attn_block_int8.launches
+    tqb.attn_block_int8(_bf16_pair(xa)[1], *map(torch.from_numpy, aargs), 4)
+    assert tqb.attn_block_int8.launches == before

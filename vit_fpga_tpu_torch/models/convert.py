@@ -16,13 +16,19 @@ from ..utils.platform import resolve_device
 
 def params_from_numpy(tree: Mapping[str, Any], device=None,
                       dtype: torch.dtype = torch.float32) -> dict:
-    """Nested dicts of array-likes -> nested dicts of ``dtype`` tensors
-    on ``device`` (CUDA unless ``"cpu"``)."""
+    """Nested dicts of array-likes -> nested dicts of tensors on
+    ``device`` (CUDA unless ``"cpu"``): float leaves as ``dtype``, integer
+    leaves (the int8 weights of a quantized tree) as ``torch.int8``."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
+        arr = np.asarray(node)
+        if np.issubdtype(arr.dtype, np.integer):
+            if arr.size and (arr.min() < -128 or arr.max() > 127):
+                raise ValueError("integer leaf outside the int8 range")
+            return torch.from_numpy(arr.astype(np.int8)).to(device=dev)
         arr = np.asarray(node, dtype=np.float32)
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
 
@@ -30,11 +36,15 @@ def params_from_numpy(tree: Mapping[str, Any], device=None,
 
 
 def params_to_numpy(tree: Mapping[str, Any]) -> dict:
-    """Nested dicts of tensors -> nested dicts of f32 numpy arrays (the
-    inverse of :func:`params_from_numpy`)."""
-    return {k: (params_to_numpy(v) if isinstance(v, Mapping)
-                else v.detach().float().cpu().numpy())
-            for k, v in tree.items()}
+    """Nested dicts of tensors -> nested dicts of numpy arrays, f32 or,
+    for integer leaves, int8 (the inverse of :func:`params_from_numpy`)."""
+    def conv(v):
+        if isinstance(v, Mapping):
+            return params_to_numpy(v)
+        v = v.detach()
+        return (v.float() if v.is_floating_point() else v).cpu().numpy()
+
+    return {k: conv(v) for k, v in tree.items()}
 
 
 def adamw_state_from_optax(mu: Mapping[str, Any], nu: Mapping[str, Any],

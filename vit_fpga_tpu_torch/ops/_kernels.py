@@ -27,8 +27,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
-           "attn_bwd.cu", "mlp_bwd.cu")
-HEADERS = ("common.cuh", "attn.cuh", "norm.cuh")
+           "attn_bwd.cu", "mlp_bwd.cu", "quant_linear.cu", "mlp_int8.cu",
+           "attn_int8.cu")
+HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -59,11 +60,19 @@ _SIGNATURES = {
     "vft_mlp_bwd_init": ([], ctypes.c_int),
     "vft_mlp_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
     "vft_fused_mlp_bwd": ([_P] * 14 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "vft_quant_linear_init": ([], ctypes.c_int),
+    "vft_int8_linear_fused": ([_P] * 9 + [_I] * 7 + [_F, _P], ctypes.c_int),
+    "vft_mlp_int8_init": ([], ctypes.c_int),
+    "vft_mlp_block_int8": ([_P] * 14 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "vft_attn_int8_init": ([], ctypes.c_int),
+    "vft_attn_block_int8": ([_P] * 14 + [_I] * 5 + [_F, _F, _P],
+                            ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.
 _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
-          "vft_fused_mlp_init", "vft_attn_bwd_init", "vft_mlp_bwd_init")
+          "vft_fused_mlp_init", "vft_attn_bwd_init", "vft_mlp_bwd_init",
+          "vft_quant_linear_init", "vft_mlp_int8_init", "vft_attn_int8_init")
 
 
 def _nvcc() -> str:

@@ -1,13 +1,14 @@
-"""Where the time goes on the card: the served ViT forward, or one
-training step.
+"""Where the time goes on the card: the served ViT forward (bf16 or
+dynamic int8), or one training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
-        [--batch 64] [--steps 3] [--train]
+        [--batch 64] [--steps 3] [--train | --int8]
 
-Without ``--train`` it runs ``make_forward(cfg, params, raw=True)`` (bf16,
+Without a mode flag it runs ``make_forward(cfg, params, raw=True)`` (bf16,
 random weights from seed 0) on a seeded uint8 batch already on the card;
-with ``--train`` one SGD(1e-4) step of ``make_vit_train_step`` (bench.py's
-train shape) on a seeded normalized batch.  It prints:
+with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
+weights; with ``--train`` one SGD(1e-4) step of ``make_vit_train_step``
+(bench.py's train shape) on a seeded normalized batch.  It prints:
 
   * the time per batch or step (CUDA events), images per second and, for
     a step, TFLOP/s counted as 3 x the forward (bench.py's count);
@@ -30,11 +31,29 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-# launch-site name fragment (spaces removed) -> stage label.  csrc/*.cu
-# name each site's kernels by translation unit: attn_half:: K1,
-# mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23, mlp_bwd:: K24.
-# The first fragment found in a kernel's name wins.
+# launch-site name fragment (spaces and "(int)" casts removed) -> stage
+# label.  csrc/*.cu name each site's kernels by translation unit:
+# attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
+# mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16.  The
+# int8 GEMM's template argument is its epilogue (0 plain, 1 residual, 2
+# f32 with row maxima), quant_rows_kernel's second one its LayerNorm (0
+# none, 1 one-pass, 2 two-pass).  The first fragment found wins.
 STAGES = (
+    ("quant_linear::quant_rows_kernel", "K14 (a) [LN] + row quant"),
+    ("quant_linear::qgemm_kernel", "K14 (b) int8 GEMM + dequant + act"),
+    ("quant_linear::", "K14 other"),
+    ("mlp_int8::quant_rows_kernel", "K15 (a) LN + row quant"),
+    ("mlp_int8::qgemm_kernel<2>", "K15 (b) int8 W1 GEMM + act + row max"),
+    ("mlp_int8::quant_amax_kernel", "K15 (c) h row quant"),
+    ("mlp_int8::qgemm_kernel<1>", "K15 (d) int8 W2 GEMM + residual"),
+    ("mlp_int8::", "K15 other"),
+    ("attn_int8::quant_rows_kernel<__nv_bfloat16,1>",
+     "K16 (a) LN + row quant"),
+    ("attn_int8::qgemm_kernel<0>", "K16 (b) int8 QKV GEMM"),
+    ("attn_int8::attn_kernel", "K16 (c) attention"),
+    ("attn_int8::quant_rows_kernel<__nv_bfloat16,0>", "K16 (d) ao row quant"),
+    ("attn_int8::qgemm_kernel<1>", "K16 (e) int8 out-proj + residual"),
+    ("attn_int8::", "K16 other"),
     ("attn_half::gemm_bf16_kernel<true", "K1 (a) LN + QKV GEMM"),
     ("attn_half::attn_kernel", "K1 (b) attention"),
     ("attn_half::gemm_bf16_kernel<false", "K1 (c) out-proj + residual"),
@@ -73,7 +92,7 @@ TORCH_OPS = "torch ops (preprocess, embed, stats, head, loss, optimizer)"
 
 
 def _stage(name: str) -> str:
-    flat = name.replace(" ", "")
+    flat = name.replace(" ", "").replace("(int)", "")
     for frag, label in STAGES:
         if frag in flat:
             return label
@@ -119,6 +138,21 @@ def _serve_run(cfg, batch):
     return lambda: fwd(images)
 
 
+def _serve_int8_run(cfg, batch):
+    """One served int8 forward: make_forward_int8 on quantize_vit_fast of
+    the seed-0 weights, a seeded uint8 batch."""
+    from .models import quantized, vit
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    qparams = quantized.quantize_vit_fast(vit.init_params(cfg, gen,
+                                                          device="cuda"))
+    fwd = quantized.make_forward_int8(cfg, qparams, raw=True)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+        np.uint8)).cuda()
+    return lambda: fwd(images)
+
+
 def _train_run(cfg, batch):
     """One SGD(1e-4) training step on a seeded normalized batch."""
     from .models import vit
@@ -140,9 +174,12 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="vit_b16")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--train", action="store_true",
-                    help="profile one SGD training step instead of the "
-                         "served forward")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile one SGD training step instead of the "
+                           "served forward")
+    mode.add_argument("--int8", action="store_true",
+                      help="profile the served dynamic int8 forward")
     args = ap.parse_args(argv)
 
     from .models import vit
@@ -151,7 +188,9 @@ def main(argv=None) -> int:
 
     kind = require_hopper()
     cfg = vit.config(args.model, dtype="bfloat16")
-    run = (_train_run if args.train else _serve_run)(cfg, args.batch)
+    mode = "train" if args.train else "serve-int8" if args.int8 else "serve"
+    run = {"train": _train_run, "serve-int8": _serve_int8_run,
+           "serve": _serve_run}[mode](cfg, args.batch)
 
     run()
     torch.cuda.synchronize()
@@ -178,7 +217,7 @@ def main(argv=None) -> int:
             torch_ops[name[:90]] += (e - s) / 1e3 / args.steps
     result = {
         "device": kind, "model": args.model, "batch": args.batch,
-        "mode": "train" if args.train else "serve",
+        "mode": mode,
         "step_ms": step_ms, "img_per_s": args.batch / step_ms * 1e3,
         "peak_mem_mb": peak_mb,
         "stages_ms_per_step": {k: v[0] for k, v in per_stage.items()},
@@ -198,7 +237,8 @@ def main(argv=None) -> int:
         result["idle_share"] = None   # the profiler saw no device work
 
     what = "train step" if args.train else "batch"
-    print(f"{args.model} bf16 b{args.batch} on {kind}: {step_ms:.3f} ms per "
+    print(f"{args.model} {'int8' if args.int8 else 'bf16'} b{args.batch} "
+          f"on {kind}: {step_ms:.3f} ms per "
           f"{what}, {result['img_per_s']:.1f} img/s, peak {peak_mb:.0f} MiB"
           + (f", {result['tflops']:.1f} TFLOP/s" if args.train else ""))
     for label, (ms, n) in sorted(per_stage.items(), key=lambda kv: -kv[1][0]):

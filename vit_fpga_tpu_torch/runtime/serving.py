@@ -62,7 +62,8 @@ class ImageServer:
     """Batched async image-encoder server.
 
     ``forward_raw`` maps a uint8 (B, S, S, 3) tensor on ``device`` to a
-    (B, ...) result (``models.vit.make_forward(cfg, params, raw=True)``).
+    (B, ...) result (``models.vit.make_forward(cfg, params, raw=True)``,
+    or the int8 engine ``models.quantized.make_forward_int8``).
     ``device`` is CUDA unless the caller passes ``"cpu"``.
     """
 
