@@ -49,6 +49,19 @@ Phases, each of which raises on failure (exit code != 0):
               a band of the CPU plain int8 forward, top-1 agreement with
               the card's bf16 forward stated; then the int8 and bf16
               forwards' ms per b64 batch, timed in turns
+ 10. latency  the single-launch encoders K11 (vit_layers) and K19a
+              (vit_layers_int8) against their plain versions at full
+              ViT-B/16 width, b1 and b4, all rows: one layer elementwise,
+              12 layers in norm, and 3 loud padding rows that must leave
+              the valid rows bit for bit (this runs right after the
+              build); their times at depth 12, b1 and b4, beside the plain
+              version, a library yardstick (the 12 layers as PyTorch calls)
+              and the bound; the latency forwards against the throughput
+              forwards at b1, timed in turns; 64 requests, one at a time,
+              through ImageServer(batch_size=1) over make_forward_latency
+              (1 K11 launch per request) and make_forward_int8_latency (1
+              K19a + 1 K14 per request), nothing else launched, p50/p99,
+              logits against the CPU forward
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -118,6 +131,15 @@ INT8_STEPS = 2
 # gap read.  A wrong kernel moves every layer by far more (the mutation
 # copies: elementwise errors of 0.5 in one half).
 INT8_LOGITS_BAND = 0.1
+# The single-launch encoders (K11, K19a) against their plain versions: one
+# layer is held elementwise in the bands above; all 12 layers in relative
+# norm, since a flipped ulp (or rint) of one layer moves the next layer's
+# row scales and the attention spreads it over every row of the image.  A
+# wrong stage moves every layer by far more: the key mask removed or h
+# quantized with one tile's absmax moves a single layer's branch by tens
+# of percent (PR 1-3's mutation copies).
+STACK_BF16_NORM = 2e-2
+STACK_INT8_NORM = 5e-2
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -758,7 +780,10 @@ def _counters():
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     from vit_fpga_tpu_torch.ops import quant_block as qb
     from vit_fpga_tpu_torch.ops import quant_fused as qf
-    return {"attn_block_stats": ab.attn_block_stats,
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    return {"vit_layers": vs.vit_layers,
+            "vit_layers_int8": vs.vit_layers_int8,
+            "attn_block_stats": ab.attn_block_stats,
             "fused_mlp_stats": fm.fused_mlp_stats,
             "attn_block_fwd": ab.attn_block_fwd,
             "fused_mlp_fwd": fm.fused_mlp_fwd,
@@ -837,12 +862,12 @@ def _int8_weights(p, names):
     """``p`` with each (K, N) weight in ``names`` replaced by its
     quantize_weight_colwise pair: ``<name>_q`` int8 as a (K, N) view of
     (N, K) storage (the layout the int8 forward prepares), ``<name>_s``."""
-    from vit_fpga_tpu_torch.models.quantized import _kmajor
-    from vit_fpga_tpu_torch.ops.quant_fused import quantize_weight_colwise
+    from vit_fpga_tpu_torch.ops.quant_fused import (kmajor,
+                                                    quantize_weight_colwise)
     out = {k: v for k, v in p.items() if k not in names}
     for k in names:
         wq, ws = quantize_weight_colwise(p[k].cpu().numpy())
-        out[k + "_q"] = _kmajor(torch.from_numpy(wq).cuda())
+        out[k + "_q"] = kmajor(torch.from_numpy(wq).cuda())
         out[k + "_s"] = torch.from_numpy(ws).cuda()
     return out
 
@@ -1217,6 +1242,342 @@ def phase_int8_forward_time(fwd_int8, fwd_bf16, cfg, batch=64):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The batch-1 latency path: K11 and K19a, the whole encoder in one launch
+# ---------------------------------------------------------------------------
+
+LATENCY_KERNELS = ("vit_layers", "vit_layers_int8")
+
+
+def _stack_blocks(depth, d=768, m=3072, seed=100):
+    """Seeded ViT-B-width blocks for the stack kernels, f32 on the card:
+    weights of init scale, LN parameters and biases with signal."""
+    g = _gen(seed)
+    return dict(
+        ln1_scale=_randn(g, depth, d, std=0.1, mean=1.0),
+        ln1_bias=_randn(g, depth, d, std=0.1),
+        wqkv=_randn(g, depth, d, 3 * d, std=0.04),
+        bqkv=_randn(g, depth, 3 * d, std=0.02),
+        wo=_randn(g, depth, d, d, std=0.02), bo=_randn(g, depth, d, std=0.02),
+        ln2_scale=_randn(g, depth, d, std=0.1, mean=1.0),
+        ln2_bias=_randn(g, depth, d, std=0.1),
+        w1=_randn(g, depth, d, m, std=0.02), b1=_randn(g, depth, m, std=0.02),
+        w2=_randn(g, depth, m, d, std=0.02), b2=_randn(g, depth, d, std=0.02))
+
+
+def _stack_trees(depth, seed=100):
+    """(bf16 tree, int8 tree) of the same seeded blocks, laid out as the
+    latency forwards prepare them (bf16 weights; int8 weights as (L, K, N)
+    views of (L, N, K) storage with f32 column scales)."""
+    from vit_fpga_tpu_torch.ops.quant_fused import (kmajor,
+                                                    quantize_weight_colwise)
+    p = _stack_blocks(depth, seed=seed)
+    mats = ("wqkv", "wo", "w1", "w2")
+    bf = {k: (v.to(torch.bfloat16) if k in mats else v) for k, v in p.items()}
+    q8 = {k: v for k, v in p.items() if k not in mats}
+    for k in mats:
+        pairs = [quantize_weight_colwise(w.cpu().numpy()) for w in p[k]]
+        q8[k + "_q"] = kmajor(torch.from_numpy(
+            np.stack([a for a, _ in pairs])).cuda())
+        q8[k + "_s"] = torch.from_numpy(np.stack([s for _, s in pairs])).cuda()
+    return bf, q8
+
+
+def _stack_x(batch, n_pad=200, d=768, seed=101):
+    return _randn(_gen(seed), batch, n_pad, d).to(torch.bfloat16)
+
+
+def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
+    """K11 and K19a against their plain versions on the card at full
+    ViT-B/16 width, all rows: one layer elementwise (the bf16 band; the
+    int8 step band with the steps of both its GEMMs), all 12 layers in
+    relative norm (the ulp flips of one layer compound through the
+    attention of the next);
+    then a loud-padding case at depth 12 whose valid rows must not move.
+    Runs right after the build.  Returns {kernel name: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = {name: 0.0 for name in LATENCY_KERNELS}
+    bf12, q12 = _stack_trees(12)
+    for batch in batches:
+        x = _stack_x(batch)
+        print(f"parity K11 vit_layers / K19a vit_layers_int8 ({batch}, 200, "
+              f"768), 12 heads, n_valid={n_valid}")
+        bf1 = {k: v[:1] for k, v in bf12.items()}
+        q1 = {k: v[:1] for k, v in q12.items()}
+        got = vs.vit_layers(x, bf1, heads, eps=EPS, n_valid=n_valid)
+        want = vs.vit_layers_plain(x, bf1, heads, eps=EPS, n_valid=n_valid)
+        torch.cuda.synchronize()
+        worst["vit_layers"] = max(worst["vit_layers"], _compare(
+            f"K11 b{batch} depth 1", got, want, BF16_TOL, BF16_TOL))
+        _branch(f"K11 b{batch} depth 1 branch", got, want, x)
+        got = vs.vit_layers_int8(x, q1, heads, eps=EPS, n_valid=n_valid)
+        want = vs.vit_layers_int8_plain(x, q1, heads, eps=EPS,
+                                        n_valid=n_valid)
+        step = _stack_int8_step(x, q1, heads, n_valid)
+        worst["vit_layers_int8"] = max(worst["vit_layers_int8"], _int8_parity(
+            f"K19a b{batch} depth 1", got, want, step, x))
+        for name, kern, plain, tree, tol in (
+                ("vit_layers", vs.vit_layers, vs.vit_layers_plain, bf12,
+                 STACK_BF16_NORM),
+                ("vit_layers_int8", vs.vit_layers_int8,
+                 vs.vit_layers_int8_plain, q12, STACK_INT8_NORM)):
+            got = kern(x, tree, heads, eps=EPS, n_valid=n_valid)
+            want = plain(x, tree, heads, eps=EPS, n_valid=n_valid)
+            torch.cuda.synchronize()
+            _relnorm(f"{name} b{batch} depth 12, all rows", got, want, tol)
+            worst[name] = max(worst[name], float(
+                (got.float() - want.float()).abs().max()))
+    # loud padding: rows 197..199 of one huge spike each; their keys are
+    # masked and every other stage is row-wise
+    x = _stack_x(2)
+    loud = x.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 100] = -1e3
+    for name, kern, tree in (("K11", vs.vit_layers, bf12),
+                             ("K19a", vs.vit_layers_int8, q12)):
+        quiet = kern(x, tree, heads, eps=EPS, n_valid=n_valid)
+        noisy = kern(loud, tree, heads, eps=EPS, n_valid=n_valid)
+        torch.cuda.synchronize()
+        moved = float((noisy[:, :n_valid].float()
+                       - quiet[:, :n_valid].float()).abs().max())
+        print(f"  {name} depth 12 loud padding rows {n_valid}..199: valid "
+              f"rows moved by max_abs={moved:.3e} (must be 0)")
+        if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
+            raise AssertionError(f"{name}: padding rows moved the valid rows")
+    return worst
+
+
+def _stack_int8_step(x, q1, heads, n_valid):
+    """One quantization step of a one-layer K19a output, elementwise: its
+    K16's (out-projection) plus its K15's (W2).  The layer's output carries
+    both: K16's output is K15's residual."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    blk = {k: v[0] for k, v in q1.items()}
+    qa = dict(ln_scale=blk["ln1_scale"], ln_bias=blk["ln1_bias"],
+              wqkv_q=blk["wqkv_q"], wqkv_s=blk["wqkv_s"], bqkv=blk["bqkv"],
+              wo_s=blk["wo_s"])
+    x1 = qb.attn_block_int8_plain(
+        x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"], blk["wqkv_s"],
+        blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"], heads, eps=EPS,
+        n_valid=n_valid)
+    b, n, d = x1.shape
+    qm = dict(ln_scale=blk["ln2_scale"], ln_bias=blk["ln2_bias"],
+              w1_q=blk["w1_q"], w1_s=blk["w1_s"], b1=blk["b1"],
+              w2_s=blk["w2_s"])
+    return (_k16_step(x, qa, heads, n_valid)
+            + _k15_step(x1.reshape(b * n, d), qm, "gelu_tanh").reshape(
+                b, n, d))
+
+
+def _stack_library(x, tree, heads, n_valid, int8):
+    """The 12 layers as PyTorch calls the port never makes: F.layer_norm,
+    matmuls (torch._int_mm with the quantization and dequantization in
+    torch ops for int8), SDPA with the key mask, tanh-GELU."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops.quant_fused import _row_quant as rq
+    b, n_pad, d = x.shape
+    rows, dh, bf = b * n_pad, d // heads, torch.bfloat16
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+    depth = tree["bqkv"].shape[0]
+    if not int8:
+        lay = [{k: (v[i].to(bf)) for k, v in tree.items()}
+               for i in range(depth)]
+
+        def lin(h, blk, w, bias):
+            return torch.addmm(blk[bias], h.reshape(rows, -1), blk[w])
+    else:
+        lay = [{k: v[i] for k, v in tree.items()} for i in range(depth)]
+
+        def lin(h, blk, w, bias):
+            hq, sh = rq(h.reshape(rows, -1).float())
+            return (torch._int_mm(hq, blk[w + "_q"]).float()
+                    * (sh * blk[w + "_s"]) + blk[bias]).to(bf)
+
+    def run():
+        h0 = x
+        for blk in lay:
+            ln = (blk["ln1_scale"], blk["ln1_bias"], blk["ln2_scale"],
+                  blk["ln2_bias"])
+            h = F.layer_norm(h0, (d,), ln[0].to(h0.dtype), ln[1].to(h0.dtype),
+                             EPS)
+            qkv = lin(h, blk, "wqkv", "bqkv").view(b, n_pad, 3, heads, dh)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+            h0 = h0 + lin(ao.transpose(1, 2), blk, "wo", "bo").view_as(h0)
+            h = F.layer_norm(h0, (d,), ln[2].to(h0.dtype), ln[3].to(h0.dtype),
+                             EPS)
+            h = F.gelu(lin(h, blk, "w1", "b1"), approximate="tanh")
+            h0 = h0 + lin(h, blk, "w2", "b2").view_as(h0)
+        return h0
+    return run
+
+
+def phase_stack_timing(batches=(1, 4), n_valid=197, heads=12, d=768,
+                       m=3072):
+    """K11 and K19a at depth 12 at each batch: the kernel's time, its
+    plain version's, the library yardstick's and the bound.  Returns
+    {batch: {name: dict of times}}."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    bf12, q12 = _stack_trees(12, seed=110)
+    depth, out = 12, {}
+    wmat = 4 * d * d + 2 * d * m                 # weights per layer
+    vecs = 3 * d + d + m + d + 4 * d             # biases and LN per layer
+    for batch in batches:
+        x = _stack_x(batch, seed=111)
+        tok = batch * n_valid                   # the rows this input needs
+        gemm = 2 * tok * wmat * depth
+        attn = 4 * batch * heads * n_valid * n_valid * (d // heads) * depth
+        act_bytes = 2 * batch * 200 * d * 2     # x in, tokens out
+        cases = {
+            "vit_layers": (vs.vit_layers, vs.vit_layers_plain, bf12, False,
+                           _bound(gemm + attn, depth * (wmat * 2 + vecs * 4)
+                                  + act_bytes)),
+            "vit_layers_int8": (
+                vs.vit_layers_int8, vs.vit_layers_int8_plain, q12, True,
+                _bound_int8(gemm, attn, depth * (wmat + (vecs + 3 * d + m)
+                                                 * 4) + act_bytes)),
+        }
+        out[batch] = {}
+        for name, (kern, plain, tree, int8, (bound_ms, bound_by)) in \
+                cases.items():
+            ms = time_cuda(lambda: kern(x, tree, heads, eps=EPS,
+                                        n_valid=n_valid), iters=50, warmup=5)
+            plain_ms = time_cuda(lambda: plain(x, tree, heads, eps=EPS,
+                                               n_valid=n_valid),
+                                 iters=3, warmup=1)
+            lib_ms = _library_ms(_stack_library(x, tree, heads, n_valid, int8),
+                                 name)
+            out[batch][name] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+            print(f"timing {name} b{batch} depth 12: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def phase_latency_forward_time(iters=50):
+    """ms per b1 request of the single-launch forwards against the port's
+    throughput forwards at b1 (24 or 25 kernel launches), timed in turns
+    (throughput, latency, latency, throughput) on one seeded image."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(7), device="cuda")
+    qparams = quantized.quantize_vit_fast(params)
+    image = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (1, cfg.image_size, cfg.image_size, 3), np.uint8)).cuda()
+    fwds = {"bf16 throughput": vit.make_forward(cfg, params),
+            "bf16 latency": vit.make_forward_latency(cfg, params),
+            "int8 throughput": quantized.make_forward_int8(cfg, qparams),
+            "int8 latency": quantized.make_forward_int8_latency(cfg, qparams)}
+    runs = {name: [] for name in fwds}
+    for dt in ("bf16", "int8"):
+        for kind in ("throughput", "latency", "latency", "throughput"):
+            name = f"{dt} {kind}"
+            runs[name].append(time_cuda(lambda: fwds[name](image),
+                                        iters=iters, warmup=5))
+    for name, ms in runs.items():
+        print(f"forward {name} b1: " + " / ".join(f"{t:.4f}" for t in ms)
+              + " ms per request")
+    return runs
+
+
+def phase_latency_serve(n_requests=64, n_check=3):
+    """ImageServer(batch_size=1) over each latency forward answers
+    ``n_requests`` uint8 requests, one at a time (submit, then wait):
+    exact launch counts per request, p50/p99 on the host clock, and the
+    logits of ``n_check`` images against the CPU forward of the same
+    weights.  Returns {kernel name: launches}."""
+    from unittest import mock
+
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    from vit_fpga_tpu_torch.utils.log import Metrics
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(8), device="cuda")
+    qparams = quantized.quantize_vit_fast(params)
+    images = np.random.default_rng(8).integers(
+        0, 256, (n_requests, cfg.image_size, cfg.image_size, 3), np.uint8)
+    paths = {
+        "bf16": (vit.make_forward_latency(cfg, params),
+                 lambda: vit.make_forward_latency(
+                     cfg, _tree_to(params, "cpu"), device="cpu"),
+                 {"vit_layers": 1}, LOGITS_BAND),
+        "int8": (quantized.make_forward_int8_latency(cfg, qparams),
+                 lambda: quantized.make_forward_int8_latency(
+                     cfg, _tree_to(qparams, "cpu"), device="cpu"),
+                 {"vit_layers_int8": 1, "int8_linear_fused": 1},
+                 INT8_LOGITS_BAND),
+    }
+    counters = _counters()
+    launches = {}
+    idx = list(range(n_check))
+    for label, (fwd, cpu_maker, per_req, band) in paths.items():
+        fwd(images[:1])                      # first launch: library loads
+        torch.cuda.synchronize()
+        Metrics.reset()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ImageServer(fwd, image_size=cfg.image_size,
+                         batch_size=1) as server:
+            results = [server.submit_raw(img).result(timeout=600)
+                       for img in images]
+            wall = time.perf_counter() - t0
+            pct = server.latency_percentiles()
+        got_launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"latency slice {label}: {len(results)}/{n_requests} answered "
+              f"in {server.batches} batches, {wall:.3f} s, p50 "
+              f"{pct['p50']:.3f} ms, p99 {pct['p99']:.3f} ms (submit to "
+              f"logits, one request in flight)")
+        print(f"latency slice {label} launches: {got_launches}")
+        if len(results) != n_requests or server.served != n_requests:
+            raise AssertionError(f"{label}: not every request was answered")
+        for r in results:
+            if r.shape != (cfg.num_classes,) or not np.isfinite(r).all():
+                raise AssertionError(f"{label}: bad logits row {r.shape}")
+        for name, n in got_launches.items():
+            want = per_req.get(name, 0) * n_requests
+            if n != want:
+                raise AssertionError(f"{label}: {name} launched {n} times "
+                                     f"for {n_requests} requests, want {want}")
+        launches.update({k: v for k, v in got_launches.items()
+                         if k in LATENCY_KERNELS and k in per_req})
+        ref = cpu_maker()(images[idx]).numpy()
+        got = np.stack([results[i] for i in idx])
+        rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        note = ""
+        if label == "int8":                 # the floor: plain on the card
+            with mock.patch.multiple(
+                    quantized, vit_layers_int8=vs.vit_layers_int8_plain,
+                    int8_linear_fused=qf.int8_linear_fused_plain):
+                floor = quantized.make_forward_int8_latency(
+                    cfg, qparams)(images[idx]).cpu().numpy()
+            floor = float(np.abs(floor - ref).max() / np.abs(ref).max())
+            note = f"; plain versions on the card vs the CPU: {floor:.3e}"
+        print(f"latency slice {label} logits of images {idx} vs the CPU "
+              f"forward: max_rel={rel:.3e} (band {band}{note}), top-1 agree "
+              f"{int((got.argmax(1) == ref.argmax(1)).sum())}/{len(idx)}")
+        if not rel <= band:
+            raise AssertionError(f"{label}: card logits disagree with the "
+                                 f"CPU latency forward")
+    return launches
+
+
+def run_latency_phases(errors, timing, launches):
+    """The batch-1 latency phases after the earlier slices' ones."""
+    stack_timing = phase_stack_timing()
+    for name in LATENCY_KERNELS:
+        timing[name] = dict(stack_timing[1][name], max_abs_err=errors[name])
+    phase_latency_forward_time()
+    launches.update(phase_latency_serve())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1236,7 +1597,7 @@ def main() -> int:
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
 
-    errors = {}
+    errors = phase_stack_kernels()
     for name, err in phase_int8_kernels(8).items():
         errors[name] = err
     errors["attn_block_int8"] = max(errors["attn_block_int8"],
@@ -1264,6 +1625,7 @@ def main() -> int:
     launches.update({k: v for k, v in int8_launches.items()
                      if k in INT8_KERNELS})
     phase_int8_forward_time(fwd_int8, fwd_bf16, cfg)
+    run_latency_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -1284,6 +1646,10 @@ def main() -> int:
                            "vit_fpga_tpu/ops/quant_block.py:86"),
         "attn_block_int8": ("vit_fpga_tpu_torch/csrc/attn_int8.cu",
                             "vit_fpga_tpu/ops/quant_block.py:226"),
+        "vit_layers": ("vit_fpga_tpu_torch/csrc/vit_stack.cu",
+                       "vit_fpga_tpu/ops/vit_stack.py:93"),
+        "vit_layers_int8": ("vit_fpga_tpu_torch/csrc/vit_stack_int8.cu",
+                            "vit_fpga_tpu/ops/vit_stack.py:287"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

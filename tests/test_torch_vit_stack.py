@@ -1,0 +1,263 @@
+"""The port's single-launch encoders (ops/vit_stack.py, the plain versions
+of K11 and K19a) against the JAX package's Pallas kernels
+vit_layers_pallas and vit_layers_int8_pallas in interpret mode, on the
+same numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_fpga_tpu.ops import quant_block as jqb
+from vit_fpga_tpu.ops import vit_stack as jvs
+from vit_fpga_tpu.ops.quant_fused import quantize_weight_colwise
+from vit_fpga_tpu_torch.ops import vit_stack as tvs
+from vit_fpga_tpu_torch.ops.quant_fused import kmajor, weight_kmajor
+
+# f32: the same layer arithmetic on both sides, the sums in another
+# order; the tolerance of tests/test_kernels.py's stack-kernel test.
+F32_TOL = 3e-4
+# bf16: only the f32 summation order differs, which flips an occasional
+# bf16 ulp that later layers carry: |a - b| <= 2^-6 (1 + |b|).
+BF16_TOL = 2.0 ** -6
+# int8: the plain K16 and K15 repeat the Pallas bodies op for op (one-pass
+# LN, row quantization, exact int32 sums, the same dequantization and
+# activation forms).  Only the f32 sums (LN statistics, the bf16 PV
+# product) run in another order; at these shapes that flips a bf16 ulp of
+# qkv now and then (about 3% of one layer's outputs move, unlike PR 3's
+# single-half shapes, which stayed bit for bit), so one layer is held to
+# chip_smoke.py's step band: BF16_TOL (1 + |b|) + INT8_STEPS quantization
+# steps of its last GEMM.  Past the first layer the rint a flip moves
+# changes the next row scale, and the attention spreads that over every
+# row of the image: observed 0.4-0.7% in norm against the composition and
+# 0.9-1.4% against the interpreted stack kernel (whose body sums in yet
+# another order), up to 8 steps on single elements.  So all layers are
+# held in relative norm.
+INT8_STEPS = 2
+INT8_DEPTH_BAND = 0.03
+
+
+def _blocks(seed, depth, d, m, std=0.05):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=std, mean=0.0):
+        return (mean + rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {"ln1_scale": mk(depth, d, scale=0.1, mean=1.0),
+            "ln1_bias": mk(depth, d, scale=0.1),
+            "wqkv": mk(depth, d, 3 * d), "bqkv": mk(depth, 3 * d),
+            "wo": mk(depth, d, d), "bo": mk(depth, d),
+            "ln2_scale": mk(depth, d, scale=0.1, mean=1.0),
+            "ln2_bias": mk(depth, d, scale=0.1),
+            "w1": mk(depth, d, m), "b1": mk(depth, m),
+            "w2": mk(depth, m, d), "b2": mk(depth, d)}
+
+
+def _qblocks(blocks):
+    out = {k: v for k, v in blocks.items()
+           if k not in ("wqkv", "wo", "w1", "w2")}
+    for k in ("wqkv", "wo", "w1", "w2"):
+        pairs = [quantize_weight_colwise(w) for w in blocks[k]]
+        out[k + "_q"] = np.stack([q for q, _ in pairs])
+        out[k + "_s"] = np.stack([s for _, s in pairs])
+    return out
+
+
+def _x(seed, b, n, d):
+    return np.random.default_rng(seed).normal(size=(b, n, d)).astype(
+        np.float32)
+
+
+def _torch_tree(tree):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in tree.items()}
+
+
+def _bf16_pair(x):
+    xj = jnp.asarray(x, jnp.bfloat16)
+    return xj, torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+# (batch, tokens, n_valid, heads, head dim, mlp, depth): a small case, a
+# head-dim-64 case, and cases with padding rows (n_valid < tokens, and
+# tokens not a multiple of 8).
+CASES = [
+    (2, 17, None, 4, 16, 128, 3),
+    (1, 24, None, 2, 64, 256, 2),
+    (2, 20, 13, 4, 16, 128, 2),
+    (3, 13, 9, 2, 64, 128, 2),
+]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_vit_layers_plain_matches_pallas_f32(case):
+    b, n, n_valid, heads, dh, m, depth = case
+    d = heads * dh
+    blocks = _blocks(1, depth, d, m)
+    x = _x(2, b, n, d)
+    want = jvs.vit_layers_pallas(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in blocks.items()},
+        heads, eps=1e-6, act="gelu_tanh", n_valid=n_valid, interpret=True)
+    got = tvs.vit_layers(torch.from_numpy(x), _torch_tree(blocks), heads,
+                         eps=1e-6, act="gelu_tanh", n_valid=n_valid)
+    rows = n if n_valid is None else n_valid
+    assert got.shape == (b, n, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy()[:, :rows],
+                               np.asarray(want)[:, :rows], rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu"])
+@pytest.mark.parametrize("case", CASES[1:3])
+def test_vit_layers_plain_matches_pallas_bf16(case, act):
+    b, n, n_valid, heads, dh, m, depth = case
+    d = heads * dh
+    blocks = _blocks(3, depth, d, m)
+    xj, xt = _bf16_pair(_x(4, b, n, d))
+    want = np.asarray(jvs.vit_layers_pallas(
+        xj, {k: jnp.asarray(v) for k, v in blocks.items()}, heads,
+        eps=1e-6, act=act, n_valid=n_valid, interpret=True).astype(
+            jnp.float32))
+    got = tvs.vit_layers(xt, _torch_tree(blocks), heads, eps=1e-6, act=act,
+                         n_valid=n_valid)
+    assert got.dtype == torch.bfloat16
+    rows = n if n_valid is None else n_valid
+    g, w = got.float().numpy()[:, :rows], want[:, :rows]
+    assert np.all(np.abs(g - w) <= BF16_TOL * (1.0 + np.abs(w)))
+
+
+def _step(xt, tree, heads, act, n_valid):
+    """One int8 quantization step of a one-layer output, elementwise:
+    K15's W2 input row scale times 127 times w2s (chip_smoke.py's band)."""
+    from vit_fpga_tpu_torch.ops import quant_block as tqb
+    from vit_fpga_tpu_torch.ops.quant_fused import QMAX, _row_quant
+    blk = {k: v[0] for k, v in tree.items()}
+    x = tqb.attn_block_int8_plain(
+        xt, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"], blk["wqkv_s"],
+        blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"], heads,
+        n_valid=n_valid)
+    xq, sx = _row_quant(tqb._ln_f32(x, blk["ln2_scale"], blk["ln2_bias"],
+                                    1e-6))
+    h = tqb._apply_act(tqb._dequant(xq, blk["w1_q"], sx, blk["w1_s"],
+                                    blk["b1"]), act)
+    _, sh = _row_quant(h)
+    return (sh * QMAX * blk["w2_s"]).numpy()
+
+
+def _block_composition(xj, qblocks, heads, act, n_valid):
+    """The JAX ``_layer_math_int8`` as the Pallas block kernels it is made
+    of: per layer attn_block_int8 (K16) then mlp_block_int8 (K15), in
+    interpret mode, on rows padded to a multiple of 8."""
+    b, n, d = xj.shape
+    n_pad = -(-n // 8) * 8
+    x = jnp.pad(xj, ((0, 0), (0, n_pad - n), (0, 0)))
+    for i in range(qblocks["wqkv_q"].shape[0]):
+        blk = {k: jnp.asarray(v[i]) for k, v in qblocks.items()}
+        x = jqb.attn_block_int8(
+            x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
+            blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
+            heads, eps=1e-6, n_valid=n_valid or n, interpret=True)
+        x = jqb.mlp_block_int8(
+            x.reshape(b * n_pad, d), blk["ln2_scale"], blk["ln2_bias"],
+            blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"], blk["w2_s"],
+            blk["b2"], eps=1e-6, act=act, block_t=8,
+            interpret=True).reshape(b, n_pad, d)
+    return np.asarray(x[:, :n].astype(jnp.float32))
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu"])
+@pytest.mark.parametrize("case", CASES)
+def test_vit_layers_int8_plain_matches_pallas(case, act):
+    """One layer within the step band of the Pallas K16 then K15 that
+    ``_layer_math_int8`` is written out of; all layers within
+    INT8_DEPTH_BAND of that composition and of vit_layers_int8_pallas."""
+    b, n, n_valid, heads, dh, m, depth = case
+    d = heads * dh
+    qblocks = _qblocks(_blocks(5, depth, d, m, std=0.1))
+    xj, xt = _bf16_pair(_x(6, b, n, d))
+    rows = n if n_valid is None else n_valid
+    first = {k: v[:1] for k, v in qblocks.items()}
+    got1 = tvs.vit_layers_int8(xt, _torch_tree(first), heads, eps=1e-6,
+                               act=act, n_valid=n_valid)
+    want1 = _block_composition(xj, first, heads, act, n_valid)[:, :rows]
+    step = _step(xt, _torch_tree(first), heads, act, n_valid)[:, :rows]
+    assert np.all(np.abs(got1.float().numpy()[:, :rows] - want1)
+                  <= BF16_TOL * (1.0 + np.abs(want1)) + INT8_STEPS * step)
+    got = tvs.vit_layers_int8(xt, _torch_tree(qblocks), heads, eps=1e-6,
+                              act=act, n_valid=n_valid)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, d)
+    g = got.float().numpy()[:, :rows]
+    stack = np.asarray(jvs.vit_layers_int8_pallas(
+        xj, {k: jnp.asarray(v) for k, v in qblocks.items()}, heads,
+        eps=1e-6, act=act, n_valid=n_valid, interpret=True).astype(
+            jnp.float32))[:, :rows]
+    for want in (_block_composition(xj, qblocks, heads, act, n_valid)[
+            :, :rows], stack):
+        assert np.linalg.norm(g - want) <= INT8_DEPTH_BAND * np.linalg.norm(
+            want)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_loud_padding_leaves_valid_rows_bit_for_bit(int8):
+    """Rows past n_valid filled with huge spikes: their keys are masked and
+    every other stage is row-wise, so the valid rows do not move."""
+    b, n, n_valid, heads, d, m = 2, 24, 17, 2, 128, 128
+    blocks = _blocks(7, 2, d, m)
+    tree = _torch_tree(_qblocks(blocks) if int8 else blocks)
+    fn = tvs.vit_layers_int8 if int8 else tvs.vit_layers
+    x = _bf16_pair(_x(8, b, n, d))[1]
+    loud = x.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 50] = -1e3
+    quiet_out = fn(x, tree, heads, n_valid=n_valid)
+    loud_out = fn(loud, tree, heads, n_valid=n_valid)
+    assert torch.equal(loud_out[:, :n_valid], quiet_out[:, :n_valid])
+    unmasked = fn(loud, tree, heads, n_valid=None)
+    assert not torch.equal(unmasked[:, :n_valid], quiet_out[:, :n_valid])
+
+
+@pytest.mark.parametrize("geometry,ok", [
+    ((12, 768, 3072, 197, 1), True),     # ViT-B/16 at b1
+    ((12, 768, 3072, 197, 4), True),     # b4
+    ((12, 768, 3072, 197, 5), False),    # past the latency batch
+    ((16, 1024, 4096, 197, 1), True),    # ViT-L/16 (dh 64)
+    ((16, 1280, 5120, 257, 1), False),   # ViT-H/14: dh 80, 257 tokens
+    ((12, 768, 3072, 257, 1), False),    # more than 256 keys
+    ((12, 768, 3000, 197, 1), False),    # M not a multiple of 64
+    ((12, 768, 8192, 197, 1), False),    # M past 4096
+    ((6, 768, 3072, 197, 1), False),     # dh 128
+])
+def test_stack_supported(geometry, ok):
+    assert tvs.stack_supported(*geometry) is ok
+
+
+def test_cpu_wrappers_run_plain_and_check_args():
+    heads, d, m = 2, 128, 128
+    blocks = _blocks(9, 1, d, m)
+    x = _bf16_pair(_x(10, 1, 8, d))[1]
+    before = (tvs.vit_layers.launches, tvs.vit_layers_int8.launches)
+    tvs.vit_layers(x, _torch_tree(blocks), heads)
+    tvs.vit_layers_int8(x, _torch_tree(_qblocks(blocks)), heads)
+    assert (tvs.vit_layers.launches,
+            tvs.vit_layers_int8.launches) == before
+    with pytest.raises(ValueError, match="act"):
+        tvs.vit_layers(x, _torch_tree(blocks), heads, act="gelu")
+    static = dict(_torch_tree(_qblocks(blocks)),
+                  inv_ao=torch.ones(1, 1), inv_ah=torch.ones(1, 1))
+    with pytest.raises(NotImplementedError, match="K19b"):
+        tvs.vit_layers_int8(x, static, heads)
+
+
+@pytest.mark.parametrize("shape", [(3, 4), (2, 3, 4)])
+def test_kmajor_is_a_view_of_transposed_storage(shape):
+    """The layout the int8 GEMMs read: a per-layer (K, N) weight and the
+    stacked (L, K, N) one K19a takes, each as a view of (..., N, K)
+    storage that weight_kmajor passes without a copy."""
+    w = torch.arange(int(np.prod(shape)), dtype=torch.int8).reshape(shape)
+    v = kmajor(w)
+    assert torch.equal(v, w) and v.transpose(-1, -2).is_contiguous()
+    got = weight_kmajor(v, shape, v.device, "w")
+    assert got.data_ptr() == v.data_ptr() and got.shape == shape[:-2] + (
+        shape[-1], shape[-2])

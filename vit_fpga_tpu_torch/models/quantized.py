@@ -10,11 +10,14 @@ scales (``*_s``, ``ws``), everything else as it was.  The forward is
   -> depth x _qblock_fast = [attn_block_int8 (K16) -> mlp_block_int8 (K15)]
   -> LayerNorm of the CLS row -> int8_linear_fused head (K14), bf16 -> f32
 
-in bf16 whatever ``cfg.dtype`` says.  It runs the Hopper kernels on a
-CUDA device and their plain versions on the CPU.  The per-linear int8
+in bf16 whatever ``cfg.dtype`` says.  The batch-1 latency forward
+(``make_forward_int8_latency``) runs the embed with the CLS row last, the
+whole encoder in one launch (K19a, ``ops/vit_stack.vit_layers_int8``) and
+the same head.  It runs the Hopper kernels on a CUDA device and their
+plain versions on the CPU.  The per-linear int8
 route that the JAX package takes where its block kernels do not fit, the
-calibrated static-scale trees (K17, K18) and the CLIP towers are not
-ported yet: a static tree raises.
+calibrated static-scale trees (K17, K18, K19b) and the CLIP towers are
+not ported yet: a static tree raises.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import torch
 from ..ops.common import pad_sublane, round_up
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.quant_block import attn_block_int8, mlp_block_int8
-from ..ops.quant_fused import int8_linear_fused, quantize_weight_colwise
+from ..ops.quant_fused import (int8_linear_fused, kmajor,
+                               quantize_weight_colwise)
+from ..ops.vit_stack import stack_supported, vit_layers_int8
 from ..utils.platform import resolve_device
 from . import vit as vit_mod
 
@@ -76,12 +81,6 @@ def _check_tree(qparams: Params, cfg: vit_mod.ViTConfig) -> None:
                                   "training option")
 
 
-def _kmajor(w: torch.Tensor) -> torch.Tensor:
-    """A (K, N) view of (N, K) contiguous storage, the layout the int8
-    GEMM reads without a copy."""
-    return w.t().contiguous().t()
-
-
 def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     """One-time preparation of a ``quantize_vit_fast`` tree for the
     forward: the dequantized bf16 embed weight, the folded (n_pad, D) f32
@@ -102,13 +101,13 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     ], dim=0)
     wp = (pe["wq"].float() * pe["ws"].float()).to(torch.bfloat16)
     per_key = {k: v.unbind(0) for k, v in qparams["blocks"].items()}
-    layers = [{k: (_kmajor(v[i]) if k.endswith("_q") else v[i])
+    layers = [{k: (kmajor(v[i]) if k.endswith("_q") else v[i])
                for k, v in per_key.items()} for i in range(cfg.depth)]
     prepped = dict(qparams, _embed=(wp, posb), _layers=layers)
     prepped[_PREPARED] = True
     if "head" in qparams:
         prepped["head"] = dict(qparams["head"],
-                               wq=_kmajor(qparams["head"]["wq"]))
+                               wq=kmajor(qparams["head"]["wq"]))
     return prepped
 
 
@@ -175,5 +174,115 @@ def make_forward_int8(cfg: vit_mod.ViTConfig, qparams: Params,
             images = torch.from_numpy(images)
         with torch.inference_mode():
             return fn(prepped, images.to(dev), cfg)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Batch-1 int8 latency forward: the whole encoder in one launch (K19a)
+# ---------------------------------------------------------------------------
+
+def int8_latency_supported(cfg: vit_mod.ViTConfig, batch: int) -> bool:
+    """Gate of :func:`vit_forward_int8_latency` on the card (the JAX
+    ``int8_latency_supported`` with :func:`stack_supported` in place of the
+    TPU's VMEM planner): CLS pooling, batch <= 4 and a geometry K19a
+    takes."""
+    return (cfg.pool == "cls" and batch <= 4
+            and stack_supported(cfg.num_heads, cfg.hidden_dim, cfg.mlp_dim,
+                                cfg.seq_len, batch))
+
+
+def prep_int8_latency(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
+    """One-time fold for :func:`vit_forward_int8_latency`: the dequantized
+    bf16 patch weight, the CLS-last posb table, the stacked int8 weights
+    laid out k-major for K19a (``kmajor``) and the head's weight
+    for K14, so no call copies a weight.  A static tree raises naming
+    K19b."""
+    if "posb_cl" in qparams:
+        return qparams
+    if "inv_ao" in qparams["blocks"]:
+        raise NotImplementedError(
+            "calibrated static-scale int8 trees (kernel K19b) are not ported "
+            "yet; quantize with quantize_vit_fast")
+    n_pad = round_up(cfg.seq_len, pad_sublane(torch.bfloat16))
+    pe = qparams["patch_embed"]
+    posb = vit_mod._cls_last_posb(qparams["pos_embed"][0].float(),
+                                  pe["b"].float(),
+                                  qparams["cls_token"][0].float(),
+                                  cfg.num_prefix_tokens, n_pad)
+    blocks = {k: (kmajor(v) if k.endswith("_q") else v)
+              for k, v in qparams["blocks"].items()}
+    out = {
+        "wp_cl": (pe["wq"].float() * pe["ws"].float()).to(torch.bfloat16),
+        "posb_cl": posb,
+        "blocks": blocks,
+        "lfs": qparams["ln_f_scale"],
+        "lfb": qparams["ln_f_bias"],
+    }
+    if "head" in qparams:
+        out["head"] = dict(qparams["head"], wq=kmajor(qparams["head"]["wq"]))
+    return out
+
+
+def vit_forward_int8_latency(qparams: Params, images: torch.Tensor,
+                             cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """Small-batch int8 forward: the dotg embed with the prefix rows LAST
+    on bf16(wq * ws), the whole encoder in one launch (K19a,
+    ``ops/vit_stack.vit_layers_int8``), the LayerNorm of the CLS row and
+    the K14 head (f32 CLS features for a headless tree).  ``qparams`` may
+    be the plain ``quantize_vit_fast`` tree or the
+    :func:`prep_int8_latency` fold.  On the card it raises outside
+    :func:`int8_latency_supported`."""
+    if cfg.pool != "cls":
+        raise ValueError("vit_forward_int8_latency pools the CLS row "
+                         "(pool='cls')")
+    if (images.device.type == "cuda"
+            and not int8_latency_supported(cfg, images.shape[0])):
+        raise NotImplementedError(
+            f"vit_forward_int8_latency on the card takes batch <= 4 and a "
+            f"geometry K19a takes (int8_latency_supported); got batch "
+            f"{images.shape[0]}")
+    n, npre = cfg.seq_len, cfg.num_prefix_tokens
+    npch = n - npre
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    prep = prep_int8_latency(qparams, cfg)
+    x = embed_tokens_dotg(images.to(torch.bfloat16), prep["wp_cl"],
+                          prep["posb_cl"], cfg.patch_size, npre,
+                          prefix_last=True)
+    toks = vit_layers_int8(x, prep["blocks"], cfg.num_heads, eps=cfg.ln_eps,
+                           act=act, n_valid=n)
+    cls_t = vit_mod._layernorm(toks[:, npch:npch + 1], prep["lfs"],
+                               prep["lfb"], cfg.ln_eps)
+    if "head" not in prep:
+        return cls_t[:, 0].float()
+    hd = prep["head"]
+    return int8_linear_fused(cls_t.reshape(x.shape[0], -1), hd["wq"],
+                             hd["ws"], hd["b"]).float()
+
+
+def make_forward_int8_latency(cfg: vit_mod.ViTConfig, qparams: Params,
+                              raw: bool = True,
+                              device=None) -> Callable[[Any], torch.Tensor]:
+    """The latency counterpart of :func:`make_forward_int8`:
+    :func:`prep_int8_latency` runs once here, and ``fn(images) -> logits``
+    runs preprocess (when ``raw``) and :func:`vit_forward_int8_latency`
+    under ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    for leaf in (qparams["pos_embed"], qparams["blocks"]["wqkv_q"]):
+        if leaf.device.type != dev.type:
+            raise ValueError(f"params are on {leaf.device}, forward on {dev}")
+    if cfg.remat:
+        raise NotImplementedError("the int8 forward serves; remat is a "
+                                  "training option")
+    prepped = prep_int8_latency(qparams, cfg)
+
+    def run(images) -> torch.Tensor:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
+        with torch.inference_mode():
+            images = images.to(dev)
+            if raw:
+                images = vit_mod.preprocess(images, cfg)
+            return vit_forward_int8_latency(prepped, images, cfg)
 
     return run

@@ -13,7 +13,9 @@ leading depth axis, linear weights as (in, out).  The forward is
   -> LayerNorm of the prefix row -> f32 head
 
 and runs the Hopper kernels on a CUDA device, their plain versions on
-the CPU.
+the CPU.  The batch-1 latency forward (``forward_latency``,
+``make_forward_latency``) places the prefix rows after the patch rows and
+runs the whole encoder in one launch (K11, ``ops/vit_stack.vit_layers``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..ops.attn_block import attn_block, attn_block_stats, attn_block_xla
 from ..ops.common import pad_sublane, round_up, row_stats
 from ..ops.fused_mlp import fused_mlp, fused_mlp_stats, fused_mlp_xla
 from ..ops.patch_embed import embed_tokens_dotg
+from ..ops.vit_stack import stack_supported, vit_layers
 from ..utils.platform import resolve_device
 
 Params = Dict[str, Any]
@@ -420,5 +423,118 @@ def make_forward(cfg: ViTConfig, params: Params, raw: bool = True,
             images = torch.from_numpy(images)
         with torch.inference_mode():
             return fn(prepped, images.to(dev), cfg)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Batch-1 latency forward: the whole encoder in one launch (K11)
+# ---------------------------------------------------------------------------
+
+def latency_forward_supported(cfg: ViTConfig, batch: int) -> bool:
+    """Gate of :func:`forward_latency` on the card (the JAX
+    ``latency_forward_supported`` with :func:`stack_supported` in place of
+    the TPU's VMEM planner): bf16, CLS pooling, batch <= 4, the max-free
+    softmax, and a geometry the K11 kernel takes."""
+    return (cfg.dtype == "bfloat16" and cfg.pool == "cls" and batch <= 4
+            and not cfg.safe_softmax
+            and stack_supported(cfg.num_heads, cfg.hidden_dim, cfg.mlp_dim,
+                                cfg.seq_len, batch))
+
+
+def _cls_last_posb(pos, bias, pre, npre: int, n_pad: int) -> torch.Tensor:
+    """The (n_pad, D) f32 posb table with the patch rows first and the
+    prefix rows after them (``embed_tokens_dotg(prefix_last=True)``)."""
+    n, d = pos.shape
+    return torch.cat([
+        pos[npre:] + bias,                     # patch rows 0..npch-1
+        pre + pos[:npre],                      # prefix rows (CLS first)
+        torch.zeros((n_pad - n, d), dtype=torch.float32, device=pos.device),
+    ], dim=0)
+
+
+def prep_latency(params: Params, cfg: ViTConfig) -> Params:
+    """One-time fold for :func:`forward_latency`'s CLS-last embed: the
+    compute-dtype patch kernel, the posb table with patch rows first, and
+    the blocks' weight matrices cast to the compute dtype once, so no call
+    re-casts them."""
+    n_pad = round_up(cfg.seq_len, pad_sublane(cfg.compute_dtype))
+    posb = _cls_last_posb(params["pos_embed"][0].float(),
+                          params["patch_embed"]["bias"].float(),
+                          params["cls_token"][0].float(),
+                          cfg.num_prefix_tokens, n_pad)
+    return {
+        "wp_cl": params["patch_embed"]["kernel"].to(cfg.compute_dtype),
+        "posb_cl": posb,
+        "blocks": _prepare_params(params, cfg)["blocks"],
+        "lfs": params["ln_f_scale"],
+        "lfb": params["ln_f_bias"],
+        "wh": params["head"]["kernel"],
+        "bh": params["head"]["bias"],
+    }
+
+
+def _latency_act(hidden_act: str) -> str:
+    """The stack kernels' activation: "gelu" runs as tanh-GELU (the JAX
+    ``forward_latency`` does so in f32 too)."""
+    return "gelu_tanh" if hidden_act == "gelu" else hidden_act
+
+
+def forward_latency(params: Params, images: torch.Tensor,
+                    cfg: ViTConfig) -> torch.Tensor:
+    """Small-batch forward for latency serving: the dotg embed with the
+    prefix rows LAST, the whole encoder in one launch (K11,
+    ``ops/vit_stack.vit_layers``), the LayerNorm of the CLS row (at row
+    ``npch``) and the f32 head.  ``params`` may be the plain tree or the
+    :func:`prep_latency` fold.  On the card it raises outside
+    :func:`latency_forward_supported`; there is no fallback to
+    :func:`forward`."""
+    if cfg.pool != "cls":
+        raise ValueError("forward_latency pools the CLS row (pool='cls')")
+    if (images.device.type == "cuda"
+            and not latency_forward_supported(cfg, images.shape[0])):
+        raise NotImplementedError(
+            f"forward_latency on the card takes bf16, batch <= 4, the "
+            f"max-free softmax and a geometry K11 takes "
+            f"(latency_forward_supported); got batch {images.shape[0]}")
+    with _precision_ctx(cfg):
+        dt = cfg.compute_dtype
+        n, npre = cfg.seq_len, cfg.num_prefix_tokens
+        npch = n - npre
+        prep = params if "posb_cl" in params else prep_latency(params, cfg)
+        x = embed_tokens_dotg(images.to(dt), prep["wp_cl"], prep["posb_cl"],
+                              cfg.patch_size, npre, prefix_last=True)
+        toks = vit_layers(x, prep["blocks"], cfg.num_heads, eps=cfg.ln_eps,
+                          act=_latency_act(cfg.hidden_act), n_valid=n)
+        pooled = _layernorm(toks[:, npch:npch + 1], prep["lfs"], prep["lfb"],
+                            cfg.ln_eps)[:, 0]
+        return pooled.float() @ prep["wh"] + prep["bh"]
+
+
+def make_forward_latency(cfg: ViTConfig, params: Params, raw: bool = True,
+                         device=None) -> Callable[[Any], torch.Tensor]:
+    """The latency counterpart of :func:`make_forward` (what the JAX
+    ``bench.py`` latency mode builds): :func:`prep_latency` runs once here,
+    and ``fn(images) -> logits`` runs preprocess (when ``raw``) and
+    :func:`forward_latency` under ``torch.inference_mode`` on ``device``
+    (CUDA unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.compute_dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the Hopper kernels take bfloat16; f32 on the card is not ported "
+            "yet (run f32 with device='cpu')")
+    for leaf in (params["pos_embed"], params["blocks"]["wqkv"]):
+        if leaf.device.type != dev.type:
+            raise ValueError(f"params are on {leaf.device}, forward on {dev}")
+    prepped = prep_latency(params, cfg)
+
+    def run(images) -> torch.Tensor:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
+        with torch.inference_mode():
+            images = images.to(dev)
+            if raw:
+                images = preprocess(images, cfg)
+            return forward_latency(prepped, images, cfg)
 
     return run

@@ -104,14 +104,22 @@ def int8_linear_fused_plain(x, wq, ws, bias, act: str = "none",
     return out.to(out_dtype)
 
 
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """A (..., K, N) weight as a view of (..., N, K) contiguous storage,
+    the layout the int8 GEMMs read without a copy (one copy, made once)."""
+    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def weight_kmajor(wq: torch.Tensor, shape: tuple, device: torch.device,
                   name: str) -> torch.Tensor:
-    """The (K, N) int8 weight as the int8 GEMM reads it: (N, K)
-    contiguous.  A (K, N) view of transposed storage, as the int8 forward
-    prepares once, passes without a copy."""
+    """The (..., K, N) int8 weight as the int8 GEMMs read it: (..., N, K)
+    contiguous.  A :func:`kmajor` view, as the int8 forwards prepare once,
+    passes without a copy."""
     if wq.dtype != torch.int8:
         raise ValueError(f"{name} must be int8, got {wq.dtype}")
-    return kernel_operand(wq.t(), shape[::-1], torch.int8, device, name)
+    return kernel_operand(wq.transpose(-1, -2),
+                          tuple(shape[:-2]) + (shape[-1], shape[-2]),
+                          torch.int8, device, name)
 
 
 def int8_linear_fused(x, wq, ws, bias, act: str = "none", ln_scale=None,

@@ -1,0 +1,326 @@
+"""Whole-encoder single-launch kernels for batch-1 latency serving
+(counterpart of the JAX package's ops/vit_stack.py).
+
+Two Hopper kernels live here, each behind a wrapper that launches it on a
+CUDA tensor and runs its plain PyTorch version (same arithmetic) on a CPU
+tensor:
+
+* K11 ``vit_layers`` (``csrc/vit_stack.cu``): replaces
+  ``vit_fpga_tpu/ops/vit_stack.py:_stack_kernel`` (wrapper
+  ``vit_layers_pallas``).  Every layer of the bf16 encoder, each the
+  per-block halves with in-kernel one-pass LN statistics: LN1 -> QKV ->
+  max-free masked attention -> out-proj + residual -> LN2 -> W1 + act ->
+  W2 + residual.
+* K19a ``vit_layers_int8`` (``csrc/vit_stack_int8.cu``): replaces
+  ``_stack_int8_kernel`` (wrapper ``vit_layers_int8_pallas``), whose layer
+  is exactly K16 then K15: int8 weights with per-column scales, per-row
+  activation scales computed in the kernel.
+
+On the card each is ONE cooperative launch: a persistent grid walks the
+layers and separates the stages with grid-wide barriers (``csrc/
+stack.cuh``).  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
+reads 169.9 MB of bf16 weights (50.7 us at 3.35 TB/s) for 34.9 GFLOP
+(35.3 us at 989 TFLOP/s); K19a 84.9 MB of int8 weights and 0.33 MB of
+scales (25.4 us) for 33.5 G int8 operations (16.9 us): both bound by
+bytes.  At batch 4 K11's 139.6 GFLOP (141 us) makes it bound by
+operations.  The VMEM planner of the JAX package (``stack_plan`` /
+``stack_fits``) is a TPU artefact; :func:`stack_supported` states what the
+CUDA kernels take instead.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _kernels
+from .attn_block import attn_block_fwd_plain
+from .common import check_activation, kernel_operand, pad_sublane, round_up, \
+    row_stats
+from .fused_mlp import fused_mlp_stats_plain
+from .quant_block import attn_block_int8_plain, mlp_block_int8_plain
+from .quant_fused import weight_kmajor
+
+# Activation codes of csrc/common.cuh (enum Act).
+_ACT_CODES = {"gelu_tanh": 2, "quick_gelu": 3}
+MAX_BATCH = 4          # latency mode, as the JAX gates
+MAX_VALID = 256        # keys per (image, head) in the attention items
+HEAD_DIM = 64
+MAX_D = 2048           # a row pass gives each thread 8 of a row's columns
+MAX_M = 4096           # ... and 16 of h's (K19a)
+# The kernels' optional stage clock (csrc/stack.cuh StageClock): per block
+# and stage kind, ns of work and ns waiting in the grid barrier after it.
+TRACE_BLOCKS, TRACE_KINDS = 1024, 10
+K11_STAGES = ("LN1 rows (first layer)", "QKV tiles", "attention + prefetch",
+              "out-proj split-K tiles", "residual + LN2 rows",
+              "W1 + act tiles", "W2 split-K tiles",
+              "residual + next LN1 rows")
+K19A_STAGES = ("LN1 + quant rows (first layer)", "int8 QKV tiles",
+               "attention + prefetch", "ao quant rows",
+               "int8 out-proj split-K tiles", "residual + LN2 + quant rows",
+               "int8 W1 + act + row max tiles", "h quant rows",
+               "int8 W2 split-K tiles", "residual + next LN1 + quant rows")
+
+
+def stack_supported(num_heads: int, d: int, mlp_dim: int, n_valid: int,
+                    batch: int) -> bool:
+    """Whether the CUDA stack kernels take this geometry: head dim 64
+    (D up to 2048), M a multiple of 64 up to 4096, 1 <= n_valid <= 256 and
+    1 <= batch <= 4.  The CPU plain versions take any geometry."""
+    return (num_heads > 0 and d == num_heads * HEAD_DIM and d <= MAX_D
+            and 0 < mlp_dim <= MAX_M and mlp_dim % 64 == 0
+            and 1 <= n_valid <= MAX_VALID and 1 <= batch <= MAX_BATCH)
+
+
+def _check_act(act: str) -> None:
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}; the stack kernels take "
+                         f"{sorted(_ACT_CODES)}")
+
+
+def _check_dynamic(qblocks) -> None:
+    if "inv_ao" in qblocks:
+        raise NotImplementedError(
+            "calibrated static-scale int8 trees (kernel K19b, "
+            "vit_layers_int8_static_pallas) are not ported yet; quantize "
+            "with quantize_vit_fast")
+
+
+def _padded(x: torch.Tensor, n_valid):
+    """(x padded to a multiple of 8 rows, n, n_valid clipped to n)."""
+    n = x.shape[1]
+    n_valid = n if n_valid is None else min(n_valid, n)
+    n_pad = round_up(n, pad_sublane(x.dtype))
+    if n_pad != n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, n_pad - n))
+    return x, n, n_valid
+
+
+def _layer(blocks, i):
+    return {k: v[i] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# K11: bf16 layers
+# ---------------------------------------------------------------------------
+
+def vit_layers_plain(x, blocks, num_heads: int, eps: float = 1e-6,
+                     act: str = "gelu_tanh", n_valid: int | None = None):
+    """Plain PyTorch version of the K11 kernel: per layer K4's plain
+    forward (one-pass LN, max-free softmax) then the MLP half with one-pass
+    LN statistics, weights cast to x's dtype (the JAX wrapper's
+    ``astype``)."""
+    _check_act(act)
+    x, n, n_valid = _padded(x, n_valid)
+    b, n_pad, d = x.shape
+    for i in range(blocks["wqkv"].shape[0]):
+        blk = _layer(blocks, i)
+        x = attn_block_fwd_plain(x, blk["ln1_scale"], blk["ln1_bias"],
+                                 blk["wqkv"], blk["bqkv"], blk["wo"],
+                                 blk["bo"], num_heads, eps=eps,
+                                 n_valid=n_valid)
+        x2 = x.reshape(b * n_pad, d)
+        x2, _ = fused_mlp_stats_plain(x2, row_stats(x2, eps),
+                                      blk["ln2_scale"], blk["ln2_bias"],
+                                      blk["w1"], blk["b1"], blk["w2"],
+                                      blk["b2"], eps=eps, act=act,
+                                      emit_stats=False)
+        x = x2.reshape(b, n_pad, d)
+    return x[:, :n]
+
+
+def new_trace(device) -> torch.Tensor:
+    """A zeroed stage-clock buffer for the ``trace`` argument of the
+    kernels' wrappers."""
+    return torch.zeros((TRACE_BLOCKS, TRACE_KINDS, 2), dtype=torch.int64,
+                       device=device)
+
+
+def trace_report(trace: torch.Tensor, stages, launches: int = 1) -> dict:
+    """Per stage kind, in us per launch: ``wall`` (work plus barrier, the
+    same for every block), ``busy_mean`` and ``busy_max`` (the work of a
+    block; the max is the stage's critical path) and ``barrier`` (the
+    least wait of any block: the last block to arrive waits only for the
+    barrier itself).  ``barrier_share`` is the sum of ``barrier`` over the
+    sum of ``wall``."""
+    t = trace.cpu().double() / 1e3 / launches
+    used = t.abs().sum(dim=(1, 2)) > 0
+    t = t[used]
+    out = {"blocks": int(used.sum())}
+    walls = barriers = 0.0
+    for k, name in enumerate(stages):
+        busy, wait = t[:, k, 0], t[:, k, 1]
+        row = dict(wall=float((busy + wait).mean()),
+                   busy_mean=float(busy.mean()), busy_max=float(busy.max()),
+                   barrier=float(wait.min()))
+        out[name] = row
+        walls += row["wall"]
+        barriers += row["barrier"]
+    out["total_wall"] = walls
+    out["barrier_share"] = barriers / walls if walls else None
+    return out
+
+
+def _trace_ptr(trace, dev):
+    if trace is None:
+        return None
+    check_activation(trace, (TRACE_BLOCKS, TRACE_KINDS, 2), torch.int64,
+                     "trace")
+    if trace.device != dev:
+        raise ValueError(f"trace is on {trace.device}, x on {dev}")
+    return trace.data_ptr()
+
+
+def _cuda_geometry(x, num_heads, n_valid, mlp_dim):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, D), got {tuple(x.shape)}")
+    b, n, d = x.shape
+    n_valid = n if n_valid is None else min(n_valid, n)
+    if not stack_supported(num_heads, d, mlp_dim, n_valid, b):
+        raise ValueError(
+            f"the stack kernels take head dim {HEAD_DIM}, D <= {MAX_D}, M a "
+            f"multiple of 64 up to {MAX_M}, 1..{MAX_VALID} valid tokens and "
+            f"batch 1..{MAX_BATCH} (B={b}, D={d}, {num_heads} heads, M={mlp_dim}, "
+            f"n_valid={n_valid})")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the stack kernels take bfloat16 x, got {x.dtype}")
+
+
+def _vectors(blocks, names, depth, dev):
+    return [kernel_operand(blocks[k], (depth, blocks[k].shape[-1]),
+                           torch.float32, dev, k) for k in names]
+
+
+def vit_layers(x, blocks, num_heads: int, eps: float = 1e-6,
+               act: str = "gelu_tanh", n_valid: int | None = None,
+               trace: torch.Tensor | None = None):
+    """x (B, N, D) embedded tokens -> pre-final-LN tokens (B, N, D);
+    ``blocks`` the stacked per-layer dict of models/vit.py.  Rows at or past
+    ``n_valid`` are computed (garbage) and their keys masked.
+
+    A CPU tensor runs :func:`vit_layers_plain`; a CUDA tensor launches the
+    K11 kernel (bf16, :func:`stack_supported`) once for all layers, or
+    raises.  ``trace`` (:func:`new_trace`, CUDA only) adds the kernel's
+    stage clock to it (:func:`trace_report` with ``K11_STAGES``)."""
+    _check_act(act)
+    if x.device.type == "cpu":
+        return vit_layers_plain(x, blocks, num_heads, eps=eps, act=act,
+                                n_valid=n_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    depth, d, m = blocks["w1"].shape
+    _cuda_geometry(x, num_heads, n_valid, m)
+    x, n, n_valid = _padded(x, n_valid)
+    b, n_pad, _ = x.shape
+    x = x.contiguous()
+    check_activation(x, (b, n_pad, d), torch.bfloat16, "x")
+    dev, bf = x.device, torch.bfloat16
+    ls1, lb1, bqkv, bo, ls2, lb2, b1, b2 = _vectors(
+        blocks, ("ln1_scale", "ln1_bias", "bqkv", "bo", "ln2_scale",
+                 "ln2_bias", "b1", "b2"), depth, dev)
+    wqkv = kernel_operand(blocks["wqkv"], (depth, d, 3 * d), bf, dev, "wqkv")
+    wo = kernel_operand(blocks["wo"], (depth, d, d), bf, dev, "wo")
+    w1 = kernel_operand(blocks["w1"], (depth, d, m), bf, dev, "w1")
+    w2 = kernel_operand(blocks["w2"], (depth, m, d), bf, dev, "w2")
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        work = torch.empty((lib.vft_vit_stack_workspace(b * n_pad, d, m),),
+                           dtype=torch.uint8, device=dev)
+        err = lib.vft_vit_layers(
+            x.data_ptr(), out.data_ptr(), work.data_ptr(), ls1.data_ptr(),
+            lb1.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), ls2.data_ptr(), lb2.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), b, n_pad, d, m,
+            depth, num_heads, n_valid, _ACT_CODES[act], float(eps),
+            1.0 / math.sqrt(d // num_heads), _trace_ptr(trace, dev), stream)
+    _kernels.check(err, "vit_layers")
+    vit_layers.launches += 1
+    return out[:, :n]
+
+
+vit_layers.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K19a: dynamic int8 layers
+# ---------------------------------------------------------------------------
+
+def vit_layers_int8_plain(x, qblocks, num_heads: int, eps: float = 1e-6,
+                          act: str = "gelu_tanh",
+                          n_valid: int | None = None):
+    """Plain PyTorch version of the K19a kernel: per layer the plain K16
+    then the plain K15 (the JAX ``_layer_math_int8``)."""
+    _check_act(act)
+    _check_dynamic(qblocks)
+    x, n, n_valid = _padded(x, n_valid)
+    b, n_pad, d = x.shape
+    for i in range(qblocks["wqkv_q"].shape[0]):
+        blk = _layer(qblocks, i)
+        x = attn_block_int8_plain(
+            x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
+            blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
+            num_heads, eps=eps, n_valid=n_valid)
+        x = mlp_block_int8_plain(
+            x.reshape(b * n_pad, d), blk["ln2_scale"], blk["ln2_bias"],
+            blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"], blk["w2_s"],
+            blk["b2"], eps=eps, act=act).reshape(b, n_pad, d)
+    return x[:, :n]
+
+
+def vit_layers_int8(x, qblocks, num_heads: int, eps: float = 1e-6,
+                    act: str = "gelu_tanh", n_valid: int | None = None,
+                    trace: torch.Tensor | None = None):
+    """x (B, N, D) bf16 -> pre-final-LN tokens through the dynamic int8
+    encoder; ``qblocks`` the ``quantize_vit_fast`` blocks dict (int8 ``*_q``
+    weights (L, K, N), best as ``quant_fused.kmajor`` views, with f32 column
+    scales ``*_s``).  A static tree
+    (``inv_ao``) raises naming K19b.
+
+    A CPU tensor runs :func:`vit_layers_int8_plain`; a CUDA tensor launches
+    the K19a kernel once for all layers, or raises.  ``trace`` as for
+    :func:`vit_layers` (stages ``K19A_STAGES``)."""
+    _check_act(act)
+    _check_dynamic(qblocks)
+    if x.device.type == "cpu":
+        return vit_layers_int8_plain(x, qblocks, num_heads, eps=eps, act=act,
+                                     n_valid=n_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    depth, d, m = qblocks["w1_q"].shape
+    _cuda_geometry(x, num_heads, n_valid, m)
+    x, n, n_valid = _padded(x, n_valid)
+    b, n_pad, _ = x.shape
+    x = x.contiguous()
+    dev = x.device
+    (ls1, lb1, sqkv, bqkv, so, bo, ls2, lb2, s1, b1, s2, b2) = _vectors(
+        qblocks, ("ln1_scale", "ln1_bias", "wqkv_s", "bqkv", "wo_s", "bo",
+                  "ln2_scale", "ln2_bias", "w1_s", "b1", "w2_s", "b2"),
+        depth, dev)
+    wqkv = weight_kmajor(qblocks["wqkv_q"], (depth, d, 3 * d), dev,
+                         "wqkv_q")
+    wo = weight_kmajor(qblocks["wo_q"], (depth, d, d), dev, "wo_q")
+    w1 = weight_kmajor(qblocks["w1_q"], (depth, d, m), dev, "w1_q")
+    w2 = weight_kmajor(qblocks["w2_q"], (depth, m, d), dev, "w2_q")
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        work = torch.empty(
+            (lib.vft_vit_stack_int8_workspace(b * n_pad, d, m),),
+            dtype=torch.uint8, device=dev)
+        err = lib.vft_vit_layers_int8(
+            x.data_ptr(), out.data_ptr(), work.data_ptr(), ls1.data_ptr(),
+            lb1.data_ptr(), wqkv.data_ptr(), sqkv.data_ptr(),
+            bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(), bo.data_ptr(),
+            ls2.data_ptr(), lb2.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), b,
+            n_pad, d, m, depth, num_heads, n_valid, _ACT_CODES[act],
+            float(eps), 1.0 / math.sqrt(d // num_heads),
+            _trace_ptr(trace, dev), stream)
+    _kernels.check(err, "vit_layers_int8")
+    vit_layers_int8.launches += 1
+    return out[:, :n]
+
+
+vit_layers_int8.launches = 0

@@ -1,17 +1,22 @@
 """Where the time goes on the card: the served ViT forward (bf16 or
-dynamic int8), or one training step.
+dynamic int8, throughput or batch-1 latency), or one training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
-        [--batch 64] [--steps 3] [--train | --int8]
+        [--batch 64] [--steps 3] [--train | --int8] [--latency]
 
 Without a mode flag it runs ``make_forward(cfg, params, raw=True)`` (bf16,
 random weights from seed 0) on a seeded uint8 batch already on the card;
 with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
 weights; with ``--train`` one SGD(1e-4) step of ``make_vit_train_step``
-(bench.py's train shape) on a seeded normalized batch.  It prints:
+(bench.py's train shape) on a seeded normalized batch.  ``--latency``
+(batch 1 unless ``--batch`` says otherwise, 4 at most) runs the
+single-launch forwards instead: ``make_forward_latency`` (K11), or with
+``--int8`` ``make_forward_int8_latency`` (K19a + the K14 head).  It prints:
 
   * the time per batch or step (CUDA events), images per second and, for
-    a step, TFLOP/s counted as 3 x the forward (bench.py's count);
+    a step, TFLOP/s counted as 3 x the forward (bench.py's count); in
+    latency mode the p50 and max of five loop estimates of at least 32
+    calls each, as bench.py reports its latency extras;
   * device time per launch site over ``--steps`` profiled runs
     (torch.profiler), grouped into the stages of the kernels;
   * the device's idle share: 1 - (union of kernel intervals) / (first
@@ -33,12 +38,15 @@ import torch
 
 # launch-site name fragment (spaces and "(int)" casts removed) -> stage
 # label.  csrc/*.cu name each site's kernels by translation unit:
+# vit_stack:: K11, vit_stack_int8:: K19a,
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16.  The
 # int8 GEMM's template argument is its epilogue (0 plain, 1 residual, 2
 # f32 with row maxima), quant_rows_kernel's second one its LayerNorm (0
 # none, 1 one-pass, 2 two-pass).  The first fragment found wins.
 STAGES = (
+    ("vit_stack_int8::", "K19a int8 encoder, one launch"),
+    ("vit_stack::", "K11 bf16 encoder, one launch"),
     ("quant_linear::quant_rows_kernel", "K14 (a) [LN] + row quant"),
     ("quant_linear::qgemm_kernel", "K14 (b) int8 GEMM + dequant + act"),
     ("quant_linear::", "K14 other"),
@@ -153,6 +161,52 @@ def _serve_int8_run(cfg, batch):
     return lambda: fwd(images)
 
 
+def _latency_run(cfg, batch, int8):
+    """One batch-1 latency forward: make_forward_latency, or
+    make_forward_int8_latency on quantize_vit_fast of the seed-0 weights,
+    on a seeded uint8 batch."""
+    from .models import quantized, vit
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = vit.init_params(cfg, gen, device="cuda")
+    fwd = (quantized.make_forward_int8_latency(
+        cfg, quantized.quantize_vit_fast(params)) if int8
+        else vit.make_forward_latency(cfg, params))
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+        np.uint8)).cuda()
+    return lambda: fwd(images)
+
+
+def _stack_stages(cfg, batch, int8, launches=10):
+    """The single-launch encoder's own stage clock (csrc/stack.cuh) over
+    ``launches`` launches on seeded tokens of the forward's shape, with the
+    weights as the latency forward prepares them: us per launch of each
+    stage, its critical path and its barrier, and the barrier share."""
+    from .models import quantized, vit
+    from .ops import vit_stack as vs
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = vit.init_params(cfg, gen, device="cuda")
+    n_pad = -(-cfg.seq_len // 8) * 8
+    x = (torch.randn((batch, n_pad, cfg.hidden_dim), generator=gen)
+         .to(torch.bfloat16).cuda())
+    if int8:
+        blocks = quantized.prep_int8_latency(
+            quantized.quantize_vit_fast(params), cfg)["blocks"]
+        fn, stages = vs.vit_layers_int8, vs.K19A_STAGES
+    else:
+        blocks = vit.prep_latency(params, cfg)["blocks"]
+        fn, stages = vs.vit_layers, vs.K11_STAGES
+    fn(x, blocks, cfg.num_heads, eps=cfg.ln_eps, n_valid=cfg.seq_len)
+    trace = vs.new_trace(x.device)
+    for _ in range(launches):
+        fn(x, blocks, cfg.num_heads, eps=cfg.ln_eps, n_valid=cfg.seq_len,
+           trace=trace)
+    torch.cuda.synchronize()
+    return vs.trace_report(trace, stages, launches)
+
+
 def _train_run(cfg, batch):
     """One SGD(1e-4) training step on a seeded normalized batch."""
     from .models import vit
@@ -172,7 +226,8 @@ def _train_run(cfg, batch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="vit_b16")
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="64, or 1 with --latency")
     ap.add_argument("--steps", type=int, default=3)
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
@@ -180,7 +235,13 @@ def main(argv=None) -> int:
                            "served forward")
     mode.add_argument("--int8", action="store_true",
                       help="profile the served dynamic int8 forward")
+    ap.add_argument("--latency", action="store_true",
+                    help="profile the single-launch batch-1 forward")
     args = ap.parse_args(argv)
+    if args.latency and args.train:
+        ap.error("--latency profiles a forward, not a training step")
+    if args.batch is None:
+        args.batch = 1 if args.latency else 64
 
     from .models import vit
     from .utils.platform import require_hopper
@@ -189,14 +250,21 @@ def main(argv=None) -> int:
     kind = require_hopper()
     cfg = vit.config(args.model, dtype="bfloat16")
     mode = "train" if args.train else "serve-int8" if args.int8 else "serve"
-    run = {"train": _train_run, "serve-int8": _serve_int8_run,
-           "serve": _serve_run}[mode](cfg, args.batch)
+    if args.latency:
+        mode = "latency-int8" if args.int8 else "latency"
+        run = _latency_run(cfg, args.batch, args.int8)
+    else:
+        run = {"train": _train_run, "serve-int8": _serve_int8_run,
+               "serve": _serve_run}[mode](cfg, args.batch)
 
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_cuda(run, iters=5 if args.train else 10, warmup=2)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    loops = None
+    if args.latency:    # bench.py's latency report: five loop estimates
+        loops = sorted(time_cuda(run, iters=32, warmup=2) for _ in range(5))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -226,6 +294,13 @@ def main(argv=None) -> int:
         "top_torch_ops_ms": dict(sorted(torch_ops.items(),
                                         key=lambda kv: -kv[1])[:8]),
     }
+    if args.latency:
+        result["encoder_stages_us"] = _stack_stages(cfg, args.batch,
+                                                    args.int8)
+    if loops is not None:
+        result["p50_ms"] = loops[len(loops) // 2]
+        result["max_ms"] = loops[-1]
+        result["loop_estimates_ms"] = loops
     if args.train:
         result["tflops"] = (3 * vit.flops_per_image(cfg) * args.batch
                             / (step_ms * 1e-3) / 1e12)
@@ -238,12 +313,25 @@ def main(argv=None) -> int:
 
     what = "train step" if args.train else "batch"
     print(f"{args.model} {'int8' if args.int8 else 'bf16'} b{args.batch} "
-          f"on {kind}: {step_ms:.3f} ms per "
+          f"{mode} on {kind}: {step_ms:.4f} ms per "
           f"{what}, {result['img_per_s']:.1f} img/s, peak {peak_mb:.0f} MiB"
-          + (f", {result['tflops']:.1f} TFLOP/s" if args.train else ""))
+          + (f", {result['tflops']:.1f} TFLOP/s" if args.train else "")
+          + (f", p50 {result['p50_ms']:.4f} ms, max {result['max_ms']:.4f} "
+             f"ms over 5 loops of 32" if loops is not None else ""))
     for label, (ms, n) in sorted(per_stage.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.4f} ms/step  {n // args.steps:4d} launches  {label}")
     print(f"  device idle share: {result['idle_share']}")
+    if args.latency:
+        rep = result["encoder_stages_us"]
+        print(f"  encoder stage clock ({rep['blocks']} blocks, us per launch; "
+              f"wall = work + barrier; barrier = least wait of any block):")
+        for name, row in rep.items():
+            if isinstance(row, dict):
+                print(f"    {row['wall']:9.2f} wall  {row['busy_mean']:9.2f} "
+                      f"mean work  {row['busy_max']:9.2f} max work  "
+                      f"{row['barrier']:8.2f} barrier  {name}")
+        print(f"    total {rep['total_wall']:.2f} us, barrier share "
+              f"{rep['barrier_share']:.3f}")
     for name, ms in result["top_torch_ops_ms"].items():
         print(f"  torch op {ms:9.4f} ms/step  {name}")
     print(json.dumps(result))
