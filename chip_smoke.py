@@ -47,8 +47,9 @@ Phases, each of which raises on failure (exit code != 0):
               160 uint8 requests, 12 launches each of K16 and K15 and one
               of K14 per batch and none of any bf16 kernel, logits within
               a band of the CPU plain int8 forward, top-1 agreement with
-              the card's bf16 forward stated; then the int8 and bf16
-              forwards' ms per b64 batch, timed in turns
+              the card's bf16 forward stated (the int8 and bf16 forwards'
+              ms per b64 batch are timed in turns with the static one,
+              phase 11)
  10. latency  the single-launch encoders K11 (vit_layers) and K19a
               (vit_layers_int8) against their plain versions at full
               ViT-B/16 width, b1 and b4, all rows: one layer elementwise,
@@ -62,6 +63,26 @@ Phases, each of which raises on failure (exit code != 0):
               (1 K11 launch per request) and make_forward_int8_latency (1
               K19a + 1 K14 per request), nothing else launched, p50/p99,
               logits against the CPU forward
+ 11. static int8  the calibrated static-scale path: quantize_vit_static's
+              probe on the card against the same probe on the CPU; K17
+              (mlp_block_int8_static) and K18 (attn_block_int8_static)
+              against their plain versions at b8 (each K17 activation, K18
+              with loud padding rows that must leave the valid rows bit for
+              bit; right after the build) and at the b64 path shapes, each
+              with a saturating case whose clipped share is printed and
+              must be > 0, then their times beside the plain version, a
+              library yardstick and the bound; K19b (vit_layers_int8_static)
+              with the latency kernels at b1 and b4 (one layer elementwise,
+              12 layers in norm, loud padding bit for bit) and its depth-12
+              times; 160 requests through ImageServer over make_forward_int8
+              on the static tree (12 K18 + 12 K17 + 1 K14 launches per
+              batch, nothing else), logits against the CPU plain forward,
+              top-1 against the card's bf16 and dynamic int8 forwards
+              stated; the static, dynamic and bf16 forwards timed in turns
+              at b64; 64 one-at-a-time requests through
+              ImageServer(batch_size=1) over make_forward_int8_latency on
+              the static tree (1 K19b + 1 K14 per request), and the static
+              and dynamic latency forwards timed in turns at b1
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -120,6 +141,10 @@ TRAIN_LR = 3e-4          # the Trainer's (and the JAX Trainer's) default
 # by one step: the output then moves by one quantization step of the last
 # GEMM, s_r * 127 * ws_n (the row scale of its int8 input times the
 # column's largest weight).  Band: BF16_TOL (1 + |b|) + INT8_STEPS steps.
+# The static kernels (K17, K18, K19b) quantize at a fixed scale, so a flip
+# moves bf16(y) by its own ulp whatever the row's magnitude; where x and y
+# cancel that exceeds 2^-6 |b| (K18 at b64: 3.125e-2 at |b| < 1 once in
+# 9.8M elements), so their elementwise term is BF16_TOL (1 + |b| + |x|).
 INT8_STEPS = 2
 # The int8 forward on the card vs the CPU plain int8 forward from the same
 # weights, relative to the largest logit.  A rint flip moves an element by
@@ -140,6 +165,14 @@ INT8_LOGITS_BAND = 0.1
 # of percent (PR 1-3's mutation copies).
 STACK_BF16_NORM = 2e-2
 STACK_INT8_NORM = 5e-2
+# The static scales' probe on the card against the same probe on the CPU
+# (bf16 activations, f32 sums in another order): a bf16 ulp flip moves an
+# absmax by up to 2^-8 relative and later layers carry it; 2e-2 relative,
+# the CPU tests' band against the JAX probe.
+CALIB_BAND = 2e-2
+# The saturating cases calibrate every static scale on half the range the
+# data reaches, so the top of each quantized tensor clips at +-127.
+SHRINK = 2.0
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -791,7 +824,10 @@ def _counters():
             "fused_mlp_bwd": fm.fused_mlp_bwd,
             "int8_linear_fused": qf.int8_linear_fused,
             "mlp_block_int8": qb.mlp_block_int8,
-            "attn_block_int8": qb.attn_block_int8}
+            "attn_block_int8": qb.attn_block_int8,
+            "mlp_block_int8_static": qb.mlp_block_int8_static,
+            "attn_block_int8_static": qb.attn_block_int8_static,
+            "vit_layers_int8_static": vs.vit_layers_int8_static}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -922,19 +958,24 @@ def _k14_step(x, q, ln_eps=0.0, **_):
     return sx * QMAX * q["w_s"]
 
 
-def _int8_parity(label, got, want, step, x=None, rows=(...,)):
+def _int8_parity(label, got, want, step, x=None, rows=(...,), mag_x=False):
     """Kernel vs plain version elementwise within BF16_TOL (1 + |b|) +
     INT8_STEPS * step, then the branch ``out - x`` (or, without a
-    residual, the output) in relative norm within BRANCH_TOL.  Returns
-    the max-abs error."""
+    residual, the output) in relative norm within BRANCH_TOL.  With
+    ``mag_x`` the elementwise term is BF16_TOL (1 + |b| + |x|): out = x +
+    bf16(y) carries one ulp of bf16(y), which exceeds 2^-6 |b| where x and
+    y cancel (the backward's dx band takes |g| so).  Returns the max-abs
+    error."""
     torch.cuda.synchronize()
     g, w, st = got[rows].float(), want[rows].float(), step[rows]
     diff = (g - w).abs()
-    tol = BF16_TOL * (1.0 + w.abs()) + INT8_STEPS * st
+    mag = w.abs() + (x[rows].float().abs() if mag_x else 0.0)
+    tol = BF16_TOL * (1.0 + mag) + INT8_STEPS * st
     bad = int((diff > tol).sum())
     max_abs = float(diff.max())
-    print(f"  {label}: max_abs={max_abs:.3e} (tol {BF16_TOL:g} (1 + |b|) + "
-          f"{INT8_STEPS} steps, largest step {float(st.max()):.3e}, "
+    what = "|b| + |x|" if mag_x else "|b|"
+    print(f"  {label}: max_abs={max_abs:.3e} (tol {BF16_TOL:g} (1 + {what}) "
+          f"+ {INT8_STEPS} steps, largest step {float(st.max()):.3e}, "
           f"violations={bad})")
     if bad or not torch.isfinite(g).all():
         raise AssertionError(f"{label}: kernel disagrees with its plain "
@@ -1145,10 +1186,12 @@ def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
 INT8_KERNELS = ("attn_block_int8", "mlp_block_int8", "int8_linear_fused")
 
 
-def phase_int8_slice(n_images=160, batch=64):
+def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
     """ImageServer over make_forward_int8(vit_b16) answers ``n_images``
-    uint8 requests.  Returns (launch counts, the int8 forward, the card's
-    bf16 forward of the same weights, the config)."""
+    uint8 requests: on the quantize_vit_fast tree (K16, K15, K14), or with
+    ``static`` on the quantize_vit_static tree (K18, K17, K14), whose top-1
+    is also set beside ``fwd_dynamic``'s.  Returns (launch counts, the int8
+    forward, the card's bf16 forward of the same weights, the config)."""
     from unittest import mock
 
     from vit_fpga_tpu_torch.models import quantized, vit
@@ -1158,7 +1201,13 @@ def phase_int8_slice(n_images=160, batch=64):
     from vit_fpga_tpu_torch.utils.log import Metrics
     cfg = vit.config("vit_b16", dtype="bfloat16")
     params = vit.init_params(cfg, _gen(5), device="cuda")
-    qparams = quantized.quantize_vit_fast(params)
+    label = "int8 static" if static else "int8"
+    if static:
+        qparams = quantized.quantize_vit_static(params, cfg)
+        halves = STATIC_BLOCK_KERNELS
+    else:
+        qparams = quantized.quantize_vit_fast(params)
+        halves = ("attn_block_int8", "mlp_block_int8")
     fwd = quantized.make_forward_int8(cfg, qparams, raw=True)
     images = np.random.default_rng(5).integers(
         0, 256, (n_images, cfg.image_size, cfg.image_size, 3), np.uint8)
@@ -1176,22 +1225,22 @@ def phase_int8_slice(n_images=160, batch=64):
         wall = time.perf_counter() - t0
         pct = server.latency_percentiles()
     launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"int8 slice: {len(results)}/{n_images} answered in "
+    print(f"{label} slice: {len(results)}/{n_images} answered in "
           f"{server.batches} batches, {wall:.3f} s, {n_images / wall:.1f} "
           f"img/s, p50 {pct['p50']:.2f} ms, p99 {pct['p99']:.2f} ms")
-    print(f"int8 slice launches: {launches}")
+    print(f"{label} slice launches: {launches}")
     if len(results) != n_images or server.served != n_images:
-        raise AssertionError("not every int8 request was answered")
+        raise AssertionError(f"not every {label} request was answered")
     for r in results:
         if r.shape != (cfg.num_classes,) or not np.isfinite(r).all():
-            raise AssertionError(f"bad int8 logits row: shape {r.shape}")
-    want = {"attn_block_int8": cfg.depth * server.batches,
-            "mlp_block_int8": cfg.depth * server.batches,
+            raise AssertionError(f"bad {label} logits row: shape {r.shape}")
+    want = {halves[0]: cfg.depth * server.batches,
+            halves[1]: cfg.depth * server.batches,
             "int8_linear_fused": server.batches}
     for name, n in launches.items():
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times for "
-                                 f"{server.batches} int8 batches, want "
+                                 f"{server.batches} {label} batches, want "
                                  f"{want.get(name, 0)}")
 
     cpu_fwd = quantized.make_forward_int8(cfg, _tree_to(qparams, "cpu"),
@@ -1200,39 +1249,44 @@ def phase_int8_slice(n_images=160, batch=64):
     ref = cpu_fwd(images[idx]).numpy()
     got = np.stack([results[i] for i in idx])
     # the floor: the same plain versions run on the card
-    with mock.patch.multiple(quantized,
-                             attn_block_int8=qb.attn_block_int8_plain,
-                             mlp_block_int8=qb.mlp_block_int8_plain,
+    plains = {k: getattr(qb, k + "_plain") for k in halves}
+    with mock.patch.multiple(quantized, **plains,
                              int8_linear_fused=qf.int8_linear_fused_plain):
         floor = quantized.make_forward_int8(cfg, qparams)(images[idx])
     floor = float(np.abs(floor.cpu().numpy() - ref).max() / np.abs(ref).max())
     rel = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print(f"int8 slice logits of images {idx} vs CPU plain int8 forward: "
+    print(f"{label} slice logits of images {idx} vs CPU plain forward: "
           f"max_rel={rel:.3e} (band {INT8_LOGITS_BAND}; plain versions on "
           f"the card vs the CPU: {floor:.3e}), top-1 agree "
           f"{int((got.argmax(1) == ref.argmax(1)).sum())}/{len(idx)}")
     if not rel <= INT8_LOGITS_BAND:
-        raise AssertionError("card int8 logits disagree with the CPU")
+        raise AssertionError(f"card {label} logits disagree with the CPU")
     bf_fwd = vit.make_forward(cfg, params, raw=True)
-    bf = np.concatenate([bf_fwd(images[i:i + batch]).cpu().numpy()
-                         for i in range(0, n_images, batch)])
-    agree = int((bf.argmax(1) == np.stack(results).argmax(1)).sum())
-    rel_bf = float(np.abs(np.stack(results) - bf).max() / np.abs(bf).max())
-    print(f"int8 vs the card's bf16 forward (same weights): top-1 agree "
-          f"{agree}/{n_images}, max_rel {rel_bf:.3e} (stated, not gated)")
+    others = {"bf16": bf_fwd}
+    if fwd_dynamic is not None:
+        others["dynamic int8"] = fwd_dynamic
+    for name, other in others.items():
+        o = np.concatenate([other(images[i:i + batch]).cpu().numpy()
+                            for i in range(0, n_images, batch)])
+        agree = int((o.argmax(1) == np.stack(results).argmax(1)).sum())
+        rel_o = float(np.abs(np.stack(results) - o).max() / np.abs(o).max())
+        print(f"{label} vs the card's {name} forward (same weights): top-1 "
+              f"agree {agree}/{n_images}, max_rel {rel_o:.3e} (stated, not "
+              f"gated)")
     return launches, fwd, bf_fwd, cfg
 
 
-def phase_int8_forward_time(fwd_int8, fwd_bf16, cfg, batch=64):
-    """ms per b64 batch of the int8 and the bf16 forward on one seeded
-    uint8 batch on the card, timed in turns (bf16, int8, int8, bf16)."""
+def phase_int8_forward_time(fwds, cfg, batch=64):
+    """ms per b64 batch of each forward in ``fwds`` ({name: forward}) on
+    one seeded uint8 batch on the card, timed in turns (the names in
+    order, then in reverse)."""
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     images = torch.from_numpy(np.random.default_rng(6).integers(
         0, 256, (batch, cfg.image_size, cfg.image_size, 3),
         np.uint8)).cuda()
-    runs = {"bf16": [], "int8": []}
-    for name in ("bf16", "int8", "int8", "bf16"):
-        fn = fwd_bf16 if name == "bf16" else fwd_int8
+    runs = {name: [] for name in fwds}
+    for name in list(fwds) + list(fwds)[::-1]:
+        fn = fwds[name]
         runs[name].append(time_cuda(lambda: fn(images), iters=10, warmup=2))
     for name, ms in runs.items():
         mean = sum(ms) / len(ms)
@@ -1243,10 +1297,277 @@ def phase_int8_forward_time(fwd_int8, fwd_bf16, cfg, batch=64):
 
 
 # ---------------------------------------------------------------------------
-# The batch-1 latency path: K11 and K19a, the whole encoder in one launch
+# The calibrated static-scale int8 path: K17, K18 (and K19b below)
 # ---------------------------------------------------------------------------
 
-LATENCY_KERNELS = ("vit_layers", "vit_layers_int8")
+STATIC_BLOCK_KERNELS = ("attn_block_int8_static", "mlp_block_int8_static")
+
+
+def _f32(v: float) -> float:
+    """A scale as the kernels take it (a C float) and the plain versions
+    see it: rounded to f32 once, here."""
+    return float(np.float32(v))
+
+
+def _clipped(v, s):
+    """The share of ``v / s`` that saturates: |v / s| > 127.5 rounds past
+    127."""
+    return float(((v / s).abs() > 127.5).float().mean())
+
+
+def _static_attn_args(x, q, heads, n_valid, shrink=1.0):
+    """K18's arguments from a dynamic int8 dict ``q`` (``_int8_weights``):
+    per-tensor scales a_x (the f32 LN of x) and a_ao (the attention output
+    of the dequantized QKV) over the valid rows, each divided by
+    ``shrink``, folded as quantize_vit_static folds them.  Returns (args,
+    clipped share of the int8 input, of the int8 attention output)."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.attn_block import _mha_tpu
+    xn = qb._ln_f32(x, q["ln_scale"], q["ln_bias"], EPS)
+    s_x = _f32(float(xn[:, :n_valid].abs().max()) / 127.0 / shrink)
+    qkv = (xn @ (q["wqkv_q"].float() * q["wqkv_s"]) + q["bqkv"]).to(x.dtype)
+    ao = _mha_tpu(qkv, heads, n_valid).float()[:, :n_valid]
+    s_ao = _f32(float(ao.abs().max()) / 127.0 / shrink)
+    a = dict(q, ln_scale=q["ln_scale"] / s_x, ln_bias=q["ln_bias"] / s_x,
+             wqkv_s=q["wqkv_s"] * s_x, wo_s=q["wo_s"] * s_ao,
+             inv=_f32(1.0 / s_ao))
+    return a, _clipped(xn[:, :n_valid], s_x), _clipped(ao, s_ao)
+
+
+def _static_mlp_args(x2, q, act, shrink=1.0):
+    """K17's arguments from a dynamic int8 dict: a_x (the f32 LN of x2)
+    and a_h (the activation of the dequantized W1 product), each divided
+    by ``shrink``.  Returns (args, clipped share of x's int8, of h's)."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    xn = qb._ln_f32(x2, q["ln_scale"], q["ln_bias"], EPS)
+    s_x = _f32(float(xn.abs().max()) / 127.0 / shrink)
+    h = qb._apply_act(xn @ (q["w1_q"].float() * q["w1_s"]) + q["b1"], act)
+    s_h = _f32(float(h.abs().max()) / 127.0 / shrink)
+    a = dict(q, ln_scale=q["ln_scale"] / s_x, ln_bias=q["ln_bias"] / s_x,
+             w1_s=q["w1_s"] * s_x, w2_s=q["w2_s"] * s_h,
+             inv=_f32(1.0 / s_h))
+    return a, _clipped(xn, s_x), _clipped(h, s_h)
+
+
+def _k18(fn, x, a, heads, n_valid):
+    return fn(x, a["inv"], a["ln_scale"], a["ln_bias"], a["wqkv_q"],
+              a["wqkv_s"], a["bqkv"], a["wo_q"], a["wo_s"], a["bo"], heads,
+              eps=EPS, n_valid=n_valid)
+
+
+def _k17(fn, x2, a, act):
+    return fn(x2, a["inv"], a["ln_scale"], a["ln_bias"], a["w1_q"],
+              a["w1_s"], a["b1"], a["w2_q"], a["w2_s"], a["b2"], eps=EPS,
+              act=act)
+
+
+def phase_static_kernels(batch, n_pad=200, n_valid=197, d=768, heads=12,
+                         m=3072):
+    """K18 and K17 against their plain versions at the path's shapes for
+    ``batch``, each calibrated on its own input (quiet) and on half its
+    range (saturating: the clipped share is printed and must be > 0); at
+    b8 K17 with every activation and K18 with 59 loud padding rows.  The
+    band is the int8 one, its elementwise term taken relative to |b| +
+    |x| (``_int8_parity``'s ``mag_x``); a step is 127 times the last
+    GEMM's folded column scale (the static row scale is 1).  Returns {kernel name:
+    largest max-abs error}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    worst = {name: 0.0 for name in STATIC_BLOCK_KERNELS}
+    x, _, p = _attn_inputs(batch, n_pad, d, seed=120 + batch)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    valid = (slice(None), slice(0, n_valid))
+    for label, shrink in (("quiet", 1.0), ("saturating", SHRINK)):
+        a, cx, cao = _static_attn_args(x, q, heads, n_valid, shrink)
+        print(f"parity K18 attn_block_int8_static ({batch}, {n_pad}, {d}) "
+              f"{label}: clipped share xq {cx:.3e}, aoq {cao:.3e}")
+        if shrink > 1.0 and not min(cx, cao) > 0.0:
+            raise AssertionError("K18 saturating case: nothing clipped")
+        worst["attn_block_int8_static"] = max(
+            worst["attn_block_int8_static"], _int8_parity(
+                f"K18 b{batch} {label}",
+                _k18(qb.attn_block_int8_static, x, a, heads, n_valid),
+                _k18(qb.attn_block_int8_static_plain, x, a, heads, n_valid),
+                (127.0 * a["wo_s"]).expand(batch, n_pad, d), x, rows=valid,
+                mag_x=True))
+    if batch <= 8:
+        xl, _, pl = _attn_inputs(batch, 256, d, seed=130)
+        a, _, _ = _static_attn_args(xl, _int8_weights(pl, ("wqkv", "wo")),
+                                    heads, n_valid)
+        loud = xl.clone()
+        loud[:, n_valid:] = 0.0
+        loud[:, n_valid:, 3] = 3e3
+        loud[:, n_valid:, 100] = -1e3
+        quiet_out = _k18(qb.attn_block_int8_static, xl, a, heads, n_valid)
+        loud_out = _k18(qb.attn_block_int8_static, loud, a, heads, n_valid)
+        worst["attn_block_int8_static"] = max(
+            worst["attn_block_int8_static"], _int8_parity(
+                "K18 loud padding", loud_out,
+                _k18(qb.attn_block_int8_static_plain, loud, a, heads,
+                     n_valid), (127.0 * a["wo_s"]).expand(batch, 256, d),
+                loud, rows=valid, mag_x=True))
+        moved = float((loud_out[valid].float() - quiet_out[valid].float())
+                      .abs().max())
+        print(f"  K18 valid rows, loud vs quiet padding rows {n_valid}..255: "
+              f"max_abs={moved:.3e} (must be 0)")
+        if moved != 0.0:
+            raise AssertionError("K18: padding rows moved the valid rows")
+
+    rows = batch * n_pad
+    x2, _, p = _mlp_inputs(rows, d, m, seed=121 + batch)
+    q = _int8_weights(p, ("w1", "w2"))
+    cases = [(act, "quiet", 1.0) for act in
+             (MLP_ACTS if batch <= 8 else ("gelu_tanh",))]
+    for act, label, shrink in cases + [("gelu_tanh", "saturating", SHRINK)]:
+        a, cx, ch = _static_mlp_args(x2, q, act, shrink)
+        print(f"parity K17 mlp_block_int8_static ({rows}, {d}) x {m} {act} "
+              f"{label}: clipped share xq {cx:.3e}, hq {ch:.3e}")
+        if shrink > 1.0 and not min(cx, ch) > 0.0:
+            raise AssertionError("K17 saturating case: nothing clipped")
+        worst["mlp_block_int8_static"] = max(
+            worst["mlp_block_int8_static"], _int8_parity(
+                f"K17 b{batch} {act} {label}",
+                _k17(qb.mlp_block_int8_static, x2, a, act),
+                _k17(qb.mlp_block_int8_static_plain, x2, a, act),
+                (127.0 * a["w2_s"]).expand(rows, d), x2, mag_x=True))
+    return worst
+
+
+def phase_static_calibration():
+    """quantize_vit_static's probe (the synthetic batch, bf16) of the
+    seeded vit_b16 on the card against the same probe on the CPU, per key
+    and layer within CALIB_BAND; the scales are printed."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.utils import calibrate
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(5), device="cuda")
+    t0 = time.perf_counter()
+    card = calibrate.static_activation_scales(params, cfg)
+    t_card = time.perf_counter() - t0
+    host = calibrate.static_activation_scales(_tree_to(params, "cpu"), cfg)
+    print(f"static calibration of vit_b16 (synthetic batch of 4, bf16 "
+          f"probe): {t_card:.2f} s on the card")
+    worst = 0.0
+    for k in calibrate.STAT_KEYS:
+        rel = float(np.abs(card[k] / host[k] - 1.0).max())
+        worst = max(worst, rel)
+        print(f"  {k}: " + " ".join(f"{v:.4g}" for v in card[k])
+              + f" (card vs CPU: max rel {rel:.2e})")
+    if not worst <= CALIB_BAND:
+        raise AssertionError(f"static scales on the card disagree with the "
+                             f"CPU probe ({worst:.2e} > {CALIB_BAND})")
+
+
+def _static_library(x, a, kind, heads=None, n_valid=None):
+    """K18 (``kind`` "attn") or K17 (tanh-GELU) as PyTorch calls the port
+    never makes: F.layer_norm with the folded affine, rint/clip,
+    torch._int_mm, the dequantization and (K18) SDPA with the key mask,
+    the static scale on its output."""
+    import torch.nn.functional as F
+    d = x.shape[-1]
+    rows = x.numel() // d
+    bf = torch.bfloat16
+
+    def q8(v, s=1.0):
+        return torch.clamp(torch.round(v * s), -127, 127).to(torch.int8)
+
+    def mm(aq, w, ws, b):
+        return torch._int_mm(aq, w).float() * ws + b
+
+    if kind == "attn":
+        b, n_pad, _ = x.shape
+        dh = d // heads
+        keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None,
+                                                              None]
+
+        def run():
+            h = F.layer_norm(x.float(), (d,), a["ln_scale"], a["ln_bias"],
+                             EPS).reshape(rows, d)
+            qkv = mm(q8(h), a["wqkv_q"], a["wqkv_s"], a["bqkv"]).to(bf)
+            qkv = qkv.view(b, n_pad, 3, heads, dh)
+            qh, kh, vh = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            ao = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)
+            ao = ao.transpose(1, 2).reshape(rows, d).float()
+            y = mm(q8(ao, a["inv"]), a["wo_q"], a["wo_s"], a["bo"])
+            return x.reshape(rows, d) + y.to(bf)
+        return run
+
+    def run():
+        h = F.layer_norm(x.float(), (d,), a["ln_scale"], a["ln_bias"], EPS)
+        h = F.gelu(mm(q8(h), a["w1_q"], a["w1_s"], a["b1"]),
+                   approximate="tanh")
+        return x + mm(q8(h, a["inv"]), a["w2_q"], a["w2_s"], a["b2"]).to(bf)
+    return run
+
+
+def phase_static_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
+                        m=3072):
+    """K18 and K17 at the b64 path shapes: the kernel's time, its plain
+    version's, the library yardstick's and the bound (the operations and
+    bytes of K16 and K15).  Returns {name: dict of times}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    rows, dh, vec = batch * n_pad, d // heads, 4
+    xa, _, pa = _attn_inputs(batch, n_pad, d, seed=140)
+    aa, _, _ = _static_attn_args(xa, _int8_weights(pa, ("wqkv", "wo")),
+                                 heads, n_valid)
+    x2, _, pm = _mlp_inputs(rows, d, m, seed=141)
+    am, _, _ = _static_mlp_args(x2, _int8_weights(pm, ("w1", "w2")),
+                                "gelu_tanh")
+    cases = {
+        "attn_block_int8_static": (
+            lambda: _k18(qb.attn_block_int8_static, xa, aa, heads, n_valid),
+            lambda: _k18(qb.attn_block_int8_static_plain, xa, aa, heads,
+                         n_valid),
+            _static_library(xa, aa, "attn", heads, n_valid),
+            8 * rows * d * d, 4 * batch * heads * n_pad * n_valid * dh,
+            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * vec),
+        "mlp_block_int8_static": (
+            lambda: _k17(qb.mlp_block_int8_static, x2, am, "gelu_tanh"),
+            lambda: _k17(qb.mlp_block_int8_static_plain, x2, am,
+                         "gelu_tanh"),
+            _static_library(x2, am, "mlp"),
+            4 * rows * d * m, 0,
+            2 * rows * d * 2 + 2 * d * m + (4 * d + 2 * m) * vec),
+    }
+    out = {}
+    for name, (kern, plain, lib, ops8, flops, nbytes) in cases.items():
+        ms = time_cuda(kern)
+        plain_ms = time_cuda(plain, iters=5, warmup=1)
+        lib_ms = _library_ms(lib, name)
+        bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"timing {name} b{batch}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 ops "
+              f"+ {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+    return out
+
+
+def run_static_phases(errors, timing, launches, fwd_int8, fwd_bf16, cfg):
+    """The static int8 b64 phases after the dynamic int8 ones (K17 and K18
+    at b8 ran right after the build; K19b runs with the latency
+    kernels), ending with the bf16, dynamic and static int8 forwards
+    timed in turns at b64."""
+    phase_static_calibration()
+    for name, err in phase_static_kernels(64).items():
+        errors[name] = max(errors[name], err)
+    for name, t in phase_static_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    static_launches, fwd_static, _, _ = phase_int8_slice(
+        static=True, fwd_dynamic=fwd_int8)
+    launches.update({k: v for k, v in static_launches.items()
+                     if k in STATIC_BLOCK_KERNELS})
+    phase_int8_forward_time({"bf16": fwd_bf16, "int8": fwd_int8,
+                             "int8 static": fwd_static}, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The batch-1 latency path: K11, K19a and K19b, the whole encoder in one
+# launch
+# ---------------------------------------------------------------------------
+
+LATENCY_KERNELS = ("vit_layers", "vit_layers_int8", "vit_layers_int8_static")
 
 
 def _stack_blocks(depth, d=768, m=3072, seed=100):
@@ -1266,11 +1587,18 @@ def _stack_blocks(depth, d=768, m=3072, seed=100):
 
 
 def _stack_trees(depth, seed=100):
-    """(bf16 tree, int8 tree) of the same seeded blocks, laid out as the
-    latency forwards prepare them (bf16 weights; int8 weights as (L, K, N)
-    views of (L, N, K) storage with f32 column scales)."""
-    from vit_fpga_tpu_torch.ops.quant_fused import (kmajor,
+    """(bf16 tree, int8 tree, static int8 tree) of the same seeded blocks,
+    laid out as the latency forwards prepare them (bf16 weights; int8
+    weights as (L, K, N) views of (L, N, K) storage with f32 column
+    scales).  The static tree folds scales from the port's probe
+    (calibrate.layer_absmax_stats) on seeded tokens, each layer's times
+    0.7, 1 or 1.4 in turn: the layers' scales differ (a kernel that reads
+    another layer's scale moves a branch by up to a factor of 2) and a
+    third of the layers saturate."""
+    from vit_fpga_tpu_torch.models import quantized
+    from vit_fpga_tpu_torch.ops.quant_fused import (QMAX, kmajor,
                                                     quantize_weight_colwise)
+    from vit_fpga_tpu_torch.utils import calibrate
     p = _stack_blocks(depth, seed=seed)
     mats = ("wqkv", "wo", "w1", "w2")
     bf = {k: (v.to(torch.bfloat16) if k in mats else v) for k, v in p.items()}
@@ -1280,7 +1608,14 @@ def _stack_trees(depth, seed=100):
         q8[k + "_q"] = kmajor(torch.from_numpy(
             np.stack([a for a, _ in pairs])).cuda())
         q8[k + "_s"] = torch.from_numpy(np.stack([s for _, s in pairs])).cuda()
-    return bf, q8
+    d = p["wo"].shape[-1]
+    sc = calibrate.layer_absmax_stats(p, _stack_x(4, d=d, seed=seed + 2),
+                                      d // 64, EPS, "gelu_tanh",
+                                      torch.bfloat16)
+    turns = np.asarray([0.7, 1.0, 1.4], np.float32)[np.arange(depth) % 3]
+    s8 = quantized._fold_static_scales(
+        {"blocks": q8}, {k: v * turns for k, v in sc.items()}, QMAX)["blocks"]
+    return bf, q8, s8
 
 
 def _stack_x(batch, n_pad=200, d=768, seed=101):
@@ -1288,7 +1623,7 @@ def _stack_x(batch, n_pad=200, d=768, seed=101):
 
 
 def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
-    """K11 and K19a against their plain versions on the card at full
+    """K11, K19a and K19b against their plain versions on the card at full
     ViT-B/16 width, all rows: one layer elementwise (the bf16 band; the
     int8 step band with the steps of both its GEMMs), all 12 layers in
     relative norm (the ulp flips of one layer compound through the
@@ -1297,11 +1632,12 @@ def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
     Runs right after the build.  Returns {kernel name: max-abs error}."""
     from vit_fpga_tpu_torch.ops import vit_stack as vs
     worst = {name: 0.0 for name in LATENCY_KERNELS}
-    bf12, q12 = _stack_trees(12)
+    bf12, q12, s12 = _stack_trees(12)
     for batch in batches:
         x = _stack_x(batch)
-        print(f"parity K11 vit_layers / K19a vit_layers_int8 ({batch}, 200, "
-              f"768), 12 heads, n_valid={n_valid}")
+        print(f"parity K11 vit_layers / K19a vit_layers_int8 / K19b "
+              f"vit_layers_int8_static ({batch}, 200, 768), 12 heads, "
+              f"n_valid={n_valid}")
         bf1 = {k: v[:1] for k, v in bf12.items()}
         q1 = {k: v[:1] for k, v in q12.items()}
         got = vs.vit_layers(x, bf1, heads, eps=EPS, n_valid=n_valid)
@@ -1316,11 +1652,24 @@ def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
         step = _stack_int8_step(x, q1, heads, n_valid)
         worst["vit_layers_int8"] = max(worst["vit_layers_int8"], _int8_parity(
             f"K19a b{batch} depth 1", got, want, step, x))
+        s1 = {k: v[:1] for k, v in s12.items()}
+        got = vs.vit_layers_int8_static(x, s1, heads, eps=EPS,
+                                        n_valid=n_valid)
+        want = vs.vit_layers_int8_static_plain(x, s1, heads, eps=EPS,
+                                               n_valid=n_valid)
+        # one step of each GEMM whose output the layer carries: 127 times
+        # the folded column scale of the out-projection and of W2
+        step = (127.0 * (s1["wo_s"][0] + s1["w2_s"][0])).expand_as(x)
+        worst["vit_layers_int8_static"] = max(
+            worst["vit_layers_int8_static"], _int8_parity(
+                f"K19b b{batch} depth 1", got, want, step, x, mag_x=True))
         for name, kern, plain, tree, tol in (
                 ("vit_layers", vs.vit_layers, vs.vit_layers_plain, bf12,
                  STACK_BF16_NORM),
                 ("vit_layers_int8", vs.vit_layers_int8,
-                 vs.vit_layers_int8_plain, q12, STACK_INT8_NORM)):
+                 vs.vit_layers_int8_plain, q12, STACK_INT8_NORM),
+                ("vit_layers_int8_static", vs.vit_layers_int8_static,
+                 vs.vit_layers_int8_static_plain, s12, STACK_INT8_NORM)):
             got = kern(x, tree, heads, eps=EPS, n_valid=n_valid)
             want = plain(x, tree, heads, eps=EPS, n_valid=n_valid)
             torch.cuda.synchronize()
@@ -1335,7 +1684,8 @@ def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
     loud[:, n_valid:, 3] = 3e3
     loud[:, n_valid:, 100] = -1e3
     for name, kern, tree in (("K11", vs.vit_layers, bf12),
-                             ("K19a", vs.vit_layers_int8, q12)):
+                             ("K19a", vs.vit_layers_int8, q12),
+                             ("K19b", vs.vit_layers_int8_static, s12)):
         quiet = kern(x, tree, heads, eps=EPS, n_valid=n_valid)
         noisy = kern(loud, tree, heads, eps=EPS, n_valid=n_valid)
         torch.cuda.synchronize()
@@ -1370,10 +1720,11 @@ def _stack_int8_step(x, q1, heads, n_valid):
                 b, n, d))
 
 
-def _stack_library(x, tree, heads, n_valid, int8):
+def _stack_library(x, tree, heads, n_valid, int8, static=False):
     """The 12 layers as PyTorch calls the port never makes: F.layer_norm,
     matmuls (torch._int_mm with the quantization and dequantization in
-    torch ops for int8), SDPA with the key mask, tanh-GELU."""
+    torch ops for int8; per-tensor static scales with ``static``), SDPA
+    with the key mask, tanh-GELU."""
     import torch.nn.functional as F
     from vit_fpga_tpu_torch.ops.quant_fused import _row_quant as rq
     b, n_pad, d = x.shape
@@ -1388,9 +1739,19 @@ def _stack_library(x, tree, heads, n_valid, int8):
             return torch.addmm(blk[bias], h.reshape(rows, -1), blk[w])
     else:
         lay = [{k: v[i] for k, v in tree.items()} for i in range(depth)]
+        # the static tree's input scale of each linear: 1 after the folded
+        # LayerNorms, 1/a_ao and 1/a_h for the attention output and h
+        inv = {"wqkv": "one", "wo": "inv_ao", "w1": "one", "w2": "inv_ah"}
+        one = torch.ones((1,), device="cuda")
 
         def lin(h, blk, w, bias):
-            hq, sh = rq(h.reshape(rows, -1).float())
+            h = h.reshape(rows, -1).float()
+            if static:
+                hq = torch.clamp(torch.round(
+                    h * blk.get(inv[w], one)), -127, 127).to(torch.int8)
+                sh = 1.0
+            else:
+                hq, sh = rq(h)
             return (torch._int_mm(hq, blk[w + "_q"]).float()
                     * (sh * blk[w + "_s"]) + blk[bias]).to(bf)
 
@@ -1420,7 +1781,7 @@ def phase_stack_timing(batches=(1, 4), n_valid=197, heads=12, d=768,
     {batch: {name: dict of times}}."""
     from vit_fpga_tpu_torch.ops import vit_stack as vs
     from vit_fpga_tpu_torch.utils.timing import time_cuda
-    bf12, q12 = _stack_trees(12, seed=110)
+    bf12, q12, s12 = _stack_trees(12, seed=110)
     depth, out = 12, {}
     wmat = 4 * d * d + 2 * d * m                 # weights per layer
     vecs = 3 * d + d + m + d + 4 * d             # biases and LN per layer
@@ -1438,6 +1799,12 @@ def phase_stack_timing(batches=(1, 4), n_valid=197, heads=12, d=768,
                 vs.vit_layers_int8, vs.vit_layers_int8_plain, q12, True,
                 _bound_int8(gemm, attn, depth * (wmat + (vecs + 3 * d + m)
                                                  * 4) + act_bytes)),
+            "vit_layers_int8_static": (
+                vs.vit_layers_int8_static, vs.vit_layers_int8_static_plain,
+                s12, True,
+                _bound_int8(gemm, attn, depth * (wmat + (vecs + 3 * d + m
+                                                         + 2) * 4)
+                            + act_bytes)),
         }
         out[batch] = {}
         for name, (kern, plain, tree, int8, (bound_ms, bound_by)) in \
@@ -1447,8 +1814,9 @@ def phase_stack_timing(batches=(1, 4), n_valid=197, heads=12, d=768,
             plain_ms = time_cuda(lambda: plain(x, tree, heads, eps=EPS,
                                                n_valid=n_valid),
                                  iters=3, warmup=1)
-            lib_ms = _library_ms(_stack_library(x, tree, heads, n_valid, int8),
-                                 name)
+            lib_ms = _library_ms(_stack_library(
+                x, tree, heads, n_valid, int8,
+                static=name == "vit_layers_int8_static"), name)
             out[batch][name] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=bound_ms,
                                     bound_by=bound_by)
@@ -1461,7 +1829,8 @@ def phase_stack_timing(batches=(1, 4), n_valid=197, heads=12, d=768,
 def phase_latency_forward_time(iters=50):
     """ms per b1 request of the single-launch forwards against the port's
     throughput forwards at b1 (24 or 25 kernel launches), timed in turns
-    (throughput, latency, latency, throughput) on one seeded image."""
+    (throughput, latency, latency, throughput) on one seeded image; then
+    the dynamic and static int8 latency forwards in turns."""
     from vit_fpga_tpu_torch.models import quantized, vit
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     cfg = vit.config("vit_b16", dtype="bfloat16")
@@ -1472,13 +1841,17 @@ def phase_latency_forward_time(iters=50):
     fwds = {"bf16 throughput": vit.make_forward(cfg, params),
             "bf16 latency": vit.make_forward_latency(cfg, params),
             "int8 throughput": quantized.make_forward_int8(cfg, qparams),
-            "int8 latency": quantized.make_forward_int8_latency(cfg, qparams)}
+            "int8 latency": quantized.make_forward_int8_latency(cfg, qparams),
+            "int8 static latency": quantized.make_forward_int8_latency(
+                cfg, quantized.quantize_vit_static(params, cfg))}
     runs = {name: [] for name in fwds}
-    for dt in ("bf16", "int8"):
-        for kind in ("throughput", "latency", "latency", "throughput"):
-            name = f"{dt} {kind}"
-            runs[name].append(time_cuda(lambda: fwds[name](image),
-                                        iters=iters, warmup=5))
+    turns = [f"{dt} {kind}" for dt in ("bf16", "int8")
+             for kind in ("throughput", "latency", "latency", "throughput")]
+    turns += ["int8 latency", "int8 static latency", "int8 static latency",
+              "int8 latency"]
+    for name in turns:
+        runs[name].append(time_cuda(lambda: fwds[name](image), iters=iters,
+                                    warmup=5))
     for name, ms in runs.items():
         print(f"forward {name} b1: " + " / ".join(f"{t:.4f}" for t in ms)
               + " ms per request")
@@ -1500,7 +1873,8 @@ def phase_latency_serve(n_requests=64, n_check=3):
     from vit_fpga_tpu_torch.utils.log import Metrics
     cfg = vit.config("vit_b16", dtype="bfloat16")
     params = vit.init_params(cfg, _gen(8), device="cuda")
-    qparams = quantized.quantize_vit_fast(params)
+    trees = {"int8": quantized.quantize_vit_fast(params),
+             "int8 static": quantized.quantize_vit_static(params, cfg)}
     images = np.random.default_rng(8).integers(
         0, 256, (n_requests, cfg.image_size, cfg.image_size, 3), np.uint8)
     paths = {
@@ -1508,12 +1882,14 @@ def phase_latency_serve(n_requests=64, n_check=3):
                  lambda: vit.make_forward_latency(
                      cfg, _tree_to(params, "cpu"), device="cpu"),
                  {"vit_layers": 1}, LOGITS_BAND),
-        "int8": (quantized.make_forward_int8_latency(cfg, qparams),
-                 lambda: quantized.make_forward_int8_latency(
-                     cfg, _tree_to(qparams, "cpu"), device="cpu"),
-                 {"vit_layers_int8": 1, "int8_linear_fused": 1},
-                 INT8_LOGITS_BAND),
     }
+    for label, layers in (("int8", "vit_layers_int8"),
+                          ("int8 static", "vit_layers_int8_static")):
+        paths[label] = (
+            quantized.make_forward_int8_latency(cfg, trees[label]),
+            lambda t=trees[label]: quantized.make_forward_int8_latency(
+                cfg, _tree_to(t, "cpu"), device="cpu"),
+            {layers: 1, "int8_linear_fused": 1}, INT8_LOGITS_BAND)
     counters = _counters()
     launches = {}
     idx = list(range(n_check))
@@ -1552,12 +1928,13 @@ def phase_latency_serve(n_requests=64, n_check=3):
         got = np.stack([results[i] for i in idx])
         rel = float(np.abs(got - ref).max() / np.abs(ref).max())
         note = ""
-        if label == "int8":                 # the floor: plain on the card
+        if label in trees:                  # the floor: plain on the card
+            layers = next(k for k in per_req if k in LATENCY_KERNELS)
             with mock.patch.multiple(
-                    quantized, vit_layers_int8=vs.vit_layers_int8_plain,
+                    quantized, **{layers: getattr(vs, layers + "_plain")},
                     int8_linear_fused=qf.int8_linear_fused_plain):
                 floor = quantized.make_forward_int8_latency(
-                    cfg, qparams)(images[idx]).cpu().numpy()
+                    cfg, trees[label])(images[idx]).cpu().numpy()
             floor = float(np.abs(floor - ref).max() / np.abs(ref).max())
             note = f"; plain versions on the card vs the CPU: {floor:.3e}"
         print(f"latency slice {label} logits of images {idx} vs the CPU "
@@ -1602,6 +1979,7 @@ def main() -> int:
         errors[name] = err
     errors["attn_block_int8"] = max(errors["attn_block_int8"],
                                     phase_int8_loud())
+    errors.update(phase_static_kernels(8))
     phase_parity()
     timing = phase_path_shapes()
     for batch in (8, 64):
@@ -1624,7 +2002,7 @@ def main() -> int:
     int8_launches, fwd_int8, fwd_bf16, cfg = phase_int8_slice()
     launches.update({k: v for k, v in int8_launches.items()
                      if k in INT8_KERNELS})
-    phase_int8_forward_time(fwd_int8, fwd_bf16, cfg)
+    run_static_phases(errors, timing, launches, fwd_int8, fwd_bf16, cfg)
     run_latency_phases(errors, timing, launches)
 
     sources = {
@@ -1650,6 +2028,14 @@ def main() -> int:
                        "vit_fpga_tpu/ops/vit_stack.py:93"),
         "vit_layers_int8": ("vit_fpga_tpu_torch/csrc/vit_stack_int8.cu",
                             "vit_fpga_tpu/ops/vit_stack.py:287"),
+        "mlp_block_int8_static": ("vit_fpga_tpu_torch/csrc/mlp_int8_static.cu",
+                                  "vit_fpga_tpu/ops/quant_block.py:640"),
+        "attn_block_int8_static": (
+            "vit_fpga_tpu_torch/csrc/attn_int8_static.cu",
+            "vit_fpga_tpu/ops/quant_block.py:729"),
+        "vit_layers_int8_static": (
+            "vit_fpga_tpu_torch/csrc/vit_stack_int8_static.cu",
+            "vit_fpga_tpu/ops/vit_stack.py:372"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

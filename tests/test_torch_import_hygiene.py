@@ -16,6 +16,7 @@ INT8_MODULES = ("vit_fpga_tpu_torch.models.quantized",
                 "vit_fpga_tpu_torch.ops.quant_fused",
                 "vit_fpga_tpu_torch.ops.quant_block")
 LATENCY_MODULES = ("vit_fpga_tpu_torch.ops.vit_stack",)
+STATIC_MODULES = ("vit_fpga_tpu_torch.utils.calibrate",)
 
 
 def _port_files():
@@ -43,7 +44,7 @@ def test_port_sources_import_no_jax():
     bad = {k: v for k, v in bad.items() if v}
     assert not bad, bad
     scanned = {str(f.relative_to(ROOT)) for f in files}
-    for mod in INT8_MODULES + LATENCY_MODULES:
+    for mod in INT8_MODULES + LATENCY_MODULES + STATIC_MODULES:
         assert mod.replace(".", "/") + ".py" in scanned, mod
     # the prefix trap: the port's own name starts with "vit_fpga_tpu"
     assert "vit_fpga_tpu_torch" not in FORBIDDEN
@@ -54,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
             "vit_fpga_tpu_torch.runtime.serving, "
             "vit_fpga_tpu_torch.train.trainer, "
             "vit_fpga_tpu_torch.profile_forward, "
-            + ", ".join(INT8_MODULES + LATENCY_MODULES) + "; "
+            + ", ".join(INT8_MODULES + LATENCY_MODULES + STATIC_MODULES)
+            + "; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'vit_fpga_tpu')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

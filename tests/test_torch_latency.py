@@ -170,16 +170,25 @@ def test_gates_agree_with_jax(batch, safe):
         batch <= 4 and not safe)
 
 
-def test_static_tree_raises_naming_k19b():
+def test_static_tree_raises_naming_k19b(monkeypatch):
+    """The latency forward serves a static tree (K19b's plain version)
+    within the int8 band of the JAX latency forward on it; the dynamic
+    stack refuses the tree, naming the static one."""
+    _interp(monkeypatch, jvs, "vit_layers_int8_static_pallas")
+    _interp(monkeypatch, jqf, "int8_linear_fused")
     jcfg, tcfg, jp, _ = _pair(12)
     static = jq.quantize_vit_static(
         jp, jcfg, images=jnp.asarray(np.random.default_rng(13).normal(
             size=(2, 32, 32, 3)), jnp.float32))
     handed = params_from_numpy(jax.tree_util.tree_map(np.asarray, static),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="K19b"):
-        tq.make_forward_int8_latency(tcfg, handed, device="cpu")
-    with pytest.raises(NotImplementedError, match="K19b"):
+    img = _images(14, b=2)
+    want = np.asarray(jq.vit_forward_int8_latency(
+        static, jvit.preprocess(jnp.asarray(img), jcfg), jcfg), np.float32)
+    got = tq.make_forward_int8_latency(tcfg, handed, device="cpu")(img)
+    assert got.shape == (2, 10)
+    assert _max_rel(got.numpy(), want) < INT8_BAND
+    with pytest.raises(ValueError, match="vit_layers_int8_static"):
         tvs.vit_layers_int8(torch.zeros(1, 17, 64, dtype=torch.bfloat16),
                             handed["blocks"], 4)
 

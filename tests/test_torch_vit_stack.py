@@ -237,16 +237,18 @@ def test_cpu_wrappers_run_plain_and_check_args():
     heads, d, m = 2, 128, 128
     blocks = _blocks(9, 1, d, m)
     x = _bf16_pair(_x(10, 1, 8, d))[1]
-    before = (tvs.vit_layers.launches, tvs.vit_layers_int8.launches)
-    tvs.vit_layers(x, _torch_tree(blocks), heads)
-    tvs.vit_layers_int8(x, _torch_tree(_qblocks(blocks)), heads)
-    assert (tvs.vit_layers.launches,
-            tvs.vit_layers_int8.launches) == before
-    with pytest.raises(ValueError, match="act"):
-        tvs.vit_layers(x, _torch_tree(blocks), heads, act="gelu")
     static = dict(_torch_tree(_qblocks(blocks)),
                   inv_ao=torch.ones(1, 1), inv_ah=torch.ones(1, 1))
-    with pytest.raises(NotImplementedError, match="K19b"):
+    before = (tvs.vit_layers.launches, tvs.vit_layers_int8.launches,
+              tvs.vit_layers_int8_static.launches)
+    tvs.vit_layers(x, _torch_tree(blocks), heads)
+    tvs.vit_layers_int8(x, _torch_tree(_qblocks(blocks)), heads)
+    tvs.vit_layers_int8_static(x, static, heads)
+    assert (tvs.vit_layers.launches, tvs.vit_layers_int8.launches,
+            tvs.vit_layers_int8_static.launches) == before
+    with pytest.raises(ValueError, match="act"):
+        tvs.vit_layers(x, _torch_tree(blocks), heads, act="gelu")
+    with pytest.raises(ValueError, match="vit_layers_int8_static"):
         tvs.vit_layers_int8(x, static, heads)
 
 

@@ -1,11 +1,18 @@
 // Attention tile of the forward attention halves (attn_stats.cu,
-// attn_block.cu); include after common.cuh.
+// attn_block.cu, attn_int8.cu, attn_int8_static.cu); include after
+// common.cuh.
 //
-//   attn_kernel<SAFE>  per (image, head), one 16-row query tile per warp:
-//                      s = (q k^T) * scale in f32, keys at or past n_valid
-//                      masked to 0; e = exp(clip(s, -70, 80)) (max-free) or,
-//                      with SAFE, e = exp(s - max over the unmasked keys);
-//                      ao = bf16((bf16(e) @ v) * (1 / sum(e))).
+//   attn_kernel<SAFE, Q8>  per (image, head), one 16-row query tile per
+//                      warp: s = (q k^T) * scale in f32, keys at or past
+//                      n_valid masked to 0; e = exp(clip(s, -70, 80))
+//                      (max-free) or, with SAFE, e = exp(s - max over the
+//                      unmasked keys); ao = bf16((bf16(e) @ v) * (1 /
+//                      sum(e))).  With Q8 (the static int8 kernels) the
+//                      reciprocal carries the static scale, r = (1 /
+//                      sum(e)) * out_scale, and the tile emits int8
+//                      aoq = clip(rint(bf16(o * r)), -127, 127): ao is
+//                      rounded to bf16 in the quant domain, as the TPU
+//                      kernel's bf16 scratch rounds it.
 
 #pragma once
 
@@ -40,11 +47,12 @@ __host__ __device__ inline AttnSmem attn_smem(int kvp) {
 }
 
 // qkv: (B * n_pad, 3D) bf16, q | k | v column blocks, head h at h*ATT_DH.
-// ao:  (B * n_pad, D) bf16.  One block per (head, image); warp w takes the
-// 16-row query tiles w, w + 8, ...
-template <bool SAFE>
+// ao:  (B * n_pad, D) bf16, or with Q8 aoq (B * n_pad, D) int8.  One block
+// per (head, image); warp w takes the 16-row query tiles w, w + 8, ...
+template <bool SAFE, bool Q8>
 __global__ void __launch_bounds__(ATT_THREADS)
-    attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ao, int n_pad, int n_valid,
+    attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ao,
+                signed char* __restrict__ aoq, float out_scale, int n_pad, int n_valid,
                 int kvp, int d, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CPR = ATT_DH / 8;  // 16-byte chunks per head row
@@ -175,17 +183,24 @@ __global__ void __launch_bounds__(ATT_THREADS)
       wmma::store_matrix_sync(S + j * 16, oacc[j], L.lds, wmma::mem_row_major);
     __syncwarp();
 
-    // ao = bf16(o * (1 / sum(e)))
+    // ao = bf16(o * (1 / sum(e))), or aoq = rint_sat(bf16(o * r))
     for (int c = lane; c < 16 * CPR; c += 32) {
       const int r = c / CPR, cc = c % CPR;
       const int q = q0 + r;
       if (q >= n_pad) continue;
-      const float rv = rinv[r];
+      const float rv = Q8 ? __fmul_rn(rinv[r], out_scale) : rinv[r];
       const float* src = S + r * L.lds + cc * 8;
+      const size_t off = ((size_t)b * n_pad + q) * d + h * ATT_DH + cc * 8;
       float f[8];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) f[t] = src[t] * rv;
-      *reinterpret_cast<uint4*>(ao + ((size_t)b * n_pad + q) * d + h * ATT_DH + cc * 8) = pack8(f);
+      for (int t = 0; t < 8; ++t) f[t] = __fmul_rn(src[t], rv);
+      if (Q8) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) f[t] = bf16_round(f[t]);
+        store_rint8(aoq + off, f);
+      } else {
+        *reinterpret_cast<uint4*>(ao + off) = pack8(f);
+      }
     }
     __syncwarp();  // the next tile reuses Qs, S and rinv
   }
@@ -193,17 +208,19 @@ __global__ void __launch_bounds__(ATT_THREADS)
 
 // Opts the attention block at ATT_MAX_KV keys (221 KB of shared memory)
 // in, on the current device.
-template <bool SAFE>
+template <bool SAFE, bool Q8 = false>
 inline cudaError_t attn_enable() {
-  return cudaFuncSetAttribute(attn_kernel<SAFE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(attn_kernel<SAFE, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)attn_smem(ATT_MAX_KV).bytes);
 }
 
-template <bool SAFE>
+// With Q8, ao is unused and aoq (int8) takes the output.
+template <bool SAFE, bool Q8 = false>
 inline cudaError_t launch_attn(const bf16* qkv, bf16* ao, int batch, int n_pad, int n_valid,
-                               int kvp, int d, int heads, float scale, cudaStream_t stream) {
-  attn_kernel<SAFE><<<dim3(heads, batch), ATT_THREADS, attn_smem(kvp).bytes, stream>>>(
-      qkv, ao, n_pad, n_valid, kvp, d, scale);
+                               int kvp, int d, int heads, float scale, cudaStream_t stream,
+                               signed char* aoq = nullptr, float out_scale = 1.0f) {
+  attn_kernel<SAFE, Q8><<<dim3(heads, batch), ATT_THREADS, attn_smem(kvp).bytes, stream>>>(
+      qkv, ao, aoq, out_scale, n_pad, n_valid, kvp, d, scale);
   return cudaGetLastError();
 }
 

@@ -122,6 +122,25 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return v;
 }
 
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// An f32 already in the quant domain -> int8: round half to even, then
+// saturate at +-127 (the JAX kernels' clip(rint(x), -127, 127)).
+__device__ __forceinline__ signed char rint_sat(float v) {
+  return static_cast<signed char>(static_cast<int>(fminf(fmaxf(rintf(v), -127.0f), 127.0f)));
+}
+
+// 8 values already in the quant domain -> 8 int8 (rint_sat), one 8-byte store.
+__device__ __forceinline__ void store_rint8(signed char* dst, const float* f) {
+  union {
+    signed char c[8];
+    uint2 u;
+  } q;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) q.c[t] = rint_sat(f[t]);
+  *reinterpret_cast<uint2*>(dst) = q.u;
+}
+
 __device__ __forceinline__ void load8f(const float* src, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(src);
   const float4 b = *reinterpret_cast<const float4*>(src + 4);

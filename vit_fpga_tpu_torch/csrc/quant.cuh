@@ -1,12 +1,15 @@
-// Int8 pieces of the dynamic int8 kernels (quant_linear.cu K14,
-// mlp_int8.cu K15, attn_int8.cu K16); include after common.cuh.
+// Int8 pieces of the int8 kernels (quant_linear.cu K14, mlp_int8.cu K15,
+// attn_int8.cu K16, mlp_int8_static.cu K17, attn_int8_static.cu K18);
+// include after common.cuh.
 //
-//   quant_rows_kernel<T, LN>  one warp per row of a (rows, k) bf16 or f32
-//       matrix: an optional f32 LayerNorm (LN_ONE_PASS: var = max(E[x^2] -
-//       mu^2, 0), the JAX int8 blocks' _ln_f32; LN_TWO_PASS: var =
-//       mean((x - mu)^2), the fused linear's jnp.var) with per-column scale
-//       and bias, then the row's absmax floored at 1e-12, s = absmax / 127
-//       and q = clip(rint(x / s), -127, 127) as int8.
+//   quant_rows_kernel<T, LN, STATIC>  one warp per row of a (rows, k) bf16
+//       or f32 matrix: an optional f32 LayerNorm (LN_ONE_PASS: var =
+//       max(E[x^2] - mu^2, 0), the JAX int8 blocks' _ln_f32; LN_TWO_PASS:
+//       var = mean((x - mu)^2), the fused linear's jnp.var) with per-column
+//       scale and bias, then the row's absmax floored at 1e-12, s = absmax
+//       / 127 and q = clip(rint(x / s), -127, 127) as int8.  STATIC (the
+//       calibrated scale folded into the LN affine): q = clip(rint(x)),
+//       no absmax and no division.
 //   quant_amax_kernel   the same quantization of an f32 matrix whose row
 //       absmax arrives as per-column-block partials (the EPI_AMAX epilogue
 //       below), so the matrix is read once.
@@ -18,6 +21,10 @@
 //         EPI_RESID  C = residual + bf16(f), added in bf16
 //         EPI_AMAX   C = act(f) in f32, plus each block's per-row absmax of
 //                    it: amax[blockIdx.x * M + m] over the block's columns.
+//         EPI_Q8     C = clip(rint(act(f) * qscale), -127, 127) as int8, the
+//                    static scale folded into the activation (qact_scaled).
+//       A null sa is a row scale of 1.0 (the static kernels: the input scale
+//       is folded into sb), so f = float(acc) * sb[n] + bias[n] exactly.
 //
 // Rounding follows the plain PyTorch versions (ops/quant_*.py): every
 // product, sum and quotient of the normalisation, quantization and
@@ -42,6 +49,27 @@ __device__ __forceinline__ float qact(float h, int act) {
     return __fmul_rn(h, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(u))));
   }
   return apply_act(h, act);
+}
+
+// act(h) * s with the static scale folded into the emission constants, in
+// the order of the JAX kernels' _apply_act_scaled: gelu_tanh's 0.5 * h
+// becomes (0.5 * s) * h, quick_gelu (s * h) * sigmoid(1.702 h), relu
+// max(s * h, 0); each product and sum rounded on its own.
+__device__ __forceinline__ float qact_scaled(float h, int act, float s) {
+  switch (act) {
+    case ACT_GELU_TANH: {
+      const float h2 = __fmul_rn(h, h);
+      const float u = __fmul_rn(h, __fadd_rn(0.7978845608028654f, __fmul_rn(0.035677408136300125f, h2)));
+      const float hh = __fmul_rn(__fmul_rn(0.5f, s), h);
+      return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
+    }
+    case ACT_QUICK_GELU:
+      return __fmul_rn(__fmul_rn(s, h), __frcp_rn(__fadd_rn(1.0f, expf(__fmul_rn(-1.702f, h)))));
+    case ACT_RELU:
+      return fmaxf(__fmul_rn(s, h), 0.0f);
+    default:
+      return __fmul_rn(s, h);
+  }
 }
 
 __device__ __forceinline__ signed char quant1(float v, float s) {
@@ -71,7 +99,7 @@ __device__ __forceinline__ void store_q8(signed char* dst, const float* f, float
   *reinterpret_cast<uint2*>(dst) = q.u;
 }
 
-template <typename T, int LN>
+template <typename T, int LN, bool STATIC>
 __global__ void __launch_bounds__(QR_THREADS)
     quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ls,
                       const float* __restrict__ lb, signed char* __restrict__ q,
@@ -121,6 +149,14 @@ __global__ void __launch_bounds__(QR_THREADS)
     for (int t = 0; t < 8; ++t)
       f[t] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[t], mu), rstd), sc[t]), bi[t]);
   };
+  if (STATIC) {  // already in the quant domain
+    for (int c = lane * 8; c < k; c += 32 * 8) {
+      float f[8];
+      norm8(c, f);
+      store_rint8(q + (size_t)row * k + c, f);
+    }
+    return;
+  }
   float amax = 0.0f;
   for (int c = lane * 8; c < k; c += 32 * 8) {
     float f[8];
@@ -137,12 +173,13 @@ __global__ void __launch_bounds__(QR_THREADS)
   if (lane == 0) s[row] = sc;
 }
 
-template <typename T, int LN>
+// s may be null with STATIC (no scale is written).
+template <typename T, int LN, bool STATIC = false>
 inline cudaError_t launch_quant_rows(const T* x, const float* ls, const float* lb, signed char* q,
                                      float* s, int rows, int k, float eps, cudaStream_t stream) {
   if (k % 8) return cudaErrorInvalidValue;
   const int per_block = QR_THREADS / 32;
-  quant_rows_kernel<T, LN><<<(rows + per_block - 1) / per_block, QR_THREADS, 0, stream>>>(
+  quant_rows_kernel<T, LN, STATIC><<<(rows + per_block - 1) / per_block, QR_THREADS, 0, stream>>>(
       x, ls, lb, q, s, rows, k, eps);
   return cudaGetLastError();
 }
@@ -186,7 +223,7 @@ inline cudaError_t launch_quant_amax(const float* h, const float* parts, int npa
 // free.
 // ---------------------------------------------------------------------------
 
-enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_AMAX = 2 };
+enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_AMAX = 2, EPI_Q8 = 3 };
 
 constexpr int QG_BM = 128;
 constexpr int QG_BN = 128;
@@ -204,16 +241,17 @@ static_assert(QG_SMEM >= ((QG_THREADS / 32) * 16 * QG_C_LD + 4 * QG_BM) * sizeof
 
 struct QGemmArgs {
   const signed char* A;  // (M, K) row-major int8
-  const float* sa;       // (M,) f32 row scales
+  const float* sa;       // (M,) f32 row scales, or null for 1.0
   const signed char* B;  // (N, K) row-major int8 (the (K, N) weight, transposed)
   const float* sb;       // (N,) f32 column scales
   const float* bias;     // (N,) f32
   const bf16* residual;  // EPI_RESID: (M, N) bf16
-  void* C;               // (M, N): bf16, or f32 with c_f32 (always f32 for EPI_AMAX)
+  void* C;               // (M, N): bf16, or f32 with c_f32 (always f32 for EPI_AMAX, int8 for EPI_Q8)
   float* amax;           // EPI_AMAX: (ceil(N / QG_BN), M) f32
   int M, N, K;
   int act;
   int c_f32;
+  float qscale;          // EPI_Q8: the static activation scale 1/a
 };
 
 template <int EPI>
@@ -317,7 +355,7 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
       const int gc = n0 + wn * 32 + j * 16 + ec;
       if (gr < p.M && gc < p.N) {
         const bool vec = gc + 8 <= p.N && p.N % 8 == 0;
-        const float srow = p.sa[gr];
+        const float srow = p.sa != nullptr ? p.sa[gr] : 1.0f;
         const int* src = cs + er * QG_C_LD + ec;
         float f[8];
 #pragma unroll
@@ -330,42 +368,59 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
           }
         }
         const size_t off = (size_t)gr * p.N + gc;
-        if (EPI == EPI_RESID) {
-          float r[8];
+        if (EPI == EPI_Q8) {
+          union {
+            signed char c[8];
+            uint2 u;
+          } q;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) q.c[t] = rint_sat(qact_scaled(f[t], p.act, p.qscale));
+          signed char* dst = static_cast<signed char*>(p.C) + off;
           if (vec) {
-            unpack8(*reinterpret_cast<const uint4*>(p.residual + off), r);
+            *reinterpret_cast<uint2*>(dst) = q.u;
           } else {
 #pragma unroll
             for (int t = 0; t < 8; ++t)
-              r[t] = gc + t < p.N ? __bfloat162float(p.residual[off + t]) : 0.0f;
-          }
-#pragma unroll
-          for (int t = 0; t < 8; ++t)  // x + bf16(y), added in f32 and rounded once
-            f[t] = r[t] + __bfloat162float(__float2bfloat16(f[t]));
-        } else {
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            f[t] = qact(f[t], p.act);
-            if (EPI == EPI_AMAX && gc + t < p.N) rmax[i] = fmaxf(rmax[i], fabsf(f[t]));
-          }
-        }
-        if (c_f32) {
-          float* dst = static_cast<float*>(p.C) + off;
-          if (vec) {
-            store8f(dst, f);
-          } else {
-#pragma unroll
-            for (int t = 0; t < 8; ++t)
-              if (gc + t < p.N) dst[t] = f[t];
+              if (gc + t < p.N) dst[t] = q.c[t];
           }
         } else {
-          bf16* dst = static_cast<bf16*>(p.C) + off;
-          if (vec) {
-            *reinterpret_cast<uint4*>(dst) = pack8(f);
+          if (EPI == EPI_RESID) {
+            float r[8];
+            if (vec) {
+              unpack8(*reinterpret_cast<const uint4*>(p.residual + off), r);
+            } else {
+#pragma unroll
+              for (int t = 0; t < 8; ++t)
+                r[t] = gc + t < p.N ? __bfloat162float(p.residual[off + t]) : 0.0f;
+            }
+#pragma unroll
+            for (int t = 0; t < 8; ++t)  // x + bf16(y), added in f32 and rounded once
+              f[t] = r[t] + __bfloat162float(__float2bfloat16(f[t]));
           } else {
 #pragma unroll
-            for (int t = 0; t < 8; ++t)
-              if (gc + t < p.N) dst[t] = __float2bfloat16(f[t]);
+            for (int t = 0; t < 8; ++t) {
+              f[t] = qact(f[t], p.act);
+              if (EPI == EPI_AMAX && gc + t < p.N) rmax[i] = fmaxf(rmax[i], fabsf(f[t]));
+            }
+          }
+          if (c_f32) {
+            float* dst = static_cast<float*>(p.C) + off;
+            if (vec) {
+              store8f(dst, f);
+            } else {
+#pragma unroll
+              for (int t = 0; t < 8; ++t)
+                if (gc + t < p.N) dst[t] = f[t];
+            }
+          } else {
+            bf16* dst = static_cast<bf16*>(p.C) + off;
+            if (vec) {
+              *reinterpret_cast<uint4*>(dst) = pack8(f);
+            } else {
+#pragma unroll
+              for (int t = 0; t < 8; ++t)
+                if (gc + t < p.N) dst[t] = __float2bfloat16(f[t]);
+            }
           }
         }
       }

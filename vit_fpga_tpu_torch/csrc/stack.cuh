@@ -1,5 +1,6 @@
 // Device pieces of the single-launch encoders (vit_stack.cu K11,
-// vit_stack_int8.cu K19a); include after common.cuh and quant.cuh.
+// vit_stack_int8.cu K19a, vit_stack_int8_static.cu K19b); include after
+// common.cuh and quant.cuh.
 //
 // Both kernels are cooperative and persistent: one grid of blocks stays
 // resident for the whole encoder, walks the layers in a loop and separates
@@ -16,7 +17,11 @@
 //   attn_item   16-row query tiles of one (image, head) against all its keys
 //       (the softmax rows spread over every warp of the block):
 //       s = (q k^T) * scale in f32, keys at or past n_valid masked,
-//       e = exp(clip(s, -70, 80)), ao = bf16((bf16(e) @ v) * (1 / sum(e))).
+//       e = exp(clip(s, -70, 80)), ao = bf16((bf16(e) @ v) * (1 / sum(e))),
+//       or (Q8, K19b) int8 aoq = clip(rint(bf16(o * ((1 / sum(e)) *
+//       out_scale))), -127, 127).
+//   qkv_stage, split_stage_i8, row_pass_i8  the int8 encoders' QKV tiles,
+//       split-K partial tiles and token-row passes (residual, LN, int8).
 //   prefetch_l2 spreads prefetch.global.L2 of a weight over the grid.
 //
 // Data one stage writes and a later one reads (after a grid barrier) is
@@ -85,8 +90,6 @@ __device__ __forceinline__ float stack_act(float h, int act) {
   const float hh = __fmul_rn(0.5f, h);
   return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
 }
-
-__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 __device__ __forceinline__ void ldcg8(const bf16* p, float* f) {
   unpack8(__ldcg(reinterpret_cast<const uint4*>(p)), f);
@@ -394,11 +397,14 @@ __host__ __device__ inline size_t stack_smem_bytes(int kvp) {
   return b;
 }
 
-// qkv (B * n_pad, 3D) bf16, q | k | v; ao (B * n_pad, D) bf16.  Query rows
+// qkv (B * n_pad, 3D) bf16, q | k | v; ao (B * n_pad, D) bf16, or with Q8
+// aoq (B * n_pad, D) int8 in the quant domain of out_scale.  Query rows
 // q0 .. q0 + ST_QCHUNK - 1 (those below n_pad) of image b, head h.  Every
 // thread of the block calls it.
-__device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, int b, int h, int q0, int n_pad, int n_valid,
-                          int kvp, int d, float scale, unsigned char* smem) {
+template <bool Q8>
+__device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, signed char* aoq, float out_scale,
+                                       int b, int h, int q0, int n_pad, int n_valid, int kvp, int d,
+                                       float scale, unsigned char* smem) {
   constexpr int CPR = ST_DH / 8;
   constexpr int NF = ST_DH / 16;
   const StAttnSmem L = st_attn_smem(kvp);
@@ -480,7 +486,7 @@ __device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, int b, int h, 
     if (lane == 0) rinv[r] = 1.0f / sum;
   }
   __syncthreads();
-  if (qwarp) {  // o = bf16(e) @ v (f32), then ao = bf16(o * (1 / sum(e)))
+  if (qwarp) {  // o = bf16(e) @ v (f32), then ao = bf16(o * (1 / sum(e))) or aoq
     float* S = reinterpret_cast<float*>(wbase + L.s_rel);
     bf16* P = reinterpret_cast<bf16*>(S);
     float* rinv = reinterpret_cast<float*>(wbase + L.r_rel);
@@ -506,26 +512,164 @@ __device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, int b, int h, 
       const int r = c / CPR, cc = c % CPR;
       const int q = qs + r;
       if (q >= n_pad) continue;
-      const float rv = rinv[r];
+      const float rv = Q8 ? __fmul_rn(rinv[r], out_scale) : rinv[r];
       const float* src = S + r * L.lds + cc * 8;
+      const size_t off = ((size_t)b * n_pad + q) * d + h * ST_DH + cc * 8;
       float f[8];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) f[t] = src[t] * rv;
-      *reinterpret_cast<uint4*>(ao + ((size_t)b * n_pad + q) * d + h * ST_DH + cc * 8) = pack8(f);
+      for (int t = 0; t < 8; ++t) f[t] = __fmul_rn(src[t], rv);
+      if (Q8) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) f[t] = bf16_round(f[t]);
+        store_rint8(aoq + off, f);
+      } else {
+        *reinterpret_cast<uint4*>(ao + off) = pack8(f);
+      }
     }
   }
 }
 
 // The attention stage: items (image, head, ST_QCHUNK query rows) taken by
-// the blocks in turn.
+// the blocks in turn.  With Q8 the items write int8 aoq (ao unused).
+template <bool Q8 = false>
 __device__ void attn_stage(const bf16* qkv, bf16* ao, int batch, int heads, int n_pad, int n_valid,
-                           int d, float scale, unsigned char* smem) {
+                           int d, float scale, unsigned char* smem, signed char* aoq = nullptr,
+                           float out_scale = 1.0f) {
   const int kvp = (n_valid + 15) / 16 * 16;
   const int chunks = (n_pad + ST_QCHUNK - 1) / ST_QCHUNK;
   const int items = batch * heads * chunks;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int qc = it % chunks, bh = it / chunks;
-    attn_item(qkv, ao, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid, kvp, d, scale, smem);
+    attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid,
+                  kvp, d, scale, smem);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The int8 encoders' shared stages (K19a, K19b).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float dequant(int acc, float srow, float scol, float bias) {
+  return __fadd_rn(__fmul_rn((float)acc, __fmul_rn(srow, scol)), bias);
+}
+
+__device__ __forceinline__ void ldcg8i(const int* p, int* a) {
+  const int4 u = __ldcg(reinterpret_cast<const int4*>(p));
+  const int4 w = __ldcg(reinterpret_cast<const int4*>(p + 4));
+  a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
+  a[4] = w.x; a[5] = w.y; a[6] = w.z; a[7] = w.w;
+}
+
+// Row quantization of this thread's 8 values (on) against the block's row
+// absmax: q[8], and the scale written to *sq by thread 0.
+__device__ __forceinline__ void quant_chunk(const float* f, bool on, signed char* q, float* sq) {
+  float amax = 0.0f;
+  if (on) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(f[t]));
+  }
+  const float qs = __fdiv_rn(fmaxf(block_max(amax), 1e-12f), 127.0f);
+  if (on) store_q8(q, f, qs);
+  if (threadIdx.x == 0) *sq = qs;
+}
+
+// One token row: tok = src, or tok + bf16(dequant(sum of nsplit int32
+// partials) + bias) with the row scale sx[row] of the GEMM's input (1.0
+// with STATIC: the scale is folded into scol); then, with ls, the one-pass
+// LN and the row's int8: xq = rowquant(xn) and sx[row] = its scale, or
+// with STATIC xq = clip(rint(xn)) (1/a_x folded into ls and lb; sx
+// unused).  One block per row, one 8-column chunk per thread; every load
+// is issued before the first is used.  Every thread of the block calls it.
+template <bool STATIC>
+__device__ __noinline__ void row_pass_i8(const bf16* src, bf16* tok, const int* part, int nsplit,
+                                         size_t pstride, const float* scol, const float* bias,
+                                         const float* ls, const float* lb, signed char* q,
+                                         float* sx, int row, int d, float eps) {
+  const int c = threadIdx.x * 8;
+  const bool on = c < d;
+  const int cc = on ? c : 0;  // threads past d load column 0 and drop it
+  const size_t off = (size_t)row * d + cc;
+  float v[8], sc[8], bi[8], lsc[8], lbi[8];
+  int acc[ST_MAX_SPLIT][8];
+  const float srow = part != nullptr && !STATIC ? __ldcg(sx + row) : 1.0f;
+  ldcg8(src + off, v);
+  if (part != nullptr) {
+#pragma unroll
+    for (int k = 0; k < ST_MAX_SPLIT; ++k)
+      if (k < nsplit) ldcg8i(part + k * pstride + off, acc[k]);
+    load8f(scol + cc, sc);
+    load8f(bias + cc, bi);
+  }
+  if (ls != nullptr) {
+    load8f(ls + cc, lsc);
+    load8f(lb + cc, lbi);
+  }
+  if (part != nullptr) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      int a = acc[0][t];
+#pragma unroll
+      for (int k = 1; k < ST_MAX_SPLIT; ++k)
+        if (k < nsplit) a += acc[k][t];
+      v[t] = bf16_round(v[t] + bf16_round(dequant(a, srow, sc[t], bi[t])));
+    }
+  }
+  if (on && (part != nullptr || src != tok)) *reinterpret_cast<uint4*>(tok + off) = pack8(v);
+  if (ls == nullptr) return;
+  float s = 0.0f, ss = 0.0f;
+  if (on) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      s += v[t];
+      ss += v[t] * v[t];
+    }
+  }
+  const float2 tot = block_sum2(s, ss);
+  const float mu = __fdiv_rn(tot.x, (float)d);
+  const float var = fmaxf(__fsub_rn(__fdiv_rn(tot.y, (float)d), __fmul_rn(mu, mu)), 0.0f);
+  const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    v[t] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[t], mu), rstd), lsc[t]), lbi[t]);
+  if (STATIC) {
+    if (on) store_rint8(q + off, v);
+  } else {
+    quant_chunk(v, on, q + off, sx + row);
+  }
+}
+
+// qkv = bf16(dequant(xq wqkvq)); a null sx is a row scale of 1.0 (K19b).
+__device__ void qkv_stage(const signed char* A, const float* sx, const signed char* W,
+                          const float* scol, const float* bias, bf16* C, int rows, int n, int k,
+                          unsigned char* smem) {
+  const int mt = (rows + ST_BM - 1) / ST_BM;
+  const int items = mt * (n / ST_BN);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int m0 = (it % mt) * ST_BM, n0 = (it / mt) * ST_BN;
+    tile_i8(A, k, W, k, rows, m0, n0, 0, k, smem, [&](int r, int c, int* acc) {
+      if (r >= rows) return;
+      const float srow = sx != nullptr ? __ldcg(sx + r) : 1.0f;
+      float f[16];
+#pragma unroll
+      for (int t = 0; t < 16; ++t) f[t] = dequant(acc[t], srow, scol[c + t], bias[c + t]);
+      store16(C + (size_t)r * n + c, f);
+    });
+  }
+}
+
+// part[s] (M, N) int32 = A[:, ks] W[:, ks]^T over `split` slices of k.
+__device__ void split_stage_i8(const signed char* A, const signed char* W, int* part, int rows,
+                               int n, int k, int split, unsigned char* smem) {
+  const int mt = (rows + ST_BM - 1) / ST_BM;
+  const int nt = n / ST_BN;
+  const int items = mt * nt * split;
+  const int kn = k / split;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int m0 = (it % mt) * ST_BM, n0 = ((it / mt) % nt) * ST_BN, s = it / (mt * nt);
+    int* dst = part + (size_t)s * rows * n;
+    tile_i8(A, k, W, k, rows, m0, n0, s * kn, kn, smem, [&](int r, int c, int* acc) {
+      if (r < rows) store16(dst + (size_t)r * n + c, acc);
+    });
   }
 }
 

@@ -105,88 +105,6 @@ __host__ __device__ inline size_t work_layout_i8(unsigned char* base, int rows, 
   return off;
 }
 
-__device__ __forceinline__ float dequant(int acc, float srow, float scol, float bias) {
-  return __fadd_rn(__fmul_rn((float)acc, __fmul_rn(srow, scol)), bias);
-}
-
-__device__ __forceinline__ void ldcg8i(const int* p, int* a) {
-  const int4 u = __ldcg(reinterpret_cast<const int4*>(p));
-  const int4 w = __ldcg(reinterpret_cast<const int4*>(p + 4));
-  a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
-  a[4] = w.x; a[5] = w.y; a[6] = w.z; a[7] = w.w;
-}
-
-// Row quantization of this thread's 8 values (on) against the block's row
-// absmax: q[8], and the scale written to *sq by thread 0.
-__device__ __forceinline__ void quant_chunk(const float* f, bool on, signed char* q, float* sq) {
-  float amax = 0.0f;
-  if (on) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(f[t]));
-  }
-  const float qs = __fdiv_rn(fmaxf(block_max(amax), 1e-12f), 127.0f);
-  if (on) store_q8(q, f, qs);
-  if (threadIdx.x == 0) *sq = qs;
-}
-
-// One token row: tok = src, or tok + bf16(dequant(sum of nsplit int32
-// partials) + bias) with the row scale sx[row] of the GEMM's input; then,
-// with ls, the one-pass LN, xq = rowquant(xn) and sx[row] = its scale.  One
-// block per row, one 8-column chunk per thread; every load is issued
-// before the first is used.  Every thread of the block calls it.
-__device__ __noinline__ void row_pass_i8(const bf16* src, bf16* tok, const int* part, int nsplit,
-                                         size_t pstride, const float* scol, const float* bias,
-                                         const float* ls, const float* lb, signed char* q,
-                                         float* sx, int row, int d, float eps) {
-  const int c = threadIdx.x * 8;
-  const bool on = c < d;
-  const int cc = on ? c : 0;  // threads past d load column 0 and drop it
-  const size_t off = (size_t)row * d + cc;
-  float v[8], sc[8], bi[8], lsc[8], lbi[8];
-  int acc[ST_MAX_SPLIT][8];
-  const float srow = part != nullptr ? __ldcg(sx + row) : 0.0f;
-  ldcg8(src + off, v);
-  if (part != nullptr) {
-#pragma unroll
-    for (int k = 0; k < ST_MAX_SPLIT; ++k)
-      if (k < nsplit) ldcg8i(part + k * pstride + off, acc[k]);
-    load8f(scol + cc, sc);
-    load8f(bias + cc, bi);
-  }
-  if (ls != nullptr) {
-    load8f(ls + cc, lsc);
-    load8f(lb + cc, lbi);
-  }
-  if (part != nullptr) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      int a = acc[0][t];
-#pragma unroll
-      for (int k = 1; k < ST_MAX_SPLIT; ++k)
-        if (k < nsplit) a += acc[k][t];
-      v[t] = bf16_round(v[t] + bf16_round(dequant(a, srow, sc[t], bi[t])));
-    }
-  }
-  if (on && (part != nullptr || src != tok)) *reinterpret_cast<uint4*>(tok + off) = pack8(v);
-  if (ls == nullptr) return;
-  float s = 0.0f, ss = 0.0f;
-  if (on) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      s += v[t];
-      ss += v[t] * v[t];
-    }
-  }
-  const float2 tot = block_sum2(s, ss);
-  const float mu = __fdiv_rn(tot.x, (float)d);
-  const float var = fmaxf(__fsub_rn(__fdiv_rn(tot.y, (float)d), __fmul_rn(mu, mu)), 0.0f);
-  const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-    v[t] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[t], mu), rstd), lsc[t]), lbi[t]);
-  quant_chunk(v, on, q + off, sx + row);
-}
-
 // aoq, sa = rowquant(f32(ao)) over the row's D columns.  One block per row.
 __device__ __noinline__ void ao_quant_row(const bf16* ao, signed char* q, float* sx, int row,
                                           int d) {
@@ -220,25 +138,6 @@ __device__ __noinline__ void h_quant_row(const float* h, const float* amax_parts
   for (int i = 0; i < ST_H_CHUNKS; ++i)
     if (on[i]) store_q8(q + (size_t)row * m + (tid + i * SK_THREADS) * 8, f[i], qs);
   if (tid == 0) sx[row] = qs;
-}
-
-// qkv = bf16(dequant(xq wqkvq)).
-__device__ void qkv_stage(const signed char* A, const float* sx, const signed char* W,
-                          const float* scol, const float* bias, bf16* C, int rows, int n, int k,
-                          unsigned char* smem) {
-  const int mt = (rows + ST_BM - 1) / ST_BM;
-  const int items = mt * (n / ST_BN);
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int m0 = (it % mt) * ST_BM, n0 = (it / mt) * ST_BN;
-    tile_i8(A, k, W, k, rows, m0, n0, 0, k, smem, [&](int r, int c, int* acc) {
-      if (r >= rows) return;
-      const float srow = __ldcg(sx + r);
-      float f[16];
-#pragma unroll
-      for (int t = 0; t < 16; ++t) f[t] = dequant(acc[t], srow, scol[c + t], bias[c + t]);
-      store16(C + (size_t)r * n + c, f);
-    });
-  }
 }
 
 // h = act(dequant(xq w1q)) in f32, and amax[n0 / 64][row] = the tile's
@@ -276,22 +175,6 @@ __device__ void w1_stage(const signed char* A, const float* sx, const signed cha
   }
 }
 
-// part[s] (M, N) int32 = A[:, ks] W[:, ks]^T over `split` slices of k.
-__device__ void split_stage_i8(const signed char* A, const signed char* W, int* part, int rows,
-                               int n, int k, int split, unsigned char* smem) {
-  const int mt = (rows + ST_BM - 1) / ST_BM;
-  const int nt = n / ST_BN;
-  const int items = mt * nt * split;
-  const int kn = k / split;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int m0 = (it % mt) * ST_BM, n0 = ((it / mt) % nt) * ST_BN, s = it / (mt * nt);
-    int* dst = part + (size_t)s * rows * n;
-    tile_i8(A, k, W, k, rows, m0, n0, s * kn, kn, smem, [&](int r, int c, int* acc) {
-      if (r < rows) store16(dst + (size_t)r * n + c, acc);
-    });
-  }
-}
-
 __global__ void __launch_bounds__(SK_THREADS, 2) stack_int8_kernel(StackI8Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
@@ -305,7 +188,7 @@ __global__ void __launch_bounds__(SK_THREADS, 2) stack_int8_kernel(StackI8Args p
   clk.start();
 
   for (int r = blockIdx.x; r < rows; r += gridDim.x)
-    row_pass_i8(p.x, p.tok, nullptr, 0, 0, nullptr, nullptr, p.ls1, p.lb1, w.q, w.sx, r, d, p.eps);
+    row_pass_i8<false>(p.x, p.tok, nullptr, 0, 0, nullptr, nullptr, p.ls1, p.lb1, w.q, w.sx, r, d, p.eps);
   clk.sync(grid, T_LN1);
   for (int l = 0; l < p.depth; ++l) {
     const signed char* wqkv = p.wqkv + (size_t)l * 3 * d * d;
@@ -325,7 +208,7 @@ __global__ void __launch_bounds__(SK_THREADS, 2) stack_int8_kernel(StackI8Args p
     split_stage_i8(w.q, wo, w.part, rows, d, d, so, smem);
     clk.sync(grid, T_OPROJ);
     for (int r = blockIdx.x; r < rows; r += gridDim.x)
-      row_pass_i8(p.tok, p.tok, w.part, so, pstride, p.so + (size_t)l * d, p.bo + (size_t)l * d,
+      row_pass_i8<false>(p.tok, p.tok, w.part, so, pstride, p.so + (size_t)l * d, p.bo + (size_t)l * d,
                   p.ls2 + (size_t)l * d, p.lb2 + (size_t)l * d, w.q, w.sx, r, d, p.eps);
     clk.sync(grid, T_RES_LN2);
     w1_stage(w.q, w.sx, w1, p.s1 + (size_t)l * m, p.b1 + (size_t)l * m, w.h, w.amax, rows, m, d,
@@ -338,7 +221,7 @@ __global__ void __launch_bounds__(SK_THREADS, 2) stack_int8_kernel(StackI8Args p
     clk.sync(grid, T_W2);
     const bool last = l == p.depth - 1;
     for (int r = blockIdx.x; r < rows; r += gridDim.x)
-      row_pass_i8(p.tok, p.tok, w.part, s2, pstride, p.s2 + (size_t)l * d, p.b2 + (size_t)l * d,
+      row_pass_i8<false>(p.tok, p.tok, w.part, s2, pstride, p.s2 + (size_t)l * d, p.b2 + (size_t)l * d,
                   last ? nullptr : p.ls1 + (size_t)(l + 1) * d,
                   last ? nullptr : p.lb1 + (size_t)(l + 1) * d, w.q, w.sx, r, d, p.eps);
     if (!last) {

@@ -1,38 +1,46 @@
-"""Dynamic int8 ViT serving (counterpart of the fast int8 path of the JAX
-package's models/quantized.py).
+"""Int8 ViT serving (counterpart of the fast int8 path of the JAX
+package's models/quantized.py), dynamic and calibrated static-scale.
 
 ``quantize_vit_fast`` turns the f32 parameter tree into the JAX package's
 int8 tree: per-output-column int8 weights (``*_q``, ``wq``) with f32
-scales (``*_s``, ``ws``), everything else as it was.  The forward is
+scales (``*_s``, ``ws``), everything else as it was.
+``quantize_vit_static`` calibrates per-layer activation scales on a probe
+batch (``utils/calibrate.static_activation_scales``) and folds them into
+that tree (``_fold_static_scales``): the static tree, marked by
+``blocks["inv_ao"]``.  The forward is
 
   preprocess -> dotg embed on the dequantized patch weight bf16(wq * ws),
   bias folded into the f32 position table
-  -> depth x _qblock_fast = [attn_block_int8 (K16) -> mlp_block_int8 (K15)]
+  -> depth x _qblock_fast = [attn_block_int8 (K16) -> mlp_block_int8 (K15)],
+     or on a static tree [attn_block_int8_static (K18) ->
+     mlp_block_int8_static (K17)]
   -> LayerNorm of the CLS row -> int8_linear_fused head (K14), bf16 -> f32
 
 in bf16 whatever ``cfg.dtype`` says.  The batch-1 latency forward
 (``make_forward_int8_latency``) runs the embed with the CLS row last, the
-whole encoder in one launch (K19a, ``ops/vit_stack.vit_layers_int8``) and
-the same head.  It runs the Hopper kernels on a CUDA device and their
-plain versions on the CPU.  The per-linear int8
-route that the JAX package takes where its block kernels do not fit, the
-calibrated static-scale trees (K17, K18, K19b) and the CLIP towers are
-not ported yet: a static tree raises.
+whole encoder in one launch (K19a ``ops/vit_stack.vit_layers_int8``, or
+K19b ``vit_layers_int8_static`` on a static tree) and the same head.  It
+runs the Hopper kernels on a CUDA device and their plain versions on the
+CPU.  The per-linear int8 route that the JAX package takes where its
+block kernels do not fit, the int8-scores attention (K22, gated off in
+the JAX package too) and the CLIP towers are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops.common import pad_sublane, round_up
 from ..ops.patch_embed import embed_tokens_dotg
-from ..ops.quant_block import attn_block_int8, mlp_block_int8
+from ..ops.quant_block import (attn_block_int8, attn_block_int8_static,
+                               mlp_block_int8, mlp_block_int8_static)
 from ..ops.quant_fused import (int8_linear_fused, kmajor,
-                               quantize_weight_colwise)
-from ..ops.vit_stack import stack_supported, vit_layers_int8
+                               QMAX, quantize_weight_colwise)
+from ..ops.vit_stack import (stack_supported, vit_layers_int8,
+                             vit_layers_int8_static)
 from ..utils.platform import resolve_device
 from . import vit as vit_mod
 
@@ -71,20 +79,95 @@ def quantize_vit_fast(params: Params) -> Params:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Calibrated static scales
+# ---------------------------------------------------------------------------
+
+def quantize_vit_static(params: Params, cfg: vit_mod.ViTConfig,
+                        images: Optional[torch.Tensor] = None,
+                        margin: float = 1.0) -> Params:
+    """:func:`quantize_vit_fast` tree with calibrated static activation
+    scales folded in (the JAX ``quantize_vit_static``).  ``images``: an
+    optional real calibration batch (normalized inputs); the synthetic
+    probe batch by default.  The probe runs on the tree's device.
+    Saturation beyond the calibrated absmax is the graceful-degradation
+    contract."""
+    from ..utils.calibrate import static_activation_scales
+    sc = static_activation_scales(params, cfg, images, margin)
+    return _fold_static_scales(quantize_vit_fast(params), sc, QMAX)
+
+
+def _fold_static_scales(out: Params, sc: Dict[str, np.ndarray],
+                        qmax: float) -> Params:
+    """Fold activation quant scales into the fast tree's arguments, in
+    numpy f32 (the JAX package's bits on any device): the LN affine
+    absorbs 1/s_x, the column scales s_x, s_ao and s_h; the two inverses
+    that cannot fold become the (depth, 1) tables ``inv_ao`` and
+    ``inv_ah``.  With q/k/v scales in ``sc`` the int8-scores keys (K22)
+    are derived too."""
+    blk = dict(out["blocks"])
+    dev = blk["ln1_scale"].device
+    sx1 = (sc["a_x1"] / qmax).astype(np.float32)        # (depth,)
+    s_ao = (sc["a_ao"] / qmax).astype(np.float32)
+    sx2 = (sc["a_x2"] / qmax).astype(np.float32)
+    s_h = (sc["a_h"] / qmax).astype(np.float32)
+
+    def f32(k):
+        return blk[k].detach().float().cpu().numpy()
+
+    def put(k, v):
+        blk[k] = torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+
+    put("ln1_scale", f32("ln1_scale") / sx1[:, None])
+    put("ln1_bias", f32("ln1_bias") / sx1[:, None])
+    put("wqkv_s", f32("wqkv_s") * sx1[:, None])
+    put("wo_s", f32("wo_s") * s_ao[:, None])
+    put("ln2_scale", f32("ln2_scale") / sx2[:, None])
+    put("ln2_bias", f32("ln2_bias") / sx2[:, None])
+    put("w1_s", f32("w1_s") * sx2[:, None])
+    put("w2_s", f32("w2_s") * s_h[:, None])
+    put("inv_ao", (1.0 / s_ao)[:, None])
+    put("inv_ah", (1.0 / s_h)[:, None])
+    if all(k in sc for k in ("a_q", "a_k", "a_v")):
+        s_q, s_k, s_v = ((sc[k] / qmax).astype(np.float32)
+                         for k in ("a_q", "a_k", "a_v"))
+        dm = blk["wqkv_s"].shape[-1] // 3
+        s_thirds = np.concatenate(
+            [np.tile(v[:, None], (1, dm)) for v in (s_q, s_k, s_v)], axis=1)
+        put("wqkv_qs", f32("wqkv_s") / s_thirds)
+        put("bqkv_qs", f32("bqkv") / s_thirds)
+        put("sc_qk", (s_q * s_k)[:, None])
+        put("pv_fold", (s_v / qmax / s_ao)[:, None])
+    return dict(out, blocks=blk)
+
+
+# The int8-scores attention (K22): off, as in the JAX package, where it
+# measured a loss on the TPU; not ported.
+_INT8_SCORES = False
+
+
+def _int8_scores_ok(blk, cfg: vit_mod.ViTConfig) -> bool:
+    """Whether the JAX package would take its int8-scores attention (K22):
+    the tree carries the q/k/v panel scales and the geometry is dh 64
+    with an even head count.  False while ``_INT8_SCORES`` is."""
+    return (_INT8_SCORES and "sc_qk" in blk
+            and cfg.hidden_dim // cfg.num_heads == 64
+            and cfg.num_heads % 2 == 0)
+
+
 def _check_tree(qparams: Params, cfg: vit_mod.ViTConfig) -> None:
-    if "inv_ao" in qparams["blocks"]:
-        raise NotImplementedError(
-            "calibrated static-scale int8 trees (kernels K17, K18) are not "
-            "ported yet; quantize with quantize_vit_fast")
     if cfg.remat:
         raise NotImplementedError("the int8 forward serves; remat is a "
                                   "training option")
 
 
 def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
-    """One-time preparation of a ``quantize_vit_fast`` tree for the
-    forward: the dequantized bf16 embed weight, the folded (n_pad, D) f32
-    position table, and per-layer weights laid out for the int8 GEMMs."""
+    """One-time preparation of a ``quantize_vit_fast`` or
+    ``quantize_vit_static`` tree for the forward: the dequantized bf16
+    embed weight, the folded (n_pad, D) f32 position table, and per-layer
+    weights laid out for the int8 GEMMs.  A static tree's ``inv_ao`` and
+    ``inv_ah`` are read here, once, as Python floats: the kernels take
+    them by value, so no call syncs on them."""
     if _PREPARED in qparams:
         return qparams
     _check_tree(qparams, cfg)
@@ -103,6 +186,11 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     per_key = {k: v.unbind(0) for k, v in qparams["blocks"].items()}
     layers = [{k: (kmajor(v[i]) if k.endswith("_q") else v[i])
                for k, v in per_key.items()} for i in range(cfg.depth)]
+    for k in ("inv_ao", "inv_ah"):
+        if k in qparams["blocks"]:
+            for lay, v in zip(layers, qparams["blocks"][k].reshape(-1)
+                              .tolist()):
+                lay[k] = v
     prepped = dict(qparams, _embed=(wp, posb), _layers=layers)
     prepped[_PREPARED] = True
     if "head" in qparams:
@@ -111,9 +199,32 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     return prepped
 
 
+def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
+                   n_valid: int) -> torch.Tensor:
+    """One calibrated static-scale block on padded (B, n_pad, D) bf16
+    tokens: K18 -> K17."""
+    b, n_pad, d = x.shape
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    if _int8_scores_ok(blk, cfg):
+        raise NotImplementedError("the int8-scores attention (K22) is not "
+                                  "ported")
+    x = attn_block_int8_static(
+        x, blk["inv_ao"], blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
+        blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
+        cfg.num_heads, eps=cfg.ln_eps, n_valid=n_valid)
+    y = mlp_block_int8_static(
+        x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
+        blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"],
+        blk["w2_s"], blk["b2"], eps=cfg.ln_eps, act=act)
+    return y.reshape(b, n_pad, d)
+
+
 def _qblock_fast(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
                  n_valid: int) -> torch.Tensor:
-    """One int8 block on padded (B, n_pad, D) bf16 tokens: K16 -> K15."""
+    """One int8 block on padded (B, n_pad, D) bf16 tokens: K16 -> K15, or
+    K18 -> K17 on a static tree."""
+    if "inv_ao" in blk:
+        return _qblock_static(x, blk, cfg, n_valid)
     b, n_pad, d = x.shape
     act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
     x = attn_block_int8(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
@@ -131,7 +242,8 @@ def vit_forward_int8_fast(qparams: Params, images: torch.Tensor,
                           cfg: vit_mod.ViTConfig) -> torch.Tensor:
     """Normalized images (B, S, S, 3) -> f32 logits through the int8
     engine (f32 CLS features for a headless tree).  ``qparams`` is a
-    ``quantize_vit_fast`` tree, or one :func:`prepare_int8` prepared."""
+    ``quantize_vit_fast`` or ``quantize_vit_static`` tree, or one
+    :func:`prepare_int8` prepared."""
     prep = prepare_int8(qparams, cfg)
     wp, posb = prep["_embed"]
     x = embed_tokens_dotg(images.to(torch.bfloat16), wp, posb,
@@ -195,15 +307,11 @@ def int8_latency_supported(cfg: vit_mod.ViTConfig, batch: int) -> bool:
 def prep_int8_latency(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     """One-time fold for :func:`vit_forward_int8_latency`: the dequantized
     bf16 patch weight, the CLS-last posb table, the stacked int8 weights
-    laid out k-major for K19a (``kmajor``) and the head's weight
-    for K14, so no call copies a weight.  A static tree raises naming
-    K19b."""
+    laid out k-major for K19a or K19b (``kmajor``) and the head's weight
+    for K14, so no call copies a weight.  A static tree keeps its
+    ``inv_ao`` / ``inv_ah`` tables on the device, where K19b reads them."""
     if "posb_cl" in qparams:
         return qparams
-    if "inv_ao" in qparams["blocks"]:
-        raise NotImplementedError(
-            "calibrated static-scale int8 trees (kernel K19b) are not ported "
-            "yet; quantize with quantize_vit_fast")
     n_pad = round_up(cfg.seq_len, pad_sublane(torch.bfloat16))
     pe = qparams["patch_embed"]
     posb = vit_mod._cls_last_posb(qparams["pos_embed"][0].float(),
@@ -227,10 +335,11 @@ def prep_int8_latency(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
 def vit_forward_int8_latency(qparams: Params, images: torch.Tensor,
                              cfg: vit_mod.ViTConfig) -> torch.Tensor:
     """Small-batch int8 forward: the dotg embed with the prefix rows LAST
-    on bf16(wq * ws), the whole encoder in one launch (K19a,
-    ``ops/vit_stack.vit_layers_int8``), the LayerNorm of the CLS row and
-    the K14 head (f32 CLS features for a headless tree).  ``qparams`` may
-    be the plain ``quantize_vit_fast`` tree or the
+    on bf16(wq * ws), the whole encoder in one launch (K19a
+    ``ops/vit_stack.vit_layers_int8``, or K19b ``vit_layers_int8_static``
+    on a static tree), the LayerNorm of the CLS row and the K14 head (f32
+    CLS features for a headless tree).  ``qparams`` may be the plain
+    ``quantize_vit_fast`` or ``quantize_vit_static`` tree or the
     :func:`prep_int8_latency` fold.  On the card it raises outside
     :func:`int8_latency_supported`."""
     if cfg.pool != "cls":
@@ -249,8 +358,10 @@ def vit_forward_int8_latency(qparams: Params, images: torch.Tensor,
     x = embed_tokens_dotg(images.to(torch.bfloat16), prep["wp_cl"],
                           prep["posb_cl"], cfg.patch_size, npre,
                           prefix_last=True)
-    toks = vit_layers_int8(x, prep["blocks"], cfg.num_heads, eps=cfg.ln_eps,
-                           act=act, n_valid=n)
+    layers = (vit_layers_int8_static if "inv_ao" in prep["blocks"]
+              else vit_layers_int8)
+    toks = layers(x, prep["blocks"], cfg.num_heads, eps=cfg.ln_eps, act=act,
+                  n_valid=n)
     cls_t = vit_mod._layernorm(toks[:, npch:npch + 1], prep["lfs"],
                                prep["lfb"], cfg.ln_eps)
     if "head" not in prep:

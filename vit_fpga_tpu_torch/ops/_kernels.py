@@ -28,7 +28,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_bwd.cu", "mlp_bwd.cu", "quant_linear.cu", "mlp_int8.cu",
-           "attn_int8.cu", "vit_stack.cu", "vit_stack_int8.cu")
+           "attn_int8.cu", "vit_stack.cu", "vit_stack_int8.cu",
+           "mlp_int8_static.cu", "attn_int8_static.cu",
+           "vit_stack_int8_static.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,13 +77,25 @@ _SIGNATURES = {
     "vft_vit_stack_int8_workspace": ([_I] * 3, ctypes.c_size_t),
     "vft_vit_layers_int8": ([_P] * 19 + [_I] * 8 + [_F, _F, _P, _P],
                             ctypes.c_int),
+    "vft_mlp_int8_static_init": ([], ctypes.c_int),
+    "vft_mlp_block_int8_static": ([_P] * 12 + [_I] * 4 + [_F, _F, _P],
+                                  ctypes.c_int),
+    "vft_attn_int8_static_init": ([], ctypes.c_int),
+    "vft_attn_block_int8_static": ([_P] * 12 + [_I] * 5 + [_F] * 3 + [_P],
+                                   ctypes.c_int),
+    "vft_vit_stack_int8_static_init": ([], ctypes.c_int),
+    "vft_vit_stack_int8_static_workspace": ([_I] * 3, ctypes.c_size_t),
+    "vft_vit_layers_int8_static": ([_P] * 21 + [_I] * 8 + [_F, _F, _P, _P],
+                                   ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.
 _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_fused_mlp_init", "vft_attn_bwd_init", "vft_mlp_bwd_init",
           "vft_quant_linear_init", "vft_mlp_int8_init", "vft_attn_int8_init",
-          "vft_vit_stack_init", "vft_vit_stack_int8_init")
+          "vft_vit_stack_init", "vft_vit_stack_int8_init",
+          "vft_mlp_int8_static_init", "vft_attn_int8_static_init",
+          "vft_vit_stack_int8_static_init")
 
 
 def _nvcc() -> str:

@@ -55,10 +55,12 @@ _EXP_LO, _EXP_HI = -70.0, 80.0
 
 
 def _mha_tpu(qkv: torch.Tensor, num_heads: int, n_valid: int,
-             safe_softmax: bool = False) -> torch.Tensor:
+             safe_softmax: bool = False, out_scale=None) -> torch.Tensor:
     """The JAX kernels' ``_mha_loop`` arithmetic on (B, N, 3D) qkv:
     f32 scores, masked keys, ``exp(s - max)`` (safe) or ``exp(clip(s))``,
-    bf16(e) @ v in f32, times 1 / sum(e), rounded to the qkv dtype."""
+    bf16(e) @ v in f32, times r = 1 / sum(e), rounded to the qkv dtype.
+    ``out_scale`` (the static int8 kernels' 1/a_ao) rides the reciprocal:
+    r = (1 / sum(e)) * out_scale, then pv * r."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     dh = d // num_heads
@@ -86,8 +88,10 @@ def _mha_tpu(qkv: torch.Tensor, num_heads: int, n_valid: int,
     if safe_softmax:
         s = s - s.amax(-1, keepdim=True)
     e = torch.exp(s)
-    denom = e.sum(-1, keepdim=True)
-    pv = (e.to(dt).float() @ v.float()) * (1.0 / denom)
+    r = 1.0 / e.sum(-1, keepdim=True)
+    if out_scale is not None:
+        r = r * out_scale
+    pv = (e.to(dt).float() @ v.float()) * r
     return pv.to(dt).transpose(1, 2).reshape(b, n, d)
 
 

@@ -1,9 +1,9 @@
 """Whole-encoder single-launch kernels for batch-1 latency serving
 (counterpart of the JAX package's ops/vit_stack.py).
 
-Two Hopper kernels live here, each behind a wrapper that launches it on a
-CUDA tensor and runs its plain PyTorch version (same arithmetic) on a CPU
-tensor:
+Three Hopper kernels live here, each behind a wrapper that launches it on
+a CUDA tensor and runs its plain PyTorch version (same arithmetic) on a
+CPU tensor:
 
 * K11 ``vit_layers`` (``csrc/vit_stack.cu``): replaces
   ``vit_fpga_tpu/ops/vit_stack.py:_stack_kernel`` (wrapper
@@ -15,6 +15,14 @@ tensor:
   ``_stack_int8_kernel`` (wrapper ``vit_layers_int8_pallas``), whose layer
   is exactly K16 then K15: int8 weights with per-column scales, per-row
   activation scales computed in the kernel.
+* K19b ``vit_layers_int8_static`` (``csrc/vit_stack_int8_static.cu``):
+  replaces ``_stack_int8_static_kernel`` (wrapper
+  ``vit_layers_int8_static_pallas``), whose layer is exactly K18 then K17:
+  the calibrated scales folded into the arguments
+  (``models/quantized.quantize_vit_static``) and the per-layer 1/a_ao and
+  1/a_h read from (depth,) tables by the layer the loop is on.  No row
+  absmax: the tiles and the attention items emit int8 directly, so a
+  layer has 7 stages and barriers where K19a has 9.
 
 On the card each is ONE cooperative launch: a persistent grid walks the
 layers and separates the stages with grid-wide barriers (``csrc/
@@ -22,7 +30,7 @@ stack.cuh``).  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
 reads 169.9 MB of bf16 weights (50.7 us at 3.35 TB/s) for 34.9 GFLOP
 (35.3 us at 989 TFLOP/s); K19a 84.9 MB of int8 weights and 0.33 MB of
 scales (25.4 us) for 33.5 G int8 operations (16.9 us): both bound by
-bytes.  At batch 4 K11's 139.6 GFLOP (141 us) makes it bound by
+bytes, and K19b as K19a.  At batch 4 K11's 139.6 GFLOP (141 us) makes it bound by
 operations.  The VMEM planner of the JAX package (``stack_plan`` /
 ``stack_fits``) is a TPU artefact; :func:`stack_supported` states what the
 CUDA kernels take instead.
@@ -39,7 +47,9 @@ from .attn_block import attn_block_fwd_plain
 from .common import check_activation, kernel_operand, pad_sublane, round_up, \
     row_stats
 from .fused_mlp import fused_mlp_stats_plain
-from .quant_block import attn_block_int8_plain, mlp_block_int8_plain
+from .quant_block import (attn_block_int8_plain,
+                          attn_block_int8_static_plain,
+                          mlp_block_int8_plain, mlp_block_int8_static_plain)
 from .quant_fused import weight_kmajor
 
 # Activation codes of csrc/common.cuh (enum Act).
@@ -61,6 +71,11 @@ K19A_STAGES = ("LN1 + quant rows (first layer)", "int8 QKV tiles",
                "int8 out-proj split-K tiles", "residual + LN2 + quant rows",
                "int8 W1 + act + row max tiles", "h quant rows",
                "int8 W2 split-K tiles", "residual + next LN1 + quant rows")
+K19B_STAGES = ("LN1 + rint rows (first layer)", "int8 QKV tiles",
+               "attention + prefetch, int8 ao",
+               "int8 out-proj split-K tiles", "residual + LN2 + rint rows",
+               "int8 W1 + scaled act + rint tiles", "int8 W2 split-K tiles",
+               "residual + next LN1 + rint rows")
 
 
 def stack_supported(num_heads: int, d: int, mlp_dim: int, n_valid: int,
@@ -81,10 +96,17 @@ def _check_act(act: str) -> None:
 
 def _check_dynamic(qblocks) -> None:
     if "inv_ao" in qblocks:
-        raise NotImplementedError(
-            "calibrated static-scale int8 trees (kernel K19b, "
-            "vit_layers_int8_static_pallas) are not ported yet; quantize "
-            "with quantize_vit_fast")
+        raise ValueError(
+            "a calibrated static-scale int8 tree (inv_ao) runs through "
+            "vit_layers_int8_static (K19b); vit_layers_int8 quantizes "
+            "dynamically and would be silently wrong on it")
+
+
+def _check_static(qblocks) -> None:
+    if "inv_ao" not in qblocks or "inv_ah" not in qblocks:
+        raise ValueError("vit_layers_int8_static takes a quantize_vit_static "
+                         "tree (inv_ao, inv_ah); a quantize_vit_fast tree "
+                         "runs through vit_layers_int8")
 
 
 def _padded(x: torch.Tensor, n_valid):
@@ -276,7 +298,7 @@ def vit_layers_int8(x, qblocks, num_heads: int, eps: float = 1e-6,
     encoder; ``qblocks`` the ``quantize_vit_fast`` blocks dict (int8 ``*_q``
     weights (L, K, N), best as ``quant_fused.kmajor`` views, with f32 column
     scales ``*_s``).  A static tree
-    (``inv_ao``) raises naming K19b.
+    (``inv_ao``) raises naming ``vit_layers_int8_static``.
 
     A CPU tensor runs :func:`vit_layers_int8_plain`; a CUDA tensor launches
     the K19a kernel once for all layers, or raises.  ``trace`` as for
@@ -324,3 +346,90 @@ def vit_layers_int8(x, qblocks, num_heads: int, eps: float = 1e-6,
 
 
 vit_layers_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K19b: calibrated static-scale int8 layers
+# ---------------------------------------------------------------------------
+
+def vit_layers_int8_static_plain(x, qblocks, num_heads: int,
+                                 eps: float = 1e-6, act: str = "gelu_tanh",
+                                 n_valid: int | None = None):
+    """Plain PyTorch version of the K19b kernel: per layer the plain K18
+    then the plain K17 with that layer's 1/a_ao and 1/a_h (the JAX
+    ``_layer_math_int8_static``)."""
+    _check_act(act)
+    _check_static(qblocks)
+    x, n, n_valid = _padded(x, n_valid)
+    b, n_pad, d = x.shape
+    for i in range(qblocks["wqkv_q"].shape[0]):
+        blk = _layer(qblocks, i)
+        x = attn_block_int8_static_plain(
+            x, blk["inv_ao"], blk["ln1_scale"], blk["ln1_bias"],
+            blk["wqkv_q"], blk["wqkv_s"], blk["bqkv"], blk["wo_q"],
+            blk["wo_s"], blk["bo"], num_heads, eps=eps, n_valid=n_valid)
+        x = mlp_block_int8_static_plain(
+            x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
+            blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"],
+            blk["w2_q"], blk["w2_s"], blk["b2"], eps=eps,
+            act=act).reshape(b, n_pad, d)
+    return x[:, :n]
+
+
+def vit_layers_int8_static(x, qblocks, num_heads: int, eps: float = 1e-6,
+                           act: str = "gelu_tanh",
+                           n_valid: int | None = None,
+                           trace: torch.Tensor | None = None):
+    """x (B, N, D) bf16 -> pre-final-LN tokens through the calibrated
+    static-scale int8 encoder; ``qblocks`` the ``quantize_vit_static``
+    blocks dict (folded scales, int8 ``*_q`` weights (L, K, N), best as
+    ``quant_fused.kmajor`` views, and the (L, 1) tables ``inv_ao`` and
+    ``inv_ah``, which the kernel reads on the card: no host sync).
+
+    A CPU tensor runs :func:`vit_layers_int8_static_plain`; a CUDA tensor
+    launches the K19b kernel once for all layers, or raises.  ``trace`` as
+    for :func:`vit_layers` (stages ``K19B_STAGES``)."""
+    _check_act(act)
+    _check_static(qblocks)
+    if x.device.type == "cpu":
+        return vit_layers_int8_static_plain(x, qblocks, num_heads, eps=eps,
+                                            act=act, n_valid=n_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    depth, d, m = qblocks["w1_q"].shape
+    _cuda_geometry(x, num_heads, n_valid, m)
+    x, n, n_valid = _padded(x, n_valid)
+    b, n_pad, _ = x.shape
+    x = x.contiguous()
+    dev = x.device
+    (ls1, lb1, sqkv, bqkv, so, bo, ls2, lb2, s1, b1, s2, b2, inv_ao,
+     inv_ah) = _vectors(
+        qblocks, ("ln1_scale", "ln1_bias", "wqkv_s", "bqkv", "wo_s", "bo",
+                  "ln2_scale", "ln2_bias", "w1_s", "b1", "w2_s", "b2",
+                  "inv_ao", "inv_ah"), depth, dev)
+    wqkv = weight_kmajor(qblocks["wqkv_q"], (depth, d, 3 * d), dev,
+                         "wqkv_q")
+    wo = weight_kmajor(qblocks["wo_q"], (depth, d, d), dev, "wo_q")
+    w1 = weight_kmajor(qblocks["w1_q"], (depth, d, m), dev, "w1_q")
+    w2 = weight_kmajor(qblocks["w2_q"], (depth, m, d), dev, "w2_q")
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        work = torch.empty(
+            (lib.vft_vit_stack_int8_static_workspace(b * n_pad, d, m),),
+            dtype=torch.uint8, device=dev)
+        err = lib.vft_vit_layers_int8_static(
+            x.data_ptr(), out.data_ptr(), work.data_ptr(), ls1.data_ptr(),
+            lb1.data_ptr(), wqkv.data_ptr(), sqkv.data_ptr(),
+            bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(), bo.data_ptr(),
+            ls2.data_ptr(), lb2.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+            inv_ao.data_ptr(), inv_ah.data_ptr(), b, n_pad, d, m, depth,
+            num_heads, n_valid, _ACT_CODES[act], float(eps),
+            1.0 / math.sqrt(d // num_heads), _trace_ptr(trace, dev), stream)
+    _kernels.check(err, "vit_layers_int8_static")
+    vit_layers_int8_static.launches += 1
+    return out[:, :n]
+
+
+vit_layers_int8_static.launches = 0

@@ -1,17 +1,21 @@
-"""Where the time goes on the card: the served ViT forward (bf16 or
-dynamic int8, throughput or batch-1 latency), or one training step.
+"""Where the time goes on the card: the served ViT forward (bf16, dynamic
+or calibrated static int8, throughput or batch-1 latency), or one
+training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
-        [--batch 64] [--steps 3] [--train | --int8] [--latency]
+        [--batch 64] [--steps 3] [--train | --int8 [--static]] [--latency]
 
 Without a mode flag it runs ``make_forward(cfg, params, raw=True)`` (bf16,
 random weights from seed 0) on a seeded uint8 batch already on the card;
 with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
-weights; with ``--train`` one SGD(1e-4) step of ``make_vit_train_step``
-(bench.py's train shape) on a seeded normalized batch.  ``--latency``
-(batch 1 unless ``--batch`` says otherwise, 4 at most) runs the
-single-launch forwards instead: ``make_forward_latency`` (K11), or with
-``--int8`` ``make_forward_int8_latency`` (K19a + the K14 head).  It prints:
+weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
+(calibrated on the synthetic probe batch, on the card); with ``--train``
+one SGD(1e-4) step of ``make_vit_train_step`` (bench.py's train shape) on
+a seeded normalized batch.  ``--latency`` (batch 1 unless ``--batch`` says
+otherwise, 4 at most) runs the single-launch forwards instead:
+``make_forward_latency`` (K11), or with ``--int8``
+``make_forward_int8_latency`` (K19a, or K19b with ``--static``, + the K14
+head).  It prints:
 
   * the time per batch or step (CUDA events), images per second and, for
     a step, TFLOP/s counted as 3 x the forward (bench.py's count); in
@@ -38,13 +42,16 @@ import torch
 
 # launch-site name fragment (spaces and "(int)" casts removed) -> stage
 # label.  csrc/*.cu name each site's kernels by translation unit:
-# vit_stack:: K11, vit_stack_int8:: K19a,
+# vit_stack:: K11, vit_stack_int8:: K19a, vit_stack_int8_static:: K19b,
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
-# mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16.  The
-# int8 GEMM's template argument is its epilogue (0 plain, 1 residual, 2
-# f32 with row maxima), quant_rows_kernel's second one its LayerNorm (0
-# none, 1 one-pass, 2 two-pass).  The first fragment found wins.
+# mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
+# mlp_int8_static:: K17, attn_int8_static:: K18.  The int8 GEMM's template
+# argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
+# int8 with the static scale), quant_rows_kernel's second one its
+# LayerNorm (0 none, 1 one-pass, 2 two-pass).  The first fragment found
+# wins.
 STAGES = (
+    ("vit_stack_int8_static::", "K19b static int8 encoder, one launch"),
     ("vit_stack_int8::", "K19a int8 encoder, one launch"),
     ("vit_stack::", "K11 bf16 encoder, one launch"),
     ("quant_linear::quant_rows_kernel", "K14 (a) [LN] + row quant"),
@@ -55,13 +62,24 @@ STAGES = (
     ("mlp_int8::quant_amax_kernel", "K15 (c) h row quant"),
     ("mlp_int8::qgemm_kernel<1>", "K15 (d) int8 W2 GEMM + residual"),
     ("mlp_int8::", "K15 other"),
-    ("attn_int8::quant_rows_kernel<__nv_bfloat16,1>",
+    ("attn_int8::quant_rows_kernel<__nv_bfloat16,1",
      "K16 (a) LN + row quant"),
     ("attn_int8::qgemm_kernel<0>", "K16 (b) int8 QKV GEMM"),
     ("attn_int8::attn_kernel", "K16 (c) attention"),
-    ("attn_int8::quant_rows_kernel<__nv_bfloat16,0>", "K16 (d) ao row quant"),
+    ("attn_int8::quant_rows_kernel<__nv_bfloat16,0", "K16 (d) ao row quant"),
     ("attn_int8::qgemm_kernel<1>", "K16 (e) int8 out-proj + residual"),
     ("attn_int8::", "K16 other"),
+    ("mlp_int8_static::quant_rows_kernel", "K17 (a) LN + rint rows"),
+    ("mlp_int8_static::qgemm_kernel<3>",
+     "K17 (b) int8 W1 GEMM + scaled act + rint"),
+    ("mlp_int8_static::qgemm_kernel<1>", "K17 (c) int8 W2 GEMM + residual"),
+    ("mlp_int8_static::", "K17 other"),
+    ("attn_int8_static::quant_rows_kernel", "K18 (a) LN + rint rows"),
+    ("attn_int8_static::qgemm_kernel<0>", "K18 (b) int8 QKV GEMM"),
+    ("attn_int8_static::attn_kernel", "K18 (c) attention, int8 ao"),
+    ("attn_int8_static::qgemm_kernel<1>",
+     "K18 (d) int8 out-proj + residual"),
+    ("attn_int8_static::", "K18 other"),
     ("attn_half::gemm_bf16_kernel<true", "K1 (a) LN + QKV GEMM"),
     ("attn_half::attn_kernel", "K1 (b) attention"),
     ("attn_half::gemm_bf16_kernel<false", "K1 (c) out-proj + residual"),
@@ -146,14 +164,20 @@ def _serve_run(cfg, batch):
     return lambda: fwd(images)
 
 
-def _serve_int8_run(cfg, batch):
-    """One served int8 forward: make_forward_int8 on quantize_vit_fast of
-    the seed-0 weights, a seeded uint8 batch."""
+def _int8_tree(cfg, params, static):
+    from .models import quantized
+    return (quantized.quantize_vit_static(params, cfg) if static
+            else quantized.quantize_vit_fast(params))
+
+
+def _serve_int8_run(cfg, batch, static):
+    """One served int8 forward: make_forward_int8 on quantize_vit_fast (or
+    quantize_vit_static) of the seed-0 weights, a seeded uint8 batch."""
     from .models import quantized, vit
     gen = torch.Generator()
     gen.manual_seed(0)
-    qparams = quantized.quantize_vit_fast(vit.init_params(cfg, gen,
-                                                          device="cuda"))
+    qparams = _int8_tree(cfg, vit.init_params(cfg, gen, device="cuda"),
+                         static)
     fwd = quantized.make_forward_int8(cfg, qparams, raw=True)
     images = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, cfg.image_size, cfg.image_size, 3),
@@ -161,16 +185,16 @@ def _serve_int8_run(cfg, batch):
     return lambda: fwd(images)
 
 
-def _latency_run(cfg, batch, int8):
+def _latency_run(cfg, batch, int8, static):
     """One batch-1 latency forward: make_forward_latency, or
-    make_forward_int8_latency on quantize_vit_fast of the seed-0 weights,
-    on a seeded uint8 batch."""
+    make_forward_int8_latency on quantize_vit_fast (or quantize_vit_static)
+    of the seed-0 weights, on a seeded uint8 batch."""
     from .models import quantized, vit
     gen = torch.Generator()
     gen.manual_seed(0)
     params = vit.init_params(cfg, gen, device="cuda")
     fwd = (quantized.make_forward_int8_latency(
-        cfg, quantized.quantize_vit_fast(params)) if int8
+        cfg, _int8_tree(cfg, params, static)) if int8
         else vit.make_forward_latency(cfg, params))
     images = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, cfg.image_size, cfg.image_size, 3),
@@ -178,7 +202,7 @@ def _latency_run(cfg, batch, int8):
     return lambda: fwd(images)
 
 
-def _stack_stages(cfg, batch, int8, launches=10):
+def _stack_stages(cfg, batch, int8, static, launches=10):
     """The single-launch encoder's own stage clock (csrc/stack.cuh) over
     ``launches`` launches on seeded tokens of the forward's shape, with the
     weights as the latency forward prepares them: us per launch of each
@@ -193,8 +217,9 @@ def _stack_stages(cfg, batch, int8, launches=10):
          .to(torch.bfloat16).cuda())
     if int8:
         blocks = quantized.prep_int8_latency(
-            quantized.quantize_vit_fast(params), cfg)["blocks"]
-        fn, stages = vs.vit_layers_int8, vs.K19A_STAGES
+            _int8_tree(cfg, params, static), cfg)["blocks"]
+        fn, stages = ((vs.vit_layers_int8_static, vs.K19B_STAGES) if static
+                      else (vs.vit_layers_int8, vs.K19A_STAGES))
     else:
         blocks = vit.prep_latency(params, cfg)["blocks"]
         fn, stages = vs.vit_layers, vs.K11_STAGES
@@ -235,11 +260,15 @@ def main(argv=None) -> int:
                            "served forward")
     mode.add_argument("--int8", action="store_true",
                       help="profile the served dynamic int8 forward")
+    ap.add_argument("--static", action="store_true",
+                    help="with --int8: the calibrated static-scale tree")
     ap.add_argument("--latency", action="store_true",
                     help="profile the single-launch batch-1 forward")
     args = ap.parse_args(argv)
     if args.latency and args.train:
         ap.error("--latency profiles a forward, not a training step")
+    if args.static and not args.int8:
+        ap.error("--static selects the int8 tree: give --int8 too")
     if args.batch is None:
         args.batch = 1 if args.latency else 64
 
@@ -252,10 +281,14 @@ def main(argv=None) -> int:
     mode = "train" if args.train else "serve-int8" if args.int8 else "serve"
     if args.latency:
         mode = "latency-int8" if args.int8 else "latency"
-        run = _latency_run(cfg, args.batch, args.int8)
+        run = _latency_run(cfg, args.batch, args.int8, args.static)
+    elif args.int8:
+        run = _serve_int8_run(cfg, args.batch, args.static)
     else:
-        run = {"train": _train_run, "serve-int8": _serve_int8_run,
-               "serve": _serve_run}[mode](cfg, args.batch)
+        run = {"train": _train_run, "serve": _serve_run}[mode](cfg,
+                                                               args.batch)
+    if args.static:
+        mode += "-static"
 
     run()
     torch.cuda.synchronize()
@@ -296,7 +329,7 @@ def main(argv=None) -> int:
     }
     if args.latency:
         result["encoder_stages_us"] = _stack_stages(cfg, args.batch,
-                                                    args.int8)
+                                                    args.int8, args.static)
     if loops is not None:
         result["p50_ms"] = loops[len(loops) // 2]
         result["max_ms"] = loops[-1]
