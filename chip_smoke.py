@@ -83,6 +83,21 @@ Phases, each of which raises on failure (exit code != 0):
               ImageServer(batch_size=1) over make_forward_int8_latency on
               the static tree (1 K19b + 1 K14 per request), and the static
               and dynamic latency forwards timed in turns at b1
+ 12. dense    the NetAbstract backend: K25 (filter_image_device) with each
+              filter and K13 (int8_gemm) against their plain versions bit
+              for bit (K25 also against filter_image_numpy) at 1080 x 1920,
+              33 x 45, 1 x 1 and at (10000, 784) x 256, (10000, 256) x 10,
+              (12800, 768) x 3072, 1 x 1 x 1, right after the build; their
+              times beside the plain version, torch._int_mm / F.conv2d
+              yardsticks and the bound; NetCUDA 784 -> [256, 10] at batch
+              10 000 against NetCPU (f32, bf16 in bands; int8 bit for bit
+              the numpy oracle with 2 K13 launches per forward), 50 SGD
+              steps against NetCPU's, get_net_data round trip, int8
+              requantized after training; the 24-deep ring at 1080 x 1920:
+              96 frames in bursts of 24 in FIFO order with metadata, each
+              bit for bit the oracle, the 25th submit dropped, the empty
+              sentinel, one K25 launch per frame, frames/s full ring
+              against depth 1
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -99,6 +114,7 @@ import torch
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak, same sheet
 H100_HBM_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12        # f32 outside the tensor cores, same sheet
 
 EPS = 1e-6
 # bf16 kernel vs plain version, same inputs and rounding points: only
@@ -811,10 +827,14 @@ TRAIN_KERNELS = ("attn_block_fwd", "fused_mlp_fwd", "attn_block_bwd",
 def _counters():
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.ops import image_filter as imf
+    from vit_fpga_tpu_torch.ops import quant
     from vit_fpga_tpu_torch.ops import quant_block as qb
     from vit_fpga_tpu_torch.ops import quant_fused as qf
     from vit_fpga_tpu_torch.ops import vit_stack as vs
-    return {"vit_layers": vs.vit_layers,
+    return {"filter_image_device": imf.filter_image_device,
+            "int8_gemm": quant.int8_gemm,
+            "vit_layers": vs.vit_layers,
             "vit_layers_int8": vs.vit_layers_int8,
             "attn_block_stats": ab.attn_block_stats,
             "fused_mlp_stats": fm.fused_mlp_stats,
@@ -1955,6 +1975,383 @@ def run_latency_phases(errors, timing, launches):
     launches.update(phase_latency_serve())
 
 
+# ---------------------------------------------------------------------------
+# 12. The dense NetAbstract backend: K25 (image filter), K13 (int8 GEMM),
+#     NetCUDA and its 24-deep streaming ring
+# ---------------------------------------------------------------------------
+
+# The dense network's shapes: the repo's MNIST-sized net 784 -> [256, 10]
+# at batch 10 000 (two K13 launches per int8 forward), then ViT-B's MLP
+# GEMM; the 1080p frame of the reference's image ring; ragged edges.
+K13_SHAPES = ((10000, 784, 256), (10000, 256, 10), (12800, 768, 3072),
+              (1, 1, 1))
+K25_SHAPES = ((1080, 1920), (33, 45), (1, 1))
+DENSE_BATCH = 10000
+# NetCUDA against the NumPy oracle NetCPU at batch 10 000, relative to the
+# largest output: f32 runs the same products with the sums in another
+# order (TF32 off; 6e-7 measured for the port's plain path on a CPU);
+# bf16 rounds the inputs, the weights and the hidden layer to 8 bits
+# (7e-3 measured on a CPU).  Training: 50 SGD steps of both from the same
+# weights; a 1e-7 relative nudge of the weights moves the trained ones by
+# 3e-7 in relative norm (CPU rehearsal), so 1e-4.
+DENSE_F32_BAND = 1e-5
+DENSE_BF16_BAND = 2e-2
+DENSE_TRAIN_BAND = 1e-4
+DENSE_KERNELS = ("filter_image_device", "int8_gemm")
+
+
+def _int8_rand(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen,
+                         dtype=torch.int8).cuda()
+
+
+def _frame(rng, h, w):
+    return rng.integers(0, 256, (h, w), np.uint8)
+
+
+def phase_dense_kernels():
+    """K25 and K13 against their plain versions on the card, bit for bit:
+    K25 with each filter at 1080 x 1920, 33 x 45 and 1 x 1, also against
+    the port's numpy oracle filter_image_numpy; K13 at the dense net's two
+    layers, ViT-B's MLP GEMM and 1 x 1 x 1.  Returns {name: max abs err}."""
+    from vit_fpga_tpu_torch.ops import image_filter as imf
+    from vit_fpga_tpu_torch.ops import quant
+    rng = np.random.default_rng(60)
+    for h, w in K25_SHAPES:
+        img = _frame(rng, h, w)
+        dev = torch.from_numpy(img).cuda()
+        for name in sorted(imf.FILTERS):
+            got = imf.filter_image_device(dev, name)
+            plain = imf.filter_image_plain(dev, name)
+            torch.cuda.synchronize()
+            g = got.cpu().numpy()
+            if not (np.array_equal(g, plain.cpu().numpy())
+                    and np.array_equal(g, imf.filter_image_numpy(img, name))):
+                raise AssertionError(f"K25 {name} at {h}x{w} differs from "
+                                     f"its plain version or the oracle")
+        print(f"parity K25 filter_image_device {h}x{w}: all four filters bit "
+              f"for bit with the plain version and filter_image_numpy")
+    gen = _gen(61)
+    for m, k, n in K13_SHAPES:
+        a, b = _int8_rand(gen, m, k), _int8_rand(gen, k, n)
+        got = quant.int8_gemm(a, b)
+        want = quant.int8_gemm_plain(a, b)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"K13 ({m}, {k}) x ({k}, {n}): {bad} "
+                                 f"elements differ from the plain version")
+        print(f"parity K13 int8_gemm ({m}, {k}) x ({k}, {n}): bit for bit "
+              f"with the plain version (|acc| max {int(want.abs().max())})")
+    return {"filter_image_device": 0.0, "int8_gemm": 0.0}
+
+
+def _device_ms(fn, kernel, iters=20):
+    """Mean device time in ms of the launches of ``kernel`` (a substring of
+    the CUDA kernel's name) per call of ``fn``, from torch.profiler's CUDA
+    activity: the kernel alone, without the host time of its wrapper,
+    which exceeds it for K25 and the small K13 launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in evs)
+    if count != iters:
+        raise AssertionError(f"profiler saw {count} launches of {kernel!r} "
+                             f"in {iters} calls")
+    return sum(e.device_time_total for e in evs) / count / 1e3
+
+
+def phase_dense_timing():
+    """Times of K13 at its three path shapes and K25 at 1080p: the
+    kernel's device time (``_device_ms``) and its time per call back to
+    back (CUDA events; the wrapper's host time shows there), the plain
+    version, a library yardstick (torch._int_mm on shapes padded to what
+    it takes; F.conv2d in f32 with TF32 off, then round and clip) and the
+    bound.  Returns {name: times} at the main path's shapes (K13: the
+    dense net's first layer)."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import image_filter as imf
+    from vit_fpga_tpu_torch.ops import quant
+    from vit_fpga_tpu_torch.ops.common import round_up
+    from vit_fpga_tpu_torch.ops.quant_fused import kmajor
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    out = {}
+    gen = _gen(62)
+    for m, k, n in K13_SHAPES[:3]:
+        a, b = _int8_rand(gen, m, k), kmajor(_int8_rand(gen, k, n))
+        mp, kp, np_ = max(m, 17), round_up(k, 8), round_up(n, 8)
+        ap = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
+        ap[:m, :k] = a
+        bp = torch.zeros((kp, np_), dtype=torch.int8, device="cuda")
+        bp[:k, :n] = b
+        bp = kmajor(bp)
+        ms = _device_ms(lambda: quant.int8_gemm(a, b), "qgemm_kernel")
+        call_ms = time_cuda(lambda: quant.int8_gemm(a, b))
+        plain_ms = time_cuda(lambda: quant.int8_gemm_plain(a, b), iters=5,
+                             warmup=1)
+        lib_ms = _library_ms(lambda: torch._int_mm(ap, bp),
+                             f"int8_gemm {m}x{k}x{n}")
+        ops, nbytes = 2 * m * k * n, m * k + k * n + 4 * m * n
+        bound_ms, bound_by = _bound_int8(ops, 0, nbytes)
+        print(f"timing int8_gemm ({m}, {k}) x ({k}, {n}): kernel {ms:.4f} "
+              f"ms on the card ({call_ms:.4f} ms per call), plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {ops / 1e9:.2f} G int8 ops, "
+              f"{nbytes / 1e6:.2f} MB); {ops / ms / 1e9:.1f} TOPS")
+        out.setdefault("int8_gemm", dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by))
+    h, w = K25_SHAPES[0]
+    img = torch.from_numpy(_frame(np.random.default_rng(63), h, w)).cuda()
+    taps = torch.from_numpy(imf.FILTERS["sharpen"])[None, None].cuda()
+
+    def library():
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            acc = F.conv2d(img.float()[None, None], taps, padding=1)
+        return torch.clamp(torch.round(acc[0, 0]), 0, 255).to(torch.uint8)
+
+    if not torch.equal(library(), imf.filter_image_device(img, "sharpen")):
+        raise AssertionError("the K25 yardstick computes another function")
+    ms = _device_ms(lambda: imf.filter_image_device(img, "sharpen"),
+                    "filter_kernel")
+    call_ms = time_cuda(lambda: imf.filter_image_device(img, "sharpen"),
+                        iters=50)
+    plain_ms = time_cuda(lambda: imf.filter_image_plain(img, "sharpen"))
+    lib_ms = _library_ms(library, "filter_image_device")
+    nbytes, flops = 2 * h * w, 2 * 9 * h * w    # 9 f32 multiply-adds a pixel
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_mem = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_mem
+                          else (t_mem, "bytes"))
+    print(f"timing filter_image_device {h}x{w} sharpen: kernel {ms:.4f} ms "
+          f"on the card ({call_ms:.4f} ms per call), plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB); "
+          f"{nbytes / ms / 1e6:.1f} GB/s")
+    out["filter_image_device"] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)
+    return out
+
+
+def _dense_net():
+    from vit_fpga_tpu_torch.defines import ACT_IDENTITY, ACT_RELU2, random_net
+    return random_net(784, [256, 10], seed=0,
+                      activations=[ACT_RELU2, ACT_IDENTITY])
+
+
+def _zero_counters():
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _check_launches(label, counters, want):
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, want "
+                                 f"{want.get(name, 0)}")
+    return launches
+
+
+def _rel_to_max(label, got, want, band):
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"  {label}: max |a-b| / max |b| = {rel:.3e} (band {band:g})")
+    if not (np.isfinite(got).all() and rel <= band):
+        raise AssertionError(f"{label}: NetCUDA disagrees with NetCPU")
+
+
+def phase_dense_backend(batch=DENSE_BATCH, n_sets=128):
+    """NetCUDA on the card, 784 -> [256, 10] (relu, identity) at batch
+    10 000 of pixel-like inputs: f32 and bf16 against NetCPU within their
+    bands; int8 bit for bit against mlp_forward_int8_numpy with exactly 2
+    K13 launches per forward; 50 SGD steps (lr 0.01) on 128 one-hot sets:
+    the loss falls and the weights stay within DENSE_TRAIN_BAND of NetCPU
+    trained the same way; get_net_data round-trips bit for bit; int8
+    requantizes after training.  Returns the K13 launches of the int8
+    forwards."""
+    from vit_fpga_tpu_torch.backends.cpu import NetCPU
+    from vit_fpga_tpu_torch.backends.cuda import NetCUDA
+    from vit_fpga_tpu_torch.defines import NetSets
+    from vit_fpga_tpu_torch.models import quantized
+    data = _dense_net()
+    rng = np.random.default_rng(64)
+    x = (rng.integers(0, 256, (batch, 784)) / 255.0).astype(np.float32)
+    ref = NetCPU(data).forward_batch(x)
+    print(f"dense backend: NetCUDA 784 -> [256, 10] at batch {batch}")
+    for mode, band in (("float32", DENSE_F32_BAND),
+                       ("bfloat16", DENSE_BF16_BAND)):
+        net = NetCUDA(data, compute_dtype=mode)
+        net.forward_batch(x[:8])         # first GEMM of its type: cuBLAS loads
+        got = net.launch_forward(x)
+        _rel_to_max(f"{mode} forward vs NetCPU", got, ref, band)
+        print(f"  {mode} forward: {net.get_forward_performance()} us "
+              f"(host clock, input and output copies included)")
+
+    oracle = quantized.mlp_forward_int8_numpy(quantized.quantize_mlp(data), x)
+    net8 = NetCUDA(data, compute_dtype="int8")
+    net8.forward_batch(x[:8])            # quantizes the weights once
+    counters = _zero_counters()
+    got = net8.launch_forward(x)
+    k13 = _check_launches("int8 forward", counters, {"int8_gemm": 2})
+    if not np.array_equal(got, oracle):
+        raise AssertionError(f"int8 forward: {int((got != oracle).sum())} "
+                             f"outputs differ from mlp_forward_int8_numpy")
+    us = net8.get_forward_performance()
+    print(f"  int8 forward: bit for bit mlp_forward_int8_numpy, 2 K13 "
+          f"launches, {us} us")
+    if not us > 0:
+        raise AssertionError("get_forward_performance() read 0")
+
+    X = (rng.integers(0, 256, (n_sets, 784)) / 255.0).astype(np.float32)
+    Y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n_sets)]
+    cpu, net = NetCPU(data), NetCUDA(data)
+    for n in (cpu, net, net8):
+        n.init_gradient(NetSets(X, Y))
+    e_cpu = cpu.launch_gradient(50, 1e-6, 0.01)
+    errs = net.launch_gradient(50, 1e-6, 0.01)
+    print(f"  training: 50 SGD steps on {n_sets} sets, loss {errs[0]:.4f} "
+          f"-> {errs[-1]:.4f} (NetCPU {e_cpu[0]:.4f} -> {e_cpu[-1]:.4f}), "
+          f"{net.get_gradient_performance()} us")
+    if not (np.isfinite(errs).all() and errs[-1] < errs[0]):
+        raise AssertionError("training did not lower the loss")
+    for l, (a, b) in enumerate(zip(net.get_net_data().params,
+                                   cpu.get_net_data().params)):
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        print(f"  trained W{l} vs NetCPU: relative norm {rel:.3e} "
+              f"(band {DENSE_TRAIN_BAND:g})")
+        if not rel <= DENSE_TRAIN_BAND:
+            raise AssertionError("trained weights disagree with NetCPU")
+    clone = NetCUDA(net.get_net_data())
+    if not np.array_equal(clone.forward_batch(x), net.forward_batch(x)):
+        raise AssertionError("get_net_data does not round-trip")
+    print("  get_net_data round-trips bit for bit")
+
+    net8.launch_gradient(50, 1e-6, 0.01)
+    counters = _zero_counters()
+    got = net8.forward_batch(x)
+    launches = _check_launches("int8 forward after training", counters,
+                               {"int8_gemm": 2})
+    want = quantized.mlp_forward_int8_numpy(
+        quantized.quantize_mlp(net8.get_net_data()), x)
+    if not np.array_equal(got, want):
+        raise AssertionError("int8 forward after training is not the "
+                             "requantized oracle")
+    print("  int8 after training: requantized, bit for bit the oracle, 2 K13 "
+          "launches")
+    return {"int8_gemm": k13["int8_gemm"] + launches["int8_gemm"]}
+
+
+def _ring_fps(net, frames, n):
+    """frames/s of ``n`` frames through ``net``'s ring in bursts of its
+    depth, each frame taken back and dropped (the host keeps none)."""
+    from vit_fpga_tpu_torch.defines import ImageSet
+    depth = net._ring.depth
+    h, w = frames[0].shape
+    t0 = time.perf_counter()
+    for b in range(0, n, depth):
+        for i in range(b, b + depth):
+            net.filter_image(ImageSet(frames[i % len(frames)], original_h=h,
+                                      original_w=w, original_x_pos=i))
+        for i in range(b, b + depth):
+            if net.get_filtered_image().original_x_pos != i:
+                raise AssertionError("the ring lost a frame")
+    return n / (time.perf_counter() - t0)
+
+
+def phase_dense_ring(depth=24, bursts=4, h=1080, w=1920):
+    """The streaming ring at the reference's geometry: 1080 x 1920 frames,
+    depth 24.  ``bursts`` bursts of ``depth`` frames go in and come back
+    in FIFO order with their metadata, each bit for bit
+    filter_image_numpy; a submit to the full ring drops; a drained ring
+    returns the empty sentinel; one K25 launch per frame and nothing else.
+    Then frames/s through the full ring against one frame at a time
+    (depth 1), in turns.  Returns the K25 launches."""
+    import contextlib
+    import io
+
+    from vit_fpga_tpu_torch.backends.cuda import NetCUDA
+    from vit_fpga_tpu_torch.defines import ImageSet
+    from vit_fpga_tpu_torch.ops.image_filter import filter_image_numpy
+    rng = np.random.default_rng(65)
+    frames = [_frame(rng, h, w) for _ in range(depth)]
+    want = [filter_image_numpy(f, "sharpen") for f in frames]
+
+    def submit(net, i, j):
+        net.filter_image(ImageSet(frames[j], original_h=h, original_w=w,
+                                  original_x_pos=i, original_y_pos=j))
+
+    net = NetCUDA(_dense_net(), ring_depth=depth, image_filter="sharpen")
+    for j in range(depth):               # first pass: pinned buffers
+        submit(net, j, j)
+    for _ in range(depth):
+        net.get_filtered_image()
+    counters = _zero_counters()
+    got, n = [], bursts * depth
+    for b in range(bursts):
+        for j in range(depth):
+            submit(net, b * depth + j, j)
+        if b == 0:
+            before = net._ring.dropped
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                submit(net, -1, 0)
+            if (net._ring.dropped - before != 1
+                    or "ring full" not in log.getvalue()):
+                raise AssertionError("a submit to the full ring did not "
+                                     "drop")
+        got.extend(net.get_filtered_image() for _ in range(depth))
+    launches = _check_launches("ring", counters,
+                               {"filter_image_device": n})
+    for i, g in enumerate(got):
+        if (g.empty or g.original_x_pos != i
+                or g.original_y_pos != i % depth
+                or (g.original_h, g.original_w) != (h, w)):
+            raise AssertionError(f"ring frame {i}: FIFO order or metadata "
+                                 f"broken ({g.original_x_pos}, "
+                                 f"{g.original_y_pos})")
+        if not np.array_equal(g.resized_image_data.reshape(h, w),
+                              want[i % depth]):
+            raise AssertionError(f"ring frame {i} differs from "
+                                 f"filter_image_numpy")
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        empty = net.get_filtered_image()
+    if not (empty.empty and "ring empty" in log.getvalue()):
+        raise AssertionError("a drained ring did not return the empty "
+                             "sentinel")
+    print(f"ring {h}x{w} depth {depth}: {n} frames in {bursts} bursts, FIFO "
+          f"and metadata kept, each bit for bit filter_image_numpy, a submit "
+          f"to the full ring dropped, drained ring empty, "
+          f"{launches['filter_image_device']} K25 launches")
+    one = NetCUDA(_dense_net(), ring_depth=1, image_filter="sharpen")
+    # one warm-up run each: `got` still holds the pinned buffers of the
+    # frames above, so the full ring's first run would allocate new ones
+    _ring_fps(net, frames, depth)
+    _ring_fps(one, frames, 1)
+    fps = {"ring": [], "one": []}
+    for name in ("ring", "one", "one", "ring"):
+        fps[name].append(_ring_fps(net if name == "ring" else one, frames, n))
+    print(f"ring throughput, {n} frames a run, in turns: "
+          f"{' / '.join(f'{v:.1f}' for v in fps['ring'])} frames/s through "
+          f"the full ring (depth {depth}) against "
+          f"{' / '.join(f'{v:.1f}' for v in fps['one'])} one at a time "
+          f"(depth 1)")
+    return {"filter_image_device": launches["filter_image_device"]}
+
+
+def run_dense_phases(errors, timing, launches):
+    """The dense backend's phases after the earlier slices' ones (K25 and
+    K13 parity ran right after the build)."""
+    for name, t in phase_dense_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    launches.update(phase_dense_backend())
+    launches.update(phase_dense_ring())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1975,6 +2372,7 @@ def main() -> int:
     print(_kernels.build_log)
 
     errors = phase_stack_kernels()
+    errors.update(phase_dense_kernels())
     for name, err in phase_int8_kernels(8).items():
         errors[name] = err
     errors["attn_block_int8"] = max(errors["attn_block_int8"],
@@ -2004,6 +2402,7 @@ def main() -> int:
                      if k in INT8_KERNELS})
     run_static_phases(errors, timing, launches, fwd_int8, fwd_bf16, cfg)
     run_latency_phases(errors, timing, launches)
+    run_dense_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -2036,6 +2435,10 @@ def main() -> int:
         "vit_layers_int8_static": (
             "vit_fpga_tpu_torch/csrc/vit_stack_int8_static.cu",
             "vit_fpga_tpu/ops/vit_stack.py:372"),
+        "filter_image_device": ("vit_fpga_tpu_torch/csrc/image_filter.cu",
+                                "vit_fpga_tpu/ops/image_filter.py:71"),
+        "int8_gemm": ("vit_fpga_tpu_torch/csrc/int8_gemm.cu",
+                      "vit_fpga_tpu/ops/quant.py:105"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

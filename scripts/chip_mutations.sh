@@ -34,4 +34,11 @@ run_copy k17_no_clamp quant.cuh \
 # K19b reading layer 0's inv_ao / inv_ah for every layer
 run_copy k19b_layer0_scales vit_stack_int8_static.cu \
   "__ldg(p.inv_ao + l);" "__ldg(p.inv_ao);" "__ldg(p.inv_ah + l);" "__ldg(p.inv_ah);"
+# K25 rounding half away from zero: the blur puts many pixels on a half
+run_copy k25_roundf image_filter.cu \
+  "static_cast<int>(rintf(acc))" "static_cast<int>(roundf(acc))"
+# K13 without its last partial K step (the shared int8 GEMM's K loop; only
+# K13 has a ragged K: 784 = 12 x 64 + 16 in the dense net, 1 padded to 16)
+run_copy k13_no_partial_k_tile quant.cuh \
+  "const int nk = (p.K + QG_BK - 1) / QG_BK;" "const int nk = p.K / QG_BK;"
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

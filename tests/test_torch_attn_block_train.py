@@ -10,6 +10,8 @@ points, so an accumulation-order ulp flip (2^-8) now and then is all that
 differs: outputs and dx elementwise within 2^-6 (1 + |b|), the f32
 weight, bias and LN gradients within 1e-2 in relative norm."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,6 +79,17 @@ DTYPES = [(jnp.float32, torch.float32, "float32"),
           (jnp.bfloat16, torch.bfloat16, "bfloat16")]
 
 
+def _reference_precision(name):
+    """The JAX reference's f32 dots at full f32 (as test_int8_static.py
+    and the JAX package's own _precision_ctx pin them): XLA's DEFAULT
+    precision may take a reduced-precision dot algorithm on some CPU
+    builds, which the f32 tolerances here do not allow.  bf16 runs as it
+    is."""
+    if name == "float32":
+        return jax.default_matmul_precision("float32")
+    return contextlib.nullcontext()
+
+
 @pytest.mark.parametrize("geom", [SMALL, DH64], ids=["small", "dh64"])
 @pytest.mark.parametrize("dts", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("safe", [True, False])
@@ -84,9 +97,11 @@ def test_attn_block_fwd_plain_matches_pallas(geom, dts, safe):
     jdt, tdt, name = dts
     nh, nv = geom[3], geom[4]
     p = _as(_inputs(0, geom), jdt)
-    want = attn_block_pallas(jnp.asarray(p["x"]).astype(jdt),
-                             *[jnp.asarray(p[k]) for k in _ARGS], nh,
-                             n_valid=nv, safe_softmax=safe, interpret=True)
+    with _reference_precision(name):
+        want = attn_block_pallas(jnp.asarray(p["x"]).astype(jdt),
+                                 *[jnp.asarray(p[k]) for k in _ARGS], nh,
+                                 n_valid=nv, safe_softmax=safe,
+                                 interpret=True)
     got = tab.attn_block_fwd(_torch(p["x"], tdt),
                              *[torch.from_numpy(p[k]) for k in _ARGS], nh,
                              n_valid=nv, safe_softmax=safe)
@@ -114,11 +129,12 @@ def test_attn_block_bwd_plain_matches_pallas(geom, dts):
     jdt, tdt, name = dts
     nh, nv = geom[3], geom[4]
     p = _as(_inputs(1, geom), jdt)
-    want = attn_block_bwd_pallas(
-        jnp.asarray(p["x"]).astype(jdt), *[jnp.asarray(p[k])
-                                           for k in _BWD_ARGS],
-        jnp.asarray(p["g"]).astype(jdt), nh, n_valid=nv, pairs=False,
-        interpret=True)
+    with _reference_precision(name):
+        want = attn_block_bwd_pallas(
+            jnp.asarray(p["x"]).astype(jdt), *[jnp.asarray(p[k])
+                                               for k in _BWD_ARGS],
+            jnp.asarray(p["g"]).astype(jdt), nh, n_valid=nv, pairs=False,
+            interpret=True)
     got = tab.attn_block_bwd(_torch(p["x"], tdt),
                              *[torch.from_numpy(p[k]) for k in _BWD_ARGS],
                              _torch(p["g"], tdt), nh, n_valid=nv)
@@ -132,9 +148,10 @@ def test_attn_block_bwd_plain_matches_jax_vjp(geom):
     nh, nv = geom[3], geom[4]
     p = _inputs(2, geom)
     prims = [jnp.asarray(p[k]) for k in ("x",) + _ARGS]
-    _, vjp = jax.vjp(lambda *a: jax_attn_xla(*a, num_heads=nh, eps=1e-6,
-                                             n_valid=nv), *prims)
-    want = vjp(jnp.asarray(p["g"]))
+    with _reference_precision("float32"):
+        _, vjp = jax.vjp(lambda *a: jax_attn_xla(*a, num_heads=nh, eps=1e-6,
+                                                 n_valid=nv), *prims)
+        want = vjp(jnp.asarray(p["g"]))
     got = tab.attn_block_bwd(torch.from_numpy(p["x"]),
                              *[torch.from_numpy(p[k]) for k in _BWD_ARGS],
                              torch.from_numpy(p["g"]), nh, n_valid=nv)

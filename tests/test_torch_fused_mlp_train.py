@@ -8,6 +8,8 @@ Tolerances as in test_torch_attn_block_train.py: f32 1e-5 (outputs) and
 1e-4 (summed gradients) relative; bf16 outputs and dx elementwise within
 2^-6 (1 + |b|), the f32 gradients within 1e-2 in relative norm."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,17 @@ BF16_TOL = 2.0 ** -6
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 DTYPES = [(jnp.float32, torch.float32, "float32"),
           (jnp.bfloat16, torch.bfloat16, "bfloat16")]
+
+
+def _reference_precision(name):
+    """The JAX reference's f32 dots at full f32 (as test_int8_static.py
+    and the JAX package's own _precision_ctx pin them): XLA's DEFAULT
+    precision may take a reduced-precision dot algorithm on some CPU
+    builds, which the f32 tolerances here do not allow.  bf16 runs as it
+    is."""
+    if name == "float32":
+        return jax.default_matmul_precision("float32")
+    return contextlib.nullcontext()
 
 
 def _inputs(seed, loud=False):
@@ -84,9 +97,10 @@ def _check_grads(got, want, name):
 def test_fused_mlp_fwd_plain_matches_pallas(act, dts):
     jdt, tdt, name = dts
     p = _as(_inputs(0), jdt)
-    want = fused_mlp_pallas(jnp.asarray(p["x"]).astype(jdt),
-                            *[jnp.asarray(p[k]) for k in _ARGS], act=act,
-                            block_t=16, interpret=True)
+    with _reference_precision(name):
+        want = fused_mlp_pallas(jnp.asarray(p["x"]).astype(jdt),
+                                *[jnp.asarray(p[k]) for k in _ARGS], act=act,
+                                block_t=16, interpret=True)
     got = tfm.fused_mlp_fwd(_torch(p["x"], tdt),
                             *[torch.from_numpy(p[k]) for k in _ARGS],
                             act=act)
@@ -101,11 +115,12 @@ def test_fused_mlp_bwd_plain_matches_pallas(act, dts):
     mode."""
     jdt, tdt, name = dts
     p = _as(_inputs(1), jdt)
-    want = fused_mlp_bwd_pallas(
-        jnp.asarray(p["x"]).astype(jdt), *[jnp.asarray(p[k])
-                                           for k in _BWD_ARGS],
-        jnp.asarray(p["g"]).astype(jdt), act=act, block_t=16,
-        interpret=True)
+    with _reference_precision(name):
+        want = fused_mlp_bwd_pallas(
+            jnp.asarray(p["x"]).astype(jdt), *[jnp.asarray(p[k])
+                                               for k in _BWD_ARGS],
+            jnp.asarray(p["g"]).astype(jdt), act=act, block_t=16,
+            interpret=True)
     got = tfm.fused_mlp_bwd(_torch(p["x"], tdt),
                             *[torch.from_numpy(p[k]) for k in _BWD_ARGS],
                             _torch(p["g"], tdt), act=act)
@@ -119,8 +134,10 @@ def test_fused_mlp_bwd_plain_matches_jax_vjp(act):
     derivative)."""
     p = _inputs(2)
     prims = [jnp.asarray(p[k]) for k in ("x",) + _ARGS]
-    _, vjp = jax.vjp(lambda *a: jax_mlp_xla(*a, eps=1e-6, act=act), *prims)
-    want = vjp(jnp.asarray(p["g"]))
+    with _reference_precision("float32"):
+        _, vjp = jax.vjp(lambda *a: jax_mlp_xla(*a, eps=1e-6, act=act),
+                         *prims)
+        want = vjp(jnp.asarray(p["g"]))
     got = tfm.fused_mlp_bwd(torch.from_numpy(p["x"]),
                             *[torch.from_numpy(p[k]) for k in _BWD_ARGS],
                             torch.from_numpy(p["g"]), act=act)

@@ -17,6 +17,22 @@ INT8_MODULES = ("vit_fpga_tpu_torch.models.quantized",
                 "vit_fpga_tpu_torch.ops.quant_block")
 LATENCY_MODULES = ("vit_fpga_tpu_torch.ops.vit_stack",)
 STATIC_MODULES = ("vit_fpga_tpu_torch.utils.calibrate",)
+# the dense NetAbstract backend, its runtime and its copies of the JAX
+# package's numpy-only modules
+DENSE_MODULES = ("vit_fpga_tpu_torch.defines",
+                 "vit_fpga_tpu_torch.abstract",
+                 "vit_fpga_tpu_torch.activations",
+                 "vit_fpga_tpu_torch.runtime.perf",
+                 "vit_fpga_tpu_torch.runtime.engine",
+                 "vit_fpga_tpu_torch.runtime.pipeline",
+                 "vit_fpga_tpu_torch.ops.image_filter",
+                 "vit_fpga_tpu_torch.ops.quant",
+                 "vit_fpga_tpu_torch.backends.cpu",
+                 "vit_fpga_tpu_torch.backends.cuda",
+                 "vit_fpga_tpu_torch.native_bridge",
+                 "vit_fpga_tpu_torch.utils.options",
+                 "vit_fpga_tpu_torch.cli")
+ALL_MODULES = INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
 
 
 def _port_files():
@@ -44,8 +60,9 @@ def test_port_sources_import_no_jax():
     bad = {k: v for k, v in bad.items() if v}
     assert not bad, bad
     scanned = {str(f.relative_to(ROOT)) for f in files}
-    for mod in INT8_MODULES + LATENCY_MODULES + STATIC_MODULES:
+    for mod in ALL_MODULES:
         assert mod.replace(".", "/") + ".py" in scanned, mod
+    assert "chip_smoke.py" in scanned
     # the prefix trap: the port's own name starts with "vit_fpga_tpu"
     assert "vit_fpga_tpu_torch" not in FORBIDDEN
 
@@ -55,7 +72,7 @@ def test_importing_the_port_loads_no_jax():
             "vit_fpga_tpu_torch.runtime.serving, "
             "vit_fpga_tpu_torch.train.trainer, "
             "vit_fpga_tpu_torch.profile_forward, "
-            + ", ".join(INT8_MODULES + LATENCY_MODULES + STATIC_MODULES)
+            + ", ".join(ALL_MODULES)
             + "; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'vit_fpga_tpu')); print(bad)")

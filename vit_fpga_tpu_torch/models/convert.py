@@ -2,7 +2,8 @@
 nested dicts of numpy arrays, becomes the port's tree in the same layout
 (NHWC images, patch kernel (P*P*3, D) in (py, px, c) order, blocks stacked
 on depth, linear weights (in, out)), and back; and an optax AdamW state,
-handed over the same way, becomes a torch AdamW state."""
+handed over the same way, becomes a torch AdamW state; and the JAX
+package's dense ``NetData`` becomes the port's."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..defines import NetData
 from ..utils.platform import resolve_device
 
 
@@ -74,3 +76,16 @@ def adamw_state_from_optax(mu: Mapping[str, Any], nu: Mapping[str, Any],
                 "exp_avg": like(m[k]), "exp_avg_sq": like(n[k])}
 
     walk(mu, nu, params)
+
+
+def net_data_from_numpy(data) -> NetData:
+    """The port's :class:`~vit_fpga_tpu_torch.defines.NetData` from any
+    object with its fields (the JAX package's ``NetData``, say): the
+    shapes, the per-layer f32 weights and biases (copied) and the
+    activation codes."""
+    return NetData(
+        n_ins=int(data.n_ins), n_layers=int(data.n_layers),
+        n_p_l=[int(v) for v in data.n_p_l],
+        params=[np.array(w, dtype=np.float32) for w in data.params],
+        bias=[np.array(b, dtype=np.float32) for b in data.bias],
+        activations=[int(a) for a in data.activations]).validate()

@@ -1,5 +1,14 @@
-"""Int8 ViT serving (counterpart of the fast int8 path of the JAX
-package's models/quantized.py), dynamic and calibrated static-scale.
+"""Int8 forwards (counterpart of the JAX package's models/quantized.py):
+the dense network's bit-exact int8 family, and int8 ViT serving, dynamic
+and calibrated static-scale.
+
+The dense family (``quantize_mlp``, ``mlp_forward_int8_numpy``,
+``mlp_forward_int8``, ``device_qparams``) quantizes each layer's weight
+per tensor on the host and each layer's input per tensor at run time,
+then runs ``ops/quant.int8_linear`` (the K13 GEMM on the card); the card
+and the numpy oracle agree bit for bit (``ops/quant.py`` says why).
+
+The ViT family follows.
 
 ``quantize_vit_fast`` turns the f32 parameter tree into the JAX package's
 int8 tree: per-output-column int8 weights (``*_q``, ``wq``) with f32
@@ -28,11 +37,14 @@ the JAX package too) and the CLIP towers are not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import activations as act
+from ..defines import NetData
+from ..ops import quant
 from ..ops.common import pad_sublane, round_up
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.quant_block import (attn_block_int8, attn_block_int8_static,
@@ -45,6 +57,59 @@ from ..utils.platform import resolve_device
 from . import vit as vit_mod
 
 Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Dense (MLP) family: bit-exact parity contract
+# ---------------------------------------------------------------------------
+
+def quantize_mlp(data: NetData) -> Params:
+    """Quantize reference-layout weights to int8 per tensor (host-side,
+    shared verbatim by the oracle and the device path)."""
+    data.validate()
+    layers: List[Dict[str, Any]] = []
+    for w, b in zip(data.params, data.bias):
+        wq, sw = quant.quantize_numpy(np.ascontiguousarray(w.T))
+        layers.append({"wq": wq, "sw": sw,
+                       "b": np.asarray(b, np.float32)})
+    return {"layers": layers, "acts": tuple(int(a) for a in
+                                            data.activations)}
+
+
+def mlp_forward_int8_numpy(qparams: Params, x: np.ndarray) -> np.ndarray:
+    """Oracle int8 forward: dynamic per-tensor activation quantization."""
+    h = np.asarray(x, np.float32)
+    for layer, code in zip(qparams["layers"], qparams["acts"]):
+        hq, sx = quant.quantize_numpy(h)
+        h = quant.int8_linear_numpy(hq, sx, layer["wq"], layer["sw"],
+                                    layer["b"])
+        h = act.apply_numpy(code, h).astype(np.float32)
+    return h
+
+
+def mlp_forward_int8(qparams_dev: Params, x: torch.Tensor,
+                     acts: Tuple[int, ...]) -> torch.Tensor:
+    """Device int8 forward, the oracle's semantics on ``x``'s device: one
+    K13 launch per layer on the card."""
+    h = x.float()
+    for layer, code in zip(qparams_dev["layers"], acts):
+        hq, sx = quant.quantize_torch(h)
+        h = quant.int8_linear(hq, sx, layer["wq"], layer["sw"], layer["b"])
+        h = act.apply_torch(int(code), h).float()
+    return h
+
+
+def device_qparams(qparams: Params, device=None) -> Params:
+    """Host quantized params -> tensors on ``device`` (CUDA unless
+    ``"cpu"``): each int8 weight as a k-major view (the layout K13 reads
+    without a copy), its f32 scale as a 0-dim tensor.  The activation
+    codes stay out: they are the forward's ``acts``."""
+    dev = resolve_device(device)
+    return {"layers": [
+        {"wq": kmajor(torch.from_numpy(l["wq"]).to(dev)),
+         "sw": torch.tensor(l["sw"], dtype=torch.float32, device=dev),
+         "b": torch.from_numpy(np.asarray(l["b"], np.float32)).to(dev)}
+        for l in qparams["layers"]]}
 
 _VIT_QUANT_KEYS = ("wqkv", "wo", "w1", "w2")
 _PREPARED = "_int8_prepared"     # marks a tree make_forward_int8 prepared

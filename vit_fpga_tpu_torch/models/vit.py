@@ -33,7 +33,7 @@ from ..ops.common import pad_sublane, round_up, row_stats
 from ..ops.fused_mlp import fused_mlp, fused_mlp_stats, fused_mlp_xla
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.vit_stack import stack_supported, vit_layers
-from ..utils.platform import resolve_device
+from ..utils.platform import resolve_device, true_f32
 
 Params = Dict[str, Any]
 
@@ -225,15 +225,8 @@ def _precision_ctx(cfg: ViTConfig):
     if cfg.dtype != "float32":
         yield
         return
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with true_f32():
         yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _fused_embed(params: Params, images: torch.Tensor, cfg: ViTConfig,

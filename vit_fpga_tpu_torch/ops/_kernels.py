@@ -30,7 +30,7 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_bwd.cu", "mlp_bwd.cu", "quant_linear.cu", "mlp_int8.cu",
            "attn_int8.cu", "vit_stack.cu", "vit_stack_int8.cu",
            "mlp_int8_static.cu", "attn_int8_static.cu",
-           "vit_stack_int8_static.cu")
+           "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -87,6 +87,10 @@ _SIGNATURES = {
     "vft_vit_stack_int8_static_workspace": ([_I] * 3, ctypes.c_size_t),
     "vft_vit_layers_int8_static": ([_P] * 21 + [_I] * 8 + [_F, _F, _P, _P],
                                    ctypes.c_int),
+    "vft_image_filter": ([_P, _P, ctypes.POINTER(_F), _I, _I, _P],
+                         ctypes.c_int),
+    "vft_int8_gemm_init": ([], ctypes.c_int),
+    "vft_int8_gemm": ([_P] * 3 + [_I] * 3 + [_P], ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.
@@ -95,7 +99,7 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_quant_linear_init", "vft_mlp_int8_init", "vft_attn_int8_init",
           "vft_vit_stack_init", "vft_vit_stack_int8_init",
           "vft_mlp_int8_static_init", "vft_attn_int8_static_init",
-          "vft_vit_stack_int8_static_init")
+          "vft_vit_stack_int8_static_init", "vft_int8_gemm_init")
 
 
 def _nvcc() -> str:

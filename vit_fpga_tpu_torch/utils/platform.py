@@ -6,6 +6,8 @@ no explicit CPU request they raise; they never drop to the CPU quietly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -34,3 +36,18 @@ def require_hopper(device=None) -> str:
             f"kernels are built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(dev)} has capability {cap}")
     return torch.cuda.get_device_name(dev)
+
+
+@contextlib.contextmanager
+def true_f32():
+    """f32 matmuls and convolutions in true f32 for the enclosed region:
+    TF32 off for both (the JAX package's ``Precision.HIGHEST``)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
