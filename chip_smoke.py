@@ -98,6 +98,24 @@ Phases, each of which raises on failure (exit code != 0):
               bit for bit the oracle, the 25th submit dropped, the empty
               sentinel, one K25 launch per frame, frames/s full ring
               against depth 1
+ 13. large    the large ViTs: K3 (fused_mlp_chunked_stats) against its
+              plain version at (200, 128) x 512 and (9344, 1024) x 4096,
+              2 and 4 chunks, each activation, both emit_stats, its
+              distance from K2's plain version printed and required > 0;
+              K1 past 256 keys (its key-tiled path) at (4, 264, 1024) with
+              257 valid tokens, (2, 584, 1024) with 577 and (1, 1024, 768)
+              with 1024, loud padding bit for bit, a peaked-scores case in
+              norm (all this right after the build, with the gates: K3 with
+              3 chunks and K1 at 1032 tokens raise); K3 and K1 times at
+              CLIP-L/14 b64 and ViT-L/16 (b64, @384 b16); ImageServer over
+              clip.make_forward(CLIP ViT-L/14 @224, depth 24) answers 160
+              requests with 24 K1 (key-tiled) + 24 K3 per batch and nothing
+              else, embeddings against the card's plain forward (all) and
+              the CPU forward (2); CLIP-L/14 b128 (24 K2, no K3) and
+              ViT-L/16 @384 b16 (24 key-tiled K1 + 24 K3) against the card's
+              plain forward, DeiT-B/16 b64 and CLIP-B/16 forward_latency b1
+              (1 K11) against the CPU; CLIP-L/14 b64, ViT-L/16 b64 and
+              ViT-L/16 @384 b16 forwards timed in turns
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -847,7 +865,8 @@ def _counters():
             "attn_block_int8": qb.attn_block_int8,
             "mlp_block_int8_static": qb.mlp_block_int8_static,
             "attn_block_int8_static": qb.attn_block_int8_static,
-            "vit_layers_int8_static": vs.vit_layers_int8_static}
+            "vit_layers_int8_static": vs.vit_layers_int8_static,
+            "fused_mlp_chunked_stats": fm.fused_mlp_chunked_stats}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -2147,6 +2166,7 @@ def _zero_counters():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    counters["attn_block_stats"].launches_long = 0
     return counters
 
 
@@ -2163,7 +2183,7 @@ def _rel_to_max(label, got, want, band):
     rel = float(np.abs(got - want).max() / np.abs(want).max())
     print(f"  {label}: max |a-b| / max |b| = {rel:.3e} (band {band:g})")
     if not (np.isfinite(got).all() and rel <= band):
-        raise AssertionError(f"{label}: NetCUDA disagrees with NetCPU")
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
 
 
 def phase_dense_backend(batch=DENSE_BATCH, n_sets=128):
@@ -2352,6 +2372,423 @@ def run_dense_phases(errors, timing, launches):
     launches.update(phase_dense_ring())
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the large ViTs (CLIP ViT-L/14, ViT-L/16 at 224 and 384, DeiT)
+# ---------------------------------------------------------------------------
+
+MLP_ACTS_K3 = ("gelu_tanh", "quick_gelu", "relu")
+# CLIP ViT-L/14 @224, the slice's configuration: 257 tokens on 264 rows,
+# D 1024, 16 heads, M 4096.
+CLIP_L = dict(n_pad=264, n_valid=257, d=1024, heads=16, m=4096)
+# Served embeddings, kernels vs the plain versions on the card, in relative
+# norm over all rows: 24 layers of the bf16 ulp flips of STACK_BF16_NORM.
+EMBED_NORM = 2e-2
+
+
+def _k3_call(fn, x, st, p, act, n_chunks, emit):
+    return fn(x, st, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"],
+              p["b2"], eps=EPS, act=act, n_chunks=n_chunks, emit_stats=emit)
+
+
+def _k3_parity(rows, d, m, seed):
+    """K3 against its plain version at (rows, d) x m, each chunk count and
+    activation, both values of emit_stats; and its distance from K2's plain
+    version, which must not be 0 (K3 rounds the running output at every
+    chunk boundary and adds b2 once).  Returns the largest max-abs error."""
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    x, st, p = _mlp_inputs(rows, d, m, seed)
+    pb = _bf16_weights(p, ("w1", "w2"))
+    worst = 0.0
+    for n_chunks in (2, 4):
+        for act in MLP_ACTS_K3:
+            label = f"K3 ({rows}, {d}) x {m} n_chunks={n_chunks} {act}"
+            worst = max(worst, _parity(
+                label, lambda fn, emit, a=act, n=n_chunks: _k3_call(
+                    fn, x, st, pb, a, n, emit),
+                fm.fused_mlp_chunked_stats,
+                fm.fused_mlp_chunked_stats_plain, x))
+            got, _ = _k3_call(fm.fused_mlp_chunked_stats, x, st, pb, act,
+                              n_chunks, False)
+            k2, _ = fm.fused_mlp_stats_plain(
+                x, st, pb["ln_scale"], pb["ln_bias"], pb["w1"], pb["b1"],
+                pb["w2"], pb["b2"], eps=EPS, act=act, emit_stats=False)
+            diff = (got.float() - k2.float()).abs()
+            share = float((diff > 0).float().mean())
+            print(f"  {label}: |K3 - K2 plain| max {float(diff.max()):.3e}, "
+                  f"{share:.3%} of elements differ (must be > 0)")
+            if not share > 0:
+                raise AssertionError(f"{label}: K3 computed K2's function")
+    return worst
+
+
+def _k1_long_parity(batch, n_pad, n_valid, d, heads, seed, extra=()):
+    """K1 against its plain version at a length past 256 keys, both values
+    of emit_stats, elementwise and as a branch; ``extra`` adds the loud
+    padding case (valid rows bit for bit as with quiet padding) and the
+    peaked-scores case.  Returns the largest max-abs error."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    x, st, p = _attn_inputs(batch, n_pad, d, seed)
+    pb = _bf16_weights(p, ("wqkv", "wo"))
+    label = f"K1 ({batch}, {n_pad}, {d}) n_valid={n_valid}"
+    print(f"parity {label}, {heads} heads")
+    worst = _parity(label, lambda fn, emit: _attn_call(
+        fn, x, st, pb, heads, n_valid, emit), ab.attn_block_stats,
+        ab.attn_block_stats_plain, x)
+    if "peaked" in extra:
+        # q and k 2x larger: scores 4x wider, so most rows lean on a few
+        # keys, and a key the kernel drops (a tile skipped) moves the rows
+        # it leads by most of their branch.  Held as a branch in relative
+        # norm only: so peaked a softmax turns a score's f32 rounding into
+        # a few bf16 ulps of the branch on rare elements (one of 1.08M
+        # read 3.125e-2 at |out| + |x| < 1), above the elementwise band.
+        peaked = dict(pb, wqkv=pb["wqkv"].clone())
+        peaked["wqkv"][:, :2 * d] *= 2
+        got, _ = _attn_call(ab.attn_block_stats, x, st, peaked, heads,
+                            n_valid, False)
+        want, _ = _attn_call(ab.attn_block_stats_plain, x, st, peaked, heads,
+                             n_valid, False)
+        torch.cuda.synchronize()
+        print(f"  {label} peaked scores out: max_abs="
+              f"{float((got.float() - want.float()).abs().max()):.3e} "
+              f"(stated)")
+        _branch(f"{label} peaked scores branch", got, want, x)
+    if "loud" in extra and n_valid < n_pad:
+        loud = st.clone()
+        loud[:, n_valid:, 0] = 0.0
+        loud[:, n_valid:, 1] = 30.0
+        quiet, _ = _attn_call(ab.attn_block_stats, x, st, pb, heads, n_valid,
+                              True)
+        noisy, _ = _attn_call(ab.attn_block_stats, x, loud, pb, heads,
+                              n_valid, True)
+        torch.cuda.synchronize()
+        moved = float((noisy[:, :n_valid].float()
+                       - quiet[:, :n_valid].float()).abs().max())
+        print(f"  {label} loud padding rows {n_valid}..{n_pad - 1}: valid "
+              f"rows moved by max_abs={moved:.3e} (must be 0)")
+        if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
+            raise AssertionError(f"{label}: padding rows moved the valid rows")
+    return worst
+
+
+def _expect_raise(label, fn):
+    try:
+        fn()
+    except ValueError as e:
+        print(f"  {label} raises: {e}")
+        return
+    raise AssertionError(f"{label} ran outside the kernel's gate")
+
+
+def phase_large_kernels():
+    """K3 (fused_mlp_chunked_stats) and K1 past 256 keys against their
+    plain versions on the card, right after the build: K3 at (200, 128) x
+    512 and (9344, 1024) x 4096; K1 at CLIP-L/14's (4, 264, 1024) with 257
+    valid tokens, ViT-L/16 @384's (2, 584, 1024) with 577 and (1, 1024,
+    768) with 1024, a loud-padding case past 256 keys and a peaked-scores
+    case; then the gates: K3 with 3 chunks and K1 at 1032 tokens raise.
+    Returns {kernel name: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    print("parity K3 fused_mlp_chunked_stats")
+    k3 = max(_k3_parity(200, 128, 512, seed=130),
+             _k3_parity(9344, 1024, 4096, seed=131))
+    k1 = max(_k1_long_parity(4, 264, 257, 1024, 16, seed=132,
+                             extra=("loud", "peaked")),
+             _k1_long_parity(2, 584, 577, 1024, 16, seed=133,
+                             extra=("loud",)),
+             _k1_long_parity(1, 1024, 1024, 768, 12, seed=134))
+    x, st, p = _mlp_inputs(64, 128, 384, seed=135)
+    _expect_raise("K3 n_chunks=3", lambda: _k3_call(
+        fm.fused_mlp_chunked_stats, x, st, p, "gelu_tanh", 3, True))
+    x, st, p = _attn_inputs(1, 1032, 128, seed=136)
+    _expect_raise("K1 at 1032 tokens", lambda: _attn_call(
+        ab.attn_block_stats, x, st, p, 2, 1032, True))
+    return {"fused_mlp_chunked_stats": k3, "attn_block_stats_long": k1}
+
+
+def _time_k3(rows, d, m, seed, label):
+    """K3 (2 chunks) at (rows, d) x m: kernel, plain version, the library
+    yardstick (LN + 2 chunks of addmm + quick-GELU + addmm, bf16) and the
+    bound."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    x, st, p = _mlp_inputs(rows, d, m, seed)
+    pb = _bf16_weights(p, ("w1", "w2"))
+    act = "quick_gelu"
+    ms = time_cuda(lambda: _k3_call(fm.fused_mlp_chunked_stats, x, st, pb,
+                                    act, 2, True))
+    plain_ms = time_cuda(lambda: _k3_call(fm.fused_mlp_chunked_stats_plain,
+                                          x, st, pb, act, 2, True),
+                         iters=3, warmup=1)
+    ls, lb = p["ln_scale"].to(torch.bfloat16), p["ln_bias"].to(torch.bfloat16)
+    b1, b2 = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
+    mc = m // 2
+
+    def library():
+        xn = F.layer_norm(x, (d,), ls, lb, EPS)
+        acc = x
+        for c in range(2):
+            h = torch.addmm(b1[c * mc:(c + 1) * mc], xn,
+                            pb["w1"][:, c * mc:(c + 1) * mc])
+            h = h * torch.sigmoid(1.702 * h)
+            y = h @ pb["w2"][c * mc:(c + 1) * mc]
+            acc = acc + (y + b2 if c == 1 else y)
+        return acc
+
+    lib_ms = time_cuda(library)
+    flops = 4 * rows * d * m
+    nbytes = (2 * rows * d * 2 + 2 * rows * 2 * 4 + 2 * d * m * 2
+              + (m + 3 * d) * 4)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+             bound_by=bound_by)
+    print(f"timing K3 {label} ({rows}, {d}) x {m}, 2 chunks: kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by})")
+    return t
+
+
+def _time_k1(batch, n_pad, n_valid, d, heads, seed, label):
+    """K1 at (batch, n_pad, d): kernel, plain version, the library
+    yardstick (LN + addmm + scaled_dot_product_attention + addmm, bf16)
+    and the bound."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    x, st, p = _attn_inputs(batch, n_pad, d, seed)
+    pb = _bf16_weights(p, ("wqkv", "wo"))
+    rows, dh = batch * n_pad, d // heads
+    ms = time_cuda(lambda: _attn_call(ab.attn_block_stats, x, st, pb, heads,
+                                      n_valid, True))
+    plain_ms = time_cuda(lambda: _attn_call(ab.attn_block_stats_plain, x, st,
+                                            pb, heads, n_valid, True),
+                         iters=3, warmup=1)
+    ls, lb = p["ln_scale"].to(torch.bfloat16), p["ln_bias"].to(torch.bfloat16)
+    bq, bo = p["bqkv"].to(torch.bfloat16), p["bo"].to(torch.bfloat16)
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+    x2 = x.reshape(rows, d)
+
+    def library():
+        xn = F.layer_norm(x2, (d,), ls, lb, EPS)
+        qkv = torch.addmm(bq, xn, pb["wqkv"]).view(batch, n_pad, 3, heads,
+                                                     dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        ao = ao.transpose(1, 2).reshape(rows, d)
+        return torch.addmm(bo, ao, pb["wo"]) + x2
+
+    lib_ms = time_cuda(library)
+    flops = (2 * rows * d * 4 * d
+             + 4 * batch * heads * n_pad * n_valid * dh)
+    nbytes = (2 * rows * d * 2 + 2 * rows * 2 * 4
+              + 4 * d * d * 2 + 6 * d * 4)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+             bound_by=bound_by)
+    print(f"timing K1 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid}: "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by})")
+    return t
+
+
+def phase_large_timing():
+    """K3 at CLIP-L/14 b64 (16 896 rows) and ViT-L/16 b64 (12 800); K1 at
+    CLIP-L/14 b64 (64, 264, 1024) and ViT-L/16 @384 b16 (16, 584, 1024).
+    The JSON line carries the CLIP-L/14 ones."""
+    c = CLIP_L
+    k3 = _time_k3(64 * c["n_pad"], c["d"], c["m"], 140, "CLIP-L/14 b64")
+    _time_k3(64 * 200, 1024, 4096, 141, "ViT-L/16 b64")
+    k1 = _time_k1(64, c["n_pad"], c["n_valid"], c["d"], c["heads"], 142,
+                  "CLIP-L/14 b64")
+    _time_k1(16, 584, 577, 1024, 16, 143, "ViT-L/16 @384 b16")
+    return {"fused_mlp_chunked_stats": k3, "attn_block_stats_long": k1}
+
+
+def _plain_chain():
+    """The chain's kernels swapped for their plain versions (the card's
+    plain-version forward)."""
+    from unittest import mock
+
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    return mock.patch.multiple(
+        vit, attn_block_stats=ab.attn_block_stats_plain,
+        fused_mlp_stats=fm.fused_mlp_stats_plain,
+        fused_mlp_chunked_stats=fm.fused_mlp_chunked_stats_plain)
+
+
+def _check_only(label, counters, want, long=0):
+    """Every counter at its wanted count, 0 unless named (as
+    _check_launches), and ``long`` of the K1 launches on the key-tiled
+    path."""
+    got_long = counters["attn_block_stats"].launches_long
+    print(f"  {label} launches: "
+          f"{ {k: fn.launches for k, fn in counters.items() if fn.launches} }"
+          f", {got_long} of K1's on the key-tiled path")
+    _check_launches(label, counters, want)
+    if got_long != long:
+        raise AssertionError(f"{label}: {got_long} K1 launches took the "
+                             f"key-tiled path, want {long}")
+
+
+def phase_large_slice(n_images=160, batch=64):
+    """ImageServer over clip.make_forward(CLIP ViT-L/14 @224, bf16,
+    projection 768, depth 24) answers 160 uint8 requests (2 batches of 64
+    and a flush of 32): every embedding against the card's plain-version
+    forward, 2 against the CPU forward; each batch launches 24 K1 (all on
+    the key-tiled path) and 24 K3 and nothing else.  Returns the launch
+    counts, the forward and the images."""
+    from vit_fpga_tpu_torch.models import clip
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    from vit_fpga_tpu_torch.utils.log import Metrics
+    cfg = clip.clip_vision_config("vit_l14", dtype="bfloat16")
+    params = clip.init_params(cfg, 768, _gen(150), device="cuda")
+    fwd = clip.make_forward(cfg, params)
+    images = np.random.default_rng(150).integers(
+        0, 256, (n_images, cfg.image_size, cfg.image_size, 3), np.uint8)
+    fwd(images[:batch])
+    torch.cuda.synchronize()
+    Metrics.reset()
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    with ImageServer(fwd, image_size=cfg.image_size,
+                     batch_size=batch) as server:
+        futs = [server.submit_raw(img) for img in images]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        pct = server.latency_percentiles()
+    print(f"CLIP-L/14 slice: {len(results)}/{n_images} answered in "
+          f"{server.batches} batches, {wall:.3f} s, {n_images / wall:.1f} "
+          f"img/s, p50 {pct['p50']:.2f} ms, p99 {pct['p99']:.2f} ms")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["attn_block_stats_long"] = counters[
+        "attn_block_stats"].launches_long
+    per = cfg.depth * server.batches
+    _check_only("CLIP-L/14 slice", counters,
+                {"attn_block_stats": per, "fused_mlp_chunked_stats": per},
+                long=per)
+    if len(results) != n_images or server.served != n_images:
+        raise AssertionError("not every CLIP request was answered")
+    got = np.stack(results)
+    if got.shape != (n_images, 768) or not np.isfinite(got).all():
+        raise AssertionError(f"bad embeddings: shape {got.shape}")
+    with _plain_chain():
+        plain = torch.cat([fwd(images[i:i + batch]).cpu()
+                           for i in range(0, n_images, batch)])
+    _relnorm("CLIP-L/14 served embeddings vs the card's plain forward",
+             torch.from_numpy(got), plain, EMBED_NORM)
+    idx = [0, n_images - 1]
+    cpu = clip.make_forward(cfg, _tree_to(params, "cpu"), device="cpu")
+    _relnorm(f"CLIP-L/14 embeddings of images {idx} vs the CPU forward",
+             torch.from_numpy(got[idx]), cpu(images[idx]), EMBED_NORM)
+    return launches, fwd, images
+
+
+def phase_large_forwards(clip_fwd, images):
+    """CLIP-L/14 at b128 (33 792 rows: the JAX plan's K2, no K3) and
+    ViT-L/16 @384 b16 (24 K1 over 584 keys, 24 K3) against the card's
+    plain-version forwards; DeiT-B/16 b64 against the CPU for 2 images;
+    CLIP-B/16's forward_latency at b1 (one K11) against the CPU.  Returns
+    the ViT-L/16 forwards (224 and 384) and their images for the timing."""
+    from vit_fpga_tpu_torch.models import clip, deit, vit
+    counters = _zero_counters()
+    b128 = images[:128]
+    got = clip_fwd(b128)
+    _check_only("CLIP-L/14 b128", counters,
+                {"attn_block_stats": 24, "fused_mlp_stats": 24}, long=24)
+    with _plain_chain():
+        want = clip_fwd(b128)
+    _relnorm("CLIP-L/14 b128 vs the card's plain forward", got, want,
+             EMBED_NORM)
+
+    cfg384 = vit.config("vit_l16", image_size=384, dtype="bfloat16")
+    p384 = vit.init_params(cfg384, _gen(151), device="cuda")
+    fwd384 = vit.make_forward(cfg384, p384)
+    img384 = np.random.default_rng(151).integers(0, 256, (16, 384, 384, 3),
+                                                 np.uint8)
+    counters = _zero_counters()
+    got = fwd384(img384)
+    _check_only("ViT-L/16 @384 b16", counters,
+                {"attn_block_stats": 24, "fused_mlp_chunked_stats": 24},
+                long=24)
+    with _plain_chain():
+        want = fwd384(img384)
+    _relnorm("ViT-L/16 @384 b16 logits vs the card's plain forward", got,
+             want, EMBED_NORM)
+
+    dcfg = deit.config("deit_b16", dtype="bfloat16")
+    dparams = deit.init_params(dcfg, _gen(152), device="cuda")
+    dimg = np.random.default_rng(152).integers(0, 256, (64, 224, 224, 3),
+                                               np.uint8)
+    counters = _zero_counters()
+    got = deit.make_forward(dcfg, dparams)(dimg).cpu().numpy()
+    _check_only("DeiT-B/16 b64", counters,
+                {"attn_block_stats": 12, "fused_mlp_stats": 12})
+    want = deit.make_forward(dcfg, _tree_to(dparams, "cpu"),
+                             device="cpu")(dimg[[0, 63]]).numpy()
+    _rel_to_max("DeiT-B/16 logits of images [0, 63] vs the CPU forward",
+                got[[0, 63]], want, LOGITS_BAND)
+
+    bcfg = clip.clip_vision_config("vit_b16", dtype="bfloat16")
+    bparams = clip.init_params(bcfg, 512, _gen(153), device="cpu")
+    bimg = vit.preprocess(torch.from_numpy(np.random.default_rng(153).integers(
+        0, 256, (1, 224, 224, 3), np.uint8)), bcfg)
+    prepped = vit._prepare_params(_tree_to(bparams, "cuda"), bcfg)
+    counters = _zero_counters()
+    with torch.inference_mode():
+        got = clip.forward_latency(prepped, bimg.cuda(), bcfg).cpu()
+        want = clip.forward_latency(bparams, bimg, bcfg)
+    _check_only("CLIP-B/16 forward_latency b1", counters, {"vit_layers": 1})
+    _relnorm("CLIP-B/16 forward_latency b1 vs the CPU", got, want,
+             EMBED_NORM)
+
+    cfg224 = vit.config("vit_l16", dtype="bfloat16")
+    fwd224 = vit.make_forward(cfg224, vit.init_params(cfg224, _gen(154),
+                                                      device="cuda"))
+    return fwd224, fwd384, img384
+
+
+def phase_large_time(clip_fwd, clip_images, fwd224, fwd384, img384):
+    """ms per batch and img/s of CLIP-L/14 b64, ViT-L/16 b64 and ViT-L/16
+    @384 b16, in turns (each twice, the order reversed the second time)."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    runs = {
+        "CLIP-L/14 @224 b64": (clip_fwd, torch.from_numpy(
+            clip_images[:64]).cuda()),
+        "ViT-L/16 @224 b64": (fwd224, torch.from_numpy(
+            clip_images[64:128]).cuda()),
+        "ViT-L/16 @384 b16": (fwd384, torch.from_numpy(img384).cuda()),
+    }
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fwd, img = runs[name]
+        times[name].append(time_cuda(lambda: fwd(img), iters=5, warmup=2))
+    for name, ms in times.items():
+        b = runs[name][1].shape[0]
+        print(f"forward {name}: " + " / ".join(f"{t:.3f}" for t in ms)
+              + " ms per batch, " + " / ".join(f"{b / t * 1e3:.1f}"
+                                               for t in ms) + " img/s")
+    return times
+
+
+def run_large_phases(errors, timing, launches):
+    """The large ViTs' phases after the earlier slices' ones (K3 and K1
+    long parity ran right after the build)."""
+    for name, t in phase_large_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    slice_launches, clip_fwd, images = phase_large_slice()
+    launches["fused_mlp_chunked_stats"] = slice_launches[
+        "fused_mlp_chunked_stats"]
+    launches["attn_block_stats_long"] = slice_launches["attn_block_stats_long"]
+    fwds = phase_large_forwards(clip_fwd, images)
+    phase_large_time(clip_fwd, images, *fwds)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2371,7 +2808,8 @@ def main() -> int:
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
 
-    errors = phase_stack_kernels()
+    errors = phase_large_kernels()
+    errors.update(phase_stack_kernels())
     errors.update(phase_dense_kernels())
     for name, err in phase_int8_kernels(8).items():
         errors[name] = err
@@ -2403,6 +2841,7 @@ def main() -> int:
     run_static_phases(errors, timing, launches, fwd_int8, fwd_bf16, cfg)
     run_latency_phases(errors, timing, launches)
     run_dense_phases(errors, timing, launches)
+    run_large_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -2439,6 +2878,10 @@ def main() -> int:
                                 "vit_fpga_tpu/ops/image_filter.py:71"),
         "int8_gemm": ("vit_fpga_tpu_torch/csrc/int8_gemm.cu",
                       "vit_fpga_tpu/ops/quant.py:105"),
+        "fused_mlp_chunked_stats": ("vit_fpga_tpu_torch/csrc/mlp_chunk_stats.cu",
+                                    "vit_fpga_tpu/ops/fused_mlp.py:305"),
+        "attn_block_stats_long": ("vit_fpga_tpu_torch/csrc/attn.cuh",
+                                  "vit_fpga_tpu/ops/attn_block.py:550"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -1,8 +1,13 @@
 #!/bin/bash
 # Mutation check of chip_smoke.py's gates: each copy breaks one kernel and
-# must exit non-zero.  Run from the repository root on the card.
+# must exit non-zero.  Run from the repository root on the card:
+#   bash scripts/chip_mutations.sh [NAME ...]
+# With names, only those copies run (and not the lone chip_smoke.py).
 set -u
+ONLY="$*"
+mkdir -p chiprun_out
 run_copy() {  # name file old new [old new ...]
+  if [ -n "$ONLY" ] && [[ " $ONLY " != *" $1 "* ]]; then return; fi
   local dst=_chip/mut_$1
   rm -rf "$dst"; mkdir -p "$dst"
   cp -r vit_fpga_tpu_torch chip_smoke.py "$dst"/
@@ -41,4 +46,12 @@ run_copy k25_roundf image_filter.cu \
 # K13 has a ragged K: 784 = 12 x 64 + 16 in the dense net, 1 padded to 16)
 run_copy k13_no_partial_k_tile quant.cuh \
   "const int nk = (p.K + QG_BK - 1) / QG_BK;" "const int nk = p.K / QG_BK;"
+# K3 adding b2 on every chunk instead of the last one only
+run_copy k3_b2_every_chunk mlp_chunk_stats.cu \
+  "          if (last) {" "          if (true) {"
+# K1's key-tiled path skipping the last partial key tile (key 256 of 257,
+# key 576 of 577)
+run_copy k1_long_no_partial_tile attn.cuh \
+  "const int ntiles = (n_valid + KT - 1) / KT;" "const int ntiles = n_valid / KT;"
+[ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

@@ -32,7 +32,11 @@ DENSE_MODULES = ("vit_fpga_tpu_torch.defines",
                  "vit_fpga_tpu_torch.native_bridge",
                  "vit_fpga_tpu_torch.utils.options",
                  "vit_fpga_tpu_torch.cli")
-ALL_MODULES = INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
+# the large ViTs: CLIP (vision and text towers) and DeiT
+FAMILY_MODULES = ("vit_fpga_tpu_torch.models.clip",
+                  "vit_fpga_tpu_torch.models.deit")
+ALL_MODULES = (INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
+               + FAMILY_MODULES)
 
 
 def _port_files():

@@ -20,7 +20,12 @@ def params_from_numpy(tree: Mapping[str, Any], device=None,
                       dtype: torch.dtype = torch.float32) -> dict:
     """Nested dicts of array-likes -> nested dicts of tensors on
     ``device`` (CUDA unless ``"cpu"``): float leaves as ``dtype``, integer
-    leaves (the int8 weights of a quantized tree) as ``torch.int8``."""
+    leaves (the int8 weights of a quantized tree) as ``torch.int8``.
+
+    It walks any tree, so every model family crosses with it: the ViT tree,
+    the CLIP vision tree (``ln_pre_*``, ``proj``, no ``head``), the CLIP
+    text tree (``token_embed``, ``pos_embed`` (77, D), ``proj``) and the
+    DeiT tree (``head_dist``, a (1, 2, D) ``cls_token``)."""
     dev = resolve_device(device)
 
     def conv(node):

@@ -7,7 +7,10 @@ kernel as (P*P*3, D) in (py, px, c) order, per-block arrays stacked on a
 leading depth axis, linear weights as (in, out).  The forward is
 
   preprocess -> _fused_embed (one f32-accumulated GEMM, padded rows)
-  -> encoder: depth x [attn_block_stats -> fused_mlp_stats] (the chain),
+  -> encoder: depth x [attn_block_stats -> fused_mlp_stats] (the chain;
+     fused_mlp_chunked_stats, K3, in place of fused_mlp_stats where the JAX
+     package's MLP plan chunks the weights: the ViT-L family below 32 768
+     token rows, ViT-B in f32),
      or depth x _block = [attn_block -> fused_mlp] when ``safe_softmax``
      or ``remat`` is set (differentiable: K4/K5 forward, K23/K24 backward)
   -> LayerNorm of the prefix row -> f32 head
@@ -30,7 +33,9 @@ import torch.utils.checkpoint
 
 from ..ops.attn_block import attn_block, attn_block_stats, attn_block_xla
 from ..ops.common import pad_sublane, round_up, row_stats
-from ..ops.fused_mlp import fused_mlp, fused_mlp_stats, fused_mlp_xla
+from ..ops.fused_mlp import (MLP_BIG_ROWS, fused_mlp, fused_mlp_chunked_stats,
+                              fused_mlp_stats, fused_mlp_xla, mlp_fits_raised,
+                              mlp_weight_chunks)
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.vit_stack import stack_supported, vit_layers
 from ..utils.platform import resolve_device, true_f32
@@ -39,6 +44,8 @@ Params = Dict[str, Any]
 
 IMAGENET_MEAN = (0.5, 0.5, 0.5)
 IMAGENET_STD = (0.5, 0.5, 0.5)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +128,23 @@ def config(variant: str, image_size: int = 224, **overrides) -> ViTConfig:
 # Initialization
 # ---------------------------------------------------------------------------
 
+def seeded_generator(generator: Optional[torch.Generator] = None
+                     ) -> torch.Generator:
+    """``generator``, or a CPU generator seeded with 0 when None."""
+    if generator is None:
+        generator = torch.Generator()
+        generator.manual_seed(0)
+    return generator
+
+
+def trunc_normal(generator: torch.Generator, device, *shape) -> torch.Tensor:
+    """Truncated normal, std 0.02 cut at 2 std, f32, drawn on the CPU from
+    ``generator`` and moved to ``device``."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * 0.02).to(device)
+
+
 def init_params(cfg: ViTConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
     """Truncated-normal (std 0.02, cut at 2 std) init in the JAX tree and
@@ -128,17 +152,12 @@ def init_params(cfg: ViTConfig, generator: Optional[torch.Generator] = None,
     generator; seed 0 when None), so a seed gives the same weights on
     every device, then moved to ``device``."""
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator()
-        generator.manual_seed(0)
+    generator = seeded_generator(generator)
     d, l, m = cfg.hidden_dim, cfg.depth, cfg.mlp_dim
     p3 = cfg.patch_size * cfg.patch_size * 3
 
     def tn(*shape):
-        t = torch.empty(shape, dtype=torch.float32)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
-        return (t * 0.02).to(dev)
+        return trunc_normal(generator, dev, *shape)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -249,11 +268,43 @@ def _fused_embed(params: Params, images: torch.Tensor, cfg: ViTConfig,
                              posb, cfg.patch_size, npre)
 
 
-def _stats_chain_supported(cfg: ViTConfig) -> bool:
+def _stats_chain_mlp_plan(cfg: ViTConfig, rows: int):
+    """The chain's MLP half for ``rows`` token rows (the JAX
+    ``_stats_chain_mlp_vmem`` without its VMEM byte counts): ``"k2"`` for
+    the unchunked half (the JAX default and raised plans compute the same
+    function), an int ``n`` for K3 with n chunks, ``None`` where the chain
+    does not apply (ViT-H: 4 chunks; ViT-L in f32)."""
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    d, m = cfg.hidden_dim, cfg.mlp_dim
+    n_chunks = mlp_weight_chunks(d, m, itemsize)
+    if n_chunks == 1:
+        return "k2"
+    if (n_chunks > 1 and itemsize == 2 and rows >= MLP_BIG_ROWS
+            and mlp_fits_raised(d, m, itemsize)):
+        return "k2"
+    if n_chunks == 2:
+        return n_chunks
+    return None
+
+
+def _n_pad(cfg: ViTConfig) -> int:
+    return round_up(cfg.seq_len, pad_sublane(cfg.compute_dtype))
+
+
+def _stats_chain_supported(cfg: ViTConfig, batch: int) -> bool:
     """The chain serves unless the config asks for the exact softmax or
-    for remat (the JAX ``_stats_chain_supported``, without its TPU
-    planner checks)."""
-    return not (cfg.safe_softmax or cfg.remat)
+    for remat, or its MLP plan at this batch is None (the JAX
+    ``_stats_chain_supported``, without its TPU planner checks).
+
+    The JAX attention-plan gate (``n_sc``, ``reuse_q``) is dropped on
+    purpose: it follows the TPU's VMEM, and K1 has no such limit.  So
+    where the TPU's attention plan falls to its tight tier (CLIP ViT-L/14
+    at an odd batch), the JAX package leaves the chain for the per-block
+    kernels (exact softmax) while the port keeps the chain with K3, and
+    the two compute different functions there.  ``ImageServer`` pads
+    every batch to its fixed size, so the served path is not affected."""
+    return (not (cfg.safe_softmax or cfg.remat)
+            and _stats_chain_mlp_plan(cfg, batch * _n_pad(cfg)) is not None)
 
 
 def _block(x: torch.Tensor, blk: Params, cfg: ViTConfig,
@@ -297,16 +348,26 @@ def _encoder_blocks(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
 
 
 def _encoder_stats_chain(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
-                         n_valid: int) -> torch.Tensor:
+                         n_valid: int, plan=None) -> torch.Tensor:
     """The serving encoder: each half consumes the previous half's
-    LayerNorm (mu, rstd) and emits the next half's.  Its kernels have no
-    backward, so it refuses to run where a gradient is wanted."""
+    LayerNorm (mu, rstd) and emits the next half's.  ``plan`` is
+    :func:`_stats_chain_mlp_plan`'s (computed here when None): the MLP
+    half is K2 for ``"k2"``, K3 with ``plan`` chunks for an int.  Its
+    kernels have no backward, so it refuses to run where a gradient is
+    wanted."""
     if torch.is_grad_enabled() and any(v.requires_grad
                                        for v in blocks.values()):
         raise NotImplementedError(
             "the stats chain has no backward; set safe_softmax or remat "
             "to train through the per-block kernels")
     b, n_pad, d = x.shape
+    if plan is None:
+        plan = _stats_chain_mlp_plan(cfg, b * n_pad)
+    if plan is None:
+        raise ValueError("no stats-chain MLP plan for this geometry "
+                         "(_stats_chain_supported is False)")
+    chunk = {} if plan == "k2" else {"n_chunks": plan}
+    mlp = fused_mlp_stats if plan == "k2" else fused_mlp_chunked_stats
     act = _hidden_act(cfg)
     st = row_stats(x, cfg.ln_eps)           # first LN1 stats, plain torch
     for i in range(cfg.depth):
@@ -316,11 +377,11 @@ def _encoder_stats_chain(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
             blocks["bo"][i], cfg.num_heads, eps=cfg.ln_eps,
             n_valid=n_valid, emit_stats=True)
         last = i == cfg.depth - 1
-        t, st2 = fused_mlp_stats(
+        t, st2 = mlp(
             x.reshape(b * n_pad, d), st.reshape(b * n_pad, 2),
             blocks["ln2_scale"][i], blocks["ln2_bias"][i], blocks["w1"][i],
             blocks["b1"][i], blocks["w2"][i], blocks["b2"][i],
-            eps=cfg.ln_eps, act=act, emit_stats=not last)
+            eps=cfg.ln_eps, act=act, emit_stats=not last, **chunk)
         x = t.reshape(b, n_pad, d)
         if not last:
             st = st2.reshape(b, n_pad, 2)
@@ -346,17 +407,33 @@ def _encoder_chain_xla(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
     return x
 
 
+def _encoder(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
+             n_valid: int) -> torch.Tensor:
+    """Padded (B, n_pad, D) tokens through the encoder: the stats chain
+    where :func:`_stats_chain_supported`, else the per-block kernels (the
+    dispatch of the JAX ``_forward_features``)."""
+    if _stats_chain_supported(cfg, x.shape[0]):
+        return _encoder_stats_chain(blocks, x, cfg, n_valid)
+    return _encoder_blocks(blocks, x, cfg, n_valid)
+
+
 def _forward_features(params: Params, images: torch.Tensor,
                       cfg: ViTConfig) -> torch.Tensor:
     """Normalized images -> PRE-final-LN tokens (B, N, D).  Tokens stay
     padded to n_pad rows through the encoder ("padded residency")."""
     n = cfg.seq_len
-    n_pad = round_up(n, pad_sublane(cfg.compute_dtype))
-    x = _fused_embed(params, images, cfg, n_pad)
-    encoder = (_encoder_stats_chain if _stats_chain_supported(cfg)
-               else _encoder_blocks)
-    x = encoder(params["blocks"], x, cfg, n)
-    return x[:, :n]
+    x = _fused_embed(params, images, cfg, _n_pad(cfg))
+    return _encoder(params["blocks"], x, cfg, n)[:, :n]
+
+
+def forward_features(params: Params, images: torch.Tensor,
+                     cfg: ViTConfig) -> torch.Tensor:
+    """Normalized images (B, S, S, 3) -> final-LN token features
+    (B, N, D)."""
+    with _precision_ctx(cfg):
+        x = _forward_features(params, images, cfg)
+        return _layernorm(x, params["ln_f_scale"], params["ln_f_bias"],
+                          cfg.ln_eps)
 
 
 def forward(params: Params, images: torch.Tensor,
@@ -394,12 +471,13 @@ def _prepare_params(params: Params, cfg: ViTConfig) -> Params:
     return {**params, "blocks": blocks}
 
 
-def make_forward(cfg: ViTConfig, params: Params, raw: bool = True,
-                 device=None) -> Callable[[Any], torch.Tensor]:
-    """Counterpart of the JAX ``jit_forward(cfg, raw)`` partially applied
-    with the params: returns ``fn(images) -> logits`` that runs under
-    ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``).  The
-    params must already live there; numpy input is copied there."""
+def serving_fn(cfg: ViTConfig, params: Params, fn: Callable, device=None
+               ) -> Callable[[Any], torch.Tensor]:
+    """``images -> fn(prepared params, images, cfg)`` under
+    ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``), the
+    weight matrices cast once (:func:`_prepare_params`): the body of every
+    model family's ``make_forward``.  The params must already live there;
+    numpy input is copied there."""
     dev = resolve_device(device)
     if dev.type == "cuda" and cfg.compute_dtype != torch.bfloat16:
         raise NotImplementedError(
@@ -409,7 +487,6 @@ def make_forward(cfg: ViTConfig, params: Params, raw: bool = True,
         if leaf.device.type != dev.type:
             raise ValueError(f"params are on {leaf.device}, forward on {dev}")
     prepped = _prepare_params(params, cfg)
-    fn = forward_raw if raw else forward
 
     def run(images) -> torch.Tensor:
         if isinstance(images, np.ndarray):
@@ -418,6 +495,15 @@ def make_forward(cfg: ViTConfig, params: Params, raw: bool = True,
             return fn(prepped, images.to(dev), cfg)
 
     return run
+
+
+def make_forward(cfg: ViTConfig, params: Params, raw: bool = True,
+                 device=None) -> Callable[[Any], torch.Tensor]:
+    """Counterpart of the JAX ``jit_forward(cfg, raw)`` partially applied
+    with the params: returns ``fn(images) -> logits`` that runs under
+    ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``).  The
+    params must already live there; numpy input is copied there."""
+    return serving_fn(cfg, params, forward_raw if raw else forward, device)
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +537,7 @@ def prep_latency(params: Params, cfg: ViTConfig) -> Params:
     compute-dtype patch kernel, the posb table with patch rows first, and
     the blocks' weight matrices cast to the compute dtype once, so no call
     re-casts them."""
-    n_pad = round_up(cfg.seq_len, pad_sublane(cfg.compute_dtype))
+    n_pad = _n_pad(cfg)
     posb = _cls_last_posb(params["pos_embed"][0].float(),
                           params["patch_embed"]["bias"].float(),
                           params["cls_token"][0].float(),

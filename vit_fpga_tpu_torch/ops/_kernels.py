@@ -30,7 +30,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_bwd.cu", "mlp_bwd.cu", "quant_linear.cu", "mlp_int8.cu",
            "attn_int8.cu", "vit_stack.cu", "vit_stack_int8.cu",
            "mlp_int8_static.cu", "attn_int8_static.cu",
-           "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu")
+           "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu",
+           "mlp_chunk_stats.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,10 +49,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vft_attn_init": ([], ctypes.c_int),
     "vft_attn_block_stats": (
-        [_P] * 12 + [_I] * 5 + [_F, _F, _P], ctypes.c_int),
+        [_P] * 12 + [_I] * 5 + [_F, _F, _P, ctypes.POINTER(_I)],
+        ctypes.c_int),
     "vft_mlp_init": ([], ctypes.c_int),
     "vft_fused_mlp_stats": (
         [_P] * 11 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "vft_mlp_chunk_init": ([], ctypes.c_int),
+    "vft_fused_mlp_chunked_stats": (
+        [_P] * 11 + [_I] * 5 + [_F, _P], ctypes.c_int),
     "vft_attn_block_init": ([], ctypes.c_int),
     "vft_attn_block_fwd": ([_P] * 11 + [_I] * 6 + [_F, _F, _P], ctypes.c_int),
     "vft_fused_mlp_init": ([], ctypes.c_int),
@@ -99,7 +104,8 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_quant_linear_init", "vft_mlp_int8_init", "vft_attn_int8_init",
           "vft_vit_stack_init", "vft_vit_stack_int8_init",
           "vft_mlp_int8_static_init", "vft_attn_int8_static_init",
-          "vft_vit_stack_int8_static_init", "vft_int8_gemm_init")
+          "vft_vit_stack_int8_static_init", "vft_int8_gemm_init",
+          "vft_mlp_chunk_init")
 
 
 def _nvcc() -> str:

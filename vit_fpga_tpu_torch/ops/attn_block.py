@@ -7,7 +7,9 @@ CPU tensor:
 
 * K1 ``attn_block_stats`` (``csrc/attn_stats.cu``), the stats-chain half
   that serving runs: replaces ``vit_fpga_tpu/ops/attn_block.py:
-  _attn_stats_kernel`` (with its ``_mha_loop``);
+  _attn_stats_kernel`` (with its ``_mha_loop``), up to 1024 tokens: past
+  256 valid keys its attention streams the keys in tiles
+  (``csrc/attn.cuh`` ``attn_long_kernel``);
 * K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
   replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
   one-pass LN statistics computed in the kernel and the exact
@@ -40,6 +42,7 @@ lies inside the clip window.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -47,9 +50,14 @@ import torch
 from . import _kernels
 from .attention import mha_qkv_xla
 from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
-                     row_stats)
+                     round_up, row_stats)
 
 _NEG_INF = -1e30
+# K1 takes up to LONG_MAX_TOKENS tokens (csrc/attn.cuh ATT_MAX_LONG); its C
+# entry chooses between the whole-head and the key-tiled attention tile and
+# reports which it launched.  The JAX package takes flash attention outside
+# the chain past 1024 tokens.
+LONG_MAX_TOKENS = 1024
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
 
@@ -140,7 +148,7 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     Query rows at or past ``n_valid`` are computed (garbage, as on the
     TPU); keys there are masked.  A CPU tensor runs
     :func:`attn_block_stats_plain`; a CUDA tensor launches the kernel
-    (bf16 only) or raises."""
+    (bf16, head dim 64, 1 <= n_valid <= n_pad <= 1024) or raises."""
     if x.device.type == "cpu":
         return attn_block_stats_plain(x, stats, ln_scale, ln_bias, wqkv,
                                       bqkv, wo, bo, num_heads, eps=eps,
@@ -155,9 +163,10 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     if d % num_heads:
         raise ValueError(f"D={d} not divisible by {num_heads} heads")
     dh = d // num_heads
-    if dh != 64 or not 1 <= n_valid <= 256:
-        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
-                         f"(dh={dh}, n_valid={n_valid})")
+    if dh != 64 or not 1 <= n_valid <= n <= LONG_MAX_TOKENS:
+        raise ValueError(f"kernel takes head dim 64 and 1 <= n_valid <= "
+                         f"n_pad <= {LONG_MAX_TOKENS} (dh={dh}, "
+                         f"n_valid={n_valid}, n_pad={n})")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     check_activation(stats, (b, n, 2), torch.float32, "stats")
     dev = x.device
@@ -173,6 +182,7 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
               else None)
     qkv = torch.empty((b * n, 3 * d), dtype=bf, device=dev)
     ao = torch.empty((b * n, d), dtype=bf, device=dev)
+    long_path = ctypes.c_int(0)
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
         err = lib.vft_attn_block_stats(
@@ -180,13 +190,15 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
             wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
             out.data_ptr(), st_out.data_ptr() if emit_stats else None,
             qkv.data_ptr(), ao.data_ptr(), b, n, d, num_heads, n_valid,
-            float(eps), 1.0 / math.sqrt(dh), stream)
+            float(eps), 1.0 / math.sqrt(dh), stream, ctypes.byref(long_path))
     _kernels.check(err, "attn_block_stats")
     attn_block_stats.launches += 1
+    attn_block_stats.launches_long += long_path.value
     return out, st_out
 
 
 attn_block_stats.launches = 0
+attn_block_stats.launches_long = 0    # of those, the key-tiled path's
 
 
 # ---------------------------------------------------------------------------

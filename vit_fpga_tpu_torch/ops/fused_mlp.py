@@ -1,13 +1,19 @@
 """Transformer MLP half: LN -> W1 -> act -> W2 -> +residual, and its
 backward.
 
-Three Hopper kernels live here, each behind a wrapper that launches it on
+Four Hopper kernels live here, each behind a wrapper that launches it on
 a CUDA tensor and runs its plain PyTorch version (same arithmetic) on a
 CPU tensor:
 
 * K2 ``fused_mlp_stats`` (``csrc/mlp_stats.cu``), the stats-chain half
   that serving runs: replaces ``vit_fpga_tpu/ops/fused_mlp.py:
   _mlp_stats_kernel``;
+* K3 ``fused_mlp_chunked_stats`` (``csrc/mlp_chunk_stats.cu``), the
+  stats-chain half of the big-weight geometries (the ViT-L family below
+  32 768 token rows, ViT-B in f32): replaces ``_mlp_chunk_stats_kernel``
+  (wrapper ``fused_mlp_chunked_stats_pallas``), K2 whose output is
+  accumulated over column chunks of M and rounded to the input dtype at
+  every chunk boundary, b2 added on the last chunk only;
 * K5 ``fused_mlp_fwd`` (``csrc/mlp.cu``), the per-block half: replaces
   ``_mlp_kernel`` (wrapper ``fused_mlp_pallas``), K2 with two-pass LN
   statistics computed in the kernel and no stats output; its plain
@@ -21,7 +27,10 @@ forward, K24 backward, saving only the inputs, as the JAX ``custom_vjp``.
 Bounds on the H100 at ViT-B/16 batch 64 (T = 12 800 rows, D = 768,
 M = 3072), all set by tensor-core operations at 989 TFLOP/s: K2 and K5
 4·T·D·M flops (121 GFLOP, 122 us) against about 49 MB of compulsory
-traffic; K24 10·T·D·M (302 GFLOP, 305 us) against under 100 MB.
+traffic; K24 10·T·D·M (302 GFLOP, 305 us) against under 100 MB.  K3 at
+CLIP ViT-L/14 batch 64 (T = 16 896, D = 1024, M = 4096): 4·T·D·M
+(283 GFLOP, 287 us), also bound by operations.  (989 TFLOP/s is the
+H100 SXM's dense bf16 peak at its 700 W limit.)
 Designs: bf16 wmma GEMMs with f32 accumulation, the LayerNorm applied to
 the first GEMM's A tiles in shared memory, the activation (or, in the
 backward, act and act' from their closed forms) in a GEMM epilogue, every
@@ -97,22 +106,12 @@ def fused_mlp_stats_plain(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     return out, (row_stats(out, eps) if emit_stats else None)
 
 
-def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
-                    eps: float = 1e-6, act: str = "gelu",
-                    emit_stats: bool = True):
-    """Stats-chain MLP half: (x (T, D), stats (T, 2) f32) ->
-    (out (T, D), next stats (T, 2) f32 or None).
-
-    A CPU tensor runs :func:`fused_mlp_stats_plain`; a CUDA tensor
-    launches the kernel (bf16 only) or raises."""
-    if act not in _ACT_CODES:
-        raise ValueError(f"unknown act {act!r}")
-    if x.device.type == "cpu":
-        return fused_mlp_stats_plain(x, stats, ln_scale, ln_bias, w1, b1, w2,
-                                     b2, eps=eps, act=act,
-                                     emit_stats=emit_stats)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch_stats_half(entry, x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
+                       eps, act, emit_stats, *gate):
+    """Checks and launches the stats-chain MLP half ``entry`` of the
+    library (K2 ``vft_fused_mlp_stats``, or K3
+    ``vft_fused_mlp_chunked_stats`` with ``gate`` = (n_chunks,)) on CUDA
+    tensors: (out, next stats or None)."""
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
@@ -136,17 +135,130 @@ def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     hidden = torch.empty((t, m), dtype=bf, device=dev)
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
-        err = lib.vft_fused_mlp_stats(
+        err = getattr(lib, entry)(
             x.data_ptr(), stats.data_ptr(), ls.data_ptr(), lb.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             out.data_ptr(), st_out.data_ptr() if emit_stats else None,
-            hidden.data_ptr(), t, d, m, _ACT_CODES[act], float(eps), stream)
-    _kernels.check(err, "fused_mlp_stats")
-    fused_mlp_stats.launches += 1
+            hidden.data_ptr(), t, d, m, *gate, _ACT_CODES[act], float(eps),
+            stream)
+    _kernels.check(err, entry)
     return out, st_out
 
 
+def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
+                    eps: float = 1e-6, act: str = "gelu",
+                    emit_stats: bool = True):
+    """Stats-chain MLP half: (x (T, D), stats (T, 2) f32) ->
+    (out (T, D), next stats (T, 2) f32 or None).
+
+    A CPU tensor runs :func:`fused_mlp_stats_plain`; a CUDA tensor
+    launches the kernel (bf16 only) or raises."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return fused_mlp_stats_plain(x, stats, ln_scale, ln_bias, w1, b1, w2,
+                                     b2, eps=eps, act=act,
+                                     emit_stats=emit_stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    res = _launch_stats_half("vft_fused_mlp_stats", x, stats, ln_scale,
+                             ln_bias, w1, b1, w2, b2, eps, act, emit_stats)
+    fused_mlp_stats.launches += 1
+    return res
+
+
 fused_mlp_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the stats-chain MLP half over column chunks of M
+# ---------------------------------------------------------------------------
+
+# The JAX package's MLP plan arithmetic (``fused_mlp.py:413-432`` and the
+# raised-plan row threshold of ``models/vit.py:_stats_chain_mlp_vmem``),
+# copied: it decides which function the stats chain computes (K2, or K3
+# with its bf16 rounding at every chunk boundary), so the port follows it
+# to compute what the JAX package computes.
+MLP_BIG_WEIGHT_LIMIT = 20 * 1024 * 1024
+MLP_CHUNK_BUDGET = 11 * 1024 * 1024
+MLP_BIG_ROWS = 32768
+
+
+def mlp_fits_raised(d: int, m: int, itemsize: int) -> bool:
+    """True when w1 + w2 exceed the default budget but fit the JAX
+    package's raised plan (its unchunked kernel, K2's function)."""
+    return 2 * d * m * itemsize <= MLP_BIG_WEIGHT_LIMIT
+
+
+def mlp_weight_chunks(d: int, m: int, itemsize: int) -> int:
+    """Smallest power-of-two chunk count whose per-chunk weights fit the
+    JAX package's budget; 1 = unchunked, 0 = none up to 16."""
+    n = 1
+    while n <= 16:
+        if 2 * d * (m // n) * itemsize <= MLP_CHUNK_BUDGET and m % n == 0:
+            return n
+        n *= 2
+    return 0
+
+
+def fused_mlp_chunked_stats_plain(x, stats, ln_scale, ln_bias, w1, b1, w2,
+                                  b2, eps: float = 1e-6, act: str = "gelu",
+                                  n_chunks: int = 2,
+                                  emit_stats: bool = True):
+    """Plain PyTorch version of the K3 kernel (the JAX
+    ``fused_mlp_chunked_stats_pallas``): every chunk normalises the INPUT
+    x from its stats, runs its M/n_chunks columns of W1 and rows of W2,
+    and adds bf16(y) to the running output in x's dtype; b2 rides the
+    last chunk only."""
+    m = w1.shape[-1]
+    if n_chunks < 1 or m % n_chunks:
+        raise ValueError(f"M={m} does not split into {n_chunks} chunks")
+    mc = m // n_chunks
+    dt = x.dtype
+    xn = ((x.float() - stats[:, 0:1]) * stats[:, 1:2] * ln_scale.float()
+          + ln_bias.float()).to(dt).float()
+    w1f, w2f, b1f = w1.to(dt).float(), w2.to(dt).float(), b1.float()
+    acc = x
+    for c in range(n_chunks):
+        cols = slice(c * mc, (c + 1) * mc)
+        h = _act(xn @ w1f[:, cols] + b1f[cols], act).to(dt)
+        y = h.float() @ w2f[cols]
+        if c == n_chunks - 1:
+            y = y + b2.float()
+        acc = acc + y.to(dt)            # the chunk boundary's rounding
+    return acc, (row_stats(acc, eps) if emit_stats else None)
+
+
+def fused_mlp_chunked_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
+                            eps: float = 1e-6, act: str = "gelu",
+                            n_chunks: int = 2, emit_stats: bool = True):
+    """Stats-chain MLP half over ``n_chunks`` column chunks of M (K3):
+    (x (T, D), stats (T, 2) f32) -> (out (T, D), next stats (T, 2) f32 or
+    None).
+
+    A CPU tensor runs :func:`fused_mlp_chunked_stats_plain`; a CUDA tensor
+    launches the kernel (bf16, D and M multiples of 32, n_chunks 2 or 4,
+    M a multiple of 32 * n_chunks) or raises."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return fused_mlp_chunked_stats_plain(
+            x, stats, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps, act=act,
+            n_chunks=n_chunks, emit_stats=emit_stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    m = w1.shape[-1]
+    if n_chunks not in (2, 4) or m % (32 * n_chunks):
+        raise ValueError(f"kernel takes n_chunks 2 or 4 and M a multiple of "
+                         f"32 * n_chunks (M={m}, n_chunks={n_chunks})")
+    res = _launch_stats_half("vft_fused_mlp_chunked_stats", x, stats,
+                             ln_scale, ln_bias, w1, b1, w2, b2, eps, act,
+                             emit_stats, n_chunks)
+    fused_mlp_chunked_stats.launches += 1
+    return res
+
+
+fused_mlp_chunked_stats.launches = 0
 
 
 # ---------------------------------------------------------------------------

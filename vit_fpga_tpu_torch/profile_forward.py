@@ -3,9 +3,15 @@ or calibrated static int8, throughput or batch-1 latency), or one
 training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
-        [--batch 64] [--steps 3] [--train | --int8 [--static]] [--latency]
+        [--image 224] [--batch 64] [--steps 3]
+        [--train | --int8 [--static]] [--latency]
 
-Without a mode flag it runs ``make_forward(cfg, params, raw=True)`` (bf16,
+``--model`` takes the ViT variants, ``clip_<variant>`` (the CLIP vision
+tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
+``deit_<variant>`` (``deit_b16``), with ``bench.py``'s prefix rules;
+``--image`` is the square input size (224, 384).  CLIP and DeiT profile
+the bf16 served forward only.  Without a mode flag it runs the family's
+``make_forward(cfg, params, raw=True)`` (bf16,
 random weights from seed 0) on a seeded uint8 batch already on the card;
 with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
 weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
@@ -45,7 +51,9 @@ import torch
 # vit_stack:: K11, vit_stack_int8:: K19a, vit_stack_int8_static:: K19b,
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
-# mlp_int8_static:: K17, attn_int8_static:: K18.  The int8 GEMM's template
+# mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1's
+# key-tiled attention past 256 keys is attn_half::attn_long_kernel).  The
+# int8 GEMM's template
 # argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
 # int8 with the static scale), quant_rows_kernel's second one its
 # LayerNorm (0 none, 1 one-pass, 2 two-pass).  The first fragment found
@@ -81,12 +89,16 @@ STAGES = (
      "K18 (d) int8 out-proj + residual"),
     ("attn_int8_static::", "K18 other"),
     ("attn_half::gemm_bf16_kernel<true", "K1 (a) LN + QKV GEMM"),
+    ("attn_half::attn_long_kernel", "K1 (b) attention, key-tiled"),
     ("attn_half::attn_kernel", "K1 (b) attention"),
     ("attn_half::gemm_bf16_kernel<false", "K1 (c) out-proj + residual"),
     ("attn_half::row_stats_kernel", "K1 (d) next stats"),
     ("mlp_half::gemm_bf16_kernel<true", "K2 (a) LN + W1 GEMM + act"),
     ("mlp_half::gemm_bf16_kernel<false", "K2 (b) W2 GEMM + residual"),
     ("mlp_half::row_stats_kernel", "K2 (c) next stats"),
+    ("mlp_chunk::gemm_bf16_kernel<true", "K3 (a) LN + W1 GEMM + act"),
+    ("mlp_chunk::chunk_down_kernel", "K3 (b) chunked W2 GEMM + residual"),
+    ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
     ("attn_block::gemm_bf16_kernel<true", "K4 (b) LN + QKV GEMM"),
     ("attn_block::attn_kernel", "K4 (c) attention"),
@@ -151,13 +163,28 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _serve_run(cfg, batch):
-    """One served forward: make_forward on a seeded uint8 batch."""
-    from .models import vit
+def _model(name: str, image: int):
+    """(family module, config) for ``--model`` / ``--image``, with
+    bench.py's prefix rules: ``clip_<variant>`` is the CLIP vision tower
+    of that ViT variant, ``deit_*`` a DeiT variant, else a ViT variant."""
+    from .models import clip, deit, vit
+    if name.startswith("clip_"):
+        return clip, clip.clip_vision_config(name.removeprefix("clip_"),
+                                             image_size=image,
+                                             dtype="bfloat16")
+    if name.startswith("deit_"):
+        return deit, deit.config(name, image_size=image, dtype="bfloat16")
+    return vit, vit.config(name, image_size=image, dtype="bfloat16")
+
+
+def _serve_run(family, cfg, batch):
+    """One served forward: the family's make_forward on a seeded uint8
+    batch."""
     gen = torch.Generator()
     gen.manual_seed(0)
-    fwd = vit.make_forward(cfg, vit.init_params(cfg, gen, device="cuda"),
-                           raw=True)
+    fwd = family.make_forward(cfg, family.init_params(cfg, generator=gen,
+                                                      device="cuda"),
+                              raw=True)
     images = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, cfg.image_size, cfg.image_size, 3),
         np.uint8)).cuda()
@@ -250,7 +277,10 @@ def _train_run(cfg, batch):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="vit_b16")
+    ap.add_argument("--model", default="vit_b16",
+                    help="a ViT variant, clip_<variant> or deit_<variant>")
+    ap.add_argument("--image", type=int, default=224,
+                    help="square input size in pixels")
     ap.add_argument("--batch", type=int, default=None,
                     help="64, or 1 with --latency")
     ap.add_argument("--steps", type=int, default=3)
@@ -276,17 +306,20 @@ def main(argv=None) -> int:
     from .utils.platform import require_hopper
     from .utils.timing import time_cuda
 
+    family, cfg = _model(args.model, args.image)
+    if family is not vit and (args.train or args.int8 or args.latency):
+        ap.error("CLIP and DeiT profile the bf16 served forward only")
     kind = require_hopper()
-    cfg = vit.config(args.model, dtype="bfloat16")
     mode = "train" if args.train else "serve-int8" if args.int8 else "serve"
     if args.latency:
         mode = "latency-int8" if args.int8 else "latency"
         run = _latency_run(cfg, args.batch, args.int8, args.static)
     elif args.int8:
         run = _serve_int8_run(cfg, args.batch, args.static)
+    elif args.train:
+        run = _train_run(cfg, args.batch)
     else:
-        run = {"train": _train_run, "serve": _serve_run}[mode](cfg,
-                                                               args.batch)
+        run = _serve_run(family, cfg, args.batch)
     if args.static:
         mode += "-static"
 
@@ -317,7 +350,8 @@ def main(argv=None) -> int:
         if label == TORCH_OPS:
             torch_ops[name[:90]] += (e - s) / 1e3 / args.steps
     result = {
-        "device": kind, "model": args.model, "batch": args.batch,
+        "device": kind, "model": args.model, "image": args.image,
+        "batch": args.batch,
         "mode": mode,
         "step_ms": step_ms, "img_per_s": args.batch / step_ms * 1e3,
         "peak_mem_mb": peak_mb,
@@ -345,7 +379,8 @@ def main(argv=None) -> int:
         result["idle_share"] = None   # the profiler saw no device work
 
     what = "train step" if args.train else "batch"
-    print(f"{args.model} {'int8' if args.int8 else 'bf16'} b{args.batch} "
+    print(f"{args.model} @{args.image} {'int8' if args.int8 else 'bf16'} "
+          f"b{args.batch} "
           f"{mode} on {kind}: {step_ms:.4f} ms per "
           f"{what}, {result['img_per_s']:.1f} img/s, peak {peak_mb:.0f} MiB"
           + (f", {result['tflops']:.1f} TFLOP/s" if args.train else "")

@@ -63,7 +63,8 @@ class ImageServer:
 
     ``forward_raw`` maps a uint8 (B, S, S, 3) tensor on ``device`` to a
     (B, ...) result (``models.vit.make_forward(cfg, params, raw=True)``,
-    or the int8 engine ``models.quantized.make_forward_int8``).
+    the int8 engine ``models.quantized.make_forward_int8``, or CLIP's
+    ``models.clip.make_forward``, whose rows are embeddings, or DeiT's).
     ``device`` is CUDA unless the caller passes ``"cpu"``.
     """
 
@@ -103,7 +104,8 @@ class ImageServer:
 
     def submit(self, jpeg_bytes: bytes, priority: bool = False,
                timeout_ms: Optional[float] = None) -> Future:
-        """Enqueue one encoded image; resolves to its logits row.
+        """Enqueue one encoded image; resolves to its result row (logits,
+        or an embedding).
 
         ``priority=True`` requests jump the normal lane.  ``timeout_ms``
         bounds QUEUE time: a request picked up past its deadline fails
