@@ -116,6 +116,24 @@ Phases, each of which raises on failure (exit code != 0):
               plain forward, DeiT-B/16 b64 and CLIP-B/16 forward_latency b1
               (1 K11) against the CPU; CLIP-L/14 b64, ViT-L/16 b64 and
               ViT-L/16 @384 b16 forwards timed in turns
+ 14. full     the whole model in one launch: K12 (vit_full) and K20
+              (vit_full_int8) against their plain versions at ViT-B/16
+              width (224 px, 197 tokens, 1000 classes), b1 and b4: one
+              layer (K12 elementwise, K20 within its logits band beside
+              the floor of two right implementations), 12 layers in norm
+              and of the largest logit, ViT-B/32's 3072-value patches at
+              depth 2, and the gates (batch 5, a 588-value patch, an f32
+              model raise; right after the build); their depth-12 times at
+              b1 and b4 beside the plain version, a library yardstick
+              (F.conv2d, the stacks' PyTorch layers, the head) and the
+              bound, and each kernel's stage clock; the separate-launch
+              latency forwards against the single-launch ones, b1 and b4,
+              in turns, p50 / max of five 32-call loops and device launches
+              per request; 64 one-at-a-time requests through
+              ImageServer(batch_size=1) over make_forward_latency(full=True)
+              and make_forward_int8_latency(full=True), exactly one K12 (or
+              K20) launch a request and nothing else of the port, logits
+              against the CPU forward; the entry points raise at batch 5
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -866,7 +884,9 @@ def _counters():
             "mlp_block_int8_static": qb.mlp_block_int8_static,
             "attn_block_int8_static": qb.attn_block_int8_static,
             "vit_layers_int8_static": vs.vit_layers_int8_static,
-            "fused_mlp_chunked_stats": fm.fused_mlp_chunked_stats}
+            "fused_mlp_chunked_stats": fm.fused_mlp_chunked_stats,
+            "vit_full": vs.vit_full,
+            "vit_full_int8": vs.vit_full_int8}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -1625,8 +1645,9 @@ def _stack_blocks(depth, d=768, m=3072, seed=100):
         w2=_randn(g, depth, m, d, std=0.02), b2=_randn(g, depth, d, std=0.02))
 
 
-def _stack_trees(depth, seed=100):
-    """(bf16 tree, int8 tree, static int8 tree) of the same seeded blocks,
+def _stack_trees(depth, seed=100, static=True):
+    """(bf16 tree, int8 tree, static int8 tree or None without ``static``)
+    of the same seeded blocks,
     laid out as the latency forwards prepare them (bf16 weights; int8
     weights as (L, K, N) views of (L, N, K) storage with f32 column
     scales).  The static tree folds scales from the port's probe
@@ -1647,6 +1668,8 @@ def _stack_trees(depth, seed=100):
         q8[k + "_q"] = kmajor(torch.from_numpy(
             np.stack([a for a, _ in pairs])).cuda())
         q8[k + "_s"] = torch.from_numpy(np.stack([s for _, s in pairs])).cuda()
+    if not static:
+        return bf, q8, None
     d = p["wo"].shape[-1]
     sc = calibrate.layer_absmax_stats(p, _stack_x(4, d=d, seed=seed + 2),
                                       d // 64, EPS, "gelu_tanh",
@@ -2470,10 +2493,10 @@ def _k1_long_parity(batch, n_pad, n_valid, d, heads, seed, extra=()):
     return worst
 
 
-def _expect_raise(label, fn):
+def _expect_raise(label, fn, exc=ValueError):
     try:
         fn()
-    except ValueError as e:
+    except exc as e:
         print(f"  {label} raises: {e}")
         return
     raise AssertionError(f"{label} ran outside the kernel's gate")
@@ -2789,6 +2812,435 @@ def run_large_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# 14. The whole model in one launch: K12 (vit_full) and K20 (vit_full_int8)
+# ---------------------------------------------------------------------------
+
+FULL_KERNELS = ("vit_full", "vit_full_int8")
+# K12 logits against its plain version, max |a-b| over the largest logit:
+# the stacks' bf16 ulp flips carried through the final LayerNorm and the
+# head's sums of 768 terms (read on the H100 at depth 12: 1.2-1.4e-2, the
+# same as the plain head on K11's tokens against the plain version's).
+FULL_LOGITS_TOL = 2e-2
+# K20's: the head quantizes the CLS row with a scale taken from its
+# largest element, so one flipped bf16 ulp of the tokens can move that
+# scale and with it every logit.  Two right implementations (the plain
+# head on K19a's tokens, the plain version) were read 1.5-3.3e-2 apart on
+# the H100; the band is twice the largest such gap read.  The floor is
+# printed beside each reading.
+FULL_INT8_LOGITS_TOL = 8e-2
+
+
+def _full_args(depth, patch=16, image=224, classes=1000, seed=120):
+    """(K12 arguments, K20 arguments) after the images at ViT-B width:
+    the blocks of _stack_trees and a seeded patch weight, posb table
+    (zero tail rows), final LayerNorm and head, laid out as the port's
+    folds lay them out (the head padded to a multiple of 128 columns: zero
+    weights and biases, int8 scales 1.0; the int8 patch weight k-major)."""
+    from vit_fpga_tpu_torch.ops.quant_fused import (kmajor,
+                                                    quantize_weight_colwise)
+    bf, q8, _ = _stack_trees(depth, seed=seed, static=False)
+    g = _gen(seed + 1)
+    d, p3 = 768, 3 * patch * patch
+    n = 1 + (image // patch) ** 2
+    n_pad = -(-n // 8) * 8
+    cls_pad = -(-classes // 128) * 128
+    wp = _randn(g, p3, d, std=0.03)
+    posb = _randn(g, n_pad, d, std=0.02)
+    posb[n:] = 0.0
+    lfs, lfb = _randn(g, d, std=0.1, mean=1.0), _randn(g, d, std=0.1)
+    wh = torch.zeros((d, cls_pad), device="cuda")
+    wh[:, :classes] = _randn(g, d, classes, std=0.03)
+    bh = torch.zeros((cls_pad,), device="cuda")
+    bh[:classes] = _randn(g, classes, std=0.02)
+    wpq, wps = quantize_weight_colwise(wp.cpu().numpy())
+    whq, whs = quantize_weight_colwise(wh[:, :classes].cpu().numpy())
+    whq_p = torch.zeros((d, cls_pad), dtype=torch.int8, device="cuda")
+    whq_p[:, :classes] = torch.from_numpy(whq).cuda()
+    whs_p = torch.ones((cls_pad,), device="cuda")
+    whs_p[:classes] = torch.from_numpy(whs).cuda()
+    bf16 = torch.bfloat16
+    return ((wp.to(bf16), posb, bf, lfs, lfb, wh.to(bf16), bh),
+            (kmajor(torch.from_numpy(wpq).cuda()),
+             torch.from_numpy(wps).cuda(), posb, q8, lfs, lfb, whq_p, whs_p,
+             bh))
+
+
+def _full_depth(args, depth, blocks_at):
+    """The arguments with the first ``depth`` layers of the blocks."""
+    out = list(args)
+    out[blocks_at] = {k: v[:depth] for k, v in args[blocks_at].items()}
+    return tuple(out)
+
+
+def _full_images(batch, image=224, seed=121):
+    """Seeded normalized images, f32 on the card (K12 / K20 round them to
+    bf16 as they gather the patches)."""
+    return _randn(_gen(seed + batch), batch, image, image, 3)
+
+
+def _full_int8_floor(images, args, heads, patch=16):
+    """The plain head on K19a's tokens and on the plain layers' tokens, from
+    the same plain embed: max |a-b| over the largest logit, the gap of two
+    right implementations that K20's band is set against."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    from vit_fpga_tpu_torch.ops.quant_block import _ln_f32
+    from vit_fpga_tpu_torch.ops.quant_fused import _int_matmul, _row_quant
+    wpq, wps, posb, q8, lfs, lfb, whq, whs, bh = args
+    n = 1 + (images.shape[1] // patch) ** 2
+    pq, sp = _row_quant(vs.patch_rows(images, patch, posb.shape[0],
+                                      torch.bfloat16).float())
+    tok = (_int_matmul(pq, wpq) * (sp * wps) + posb).to(torch.bfloat16)
+
+    def head(t):
+        rq, rs = _row_quant(_ln_f32(t[:, 0], lfs, lfb, EPS))
+        return _int_matmul(rq, whq) * (rs * whs) + bh
+    a = head(vs.vit_layers_int8(tok, q8, heads, eps=EPS, n_valid=n))
+    b = head(vs.vit_layers_int8_plain(tok, q8, heads, eps=EPS, n_valid=n))
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _full_logits(label, got, want, tol=FULL_LOGITS_TOL, floor=None):
+    """max |a-b| over the largest logit within ``tol``; returns max |a-b|."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    rel = float((g - w).abs().max() / w.abs().max())
+    note = "" if floor is None else f"; floor {floor:.3e}"
+    print(f"  {label}: max |a-b| / max |b| = {rel:.3e} (tol {tol:g}{note})")
+    if not rel <= tol or not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version")
+    return float((g - w).abs().max())
+
+
+def phase_full_kernels(batches=(1, 4), heads=12):
+    """K12 and K20 against their plain versions on the card at ViT-B/16
+    width (224 px, patch 16, 197 tokens, 1000 classes), b1 and b4: K12 at
+    one layer elementwise in the bf16 band, K20 at one layer within
+    FULL_INT8_LOGITS_TOL of the largest logit (its floor printed); both at
+    all 12 layers in relative norm (2e-2 bf16, 5e-2 int8) and within their
+    logits bands; ViT-B/32's 3072-value patches (50 tokens) at depth 2, so
+    that the embed's K loop runs 48 steps; then the gates: batch 5, a
+    588-value patch and an f32 model raise.  Runs right after the build.
+    Returns {kernel name: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = {name: 0.0 for name in FULL_KERNELS}
+    bf12, i812 = _full_args(12)
+    for batch in batches:
+        img = _full_images(batch)
+        print(f"parity K12 vit_full / K20 vit_full_int8 ({batch}, 224, 224, "
+              f"3) images, patch 16, 12 heads, 1000 classes")
+        a, q = _full_depth(bf12, 1, 2), _full_depth(i812, 1, 3)
+        got = vs.vit_full(img, *a, heads, 16, eps=EPS)
+        want = vs.vit_full_plain(img, *a, heads, 16, eps=EPS)
+        torch.cuda.synchronize()
+        worst["vit_full"] = max(worst["vit_full"], _compare(
+            f"K12 b{batch} depth 1 logits", got, want, BF16_TOL, BF16_TOL))
+        got = vs.vit_full_int8(img, *q, heads, 16, eps=EPS)
+        want = vs.vit_full_int8_plain(img, *q, heads, 16, eps=EPS)
+        _relnorm(f"K20 b{batch} depth 1 logits", got, want, STACK_INT8_NORM)
+        worst["vit_full_int8"] = max(worst["vit_full_int8"], _full_logits(
+            f"K20 b{batch} depth 1 logits", got, want, FULL_INT8_LOGITS_TOL,
+            _full_int8_floor(img, q, heads)))
+        for name, kern, plain, args, tol, band in (
+                ("vit_full", vs.vit_full, vs.vit_full_plain, bf12,
+                 STACK_BF16_NORM, FULL_LOGITS_TOL),
+                ("vit_full_int8", vs.vit_full_int8, vs.vit_full_int8_plain,
+                 i812, STACK_INT8_NORM, FULL_INT8_LOGITS_TOL)):
+            got = kern(img, *args, heads, 16, eps=EPS)
+            want = plain(img, *args, heads, 16, eps=EPS)
+            torch.cuda.synchronize()
+            _relnorm(f"{name} b{batch} depth 12 logits", got, want, tol)
+            floor = (_full_int8_floor(img, args, heads)
+                     if name == "vit_full_int8" else None)
+            worst[name] = max(worst[name], _full_logits(
+                f"{name} b{batch} depth 12 logits", got, want, band, floor))
+    # ViT-B/32: p3 = 3072, 50 tokens (56 rows), depth 2; bf16 images
+    bf2, i82 = _full_args(2, patch=32, seed=130)
+    for batch in batches:
+        img = _full_images(batch, seed=131).to(torch.bfloat16)
+        for name, kern, plain, args, band in (
+                ("vit_full", vs.vit_full, vs.vit_full_plain, bf2,
+                 FULL_LOGITS_TOL),
+                ("vit_full_int8", vs.vit_full_int8, vs.vit_full_int8_plain,
+                 i82, FULL_INT8_LOGITS_TOL)):
+            got = kern(img, *args, heads, 32, eps=EPS)
+            want = plain(img, *args, heads, 32, eps=EPS)
+            worst[name] = max(worst[name], _full_logits(
+                f"{name} b{batch} ViT-B/32 patches (p3 3072, 50 tokens) "
+                f"depth 2 logits", got, want, band))
+    img = _full_images(1)
+    a1, q1 = _full_depth(bf12, 1, 2), _full_depth(i812, 1, 3)
+    _expect_raise("K12 at batch 5", lambda: vs.vit_full(
+        _full_images(5), *a1, heads, 16, eps=EPS))
+    _expect_raise("K20 at batch 5", lambda: vs.vit_full_int8(
+        _full_images(5), *q1, heads, 16, eps=EPS))
+    _expect_raise("K12 with 14-pixel patches (p3 588)", lambda: vs.vit_full(
+        _full_images(1, image=28), torch.zeros((588, 768), device="cuda",
+                                               dtype=torch.bfloat16),
+        *a1[1:], heads, 14, eps=EPS))
+    _expect_raise("K12 with an f32 model", lambda: vs.vit_full(
+        img, a1[0].float(), *a1[1:], heads, 16, eps=EPS))
+    return worst
+
+
+def _full_library(images, args, heads, int8, patch=16):
+    """The whole model as PyTorch calls the port never makes: F.conv2d for
+    the patch embed, _stack_library's layers, F.layer_norm and a matmul
+    head (torch._int_mm with torch-op quantization for int8)."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops.quant_fused import _row_quant as rq
+    bf = torch.bfloat16
+    b = images.shape[0]
+    x_nchw = images.permute(0, 3, 1, 2).to(bf).contiguous()
+    if int8:
+        wpq, wps, posb, tree, lfs, lfb, whq, whs, bh = args
+        wp = (wpq.float() * wps).to(bf)
+    else:
+        wp, posb, tree, lfs, lfb, wh, bh = args
+    d = wp.shape[-1]
+    kern = wp.reshape(patch, patch, 3, d).permute(3, 2, 0, 1).contiguous()
+    n_pad = posb.shape[0]
+    n = 1 + (images.shape[1] // patch) ** 2
+    buf = torch.zeros((b, n_pad, d), dtype=bf, device="cuda")
+    layers = _stack_library(buf, tree, heads, n, int8)
+    posb_b = posb.to(bf)
+
+    def run():
+        e = F.conv2d(x_nchw, kern, stride=patch).flatten(2).transpose(1, 2)
+        buf[:, 1:n] = e + posb_b[1:n]
+        buf[:, 0] = posb_b[0]
+        cls = F.layer_norm(layers()[:, 0].float(), (d,), lfs, lfb, EPS)
+        if int8:
+            q, s = rq(cls)
+            if b < 17:   # torch._int_mm wants more than 16 rows
+                q = F.pad(q, (0, 0, 0, 17 - b))
+            return torch._int_mm(q, whq)[:b].float() * (s * whs) + bh
+        return torch.addmm(bh, cls.to(bf).float(), wh.float())
+    return run
+
+
+def phase_full_timing(batches=(1, 4), heads=12, d=768, m=3072):
+    """K12 and K20 at depth 12 at each batch: the kernel's time, its plain
+    version's, the library yardstick's and the bound; then each kernel's
+    stage clock at b1.  Returns {batch: {name: dict of times}}."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    bf12, i812 = _full_args(12, seed=140)
+    depth, n, n_pad, p3, cls_pad = 12, 197, 200, 768, 1024
+    wmat = 4 * d * d + 2 * d * m
+    vecs = 3 * d + d + m + d + 4 * d
+    out = {}
+    for batch in batches:
+        img = _full_images(batch, seed=141)
+        tok = batch * n
+        gemm = 2 * tok * wmat * depth
+        attn = 4 * batch * heads * n * n * (d // heads) * depth
+        edge = 2 * batch * (n - 1) * p3 * d + 2 * batch * d * cls_pad
+        io = img.numel() * 4 + batch * cls_pad * 4 + n_pad * d * 4 + 2 * d * 4
+        cases = {
+            "vit_full": (vs.vit_full, vs.vit_full_plain, bf12, False,
+                         _bound(gemm + attn + edge,
+                                depth * (wmat * 2 + vecs * 4) + io
+                                + (p3 * d + d * cls_pad) * 2 + cls_pad * 4)),
+            "vit_full_int8": (
+                vs.vit_full_int8, vs.vit_full_int8_plain, i812, True,
+                _bound_int8(gemm + edge, attn,
+                            depth * (wmat + (vecs + 3 * d + m) * 4) + io
+                            + p3 * d + d * 4 + d * cls_pad
+                            + 2 * cls_pad * 4)),
+        }
+        out[batch] = {}
+        for name, (kern, plain, args, int8, (bound_ms, bound_by)) in \
+                cases.items():
+            ms = time_cuda(lambda: kern(img, *args, heads, 16, eps=EPS),
+                           iters=50, warmup=5)
+            plain_ms = time_cuda(lambda: plain(img, *args, heads, 16,
+                                               eps=EPS), iters=3, warmup=1)
+            lib_ms = _library_ms(_full_library(img, args, heads, int8), name)
+            out[batch][name] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+            print(f"timing {name} b{batch} depth 12: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+    img = _full_images(1, seed=141)
+    for name, kern, args, stages in (
+            ("K12", vs.vit_full, bf12, vs.K12_STAGES),
+            ("K20", vs.vit_full_int8, i812, vs.K20_STAGES)):
+        trace = vs.new_trace(img.device)
+        for _ in range(10):
+            kern(img, *args, heads, 16, eps=EPS, trace=trace)
+        torch.cuda.synchronize()
+        rep = vs.trace_report(trace, stages, 10)
+        print(f"stage clock {name} b1 depth 12 ({rep['blocks']} blocks, us "
+              f"per launch: wall, mean work, max work, barrier):")
+        for stage in stages:
+            row = rep[stage]
+            print(f"  {row['wall']:8.2f} {row['busy_mean']:8.2f} "
+                  f"{row['busy_max']:8.2f} {row['barrier']:8.2f}  {stage}")
+        print(f"  total {rep['total_wall']:.2f} us, barrier share "
+              f"{rep['barrier_share']:.3f}")
+    return out
+
+
+def _launches(fn, calls=3):
+    """(kernel names, copies) the profiler sees on the card over ``calls``
+    calls of fn, after one untimed call."""
+    from vit_fpga_tpu_torch.profile_forward import _device_events
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [name for name, _, _ in _device_events(prof)]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    return kernels, len(names) - len(kernels)
+
+
+def phase_full_forward_time(loops=5, iters=32):
+    """ms per b1 and b4 request of the separate-launch latency forwards
+    (K11 or K19a with the torch embed and head) against the single-launch
+    ones (K12, K20), each on seeded uint8 images through its
+    make_forward_*(raw=True): in turns (separate, single, single,
+    separate), each turn the p50 and max of ``loops`` loops of ``iters``
+    calls; then torch launches per request (kernels and copies the
+    profiler sees): a single-launch request may launch no kernel but
+    preprocess's kinds and its own."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(9), device="cuda")
+    qparams = quantized.quantize_vit_fast(params)
+    fwds = {"bf16 separate": vit.make_forward_latency(cfg, params),
+            "bf16 single": vit.make_forward_latency(cfg, params, full=True),
+            "int8 separate": quantized.make_forward_int8_latency(
+                cfg, qparams),
+            "int8 single": quantized.make_forward_int8_latency(
+                cfg, qparams, full=True)}
+    out = {}
+    for batch in (1, 4):
+        image = torch.from_numpy(np.random.default_rng(9).integers(
+            0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+            np.uint8)).cuda()
+        runs = {name: [] for name in fwds}
+        for dt in ("bf16", "int8"):
+            for kind in ("separate", "single", "single", "separate"):
+                name = f"{dt} {kind}"
+                est = sorted(time_cuda(lambda: fwds[name](image),
+                                       iters=iters, warmup=2)
+                             for _ in range(loops))
+                runs[name].append((est[len(est) // 2], est[-1]))
+        calls = 3
+        pre = set(_launches(lambda: vit.preprocess(image, cfg), calls)[0])
+        for name, fwd in fwds.items():
+            kernels, copies = _launches(lambda: fwd(image), calls)
+            n = len(kernels) + copies
+            out[(batch, name)] = dict(turns=runs[name], launches=n / calls)
+            print(f"forward {name} b{batch}: p50 / max ms per request "
+                  + ", ".join(f"{p:.4f} / {mx:.4f}" for p, mx in runs[name])
+                  + f"; {len(kernels) / calls:.1f} kernels and "
+                  f"{copies / calls:.1f} copies per request")
+            # by name, not by count: some hosts' profiler misses a kernel
+            # now and then.  The separate path's embed, LN and head add
+            # GEMM and reduction kernels that preprocess never runs.
+            extra = {k for k in kernels if k not in pre}
+            if name.endswith("single") and (
+                    not extra or any("vit_full" not in k for k in extra)):
+                raise AssertionError(
+                    f"{name}: kernels beyond preprocess's and K12's / K20's "
+                    f"(or none of theirs): {sorted(extra)}")
+        # the two forms agree on the same request
+        for dt in ("bf16", "int8"):
+            a = fwds[f"{dt} separate"](image).float().cpu().numpy()
+            b = fwds[f"{dt} single"](image).float().cpu().numpy()
+            rel = float(np.abs(a - b).max() / np.abs(a).max())
+            print(f"  {dt} b{batch}: single vs separate logits max |a-b| / "
+                  f"max |a| = {rel:.3e}, top-1 agree "
+                  f"{int((a.argmax(1) == b.argmax(1)).sum())}/{batch}")
+    return out
+
+
+def phase_full_serve(n_requests=64, n_check=3):
+    """ImageServer(batch_size=1) over make_forward_latency(full=True) and
+    make_forward_int8_latency(full=True) answers ``n_requests`` uint8
+    requests, one at a time: exactly one K12 (or K20) launch per request
+    and no other kernel of the port (no K11, K19a, K14, separate embed or
+    head), p50/p99 on the host clock, and the logits of ``n_check`` images
+    against the CPU forward of the same weights.  Returns {kernel name:
+    launches}."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    from vit_fpga_tpu_torch.utils.log import Metrics
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(10), device="cuda")
+    qparams = quantized.quantize_vit_fast(params)
+    images = np.random.default_rng(10).integers(
+        0, 256, (n_requests, cfg.image_size, cfg.image_size, 3), np.uint8)
+    paths = {
+        "bf16": (vit.make_forward_latency(cfg, params, full=True),
+                 lambda: vit.make_forward_latency(
+                     cfg, _tree_to(params, "cpu"), device="cpu", full=True),
+                 "vit_full", LOGITS_BAND),
+        "int8": (quantized.make_forward_int8_latency(cfg, qparams, full=True),
+                 lambda: quantized.make_forward_int8_latency(
+                     cfg, _tree_to(qparams, "cpu"), device="cpu", full=True),
+                 "vit_full_int8", INT8_LOGITS_BAND),
+    }
+    five = torch.zeros((5, cfg.image_size, cfg.image_size, 3), device="cuda")
+    _expect_raise("forward_latency_logits at batch 5 on the card",
+                  lambda: vit.forward_latency_logits(params, five, cfg),
+                  NotImplementedError)
+    _expect_raise("vit_forward_int8_latency_logits at batch 5 on the card",
+                  lambda: quantized.vit_forward_int8_latency_logits(
+                      qparams, five, cfg), NotImplementedError)
+    launches = {}
+    idx = list(range(n_check))
+    for label, (fwd, cpu_maker, kernel, band) in paths.items():
+        fwd(images[:1])
+        torch.cuda.synchronize()
+        Metrics.reset()
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        with ImageServer(fwd, image_size=cfg.image_size,
+                         batch_size=1) as server:
+            results = [server.submit_raw(img).result(timeout=600)
+                       for img in images]
+            wall = time.perf_counter() - t0
+            pct = server.latency_percentiles()
+        got = _check_launches(f"full slice {label}", counters,
+                              {kernel: n_requests})
+        print(f"full slice {label}: {len(results)}/{n_requests} answered in "
+              f"{wall:.3f} s, p50 {pct['p50']:.3f} ms, p99 {pct['p99']:.3f} "
+              f"ms (submit to logits, one request in flight); launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        if len(results) != n_requests or server.served != n_requests:
+            raise AssertionError(f"{label}: not every request was answered")
+        for r in results:
+            if r.shape != (cfg.num_classes,) or not np.isfinite(r).all():
+                raise AssertionError(f"{label}: bad logits row {r.shape}")
+        launches[kernel] = got[kernel]
+        ref = cpu_maker()(images[idx]).numpy()
+        _rel_to_max(f"full slice {label} logits of images {idx} vs the CPU "
+                    f"forward", np.stack([results[i] for i in idx]), ref,
+                    band)
+    return launches
+
+
+def run_full_phases(errors, timing, launches):
+    """The whole-model single-launch phases after the earlier slices' ones
+    (K12 and K20 parity ran right after the build)."""
+    full_timing = phase_full_timing()
+    for name in FULL_KERNELS:
+        timing[name] = dict(full_timing[1][name], max_abs_err=errors[name])
+    phase_full_forward_time()
+    launches.update(phase_full_serve())
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2810,6 +3262,7 @@ def main() -> int:
 
     errors = phase_large_kernels()
     errors.update(phase_stack_kernels())
+    errors.update(phase_full_kernels())
     errors.update(phase_dense_kernels())
     for name, err in phase_int8_kernels(8).items():
         errors[name] = err
@@ -2842,6 +3295,7 @@ def main() -> int:
     run_latency_phases(errors, timing, launches)
     run_dense_phases(errors, timing, launches)
     run_large_phases(errors, timing, launches)
+    run_full_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -2882,6 +3336,10 @@ def main() -> int:
                                     "vit_fpga_tpu/ops/fused_mlp.py:305"),
         "attn_block_stats_long": ("vit_fpga_tpu_torch/csrc/attn.cuh",
                                   "vit_fpga_tpu/ops/attn_block.py:550"),
+        "vit_full": ("vit_fpga_tpu_torch/csrc/vit_full.cu",
+                     "vit_fpga_tpu/ops/vit_stack.py:566"),
+        "vit_full_int8": ("vit_fpga_tpu_torch/csrc/vit_full_int8.cu",
+                          "vit_fpga_tpu/ops/vit_stack.py:604"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

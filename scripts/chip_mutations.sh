@@ -29,7 +29,7 @@ PY
 run_copy k11_no_key_mask stack.cuh \
   "attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid," \
   "attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_pad,"
-run_copy k19a_h_one_tile_absmax vit_stack_int8.cu \
+run_copy k19a_h_one_tile_absmax stack_i8.cuh \
   "h_quant_row(w.h, w.amax, p.amax_parts, w.q, w.sx, r, rows, m);" \
   "h_quant_row(w.h, w.amax, 1, w.q, w.sx, r, rows, m);"
 # K17 without the saturation before the int8 cast of h: past +-127 it wraps
@@ -53,5 +53,14 @@ run_copy k3_b2_every_chunk mlp_chunk_stats.cu \
 # key 576 of 577)
 run_copy k1_long_no_partial_tile attn.cuh \
   "const int ntiles = (n_valid + KT - 1) / KT;" "const int ntiles = n_valid / KT;"
+# K12 without the embed's posb on each image's CLS row (the CLS token and
+# its position embedding dropped)
+run_copy k12_no_cls_posb vit_full.cu \
+  "for (int t = 0; t < 16; ++t) f[t] = __fadd_rn(f[t], pb[t]);" \
+  "for (int t = 0; t < 16; ++t) f[t] = r % p.n_pad == 0 ? f[t] : __fadd_rn(f[t], pb[t]);"
+# K20 with the head's row quantization skipped: the CLS rows' final
+# LayerNorm and rowquant are not run, so the head reads stale int8 rows
+run_copy k20_head_no_rowquant stack_i8.cuh \
+  "last ? (fin ? lfs : nullptr)" "last ? nullptr"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

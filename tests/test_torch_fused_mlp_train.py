@@ -6,7 +6,11 @@ each activation the kernels take.
 
 Tolerances as in test_torch_attn_block_train.py: f32 1e-5 (outputs) and
 1e-4 (summed gradients) relative; bf16 outputs and dx elementwise within
-2^-6 (1 + |b|), the f32 gradients within 1e-2 in relative norm."""
+2^-6 (1 + |b|), the f32 gradients within 1e-2 in relative norm.
+
+The f32 forward has a third leg: the same function evaluated in float64
+numpy (``_mlp_f64``), against which both the port and the JAX kernel are
+held, so that a failure names its side."""
 
 import contextlib
 
@@ -61,6 +65,49 @@ _ARGS = ("ls", "lb", "w1", "b1", "w2", "b2")
 _BWD_ARGS = ("ls", "lb", "w1", "b1", "w2")
 
 
+def _act_f64(h, act):
+    """The activations of fused_mlp.py's ``_act`` in float64, the tanh-GELU
+    in its fma form."""
+    if act == "gelu_tanh":
+        u = h * (0.7978845608028654 + 0.035677408136300125 * (h * h))
+        return 0.5 * h + 0.5 * h * np.tanh(u)
+    if act == "quick_gelu":
+        return h / (1.0 + np.exp(-1.702 * h))
+    if act == "relu":
+        return np.maximum(h, 0.0)
+    raise ValueError(act)
+
+
+def _mlp_f64(p, act, eps=1e-6):
+    """The Pallas body's function (``_mlp_kernel``: two-pass LN -> W1 + b1
+    -> act -> W2 + b2 -> residual) in float64 on the f32 inputs: exact to
+    far below the f32 tolerance.  Returns (out, hidden)."""
+    f = {k: np.asarray(v, np.float64) for k, v in p.items()}
+    x = f["x"]
+    mu = x.mean(-1, keepdims=True)
+    var = ((x - mu) ** 2).mean(-1, keepdims=True)
+    xn = (x - mu) / np.sqrt(var + eps) * f["ls"] + f["lb"]
+    h = _act_f64(xn @ f["w1"] + f["b1"], act)
+    return x + (h @ f["w2"] + f["b2"]), h
+
+
+def _off(got, exact, tol):
+    """Where ``got`` misses ``exact`` by more than tol (1 + |exact|): the
+    max |d|, the rows off, and per worst row the hidden units whose W2 row
+    is most aligned with the error (a misrounded hidden unit j moves the
+    row by a multiple of W2[j])."""
+    d = np.asarray(got, np.float64) - exact
+    bad = np.abs(d) > tol * (1.0 + np.abs(exact))
+    rows = sorted(set(np.nonzero(bad)[0].tolist()))
+    return float(np.abs(d).max()), int(bad.sum()), rows, d
+
+
+def _hidden_suspects(d_row, w2, top=3):
+    w = np.asarray(w2, np.float64)
+    score = np.abs(w @ d_row) / np.linalg.norm(w, axis=1)
+    return np.argsort(-score)[:top].tolist()
+
+
 def _as(p, jdt):
     out = dict(p)
     for k in ("x", "g"):
@@ -105,6 +152,19 @@ def test_fused_mlp_fwd_plain_matches_pallas(act, dts):
                             *[torch.from_numpy(p[k]) for k in _ARGS],
                             act=act)
     tol = 1e-5 if name == "float32" else BF16_TOL
+    if name == "float32":
+        exact, _ = _mlp_f64(p, act)
+        for side, out in (("port", _f32(got)), ("JAX", _f32(want))):
+            dmax, n_off, rows, d = _off(out, exact, tol)
+            worst = int(np.abs(d).max(1).argmax())
+            print(f"{side} vs float64 [{act}]: max|d| {dmax:.3e}, {n_off} "
+                  f"of {d.size} off, rows {rows[:16]}, hidden units most "
+                  f"aligned with row {worst}'s error "
+                  f"{_hidden_suspects(d[worst], p['w2'])}")
+        np.testing.assert_allclose(_f32(got), exact, rtol=tol, atol=tol,
+                                   err_msg="the port vs float64")
+        np.testing.assert_allclose(_f32(want), exact, rtol=tol, atol=tol,
+                                   err_msg="the JAX kernel vs float64")
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 

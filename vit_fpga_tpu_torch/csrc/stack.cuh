@@ -690,7 +690,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
 // slot], int64, zeroed by the caller.  Without one it is the barrier alone.
 // ---------------------------------------------------------------------------
 
-constexpr int ST_TRACE_KINDS = 10;
+constexpr int ST_TRACE_KINDS = 16;
 constexpr int ST_TRACE_BLOCKS = 1024;
 
 __device__ __forceinline__ unsigned long long global_ns() {

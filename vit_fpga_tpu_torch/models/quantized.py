@@ -28,8 +28,11 @@ that tree (``_fold_static_scales``): the static tree, marked by
 in bf16 whatever ``cfg.dtype`` says.  The batch-1 latency forward
 (``make_forward_int8_latency``) runs the embed with the CLS row last, the
 whole encoder in one launch (K19a ``ops/vit_stack.vit_layers_int8``, or
-K19b ``vit_layers_int8_static`` on a static tree) and the same head.  It
-runs the Hopper kernels on a CUDA device and their plain versions on the
+K19b ``vit_layers_int8_static`` on a static tree) and the same head;
+``vit_forward_int8_latency_logits`` (``make_forward_int8_latency(...,
+full=True)``) runs the whole dynamic int8 model, image in and logits out,
+in one launch (K20 ``ops/vit_stack.vit_full_int8``).  It runs the Hopper
+kernels on a CUDA device and their plain versions on the
 CPU.  The per-linear int8 route that the JAX package takes where its
 block kernels do not fit, the int8-scores attention (K22, gated off in
 the JAX package too) and the CLIP towers are not ported yet.
@@ -51,8 +54,8 @@ from ..ops.quant_block import (attn_block_int8, attn_block_int8_static,
                                mlp_block_int8, mlp_block_int8_static)
 from ..ops.quant_fused import (int8_linear_fused, kmajor,
                                QMAX, quantize_weight_colwise)
-from ..ops.vit_stack import (stack_supported, vit_layers_int8,
-                             vit_layers_int8_static)
+from ..ops.vit_stack import (full_supported, stack_supported, vit_full_int8,
+                             vit_layers_int8, vit_layers_int8_static)
 from ..utils.platform import resolve_device
 from . import vit as vit_mod
 
@@ -236,17 +239,11 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     if _PREPARED in qparams:
         return qparams
     _check_tree(qparams, cfg)
-    n, d = cfg.seq_len, cfg.hidden_dim
-    npre = cfg.num_prefix_tokens
-    n_pad = round_up(n, pad_sublane(torch.bfloat16))
     pe = qparams["patch_embed"]
-    pos = qparams["pos_embed"][0].float()
-    pre = qparams["cls_token"][0].float()
-    posb = torch.cat([
-        pre + pos[:npre],
-        pos[npre:] + pe["b"].float(),
-        torch.zeros((n_pad - n, d), dtype=torch.float32, device=pos.device),
-    ], dim=0)
+    posb = vit_mod._cls_first_posb(
+        qparams["pos_embed"][0].float(), pe["b"].float(),
+        qparams["cls_token"][0].float(), cfg.num_prefix_tokens,
+        round_up(cfg.seq_len, pad_sublane(torch.bfloat16)))
     wp = (pe["wq"].float() * pe["ws"].float()).to(torch.bfloat16)
     per_key = {k: v.unbind(0) for k, v in qparams["blocks"].items()}
     layers = [{k: (kmajor(v[i]) if k.endswith("_q") else v[i])
@@ -436,13 +433,98 @@ def vit_forward_int8_latency(qparams: Params, images: torch.Tensor,
                              hd["ws"], hd["b"]).float()
 
 
+# ---------------------------------------------------------------------------
+# Batch-1 int8 single-launch forward: embed, layers, final LN, head (K20)
+# ---------------------------------------------------------------------------
+
+def full_int8_latency_supported(qparams: Params, cfg: vit_mod.ViTConfig,
+                                batch: int, card: bool = True) -> bool:
+    """Gate of :func:`vit_forward_int8_latency_logits`.  Off the card
+    (``card=False``) the JAX ``full_int8_latency_supported`` without its
+    TPU VMEM planner: CLS pooling, one prefix token, batch <= 4 and a head
+    (or the fold's), on a dynamic tree (a static tree's folded scales
+    would be read as dynamic ones).  On the card also what K20 takes
+    (``ops/vit_stack.full_supported``)."""
+    ok = (cfg.pool == "cls" and cfg.num_prefix_tokens == 1 and batch <= 4
+          and ("head" in qparams or "whq" in qparams)
+          and cfg.num_classes >= 1
+          and "inv_ao" not in qparams["blocks"])
+    if not card:
+        return ok
+    return ok and full_supported(cfg.num_heads, cfg.hidden_dim, cfg.mlp_dim,
+                                 cfg.seq_len, batch, cfg.patch_size)
+
+
+def prep_full_int8_latency(qparams: Params,
+                           cfg: vit_mod.ViTConfig) -> Params:
+    """One-time fold for :func:`vit_forward_int8_latency_logits` (the JAX
+    ``prep_full_int8_latency``): the posb table (CLS first), the int8
+    patch weight as a k-major view and its scales, the blocks' int8
+    weights as k-major views, and the int8 head padded to a multiple of
+    128 classes (zero weights and biases, scales 1.0)."""
+    if "posb" in qparams:
+        return qparams
+    n_pad = round_up(cfg.seq_len, pad_sublane(torch.bfloat16))
+    pe = qparams["patch_embed"]
+    posb = vit_mod._cls_first_posb(qparams["pos_embed"][0].float(),
+                                   pe["b"].float(),
+                                   qparams["cls_token"][0].float(),
+                                   cfg.num_prefix_tokens, n_pad)
+    ncls = cfg.num_classes
+    extra = round_up(ncls, 128) - ncls
+    hd = qparams["head"]
+    pad = torch.nn.functional.pad
+    return {
+        "wpq": kmajor(pe["wq"]),
+        "wps": pe["ws"],
+        "posb": posb,
+        "blocks": {k: (kmajor(v) if k.endswith("_q") else v)
+                   for k, v in qparams["blocks"].items()},
+        "lfs": qparams["ln_f_scale"],
+        "lfb": qparams["ln_f_bias"],
+        "whq": pad(hd["wq"], (0, extra)).contiguous(),
+        "whs": pad(hd["ws"].float(), (0, extra), value=1.0),
+        "bh": pad(hd["b"].float(), (0, extra)),
+    }
+
+
+def vit_forward_int8_latency_logits(qparams: Params, images: torch.Tensor,
+                                    cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """The whole dynamic int8 forward in one launch (K20,
+    ``ops/vit_stack.vit_full_int8``): row-quantized patch embed, K19a's
+    layers, the final one-pass LayerNorm of the CLS row quantized from
+    f32, and the int8 head.  Returns (B, num_classes) f32.  ``qparams`` may
+    be the ``quantize_vit_fast`` tree or the :func:`prep_full_int8_latency`
+    fold.  It raises outside :func:`full_int8_latency_supported` (the
+    card's gate on a CUDA tensor); there is no fallback to
+    :func:`vit_forward_int8_latency`."""
+    on_card = images.device.type == "cuda"
+    if not full_int8_latency_supported(qparams, cfg, images.shape[0],
+                                       card=on_card):
+        raise NotImplementedError(
+            f"vit_forward_int8_latency_logits takes a dynamic int8 tree with "
+            f"a head, CLS pooling, one prefix token and batch <= 4, and on "
+            f"the card a geometry K20 takes (full_int8_latency_supported); "
+            f"got batch {images.shape[0]}")
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    prep = prep_full_int8_latency(qparams, cfg)
+    out = vit_full_int8(images, prep["wpq"], prep["wps"], prep["posb"],
+                        prep["blocks"], prep["lfs"], prep["lfb"], prep["whq"],
+                        prep["whs"], prep["bh"], cfg.num_heads,
+                        cfg.patch_size, eps=cfg.ln_eps, act=act)
+    return out[:, :cfg.num_classes]
+
+
 def make_forward_int8_latency(cfg: vit_mod.ViTConfig, qparams: Params,
-                              raw: bool = True,
-                              device=None) -> Callable[[Any], torch.Tensor]:
+                              raw: bool = True, device=None,
+                              full: bool = False
+                              ) -> Callable[[Any], torch.Tensor]:
     """The latency counterpart of :func:`make_forward_int8`:
     :func:`prep_int8_latency` runs once here, and ``fn(images) -> logits``
     runs preprocess (when ``raw``) and :func:`vit_forward_int8_latency`
-    under ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``)."""
+    under ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``).
+    With ``full`` it folds :func:`prep_full_int8_latency` and runs
+    :func:`vit_forward_int8_latency_logits`."""
     dev = resolve_device(device)
     for leaf in (qparams["pos_embed"], qparams["blocks"]["wqkv_q"]):
         if leaf.device.type != dev.type:
@@ -450,7 +532,9 @@ def make_forward_int8_latency(cfg: vit_mod.ViTConfig, qparams: Params,
     if cfg.remat:
         raise NotImplementedError("the int8 forward serves; remat is a "
                                   "training option")
-    prepped = prep_int8_latency(qparams, cfg)
+    prepped = (prep_full_int8_latency if full
+               else prep_int8_latency)(qparams, cfg)
+    fwd = vit_forward_int8_latency_logits if full else vit_forward_int8_latency
 
     def run(images) -> torch.Tensor:
         if isinstance(images, np.ndarray):
@@ -459,6 +543,6 @@ def make_forward_int8_latency(cfg: vit_mod.ViTConfig, qparams: Params,
             images = images.to(dev)
             if raw:
                 images = vit_mod.preprocess(images, cfg)
-            return vit_forward_int8_latency(prepped, images, cfg)
+            return fwd(prepped, images, cfg)
 
     return run

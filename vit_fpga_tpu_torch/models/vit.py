@@ -18,7 +18,10 @@ leading depth axis, linear weights as (in, out).  The forward is
 and runs the Hopper kernels on a CUDA device, their plain versions on
 the CPU.  The batch-1 latency forward (``forward_latency``,
 ``make_forward_latency``) places the prefix rows after the patch rows and
-runs the whole encoder in one launch (K11, ``ops/vit_stack.vit_layers``).
+runs the whole encoder in one launch (K11, ``ops/vit_stack.vit_layers``);
+``forward_latency_logits`` (``make_forward_latency(..., full=True)``) runs
+the whole model, image in and logits out, in one launch (K12,
+``ops/vit_stack.vit_full``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from ..ops.fused_mlp import (MLP_BIG_ROWS, fused_mlp, fused_mlp_chunked_stats,
                               fused_mlp_stats, fused_mlp_xla, mlp_fits_raised,
                               mlp_weight_chunks)
 from ..ops.patch_embed import embed_tokens_dotg
-from ..ops.vit_stack import stack_supported, vit_layers
+from ..ops.vit_stack import full_supported, stack_supported, vit_full, \
+    vit_layers
 from ..utils.platform import resolve_device, true_f32
 
 Params = Dict[str, Any]
@@ -248,24 +252,29 @@ def _precision_ctx(cfg: ViTConfig):
         yield
 
 
+def _cls_first_posb(pos, bias, pre, npre: int, n_pad: int) -> torch.Tensor:
+    """The (n_pad, D) f32 posb table with the prefix rows first, then the
+    patch rows, then zero rows."""
+    n, d = pos.shape
+    return torch.cat([
+        pre + pos[:npre],
+        pos[npre:] + bias,
+        torch.zeros((n_pad - n, d), dtype=torch.float32, device=pos.device),
+    ], dim=0)
+
+
 def _fused_embed(params: Params, images: torch.Tensor, cfg: ViTConfig,
                  n_pad: int) -> torch.Tensor:
     """Images -> PADDED (B, n_pad, D) tokens, prefix rows first; bias,
     position table and prefix rows ride a folded (n_pad, D) f32 table."""
     dt = cfg.compute_dtype
-    n, d = cfg.seq_len, cfg.hidden_dim
-    npre = cfg.num_prefix_tokens
-    pos = params["pos_embed"][0].float()
-    bias = params["patch_embed"]["bias"].float()
-    pre = params["cls_token"][0].float()
-    posb = torch.cat([
-        pre + pos[:npre],
-        pos[npre:] + bias,
-        torch.zeros((n_pad - n, d), dtype=torch.float32, device=pos.device),
-    ], dim=0)
+    posb = _cls_first_posb(params["pos_embed"][0].float(),
+                           params["patch_embed"]["bias"].float(),
+                           params["cls_token"][0].float(),
+                           cfg.num_prefix_tokens, n_pad)
     return embed_tokens_dotg(images.to(dt),
                              params["patch_embed"]["kernel"].to(dt),
-                             posb, cfg.patch_size, npre)
+                             posb, cfg.patch_size, cfg.num_prefix_tokens)
 
 
 def _stats_chain_mlp_plan(cfg: ViTConfig, rows: int):
@@ -590,13 +599,86 @@ def forward_latency(params: Params, images: torch.Tensor,
         return pooled.float() @ prep["wh"] + prep["bh"]
 
 
+# ---------------------------------------------------------------------------
+# Batch-1 single-launch forward: embed, layers, final LN and head (K12)
+# ---------------------------------------------------------------------------
+
+def full_latency_supported(cfg: ViTConfig, batch: int,
+                           card: bool = True) -> bool:
+    """Gate of :func:`forward_latency_logits`.  Off the card (``card=False``)
+    the JAX ``full_latency_supported`` without its TPU VMEM planner: one
+    prefix token, a head, and an activation the stack takes; like it, the
+    gate reads neither ``pool`` nor the batch (a GAP-pooled config gets
+    CLS-pooled logits).  On the card also bf16 and what K12 takes
+    (:func:`full_supported`: batch <= 4, head dim 64, <= 256 tokens, K11's
+    D and M, 3 patch^2 a multiple of 16)."""
+    ok = (cfg.num_prefix_tokens == 1 and cfg.num_classes >= 1
+          and cfg.hidden_act in ("gelu", "gelu_tanh", "quick_gelu"))
+    if not card:
+        return ok
+    return (ok and cfg.dtype == "bfloat16"
+            and full_supported(cfg.num_heads, cfg.hidden_dim, cfg.mlp_dim,
+                               cfg.seq_len, batch, cfg.patch_size))
+
+
+def prep_full_latency(params: Params, cfg: ViTConfig) -> Params:
+    """One-time fold for :func:`forward_latency_logits` (the JAX
+    ``prep_full_latency``): the posb table (CLS first), the compute-dtype
+    patch kernel and blocks, and the head in the compute dtype padded to a
+    multiple of 128 classes (zero columns, zero biases)."""
+    dt = cfg.compute_dtype
+    ncls = cfg.num_classes
+    cls_pad = round_up(ncls, 128)
+    posb = _cls_first_posb(params["pos_embed"][0].float(),
+                           params["patch_embed"]["bias"].float(),
+                           params["cls_token"][0].float(),
+                           cfg.num_prefix_tokens, _n_pad(cfg))
+    pad = torch.nn.functional.pad
+    return {
+        "wp": params["patch_embed"]["kernel"].to(dt).contiguous(),
+        "posb": posb,
+        "blocks": _prepare_params(params, cfg)["blocks"],
+        "lfs": params["ln_f_scale"],
+        "lfb": params["ln_f_bias"],
+        "wh": pad(params["head"]["kernel"].to(dt), (0, cls_pad - ncls)),
+        "bh": pad(params["head"]["bias"].float(), (0, cls_pad - ncls)),
+    }
+
+
+def forward_latency_logits(params: Params, images: torch.Tensor,
+                           cfg: ViTConfig) -> torch.Tensor:
+    """The whole forward in one launch (K12, ``ops/vit_stack.vit_full``):
+    the patch embed from the image, every layer, the final one-pass
+    LayerNorm of the CLS row cast to the compute dtype, and the head with
+    f32 sums.  Returns (B, num_classes) f32.  ``params`` may be the plain
+    tree or the :func:`prep_full_latency` fold.  It raises outside
+    :func:`full_latency_supported` (the card's gate on a CUDA tensor);
+    there is no fallback to :func:`forward_latency`."""
+    on_card = images.device.type == "cuda"
+    if not full_latency_supported(cfg, images.shape[0], card=on_card):
+        raise NotImplementedError(
+            f"forward_latency_logits takes one prefix token, a head and a "
+            f"gelu / gelu_tanh / quick_gelu MLP, and on the card bf16 and a "
+            f"geometry K12 takes (full_latency_supported); got batch "
+            f"{images.shape[0]}")
+    with _precision_ctx(cfg):
+        prep = params if "posb" in params else prep_full_latency(params, cfg)
+        out = vit_full(images, prep["wp"], prep["posb"], prep["blocks"],
+                       prep["lfs"], prep["lfb"], prep["wh"], prep["bh"],
+                       cfg.num_heads, cfg.patch_size, eps=cfg.ln_eps,
+                       act=_latency_act(cfg.hidden_act))
+        return out[:, :cfg.num_classes]
+
+
 def make_forward_latency(cfg: ViTConfig, params: Params, raw: bool = True,
-                         device=None) -> Callable[[Any], torch.Tensor]:
+                         device=None,
+                         full: bool = False) -> Callable[[Any], torch.Tensor]:
     """The latency counterpart of :func:`make_forward` (what the JAX
     ``bench.py`` latency mode builds): :func:`prep_latency` runs once here,
     and ``fn(images) -> logits`` runs preprocess (when ``raw``) and
     :func:`forward_latency` under ``torch.inference_mode`` on ``device``
-    (CUDA unless ``"cpu"``)."""
+    (CUDA unless ``"cpu"``).  With ``full`` it folds
+    :func:`prep_full_latency` and runs :func:`forward_latency_logits`."""
     dev = resolve_device(device)
     if dev.type == "cuda" and cfg.compute_dtype != torch.bfloat16:
         raise NotImplementedError(
@@ -605,7 +687,8 @@ def make_forward_latency(cfg: ViTConfig, params: Params, raw: bool = True,
     for leaf in (params["pos_embed"], params["blocks"]["wqkv"]):
         if leaf.device.type != dev.type:
             raise ValueError(f"params are on {leaf.device}, forward on {dev}")
-    prepped = prep_latency(params, cfg)
+    prepped = (prep_full_latency if full else prep_latency)(params, cfg)
+    fwd = forward_latency_logits if full else forward_latency
 
     def run(images) -> torch.Tensor:
         if isinstance(images, np.ndarray):
@@ -614,6 +697,6 @@ def make_forward_latency(cfg: ViTConfig, params: Params, raw: bool = True,
             images = images.to(dev)
             if raw:
                 images = preprocess(images, cfg)
-            return forward_latency(prepped, images, cfg)
+            return fwd(prepped, images, cfg)
 
     return run

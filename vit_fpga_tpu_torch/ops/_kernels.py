@@ -31,8 +31,9 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_int8.cu", "vit_stack.cu", "vit_stack_int8.cu",
            "mlp_int8_static.cu", "attn_int8_static.cu",
            "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu",
-           "mlp_chunk_stats.cu")
-HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh")
+           "mlp_chunk_stats.cu", "vit_full.cu", "vit_full_int8.cu")
+HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
+           "stack_bf16.cuh", "stack_i8.cuh", "full.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -96,6 +97,13 @@ _SIGNATURES = {
                          ctypes.c_int),
     "vft_int8_gemm_init": ([], ctypes.c_int),
     "vft_int8_gemm": ([_P] * 3 + [_I] * 3 + [_P], ctypes.c_int),
+    "vft_vit_full_init": ([], ctypes.c_int),
+    "vft_vit_full_workspace": ([_I] * 4, ctypes.c_size_t),
+    "vft_vit_full": ([_P] * 21 + [_I] * 13 + [_F, _F, _P, _P], ctypes.c_int),
+    "vft_vit_full_int8_init": ([], ctypes.c_int),
+    "vft_vit_full_int8_workspace": ([_I] * 4, ctypes.c_size_t),
+    "vft_vit_full_int8": ([_P] * 27 + [_I] * 13 + [_F, _F, _P, _P],
+                          ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.
@@ -105,7 +113,7 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_vit_stack_init", "vft_vit_stack_int8_init",
           "vft_mlp_int8_static_init", "vft_attn_int8_static_init",
           "vft_vit_stack_int8_static_init", "vft_int8_gemm_init",
-          "vft_mlp_chunk_init")
+          "vft_mlp_chunk_init", "vft_vit_full_init", "vft_vit_full_int8_init")
 
 
 def _nvcc() -> str:

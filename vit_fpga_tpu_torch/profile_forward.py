@@ -4,7 +4,7 @@ training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
         [--image 224] [--batch 64] [--steps 3]
-        [--train | --int8 [--static]] [--latency]
+        [--train | --int8 [--static]] [--latency | --full]
 
 ``--model`` takes the ViT variants, ``clip_<variant>`` (the CLIP vision
 tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
@@ -21,12 +21,18 @@ a seeded normalized batch.  ``--latency`` (batch 1 unless ``--batch`` says
 otherwise, 4 at most) runs the single-launch forwards instead:
 ``make_forward_latency`` (K11), or with ``--int8``
 ``make_forward_int8_latency`` (K19a, or K19b with ``--static``, + the K14
-head).  It prints:
+head).  ``--full`` (batch 1 unless ``--batch`` says otherwise, 4 at most)
+runs the whole model in one launch instead: ``make_forward_latency(...,
+full=True)`` (``forward_latency_logits``, K12), or with ``--int8``
+``make_forward_int8_latency(..., full=True)``
+(``vit_forward_int8_latency_logits``, K20).  It prints:
 
   * the time per batch or step (CUDA events), images per second and, for
     a step, TFLOP/s counted as 3 x the forward (bench.py's count); in
-    latency mode the p50 and max of five loop estimates of at least 32
-    calls each, as bench.py reports its latency extras;
+    latency and full modes the p50 and max of five loop estimates of 32
+    calls each, as bench.py reports its latency extras, and the torch
+    launches per request (each call is one request of ``--batch`` images:
+    every kernel and copy the profiler saw, over the runs);
   * device time per launch site over ``--steps`` profiled runs
     (torch.profiler), grouped into the stages of the kernels;
   * the device's idle share: 1 - (union of kernel intervals) / (first
@@ -49,6 +55,7 @@ import torch
 # launch-site name fragment (spaces and "(int)" casts removed) -> stage
 # label.  csrc/*.cu name each site's kernels by translation unit:
 # vit_stack:: K11, vit_stack_int8:: K19a, vit_stack_int8_static:: K19b,
+# vit_full:: K12, vit_full_int8:: K20,
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1's
@@ -59,6 +66,8 @@ import torch
 # LayerNorm (0 none, 1 one-pass, 2 two-pass).  The first fragment found
 # wins.
 STAGES = (
+    ("vit_full_int8::", "K20 int8 whole model, one launch"),
+    ("vit_full::", "K12 bf16 whole model, one launch"),
     ("vit_stack_int8_static::", "K19b static int8 encoder, one launch"),
     ("vit_stack_int8::", "K19a int8 encoder, one launch"),
     ("vit_stack::", "K11 bf16 encoder, one launch"),
@@ -212,17 +221,18 @@ def _serve_int8_run(cfg, batch, static):
     return lambda: fwd(images)
 
 
-def _latency_run(cfg, batch, int8, static):
+def _latency_run(cfg, batch, int8, static, full=False):
     """One batch-1 latency forward: make_forward_latency, or
     make_forward_int8_latency on quantize_vit_fast (or quantize_vit_static)
-    of the seed-0 weights, on a seeded uint8 batch."""
+    of the seed-0 weights, on a seeded uint8 batch; with ``full`` their
+    single-launch whole-model forms (K12, K20)."""
     from .models import quantized, vit
     gen = torch.Generator()
     gen.manual_seed(0)
     params = vit.init_params(cfg, gen, device="cuda")
     fwd = (quantized.make_forward_int8_latency(
-        cfg, _int8_tree(cfg, params, static)) if int8
-        else vit.make_forward_latency(cfg, params))
+        cfg, _int8_tree(cfg, params, static), full=full) if int8
+        else vit.make_forward_latency(cfg, params, full=full))
     images = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, cfg.image_size, cfg.image_size, 3),
         np.uint8)).cuda()
@@ -255,6 +265,37 @@ def _stack_stages(cfg, batch, int8, static, launches=10):
     for _ in range(launches):
         fn(x, blocks, cfg.num_heads, eps=cfg.ln_eps, n_valid=cfg.seq_len,
            trace=trace)
+    torch.cuda.synchronize()
+    return vs.trace_report(trace, stages, launches)
+
+
+def _full_stages(cfg, batch, int8, launches=10):
+    """K12's (or K20's) stage clock over ``launches`` launches on a seeded
+    normalized bf16 image batch, the weights as the full forwards fold
+    them."""
+    from .models import quantized, vit
+    from .ops import vit_stack as vs
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = vit.init_params(cfg, gen, device="cuda")
+    images = (torch.randn((batch, cfg.image_size, cfg.image_size, 3),
+                          generator=gen).to(torch.bfloat16).cuda())
+    kw = dict(eps=cfg.ln_eps, act="gelu_tanh")
+    if int8:
+        f = quantized.prep_full_int8_latency(_int8_tree(cfg, params, False),
+                                             cfg)
+        args = (f["wpq"], f["wps"], f["posb"], f["blocks"], f["lfs"],
+                f["lfb"], f["whq"], f["whs"], f["bh"])
+        fn, stages = vs.vit_full_int8, vs.K20_STAGES
+    else:
+        f = vit.prep_full_latency(params, cfg)
+        args = (f["wp"], f["posb"], f["blocks"], f["lfs"], f["lfb"], f["wh"],
+                f["bh"])
+        fn, stages = vs.vit_full, vs.K12_STAGES
+    fn(images, *args, cfg.num_heads, cfg.patch_size, **kw)
+    trace = vs.new_trace(images.device)
+    for _ in range(launches):
+        fn(images, *args, cfg.num_heads, cfg.patch_size, trace=trace, **kw)
     torch.cuda.synchronize()
     return vs.trace_report(trace, stages, launches)
 
@@ -292,28 +333,40 @@ def main(argv=None) -> int:
                       help="profile the served dynamic int8 forward")
     ap.add_argument("--static", action="store_true",
                     help="with --int8: the calibrated static-scale tree")
-    ap.add_argument("--latency", action="store_true",
-                    help="profile the single-launch batch-1 forward")
+    single = ap.add_mutually_exclusive_group()
+    single.add_argument("--latency", action="store_true",
+                        help="profile the single-launch batch-1 encoder's "
+                             "forward")
+    single.add_argument("--full", action="store_true",
+                        help="profile the batch-1 forward whose embed, "
+                             "layers and head run in one launch")
     args = ap.parse_args(argv)
-    if args.latency and args.train:
-        ap.error("--latency profiles a forward, not a training step")
+    if (args.latency or args.full) and args.train:
+        ap.error("--latency and --full profile a forward, not a training "
+                 "step")
+    if args.full and args.static:
+        ap.error("--full runs the dynamic int8 tree (K20), not the static "
+                 "one")
     if args.static and not args.int8:
         ap.error("--static selects the int8 tree: give --int8 too")
     if args.batch is None:
-        args.batch = 1 if args.latency else 64
+        args.batch = 1 if args.latency or args.full else 64
 
     from .models import vit
     from .utils.platform import require_hopper
     from .utils.timing import time_cuda
 
     family, cfg = _model(args.model, args.image)
-    if family is not vit and (args.train or args.int8 or args.latency):
+    if family is not vit and (args.train or args.int8 or args.latency
+                              or args.full):
         ap.error("CLIP and DeiT profile the bf16 served forward only")
     kind = require_hopper()
     mode = "train" if args.train else "serve-int8" if args.int8 else "serve"
-    if args.latency:
-        mode = "latency-int8" if args.int8 else "latency"
-        run = _latency_run(cfg, args.batch, args.int8, args.static)
+    if args.latency or args.full:
+        mode = ("full" if args.full else "latency") + (
+            "-int8" if args.int8 else "")
+        run = _latency_run(cfg, args.batch, args.int8, args.static,
+                           full=args.full)
     elif args.int8:
         run = _serve_int8_run(cfg, args.batch, args.static)
     elif args.train:
@@ -329,7 +382,7 @@ def main(argv=None) -> int:
     step_ms = time_cuda(run, iters=5 if args.train else 10, warmup=2)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     loops = None
-    if args.latency:    # bench.py's latency report: five loop estimates
+    if args.latency or args.full:   # bench.py's five loop estimates
         loops = sorted(time_cuda(run, iters=32, warmup=2) for _ in range(5))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -364,6 +417,11 @@ def main(argv=None) -> int:
     if args.latency:
         result["encoder_stages_us"] = _stack_stages(cfg, args.batch,
                                                     args.int8, args.static)
+    if args.full:
+        result["encoder_stages_us"] = _full_stages(cfg, args.batch,
+                                                   args.int8)
+    if args.latency or args.full:
+        result["torch_launches_per_request"] = len(events) / args.steps
     if loops is not None:
         result["p50_ms"] = loops[len(loops) // 2]
         result["max_ms"] = loops[-1]
@@ -389,7 +447,9 @@ def main(argv=None) -> int:
     for label, (ms, n) in sorted(per_stage.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.4f} ms/step  {n // args.steps:4d} launches  {label}")
     print(f"  device idle share: {result['idle_share']}")
-    if args.latency:
+    if args.latency or args.full:
+        print(f"  torch launches per request: "
+              f"{result['torch_launches_per_request']:.2f}")
         rep = result["encoder_stages_us"]
         print(f"  encoder stage clock ({rep['blocks']} blocks, us per launch; "
               f"wall = work + barrier; barrier = least wait of any block):")
