@@ -134,11 +134,34 @@ Phases, each of which raises on failure (exit code != 0):
               and make_forward_int8_latency(full=True), exactly one K12 (or
               K20) launch a request and nothing else of the port, logits
               against the CPU forward; the entry points raise at batch 5
+ 15. per-block  the path past the fused attention half: K9
+              (flash_attention), K7 (mha_qkv_pallas), K8 (mha_pallas) and
+              K6 (fused_mlp_chunked) against their plain versions (this
+              runs first, right after the build): K9 and K7 on ViT-B/16
+              @1024's packed (1, 4104, 2304) qkv with 4097 valid keys, K9
+              also at bk 512 and 1100 tokens, K7 in f32 at the per-tensor
+              path's (64, 197, 2304), K8 in bf16 and f32, loud padding keys
+              that must leave the valid rows bit for bit, K6 at ViT-L's and
+              ViT-H's MLP shapes in 2 and 4 chunks against its plain version
+              and away from K5's function, the gates; their times beside the
+              plain version, scaled_dot_product_attention (K6: LN + addmm +
+              GELU) and the bound; then ImageServer(image_size=1024,
+              batch_size=2) over make_forward(vit_b16 @1024) answers 6 uint8
+              requests with 12 K9 + 12 K5 per batch and nothing else (logits
+              against the card's plain forward and the CPU's), the same
+              requests through make_forward_int8 (49 K14 + 12 K9 per batch),
+              the per-tensor int8 forward at 224 px b64 (12 K7 in f32 + 50
+              K13, against the CPU), attn_impl="pallas" at 1024 px (12 K7),
+              mlp_impl="pallas" on ViT-L/16 with safe_softmax (24 K4 + 24
+              K6), attention.mha "pallas" / "flash" (1 K8, 1 K9); the bf16
+              and int8 1024 px forwards at b1 and b4 timed in turns
 Then one JSON line per the kernels, and the device line last.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -861,7 +884,9 @@ TRAIN_KERNELS = ("attn_block_fwd", "fused_mlp_fwd", "attn_block_bwd",
 
 
 def _counters():
+    from vit_fpga_tpu_torch.ops import attention as at
     from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     from vit_fpga_tpu_torch.ops import image_filter as imf
     from vit_fpga_tpu_torch.ops import quant
@@ -886,7 +911,11 @@ def _counters():
             "vit_layers_int8_static": vs.vit_layers_int8_static,
             "fused_mlp_chunked_stats": fm.fused_mlp_chunked_stats,
             "vit_full": vs.vit_full,
-            "vit_full_int8": vs.vit_full_int8}
+            "vit_full_int8": vs.vit_full_int8,
+            "flash_attention": fa.flash_attention,
+            "mha_qkv_pallas": at.mha_qkv_pallas,
+            "mha_pallas": at.mha_pallas,
+            "fused_mlp_chunked": fm.fused_mlp_chunked_fwd}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -2088,23 +2117,35 @@ def phase_dense_kernels():
     return {"filter_image_device": 0.0, "int8_gemm": 0.0}
 
 
-def _device_ms(fn, kernel, iters=20):
+def _device_ms(fn, kernel, wrapper, iters=20):
     """Mean device time in ms of the launches of ``kernel`` (a substring of
     the CUDA kernel's name) per call of ``fn``, from torch.profiler's CUDA
     activity: the kernel alone, without the host time of its wrapper,
-    which exceeds it for K25 and the small K13 launches."""
+    which exceeds it for K25 and the small K13 launches.  ``wrapper``'s
+    launch counter must rise by exactly one a call.  The profiler's
+    activity buffer may drop a record now and then, so the mean is taken
+    over the launches it saw, which must be at least half and at most
+    all of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    before = wrapper.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    if wrapper.launches - before != iters:
+        raise AssertionError(f"{wrapper.__name__} launched "
+                             f"{wrapper.launches - before} times in "
+                             f"{iters} calls")
     evs = [e for e in prof.key_averages() if kernel in e.key]
     count = sum(e.count for e in evs)
-    if count != iters:
+    if not iters // 2 <= count <= iters:
         raise AssertionError(f"profiler saw {count} launches of {kernel!r} "
                              f"in {iters} calls")
+    if count < iters:
+        print(f"  the profiler saw {count} of the {iters} launches of "
+              f"{kernel!r}; the mean is over those")
     return sum(e.device_time_total for e in evs) / count / 1e3
 
 
@@ -2132,7 +2173,8 @@ def phase_dense_timing():
         bp = torch.zeros((kp, np_), dtype=torch.int8, device="cuda")
         bp[:k, :n] = b
         bp = kmajor(bp)
-        ms = _device_ms(lambda: quant.int8_gemm(a, b), "qgemm_kernel")
+        ms = _device_ms(lambda: quant.int8_gemm(a, b), "qgemm_kernel",
+                        quant.int8_gemm)
         call_ms = time_cuda(lambda: quant.int8_gemm(a, b))
         plain_ms = time_cuda(lambda: quant.int8_gemm_plain(a, b), iters=5,
                              warmup=1)
@@ -2159,7 +2201,7 @@ def phase_dense_timing():
     if not torch.equal(library(), imf.filter_image_device(img, "sharpen")):
         raise AssertionError("the K25 yardstick computes another function")
     ms = _device_ms(lambda: imf.filter_image_device(img, "sharpen"),
-                    "filter_kernel")
+                    "filter_kernel", imf.filter_image_device)
     call_ms = time_cuda(lambda: imf.filter_image_device(img, "sharpen"),
                         iters=50)
     plain_ms = time_cuda(lambda: imf.filter_image_plain(img, "sharpen"))
@@ -3241,6 +3283,533 @@ def run_full_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the per-block path (ViT-B/16 at 1024 px, per-tensor int8, knobs)
+# ---------------------------------------------------------------------------
+
+PER_BLOCK_KERNELS = ("flash_attention", "mha_qkv_pallas", "mha_pallas",
+                     "fused_mlp_chunked")
+# ViT-B/16 at 1024 px: 4097 tokens on 4104 rows, 12 heads of 64.
+B1024 = dict(n=4104, n_valid=4097, d=768, heads=12)
+# f32 K7 / K8 against their plain versions: the same f32 products summed in
+# another order (64-term dots, up to 197-term sums), |error| ~1e-6 on
+# outputs of order 1; a key wrongly kept or dropped moves a row by ~1/197.
+F32_ATTN_TOL = 1e-5
+# Per-tensor int8 forward on the card vs the CPU: one activation scale per
+# tensor, so a rint flipped by an f32 rounding moves a whole step (1/127 of
+# the tensor's absmax); the JAX forward against itself on inputs moved by
+# 1e-7 reads 0.9% at depth 2 (tests/test_torch_per_block.py).  The phase
+# prints the floor (plain versions on the card vs the CPU) beside the gap.
+PER_TENSOR_BAND = INT8_LOGITS_BAND
+
+
+def _seq_qkv(batch, n, d, seed, dtype=torch.bfloat16, std=1.0):
+    return _randn(_gen(seed), batch, n, 3 * d, std=std).to(dtype)
+
+
+def _k9(qkv, heads, n_valid, fn, bk=128):
+    """K9 (or its plain version, ``fn``) on packed qkv as the per-block
+    path runs it: bq 512, bk 128, the head split and merge as views."""
+    from vit_fpga_tpu_torch.ops import attention as at
+    b, n, d3 = qkv.shape
+    o = fn(*at._heads(qkv, heads), n_valid, bq=512, bk=bk)
+    return o.transpose(1, 2).reshape(b, n, d3 // 3)
+
+
+def _unmoved(label, fn, qkv, n_valid):
+    """Padding keys set to 1e4: the valid rows must not move at all."""
+    loud = qkv.clone()
+    loud[:, n_valid:] = 1e4
+    quiet, noisy = fn(qkv), fn(loud)
+    torch.cuda.synchronize()
+    moved = float((noisy[:, :n_valid].float()
+                   - quiet[:, :n_valid].float()).abs().max())
+    print(f"  {label} loud padding keys {n_valid}..{qkv.shape[1] - 1}: "
+          f"valid rows moved by max_abs={moved:.3e} (must be 0)")
+    if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
+        raise AssertionError(f"{label}: padding keys moved the valid rows")
+
+
+def _unmoved_heads(label, fn, q, k, v, n_valid):
+    """(B, H, N, Dh) layout: padding keys and values set to 1e4 must not
+    move any output row at all."""
+    loud_k, loud_v = k.clone(), v.clone()
+    loud_k[:, :, n_valid:] = 1e4
+    loud_v[:, :, n_valid:] = 1e4
+    quiet, noisy = fn(q, k, v, n_valid), fn(q, loud_k, loud_v, n_valid)
+    torch.cuda.synchronize()
+    moved = float((noisy.float() - quiet.float()).abs().max())
+    print(f"  {label} loud padding keys {n_valid}..{k.shape[2] - 1}: output "
+          f"moved by max_abs={moved:.3e} (must be 0)")
+    if moved != 0.0 or not torch.isfinite(noisy).all():
+        raise AssertionError(f"{label}: padding keys moved the output")
+
+
+def _chunk_terms(x, p, act, n_chunks):
+    """sum_c |y_c| per output element (f32, the plain activation): the
+    magnitudes K6's running output passes through between chunk
+    boundaries, where a flipped bf16 ulp lands."""
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.ops.common import ln_parts
+    xhat, _ = ln_parts(x, EPS)
+    h = fm._act((xhat * p["ln_scale"] + p["ln_bias"]) @ p["w1"] + p["b1"],
+                act)
+    mc = h.shape[1] // n_chunks
+    return sum((h[:, c * mc:(c + 1) * mc] @ p["w2"][c * mc:(c + 1) * mc])
+               .abs() for c in range(n_chunks))
+
+
+def _k6_call(fn, x, p, act, n_chunks):
+    return fn(x, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"],
+              p["b2"], eps=EPS, act=act, n_chunks=n_chunks)
+
+
+def phase_per_block_kernels():
+    """K9, K7, K8 and K6 against their plain versions on the card, right
+    after the build: K9 on ViT-B/16 @1024's packed (1, 4104, 2304) qkv
+    (4097 valid, bk 128) and at (1, 2, 300) / (2, 2, 1100) with bk 128 and
+    512; K7 bf16 on the same qkv and f32 at the per-tensor path's (64, 197,
+    2304) and (4, 200, 2304) with 197 valid; K8 at (2, 12, 300, 64) with
+    257 valid, bf16 and f32; K8 and K9 (bk 512) at attention.mha's (1, 12,
+    4104, 64) with 4097 valid; loud padding keys that must leave the valid
+    rows bit for bit (K9 both bk, K7 both types, K8); K6 at ViT-L's (1600, 1024) x
+    4096 in 2 chunks and ViT-H's (2112, 1280) x 5120 in 4, each activation,
+    with its distance from K5's function (at least half the plain versions'
+    share of differing elements); then the gates.
+    Returns {kernel name: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import attention as at
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    c = B1024
+    qkv = _seq_qkv(1, c["n"], c["d"], seed=160, std=2.0)
+    print(f"parity K9 flash_attention (12, {c['n']}, 64) n_valid "
+          f"{c['n_valid']}, bq 512, bk 128")
+    k9 = _compare("K9 ViT-B/16 @1024", _k9(qkv, 12, c["n_valid"],
+                                           fa.flash_attention),
+                  _k9(qkv, 12, c["n_valid"], fa.flash_attention_plain),
+                  BF16_TOL, BF16_TOL)
+    _unmoved("K9", lambda t: _k9(t, 12, c["n_valid"], fa.flash_attention),
+             qkv, c["n_valid"])
+    for b, h, n, nv, bk in ((1, 2, 300, 257, 128), (1, 2, 300, 257, 512),
+                            (2, 2, 1100, 1100, 128), (1, 2, 1100, 1000, 512)):
+        g = _gen(161 + n + bk)
+        q, k, v = (_randn(g, b, h, n, 64).to(torch.bfloat16)
+                   for _ in range(3))
+        k9 = max(k9, _compare(
+            f"K9 ({b}, {h}, {n}, 64) n_valid={nv} bk={bk}",
+            fa.flash_attention(q, k, v, nv, bk=bk),
+            fa.flash_attention_plain(q, k, v, nv, bk=bk), BF16_TOL,
+            BF16_TOL))
+
+    print("parity K7 mha_qkv_pallas, bf16 at 4104 rows and f32 at the "
+          "per-tensor path's (64, 197, 2304)")
+    k7 = _compare("K7 bf16 ViT-B/16 @1024",
+                  at.mha_qkv_pallas(qkv, 12, c["n_valid"]),
+                  at.mha_qkv_pallas_plain(qkv, 12, c["n_valid"]),
+                  BF16_TOL, BF16_TOL)
+    _unmoved("K7 bf16", lambda t: at.mha_qkv_pallas(t, 12, c["n_valid"]),
+             qkv, c["n_valid"])
+    qf = _seq_qkv(64, 197, 768, seed=165, dtype=torch.float32)
+    k7 = max(k7, _compare("K7 f32 (64, 197, 2304)", at.mha_qkv_pallas(qf, 12),
+                          at.mha_qkv_pallas_plain(qf, 12), F32_ATTN_TOL,
+                          F32_ATTN_TOL))
+    qf = _seq_qkv(4, 200, 768, seed=166, dtype=torch.float32)
+    k7 = max(k7, _compare("K7 f32 (4, 200, 2304) n_valid=197",
+                          at.mha_qkv_pallas(qf, 12, 197),
+                          at.mha_qkv_pallas_plain(qf, 12, 197), F32_ATTN_TOL,
+                          F32_ATTN_TOL))
+    _unmoved("K7 f32", lambda t: at.mha_qkv_pallas(t, 12, 197), qf, 197)
+
+    print("parity K8 mha_pallas (2, 12, 300, 64) n_valid 257, bf16 and f32, "
+          "and bf16 at attention.mha's (1, 12, 4104, 64) n_valid 4097")
+    k8 = 0.0
+    g = _gen(167)
+    q, k, v = (_randn(g, 2, 12, 300, 64) for _ in range(3))
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_ATTN_TOL)):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        k8 = max(k8, _compare(f"K8 {dt}", at.mha_pallas(qd, kd, vd, 257),
+                              at.mha_pallas_plain(qd, kd, vd, 257), tol,
+                              tol))
+        _unmoved_heads(f"K8 {dt}", at.mha_pallas, qd, kd, vd, 257)
+    # The shape attention.mha gives K8 (impl "pallas") and K9 (impl
+    # "flash", the default bk 512) on the main path.
+    g = _gen(185)
+    q, k, v = (_randn(g, 1, 12, c["n"], 64, std=2.0).to(torch.bfloat16)
+               for _ in range(3))
+    nv = c["n_valid"]
+    k8 = max(k8, _compare(f"K8 bf16 (1, 12, {c['n']}, 64) n_valid={nv}",
+                          at.mha_pallas(q, k, v, nv),
+                          at.mha_pallas_plain(q, k, v, nv), BF16_TOL,
+                          BF16_TOL))
+    _unmoved_heads("K8 bf16 @1024", at.mha_pallas, q, k, v, nv)
+    k9 = max(k9, _compare(f"K9 (1, 12, {c['n']}, 64) n_valid={nv} bk=512",
+                          fa.flash_attention(q, k, v, nv),
+                          fa.flash_attention_plain(q, k, v, nv), BF16_TOL,
+                          BF16_TOL))
+    _unmoved_heads("K9 bk=512 @1024", fa.flash_attention, q, k, v, nv)
+
+    print("parity K6 fused_mlp_chunked: ViT-L (1600, 1024) x 4096 in 2 "
+          "chunks, ViT-H (2112, 1280) x 5120 in 4")
+    k6 = 0.0
+    for rows, d, m, nc, seed in ((1600, 1024, 4096, 2, 168),
+                                 (2112, 1280, 5120, 4, 169)):
+        x, _, p = _mlp_inputs(rows, d, m, seed)
+        pb = _bf16_weights(p, ("w1", "w2"))
+        for act in MLP_ACTS_K3:
+            label = f"K6 ({rows}, {d}) x {m} n_chunks={nc} {act}"
+            got = _k6_call(fm.fused_mlp_chunked_fwd, x, pb, act, nc)
+            want = _k6_call(fm.fused_mlp_chunked_plain, x, pb, act, nc)
+            mag = (want.float().abs() + x.float().abs()
+                   + _chunk_terms(x.float(), p, act, nc))
+            k6 = max(k6, _compare(label, got, want, BF16_TOL, BF16_TOL,
+                                  mag=mag))
+            _branch(f"{label} branch", got, want, x)
+            # K6 is not K5: it rounds the running output at every chunk
+            # boundary.  The two plain versions differ on a share of the
+            # elements; the kernel must differ from K5's function on at
+            # least half that share (f32 order alone moves well under 1%).
+            k5 = fm.fused_mlp_xla(x, pb["ln_scale"], pb["ln_bias"], pb["w1"],
+                                  pb["b1"], pb["w2"], pb["b2"], eps=EPS,
+                                  act=act)
+            share = float(((got.float() - k5.float()).abs() > 0)
+                          .float().mean())
+            plain_share = float(((want.float() - k5.float()).abs() > 0)
+                                .float().mean())
+            print(f"  {label}: {share:.3%} of elements differ from K5's "
+                  f"function (the plain versions: {plain_share:.3%}; must "
+                  f"be at least half that)")
+            if not share >= 0.5 * plain_share:
+                raise AssertionError(f"{label}: K6 computed K5's function")
+
+    q32 = torch.zeros(1, 1, 256, 64, device="cuda")
+    qb = q32.to(torch.bfloat16)
+    _expect_raise("K9 f32", lambda: fa.flash_attention(q32, q32, q32))
+    _expect_raise("K9 bk=192", lambda: fa.flash_attention(qb, qb, qb, bk=192))
+    q80 = torch.zeros(1, 1, 256, 80, dtype=torch.bfloat16, device="cuda")
+    _expect_raise("K9 head dim 80", lambda: fa.flash_attention(q80, q80, q80))
+    _expect_raise("K7 head dim 80", lambda: at.mha_qkv_pallas(
+        torch.zeros(1, 64, 480, dtype=torch.bfloat16, device="cuda"), 2))
+    _expect_raise("K8 f16", lambda: at.mha_pallas(*(q32.half(),) * 3))
+    x, _, p = _mlp_inputs(64, 128, 384, seed=170)
+    _expect_raise("K6 n_chunks=3", lambda: _k6_call(
+        fm.fused_mlp_chunked_fwd, x, p, "gelu_tanh", 3))
+    return {"flash_attention": k9, "mha_qkv_pallas": k7, "mha_pallas": k8,
+            "fused_mlp_chunked": k6}
+
+
+def _bound_f32(flops, nbytes):
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_mem = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _seq_timing(label, kernel, plain, library, flops, nbytes, bound=_bound):
+    """A sequence attention kernel's time beside its plain version's, the
+    library yardstick's (``scaled_dot_product_attention``) and the bound."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    ms = time_cuda(kernel, iters=10)
+    plain_ms = time_cuda(plain, iters=2, warmup=1)
+    lib_ms = _library_ms(library, label)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"timing {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms, library "
+          f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_per_block_timing():
+    """K9 at ViT-B/16 @1024 b1 (the JSON line) and b4; K7 in f32 at the
+    per-tensor path's (64, 197, 2304) (the JSON line) and in bf16 at
+    4104 rows; K8 at (1, 12, 4104, 64); K6 at ViT-L b8's (1600, 1024) x
+    4096 in 2 chunks.  Yardsticks: scaled_dot_product_attention (f32 with
+    TF32 off), for K6 LN + two chunks of addmm + tanh-GELU + addmm."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import attention as at
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.utils.platform import true_f32
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    c = B1024
+    n, nv, heads = c["n"], c["n_valid"], c["heads"]
+    keep = (torch.arange(n, device="cuda") < nv)[None, None, None]
+    out = {}
+    for batch in (1, 4):
+        qkv = _seq_qkv(batch, n, c["d"], seed=171 + batch)
+        q, k, v = (t.contiguous() for t in at._heads(qkv, heads))
+        flops = 4 * batch * heads * n * nv * 64
+        nbytes = 4 * batch * n * c["d"] * 2
+        t = _seq_timing(
+            f"K9 ViT-B/16 @1024 b{batch} (packed qkv, bk 128)",
+            lambda: _k9(qkv, heads, nv, fa.flash_attention),
+            lambda: _k9(qkv, heads, nv, fa.flash_attention_plain),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+            flops, nbytes)
+        if batch == 1:
+            out["flash_attention"] = t
+            _seq_timing(
+                "K7 bf16 ViT-B/16 @1024 b1 (attn_impl='pallas')",
+                lambda: at.mha_qkv_pallas(qkv, heads, nv),
+                lambda: at.mha_qkv_pallas_plain(qkv, heads, nv),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=keep),
+                flops, nbytes)
+            out["mha_pallas"] = _seq_timing(
+                "K8 bf16 (1, 12, 4104, 64)",
+                lambda: at.mha_pallas(q, k, v, nv),
+                lambda: at.mha_pallas_plain(q, k, v, nv),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=keep),
+                flops, nbytes)
+    qf = _seq_qkv(64, 197, 768, seed=175, dtype=torch.float32)
+    qs = [t.contiguous() for t in at._heads(qf, heads)]
+    with true_f32():
+        out["mha_qkv_pallas"] = _seq_timing(
+            "K7 f32 per-tensor int8 path (64, 197, 2304)",
+            lambda: at.mha_qkv_pallas(qf, heads),
+            lambda: at.mha_qkv_pallas_plain(qf, heads),
+            lambda: F.scaled_dot_product_attention(*qs),
+            4 * 64 * heads * 197 * 197 * 64, 64 * 197 * 4 * 768 * 4,
+            bound=_bound_f32)
+
+    rows, d, m = 1600, 1024, 4096
+    x, _, p = _mlp_inputs(rows, d, m, 176)
+    pb = _bf16_weights(p, ("w1", "w2"))
+    ls, lb = p["ln_scale"].to(torch.bfloat16), p["ln_bias"].to(torch.bfloat16)
+    b1, b2 = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
+    mc = m // 2
+
+    def library():
+        xn = F.layer_norm(x, (d,), ls, lb, EPS)
+        acc = x
+        for ch in range(2):
+            h = F.gelu(torch.addmm(b1[ch * mc:(ch + 1) * mc], xn,
+                                   pb["w1"][:, ch * mc:(ch + 1) * mc]),
+                       approximate="tanh")
+            y = h @ pb["w2"][ch * mc:(ch + 1) * mc]
+            acc = acc + (y + b2 if ch == 1 else y)
+        return acc
+
+    ms = time_cuda(lambda: _k6_call(fm.fused_mlp_chunked_fwd, x, pb,
+                                    "gelu_tanh", 2))
+    plain_ms = time_cuda(lambda: _k6_call(fm.fused_mlp_chunked_plain, x, pb,
+                                          "gelu_tanh", 2), iters=3, warmup=1)
+    lib_ms = time_cuda(library)
+    flops = 4 * rows * d * m
+    bound_ms, bound_by = _bound(flops, 2 * rows * d * 2 + 2 * d * m * 2
+                                + (m + 3 * d) * 4)
+    print(f"timing K6 ViT-L b8 ({rows}, {d}) x {m}, 2 chunks: kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by})")
+    out["fused_mlp_chunked"] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+    return out
+
+
+def _plain_per_block():
+    """The per-block path's kernels swapped for their plain versions (the
+    card's plain-version forwards)."""
+    from unittest import mock
+
+    from vit_fpga_tpu_torch.models import quantized
+    from vit_fpga_tpu_torch.ops import attention as at
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.ops import quant
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.multiple(
+        at, flash_attention=fa.flash_attention_plain,
+        mha_qkv_pallas=at.mha_qkv_pallas_plain))
+    stack.enter_context(mock.patch.multiple(
+        fm, fused_mlp_fwd=fm.fused_mlp_xla,
+        fused_mlp_chunked_fwd=fm.fused_mlp_chunked_plain))
+    stack.enter_context(mock.patch.object(ab, "attn_block_fwd",
+                                          ab.attn_block_fwd_plain))
+    stack.enter_context(mock.patch.object(
+        quantized, "int8_linear_fused", qf.int8_linear_fused_plain))
+    stack.enter_context(mock.patch.object(quant, "int8_gemm",
+                                          quant.int8_gemm_plain))
+    return stack
+
+
+def _serve(label, fwd, images, batch):
+    """ImageServer over ``fwd`` answers ``images``; (logits, batches)."""
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    t0 = time.perf_counter()
+    with ImageServer(fwd, image_size=images.shape[1],
+                     batch_size=batch) as server:
+        futs = [server.submit_raw(img) for img in images]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+    print(f"{label}: {len(results)}/{len(images)} answered in "
+          f"{server.batches} batches of {batch}, {wall:.3f} s")
+    got = np.stack(results)
+    if (server.served != len(images) or got.shape[0] != len(images)
+            or not np.isfinite(got).all()):
+        raise AssertionError(f"{label}: not every request was answered")
+    return got, server.batches
+
+
+def phase_per_block_serve(n_images=6, batch=2):
+    """The main paths, each run with the counts set to 0 just before it:
+    ImageServer(image_size=1024, batch_size=2) over make_forward(vit_b16
+    @1024, bf16) answers 6 uint8 requests, 12 K9 + 12 K5 per batch and
+    nothing else, logits against the card's plain-version forward (all) and
+    the CPU forward (one image); the same requests through
+    make_forward_int8 (49 K14 + 12 K9 per batch, no K15 / K16), one image
+    against the CPU plain int8 forward; the per-tensor int8 forward at 224
+    px b64 (12 K7 in f32 + 50 K13), against the CPU; attn_impl="pallas"
+    at 1024 px b1 (12 K7 + 12 K5); mlp_impl="pallas" on ViT-L/16 @224 with
+    safe_softmax, b8 (24 K4 + 24 K6); attention.mha with impl "pallas"
+    and "flash" (1 K8, 1 K9).  Returns (launch counts, the 1024 px
+    forwards, their images)."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.ops import attention as at
+    launches = {k: 0 for k in PER_BLOCK_KERNELS}
+
+    def count(label, counters, want):
+        got = _check_launches(label, counters, want)
+        print(f"  {label} launches: { {k: v for k, v in got.items() if v} }")
+        for k in PER_BLOCK_KERNELS:
+            launches[k] += got[k]
+
+    cfg = vit.config("vit_b16", image_size=1024, dtype="bfloat16")
+    params = vit.init_params(cfg, _gen(180), device="cuda")
+    images = np.random.default_rng(180).integers(0, 256,
+                                                 (n_images, 1024, 1024, 3),
+                                                 np.uint8)
+    fwd = vit.make_forward(cfg, params)
+    fwd(images[:batch])
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    got, nb = _serve("bf16 ViT-B/16 @1024", fwd, images, batch)
+    count("bf16 @1024", counters, {"flash_attention": 12 * nb,
+                                   "fused_mlp_fwd": 12 * nb})
+    with _plain_per_block():
+        plain = torch.cat([fwd(images[i:i + batch]).cpu()
+                           for i in range(0, n_images, batch)]).numpy()
+    _rel_to_max("bf16 @1024 served logits vs the card's plain forward", got,
+                plain, LOGITS_BAND)
+    cpu = vit.make_forward(cfg, _tree_to(params, "cpu"), device="cpu")
+    _rel_to_max("bf16 @1024 logits of image 0 vs the CPU forward", got[:1],
+                cpu(images[:1]).numpy(), LOGITS_BAND)
+
+    qparams = quantized.quantize_vit_fast(params)
+    fq = quantized.make_forward_int8(cfg, qparams)
+    fq(images[:batch])
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    gotq, nb = _serve("int8 ViT-B/16 @1024", fq, images, batch)
+    count("int8 @1024", counters, {"flash_attention": 12 * nb,
+                                   "int8_linear_fused": 49 * nb})
+    cpu_q = quantized.make_forward_int8(cfg, _tree_to(qparams, "cpu"),
+                                        device="cpu")
+    _rel_to_max("int8 @1024 logits of image 0 vs the CPU plain forward",
+                gotq[:1], cpu_q(images[:1]).numpy(), INT8_LOGITS_BAND)
+
+    cfg224 = vit.config("vit_b16", dtype="float32")
+    p224 = vit.init_params(cfg224, _gen(181), device="cuda")
+    qt = quantized.quantize_vit(p224)
+    fpt = quantized.make_vit_forward_int8(cfg224, qt)
+    img224 = np.random.default_rng(181).integers(0, 256, (64, 224, 224, 3),
+                                                 np.uint8)
+    fpt(img224)
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    gotp = fpt(img224).cpu().numpy()
+    count("per-tensor int8 @224 b64", counters, {"mha_qkv_pallas": 12,
+                                                 "int8_gemm": 50})
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    print(f"  per-tensor int8 @224 b64 forward (uint8 in): "
+          f"{time_cuda(lambda: fpt(img224), iters=3, warmup=1):.3f} ms per "
+          f"batch")
+    cpu_p = quantized.make_vit_forward_int8(cfg224, _tree_to(qt, "cpu"),
+                                            device="cpu")(img224).numpy()
+    with _plain_per_block():
+        floor = fpt(img224).cpu().numpy()
+    floor = float(np.abs(floor - cpu_p).max() / np.abs(cpu_p).max())
+    print(f"  per-tensor int8 b64: top-1 agree "
+          f"{int((gotp.argmax(1) == cpu_p.argmax(1)).sum())}/{len(gotp)} "
+          f"with the "
+          f"CPU; plain versions on the card vs the CPU {floor:.3e}")
+    _rel_to_max("per-tensor int8 b64 logits vs the CPU forward", gotp,
+                cpu_p, PER_TENSOR_BAND)
+
+    pallas = vit.make_forward(dataclasses.replace(cfg, attn_impl="pallas"),
+                              params)
+    counters = _zero_counters()
+    gotk7 = pallas(images[:1]).cpu().numpy()
+    count("attn_impl='pallas' @1024 b1", counters,
+          {"mha_qkv_pallas": 12, "fused_mlp_fwd": 12})
+    _rel_to_max("attn_impl='pallas' @1024 logits vs the flash forward's",
+                gotk7, got[:1], LOGITS_BAND)
+
+    lcfg = vit.config("vit_l16", dtype="bfloat16", safe_softmax=True,
+                      mlp_impl="pallas")
+    lfwd = vit.make_forward(lcfg, vit.init_params(lcfg, _gen(182),
+                                                  device="cuda"))
+    limg = np.random.default_rng(182).integers(0, 256, (8, 224, 224, 3),
+                                               np.uint8)
+    counters = _zero_counters()
+    gotl = lfwd(limg)
+    count("ViT-L/16 mlp_impl='pallas' safe_softmax b8", counters,
+          {"attn_block_fwd": 24, "fused_mlp_chunked": 24})
+    with _plain_per_block():
+        plainl = lfwd(limg)
+    # 24 layers of K4's and K6's ulp flips: held, as the served forwards'
+    # logits are, to the largest logit (the relative norm is printed; on
+    # an H100 at 700 W it read 1.77e-2, the 24-layer chains' 1.2-1.6e-2)
+    print(f"  ViT-L/16 mlp_impl='pallas' logits: |a-b|/|b| = "
+          f"{float((gotl - plainl).norm() / plainl.norm()):.3e} (stated)")
+    _rel_to_max("ViT-L/16 mlp_impl='pallas' logits vs the card's plain "
+                "forward", gotl.cpu().numpy(), plainl.cpu().numpy(),
+                LOGITS_BAND)
+
+    g = _gen(183)
+    q, k, v = (_randn(g, 1, 12, 4104, 64).to(torch.bfloat16)
+               for _ in range(3))
+    counters = _zero_counters()
+    o8 = at.mha(q, k, v, n_valid=4097, impl="pallas")
+    o9 = at.mha(q, k, v, n_valid=4097, impl="flash")
+    count("attention.mha pallas + flash", counters,
+          {"mha_pallas": 1, "flash_attention": 1})
+    _relnorm("attention.mha flash (bk 512) vs pallas", o9, o8, EMBED_NORM)
+    return launches, fwd, fq, images
+
+
+def phase_per_block_time(fwd, fq, images):
+    """ms per batch of the bf16 and dynamic int8 forwards at 1024 px, b1
+    and b4, from uint8 images already on the card (CUDA events), in turns
+    (each twice, the order reversed the second time)."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    runs = [(f"{name} @1024 b{b}", f, b) for b in (1, 4)
+            for name, f in (("bf16", fwd), ("int8", fq))]
+    times = {label: [] for label, _, _ in runs}
+    for label, f, b in runs + runs[::-1]:
+        img = torch.from_numpy(images[:b]).cuda()
+        times[label].append(time_cuda(lambda: f(img), iters=3, warmup=1))
+    for label, ms in times.items():
+        print(f"forward {label} (uint8 in): "
+              + " / ".join(f"{t:.3f}" for t in ms) + " ms per batch")
+    return times
+
+
+def run_per_block_phases(errors, timing, launches):
+    """The per-block phases after the earlier slices' ones (K9, K7, K8 and
+    K6 parity ran right after the build)."""
+    for name, t in phase_per_block_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    served, fwd, fq, images = phase_per_block_serve()
+    launches.update(served)
+    phase_per_block_time(fwd, fq, images)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3260,7 +3829,8 @@ def main() -> int:
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
 
-    errors = phase_large_kernels()
+    errors = phase_per_block_kernels()
+    errors.update(phase_large_kernels())
     errors.update(phase_stack_kernels())
     errors.update(phase_full_kernels())
     errors.update(phase_dense_kernels())
@@ -3296,6 +3866,7 @@ def main() -> int:
     run_dense_phases(errors, timing, launches)
     run_large_phases(errors, timing, launches)
     run_full_phases(errors, timing, launches)
+    run_per_block_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -3340,6 +3911,14 @@ def main() -> int:
                      "vit_fpga_tpu/ops/vit_stack.py:566"),
         "vit_full_int8": ("vit_fpga_tpu_torch/csrc/vit_full_int8.cu",
                           "vit_fpga_tpu/ops/vit_stack.py:604"),
+        "flash_attention": ("vit_fpga_tpu_torch/csrc/flash_attn.cu",
+                            "vit_fpga_tpu/ops/flash_attention.py:29"),
+        "mha_qkv_pallas": ("vit_fpga_tpu_torch/csrc/mha.cu",
+                           "vit_fpga_tpu/ops/attention.py:121"),
+        "mha_pallas": ("vit_fpga_tpu_torch/csrc/mha.cu",
+                       "vit_fpga_tpu/ops/attention.py:53"),
+        "fused_mlp_chunked": ("vit_fpga_tpu_torch/csrc/mlp_chunk.cu",
+                              "vit_fpga_tpu/ops/fused_mlp.py:133"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

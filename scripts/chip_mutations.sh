@@ -46,8 +46,9 @@ run_copy k25_roundf image_filter.cu \
 # K13 has a ragged K: 784 = 12 x 64 + 16 in the dense net, 1 padded to 16)
 run_copy k13_no_partial_k_tile quant.cuh \
   "const int nk = (p.K + QG_BK - 1) / QG_BK;" "const int nk = p.K / QG_BK;"
-# K3 adding b2 on every chunk instead of the last one only
-run_copy k3_b2_every_chunk mlp_chunk_stats.cu \
+# K3 adding b2 on every chunk instead of the last one only (the chunked
+# down-projection is shared with K6, whose checks come first)
+run_copy k3_b2_every_chunk chunk.cuh \
   "          if (last) {" "          if (true) {"
 # K1's key-tiled path skipping the last partial key tile (key 256 of 257,
 # key 576 of 577)
@@ -62,5 +63,22 @@ run_copy k12_no_cls_posb vit_full.cu \
 # LayerNorm and rowquant are not run, so the head reads stale int8 rows
 run_copy k20_head_no_rowquant stack_i8.cuh \
   "last ? (fin ? lfs : nullptr)" "last ? nullptr"
+# K9 without the alpha rescale of acc and l when a key block raises the
+# running max
+run_copy k9_no_alpha_rescale seq_attn.cuh \
+  "const float alpha = expf(m[rr] - mn);" "const float alpha = 1.0f;"
+# K7 and K8 with the n_valid mask one key late (the zero-filled key at
+# n_valid joins the softmax), bf16 and f32
+run_copy k7_k8_mask_one_late seq_attn.cuh \
+  "const bool ok = key0 + j * 8 + (e & 1) < p.n_valid;" \
+  "const bool ok = key0 + j * 8 + (e & 1) < p.n_valid + (FLASH ? 0 : 1);" \
+  "const bool ok0 = t * SF_KT + lane < p.n_valid;" \
+  "const bool ok0 = t * SF_KT + lane <= p.n_valid;" \
+  "const bool ok1 = t * SF_KT + lane + 32 < p.n_valid;" \
+  "const bool ok1 = t * SF_KT + lane + 32 <= p.n_valid;"
+# K6 with its chunk loop collapsed to one chunk: no bf16 rounding of the
+# running output between chunks, i.e. K5's function
+run_copy k6_one_chunk mlp_chunk.cu \
+  "  down.n_chunks = n_chunks;" "  down.n_chunks = 1;"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

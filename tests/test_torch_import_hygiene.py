@@ -35,8 +35,11 @@ DENSE_MODULES = ("vit_fpga_tpu_torch.defines",
 # the large ViTs: CLIP (vision and text towers) and DeiT
 FAMILY_MODULES = ("vit_fpga_tpu_torch.models.clip",
                   "vit_fpga_tpu_torch.models.deit")
+# the per-block encoder's sequence attention (K7, K8, K9)
+PER_BLOCK_MODULES = ("vit_fpga_tpu_torch.ops.attention",
+                     "vit_fpga_tpu_torch.ops.flash_attention")
 ALL_MODULES = (INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
-               + FAMILY_MODULES)
+               + FAMILY_MODULES + PER_BLOCK_MODULES)
 
 
 def _port_files():

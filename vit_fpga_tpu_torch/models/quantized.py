@@ -33,9 +33,19 @@ K19b ``vit_layers_int8_static`` on a static tree) and the same head;
 full=True)``) runs the whole dynamic int8 model, image in and logits out,
 in one launch (K20 ``ops/vit_stack.vit_full_int8``).  It runs the Hopper
 kernels on a CUDA device and their plain versions on the
-CPU.  The per-linear int8 route that the JAX package takes where its
-block kernels do not fit, the int8-scores attention (K22, gated off in
-the JAX package too) and the CLIP towers are not ported yet.
+CPU.  Where the JAX int8 planners do not fit the block kernels
+(``_int8_block_fits``: ViT-B/16 at 1024 px) a dynamic tree takes the
+per-linear route, four K14 launches around ``mha_qkv`` (K9 from 1024
+tokens); a static tree raises there (the JAX ``*_ref`` route is not
+ported).  The int8-scores attention (K22, gated off in the JAX package
+too) and the CLIP towers are not ported yet.
+
+The per-tensor family (``quantize_vit``, ``vit_forward_int8``,
+``make_vit_forward_int8``) is the JAX package's bit-exact datapath:
+per-tensor int8 weights (one scale per layer) and activations quantized
+per tensor at run time, f32 everywhere else, every linear a K13 GEMM
+(``ops/quant.int8_linear``) and the attention ``mha_qkv`` on f32 qkv (K7 in
+f32 below 1024 tokens).
 """
 
 from __future__ import annotations
@@ -50,8 +60,10 @@ from ..defines import NetData
 from ..ops import quant
 from ..ops.common import pad_sublane, round_up
 from ..ops.patch_embed import embed_tokens_dotg
+from ..ops.attention import mha_qkv
 from ..ops.quant_block import (attn_block_int8, attn_block_int8_static,
-                               mlp_block_int8, mlp_block_int8_static)
+                               mlp_block_int8, mlp_block_int8_static,
+                               mlp_plan_int8, score_slots_int8)
 from ..ops.quant_fused import (int8_linear_fused, kmajor,
                                QMAX, quantize_weight_colwise)
 from ..ops.vit_stack import (full_supported, stack_supported, vit_full_int8,
@@ -116,6 +128,128 @@ def device_qparams(qparams: Params, device=None) -> Params:
 
 _VIT_QUANT_KEYS = ("wqkv", "wo", "w1", "w2")
 _PREPARED = "_int8_prepared"     # marks a tree make_forward_int8 prepared
+
+
+# ---------------------------------------------------------------------------
+# Per-tensor int8 ViT: the bit-exact datapath over K13, attention in f32
+# ---------------------------------------------------------------------------
+
+def _q_linear(kernel: torch.Tensor, bias: torch.Tensor) -> Params:
+    wq, sw = quant.quantize_numpy(kernel.detach().float().cpu().numpy())
+    dev = kernel.device
+    return {"wq": torch.from_numpy(wq).to(dev),
+            "sw": torch.tensor(sw, dtype=torch.float32, device=dev),
+            "b": bias.detach().float()}
+
+
+def quantize_vit(params: Params) -> Params:
+    """Per-tensor int8 for every big linear (the JAX ``quantize_vit``):
+    the patch embed and the head one scale each, the stacked block weights
+    one scale per layer (``*_q`` (depth, K, N) int8, ``*_s`` (depth,)
+    f32), quantized in numpy as the JAX package does (same bits), on the
+    tree's device."""
+    dev = params["pos_embed"].device
+    blocks = params["blocks"]
+    out: Params = {k: params[k] for k in ("cls_token", "pos_embed",
+                                          "ln_f_scale", "ln_f_bias")}
+    out["patch_embed"] = _q_linear(params["patch_embed"]["kernel"],
+                                   params["patch_embed"]["bias"])
+    qb = {k: blocks[k] for k in ("ln1_scale", "ln1_bias", "ln2_scale",
+                                 "ln2_bias", "bqkv", "bo", "b1", "b2")}
+    for k in _VIT_QUANT_KEYS:
+        w = blocks[k].detach().float().cpu().numpy()
+        qs = [quant.quantize_numpy(w[i]) for i in range(w.shape[0])]
+        qb[k + "_q"] = torch.from_numpy(np.stack([q for q, _ in qs])).to(dev)
+        qb[k + "_s"] = torch.from_numpy(
+            np.stack([sc for _, sc in qs]).astype(np.float32)).to(dev)
+    out["blocks"] = qb
+    if "head" in params:
+        out["head"] = _q_linear(params["head"]["kernel"],
+                                params["head"]["bias"])
+    return out
+
+
+def _qlin(x: torch.Tensor, lin: Params) -> torch.Tensor:
+    """Per-tensor quantization of ``x`` and ``quant.int8_linear`` (K13 on
+    the card): f32 out."""
+    xq, sx = quant.quantize_torch(x)
+    return quant.int8_linear(xq, sx, lin["wq"], lin["sw"], lin["b"])
+
+
+def _qblock(x: torch.Tensor, blk: Params,
+            cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """One per-tensor int8 block in f32 (the JAX ``_qblock``): LN -> QKV
+    -> ``mha_qkv`` on f32 qkv (K7 below 1024 tokens under "auto") ->
+    out-proj -> LN -> W1 -> the activation -> W2, each linear a
+    :func:`_qlin`."""
+    h = vit_mod._layernorm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
+    qkv = _qlin(h, {"wq": blk["wqkv_q"], "sw": blk["wqkv_s"],
+                    "b": blk["bqkv"]})
+    o = mha_qkv(qkv.float(), cfg.num_heads, impl=cfg.attn_impl)
+    x = x + _qlin(o, {"wq": blk["wo_q"], "sw": blk["wo_s"], "b": blk["bo"]})
+    h = vit_mod._layernorm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps)
+    h = _qlin(h, {"wq": blk["w1_q"], "sw": blk["w1_s"], "b": blk["b1"]})
+    h = vit_mod._hidden_act_xla(h, cfg.hidden_act)
+    return x + _qlin(h, {"wq": blk["w2_q"], "sw": blk["w2_s"],
+                         "b": blk["b2"]})
+
+
+def vit_forward_int8(qparams: Params, images: torch.Tensor,
+                     cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """Per-tensor int8 ViT forward (the JAX ``vit_forward_int8``):
+    normalized images -> f32 logits (f32 CLS features for a headless
+    tree).  f32 activations throughout: patchify -> K13 embed, the prefix
+    row and position table, depth x :func:`_qblock`, the final LN of the
+    CLS row (LayerNorm is per token), the K13 head.  ``qparams`` is a
+    :func:`quantize_vit` tree (or one :func:`make_vit_forward_int8`
+    prepared)."""
+    x = vit_mod.patchify(images.float(), cfg.patch_size)
+    x = _qlin(x, qparams["patch_embed"])
+    cls = qparams["cls_token"].float().expand(x.shape[0], -1, -1)
+    x = torch.cat([cls, x], dim=1) + qparams["pos_embed"].float()
+    layers = qparams.get("_layers") or [
+        {k: v[i] for k, v in qparams["blocks"].items()}
+        for i in range(cfg.depth)]
+    for blk in layers:
+        x = _qblock(x, blk, cfg)
+    pooled = vit_mod._layernorm(x[:, :1], qparams["ln_f_scale"],
+                                qparams["ln_f_bias"], cfg.ln_eps)[:, 0]
+    if "head" not in qparams:
+        return pooled.float()
+    return _qlin(pooled, qparams["head"])
+
+
+def make_vit_forward_int8(cfg: vit_mod.ViTConfig, qparams: Params,
+                          raw: bool = True,
+                          device=None) -> Callable[[Any], torch.Tensor]:
+    """Counterpart of the JAX ``jit_vit_forward_int8(cfg)`` applied to a
+    :func:`quantize_vit` tree: returns ``fn(images) -> logits`` that runs
+    preprocess (when ``raw``) and :func:`vit_forward_int8` under
+    ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``).  The
+    int8 weights are laid out once here as K13 reads them (k-major
+    views); the tree must already live there."""
+    dev = resolve_device(device)
+    for leaf in (qparams["pos_embed"], qparams["blocks"]["wqkv_q"]):
+        if leaf.device.type != dev.type:
+            raise ValueError(f"params are on {leaf.device}, forward on {dev}")
+    per_key = {k: v.unbind(0) for k, v in qparams["blocks"].items()}
+    prepped = dict(qparams, _layers=[
+        {k: (kmajor(v[i]) if k.endswith("_q") else v[i])
+         for k, v in per_key.items()} for i in range(cfg.depth)])
+    for name in ("patch_embed", "head"):
+        if name in qparams:
+            prepped[name] = dict(qparams[name], wq=kmajor(qparams[name]["wq"]))
+
+    def run(images) -> torch.Tensor:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
+        with torch.inference_mode():
+            images = images.to(dev)
+            if raw:
+                images = vit_mod.preprocess(images, cfg)
+            return vit_forward_int8(prepped, images, cfg)
+
+    return run
 
 
 def quantize_vit_fast(params: Params) -> Params:
@@ -261,12 +395,44 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     return prepped
 
 
+def _int8_block_fits(cfg: vit_mod.ViTConfig) -> bool:
+    """Whether the JAX package runs the int8 block kernels (K16 -> K15, or
+    K18 -> K17) at this geometry (the JAX ``_int8_block_fits``): the int8
+    attention plan has a score slot and the int8 MLP plan a row tile.
+    ViT-B/16 at 1024 px does not: its blocks take the per-linear route."""
+    n_pad = round_up(cfg.seq_len, pad_sublane(torch.bfloat16))
+    kv_pad = round_up(cfg.seq_len, 128)
+    _, n_sc, _, _ = score_slots_int8(cfg.num_heads, cfg.hidden_dim, n_pad,
+                                     kv_pad)
+    bt, _ = mlp_plan_int8(n_pad, cfg.hidden_dim, cfg.mlp_dim)
+    return n_sc >= 1 and bt > 0
+
+
+def _fused_lin(x: torch.Tensor, wq, ws, b, act: str = "none",
+               ln=None, eps: float = 0.0) -> torch.Tensor:
+    """A (B, N, K) bf16 activation through K14 (``int8_linear_fused``),
+    with the two-pass LayerNorm ``ln`` = (scale, bias) first when given:
+    (B, N, N_out) bf16 (the JAX ``_fused_lin``)."""
+    bsz, n, _ = x.shape
+    ls, lb = ln if ln is not None else (None, None)
+    out = int8_linear_fused(x.reshape(bsz * n, -1), wq, ws, b, act=act,
+                            ln_scale=ls, ln_bias=lb,
+                            ln_eps=eps if ln is not None else 0.0)
+    return out.reshape(bsz, n, -1)
+
+
 def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
                    n_valid: int) -> torch.Tensor:
     """One calibrated static-scale block on padded (B, n_pad, D) bf16
-    tokens: K18 -> K17."""
+    tokens: K18 -> K17.  Where :func:`_int8_block_fits` is False the JAX
+    package runs its ``*_ref`` functions, which are not ported: raises."""
     b, n_pad, d = x.shape
     act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    if not _int8_block_fits(cfg):
+        raise NotImplementedError(
+            "the static int8 tree past the block kernels' geometry runs the "
+            "JAX package's attn_block_int8_static_ref / "
+            "mlp_block_int8_static_ref route, which is not ported")
     if _int8_scores_ok(blk, cfg):
         raise NotImplementedError("the int8-scores attention (K22) is not "
                                   "ported")
@@ -284,11 +450,22 @@ def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
 def _qblock_fast(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
                  n_valid: int) -> torch.Tensor:
     """One int8 block on padded (B, n_pad, D) bf16 tokens: K16 -> K15, or
-    K18 -> K17 on a static tree."""
+    K18 -> K17 on a static tree; where :func:`_int8_block_fits` is False
+    (ViT-B/16 at 1024 px), the JAX package's per-linear route: four K14
+    launches around ``mha_qkv`` (K9 from 1024 tokens under "auto")."""
     if "inv_ao" in blk:
         return _qblock_static(x, blk, cfg, n_valid)
     b, n_pad, d = x.shape
     act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    if not _int8_block_fits(cfg):
+        qkv = _fused_lin(x, blk["wqkv_q"], blk["wqkv_s"], blk["bqkv"],
+                         ln=(blk["ln1_scale"], blk["ln1_bias"]),
+                         eps=cfg.ln_eps)
+        o = mha_qkv(qkv, cfg.num_heads, n_valid=n_valid, impl=cfg.attn_impl)
+        x = x + _fused_lin(o, blk["wo_q"], blk["wo_s"], blk["bo"])
+        h = _fused_lin(x, blk["w1_q"], blk["w1_s"], blk["b1"], act=act,
+                       ln=(blk["ln2_scale"], blk["ln2_bias"]), eps=cfg.ln_eps)
+        return x + _fused_lin(h, blk["w2_q"], blk["w2_s"], blk["b2"])
     x = attn_block_int8(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
                         blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"],
                         blk["bo"], cfg.num_heads, eps=cfg.ln_eps,

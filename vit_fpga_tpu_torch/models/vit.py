@@ -11,12 +11,20 @@ leading depth axis, linear weights as (in, out).  The forward is
      fused_mlp_chunked_stats, K3, in place of fused_mlp_stats where the JAX
      package's MLP plan chunks the weights: the ViT-L family below 32 768
      token rows, ViT-B in f32),
-     or depth x _block = [attn_block -> fused_mlp] when ``safe_softmax``
-     or ``remat`` is set (differentiable: K4/K5 forward, K23/K24 backward)
+     or depth x _block, the per-block encoder, wherever the JAX package
+     leaves the chain (``_stats_chain_supported``: ``safe_softmax``,
+     ``remat``, an explicit attention or MLP impl, or an attention plan
+     with no score slot or with q-slot reuse, e.g. ViT-B/16 at 1024 px):
+     the fused half [attn_block: K4 fwd, K23 bwd] where ``attn_plan`` fits
+     it, else LN -> QKV GEMM -> ``ops/attention.mha_qkv`` (flash attention
+     K9 from 1024 tokens, else K7) -> out-proj; then fused_mlp (K5 fwd, K24
+     bwd), fused_mlp_chunked (K6) or the plain torch MLP, by the JAX rules
   -> LayerNorm of the prefix row -> f32 head
 
 and runs the Hopper kernels on a CUDA device, their plain versions on
-the CPU.  The batch-1 latency forward (``forward_latency``,
+the CPU.  Every routing decision is the JAX package's as on a TPU, from
+copies of its planners (``attn_plan``, ``mlp_weight_chunks``), on every
+device: the card takes the TPU's place.  The batch-1 latency forward (``forward_latency``,
 ``make_forward_latency``) places the prefix rows after the patch rows and
 runs the whole encoder in one launch (K11, ``ops/vit_stack.vit_layers``);
 ``forward_latency_logits`` (``make_forward_latency(..., full=True)``) runs
@@ -34,10 +42,13 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from ..ops.attn_block import attn_block, attn_block_stats, attn_block_xla
+from ..ops.attention import mha_qkv
+from ..ops.attn_block import (attn_block, attn_block_stats, attn_block_xla,
+                              attn_plan)
 from ..ops.common import pad_sublane, round_up, row_stats
-from ..ops.fused_mlp import (MLP_BIG_ROWS, fused_mlp, fused_mlp_chunked_stats,
-                              fused_mlp_stats, fused_mlp_xla, mlp_fits_raised,
+from ..ops.fused_mlp import (MLP_BIG_ROWS, fused_mlp, fused_mlp_chunked,
+                              fused_mlp_chunked_stats, fused_mlp_stats,
+                              fused_mlp_xla, mlp_fits_raised,
                               mlp_weight_chunks)
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.vit_stack import full_supported, stack_supported, vit_full, \
@@ -63,9 +74,20 @@ class ViTConfig:
     num_classes: int = 1000
     ln_eps: float = 1e-6
     dtype: str = "bfloat16"          # compute dtype; params stay f32
+    # Attention of the per-block encoder: auto | pallas | flash | xla.
+    # "auto" resolves as the JAX package resolves it on a TPU (on every
+    # device): the fused half (K4) where attn_plan fits it, else the
+    # unfused half with mha_qkv's own "auto" (K9 from 1024 tokens, else
+    # K7).  An explicit impl is passed to mha_qkv verbatim and leaves the
+    # stats chain (see _block, _stats_chain_supported).
+    attn_impl: str = "auto"
     pool: str = "cls"                # cls | gap
     num_prefix_tokens: int = 1
     hidden_act: str = "gelu"         # gelu (erf) | gelu_tanh | quick_gelu
+    # MLP of the per-block encoder: auto | pallas | xla ("auto": K5 where
+    # the JAX plan keeps the weights unchunked, else the plain torch MLP;
+    # "pallas": K5, or K6 where the weights take chunks).
+    mlp_impl: str = "auto"
     # Exact max-subtract softmax instead of the max-free exp(clip(s)) fast
     # path; routes the encoder to the per-block kernels (K4, K5).
     safe_softmax: bool = False
@@ -231,6 +253,23 @@ def preprocess(images_u8: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return ((x - mean) / std).to(cfg.compute_dtype)
 
 
+def _hidden_act_xla(h: torch.Tensor, name: str) -> torch.Tensor:
+    """The JAX ``_hidden_act`` of the unfused MLP on ``h``: "gelu" is
+    tanh-GELU (``jax.nn.gelu(approximate=True)``) in bf16 and erf-GELU in
+    f32; evaluated in f32 and rounded to h's dtype once."""
+    hf = h.float()
+    if name == "gelu" and h.dtype != torch.bfloat16:
+        out = 0.5 * hf * (1.0 + torch.erf(hf * (1.0 / np.sqrt(2.0))))
+    elif name in ("gelu", "gelu_tanh"):
+        c = float(np.sqrt(2.0 / np.pi))
+        out = 0.5 * hf * (1.0 + torch.tanh(c * (hf + 0.044715 * hf ** 3)))
+    elif name == "quick_gelu":
+        out = hf * torch.sigmoid(1.702 * hf)
+    else:
+        raise ValueError(f"unknown hidden_act {name!r}")
+    return out.to(h.dtype)
+
+
 def _hidden_act(cfg: ViTConfig) -> str:
     """The MLP activation the JAX CPU path evaluates: "gelu" runs as
     tanh-GELU in bf16 (the two differ below bf16 resolution) and as erf
@@ -300,41 +339,114 @@ def _n_pad(cfg: ViTConfig) -> int:
     return round_up(cfg.seq_len, pad_sublane(cfg.compute_dtype))
 
 
-def _stats_chain_supported(cfg: ViTConfig, batch: int) -> bool:
-    """The chain serves unless the config asks for the exact softmax or
-    for remat, or its MLP plan at this batch is None (the JAX
-    ``_stats_chain_supported``, without its TPU planner checks).
+def _itemsize(cfg: ViTConfig) -> int:
+    return 2 if cfg.dtype == "bfloat16" else 4
 
-    The JAX attention-plan gate (``n_sc``, ``reuse_q``) is dropped on
-    purpose: it follows the TPU's VMEM, and K1 has no such limit.  So
-    where the TPU's attention plan falls to its tight tier (CLIP ViT-L/14
-    at an odd batch), the JAX package leaves the chain for the per-block
-    kernels (exact softmax) while the port keeps the chain with K3, and
-    the two compute different functions there.  ``ImageServer`` pads
-    every batch to its fixed size, so the served path is not affected."""
-    return (not (cfg.safe_softmax or cfg.remat)
-            and _stats_chain_mlp_plan(cfg, batch * _n_pad(cfg)) is not None)
+
+def _attn_plan(cfg: ViTConfig, batch: int = 1):
+    """The JAX package's attention plan for this geometry (token rows
+    padded to 8, keys to 128)."""
+    return attn_plan(cfg.num_heads, cfg.hidden_dim, _n_pad(cfg),
+                     round_up(cfg.seq_len, 128), _itemsize(cfg), batch=batch)
+
+
+def _attn_block_fits(cfg: ViTConfig) -> bool:
+    """Whether the JAX package runs the fused attention half (K4) under
+    "pallas" (the JAX ``_attn_block_fits``): its plan has a score slot."""
+    return _attn_plan(cfg).n_sc >= 1
+
+
+def _stats_chain_supported(cfg: ViTConfig, batch: int) -> bool:
+    """The JAX ``_stats_chain_supported`` as on a TPU: no exact softmax,
+    no remat, attention and MLP impls "auto" or "pallas", an attention plan
+    with a score slot and no q-slot reuse at this batch, and an MLP plan
+    (:func:`_stats_chain_mlp_plan`).  So ViT-B/16 leaves the chain at
+    1024 px (no slot: the per-block path with flash attention), and CLIP
+    ViT-L/14 at an odd batch (q-slot reuse: the per-block kernels)."""
+    if (cfg.safe_softmax or cfg.remat
+            or cfg.attn_impl not in ("auto", "pallas")
+            or cfg.mlp_impl not in ("auto", "pallas")):
+        return False
+    plan = _attn_plan(cfg, batch)
+    if plan.n_sc < 1 or plan.reuse_q:
+        return False
+    return _stats_chain_mlp_plan(cfg, batch * _n_pad(cfg)) is not None
+
+
+def _mlp_route(cfg: ViTConfig, rows: int):
+    """The JAX ``_block``'s MLP decision as on a TPU, for ``rows`` token
+    rows: ``("pallas", 1)`` for K5, ``("pallas", n)`` for K6 with n
+    chunks, ``("xla", 0)`` for the plain torch MLP."""
+    itemsize = _itemsize(cfg)
+    d, m = cfg.hidden_dim, cfg.mlp_dim
+    impl = cfg.mlp_impl
+    n_chunks = 1
+    if impl == "auto":
+        n_chunks = mlp_weight_chunks(d, m, itemsize)
+        if (n_chunks > 1 and itemsize == 2 and rows >= MLP_BIG_ROWS
+                and mlp_fits_raised(d, m, itemsize)):
+            n_chunks = 1
+        impl = "pallas" if n_chunks == 1 else "xla"
+    elif impl == "pallas":
+        n_chunks = mlp_weight_chunks(d, m, itemsize)
+        if n_chunks == 0:      # nothing fits even chunked
+            impl = "xla"
+    elif impl != "xla":
+        raise ValueError(f"unknown mlp_impl {impl!r}")
+    if impl == "pallas" and _hidden_act(cfg) == "gelu":
+        impl = "xla"           # erf-GELU (f32) goes to the plain MLP
+    return (impl, n_chunks) if impl == "pallas" else ("xla", 0)
+
+
+def _attn_route(cfg: ViTConfig) -> str:
+    """The JAX ``_block``'s attention decision as on a TPU: "block" for
+    the fused half (K4), else "unfused" (LN, QKV GEMM, ``mha_qkv`` with
+    ``cfg.attn_impl``, out-proj)."""
+    if cfg.attn_impl not in ("auto", "pallas", "flash", "xla"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.attn_impl in ("auto", "pallas") and _attn_block_fits(cfg):
+        return "block"
+    return "unfused"
 
 
 def _block(x: torch.Tensor, blk: Params, cfg: ViTConfig,
            n_valid: int) -> torch.Tensor:
     """One pre-LN transformer block on padded (B, n_pad, D) tokens,
-    differentiable (counterpart of the JAX ``_block``'s fused path).
+    differentiable: the JAX ``_block`` branch for branch, as on a TPU.
 
-    The weight handling is the JAX package's: the attention half takes
-    the f32 ``wqkv``/``wo`` (cast to the compute dtype inside the kernel
-    wrapper, so their gradients stay f32), the MLP half takes ``w1``/``w2``
-    already cast to the compute dtype (so their gradients are rounded to
-    it)."""
+    Attention: the fused half (K4 forward, K23 backward) where
+    :func:`_attn_route` says "block"; else LN -> ``h @ wqkv + bqkv`` in
+    the compute dtype -> ``mha_qkv(impl=cfg.attn_impl)`` (K9 from 1024
+    tokens under "auto", K7 below or under "pallas") -> ``o @ wo + bo`` +
+    residual.  MLP (:func:`_mlp_route`): K5 (K24 backward), K6 with its
+    chunks, or the plain torch MLP.  The fused halves take the weights as
+    the JAX package does: the attention half the f32 ``wqkv``/``wo`` (cast
+    inside the kernel wrapper, so their gradients stay f32), the MLP half
+    ``w1``/``w2`` already cast to the compute dtype."""
     b, n_pad, d = x.shape
     dt = cfg.compute_dtype
-    x = attn_block(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
-                   blk["bqkv"], blk["wo"], blk["bo"], cfg.num_heads,
-                   cfg.ln_eps, n_valid, cfg.safe_softmax)
-    y = fused_mlp(x.reshape(b * n_pad, d), blk["ln2_scale"],
-                  blk["ln2_bias"], blk["w1"].to(dt), blk["b1"],
-                  blk["w2"].to(dt), blk["b2"], cfg.ln_eps, _hidden_act(cfg))
-    return y.reshape(b, n_pad, d)
+    if _attn_route(cfg) == "block":
+        x = attn_block(x, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv"],
+                       blk["bqkv"], blk["wo"], blk["bo"], cfg.num_heads,
+                       cfg.ln_eps, n_valid, cfg.safe_softmax)
+    else:
+        h = _layernorm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
+        qkv = h @ blk["wqkv"].to(dt) + blk["bqkv"].to(dt)
+        o = mha_qkv(qkv, cfg.num_heads, n_valid=n_valid,
+                    impl=cfg.attn_impl)
+        x = x + (o @ blk["wo"].to(dt) + blk["bo"].to(dt))
+    impl, n_chunks = _mlp_route(cfg, b * n_pad)
+    if impl == "pallas":
+        args = (x.reshape(b * n_pad, d), blk["ln2_scale"], blk["ln2_bias"],
+                blk["w1"].to(dt), blk["b1"], blk["w2"].to(dt), blk["b2"],
+                cfg.ln_eps, _hidden_act(cfg))
+        y = (fused_mlp_chunked(*args, n_chunks) if n_chunks > 1
+             else fused_mlp(*args))
+        return y.reshape(b, n_pad, d)
+    h = _layernorm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps)
+    h = _hidden_act_xla(h @ blk["w1"].to(dt) + blk["b1"].to(dt),
+                        cfg.hidden_act)
+    return x + (h @ blk["w2"].to(dt) + blk["b2"].to(dt))
 
 
 def _encoder_blocks(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
@@ -426,12 +538,30 @@ def _encoder(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
     return _encoder_blocks(blocks, x, cfg, n_valid)
 
 
+def _patchify_embed(params: Params, images: torch.Tensor, cfg: ViTConfig,
+                    n_pad: int) -> torch.Tensor:
+    """The JAX ``_forward_features``' embed for attention impls other than
+    "auto" / "pallas": patchify, GEMM and bias, the prefix rows, the
+    position table, in the compute dtype, padded to ``n_pad`` rows."""
+    dt = cfg.compute_dtype
+    x = patchify(images.to(dt), cfg.patch_size)
+    x = x @ params["patch_embed"]["kernel"].to(dt)
+    x = x + params["patch_embed"]["bias"].to(dt)
+    cls = params["cls_token"].to(dt).expand(x.shape[0], -1, -1)
+    x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(dt)
+    return torch.nn.functional.pad(x, (0, 0, 0, n_pad - cfg.seq_len))
+
+
 def _forward_features(params: Params, images: torch.Tensor,
                       cfg: ViTConfig) -> torch.Tensor:
     """Normalized images -> PRE-final-LN tokens (B, N, D).  Tokens stay
-    padded to n_pad rows through the encoder ("padded residency")."""
+    padded to n_pad rows through the encoder ("padded residency").  The
+    embed is the dotg one under attention impls "auto" / "pallas", else
+    the patchify one (as the JAX ``_forward_features``)."""
     n = cfg.seq_len
-    x = _fused_embed(params, images, cfg, _n_pad(cfg))
+    embed = (_fused_embed if cfg.attn_impl in ("auto", "pallas")
+             else _patchify_embed)
+    x = embed(params, images, cfg, _n_pad(cfg))
     return _encoder(params["blocks"], x, cfg, n)[:, :n]
 
 

@@ -31,9 +31,11 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_int8.cu", "vit_stack.cu", "vit_stack_int8.cu",
            "mlp_int8_static.cu", "attn_int8_static.cu",
            "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu",
-           "mlp_chunk_stats.cu", "vit_full.cu", "vit_full_int8.cu")
+           "mlp_chunk_stats.cu", "vit_full.cu", "vit_full_int8.cu",
+           "mlp_chunk.cu", "mha.cu", "flash_attn.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
-           "stack_bf16.cuh", "stack_i8.cuh", "full.cuh")
+           "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "chunk.cuh",
+           "seq_attn.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -47,6 +49,7 @@ build_log: str = ""                  # nvcc's output: ptxas registers, spills
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "vft_attn_init": ([], ctypes.c_int),
     "vft_attn_block_stats": (
@@ -104,6 +107,14 @@ _SIGNATURES = {
     "vft_vit_full_int8_workspace": ([_I] * 4, ctypes.c_size_t),
     "vft_vit_full_int8": ([_P] * 27 + [_I] * 13 + [_F, _F, _P, _P],
                           ctypes.c_int),
+    "vft_mlp_chunk_blk_init": ([], ctypes.c_int),
+    "vft_fused_mlp_chunked": ([_P] * 10 + [_I] * 5 + [_F, _P], ctypes.c_int),
+    "vft_mha_init": ([], ctypes.c_int),
+    "vft_mha": ([_P] * 4 + [_L, _L, _I, _L, _L] + [_I] * 6 + [_F, _P],
+                ctypes.c_int),
+    "vft_flash_init": ([], ctypes.c_int),
+    "vft_flash_attention": ([_P] * 4 + [_L, _L, _I, _L, _L] + [_I] * 6
+                            + [_F, _P], ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.
@@ -113,7 +124,8 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_vit_stack_init", "vft_vit_stack_int8_init",
           "vft_mlp_int8_static_init", "vft_attn_int8_static_init",
           "vft_vit_stack_int8_static_init", "vft_int8_gemm_init",
-          "vft_mlp_chunk_init", "vft_vit_full_init", "vft_vit_full_int8_init")
+          "vft_mlp_chunk_init", "vft_vit_full_init", "vft_vit_full_int8_init",
+          "vft_mlp_chunk_blk_init", "vft_mha_init", "vft_flash_init")
 
 
 def _nvcc() -> str:

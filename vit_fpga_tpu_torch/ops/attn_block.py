@@ -21,6 +21,10 @@ CPU tensor:
 ``attn_block`` is the differentiable half (``AttnBlockFunction``): K4
 forward, K23 backward, saving only the inputs, as the JAX ``custom_vjp``.
 
+``attn_plan`` is the JAX package's VMEM tier planner, copied: the port
+reads it only to decide which function the JAX package computes (the
+fused half, the chain, or the unfused half with flash attention).
+
 Bounds on the H100 at ViT-B/16 batch 64 (R = 12 800 rows, D = 768), all
 set by tensor-core operations at 989 TFLOP/s: K1 and K4 8·R·D² +
 4·B·H·n_pad·n_valid·dh flops (68 GFLOP, 69 us) against about 44 MB of
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -55,11 +60,75 @@ from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
 _NEG_INF = -1e30
 # K1 takes up to LONG_MAX_TOKENS tokens (csrc/attn.cuh ATT_MAX_LONG); its C
 # entry chooses between the whole-head and the key-tiled attention tile and
-# reports which it launched.  The JAX package takes flash attention outside
-# the chain past 1024 tokens.
+# reports which it launched.  Where the JAX package keeps the chain
+# (attn_plan below), it runs K1 up to 3137 tokens (ViT-B/16 @896 px); past
+# 1024 the port's K1 raises on the card.
 LONG_MAX_TOKENS = 1024
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's attention-half planner, copied as a routing function
+# ---------------------------------------------------------------------------
+
+_BIG_VMEM_BYTES = 100 * 1024 * 1024
+_MULTI_VMEM_BYTES = 48 * 1024 * 1024
+
+
+class AttnPlan(NamedTuple):
+    imgs: int          # images per grid cell
+    n_sc: int          # score slots (head-group size); 0 = does not fit
+    reuse_q: bool      # attention out overwrites dead q slots (tight tier)
+    vmem_limit: int    # vmem_limit_bytes override (0 = compiler default)
+
+
+def attn_plan(n_heads: int, d: int, n_pad: int, kv_pad: int,
+              itemsize: int, batch: int = 1,
+              budget: int = 13 * 1024 * 1024,
+              weight_itemsize: int | None = None,
+              d_attn: int | None = None) -> AttnPlan:
+    """The JAX ``attn_plan`` (``vit_fpga_tpu/ops/attn_block.py:86-154``),
+    arithmetic for arithmetic.  It sizes the TPU kernel's VMEM tiers, and
+    through them decides which function the JAX package computes: the
+    fused attention half where ``n_sc >= 1`` (the stats chain only without
+    ``reuse_q``), the unfused half (flash attention from 1024 tokens on)
+    where ``n_sc == 0``.  The port reads it for that decision alone; it
+    sets no tiling of the Hopper kernels."""
+    da = d_attn if d_attn is not None else d
+    weights = (3 * d * da + da * d) * (weight_itemsize or itemsize)
+
+    def fixed(imgs):
+        panel = imgs * kv_pad * 3 * da * itemsize
+        tiles = 4 * imgs * n_pad * d * itemsize
+        ao = imgs * n_pad * da * itemsize
+        return weights + panel + tiles + ao
+
+    slot = n_pad * kv_pad * 4
+    if fixed(1) + n_heads * slot <= budget:
+        for imgs in (4, 2):
+            if batch % imgs == 0 and (fixed(imgs) + 6 * slot
+                                      <= _MULTI_VMEM_BYTES * 0.8):
+                return AttnPlan(imgs, min(n_heads, 6), False,
+                                _MULTI_VMEM_BYTES)
+    if fixed(1) + slot <= budget:
+        n_sc = min(n_heads, (budget - fixed(1)) // slot)
+        vmem = (_MULTI_VMEM_BYTES
+                if fixed(1) + n_sc * slot > 11 * 1024 * 1024 else 0)
+        return AttnPlan(1, n_sc, False, vmem)
+    ao1 = n_pad * da * itemsize
+    tight = budget + 1024 * 1024
+    if fixed(1) - ao1 + slot <= tight:
+        if (batch % 2 == 0
+                and fixed(2) + 4 * slot <= _MULTI_VMEM_BYTES * 0.8):
+            return AttnPlan(2, min(n_heads, 4), False, _MULTI_VMEM_BYTES)
+        return AttnPlan(1, min(n_heads, 2,
+                               (tight - (fixed(1) - ao1)) // slot), True, 0)
+    big = int(_BIG_VMEM_BYTES * 0.8)
+    if fixed(1) + slot <= big:
+        return AttnPlan(1, min(n_heads, (big - fixed(1)) // slot), False,
+                        _BIG_VMEM_BYTES)
+    return AttnPlan(1, 0, True, 0)
 
 
 def _mha_tpu(qkv: torch.Tensor, num_heads: int, n_valid: int,
@@ -214,9 +283,16 @@ def _cuda_geometry(x, num_heads, n_valid):
     if d % num_heads or d % 32:
         raise ValueError(f"kernel needs D divisible by 32 and by {num_heads} "
                          f"heads (D={d})")
-    if d // num_heads != 64 or not 1 <= n_valid <= 256:
+    if d // num_heads != 64 or n_valid < 1:
         raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
                          f"(dh={d // num_heads}, n_valid={n_valid})")
+    if n_valid > 256:
+        # The JAX plan sends CLIP ViT-L/14 (257 tokens) and ViT-B/16 @384
+        # at an odd batch here (q-slot reuse leaves the stats chain).
+        raise ValueError(f"n_valid={n_valid}: the per-block attention "
+                         f"kernels (K4, K23) take at most 256 keys; their "
+                         f"long-key tile is not ported yet (ROADMAP.md, "
+                         f"section 1)")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     return b, n, d, n_valid
 

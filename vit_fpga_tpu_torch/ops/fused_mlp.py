@@ -1,7 +1,7 @@
 """Transformer MLP half: LN -> W1 -> act -> W2 -> +residual, and its
 backward.
 
-Four Hopper kernels live here, each behind a wrapper that launches it on
+Five Hopper kernels live here, each behind a wrapper that launches it on
 a CUDA tensor and runs its plain PyTorch version (same arithmetic) on a
 CPU tensor:
 
@@ -19,7 +19,14 @@ CPU tensor:
   statistics computed in the kernel and no stats output; its plain
   version is :func:`fused_mlp_xla`;
 * K24 ``fused_mlp_bwd`` (``csrc/mlp_bwd.cu``), K5's backward: replaces
-  ``_mlp_bwd_with_b1_kernel`` (wrapper ``fused_mlp_bwd_pallas``).
+  ``_mlp_bwd_with_b1_kernel`` (wrapper ``fused_mlp_bwd_pallas``);
+* K6 ``fused_mlp_chunked_fwd`` (``csrc/mlp_chunk.cu``), the per-block half
+  of the big-weight geometries under ``mlp_impl="pallas"`` (ViT-L: 2
+  chunks, ViT-H: 4): replaces ``_mlp_chunk_kernel`` over the chunk loop of
+  ``fused_mlp_chunked_pallas``, K3 with two-pass LN statistics computed in
+  the kernel and no stats output.  ``fused_mlp_chunked``
+  (``FusedMLPChunkedFunction``) is its differentiable form, whose backward
+  is the VJP of :func:`fused_mlp_xla`, as the JAX ``custom_vjp``.
 
 ``fused_mlp`` is the differentiable half (``FusedMLPFunction``): K5
 forward, K24 backward, saving only the inputs, as the JAX ``custom_vjp``.
@@ -29,7 +36,8 @@ M = 3072), all set by tensor-core operations at 989 TFLOP/s: K2 and K5
 4·T·D·M flops (121 GFLOP, 122 us) against about 49 MB of compulsory
 traffic; K24 10·T·D·M (302 GFLOP, 305 us) against under 100 MB.  K3 at
 CLIP ViT-L/14 batch 64 (T = 16 896, D = 1024, M = 4096): 4·T·D·M
-(283 GFLOP, 287 us), also bound by operations.  (989 TFLOP/s is the
+(283 GFLOP, 287 us), also bound by operations; K6 at ViT-L/16 batch 8
+(T = 1 600): 26.8 GFLOP, 27 us.  (989 TFLOP/s is the
 H100 SXM's dense bf16 peak at its 700 W limit.)
 Designs: bf16 wmma GEMMs with f32 accumulation, the LayerNorm applied to
 the first GEMM's A tiles in shared memory, the activation (or, in the
@@ -259,6 +267,116 @@ def fused_mlp_chunked_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
 
 
 fused_mlp_chunked_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the per-block MLP half over column chunks of M
+# ---------------------------------------------------------------------------
+
+def fused_mlp_chunked_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                            eps: float = 1e-6, act: str = "gelu",
+                            n_chunks: int = 2):
+    """Plain PyTorch version of the K6 kernel (the JAX
+    ``fused_mlp_chunked_pallas`` over its ``_mlp_chunk_kernel``): every
+    chunk takes the two-pass LayerNorm of the INPUT x, runs its
+    M/n_chunks columns of W1 and rows of W2, and adds bf16(y) to the
+    running output in x's dtype; b2 rides the last chunk only."""
+    m = w1.shape[-1]
+    if n_chunks < 1 or m % n_chunks:
+        raise ValueError(f"M={m} does not split into {n_chunks} chunks")
+    mc = m // n_chunks
+    dt = x.dtype
+    xhat, _ = ln_parts(x, eps)
+    xn = (xhat * ln_scale.float() + ln_bias.float()).to(dt).float()
+    w1f, w2f, b1f = w1.to(dt).float(), w2.to(dt).float(), b1.float()
+    acc = x
+    for c in range(n_chunks):
+        cols = slice(c * mc, (c + 1) * mc)
+        h = _act(xn @ w1f[:, cols] + b1f[cols], act).to(dt)
+        y = h.float() @ w2f[cols]
+        if c == n_chunks - 1:
+            y = y + b2.float()
+        acc = acc + y.to(dt)            # the chunk boundary's rounding
+    return acc
+
+
+def fused_mlp_chunked_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                          eps: float = 1e-6, act: str = "gelu",
+                          n_chunks: int = 2):
+    """Per-block MLP half over ``n_chunks`` column chunks of M (K6):
+    x (T, D) -> x + MLP(LN(x)) with the running output rounded to x's
+    dtype at every chunk boundary.  A CPU tensor runs
+    :func:`fused_mlp_chunked_plain`; a CUDA tensor launches the kernel
+    (bf16, D a multiple of 32, n_chunks 2 or 4, M a multiple of
+    32 * n_chunks) or raises."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return fused_mlp_chunked_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                       eps=eps, act=act, n_chunks=n_chunks)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    t, d, m = _cuda_geometry(x, w1)
+    if n_chunks not in (2, 4) or m % (32 * n_chunks):
+        raise ValueError(f"kernel takes n_chunks 2 or 4 and M a multiple of "
+                         f"32 * n_chunks (M={m}, n_chunks={n_chunks})")
+    dev = x.device
+    f32, bf = torch.float32, torch.bfloat16
+    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
+    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
+    w1 = kernel_operand(w1, (d, m), bf, dev, "w1")
+    b1 = kernel_operand(b1, (m,), f32, dev, "b1")
+    w2 = kernel_operand(w2, (m, d), bf, dev, "w2")
+    b2 = kernel_operand(b2, (d,), f32, dev, "b2")
+    out = torch.empty_like(x)
+    stats = torch.empty((t, 2), dtype=f32, device=dev)
+    hidden = torch.empty((t, m), dtype=bf, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = _kernels.launch_target()
+        err = lib.vft_fused_mlp_chunked(
+            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), hidden.data_ptr(), t, d, m, n_chunks,
+            _ACT_CODES[act], float(eps), stream)
+    _kernels.check(err, "fused_mlp_chunked")
+    fused_mlp_chunked_fwd.launches += 1
+    return out
+
+
+fused_mlp_chunked_fwd.launches = 0
+
+
+class FusedMLPChunkedFunction(torch.autograd.Function):
+    """K6 forward, the VJP of :func:`fused_mlp_xla` backward (the JAX
+    ``fused_mlp_chunked`` custom VJP: rematerialised, saving only the
+    inputs); each gradient comes back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps, act,
+                n_chunks):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.hyper = (eps, act)
+        return fused_mlp_chunked_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                     eps=eps, act=act, n_chunks=n_chunks)
+
+    @staticmethod
+    def backward(ctx, g):
+        prims = ctx.saved_tensors
+        eps, act = ctx.hyper
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True) for p in prims]
+            out = fused_mlp_xla(*leaves, eps=eps, act=act)
+            grads = torch.autograd.grad(out, leaves, g)
+        return tuple(grads) + (None, None, None)
+
+
+def fused_mlp_chunked(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
+                      act: str, n_chunks: int):
+    """Differentiable chunked MLP half (counterpart of the JAX
+    ``fused_mlp_chunked``): K6 forward on the card, its plain version on
+    the CPU, the XLA-reference VJP backward."""
+    return FusedMLPChunkedFunction.apply(x, ln_scale, ln_bias, w1, b1, w2,
+                                         b2, eps, act, n_chunks)
 
 
 # ---------------------------------------------------------------------------

@@ -64,13 +64,58 @@ import math
 import torch
 
 from . import _kernels
-from .attn_block import _mha_tpu
-from .common import check_activation, kernel_operand
+from .attn_block import _mha_tpu, attn_plan
+from .common import check_activation, kernel_operand, round_up
 from .fused_mlp import _act
 from .quant_fused import QMAX, _int_matmul, _row_quant, weight_kmajor
 
 # Activation codes of csrc/common.cuh (enum Act): the fma tanh-GELU form.
 _ACT_CODES = {"gelu_tanh": 2, "quick_gelu": 3, "relu": 4}
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's int8 planners, copied as routing functions: they decide
+# whether the JAX package runs the int8 block kernels (K16 -> K15, K18 ->
+# K17) or the per-linear route (models/quantized._int8_block_fits).  They
+# set no tiling of the Hopper kernels.
+# ---------------------------------------------------------------------------
+
+MLP_INT8_BIG_VMEM = 40 * 1024 * 1024
+
+
+def mlp_block_t(t: int, d: int, m: int, budget: int = 17 << 20) -> int:
+    """The JAX ``mlp_block_t``: the TPU int8 MLP's row tile for t rows."""
+    for bt in (640, 512):
+        if 2 * d * m + bt * (5 * m + 5 * d) > budget:
+            continue
+        if round_up(t, bt) - t <= t // 50:
+            return bt
+    return 256
+
+
+def mlp_plan_int8(t: int, d: int, m: int) -> tuple[int, int]:
+    """The JAX ``mlp_plan_int8`` (``quant_block.py:135``): (block_t,
+    vmem_limit), (0, 0) where nothing fits even under the raised plan."""
+    if 2 * d * m <= 11 * 1024 * 1024:
+        return mlp_block_t(t, d, m), 0
+    budget = MLP_INT8_BIG_VMEM - (4 << 20)
+    for bt in (512, 384, 256, 128):
+        if 2 * d * m + bt * (5 * m + 5 * d) > budget:
+            continue
+        if round_up(t, bt) - t <= max(t // 50, bt):
+            return bt, MLP_INT8_BIG_VMEM
+    return 0, 0
+
+
+def score_slots_int8(n_heads: int, d: int, n_pad: int, kv_pad: int,
+                     budget: int = 13 * 1024 * 1024,
+                     batch: int = 1) -> tuple[int, int, bool, int]:
+    """The JAX ``score_slots_int8`` (``quant_block.py:213``): the bf16
+    attention plan with int8 weights, as (imgs, n_sc, reuse_q,
+    vmem_limit)."""
+    plan = attn_plan(n_heads, d, n_pad, kv_pad, itemsize=2, batch=batch,
+                     budget=budget, weight_itemsize=1)
+    return plan.imgs, plan.n_sc, plan.reuse_q, plan.vmem_limit
 
 
 def _ln_f32(x, ln_scale, ln_bias, eps):

@@ -4,12 +4,15 @@ training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
         [--image 224] [--batch 64] [--steps 3]
-        [--train | --int8 [--static]] [--latency | --full]
+        [--train | --int8 [--static] | --per-tensor] [--latency | --full]
 
 ``--model`` takes the ViT variants, ``clip_<variant>`` (the CLIP vision
 tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
 ``deit_<variant>`` (``deit_b16``), with ``bench.py``'s prefix rules;
-``--image`` is the square input size (224, 384).  CLIP and DeiT profile
+``--image`` is the square input size (224, 384, 1024: ViT-B/16 at 1024 px
+runs the per-block path, flash attention K9 and K5, or with ``--int8``
+the per-linear int8 route, K14 and K9; give ``--batch 1`` or ``4``).
+CLIP and DeiT profile
 the bf16 served forward only.  Without a mode flag it runs the family's
 ``make_forward(cfg, params, raw=True)`` (bf16,
 random weights from seed 0) on a seeded uint8 batch already on the card;
@@ -17,7 +20,9 @@ with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
 weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
 (calibrated on the synthetic probe batch, on the card); with ``--train``
 one SGD(1e-4) step of ``make_vit_train_step`` (bench.py's train shape) on
-a seeded normalized batch.  ``--latency`` (batch 1 unless ``--batch`` says
+a seeded normalized batch; with ``--per-tensor`` the per-tensor int8
+forward (``make_vit_forward_int8`` on ``quantize_vit`` of f32 weights: K13
+linears, K7 attention in f32).  ``--latency`` (batch 1 unless ``--batch`` says
 otherwise, 4 at most) runs the single-launch forwards instead:
 ``make_forward_latency`` (K11), or with ``--int8``
 ``make_forward_int8_latency`` (K19a, or K19b with ``--static``, + the K14
@@ -59,7 +64,8 @@ import torch
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1's
-# key-tiled attention past 256 keys is attn_half::attn_long_kernel).  The
+# key-tiled attention past 256 keys is attn_half::attn_long_kernel),
+# mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # int8 GEMM's template
 # argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
 # int8 with the static scale), quant_rows_kernel's second one its
@@ -108,6 +114,13 @@ STAGES = (
     ("mlp_chunk::gemm_bf16_kernel<true", "K3 (a) LN + W1 GEMM + act"),
     ("mlp_chunk::chunk_down_kernel", "K3 (b) chunked W2 GEMM + residual"),
     ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
+    ("flash_attn::seq_attn_kernel", "K9 flash attention"),
+    ("mha::seq_attn_f32_kernel", "K7 / K8 attention, f32"),
+    ("mha::seq_attn_kernel", "K7 / K8 attention, bf16"),
+    ("mlp_chunk_blk::ln_rows_kernel", "K6 (a) LN stats"),
+    ("mlp_chunk_blk::gemm_bf16_kernel<true", "K6 (b) LN + W1 GEMM + act"),
+    ("mlp_chunk_blk::chunk_down_kernel", "K6 (c) chunked W2 GEMM + residual"),
+    ("int8_gemm::", "K13 int8 GEMM"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
     ("attn_block::gemm_bf16_kernel<true", "K4 (b) LN + QKV GEMM"),
     ("attn_block::attn_kernel", "K4 (c) attention"),
@@ -215,6 +228,23 @@ def _serve_int8_run(cfg, batch, static):
     qparams = _int8_tree(cfg, vit.init_params(cfg, gen, device="cuda"),
                          static)
     fwd = quantized.make_forward_int8(cfg, qparams, raw=True)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+        np.uint8)).cuda()
+    return lambda: fwd(images)
+
+
+def _per_tensor_run(cfg, batch):
+    """One per-tensor int8 forward: make_vit_forward_int8 on quantize_vit
+    of the seed-0 f32 weights, on a seeded uint8 batch."""
+    import dataclasses
+
+    from .models import quantized, vit
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    fwd = quantized.make_vit_forward_int8(cfg, quantized.quantize_vit(
+        vit.init_params(cfg, gen, device="cuda")))
     images = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, cfg.image_size, cfg.image_size, 3),
         np.uint8)).cuda()
@@ -331,6 +361,9 @@ def main(argv=None) -> int:
                            "served forward")
     mode.add_argument("--int8", action="store_true",
                       help="profile the served dynamic int8 forward")
+    mode.add_argument("--per-tensor", action="store_true",
+                      help="profile the per-tensor int8 forward (K13, K7 "
+                           "in f32)")
     ap.add_argument("--static", action="store_true",
                     help="with --int8: the calibrated static-scale tree")
     single = ap.add_mutually_exclusive_group()
@@ -341,7 +374,7 @@ def main(argv=None) -> int:
                         help="profile the batch-1 forward whose embed, "
                              "layers and head run in one launch")
     args = ap.parse_args(argv)
-    if (args.latency or args.full) and args.train:
+    if (args.latency or args.full) and (args.train or args.per_tensor):
         ap.error("--latency and --full profile a forward, not a training "
                  "step")
     if args.full and args.static:
@@ -358,10 +391,11 @@ def main(argv=None) -> int:
 
     family, cfg = _model(args.model, args.image)
     if family is not vit and (args.train or args.int8 or args.latency
-                              or args.full):
+                              or args.full or args.per_tensor):
         ap.error("CLIP and DeiT profile the bf16 served forward only")
     kind = require_hopper()
-    mode = "train" if args.train else "serve-int8" if args.int8 else "serve"
+    mode = ("train" if args.train else "serve-int8" if args.int8
+            else "per-tensor-int8" if args.per_tensor else "serve")
     if args.latency or args.full:
         mode = ("full" if args.full else "latency") + (
             "-int8" if args.int8 else "")
@@ -371,6 +405,8 @@ def main(argv=None) -> int:
         run = _serve_int8_run(cfg, args.batch, args.static)
     elif args.train:
         run = _train_run(cfg, args.batch)
+    elif args.per_tensor:
+        run = _per_tensor_run(cfg, args.batch)
     else:
         run = _serve_run(family, cfg, args.batch)
     if args.static:
@@ -437,7 +473,9 @@ def main(argv=None) -> int:
         result["idle_share"] = None   # the profiler saw no device work
 
     what = "train step" if args.train else "batch"
-    print(f"{args.model} @{args.image} {'int8' if args.int8 else 'bf16'} "
+    dtype = ("int8" if args.int8 else "per-tensor int8" if args.per_tensor
+             else "bf16")
+    print(f"{args.model} @{args.image} {dtype} "
           f"b{args.batch} "
           f"{mode} on {kind}: {step_ms:.4f} ms per "
           f"{what}, {result['img_per_s']:.1f} img/s, peak {peak_mb:.0f} MiB"
