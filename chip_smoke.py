@@ -155,6 +155,25 @@ Phases, each of which raises on failure (exit code != 0):
               mlp_impl="pallas" on ViT-L/16 with safe_softmax (24 K4 + 24
               K6), attention.mha "pallas" / "flash" (1 K8, 1 K9); the bf16
               and int8 1024 px forwards at b1 and b4 timed in turns
+ 16. int8 chain  the reference's two gated int8 paths, whose module
+              switches stay off by default: K21b (attn_block_int8_stats),
+              K21a (mlp_block_int8_stats) and K22
+              (attn_block_int8_static_scores) against their plain versions
+              at b8 (this runs first, right after the build) and at the b64
+              path shapes: K21b and K21a on stats that are not x's own, f32
+              (both emit_stats) and bf16, the emitted stats against those of
+              the kernel's own output, K21a with every activation at b8; K22
+              quiet and saturating (clipped shares printed, > 0); K21b and
+              K22 with 59 loud padding rows that must leave the valid rows
+              bit for bit; their times beside the plain version, a library
+              yardstick and the bound; then with _INT8_STATS_CHAIN on
+              ImageServer over make_forward_int8(vit_b16) on the dynamic
+              tree answers 160 uint8 requests with 12 K21b + 12 K21a + 1 K14
+              per batch and nothing else, and with _INT8_SCORES on the same
+              requests on the static tree with 12 K22 + 12 K17 + 1 K14
+              (logits against the CPU forward with the switch on, top-1
+              against the switch-off forward printed); the switch-on and
+              switch-off b64 forwards timed in turns
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -915,7 +934,11 @@ def _counters():
             "flash_attention": fa.flash_attention,
             "mha_qkv_pallas": at.mha_qkv_pallas,
             "mha_pallas": at.mha_pallas,
-            "fused_mlp_chunked": fm.fused_mlp_chunked_fwd}
+            "fused_mlp_chunked": fm.fused_mlp_chunked_fwd,
+            "mlp_block_int8_stats": qb.mlp_block_int8_stats,
+            "attn_block_int8_stats": qb.attn_block_int8_stats,
+            "attn_block_int8_static_scores":
+                qb.attn_block_int8_static_scores}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -1046,25 +1069,58 @@ def _k14_step(x, q, ln_eps=0.0, **_):
     return sx * QMAX * q["w_s"]
 
 
-def _int8_parity(label, got, want, step, x=None, rows=(...,), mag_x=False):
+def _print_worst(label, g, w, diff, tol, step):
+    """The worst element past its band and its row: where it sits, the
+    kernel's and the plain values, and how much of the row moved."""
+    d = g.shape[-1]
+    ratio = (diff / tol).reshape(-1)
+    i = int(ratio.argmax())
+    r, c = divmod(i, d)
+    drow = diff.reshape(-1, d)[r]
+    srow = step.expand_as(diff).reshape(-1, d)[r]
+    print(f"  {label} worst: row {r} col {c} kernel "
+          f"{float(g.reshape(-1)[i]):.6g} plain {float(w.reshape(-1)[i]):.6g} "
+          f"tol {float(tol.reshape(-1)[i]):.3e}; its row: "
+          f"{int((drow > 0).sum())} of {d} elements differ, "
+          f"{int((drow > tol.reshape(-1, d)[r]).sum())} past the band, "
+          f"largest {float((drow / srow).max()):.2f} steps")
+
+
+def _int8_parity(label, got, want, step, x=None, rows=(...,), mag_x=False,
+                 row_bound=None):
     """Kernel vs plain version elementwise within BF16_TOL (1 + |b|) +
     INT8_STEPS * step, then the branch ``out - x`` (or, without a
     residual, the output) in relative norm within BRANCH_TOL.  With
     ``mag_x`` the elementwise term is BF16_TOL (1 + |b| + |x|): out = x +
     bf16(y) carries one ulp of bf16(y), which exceeds 2^-6 |b| where x and
-    y cancel (the backward's dx band takes |g| so).  Returns the max-abs
-    error."""
+    y cancel (the backward's dx band takes |g| so).  With ``row_bound``
+    (shaped like ``step``) up to one row in FLIP_ROWS may leave that band,
+    each by no more than ``row_bound`` (one rounding event of its own:
+    FLIP_ROWS below).  Returns the max-abs error."""
     torch.cuda.synchronize()
     g, w, st = got[rows].float(), want[rows].float(), step[rows]
     diff = (g - w).abs()
     mag = w.abs() + (x[rows].float().abs() if mag_x else 0.0)
     tol = BF16_TOL * (1.0 + mag) + INT8_STEPS * st
-    bad = int((diff > tol).sum())
-    max_abs = float(diff.max())
     what = "|b| + |x|" if mag_x else "|b|"
+    rows_note = ""
+    if row_bound is not None:
+        off = (diff > tol).reshape(-1, diff.shape[-1]).any(-1)
+        allowed = max(1, off.numel() // FLIP_ROWS)
+        bound = row_bound[rows]
+        bad = int((diff > tol + bound).sum())
+        bad += max(0, int(off.sum()) - allowed)
+        rows_note = (f"; rows past the band {int(off.sum())} of "
+                     f"{off.numel()}, allowed {allowed}, each within "
+                     f"{float(bound.max()):.3e} more")
+    else:
+        bad = int((diff > tol).sum())
+    max_abs = float(diff.max())
     print(f"  {label}: max_abs={max_abs:.3e} (tol {BF16_TOL:g} (1 + {what}) "
-          f"+ {INT8_STEPS} steps, largest step {float(st.max()):.3e}, "
-          f"violations={bad})")
+          f"+ {INT8_STEPS} steps, largest step {float(st.max()):.3e}"
+          f"{rows_note}, violations={bad})")
+    if bad or (row_bound is not None and int(off.sum())):
+        _print_worst(label, g, w, diff, tol, st)
     if bad or not torch.isfinite(g).all():
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              f"version")
@@ -1274,12 +1330,57 @@ def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
 INT8_KERNELS = ("attn_block_int8", "mlp_block_int8", "int8_linear_fused")
 
 
-def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
+@contextlib.contextmanager
+def _switch_on(name):
+    """models.quantized.<name> (a gated path's module switch) set True,
+    restored in a finally."""
+    from vit_fpga_tpu_torch.models import quantized
+    before = getattr(quantized, name)
+    setattr(quantized, name, True)
+    try:
+        yield
+    finally:
+        setattr(quantized, name, before)
+
+
+def _switched(fn, name):
+    """``fn`` with the module switch ``name`` on around each call (None:
+    ``fn`` itself).  The serving thread's calls do not overlap."""
+    if name is None:
+        return fn
+
+    def run(*args):
+        with _switch_on(name):
+            return fn(*args)
+    return run
+
+
+# phase_int8_slice's modes: (label, static tree, the encoder halves, the
+# module switch held on around every forward of the tree)
+INT8_SLICE_MODES = {
+    "dynamic": ("int8", False, ("attn_block_int8", "mlp_block_int8"), None),
+    "static": ("int8 static", True, ("attn_block_int8_static",
+                                     "mlp_block_int8_static"), None),
+    "chain": ("int8 chain", False, ("attn_block_int8_stats",
+                                    "mlp_block_int8_stats"),
+              "_INT8_STATS_CHAIN"),
+    "scores": ("int8 scores", True, ("attn_block_int8_static_scores",
+                                     "mlp_block_int8_static"),
+               "_INT8_SCORES"),
+}
+
+
+def phase_int8_slice(n_images=160, batch=64, mode="dynamic", others=None):
     """ImageServer over make_forward_int8(vit_b16) answers ``n_images``
-    uint8 requests: on the quantize_vit_fast tree (K16, K15, K14), or with
-    ``static`` on the quantize_vit_static tree (K18, K17, K14), whose top-1
-    is also set beside ``fwd_dynamic``'s.  Returns (launch counts, the int8
-    forward, the card's bf16 forward of the same weights, the config)."""
+    uint8 requests in ``mode`` (INT8_SLICE_MODES): on the
+    quantize_vit_fast tree (K16, K15, K14), on the quantize_vit_static
+    tree (K18, K17, K14), or with a module switch on: the int8 stats chain
+    on the dynamic tree (K21b, K21a, K14), the int8-scores attention on
+    the static tree (K22, K17, K14).  Top-1 is set beside the card's bf16
+    forward, each of ``others`` ({name: forward}) and, for a switched
+    mode, the same tree's forward with the switch off.  Returns (launch
+    counts, the int8 forward, the card's bf16 forward of the same weights,
+    the config, the tree's forward without the switch)."""
     from unittest import mock
 
     from vit_fpga_tpu_torch.models import quantized, vit
@@ -1287,16 +1388,13 @@ def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
     from vit_fpga_tpu_torch.ops import quant_fused as qf
     from vit_fpga_tpu_torch.runtime.serving import ImageServer
     from vit_fpga_tpu_torch.utils.log import Metrics
+    label, static, halves, switch = INT8_SLICE_MODES[mode]
     cfg = vit.config("vit_b16", dtype="bfloat16")
     params = vit.init_params(cfg, _gen(5), device="cuda")
-    label = "int8 static" if static else "int8"
-    if static:
-        qparams = quantized.quantize_vit_static(params, cfg)
-        halves = STATIC_BLOCK_KERNELS
-    else:
-        qparams = quantized.quantize_vit_fast(params)
-        halves = ("attn_block_int8", "mlp_block_int8")
-    fwd = quantized.make_forward_int8(cfg, qparams, raw=True)
+    qparams = (quantized.quantize_vit_static(params, cfg) if static
+               else quantized.quantize_vit_fast(params))
+    fwd_off = quantized.make_forward_int8(cfg, qparams, raw=True)
+    fwd = _switched(fwd_off, switch)
     images = np.random.default_rng(5).integers(
         0, 256, (n_images, cfg.image_size, cfg.image_size, 3), np.uint8)
     fwd(images[:batch])                 # first launch: library loads
@@ -1331,8 +1429,8 @@ def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
                                  f"{server.batches} {label} batches, want "
                                  f"{want.get(name, 0)}")
 
-    cpu_fwd = quantized.make_forward_int8(cfg, _tree_to(qparams, "cpu"),
-                                          device="cpu")
+    cpu_fwd = _switched(quantized.make_forward_int8(
+        cfg, _tree_to(qparams, "cpu"), device="cpu"), switch)
     idx = [0, batch - 1, batch, 2 * batch - 1, 2 * batch, n_images - 1]
     ref = cpu_fwd(images[idx]).numpy()
     got = np.stack([results[i] for i in idx])
@@ -1340,7 +1438,8 @@ def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
     plains = {k: getattr(qb, k + "_plain") for k in halves}
     with mock.patch.multiple(quantized, **plains,
                              int8_linear_fused=qf.int8_linear_fused_plain):
-        floor = quantized.make_forward_int8(cfg, qparams)(images[idx])
+        floor = _switched(quantized.make_forward_int8(cfg, qparams),
+                          switch)(images[idx])
     floor = float(np.abs(floor.cpu().numpy() - ref).max() / np.abs(ref).max())
     rel = float(np.abs(got - ref).max() / np.abs(ref).max())
     print(f"{label} slice logits of images {idx} vs CPU plain forward: "
@@ -1350,9 +1449,9 @@ def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
     if not rel <= INT8_LOGITS_BAND:
         raise AssertionError(f"card {label} logits disagree with the CPU")
     bf_fwd = vit.make_forward(cfg, params, raw=True)
-    others = {"bf16": bf_fwd}
-    if fwd_dynamic is not None:
-        others["dynamic int8"] = fwd_dynamic
+    others = dict({"bf16": bf_fwd}, **(others or {}))
+    if switch is not None:
+        others[f"{label} switch off"] = fwd_off
     for name, other in others.items():
         o = np.concatenate([other(images[i:i + batch]).cpu().numpy()
                             for i in range(0, n_images, batch)])
@@ -1361,7 +1460,7 @@ def phase_int8_slice(n_images=160, batch=64, static=False, fwd_dynamic=None):
         print(f"{label} vs the card's {name} forward (same weights): top-1 "
               f"agree {agree}/{n_images}, max_rel {rel_o:.3e} (stated, not "
               f"gated)")
-    return launches, fwd, bf_fwd, cfg
+    return launches, fwd, bf_fwd, cfg, fwd_off
 
 
 def phase_int8_forward_time(fwds, cfg, batch=64):
@@ -1642,8 +1741,8 @@ def run_static_phases(errors, timing, launches, fwd_int8, fwd_bf16, cfg):
         errors[name] = max(errors[name], err)
     for name, t in phase_static_timing().items():
         timing[name] = dict(t, max_abs_err=errors[name])
-    static_launches, fwd_static, _, _ = phase_int8_slice(
-        static=True, fwd_dynamic=fwd_int8)
+    static_launches, fwd_static, _, _, _ = phase_int8_slice(
+        mode="static", others={"dynamic int8": fwd_int8})
     launches.update({k: v for k, v in static_launches.items()
                      if k in STATIC_BLOCK_KERNELS})
     phase_int8_forward_time({"bf16": fwd_bf16, "int8": fwd_int8,
@@ -3810,6 +3909,404 @@ def run_per_block_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the gated int8 paths, the int8 stats chain (K21b, K21a) and the
+# int8-scores attention (K22)
+# ---------------------------------------------------------------------------
+
+CHAIN_KERNELS = ("attn_block_int8_stats", "mlp_block_int8_stats")
+SCORES_KERNEL = "attn_block_int8_static_scores"
+# Rows that leave the int8 band by one rounding event of their own, each
+# bounded by that event.  Such events come at about one row in 1000 (at
+# b64 on an H100: K22 11 rows of 12 608, K21b 1), so up to one row in
+# FLIP_ROWS may:
+# - dynamic (K21a, K21b): the f32 sums' order moves the int8 input row's
+#   absmax by an ulp (K21b at b64: ao's, a bf16 ulp), so the whole row is
+#   requantized at another scale; 523 of its 768 outputs moved, one by
+#   9.3 steps.  Bound: one step on every int8 input of the row,
+#   step * sum_k |w_q[k, n]| / 127.
+# - K22: pq = rint(e * 127 / sum(e)) meets a step boundary now and then
+#   (exp's last ulp, the row sum's order), and one key's probability
+#   moves by 1/127.  That moves the head's 64 ao values by v / (127 s_ao)
+#   each, several int8 steps of aoq where the calibrated a_v exceeds
+#   a_ao.  Bound: the band + max_h wos_n sum_j (max_key |v_q[key, j]|
+#   pv_fold + 1) |woq[j, n]| over the head's 64 dims j.
+# A wrong kernel moves every row (the mutation copies).
+FLIP_ROWS = 100
+
+
+def _foreign(st):
+    """Stats that are not x's own: mu moved by 5% plus 0.02, rstd by 3%
+    (a kernel that reduced x itself would disagree by far more than the
+    int8 band)."""
+    out = st.clone()
+    out[..., 0] = st[..., 0] * 1.05 + 0.02
+    out[..., 1] = st[..., 1] * 1.03
+    return out
+
+
+def _k21a(fn, x2, st, q, act, emit):
+    return fn(x2, st, q["ln_scale"], q["ln_bias"], q["w1_q"], q["w1_s"],
+              q["b1"], q["w2_q"], q["w2_s"], q["b2"], eps=EPS, act=act,
+              emit_stats=emit)
+
+
+def _k21b(fn, x, st, q, heads, n_valid, emit):
+    return fn(x, st, q["ln_scale"], q["ln_bias"], q["wqkv_q"], q["wqkv_s"],
+              q["bqkv"], q["wo_q"], q["wo_s"], q["bo"], heads, eps=EPS,
+              n_valid=n_valid, emit_stats=emit)
+
+
+def _k21a_step(x2, st, q, act):
+    """One quantization step of K21a's output: sh_r * 127 * w2s_n."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.quant_fused import QMAX, _row_quant
+    xq, sx = _row_quant(qb._ln_from_stats(x2, st, q["ln_scale"],
+                                          q["ln_bias"]))
+    h = qb._apply_act(qb._dequant(xq, q["w1_q"], sx, q["w1_s"], q["b1"]), act)
+    return _row_quant(h)[1] * QMAX * q["w2_s"]
+
+
+def _k21b_step(x, st, q, heads, n_valid):
+    """One quantization step of K21b's output: sa_r * 127 * wos_n."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.attn_block import _mha_tpu
+    from vit_fpga_tpu_torch.ops.quant_fused import QMAX, _row_quant
+    xq, sx = _row_quant(qb._ln_from_stats(x, st, q["ln_scale"],
+                                          q["ln_bias"]))
+    qkv = qb._dequant(xq, q["wqkv_q"], sx, q["wqkv_s"], q["bqkv"]).to(x.dtype)
+    _, sa = _row_quant(_mha_tpu(qkv, heads, n_valid).float())
+    return sa * QMAX * q["wo_s"]
+
+
+def _stats_parity(label, got, got_st, dtype):
+    """The emitted stats against the plain stats of the kernel's own bf16
+    output: f32 sums in another order (STATS_RTOL, STATS_ATOL), for bf16
+    stats then one bf16 rounding (2^-7 relative)."""
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    if got_st is None or got_st.dtype != dtype:
+        raise AssertionError(f"{label}: stats missing or not {dtype}")
+    want = row_stats(got, EPS).to(dtype)
+    rtol = STATS_RTOL if dtype == torch.float32 else 2.0 ** -7
+    _compare(f"{label} stats vs stats of its out", got_st, want, rtol,
+             STATS_ATOL)
+
+
+def _requant_bound(step, wq):
+    """A requantized row's move: one step on each of its K int8 inputs,
+    step * sum_k |wq[k, n]| / 127 (``wq`` the last GEMM's (K, N) weight)."""
+    return step * (wq.float().abs().sum(0) / 127.0)
+
+
+def _chain_case(label, kernel, plain, step, x, wq, rows=(...,)):
+    """Kernel vs plain version for both ``emit_stats`` and each stats
+    dtype in ``kernel``/``plain`` (callables of (emit, dtype)), in the int8
+    band with its |x| term (``_int8_parity``'s ``mag_x``: the foreign
+    stats' larger branches meet x in its tails, where an ulp of bf16(y)
+    exceeds 2^-6 |b|; K21b at b64: 3.125e-2 at |b| < 1, one element in
+    9.8M) and FLIP_ROWS' allowance for a requantized row (``wq``, the
+    last GEMM's int8 weight); returns the largest max-abs error."""
+    worst = 0.0
+    for dtype, emits in ((torch.float32, (True, False)),
+                         (torch.bfloat16, (True,))):
+        for emit in emits:
+            what = f"{label} {str(dtype)[6:]} stats emit={emit}"
+            got, got_st = kernel(emit, dtype)
+            want, want_st = plain(emit, dtype)
+            worst = max(worst, _int8_parity(what, got, want, step, x,
+                                            rows=rows, mag_x=True,
+                                            row_bound=_requant_bound(step,
+                                                                     wq)))
+            if emit:
+                _stats_parity(what, got, got_st, dtype)
+            elif got_st is not None or want_st is not None:
+                raise AssertionError(f"{what}: returned stats")
+    return worst
+
+
+def _scores_args(x, q, heads, n_valid, shrink=1.0):
+    """K22's arguments from a dynamic int8 dict ``q``: per-tensor a_x (the
+    f32 LN of x), a_q, a_k, a_v (the dequantized QKV's thirds) and a_ao (the
+    attention output) over the valid rows, each divided by ``shrink``,
+    folded as _fold_static_scales folds them.  Returns (args, clipped
+    shares of xq, the int8 panel, aoq)."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.attn_block import _mha_tpu
+    d = x.shape[-1]
+    xn = qb._ln_f32(x, q["ln_scale"], q["ln_bias"], EPS)
+    s_x = _f32(float(xn[:, :n_valid].abs().max()) / 127.0 / shrink)
+    qkv = xn @ (q["wqkv_q"].float() * q["wqkv_s"]) + q["bqkv"]
+    s3 = [_f32(float(qkv[:, :n_valid, i * d:(i + 1) * d].abs().max())
+               / 127.0 / shrink) for i in range(3)]
+    ao = _mha_tpu(qkv.to(x.dtype), heads, n_valid).float()[:, :n_valid]
+    s_ao = _f32(float(ao.abs().max()) / 127.0 / shrink)
+    thirds = torch.cat([torch.full((d,), v, device=x.device) for v in s3])
+    a = dict(q, ln_scale=q["ln_scale"] / s_x, ln_bias=q["ln_bias"] / s_x,
+             wqkv_qs=q["wqkv_s"] * s_x / thirds, bqkv_qs=q["bqkv"] / thirds,
+             wo_s=q["wo_s"] * s_ao, sc_qk=_f32(s3[0] * s3[1]),
+             pv_fold=_f32(s3[2] / 127.0 / s_ao))
+    return a, (_clipped(xn[:, :n_valid], s_x),
+               _clipped(qkv[:, :n_valid], thirds), _clipped(ao, s_ao))
+
+
+def _k22(fn, x, a, heads, n_valid):
+    return fn(x, a["sc_qk"], a["pv_fold"], a["ln_scale"], a["ln_bias"],
+              a["wqkv_q"], a["wqkv_qs"], a["bqkv_qs"], a["wo_q"], a["wo_s"],
+              a["bo"], heads, eps=EPS, n_valid=n_valid)
+
+
+def _k22_flip(x, a, heads, n_valid):
+    """(B, 1, D): the largest move of one output column that one pq step
+    in one head can cause (FLIP_ROWS), from the plain version's int8 v
+    panel."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    b, _, d = x.shape
+    xq = qb._rint_i8(qb._ln_f32(x, a["ln_scale"], a["ln_bias"], EPS))
+    v = qb._rint_i8(qb._int_matmul(xq, a["wqkv_q"][:, 2 * d:])
+                    * a["wqkv_qs"][2 * d:] + a["bqkv_qs"][2 * d:])
+    vmax = v[:, :n_valid].float().abs().amax(1).reshape(b, heads, d // heads)
+    w = a["wo_q"].float().abs().reshape(heads, d // heads, d)
+    move = torch.einsum("bhj,hjn->bhn", vmax * a["pv_fold"] + 1.0, w)
+    return (move.amax(1) * a["wo_s"])[:, None, :]
+
+
+def _k22_parity(label, x, a, heads, n_valid, rows, got=None):
+    """K22 (``got``, or a fresh launch) vs its plain version: the static
+    int8 band (|x|, 2 steps of 127 wos), one row in FLIP_ROWS allowed one
+    pq flip more (``_k22_flip``), then the branch in norm."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    if got is None:
+        got = _k22(qb.attn_block_int8_static_scores, x, a, heads, n_valid)
+    return _int8_parity(
+        label, got, _k22(qb.attn_block_int8_static_scores_plain, x, a, heads,
+                         n_valid), (127.0 * a["wo_s"]).expand_as(x), x,
+        rows=rows, mag_x=True, row_bound=_k22_flip(x, a, heads, n_valid))
+
+
+def phase_chain_kernels(batch, n_pad=200, n_valid=197, d=768, heads=12,
+                        m=3072):
+    """K21b, K21a and K22 against their plain versions at the path's
+    shapes for ``batch``: K21b and K21a on stats that are not x's own, f32
+    (both emit_stats) and bf16, the emitted stats against the stats of the
+    kernel's own output, K21a with every activation at b8; K22 calibrated
+    on its input (quiet) and on half its range (saturating: the clipped
+    shares are printed and must be > 0); at b8 K21b and K22 with 59 loud
+    padding rows that must leave the valid rows (and K21b's stats there)
+    bit for bit.  Returns {kernel name: largest max-abs error}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    worst = {}
+    valid = (slice(None), slice(0, n_valid))
+    x, st, p = _attn_inputs(batch, n_pad, d, seed=150 + batch)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    fs = _foreign(st)
+    print(f"parity K21b attn_block_int8_stats ({batch}, {n_pad}, {d}), "
+          f"{heads} heads, n_valid={n_valid}, foreign stats")
+    worst["attn_block_int8_stats"] = _chain_case(
+        f"K21b b{batch}",
+        lambda e, dt: _k21b(qb.attn_block_int8_stats, x, fs.to(dt), q,
+                            heads, n_valid, e),
+        lambda e, dt: _k21b(qb.attn_block_int8_stats_plain, x, fs.to(dt), q,
+                            heads, n_valid, e),
+        _k21b_step(x, fs, q, heads, n_valid), x, q["wo_q"], rows=valid)
+
+    rows = batch * n_pad
+    x2, st2, p = _mlp_inputs(rows, d, m, seed=151 + batch)
+    qm = _int8_weights(p, ("w1", "w2"))
+    fs2 = _foreign(st2)
+    worst["mlp_block_int8_stats"] = 0.0
+    for act in MLP_ACTS if batch <= 8 else ("gelu_tanh",):
+        print(f"parity K21a mlp_block_int8_stats ({rows}, {d}) x {m} {act}, "
+              f"foreign stats")
+        worst["mlp_block_int8_stats"] = max(
+            worst["mlp_block_int8_stats"], _chain_case(
+                f"K21a b{batch} {act}",
+                lambda e, dt: _k21a(qb.mlp_block_int8_stats, x2, fs2.to(dt),
+                                    qm, act, e),
+                lambda e, dt: _k21a(qb.mlp_block_int8_stats_plain, x2,
+                                    fs2.to(dt), qm, act, e),
+                _k21a_step(x2, fs2, qm, act), x2, qm["w2_q"]))
+
+    worst[SCORES_KERNEL] = 0.0
+    for label, shrink in (("quiet", 1.0), ("saturating", SHRINK)):
+        a, clipped = _scores_args(x, q, heads, n_valid, shrink)
+        print(f"parity K22 attn_block_int8_static_scores ({batch}, {n_pad}, "
+              f"{d}) {label}: clipped share xq {clipped[0]:.3e}, qkv8 "
+              f"{clipped[1]:.3e}, aoq {clipped[2]:.3e}")
+        if shrink > 1.0 and not min(clipped) > 0.0:
+            raise AssertionError("K22 saturating case: nothing clipped")
+        worst[SCORES_KERNEL] = max(worst[SCORES_KERNEL], _k22_parity(
+            f"K22 b{batch} {label}", x, a, heads, n_valid, valid))
+    if batch > 8:
+        return worst
+
+    xl, _, pl = _attn_inputs(batch, 256, d, seed=160)
+    ql = _int8_weights(pl, ("wqkv", "wo"))
+    loud = xl.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 100] = -1e3
+    st_q, st_l = row_stats(xl, EPS), row_stats(loud, EPS)
+    print(f"K21b / K22 loud padding ({batch}, 256, {d}): spikes in rows "
+          f"{n_valid}..255")
+    quiet, sq = _k21b(qb.attn_block_int8_stats, xl, st_q, ql, heads, n_valid,
+                      True)
+    noisy, sn = _k21b(qb.attn_block_int8_stats, loud, st_l, ql, heads,
+                      n_valid, True)
+    worst["attn_block_int8_stats"] = max(
+        worst["attn_block_int8_stats"], _int8_parity(
+            "K21b loud padding", noisy,
+            _k21b(qb.attn_block_int8_stats_plain, loud, st_l, ql, heads,
+                  n_valid, True)[0],
+            _k21b_step(loud, st_l, ql, heads, n_valid), loud, rows=valid,
+            mag_x=True, row_bound=_requant_bound(
+                _k21b_step(loud, st_l, ql, heads, n_valid), ql["wo_q"])))
+    a, _ = _scores_args(xl, ql, heads, n_valid)
+    quiet22 = _k22(qb.attn_block_int8_static_scores, xl, a, heads, n_valid)
+    noisy22 = _k22(qb.attn_block_int8_static_scores, loud, a, heads, n_valid)
+    worst[SCORES_KERNEL] = max(worst[SCORES_KERNEL], _k22_parity(
+        "K22 loud padding", loud, a, heads, n_valid, valid, got=noisy22))
+    for what, g, w in (("K21b out", noisy, quiet), ("K21b stats", sn, sq),
+                       ("K22 out", noisy22, quiet22)):
+        moved = float((g[valid].float() - w[valid].float()).abs().max())
+        print(f"  {what} valid rows, loud vs quiet padding: "
+              f"max_abs={moved:.3e} (must be 0)")
+        if moved != 0.0:
+            raise AssertionError(f"{what}: padding rows moved the valid rows")
+    return worst
+
+
+def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
+                       m=3072):
+    """K21b, K21a and K22 at the b64 path shapes: the kernel's time, its
+    plain version's, a library yardstick's (LN from the stats or
+    F.layer_norm, the torch quant and dequant ops, torch._int_mm, SDPA
+    for the attention halves, the next stats in torch ops) and the bound.
+    Returns {name: dict of times}."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    rows, dh, bf, vec = batch * n_pad, d // heads, torch.bfloat16, 4
+    rq = qf._row_quant
+    xa, sta, pa = _attn_inputs(batch, n_pad, d, seed=170)
+    qa = _int8_weights(pa, ("wqkv", "wo"))
+    x2, st2, pm = _mlp_inputs(rows, d, m, seed=171)
+    qm = _int8_weights(pm, ("w1", "w2"))
+    a22, _ = _scores_args(xa, qa, heads, n_valid)
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+
+    def mm(aq, wq, sa, ws, b):     # (K, N) wq column-major, as _int_mm takes
+        return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+    def sdpa(qkv, scale=None):
+        qkv = qkv.view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                            scale=scale)
+        return ao.transpose(1, 2).reshape(rows, d).float()
+
+    def lib_k21b():
+        h = (xa.float() - sta[..., :1]) * sta[..., 1:] * qa["ln_scale"] \
+            + qa["ln_bias"]
+        xq, sx = rq(h.reshape(rows, d))
+        qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"], qa["bqkv"]).to(bf)
+        aq, sa = rq(sdpa(qkv))
+        out = xa.reshape(rows, d) + mm(aq, qa["wo_q"], sa, qa["wo_s"],
+                                       qa["bo"]).to(bf)
+        return out, row_stats(out, EPS)
+
+    def lib_k21a():
+        h = (x2.float() - st2[:, :1]) * st2[:, 1:] * qm["ln_scale"] \
+            + qm["ln_bias"]
+        xq, sx = rq(h)
+        h = F.gelu(mm(xq, qm["w1_q"], sx, qm["w1_s"], qm["b1"]),
+                   approximate="tanh")
+        hq, sh = rq(h)
+        out = x2 + mm(hq, qm["w2_q"], sh, qm["w2_s"], qm["b2"]).to(bf)
+        return out, row_stats(out, EPS)
+
+    sdq = qb._scores_dequant(a22["sc_qk"], dh)
+    v_to_ao = a22["pv_fold"] * 127.0
+
+    def lib_k22():
+        h = F.layer_norm(xa.float(), (d,), a22["ln_scale"], a22["ln_bias"],
+                         EPS).reshape(rows, d)
+        xq = qb._rint_i8(h)
+        panel = qb._rint_i8(torch._int_mm(xq, a22["wqkv_q"]).float()
+                            * a22["wqkv_qs"] + a22["bqkv_qs"])
+        ao = sdpa(panel.to(bf), scale=sdq) * v_to_ao
+        y = torch._int_mm(qb._rint_i8(ao), a22["wo_q"]).float() \
+            * a22["wo_s"] + a22["bo"]
+        return xa.reshape(rows, d) + y.to(bf)
+
+    stats_bytes = 2 * rows * 2 * 4          # the stats in and out, f32
+    attn_ops = 4 * batch * heads * n_pad * n_valid * dh
+    cases = {
+        "attn_block_int8_stats": (
+            lambda: _k21b(qb.attn_block_int8_stats, xa, sta, qa, heads,
+                          n_valid, True),
+            lambda: _k21b(qb.attn_block_int8_stats_plain, xa, sta, qa,
+                          heads, n_valid, True),
+            lib_k21b, 8 * rows * d * d, attn_ops,
+            2 * rows * d * 2 + stats_bytes + 4 * d * d
+            + (2 * d + 6 * d + 2 * d) * vec),
+        "mlp_block_int8_stats": (
+            lambda: _k21a(qb.mlp_block_int8_stats, x2, st2, qm, "gelu_tanh",
+                          True),
+            lambda: _k21a(qb.mlp_block_int8_stats_plain, x2, st2, qm,
+                          "gelu_tanh", True),
+            lib_k21a, 4 * rows * d * m, 0,
+            2 * rows * d * 2 + stats_bytes + 2 * d * m
+            + (4 * d + 2 * m) * vec),
+        SCORES_KERNEL: (
+            lambda: _k22(qb.attn_block_int8_static_scores, xa, a22, heads,
+                         n_valid),
+            lambda: _k22(qb.attn_block_int8_static_scores_plain, xa, a22,
+                         heads, n_valid),
+            lib_k22, 8 * rows * d * d + attn_ops, 0,
+            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * vec),
+    }
+    out = {}
+    for name, (kern, plain, lib, ops8, flops, nbytes) in cases.items():
+        ms = time_cuda(kern)
+        plain_ms = time_cuda(plain, iters=5, warmup=1)
+        lib_ms = _library_ms(lib, name)
+        bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"timing {name} b{batch}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 ops "
+              f"+ {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+    return out
+
+
+def run_chain_phases(errors, timing, launches):
+    """Phase 16 after the earlier slices' phases (its b8 parity ran right
+    after the build): b64 parity and times, 160 requests through each
+    gated path with its switch on (the int8 stats chain on the dynamic
+    tree: 12 K21b + 12 K21a + 1 K14 per batch; the int8-scores attention
+    on the static tree: 12 K22 + 12 K17 + 1 K14), and the switch-on and
+    switch-off b64 forwards timed in turns."""
+    for name, err in phase_chain_kernels(64).items():
+        errors[name] = max(errors[name], err)
+    for name, t in phase_chain_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    chain_launches, fwd_chain, _, cfg, fwd_int8 = phase_int8_slice(
+        mode="chain")
+    launches.update({k: v for k, v in chain_launches.items()
+                     if k in CHAIN_KERNELS})
+    scores_launches, fwd_scores, _, _, fwd_static = phase_int8_slice(
+        mode="scores")
+    launches[SCORES_KERNEL] = scores_launches[SCORES_KERNEL]
+    phase_int8_forward_time({"int8": fwd_int8, "int8 chain": fwd_chain,
+                             "int8 static": fwd_static,
+                             "int8 scores": fwd_scores}, cfg)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3829,7 +4326,8 @@ def main() -> int:
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
 
-    errors = phase_per_block_kernels()
+    errors = phase_chain_kernels(8)
+    errors.update(phase_per_block_kernels())
     errors.update(phase_large_kernels())
     errors.update(phase_stack_kernels())
     errors.update(phase_full_kernels())
@@ -3858,7 +4356,7 @@ def main() -> int:
         errors[name] = max(errors[name], err)
     for name, t in phase_int8_timing().items():
         timing[name] = dict(t, max_abs_err=errors[name])
-    int8_launches, fwd_int8, fwd_bf16, cfg = phase_int8_slice()
+    int8_launches, fwd_int8, fwd_bf16, cfg, _ = phase_int8_slice()
     launches.update({k: v for k, v in int8_launches.items()
                      if k in INT8_KERNELS})
     run_static_phases(errors, timing, launches, fwd_int8, fwd_bf16, cfg)
@@ -3867,6 +4365,7 @@ def main() -> int:
     run_large_phases(errors, timing, launches)
     run_full_phases(errors, timing, launches)
     run_per_block_phases(errors, timing, launches)
+    run_chain_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -3919,6 +4418,14 @@ def main() -> int:
                        "vit_fpga_tpu/ops/attention.py:53"),
         "fused_mlp_chunked": ("vit_fpga_tpu_torch/csrc/mlp_chunk.cu",
                               "vit_fpga_tpu/ops/fused_mlp.py:133"),
+        "mlp_block_int8_stats": ("vit_fpga_tpu_torch/csrc/mlp_int8_stats.cu",
+                                 "vit_fpga_tpu/ops/quant_block.py:369"),
+        "attn_block_int8_stats": (
+            "vit_fpga_tpu_torch/csrc/attn_int8_stats.cu",
+            "vit_fpga_tpu/ops/quant_block.py:457"),
+        "attn_block_int8_static_scores": (
+            "vit_fpga_tpu_torch/csrc/attn_int8_scores.cu",
+            "vit_fpga_tpu/ops/quant_block.py:850"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

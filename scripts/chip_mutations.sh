@@ -80,5 +80,57 @@ run_copy k7_k8_mask_one_late seq_attn.cuh \
 # running output between chunks, i.e. K5's function
 run_copy k6_one_chunk mlp_chunk.cu \
   "  down.n_chunks = n_chunks;" "  down.n_chunks = 1;"
+# K21a normalising x with its own one-pass LN statistics instead of the
+# producer's (the parity cases feed stats that are not x's own)
+run_copy k21a_own_stats mlp_int8_stats.cu \
+  "launch_quant_rows<bf16, LN_STATS, false, ST>(" \
+  "launch_quant_rows<bf16, LN_ONE_PASS, false, ST>("
+# K21b emitting the stats of the f32 sum x + bf16(y) instead of out's bf16
+# values: the out-projection runs once more into an f32 scratch (the qkv
+# buffer) and a one-pass stats kernel added to the copy reads that
+run_copy k21b_f32_sum_stats attn_int8_stats.cu \
+  "namespace {
+" \
+  "namespace {
+
+template <typename ST>
+__global__ void f32_stats_kernel(const float* x, ST* st, int rows, int d, float eps) {
+  const int row = (blockIdx.x * 256 + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.0f, ss = 0.0f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = x[(size_t)row * d + c];
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  if (lane == 0) {
+    const float mu = s / d;
+    put_stat(st + 2 * (size_t)row, mu);
+    put_stat(st + 2 * (size_t)row + 1, 1.0f / sqrtf(fmaxf(ss / d - mu * mu, 0.0f) + eps));
+  }
+}
+
+template <typename ST>
+cudaError_t launch_f32_stats(const float* x, ST* st, int rows, int d, float eps,
+                             cudaStream_t stream) {
+  f32_stats_kernel<ST><<<(rows + 7) / 8, 256, 0, stream>>>(x, st, rows, d, eps);
+  return cudaGetLastError();
+}
+" \
+  "  if ((err = launch_qgemm<EPI_RESID>(o, st)) != cudaSuccess) return err;
+" \
+  "  if ((err = launch_qgemm<EPI_RESID>(o, st)) != cudaSuccess) return err;
+  o.C = qkv;
+  o.c_f32 = 1;
+  if ((err = launch_qgemm<EPI_RESID>(o, st)) != cudaSuccess) return err;
+" \
+  "launch_row_stats(static_cast<const bf16*>(out)," \
+  "launch_f32_stats(static_cast<const float*>(qkv),"
+# K22 quantising p without the 1/sum(e) factor
+run_copy k22_no_rsum attn_int8_scores.cu \
+  "const float p127 = __fmul_rn(127.0f, __fdiv_rn(1.0f, sum));" \
+  "const float p127 = 127.0f;"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

@@ -581,17 +581,23 @@ def test_prepare_int8_reads_the_static_scalars_once():
             assert lay[k] == float(np.asarray(jqp["blocks"][k])[i, 0])
 
 
-def test_int8_scores_stay_off_and_unported(monkeypatch):
-    """K22's gate is off as in the JAX package; forced on, the port
-    refuses rather than run another datapath."""
-    _, tcfg, _, tqp = _static_pair(8, hidden_dim=128, num_heads=2,
-                                   mlp_dim=256)
+def test_int8_scores_stay_off_and_forced_on_match_jax(monkeypatch):
+    """K22's gate is off as in the JAX package; forced on in both, the
+    port's int8-scores forward holds to the JAX CPU forward (LOOSE, equal
+    top-1; tests/test_torch_int8_chain.py holds it to the interpreted
+    kernels)."""
+    jcfg, tcfg, jqp, tqp = _static_pair(8, hidden_dim=128, num_heads=2,
+                                        mlp_dim=256)
     blk = {k: v[0] for k, v in tqp["blocks"].items()}
     assert "sc_qk" in blk and not tq._int8_scores_ok(blk, tcfg)
     monkeypatch.setattr(tq, "_INT8_SCORES", True)
+    monkeypatch.setattr(jq, "_INT8_SCORES", True)
     assert tq._int8_scores_ok(blk, tcfg)
-    with pytest.raises(NotImplementedError, match="K22"):
-        tq.make_forward_int8(tcfg, tqp, device="cpu")(_images(9, b=1))
+    img = _images(9, b=3)
+    want = np.asarray(jq.vit_forward_int8_raw(jqp, jnp.asarray(img), jcfg))
+    got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img).numpy()
+    assert np.abs(got - want).max() <= LOOSE * np.abs(want).max()
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
 
 
 # ---------------------------------------------------------------------------

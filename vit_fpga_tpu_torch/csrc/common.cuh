@@ -18,7 +18,8 @@
 //               bf16(act(h)) and bf16(aux * act'(h)), and writes each block's
 //               column sums of aux * act'(h) (fixed order, no atomics).
 //   row_stats   per-row one-pass LayerNorm statistics in f32:
-//               mu = mean(x), rstd = 1/sqrt(max(mean(x^2) - mu^2, 0) + eps).
+//               mu = mean(x), rstd = 1/sqrt(max(mean(x^2) - mu^2, 0) + eps),
+//               stored as f32 or (the int8 chain's bf16 tiles) rounded to bf16.
 //
 // Everything lives in the namespace VFT_NS, which each translation unit
 // defines before including this header: each gets its own copy of the
@@ -587,8 +588,12 @@ inline cudaError_t launch_gemm(bool ln, const GemmArgs& p, cudaStream_t stream) 
 
 constexpr int STATS_THREADS = 256;
 
+__device__ __forceinline__ void put_stat(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put_stat(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename ST>
 __global__ void __launch_bounds__(STATS_THREADS)
-    row_stats_kernel(const bf16* __restrict__ x, float* __restrict__ st, int rows, int d,
+    row_stats_kernel(const bf16* __restrict__ x, ST* __restrict__ st, int rows, int d,
                      float eps) {
   const int row = (blockIdx.x * STATS_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -609,16 +614,18 @@ __global__ void __launch_bounds__(STATS_THREADS)
   if (lane == 0) {
     const float mu = s / (float)d;
     const float var = fmaxf(ss / (float)d - mu * mu, 0.0f);
-    st[2 * (size_t)row] = mu;
-    st[2 * (size_t)row + 1] = 1.0f / sqrtf(var + eps);
+    put_stat(st + 2 * (size_t)row, mu);
+    put_stat(st + 2 * (size_t)row + 1, 1.0f / sqrtf(var + eps));
   }
 }
 
-inline cudaError_t launch_row_stats(const bf16* x, float* st, int rows, int d, float eps,
+// st: (rows, 2) f32 or bf16.
+template <typename ST>
+inline cudaError_t launch_row_stats(const bf16* x, ST* st, int rows, int d, float eps,
                                     cudaStream_t stream) {
   const int rows_per_block = STATS_THREADS / 32;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  row_stats_kernel<<<blocks, STATS_THREADS, 0, stream>>>(x, st, rows, d, eps);
+  row_stats_kernel<ST><<<blocks, STATS_THREADS, 0, stream>>>(x, st, rows, d, eps);
   return cudaGetLastError();
 }
 

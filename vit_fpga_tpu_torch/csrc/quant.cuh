@@ -1,12 +1,15 @@
 // Int8 pieces of the int8 kernels (quant_linear.cu K14, mlp_int8.cu K15,
 // attn_int8.cu K16, mlp_int8_static.cu K17, attn_int8_static.cu K18,
-// int8_gemm.cu K13);
+// int8_gemm.cu K13, mlp_int8_stats.cu K21a, attn_int8_stats.cu K21b,
+// attn_int8_scores.cu K22);
 // include after common.cuh.
 //
-//   quant_rows_kernel<T, LN, STATIC>  one warp per row of a (rows, k) bf16
-//       or f32 matrix: an optional f32 LayerNorm (LN_ONE_PASS: var =
+//   quant_rows_kernel<T, LN, STATIC, ST>  one warp per row of a (rows, k)
+//       bf16 or f32 matrix: an optional f32 LayerNorm (LN_ONE_PASS: var =
 //       max(E[x^2] - mu^2, 0), the JAX int8 blocks' _ln_f32; LN_TWO_PASS:
-//       var = mean((x - mu)^2), the fused linear's jnp.var) with per-column
+//       var = mean((x - mu)^2), the fused linear's jnp.var; LN_STATS: no
+//       reduction, (mu, rstd) read from the producer's (rows, 2) stats of
+//       type ST, f32 or bf16, the int8 chain's halves) with per-column
 //       scale and bias, then the row's absmax floored at 1e-12, s = absmax
 //       / 127 and q = clip(rint(x / s), -127, 127) as int8.  STATIC (the
 //       calibrated scale folded into the LN affine): q = clip(rint(x)),
@@ -85,12 +88,15 @@ __device__ __forceinline__ signed char quant1(float v, float s) {
 // ---------------------------------------------------------------------------
 
 constexpr int QR_THREADS = 256;
-enum { LN_NONE = 0, LN_ONE_PASS = 1, LN_TWO_PASS = 2 };
+enum { LN_NONE = 0, LN_ONE_PASS = 1, LN_TWO_PASS = 2, LN_STATS = 3 };
 
 __device__ __forceinline__ void load8(const bf16* p, float* f) {
   unpack8(*reinterpret_cast<const uint4*>(p), f);
 }
 __device__ __forceinline__ void load8(const float* p, float* f) { load8f(p, f); }
+
+__device__ __forceinline__ float stat_f32(float v) { return v; }
+__device__ __forceinline__ float stat_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void store_q8(signed char* dst, const float* f, float s) {
   union {
@@ -102,17 +108,21 @@ __device__ __forceinline__ void store_q8(signed char* dst, const float* f, float
   *reinterpret_cast<uint2*>(dst) = q.u;
 }
 
-template <typename T, int LN, bool STATIC>
+template <typename T, int LN, bool STATIC, typename ST>
 __global__ void __launch_bounds__(QR_THREADS)
     quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ls,
-                      const float* __restrict__ lb, signed char* __restrict__ q,
-                      float* __restrict__ s, int rows, int k, float eps) {
+                      const float* __restrict__ lb, const ST* __restrict__ st,
+                      signed char* __restrict__ q, float* __restrict__ s, int rows, int k,
+                      float eps) {
   const int row = (blockIdx.x * QR_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* xr = x + (size_t)row * k;
   float mu = 0.0f, rstd = 1.0f;
-  if (LN != LN_NONE) {
+  if (LN == LN_STATS) {
+    mu = stat_f32(st[2 * (size_t)row]);
+    rstd = stat_f32(st[2 * (size_t)row + 1]);
+  } else if (LN != LN_NONE) {
     float sm = 0.0f, ss = 0.0f;
     for (int c = lane * 8; c < k; c += 32 * 8) {
       float f[8];
@@ -176,14 +186,17 @@ __global__ void __launch_bounds__(QR_THREADS)
   if (lane == 0) s[row] = sc;
 }
 
-// s may be null with STATIC (no scale is written).
-template <typename T, int LN, bool STATIC = false>
+// s may be null with STATIC (no scale is written); st is read with LN_STATS
+// only.
+template <typename T, int LN, bool STATIC = false, typename ST = float>
 inline cudaError_t launch_quant_rows(const T* x, const float* ls, const float* lb, signed char* q,
-                                     float* s, int rows, int k, float eps, cudaStream_t stream) {
-  if (k % 8) return cudaErrorInvalidValue;
+                                     float* s, int rows, int k, float eps, cudaStream_t stream,
+                                     const ST* st = nullptr) {
+  if (k % 8 || (LN == LN_STATS && st == nullptr)) return cudaErrorInvalidValue;
   const int per_block = QR_THREADS / 32;
-  quant_rows_kernel<T, LN, STATIC><<<(rows + per_block - 1) / per_block, QR_THREADS, 0, stream>>>(
-      x, ls, lb, q, s, rows, k, eps);
+  quant_rows_kernel<T, LN, STATIC, ST>
+      <<<(rows + per_block - 1) / per_block, QR_THREADS, 0, stream>>>(x, ls, lb, st, q, s, rows,
+                                                                      k, eps);
   return cudaGetLastError();
 }
 

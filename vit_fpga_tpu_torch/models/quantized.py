@@ -25,7 +25,19 @@ that tree (``_fold_static_scales``): the static tree, marked by
      mlp_block_int8_static (K17)]
   -> LayerNorm of the CLS row -> int8_linear_fused head (K14), bf16 -> f32
 
-in bf16 whatever ``cfg.dtype`` says.  The batch-1 latency forward
+in bf16 whatever ``cfg.dtype`` says.  Two further paths of the JAX
+package's forward sit behind module switches that it keeps off after TPU
+measurements, and so does the port: ``_INT8_STATS_CHAIN`` runs a dynamic
+tree's encoder as the int8 stats chain, depth x [attn_block_int8_stats
+(K21b) -> mlp_block_int8_stats (K21a)] with the LayerNorm (mu, rstd)
+passed between the halves (``_encoder_int8_stats_chain``), where
+``_int8_stats_chain_supported``; ``_INT8_SCORES`` runs a static tree's
+attention with int8 scores, attn_block_int8_static_scores (K22) ->
+mlp_block_int8_static (K17), where ``_int8_scores_ok``.  A static tree
+under the chain raises: the JAX chain would run it as a dynamic tree,
+each layer's branches scaled by the folded a_ao and a_h.
+
+The batch-1 latency forward
 (``make_forward_int8_latency``) runs the embed with the CLS row last, the
 whole encoder in one launch (K19a ``ops/vit_stack.vit_layers_int8``, or
 K19b ``vit_layers_int8_static`` on a static tree) and the same head;
@@ -37,8 +49,7 @@ CPU.  Where the JAX int8 planners do not fit the block kernels
 (``_int8_block_fits``: ViT-B/16 at 1024 px) a dynamic tree takes the
 per-linear route, four K14 launches around ``mha_qkv`` (K9 from 1024
 tokens); a static tree raises there (the JAX ``*_ref`` route is not
-ported).  The int8-scores attention (K22, gated off in the JAX package
-too) and the CLIP towers are not ported yet.
+ported).  The CLIP towers' int8 forwards are not ported yet.
 
 The per-tensor family (``quantize_vit``, ``vit_forward_int8``,
 ``make_vit_forward_int8``) is the JAX package's bit-exact datapath:
@@ -58,11 +69,13 @@ import torch
 from .. import activations as act
 from ..defines import NetData
 from ..ops import quant
-from ..ops.common import pad_sublane, round_up
+from ..ops.common import pad_sublane, round_up, row_stats
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.attention import mha_qkv
 from ..ops.quant_block import (attn_block_int8, attn_block_int8_static,
-                               mlp_block_int8, mlp_block_int8_static,
+                               attn_block_int8_static_scores,
+                               attn_block_int8_stats, mlp_block_int8,
+                               mlp_block_int8_static, mlp_block_int8_stats,
                                mlp_plan_int8, score_slots_int8)
 from ..ops.quant_fused import (int8_linear_fused, kmajor,
                                QMAX, quantize_weight_colwise)
@@ -344,12 +357,12 @@ def _fold_static_scales(out: Params, sc: Dict[str, np.ndarray],
 
 
 # The int8-scores attention (K22): off, as in the JAX package, where it
-# measured a loss on the TPU; not ported.
+# measured a loss on the TPU.
 _INT8_SCORES = False
 
 
 def _int8_scores_ok(blk, cfg: vit_mod.ViTConfig) -> bool:
-    """Whether the JAX package would take its int8-scores attention (K22):
+    """Whether the JAX package takes its int8-scores attention (K22):
     the tree carries the q/k/v panel scales and the geometry is dh 64
     with an even head count.  False while ``_INT8_SCORES`` is."""
     return (_INT8_SCORES and "sc_qk" in blk
@@ -368,8 +381,8 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     ``quantize_vit_static`` tree for the forward: the dequantized bf16
     embed weight, the folded (n_pad, D) f32 position table, and per-layer
     weights laid out for the int8 GEMMs.  A static tree's ``inv_ao`` and
-    ``inv_ah`` are read here, once, as Python floats: the kernels take
-    them by value, so no call syncs on them."""
+    ``inv_ah`` (and ``sc_qk``, ``pv_fold``) are read here, once, as Python
+    floats: the kernels take them by value, so no call syncs on them."""
     if _PREPARED in qparams:
         return qparams
     _check_tree(qparams, cfg)
@@ -382,7 +395,7 @@ def prepare_int8(qparams: Params, cfg: vit_mod.ViTConfig) -> Params:
     per_key = {k: v.unbind(0) for k, v in qparams["blocks"].items()}
     layers = [{k: (kmajor(v[i]) if k.endswith("_q") else v[i])
                for k, v in per_key.items()} for i in range(cfg.depth)]
-    for k in ("inv_ao", "inv_ah"):
+    for k in ("inv_ao", "inv_ah", "sc_qk", "pv_fold"):
         if k in qparams["blocks"]:
             for lay, v in zip(layers, qparams["blocks"][k].reshape(-1)
                               .tolist()):
@@ -408,6 +421,57 @@ def _int8_block_fits(cfg: vit_mod.ViTConfig) -> bool:
     return n_sc >= 1 and bt > 0
 
 
+# The int8 stats chain (K21b, K21a): off, as in the JAX package, where it
+# measured a loss on the TPU.
+_INT8_STATS_CHAIN = False
+
+
+def _int8_stats_chain_supported(cfg: vit_mod.ViTConfig, batch: int) -> bool:
+    """The JAX ``_int8_stats_chain_supported`` as on a TPU (the
+    convention of ``vit._stats_chain_supported``): the switch, both int8
+    block kernels (:func:`_int8_block_fits`), and an int8 attention plan
+    with a score slot and no q-slot reuse at this batch."""
+    if not _INT8_STATS_CHAIN or not _int8_block_fits(cfg):
+        return False
+    _, n_sc, reuse_q, _ = score_slots_int8(
+        cfg.num_heads, cfg.hidden_dim,
+        round_up(cfg.seq_len, pad_sublane(torch.bfloat16)),
+        round_up(cfg.seq_len, 128), batch=batch)
+    return n_sc >= 1 and not reuse_q
+
+
+def _encoder_int8_stats_chain(x: torch.Tensor, layers: List[Params],
+                              cfg: vit_mod.ViTConfig,
+                              n_valid: int) -> torch.Tensor:
+    """The int8 encoder with the LayerNorm (mu, rstd) passed between the
+    halves (the JAX ``_encoder_int8_stats_chain``): the first stats are a
+    one-pass f32 reduction of the embedded tokens, then per layer K21b and
+    K21a; the last MLP half emits none."""
+    if "inv_ao" in layers[0]:
+        raise NotImplementedError(
+            "the int8 stats chain takes a dynamic tree: the JAX chain runs "
+            "a static tree's folded scales as dynamic ones, each branch "
+            "scaled by a_ao or a_h (ROADMAP.md, section 3)")
+    b, n_pad, d = x.shape
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    st = row_stats(x, cfg.ln_eps)
+    for i, blk in enumerate(layers):
+        x, st = attn_block_int8_stats(
+            x, st, blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
+            blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
+            cfg.num_heads, eps=cfg.ln_eps, n_valid=n_valid, emit_stats=True)
+        last = i == len(layers) - 1
+        t, st2 = mlp_block_int8_stats(
+            x.reshape(b * n_pad, d), st.reshape(b * n_pad, 2),
+            blk["ln2_scale"], blk["ln2_bias"], blk["w1_q"], blk["w1_s"],
+            blk["b1"], blk["w2_q"], blk["w2_s"], blk["b2"], eps=cfg.ln_eps,
+            act=act, emit_stats=not last)
+        x = t.reshape(b, n_pad, d)
+        if not last:
+            st = st2.reshape(b, n_pad, 2)
+    return x
+
+
 def _fused_lin(x: torch.Tensor, wq, ws, b, act: str = "none",
                ln=None, eps: float = 0.0) -> torch.Tensor:
     """A (B, N, K) bf16 activation through K14 (``int8_linear_fused``),
@@ -424,8 +488,9 @@ def _fused_lin(x: torch.Tensor, wq, ws, b, act: str = "none",
 def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
                    n_valid: int) -> torch.Tensor:
     """One calibrated static-scale block on padded (B, n_pad, D) bf16
-    tokens: K18 -> K17.  Where :func:`_int8_block_fits` is False the JAX
-    package runs its ``*_ref`` functions, which are not ported: raises."""
+    tokens: K18 -> K17, or K22 -> K17 where :func:`_int8_scores_ok`.
+    Where :func:`_int8_block_fits` is False the JAX package runs its
+    ``*_ref`` functions, which are not ported: raises."""
     b, n_pad, d = x.shape
     act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
     if not _int8_block_fits(cfg):
@@ -434,12 +499,17 @@ def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
             "JAX package's attn_block_int8_static_ref / "
             "mlp_block_int8_static_ref route, which is not ported")
     if _int8_scores_ok(blk, cfg):
-        raise NotImplementedError("the int8-scores attention (K22) is not "
-                                  "ported")
-    x = attn_block_int8_static(
-        x, blk["inv_ao"], blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
-        blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
-        cfg.num_heads, eps=cfg.ln_eps, n_valid=n_valid)
+        x = attn_block_int8_static_scores(
+            x, blk["sc_qk"], blk["pv_fold"], blk["ln1_scale"],
+            blk["ln1_bias"], blk["wqkv_q"], blk["wqkv_qs"], blk["bqkv_qs"],
+            blk["wo_q"], blk["wo_s"], blk["bo"], cfg.num_heads,
+            eps=cfg.ln_eps, n_valid=n_valid)
+    else:
+        x = attn_block_int8_static(
+            x, blk["inv_ao"], blk["ln1_scale"], blk["ln1_bias"],
+            blk["wqkv_q"], blk["wqkv_s"], blk["bqkv"], blk["wo_q"],
+            blk["wo_s"], blk["bo"], cfg.num_heads, eps=cfg.ln_eps,
+            n_valid=n_valid)
     y = mlp_block_int8_static(
         x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
         blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"],
@@ -482,13 +552,18 @@ def vit_forward_int8_fast(qparams: Params, images: torch.Tensor,
     """Normalized images (B, S, S, 3) -> f32 logits through the int8
     engine (f32 CLS features for a headless tree).  ``qparams`` is a
     ``quantize_vit_fast`` or ``quantize_vit_static`` tree, or one
-    :func:`prepare_int8` prepared."""
+    :func:`prepare_int8` prepared.  The encoder is the int8 stats chain
+    where :func:`_int8_stats_chain_supported`, else depth x
+    :func:`_qblock_fast`."""
     prep = prepare_int8(qparams, cfg)
     wp, posb = prep["_embed"]
     x = embed_tokens_dotg(images.to(torch.bfloat16), wp, posb,
                           cfg.patch_size, cfg.num_prefix_tokens)
-    for blk in prep["_layers"]:
-        x = _qblock_fast(x, blk, cfg, cfg.seq_len)
+    if _int8_stats_chain_supported(cfg, x.shape[0]):
+        x = _encoder_int8_stats_chain(x, prep["_layers"], cfg, cfg.seq_len)
+    else:
+        for blk in prep["_layers"]:
+            x = _qblock_fast(x, blk, cfg, cfg.seq_len)
     # LayerNorm is per token: only the CLS row feeds the head
     cls_t = vit_mod._layernorm(x[:, :1], prep["ln_f_scale"],
                                prep["ln_f_bias"], cfg.ln_eps)

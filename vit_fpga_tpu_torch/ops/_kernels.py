@@ -32,7 +32,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "mlp_int8_static.cu", "attn_int8_static.cu",
            "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu",
            "mlp_chunk_stats.cu", "vit_full.cu", "vit_full_int8.cu",
-           "mlp_chunk.cu", "mha.cu", "flash_attn.cu")
+           "mlp_chunk.cu", "mha.cu", "flash_attn.cu", "mlp_int8_stats.cu",
+           "attn_int8_stats.cu", "attn_int8_scores.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
            "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "chunk.cuh",
            "seq_attn.cuh")
@@ -115,6 +116,15 @@ _SIGNATURES = {
     "vft_flash_init": ([], ctypes.c_int),
     "vft_flash_attention": ([_P] * 4 + [_L, _L, _I, _L, _L] + [_I] * 6
                             + [_F, _P], ctypes.c_int),
+    "vft_mlp_int8_stats_init": ([], ctypes.c_int),
+    "vft_mlp_block_int8_stats": ([_P] * 16 + [_I] * 5 + [_F, _P],
+                                 ctypes.c_int),
+    "vft_attn_int8_stats_init": ([], ctypes.c_int),
+    "vft_attn_block_int8_stats": ([_P] * 16 + [_I] * 6 + [_F, _F, _P],
+                                  ctypes.c_int),
+    "vft_attn_int8_scores_init": ([], ctypes.c_int),
+    "vft_attn_block_int8_scores": ([_P] * 12 + [_I] * 5 + [_F] * 3 + [_P],
+                                   ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.
@@ -125,7 +135,9 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_mlp_int8_static_init", "vft_attn_int8_static_init",
           "vft_vit_stack_int8_static_init", "vft_int8_gemm_init",
           "vft_mlp_chunk_init", "vft_vit_full_init", "vft_vit_full_int8_init",
-          "vft_mlp_chunk_blk_init", "vft_mha_init", "vft_flash_init")
+          "vft_mlp_chunk_blk_init", "vft_mha_init", "vft_flash_init",
+          "vft_mlp_int8_stats_init", "vft_attn_int8_stats_init",
+          "vft_attn_int8_scores_init")
 
 
 def _nvcc() -> str:

@@ -1,8 +1,9 @@
 """Int8 transformer-block halves (counterpart of the JAX package's
-ops/quant_block.py): the int8 serving paths' encoders, dynamic (K15, K16)
-and calibrated static-scale (K17, K18).
+ops/quant_block.py): the int8 serving paths' encoders, dynamic (K15, K16;
+the stats chain's K21a, K21b) and calibrated static-scale (K17, K18; the
+int8-scores attention K22).
 
-Four Hopper kernels live here, each behind a wrapper that launches it on
+Seven Hopper kernels live here, each behind a wrapper that launches it on
 a CUDA tensor and runs its plain PyTorch version (same arithmetic) on a
 CPU tensor:
 
@@ -33,6 +34,25 @@ CPU tensor:
   rounded to bf16 in the quant domain -> rint/saturate in the attention
   tile's epilogue -> int8 out-projection -> ``acc * so' + bo`` ->
   ``x + bf16(y)``.
+* K21a ``mlp_block_int8_stats`` (``csrc/mlp_int8_stats.cu``): replaces
+  ``_mlp_int8_stats_kernel`` (wrapper ``mlp_block_int8_stats``).  K15
+  with ``xn = ((x - mu) * rstd) * ls + lb`` from the producer's (mu,
+  rstd), no reduction, and the next half's stats of ``out``'s bf16 values
+  (one-pass) emitted in the dtype they came in, f32 or bf16.
+* K21b ``attn_block_int8_stats`` (``csrc/attn_int8_stats.cu``): replaces
+  ``_attn_int8_stats_kernel`` (wrapper ``attn_block_int8_stats``).  K16
+  with the same two changes.
+* K22 ``attn_block_int8_static_scores`` (``csrc/attn_int8_scores.cu``):
+  replaces ``_attn_int8s_static_kernel`` (wrapper
+  ``attn_block_int8_static_scores``, loop ``_mha_loop_int8s``).  K18's
+  LN -> rint -> int8 QKV, but the q | k | v panel is rounded to int8
+  (``wqkv_qs`` / ``bqkv_qs`` carry 1/s_q | 1/s_k | 1/s_v), QK^T and PV run
+  as int8 products: s = acc * (sc_qk / sqrt(dh)), the clip window, keys at
+  or past ``n_valid`` masked, e = exp(s), r = 1 / sum(e),
+  pq = clip(rint(e * (127 r)), 0, 127), ao = pv * pv_fold kept in f32
+  (it is already in the quant domain, magnitudes up to 127: bf16 would
+  move its rint), rint -> int8 out-projection -> ``x + bf16(y)``.  dh 64
+  and an even head count, as the JAX gate.
 
 Bounds on the H100 at ViT-B/16 batch 64 (T = 12 800 rows, D = 768,
 M = 3072, 12 heads of 64, n_valid 197), set by tensor-core operations at
@@ -46,7 +66,8 @@ heads), so K15's GEMM1 writes f32 h with per-block row maxima that a row
 pass reduces before it quantizes, and K16's ao round-trips in bf16 before
 its row pass.  The static scale is known before the launch, so K17's
 GEMM1 and K18's attention tile emit int8 directly (later work: keep the
-activations on chip, wgmma).
+activations on chip, wgmma).  K21a and K21b have K15's and K16's bounds;
+K22 does 60.4 G + 7.8 G int8 operations (34 us at 1979 TOPS).
 
 Unlike the dynamic kernels, where ``|x / s| <= 127`` by construction, the
 static kernels' saturation is live: activations beyond the calibrated
@@ -61,11 +82,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import _kernels
-from .attn_block import _mha_tpu, attn_plan
-from .common import check_activation, kernel_operand, round_up
+from .attn_block import _EXP_HI, _EXP_LO, _mha_tpu, attn_plan
+from .common import check_activation, kernel_operand, round_up, row_stats
 from .fused_mlp import _act
 from .quant_fused import QMAX, _int_matmul, _row_quant, weight_kmajor
 
@@ -142,17 +164,112 @@ def _dequant(aq, wq, sa, ws, bias):
 
 
 # ---------------------------------------------------------------------------
+# The device operands the int8 halves' C entry points take
+# ---------------------------------------------------------------------------
+
+def _on_card(x) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain version
+    runs); raises on any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2):
+    """An MLP half's geometry on the card and its eight operands in the C
+    order: (T, D) bf16 x, D and M multiples of 16; f32 LN scale and bias,
+    k-major int8 W1, its f32 column scales and bias, likewise W2.
+    Returns (t, d, m, operands)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
+    t, d = x.shape
+    m = w1q.shape[-1]
+    if d % 16 or m % 16:
+        raise ValueError(f"kernel needs D and M divisible by 16 (D={d}, "
+                         f"M={m})")
+    check_activation(x, (t, d), torch.bfloat16, "x")
+    dev, f32 = x.device, torch.float32
+    return t, d, m, [
+        kernel_operand(ln_scale, (d,), f32, dev, "ln_scale"),
+        kernel_operand(ln_bias, (d,), f32, dev, "ln_bias"),
+        weight_kmajor(w1q, (d, m), dev, "w1q"),
+        kernel_operand(w1s, (m,), f32, dev, "w1s"),
+        kernel_operand(b1, (m,), f32, dev, "b1"),
+        weight_kmajor(w2q, (m, d), dev, "w2q"),
+        kernel_operand(w2s, (d,), f32, dev, "w2s"),
+        kernel_operand(b2, (d,), f32, dev, "b2")]
+
+
+def _attn_operands(x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs,
+                   bqkv, woq, wos, bo):
+    """An attention half's geometry on the card and its eight operands in
+    the C order: (B, n_pad, D) bf16 x, head dim 64, 1..256 valid tokens;
+    f32 LN scale and bias, k-major int8 W_qkv, its f32 column scales and
+    bias, likewise W_o.  Returns (b, n, d, n_valid, operands)."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
+    b, n, d = x.shape
+    n_valid = n if n_valid is None else min(n_valid, n)
+    if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
+        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
+                         f"(D={d}, {num_heads} heads, n_valid={n_valid})")
+    check_activation(x, (b, n, d), torch.bfloat16, "x")
+    dev, f32 = x.device, torch.float32
+    return b, n, d, n_valid, [
+        kernel_operand(ln_scale, (d,), f32, dev, "ln_scale"),
+        kernel_operand(ln_bias, (d,), f32, dev, "ln_bias"),
+        weight_kmajor(wqkvq, (d, 3 * d), dev, "wqkvq"),
+        kernel_operand(wqkvs, (3 * d,), f32, dev, "wqkvs"),
+        kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv"),
+        weight_kmajor(woq, (d, d), dev, "woq"),
+        kernel_operand(wos, (d,), f32, dev, "wos"),
+        kernel_operand(bo, (d,), f32, dev, "bo")]
+
+
+def _mlp_scratch(t, d, m, dev):
+    """K15's and K21a's scratch: int8 rows (xq, then hq), their f32 row
+    scales, the f32 h and its per-128-column row maxima."""
+    f32 = torch.float32
+    return [torch.empty((t * max(d, m),), dtype=torch.int8, device=dev),
+            torch.empty((t,), dtype=f32, device=dev),
+            torch.empty((t, m), dtype=f32, device=dev),
+            torch.empty((-(-m // 128), t), dtype=f32, device=dev)]
+
+
+def _attn_scratch(rows, d, dev):
+    """K16's and K21b's scratch: int8 rows (xq, then aoq), their f32 row
+    scales, the bf16 qkv and attention output."""
+    bf = torch.bfloat16
+    return [torch.empty((rows, d), dtype=torch.int8, device=dev),
+            torch.empty((rows,), dtype=torch.float32, device=dev),
+            torch.empty((rows, 3 * d), dtype=bf, device=dev),
+            torch.empty((rows, d), dtype=bf, device=dev)]
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+# ---------------------------------------------------------------------------
 # K15: MLP half
 # ---------------------------------------------------------------------------
 
-def mlp_block_int8_plain(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2,
-                         eps: float = 1e-6, act: str = "gelu_tanh"):
-    """Plain PyTorch version of the K15 kernel (the TPU kernel's body)."""
-    xq, sx = _row_quant(_ln_f32(x, ln_scale, ln_bias, eps))
+def _mlp_int8_tail(x, xn, w1q, w1s, b1, w2q, w2s, b2, act):
+    """K15's arithmetic after the LayerNorm: x + bf16(y) from f32 xn."""
+    xq, sx = _row_quant(xn)
     h = _apply_act(_dequant(xq, w1q, sx, w1s, b1), act)
     hq, sh = _row_quant(h)
     y = _dequant(hq, w2q, sh, w2s, b2)
     return x + y.to(x.dtype)
+
+
+def mlp_block_int8_plain(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2,
+                         eps: float = 1e-6, act: str = "gelu_tanh"):
+    """Plain PyTorch version of the K15 kernel (the TPU kernel's body)."""
+    return _mlp_int8_tail(x, _ln_f32(x, ln_scale, ln_bias, eps), w1q, w1s,
+                          b1, w2q, w2s, b2, act)
 
 
 def mlp_block_int8(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2,
@@ -164,42 +281,18 @@ def mlp_block_int8(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2,
     launches the K15 kernel (bf16, D and M multiples of 16) or raises."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return mlp_block_int8_plain(x, ln_scale, ln_bias, w1q, w1s, b1, w2q,
                                     w2s, b2, eps=eps, act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
-    t, d = x.shape
-    m = w1q.shape[-1]
-    if d % 16 or m % 16:
-        raise ValueError(f"kernel needs D and M divisible by 16 (D={d}, "
-                         f"M={m})")
-    check_activation(x, (t, d), torch.bfloat16, "x")
-    dev = x.device
-    f32 = torch.float32
-    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
-    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    w1 = weight_kmajor(w1q, (d, m), dev, "w1q")
-    s1 = kernel_operand(w1s, (m,), f32, dev, "w1s")
-    b1 = kernel_operand(b1, (m,), f32, dev, "b1")
-    w2 = weight_kmajor(w2q, (m, d), dev, "w2q")
-    s2 = kernel_operand(w2s, (d,), f32, dev, "w2s")
-    b2 = kernel_operand(b2, (d,), f32, dev, "b2")
+    t, d, m, ops = _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q,
+                                 w2s, b2)
     out = torch.empty_like(x)
-    q8 = torch.empty((t * max(d, m),), dtype=torch.int8, device=dev)
-    sc = torch.empty((t,), dtype=f32, device=dev)
-    h = torch.empty((t, m), dtype=f32, device=dev)
-    parts = torch.empty((-(-m // 128), t), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
+    scratch = _mlp_scratch(t, d, m, x.device)
+    with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_mlp_block_int8(
-            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
-            s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), q8.data_ptr(), sc.data_ptr(),
-            h.data_ptr(), parts.data_ptr(), t, d, m, _ACT_CODES[act],
-            float(eps), stream)
+            x.data_ptr(), *_ptrs(ops), out.data_ptr(), *_ptrs(scratch), t, d,
+            m, _ACT_CODES[act], float(eps), stream)
     _kernels.check(err, "mlp_block_int8")
     mlp_block_int8.launches += 1
     return out
@@ -217,9 +310,16 @@ def attn_block_int8_plain(x, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq,
                           n_valid: int | None = None):
     """Plain PyTorch version of the K16 kernel (the TPU kernel's body,
     with the max-free masked attention of ``_mha_loop``)."""
+    return _attn_int8_tail(x, _ln_f32(x, ln_scale, ln_bias, eps), wqkvq,
+                           wqkvs, bqkv, woq, wos, bo, num_heads, n_valid)
+
+
+def _attn_int8_tail(x, xn, wqkvq, wqkvs, bqkv, woq, wos, bo, num_heads,
+                    n_valid):
+    """K16's arithmetic after the LayerNorm: x + bf16(y) from f32 xn."""
     n = x.shape[1]
     n_valid = n if n_valid is None else min(n_valid, n)
-    xq, sx = _row_quant(_ln_f32(x, ln_scale, ln_bias, eps))
+    xq, sx = _row_quant(xn)
     qkv = _dequant(xq, wqkvq, sx, wqkvs, bqkv).to(x.dtype)
     ao = _mha_tpu(qkv, num_heads, n_valid)
     aoq, sa = _row_quant(ao.float())
@@ -238,44 +338,21 @@ def attn_block_int8(x, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq, wos, bo,
     A CPU tensor runs :func:`attn_block_int8_plain`; a CUDA tensor
     launches the K16 kernel (bf16, head dim 64, n_valid <= 256) or
     raises."""
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return attn_block_int8_plain(x, ln_scale, ln_bias, wqkvq, wqkvs,
                                      bqkv, woq, wos, bo, num_heads, eps=eps,
                                      n_valid=n_valid)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
-    b, n, d = x.shape
-    n_valid = n if n_valid is None else min(n_valid, n)
-    if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
-        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
-                         f"(D={d}, {num_heads} heads, n_valid={n_valid})")
-    check_activation(x, (b, n, d), torch.bfloat16, "x")
-    dev = x.device
-    f32, bf = torch.float32, torch.bfloat16
-    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
-    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    wqkv = weight_kmajor(wqkvq, (d, 3 * d), dev, "wqkvq")
-    sqkv = kernel_operand(wqkvs, (3 * d,), f32, dev, "wqkvs")
-    bqkv = kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv")
-    wo = weight_kmajor(woq, (d, d), dev, "woq")
-    so = kernel_operand(wos, (d,), f32, dev, "wos")
-    bo = kernel_operand(bo, (d,), f32, dev, "bo")
-    rows = b * n
+    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
+                                           ln_bias, wqkvq, wqkvs, bqkv, woq,
+                                           wos, bo)
     out = torch.empty_like(x)
-    q8 = torch.empty((rows, d), dtype=torch.int8, device=dev)
-    sc = torch.empty((rows,), dtype=f32, device=dev)
-    qkv = torch.empty((rows, 3 * d), dtype=bf, device=dev)
-    ao = torch.empty((rows, d), dtype=bf, device=dev)
-    with torch.cuda.device(dev):
+    scratch = _attn_scratch(b * n, d, x.device)
+    with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_attn_block_int8(
-            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wqkv.data_ptr(),
-            sqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(),
-            bo.data_ptr(), out.data_ptr(), q8.data_ptr(), sc.data_ptr(),
-            qkv.data_ptr(), ao.data_ptr(), b, n, d, num_heads, n_valid,
-            float(eps), 1.0 / math.sqrt(d // num_heads), stream)
+            x.data_ptr(), *_ptrs(ops), out.data_ptr(), *_ptrs(scratch), b, n,
+            d, num_heads, n_valid, float(eps), 1.0 / math.sqrt(d // num_heads),
+            stream)
     _kernels.check(err, "attn_block_int8")
     attn_block_int8.launches += 1
     return out
@@ -349,41 +426,21 @@ def mlp_block_int8_static(x, inv_ah, ln_scale, ln_bias, w1q, w1s, b1, w2q,
     launches the K17 kernel (bf16, D and M multiples of 16) or raises."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return mlp_block_int8_static_plain(x, inv_ah, ln_scale, ln_bias, w1q,
                                            w1s, b1, w2q, w2s, b2, eps=eps,
                                            act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
-    t, d = x.shape
-    m = w1q.shape[-1]
-    if d % 16 or m % 16:
-        raise ValueError(f"kernel needs D and M divisible by 16 (D={d}, "
-                         f"M={m})")
-    check_activation(x, (t, d), torch.bfloat16, "x")
+    t, d, m, ops = _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q,
+                                 w2s, b2)
     inv = _scalar(inv_ah, "inv_ah")
-    dev = x.device
-    f32 = torch.float32
-    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
-    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    w1 = weight_kmajor(w1q, (d, m), dev, "w1q")
-    s1 = kernel_operand(w1s, (m,), f32, dev, "w1s")
-    b1 = kernel_operand(b1, (m,), f32, dev, "b1")
-    w2 = weight_kmajor(w2q, (m, d), dev, "w2q")
-    s2 = kernel_operand(w2s, (d,), f32, dev, "w2s")
-    b2 = kernel_operand(b2, (d,), f32, dev, "b2")
     out = torch.empty_like(x)
-    xq = torch.empty((t, d), dtype=torch.int8, device=dev)
-    hq = torch.empty((t, m), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
+    xq = torch.empty((t, d), dtype=torch.int8, device=x.device)
+    hq = torch.empty((t, m), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_mlp_block_int8_static(
-            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
-            s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), xq.data_ptr(), hq.data_ptr(), t,
-            d, m, _ACT_CODES[act], float(eps), inv, stream)
+            x.data_ptr(), *_ptrs(ops), out.data_ptr(), xq.data_ptr(),
+            hq.data_ptr(), t, d, m, _ACT_CODES[act], float(eps), inv, stream)
     _kernels.check(err, "mlp_block_int8_static")
     mlp_block_int8_static.launches += 1
     return out
@@ -425,43 +482,23 @@ def attn_block_int8_static(x, inv_ao, ln_scale, ln_bias, wqkvq, wqkvs, bqkv,
     A CPU tensor runs :func:`attn_block_int8_static_plain`; a CUDA tensor
     launches the K18 kernel (bf16, head dim 64, n_valid <= 256) or
     raises."""
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return attn_block_int8_static_plain(x, inv_ao, ln_scale, ln_bias,
                                             wqkvq, wqkvs, bqkv, woq, wos, bo,
                                             num_heads, eps=eps,
                                             n_valid=n_valid)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
-    b, n, d = x.shape
-    n_valid = n if n_valid is None else min(n_valid, n)
-    if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
-        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
-                         f"(D={d}, {num_heads} heads, n_valid={n_valid})")
-    check_activation(x, (b, n, d), torch.bfloat16, "x")
+    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
+                                           ln_bias, wqkvq, wqkvs, bqkv, woq,
+                                           wos, bo)
     inv = _scalar(inv_ao, "inv_ao")
-    dev = x.device
-    f32 = torch.float32
-    ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
-    lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    wqkv = weight_kmajor(wqkvq, (d, 3 * d), dev, "wqkvq")
-    sqkv = kernel_operand(wqkvs, (3 * d,), f32, dev, "wqkvs")
-    bqkv = kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv")
-    wo = weight_kmajor(woq, (d, d), dev, "woq")
-    so = kernel_operand(wos, (d,), f32, dev, "wos")
-    bo = kernel_operand(bo, (d,), f32, dev, "bo")
-    rows = b * n
     out = torch.empty_like(x)
-    q8 = torch.empty((rows, d), dtype=torch.int8, device=dev)
-    qkv = torch.empty((rows, 3 * d), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
+    q8 = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
+    qkv = torch.empty((b * n, 3 * d), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_attn_block_int8_static(
-            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wqkv.data_ptr(),
-            sqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(),
-            bo.data_ptr(), out.data_ptr(), q8.data_ptr(), qkv.data_ptr(), b,
-            n, d, num_heads, n_valid, float(eps),
+            x.data_ptr(), *_ptrs(ops), out.data_ptr(), q8.data_ptr(),
+            qkv.data_ptr(), b, n, d, num_heads, n_valid, float(eps),
             1.0 / math.sqrt(d // num_heads), inv, stream)
     _kernels.check(err, "attn_block_int8_static")
     attn_block_int8_static.launches += 1
@@ -469,3 +506,223 @@ def attn_block_int8_static(x, inv_ao, ln_scale, ln_bias, wqkvq, wqkvs, bqkv,
 
 
 attn_block_int8_static.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The int8 stats chain: K21b (attention half) and K21a (MLP half) pass the
+# LayerNorm (mu, rstd) between them, as the bf16 chain's K1 and K2 do.
+# Stats are (rows, 2), [..., 0] mu and [..., 1] rstd, f32 or bf16; each
+# half emits the dtype it was given.
+# ---------------------------------------------------------------------------
+
+def _ln_from_stats(x, stats, ln_scale, ln_bias):
+    """xn = ((f32(x) - mu) * rstd) * scale + bias with (mu, rstd) read
+    from the producer's stats: no reduction."""
+    st = stats.float()
+    return ((x.float() - st[..., 0:1]) * st[..., 1:2] * ln_scale.float()
+            + ln_bias.float())
+
+
+def _check_stats(stats, shape):
+    if stats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"stats must be f32 or bf16, got {stats.dtype}")
+    check_activation(stats, shape, stats.dtype, "stats")
+
+
+def mlp_block_int8_stats_plain(x, stats, ln_scale, ln_bias, w1q, w1s, b1,
+                               w2q, w2s, b2, eps: float = 1e-6,
+                               act: str = "gelu_tanh",
+                               emit_stats: bool = True):
+    """Plain PyTorch version of the K21a kernel (the TPU kernel's body):
+    K15 on the incoming stats, then the one-pass stats of ``out``'s bf16
+    values in the stats' dtype."""
+    out = _mlp_int8_tail(x, _ln_from_stats(x, stats, ln_scale, ln_bias),
+                         w1q, w1s, b1, w2q, w2s, b2, act)
+    return out, (row_stats(out, eps).to(stats.dtype) if emit_stats
+                 else None)
+
+
+def mlp_block_int8_stats(x, stats, ln_scale, ln_bias, w1q, w1s, b1, w2q,
+                         w2s, b2, eps: float = 1e-6, act: str = "gelu_tanh",
+                         emit_stats: bool = True):
+    """Stats-chain int8 MLP half: (x (T, D) bf16, stats (T, 2) f32 or
+    bf16) -> (x + MLP_int8(LN(x)), next stats (T, 2) of the same dtype, or
+    None without ``emit_stats``).  Weights as :func:`mlp_block_int8`.
+
+    A CPU tensor runs :func:`mlp_block_int8_stats_plain`; a CUDA tensor
+    launches the K21a kernel (bf16, D and M multiples of 16) or raises."""
+    if act not in _ACT_CODES:
+        raise ValueError(f"unknown act {act!r}")
+    if not _on_card(x):
+        return mlp_block_int8_stats_plain(
+            x, stats, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, eps=eps,
+            act=act, emit_stats=emit_stats)
+    t, d, m, ops = _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q,
+                                 w2s, b2)
+    _check_stats(stats, (t, 2))
+    out = torch.empty_like(x)
+    st_out = torch.empty_like(stats) if emit_stats else None
+    scratch = _mlp_scratch(t, d, m, x.device)
+    with torch.cuda.device(x.device):
+        lib, stream = _kernels.launch_target()
+        err = lib.vft_mlp_block_int8_stats(
+            x.data_ptr(), stats.data_ptr(), *_ptrs(ops), out.data_ptr(),
+            st_out.data_ptr() if emit_stats else None, *_ptrs(scratch), t, d,
+            m, _ACT_CODES[act], int(stats.dtype == torch.bfloat16),
+            float(eps), stream)
+    _kernels.check(err, "mlp_block_int8_stats")
+    mlp_block_int8_stats.launches += 1
+    return out, st_out
+
+
+mlp_block_int8_stats.launches = 0
+
+
+def attn_block_int8_stats_plain(x, stats, ln_scale, ln_bias, wqkvq, wqkvs,
+                                bqkv, woq, wos, bo, num_heads: int,
+                                eps: float = 1e-6,
+                                n_valid: int | None = None,
+                                emit_stats: bool = True):
+    """Plain PyTorch version of the K21b kernel (the TPU kernel's body):
+    K16 on the incoming stats, then the one-pass stats of ``out``'s bf16
+    values in the stats' dtype."""
+    out = _attn_int8_tail(x, _ln_from_stats(x, stats, ln_scale, ln_bias),
+                          wqkvq, wqkvs, bqkv, woq, wos, bo, num_heads,
+                          n_valid)
+    return out, (row_stats(out, eps).to(stats.dtype) if emit_stats
+                 else None)
+
+
+def attn_block_int8_stats(x, stats, ln_scale, ln_bias, wqkvq, wqkvs, bqkv,
+                          woq, wos, bo, num_heads: int, eps: float = 1e-6,
+                          n_valid: int | None = None,
+                          emit_stats: bool = True):
+    """Stats-chain int8 attention half: (x (B, n_pad, D) bf16, stats
+    (B, n_pad, 2) f32 or bf16) -> (x + OutProj_int8(MHA(QKV_int8(LN(x)))),
+    next stats (B, n_pad, 2) of the same dtype, or None without
+    ``emit_stats``).  Weights as :func:`attn_block_int8`; query rows at
+    or past ``n_valid`` are computed (garbage, as on the TPU), keys there
+    masked.
+
+    A CPU tensor runs :func:`attn_block_int8_stats_plain`; a CUDA tensor
+    launches the K21b kernel (bf16, head dim 64, n_valid <= 256) or
+    raises."""
+    if not _on_card(x):
+        return attn_block_int8_stats_plain(
+            x, stats, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq, wos, bo,
+            num_heads, eps=eps, n_valid=n_valid, emit_stats=emit_stats)
+    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
+                                           ln_bias, wqkvq, wqkvs, bqkv, woq,
+                                           wos, bo)
+    _check_stats(stats, (b, n, 2))
+    out = torch.empty_like(x)
+    st_out = torch.empty_like(stats) if emit_stats else None
+    scratch = _attn_scratch(b * n, d, x.device)
+    with torch.cuda.device(x.device):
+        lib, stream = _kernels.launch_target()
+        err = lib.vft_attn_block_int8_stats(
+            x.data_ptr(), stats.data_ptr(), *_ptrs(ops), out.data_ptr(),
+            st_out.data_ptr() if emit_stats else None, *_ptrs(scratch), b, n,
+            d, num_heads, n_valid, int(stats.dtype == torch.bfloat16),
+            float(eps), 1.0 / math.sqrt(d // num_heads), stream)
+    _kernels.check(err, "attn_block_int8_stats")
+    attn_block_int8_stats.launches += 1
+    return out, st_out
+
+
+attn_block_int8_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K22: static attention half with int8 scores
+# ---------------------------------------------------------------------------
+
+def _scores_geometry(d: int, num_heads: int) -> int:
+    """The JAX gate of the int8-scores half: head dim 64 and an even head
+    count (the TPU kernel's pair-packed geometry).  Returns dh."""
+    if d % num_heads or d // num_heads != 64 or num_heads % 2:
+        raise ValueError(f"int8-scores path requires dh=64, even heads "
+                         f"(D={d}, {num_heads} heads)")
+    return d // num_heads
+
+
+def _scores_dequant(sc_qk, dh: int) -> float:
+    """sc_qk * (1 / sqrt(dh)) rounded to f32 once, as the JAX kernel's
+    ``sc_qk * jnp.float32(scale)``."""
+    return float(np.float32(float(sc_qk)) * np.float32(1.0 / math.sqrt(dh)))
+
+
+def attn_block_int8_static_scores_plain(x, sc_qk, pv_fold, ln_scale,
+                                        ln_bias, wqkvq, wqkv_qs, bqkv_qs,
+                                        woq, wos, bo, num_heads: int,
+                                        eps: float = 1e-6,
+                                        n_valid: int | None = None):
+    """Plain PyTorch version of the K22 kernel (the TPU kernel's body and
+    ``_mha_loop_int8s``, not ``attn_block_int8s_static_ref``): one-pass
+    LN, the int8 panel, int8 products, a true reciprocal of each head
+    row's sum over the valid keys, the f32 ao."""
+    b, n, d = x.shape
+    dh = _scores_geometry(d, num_heads)
+    n_valid = n if n_valid is None else min(n_valid, n)
+    xq = _rint_i8(_ln_f32(x, ln_scale, ln_bias, eps))
+    qkv = _rint_i8(_int_matmul(xq, wqkvq) * wqkv_qs.float()
+                   + bqkv_qs.float())
+
+    def heads(t):
+        return t.reshape(b, n, num_heads, dh).transpose(1, 2)
+
+    q, k, v = (heads(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    s = _int_matmul(q, k.transpose(-1, -2)) * _scores_dequant(sc_qk, dh)
+    e = torch.exp(s.clamp(_EXP_LO, _EXP_HI))
+    e = torch.where(torch.arange(n, device=x.device) < n_valid, e,
+                    torch.zeros_like(e))
+    r = 1.0 / e.sum(-1, keepdim=True)
+    pq = torch.clamp(torch.round(e * (127.0 * r)), 0.0, QMAX).to(torch.int8)
+    ao = _int_matmul(pq, v) * float(np.float32(float(pv_fold)))
+    ao = ao.transpose(1, 2).reshape(b, n, d)
+    y = _int_matmul(_rint_i8(ao), woq) * wos.float() + bo.float()
+    return x + y.to(x.dtype)
+
+
+def attn_block_int8_static_scores(x, sc_qk, pv_fold, ln_scale, ln_bias,
+                                  wqkvq, wqkv_qs, bqkv_qs, woq, wos, bo,
+                                  num_heads: int, eps: float = 1e-6,
+                                  n_valid: int | None = None):
+    """x (B, N, D) bf16 -> x + OutProj_int8(MHA_int8(QKV_int8(LN(x))))
+    with calibrated scales: ``ln_scale``/``ln_bias`` carry 1/a_x,
+    ``wqkv_qs``/``bqkv_qs`` the quant-domain panel scales, ``wos`` a_ao;
+    ``sc_qk`` = s_q s_k and ``pv_fold`` = s_v / 127 / s_ao are the
+    per-layer scalar dequants (floats, or one-element tensors).  Query
+    rows at or past ``n_valid`` are computed (garbage, as on the TPU);
+    keys there are masked.  dh 64 and an even head count, else
+    ``ValueError`` (the JAX gate).
+
+    A CPU tensor runs :func:`attn_block_int8_static_scores_plain`; a CUDA
+    tensor launches the K22 kernel (bf16, n_valid <= 256) or raises."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
+    dh = _scores_geometry(x.shape[-1], num_heads)
+    if not _on_card(x):
+        return attn_block_int8_static_scores_plain(
+            x, sc_qk, pv_fold, ln_scale, ln_bias, wqkvq, wqkv_qs, bqkv_qs,
+            woq, wos, bo, num_heads, eps=eps, n_valid=n_valid)
+    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
+                                           ln_bias, wqkvq, wqkv_qs, bqkv_qs,
+                                           woq, wos, bo)
+    sdq = _scores_dequant(_scalar(sc_qk, "sc_qk"), dh)
+    fold = _scalar(pv_fold, "pv_fold")
+    out = torch.empty_like(x)
+    q8 = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
+    qkv8 = torch.empty((b * n, 3 * d), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        lib, stream = _kernels.launch_target()
+        err = lib.vft_attn_block_int8_scores(
+            x.data_ptr(), *_ptrs(ops), out.data_ptr(), q8.data_ptr(),
+            qkv8.data_ptr(), b, n, d, num_heads, n_valid, float(eps), sdq,
+            fold, stream)
+    _kernels.check(err, "attn_block_int8_static_scores")
+    attn_block_int8_static_scores.launches += 1
+    return out
+
+
+attn_block_int8_static_scores.launches = 0
