@@ -174,6 +174,28 @@ Phases, each of which raises on failure (exit code != 0):
               (logits against the CPU forward with the switch on, top-1
               against the switch-off forward printed); the switch-on and
               switch-off b64 forwards timed in turns
+ 17. odd batches past 256 keys, K10, K26  K4 (attn_block_fwd) past 256
+              keys against its plain version at the odd-batch serves'
+              shapes (CLIP ViT-L/14 b1 (1, 264, 1024) with 257 valid keys,
+              ViT-B/16 @384 (1, 584, 768) and ViT-L/16 @384 (1, 584, 1024)
+              with 577), in both softmax modes, the key-tiled tile taken,
+              loud padding rows that must leave the valid rows bit for
+              bit, and in the exact mode scores past exp's f32 range; K10
+              (patch_embed_pallas) at ViT-B/16 and CLIP ViT-L/14 b64 and
+              the JAX test's shape, K26 (streamed_gemm) at the JAX tests'
+              shapes and ViT-L/16 @384's MLP up-projection, each against
+              its plain version in the f32 sum-order band; the gates (K4
+              at 1032 tokens, K23 at 264 raise); all this runs first,
+              right after the build; their times beside the plain
+              version, a library call and the bound (K10 also beside the
+              main path's embed_tokens_dotg); then ImageServer(batch_size=
+              1) over clip.make_forward(CLIP ViT-L/14) and
+              vit.make_forward(ViT-B/16 @384) answers 3 uint8 requests
+              each with exactly 24 K4 (or 12 K4 + 12 K5) launches a
+              request, all key-tiled, and make_forward(ViT-L/16 @384,
+              safe_softmax) at b1 launches 24 K4 in the exact mode; their
+              ms per request beside b2 through the chain, then every
+              output against the CPU forward
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -908,9 +930,11 @@ def _counters():
     from vit_fpga_tpu_torch.ops import flash_attention as fa
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     from vit_fpga_tpu_torch.ops import image_filter as imf
+    from vit_fpga_tpu_torch.ops import patch_embed as pe
     from vit_fpga_tpu_torch.ops import quant
     from vit_fpga_tpu_torch.ops import quant_block as qb
     from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.ops import streamed_gemm as sg
     from vit_fpga_tpu_torch.ops import vit_stack as vs
     return {"filter_image_device": imf.filter_image_device,
             "int8_gemm": quant.int8_gemm,
@@ -938,7 +962,9 @@ def _counters():
             "mlp_block_int8_stats": qb.mlp_block_int8_stats,
             "attn_block_int8_stats": qb.attn_block_int8_stats,
             "attn_block_int8_static_scores":
-                qb.attn_block_int8_static_scores}
+                qb.attn_block_int8_static_scores,
+            "patch_embed_pallas": pe.patch_embed_pallas,
+            "streamed_gemm": sg.streamed_gemm}
 
 
 def phase_train_fit(batch=64, steps=10):
@@ -2331,6 +2357,7 @@ def _zero_counters():
     for fn in counters.values():
         fn.launches = 0
     counters["attn_block_stats"].launches_long = 0
+    counters["attn_block_fwd"].launches_long = 0
     return counters
 
 
@@ -2714,11 +2741,33 @@ def _time_k3(rows, d, m, seed, label):
     return t
 
 
+def _attn_library(x, p, heads, n_valid):
+    """The attention half's library yardstick on x (B, n_pad, D) and bf16
+    weights ``p``: LN + addmm + scaled_dot_product_attention with the key
+    mask + addmm + residual, bf16."""
+    import torch.nn.functional as F
+    batch, n_pad, d = x.shape
+    rows, dh, bf = batch * n_pad, d // heads, torch.bfloat16
+    ls, lb = p["ln_scale"].to(bf), p["ln_bias"].to(bf)
+    bq, bo = p["bqkv"].to(bf), p["bo"].to(bf)
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+    x2 = x.reshape(rows, d)
+
+    def library():
+        xn = F.layer_norm(x2, (d,), ls, lb, EPS)
+        qkv = torch.addmm(bq, xn, p["wqkv"]).view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        ao = ao.transpose(1, 2).reshape(rows, d)
+        return torch.addmm(bo, ao, p["wo"]) + x2
+
+    return library
+
+
 def _time_k1(batch, n_pad, n_valid, d, heads, seed, label):
     """K1 at (batch, n_pad, d): kernel, plain version, the library
     yardstick (LN + addmm + scaled_dot_product_attention + addmm, bf16)
     and the bound."""
-    import torch.nn.functional as F
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     x, st, p = _attn_inputs(batch, n_pad, d, seed)
@@ -2729,21 +2778,7 @@ def _time_k1(batch, n_pad, n_valid, d, heads, seed, label):
     plain_ms = time_cuda(lambda: _attn_call(ab.attn_block_stats_plain, x, st,
                                             pb, heads, n_valid, True),
                          iters=3, warmup=1)
-    ls, lb = p["ln_scale"].to(torch.bfloat16), p["ln_bias"].to(torch.bfloat16)
-    bq, bo = p["bqkv"].to(torch.bfloat16), p["bo"].to(torch.bfloat16)
-    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
-    x2 = x.reshape(rows, d)
-
-    def library():
-        xn = F.layer_norm(x2, (d,), ls, lb, EPS)
-        qkv = torch.addmm(bq, xn, pb["wqkv"]).view(batch, n_pad, 3, heads,
-                                                     dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-        ao = ao.transpose(1, 2).reshape(rows, d)
-        return torch.addmm(bo, ao, pb["wo"]) + x2
-
-    lib_ms = time_cuda(library)
+    lib_ms = time_cuda(_attn_library(x, pb, heads, n_valid))
     flops = (2 * rows * d * 4 * d
              + 4 * batch * heads * n_pad * n_valid * dh)
     nbytes = (2 * rows * d * 2 + 2 * rows * 2 * 4
@@ -4307,6 +4342,453 @@ def run_chain_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the odd-batch serves past 256 keys (K4's key-tiled tile, both
+# softmax modes), and the last two TPU kernels, K10 (the uint8 patch embed)
+# and K26 (the streamed GEMM)
+# ---------------------------------------------------------------------------
+
+OP_KERNELS = ("patch_embed_pallas", "streamed_gemm")
+# K10 and K26 in f32 against their plain versions: the same f32 products
+# summed in another order.  Each order's error of a K-term sum stays within
+# about sqrt(K) 2^-24 sum_k |terms| (random rounding's bound).  With folded
+# embed weights the bias cancels the mean pixel's term, so the partial sums
+# run far above |out|, and 1e-5 (1 + |want|) alone is too tight there (a
+# CPU rehearsal of two f32 orders at ViT-B/16's folded weights read 9.7e-6
+# of it at 2000 rows).  Band: 1e-5 (1 + |want|) + 2 sqrt(K) 2^-24 sum
+# |terms|.  A bf16 output is one of those f32 sums rounded once: one bf16
+# ulp of the larger of the two (<= 2^-7 of it) on top.  A wrong kernel (a
+# term dropped or misplaced, a channel swapped) moves an element by a whole
+# term, ~1e-1.
+F32_SUM_ATOL = 1e-5
+# K4 past 256 keys with q and k 4x larger: scores 16x wider, up to ~200,
+# past exp's f32 range, which only the exact softmax's max takes.  Held as
+# a branch in relative norm (BRANCH_TOL), as K1's peaked case: so peaked a
+# softmax turns a score's f32 rounding into a bf16 ulp of e now and then.
+# A max taken over part of the keys overflows exp there.
+K4_WIDE = 4.0
+# K4 past 256 keys at the odd-batch serves' shapes: (label, batch, n_pad,
+# n_valid, d, heads, softmax modes (safe?))
+K4_LONG_CASES = (
+    ("CLIP ViT-L/14 b1", 1, 264, 257, 1024, 16, (False,)),
+    ("ViT-B/16 @384 b1", 1, 584, 577, 768, 12, (False,)),
+    ("ViT-L/16 @384 b1", 1, 584, 577, 1024, 16, (True, False)),
+)
+# K10 cases: (label, batch, H, W, patch, D, out dtype, fold scales or None
+# for the JAX test's unfolded weights)
+IMAGENET_SCALES = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+K10_CASES = (
+    ("ViT-B/16 b64", 64, 224, 224, 16, 768, torch.bfloat16, IMAGENET_SCALES),
+    ("CLIP ViT-L/14 b64", 64, 224, 224, 14, 1024, torch.bfloat16,
+     "clip"),
+    ("CLIP ViT-L/14 b64 f32", 64, 224, 224, 14, 1024, torch.float32,
+     "clip"),
+    ("JAX test", 2, 32, 64, 8, 128, torch.float32, None),
+)
+# K26 cases: (label, T, K, N, dtype, bk, bt, bn)
+K26_CASES = (
+    ("JAX test f32", 64, 300, 128, torch.float32, 128, None, None),
+    ("f32", 256, 1024, 512, torch.float32, 256, None, None),
+    ("ViT-L/16 @384 b1 MLP up", 584, 1024, 4096, torch.bfloat16, 512, 584,
+     1024),
+)
+
+
+def _sum_band(name, got, want, k, mag, bf16):
+    """got vs want within the f32 sum-order band (bf16: plus one bf16 ulp
+    of the larger); ``mag`` is sum_k |terms| per element.  Prints the
+    largest |a-b| / (1 + |b|) beside it.  Returns the max-abs error."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    band = F32_SUM_ATOL * (1 + w.abs()) + 2 * k ** 0.5 * 2.0 ** -24 * mag
+    if bf16:
+        band = band + 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+    bad = int((diff > band).sum())
+    max_abs = float(diff.max())
+    ulp = " + 2^-7 max(|a|,|b|)" if bf16 else ""
+    print(f"  {name}: max_abs={max_abs:.3e} max |a-b|/(1+|b|)="
+          f"{float((diff / (1 + w.abs())).max()):.3e} (band 1e-5 (1+|b|) + "
+          f"2 sqrt({k}) 2^-24 sum|terms|{ulp}, violations={bad})")
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version")
+    return max_abs
+
+
+def _k10_inputs(batch, h, w, patch, d, seed, scales):
+    """uint8 images on the card and a folded f32 (P*P*3, D) kernel and
+    bias: ViT-style weights (N(0, 1/K), bias N(0, 0.02^2)) folded with the
+    (mean, std) ``scales`` ("clip": CLIP's), or with None the JAX test's
+    kernel N(0, 0.01^2) and bias N(0, 1)."""
+    from vit_fpga_tpu_torch.models.vit import CLIP_MEAN, CLIP_STD
+    from vit_fpga_tpu_torch.ops import patch_embed as pe
+    rng = np.random.default_rng(seed)
+    k = patch * patch * 3
+    images = torch.from_numpy(rng.integers(0, 256, (batch, h, w, 3),
+                                           np.uint8)).cuda()
+    if scales is None:
+        kf = (rng.normal(size=(k, d)) * 0.01).astype(np.float32)
+        bf = rng.normal(size=(d,)).astype(np.float32)
+    else:
+        if scales == "clip":
+            scales = (CLIP_MEAN, CLIP_STD)
+        kernel = (rng.normal(size=(k, d)) * k ** -0.5).astype(np.float32)
+        bias = (rng.normal(size=(d,)) * 0.02).astype(np.float32)
+        kf, bf = pe.fold_preprocess(kernel, bias, *scales, patch)
+    return images, torch.from_numpy(kf).cuda(), torch.from_numpy(bf).cuda()
+
+
+def _k10_mag(images, kf, bf, patch):
+    """sum_k |pixel_k kernel_kn| + |bias_n| per output element."""
+    from vit_fpga_tpu_torch.models.vit import patchify
+    return patchify(images.float(), patch) @ kf.abs() + bf.abs()
+
+
+def _k26_inputs(t, k, n, dtype, seed):
+    g = _gen(seed)
+    return (_randn(g, t, k).to(dtype), _randn(g, k, n).to(dtype))
+
+
+def _check_long(label, got, want):
+    """K4's key-tiled launches (``attn_block_fwd.launches_long``) at their
+    wanted count."""
+    if got != want:
+        raise AssertionError(f"{label}: {got} K4 launches took the key-tiled "
+                             f"tile, want {want}")
+
+
+def _k4_long_parity(label, batch, n_pad, n_valid, d, heads, modes, seed):
+    """K4 past 256 keys against its plain version in each softmax mode:
+    every row elementwise (BF16_TOL) and as a branch, the key-tiled path
+    taken (launches_long), loud padding rows (a 3e3 spike in each) that
+    must leave the valid rows bit for bit, and in the exact mode the wide
+    scores case.  Returns the largest max-abs error."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    x, _, pa = _attn_inputs(batch, n_pad, d, seed)
+    loud = x.clone()
+    loud[:, n_valid:, 3] = 3e3
+    worst = 0.0
+    for safe in modes:
+        name = f"K4 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid} " \
+               f"safe_softmax={safe}"
+        print(f"parity {name}, {heads} heads")
+        before = ab.attn_block_fwd.launches_long
+        got = _k4(ab.attn_block_fwd, x, pa, heads, n_valid, safe)
+        want = _k4(ab.attn_block_fwd_plain, x, pa, heads, n_valid, safe)
+        torch.cuda.synchronize()
+        _check_long(name, ab.attn_block_fwd.launches_long, before + 1)
+        worst = max(worst, _compare(f"{name} out", got, want, BF16_TOL,
+                                    BF16_TOL))
+        _branch(f"{name} branch", got, want, x)
+        noisy = _k4(ab.attn_block_fwd, loud, pa, heads, n_valid, safe)
+        torch.cuda.synchronize()
+        moved = float((noisy[:, :n_valid].float()
+                       - got[:, :n_valid].float()).abs().max())
+        print(f"  {name} loud padding rows {n_valid}..{n_pad - 1}: valid "
+              f"rows moved by max_abs={moved:.3e} (must be 0)")
+        if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
+            raise AssertionError(f"{name}: padding rows moved the valid rows")
+        if safe:
+            wide = dict(pa, wqkv=pa["wqkv"].clone())
+            wide["wqkv"][:, :2 * d] *= K4_WIDE
+            qkv = ((x.float() - x.float().mean(-1, keepdim=True))
+                   @ wide["wqkv"][:, :2 * d])
+            s = qkv[0, :, :64] @ qkv[0, :n_valid, d:d + 64].T / 8.0
+            got = _k4(ab.attn_block_fwd, x, wide, heads, n_valid, True)
+            want = _k4(ab.attn_block_fwd_plain, x, wide, heads, n_valid,
+                       True)
+            torch.cuda.synchronize()
+            print(f"  {name} wide scores (q, k x{K4_WIDE:g}; head 0's "
+                  f"scores reach about {float(s.abs().max()):.0f}): "
+                  f"max_abs={float((got.float() - want.float()).abs().max()):.3e}"
+                  f" (stated)")
+            if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+                raise AssertionError(f"{name} wide scores: not finite")
+            _branch(f"{name} wide scores branch", got, want, x)
+    return worst
+
+
+def phase_odd_kernels():
+    """Right after the build: K4 past 256 keys at the odd-batch serves'
+    shapes in both softmax modes, K10 and K26 at their shapes, each against
+    its plain version; the gates (K4 at 1032 tokens, K23 at 264 tokens
+    raise).  K10's and K26's launches here are their count in the JSON
+    line: no serving path launches them.  Returns ({kernel: max-abs
+    error}, {kernel: launches})."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import patch_embed as pe
+    from vit_fpga_tpu_torch.ops import streamed_gemm as sg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k4 = max(_k4_long_parity(*case, seed=190 + i)
+             for i, case in enumerate(K4_LONG_CASES))
+    x, _, pa = _attn_inputs(1, 1032, 128, seed=195)
+    _expect_raise("K4 at 1032 tokens", lambda: _k4(
+        ab.attn_block_fwd, x, pa, 2, 1032, False))
+    x, g, pa, _ = _train_inputs(1, 264, 257, 1024, 4096, seed=196)
+    _expect_raise("K23 at 264 tokens", lambda: _k23(
+        ab.attn_block_bwd, x, g, pa, 16, 257))
+
+    pe.patch_embed_pallas.launches = 0
+    sg.streamed_gemm.launches = 0
+    k10 = 0.0
+    for i, (label, b, h, w, p, d, dt, scales) in enumerate(K10_CASES):
+        images, kf, bf = _k10_inputs(b, h, w, p, d, 200 + i, scales)
+        got = pe.patch_embed_pallas(images, kf, bf, p, out_dtype=dt)
+        want = pe.patch_embed_plain(images, kf, bf, p, out_dtype=dt)
+        torch.cuda.synchronize()
+        k10 = max(k10, _sum_band(
+            f"K10 {label} {tuple(images.shape)} P{p} D{d} {dt}", got, want,
+            p * p * 3, _k10_mag(images, kf, bf, p).reshape(got.shape),
+            dt == torch.bfloat16))
+    k26 = 0.0
+    for i, (label, t, k, n, dt, bk, bt, bn) in enumerate(K26_CASES):
+        xs, ws = _k26_inputs(t, k, n, dt, 210 + i)
+        got = sg.streamed_gemm(xs, ws, bk=bk, bt=bt, bn=bn)
+        want = sg.streamed_gemm_plain(xs, ws, bk=bk, bt=bt, bn=bn)
+        torch.cuda.synchronize()
+        k26 = max(k26, _sum_band(
+            f"K26 {label} ({t}, {k}) x ({k}, {n}) {dt} bk={bk}", got, want,
+            k, xs.float().abs() @ ws.float().abs(), dt == torch.bfloat16))
+    launches = {"patch_embed_pallas": pe.patch_embed_pallas.launches,
+                "streamed_gemm": sg.streamed_gemm.launches}
+    print(f"  K10 / K26 launches in this phase: {launches}")
+    return ({"attn_block_fwd_long": k4, "patch_embed_pallas": k10,
+             "streamed_gemm": k26}, launches)
+
+
+def _time_k4_long(label, batch, n_pad, n_valid, d, heads, safe, seed):
+    """K4 past 256 keys: kernel, plain version, the library yardstick (LN
+    + addmm + masked scaled_dot_product_attention + addmm, bf16) and the
+    bound (the function's operations: one QK^T, whatever the exact mode's
+    second sweep costs the kernel)."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    x, _, pa = _attn_inputs(batch, n_pad, d, seed)
+    pa = _bf16_weights(pa, ("wqkv", "wo"))
+    rows, dh = batch * n_pad, d // heads
+    ms = time_cuda(lambda: _k4(ab.attn_block_fwd, x, pa, heads, n_valid,
+                               safe))
+    plain_ms = time_cuda(lambda: _k4(ab.attn_block_fwd_plain, x, pa, heads,
+                                     n_valid, safe), iters=3, warmup=1)
+    lib_ms = time_cuda(_attn_library(x, pa, heads, n_valid))
+    flops = 2 * rows * d * 4 * d + 4 * batch * heads * n_pad * n_valid * dh
+    nbytes = 2 * rows * d * 2 + 4 * d * d * 2 + 6 * d * 4
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"timing K4 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid} "
+          f"safe_softmax={safe}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_odd_timing():
+    """K4 past 256 keys at the serves' shapes (the JSON line carries CLIP
+    ViT-L/14 b1's), K10 at ViT-B/16 b64 bf16 beside the main path's own
+    embed (preprocess + embed_tokens_dotg) and CLIP ViT-L/14's, K26 at the
+    ViT-L/16 @384 b1 MLP up-projection in bf16 (in the JSON line) and in
+    f32: each kernel beside its plain version, the library call (K10:
+    torch.matmul of the patchified f32 image, TF32 off, + bias; K26:
+    torch.matmul) and the bound."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.ops import patch_embed as pe
+    from vit_fpga_tpu_torch.ops import streamed_gemm as sg
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    out = {}
+    for i, (label, b, n_pad, n_valid, d, heads, modes) in enumerate(
+            K4_LONG_CASES):
+        for safe in modes:
+            t = _time_k4_long(label, b, n_pad, n_valid, d, heads, safe,
+                              220 + i)
+            out.setdefault("attn_block_fwd_long", t)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (label, b, h, w, p, d, dt, scales) in enumerate(K10_CASES[:3]):
+        images, kf, bf = _k10_inputs(b, h, w, p, d, 230 + i, scales)
+        ms = time_cuda(lambda: pe.patch_embed_pallas(images, kf, bf, p,
+                                                     out_dtype=dt))
+        plain_ms = time_cuda(lambda: pe.patch_embed_plain(
+            images, kf, bf, p, out_dtype=dt), iters=5, warmup=1)
+        lib_ms = time_cuda(lambda: (vit.patchify(images.float(), p) @ kf
+                                    + bf).to(dt))
+        rows, k = b * (h // p) * (w // p), p * p * 3
+        flops = 2 * rows * k * d
+        nbytes = images.numel() + 4 * (k * d + d) + rows * d * dt.itemsize
+        bound_ms, bound_by = _bound_f32(flops, nbytes)
+        print(f"timing K10 {label} P{p} D{d} {dt}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, f32 at 67 TFLOP/s)")
+        out.setdefault("patch_embed_pallas", dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by))
+        if i == 0:
+            cfg = vit.config("vit_b16", image_size=h, dtype="bfloat16")
+            kb = kf.to(torch.bfloat16)
+            posb = torch.zeros((vit._n_pad(cfg), d), device="cuda")
+            pre = vit.preprocess(images, cfg)
+            emb = time_cuda(lambda: pe.embed_tokens_dotg(pre, kb, posb, p, 1))
+            both = time_cuda(lambda: pe.embed_tokens_dotg(
+                vit.preprocess(images, cfg), kb, posb, p, 1))
+            print(f"  the main path's embed at the same shape: "
+                  f"embed_tokens_dotg {emb:.4f} ms, preprocess + "
+                  f"embed_tokens_dotg from uint8 {both:.4f} ms")
+
+    for i, (label, t, k, n, dt, bk, bt, bn) in enumerate(K26_CASES[::-1]):
+        xs, ws = _k26_inputs(t, k, n, dt, 240 + i)
+        ms = time_cuda(lambda: sg.streamed_gemm(xs, ws, bk=bk, bt=bt, bn=bn))
+        plain_ms = time_cuda(lambda: sg.streamed_gemm_plain(
+            xs, ws, bk=bk, bt=bt, bn=bn), iters=5, warmup=1)
+        lib_ms = time_cuda(lambda: torch.matmul(xs, ws))
+        flops = 2 * t * k * n
+        nbytes = (t * k + k * n + t * n) * dt.itemsize
+        bound_ms, bound_by = (_bound if dt == torch.bfloat16
+                              else _bound_f32)(flops, nbytes)
+        print(f"timing K26 {label} ({t}, {k}) x ({k}, {n}) {dt}: kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        out.setdefault("streamed_gemm", dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by))
+    return out
+
+
+def _odd_serve(label, fwd, images, want):
+    """ImageServer(batch_size=1) over ``fwd`` answers ``images`` with the
+    counts set to 0 just before it: exactly ``want`` launches a request
+    (all K4 ones on the key-tiled tile) and nothing else.  Returns the
+    outputs and K4's key-tiled launches."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    fwd(images[:1])
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    got, nb = _serve(label, fwd, images, 1)
+    if nb != len(images):
+        raise AssertionError(f"{label}: {nb} batches for {len(images)} "
+                             f"requests at batch_size 1")
+    per = {k: v * nb for k, v in want.items()}
+    launches = _check_launches(label, counters, per)
+    long = ab.attn_block_fwd.launches_long
+    print(f"  {label} launches: { {k: v for k, v in launches.items() if v} }"
+          f", {long} of K4's on the key-tiled tile")
+    _check_long(label, long, per["attn_block_fwd"])
+    return got, long
+
+
+def _per_request_ms(label, runs):
+    """ms per request of each (name, forward, uint8 images on the card),
+    in turns (each twice, the order reversed the second time).  Run
+    before any CPU forward of the phase, whose worker threads would share
+    the host that launches the card's work."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    times = {name: [] for name, _, _ in runs}
+    for name, fwd, img in runs + runs[::-1]:
+        times[name].append(time_cuda(lambda: fwd(img), iters=3, warmup=1)
+                           / img.shape[0])
+    print(f"  {label} ms per request: " + ", ".join(
+        f"{name} " + " / ".join(f"{t:.3f}" for t in ms)
+        for name, ms in times.items()))
+    return times
+
+
+def phase_odd_batch_serve(n_requests=3):
+    """The odd-batch main paths, each run with the counts set to 0 just
+    before it: ImageServer(batch_size=1) over clip.make_forward(CLIP
+    ViT-L/14 @224, depth 24) answers 3 uint8 requests with 24 K4 launches
+    a request (key-tiled, max-free) and nothing else of the port, and over
+    vit.make_forward(ViT-B/16 @384) with 12 K4 + 12 K5;
+    make_forward(ViT-L/16 @384, safe_softmax) at b1 launches 24 K4
+    (key-tiled, exact).  Each one's ms per request beside the same model
+    at b2 through the chain (24 K1 + 24 K3 / 12 K1 + 12 K2), the safe
+    forward beside the max-free one (the chain at b1); then every output
+    against the CPU forward.  Returns K4's key-tiled launches."""
+    from vit_fpga_tpu_torch.models import clip, vit
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    rng = np.random.default_rng(250)
+    long = 0
+    checks = []        # (label, card outputs, CPU forward, images)
+
+    ccfg = clip.clip_vision_config("vit_l14", dtype="bfloat16")
+    cparams = clip.init_params(ccfg, 768, _gen(250), device="cuda")
+    cfwd = clip.make_forward(ccfg, cparams)
+    cimg = rng.integers(0, 256, (n_requests, 224, 224, 3), np.uint8)
+    label = "CLIP ViT-L/14 @224 ImageServer(batch_size=1)"
+    got, n = _odd_serve(label, cfwd, cimg, {"attn_block_fwd": 24})
+    long += n
+    checks.append((label, got, clip.make_forward(
+        ccfg, _tree_to(cparams, "cpu"), device="cpu"), cimg))
+    counters = _zero_counters()
+    cfwd(cimg[:2])
+    _check_only("CLIP ViT-L/14 @224 b2", counters,
+                {"attn_block_stats": 24, "fused_mlp_chunked_stats": 24},
+                long=24)
+    dev = torch.from_numpy(cimg).cuda()
+    _per_request_ms("CLIP ViT-L/14 @224", [("b1 (K4)", cfwd, dev[:1]),
+                                           ("b2 (chain)", cfwd, dev[:2])])
+
+    bcfg = vit.config("vit_b16", image_size=384, dtype="bfloat16")
+    bparams = vit.init_params(bcfg, _gen(251), device="cuda")
+    bfwd = vit.make_forward(bcfg, bparams)
+    bimg = rng.integers(0, 256, (n_requests, 384, 384, 3), np.uint8)
+    label = "ViT-B/16 @384 ImageServer(batch_size=1)"
+    got, n = _odd_serve(label, bfwd, bimg,
+                        {"attn_block_fwd": 12, "fused_mlp_fwd": 12})
+    long += n
+    checks.append((label, got, vit.make_forward(
+        bcfg, _tree_to(bparams, "cpu"), device="cpu"), bimg))
+    counters = _zero_counters()
+    bfwd(bimg[:2])
+    _check_only("ViT-B/16 @384 b2", counters,
+                {"attn_block_stats": 12, "fused_mlp_stats": 12}, long=12)
+    dev = torch.from_numpy(bimg).cuda()
+    _per_request_ms("ViT-B/16 @384", [("b1 (K4 + K5)", bfwd, dev[:1]),
+                                      ("b2 (chain)", bfwd, dev[:2])])
+
+    scfg = vit.config("vit_l16", image_size=384, dtype="bfloat16",
+                      safe_softmax=True)
+    sparams = vit.init_params(scfg, _gen(252), device="cuda")
+    sfwd = vit.make_forward(scfg, sparams)
+    simg = rng.integers(0, 256, (1, 384, 384, 3), np.uint8)
+    sfwd(simg)
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    got = sfwd(simg).cpu().numpy()
+    label = "ViT-L/16 @384 safe_softmax b1"
+    _check_launches(label, counters, {"attn_block_fwd": 24})
+    _check_long(label, ab.attn_block_fwd.launches_long, 24)
+    long += 24
+    print(f"  {label} launches: {ab.attn_block_fwd.launches} K4, "
+          f"{ab.attn_block_fwd.launches_long} of them key-tiled")
+    checks.append((label, got, vit.make_forward(
+        scfg, _tree_to(sparams, "cpu"), device="cpu"), simg))
+    ffwd = vit.make_forward(dataclasses.replace(scfg, safe_softmax=False),
+                            sparams)
+    counters = _zero_counters()
+    ffwd(simg)
+    _check_only("ViT-L/16 @384 max-free b1", counters,
+                {"attn_block_stats": 24, "fused_mlp_chunked_stats": 24},
+                long=24)
+    dev = torch.from_numpy(simg).cuda()
+    _per_request_ms("ViT-L/16 @384 b1", [("safe_softmax (K4)", sfwd, dev),
+                                         ("max-free (chain)", ffwd, dev)])
+
+    for label, got, cpu, images in checks:
+        _rel_to_max(f"{label} outputs vs the CPU forward", got,
+                    cpu(images).numpy(), LOGITS_BAND)
+    return long
+
+
+def run_odd_phases(errors, timing, launches):
+    """Phase 17 after the earlier slices' phases (its parity ran right
+    after the build): the times of K4 past 256 keys, K10 and K26, then the
+    odd-batch serves, whose K4 key-tiled launches are the JSON line's."""
+    for name, t in phase_odd_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    launches["attn_block_fwd_long"] = phase_odd_batch_serve()
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4326,7 +4808,8 @@ def main() -> int:
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
 
-    errors = phase_chain_kernels(8)
+    errors, op_launches = phase_odd_kernels()
+    errors.update(phase_chain_kernels(8))
     errors.update(phase_per_block_kernels())
     errors.update(phase_large_kernels())
     errors.update(phase_stack_kernels())
@@ -4347,6 +4830,7 @@ def main() -> int:
     for name, t in train_timing.items():
         timing[name] = dict(t, max_abs_err=errors[name])
     launches = phase_slice()
+    launches.update(op_launches)
     phase_safe_forward()
     phase_train_step_vs_cpu()
     launches.update({k: v for k, v in phase_train_fit().items()
@@ -4366,6 +4850,7 @@ def main() -> int:
     run_full_phases(errors, timing, launches)
     run_per_block_phases(errors, timing, launches)
     run_chain_phases(errors, timing, launches)
+    run_odd_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -4426,6 +4911,12 @@ def main() -> int:
         "attn_block_int8_static_scores": (
             "vit_fpga_tpu_torch/csrc/attn_int8_scores.cu",
             "vit_fpga_tpu/ops/quant_block.py:850"),
+        "attn_block_fwd_long": ("vit_fpga_tpu_torch/csrc/attn.cuh",
+                                "vit_fpga_tpu/ops/attn_block.py:371"),
+        "patch_embed_pallas": ("vit_fpga_tpu_torch/csrc/patch_embed.cu",
+                               "vit_fpga_tpu/ops/patch_embed.py:147"),
+        "streamed_gemm": ("vit_fpga_tpu_torch/csrc/streamed_gemm.cu",
+                          "vit_fpga_tpu/ops/streamed_gemm.py:32"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -132,5 +132,18 @@ cudaError_t launch_f32_stats(const float* x, ST* st, int rows, int d, float eps,
 run_copy k22_no_rsum attn_int8_scores.cu \
   "const float p127 = __fmul_rn(127.0f, __fdiv_rn(1.0f, sum));" \
   "const float p127 = 127.0f;"
+# K10 reading each pixel's channels in the wrong order (BGR for RGB)
+run_copy k10_bgr patch_embed.cu \
+  "const size_t koff = (size_t)py * w3 + (kin ? k % p3 : 0);" \
+  "const size_t koff = (size_t)py * w3 + (kin ? k % p3 - (k % p3) % 3 + 2 - (k % p3) % 3 : 0);"
+# K26 dropping the last K tile (K 300 = 18 x 16 + 12 in f32; 1024 = 32 x 32
+# in bf16, the whole last tile)
+run_copy k26_no_last_k_tile streamed_gemm.cu \
+  "const int nk = (K + HB_K - 1) / HB_K;" "const int nk = (K - 1) / HB_K;" \
+  "const int nk = (K + HF_K - 1) / HF_K;" "const int nk = (K - 1) / HF_K;"
+# K4's key-tiled safe softmax taking each row's max over the last key tile
+# only (key 576 alone at 577 keys): exp(s - max) overflows on wide scores
+run_copy k4_long_safe_one_tile_max attn.cuh \
+  "if (lane == 0) rmax[r] = fmaxf(rmax[r], mx);" "if (lane == 0) rmax[r] = mx;"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

@@ -221,10 +221,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 def test_cuda_shape_checks_refuse_what_the_kernels_do_not_take(
         shape, heads, n_valid, dtype):
     """The checks a CUDA tensor meets before K4 / K23 launch (device
-    independent, so meta tensors reach them): they raise, no fallback."""
+    independent, so meta tensors reach them): they raise, no fallback.
+    K23's gate stops at 256 tokens; K4's takes the key-tiled lengths up to
+    1024 (its n_valid-past-256 case passes there) and stops past them."""
+    x = torch.empty(shape, dtype=dtype, device="meta")
     with pytest.raises(ValueError):
-        tab._cuda_geometry(torch.empty(shape, dtype=dtype, device="meta"),
-                           heads, n_valid)
-    b, n, d, nv = tab._cuda_geometry(
-        torch.empty((2, 40, 128), dtype=torch.bfloat16, device="meta"), 2, 33)
-    assert (b, n, d, nv) == (2, 40, 128, 33)
+        tab._cuda_geometry(x, heads, n_valid, kernel="K23")
+    if n_valid > 256:
+        assert tab._cuda_geometry(x, heads, n_valid, kernel="K4") == (
+            *shape, n_valid)
+        with pytest.raises(ValueError, match="K4 takes at most 1024"):
+            tab._cuda_geometry(
+                torch.empty((1, 1032, 128), dtype=dtype, device="meta"),
+                heads, 1032, kernel="K4")
+    else:
+        with pytest.raises(ValueError):
+            tab._cuda_geometry(x, heads, n_valid, kernel="K4")
+    for kernel in ("K4", "K23"):
+        b, n, d, nv = tab._cuda_geometry(
+            torch.empty((2, 40, 128), dtype=torch.bfloat16, device="meta"),
+            2, 33, kernel=kernel)
+        assert (b, n, d, nv) == (2, 40, 128, 33)

@@ -38,8 +38,11 @@ FAMILY_MODULES = ("vit_fpga_tpu_torch.models.clip",
 # the per-block encoder's sequence attention (K7, K8, K9)
 PER_BLOCK_MODULES = ("vit_fpga_tpu_torch.ops.attention",
                      "vit_fpga_tpu_torch.ops.flash_attention")
+# the ops no model path calls: K10 (uint8 patch embed) and K26 (streamed GEMM)
+OP_MODULES = ("vit_fpga_tpu_torch.ops.patch_embed",
+              "vit_fpga_tpu_torch.ops.streamed_gemm")
 ALL_MODULES = (INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
-               + FAMILY_MODULES + PER_BLOCK_MODULES)
+               + FAMILY_MODULES + PER_BLOCK_MODULES + OP_MODULES)
 
 
 def _port_files():

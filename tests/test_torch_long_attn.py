@@ -2,14 +2,16 @@
 Hopper kernel K1) past 256 keys, where the kernel streams the keys in
 tiles, against the JAX Pallas kernel in interpret mode: CLIP ViT-L/14's
 257 tokens on 264 rows and ViT-L/16 @384's 577 on 584, at a narrow width
-(D 128, 2 heads of 64)."""
+(D 128, 2 heads of 64).  And the per-block half (K4) past 256 keys, in
+both softmax modes, against the JAX attn_block_pallas."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vit_fpga_tpu.ops.attn_block import STATS_LANES, attn_block_stats_pallas
+from vit_fpga_tpu.ops.attn_block import (STATS_LANES, attn_block_pallas,
+                                         attn_block_stats_pallas)
 from vit_fpga_tpu_torch.ops import attn_block as tab
 
 D, NH = 128, 2
@@ -123,3 +125,63 @@ def test_long_attn_rejects_unsupported_device():
             torch.empty((1, 264, D), device="meta"),
             torch.empty((1, 264, 2), device="meta"),
             *[torch.from_numpy(p[k]) for k in _PARAMS], NH, n_valid=257)
+
+
+@pytest.mark.parametrize("safe", [True, False], ids=["safe", "maxfree"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_long_plain_matches_pallas(safe, dtype):
+    """K4's plain version at 300 valid keys on 304 rows (past the 256 keys
+    of its whole-head tile: on the card the key-tiled tile, which in the
+    exact mode takes the row max in a first sweep) against the JAX
+    attn_block_pallas in interpret mode.  f32: summation order only
+    (1e-5); bf16: both round qkv, e and the attention output at the same
+    points (2 bf16 ulps of |want| plus 2^-8)."""
+    n_pad, n_valid = 304, 300
+    dj, dt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
+              else (jnp.float32, torch.float32))
+    p = _inputs(11, n_pad)
+    x_j = jnp.asarray(p["x"]).astype(dj)
+    want = attn_block_pallas(x_j, *[jnp.asarray(p[k]) for k in _PARAMS], NH,
+                             n_valid=n_valid, safe_softmax=safe,
+                             interpret=True)
+    got = tab.attn_block_fwd(
+        torch.from_numpy(np.array(x_j.astype(jnp.float32))).to(dt),
+        *[torch.from_numpy(p[k]) for k in _PARAMS], NH, n_valid=n_valid,
+        safe_softmax=safe)
+    g = got.float().numpy()[:, :n_valid]
+    w = np.asarray(want.astype(jnp.float32))[:, :n_valid]
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(g, w, rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+def test_k4_long_safe_softmax_takes_wide_scores():
+    """Scores far outside the max-free clip window (q and k 20x larger,
+    scores past exp's f32 range): the exact mode's plain version stays
+    finite and matches the JAX kernel in relative norm of the branch.  The
+    400x wider scores turn a score's f32 rounding (1e-7 of scores of order
+    100) into 1e-5 of its e, so the band is 1e-4 rather than the 1e-5 of
+    quiet scores.  chip_smoke.py holds the key-tiled safe tile to this
+    case."""
+    n_pad, n_valid = 304, 300
+    p = _inputs(12, n_pad)
+    p = dict(p, wqkv=p["wqkv"].copy())
+    p["wqkv"][:, :2 * D] *= 20.0
+    xn = p["x"][0] - p["x"][0].mean(-1, keepdims=True)
+    xn = xn / np.sqrt((xn * xn).mean(-1, keepdims=True) + 1e-6)
+    qkv = (xn * p["ls"] + p["lb"]) @ p["wqkv"] + p["bqkv"]
+    scores = qkv[:, :64] @ qkv[:n_valid, D:D + 64].T / 8.0
+    assert scores.max() > 100.0        # exp(s) alone overflows f32
+    want = attn_block_pallas(jnp.asarray(p["x"]),
+                             *[jnp.asarray(p[k]) for k in _PARAMS], NH,
+                             n_valid=n_valid, safe_softmax=True,
+                             interpret=True)
+    got = tab.attn_block_fwd(torch.from_numpy(p["x"]),
+                             *[torch.from_numpy(p[k]) for k in _PARAMS], NH,
+                             n_valid=n_valid, safe_softmax=True)
+    g = got.numpy()[:, :n_valid]
+    w = np.asarray(want)[:, :n_valid]
+    assert np.isfinite(g).all()
+    x = p["x"][:, :n_valid]
+    assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w - x)

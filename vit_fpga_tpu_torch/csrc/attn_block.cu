@@ -12,7 +12,12 @@
 //   (c) attn_kernel     per (image, head): s = (q k^T) * scale in f32, keys
 //                       at or past n_valid masked; e = exp(s - max) (safe) or
 //                       exp(clip(s, -70, 80)) (max-free);
-//                       ao = bf16((bf16(e) @ v) * (1 / sum(e)))
+//                       ao = bf16((bf16(e) @ v) * (1 / sum(e)));
+//                       past ATT_MAX_KV (256) keys attn_long_kernel, the
+//                       same function with the keys streamed in 64-key
+//                       tiles (attn.cuh), up to ATT_MAX_LONG (1024) tokens:
+//                       max-free in one sweep, safe in two (the row max
+//                       first, then e against it)
 //   (d) gemm_bf16       out = x + bf16(ao @ Wo + bo)
 //
 // What bounds it on the H100: at ViT-B/16 batch 64 the launch does about
@@ -22,7 +27,10 @@
 // per (image, head) holding the head's keys and values, scores and
 // probabilities in shared memory; qkv and the attention output
 // round-trip through device memory, and the GEMMs use wmma fragments
-// (wgmma is later work).
+// (wgmma is later work).  Past 256 keys a block no longer holds a head's
+// keys and values, so the key-tiled tile streams them, and in the safe
+// mode computes QK^T twice (CLIP ViT-L/14 at batch 1: 257 tokens, 16
+// heads; ViT-B/16 @384: 577 tokens).
 
 #define VFT_NS attn_block
 #include "common.cuh"
@@ -39,23 +47,29 @@ int vft_attn_block_init() {
   cudaError_t err = gemm_init();
   if (err != cudaSuccess) return err;
   if ((err = attn_enable<true>()) != cudaSuccess) return err;
-  return attn_enable<false>();
+  if ((err = attn_enable<false>()) != cudaSuccess) return err;
+  if ((err = attn_long_enable<true>()) != cudaSuccess) return err;
+  return attn_long_enable<false>();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16;
 // bqkv: (3D,) f32; wo: (D, D) bf16.  Scratch: stats (B * n_pad, 2) f32,
 // qkv (B * n_pad, 3D) and ao (B * n_pad, D) bf16.  Head dim 64,
-// 1 <= n_valid <= 256, safe selects the max-subtract softmax.  Everything
-// is enqueued on `stream`, which belongs to the current device.  Returns a
-// cudaError_t.
+// 1 <= n_valid <= n_pad <= ATT_MAX_LONG (1024): up to 256 valid keys take
+// attn_kernel, more the key-tiled attn_long_kernel.  safe selects the
+// max-subtract softmax.  *long_path is set to 1 when the key-tiled
+// attn_long_kernel was launched and 0 otherwise; this entry is the only
+// place that chooses.  Everything is enqueued on `stream`, which belongs
+// to the current device.  Returns a cudaError_t.
 int vft_attn_block_fwd(const void* x, const void* ls, const void* lb, const void* wqkv,
                        const void* bqkv, const void* wo, const void* bo, void* out, void* stats,
                        void* qkv, void* ao, int batch, int n_pad, int d, int heads, int n_valid,
-                       int safe, float eps, float scale, void* stream) {
+                       int safe, float eps, float scale, void* stream, int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int rows = batch * n_pad;
   const int kvp = (n_valid + 15) / 16 * 16;
-  if (d != heads * ATT_DH || n_valid < 1 || kvp > ATT_MAX_KV) return cudaErrorInvalidValue;
+  if (d != heads * ATT_DH || n_valid < 1 || n_valid > n_pad || n_pad > ATT_MAX_LONG)
+    return cudaErrorInvalidValue;
   cudaError_t err;
 
   if ((err = launch_row_stats(static_cast<const bf16*>(x), static_cast<float*>(stats), rows, d,
@@ -75,10 +89,15 @@ int vft_attn_block_fwd(const void* x, const void* ls, const void* lb, const void
   g.K = d;
   if ((err = launch_gemm(true, g, st)) != cudaSuccess) return err;
 
-  err = safe ? launch_attn<true>(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
-                                 n_pad, n_valid, kvp, d, heads, scale, st)
-             : launch_attn<false>(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
-                                  n_pad, n_valid, kvp, d, heads, scale, st);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  bf16* a = static_cast<bf16*>(ao);
+  *long_path = kvp > ATT_MAX_KV;
+  if (!*long_path)
+    err = safe ? launch_attn<true>(q, a, batch, n_pad, n_valid, kvp, d, heads, scale, st)
+               : launch_attn<false>(q, a, batch, n_pad, n_valid, kvp, d, heads, scale, st);
+  else
+    err = safe ? launch_attn_long<true>(q, a, batch, n_pad, n_valid, d, heads, scale, st)
+               : launch_attn_long<false>(q, a, batch, n_pad, n_valid, d, heads, scale, st);
   if (err != cudaSuccess) return err;
 
   GemmArgs o{};

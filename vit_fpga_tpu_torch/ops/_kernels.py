@@ -33,7 +33,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "vit_stack_int8_static.cu", "image_filter.cu", "int8_gemm.cu",
            "mlp_chunk_stats.cu", "vit_full.cu", "vit_full_int8.cu",
            "mlp_chunk.cu", "mha.cu", "flash_attn.cu", "mlp_int8_stats.cu",
-           "attn_int8_stats.cu", "attn_int8_scores.cu")
+           "attn_int8_stats.cu", "attn_int8_scores.cu", "patch_embed.cu",
+           "streamed_gemm.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
            "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "chunk.cuh",
            "seq_attn.cuh")
@@ -63,7 +64,8 @@ _SIGNATURES = {
     "vft_fused_mlp_chunked_stats": (
         [_P] * 11 + [_I] * 5 + [_F, _P], ctypes.c_int),
     "vft_attn_block_init": ([], ctypes.c_int),
-    "vft_attn_block_fwd": ([_P] * 11 + [_I] * 6 + [_F, _F, _P], ctypes.c_int),
+    "vft_attn_block_fwd": ([_P] * 11 + [_I] * 6 + [_F, _F, _P, ctypes.POINTER(_I)],
+                           ctypes.c_int),
     "vft_fused_mlp_init": ([], ctypes.c_int),
     "vft_fused_mlp": ([_P] * 10 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "vft_attn_bwd_init": ([], ctypes.c_int),
@@ -125,6 +127,8 @@ _SIGNATURES = {
     "vft_attn_int8_scores_init": ([], ctypes.c_int),
     "vft_attn_block_int8_scores": ([_P] * 12 + [_I] * 5 + [_F] * 3 + [_P],
                                    ctypes.c_int),
+    "vft_patch_embed": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int),
+    "vft_streamed_gemm": ([_P] * 3 + [_I] * 4 + [_P], ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
 # Each source's init entry point, run once per device before its launches.

@@ -13,10 +13,12 @@ CPU tensor:
 * K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
   replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
   one-pass LN statistics computed in the kernel and the exact
-  (``safe_softmax``) or max-free softmax;
+  (``safe_softmax``) or max-free softmax, up to 1024 tokens: past 256
+  valid keys it takes K1's key-tiled tile, which in the exact mode sweeps
+  the keys twice (the row max first, then ``exp(s - max)``);
 * K23 ``attn_block_bwd`` (``csrc/attn_bwd.cu``), K4's backward: replaces
   ``_attn_bwd_kernel`` (wrapper ``attn_block_bwd_pallas``), the per-head
-  arithmetic of its non-pair branch.
+  arithmetic of its non-pair branch, up to 256 tokens.
 
 ``attn_block`` is the differentiable half (``AttnBlockFunction``): K4
 forward, K23 backward, saving only the inputs, as the JAX ``custom_vjp``.
@@ -62,8 +64,11 @@ _NEG_INF = -1e30
 # entry chooses between the whole-head and the key-tiled attention tile and
 # reports which it launched.  Where the JAX package keeps the chain
 # (attn_plan below), it runs K1 up to 3137 tokens (ViT-B/16 @896 px); past
-# 1024 the port's K1 raises on the card.
+# 1024 the port's K1 raises on the card.  K4 takes the same tile and
+# limit; its backward K23 holds a head's keys in one block, up to
+# BWD_MAX_TOKENS.
 LONG_MAX_TOKENS = 1024
+BWD_MAX_TOKENS = 256
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
 
@@ -274,8 +279,11 @@ attn_block_stats.launches_long = 0    # of those, the key-tiled path's
 # K4 (per-block forward) and K23 (its backward)
 # ---------------------------------------------------------------------------
 
-def _cuda_geometry(x, num_heads, n_valid):
-    """Shape checks shared by the K4 / K23 launches: (b, n, d, n_valid)."""
+def _cuda_geometry(x, num_heads, n_valid, *, kernel):
+    """Shape checks shared by the K4 / K23 launches: (b, n, d, n_valid).
+    ``kernel`` names the launch, whose token limit applies: K4 up to
+    LONG_MAX_TOKENS (its key-tiled tile past 256 keys), K23 up to
+    BWD_MAX_TOKENS."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -284,15 +292,17 @@ def _cuda_geometry(x, num_heads, n_valid):
         raise ValueError(f"kernel needs D divisible by 32 and by {num_heads} "
                          f"heads (D={d})")
     if d // num_heads != 64 or n_valid < 1:
-        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
-                         f"(dh={d // num_heads}, n_valid={n_valid})")
-    if n_valid > 256:
+        raise ValueError(f"kernel takes head dim 64 and at least one valid "
+                         f"token (dh={d // num_heads}, n_valid={n_valid})")
+    limit = LONG_MAX_TOKENS if kernel == "K4" else BWD_MAX_TOKENS
+    if n > limit:
         # The JAX plan sends CLIP ViT-L/14 (257 tokens) and ViT-B/16 @384
-        # at an odd batch here (q-slot reuse leaves the stats chain).
-        raise ValueError(f"n_valid={n_valid}: the per-block attention "
-                         f"kernels (K4, K23) take at most 256 keys; their "
-                         f"long-key tile is not ported yet (ROADMAP.md, "
-                         f"section 1)")
+        # at an odd batch to the fused half (q-slot reuse leaves the stats
+        # chain): K4 serves them; training them needs K23 past 256 keys.
+        what = ("the attention backward K23" if kernel == "K23"
+                else "the per-block attention K4")
+        raise ValueError(f"n_pad={n}: {what} takes at most {limit} tokens "
+                         f"(ROADMAP.md, section 1)")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     return b, n, d, n_valid
 
@@ -318,7 +328,8 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
     """Per-block attention half (K4): x (B, N, D) -> x + OutProj(MHA(QKV(
     LN(x)))).  Query rows at or past ``n_valid`` are computed, keys there
     masked.  A CPU tensor runs :func:`attn_block_fwd_plain`; a CUDA tensor
-    launches the kernel (bf16, head dim 64, n_valid <= 256) or raises."""
+    launches the kernel (bf16, head dim 64, n_pad <= 1024; past 256 valid
+    keys the key-tiled tile, counted in ``launches_long``) or raises."""
     if not residual:
         raise NotImplementedError(
             "residual=False (the tensor-parallel partial) comes with the "
@@ -329,7 +340,7 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
                                     safe_softmax=safe_softmax)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid)
+    b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid, kernel="K4")
     dev = x.device
     f32, bf = torch.float32, torch.bfloat16
     ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
@@ -339,6 +350,7 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
     wo = kernel_operand(wo, (d, d), bf, dev, "wo")
     bo = kernel_operand(bo, (d,), f32, dev, "bo")
     out = torch.empty_like(x)
+    long_path = ctypes.c_int(0)
     stats = torch.empty((b * n, 2), dtype=f32, device=dev)
     qkv = torch.empty((b * n, 3 * d), dtype=bf, device=dev)
     ao = torch.empty((b * n, d), dtype=bf, device=dev)
@@ -349,13 +361,15 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
             stats.data_ptr(), qkv.data_ptr(), ao.data_ptr(), b, n, d,
             num_heads, n_valid, int(safe_softmax), float(eps),
-            1.0 / math.sqrt(d // num_heads), stream)
+            1.0 / math.sqrt(d // num_heads), stream, ctypes.byref(long_path))
     _kernels.check(err, "attn_block_fwd")
     attn_block_fwd.launches += 1
+    attn_block_fwd.launches_long += long_path.value
     return out
 
 
 attn_block_fwd.launches = 0
+attn_block_fwd.launches_long = 0      # of those, the key-tiled path's
 
 
 def attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,
@@ -421,9 +435,9 @@ def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
                                     num_heads, eps=eps, n_valid=n_valid)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid)
-    if n > 256 or (b * n) % 8:
-        raise ValueError(f"backward kernel takes n_pad <= 256 and B*n_pad a "
+    b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid, kernel="K23")
+    if (b * n) % 8:
+        raise ValueError(f"the attention backward K23 takes B*n_pad a "
                          f"multiple of 8 (B={b}, n_pad={n})")
     check_activation(g, (b, n, d), torch.bfloat16, "g")
     dev = x.device

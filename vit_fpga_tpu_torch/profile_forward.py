@@ -64,7 +64,8 @@ import torch
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1's
-# key-tiled attention past 256 keys is attn_half::attn_long_kernel),
+# key-tiled attention past 256 keys is attn_half::attn_long_kernel, K4's
+# attn_block::attn_long_kernel),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # int8 GEMM's template
 # argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
@@ -123,6 +124,7 @@ STAGES = (
     ("int8_gemm::", "K13 int8 GEMM"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
     ("attn_block::gemm_bf16_kernel<true", "K4 (b) LN + QKV GEMM"),
+    ("attn_block::attn_long_kernel", "K4 (c) attention, key-tiled"),
     ("attn_block::attn_kernel", "K4 (c) attention"),
     ("attn_block::gemm_bf16_kernel<false", "K4 (d) out-proj + residual"),
     ("mlp::ln_rows_kernel", "K5 (a) LN stats"),
