@@ -141,7 +141,11 @@ Phases, each of which raises on failure (exit code != 0):
               @1024's packed (1, 4104, 2304) qkv with 4097 valid keys, K9
               also at bk 512 and 1100 tokens, K7 in f32 at the per-tensor
               path's (64, 197, 2304), K8 in bf16 and f32, loud padding keys
-              that must leave the valid rows bit for bit, K6 at ViT-L's and
+              that must leave the valid rows bit for bit, the bf16 K7 / K8
+              (wgmma + TMA) at one partial tile (17, 64 tokens), at a key
+              tile's edge (127-129 valid of 200), at 224 px and (3, 12,
+              300, 64), also in norm, and into views of a loud buffer
+              whose other rows and heads must not change, K6 at ViT-L's and
               ViT-H's MLP shapes in 2 and 4 chunks against its plain version
               and away from K5's function, the gates; their times beside the
               plain version, scaled_dot_product_attention (K6: LN + addmm +
@@ -3479,6 +3483,51 @@ def _unmoved_heads(label, fn, q, k, v, n_valid):
         raise AssertionError(f"{label}: padding keys moved the output")
 
 
+def _seq_case(label, kernel, plain, *args):
+    """One bf16 K7 / K8 case: the kernel against its plain version
+    elementwise at BF16_TOL and in norm at BRANCH_TOL (the ulp flips move
+    the output by ~1e-3 in norm; a key wrongly kept among 17 by ~1/18)."""
+    got, want = kernel(*args), plain(*args)
+    err = _compare(label, got, want, BF16_TOL, BF16_TOL)
+    _relnorm(f"{label} in norm", got, want, BRANCH_TOL)
+    return err
+
+
+def _out_view_case(label, q, k, v, n_valid, packed):
+    """The bf16 K7 / K8 kernel writing into a view of a larger buffer filled
+    with a loud value: packed, (B, N, H, 64) columns of a (B, N + 8,
+    (H + 1) 64) buffer; else (B, H, N, 64) of (B, H + 1, N + 8, 64).  The
+    view is held to the plain version, every element outside it (later
+    rows, another head's columns) must come back bit for bit."""
+    from vit_fpga_tpu_torch.ops import attention as at
+    from vit_fpga_tpu_torch.ops.flash_attention import launch_strided
+    b, h, n, dh = q.shape
+    loud = 4096.0
+    if packed:
+        shape = (b, n + 8, (h + 1) * dh)
+
+        def view(t):
+            return t[:, :n, :h * dh].view(b, n, h, dh).transpose(1, 2)
+    else:
+        shape = (b, h + 1, n + 8, dh)
+
+        def view(t):
+            return t[:, :h, :n]
+    buf = torch.full(shape, loud, dtype=q.dtype, device=q.device)
+    inside = torch.zeros(shape, dtype=torch.bool, device=q.device)
+    view(inside).fill_(True)
+    launch_strided(label, "vft_mha", q, k, v, view(buf), n_valid, 0)
+    torch.cuda.synchronize()
+    err = _compare(label, view(buf), at.mha_pallas_plain(q, k, v, n_valid),
+                   BF16_TOL, BF16_TOL)
+    moved = int((buf[~inside] != loud).sum())
+    print(f"  {label}: {moved} of {int((~inside).sum())} elements outside "
+          f"the view changed (must be 0)")
+    if moved:
+        raise AssertionError(f"{label}: wrote outside its out view")
+    return err
+
+
 def _chunk_terms(x, p, act, n_chunks):
     """sum_c |y_c| per output element (f32, the plain activation): the
     magnitudes K6's running output passes through between chunk
@@ -3505,8 +3554,13 @@ def phase_per_block_kernels():
     512; K7 bf16 on the same qkv and f32 at the per-tensor path's (64, 197,
     2304) and (4, 200, 2304) with 197 valid; K8 at (2, 12, 300, 64) with
     257 valid, bf16 and f32; K8 and K9 (bk 512) at attention.mha's (1, 12,
-    4104, 64) with 4097 valid; loud padding keys that must leave the valid
-    rows bit for bit (K9 both bk, K7 both types, K8); K6 at ViT-L's (1600, 1024) x
+    4104, 64) with 4097 valid; K7 / K8 bf16 at the wgmma kernel's edges
+    (17 and 64 tokens, 127 / 128 / 129 valid of 200, K7 at (64, 197, 2304)
+    and (64, 200, 2304) with 197 valid, K8 at (3, 12, 300, 64) with 257),
+    also in norm, and writing into out views of a loud buffer whose other
+    elements must come back bit for bit; loud padding keys that must leave
+    the valid rows bit for bit (K9 both bk, K7 both types, K8); K6 at
+    ViT-L's (1600, 1024) x
     4096 in 2 chunks and ViT-H's (2112, 1280) x 5120 in 4, each activation,
     with its distance from K5's function (at least half the plain versions'
     share of differing elements); then the gates.
@@ -3582,6 +3636,43 @@ def phase_per_block_kernels():
                           BF16_TOL))
     _unmoved_heads("K9 bk=512 @1024", fa.flash_attention, q, k, v, nv)
 
+    print("parity K7 / K8 bf16 at the wgmma kernel's edges: one partial "
+          "tile (n 17, 64), the key tile's edge (n_valid 127, 128, 129 of "
+          "200), K7 at the 224-px path's (64, 197, 2304), K8 at (3, 12, 300, "
+          "64) with 257 valid, out views into a loud buffer")
+    for n, nv in ((17, 17), (64, 64), (200, 127), (200, 128), (200, 129)):
+        qkv = _seq_qkv(2, n, 128, seed=190 + nv)
+        k7 = max(k7, _seq_case(f"K7 bf16 (2, {n}, 384) n_valid={nv}",
+                               at.mha_qkv_pallas, at.mha_qkv_pallas_plain,
+                               qkv, 2, nv))
+        _unmoved(f"K7 bf16 (2, {n}, 384)",
+                 lambda t: at.mha_qkv_pallas(t, 2, nv), qkv, nv)
+        q, k, v = (t.contiguous() for t in at._heads(qkv, 2))
+        k8 = max(k8, _seq_case(f"K8 bf16 (2, 2, {n}, 64) n_valid={nv}",
+                               at.mha_pallas, at.mha_pallas_plain, q, k, v,
+                               nv))
+        _unmoved_heads(f"K8 bf16 (2, 2, {n}, 64)", at.mha_pallas, q, k, v, nv)
+    qkv = _seq_qkv(64, 197, 768, seed=195)
+    k7 = max(k7, _seq_case("K7 bf16 (64, 197, 2304)", at.mha_qkv_pallas,
+                           at.mha_qkv_pallas_plain, qkv, 12, 197))
+    qkv = _seq_qkv(64, 200, 768, seed=196)
+    k7 = max(k7, _seq_case("K7 bf16 (64, 200, 2304) n_valid=197",
+                           at.mha_qkv_pallas, at.mha_qkv_pallas_plain, qkv,
+                           12, 197))
+    _unmoved("K7 bf16 (64, 200, 2304)",
+             lambda t: at.mha_qkv_pallas(t, 12, 197), qkv, 197)
+    g = _gen(197)
+    q, k, v = (_randn(g, 3, 12, 300, 64, std=2.0).to(torch.bfloat16)
+               for _ in range(3))
+    k8 = max(k8, _seq_case("K8 bf16 (3, 12, 300, 64) n_valid=257",
+                           at.mha_pallas, at.mha_pallas_plain, q, k, v, 257))
+    _unmoved_heads("K8 bf16 (3, 12, 300, 64)", at.mha_pallas, q, k, v, 257)
+    k8 = max(k8, _out_view_case("K8 bf16 out view (3, 12, 300, 64) "
+                                "n_valid=257", q, k, v, 257, packed=False))
+    q, k, v = at._heads(_seq_qkv(3, 200, 768, seed=198), 12)
+    k7 = max(k7, _out_view_case("K7 bf16 out view (3, 200, 2304) "
+                                "n_valid=129", q, k, v, 129, packed=True))
+
     print("parity K6 fused_mlp_chunked: ViT-L (1600, 1024) x 4096 in 2 "
           "chunks, ViT-H (2112, 1280) x 5120 in 4")
     k6 = 0.0
@@ -3624,6 +3715,10 @@ def phase_per_block_kernels():
     _expect_raise("K7 head dim 80", lambda: at.mha_qkv_pallas(
         torch.zeros(1, 64, 480, dtype=torch.bfloat16, device="cuda"), 2))
     _expect_raise("K8 f16", lambda: at.mha_pallas(*(q32.half(),) * 3))
+    q68 = torch.zeros(1, 1, 64, 68, dtype=torch.bfloat16,
+                      device="cuda")[..., :64]
+    _expect_raise("K8 bf16 rows 136 bytes apart",
+                  lambda: at.mha_pallas(q68, q68, q68))
     x, _, p = _mlp_inputs(64, 128, 384, seed=170)
     _expect_raise("K6 n_chunks=3", lambda: _k6_call(
         fm.fused_mlp_chunked_fwd, x, p, "gelu_tanh", 3))
@@ -3656,7 +3751,8 @@ def _seq_timing(label, kernel, plain, library, flops, nbytes, bound=_bound):
 def phase_per_block_timing():
     """K9 at ViT-B/16 @1024 b1 (the JSON line) and b4; K7 in f32 at the
     per-tensor path's (64, 197, 2304) (the JSON line) and in bf16 at
-    4104 rows; K8 at (1, 12, 4104, 64); K6 at ViT-L b8's (1600, 1024) x
+    4104 rows and at (64, 197, 2304); K8 at (1, 12, 4104, 64); K6 at ViT-L
+    b8's (1600, 1024) x
     4096 in 2 chunks.  Yardsticks: scaled_dot_product_attention (f32 with
     TF32 off), for K6 LN + two chunks of addmm + tanh-GELU + addmm."""
     import torch.nn.functional as F
@@ -3696,6 +3792,13 @@ def phase_per_block_timing():
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        attn_mask=keep),
                 flops, nbytes)
+    qb = _seq_qkv(64, 197, 768, seed=177)
+    qs = [t.contiguous() for t in at._heads(qb, heads)]
+    _seq_timing("K7 bf16 (64, 197, 2304)",
+                lambda: at.mha_qkv_pallas(qb, heads),
+                lambda: at.mha_qkv_pallas_plain(qb, heads),
+                lambda: F.scaled_dot_product_attention(*qs),
+                4 * 64 * heads * 197 * 197 * 64, 64 * 197 * 4 * 768 * 2)
     qf = _seq_qkv(64, 197, 768, seed=175, dtype=torch.float32)
     qs = [t.contiguous() for t in at._heads(qf, heads)]
     with true_f32():

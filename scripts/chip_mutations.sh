@@ -67,15 +67,24 @@ run_copy k20_head_no_rowquant stack_i8.cuh \
 # running max
 run_copy k9_no_alpha_rescale seq_attn.cuh \
   "const float alpha = expf(m[rr] - mn);" "const float alpha = 1.0f;"
-# K7 and K8 with the n_valid mask one key late (the zero-filled key at
-# n_valid joins the softmax), bf16 and f32
-run_copy k7_k8_mask_one_late seq_attn.cuh \
-  "const bool ok = key0 + j * 8 + (e & 1) < p.n_valid;" \
-  "const bool ok = key0 + j * 8 + (e & 1) < p.n_valid + (FLASH ? 0 : 1);" \
+# K7 and K8 in bf16 with the n_valid mask one key late (the key at n_valid,
+# zero-filled by TMA, joins the softmax: 1/18 of the output at 17 keys)
+run_copy k7_k8_mask_one_late mha_wgmma.cuh \
+  "return key0 + 8 * (x >> 2) + (x & 1) >= n_valid ? -INFINITY : s[x];" \
+  "return key0 + 8 * (x >> 2) + (x & 1) >= n_valid + 1 ? -INFINITY : s[x];"
+# K7 and K8 in f32 with the same mask one key late
+run_copy k7_k8_f32_mask_one_late seq_attn.cuh \
   "const bool ok0 = t * SF_KT + lane < p.n_valid;" \
   "const bool ok0 = t * SF_KT + lane <= p.n_valid;" \
   "const bool ok1 = t * SF_KT + lane + 32 < p.n_valid;" \
   "const bool ok1 = t * SF_KT + lane + 32 <= p.n_valid;"
+# The bf16 K7 / K8 ring without the V tiles of pass 2: the producer loads
+# and expects K alone, so p v reads whatever the V slots held before
+run_copy k7_k8_ring_no_v_load mha_wgmma.cuh \
+  "mbar_expect_tx(full(s), pv ? 2 * MW_TILE_BYTES : MW_TILE_BYTES);" \
+  "mbar_expect_tx(full(s), MW_TILE_BYTES);" \
+  "if (pv) tma_load_4d(ks + MW_TILE_BYTES, &tv, full(s), 0, key0, h, b);" \
+  ""
 # K6 with its chunk loop collapsed to one chunk: no bf16 rounding of the
 # running output between chunks, i.e. K5's function
 run_copy k6_one_chunk mlp_chunk.cu \

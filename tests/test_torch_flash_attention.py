@@ -71,15 +71,30 @@ def test_flash_block_size_is_part_of_the_function():
                                rtol=1e-5, atol=1e-5)
 
 
+# (n, n_valid, batch) of the K7 / K8 parity tests: the JAX tests' shapes,
+# then the card kernel's edges (one partial 128-key tile at 17 and 64
+# tokens; n_valid at, one before and one past a key tile's end), one at
+# batch 3.  The ids of the first three are the ones they had without batch.
+SEQ_CASES = [
+    pytest.param(200, None, 2, id="200-None"),
+    pytest.param(200, 197, 2, id="200-197"),
+    pytest.param(300, 257, 2, id="300-257"),
+    pytest.param(17, None, 2, id="17-None"),
+    pytest.param(64, None, 2, id="64-None"),
+    pytest.param(200, 127, 2, id="200-127"),
+    pytest.param(200, 128, 2, id="200-128"),
+    pytest.param(200, 129, 3, id="200-129-b3"),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,n_valid", [(200, None), (200, 197),
-                                       (300, 257)])
-def test_mha_qkv_pallas_plain_matches_pallas(n, n_valid, dtype):
+@pytest.mark.parametrize("n,n_valid,batch", SEQ_CASES)
+def test_mha_qkv_pallas_plain_matches_pallas(n, n_valid, batch, dtype):
     """K7's plain version vs ``mha_qkv_pallas(interpret=True)`` on packed
-    (2, n, 3 * 128) qkv, 2 heads of 64, with and without n_valid < n."""
+    (batch, n, 3 * 128) qkv, 2 heads of 64, with and without n_valid < n."""
     rng = np.random.default_rng(n)
     dj = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    qkv_j = jnp.asarray(rng.normal(size=(2, n, 384)).astype(np.float32)
+    qkv_j = jnp.asarray(rng.normal(size=(batch, n, 384)).astype(np.float32)
                         ).astype(dj)
     qkv_t = torch.from_numpy(np.array(qkv_j.astype(jnp.float32))).to(
         getattr(torch, dtype))
@@ -89,14 +104,31 @@ def test_mha_qkv_pallas_plain_matches_pallas(n, n_valid, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,n_valid", [(197, None), (300, 257)])
-def test_mha_pallas_plain_matches_pallas(n, n_valid, dtype):
-    """K8's plain version vs ``mha_pallas(interpret=True)`` on (2, 2, n,
+@pytest.mark.parametrize("n,n_valid,batch", [
+    pytest.param(197, None, 2, id="197-None"),
+    pytest.param(300, 257, 2, id="300-257"),
+    *SEQ_CASES[3:]])
+def test_mha_pallas_plain_matches_pallas(n, n_valid, batch, dtype):
+    """K8's plain version vs ``mha_pallas(interpret=True)`` on (batch, 2, n,
     64): N padded to 128 on the TPU, which changes nothing."""
-    js, ts = _qkv(n + 1, (2, 2, n, 64), dtype)
+    js, ts = _qkv(n + 1, (batch, 2, n, 64), dtype)
     want = jatt.mha_pallas(*js, n_valid=n_valid, interpret=True)
     got = tatt.mha_pallas(*ts, n_valid=n_valid)
     _close(got, want, dtype)
+
+
+def test_tma_stride_gate_names_the_kernel():
+    """The bf16 K7 / K8 kernel reads its operands by TMA, whose base
+    addresses and strides are whole 16-byte units: the launch gate refuses
+    a view whose rows are 136 bytes apart, naming the kernel, and takes
+    the packed qkv tensor's column blocks (rows 768 bytes apart)."""
+    q68 = torch.zeros(1, 1, 64, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="K8 mha_pallas: q must start "
+                       "16-byte aligned"):
+        tflash._strides(q68, "q", "K8 mha_pallas")
+    qkv = torch.zeros(2, 10, 384, dtype=torch.bfloat16)
+    assert (tflash._strides(tatt._heads(qkv, 2)[1], "k", "K7")
+            == (3840, 64, 384))
 
 
 def test_k7_and_k8_are_one_function():

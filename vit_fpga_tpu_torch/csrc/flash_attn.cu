@@ -5,7 +5,7 @@
 //
 // Replaces vit_fpga_tpu/ops/flash_attention.py:_flash_kernel (wrapper
 // flash_attention, reached through attention.py:_mha_qkv_flash_impl):
-// seq_attn_kernel<true> (seq_attn.cuh), one launch.  The packed (B, N, 3D)
+// seq_attn_kernel (seq_attn.cuh), one launch.  The packed (B, N, 3D)
 // qkv tensor and the (B, H, N, Dh) layout are both read by strides; the
 // output is written as (B, N, H, Dh), so the packed path's merge of the
 // heads is a view.  The key block bk is part of the function (p is rounded
@@ -29,7 +29,7 @@ extern "C" {
 
 // Opts the kernel in to its shared memory on the current device.  Called
 // once per device before the first launch.  Returns a cudaError_t.
-int vft_flash_init() { return seq_attn_enable<true>(); }
+int vft_flash_init() { return seq_attn_enable(); }
 
 // q, k, v: bf16, element (b, h, r, c) at b * in_b + h * in_h + r * in_r + c
 // (c < 64, every row 16-byte aligned); o likewise with the out_* strides.
@@ -41,7 +41,7 @@ int vft_flash_attention(const void* q, const void* k, const void* v, void* o, lo
                         int batch, int heads, int n, int n_valid, int bk, float scale,
                         void* stream) {
   SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, bk, scale};
-  return launch_seq_attn<true>(p, batch, reinterpret_cast<cudaStream_t>(stream));
+  return launch_seq_attn(p, batch, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

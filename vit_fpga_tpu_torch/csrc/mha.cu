@@ -8,44 +8,128 @@
 // mha_qkv_pallas) and :_mha_kernel (wrapper mha_pallas): on the TPU the
 // whole (N, N) score matrix of a head sits in VMEM; here the keys stream
 // through shared memory in tiles, one pass for each row's max and sum, one
-// for p = dtype(exp(s - max) / sum) (normalised before it is rounded) and
-// o = dtype(p v).  bf16: seq_attn_kernel<false> on mma.sync; f32:
-// seq_attn_f32_kernel, true f32 fma on the CUDA cores (the per-tensor int8
-// forward's attention is f32 end to end).  Both in seq_attn.cuh.
+// for p = dtype(e / sum e) (normalised before it is rounded) and
+// o = dtype(p v).
+//
+// bf16: mha_wgmma_kernel (mha_wgmma.cuh).  One thread of a producer
+// warpgroup streams 128-key K tiles (pass 1) and K / V tile pairs (pass 2)
+// by TMA into a 4-stage ring of shared memory, each stage a full and an
+// empty mbarrier; two consumer warpgroups of 64 query rows each run both
+// products on wgmma (q k^T with A and B in shared memory, p v with p in
+// registers), the next tile's q k^T (pass 1) or the previous tile's p v
+// (pass 2) running while the exponentials are taken, and the softmax in the
+// log2 domain on ex2.approx with one reciprocal of each row sum.  The
+// tensor maps are encoded here, per call, by cuTensorMapEncodeTiled, which
+// is reached through cudaGetDriverEntryPoint so that nothing links libcuda.
+// Why 128 query rows a block: one block fills an SM (145 KB of shared
+// memory; 240 registers a consumer thread), and at ViT-B/16 @1024 px b1 the
+// 33 x 12 = 396 blocks are exactly 3 waves on 132 SMs (192 rows would be 2
+// waves of 264, but 3 consumer warpgroups leave 160 registers a thread for
+// the two score tiles of pass 1); at 224 px (197 tokens) 128 rows waste 59
+// of 256 rows a head where 192 would waste 187 of 384.
+// f32: seq_attn_f32_kernel (seq_attn.cuh), true f32 fma on the CUDA cores
+// (the per-tensor int8 forward's attention is f32 end to end).
 //
 // What bounds it on the H100: in bf16 at ViT-B/16 @1024 px batch 1 a launch
-// does 4 * 12 * 4097^2 * 64 = 51.6 GFLOP (52 us at 989 TFLOP/s, 700 W; the
-// kernel computes q k^T twice, 77 GFLOP); in f32 at the per-tensor int8
-// forward's (64, 197, 2304) 4 * 64 * 12 * 197^2 * 64 = 7.6 GFLOP, bound by
-// the f32 rate outside the tensor cores (114 us at 67 TFLOP/s) against
-// 39 MB of traffic.
+// does 4 * 12 * 4097^2 * 64 = 51.6 GFLOP of the function's work (52 us at
+// 989 TFLOP/s, 700 W); the two passes compute q k^T twice, so 77.4 GFLOP
+// are issued (78 us), and 2 * 12 * 4097^2 = 403 M exponentials at the
+// special-function units' 16 a clock per SM (~97 us at 1.98 GHz), which
+// overlap the products only in part: ~0.10 ms for this design.  What holds
+// it back now: per SM the exponentials, the f32 work around them and the
+// products of each tile still add up more than they overlap (PERF.md), and
+// every block reads K twice and V once from L2 (1.57 MB at 4097 keys).  In
+// f32 at the per-tensor int8 forward's (64, 197, 2304) 4 * 64 * 12 * 197^2 *
+// 64 = 7.6 GFLOP, bound by the f32 rate outside the tensor cores (114 us at
+// 67 TFLOP/s) against 39 MB of traffic.
+
+#include <cuda.h>
 
 #define VFT_NS mha
 #include "common.cuh"
 #include "seq_attn.cuh"
+#include "mha_wgmma.cuh"
 
 using namespace VFT_NS;
 
+namespace {
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled = nullptr;
+
+// The 4-D map {64, rows, heads, batch} of a bf16 operand with element
+// strides in_r, in_h, in_b; boxes of one 64 x MW_KT tile (= MW_BQ rows of
+// Q), 128-byte swizzled, zero past `rows`.
+bool encode(CUtensorMap* map, const void* base, long long in_b, long long in_h, int in_r,
+            int rows, int heads, int batch) {
+  static_assert(MW_KT == MW_BQ, "one box shape serves Q, K and V");
+  // A dimension of extent 1 is never stepped; give it a legal stride.
+  auto stride = [](long long st, int extent) {
+    return (cuuint64_t)(extent == 1 ? 16 : st * 2);
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)MW_DH, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {stride(in_r, rows), stride(in_h, heads), stride(in_b, batch)};
+  const cuuint32_t box[4] = {(cuuint32_t)MW_DH, (cuuint32_t)MW_KT, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
 extern "C" {
 
-// Opts the kernels in to their shared memory on the current device.
-// Called once per device before the first launch.  Returns a cudaError_t.
+// Opts the kernels in to their shared memory on the current device and
+// finds the driver's cuTensorMapEncodeTiled.  Called once per device before
+// the first launch.  Returns a cudaError_t.
 int vft_mha_init() {
-  cudaError_t err = seq_attn_enable<false>();
+  if (encode_tiled == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
+  }
+  cudaError_t err = mha_wgmma_enable();
   if (err != cudaSuccess) return err;
   return seq_attn_f32_enable();
 }
 
 // q, k, v: bf16 (f32 when is_f32), element (b, h, r, c) at b * in_b +
-// h * in_h + r * in_r + c (c < 64, bf16 rows 16-byte aligned); o likewise
-// with the out_* strides.  Keys at or past n_valid are masked.  Enqueued on
-// `stream`, which belongs to the current device.  Returns a cudaError_t.
+// h * in_h + r * in_r + c (c < 64; base addresses and strides multiples of
+// 16 bytes, as TMA reads them); o likewise with the out_* strides.  Keys at
+// or past n_valid are masked.  Enqueued on `stream`, which belongs to the
+// current device.  Returns a cudaError_t.
 int vft_mha(const void* q, const void* k, const void* v, void* o, long long in_b, long long in_h,
             int in_r, long long out_b, long long out_h, int out_r, int batch, int heads, int n,
             int n_valid, int is_f32, float scale, void* stream) {
-  SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, 0, scale};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return is_f32 ? launch_seq_attn_f32(p, batch, st) : launch_seq_attn<false>(p, batch, st);
+  if (is_f32) {
+    SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, 0, scale};
+    return launch_seq_attn_f32(p, batch, st);
+  }
+  if (encode_tiled == nullptr) return cudaErrorInitializationError;
+  if (n < 1 || n_valid < 1 || n_valid > n || batch < 1 || heads < 1) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, in_b, in_h, in_r, n, heads, batch) ||
+      !encode(&tk, k, in_b, in_h, in_r, n_valid, heads, batch) ||
+      !encode(&tv, v, in_b, in_h, in_r, n_valid, heads, batch))
+    return cudaErrorInvalidValue;
+  MhaTmaArgs p{o, out_b, out_h, out_r, heads, n, n_valid, scale * 1.4426950408889634f};
+  return launch_mha_wgmma(tq, tk, tv, p, batch, st);
 }
 
 }  // extern "C"

@@ -1,31 +1,27 @@
 // Attention over a whole sequence of any length, on strided q, k and v
-// (mha.cu K7 / K8, flash_attn.cu K9); include after common.cuh.
+// (flash_attn.cu K9, mha.cu K7 / K8 in f32); include after common.cuh.
+// K7 / K8 in bf16 are mha_wgmma.cuh's kernel.
 //
 // The operands are read by strides, so one kernel takes the packed
 // (B, N, 3D) qkv tensor (q, k and v are column blocks of one row) and the
 // (B, H, N, Dh) layout alike; the JAX wrappers' head-split transposes and
 // their padding of N are layout, not function.  Head dim 64.
 //
-//   seq_attn_kernel<FLASH>  bf16 on mma.sync m16n8k16 with f32 sums; one
+//   seq_attn_kernel  K9, the blockwise online softmax of
+//       flash_attention.py, in bf16 on mma.sync m16n8k16 with f32 sums; one
 //       block of SQ_WARPS warps per (SQ_BQ query rows, image x head), each
 //       warp 16 query rows whose scores, probabilities and output stay in
 //       registers.  The keys and values stream through shared memory in
 //       SQ_KT-key tiles, double-buffered with cp.async; only the tiles
 //       before n_valid are read.  s = (q k^T) * scale in f32, keys at or
-//       past n_valid masked.
-//       FLASH (K9, the blockwise online softmax of flash_attention.py): per
-//         key block of bk keys (its boundaries are part of the function:
-//         p is rounded to bf16 against the running max after each block),
-//         m_new = max(m, max_block s), alpha = exp(m - m_new),
-//         p = exp(s - m_new), l = l alpha + sum p, acc = acc alpha +
-//         bf16(p) v; o = bf16(acc / l).  A block of one tile takes one
-//         pass; a longer block reads its tiles twice, first for its max.
-//         Blocks wholly past n_valid are skipped: on the TPU they leave m,
-//         l and acc unchanged (alpha = 1, p = 0).
-//       !FLASH (K7 / K8, the exact softmax of attention.py): one pass for
-//         the row max and sum (running, rescaled at each tile), one for
-//         p = bf16(exp(s - max) / sum) and o = bf16(p v): the
-//         probabilities are normalised before they are rounded.
+//       past n_valid masked.  Per key block of bk keys (its boundaries are
+//       part of the function: p is rounded to bf16 against the running max
+//       after each block), m_new = max(m, max_block s), alpha = exp(m -
+//       m_new), p = exp(s - m_new), l = l alpha + sum p, acc = acc alpha +
+//       bf16(p) v; o = bf16(acc / l).  A block of one tile takes one pass;
+//       a longer block reads its tiles twice, first for its max.  Blocks
+//       wholly past n_valid are skipped: on the TPU they leave m, l and acc
+//       unchanged (alpha = 1, p = 0).
 //   seq_attn_f32_kernel  the exact softmax in f32 (K7 / K8 in f32) with
 //       true f32 fma on the CUDA cores: no TF32, no bf16 staging.  Each warp
 //       takes SF_ROWS query rows, each lane two keys of a SF_KT-key tile and
@@ -56,7 +52,7 @@ struct SeqAttnArgs {
   long long out_b, out_h;  // of o
   int out_r;
   int heads, n, n_valid;   // n query rows and keys; keys >= n_valid masked
-  int bk;                  // K9's key block, a multiple of SQ_KT (0: exact softmax)
+  int bk;                  // K9's key block, a multiple of SQ_KT (unused in f32)
   float scale;
 };
 
@@ -75,7 +71,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <bool FLASH>
 __global__ void __launch_bounds__(SQ_THREADS) seq_attn_kernel(SeqAttnArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -90,12 +85,11 @@ __global__ void __launch_bounds__(SQ_THREADS) seq_attn_kernel(SeqAttnArgs p) {
   const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
 
   // The tile stream.  A key block of tpb tiles is read twice (phase 0: its
-  // statistics from K, phase 1: its output from K and V); the exact
-  // softmax is one block of every tile; a flash block of one tile is read
-  // once (phase 2).
+  // statistics from K, phase 1: its output from K and V); a block of one
+  // tile is read once (phase 2).
   const int ntiles = (p.n_valid + SQ_KT - 1) / SQ_KT;
-  const int tpb = FLASH ? p.bk / SQ_KT : ntiles;
-  const bool one_pass = FLASH && tpb == 1;
+  const int tpb = p.bk / SQ_KT;
+  const bool one_pass = tpb == 1;
   const int nsteps = one_pass ? ntiles : 2 * ntiles;
   auto step_of = [&](int i, int& tile, int& phase, int& w, int& c) {
     if (one_pass) {
@@ -188,62 +182,40 @@ __global__ void __launch_bounds__(SQ_THREADS) seq_attn_kernel(SeqAttnArgs p) {
     tmax[0] = quad_max(tmax[0]);
     tmax[1] = quad_max(tmax[1]);
 
-    if (phase == 0) {  // statistics pass
-      if (FLASH) {
-        if (w == 0) mb[0] = mb[1] = -INFINITY;
-        mb[0] = fmaxf(mb[0], tmax[0]);
-        mb[1] = fmaxf(mb[1], tmax[1]);
-      } else {  // running max and sum of the whole row
+    if (phase == 0) {  // statistics pass: the block's max
+      if (w == 0) mb[0] = mb[1] = -INFINITY;
+      mb[0] = fmaxf(mb[0], tmax[0]);
+      mb[1] = fmaxf(mb[1], tmax[1]);
+    } else {  // output pass: p, then acc += bf16(p) v
+      const bool first = phase == 2 || w == c;
+      if (first) {  // the block's new max rescales acc and l
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
-          const float mn = fmaxf(m[rr], tmax[rr]);
-          float part = 0.0f;
-#pragma unroll
-          for (int j = 0; j < 16; ++j) part += expf(s[j][2 * rr] - mn) + expf(s[j][2 * rr + 1] - mn);
-          l[rr] = l[rr] * expf(m[rr] - mn) + quad_sum(part);
+          const float mn = fmaxf(m[rr], phase == 2 ? tmax[rr] : mb[rr]);
+          const float alpha = expf(m[rr] - mn);
+          l[rr] *= alpha;
+          lb[rr] = 0.0f;
           m[rr] = mn;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            acc[n][2 * rr] *= alpha;
+            acc[n][2 * rr + 1] *= alpha;
+          }
         }
       }
-    } else {  // output pass: p, then acc += bf16(p) v
-      float mu[2];  // the max p is taken against
-      if (FLASH) {
-        const bool first = phase == 2 || w == c;
-        if (first) {  // the block's new max rescales acc and l
+      float part[2] = {0.0f, 0.0f};
 #pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const float mn = fmaxf(m[rr], phase == 2 ? tmax[rr] : mb[rr]);
-            const float alpha = expf(m[rr] - mn);
-            l[rr] *= alpha;
-            lb[rr] = 0.0f;
-            m[rr] = mn;
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-            for (int n = 0; n < 8; ++n) {
-              acc[n][2 * rr] *= alpha;
-              acc[n][2 * rr + 1] *= alpha;
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          part[e >> 1] += s[j][e];
         }
-        mu[0] = m[0];
-        mu[1] = m[1];
-        float part[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] = expf(s[j][e] - mu[e >> 1]);
-            part[e >> 1] += s[j][e];
-          }
-        lb[0] += quad_sum(part[0]);
-        lb[1] += quad_sum(part[1]);
-        if (phase == 2 || w == 2 * c - 1) {  // the block's last tile: l = l alpha + sum p
-          l[0] += lb[0];
-          l[1] += lb[1];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
+      lb[0] += quad_sum(part[0]);
+      lb[1] += quad_sum(part[1]);
+      if (phase == 2 || w == 2 * c - 1) {  // the block's last tile: l = l alpha + sum p
+        l[0] += lb[0];
+        l[1] += lb[1];
       }
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {  // 16 keys a step
@@ -273,28 +245,22 @@ __global__ void __launch_bounds__(SQ_THREADS) seq_attn_kernel(SeqAttnArgs p) {
     bf16* orow = og + (size_t)row * p.out_r + 2 * t4;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      float a0 = acc[n][2 * rr], a1 = acc[n][2 * rr + 1];
-      if (FLASH) {
-        a0 = a0 / l[rr];
-        a1 = a1 / l[rr];
-      }
+      const float a0 = acc[n][2 * rr] / l[rr], a1 = acc[n][2 * rr + 1] / l[rr];
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(a0, a1);
     }
   }
 }
 
-template <bool FLASH>
 inline cudaError_t seq_attn_enable() {
-  return cudaFuncSetAttribute(seq_attn_kernel<FLASH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(seq_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)SQ_SMEM_BYTES);
 }
 
-template <bool FLASH>
 inline cudaError_t launch_seq_attn(const SeqAttnArgs& p, int batch, cudaStream_t stream) {
-  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n || (FLASH && (p.bk < SQ_KT || p.bk % SQ_KT)))
+  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n || p.bk < SQ_KT || p.bk % SQ_KT)
     return cudaErrorInvalidValue;
   const dim3 grid((p.n + SQ_BQ - 1) / SQ_BQ, batch * p.heads);
-  seq_attn_kernel<FLASH><<<grid, SQ_THREADS, SQ_SMEM_BYTES, stream>>>(p);
+  seq_attn_kernel<<<grid, SQ_THREADS, SQ_SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 

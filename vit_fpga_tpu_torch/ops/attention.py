@@ -2,10 +2,10 @@
 package's ops/attention.py): the plain references, the fused kernels and
 the dispatch the per-block encoder calls.
 
-Two Hopper kernels live here, one CUDA kernel read by strides
-(``csrc/mha.cu`` over ``csrc/seq_attn.cuh``), each behind a wrapper that
-launches it on a CUDA tensor and runs its plain PyTorch version (same
-arithmetic) on a CPU tensor:
+Two Hopper kernels live here, one CUDA entry point read by strides
+(``csrc/mha.cu``: ``csrc/mha_wgmma.cuh`` in bf16, ``csrc/seq_attn.cuh``
+in f32), each behind a wrapper that launches it on a CUDA tensor and
+runs its plain PyTorch version (same arithmetic) on a CPU tensor:
 
 * K7 ``mha_qkv_pallas``: replaces ``vit_fpga_tpu/ops/attention.py:
   _mha_qkv_kernel`` (wrapper ``mha_qkv_pallas``), exact softmax attention
@@ -15,11 +15,14 @@ arithmetic) on a CPU tensor:
 
 Both mask keys at or past ``n_valid``, normalise before they round
 (``p = dtype(e / sum e)``, then ``o = dtype(p v)``) and sum in f32.  The
-bf16 kernel runs on mma.sync with the keys streamed in 128-key tiles, one
+bf16 kernel (``csrc/mha_wgmma.cuh``) streams 128-key tiles by TMA into an
+mbarrier ring and runs both products on wgmma, 128 query rows a block, one
 pass for each row's max and sum and one for the output (bound at ViT-B/16
 @1024 px batch 1: 51.6 GFLOP, 52 us at 989 TFLOP/s); the f32 kernel (the
 per-tensor int8 forward's attention) runs true f32 fma on the CUDA cores
-(at (64, 197, 2304): 7.6 GFLOP, 114 us at 67 TFLOP/s).
+(at (64, 197, 2304): 7.6 GFLOP, 114 us at 67 TFLOP/s).  In bf16 the
+operands' base addresses and strides must be multiples of 16 bytes (the
+TMA maps'); the wrappers raise a ValueError naming K7 or K8 otherwise.
 
 ``mha_qkv`` dispatches as the JAX ``mha_qkv`` does on a TPU, on every
 device: ``"auto"`` takes flash attention (K9, ``ops/flash_attention.py``)
@@ -129,7 +132,7 @@ def mha_qkv_pallas(qkv: torch.Tensor, num_heads: int,
     check_operands(q, k, v, (torch.bfloat16, torch.float32),
                    "mha_qkv_pallas")
     out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
-    launch_strided("vft_mha", q, k, v,
+    launch_strided("K7 mha_qkv_pallas", "vft_mha", q, k, v,
                    out.reshape(b, n, num_heads, -1).transpose(1, 2), n_valid,
                    int(qkv.dtype == torch.float32))
     mha_qkv_pallas.launches += 1
@@ -160,7 +163,7 @@ def mha_pallas(q, k, v, n_valid: int | None = None) -> torch.Tensor:
     if n_valid < 1:
         raise ValueError("mha_pallas takes n_valid >= 1")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    launch_strided("vft_mha", q, k, v, out, n_valid,
+    launch_strided("K8 mha_pallas", "vft_mha", q, k, v, out, n_valid,
                    int(q.dtype == torch.float32))
     mha_pallas.launches += 1
     return out

@@ -68,13 +68,17 @@ def flash_attention_plain(q, k, v, n_valid: int | None = None, bq: int = 512,
     return (acc / l).to(dt)
 
 
-def _strides(t: torch.Tensor, name: str):
-    """(image, head, row) element strides of a (B, H, N, Dh) operand whose
-    rows are contiguous and 16-byte aligned, as the kernel reads them."""
+def _strides(t: torch.Tensor, name: str, what: str):
+    """(image, head, row) element strides of a (B, H, N, Dh) operand of the
+    kernel ``what`` whose rows are contiguous and whose base address and
+    strides are multiples of 16 bytes (8 elements), as the kernels read
+    them (K7 / K8 in bf16 by TMA).  Raises ValueError naming ``what``."""
     if t.stride(3) != 1:
-        raise ValueError(f"{name}: the head dim must be contiguous")
+        raise ValueError(f"{what}: {name}'s head dim must be contiguous")
     if (t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
-        raise ValueError(f"{name}: rows must start 16-byte aligned")
+        raise ValueError(f"{what}: {name} must start 16-byte aligned with "
+                         f"strides of whole 16-byte units, got strides "
+                         f"{tuple(t.stride())} of {t.dtype}")
     return t.stride(0), t.stride(1), t.stride(2)
 
 
@@ -95,15 +99,18 @@ def check_operands(q, k, v, dtypes, what: str):
     return q.shape
 
 
-def launch_strided(entry: str, q, k, v, out, n_valid: int, *extra):
+def launch_strided(what: str, entry: str, q, k, v, out, n_valid: int,
+                   *extra):
     """Launches ``entry`` (``vft_flash_attention`` or ``vft_mha``) on
     (B, H, N, 64) q, k, v and out views with their strides; ``extra`` is
-    the entry's argument before the scale (bk, or is_f32)."""
+    the entry's argument before the scale (bk, or is_f32).  ``what`` names
+    the kernel in the errors."""
     b, h, n, dh = q.shape
-    in_st = _strides(q, "q")
-    if _strides(k, "k") != in_st or _strides(v, "v") != in_st:
-        raise ValueError("q, k and v must share their strides")
-    out_st = _strides(out, "out")
+    in_st = _strides(q, "q", what)
+    if (_strides(k, "k", what) != in_st
+            or _strides(v, "v", what) != in_st):
+        raise ValueError(f"{what}: q, k and v must share their strides")
+    out_st = _strides(out, "out", what)
     with torch.cuda.device(q.device):
         lib, stream = _kernels.launch_target()
         err = getattr(lib, entry)(
@@ -137,7 +144,8 @@ def flash_attention(q, k, v, n_valid: int | None = None, bq: int = 512,
                          f"n_valid={n_valid})")
     out = torch.empty((b, n, h, dh), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    launch_strided("vft_flash_attention", q, k, v, out, n_valid, bk)
+    launch_strided("K9 flash_attention", "vft_flash_attention", q, k, v,
+                   out, n_valid, bk)
     flash_attention.launches += 1
     return out
 

@@ -117,7 +117,7 @@ STAGES = (
     ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
     ("flash_attn::seq_attn_kernel", "K9 flash attention"),
     ("mha::seq_attn_f32_kernel", "K7 / K8 attention, f32"),
-    ("mha::seq_attn_kernel", "K7 / K8 attention, bf16"),
+    ("mha::mha_wgmma_kernel", "K7 / K8 attention, bf16"),
     ("mlp_chunk_blk::ln_rows_kernel", "K6 (a) LN stats"),
     ("mlp_chunk_blk::gemm_bf16_kernel<true", "K6 (b) LN + W1 GEMM + act"),
     ("mlp_chunk_blk::chunk_down_kernel", "K6 (c) chunked W2 GEMM + residual"),
