@@ -200,6 +200,14 @@ Phases, each of which raises on failure (exit code != 0):
               safe_softmax) at b1 launches 24 K4 in the exact mode; their
               ms per request beside b2 through the chain, then every
               output against the CPU forward
+ 18. wgmma K1 / K2  right after the build, ptxas's report must hold no
+              wgmma serialisation note (C7513-C7515); then K2 on
+              gemm_wgmma.cuh against its plain version at (1000, 776) x
+              3104 (row, K and N tails of the tiles) and ViT-L's (1600,
+              1024) x 4096, each activation, and K1 (its GEMMs and the
+              max-free one-pass attention of mha_wgmma.cuh) at (5, 200,
+              704) with 11 heads and 1, 127, 128, 129 and 200 valid keys;
+              this runs first, before every other phase's parity
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -4892,6 +4900,77 @@ def run_odd_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: K1 and K2 on wgmma + TMA (gemm_wgmma.cuh, mha_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+MLP_ACTS_ALL = ("gelu", "gelu_tanh", "quick_gelu", "relu")
+# ptxas's notes that it serialised every wgmma of a kernel (a register a
+# group in flight owns written before the group retires).
+WGMMA_SERIAL = ("C7513", "C7514", "C7515")
+
+
+def check_wgmma_serialisation(build_log: str) -> None:
+    """Raise if ptxas reported serialising the wgmma of any kernel, or if
+    the log holds no ptxas report of the wgmma kernels to read."""
+    lines = build_log.splitlines()
+    for kernel in ("gw_kernel", "mha_wgmma_kernel"):
+        if not any("Compiling entry function" in ln and kernel in ln
+                   for ln in lines):
+            raise AssertionError(f"the build log holds no ptxas report of "
+                                 f"{kernel}")
+    hits = [ln for ln in lines if any(code in ln for code in WGMMA_SERIAL)]
+    print(f"wgmma serialisation notes in the build log: {len(hits)} "
+          f"(must be 0)")
+    for ln in hits[:8]:
+        print(f"  {ln}")
+    if hits:
+        raise AssertionError("ptxas serialised the wgmma of a kernel")
+
+
+def _k2_act_call(fn, x, st, p, act, emit):
+    return fn(x, st, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"], p["w2"],
+              p["b2"], eps=EPS, act=act, emit_stats=emit)
+
+
+def phase_wgmma_kernels():
+    """K2 and K1 against their plain versions where the wgmma + TMA tiles
+    have edges, right after the build: K2 at (1000, 776) x 3104 (a partial
+    128-row tile, a K tail of 8 past 64-wide steps, N past 256-wide tiles;
+    x scaled by 2, so rstd is about 0.5 and an LN prologue that drops it
+    moves the whole branch) and at ViT-L's (1600, 1024) x 4096, each
+    activation code; K1 at (5, 200, 704) with 11 heads (N 2112 and 704,
+    tails of a 256-wide tile) with 1, 127, 128, 129 and 200 of 200
+    keys valid (one key, either side of a 128-key tile's edge, none
+    masked).  Returns {kernel name: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    k2 = 0.0
+    for rows, d, m, seed, scale in ((1000, 776, 3104, 180, 2.0),
+                                    (1600, 1024, 4096, 181, 1.0)):
+        x, _, p = _mlp_inputs(rows, d, m, seed)
+        x = (x.float() * scale).to(torch.bfloat16)
+        st = row_stats(x, EPS)
+        pb = _bf16_weights(p, ("w1", "w2"))
+        for act in MLP_ACTS_ALL:
+            k2 = max(k2, _parity(
+                f"K2 ({rows}, {d}) x {m} {act}",
+                lambda fn, emit, a=act: _k2_act_call(fn, x, st, pb, a, emit),
+                fm.fused_mlp_stats, fm.fused_mlp_stats_plain, x))
+    x, st, p = _attn_inputs(5, 200, 704, seed=182)
+    pb = _bf16_weights(p, ("wqkv", "wo"))
+    k1 = 0.0
+    for n_valid in (1, 127, 128, 129, 200):
+        k1 = max(k1, _parity(
+            f"K1 (5, 200, 704) 11 heads n_valid={n_valid}",
+            lambda fn, emit, nv=n_valid: _attn_call(fn, x, st, pb, 11, nv,
+                                                    emit),
+            ab.attn_block_stats, ab.attn_block_stats_plain, x,
+            (slice(None), slice(0, n_valid))))
+    return {"fused_mlp_stats": k2, "attn_block_stats": k1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4910,7 +4989,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_kernels.build_seconds})")
     print(_kernels.build_log)
+    check_wgmma_serialisation(_kernels.build_log)
 
+    wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
     errors.update(phase_chain_kernels(8))
     errors.update(phase_per_block_kernels())
@@ -4925,6 +5006,8 @@ def main() -> int:
     errors.update(phase_static_kernels(8))
     phase_parity()
     timing = phase_path_shapes()
+    for name, err in wgmma_errors.items():
+        timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"], err)
     for batch in (8, 64):
         for name, err in phase_train_kernels(batch).items():
             errors[name] = max(errors.get(name, 0.0), err)
@@ -4992,7 +5075,7 @@ def main() -> int:
                       "vit_fpga_tpu/ops/quant.py:105"),
         "fused_mlp_chunked_stats": ("vit_fpga_tpu_torch/csrc/mlp_chunk_stats.cu",
                                     "vit_fpga_tpu/ops/fused_mlp.py:305"),
-        "attn_block_stats_long": ("vit_fpga_tpu_torch/csrc/attn.cuh",
+        "attn_block_stats_long": ("vit_fpga_tpu_torch/csrc/mha_wgmma.cuh",
                                   "vit_fpga_tpu/ops/attn_block.py:550"),
         "vit_full": ("vit_fpga_tpu_torch/csrc/vit_full.cu",
                      "vit_fpga_tpu/ops/vit_stack.py:566"),

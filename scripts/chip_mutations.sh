@@ -50,9 +50,9 @@ run_copy k13_no_partial_k_tile quant.cuh \
 # down-projection is shared with K6, whose checks come first)
 run_copy k3_b2_every_chunk chunk.cuh \
   "          if (last) {" "          if (true) {"
-# K1's key-tiled path skipping the last partial key tile (key 256 of 257,
-# key 576 of 577)
-run_copy k1_long_no_partial_tile attn.cuh \
+# The key-tiled attention tile skipping the last partial key tile (key 256
+# of 257, key 576 of 577): K4's path past 256 keys
+run_copy k4_long_no_partial_tile attn.cuh \
   "const int ntiles = (n_valid + KT - 1) / KT;" "const int ntiles = n_valid / KT;"
 # K12 without the embed's posb on each image's CLS row (the CLS token and
 # its position embedding dropped)
@@ -154,5 +154,17 @@ run_copy k26_no_last_k_tile streamed_gemm.cu \
 # only (key 576 alone at 577 keys): exp(s - max) overflows on wide scores
 run_copy k4_long_safe_one_tile_max attn.cuh \
   "if (lane == 0) rmax[r] = fmaxf(rmax[r], mx);" "if (lane == 0) rmax[r] = mx;"
+# K1 and K2's wgmma GEMM with rstd forced to 1 in its LN prologue (phase
+# 18's K2 case scales x by 2, so rstd is about 0.5 there)
+run_copy k1_k2_ln_rstd_one gemm_wgmma.cuh \
+  "rs[i] = st.y;" "rs[i] = 1.0f;"
+# K1's max-free attention without the last key tile's mask: the keys past
+# n_valid, zero-filled by TMA, each add e = 1 to the row sum
+run_copy k1_no_last_tile_mask mha_wgmma.cuh \
+  "return key0 + 8 * (x >> 2) + (x & 1) >= n_valid ? 0.0f : e;" "return e;"
+# K1 and K2's wgmma GEMM without its last K step (64 of K 768; the K tail
+# of 8 at K 776)
+run_copy k1_k2_gemm_skip_k_step gemm_wgmma.cuh \
+  "const int nk = (p.K + GW_BK - 1) / GW_BK;" "const int nk = (p.K + GW_BK - 1) / GW_BK - 1;"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

@@ -127,3 +127,42 @@ def test_kernel_wrapper_rejects_non_cpu_non_cuda_devices():
                              *[torch.from_numpy(p[k]) for k in
                                ("ls", "lb", "wqkv", "bqkv", "wo", "bo")],
                              NH, n_valid=N_VALID)
+
+
+# The card's kernel tiles queries and keys by 128 (two 64-row consumer
+# warpgroups, 128-key tiles): these cases put n_valid on either side of a
+# key tile's edge, with padding rows up to n_pad 136 past a 128-row block.
+EDGE_B, EDGE_N, EDGE_D, EDGE_NH = 2, 136, 128, 2
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n_valid", [127, 128, 129])
+def test_attn_block_stats_at_tile_edges_matches_pallas(n_valid, dtype):
+    """Plain K1 against the Pallas kernel at the key-tile edges, in the
+    existing cases' bands (f32 1e-5, bf16 2 ulp of the output scale)."""
+    dt_jax, dt_torch, tol = ((jnp.float32, torch.float32, 1e-5)
+                             if dtype == "f32" else
+                             (jnp.bfloat16, torch.bfloat16, 2 ** -7))
+    rng = np.random.default_rng(10 + n_valid)
+
+    def f(*shape, sc=0.1):
+        return (rng.normal(size=shape) * sc).astype(np.float32)
+
+    d = EDGE_D
+    x_j = jnp.asarray(f(EDGE_B, EDGE_N, d, sc=0.5)).astype(dt_jax)
+    args = [1.0 + f(d), f(d), f(d, 3 * d), f(3 * d), f(d, d), f(d)]
+    st = _stats_of(np.asarray(x_j.astype(jnp.float32)).reshape(-1, d))
+    st = st.reshape(EDGE_B, EDGE_N, STATS_LANES)
+    want, want_st = attn_block_stats_pallas(
+        x_j, jnp.asarray(st), *[jnp.asarray(a) for a in args], EDGE_NH,
+        n_valid=n_valid, emit_stats=True, interpret=True)
+    x_t = torch.from_numpy(np.array(x_j.astype(jnp.float32))).to(dt_torch)
+    got, got_st = tab.attn_block_stats_plain(
+        x_t, torch.from_numpy(st[..., :2].copy()),
+        *[torch.from_numpy(a) for a in args], EDGE_NH, n_valid=n_valid)
+    v = slice(0, n_valid)
+    np.testing.assert_allclose(_f32(got)[:, v], _f32(want)[:, v],
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(got_st)[:, v], _f32(want_st)[:, v, :2],
+                               rtol=1e-4 if dtype == "f32" else 1e-2,
+                               atol=1e-5 if dtype == "f32" else 1e-2)

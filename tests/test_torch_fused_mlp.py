@@ -116,3 +116,43 @@ def test_unknown_act_rejected():
                             torch.zeros((T, 2)),
                             *[torch.from_numpy(p[k]) for k in _PARAMS],
                             act="swish")
+
+
+# The card's GEMM tiles rows by 128 and K by 64: T 136 leaves a partial row
+# tile, D 72 a K tail of 8 past one 64-wide step (the LN prologue's zero
+# fill), M 200 one past three steps in the down-projection.
+EDGE_T, EDGE_D, EDGE_M = 136, 72, 200
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quick_gelu", "relu"])
+def test_fused_mlp_stats_at_tile_edges_matches_pallas(act, dtype):
+    """Plain K2 against the Pallas kernel at the GEMM's tile edges, every
+    activation code, in the existing cases' bands (f32 1e-5, bf16 2 ulp
+    of the output scale)."""
+    dt_jax, dt_torch, tol = ((jnp.float32, torch.float32, 1e-5)
+                             if dtype == "f32" else
+                             (jnp.bfloat16, torch.bfloat16, 2 ** -7))
+    rng = np.random.default_rng(20 + len(act))
+
+    def f(*shape, sc=0.1):
+        return (rng.normal(size=shape) * sc).astype(np.float32)
+
+    d, m = EDGE_D, EDGE_M
+    p = dict(ls=1.0 + f(d), lb=f(d), w1=f(d, m), b1=f(m), w2=f(m, d),
+             b2=f(d))
+    x_j = jnp.asarray(f(EDGE_T, d, sc=0.5)).astype(dt_jax)
+    xf = np.array(x_j.astype(jnp.float32))
+    st = _stats_of(xf)
+    want, want_st = fused_mlp_stats_pallas(
+        x_j, jnp.asarray(st), *[jnp.asarray(p[k]) for k in _PARAMS],
+        act=act, emit_stats=True, interpret=True)
+    got, got_st = tfm.fused_mlp_stats_plain(
+        torch.from_numpy(xf).to(dt_torch), torch.from_numpy(st[:, :2].copy()),
+        *[torch.from_numpy(p[k]) for k in _PARAMS], act=act)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(got_st.numpy(), np.asarray(want_st)[:, :2],
+                               rtol=1e-4 if dtype == "f32" else 1e-2,
+                               atol=1e-5 if dtype == "f32" else 1e-2)

@@ -1,6 +1,7 @@
-// Attention tile of the forward attention halves (attn_stats.cu,
-// attn_block.cu, attn_int8.cu, attn_int8_static.cu); include after
-// common.cuh.
+// Attention tile of the forward attention halves on mma.sync (attn_block.cu
+// K4, attn_int8.cu K16, attn_int8_static.cu K18, attn_int8_stats.cu K21b);
+// include after common.cuh.  K1 (attn_stats.cu) runs the same max-free
+// function in the one-pass mode of mha_wgmma.cuh instead.
 //
 //   attn_kernel<SAFE, Q8>  per (image, head), one 16-row query tile per
 //                      warp: s = (q k^T) * scale in f32, keys at or past
@@ -14,7 +15,7 @@
 //                      rounded to bf16 in the quant domain, as the TPU
 //                      kernel's bf16 scratch rounds it.
 //   attn_long_kernel<SAFE>  attn_kernel's function for more than ATT_MAX_KV
-//                      keys (K1 max-free, K4 in both modes, up to
+//                      keys (K4 in both modes, up to
 //                      ATT_MAX_LONG tokens): one block per (head, image,
 //                      group of ATT_WARPS query tiles); the head's keys and
 //                      values stream through shared memory in ATT_KT-key

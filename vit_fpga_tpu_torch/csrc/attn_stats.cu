@@ -4,61 +4,74 @@
 // _mha_loop), one Pallas kernel on the TPU.  Here it is a short sequence of
 // launches on one stream, counted as one ported kernel:
 //
-//   (a) gemm_bf16<LN>   qkv = bf16(LN(x; mu, rstd, ls, lb) @ Wqkv + bqkv)
-//   (b) attn_kernel     per (image, head), one 16-row query tile per warp:
-//                       s = (q k^T) * scale in f32, e = exp(clip(s, -70, 80))
-//                       with keys at or past n_valid masked to 0,
-//                       ao = bf16((bf16(e) @ v) * (1 / sum(e)));
-//                       past ATT_MAX_KV (256) keys attn_long_kernel, the
-//                       same function with the keys streamed in 64-key
-//                       tiles (attn.cuh), up to ATT_MAX_LONG (1024) tokens
-//   (c) gemm_bf16       out = x + bf16(ao @ Wo + bo)
-//   (d) row_stats       next (mu, rstd) of out, only when asked for
+//   (a) gw_kernel<LN>      qkv = bf16(LN(x; mu, rstd, ls, lb) @ Wqkv + bqkv)
+//   (b) mha_wgmma_kernel<true>  per (128 query rows, image x head), the
+//                          max-free softmax in one pass over 128-key tiles:
+//                          s = q k^T in f32, e = exp(clip(s * scale, -70,
+//                          80)) with keys at or past n_valid masked to 0,
+//                          ao = bf16((bf16(e) @ v) * (1 / sum(e))), for
+//                          every length the gate takes (up to 1024 tokens)
+//   (c) gw_kernel          out = x + bf16(ao @ Wo + bo)
+//   (d) row_stats          next (mu, rstd) of out, only when asked for
 //
-// What bounds it on the H100: at ViT-B/16 batch 64 the launch does about
-// 68 GFLOP against 44 MB of traffic, so it is bound by tensor-core
-// operations (about 69 us at 989 TFLOP/s).  The design keeps the
-// normalised activations out of device memory (LN is applied to the A tile
-// in shared memory), loads each head's keys and values once per image, and
-// keeps each query tile's scores, probabilities and partial outputs in
-// shared memory; the qkv and attention-output tensors (59 + 20 MB at
-// ViT-B b64) still round-trip through device memory, and the GEMMs use
-// wmma fragments rather than wgmma, which is later work.  At CLIP ViT-L/14
-// batch 64 (264 rows of 257 valid tokens, D = 1024, 16 heads) it is
-// 159 GFLOP (161 us at the H100's 989 TFLOP/s, 700 W); past 256 keys a block can no longer hold a head's
-// keys and values, so the key-tiled tile streams them and re-reads them
-// from L2 once per group of 8 query tiles.
+// (a) and (c) are gemm_wgmma.cuh's GEMM, (b) mha_wgmma.cuh's kernel (K7 /
+// K8's ring, one pass instead of two); both are wgmma + TMA with a producer
+// warpgroup and two consumer warpgroups (hopper.cuh).  (b) reads
+// the packed qkv scratch through 4-D tensor maps, {64, rows, heads, batch}:
+// Q's row extent n_pad, K's and V's n_valid.
+//
+// What bounds it on the H100: at ViT-B/16 batch 64 the launch does 8 R D^2
+// + 4 B H n_pad n_valid dh = 68 GFLOP against about 44 MB of compulsory
+// traffic, so it is bound by tensor-core operations (69 us at 989 TFLOP/s,
+// 700 W); at CLIP ViT-L/14 batch 64 (264 rows, 257 valid, D 1024, 16
+// heads) 159 GFLOP (161 us).  The normalised activations never reach device
+// memory (LN is applied to the landed A tiles in shared memory); the qkv
+// and attention-output tensors (59 + 20 MB at ViT-B b64) still round-trip
+// through device memory, and a 128-query block pads 200 rows to 256 (28%
+// more attention work, 4% of the launch's).  64-row blocks on one consumer
+// warpgroup (experiments/torch_k1_ab.py --one-consumer) pad as much at 200
+// and 584 rows and less at 264 (320 rows for 384), and were slower at all
+// three: one such block an SM (137 KB of ring) keeps half the rows in
+// flight.
 
 #define VFT_NS attn_half
 #include "common.cuh"
-#include "attn.cuh"
+#include "hopper.cuh"
+#include "gemm_wgmma.cuh"
+#include "mha_wgmma.cuh"
 
 using namespace VFT_NS;
+
+namespace {
+
+constexpr int K1_DH = 64;            // head dim
+constexpr int K1_LONG_KEYS = 256;    // more valid keys: counted apart (*long_path)
+constexpr int K1_MAX_TOKENS = 1024;  // n_pad the gate takes
+
+}  // namespace
 
 extern "C" {
 
 const char* vft_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Opts this unit's kernels in to the shared memory they may use, on the
-// current device (the attention block at ATT_MAX_KV keys needs 221 KB,
-// the key-tiled one 91 KB).  Called once per device before the first
-// launch.  Returns a cudaError_t.
+// Finds the driver's tensor-map encoder and opts this unit's kernels in to
+// the shared memory they use, on the current device.  Called once per
+// device before the first launch.  Returns a cudaError_t.
 int vft_attn_init() {
-  cudaError_t err = gemm_init();
+  cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
-  if ((err = attn_enable<false>()) != cudaSuccess) return err;
-  return attn_long_enable<>();
+  if ((err = gw_enable()) != cudaSuccess) return err;
+  return mha_wgmma_enable<true>();
 }
 
 // x, out: (B * n_pad, D) bf16; stats, stats_out: (B * n_pad, 2) f32;
 // ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16; bqkv: (3D,) f32; wo: (D, D) bf16;
-// qkv (B * n_pad, 3D) and ao (B * n_pad, D) are bf16 scratch.
-// Head dim 64, 1 <= n_valid <= n_pad <= ATT_MAX_LONG (1024): up to 256
-// valid keys take attn_kernel, more the key-tiled attn_long_kernel.
-// stats_out may be null (no next stats).  *long_path is set to 1 when the
-// key-tiled attn_long_kernel was launched and 0 otherwise; this entry is the
-// only place that chooses.  Everything is enqueued on `stream`, which
-// belongs to the current device.  Returns a cudaError_t.
+// qkv (B * n_pad, 3D) and ao (B * n_pad, D) are bf16 scratch; every
+// pointer 16-byte aligned.  Head dim 64, 1 <= n_valid <= n_pad <= 1024.
+// stats_out may be null (no next stats).  *long_path is set to 1 when more
+// than 256 keys are valid (the same kernel; the launch checks count those
+// launches apart) and 0 otherwise.  Everything is enqueued on `stream`,
+// which belongs to the current device.  Returns a cudaError_t.
 int vft_attn_block_stats(const void* x, const void* stats, const void* ls, const void* lb,
                          const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                          void* out, void* stats_out, void* qkv, void* ao, int batch, int n_pad,
@@ -66,17 +79,16 @@ int vft_attn_block_stats(const void* x, const void* stats, const void* ls, const
                          int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int rows = batch * n_pad;
-  const int kvp = (n_valid + 15) / 16 * 16;
-  if (d != heads * ATT_DH || n_valid < 1 || n_valid > n_pad || n_pad > ATT_MAX_LONG)
+  if (d != heads * K1_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
+      n_pad > K1_MAX_TOKENS)
     return cudaErrorInvalidValue;
+  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   cudaError_t err;
 
-  GemmArgs g{};
-  g.A = static_cast<const bf16*>(x);
+  GwArgs g{};
   g.stats = static_cast<const float*>(stats);
   g.ln_scale = static_cast<const float*>(ls);
   g.ln_bias = static_cast<const float*>(lb);
-  g.B = static_cast<const bf16*>(wqkv);
   g.bias = static_cast<const float*>(bqkv);
   g.residual = nullptr;
   g.C = static_cast<bf16*>(qkv);
@@ -84,19 +96,24 @@ int vft_attn_block_stats(const void* x, const void* stats, const void* ls, const
   g.N = 3 * d;
   g.K = d;
   g.act = ACT_NONE;
-  if ((err = launch_gemm(true, g, st)) != cudaSuccess) return err;
+  if ((err = launch_gemm_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), true,
+                               g, st)) != cudaSuccess)
+    return err;
 
-  *long_path = kvp > ATT_MAX_KV;
-  err = !*long_path
-            ? launch_attn<false>(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
-                                 n_pad, n_valid, kvp, d, heads, scale, st)
-            : launch_attn_long<>(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch, n_pad,
-                               n_valid, d, heads, scale, st);
-  if (err != cudaSuccess) return err;
+  // q, k and v are column blocks of the packed rows: head h at h * 64 of
+  // each, row stride 3D, image stride n_pad * 3D.
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const long long in_b = (long long)n_pad * 3 * d;
+  CUtensorMap tq, tk, tv;
+  if (!mw_encode(&tq, q, in_b, K1_DH, 3 * d, n_pad, heads, batch) ||
+      !mw_encode(&tk, q + d, in_b, K1_DH, 3 * d, n_valid, heads, batch) ||
+      !mw_encode(&tv, q + 2 * d, in_b, K1_DH, 3 * d, n_valid, heads, batch))
+    return cudaErrorInvalidValue;
+  const MhaTmaArgs a{ao, (long long)n_pad * d, K1_DH, d, heads, n_pad, n_valid, 0.0f, scale};
+  *long_path = n_valid > K1_LONG_KEYS;
+  if ((err = launch_mha_wgmma<true>(tq, tk, tv, a, batch, st)) != cudaSuccess) return err;
 
-  GemmArgs o{};
-  o.A = static_cast<const bf16*>(ao);
-  o.B = static_cast<const bf16*>(wo);
+  GwArgs o{};
   o.bias = static_cast<const float*>(bo);
   o.residual = static_cast<const bf16*>(x);
   o.C = static_cast<bf16*>(out);
@@ -104,7 +121,9 @@ int vft_attn_block_stats(const void* x, const void* stats, const void* ls, const
   o.N = d;
   o.K = d;
   o.act = ACT_NONE;
-  if ((err = launch_gemm(false, o, st)) != cudaSuccess) return err;
+  if ((err = launch_gemm_wgmma(static_cast<const bf16*>(ao), static_cast<const bf16*>(wo), false,
+                               o, st)) != cudaSuccess)
+    return err;
 
   if (stats_out != nullptr &&
       (err = launch_row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats_out),

@@ -1,0 +1,348 @@
+// The bf16 GEMM of the stats-chain halves on Hopper's own units (K1's QKV
+// and out-projection GEMMs in attn_stats.cu, K2's two in mlp_stats.cu);
+// include after common.cuh and hopper.cuh.
+//
+//   C = epilogue(prologue(A) @ B), A (M, K) and B (K, N) bf16 row-major,
+//   C (M, N) bf16, f32 accumulation:
+//   LN prologue  xn = bf16(((f32(x) - mu) * rstd) * ls + lb), (mu, rstd)
+//                from the (M, 2) f32 stats, ls / lb per column: the order of
+//                the TPU kernels (fused_mlp.py:_mlp_stats_kernel,
+//                attn_block.py:_attn_stats_kernel) and of gemm_bf16's LN.
+//   epilogue     f = acc + bias (f32), apply_act(f, act), y = bf16(f); with
+//                a residual, out = bf16(f32(res) + f32(y)).
+//
+// Design (one persistent block per SM walking 128 x 256 output tiles, N
+// fastest): a producer warpgroup gives its registers up (setmaxnreg 40) and
+// one of its threads streams each tile's K steps of 64 (one 128-byte
+// swizzle row of bf16) by TMA into a ring of 4 stages, each stage a full
+// and an empty mbarrier: the A box (128 rows, K-major, the layout wgmma
+// reads) and four B boxes of 64 x 64, B being the weight as the model
+// stores it, (K, N) row-major, i.e. MN-major, read by wgmma's transpose
+// bit with the descriptor's leading offset set to the 8 KB between two
+// 64-column swizzle atoms.  Two consumer warpgroups (setmaxnreg 232) take
+// 64 rows each and issue wgmma.m64n256k16 on the stage.  With LN each consumer normalises its own
+// 64 rows of a landed A stage in shared memory (undoing the swizzle's XOR
+// to find each 16-byte chunk's columns), fences them to the async proxy and
+// syncs its warpgroup; it does so one K step ahead, while the two groups
+// issued before run on the tensor cores.  Rows past M and columns past K
+// land zero-filled (TMA) and stay zero; stores past M or N are masked.  The
+// epilogue stages each warp's bf16 results through shared memory 64
+// columns at a time and writes them, and reads the residual, in 16-byte
+// pieces, whole 128-byte row segments a quarter warp, while the producer
+// already fills the ring with the next tile's stages.
+//
+// Wave counts at ViT-B/16 b64 (M = 12 800, 100 row tiles, 132 SMs): N
+// 3072 1200 tiles (9.1 waves), N 2304 900 (6.8), N 768 300 (2.3, the last
+// 27% full).  A 128-wide tile (600 tiles at N 768, 4.5 waves, a 6-stage
+// ring) was timed against it and lost at every step of ViT-B and ViT-L
+// but the out-projection, where the two were level (PERF.md §6).
+
+#pragma once
+
+namespace VFT_NS {
+
+constexpr int GW_BM = 128;      // rows per tile: two consumer warpgroups of 64
+constexpr int GW_BN = 256;      // columns per tile: four 64-column B atoms
+constexpr int GW_BK = 64;       // one 128-byte swizzle row of bf16
+constexpr int GW_STAGES = 4;    // ring depth
+constexpr int GW_THREADS = 384;  // two consumer warpgroups and the producer's
+constexpr uint32_t GW_A_BYTES = GW_BM * GW_BK * 2;     // 16 KB
+constexpr uint32_t GW_ATOM_BYTES = 64 * GW_BK * 2;     // one 64 x 64 B box: 8 KB
+constexpr uint32_t GW_STAGE_BYTES = GW_A_BYTES + (GW_BN / 64) * GW_ATOM_BYTES;  // 48 KB
+constexpr int GW_EPI_LD = 72;                          // bf16 a row of a staging tile
+constexpr uint32_t GW_EPI_BYTES = 16 * GW_EPI_LD * 2;  // a consumer warp's 16 x 64 tile
+// 1024 bytes of slack to align the ring to the swizzle's 1 KB period, the
+// stages, the barriers, then the consumer warps' epilogue staging tiles.
+constexpr size_t GW_SMEM_BYTES =
+    1024 + GW_STAGES * GW_STAGE_BYTES + 16 * GW_STAGES + 8 * GW_EPI_BYTES;
+
+struct GwArgs {
+  const float* stats;      // (M, 2) f32 (mu, rstd); LN only
+  const float* ln_scale;   // (K,) f32; LN only
+  const float* ln_bias;    // (K,) f32; LN only
+  const float* bias;       // (N,) f32 or null
+  const bf16* residual;    // (M, N) bf16 or null
+  bf16* C;                 // (M, N) bf16
+  int M, N, K;
+  int act;                 // an Act code
+};
+
+// This thread's four 16-byte chunks of its warpgroup's 64 rows in a landed
+// A stage (rows lr0 + 16 i at `rows`, physical chunk pc; ls / lb the
+// chunk's 8 columns): xn = bf16(((x - mu) * rstd) * ls + lb) in place.
+// Rows past M (valid_rows) are skipped; a chunk at or past K is never
+// passed here and stays as TMA filled it (zero).
+__device__ __forceinline__ void gw_ln_stage(unsigned char* rows, int pc, const float (&mu)[4],
+                                            const float (&rs)[4], int valid_rows,
+                                            const float* ls, const float* lb) {
+  const float4 sc0 = __ldg(reinterpret_cast<const float4*>(ls));
+  const float4 sc1 = __ldg(reinterpret_cast<const float4*>(ls + 4));
+  const float4 bi0 = __ldg(reinterpret_cast<const float4*>(lb));
+  const float4 bi1 = __ldg(reinterpret_cast<const float4*>(lb + 4));
+  const float sc[8] = {sc0.x, sc0.y, sc0.z, sc0.w, sc1.x, sc1.y, sc1.z, sc1.w};
+  const float bi[8] = {bi0.x, bi0.y, bi0.z, bi0.w, bi1.x, bi1.y, bi1.z, bi1.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= valid_rows) break;
+    uint4* ptr = reinterpret_cast<uint4*>(rows + i * 16 * 128 + pc * 16);
+    uint4 v = *ptr;
+    __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 x = __bfloat1622float2(pv[t]);
+      pv[t] = __floats2bfloat162_rn(((x.x - mu[i]) * rs[i]) * sc[2 * t] + bi[2 * t],
+                                    ((x.y - mu[i]) * rs[i]) * sc[2 * t + 1] + bi[2 * t + 1]);
+    }
+    *ptr = v;
+  }
+}
+
+// The epilogue of one consumer warp, 64 columns at a time: each thread's
+// accumulator pairs (rows g and g + 8 of the warp's 16, columns 8 j + 2 t4
+// (+1) of each 8-column block j; acc[4 j + 2 rr + e] is row g + 8 rr,
+// column 8 j + 2 t4 + e) become y = bf16(act(acc + bias)) in the warp's
+// 16 x 64 staging tile (rows 144 bytes apart: no bank conflicts), then the
+// warp moves the tile out in 16-byte pieces, eight lanes a 128-byte row
+// segment, adding the residual's matching piece: out = bf16(f32(res) +
+// f32(y)).  The residual pieces are loaded first, so that their latency
+// overlaps the activations.
+template <int ACT>
+__device__ __forceinline__ void gw_store(const float (&acc)[GW_BN / 2], const GwArgs& p,
+                                         int row0, int n0, bf16* stage, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int cc = 0; cc < GW_BN / 64; ++cc) {  // 64-column chunks
+    const int col0 = n0 + 64 * cc;
+    if (col0 >= p.N) break;
+    // piece c = lane + 32 i of the tile: row c / 8, 8 columns from 8 (c % 8)
+    uint4 res[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i, row = row0 + c / 8, col = col0 + 8 * (c % 8);
+      res[i] = p.residual != nullptr && row < p.M && col < p.N
+                   ? *reinterpret_cast<const uint4*>(p.residual + (size_t)row * p.N + col)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float2 bi[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = col0 + 8 * jj + 2 * t4;  // N is a multiple of 8: col < N covers col + 1
+      bi[jj] = p.bias != nullptr && col < p.N
+                   ? __ldg(reinterpret_cast<const float2*>(p.bias + col))
+                   : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * cc + jj;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * rr) * GW_EPI_LD + 8 * jj + 2 * t4) =
+            __floats2bfloat162_rn(apply_act(acc[4 * j + 2 * rr] + bi[jj].x, ACT),
+                                  apply_act(acc[4 * j + 2 * rr + 1] + bi[jj].y, ACT));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i, row = row0 + c / 8, col = col0 + 8 * (c % 8);
+      if (row >= p.M || col >= p.N) continue;
+      uint4 y = *reinterpret_cast<const uint4*>(stage + (c / 8) * GW_EPI_LD + 8 * (c % 8));
+      if (p.residual != nullptr) {
+        float f[8], r[8];
+        unpack8(y, f);  // the residual adds the bf16-rounded product
+        unpack8(res[i], r);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) f[t] = r[t] + f[t];
+        y = pack8(f);
+      }
+      *reinterpret_cast<uint4*>(p.C + (size_t)row * p.N + col) = y;
+    }
+    __syncwarp();  // the next chunk reuses the staging tile
+  }
+}
+
+// Issues acc += A_stage B_stage over one K step of 64 as one wgmma group.
+__device__ __forceinline__ void gw_issue(float (&acc)[GW_BN / 2], uint32_t a_s, uint32_t b_s) {
+  const uint64_t da = sw128_desc(a_s);
+  const uint64_t db = sw128_desc(b_s, GW_ATOM_BYTES);
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < GW_BK / 16; ++kk) {
+    // A: 32 bytes further along the swizzled rows; B: 16 rows (2 KB) down
+    wgmma_m64n256k16_ss_t(acc, da + 2 * kk, db + 128 * kk);
+  }
+  wgmma_commit();
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(GW_THREADS, 1)
+    gw_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+              GwArgs p) {
+  extern __shared__ unsigned char gw_smem[];
+  const uint32_t base = smem_u32(gw_smem);
+  const uint32_t ring = (base + 1023u) & ~1023u;  // stage s: A at ring + s STAGE, B after it
+  unsigned char* ring_g = gw_smem + (ring - base);
+  const uint32_t bars = ring + GW_STAGES * GW_STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (GW_STAGES + s); };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (p.N + GW_BN - 1) / GW_BN;
+  const int tiles = (p.M + GW_BM - 1) / GW_BM * n_tiles;
+  const int nk = (p.K + GW_BK - 1) / GW_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < GW_STAGES; ++s) {
+      mbar_init(full(s), 1);   // the producer's expect_tx
+      mbar_init(empty(s), 8);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // Producer: ring step `it` counts the K steps of all this block's
+    // tiles; it uses stage it % GW_STAGES in round it / GW_STAGES.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * GW_BM, n0 = tile % n_tiles * GW_BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % GW_STAGES;
+          mbar_wait(empty(s), ((it / GW_STAGES) & 1) ^ 1);  // round 0 passes at once
+          const uint32_t a_s = ring + s * GW_STAGE_BYTES;
+          mbar_expect_tx(full(s), GW_STAGE_BYTES);
+          tma_load_2d(a_s, &ta, full(s), kt * GW_BK, m0);
+#pragma unroll
+          for (int j = 0; j < GW_BN / 64; ++j)
+            tma_load_2d(a_s + GW_A_BYTES + j * GW_ATOM_BYTES, &tb, full(s), n0 + 64 * j,
+                        kt * GW_BK);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, wt = tid & 127;
+    bf16* stage = reinterpret_cast<bf16*>(ring_g + GW_STAGES * GW_STAGE_BYTES + 16 * GW_STAGES) +
+                  warp * (GW_EPI_BYTES / 2);
+    // LN: this thread's rows lr0 + 16 i of the warpgroup's 64 and its
+    // physical 16-byte chunk pc of each, whose columns are those of the
+    // logical chunk pc ^ (row % 8) (the 128-byte swizzle).
+    const int lr0 = wt >> 3, pc = wt & 7, lc = pc ^ (lr0 & 7);
+    // Waits for ring step `step` (K step kt of a tile) to land and, with
+    // LN, normalises this warpgroup's rows of it, fences them to the async
+    // proxy and syncs the warpgroup: then its wgmma may read them.
+    auto arrive_step = [&](int step, int kt, const float (&mu)[4], const float (&rs)[4],
+                           int valid_rows) {
+      const int s = step % GW_STAGES, k = kt * GW_BK + 8 * lc;
+      mbar_wait(full(s), (step / GW_STAGES) & 1);
+      if (LN) {
+        if (k < p.K)  // K is a multiple of 8: the whole chunk
+          gw_ln_stage(ring_g + s * GW_STAGE_BYTES + (wg * 64 + lr0) * 128, pc, mu, rs,
+                      valid_rows, p.ln_scale + k, p.ln_bias + k);
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+      }
+    };
+    // Frees stage s once this warp's wgmma groups that read it are done.
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    float acc[GW_BN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * GW_BM, n0 = tile % n_tiles * GW_BN;
+      float mu[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int valid_rows = 0;  // of this thread's four LN rows, those before M
+      if (LN) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = m0 + wg * 64 + lr0 + 16 * i;
+          if (row < p.M) {
+            const float2 st = __ldg(reinterpret_cast<const float2*>(p.stats) + row);
+            mu[i] = st.x;
+            rs[i] = st.y;
+            valid_rows = i + 1;
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < GW_BN / 2; ++x) acc[x] = 0.0f;
+      // Step kt + 1 is waited for (and normalised) while step kt's group,
+      // issued just before, and step kt - 1's run on the tensor cores.
+      arrive_step(it, 0, mu, rs, valid_rows);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const uint32_t a_s = ring + (it % GW_STAGES) * GW_STAGE_BYTES;
+        gw_issue(acc, a_s + wg * 64 * 128, a_s + GW_A_BYTES);
+        if (kt + 1 < nk) arrive_step(it + 1, kt + 1, mu, rs, valid_rows);
+        wgmma_wait<1>();  // the previous K step's group is done: free its stage
+        reg_fence(acc);
+        if (kt > 0) release((it - 1) % GW_STAGES);
+      }
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release((it - 1) % GW_STAGES);
+
+      const int row0 = m0 + wg * 64 + (warp & 3) * 16;
+      switch (p.act) {
+        case ACT_GELU: gw_store<ACT_GELU>(acc, p, row0, n0, stage, lane); break;
+        case ACT_GELU_TANH: gw_store<ACT_GELU_TANH>(acc, p, row0, n0, stage, lane); break;
+        case ACT_QUICK_GELU: gw_store<ACT_QUICK_GELU>(acc, p, row0, n0, stage, lane); break;
+        case ACT_RELU: gw_store<ACT_RELU>(acc, p, row0, n0, stage, lane); break;
+        default: gw_store<ACT_NONE>(acc, p, row0, n0, stage, lane);
+      }
+    }
+  }
+}
+
+// Opts both variants in to their shared memory, on the current device.
+inline cudaError_t gw_enable() {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gw_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GW_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(gw_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)GW_SMEM_BYTES);
+}
+
+// C = epilogue(prologue(A) @ B) on `stream`; ln picks the LN prologue (p's
+// stats, ln_scale and ln_bias then non-null).  A, B, C, the residual, bias,
+// ln_scale and ln_bias must be 16-byte aligned, stats 8-byte, and N and K
+// multiples of 8 (TMA's 16-byte strides).
+inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, const GwArgs& p,
+                                     cudaStream_t stream) {
+  if (p.M < 1 || p.N < 8 || p.K < 8 || p.N % 8 || p.K % 8 || p.C == nullptr ||
+      (ln && (p.stats == nullptr || p.ln_scale == nullptr || p.ln_bias == nullptr)))
+    return cudaErrorInvalidValue;
+  auto misaligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (misaligned(A) || misaligned(B) || misaligned(p.C) ||
+      (p.residual != nullptr && misaligned(p.residual)) ||
+      (p.bias != nullptr && misaligned(p.bias)) ||
+      (ln && (misaligned(p.ln_scale) || misaligned(p.ln_bias) ||
+              (reinterpret_cast<uintptr_t>(p.stats) & 7) != 0)))
+    return cudaErrorMisalignedAddress;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  CUtensorMap ta, tb;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)p.K * 2};
+  const cuuint32_t a_box[2] = {GW_BK, GW_BM};
+  const cuuint64_t b_dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.K};
+  const cuuint64_t b_strides[1] = {(cuuint64_t)p.N * 2};
+  const cuuint32_t b_box[2] = {64, GW_BK};
+  if (!tma_encode_bf16(&ta, A, 2, a_dims, a_strides, a_box) ||
+      !tma_encode_bf16(&tb, B, 2, b_dims, b_strides, b_box))
+    return cudaErrorInvalidValue;
+  const long long tiles = (long long)((p.M + GW_BM - 1) / GW_BM) * ((p.N + GW_BN - 1) / GW_BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  if (ln)
+    gw_kernel<true><<<grid, GW_THREADS, GW_SMEM_BYTES, stream>>>(ta, tb, p);
+  else
+    gw_kernel<false><<<grid, GW_THREADS, GW_SMEM_BYTES, stream>>>(ta, tb, p);
+  return cudaGetLastError();
+}
+
+}  // namespace VFT_NS

@@ -11,16 +11,17 @@
 // for p = dtype(e / sum e) (normalised before it is rounded) and
 // o = dtype(p v).
 //
-// bf16: mha_wgmma_kernel (mha_wgmma.cuh).  One thread of a producer
-// warpgroup streams 128-key K tiles (pass 1) and K / V tile pairs (pass 2)
-// by TMA into a 4-stage ring of shared memory, each stage a full and an
-// empty mbarrier; two consumer warpgroups of 64 query rows each run both
-// products on wgmma (q k^T with A and B in shared memory, p v with p in
-// registers), the next tile's q k^T (pass 1) or the previous tile's p v
-// (pass 2) running while the exponentials are taken, and the softmax in the
-// log2 domain on ex2.approx with one reciprocal of each row sum.  The
-// tensor maps are encoded here, per call, by cuTensorMapEncodeTiled, which
-// is reached through cudaGetDriverEntryPoint so that nothing links libcuda.
+// bf16: mha_wgmma_kernel<false> (mha_wgmma.cuh, on hopper.cuh's pieces).
+// One thread of a producer warpgroup streams 128-key K tiles (pass 1) and
+// K / V tile pairs (pass 2) by TMA into a 4-stage ring of shared memory,
+// each stage a full and an empty mbarrier; two consumer warpgroups of 64
+// query rows each run both products on wgmma (q k^T with A and B in
+// shared memory, p v with p in registers), the next tile's q k^T (pass 1)
+// or the previous tile's p v (pass 2) running while the exponentials are
+// taken, and the softmax in the log2 domain on ex2.approx with one
+// reciprocal of each row sum.  The tensor maps are encoded per call by
+// cuTensorMapEncodeTiled, which is reached through cudaGetDriverEntryPoint
+// so that nothing links libcuda (hopper.cuh).
 // Why 128 query rows a block: one block fills an SM (145 KB of shared
 // memory; 240 registers a consumer thread), and at ViT-B/16 @1024 px b1 the
 // 33 x 12 = 396 blocks are exactly 3 waves on 132 SMs (192 rows would be 2
@@ -43,45 +44,13 @@
 // 64 = 7.6 GFLOP, bound by the f32 rate outside the tensor cores (114 us at
 // 67 TFLOP/s) against 39 MB of traffic.
 
-#include <cuda.h>
-
 #define VFT_NS mha
 #include "common.cuh"
 #include "seq_attn.cuh"
+#include "hopper.cuh"
 #include "mha_wgmma.cuh"
 
 using namespace VFT_NS;
-
-namespace {
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled = nullptr;
-
-// The 4-D map {64, rows, heads, batch} of a bf16 operand with element
-// strides in_r, in_h, in_b; boxes of one 64 x MW_KT tile (= MW_BQ rows of
-// Q), 128-byte swizzled, zero past `rows`.
-bool encode(CUtensorMap* map, const void* base, long long in_b, long long in_h, int in_r,
-            int rows, int heads, int batch) {
-  static_assert(MW_KT == MW_BQ, "one box shape serves Q, K and V");
-  // A dimension of extent 1 is never stepped; give it a legal stride.
-  auto stride = [](long long st, int extent) {
-    return (cuuint64_t)(extent == 1 ? 16 : st * 2);
-  };
-  const cuuint64_t dims[4] = {(cuuint64_t)MW_DH, (cuuint64_t)rows, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {stride(in_r, rows), stride(in_h, heads), stride(in_b, batch)};
-  const cuuint32_t box[4] = {(cuuint32_t)MW_DH, (cuuint32_t)MW_KT, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -89,22 +58,9 @@ extern "C" {
 // finds the driver's cuTensorMapEncodeTiled.  Called once per device before
 // the first launch.  Returns a cudaError_t.
 int vft_mha_init() {
-  if (encode_tiled == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
-    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
-  }
-  cudaError_t err = mha_wgmma_enable();
+  cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
+  if ((err = mha_wgmma_enable<false>()) != cudaSuccess) return err;
   return seq_attn_f32_enable();
 }
 
@@ -121,15 +77,15 @@ int vft_mha(const void* q, const void* k, const void* v, void* o, long long in_b
     SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, 0, scale};
     return launch_seq_attn_f32(p, batch, st);
   }
-  if (encode_tiled == nullptr) return cudaErrorInitializationError;
+  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   if (n < 1 || n_valid < 1 || n_valid > n || batch < 1 || heads < 1) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, in_b, in_h, in_r, n, heads, batch) ||
-      !encode(&tk, k, in_b, in_h, in_r, n_valid, heads, batch) ||
-      !encode(&tv, v, in_b, in_h, in_r, n_valid, heads, batch))
+  if (!mw_encode(&tq, q, in_b, in_h, in_r, n, heads, batch) ||
+      !mw_encode(&tk, k, in_b, in_h, in_r, n_valid, heads, batch) ||
+      !mw_encode(&tv, v, in_b, in_h, in_r, n_valid, heads, batch))
     return cudaErrorInvalidValue;
-  MhaTmaArgs p{o, out_b, out_h, out_r, heads, n, n_valid, scale * 1.4426950408889634f};
-  return launch_mha_wgmma(tq, tk, tv, p, batch, st);
+  MhaTmaArgs p{o, out_b, out_h, out_r, heads, n, n_valid, scale * 1.4426950408889634f, scale};
+  return launch_mha_wgmma<false>(tq, tk, tv, p, batch, st);
 }
 
 }  // extern "C"

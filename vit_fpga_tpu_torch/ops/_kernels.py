@@ -37,10 +37,11 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "streamed_gemm.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
            "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "chunk.cuh",
-           "seq_attn.cuh", "mha_wgmma.cuh")
+           "seq_attn.cuh", "mha_wgmma.cuh", "hopper.cuh", "gemm_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
+LOG_NAME = "build.log"
 
 _lock = threading.RLock()
 _lib: ctypes.CDLL | None = None
@@ -167,11 +168,14 @@ def _key() -> str:
 
 def build() -> Path:
     """Compile the sources (if this hash has no library yet) and return
-    the library's path; nvcc's output is kept in ``build_log``."""
+    the library's path; nvcc's output is kept in ``build_log`` and beside
+    the library (``LOG_NAME``), which a later process reads back."""
     global build_seconds, build_log
     out_dir = BUILD_ROOT / _key()
     lib = out_dir / LIB_NAME
     if lib.exists():
+        saved = out_dir / LOG_NAME
+        build_log = saved.read_text() if saved.exists() else ""
         return lib
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -194,6 +198,7 @@ def build() -> Path:
         build_log = "\n".join(logs)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        (Path(tmp) / LOG_NAME).write_text(build_log)
         tmp_lib = Path(tmp) / LIB_NAME
         link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp_lib),
                 *[str(obj) for _, obj, _ in procs]]
@@ -201,6 +206,7 @@ def build() -> Path:
                              stderr=subprocess.STDOUT, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"link failed: {' '.join(link)}\n{res.stdout}")
+        os.replace(Path(tmp) / LOG_NAME, out_dir / LOG_NAME)
         os.replace(tmp_lib, lib)
     build_seconds = time.perf_counter() - t0
     return lib

@@ -7,15 +7,17 @@ CPU tensor:
 
 * K1 ``attn_block_stats`` (``csrc/attn_stats.cu``), the stats-chain half
   that serving runs: replaces ``vit_fpga_tpu/ops/attn_block.py:
-  _attn_stats_kernel`` (with its ``_mha_loop``), up to 1024 tokens: past
-  256 valid keys its attention streams the keys in tiles
-  (``csrc/attn.cuh`` ``attn_long_kernel``);
+  _attn_stats_kernel`` (with its ``_mha_loop``), up to 1024 tokens: the
+  wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (LN prologue, bias and
+  residual epilogues) and the max-free one-pass mode of
+  ``csrc/mha_wgmma.cuh``'s attention, one kernel at every length;
 * K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
   replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
   one-pass LN statistics computed in the kernel and the exact
   (``safe_softmax``) or max-free softmax, up to 1024 tokens: past 256
-  valid keys it takes K1's key-tiled tile, which in the exact mode sweeps
-  the keys twice (the row max first, then ``exp(s - max)``);
+  valid keys it takes the key-tiled tile (``csrc/attn.cuh``
+  ``attn_long_kernel``), which in the exact mode sweeps the keys twice
+  (the row max first, then ``exp(s - max)``);
 * K23 ``attn_block_bwd`` (``csrc/attn_bwd.cu``), K4's backward: replaces
   ``_attn_bwd_kernel`` (wrapper ``attn_block_bwd_pallas``), the per-head
   arithmetic of its non-pair branch, up to 256 tokens.
@@ -31,14 +33,17 @@ Bounds on the H100 at ViT-B/16 batch 64 (R = 12 800 rows, D = 768), all
 set by tensor-core operations at 989 TFLOP/s: K1 and K4 8·R·D² +
 4·B·H·n_pad·n_valid·dh flops (68 GFLOP, 69 us) against about 44 MB of
 compulsory traffic; K23 22·R·D² + 12·B·H·n_pad·n_valid·dh (189 GFLOP,
-191 us) against under 100 MB.  Designs: bf16 wmma GEMMs (LN applied to
-the A tiles in shared memory, bias / residual in the epilogue, transposed
-layouts for the gradients), an attention block per (image, head) with
-scores and probabilities in shared memory; the backward sums every
-weight gradient over all rows in one transposed-A GEMM and every bias
-and LN gradient with fixed-order column sums.  qkv, the attention output
-and the backward's intermediates round-trip through device memory
-(later work: fuse them away, wgmma).
+191 us) against under 100 MB.  Designs: K1 on wgmma + TMA (a producer
+warpgroup streaming tiles into a shared-memory ring, two consumer
+warpgroups; the LN applied to the landed A tiles, the scores and
+probabilities in registers); K4 and K23 on bf16 wmma GEMMs (LN applied
+to the A tiles in shared memory, bias / residual in the epilogue,
+transposed layouts for the gradients) and an attention block per (image,
+head) with scores and probabilities in shared memory; the backward sums
+every weight gradient over all rows in one transposed-A GEMM and every
+bias and LN gradient with fixed-order column sums.  qkv, the attention
+output and the backward's intermediates round-trip through device memory
+(later work: fuse them away).
 
 The max-free softmax, ``exp(clip(s, -70, 80))`` with keys at or past
 ``n_valid`` masked, equals the exact softmax of
@@ -60,9 +65,12 @@ from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
                      round_up, row_stats)
 
 _NEG_INF = -1e30
-# K1 takes up to LONG_MAX_TOKENS tokens (csrc/attn.cuh ATT_MAX_LONG); its C
-# entry chooses between the whole-head and the key-tiled attention tile and
-# reports which it launched.  Where the JAX package keeps the chain
+# K1 takes up to LONG_MAX_TOKENS tokens (csrc/attn_stats.cu K1_MAX_TOKENS);
+# its C entry reports a launch with more than 256 valid keys (one kernel at
+# every length; the launch checks count those apart).  K4's
+# entry chooses between the whole-head and the key-tiled attention tile
+# (csrc/attn.cuh ATT_MAX_LONG) and reports which it launched.  Where the
+# JAX package keeps the chain
 # (attn_plan below), it runs K1 up to 3137 tokens (ViT-B/16 @896 px); past
 # 1024 the port's K1 raises on the card.  K4 takes the same tile and
 # limit; its backward K23 holds a head's keys in one block, up to
@@ -272,7 +280,7 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 
 
 attn_block_stats.launches = 0
-attn_block_stats.launches_long = 0    # of those, the key-tiled path's
+attn_block_stats.launches_long = 0    # of those, with more than 256 valid keys
 
 
 # ---------------------------------------------------------------------------

@@ -39,12 +39,16 @@ CLIP ViT-L/14 batch 64 (T = 16 896, D = 1024, M = 4096): 4·T·D·M
 (283 GFLOP, 287 us), also bound by operations; K6 at ViT-L/16 batch 8
 (T = 1 600): 26.8 GFLOP, 27 us.  (989 TFLOP/s is the
 H100 SXM's dense bf16 peak at its 700 W limit.)
-Designs: bf16 wmma GEMMs with f32 accumulation, the LayerNorm applied to
-the first GEMM's A tiles in shared memory, the activation (or, in the
-backward, act and act' from their closed forms) in a GEMM epilogue, every
-weight gradient one transposed-A GEMM over all rows and every bias and LN
-gradient a fixed-order column sum.  The (T, M) hidden tensors round-trip
-through device memory (later work).
+Designs: K2 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (a
+producer warpgroup streaming tiles into a shared-memory ring, two consumer
+warpgroups, the LayerNorm applied to the landed A tiles, the activation
+and residual in the epilogue); the others on bf16 wmma GEMMs with f32
+accumulation, the LayerNorm applied to the first GEMM's A tiles in shared
+memory, the activation (or, in the backward, act and act' from their
+closed forms) in a GEMM epilogue, every weight gradient one transposed-A
+GEMM over all rows and every bias and LN gradient a fixed-order column
+sum.  The (T, M) hidden tensors round-trip through device memory (later
+work).
 
 Semantics follow the JAX kernels: f32 LayerNorm, bf16 GEMMs with f32
 accumulation, activation in f32, residual add in the input dtype.
@@ -114,19 +118,19 @@ def fused_mlp_stats_plain(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     return out, (row_stats(out, eps) if emit_stats else None)
 
 
-def _launch_stats_half(entry, x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
-                       eps, act, emit_stats, *gate):
+def _launch_stats_half(entry, multiple, x, stats, ln_scale, ln_bias, w1, b1,
+                       w2, b2, eps, act, emit_stats, *gate):
     """Checks and launches the stats-chain MLP half ``entry`` of the
-    library (K2 ``vft_fused_mlp_stats``, or K3
-    ``vft_fused_mlp_chunked_stats`` with ``gate`` = (n_chunks,)) on CUDA
-    tensors: (out, next stats or None)."""
+    library (K2 ``vft_fused_mlp_stats``, D and M multiples of 8, or K3
+    ``vft_fused_mlp_chunked_stats`` with ``gate`` = (n_chunks,), of 32) on
+    CUDA tensors: (out, next stats or None)."""
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
     m = w1.shape[-1]
-    if d % 32 or m % 32:
-        raise ValueError(f"kernel needs D and M divisible by 32 (D={d}, "
-                         f"M={m})")
+    if d % multiple or m % multiple:
+        raise ValueError(f"{entry} needs D and M divisible by {multiple} "
+                         f"(D={d}, M={m})")
     check_activation(x, (t, d), torch.bfloat16, "x")
     check_activation(stats, (t, 2), torch.float32, "stats")
     dev = x.device
@@ -160,7 +164,7 @@ def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     (out (T, D), next stats (T, 2) f32 or None).
 
     A CPU tensor runs :func:`fused_mlp_stats_plain`; a CUDA tensor
-    launches the kernel (bf16 only) or raises."""
+    launches the kernel (bf16, D and M multiples of 8) or raises."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
     if x.device.type == "cpu":
@@ -169,7 +173,7 @@ def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
                                      emit_stats=emit_stats)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    res = _launch_stats_half("vft_fused_mlp_stats", x, stats, ln_scale,
+    res = _launch_stats_half("vft_fused_mlp_stats", 8, x, stats, ln_scale,
                              ln_bias, w1, b1, w2, b2, eps, act, emit_stats)
     fused_mlp_stats.launches += 1
     return res
@@ -259,7 +263,7 @@ def fused_mlp_chunked_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     if n_chunks not in (2, 4) or m % (32 * n_chunks):
         raise ValueError(f"kernel takes n_chunks 2 or 4 and M a multiple of "
                          f"32 * n_chunks (M={m}, n_chunks={n_chunks})")
-    res = _launch_stats_half("vft_fused_mlp_chunked_stats", x, stats,
+    res = _launch_stats_half("vft_fused_mlp_chunked_stats", 32, x, stats,
                              ln_scale, ln_bias, w1, b1, w2, b2, eps, act,
                              emit_stats, n_chunks)
     fused_mlp_chunked_stats.launches += 1

@@ -57,14 +57,19 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+UNEXPECTED = "unexpected:"
+
 # launch-site name fragment (spaces and "(int)" casts removed) -> stage
 # label.  csrc/*.cu name each site's kernels by translation unit:
 # vit_stack:: K11, vit_stack_int8:: K19a, vit_stack_int8_static:: K19b,
 # vit_full:: K12, vit_full_int8:: K20,
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
-# mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1's
-# key-tiled attention past 256 keys is attn_half::attn_long_kernel, K4's
+# mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1 and K2
+# run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<true>
+# at every length: any other attn_half:: or mlp_half:: record, such as the
+# wmma gemm_bf16_kernel or attn_kernel / attn_long_kernel they ran before,
+# is reported as unexpected; K4's key-tiled attention is
 # attn_block::attn_long_kernel),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # int8 GEMM's template
@@ -104,14 +109,15 @@ STAGES = (
     ("attn_int8_static::qgemm_kernel<1>",
      "K18 (d) int8 out-proj + residual"),
     ("attn_int8_static::", "K18 other"),
-    ("attn_half::gemm_bf16_kernel<true", "K1 (a) LN + QKV GEMM"),
-    ("attn_half::attn_long_kernel", "K1 (b) attention, key-tiled"),
-    ("attn_half::attn_kernel", "K1 (b) attention"),
-    ("attn_half::gemm_bf16_kernel<false", "K1 (c) out-proj + residual"),
+    ("attn_half::gw_kernel<true", "K1 (a) LN + QKV GEMM"),
+    ("attn_half::mha_wgmma_kernel<true", "K1 (b) attention, max-free"),
+    ("attn_half::gw_kernel<false", "K1 (c) out-proj + residual"),
     ("attn_half::row_stats_kernel", "K1 (d) next stats"),
-    ("mlp_half::gemm_bf16_kernel<true", "K2 (a) LN + W1 GEMM + act"),
-    ("mlp_half::gemm_bf16_kernel<false", "K2 (b) W2 GEMM + residual"),
+    ("mlp_half::gw_kernel<true", "K2 (a) LN + W1 GEMM + act"),
+    ("mlp_half::gw_kernel<false", "K2 (b) W2 GEMM + residual"),
     ("mlp_half::row_stats_kernel", "K2 (c) next stats"),
+    ("attn_half::", UNEXPECTED + " K1 kernel"),
+    ("mlp_half::", UNEXPECTED + " K2 kernel"),
     ("mlp_chunk::gemm_bf16_kernel<true", "K3 (a) LN + W1 GEMM + act"),
     ("mlp_chunk::chunk_down_kernel", "K3 (b) chunked W2 GEMM + residual"),
     ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
@@ -451,6 +457,8 @@ def main(argv=None) -> int:
                               for k, v in per_stage.items()},
         "top_torch_ops_ms": dict(sorted(torch_ops.items(),
                                         key=lambda kv: -kv[1])[:8]),
+        "unexpected": sorted(k for k in per_stage
+                             if k.startswith(UNEXPECTED)),
     }
     if args.latency:
         result["encoder_stages_us"] = _stack_stages(cfg, args.batch,
@@ -487,6 +495,8 @@ def main(argv=None) -> int:
     for label, (ms, n) in sorted(per_stage.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.4f} ms/step  {n // args.steps:4d} launches  {label}")
     print(f"  device idle share: {result['idle_share']}")
+    if result["unexpected"]:
+        print(f"  UNEXPECTED kernels on the path: {result['unexpected']}")
     if args.latency or args.full:
         print(f"  torch launches per request: "
               f"{result['torch_launches_per_request']:.2f}")
