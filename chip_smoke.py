@@ -145,7 +145,9 @@ Phases, each of which raises on failure (exit code != 0):
               (wgmma + TMA) at one partial tile (17, 64 tokens), at a key
               tile's edge (127-129 valid of 200), at 224 px and (3, 12,
               300, 64), also in norm, and into views of a loud buffer
-              whose other rows and heads must not change, K6 at ViT-L's and
+              whose other rows and heads must not change, the f32 K7 / K8
+              (one pass, register-tiled) at 1, 63, 64, 65, 197 valid of
+              200, 577 of 584 and (1, 2, 1100, 64), K6 at ViT-L's and
               ViT-H's MLP shapes in 2 and 4 chunks against its plain version
               and away from K5's function, the gates; their times beside the
               plain version, scaled_dot_product_attention (K6: LN + addmm +
@@ -200,11 +202,12 @@ Phases, each of which raises on failure (exit code != 0):
               safe_softmax) at b1 launches 24 K4 in the exact mode; their
               ms per request beside b2 through the chain, then every
               output against the CPU forward
- 18. wgmma K1 / K2  right after the build, ptxas's report must hold no
-              wgmma serialisation note (C7513-C7515); then K2 on
-              gemm_wgmma.cuh against its plain version at (1000, 776) x
-              3104 (row, K and N tails of the tiles) and ViT-L's (1600,
-              1024) x 4096, each activation, and K1 (its GEMMs and the
+ 18. wgmma K1 / K2 / K5  right after the build, ptxas's report must hold
+              no wgmma serialisation note (C7513-C7515); then K2 and K5
+              on gemm_wgmma.cuh against their plain versions at (1000,
+              776) x 3104 (row, K and N tails of the tiles), K2 at ViT-L's
+              (1600, 1024) x 4096, K5 at (264, 1024) x 4096 and (4104,
+              768) x 3072, each activation, and K1 (its GEMMs and the
               max-free one-pass attention of mha_wgmma.cuh) at (5, 200,
               704) with 11 heads and 1, 127, 128, 129 and 200 valid keys;
               this runs first, before every other phase's parity
@@ -3566,8 +3569,10 @@ def phase_per_block_kernels():
     (17 and 64 tokens, 127 / 128 / 129 valid of 200, K7 at (64, 197, 2304)
     and (64, 200, 2304) with 197 valid, K8 at (3, 12, 300, 64) with 257),
     also in norm, and writing into out views of a loud buffer whose other
-    elements must come back bit for bit; loud padding keys that must leave
-    the valid rows bit for bit (K9 both bk, K7 both types, K8); K6 at
+    elements must come back bit for bit; K7 / K8 f32 at the one-pass
+    kernel's edges (1, 63, 64, 65 and 197 valid of 200, 577 of 584, K8 at
+    (1, 2, 1100, 64) with 1100 and 1000 valid); loud padding keys that must
+    leave the valid rows bit for bit (K9 both bk, K7 both types, K8); K6 at
     ViT-L's (1600, 1024) x
     4096 in 2 chunks and ViT-H's (2112, 1280) x 5120 in 4, each activation,
     with its distance from K5's function (at least half the plain versions'
@@ -3680,6 +3685,32 @@ def phase_per_block_kernels():
     q, k, v = at._heads(_seq_qkv(3, 200, 768, seed=198), 12)
     k7 = max(k7, _out_view_case("K7 bf16 out view (3, 200, 2304) "
                                 "n_valid=129", q, k, v, 129, packed=True))
+
+    print("parity K7 / K8 f32 at the one-pass kernel's edges: n_valid 1, "
+          "63, 64, 65 and 197 of 200 and 577 of 584 (64-key tiles cut to "
+          "their 16-key groups, 32-row warps past n), K8 at (1, 2, 1100, 64)")
+    for n, nv in ((200, 1), (200, 63), (200, 64), (200, 65), (200, 197),
+                  (584, 577)):
+        qkv = _seq_qkv(2, n, 128, seed=200 + nv, dtype=torch.float32)
+        k7 = max(k7, _compare(f"K7 f32 (2, {n}, 384) n_valid={nv}",
+                              at.mha_qkv_pallas(qkv, 2, nv),
+                              at.mha_qkv_pallas_plain(qkv, 2, nv),
+                              F32_ATTN_TOL, F32_ATTN_TOL))
+        _unmoved(f"K7 f32 (2, {n}, 384)",
+                 lambda t: at.mha_qkv_pallas(t, 2, nv), qkv, nv)
+        q, k, v = (t.contiguous() for t in at._heads(qkv, 2))
+        k8 = max(k8, _compare(f"K8 f32 (2, 2, {n}, 64) n_valid={nv}",
+                              at.mha_pallas(q, k, v, nv),
+                              at.mha_pallas_plain(q, k, v, nv),
+                              F32_ATTN_TOL, F32_ATTN_TOL))
+    g = _gen(210)
+    q, k, v = (_randn(g, 1, 2, 1100, 64) for _ in range(3))
+    for nv in (1100, 1000):
+        k8 = max(k8, _compare(f"K8 f32 (1, 2, 1100, 64) n_valid={nv}",
+                              at.mha_pallas(q, k, v, nv),
+                              at.mha_pallas_plain(q, k, v, nv),
+                              F32_ATTN_TOL, F32_ATTN_TOL))
+    _unmoved_heads("K8 f32 (1, 2, 1100, 64)", at.mha_pallas, q, k, v, 1000)
 
     print("parity K6 fused_mlp_chunked: ViT-L (1600, 1024) x 4096 in 2 "
           "chunks, ViT-H (2112, 1280) x 5120 in 4")
@@ -4934,15 +4965,16 @@ def _k2_act_call(fn, x, st, p, act, emit):
 
 
 def phase_wgmma_kernels():
-    """K2 and K1 against their plain versions where the wgmma + TMA tiles
-    have edges, right after the build: K2 at (1000, 776) x 3104 (a partial
-    128-row tile, a K tail of 8 past 64-wide steps, N past 256-wide tiles;
-    x scaled by 2, so rstd is about 0.5 and an LN prologue that drops it
-    moves the whole branch) and at ViT-L's (1600, 1024) x 4096, each
-    activation code; K1 at (5, 200, 704) with 11 heads (N 2112 and 704,
-    tails of a 256-wide tile) with 1, 127, 128, 129 and 200 of 200
-    keys valid (one key, either side of a 128-key tile's edge, none
-    masked).  Returns {kernel name: max-abs error}."""
+    """K2, K5 and K1 against their plain versions where the wgmma + TMA
+    tiles have edges, right after the build: K2 and K5 at (1000, 776) x
+    3104 (a partial 128-row tile, a K tail of 8 past 64-wide steps, N past
+    256-wide tiles; x scaled by 2, so rstd is about 0.5 and an LN prologue
+    that drops it moves the whole branch), K2 at ViT-L's (1600, 1024) x
+    4096, K5 at CLIP ViT-L/14 b1's (264, 1024) x 4096 and ViT-B/16 @1024
+    b1's (4104, 768) x 3072, each activation code; K1 at (5, 200, 704)
+    with 11 heads (N 2112 and 704, tails of a 256-wide tile) with 1, 127,
+    128, 129 and 200 of 200 keys valid (one key, either side of a 128-key
+    tile's edge, none masked).  Returns {kernel name: max-abs error}."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     from vit_fpga_tpu_torch.ops.common import row_stats
@@ -4958,6 +4990,21 @@ def phase_wgmma_kernels():
                 f"K2 ({rows}, {d}) x {m} {act}",
                 lambda fn, emit, a=act: _k2_act_call(fn, x, st, pb, a, emit),
                 fm.fused_mlp_stats, fm.fused_mlp_stats_plain, x))
+    k5 = 0.0
+    for rows, d, m, seed, scale in ((1000, 776, 3104, 180, 2.0),
+                                    (264, 1024, 4096, 183, 1.0),
+                                    (4104, 768, 3072, 184, 1.0)):
+        x, _, p = _mlp_inputs(rows, d, m, seed)
+        x = (x.float() * scale).to(torch.bfloat16)
+        pb = _bf16_weights(p, ("w1", "w2"))
+        for act in MLP_ACTS_ALL:
+            label = f"K5 ({rows}, {d}) x {m} {act}"
+            got = _k5(fm.fused_mlp_fwd, x, pb, act)
+            want = _k5(fm.fused_mlp_xla, x, pb, act)
+            torch.cuda.synchronize()
+            k5 = max(k5, _compare(f"{label} out", got, want, BF16_TOL,
+                                  BF16_TOL))
+            _branch(f"{label} branch", got, want, x)
     x, st, p = _attn_inputs(5, 200, 704, seed=182)
     pb = _bf16_weights(p, ("wqkv", "wo"))
     k1 = 0.0
@@ -4968,7 +5015,8 @@ def phase_wgmma_kernels():
                                                     emit),
             ab.attn_block_stats, ab.attn_block_stats_plain, x,
             (slice(None), slice(0, n_valid))))
-    return {"fused_mlp_stats": k2, "attn_block_stats": k1}
+    return {"fused_mlp_stats": k2, "fused_mlp_fwd": k5,
+            "attn_block_stats": k1}
 
 
 def main() -> int:
@@ -4993,6 +5041,7 @@ def main() -> int:
 
     wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
+    errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
     errors.update(phase_per_block_kernels())
     errors.update(phase_large_kernels())

@@ -1,9 +1,10 @@
-"""K1's or K2's time at a shape, from the package tree found under ROOT, so
-that two versions of the port are compared in one call on one card.
+"""K1's, K2's or K5's time at a shape, from the package tree found under
+ROOT, so that two versions of the port are compared in one call on one
+card.
 
 Run on a machine with a Hopper card, from the repository root:
 
-    python3 experiments/torch_k1_ab.py [ROOT] [--kernel k1|k2]
+    python3 experiments/torch_k1_ab.py [ROOT] [--kernel k1|k2|k5]
         [--shape B N_PAD N_VALID D HEADS] [--mlp-shape T D M] [--one-consumer]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
@@ -12,14 +13,19 @@ kernels build into its own ``_build/``.  ``--kernel k1`` (the default) times
 ``attn_block_stats`` at ``--shape``, by default ViT-B/16 at batch 64: (64,
 200, 768), 197 valid tokens, 12 heads; ``--kernel k2`` times
 ``fused_mlp_stats`` (gelu_tanh) at ``--mlp-shape``, by default ViT-B/16's
-(12 800, 768) x 3072.  Prints five CUDA-event estimates of 20 launches each
-(``emit_stats`` on, seeded inputs at chip_smoke.py's scales) beside the
-card's name and power limit, and one JSON line.  ``--one-consumer`` times a
-copy of ROOT's package (made under ROOT's git-ignored
-``_chip/k1_one_consumer/``) whose attention kernel (``csrc/mha_wgmma.cuh``)
-takes 64 query rows a block on one consumer warpgroup instead of 128 on
-two: Q's TMA box shrinks to 64 rows, K's and V's stay 128, and the ring
-(4 stages, 137 KB) keeps one block an SM.
+(12 800, 768) x 3072; ``--kernel k5`` times ``fused_mlp_fwd`` (gelu_tanh)
+at ViT-B/16 b64's (12 800, 768) x 3072, ViT-B/16 @1024 b1's (4104, 768) x
+3072 and CLIP ViT-L/14 b1's (264, 1024) x 4096, each beside its library
+call (LN + addmm + tanh-GELU + addmm), with K1 and K2 at their defaults
+as controls, then the ViT-B/16 @1024 b1 forward and the b64 SGD step.
+Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
+seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
+beside the card's name and power limit, and one JSON line.
+``--one-consumer`` times a copy of ROOT's package (made under ROOT's
+git-ignored ``_chip/k1_one_consumer/``) whose attention kernel
+(``csrc/mha_wgmma.cuh``) takes 64 query rows a block on one consumer
+warpgroup instead of 128 on two: Q's TMA box shrinks to 64 rows, K's and
+V's stay 128, and the ring (4 stages, 137 KB) keeps one block an SM.
 """
 
 from __future__ import annotations
@@ -67,11 +73,40 @@ def one_consumer_copy(root: Path) -> Path:
     return copy
 
 
+def time_k5_paths(g):
+    """The paths that run K5, five estimates each: the bf16 ViT-B/16 @1024
+    b1 forward from uint8 on the card (12 K9 + 12 K5) and the bf16 b64
+    SGD(1e-4) step at 224 px (12 K4 + 12 K5 forward, 12 K24 + 12 K23
+    backward), seeded random weights."""
+    import torch
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.train import trainer as tr
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", image_size=1024, dtype="bfloat16")
+    fwd = vit.make_forward(cfg, vit.init_params(cfg, g, device="cuda"))
+    img = torch.randint(0, 256, (1, 1024, 1024, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    out = {"ViT-B/16 @1024 b1 forward (uint8 in)":
+           [time_cuda(lambda: fwd(img), iters=5, warmup=2) for _ in range(5)]}
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    params, opt = tr.init_train_state(
+        cfg, tr.sgd(1e-4), params=vit.init_params(cfg, g, device="cuda"))
+    images = vit.preprocess(torch.randint(0, 256, (64, 224, 224, 3),
+                                          generator=g, dtype=torch.uint8),
+                            cfg).float().cuda()
+    labels = torch.zeros((64,), dtype=torch.int64, device="cuda")
+    step = tr.make_vit_train_step(cfg)
+    out["b64 SGD step"] = [
+        time_cuda(lambda: step(params, opt, images, labels), iters=5,
+                  warmup=2) for _ in range(5)]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--kernel", choices=("k1", "k2"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k5"), default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
                     metavar=("B", "N_PAD", "N_VALID", "D", "HEADS"))
@@ -99,40 +134,70 @@ def main() -> int:
     def randn(*shape, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=g) * std + mean).cuda()
 
-    if args.kernel == "k1":
-        shape = args.shape
-        b, n_pad, n_valid, d, heads = shape
+    def k1_run(b, n_pad, n_valid, d, heads):
         x = randn(b, n_pad, d).to(torch.bfloat16)
         st = row_stats(x, 1e-6)
         p = (randn(d, std=0.1, mean=1.0), randn(d, std=0.1),
              randn(d, 3 * d, std=0.06).to(torch.bfloat16),
              randn(3 * d, std=0.02),
              randn(d, d, std=0.02).to(torch.bfloat16), randn(d, std=0.02))
+        return lambda: ab.attn_block_stats(x, st, *p, heads, eps=1e-6,
+                                           n_valid=n_valid, emit_stats=True)
 
-        def run():
-            return ab.attn_block_stats(x, st, *p, heads, eps=1e-6,
-                                       n_valid=n_valid, emit_stats=True)
-    else:
-        shape = args.mlp_shape
-        t, d, m = shape
+    def mlp_inputs(t, d, m):
         x = randn(t, d).to(torch.bfloat16)
-        st = row_stats(x, 1e-6)
         p = (randn(d, std=0.1, mean=1.0), randn(d, std=0.1),
              randn(d, m, std=d ** -0.5).to(torch.bfloat16),
              randn(m, std=0.02),
              randn(m, d, std=m ** -0.5).to(torch.bfloat16),
              randn(d, std=0.02))
+        return x, p
 
-        def run():
-            return fm.fused_mlp_stats(x, st, *p, eps=1e-6, act="gelu_tanh",
-                                      emit_stats=True)
+    def k2_run(t, d, m):
+        x, p = mlp_inputs(t, d, m)
+        st = row_stats(x, 1e-6)
+        return lambda: fm.fused_mlp_stats(x, st, *p, eps=1e-6,
+                                          act="gelu_tanh", emit_stats=True)
 
-    ms = [time_cuda(run, iters=20, warmup=5) for _ in range(5)]
+    if args.kernel == "k1":
+        shape = args.shape
+        runs = {f"K1 {tuple(shape)}": k1_run(*shape)}
+    elif args.kernel == "k2":
+        shape = args.mlp_shape
+        runs = {f"K2 {tuple(shape)}": k2_run(*shape)}
+    else:
+        import torch.nn.functional as F
+        shape = [[12800, 768, 3072], [4104, 768, 3072], [264, 1024, 4096]]
+        runs = {}
+        for t, d, m in shape:
+            x, p = mlp_inputs(t, d, m)
+            ls, lb, w1, b1, w2, b2 = p
+            lib_p = (ls.to(torch.bfloat16), lb.to(torch.bfloat16), w1,
+                     b1.to(torch.bfloat16), w2, b2.to(torch.bfloat16))
+
+            def lib(x=x, d=d, p=lib_p):
+                ls, lb, w1, b1, w2, b2 = p
+                h = F.layer_norm(x, (d,), ls, lb, 1e-6)
+                h = F.gelu(torch.addmm(b1, h, w1), approximate="tanh")
+                return torch.addmm(b2, h, w2) + x
+
+            runs[f"K5 ({t}, {d}) x {m}"] = (
+                lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
+                                                  act="gelu_tanh"))
+            runs[f"library ({t}, {d}) x {m}"] = lib
+        runs[f"K1 control {tuple(args.shape)}"] = k1_run(*args.shape)
+        runs[f"K2 control {tuple(args.mlp_shape)}"] = k2_run(*args.mlp_shape)
+
+    ms = {label: [time_cuda(fn, iters=20, warmup=5) for _ in range(5)]
+          for label, fn in runs.items()}
+    if args.kernel == "k5":
+        ms.update(time_k5_paths(g))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          stdout=subprocess.PIPE, text=True).stdout.strip()
-    print(f"{args.kernel.upper()} {tuple(shape)} from {root}: "
-          + " / ".join(f"{t:.4f}" for t in ms) + f" ms on {smi}")
+    for label, ts in ms.items():
+        print(f"{label} from {root}: " + " / ".join(f"{t:.4f}" for t in ts)
+              + f" ms on {smi}")
     print(json.dumps({"root": str(root), "kernel": args.kernel,
                       "shape": shape, "ms": ms, "device": smi}))
     return 0

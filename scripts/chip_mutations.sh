@@ -72,12 +72,30 @@ run_copy k9_no_alpha_rescale seq_attn.cuh \
 run_copy k7_k8_mask_one_late mha_wgmma.cuh \
   "return key0 + 8 * (x >> 2) + (x & 1) >= n_valid ? -INFINITY : s[x];" \
   "return key0 + 8 * (x >> 2) + (x & 1) >= n_valid + 1 ? -INFINITY : s[x];"
-# K7 and K8 in f32 with the same mask one key late
+# K7 and K8 in f32 with the same mask one key late (the one-pass kernel's
+# score mask: the key at n_valid, zero-filled, joins the softmax with e =
+# exp(-m); 1 of 200 keys valid doubles the row sum)
 run_copy k7_k8_f32_mask_one_late seq_attn.cuh \
-  "const bool ok0 = t * SF_KT + lane < p.n_valid;" \
-  "const bool ok0 = t * SF_KT + lane <= p.n_valid;" \
-  "const bool ok1 = t * SF_KT + lane + 32 < p.n_valid;" \
-  "const bool ok1 = t * SF_KT + lane + 32 <= p.n_valid;"
+  "s[i][j] = kg + 8 * j < nk ? s[i][j] * p.scale : -INFINITY;" \
+  "s[i][j] = kg + 8 * j < nk + 1 ? s[i][j] * p.scale : -INFINITY;"
+# K5's LN prologue reading rstd as 1: a kernel added to the copy overwrites
+# the rstd column of the two-pass stats before the up-projection (phase
+# 18's K5 case scales x by 2, so rstd is about 0.5 there)
+run_copy k5_ln_rstd_one mlp.cu \
+  "extern \"C\" {
+" \
+  "__global__ void rstd_one(float* st, int t) {
+  const int r = blockIdx.x * 256 + threadIdx.x;
+  if (r < t) st[2 * r + 1] = 1.0f;
+}
+
+extern \"C\" {
+" \
+  "  GwArgs up{};
+" \
+  "  rstd_one<<<(t + 255) / 256, 256, 0, st>>>(static_cast<float*>(stats), t);
+  GwArgs up{};
+"
 # The bf16 K7 / K8 ring without the V tiles of pass 2: the producer loads
 # and expects K alone, so p v reads whatever the V slots held before
 run_copy k7_k8_ring_no_v_load mha_wgmma.cuh \

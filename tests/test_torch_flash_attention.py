@@ -117,6 +117,32 @@ def test_mha_pallas_plain_matches_pallas(n, n_valid, batch, dtype):
     _close(got, want, dtype)
 
 
+# (n, n_valid) where the f32 card kernel's one pass has edges, at 2 heads of
+# 64: one valid key; n_valid one before, and one past, a 64-key tile's end
+# (the last tile cut to its 16-key groups); a partial 64-row block whose
+# last 16-row warp holds 6 of its rows, with and without padding keys.
+F32_EDGES = [(200, 1), (200, 63), (200, 65), (70, None), (70, 65)]
+
+
+@pytest.mark.parametrize("kernel", ["K7", "K8"])
+@pytest.mark.parametrize("n,n_valid", F32_EDGES,
+                         ids=[f"{n}-{nv}" for n, nv in F32_EDGES])
+def test_f32_plain_matches_pallas_at_the_one_pass_edges(kernel, n, n_valid):
+    """The plain f32 K7 / K8 (what the card's one-pass kernel is held to)
+    vs ``mha_qkv_pallas`` / ``mha_pallas(interpret=True)``."""
+    if kernel == "K7":
+        rng = np.random.default_rng(n + (n_valid or 0))
+        qkv = rng.normal(size=(2, n, 384)).astype(np.float32)
+        want = jatt.mha_qkv_pallas(jnp.asarray(qkv), 2, n_valid=n_valid,
+                                   interpret=True)
+        got = tatt.mha_qkv_pallas(torch.from_numpy(qkv), 2, n_valid=n_valid)
+    else:
+        js, ts = _qkv(n + 2 * (n_valid or 0), (2, 2, n, 64), "float32")
+        want = jatt.mha_pallas(*js, n_valid=n_valid, interpret=True)
+        got = tatt.mha_pallas(*ts, n_valid=n_valid)
+    _close(got, want, "float32")
+
+
 def test_tma_stride_gate_names_the_kernel():
     """The bf16 K7 / K8 kernel reads its operands by TMA, whose base
     addresses and strides are whole 16-byte units: the launch gate refuses

@@ -168,6 +168,39 @@ def test_fused_mlp_fwd_plain_matches_pallas(act, dts):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+# (T, D, M) where K5's wgmma + TMA tiles (128 rows, 64-wide K steps,
+# 256-wide N) have edges on the card, at small widths: a partial row tile
+# only; a K tail of 8 past one 64-wide step and N 8 past a 256-wide tile; a
+# K tail of 8 past two steps and N 64 past one tile, over two row tiles.
+K5_EDGES = [(72, 64, 128), (136, 72, 264), (200, 136, 320)]
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("t,d,m", K5_EDGES,
+                         ids=[f"{t}x{d}x{m}" for t, d, m in K5_EDGES])
+def test_fused_mlp_fwd_plain_matches_pallas_at_the_tile_edges(t, d, m, act):
+    """K5's plain version (the function the card kernel is held to) vs
+    ``fused_mlp_pallas(interpret=True)`` in bf16 at the card tiles' edges,
+    x of scale 2 so that rstd is far from 1."""
+    rng = np.random.default_rng(t + d + m)
+
+    def f(*shape, sc=0.1):
+        return (rng.normal(size=shape) * sc).astype(np.float32)
+
+    x = np.asarray(jnp.asarray(f(t, d, sc=2.0)).astype(jnp.bfloat16)
+                   .astype(jnp.float32))
+    p = dict(ls=1.0 + f(d), lb=f(d), w1=f(d, m, sc=d ** -0.5), b1=f(m),
+             w2=f(m, d, sc=m ** -0.5), b2=f(d))
+    want = fused_mlp_pallas(jnp.asarray(x).astype(jnp.bfloat16),
+                            *[jnp.asarray(p[k]) for k in _ARGS], act=act,
+                            block_t=16, interpret=True)
+    got = tfm.fused_mlp_fwd(_torch(x, torch.bfloat16),
+                            *[torch.from_numpy(p[k]) for k in _ARGS],
+                            act=act)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
 @pytest.mark.parametrize("act", ACTS)
 @pytest.mark.parametrize("dts", DTYPES, ids=["f32", "bf16"])
 def test_fused_mlp_bwd_plain_matches_pallas(act, dts):
@@ -254,6 +287,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tfm.fused_mlp_fwd(meta, *args, act="relu")
     with pytest.raises(ValueError):
         tfm.fused_mlp_bwd(meta, *args[:5], meta, act="relu")
+
+
+@pytest.mark.parametrize("d,m,ok", [
+    (776, 3104, True),                 # chip_smoke.py's K5 edge case
+    (64, 128, True),
+    (780, 3104, False),                # D not a multiple of 8
+    (776, 3100, False),                # M not a multiple of 8
+])
+def test_k5_shape_check_takes_multiples_of_8(d, m, ok):
+    """K5's wgmma GEMMs read D and M in TMA's 16-byte strides: its launch
+    check takes multiples of 8, where K6's and K24's wmma GEMMs want 32."""
+    x = torch.empty((40, d), dtype=torch.bfloat16, device="meta")
+    w1 = torch.empty((d, m), device="meta")
+    if ok:
+        assert tfm._cuda_geometry(x, w1, 8) == (40, d, m)
+    else:
+        with pytest.raises(ValueError, match="divisible by 8"):
+            tfm._cuda_geometry(x, w1, 8)
+    if d % 32 or m % 32:
+        with pytest.raises(ValueError, match="divisible by 32"):
+            tfm._cuda_geometry(x, w1)
 
 
 @pytest.mark.parametrize("t,d,m,dtype", [

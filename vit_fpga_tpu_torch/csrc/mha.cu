@@ -7,9 +7,10 @@
 // Replaces vit_fpga_tpu/ops/attention.py:_mha_qkv_kernel (wrapper
 // mha_qkv_pallas) and :_mha_kernel (wrapper mha_pallas): on the TPU the
 // whole (N, N) score matrix of a head sits in VMEM; here the keys stream
-// through shared memory in tiles, one pass for each row's max and sum, one
-// for p = dtype(e / sum e) (normalised before it is rounded) and
-// o = dtype(p v).
+// through shared memory in tiles.  In bf16, one pass for each row's max and
+// sum, one for p = dtype(e / sum e) (normalised before it is rounded) and
+// o = dtype(p v); in f32, where rounding p to the dtype changes nothing,
+// one pass with a running max and sum.
 //
 // bf16: mha_wgmma_kernel<false> (mha_wgmma.cuh, on hopper.cuh's pieces).
 // One thread of a producer warpgroup streams 128-key K tiles (pass 1) and
@@ -29,7 +30,14 @@
 // the two score tiles of pass 1); at 224 px (197 tokens) 128 rows waste 59
 // of 256 rows a head where 192 would waste 187 of 384.
 // f32: seq_attn_f32_kernel (seq_attn.cuh), true f32 fma on the CUDA cores
-// (the per-tensor int8 forward's attention is f32 end to end).
+// (the per-tensor int8 forward's attention is f32 end to end): one pass
+// over the keys with a running max and sum, which in f32 is the exact
+// softmax's function up to rounding; 128 query rows a block, 32 a warp,
+// each lane an 8 x 8 register micro-tile of the scores and of the output
+// fed by float4 reads of shared memory, 64-key K and V tiles copied by
+// cp.async into one slot each in alternation (the next K during this
+// tile's e v, the next V during the next q k^T; two blocks an SM), the last
+// tile cut to its 16-key groups before n_valid.
 //
 // What bounds it on the H100: in bf16 at ViT-B/16 @1024 px batch 1 a launch
 // does 4 * 12 * 4097^2 * 64 = 51.6 GFLOP of the function's work (52 us at
@@ -42,7 +50,8 @@
 // every block reads K twice and V once from L2 (1.57 MB at 4097 keys).  In
 // f32 at the per-tensor int8 forward's (64, 197, 2304) 4 * 64 * 12 * 197^2 *
 // 64 = 7.6 GFLOP, bound by the f32 rate outside the tensor cores (114 us at
-// 67 TFLOP/s) against 39 MB of traffic.
+// 67 TFLOP/s) against 155 MB of traffic (46 us); the kernel computes 224 of
+// 256 padded rows and 208 keys, 9.2 GFLOP (137 us).
 
 #define VFT_NS mha
 #include "common.cuh"

@@ -19,8 +19,10 @@ bf16 kernel (``csrc/mha_wgmma.cuh``) streams 128-key tiles by TMA into an
 mbarrier ring and runs both products on wgmma, 128 query rows a block, one
 pass for each row's max and sum and one for the output (bound at ViT-B/16
 @1024 px batch 1: 51.6 GFLOP, 52 us at 989 TFLOP/s); the f32 kernel (the
-per-tensor int8 forward's attention) runs true f32 fma on the CUDA cores
-(at (64, 197, 2304): 7.6 GFLOP, 114 us at 67 TFLOP/s).  In bf16 the
+per-tensor int8 forward's attention) runs true f32 fma on the CUDA cores,
+one pass over the keys with a running max and sum (the exact softmax's
+function in f32), register-tiled like an SGEMM (at (64, 197, 2304): 7.6
+GFLOP, 114 us at 67 TFLOP/s).  In bf16 the
 operands' base addresses and strides must be multiples of 16 bytes (the
 TMA maps'); the wrappers raise a ValueError naming K7 or K8 otherwise.
 

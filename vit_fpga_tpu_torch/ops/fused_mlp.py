@@ -39,10 +39,11 @@ CLIP ViT-L/14 batch 64 (T = 16 896, D = 1024, M = 4096): 4·T·D·M
 (283 GFLOP, 287 us), also bound by operations; K6 at ViT-L/16 batch 8
 (T = 1 600): 26.8 GFLOP, 27 us.  (989 TFLOP/s is the
 H100 SXM's dense bf16 peak at its 700 W limit.)
-Designs: K2 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (a
+Designs: K2 and K5 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (a
 producer warpgroup streaming tiles into a shared-memory ring, two consumer
 warpgroups, the LayerNorm applied to the landed A tiles, the activation
-and residual in the epilogue); the others on bf16 wmma GEMMs with f32
+and residual in the epilogue; K5 first takes its two-pass statistics in a
+row pass); the others on bf16 wmma GEMMs with f32
 accumulation, the LayerNorm applied to the first GEMM's A tiles in shared
 memory, the activation (or, in the backward, act and act' from their
 closed forms) in a GEMM epilogue, every weight gradient one transposed-A
@@ -387,15 +388,17 @@ def fused_mlp_chunked(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
 # K5 (per-block forward) and K24 (its backward)
 # ---------------------------------------------------------------------------
 
-def _cuda_geometry(x, w1):
-    """Shape checks shared by the K5 / K24 launches: (t, d, m)."""
+def _cuda_geometry(x, w1, multiple=32):
+    """Shape checks shared by the K5 / K6 / K24 launches: (t, d, m).  K5's
+    wgmma GEMMs take D and M multiples of 8 (TMA's 16-byte strides), the
+    wmma ones of K6 and K24 multiples of 32."""
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
     m = w1.shape[-1]
-    if d % 32 or m % 32:
-        raise ValueError(f"kernel needs D and M divisible by 32 (D={d}, "
-                         f"M={m})")
+    if d % multiple or m % multiple:
+        raise ValueError(f"kernel needs D and M divisible by {multiple} "
+                         f"(D={d}, M={m})")
     check_activation(x, (t, d), torch.bfloat16, "x")
     return t, d, m
 
@@ -404,7 +407,7 @@ def fused_mlp_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6,
                   act: str = "gelu", residual: bool = True):
     """Per-block MLP half (K5): x (T, D) -> x + MLP(LN(x)).  A CPU tensor
     runs :func:`fused_mlp_xla`, the same arithmetic; a CUDA tensor
-    launches the kernel (bf16) or raises."""
+    launches the kernel (bf16, D and M multiples of 8) or raises."""
     if not residual:
         raise NotImplementedError(
             "residual=False (the tensor-parallel partial) comes with the "
@@ -416,7 +419,7 @@ def fused_mlp_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6,
                              act=act)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    t, d, m = _cuda_geometry(x, w1)
+    t, d, m = _cuda_geometry(x, w1, 8)
     dev = x.device
     f32, bf = torch.float32, torch.bfloat16
     ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")

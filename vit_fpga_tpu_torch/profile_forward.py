@@ -67,9 +67,10 @@ UNEXPECTED = "unexpected:"
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1 and K2
 # run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<true>
-# at every length: any other attn_half:: or mlp_half:: record, such as the
-# wmma gemm_bf16_kernel or attn_kernel / attn_long_kernel they ran before,
-# is reported as unexpected; K4's key-tiled attention is
+# at every length, K5 ln_rows_kernel and gw_kernel: any other attn_half::,
+# mlp_half:: or mlp:: record, such as the wmma gemm_bf16_kernel or
+# attn_kernel / attn_long_kernel they ran before, is reported as
+# unexpected; K4's key-tiled attention is
 # attn_block::attn_long_kernel),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # int8 GEMM's template
@@ -134,8 +135,9 @@ STAGES = (
     ("attn_block::attn_kernel", "K4 (c) attention"),
     ("attn_block::gemm_bf16_kernel<false", "K4 (d) out-proj + residual"),
     ("mlp::ln_rows_kernel", "K5 (a) LN stats"),
-    ("mlp::gemm_bf16_kernel<true", "K5 (b) LN + W1 GEMM + act"),
-    ("mlp::gemm_bf16_kernel<false", "K5 (c) W2 GEMM + residual"),
+    ("mlp::gw_kernel<true", "K5 (b) LN + W1 GEMM + act"),
+    ("mlp::gw_kernel<false", "K5 (c) W2 GEMM + residual"),
+    ("mlp::", UNEXPECTED + " K5 kernel"),
     ("attn_bwd::ln_rows_kernel", "K23 (a) LN + xn"),
     ("attn_bwd::gemm_bf16_kernel<false,false,false>", "K23 (b) QKV recompute"),
     ("attn_bwd::gemm_bf16_kernel<false,false,true>",
