@@ -100,14 +100,18 @@ Phases, each of which raises on failure (exit code != 0):
               against depth 1
  13. large    the large ViTs: K3 (fused_mlp_chunked_stats) against its
               plain version at (200, 128) x 512 and (9344, 1024) x 4096,
-              2 and 4 chunks, each activation, both emit_stats, its
+              2 and 4 chunks, and where a chunk ends inside the wgmma
+              GEMM's 64-deep K step ((200, 128) x 192 in 2, (200, 128) x
+              128 and (264, 1024) x 1152 in 4), each activation, both
+              emit_stats, its
               distance from K2's plain version printed and required > 0;
               K1 past 256 keys (its key-tiled path) at (4, 264, 1024) with
               257 valid tokens, (2, 584, 1024) with 577 and (1, 1024, 768)
               with 1024, loud padding bit for bit, a peaked-scores case in
               norm (all this right after the build, with the gates: K3 with
               3 chunks and K1 at 1032 tokens raise); K3 and K1 times at
-              CLIP-L/14 b64 and ViT-L/16 (b64, @384 b16); ImageServer over
+              CLIP-L/14 b64 and ViT-L/16 (b64, @384 b16), K3's per call
+              and device alone; ImageServer over
               clip.make_forward(CLIP ViT-L/14 @224, depth 24) answers 160
               requests with 24 K1 (key-tiled) + 24 K3 per batch and nothing
               else, embeddings against the card's plain forward (all) and
@@ -189,11 +193,13 @@ Phases, each of which raises on failure (exit code != 0):
               bit, and in the exact mode scores past exp's f32 range; K10
               (patch_embed_pallas) at ViT-B/16 and CLIP ViT-L/14 b64 and
               the JAX test's shape, K26 (streamed_gemm) at the JAX tests'
-              shapes and ViT-L/16 @384's MLP up-projection, each against
+              shapes, ViT-L/16 @384's MLP up-projection and the wgmma
+              tiles' edges (200, 520) x (520, 328) in bf16, each against
               its plain version in the f32 sum-order band; the gates (K4
               at 1032 tokens, K23 at 264 raise); all this runs first,
               right after the build; their times beside the plain
-              version, a library call and the bound (K10 also beside the
+              version, a library call and the bound (K26 and its library
+              call also device alone; K10 also beside the
               main path's embed_tokens_dotg); then ImageServer(batch_size=
               1) over clip.make_forward(CLIP ViT-L/14) and
               vit.make_forward(ViT-B/16 @384) answers 3 uint8 requests
@@ -2596,16 +2602,17 @@ def _k3_call(fn, x, st, p, act, n_chunks, emit):
               p["b2"], eps=EPS, act=act, n_chunks=n_chunks, emit_stats=emit)
 
 
-def _k3_parity(rows, d, m, seed):
-    """K3 against its plain version at (rows, d) x m, each chunk count and
-    activation, both values of emit_stats; and its distance from K2's plain
-    version, which must not be 0 (K3 rounds the running output at every
-    chunk boundary and adds b2 once).  Returns the largest max-abs error."""
+def _k3_parity(rows, d, m, seed, chunks=(2, 4)):
+    """K3 against its plain version at (rows, d) x m, each chunk count of
+    ``chunks`` and activation, both values of emit_stats; and its distance
+    from K2's plain version, which must not be 0 (K3 rounds the running
+    output at every chunk boundary and adds b2 once).  Returns the largest
+    max-abs error."""
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     x, st, p = _mlp_inputs(rows, d, m, seed)
     pb = _bf16_weights(p, ("w1", "w2"))
     worst = 0.0
-    for n_chunks in (2, 4):
+    for n_chunks in chunks:
         for act in MLP_ACTS_K3:
             label = f"K3 ({rows}, {d}) x {m} n_chunks={n_chunks} {act}"
             worst = max(worst, _parity(
@@ -2685,10 +2692,37 @@ def _expect_raise(label, fn, exc=ValueError):
     raise AssertionError(f"{label} ran outside the kernel's gate")
 
 
+def _device_alone_ms(fn, iters=50):
+    """Device milliseconds per call of ``fn`` from torch.profiler's CUDA
+    activity over ``iters`` back-to-back calls: each kernel's mean time
+    times its launches a call, summed, so the wrapper's host time is out.
+    A kernel launched less than once a call on average (a record the
+    profiler dropped aside) does not count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_time_total <= 0 or e.count < iters // 2:
+            continue
+        total += e.device_time_total / e.count * round(e.count / iters)
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return total / 1e3
+
+
 def phase_large_kernels():
     """K3 (fused_mlp_chunked_stats) and K1 past 256 keys against their
     plain versions on the card, right after the build: K3 at (200, 128) x
-    512 and (9344, 1024) x 4096; K1 at CLIP-L/14's (4, 264, 1024) with 257
+    512 and (9344, 1024) x 4096 with 2 and 4 chunks, and where a chunk ends
+    inside the GEMM's 64-deep K step: (200, 128) x 192 with 2 chunks (96
+    columns a chunk), (200, 128) x 128 with 4 (32: two boundaries in one
+    step) and CLIP-L/14 b1's (264, 1024) x 1152 with 4 (288); K1 at
+    CLIP-L/14's (4, 264, 1024) with 257
     valid tokens, ViT-L/16 @384's (2, 584, 1024) with 577 and (1, 1024,
     768) with 1024, a loud-padding case past 256 keys and a peaked-scores
     case; then the gates: K3 with 3 chunks and K1 at 1032 tokens raise.
@@ -2697,7 +2731,10 @@ def phase_large_kernels():
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     print("parity K3 fused_mlp_chunked_stats")
     k3 = max(_k3_parity(200, 128, 512, seed=130),
-             _k3_parity(9344, 1024, 4096, seed=131))
+             _k3_parity(9344, 1024, 4096, seed=131),
+             _k3_parity(200, 128, 192, seed=137, chunks=(2,)),
+             _k3_parity(200, 128, 128, seed=138, chunks=(4,)),
+             _k3_parity(264, 1024, 1152, seed=139, chunks=(4,)))
     k1 = max(_k1_long_parity(4, 264, 257, 1024, 16, seed=132,
                              extra=("loud", "peaked")),
              _k1_long_parity(2, 584, 577, 1024, 16, seed=133,
@@ -2743,6 +2780,9 @@ def _time_k3(rows, d, m, seed, label):
         return acc
 
     lib_ms = time_cuda(library)
+    dev_ms = _device_alone_ms(lambda: _k3_call(
+        fm.fused_mlp_chunked_stats, x, st, pb, act, 2, True), iters=20)
+    lib_dev_ms = _device_alone_ms(library, iters=20)
     flops = 4 * rows * d * m
     nbytes = (2 * rows * d * 2 + 2 * rows * 2 * 4 + 2 * d * m * 2
               + (m + 3 * d) * 4)
@@ -2750,9 +2790,10 @@ def _time_k3(rows, d, m, seed, label):
     t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
              bound_by=bound_by)
     print(f"timing K3 {label} ({rows}, {d}) x {m}, 2 chunks: kernel "
-          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
-          f"ms ({bound_by})")
+          f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"{dev_ms:.4f} ms device alone; plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms per call, {lib_dev_ms:.4f} ms device alone; "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
     return t
 
 
@@ -4533,6 +4574,9 @@ K26_CASES = (
     ("f32", 256, 1024, 512, torch.float32, 256, None, None),
     ("ViT-L/16 @384 b1 MLP up", 584, 1024, 4096, torch.bfloat16, 512, 584,
      1024),
+    # the wgmma GEMM's edges: a partial 128-row tile (T 200), a K tail of
+    # 8 past a 64-deep step (K 520), N 72 past a 256-wide tile (N 328)
+    ("bf16 tile edges", 200, 520, 328, torch.bfloat16, 128, None, None),
 )
 
 
@@ -4776,20 +4820,29 @@ def phase_odd_timing():
                   f"embed_tokens_dotg {emb:.4f} ms, preprocess + "
                   f"embed_tokens_dotg from uint8 {both:.4f} ms")
 
-    for i, (label, t, k, n, dt, bk, bt, bn) in enumerate(K26_CASES[::-1]):
+    # the JSON line's K26 case first (ViT-L/16 @384's bf16 MLP up), then f32
+    for i, (label, t, k, n, dt, bk, bt, bn) in enumerate(K26_CASES[2::-1]):
         xs, ws = _k26_inputs(t, k, n, dt, 240 + i)
         ms = time_cuda(lambda: sg.streamed_gemm(xs, ws, bk=bk, bt=bt, bn=bn))
         plain_ms = time_cuda(lambda: sg.streamed_gemm_plain(
             xs, ws, bk=bk, bt=bt, bn=bn), iters=5, warmup=1)
         lib_ms = time_cuda(lambda: torch.matmul(xs, ws))
+        # the device alone over 200 back-to-back calls: per call, the
+        # wrapper's host work (two tensor maps encoded for bf16) rivals
+        # the kernel at this size
+        dev_ms = _device_alone_ms(lambda: sg.streamed_gemm(
+            xs, ws, bk=bk, bt=bt, bn=bn), iters=200)
+        lib_dev_ms = _device_alone_ms(lambda: torch.matmul(xs, ws),
+                                      iters=200)
         flops = 2 * t * k * n
         nbytes = (t * k + k * n + t * n) * dt.itemsize
         bound_ms, bound_by = (_bound if dt == torch.bfloat16
                               else _bound_f32)(flops, nbytes)
         print(f"timing K26 {label} ({t}, {k}) x ({k}, {n}) {dt}: kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"{dev_ms:.4f} ms device alone; plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms per call, {lib_dev_ms:.4f} ms device "
+              f"alone; bound {bound_ms:.4f} ms ({bound_by})")
         out.setdefault("streamed_gemm", dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
             bound_by=bound_by))

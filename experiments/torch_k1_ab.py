@@ -1,10 +1,10 @@
-"""K1's, K2's or K5's time at a shape, from the package tree found under
-ROOT, so that two versions of the port are compared in one call on one
-card.
+"""K1's, K2's, K5's, K3's or K26's time at a shape, from the package tree
+found under ROOT, so that two versions of the port are compared in one call
+on one card.
 
 Run on a machine with a Hopper card, from the repository root:
 
-    python3 experiments/torch_k1_ab.py [ROOT] [--kernel k1|k2|k5]
+    python3 experiments/torch_k1_ab.py [ROOT] [--kernel k1|k2|k5|k3|k26]
         [--shape B N_PAD N_VALID D HEADS] [--mlp-shape T D M] [--one-consumer]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
@@ -17,7 +17,18 @@ kernels build into its own ``_build/``.  ``--kernel k1`` (the default) times
 at ViT-B/16 b64's (12 800, 768) x 3072, ViT-B/16 @1024 b1's (4104, 768) x
 3072 and CLIP ViT-L/14 b1's (264, 1024) x 4096, each beside its library
 call (LN + addmm + tanh-GELU + addmm), with K1 and K2 at their defaults
-as controls, then the ViT-B/16 @1024 b1 forward and the b64 SGD step.
+as controls, then the ViT-B/16 @1024 b1 forward and the b64 SGD step;
+``--kernel k3`` times ``fused_mlp_chunked_stats`` (2 chunks, gelu_tanh) at
+CLIP ViT-L/14 b64's (16 896, 1024) x 4096, ViT-L/16 b64's (12 800, 1024) x
+4096, CLIP ViT-L/14 b2's (528, 1024) x 4096 and ViT-L/16 @384 b16's (9 344,
+1024) x 4096, the first beside its library call (LN + two chunks of addmm +
+tanh-GELU + addmm) and its device time alone, with K1, K2 and K5 at their
+defaults as controls, then the CLIP ViT-L/14 b64 forward from uint8;
+``--kernel k26`` times ``streamed_gemm`` in bf16 at ViT-L/16 @384 b1's MLP
+up-projection, (584, 1024) x (1024, 4096), beside ``torch.matmul``, each
+per call (CUDA events around 20 calls) and device alone (torch.profiler's
+kernel time over 200 back-to-back calls, ``device_alone_ms``), and device
+alone at K 64, 256 and 2048 (1, 4 and 32 of the GEMM's 64-deep K steps).
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -102,11 +113,49 @@ def time_k5_paths(g):
     return out
 
 
+def device_alone_ms(fn, iters=200):
+    """Device ms per call of ``fn``: torch.profiler's CUDA kernel time over
+    ``iters`` back-to-back calls, each kernel's mean times its launches a
+    call (a record the profiler dropped does not count), so the host work
+    of the wrapper is out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total / e.count * round(e.count / iters)
+                for e in prof.key_averages()
+                if e.device_time_total > 0 and e.count >= iters // 2)
+    if total <= 0:
+        raise RuntimeError("torch.profiler saw no device time")
+    return total / 1e3
+
+
+def time_clip_forward(g):
+    """The bf16 CLIP ViT-L/14 @224 b64 forward from uint8 (24 K1 + 24 K3),
+    seeded random weights, five estimates of 5 calls."""
+    import torch
+    from vit_fpga_tpu_torch.models import clip
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = clip.clip_vision_config("vit_l14", dtype="bfloat16")
+    fwd = clip.make_forward(cfg, clip.init_params(cfg, 768, g,
+                                                  device="cuda"))
+    img = torch.randint(0, 256, (64, cfg.image_size, cfg.image_size, 3),
+                        generator=g, dtype=torch.uint8).cuda()
+    return {"CLIP ViT-L/14 b64 forward (uint8 in)":
+            [time_cuda(lambda: fwd(img), iters=5, warmup=2)
+             for _ in range(5)]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--kernel", choices=("k1", "k2", "k5"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k5", "k3", "k26"),
+                    default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
                     metavar=("B", "N_PAD", "N_VALID", "D", "HEADS"))
@@ -159,14 +208,73 @@ def main() -> int:
         return lambda: fm.fused_mlp_stats(x, st, *p, eps=1e-6,
                                           act="gelu_tanh", emit_stats=True)
 
+    import torch.nn.functional as F
+    device = {}
     if args.kernel == "k1":
         shape = args.shape
         runs = {f"K1 {tuple(shape)}": k1_run(*shape)}
+    elif args.kernel == "k3":
+        shape = [[16896, 1024, 4096], [12800, 1024, 4096],
+                 [528, 1024, 4096], [9344, 1024, 4096]]
+        runs = {}
+        for i, (t, d, m) in enumerate(shape):
+            x, p = mlp_inputs(t, d, m)
+            st = row_stats(x, 1e-6)
+            label = f"K3 ({t}, {d}) x {m}"
+            runs[label] = (lambda x=x, st=st, p=p: fm.fused_mlp_chunked_stats(
+                x, st, *p, eps=1e-6, act="gelu_tanh", n_chunks=2,
+                emit_stats=True))
+            if i:
+                continue
+            ls, lb, w1, b1, w2, b2 = p
+            lib_p = (ls.to(torch.bfloat16), lb.to(torch.bfloat16), w1,
+                     b1.to(torch.bfloat16), w2, b2.to(torch.bfloat16))
+
+            def lib(x=x, d=d, mc=m // 2, p=lib_p):
+                ls, lb, w1, b1, w2, b2 = p
+                xn = F.layer_norm(x, (d,), ls, lb, 1e-6)
+                acc = x
+                for c in range(2):
+                    cols = slice(c * mc, (c + 1) * mc)
+                    h = F.gelu(torch.addmm(b1[cols], xn, w1[:, cols]),
+                               approximate="tanh")
+                    y = h @ w2[cols]
+                    acc = acc + (y + b2 if c else y)
+                return acc
+
+            runs[f"library ({t}, {d}) x {m}"] = lib
+            device[f"{label} device alone"] = runs[label]
+            device[f"library ({t}, {d}) x {m} device alone"] = lib
+        runs[f"K1 control {tuple(args.shape)}"] = k1_run(*args.shape)
+        runs[f"K2 control {tuple(args.mlp_shape)}"] = k2_run(*args.mlp_shape)
+        x, p = mlp_inputs(*args.mlp_shape)
+        runs[f"K5 control {tuple(args.mlp_shape)}"] = (
+            lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
+                                              act="gelu_tanh"))
+    elif args.kernel == "k26":
+        from vit_fpga_tpu_torch.ops import streamed_gemm as sg
+        shape = [584, 1024, 4096]
+        xs = randn(584, 1024).to(torch.bfloat16)
+        ws = randn(1024, 4096).to(torch.bfloat16)
+        runs = {"K26 bf16 (584, 1024) x (1024, 4096) per call":
+                lambda: sg.streamed_gemm(xs, ws),
+                "torch.matmul bf16 (584, 1024) x (1024, 4096) per call":
+                lambda: torch.matmul(xs, ws)}
+        device = {label.replace("per call", "device alone"): fn
+                  for label, fn in runs.items()}
+        # where the time goes: device alone against K (the K steps' share
+        # is the slope, the fill, the epilogue and the launch the rest)
+        for k in (64, 256, 2048):
+            xk = randn(584, k).to(torch.bfloat16)
+            wk = randn(k, 4096).to(torch.bfloat16)
+            device[f"K26 bf16 (584, {k}) x ({k}, 4096) device alone"] = (
+                lambda xk=xk, wk=wk: sg.streamed_gemm(xk, wk))
+            device[f"torch.matmul bf16 (584, {k}) x ({k}, 4096) device "
+                   f"alone"] = lambda xk=xk, wk=wk: torch.matmul(xk, wk)
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}
     else:
-        import torch.nn.functional as F
         shape = [[12800, 768, 3072], [4104, 768, 3072], [264, 1024, 4096]]
         runs = {}
         for t, d, m in shape:
@@ -190,8 +298,13 @@ def main() -> int:
 
     ms = {label: [time_cuda(fn, iters=20, warmup=5) for _ in range(5)]
           for label, fn in runs.items()}
+    ms.update({label: [device_alone_ms(fn, 200 if args.kernel == "k26"
+                                       else 20) for _ in range(3)]
+               for label, fn in device.items()})
     if args.kernel == "k5":
         ms.update(time_k5_paths(g))
+    if args.kernel == "k3":
+        ms.update(time_clip_forward(g))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          stdout=subprocess.PIPE, text=True).stdout.strip()

@@ -46,10 +46,10 @@ run_copy k25_roundf image_filter.cu \
 # K13 has a ragged K: 784 = 12 x 64 + 16 in the dense net, 1 padded to 16)
 run_copy k13_no_partial_k_tile quant.cuh \
   "const int nk = (p.K + QG_BK - 1) / QG_BK;" "const int nk = p.K / QG_BK;"
-# K3 adding b2 on every chunk instead of the last one only (the chunked
-# down-projection is shared with K6, whose checks come first)
-run_copy k3_b2_every_chunk chunk.cuh \
-  "          if (last) {" "          if (true) {"
+# K3 adding b2 on every chunk instead of the last one only (the chunk
+# boundary's epilogue in the wgmma GEMM's K loop, which only K3 runs)
+run_copy k3_b2_every_chunk gemm_wgmma.cuh \
+  "q.bias = nullptr;  // b2 rides the last chunk only" "q.bias = p.bias;"
 # The key-tiled attention tile skipping the last partial key tile (key 256
 # of 257, key 576 of 577): K4's path past 256 keys
 run_copy k4_long_no_partial_tile attn.cuh \
@@ -163,10 +163,15 @@ run_copy k22_no_rsum attn_int8_scores.cu \
 run_copy k10_bgr patch_embed.cu \
   "const size_t koff = (size_t)py * w3 + (kin ? k % p3 : 0);" \
   "const size_t koff = (size_t)py * w3 + (kin ? k % p3 - (k % p3) % 3 + 2 - (k % p3) % 3 : 0);"
-# K26 dropping the last K tile (K 300 = 18 x 16 + 12 in f32; 1024 = 32 x 32
-# in bf16, the whole last tile)
-run_copy k26_no_last_k_tile streamed_gemm.cu \
-  "const int nk = (K + HB_K - 1) / HB_K;" "const int nk = (K - 1) / HB_K;" \
+# K26 in bf16 dropping the last 64-deep K step of the wgmma GEMM (1024 =
+# 16 x 64 at ViT-L/16 @384, the whole last step; 520 = 8 x 64 + 8): the
+# GEMM's producer and consumers both stop one step early where the launch
+# has neither bias nor residual, which only K26 launches
+run_copy k26_no_last_k_tile gemm_wgmma.cuh \
+  "const int nk = (p.K + GW_BK - 1) / GW_BK;" \
+  "const int nk = (p.K + GW_BK - 1) / GW_BK - (p.bias == nullptr && p.residual == nullptr);"
+# K26 in f32 dropping the last K tile (K 300 = 18 x 16 + 12)
+run_copy k26_f32_no_last_k_tile streamed_gemm.cu \
   "const int nk = (K + HF_K - 1) / HF_K;" "const int nk = (K - 1) / HF_K;"
 # K4's key-tiled safe softmax taking each row's max over the last key tile
 # only (key 576 alone at 577 keys): exp(s - max) overflows on wide scores

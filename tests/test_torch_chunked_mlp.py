@@ -98,6 +98,58 @@ def test_chunked_stats_plain_matches_pallas(dtype, n_chunks, act,
         assert got_st is None and want_st is None
 
 
+# (T, M, n_chunks) whose chunks end inside the card GEMM's 64-deep K step:
+# 96 columns a chunk (the boundary 32 columns into the second step), and
+# 32 (two boundaries in each step); 200 rows, a partial 128-row tile.
+MID_STEP = [(200, 192, 2), (200, 128, 4)]
+
+
+def _act_f64(h, act):
+    if act == "gelu_tanh":
+        return 0.5 * h * (1.0 + np.tanh(h * (0.7978845608028654
+                                             + 0.035677408136300125 * h * h)))
+    if act == "quick_gelu":
+        return h / (1.0 + np.exp(-1.702 * h))
+    return np.maximum(h, 0.0)
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu", "relu"])
+@pytest.mark.parametrize("t,m,n_chunks", MID_STEP,
+                         ids=[f"{t}x{m}_c{n}" for t, m, n in MID_STEP])
+def test_chunked_stats_plain_matches_pallas_mid_step(t, m, n_chunks, act):
+    """K3's plain version (the function the card kernel is held to) vs
+    ``fused_mlp_chunked_stats_pallas(interpret=True)`` in bf16 where a
+    chunk is not a multiple of 64 columns, with emitted stats."""
+    rng = np.random.default_rng(t + m + n_chunks)
+
+    def f(*shape, sc=0.1):
+        return (rng.normal(size=shape) * sc).astype(np.float32)
+
+    p = dict(x=f(t, D, sc=1.0), ls=1.0 + f(D), lb=f(D), w1=f(D, m, sc=0.2),
+             b1=f(m), w2=f(m, D, sc=0.2), b2=f(D, sc=0.3))
+    xf, st, want, want_st = _jax_k3(p, jnp.bfloat16, act, n_chunks, True)
+    got, got_st = tfm.fused_mlp_chunked_stats(
+        *_torch_args(p, xf, st, torch.bfloat16), act=act, n_chunks=n_chunks,
+        emit_stats=True)
+    assert got.shape == (t, D)
+    # Both sides round each chunk's y and the running output to bf16; a sum
+    # order that moves one of those roundings moves the output by an ulp of
+    # that intermediate, which may be larger than the output: the band is
+    # 2 bf16 ulps of |x| + sum_c |y_c| (y_c in float64), plus 2^-8.
+    xn = ((xf - st[:, 0:1]) * st[:, 1:2] * p["ls"] + p["lb"]).astype(
+        np.float64)
+    mc = m // n_chunks
+    mag = np.abs(xf).astype(np.float64)
+    for c in range(n_chunks):
+        cols = slice(c * mc, (c + 1) * mc)
+        mag += np.abs(_act_f64(xn @ p["w1"][:, cols] + p["b1"][cols], act)
+                      @ p["w2"][cols])
+    diff = np.abs(got.float().numpy() - np.asarray(want.astype(jnp.float32)))
+    assert (diff <= BF16_RTOL * mag + BF16_ATOL).all(), float(diff.max())
+    np.testing.assert_allclose(got_st.numpy(), np.asarray(want_st)[:, :2],
+                               rtol=1e-2, atol=1e-2)
+
+
 def test_chunked_is_not_k2_in_bf16():
     """In bf16 K3 rounds the running output at every chunk boundary and
     adds b2 on the last chunk only, so it is another function than K2: the

@@ -10,7 +10,10 @@ Tolerances as in test_torch_attn_block_train.py: f32 1e-5 (outputs) and
 
 The f32 forward has a third leg: the same function evaluated in float64
 numpy (``_mlp_f64``), against which both the port and the JAX kernel are
-held, so that a failure names its side."""
+held, so that a failure names its side; a failure of the port's side also
+prints each stage of the port's plain forward held to float64 of its own
+f32 input (``_port_stages``) and the process's thread and matmul
+settings, so that it names the op."""
 
 import contextlib
 
@@ -108,6 +111,38 @@ def _hidden_suspects(d_row, w2, top=3):
     return np.argsort(-score)[:top].tolist()
 
 
+def _port_stages(p, act, eps=1e-6):
+    """The port's plain f32 forward (``fused_mlp_xla``'s arithmetic) stage
+    by stage, each held to float64 of its own f32 input: one line per
+    stage with its max |d| and the rows past 1e-5 (1 + |exact|)."""
+    f = {k: torch.from_numpy(np.asarray(v, np.float32).copy())
+         for k, v in p.items()}
+    x = f["x"]
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, unbiased=False, keepdim=True)
+    xn = (x - mu) * torch.rsqrt(var + eps) * f["ls"] + f["lb"]
+    h = xn @ f["w1"] + f["b1"]
+    a = tfm._act(h, act)
+    y = a @ f["w2"] + f["b2"]
+    x64 = np.asarray(p["x"], np.float64)
+    m64 = x64.mean(-1, keepdims=True)
+    v64 = ((x64 - m64) ** 2).mean(-1, keepdims=True)
+    d64 = lambda t: t.double().numpy()
+    lines = []
+    for name, got, want in (
+            ("xn", xn, (x64 - m64) / np.sqrt(v64 + eps) * p["ls"] + p["lb"]),
+            ("xn @ W1 + b1", h, d64(xn) @ p["w1"].astype(np.float64)
+             + p["b1"]),
+            (f"act {act}", a, _act_f64(d64(h), act)),
+            ("act @ W2 + b2", y, d64(a) @ p["w2"].astype(np.float64)
+             + p["b2"])):
+        d = np.abs(d64(got) - want)
+        rows = sorted(set(np.nonzero(d > 1e-5 * (1 + np.abs(want)))[0]))
+        lines.append(f"  port stage {name}: max|d| {d.max():.3e}, rows "
+                     f"{[int(r) for r in rows][:16]}")
+    return "\n".join(lines)
+
+
 def _as(p, jdt):
     out = dict(p)
     for k in ("x", "g"):
@@ -161,11 +196,36 @@ def test_fused_mlp_fwd_plain_matches_pallas(act, dts):
                   f"of {d.size} off, rows {rows[:16]}, hidden units most "
                   f"aligned with row {worst}'s error "
                   f"{_hidden_suspects(d[worst], p['w2'])}")
-        np.testing.assert_allclose(_f32(got), exact, rtol=tol, atol=tol,
-                                   err_msg="the port vs float64")
+        try:
+            np.testing.assert_allclose(_f32(got), exact, rtol=tol, atol=tol,
+                                       err_msg="the port vs float64")
+        except AssertionError:
+            # the stages evaluated again now: if they all hold, the op
+            # that failed erred on its first call only
+            print(_port_stages(p, act))
+            print(torch.__config__.parallel_info())
+            print(f"torch threads {torch.get_num_threads()}, f32 matmul "
+                  f"precision {torch.get_float32_matmul_precision()}, "
+                  f"mkldnn {torch.backends.mkldnn.is_available()}")
+            raise
         np.testing.assert_allclose(_f32(want), exact, rtol=tol, atol=tol,
                                    err_msg="the JAX kernel vs float64")
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_tanh_plain_matches_float64():
+    """The plain versions' tanh (``utils.platform.tanh_plain``, 2 sigmoid(2u)
+    - 1 on the CPU, off MKL VML) within 2^-22 of tanh in float64 over the
+    activation's range, and odd and saturating where tanh is."""
+    from vit_fpga_tpu_torch.utils.platform import tanh_plain
+    rng = np.random.default_rng(7)
+    u = np.concatenate([rng.normal(size=20000) * 3.0,
+                        np.linspace(-20.0, 20.0, 40001),
+                        [0.0, 1e-30, -1e-8, 1e-3]]).astype(np.float32)
+    got = tanh_plain(torch.from_numpy(u)).double().numpy()
+    assert np.abs(got - np.tanh(u.astype(np.float64))).max() <= 2.0 ** -22
+    assert got[np.abs(u) >= 10].tolist() == np.sign(
+        u[np.abs(u) >= 10]).tolist()
 
 
 # (T, D, M) where K5's wgmma + TMA tiles (128 rows, 64-wide K steps,

@@ -58,6 +58,30 @@ def test_streamed_gemm_plain_matches_pallas(geom, dts):
         _within_one_bf16_ulp(g, wv)
 
 
+@pytest.mark.parametrize("bk", [128, 512])
+def test_streamed_gemm_plain_matches_pallas_bf16_tile_edges(bk):
+    """bf16 at the card GEMM's tile edges: T 200 (a partial 128-row tile,
+    not a multiple of 128), K 520 (8 past a 64-deep step), N 328 (72 past
+    a 256-wide tile).  Band: one bf16 ulp of the larger output plus the
+    two f32 sums' order band, 2 sqrt(K) 2^-24 sum |x w| (at K 520 a sum
+    that cancels to near zero moves by more than its own ulp), as
+    chip_smoke.py holds the card kernel."""
+    x, w = _inputs(6, 200, 520, 328, jnp.bfloat16)
+    want = jax_streamed(x, w, bk=bk, interpret=True)
+    xf = np.array(x.astype(jnp.float32))
+    wf = np.array(w.astype(jnp.float32))
+    got = tsg.streamed_gemm(torch.from_numpy(xf).to(torch.bfloat16),
+                            torch.from_numpy(wf).to(torch.bfloat16), bk=bk)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (200, 328)
+    g = got.float().numpy().astype(np.float64)
+    wv = np.asarray(want.astype(jnp.float32), np.float64)
+    mag = np.maximum(np.abs(g), np.abs(wv))
+    ulp = 2.0 ** (np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    terms = np.abs(xf).astype(np.float64) @ np.abs(wf).astype(np.float64)
+    band = ulp + 2 * np.sqrt(520) * 2.0 ** -24 * terms
+    assert (np.abs(g - wv) <= band).all(), float(np.abs(g - wv).max())
+
+
 @pytest.mark.parametrize("bk", [16, 128, 512])
 def test_streamed_gemm_plain_matches_float64(bk):
     """The plain version against the exact product: the tile depth moves

@@ -1,5 +1,6 @@
-// The chunked down-projection of the MLP halves over column chunks of M
-// (mlp_chunk_stats.cu K3, mlp_chunk.cu K6); include after common.cuh.
+// The chunked down-projection of K6's MLP half over column chunks of M
+// (mlp_chunk.cu; K3 runs the chunked variant of gemm_wgmma.cuh's GEMM);
+// include after common.cuh.
 //
 //   chunk_down_kernel  per 128 x 128 output tile, for c = 0 .. n_chunks-1:
 //                        y   = h[:, c*mc:(c+1)*mc] @ W2[c*mc:(c+1)*mc, :]

@@ -1,6 +1,7 @@
 // The bf16 GEMM of the stats-chain halves on Hopper's own units (K1's QKV
-// and out-projection GEMMs in attn_stats.cu, K2's two in mlp_stats.cu);
-// include after common.cuh and hopper.cuh.
+// and out-projection GEMMs in attn_stats.cu, K2's two in mlp_stats.cu, K5's
+// in mlp.cu, K3's in mlp_chunk_stats.cu, K26's bf16 product in
+// streamed_gemm.cu); include after common.cuh and hopper.cuh.
 //
 //   C = epilogue(prologue(A) @ B), A (M, K) and B (K, N) bf16 row-major,
 //   C (M, N) bf16, f32 accumulation:
@@ -10,6 +11,12 @@
 //                attn_block.py:_attn_stats_kernel) and of gemm_bf16's LN.
 //   epilogue     f = acc + bias (f32), apply_act(f, act), y = bf16(f); with
 //                a residual, out = bf16(f32(res) + f32(y)).
+//   chunks       (chunk_k > 0, K3's down-projection) the K loop splits into
+//                K / chunk_k chunks; at the end of each chunk the tile runs
+//                the epilogue on that chunk's sum alone, out = bf16(f32(res)
+//                + f32(bf16(acc [+ bias on the last chunk]))), res = the
+//                residual on the first chunk and C itself (the previous
+//                chunk's out) after it, and starts the next chunk from zero.
 //
 // Design (one persistent block per SM walking 128 x 256 output tiles, N
 // fastest): a producer warpgroup gives its registers up (setmaxnreg 40) and
@@ -65,6 +72,7 @@ struct GwArgs {
   bf16* C;                 // (M, N) bf16
   int M, N, K;
   int act;                 // an Act code
+  int chunk_k;             // K extent of a chunk (a multiple of 32); 0: one chunk
 };
 
 // This thread's four 16-byte chunks of its warpgroup's 64 rows in a landed
@@ -106,6 +114,13 @@ __device__ __forceinline__ void gw_ln_stage(unsigned char* rows, int pc, const f
 // segment, adding the residual's matching piece: out = bf16(f32(res) +
 // f32(y)).  The residual pieces are loaded first, so that their latency
 // overlaps the activations.
+//
+// With residual == p.C (a later chunk of K3's down-projection) the tile adds
+// to the out it wrote at the previous chunk boundary in place: each lane
+// loads its four residual pieces before it writes the same four pieces, and
+// no other lane, warp or block touches them (the tile, its warp's 16 rows
+// and the piece -> lane map are fixed), so every read sees this lane's own
+// earlier store, in program order.
 template <int ACT>
 __device__ __forceinline__ void gw_store(const float (&acc)[GW_BN / 2], const GwArgs& p,
                                          int row0, int n0, bf16* stage, int lane) {
@@ -160,21 +175,25 @@ __device__ __forceinline__ void gw_store(const float (&acc)[GW_BN / 2], const Gw
   }
 }
 
-// Issues acc += A_stage B_stage over one K step of 64 as one wgmma group.
+// Issues acc += A_stage B_stage over one K step of 64 as one wgmma group;
+// KK0 / KK1 take the k16 slices [KK0, KK1) of the step only (a chunk of
+// K3's down-projection that ends 32 columns into the step).
+template <int KK0 = 0, int KK1 = GW_BK / 16>
 __device__ __forceinline__ void gw_issue(float (&acc)[GW_BN / 2], uint32_t a_s, uint32_t b_s) {
   const uint64_t da = sw128_desc(a_s);
   const uint64_t db = sw128_desc(b_s, GW_ATOM_BYTES);
   reg_fence(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < GW_BK / 16; ++kk) {
+  for (int kk = KK0; kk < KK1; ++kk) {
     // A: 32 bytes further along the swizzled rows; B: 16 rows (2 KB) down
     wgmma_m64n256k16_ss_t(acc, da + 2 * kk, db + 128 * kk);
   }
   wgmma_commit();
 }
 
-template <bool LN>
+// CHUNKED: K3's down-projection (p.chunk_k > 0, no LN, ACT_NONE).
+template <bool LN, bool CHUNKED = false>
 __global__ void __launch_bounds__(GW_THREADS, 1)
     gw_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
               GwArgs p) {
@@ -269,6 +288,58 @@ __global__ void __launch_bounds__(GW_THREADS, 1)
       }
 #pragma unroll
       for (int x = 0; x < GW_BN / 2; ++x) acc[x] = 0.0f;
+      if constexpr (CHUNKED) {
+        const int row0 = m0 + wg * 64 + (warp & 3) * 16;
+        // K3's down-projection: the chunk ending at K column chunk_end
+        // (< K: a boundary inside the loop; the last chunk ends with the
+        // tile) adds to q.residual, the residual on the first chunk and C
+        // (the out this tile wrote at the previous boundary) after it.
+        GwArgs q = p;
+        q.bias = nullptr;  // b2 rides the last chunk only
+        int chunk_end = p.chunk_k;
+        // Ends the current chunk once its wgmma groups are done: its sum
+        // alone through the epilogue into C, then the next chunk from zero.
+        auto end_chunk = [&]() {
+          gw_store<ACT_NONE>(acc, q, row0, n0, stage, lane);
+#pragma unroll
+          for (int x = 0; x < GW_BN / 2; ++x) acc[x] = 0.0f;
+          q.residual = p.C;
+          chunk_end += p.chunk_k;
+        };
+        arrive_step(it, 0, mu, rs, valid_rows);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const uint32_t a_s = ring + (it % GW_STAGES) * GW_STAGE_BYTES;
+          bool released = false;
+          if (chunk_end == kt * GW_BK + 32 && chunk_end < p.K) {
+            // a chunk ends 32 columns into this step: its first two k16
+            // slices close it, the last two open the next one
+            gw_issue<0, 2>(acc, a_s + wg * 64 * 128, a_s + GW_A_BYTES);
+            wgmma_wait<0>();
+            reg_fence(acc);
+            if (kt > 0) release((it - 1) % GW_STAGES);
+            released = true;
+            end_chunk();
+            gw_issue<2, 4>(acc, a_s + wg * 64 * 128, a_s + GW_A_BYTES);
+          } else {
+            gw_issue(acc, a_s + wg * 64 * 128, a_s + GW_A_BYTES);
+          }
+          if (kt + 1 < nk) arrive_step(it + 1, kt + 1, mu, rs, valid_rows);
+          wgmma_wait<1>();
+          reg_fence(acc);
+          if (kt > 0 && !released) release((it - 1) % GW_STAGES);
+          if (chunk_end == (kt + 1) * GW_BK && chunk_end < p.K) {
+            wgmma_wait<0>();  // a chunk ends with this step
+            reg_fence(acc);
+            end_chunk();
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release((it - 1) % GW_STAGES);
+        q.bias = p.bias;
+        gw_store<ACT_NONE>(acc, q, row0, n0, stage, lane);
+        continue;
+      }
       // Step kt + 1 is waited for (and normalised) while step kt's group,
       // issued just before, and step kt - 1's run on the tensor cores.
       arrive_step(it, 0, mu, rs, valid_rows);
@@ -296,10 +367,13 @@ __global__ void __launch_bounds__(GW_THREADS, 1)
   }
 }
 
-// Opts both variants in to their shared memory, on the current device.
+// Opts the three variants in to their shared memory, on the current device.
 inline cudaError_t gw_enable() {
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       gw_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GW_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gw_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GW_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(gw_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)GW_SMEM_BYTES);
@@ -308,11 +382,14 @@ inline cudaError_t gw_enable() {
 // C = epilogue(prologue(A) @ B) on `stream`; ln picks the LN prologue (p's
 // stats, ln_scale and ln_bias then non-null).  A, B, C, the residual, bias,
 // ln_scale and ln_bias must be 16-byte aligned, stats 8-byte, and N and K
-// multiples of 8 (TMA's 16-byte strides).
+// multiples of 8 (TMA's 16-byte strides).  p.chunk_k > 0 (no LN, ACT_NONE)
+// splits K into chunks of that many columns, a multiple of 32 dividing K.
 inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, const GwArgs& p,
                                      cudaStream_t stream) {
   if (p.M < 1 || p.N < 8 || p.K < 8 || p.N % 8 || p.K % 8 || p.C == nullptr ||
-      (ln && (p.stats == nullptr || p.ln_scale == nullptr || p.ln_bias == nullptr)))
+      (ln && (p.stats == nullptr || p.ln_scale == nullptr || p.ln_bias == nullptr)) ||
+      p.chunk_k < 0 ||
+      (p.chunk_k > 0 && (ln || p.act != ACT_NONE || p.chunk_k % 32 || p.K % p.chunk_k)))
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
   if (misaligned(A) || misaligned(B) || misaligned(p.C) ||
@@ -340,6 +417,8 @@ inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, cons
   const int grid = (int)(tiles < sms ? tiles : sms);
   if (ln)
     gw_kernel<true><<<grid, GW_THREADS, GW_SMEM_BYTES, stream>>>(ta, tb, p);
+  else if (p.chunk_k > 0)
+    gw_kernel<false, true><<<grid, GW_THREADS, GW_SMEM_BYTES, stream>>>(ta, tb, p);
   else
     gw_kernel<false><<<grid, GW_THREADS, GW_SMEM_BYTES, stream>>>(ta, tb, p);
   return cudaGetLastError();

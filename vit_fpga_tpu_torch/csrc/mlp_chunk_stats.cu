@@ -7,48 +7,72 @@
 // a short sequence of launches on one stream, counted as one ported
 // kernel, as K2:
 //
-//   (a) gemm_bf16<LN>     h = bf16(act(LN(x; mu, rstd, ls, lb) @ W1 + b1))
+//   (a) gw_kernel<LN>     h = bf16(act(LN(x; mu, rstd, ls, lb) @ W1 + b1))
 //                         over all M columns.  Every chunk normalises the
 //                         same input x from the same stats, so the chunks'
 //                         hidden tiles are the column slices of this one h.
-//   (b) chunk_down_kernel per 128 x 128 output tile, for c = 0 .. n_chunks-1:
+//   (b) gw_kernel<CHUNKED> per 128 x 256 output tile, for c = 0 .. n_chunks-1:
 //                           y   = h[:, c*mc:(c+1)*mc] @ W2[c*mc:(c+1)*mc, :]
 //                                 in f32, + b2 on the last chunk only
 //                           acc = bf16(acc + bf16(y)), acc starting at x
-//                         The running acc stays in registers across the
-//                         chunks and is rounded to bf16 at each chunk
-//                         boundary, where the TPU's round trip through HBM
-//                         rounds it; only the last chunk writes it out.
+//                         The K loop over M runs on without a break in the
+//                         TMA ring; at each chunk boundary the tile's
+//                         consumers wait for their wgmma groups, run the
+//                         epilogue on the chunk's sum (residual x on the
+//                         first chunk, then the out they wrote at the
+//                         previous boundary) and start the next chunk from
+//                         zero.  The running output goes through out, as
+//                         the TPU's goes through HBM, and is rounded to
+//                         bf16 at each boundary where the TPU's is.
 //   (c) row_stats         next (mu, rstd) of out, only when emit_stats is set
 //
 // In bf16 this is not K2's function: K2 adds one f32 sum over all of M
 // (b2 included) to x once.
 //
+// (a) and (b) are gemm_wgmma.cuh's GEMM (wgmma + TMA, a producer warpgroup
+// streaming A and B tiles into a 4-stage ring, two consumer warpgroups of
+// 64 rows, the LN applied to the landed A tiles, the activation in (a)'s
+// epilogue); they replace common.cuh's wmma GEMM and chunk.cuh's wmma
+// chunk_down_kernel, which K6 (mlp_chunk.cu) still runs.  The gate allows a
+// chunk of 32 columns past a multiple of the GEMM's 64-deep K step (M a
+// multiple of 32 * n_chunks); such a boundary falls between the step's
+// second and third wgmma.m64n256k16, and the step is issued in two halves
+// around the epilogue.
+//
 // What bounds it on the H100: at CLIP ViT-L/14 batch 64 (16 896 token rows,
 // D = 1024, M = 4096) the call does 4 * T * D * M = 283 GFLOP, so it is
 // bound by tensor-core operations (287 us at the H100's 989 TFLOP/s bf16
-// peak, 700 W) against about 86 MB of compulsory traffic.  As in K2 the
-// normalised activations never reach device memory and the activation
-// runs in the first GEMM's epilogue; the (T, M) bf16 hidden tensor
-// round-trips through device memory, and the GEMMs run on wmma fragments
-// (wgmma and TMA are later work).
+// peak, 700 W) against about 86 MB of compulsory traffic.  The normalised
+// activations never reach device memory and the activation runs in the
+// first GEMM's epilogue; the (T, M) bf16 hidden tensor (138 MB at CLIP b64)
+// round-trips through device memory, overlapped with the products by the
+// ring.  Each chunk boundary but the last adds one epilogue pass a tile
+// (the tensor cores idle through it, as in every epilogue of this GEMM)
+// and re-reads at most 64 KB of the tile's out, written a chunk earlier,
+// from L2.  Measured on an H100 SXM at 700 W in the CLIP forward (quick-
+// GELU): 0.69 ms a call, (a) 0.465 ms (305 TFLOP/s: its activation
+// epilogue does not overlap the products) and (b) 0.209 ms (679 TFLOP/s,
+// the chunk boundary included), so the epilogue, not the chunking, is
+// what stands between K3 and its bound.
+//
+// Every pointer must be 16-byte aligned (TMA), stats 8-byte.
 
 #define VFT_NS mlp_chunk
 #include "common.cuh"
-#include "chunk.cuh"
+#include "hopper.cuh"
+#include "gemm_wgmma.cuh"
 
 using namespace VFT_NS;
 
 extern "C" {
 
-// Opts this unit's kernels in to the shared memory they use, on the
-// current device.  Called once per device before the first launch.
-// Returns a cudaError_t.
+// Finds cuTensorMapEncodeTiled and opts this unit's GEMMs in to the
+// shared memory they use, on the current device.  Called once per
+// device before the first launch.  Returns a cudaError_t.
 int vft_mlp_chunk_init() {
-  cudaError_t err = gemm_enable<true, false, false>();
+  cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(chunk_down_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)chunk_down_smem_bytes());
+  return gw_enable();
 }
 
 // x, out: (T, D) bf16; stats, stats_out: (T, 2) f32; ls, lb, b2: (D,) f32;
@@ -64,14 +88,13 @@ int vft_fused_mlp_chunked_stats(const void* x, const void* stats, const void* ls
   if ((n_chunks != 2 && n_chunks != 4) || d % 32 || m % (32 * n_chunks))
     return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   cudaError_t err;
 
-  GemmArgs up{};
-  up.A = static_cast<const bf16*>(x);
+  GwArgs up{};
   up.stats = static_cast<const float*>(stats);
   up.ln_scale = static_cast<const float*>(ls);
   up.ln_bias = static_cast<const float*>(lb);
-  up.B = static_cast<const bf16*>(w1);
   up.bias = static_cast<const float*>(b1);
   up.residual = nullptr;
   up.C = static_cast<bf16*>(h);
@@ -79,19 +102,22 @@ int vft_fused_mlp_chunked_stats(const void* x, const void* stats, const void* ls
   up.N = m;
   up.K = d;
   up.act = act;
-  if ((err = launch_gemm_t<true, false, false>(up, st)) != cudaSuccess) return err;
+  if ((err = launch_gemm_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), true,
+                               up, st)) != cudaSuccess)
+    return err;
 
-  ChunkDownArgs down{};
-  down.h = static_cast<const bf16*>(h);
-  down.w2 = static_cast<const bf16*>(w2);
-  down.b2 = static_cast<const float*>(b2);
-  down.x = static_cast<const bf16*>(x);
-  down.out = static_cast<bf16*>(out);
-  down.T = t;
-  down.D = d;
-  down.M = m;
-  down.n_chunks = n_chunks;
-  if ((err = launch_chunk_down(down, st)) != cudaSuccess) return err;
+  GwArgs down{};
+  down.bias = static_cast<const float*>(b2);  // the last chunk's
+  down.residual = static_cast<const bf16*>(x);
+  down.C = static_cast<bf16*>(out);
+  down.M = t;
+  down.N = d;
+  down.K = m;
+  down.act = ACT_NONE;
+  down.chunk_k = m / n_chunks;
+  if ((err = launch_gemm_wgmma(static_cast<const bf16*>(h), static_cast<const bf16*>(w2), false,
+                               down, st)) != cudaSuccess)
+    return err;
 
   if (stats_out != nullptr &&
       (err = launch_row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats_out), t,

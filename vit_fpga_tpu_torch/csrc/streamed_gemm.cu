@@ -7,122 +7,42 @@
 // slots with manual DMAs, starting the copy of tile k + 1 before it waits
 // for tile k: the double-buffered weight stream of BASELINE config 4.
 //
-// The pattern is the point, so it is kept: a block owns one output tile,
-// and the K-tiles of W and of x stream through two shared-memory slots
-// with cp.async (one commit group per tile, zero-fill past K, T and N), so
-// the copy of tile k + 1 is in flight while the block computes tile k.
-//
-//   bf16: a 128 x 128 tile, 8 warps as 4 (rows) x 2 (columns), each warp
-//         32 x 64 on ldmatrix + mma.sync.m16n8k16 with f32 accumulators;
-//         32-deep K tiles.
+//   bf16: gemm_wgmma.cuh's persistent GEMM (no LN, no bias, no residual,
+//         ACT_NONE): one block an SM walks 128 x 256 output tiles, one
+//         producer thread streams the 64-deep K tiles of x and W by TMA into
+//         a 4-stage mbarrier ring, two consumer warpgroups issue
+//         wgmma.m64n256k16 on each landed stage.  The same weight stream as
+//         the TPU's, four stages deep instead of two, in place of
+//         128 x 128 mma.sync tiles fed by a two-slot cp.async ring.
 //   f32:  a 64 x 64 tile, each of 256 threads 4 x 4 outputs by FMA on the
 //         CUDA cores (no TF32: it would round the operands to 10 bits);
-//         16-deep K tiles.
+//         16-deep K tiles of x and W through two shared-memory slots with
+//         cp.async (one commit group per tile, zero-fill past K, T and N),
+//         the copy of tile k + 1 in flight while the block computes tile k.
 //
 // What bounds it on the H100: at (584, 1024) x (1024, 4096) bf16 (the
 // ViT-L/16 @384 b1 MLP up-projection) 4.9 GFLOP at 989 TFLOP/s, 5.0 us,
-// against 14.4 MB at 3.35 TB/s, 4.3 us: operations, barely.  In f32 the
-// CUDA cores' 67 TFLOP/s bound it.  A TMA + mbarrier ring feeding wgmma is
-// the way to that bound and is later work.
+// against 14.4 MB at 3.35 TB/s, 4.3 us: operations, barely.  There the
+// GEMM has 5 x 16 = 80 tiles for 132 SMs, one partial wave of 16 K steps
+// each: a tile is 67 MFLOP, 9 us at one SM's share of the peak, plus the
+// ring's fill and the epilogue, so the tile's latency, not the card's rate,
+// sets the time.  Measured on an H100 SXM at 700 W: 13.5 us of device time
+// a call, 0.58 us a 64-deep K step (96% of one SM's share of the peak, on
+// the 80 SMs that hold a tile) plus ~4 us of launch, fill and epilogue;
+// spreading the K steps over all 132 SMs (stream-K) is what would close
+// the rest.  In f32 the CUDA cores' 67 TFLOP/s bound it.
 //
-// cp.async copies 16 bytes, so rows of x and w must start 16-byte aligned
-// and a copy must not straddle the end of K or N: K and N are multiples of
-// 8 (bf16) or 4 (f32).  The wrapper zero-pads them, as the TPU wrapper
-// pads K to its tile, which changes no sum.
+// TMA and cp.async copy 16-byte pieces, so rows of x and w must start
+// 16-byte aligned: K and N are multiples of 8 (bf16) or 4 (f32).  The
+// wrapper zero-pads them, as the TPU wrapper pads K to its tile, which
+// changes no sum.
 
 #define VFT_NS streamed_gemm
 #include "common.cuh"
+#include "hopper.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace VFT_NS {
-
-// ---- bf16 ----------------------------------------------------------------
-constexpr int HB_M = 128, HB_N = 128, HB_K = 32;
-constexpr int HB_LDA = HB_K + 8;  // bf16 elements per A row in shared memory
-constexpr int HB_LDB = HB_N + 8;  // per B (k) row
-constexpr int HB_A = HB_M * HB_LDA;
-constexpr int HB_B = HB_K * HB_LDB;
-
-__global__ void __launch_bounds__(256)
-    gemm_bf16_streamed(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                       bf16* __restrict__ out, int T, int K, int N) {
-  __shared__ __align__(128) bf16 As[2][HB_A];
-  __shared__ __align__(128) bf16 Bs[2][HB_B];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * HB_M, n0 = blockIdx.x * HB_N;
-
-  // Copy plan: two 16-byte chunks of each operand per thread and K tile.
-  // A: row c / 4, k chunk (c % 4) * 8.  B: k row c / 16, column (c % 16) * 8.
-  auto load = [&](int kt, int s) {
-    const int k0 = kt * HB_K;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + 256 * i;
-      const int ar = c >> 2, ak = (c & 3) * 8;
-      const bool va = m0 + ar < T && k0 + ak < K;
-      cp_async16(&As[s][ar * HB_LDA + ak], va ? x + (size_t)(m0 + ar) * K + k0 + ak : x, va);
-      const int bk = c >> 4, bn = (c & 15) * 8;
-      const bool vb = k0 + bk < K && n0 + bn < N;
-      cp_async16(&Bs[s][bk * HB_LDB + bn], vb ? w + (size_t)(k0 + bk) * N + n0 + bn : w, vb);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.0f;
-
-  const int nk = (K + HB_K - 1) / HB_K;
-  load(0, 0);
-  cp_async_commit();
-  // ldmatrix addresses: A rows wm*32 + 16 i + lane % 16 at k + 8 (lane / 16);
-  // B (k-major) rows k = lane % 16 at column wn*64 + 16 p + 8 (lane / 16),
-  // transposed
-  const int a_off = (wm * 32 + (lane & 15)) * HB_LDA + (lane >> 4) * 8;
-  const int b_off = (lane & 15) * HB_LDB + wn * 64 + (lane >> 4) * 8;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load(kt + 1, (kt + 1) & 1);
-    cp_async_commit();   // one group per tile, empty or not, keeps the count
-    cp_async_wait<1>();  // this thread's copies of tile kt landed
-    __syncthreads();     // everyone's have
-    const bf16* as = As[kt & 1] + a_off;
-    const bf16* bs = Bs[kt & 1] + b_off;
-#pragma unroll
-    for (int kk = 0; kk < HB_K / 16; ++kk) {
-      unsigned a[2][4], b[16];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldsm_x4(a[i], as + i * 16 * HB_LDA + kk * 16);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) ldsm_x4_t(b + 4 * p, bs + kk * 16 * HB_LDB + p * 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_bf16(acc[i][j], a[i], b[2 * j], b[2 * j + 1]);
-    }
-    __syncthreads();  // tile kt's slot is free for the copies of tile kt + 2
-  }
-  cp_async_wait<0>();
-
-  // acc[i][j]: rows wm*32 + 16 i + lane/4 (+ 8), columns wn*64 + 8 j + 2 (lane % 4)
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int row = m0 + wm * 32 + 16 * i + g + 8 * rr;
-      if (row >= T) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + wn * 64 + 8 * j + 2 * t4;
-        if (col < N)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * rr], acc[i][j][2 * rr + 1]);
-      }
-    }
-}
 
 // ---- f32 -----------------------------------------------------------------
 constexpr int HF_M = 64, HF_N = 64, HF_K = 16;
@@ -199,25 +119,38 @@ using namespace VFT_NS;
 
 extern "C" {
 
+// Finds cuTensorMapEncodeTiled and opts the bf16 GEMM in to the shared
+// memory it uses, on the current device.  Called once per device
+// before the first launch.  Returns a cudaError_t.
+int vft_streamed_gemm_init() {
+  cudaError_t err = tma_init();
+  if (err != cudaSuccess) return err;
+  return gw_enable();
+}
+
 // x: (T, K), w: (K, N), out: (T, N), all bf16 when bf16 else f32,
-// contiguous on the current device; K and N multiples of 8 (bf16) or 4
-// (f32).  Enqueued on `stream`.  Returns a cudaError_t.
+// contiguous on the current device, 16-byte aligned; K and N multiples of
+// 8 (bf16) or 4 (f32).  Enqueued on `stream`.  Returns a cudaError_t.
 int vft_streamed_gemm(const void* x, const void* w, void* out, int T, int K, int N, int bf16_io,
                       void* stream) {
   const int align = bf16_io ? 8 : 4;
   if (T < 1 || K < 1 || N < 1 || K % align || N % align) return cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (bf16_io) {
-    const dim3 grid((N + HB_N - 1) / HB_N, (T + HB_M - 1) / HB_M);
-    gemm_bf16_streamed<<<grid, 256, 0, st>>>(static_cast<const bf16*>(x),
-                                             static_cast<const bf16*>(w),
-                                             static_cast<bf16*>(out), T, K, N);
-  } else {
-    const dim3 grid((N + HF_N - 1) / HF_N, (T + HF_M - 1) / HF_M);
-    gemm_f32_streamed<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
-                                            static_cast<const float*>(w),
-                                            static_cast<float*>(out), T, K, N);
+    if (tma_encoder() == nullptr) return cudaErrorInitializationError;
+    GwArgs p{};
+    p.C = static_cast<bf16*>(out);
+    p.M = T;
+    p.N = N;
+    p.K = K;
+    p.act = ACT_NONE;
+    return launch_gemm_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w), false, p,
+                             st);
   }
+  const dim3 grid((N + HF_N - 1) / HF_N, (T + HF_M - 1) / HF_M);
+  gemm_f32_streamed<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+                                          static_cast<const float*>(w),
+                                          static_cast<float*>(out), T, K, N);
   return cudaGetLastError();
 }
 

@@ -129,6 +129,7 @@ _SIGNATURES = {
     "vft_attn_block_int8_scores": ([_P] * 12 + [_I] * 5 + [_F] * 3 + [_P],
                                    ctypes.c_int),
     "vft_patch_embed": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int),
+    "vft_streamed_gemm_init": ([], ctypes.c_int),
     "vft_streamed_gemm": ([_P] * 3 + [_I] * 4 + [_P], ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
 }
@@ -142,7 +143,7 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_mlp_chunk_init", "vft_vit_full_init", "vft_vit_full_int8_init",
           "vft_mlp_chunk_blk_init", "vft_mha_init", "vft_flash_init",
           "vft_mlp_int8_stats_init", "vft_attn_int8_stats_init",
-          "vft_attn_int8_scores_init")
+          "vft_attn_int8_scores_init", "vft_streamed_gemm_init")
 
 
 def _nvcc() -> str:

@@ -39,11 +39,12 @@ CLIP ViT-L/14 batch 64 (T = 16 896, D = 1024, M = 4096): 4·T·D·M
 (283 GFLOP, 287 us), also bound by operations; K6 at ViT-L/16 batch 8
 (T = 1 600): 26.8 GFLOP, 27 us.  (989 TFLOP/s is the
 H100 SXM's dense bf16 peak at its 700 W limit.)
-Designs: K2 and K5 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (a
-producer warpgroup streaming tiles into a shared-memory ring, two consumer
-warpgroups, the LayerNorm applied to the landed A tiles, the activation
-and residual in the epilogue; K5 first takes its two-pass statistics in a
-row pass); the others on bf16 wmma GEMMs with f32
+Designs: K2, K3 and K5 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh``
+(a producer warpgroup streaming tiles into a shared-memory ring, two
+consumer warpgroups, the LayerNorm applied to the landed A tiles, the
+activation and residual in the epilogue; K5 first takes its two-pass
+statistics in a row pass; K3's down-projection runs the epilogue at each
+chunk boundary inside the K loop); K6 and K24 on bf16 wmma GEMMs with f32
 accumulation, the LayerNorm applied to the first GEMM's A tiles in shared
 memory, the activation (or, in the backward, act and act' from their
 closed forms) in a GEMM epilogue, every weight gradient one transposed-A
@@ -61,6 +62,7 @@ import math
 
 import torch
 
+from ..utils.platform import tanh_plain
 from . import _kernels
 from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
                      row_stats)
@@ -75,11 +77,11 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
         return 0.5 * h * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
     if kind == "gelu_tanh":
         # tanh-GELU in the JAX kernel's fma form: u = h*(A + B*h^2),
-        # 0.5h + 0.5h*tanh(u)
+        # 0.5h + 0.5h*tanh(u); tanh_plain keeps MKL VML off the CPU
         h2 = h * h
         u = h * (0.7978845608028654 + 0.035677408136300125 * h2)
         hh = 0.5 * h
-        return hh + hh * torch.tanh(u)
+        return hh + hh * tanh_plain(u)
     if kind == "quick_gelu":
         return h * torch.sigmoid(1.702 * h)
     if kind == "relu":
@@ -456,7 +458,7 @@ def _act_and_grad(h: torch.Tensor, kind: str):
             2.0 * math.pi)
     if kind == "gelu_tanh":
         c = 0.7978845608028654
-        t = torch.tanh(c * (h + 0.044715 * h * h * h))
+        t = tanh_plain(c * (h + 0.044715 * h * h * h))
         return (0.5 * h * (1.0 + t),
                 0.5 * (1.0 + t)
                 + 0.5 * h * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h))

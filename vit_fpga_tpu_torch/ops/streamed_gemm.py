@@ -6,9 +6,10 @@ every product summed in f32.  The TPU kernel streams the K-tiles of W from
 HBM through two VMEM slots, the double-buffered weight stream of BASELINE
 config 4; its Hopper kernel (``csrc/streamed_gemm.cu``, replaces
 ``vit_fpga_tpu/ops/streamed_gemm.py:_streamed_kernel``) streams the
-K-tiles of x and W through two shared-memory slots with cp.async.  As in
-the JAX package, no model path calls it: it is an op, held against its
-plain version.
+64-deep K-tiles of x and W by TMA through a 4-stage shared-memory ring
+into wgmma in bf16 (``csrc/gemm_wgmma.cuh``), and 16-deep ones through two
+cp.async slots into FMA tiles in f32.  As in the JAX package, no model
+path calls it: it is an op, held against its plain version.
 
   * :func:`streamed_gemm_plain` -- the JAX kernel's arithmetic: one f32
     product per ``bk``-deep K tile, accumulated in order.
@@ -66,10 +67,12 @@ def streamed_gemm(x: torch.Tensor, w: torch.Tensor, bk: int = 512,
 
     A CPU tensor runs :func:`streamed_gemm_plain`; a CUDA tensor launches
     K26 or raises.  ``bk``, ``bt`` and ``bn`` are validated as the JAX
-    wrapper's tiles, but the kernel streams its own tiles (32-deep in
+    wrapper's tiles, but the kernel streams its own tiles (64-deep in
     bf16, 16-deep in f32), so on the card they change only the order of
     the f32 sums.  K and N are zero-padded to the kernel's 16-byte copies
-    where they are not multiples of 8 (bf16) or 4 (f32), which is exact."""
+    (TMA's row strides in bf16) where they are not multiples of 8 (bf16) or
+    4 (f32), which is exact; an operand whose start is not 16-byte aligned
+    raises."""
     t, k, n = _check(x, w, bk, bt, bn)
     if x.device.type == "cpu":
         return streamed_gemm_plain(x, w, bk, bt, bn)

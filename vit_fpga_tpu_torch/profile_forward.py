@@ -67,8 +67,9 @@ UNEXPECTED = "unexpected:"
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1 and K2
 # run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<true>
-# at every length, K5 ln_rows_kernel and gw_kernel: any other attn_half::,
-# mlp_half:: or mlp:: record, such as the wmma gemm_bf16_kernel or
+# at every length, K5 ln_rows_kernel and gw_kernel, K3 gw_kernel (its W2
+# step the chunked variant) and row_stats_kernel: any other attn_half::,
+# mlp_half::, mlp:: or mlp_chunk:: record, such as the wmma gemm_bf16_kernel or
 # attn_kernel / attn_long_kernel they ran before, is reported as
 # unexpected; K4's key-tiled attention is
 # attn_block::attn_long_kernel),
@@ -119,9 +120,10 @@ STAGES = (
     ("mlp_half::row_stats_kernel", "K2 (c) next stats"),
     ("attn_half::", UNEXPECTED + " K1 kernel"),
     ("mlp_half::", UNEXPECTED + " K2 kernel"),
-    ("mlp_chunk::gemm_bf16_kernel<true", "K3 (a) LN + W1 GEMM + act"),
-    ("mlp_chunk::chunk_down_kernel", "K3 (b) chunked W2 GEMM + residual"),
+    ("mlp_chunk::gw_kernel<true", "K3 (a) LN + W1 GEMM + act"),
+    ("mlp_chunk::gw_kernel<false,true", "K3 (b) chunked W2 GEMM + residual"),
     ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
+    ("mlp_chunk::", UNEXPECTED + " K3 kernel"),
     ("flash_attn::seq_attn_kernel", "K9 flash attention"),
     ("mha::seq_attn_f32_kernel", "K7 / K8 attention, f32"),
     ("mha::mha_wgmma_kernel", "K7 / K8 attention, bf16"),

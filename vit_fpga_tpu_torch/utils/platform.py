@@ -51,3 +51,17 @@ def true_f32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def tanh_plain(u: torch.Tensor) -> torch.Tensor:
+    """tanh for the plain versions: ``torch.tanh`` on the card; on the
+    CPU ``2 sigmoid(2u) - 1`` (ATen's vectorised sigmoid, within about
+    1e-7 of tanh), because ``torch.tanh``'s CPU kernel hands f32 tensors
+    to MKL VML's vmsTanh in 2048-element pieces over the OpenMP threads,
+    and on rare first calls in a fresh process the pieces of the worker
+    threads came back up to 5.2e-5 off (VML's enhanced-performance
+    accuracy reads 6.6e-5 on the same data; a second call was exact):
+    ``experiments/torch_cpu_tanh_replay.py``."""
+    if u.device.type != "cpu":
+        return torch.tanh(u)
+    return 2.0 * torch.sigmoid(2.0 * u) - 1.0
