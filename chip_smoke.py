@@ -188,7 +188,7 @@ Phases, each of which raises on failure (exit code != 0):
               keys against its plain version at the odd-batch serves'
               shapes (CLIP ViT-L/14 b1 (1, 264, 1024) with 257 valid keys,
               ViT-B/16 @384 (1, 584, 768) and ViT-L/16 @384 (1, 584, 1024)
-              with 577), in both softmax modes, the key-tiled tile taken,
+              with 577), in both softmax modes, counted past 256 keys,
               loud padding rows that must leave the valid rows bit for
               bit, and in the exact mode scores past exp's f32 range; K10
               (patch_embed_pallas) at ViT-B/16 and CLIP ViT-L/14 b64 and
@@ -204,8 +204,8 @@ Phases, each of which raises on failure (exit code != 0):
               1) over clip.make_forward(CLIP ViT-L/14) and
               vit.make_forward(ViT-B/16 @384) answers 3 uint8 requests
               each with exactly 24 K4 (or 12 K4 + 12 K5) launches a
-              request, all key-tiled, and make_forward(ViT-L/16 @384,
-              safe_softmax) at b1 launches 24 K4 in the exact mode; their
+              request, all past 256 keys, and make_forward(ViT-L/16
+              @384, safe_softmax) at b1 launches 24 K4 in the exact mode; their
               ms per request beside b2 through the chain, then every
               output against the CPU forward
  18. wgmma K1 / K2 / K5  right after the build, ptxas's report must hold
@@ -217,6 +217,16 @@ Phases, each of which raises on failure (exit code != 0):
               max-free one-pass attention of mha_wgmma.cuh) at (5, 200,
               704) with 11 heads and 1, 127, 128, 129 and 200 valid keys;
               this runs first, before every other phase's parity
+ 19. wgmma K4 / K24  right after phase 17's parity: K4 (K1's sequence
+              after a row pass; the safe softmax a third mode of
+              mha_wgmma.cuh) in the safe mode on scores past the max-free
+              clip at 197 of 200 keys, and on flat tokens, whose output at
+              255 valid keys must equal the one at 128 bit for bit (a
+              probability rounded after normalising moves it); K24 (its
+              five products on gemm_wgmma.cuh's backward layouts) at 8 x
+              197 rows with each activation, all seven gradients, and
+              twice on the same inputs, bit for bit (split-K partials
+              added in a fixed order)
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -719,6 +729,89 @@ def phase_loud_padding(batch=8, n_pad=200, n_valid=197, d=768, heads=12,
             pm, act), gl.reshape(rows, d), step_act=act == "relu")
         for n, a, b in zip(MLP_GRADS[1:], l2[1:], q2[1:]):
             _relnorm(f"K24 {act} loud vs quiet {n}", a, b, LOUD_RTOL)
+
+
+# K4's safe mode with every token of an image alike: each of n keys then
+# has e = 1, and ao = bf16((n v) / n) = v whatever n is (v is a bf16 value
+# and sum e is n within f32 rounding), so the output at 255 valid keys
+# must equal the one at 128 bit for bit.  (Not the max-free mode: there e
+# = exp(s scale) is not a bf16 value, and sum e's f32 rounding moves ao's
+# bf16 rounding with n.)  255 is the key count below
+# 257 whose bf16(1 / n) is furthest from 1 / n (255 bf16(1/255) = 1.0039):
+# probabilities rounded after normalising (K7's p = bf16(e / sum e), not
+# K4's function) move nearly every element of ao by one bf16 step there,
+# and by none at 128 = 2^7.
+K4_FLAT_KEYS = (128, 255)
+
+
+def phase_train_edges(batch=8, n_pad=200, n_valid=197, d=768, heads=12,
+                      m=3072):
+    """K4 and K24 where the redesigned kernels have edges: K4's safe mode on
+    wide scores at 197 of 200 keys (past the max-free clip at 80; held in
+    norm and finite, as phase 17's cases past 256 keys) and on flat tokens
+    at K4_FLAT_KEYS (bit for bit), K24 at 8 x 197 rows (not a
+    multiple of the 128-row tiles or the 64-row column-sum blocks; every
+    activation, all seven gradients) and twice on the same inputs (bit for
+    bit: every sum in a fixed order).  Returns {kernel name: largest
+    max-abs error}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    x, _, pa = _attn_inputs(batch, n_pad, d, seed=70)
+    wide = dict(pa, wqkv=pa["wqkv"].clone())
+    wide["wqkv"][:, :2 * d] *= K4_WIDE
+    qkv = (x.float() - x.float().mean(-1, keepdim=True)) @ wide["wqkv"][:, :2 * d]
+    s = qkv[0, :, :64] @ qkv[0, :n_valid, d:d + 64].T / 8.0
+    name = f"K4 ({batch}, {n_pad}, {d}) n_valid={n_valid} safe_softmax=True"
+    got = _k4(ab.attn_block_fwd, x, wide, heads, n_valid, True)
+    want = _k4(ab.attn_block_fwd_plain, x, wide, heads, n_valid, True)
+    torch.cuda.synchronize()
+    k4 = float((got.float() - want.float()).abs().max())
+    print(f"parity {name} wide scores (q, k x{K4_WIDE:g}; head 0's scores "
+          f"reach about {float(s.abs().max()):.0f}): max_abs={k4:.3e} "
+          f"(stated)")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name} wide scores: not finite")
+    _branch(f"{name} wide scores branch", got, want, x)
+
+    flat_pad = max(K4_FLAT_KEYS)
+    flat = _attn_inputs(batch, 1, d, seed=71)[0].expand(
+        batch, flat_pad, d).contiguous()
+    outs = [_k4(ab.attn_block_fwd, flat, pa, heads, n, True)
+            for n in K4_FLAT_KEYS]
+    want = _k4(ab.attn_block_fwd_plain, flat, pa, heads, K4_FLAT_KEYS[-1],
+               True)
+    torch.cuda.synchronize()
+    label = f"K4 flat tokens ({batch}, {flat_pad}, {d}) safe_softmax=True"
+    k4 = max(k4, _compare(f"{label} out at {K4_FLAT_KEYS[-1]} keys",
+                          outs[-1], want, BF16_TOL, BF16_TOL))
+    moved = int((outs[0] != outs[1]).sum())
+    print(f"  {label}: {moved} elements differ between {K4_FLAT_KEYS[0]} "
+          f"and {K4_FLAT_KEYS[1]} valid keys (must be 0)")
+    if moved:
+        raise AssertionError(f"{label}: the output depends on the key "
+                             f"count")
+
+    rows = batch * n_valid
+    x2, g2, _, pm = _train_inputs(1, rows, rows, d, m, seed=72)
+    x2, g2 = x2.reshape(rows, d), g2.reshape(rows, d)
+    print(f"parity K24 fused_mlp_bwd ({rows}, {d}) x {m}")
+    k24 = 0.0
+    for act in MLP_ACTS:
+        got = _k24(fm.fused_mlp_bwd, x2, g2, pm, act)
+        k24 = max(k24, _grads_parity(
+            f"K24 ({rows}, {d}) {act}", MLP_GRADS, got,
+            _k24(fm.fused_mlp_bwd_plain, x2, g2, pm, act), g2,
+            step_act=act == "relu"))
+        again = _k24(fm.fused_mlp_bwd, x2, g2, pm, act)
+        torch.cuda.synchronize()
+        moved = [n for n, a, b in zip(MLP_GRADS, got, again)
+                 if not torch.equal(a, b)]
+        print(f"  K24 ({rows}, {d}) {act} twice on the same inputs: "
+              f"outputs that differ {moved} (must be none)")
+        if moved:
+            raise AssertionError(f"K24 {act}: {moved} differ from run to "
+                                 f"run")
+    return {"attn_block_fwd": k4, "fused_mlp_bwd": k24}
 
 
 def phase_train_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
@@ -4526,8 +4619,7 @@ def run_chain_phases(errors, timing, launches):
 
 
 # ---------------------------------------------------------------------------
-# Phase 17: the odd-batch serves past 256 keys (K4's key-tiled tile, both
-# softmax modes), and the last two TPU kernels, K10 (the uint8 patch embed)
+# Phase 17: the odd-batch serves past 256 keys (K4 in both softmax modes), and the last two TPU kernels, K10 (the uint8 patch embed)
 # and K26 (the streamed GEMM)
 # ---------------------------------------------------------------------------
 
@@ -4636,17 +4728,17 @@ def _k26_inputs(t, k, n, dtype, seed):
 
 
 def _check_long(label, got, want):
-    """K4's key-tiled launches (``attn_block_fwd.launches_long``) at their
+    """K4's launches past 256 keys (``attn_block_fwd.launches_long``) at their
     wanted count."""
     if got != want:
-        raise AssertionError(f"{label}: {got} K4 launches took the key-tiled "
-                             f"tile, want {want}")
+        raise AssertionError(f"{label}: {got} K4 launches counted past 256 "
+                             f"keys, want {want}")
 
 
 def _k4_long_parity(label, batch, n_pad, n_valid, d, heads, modes, seed):
     """K4 past 256 keys against its plain version in each softmax mode:
-    every row elementwise (BF16_TOL) and as a branch, the key-tiled path
-    taken (launches_long), loud padding rows (a 3e3 spike in each) that
+    every row elementwise (BF16_TOL) and as a branch, the launch counted
+    past 256 keys (launches_long), loud padding rows (a 3e3 spike in each) that
     must leave the valid rows bit for bit, and in the exact mode the wide
     scores case.  Returns the largest max-abs error."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -4852,8 +4944,8 @@ def phase_odd_timing():
 def _odd_serve(label, fwd, images, want):
     """ImageServer(batch_size=1) over ``fwd`` answers ``images`` with the
     counts set to 0 just before it: exactly ``want`` launches a request
-    (all K4 ones on the key-tiled tile) and nothing else.  Returns the
-    outputs and K4's key-tiled launches."""
+    (all K4 ones past 256 keys) and nothing else.  Returns the outputs and
+    K4's launches past 256 keys."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
     fwd(images[:1])
     torch.cuda.synchronize()
@@ -4866,7 +4958,7 @@ def _odd_serve(label, fwd, images, want):
     launches = _check_launches(label, counters, per)
     long = ab.attn_block_fwd.launches_long
     print(f"  {label} launches: { {k: v for k, v in launches.items() if v} }"
-          f", {long} of K4's on the key-tiled tile")
+          f", {long} of K4's past 256 keys")
     _check_long(label, long, per["attn_block_fwd"])
     return got, long
 
@@ -4891,13 +4983,13 @@ def phase_odd_batch_serve(n_requests=3):
     """The odd-batch main paths, each run with the counts set to 0 just
     before it: ImageServer(batch_size=1) over clip.make_forward(CLIP
     ViT-L/14 @224, depth 24) answers 3 uint8 requests with 24 K4 launches
-    a request (key-tiled, max-free) and nothing else of the port, and over
+    a request (past 256 keys, max-free) and nothing else of the port, and over
     vit.make_forward(ViT-B/16 @384) with 12 K4 + 12 K5;
     make_forward(ViT-L/16 @384, safe_softmax) at b1 launches 24 K4
-    (key-tiled, exact).  Each one's ms per request beside the same model
+    (past 256 keys, exact).  Each one's ms per request beside the same model
     at b2 through the chain (24 K1 + 24 K3 / 12 K1 + 12 K2), the safe
     forward beside the max-free one (the chain at b1); then every output
-    against the CPU forward.  Returns K4's key-tiled launches."""
+    against the CPU forward.  Returns K4's launches past 256 keys."""
     from vit_fpga_tpu_torch.models import clip, vit
     from vit_fpga_tpu_torch.ops import attn_block as ab
     rng = np.random.default_rng(250)
@@ -4954,7 +5046,7 @@ def phase_odd_batch_serve(n_requests=3):
     _check_long(label, ab.attn_block_fwd.launches_long, 24)
     long += 24
     print(f"  {label} launches: {ab.attn_block_fwd.launches} K4, "
-          f"{ab.attn_block_fwd.launches_long} of them key-tiled")
+          f"{ab.attn_block_fwd.launches_long} of them past 256 keys")
     checks.append((label, got, vit.make_forward(
         scfg, _tree_to(sparams, "cpu"), device="cpu"), simg))
     ffwd = vit.make_forward(dataclasses.replace(scfg, safe_softmax=False),
@@ -4977,7 +5069,7 @@ def phase_odd_batch_serve(n_requests=3):
 def run_odd_phases(errors, timing, launches):
     """Phase 17 after the earlier slices' phases (its parity ran right
     after the build): the times of K4 past 256 keys, K10 and K26, then the
-    odd-batch serves, whose K4 key-tiled launches are the JSON line's."""
+    odd-batch serves, whose K4 launches past 256 keys are the JSON line's."""
     for name, t in phase_odd_timing().items():
         timing[name] = dict(t, max_abs_err=errors[name])
     launches["attn_block_fwd_long"] = phase_odd_batch_serve()
@@ -5094,6 +5186,7 @@ def main() -> int:
 
     wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
+    errors.update(phase_train_edges())
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
     errors.update(phase_per_block_kernels())
@@ -5199,7 +5292,7 @@ def main() -> int:
         "attn_block_int8_static_scores": (
             "vit_fpga_tpu_torch/csrc/attn_int8_scores.cu",
             "vit_fpga_tpu/ops/quant_block.py:850"),
-        "attn_block_fwd_long": ("vit_fpga_tpu_torch/csrc/attn.cuh",
+        "attn_block_fwd_long": ("vit_fpga_tpu_torch/csrc/mha_wgmma.cuh",
                                 "vit_fpga_tpu/ops/attn_block.py:371"),
         "patch_embed_pallas": ("vit_fpga_tpu_torch/csrc/patch_embed.cu",
                                "vit_fpga_tpu/ops/patch_embed.py:147"),

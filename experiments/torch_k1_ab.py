@@ -1,11 +1,12 @@
-"""K1's, K2's, K5's, K3's or K26's time at a shape, from the package tree
-found under ROOT, so that two versions of the port are compared in one call
-on one card.
+"""K1's, K2's, K5's, K3's, K26's, K4's or K24's time at a shape, from the
+package tree found under ROOT, so that two versions of the port are compared
+in one call on one card.
 
 Run on a machine with a Hopper card, from the repository root:
 
-    python3 experiments/torch_k1_ab.py [ROOT] [--kernel k1|k2|k5|k3|k26]
-        [--shape B N_PAD N_VALID D HEADS] [--mlp-shape T D M] [--one-consumer]
+    python3 experiments/torch_k1_ab.py [ROOT]
+        [--kernel k1|k2|k5|k3|k26|k4|k24] [--shape B N_PAD N_VALID D HEADS]
+        [--mlp-shape T D M] [--one-consumer]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
 time, e.g. a ``git archive`` of another commit unpacked under ``_chip/``; its
@@ -28,7 +29,18 @@ defaults as controls, then the CLIP ViT-L/14 b64 forward from uint8;
 up-projection, (584, 1024) x (1024, 4096), beside ``torch.matmul``, each
 per call (CUDA events around 20 calls) and device alone (torch.profiler's
 kernel time over 200 back-to-back calls, ``device_alone_ms``), and device
-alone at K 64, 256 and 2048 (1, 4 and 32 of the GEMM's 64-deep K steps).
+alone at K 64, 256 and 2048 (1, 4 and 32 of the GEMM's 64-deep K steps);
+``--kernel k4`` times ``attn_block_fwd`` in both softmax modes at ViT-B/16
+b64's (64, 200, 768) with 197 valid keys and 12 heads, and at b1 with 264
+and 584 rows (257 and 577 valid, 16 heads), each shape beside its library
+call (LN + addmm + SDPA with the key mask + addmm), the b64 launches step
+by step (``device_steps``: torch.profiler's device time of each kernel),
+K1, K2, K5, K3 (CLIP ViT-L/14 b64) and K7 bf16 ((1, 4104, 2304)) as
+controls, then the ViT-L/16 @224 b64 ``safe_softmax`` forward; ``--kernel
+k24`` times ``fused_mlp_bwd`` at ViT-B/16 b64's (12 800, 768) x 3072 for
+each activation, beside the autograd backward of LN + addmm + tanh-GELU +
+addmm (which saves the forward's activations), step by step, with K1, K2
+and K5 as controls, then the b64 SGD step.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -63,7 +75,7 @@ ONE_CONSUMER = (
      "int in_r, int rows, int heads, int batch, int box_rows = MW_KT) {"),
     ("mha_wgmma.cuh", "(cuuint32_t)MW_DH, (cuuint32_t)MW_KT, 1, 1}",
      "(cuuint32_t)MW_DH, (cuuint32_t)box_rows, 1, 1}"),
-    ("attn_stats.cu", "3 * d, n_pad, heads, batch)",
+    ("attn_half.cuh", "3 * d, n_pad, heads, batch)",
      "3 * d, n_pad, heads, batch, MW_BQ)"),
     ("mha.cu", "in_r, n, heads, batch)", "in_r, n, heads, batch, MW_BQ)"),
 )
@@ -86,12 +98,10 @@ def one_consumer_copy(root: Path) -> Path:
 
 def time_k5_paths(g):
     """The paths that run K5, five estimates each: the bf16 ViT-B/16 @1024
-    b1 forward from uint8 on the card (12 K9 + 12 K5) and the bf16 b64
-    SGD(1e-4) step at 224 px (12 K4 + 12 K5 forward, 12 K24 + 12 K23
-    backward), seeded random weights."""
+    b1 forward from uint8 on the card (12 K9 + 12 K5) and the b64 SGD step
+    (:func:`time_sgd_step`)."""
     import torch
     from vit_fpga_tpu_torch.models import vit
-    from vit_fpga_tpu_torch.train import trainer as tr
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     cfg = vit.config("vit_b16", image_size=1024, dtype="bfloat16")
     fwd = vit.make_forward(cfg, vit.init_params(cfg, g, device="cuda"))
@@ -99,6 +109,19 @@ def time_k5_paths(g):
                         dtype=torch.uint8).cuda()
     out = {"ViT-B/16 @1024 b1 forward (uint8 in)":
            [time_cuda(lambda: fwd(img), iters=5, warmup=2) for _ in range(5)]}
+    out.update(time_sgd_step(g))
+    return out
+
+
+def time_sgd_step(g):
+    """The bf16 b64 SGD(1e-4) step at 224 px (12 K4 + 12 K5 forward, 12
+    K24 + 12 K23 backward), seeded random weights, five estimates of 5
+    steps."""
+    import torch
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.train import trainer as tr
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    out = {}
     cfg = vit.config("vit_b16", dtype="bfloat16")
     params, opt = tr.init_train_state(
         cfg, tr.sgd(1e-4), params=vit.init_params(cfg, g, device="cuda"))
@@ -134,6 +157,39 @@ def device_alone_ms(fn, iters=200):
     return total / 1e3
 
 
+def device_steps(fn, iters=20):
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler
+    over ``iters`` back-to-back calls, as :func:`device_alone_ms`), keyed
+    by the kernel's name: the steps of a launch sequence, each alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.count >= iters // 2}
+
+
+def time_safe_forward(g):
+    """The bf16 ViT-L/16 @224 b64 forward with ``safe_softmax`` (the
+    per-block path: 24 K4 in the safe mode and the MLP half the JAX plan
+    picks), seeded random weights, five estimates of 5 calls."""
+    import torch
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_l16", dtype="bfloat16", safe_softmax=True)
+    fwd = vit.make_forward(cfg, vit.init_params(cfg, g, device="cuda"))
+    img = torch.randint(0, 256, (64, 224, 224, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    return {"ViT-L/16 @224 b64 safe_softmax forward (uint8 in)":
+            [time_cuda(lambda: fwd(img), iters=5, warmup=2)
+             for _ in range(5)]}
+
+
 def time_clip_forward(g):
     """The bf16 CLIP ViT-L/14 @224 b64 forward from uint8 (24 K1 + 24 K3),
     seeded random weights, five estimates of 5 calls."""
@@ -154,7 +210,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--kernel", choices=("k1", "k2", "k5", "k3", "k26"),
+    ap.add_argument("--kernel",
+                    choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -209,7 +266,48 @@ def main() -> int:
                                           act="gelu_tanh", emit_stats=True)
 
     import torch.nn.functional as F
-    device = {}
+    device, steps = {}, {}
+
+    def k4_run(b, n_pad, n_valid, d, heads, safe):
+        x = randn(b, n_pad, d).to(torch.bfloat16)
+        p = (randn(d, std=0.1, mean=1.0), randn(d, std=0.1),
+             randn(d, 3 * d, std=0.06).to(torch.bfloat16),
+             randn(3 * d, std=0.02),
+             randn(d, d, std=0.02).to(torch.bfloat16), randn(d, std=0.02))
+
+        def lib(x=x, p=p, b=b, n_pad=n_pad, d=d, heads=heads):
+            # LN + addmm + SDPA with the key mask + addmm + residual, bf16
+            ls, lb, wqkv, bqkv, wo, bo = (t.to(torch.bfloat16) for t in p)
+            rows, keep = b * n_pad, (torch.arange(n_pad, device="cuda")
+                                     < n_valid)[None, None, None]
+            h = F.layer_norm(x, (d,), ls, lb, 1e-6).reshape(rows, d)
+            qkv = torch.addmm(bqkv, h, wqkv).view(b, n_pad, 3, heads, 64)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+            ao = ao.transpose(1, 2).reshape(rows, d)
+            return torch.addmm(bo, ao, wo).view_as(x) + x
+
+        return (lambda: ab.attn_block_fwd(x, *p, heads, eps=1e-6,
+                                          n_valid=n_valid,
+                                          safe_softmax=safe)), lib
+
+    def k24_run(t, d, m, act):
+        x, p = mlp_inputs(t, d, m)
+        gy = randn(t, d).to(torch.bfloat16)
+        ls, lb, w1, b1, w2, _ = p
+        leaves = [x.detach().requires_grad_(True)] + [
+            q.to(torch.bfloat16).detach().requires_grad_(True)
+            for q in p]
+        with torch.enable_grad():
+            xl, lsl, lbl, w1l, b1l, w2l, b2l = leaves
+            h = F.layer_norm(xl, (d,), lsl, lbl, 1e-6)
+            h = F.gelu(torch.addmm(b1l, h, w1l), approximate="tanh")
+            out = torch.addmm(b2l, h, w2l) + xl
+        return ((lambda: fm.fused_mlp_bwd(x, ls, lb, w1, b1, w2, gy,
+                                          eps=1e-6, act=act)),
+                (lambda: torch.autograd.grad(out, leaves, gy,
+                                             retain_graph=True)))
+
     if args.kernel == "k1":
         shape = args.shape
         runs = {f"K1 {tuple(shape)}": k1_run(*shape)}
@@ -271,6 +369,49 @@ def main() -> int:
                 lambda xk=xk, wk=wk: sg.streamed_gemm(xk, wk))
             device[f"torch.matmul bf16 (584, {k}) x ({k}, 4096) device "
                    f"alone"] = lambda xk=xk, wk=wk: torch.matmul(xk, wk)
+    elif args.kernel == "k4":
+        shape = [[64, 200, 197, 768, 12], [1, 264, 257, 1024, 16],
+                 [1, 584, 577, 1024, 16]]
+        runs = {}
+        for b, n_pad, n_valid, d, heads in shape:
+            for safe in (True, False):
+                kern, lib = k4_run(b, n_pad, n_valid, d, heads, safe)
+                label = f"K4 ({b}, {n_pad}, {d}) n_valid {n_valid} safe={safe}"
+                runs[label] = kern
+                if b == 64:
+                    steps[label] = kern
+            runs[f"library ({b}, {n_pad}, {d}) n_valid {n_valid}"] = lib
+        runs[f"K1 control {tuple(args.shape)}"] = k1_run(*args.shape)
+        runs[f"K2 control {tuple(args.mlp_shape)}"] = k2_run(*args.mlp_shape)
+        x, p = mlp_inputs(*args.mlp_shape)
+        runs[f"K5 control {tuple(args.mlp_shape)}"] = (
+            lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
+                                              act="gelu_tanh"))
+        x, p = mlp_inputs(16896, 1024, 4096)
+        st = row_stats(x, 1e-6)
+        runs["K3 control (16896, 1024) x 4096"] = (
+            lambda x=x, st=st, p=p: fm.fused_mlp_chunked_stats(
+                x, st, *p, eps=1e-6, act="gelu_tanh", n_chunks=2,
+                emit_stats=True))
+        from vit_fpga_tpu_torch.ops import attention as at
+        q7 = randn(1, 4104, 2304).to(torch.bfloat16)
+        runs["K7 bf16 control (1, 4104, 2304) n_valid 4097"] = (
+            lambda: at.mha_qkv_pallas(q7, 12, 4097))
+    elif args.kernel == "k24":
+        shape = [12800, 768, 3072]
+        runs = {}
+        for act in ("gelu_tanh", "quick_gelu", "relu"):
+            kern, lib = k24_run(*shape, act)
+            runs[f"K24 {tuple(shape)} {act}"] = kern
+            if act == "gelu_tanh":
+                runs[f"library autograd {tuple(shape)} gelu_tanh"] = lib
+                steps[f"K24 {tuple(shape)} {act}"] = kern
+        runs[f"K1 control {tuple(args.shape)}"] = k1_run(*args.shape)
+        runs[f"K2 control {tuple(args.mlp_shape)}"] = k2_run(*args.mlp_shape)
+        x, p = mlp_inputs(*args.mlp_shape)
+        runs[f"K5 control {tuple(args.mlp_shape)}"] = (
+            lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
+                                              act="gelu_tanh"))
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}
@@ -301,10 +442,18 @@ def main() -> int:
     ms.update({label: [device_alone_ms(fn, 200 if args.kernel == "k26"
                                        else 20) for _ in range(3)]
                for label, fn in device.items()})
+    for label, fn in steps.items():  # each step alone, three estimates
+        for i in range(3):
+            for name, t in device_steps(fn).items():
+                ms.setdefault(f"{label} step {name}", []).append(t)
     if args.kernel == "k5":
         ms.update(time_k5_paths(g))
     if args.kernel == "k3":
         ms.update(time_clip_forward(g))
+    if args.kernel == "k4":
+        ms.update(time_safe_forward(g))
+    if args.kernel == "k24":
+        ms.update(time_sgd_step(g))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          stdout=subprocess.PIPE, text=True).stdout.strip()

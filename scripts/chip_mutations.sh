@@ -50,10 +50,11 @@ run_copy k13_no_partial_k_tile quant.cuh \
 # boundary's epilogue in the wgmma GEMM's K loop, which only K3 runs)
 run_copy k3_b2_every_chunk gemm_wgmma.cuh \
   "q.bias = nullptr;  // b2 rides the last chunk only" "q.bias = p.bias;"
-# The key-tiled attention tile skipping the last partial key tile (key 256
-# of 257, key 576 of 577): K4's path past 256 keys
-run_copy k4_long_no_partial_tile attn.cuh \
-  "const int ntiles = (n_valid + KT - 1) / KT;" "const int ntiles = n_valid / KT;"
+# K4's safe mode skipping the last partial key tile (key 576 of 577, keys
+# 128..196 of 197): the tile count rounded down where the launch is safe
+run_copy k4_long_no_partial_tile mha_wgmma.cuh \
+  "const int ntiles = (p.n_valid + MW_KT - 1) / MW_KT;" \
+  "const int ntiles = (MODE == MW_SAFE && p.n_valid > MW_KT ? p.n_valid - 1 : p.n_valid + MW_KT - 1) / MW_KT;"
 # K12 without the embed's posb on each image's CLS row (the CLS token and
 # its position embedding dropped)
 run_copy k12_no_cls_posb vit_full.cu \
@@ -173,10 +174,30 @@ run_copy k26_no_last_k_tile gemm_wgmma.cuh \
 # K26 in f32 dropping the last K tile (K 300 = 18 x 16 + 12)
 run_copy k26_f32_no_last_k_tile streamed_gemm.cu \
   "const int nk = (K + HF_K - 1) / HF_K;" "const int nk = (K - 1) / HF_K;"
-# K4's key-tiled safe softmax taking each row's max over the last key tile
-# only (key 576 alone at 577 keys): exp(s - max) overflows on wide scores
-run_copy k4_long_safe_one_tile_max attn.cuh \
-  "if (lane == 0) rmax[r] = fmaxf(rmax[r], mx);" "if (lane == 0) rmax[r] = mx;"
+# K4's safe mode taking each row's max over the last key tile only (its
+# pass 1): exp(s - max) overflows on wide scores
+run_copy k4_long_safe_one_tile_max mha_wgmma.cuh \
+  "      r.m2[rr] = mn;
+      continue;" \
+  "      r.m2[rr] = quad_max(tmax[rr]) * sl2;
+      continue;"
+# K4's safe mode normalising before it rounds, p = bf16(e / sum e): K7's
+# exact mode in its place (caught by phase_train_edges' flat tokens)
+run_copy k4_safe_normalise_first attn_half.cuh \
+  "launch_mha_wgmma<MODE>(tq, tk, tv, a, batch, st)" \
+  "launch_mha_wgmma<MODE == MW_SAFE ? MW_EXACT : MODE>(tq, tk, tv, a, batch, st)" \
+  "  return mha_wgmma_enable<MODE>();" \
+  "  if ((err = mha_wgmma_enable<MW_EXACT>()) != cudaSuccess) return err;
+  return mha_wgmma_enable<MODE>();"
+# K24's weight gradients without their last split-K partial (the split sum
+# of dW1 and dW2 stops one split early)
+run_copy k24_split_k_drop_last_part gemm_wgmma.cuh \
+  "for (int s = 1; s < splits; ++s) {" "for (int s = 1; s < splits - 1; ++s) {"
+# K24's activation-backward epilogue (gf_kernel) with act'(h) taken as 1:
+# dh = da
+run_copy k24_dact_as_one gemm_wgmma.cuh \
+  "const float dh0 = da[x] * d0, dh1 = da[x + 1] * d1;" \
+  "const float dh0 = da[x], dh1 = da[x + 1];"
 # K1 and K2's wgmma GEMM with rstd forced to 1 in its LN prologue (phase
 # 18's K2 case scales x by 2, so rstd is about 0.5 there)
 run_copy k1_k2_ln_rstd_one gemm_wgmma.cuh \

@@ -112,6 +112,46 @@ def test_attn_block_fwd_plain_matches_pallas(geom, dts, safe):
         np.testing.assert_allclose(g, w, rtol=BF16_TOL, atol=BF16_TOL)
 
 
+# (n_pad, n_valid) at or under 256 keys: the card's safe mode in one and
+# in two 128-key tiles.
+WIDE = [(200, 197), (136, 129)]
+
+
+@pytest.mark.parametrize("n_pad,n_valid", WIDE,
+                         ids=[f"{n}of{p}" for p, n in WIDE])
+def test_attn_block_fwd_safe_softmax_takes_wide_scores(n_pad, n_valid):
+    """K4's safe mode on scores far past the max-free clip at 80 (q and k
+    20x larger), at or under 256 keys: the plain version stays finite and
+    matches attn_block_pallas(safe_softmax=True) in interpret mode in
+    relative norm of the branch (1e-4: a score's f32 rounding, 1e-7 of
+    scores of order 100, is 1e-5 of its e), and the max-free function
+    differs there."""
+    d, nh = 128, 2
+    p = _inputs(13, (1, n_pad, d, nh, n_valid))
+    p = dict(p, wqkv=p["wqkv"].copy())
+    p["wqkv"][:, :2 * d] *= 20.0
+    xn = p["x"][0] - p["x"][0].mean(-1, keepdims=True)
+    xn = xn / np.sqrt((xn * xn).mean(-1, keepdims=True) + 1e-6)
+    qkv = (xn * p["ls"] + p["lb"]) @ p["wqkv"] + p["bqkv"]
+    scores = qkv[:, :64] @ qkv[:n_valid, d:d + 64].T / 8.0
+    assert scores.max() > 100.0        # past the clip, and exp's f32 range
+    with _reference_precision("float32"):
+        want = attn_block_pallas(jnp.asarray(p["x"]),
+                                 *[jnp.asarray(p[k]) for k in _ARGS], nh,
+                                 n_valid=n_valid, safe_softmax=True,
+                                 interpret=True)
+    args = (torch.from_numpy(p["x"]),
+            *[torch.from_numpy(p[k]) for k in _ARGS], nh)
+    got = tab.attn_block_fwd(*args, n_valid=n_valid, safe_softmax=True)
+    maxfree = tab.attn_block_fwd(*args, n_valid=n_valid, safe_softmax=False)
+    g, w = _f32(got)[:, :n_valid], _f32(want)[:, :n_valid]
+    x = p["x"][:, :n_valid]
+    assert np.isfinite(g).all()
+    assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w - x)
+    mf = _f32(maxfree)[:, :n_valid]
+    assert np.linalg.norm(mf - w) > 1e-2 * np.linalg.norm(w - x)
+
+
 def _check_grads(got, want, name):
     for n, a, b in zip(GRADS, got, want):
         if n == "dx" and name == "bfloat16":

@@ -228,6 +228,35 @@ def test_tanh_plain_matches_float64():
         u[np.abs(u) >= 10]).tolist()
 
 
+def _gelu_sites():
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.ops import quant_block
+    return {
+        "quant_block": lambda h: quant_block._apply_act_scaled(
+            h, "gelu_tanh", 1.0),
+        "vit": lambda h: vit._hidden_act_xla(h, "gelu_tanh"),
+    }
+
+
+@pytest.mark.parametrize("site", ["quant_block", "vit"])
+def test_plain_tanh_gelus_run_tanh_plain(site, monkeypatch):
+    """The static int8 blocks' plain activation and the unfused MLP's
+    tanh-GELU take ``tanh_plain`` on the CPU (``torch.tanh`` there raises
+    here), within 2^-20 (1 + |y|) of tanh-GELU in float64."""
+    fn = _gelu_sites()[site]
+
+    def no_tanh(*_a, **_k):
+        raise AssertionError("torch.tanh on the CPU")
+
+    h = torch.linspace(-12.0, 12.0, 24001)
+    monkeypatch.setattr(torch, "tanh", no_tanh)
+    got = fn(h).double().numpy()
+    hd = h.double().numpy()
+    want = 0.5 * hd * (1.0 + np.tanh(0.7978845608028654
+                                     * (hd + 0.044715 * hd ** 3)))
+    assert np.all(np.abs(got - want) <= 2.0 ** -20 * (1.0 + np.abs(want)))
+
+
 # (T, D, M) where K5's wgmma + TMA tiles (128 rows, 64-wide K steps,
 # 256-wide N) have edges on the card, at small widths: a partial row tile
 # only; a K tail of 8 past one 64-wide step and N 8 past a 256-wide tile; a
@@ -273,6 +302,36 @@ def test_fused_mlp_bwd_plain_matches_pallas(act, dts):
             jnp.asarray(p["x"]).astype(jdt), *[jnp.asarray(p[k])
                                                for k in _BWD_ARGS],
             jnp.asarray(p["g"]).astype(jdt), act=act, block_t=16,
+            interpret=True)
+    got = tfm.fused_mlp_bwd(_torch(p["x"], tdt),
+                            *[torch.from_numpy(p[k]) for k in _BWD_ARGS],
+                            _torch(p["g"], tdt), act=act)
+    _check_grads(got, want, name)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dts", DTYPES, ids=["f32", "bf16"])
+def test_fused_mlp_bwd_plain_matches_pallas_over_row_tiles(act, dts):
+    """All seven outputs against the TPU backward kernel in interpret mode
+    at its own 256-row tiles, over 328 rows: two tiles, the second
+    partial, and a row count that is not a multiple of the card's 128-row
+    GEMM tiles or 64-row column-sum blocks (K24's wgmma tiles and split-K
+    ranges have edges there)."""
+    jdt, tdt, name = dts
+    t, d, m = 328, 64, 128
+    rng = np.random.default_rng(3)
+
+    def f(*shape, sc=0.1):
+        return (rng.normal(size=shape) * sc).astype(np.float32)
+
+    p = _as(dict(x=f(t, d, sc=0.5), g=f(t, d, sc=1.0), ls=1.0 + f(d),
+                 lb=f(d), w1=f(d, m, sc=d ** -0.5), b1=f(m),
+                 w2=f(m, d, sc=m ** -0.5)), jdt)
+    with _reference_precision(name):
+        want = fused_mlp_bwd_pallas(
+            jnp.asarray(p["x"]).astype(jdt), *[jnp.asarray(p[k])
+                                               for k in _BWD_ARGS],
+            jnp.asarray(p["g"]).astype(jdt), act=act, block_t=256,
             interpret=True)
     got = tfm.fused_mlp_bwd(_torch(p["x"], tdt),
                             *[torch.from_numpy(p[k]) for k in _BWD_ARGS],

@@ -8,7 +8,7 @@
 //   (a) quant_rows<LN_ONE_PASS>  xn = LN(x) (one-pass, _ln_f32), row absmax,
 //                        sx = absmax / 127, xq = clip(rint(xn / sx))
 //   (b) qgemm<EPI_PLAIN> qkv = bf16(float(xq wqkvq) * (sx * wqkvs) + bqkv)
-//   (c) attn_kernel<false>  K1's attention tile (attn.cuh): per (image,
+//   (c) attn_kernel        the max-free attention tile (attn.cuh): per (image,
 //                        head), s = (q k^T) * scale in f32, keys at or past
 //                        n_valid masked, e = exp(clip(s, -70, 80)),
 //                        ao = bf16((bf16(e) @ v) * (1 / sum(e)))
@@ -42,7 +42,7 @@ int vft_attn_int8_init() {
   cudaError_t err = qgemm_enable<EPI_PLAIN>();
   if (err != cudaSuccess) return err;
   if ((err = qgemm_enable<EPI_RESID>()) != cudaSuccess) return err;
-  return attn_enable<false>();
+  return attn_enable();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, so, bo: (D,) f32; wqkv: (3D, D) int8
@@ -83,7 +83,7 @@ int vft_attn_block_int8(const void* x, const void* ls, const void* lb, const voi
   g.K = d;
   if ((err = launch_qgemm<EPI_PLAIN>(g, st)) != cudaSuccess) return err;
 
-  if ((err = launch_attn<false>(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
+  if ((err = launch_attn(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
                                 n_pad, n_valid, kvp, d, heads, scale, st)) != cudaSuccess)
     return err;
 

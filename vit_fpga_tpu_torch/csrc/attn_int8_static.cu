@@ -11,7 +11,7 @@
 //
 //   (a) quant_rows<LN_ONE_PASS, STATIC>  xq = clip(rint(LN(x)), -127, 127)
 //   (b) qgemm<EPI_PLAIN> qkv = bf16(float(xq wqkvq) * sqkv + bqkv)
-//   (c) attn_kernel<false, true>  K1's attention tile (attn.cuh): per
+//   (c) attn_kernel<true>  the max-free attention tile (attn.cuh): per
 //                        (image, head), s = (q k^T) * scale in f32, keys at
 //                        or past n_valid masked, e = exp(clip(s, -70, 80)),
 //                        r = (1 / sum(e)) * out_scale, aoq = clip(rint(
@@ -46,7 +46,7 @@ int vft_attn_int8_static_init() {
   cudaError_t err = qgemm_enable<EPI_PLAIN>();
   if (err != cudaSuccess) return err;
   if ((err = qgemm_enable<EPI_RESID>()) != cudaSuccess) return err;
-  return attn_enable<false, true>();
+  return attn_enable<true>();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, so, bo: (D,) f32; wqkv: (3D, D) int8
@@ -84,7 +84,7 @@ int vft_attn_block_int8_static(const void* x, const void* ls, const void* lb, co
   g.K = d;
   if ((err = launch_qgemm<EPI_PLAIN>(g, st)) != cudaSuccess) return err;
 
-  if ((err = launch_attn<false, true>(static_cast<const bf16*>(qkv), nullptr, batch, n_pad,
+  if ((err = launch_attn<true>(static_cast<const bf16*>(qkv), nullptr, batch, n_pad,
                                       n_valid, kvp, d, heads, scale, st, q, out_scale)) !=
       cudaSuccess)
     return err;

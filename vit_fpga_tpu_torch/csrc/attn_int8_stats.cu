@@ -12,7 +12,7 @@
 //                        (f32 or bf16), no reduction; row absmax, sx =
 //                        absmax / 127, xq = clip(rint(xn / sx))
 //   (b) qgemm<EPI_PLAIN> qkv = bf16(float(xq wqkvq) * (sx * wqkvs) + bqkv)
-//   (c) attn_kernel<false>  K1's max-free attention tile (attn.cuh): keys at
+//   (c) attn_kernel        the max-free attention tile (attn.cuh): keys at
 //                        or past n_valid masked, e = exp(clip(s, -70, 80)),
 //                        ao = bf16((bf16(e) @ v) * (1 / sum(e)))
 //   (d) quant_rows<LN_NONE>  the row absmax of f32(ao) over all D columns,
@@ -66,7 +66,7 @@ cudaError_t run(const void* x, const void* stats, const void* ls, const void* lb
   g.K = d;
   if ((err = launch_qgemm<EPI_PLAIN>(g, st)) != cudaSuccess) return err;
 
-  if ((err = launch_attn<false>(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
+  if ((err = launch_attn(static_cast<const bf16*>(qkv), static_cast<bf16*>(ao), batch,
                                 n_pad, n_valid, kvp, d, heads, scale, st)) != cudaSuccess)
     return err;
 
@@ -105,7 +105,7 @@ int vft_attn_int8_stats_init() {
   cudaError_t err = qgemm_enable<EPI_PLAIN>();
   if (err != cudaSuccess) return err;
   if ((err = qgemm_enable<EPI_RESID>()) != cudaSuccess) return err;
-  return attn_enable<false>();
+  return attn_enable();
 }
 
 // x, out: (B * n_pad, D) bf16; stats, stats_out: (B * n_pad, 2) f32, or

@@ -5,7 +5,7 @@
 // launches on one stream, counted as one ported kernel:
 //
 //   (a) gw_kernel<LN>      qkv = bf16(LN(x; mu, rstd, ls, lb) @ Wqkv + bqkv)
-//   (b) mha_wgmma_kernel<true>  per (128 query rows, image x head), the
+//   (b) mha_wgmma_kernel<MW_MAXFREE>  per (128 query rows, image x head), the
 //                          max-free softmax in one pass over 128-key tiles:
 //                          s = q k^T in f32, e = exp(clip(s * scale, -70,
 //                          80)) with keys at or past n_valid masked to 0,
@@ -14,10 +14,11 @@
 //   (c) gw_kernel          out = x + bf16(ao @ Wo + bo)
 //   (d) row_stats          next (mu, rstd) of out, only when asked for
 //
-// (a) and (c) are gemm_wgmma.cuh's GEMM, (b) mha_wgmma.cuh's kernel (K7 /
-// K8's ring, one pass instead of two); both are wgmma + TMA with a producer
-// warpgroup and two consumer warpgroups (hopper.cuh).  (b) reads
-// the packed qkv scratch through 4-D tensor maps, {64, rows, heads, batch}:
+// (a)-(c) are attn_half.cuh's sequence, shared with K4 (attn_block.cu):
+// (a) and (c) gemm_wgmma.cuh's GEMM, (b) mha_wgmma.cuh's kernel (K7 / K8's
+// ring, one pass instead of two); both are wgmma + TMA with a producer
+// warpgroup and two consumer warpgroups (hopper.cuh).  (b) reads the
+// packed qkv scratch through 4-D tensor maps, {64, rows, heads, batch}:
 // Q's row extent n_pad, K's and V's n_valid.
 //
 // What bounds it on the H100: at ViT-B/16 batch 64 the launch does 8 R D^2
@@ -39,16 +40,9 @@
 #include "hopper.cuh"
 #include "gemm_wgmma.cuh"
 #include "mha_wgmma.cuh"
+#include "attn_half.cuh"
 
 using namespace VFT_NS;
-
-namespace {
-
-constexpr int K1_DH = 64;            // head dim
-constexpr int K1_LONG_KEYS = 256;    // more valid keys: counted apart (*long_path)
-constexpr int K1_MAX_TOKENS = 1024;  // n_pad the gate takes
-
-}  // namespace
 
 extern "C" {
 
@@ -57,12 +51,7 @@ const char* vft_error_string(int err) { return cudaGetErrorString(static_cast<cu
 // Finds the driver's tensor-map encoder and opts this unit's kernels in to
 // the shared memory they use, on the current device.  Called once per
 // device before the first launch.  Returns a cudaError_t.
-int vft_attn_init() {
-  cudaError_t err = tma_init();
-  if (err != cudaSuccess) return err;
-  if ((err = gw_enable()) != cudaSuccess) return err;
-  return mha_wgmma_enable<true>();
-}
+int vft_attn_init() { return attn_half_enable<MW_MAXFREE>(); }
 
 // x, out: (B * n_pad, D) bf16; stats, stats_out: (B * n_pad, 2) f32;
 // ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16; bqkv: (3D,) f32; wo: (D, D) bf16;
@@ -78,56 +67,17 @@ int vft_attn_block_stats(const void* x, const void* stats, const void* ls, const
                          int d, int heads, int n_valid, float eps, float scale, void* stream,
                          int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int rows = batch * n_pad;
-  if (d != heads * K1_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      n_pad > K1_MAX_TOKENS)
-    return cudaErrorInvalidValue;
-  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
-  cudaError_t err;
-
-  GwArgs g{};
-  g.stats = static_cast<const float*>(stats);
-  g.ln_scale = static_cast<const float*>(ls);
-  g.ln_bias = static_cast<const float*>(lb);
-  g.bias = static_cast<const float*>(bqkv);
-  g.residual = nullptr;
-  g.C = static_cast<bf16*>(qkv);
-  g.M = rows;
-  g.N = 3 * d;
-  g.K = d;
-  g.act = ACT_NONE;
-  if ((err = launch_gemm_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), true,
-                               g, st)) != cudaSuccess)
-    return err;
-
-  // q, k and v are column blocks of the packed rows: head h at h * 64 of
-  // each, row stride 3D, image stride n_pad * 3D.
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const long long in_b = (long long)n_pad * 3 * d;
-  CUtensorMap tq, tk, tv;
-  if (!mw_encode(&tq, q, in_b, K1_DH, 3 * d, n_pad, heads, batch) ||
-      !mw_encode(&tk, q + d, in_b, K1_DH, 3 * d, n_valid, heads, batch) ||
-      !mw_encode(&tv, q + 2 * d, in_b, K1_DH, 3 * d, n_valid, heads, batch))
-    return cudaErrorInvalidValue;
-  const MhaTmaArgs a{ao, (long long)n_pad * d, K1_DH, d, heads, n_pad, n_valid, 0.0f, scale};
-  *long_path = n_valid > K1_LONG_KEYS;
-  if ((err = launch_mha_wgmma<true>(tq, tk, tv, a, batch, st)) != cudaSuccess) return err;
-
-  GwArgs o{};
-  o.bias = static_cast<const float*>(bo);
-  o.residual = static_cast<const bf16*>(x);
-  o.C = static_cast<bf16*>(out);
-  o.M = rows;
-  o.N = d;
-  o.K = d;
-  o.act = ACT_NONE;
-  if ((err = launch_gemm_wgmma(static_cast<const bf16*>(ao), static_cast<const bf16*>(wo), false,
-                               o, st)) != cudaSuccess)
-    return err;
-
+  cudaError_t err = launch_attn_half<MW_MAXFREE>(
+      static_cast<const bf16*>(x), static_cast<const float*>(stats),
+      static_cast<const float*>(ls), static_cast<const float*>(lb),
+      static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv),
+      static_cast<const bf16*>(wo), static_cast<const float*>(bo), static_cast<bf16*>(out),
+      static_cast<bf16*>(qkv), static_cast<bf16*>(ao), batch, n_pad, d, heads, n_valid, scale, st,
+      long_path);
+  if (err != cudaSuccess) return err;
   if (stats_out != nullptr &&
       (err = launch_row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats_out),
-                              rows, d, eps, st)) != cudaSuccess)
+                              batch * n_pad, d, eps, st)) != cudaSuccess)
     return err;
   return cudaGetLastError();
 }

@@ -13,10 +13,7 @@
 //               never reach device memory.  The epilogue adds an optional f32
 //               bias, applies the activation in f32 and writes f32, or rounds
 //               to bf16 and optionally adds a bf16 residual in bf16 (the JAX
-//               kernels' `x + y.astype(x.dtype)`).  The activation-backward
-//               epilogue (GemmArgs::aux) turns h = A B + bias into
-//               bf16(act(h)) and bf16(aux * act'(h)), and writes each block's
-//               column sums of aux * act'(h) (fixed order, no atomics).
+//               kernels' `x + y.astype(x.dtype)`).
 //   row_stats   per-row one-pass LayerNorm statistics in f32:
 //               mu = mean(x), rstd = 1/sqrt(max(mean(x^2) - mu^2, 0) + eps),
 //               stored as f32 or (the int8 chain's bf16 tiles) rounded to bf16.
@@ -219,10 +216,9 @@ __host__ __device__ constexpr size_t gemm_ring_bytes() {
   return (size_t)GEMM_STAGES * (tile_elems(TA, GEMM_BM) + tile_elems(!TB, GEMM_BN)) * sizeof(bf16);
 }
 
-// Epilogue staging (one fragment per warp) plus the activation-backward
-// column sums ([2][GEMM_BN] f32) reuse the operand ring.
+// Epilogue staging (one fragment per warp) reuses the operand ring.
 static_assert(gemm_ring_bytes<true, false>() >=
-                  ((GEMM_THREADS / 32) * 16 * GEMM_C_LD + 2 * GEMM_BN) * sizeof(float),
+                  (GEMM_THREADS / 32) * 16 * GEMM_C_LD * sizeof(float),
               "the epilogue staging reuses the operand ring");
 
 template <bool LN, bool TA, bool TB>
@@ -242,13 +238,6 @@ struct GemmArgs {
   int M, N, K;
   int act;
   int c_f32;
-  // Activation-backward epilogue, on when aux != nullptr (bf16 output):
-  // h = acc + bias, C = bf16(act(h)), C2 = bf16(aux * act'(h)),
-  // col_partials[blockIdx.y * N + n] = sum over the block's rows of
-  // aux * act'(h) in f32.
-  const float* aux;      // (M, N) f32
-  bf16* C2;              // (M, N) bf16
-  float* col_partials;   // (ceil(M / GEMM_BM), N) f32
 };
 
 // 16-byte global -> shared copy; zero-fills the destination when !pred.
@@ -480,15 +469,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
   // Epilogue, one fragment at a time through the warp's staging tile: lane
   // L owns row L/2, columns 8*(L%2) .. +8.
   float* cs = reinterpret_cast<float*>(gemm_smem) + warp * 16 * GEMM_C_LD;
-  float* red = reinterpret_cast<float*>(gemm_smem) + (GEMM_THREADS / 32) * 16 * GEMM_C_LD;
-  const bool act_bwd = p.aux != nullptr;
   const int er = lane >> 1;
   const int ec = (lane & 1) * 8;
-  float colacc[2][8];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int t = 0; t < 8; ++t) colacc[j][t] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -507,62 +489,25 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
           for (int t = 0; t < 8; ++t) f[t] += bi[t];
         }
         const size_t off = (size_t)gr * p.N + gc;
-        if (act_bwd) {
-          float da[8], a[8], dh[8];
-          load8f(p.aux + off, da);
 #pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            float d;
-            act_and_grad(f[t], p.act, a[t], d);
-            dh[t] = da[t] * d;
-            colacc[j][t] += dh[t];
-          }
-          *reinterpret_cast<uint4*>(static_cast<bf16*>(p.C) + off) = pack8(a);
-          *reinterpret_cast<uint4*>(p.C2 + off) = pack8(dh);
+        for (int t = 0; t < 8; ++t) f[t] = apply_act(f[t], p.act);
+        if (p.c_f32) {
+          store8f(static_cast<float*>(p.C) + off, f);
         } else {
+          uint4 y = pack8(f);
+          if (p.residual != nullptr) {
+            float r[8];
+            unpack8(*reinterpret_cast<const uint4*>(p.residual + off), r);
+            unpack8(y, f);  // the residual adds the bf16-rounded product
 #pragma unroll
-          for (int t = 0; t < 8; ++t) f[t] = apply_act(f[t], p.act);
-          if (p.c_f32) {
-            store8f(static_cast<float*>(p.C) + off, f);
-          } else {
-            uint4 y = pack8(f);
-            if (p.residual != nullptr) {
-              float r[8];
-              unpack8(*reinterpret_cast<const uint4*>(p.residual + off), r);
-              unpack8(y, f);  // the residual adds the bf16-rounded product
-#pragma unroll
-              for (int t = 0; t < 8; ++t) f[t] = r[t] + f[t];
-              y = pack8(f);
-            }
-            *reinterpret_cast<uint4*>(static_cast<bf16*>(p.C) + off) = y;
+            for (int t = 0; t < 8; ++t) f[t] = r[t] + f[t];
+            y = pack8(f);
           }
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(p.C) + off) = y;
         }
       }
       __syncwarp();
     }
-  }
-  if (act_bwd) {
-    // Column sums over the warp's 64 rows: lanes of one parity share their
-    // 8 columns, so a fixed xor tree over lane bits 1..4 adds the 16 rows
-    // of each fragment row group; then the two row-warps add in order.
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        float v = colacc[j][t];
-#pragma unroll
-        for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        colacc[j][t] = v;
-      }
-    if (lane < 2) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int t = 0; t < 8; ++t) red[wm * GEMM_BN + wn * 32 + j * 16 + lane * 8 + t] = colacc[j][t];
-    }
-    __syncthreads();
-    if (tid < GEMM_BN && n0 + tid < p.N)
-      p.col_partials[(size_t)blockIdx.y * p.N + n0 + tid] = red[tid] + red[GEMM_BN + tid];
   }
 }
 
@@ -575,27 +520,13 @@ inline cudaError_t gemm_enable() {
                               (int)gemm_smem_bytes<LN, TA, TB>(LN ? GEMM_MAX_LN_K : 0));
 }
 
-// The two row-major variants the forward halves launch.
-inline cudaError_t gemm_init() {
-  cudaError_t err = gemm_enable<true, false, false>();
-  if (err != cudaSuccess) return err;
-  return gemm_enable<false, false, false>();
-}
-
 template <bool LN, bool TA, bool TB>
 inline cudaError_t launch_gemm_t(const GemmArgs& p, cudaStream_t stream) {
   if ((LN && p.K > GEMM_MAX_LN_K) || (TA && p.M % 8) || p.N % 8 || p.K % 8)
     return cudaErrorInvalidValue;
-  if (p.aux != nullptr && (p.c_f32 || p.C2 == nullptr || p.col_partials == nullptr))
-    return cudaErrorInvalidValue;
   const dim3 grid((p.N + GEMM_BN - 1) / GEMM_BN, (p.M + GEMM_BM - 1) / GEMM_BM);
   gemm_bf16_kernel<LN, TA, TB><<<grid, GEMM_THREADS, gemm_smem_bytes<LN, TA, TB>(p.K), stream>>>(p);
   return cudaGetLastError();
-}
-
-inline cudaError_t launch_gemm(bool ln, const GemmArgs& p, cudaStream_t stream) {
-  return ln ? launch_gemm_t<true, false, false>(p, stream)
-            : launch_gemm_t<false, false, false>(p, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -9,9 +9,10 @@
 //               at each launch, by cuTensorMapEncodeTiled, reached through
 //               cudaGetDriverEntryPoint so that nothing links libcuda
 //   wgmma       the shared-memory descriptor of a 128-byte-swizzled tile,
-//               fence / commit / wait, m64n128k16 (B K-major) and
-//               m64n256k16 (B MN-major, through the transpose bit) with both
-//               operands in shared memory, m64n64k16 with A in registers
+//               fence / commit / wait, m64n128k16 (B K-major or MN-major)
+//               and m64n256k16 (either operand K-major or, through the
+//               transpose bit, MN-major) with both operands in shared memory,
+//               m64n64k16 with A in registers
 
 #pragma once
 
@@ -126,7 +127,9 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
 }
 
 // d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) B (16 x 128, shared,
-// K-major); accumulate unless scale_d is 0.
+// K-major, or with TRANS_B MN-major: two 64-column atoms lbo apart);
+// accumulate unless scale_d is 0.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
                                                     int scale_d) {
   asm volatile(
@@ -136,7 +139,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -148,12 +151,15 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
-// d (64 x 256, f32) += A (64 x 16, shared, K-major) B (16 x 256, shared,
-// MN-major: the transpose bit, four 64-column atoms lbo apart).
-__device__ __forceinline__ void wgmma_m64n256k16_ss_t(float (&d)[128], uint64_t da, uint64_t db) {
+// d (64 x 256, f32) += A (64 x 16, shared) B (16 x 256, shared).  A is
+// K-major (TRANS_A 0) or MN-major (1: 64 rows, one swizzle atom wide); B
+// K-major (TRANS_B 0: 256 rows of 128 bytes) or MN-major (1: four 64-column
+// atoms lbo apart), each through wgmma's transpose bit.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -166,7 +172,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_t(float (&d)[128], uint64_t 
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
       "%125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -188,7 +194,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_t(float (&d)[128], uint64_t 
         "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers, the m16n8k16 A

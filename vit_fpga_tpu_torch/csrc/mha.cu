@@ -12,7 +12,7 @@
 // o = dtype(p v); in f32, where rounding p to the dtype changes nothing,
 // one pass with a running max and sum.
 //
-// bf16: mha_wgmma_kernel<false> (mha_wgmma.cuh, on hopper.cuh's pieces).
+// bf16: mha_wgmma_kernel<MW_EXACT> (mha_wgmma.cuh, on hopper.cuh's pieces).
 // One thread of a producer warpgroup streams 128-key K tiles (pass 1) and
 // K / V tile pairs (pass 2) by TMA into a 4-stage ring of shared memory,
 // each stage a full and an empty mbarrier; two consumer warpgroups of 64
@@ -69,7 +69,7 @@ extern "C" {
 int vft_mha_init() {
   cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
-  if ((err = mha_wgmma_enable<false>()) != cudaSuccess) return err;
+  if ((err = mha_wgmma_enable<MW_EXACT>()) != cudaSuccess) return err;
   return seq_attn_f32_enable();
 }
 
@@ -94,7 +94,7 @@ int vft_mha(const void* q, const void* k, const void* v, void* o, long long in_b
       !mw_encode(&tv, v, in_b, in_h, in_r, n_valid, heads, batch))
     return cudaErrorInvalidValue;
   MhaTmaArgs p{o, out_b, out_h, out_r, heads, n, n_valid, scale * 1.4426950408889634f, scale};
-  return launch_mha_wgmma<false>(tq, tk, tv, p, batch, st);
+  return launch_mha_wgmma<MW_EXACT>(tq, tk, tv, p, batch, st);
 }
 
 }  // extern "C"

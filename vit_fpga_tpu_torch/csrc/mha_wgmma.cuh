@@ -1,9 +1,13 @@
 // Whole-sequence attention in bf16 on Hopper's own units, head dim 64;
-// include after common.cuh and hopper.cuh.  Two modes of one kernel:
-//   exact     (mha.cu K7 / K8) p = bf16(e / sum e) against the row's true
-//             max, two passes over the keys;
-//   max-free  (attn_stats.cu, K1's attention step) the TPU stats-chain
-//             kernels' exp(clip(s * scale, -70, 80)), one pass.
+// include after common.cuh and hopper.cuh.  Three modes of one kernel:
+//   exact     (MW_EXACT; mha.cu K7 / K8) p = bf16(e / sum e) against the
+//             row's true max, two passes over the keys;
+//   max-free  (MW_MAXFREE; attn_half.cuh, K1's attention step and K4's
+//             without safe_softmax) the TPU stats-chain kernels'
+//             exp(clip(s * scale, -70, 80)), one pass;
+//   safe      (MW_SAFE; K4 with safe_softmax) e = exp(s * scale - max),
+//             rounded to bf16 unnormalised: the exact mode's pass 1 (the
+//             row max alone), then the max-free mode's pass.
 //
 // One block per (MW_BQ query rows, image x head): MW_CONSUMERS warpgroups of
 // 64 query rows each and a producer warpgroup, of which one thread issues
@@ -47,10 +51,22 @@
 // of the exponent's product with log2 e put e within ~5e-6 relative of
 // expf's (at the clip's top), well inside a bf16 ulp (2^-8), so p's bf16
 // rounding flips on rare elements only.
+//
+// The safe mode is the function of the TPU per-block kernel
+// (attn_block.py:_mha_loop with safe_softmax): e = exp(s - max) rounded to
+// bf16 before the sum over keys is known, ao = bf16((bf16(e) v) / sum e).
+// Normalising first (the exact mode) rounds other values.  So pass 1 runs
+// the exact mode's q k^T tiles and keeps only the row max m2 (no
+// exponentials), and pass 2 is the max-free pass with e = ex2(s2 - m2):
+// s is recomputed by the same wgmma sequence, so the max is the max of the
+// same bits, every e <= 1 and the row's largest is 1.  The second q k^T
+// costs a quarter of the attention's products.
 
 #pragma once
 
 namespace VFT_NS {
+
+enum MwMode { MW_EXACT = 0, MW_MAXFREE = 1, MW_SAFE = 2 };
 
 constexpr int MW_DH = 64;                       // head dim: one 128-byte row
 constexpr int MW_CONSUMERS = 2;                 // warpgroups of 64 query rows
@@ -71,7 +87,7 @@ struct MhaTmaArgs {
   long long out_b, out_h;  // element strides of o: image, head
   int out_r;               // and token row
   int heads, n, n_valid;   // n query rows and keys; keys >= n_valid masked
-  float scale_log2;        // softmax scale * log2(e) (exact mode)
+  float scale_log2;        // softmax scale * log2(e) (exact and safe modes)
   float scale;             // softmax scale (max-free mode)
 };
 
@@ -114,8 +130,8 @@ struct MwRows {
   float l[2];   // this thread's share of sum ex2(s2 - m2); then 1 / the row's sum
 };
 
-// Folds a finished q k^T tile into the running max and sum.
-template <bool LAST>
+// Folds a finished q k^T tile into the running max and (SUM) sum.
+template <bool LAST, bool SUM = true>
 __device__ __forceinline__ void fold(const float (&s)[64], MwRows& r, int key0, int n_valid,
                                      float sl2) {
   float tmax[2] = {-INFINITY, -INFINITY};
@@ -125,6 +141,10 @@ __device__ __forceinline__ void fold(const float (&s)[64], MwRows& r, int key0, 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const float mn = fmaxf(r.m2[rr], quad_max(tmax[rr]) * sl2);
+    if (!SUM) {
+      r.m2[rr] = mn;
+      continue;
+    }
     float part = 0.0f;
 #pragma unroll
     for (int x = 0; x < 32; ++x)
@@ -140,7 +160,8 @@ __device__ __forceinline__ void fold(const float (&s)[64], MwRows& r, int key0, 
 
 // Pass 1, tile i (not the last), whose q k^T is in flight into s: waits for
 // tile i + 1's K and issues its q k^T into nxt, then folds tile i into the
-// running max and sum while that runs on the tensor cores.
+// running max and (SUM) sum while that runs on the tensor cores.
+template <bool SUM = true>
 __device__ __forceinline__ void stats_next(float (&s)[64], float (&nxt)[64], MwRows& r, int i,
                                            float sl2, uint64_t qd, uint32_t ring,
                                            uint32_t bars) {
@@ -150,16 +171,17 @@ __device__ __forceinline__ void stats_next(float (&s)[64], float (&nxt)[64], MwR
   wgmma_wait<1>();
   reg_fence(s);
   mbar_arrive(bars + 8 * (MW_STAGES + i % MW_STAGES));
-  fold<false>(s, r, 0, 0, sl2);
+  fold<false, SUM>(s, r, 0, 0, sl2);
 }
 
 // Pass 1's last tile i, in flight into s.
+template <bool SUM = true>
 __device__ __forceinline__ void stats_last(float (&s)[64], MwRows& r, int i, int n_valid,
                                            float sl2, int t4, uint32_t bars) {
   wgmma_wait<0>();
   reg_fence(s);
   mbar_arrive(bars + 8 * (MW_STAGES + i % MW_STAGES));
-  fold<true>(s, r, i * MW_KT + 2 * t4, n_valid, sl2);
+  fold<true, SUM>(s, r, i * MW_KT + 2 * t4, n_valid, sl2);
 }
 
 // p = bf16(ex2(s2 - m2) * (1 / l)) of a finished q k^T tile, packed into
@@ -209,40 +231,46 @@ __device__ __forceinline__ void pv_next(float (&s)[64], uint32_t (&pa)[32], floa
   for (int x = 0; x < 32; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
 }
 
-// Max-free: e = exp(clip(s * scale, -70, 80)) of a thread's score x, in
-// the log2 domain; 0 for a key at or past n_valid in the last tile (TMA's
-// zero-filled keys would give e = 1).
-template <bool LAST>
+// The unnormalised e of a thread's score x, in the log2 domain: max-free
+// exp(clip(s * scale, -70, 80)) (c = scale), or safe exp(s * scale - max)
+// = ex2(s c - m2[row]) (c = scale log2 e); 0 for a key at or past n_valid
+// in the last tile (TMA's zero-filled keys would give s = 0).
+template <int MODE, bool LAST>
 __device__ __forceinline__ float mf_exp(const float (&s)[64], int x, int key0, int n_valid,
-                                        float scale) {
-  const float e = ex2(fminf(fmaxf(s[x] * scale, -70.0f), 80.0f) * 1.4426950408889634f);
+                                        float c, const float (&m2)[2]) {
+  const float e = MODE == MW_SAFE
+                      ? ex2(fmaf(s[x], c, -m2[(x >> 1) & 1]))
+                      : ex2(fminf(fmaxf(s[x] * c, -70.0f), 80.0f) * 1.4426950408889634f);
   if (!LAST) return e;
   return key0 + 8 * (x >> 2) + (x & 1) >= n_valid ? 0.0f : e;
 }
 
-// Max-free, tile 0 (finished q k^T in s): p = bf16(e), unnormalised, into
-// wgmma's register-A fragment; l += e.
-template <bool LAST>
+// One-pass modes, the pass's tile 0 (finished q k^T in s): p = bf16(e),
+// unnormalised, into wgmma's register-A fragment; l += e.
+template <int MODE, bool LAST>
 __device__ __forceinline__ void mf_probs(const float (&s)[64], uint32_t (&pa)[32], float (&l)[2],
-                                         int key0, int n_valid, float scale) {
+                                         int key0, int n_valid, float scale,
+                                         const float (&m2)[2]) {
 #pragma unroll
   for (int x = 0; x < 32; ++x) {
-    const float e0 = mf_exp<LAST>(s, 2 * x, key0, n_valid, scale);
-    const float e1 = mf_exp<LAST>(s, 2 * x + 1, key0, n_valid, scale);
+    const float e0 = mf_exp<MODE, LAST>(s, 2 * x, key0, n_valid, scale, m2);
+    const float e1 = mf_exp<MODE, LAST>(s, 2 * x + 1, key0, n_valid, scale, m2);
     l[x & 1] += e0;
     l[x & 1] += e1;
     pa[x] = pack_bf16x2(e0, e1);
   }
 }
 
-// Max-free, tile j >= 1, with tile j - 1's p in pa: pv_next's issue and
+// One-pass modes, tile j >= 1 of the pass that starts at ring step step0
+// (max-free 0, safe ntiles), with tile j - 1's p in pa: pv_next's issue and
 // wait pattern, e and l in place of the normalised probabilities.
-template <bool LAST>
+template <int MODE, bool LAST>
 __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], float (&o)[32],
-                                        float (&l)[2], int j, int n_valid, float scale, int t4,
-                                        uint64_t qd, uint32_t ring, uint32_t bars) {
-  const int st = j % MW_STAGES, sp = (j - 1) % MW_STAGES;
-  mbar_wait(bars + 8 * st, (j / MW_STAGES) & 1);
+                                        float (&l)[2], int j, int step0, int n_valid, float scale,
+                                        const float (&m2)[2], int t4, uint64_t qd, uint32_t ring,
+                                        uint32_t bars) {
+  const int i = step0 + j, st = i % MW_STAGES, sp = (i - 1) % MW_STAGES;
+  mbar_wait(bars + 8 * st, (i / MW_STAGES) & 1);
   qk_issue(s, qd, sw128_desc(ring + 2 * st * MW_TILE_BYTES));
   pv_issue(o, pa, sw128_desc(ring + (2 * sp + 1) * MW_TILE_BYTES));
   wgmma_wait<1>();  // q k^T (the older group) is done
@@ -250,7 +278,7 @@ __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], floa
   const int key0 = j * MW_KT + 2 * t4;
 #pragma unroll
   for (int x = 0; x < 64; ++x) {
-    s[x] = mf_exp<LAST>(s, x, key0, n_valid, scale);
+    s[x] = mf_exp<MODE, LAST>(s, x, key0, n_valid, scale, m2);
     l[(x >> 1) & 1] += s[x];
   }
   wgmma_wait<0>();
@@ -261,7 +289,7 @@ __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], floa
   for (int x = 0; x < 32; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
 }
 
-template <bool MAXFREE>
+template <int MODE>
 __global__ void __launch_bounds__(MW_THREADS, 1)
     mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, MhaTmaArgs p) {
@@ -276,7 +304,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
   const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
   const int q0 = blockIdx.x * MW_BQ;
   const int ntiles = (p.n_valid + MW_KT - 1) / MW_KT;
-  const int steps = MAXFREE ? ntiles : 2 * ntiles;
+  const int steps = MODE == MW_MAXFREE ? ntiles : 2 * ntiles;
 
   if (tid == 0) {
     for (int s = 0; s < MW_STAGES; ++s) {
@@ -292,6 +320,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
     // Producer: Q once, then ring step i = tile i of pass 1 (K) for i <
     // ntiles, tile i - ntiles of pass 2 (K and V) after (max-free: tile i,
     // K and V); step i uses stage i % MW_STAGES in round i / MW_STAGES.
+    constexpr bool MAXFREE = MODE == MW_MAXFREE;
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 128 * MW_CONSUMERS) {
       mbar_expect_tx(qbar, MW_Q_BYTES);
@@ -314,28 +343,51 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
     const uint64_t qd = sw128_desc(q_s + wg * 64 * MW_ROW_BYTES);
     float sa[64], o[32];
     uint32_t pa[32];
-    float ol[2] = {1.0f, 1.0f};  // the output's row factor: max-free 1 / l
+    float ol[2] = {1.0f, 1.0f};  // the output's row factor: one-pass 1 / l
     mbar_wait(qbar, 0);
-    if constexpr (MAXFREE) {
-      // One pass: tile 0's p first, then per tile j its q k^T beside tile
-      // j - 1's p v, then the last p v.
-      const float sc = p.scale;
+    if constexpr (MODE != MW_EXACT) {
+      // Safe: pass 1 takes the row max m2 alone, over the exact mode's q k^T
+      // tiles, two a trip (the score buffers alternate).
+      MwRows r{{-INFINITY, -INFINITY}, {0.0f, 0.0f}};
+      if constexpr (MODE == MW_SAFE) {
+        const float sl2 = p.scale_log2;
+        float sb[64];
+        mbar_wait(full(0), 0);
+        qk_issue(sa, qd, sw128_desc(ring));
+        int i = 0;
+        for (; i + 2 < ntiles; i += 2) {
+          stats_next<false>(sa, sb, r, i, sl2, qd, ring, bars);
+          stats_next<false>(sb, sa, r, i + 1, sl2, qd, ring, bars);
+        }
+        if (i + 1 < ntiles) {
+          stats_next<false>(sa, sb, r, i, sl2, qd, ring, bars);
+          stats_last<false>(sb, r, i + 1, p.n_valid, sl2, t4, bars);
+        } else {
+          stats_last<false>(sa, r, i, p.n_valid, sl2, t4, bars);
+        }
+      }
+      // One pass from ring step step0: tile 0's p first, then per tile j
+      // its q k^T beside tile j - 1's p v, then the last p v.
+      const int step0 = MODE == MW_SAFE ? ntiles : 0;
+      const float sc = MODE == MW_SAFE ? p.scale_log2 : p.scale;
       float l[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int x = 0; x < 32; ++x) o[x] = 0.0f;
-      mbar_wait(full(0), 0);
-      qk_issue(sa, qd, sw128_desc(ring));
+      const int s0 = step0 % MW_STAGES;
+      mbar_wait(full(s0), (step0 / MW_STAGES) & 1);
+      qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
       wgmma_wait<0>();
       reg_fence(sa);
       if (ntiles == 1)
-        mf_probs<true>(sa, pa, l, 2 * t4, p.n_valid, sc);
+        mf_probs<MODE, true>(sa, pa, l, 2 * t4, p.n_valid, sc, r.m2);
       else
-        mf_probs<false>(sa, pa, l, 0, 0, sc);
+        mf_probs<MODE, false>(sa, pa, l, 0, 0, sc, r.m2);
       for (int j = 1; j < ntiles - 1; ++j)
-        mf_next<false>(sa, pa, o, l, j, p.n_valid, sc, t4, qd, ring, bars);
+        mf_next<MODE, false>(sa, pa, o, l, j, step0, p.n_valid, sc, r.m2, t4, qd, ring, bars);
       if (ntiles > 1)
-        mf_next<true>(sa, pa, o, l, ntiles - 1, p.n_valid, sc, t4, qd, ring, bars);
-      const int sl = (ntiles - 1) % MW_STAGES;
+        mf_next<MODE, true>(sa, pa, o, l, ntiles - 1, step0, p.n_valid, sc, r.m2, t4, qd, ring,
+                            bars);
+      const int sl = (step0 + ntiles - 1) % MW_STAGES;
       pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
       wgmma_wait<0>();
       reg_fence(o);
@@ -405,19 +457,19 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
   }
 }
 
-template <bool MAXFREE>
+template <int MODE>
 inline cudaError_t mha_wgmma_enable() {
-  return cudaFuncSetAttribute(mha_wgmma_kernel<MAXFREE>,
+  return cudaFuncSetAttribute(mha_wgmma_kernel<MODE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MW_SMEM_BYTES);
 }
 
-template <bool MAXFREE>
+template <int MODE>
 inline cudaError_t launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                     const CUtensorMap& tv, const MhaTmaArgs& p, int batch,
                                     cudaStream_t stream) {
   if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n) return cudaErrorInvalidValue;
   const dim3 grid((p.n + MW_BQ - 1) / MW_BQ, batch * p.heads);
-  mha_wgmma_kernel<MAXFREE><<<grid, MW_THREADS, MW_SMEM_BYTES, stream>>>(tq, tk, tv, p);
+  mha_wgmma_kernel<MODE><<<grid, MW_THREADS, MW_SMEM_BYTES, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 

@@ -9,8 +9,8 @@ a bias-free projection (``proj``) into the shared embedding space in
 place of a classifier.  Its encoder is :func:`models.vit._encoder`: the
 stats chain (K1 with K2, or with K3 where the JAX MLP plan chunks the
 weights, as at ViT-L/14 below 32 768 token rows) or the per-block
-kernels.  At 224 px ViT-L/14 has 257 tokens, so K1 takes its key-tiled
-path.  The batch-1 forward (:func:`forward_latency`) runs the encoder in
+kernels.  At 224 px ViT-L/14 has 257 tokens, so K1's launches count as
+past 256 keys.  The batch-1 forward (:func:`forward_latency`) runs the encoder in
 one launch (K11).
 
 The text tower has no Pallas kernel in the JAX package (causal einsum

@@ -53,7 +53,7 @@ from ..ops.fused_mlp import (MLP_BIG_ROWS, fused_mlp, fused_mlp_chunked,
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.vit_stack import full_supported, stack_supported, vit_full, \
     vit_layers
-from ..utils.platform import resolve_device, true_f32
+from ..utils.platform import resolve_device, tanh_plain, true_f32
 
 Params = Dict[str, Any]
 
@@ -262,7 +262,7 @@ def _hidden_act_xla(h: torch.Tensor, name: str) -> torch.Tensor:
         out = 0.5 * hf * (1.0 + torch.erf(hf * (1.0 / np.sqrt(2.0))))
     elif name in ("gelu", "gelu_tanh"):
         c = float(np.sqrt(2.0 / np.pi))
-        out = 0.5 * hf * (1.0 + torch.tanh(c * (hf + 0.044715 * hf ** 3)))
+        out = 0.5 * hf * (1.0 + tanh_plain(c * (hf + 0.044715 * hf ** 3)))
     elif name == "quick_gelu":
         out = hf * torch.sigmoid(1.702 * hf)
     else:

@@ -37,7 +37,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "streamed_gemm.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
            "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "chunk.cuh",
-           "seq_attn.cuh", "mha_wgmma.cuh", "hopper.cuh", "gemm_wgmma.cuh")
+           "seq_attn.cuh", "mha_wgmma.cuh", "hopper.cuh", "gemm_wgmma.cuh",
+           "attn_half.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"

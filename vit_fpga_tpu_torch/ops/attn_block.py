@@ -14,10 +14,11 @@ CPU tensor:
 * K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
   replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
   one-pass LN statistics computed in the kernel and the exact
-  (``safe_softmax``) or max-free softmax, up to 1024 tokens: past 256
-  valid keys it takes the key-tiled tile (``csrc/attn.cuh``
-  ``attn_long_kernel``), which in the exact mode sweeps the keys twice
-  (the row max first, then ``exp(s - max)``);
+  (``safe_softmax``) or max-free softmax, up to 1024 tokens: K1's launch
+  sequence (``csrc/attn_half.cuh``) after a row pass, the attention in
+  ``csrc/mha_wgmma.cuh``'s max-free mode or its safe mode, which sweeps
+  the keys twice (the row max first, then ``exp(s - max)`` rounded to bf16
+  before the division by the row sum);
 * K23 ``attn_block_bwd`` (``csrc/attn_bwd.cu``), K4's backward: replaces
   ``_attn_bwd_kernel`` (wrapper ``attn_block_bwd_pallas``), the per-head
   arithmetic of its non-pair branch, up to 256 tokens.
@@ -33,13 +34,12 @@ Bounds on the H100 at ViT-B/16 batch 64 (R = 12 800 rows, D = 768), all
 set by tensor-core operations at 989 TFLOP/s: K1 and K4 8·R·D² +
 4·B·H·n_pad·n_valid·dh flops (68 GFLOP, 69 us) against about 44 MB of
 compulsory traffic; K23 22·R·D² + 12·B·H·n_pad·n_valid·dh (189 GFLOP,
-191 us) against under 100 MB.  Designs: K1 on wgmma + TMA (a producer
-warpgroup streaming tiles into a shared-memory ring, two consumer
+191 us) against under 100 MB.  Designs: K1 and K4 on wgmma + TMA (a
+producer warpgroup streaming tiles into a shared-memory ring, two consumer
 warpgroups; the LN applied to the landed A tiles, the scores and
-probabilities in registers); K4 and K23 on bf16 wmma GEMMs (LN applied
-to the A tiles in shared memory, bias / residual in the epilogue,
-transposed layouts for the gradients) and an attention block per (image,
-head) with scores and probabilities in shared memory; the backward sums
+probabilities in registers); K23 on bf16 wmma GEMMs (transposed layouts
+for the gradients) and an attention block per (image, head) with scores
+and probabilities in shared memory; the backward sums
 every weight gradient over all rows in one transposed-A GEMM and every
 bias and LN gradient with fixed-order column sums.  qkv, the attention
 output and the backward's intermediates round-trip through device memory
@@ -65,12 +65,10 @@ from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
                      round_up, row_stats)
 
 _NEG_INF = -1e30
-# K1 takes up to LONG_MAX_TOKENS tokens (csrc/attn_stats.cu K1_MAX_TOKENS);
-# its C entry reports a launch with more than 256 valid keys (one kernel at
-# every length; the launch checks count those apart).  K4's
-# entry chooses between the whole-head and the key-tiled attention tile
-# (csrc/attn.cuh ATT_MAX_LONG) and reports which it launched.  Where the
-# JAX package keeps the chain
+# K1 and K4 take up to LONG_MAX_TOKENS tokens (csrc/attn_half.cuh
+# AH_MAX_TOKENS); their C entries report a launch with more than 256 valid
+# keys (one kernel at every length; the launch checks count those apart).
+# Where the JAX package keeps the chain
 # (attn_plan below), it runs K1 up to 3137 tokens (ViT-B/16 @896 px); past
 # 1024 the port's K1 raises on the card.  K4 takes the same tile and
 # limit; its backward K23 holds a head's keys in one block, up to
@@ -290,8 +288,7 @@ attn_block_stats.launches_long = 0    # of those, with more than 256 valid keys
 def _cuda_geometry(x, num_heads, n_valid, *, kernel):
     """Shape checks shared by the K4 / K23 launches: (b, n, d, n_valid).
     ``kernel`` names the launch, whose token limit applies: K4 up to
-    LONG_MAX_TOKENS (its key-tiled tile past 256 keys), K23 up to
-    BWD_MAX_TOKENS."""
+    LONG_MAX_TOKENS, K23 up to BWD_MAX_TOKENS."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -336,8 +333,8 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
     """Per-block attention half (K4): x (B, N, D) -> x + OutProj(MHA(QKV(
     LN(x)))).  Query rows at or past ``n_valid`` are computed, keys there
     masked.  A CPU tensor runs :func:`attn_block_fwd_plain`; a CUDA tensor
-    launches the kernel (bf16, head dim 64, n_pad <= 1024; past 256 valid
-    keys the key-tiled tile, counted in ``launches_long``) or raises."""
+    launches the kernel (bf16, head dim 64, n_pad <= 1024; a launch past
+    256 valid keys is counted in ``launches_long`` too) or raises."""
     if not residual:
         raise NotImplementedError(
             "residual=False (the tensor-parallel partial) comes with the "
@@ -377,7 +374,7 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
 
 
 attn_block_fwd.launches = 0
-attn_block_fwd.launches_long = 0      # of those, the key-tiled path's
+attn_block_fwd.launches_long = 0      # of those, past 256 valid keys
 
 
 def attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,

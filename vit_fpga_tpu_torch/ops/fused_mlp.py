@@ -44,13 +44,14 @@ Designs: K2, K3 and K5 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh``
 consumer warpgroups, the LayerNorm applied to the landed A tiles, the
 activation and residual in the epilogue; K5 first takes its two-pass
 statistics in a row pass; K3's down-projection runs the epilogue at each
-chunk boundary inside the K loop); K6 and K24 on bf16 wmma GEMMs with f32
-accumulation, the LayerNorm applied to the first GEMM's A tiles in shared
-memory, the activation (or, in the backward, act and act' from their
-closed forms) in a GEMM epilogue, every weight gradient one transposed-A
-GEMM over all rows and every bias and LN gradient a fixed-order column
-sum.  The (T, M) hidden tensors round-trip through device memory (later
-work).
+chunk boundary inside the K loop); K24 on the same GEMM in the backward's
+layouts (the weight read K-major for the data gradients, the activation
+read MN-major for the weight gradients, which split their token rows over
+the card and add the f32 partials in a fixed order), act and act' from
+their closed forms in the h GEMM's epilogue, every bias and LN gradient a
+fixed-order column sum; K6 on bf16 wmma GEMMs with f32 accumulation, the
+LayerNorm applied to the first GEMM's A tiles in shared memory.  The
+(T, M) hidden tensors round-trip through device memory (later work).
 
 Semantics follow the JAX kernels: f32 LayerNorm, bf16 GEMMs with f32
 accumulation, activation in f32, residual add in the input dtype.
@@ -392,8 +393,8 @@ def fused_mlp_chunked(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
 
 def _cuda_geometry(x, w1, multiple=32):
     """Shape checks shared by the K5 / K6 / K24 launches: (t, d, m).  K5's
-    wgmma GEMMs take D and M multiples of 8 (TMA's 16-byte strides), the
-    wmma ones of K6 and K24 multiples of 32."""
+    wgmma GEMMs take D and M multiples of 8 (TMA's 16-byte strides); K6's
+    wmma GEMMs, and K24's launch, multiples of 32."""
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape

@@ -85,6 +85,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.platform import tanh_plain
 from . import _kernels
 from .attn_block import _EXP_HI, _EXP_LO, _mha_tpu, attn_plan
 from .common import check_activation, kernel_operand, round_up, row_stats
@@ -382,7 +383,7 @@ def _apply_act_scaled(h, act: str, s):
         h2 = h * h
         u = h * (0.7978845608028654 + 0.035677408136300125 * h2)
         hh = (0.5 * s) * h
-        return hh + hh * torch.tanh(u)
+        return hh + hh * tanh_plain(u)
     if act == "quick_gelu":
         return (s * h) * torch.sigmoid(1.702 * h)
     if act == "relu":

@@ -66,13 +66,17 @@ UNEXPECTED = "unexpected:"
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1 and K2
-# run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<true>
-# at every length, K5 ln_rows_kernel and gw_kernel, K3 gw_kernel (its W2
-# step the chunked variant) and row_stats_kernel: any other attn_half::,
-# mlp_half::, mlp:: or mlp_chunk:: record, such as the wmma gemm_bf16_kernel or
-# attn_kernel / attn_long_kernel they ran before, is reported as
-# unexpected; K4's key-tiled attention is
-# attn_block::attn_long_kernel),
+# run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<1>
+# (max-free) at every length, K4 row_stats_kernel, gw_kernel and
+# mha_wgmma_kernel<2> (safe) or <1>, K5 ln_rows_kernel and gw_kernel, K3
+# gw_kernel (its W2 step the chunked variant) and row_stats_kernel, K24
+# ln_rows_kernel, gf_kernel (da, h and the activation backward on one
+# tile), gw_kernel in its backward layouts (<..., LAYOUT, EPI>: 1, 1 B
+# K-major to f32; 2, 1 A MN-major to f32 split-K partials),
+# gw_split_sum_kernel, colsum and ln_bwd_kernel:
+# any other attn_half::, mlp_half::, attn_block::, mlp::, mlp_chunk:: or
+# mlp_bwd:: record, such as the wmma gemm_bf16_kernel or attn_kernel /
+# attn_long_kernel they ran before, is reported as unexpected),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # int8 GEMM's template
 # argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
@@ -112,7 +116,7 @@ STAGES = (
      "K18 (d) int8 out-proj + residual"),
     ("attn_int8_static::", "K18 other"),
     ("attn_half::gw_kernel<true", "K1 (a) LN + QKV GEMM"),
-    ("attn_half::mha_wgmma_kernel<true", "K1 (b) attention, max-free"),
+    ("attn_half::mha_wgmma_kernel<1>", "K1 (b) attention, max-free"),
     ("attn_half::gw_kernel<false", "K1 (c) out-proj + residual"),
     ("attn_half::row_stats_kernel", "K1 (d) next stats"),
     ("mlp_half::gw_kernel<true", "K2 (a) LN + W1 GEMM + act"),
@@ -132,10 +136,11 @@ STAGES = (
     ("mlp_chunk_blk::chunk_down_kernel", "K6 (c) chunked W2 GEMM + residual"),
     ("int8_gemm::", "K13 int8 GEMM"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
-    ("attn_block::gemm_bf16_kernel<true", "K4 (b) LN + QKV GEMM"),
-    ("attn_block::attn_long_kernel", "K4 (c) attention, key-tiled"),
-    ("attn_block::attn_kernel", "K4 (c) attention"),
-    ("attn_block::gemm_bf16_kernel<false", "K4 (d) out-proj + residual"),
+    ("attn_block::gw_kernel<true", "K4 (b) LN + QKV GEMM"),
+    ("attn_block::mha_wgmma_kernel<2>", "K4 (c) attention, safe"),
+    ("attn_block::mha_wgmma_kernel<1>", "K4 (c) attention, max-free"),
+    ("attn_block::gw_kernel<false", "K4 (d) out-proj + residual"),
+    ("attn_block::", UNEXPECTED + " K4 kernel"),
     ("mlp::ln_rows_kernel", "K5 (a) LN stats"),
     ("mlp::gw_kernel<true", "K5 (b) LN + W1 GEMM + act"),
     ("mlp::gw_kernel<false", "K5 (c) W2 GEMM + residual"),
@@ -150,13 +155,14 @@ STAGES = (
     ("attn_bwd::colsum", "K23 (g) bias and LN column sums"),
     ("attn_bwd::ln_bwd_kernel", "K23 (i) LN backward"),
     ("mlp_bwd::ln_rows_kernel", "K24 (a) LN + xn"),
-    ("mlp_bwd::gemm_bf16_kernel<false,false,true>",
-     "K24 (b, e) da = g W2^T, dxn = dh W1^T"),
-    ("mlp_bwd::gemm_bf16_kernel<false,false,false>",
-     "K24 (c) h recompute + act backward"),
-    ("mlp_bwd::gemm_bf16_kernel<false,true,false>", "K24 (f, g) dW1, dW2"),
+    ("mlp_bwd::gf_kernel", "K24 (b, c) da = g W2^T, h recompute, act "
+     "backward"),
+    ("mlp_bwd::gw_kernel<false,false,1,1>", "K24 (e) dxn = dh W1^T"),
+    ("mlp_bwd::gw_kernel<false,false,2,1>", "K24 (f, g) dW1, dW2 partials"),
+    ("mlp_bwd::gw_split_sum_kernel", "K24 (f, g) split-K sums"),
     ("mlp_bwd::colsum", "K24 (d, h) bias and LN column sums"),
     ("mlp_bwd::ln_bwd_kernel", "K24 (i) LN backward"),
+    ("mlp_bwd::", UNEXPECTED + " K24 kernel"),
 )
 
 
