@@ -35,7 +35,11 @@ Phases, each of which raises on failure (exit code != 0):
               parameter); 10 Trainer (AdamW) steps on one fixed batch of
               64 (finite losses, the last below the first; 12 launches
               each of K4, K5, K23 and K24 per step and none of K1, K2);
-              the b64 SGD step's time, TFLOP/s and peak memory
+              one SGD step of ViT-B/16 @384 (577 tokens) at batch 4 on the
+              card against the CPU step the same way, 12 launches each of
+              K4, K5, K23 and K24, K4's and K23's all counted past 256
+              keys, and its ms per step; K23 timed at that shape; the b64
+              SGD step's time, TFLOP/s and peak memory
   9. int8     the dynamic int8 kernels K14, K15 and K16 against their
               plain versions at b8 (every K14 mode, each K15 activation,
               and K16 with 59 loud padding rows that must leave the valid
@@ -151,9 +155,10 @@ Phases, each of which raises on failure (exit code != 0):
               300, 64), also in norm, and into views of a loud buffer
               whose other rows and heads must not change, the f32 K7 / K8
               (one pass, register-tiled) at 1, 63, 64, 65, 197 valid of
-              200, 577 of 584 and (1, 2, 1100, 64), K6 at ViT-L's and
-              ViT-H's MLP shapes in 2 and 4 chunks against its plain version
-              and away from K5's function, the gates; their times beside the
+              200, 577 of 584 and (1, 2, 1100, 64), K6 (K3's two wgmma
+              launches after a row pass) at ViT-L's and ViT-H's MLP shapes
+              in 2 and 4 chunks and at (1000, 1024) x 4096 against its
+              plain version and away from K5's function, the gates; their times beside the
               plain version, scaled_dot_product_attention (K6: LN + addmm +
               GELU) and the bound; then ImageServer(image_size=1024,
               batch_size=2) over make_forward(vit_b16 @1024) answers 6 uint8
@@ -195,8 +200,8 @@ Phases, each of which raises on failure (exit code != 0):
               the JAX test's shape, K26 (streamed_gemm) at the JAX tests'
               shapes, ViT-L/16 @384's MLP up-projection and the wgmma
               tiles' edges (200, 520) x (520, 328) in bf16, each against
-              its plain version in the f32 sum-order band; the gates (K4
-              at 1032 tokens, K23 at 264 raise); all this runs first,
+              its plain version in the f32 sum-order band; K4's gate (1032
+              tokens raise); all this runs first,
               right after the build; their times beside the plain
               version, a library call and the bound (K26 and its library
               call also device alone; K10 also beside the
@@ -209,7 +214,9 @@ Phases, each of which raises on failure (exit code != 0):
               ms per request beside b2 through the chain, then every
               output against the CPU forward
  18. wgmma K1 / K2 / K5  right after the build, ptxas's report must hold
-              no wgmma serialisation note (C7513-C7515); then K2 and K5
+              no wgmma serialisation note (C7513-C7515) and a report of
+              each wgmma kernel (the GEMM, the attention, K23's two); then
+              K2 and K5
               on gemm_wgmma.cuh against their plain versions at (1000,
               776) x 3104 (row, K and N tails of the tiles), K2 at ViT-L's
               (1600, 1024) x 4096, K5 at (264, 1024) x 4096 and (4104,
@@ -227,6 +234,18 @@ Phases, each of which raises on failure (exit code != 0):
               197 rows with each activation, all seven gradients, and
               twice on the same inputs, bit for bit (split-K partials
               added in a fixed order)
+ 20. wgmma K23  right after phase 17's parity: K23 (its five products on
+              gemm_wgmma.cuh; its attention backward two wgmma + TMA kernels,
+              one per 128 query rows for ao, dq and the rows' softmax
+              values, one per 128 keys for dk and dv) against its plain
+              version, all seven gradients, past 256 keys (CLIP ViT-L/14's
+              (2, 264, 1024) with 16 heads and 257 valid, ViT-B/16 @384's
+              (2, 584, 768) with 577, (1, 1024, 768) with 1024) and at the
+              tiles' edges (127, 128, 129 valid of 200; 17 tokens), each
+              counted past 256 keys where it has more valid keys and run
+              twice bit for bit; loud padding rows at 584 tokens that must
+              leave every weight, bias and LN gradient unchanged; the gate
+              (1032 tokens raise)
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -587,7 +606,7 @@ MLP_GRADS = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2")
 MLP_ACTS = ("gelu_tanh", "quick_gelu", "relu")
 
 
-def _grads_parity(label, names, got, want, g, step_act=False):
+def _grads_parity(label, names, got, want, g, step_act=False, referee=None):
     """dx elementwise and its branch dx - g in relative norm, the f32
     gradients in relative norm; returns dx's max-abs error.
 
@@ -598,12 +617,39 @@ def _grads_parity(label, names, got, want, g, step_act=False):
     only: relu' is a step, and where h lies within f32 rounding of 0 the
     kernel and the plain version (summing in another order) take
     different sides, which moves a whole row of dx by da_j * W1[:, j] (a
-    handful of rows at b8, each far outside the elementwise band)."""
+    handful of rows at b8, each far outside the elementwise band).
+
+    ``referee`` (K23's phase 20) returns dx from the plain version's
+    arithmetic with every sum in f64: an element of dx outside the band
+    of the plain version must then lie inside the same band of that
+    version.  The plain version's f32 sums round a bf16 intermediate
+    (an element of dq, dk or dv in the tens, whose ulp is 2^-4) the
+    other way now and then, and dxn = dqkv Wqkv^T carries such a flip
+    into a whole row; the f64 sums settle which rounding the function
+    gives."""
     torch.cuda.synchronize()
     gf = g.float()
     if step_act:
         _relnorm(f"{label} dx", got[0], want[0], GRAD_RTOL)
         err = float((got[0].float() - want[0].float()).abs().max())
+    elif referee is not None:
+        a, b = got[0].float(), want[0].float()
+        out = (a - b).abs() > BF16_TOL * (1 + b.abs() + gf.abs())
+        err = float((a - b).abs().max())
+        print(f"  {label} dx: max_abs={err:.3e}, {int(out.sum())} of "
+              f"{out.numel()} elements outside |a-b| <= {BF16_TOL:g} (1 + "
+              f"|b| + |g|)")
+        if out.any():
+            ref = referee().float()
+            band = BF16_TOL * (1 + ref.abs() + gf.abs())
+            still = int((out & ((a - ref).abs() > band)).sum())
+            own = int(((b - ref).abs() > band).sum())
+            print(f"  {label} dx against the plain arithmetic summed in "
+                  f"f64: {still} of those outside its band (must be 0; the "
+                  f"plain version's own f32 sums: {own} elements)")
+            if still:
+                raise AssertionError(f"{label} dx: kernel disagrees with its "
+                                     f"plain version")
     else:
         err = _compare(f"{label} dx", got[0], want[0], BF16_TOL, BF16_TOL,
                        mag=want[0].float().abs() + gf.abs())
@@ -994,23 +1040,45 @@ def phase_train_step_vs_cpu(batch=4, lr=0.1):
     CPU plain path from the same weights and data: the loss, every
     gradient and every updated parameter."""
     from vit_fpga_tpu_torch.models import vit
+    _step_vs_cpu(vit.config("vit_b16", dtype="bfloat16"), batch, lr, seed=2)
+
+
+def _step_vs_cpu(cfg, batch, lr, seed):
+    """One SGD step of ``cfg`` at ``batch`` on the card and on the CPU
+    plain path from the same weights and data: the loss, every gradient
+    and every updated parameter.  Returns (the card's launches of each
+    counted kernel in its step, K4's and K23's launches past 256 keys, the
+    step function, the card's parameters, optimizer state, images and
+    labels)."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.train import trainer as tr
-    cfg = vit.config("vit_b16", dtype="bfloat16")
-    base = vit.init_params(cfg, _gen(2), device="cpu")
-    images, labels = _train_batch(cfg, batch, seed=2)
+    base = vit.init_params(cfg, _gen(seed), device="cpu")
+    images, labels = _train_batch(cfg, batch, seed=seed)
     step = tr.make_vit_train_step(cfg)
+    counters = _counters()
     res = {}
     for dev in ("cuda", "cpu"):
         params, opt = tr.init_train_state(cfg, tr.sgd(lr),
                                           params=_tree_to(base, dev))
+        if dev == "cuda":
+            card = (step, params, opt, images.cuda(), labels.cuda())
+            for fn in counters.values():
+                fn.launches = 0
+            ab.attn_block_fwd.launches_long = 0
+            ab.attn_block_bwd.launches_long = 0
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, images.to(dev), labels.to(dev))
         loss = float(m["loss"])
+        if dev == "cuda":
+            launches = {k: fn.launches for k, fn in counters.items()}
+            long = (ab.attn_block_fwd.launches_long,
+                    ab.attn_block_bwd.launches_long)
         leaves = tr.param_leaves(params)
         res[dev] = (loss, [p.grad.detach().float().cpu() for p in leaves],
                     [p.detach().float().cpu() for p in leaves])
-        print(f"train step b{batch} on {dev}: loss {loss:.6f} "
-              f"({time.perf_counter() - t0:.1f} s)")
+        print(f"train step {cfg.image_size} px b{batch} on {dev}: loss "
+              f"{loss:.6f} ({time.perf_counter() - t0:.1f} s)")
     (lc, gc, pc), (lh, gh, ph) = res["cuda"], res["cpu"]
     rel = abs(lc - lh) / abs(lh)
     print(f"  loss card vs CPU: rel {rel:.3e} (band {STEP_LOSS_BAND})")
@@ -1023,6 +1091,36 @@ def phase_train_step_vs_cpu(batch=4, lr=0.1):
     for n, a, b in zip(names, pc, ph):
         _relnorm(f"param after step {n}", a, b, STEP_BAND)
     print(f"  worst gradient error {worst:.3e}")
+    return (launches, long) + card
+
+
+def phase_train_step_384(batch=4, lr=0.1, iters=3):
+    """ViT-B/16 @384 (577 tokens on 584 rows), the training path past 256
+    keys: one SGD step at ``batch`` on the card against the CPU plain step
+    from the same weights and data (as phase 8's step at 224 px), exactly
+    12 launches each of K4, K5, K24 and K23 in the card's step, those of K4
+    and K23 all counted past 256 keys; then the card's ms per step.
+    Returns (K23's launches past 256 keys, ms per step)."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", image_size=384, dtype="bfloat16")
+    launches, (k4_long, k23_long), step, params, opt, images, labels = \
+        _step_vs_cpu(cfg, batch, lr, seed=5)
+    print(f"  train step 384 px b{batch} launches: {launches}; past 256 "
+          f"keys: K4 {k4_long}, K23 {k23_long}")
+    for name, n in launches.items():
+        want = cfg.depth if name in TRAIN_KERNELS else 0
+        if n != want:
+            raise AssertionError(f"384 px step: {name} launched {n} times, "
+                                 f"want {want}")
+    if k4_long != cfg.depth or k23_long != cfg.depth:
+        raise AssertionError(f"384 px step: K4 / K23 launches past 256 keys "
+                             f"{k4_long} / {k23_long}, want {cfg.depth}")
+    ms = time_cuda(lambda: step(params, opt, images, labels), iters=iters,
+                   warmup=1)
+    print(f"train step 384 px b{batch} sgd({lr}) on the card: {ms:.3f} "
+          f"ms/step")
+    return k23_long, ms
 
 
 def _leaf_names(tree, prefix=""):
@@ -2356,6 +2454,36 @@ def phase_dense_kernels():
     return {"filter_image_device": 0.0, "int8_gemm": 0.0}
 
 
+PROFILER_TRIES = 3
+
+
+def _events_alone_ms(fn, iters, why):
+    """The fallback of the two profiler timings below: mean ms per call of
+    ``iters`` back-to-back calls of ``fn`` between two CUDA events, which
+    hold the wrapper's host time too where it exceeds the device's.  Says
+    so on a line of its own, with ``why`` the profiler could not be
+    read."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    ms = time_cuda(fn, iters=iters)
+    print(f"  torch.profiler: {why} in {PROFILER_TRIES} tries; timed with "
+          f"CUDA events over {iters} back-to-back calls instead "
+          f"({ms:.4f} ms, host time included where it is the longer)")
+    return ms
+
+
+def _profiled(fn, iters):
+    """torch.profiler's key averages of the CUDA activity over ``iters``
+    back-to-back calls of ``fn``, after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
+
+
 def _device_ms(fn, kernel, wrapper, iters=20):
     """Mean device time in ms of the launches of ``kernel`` (a substring of
     the CUDA kernel's name) per call of ``fn``, from torch.profiler's CUDA
@@ -2364,28 +2492,29 @@ def _device_ms(fn, kernel, wrapper, iters=20):
     launch counter must rise by exactly one a call.  The profiler's
     activity buffer may drop a record now and then, so the mean is taken
     over the launches it saw, which must be at least half and at most
-    all of them."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    before = wrapper.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    if wrapper.launches - before != iters:
-        raise AssertionError(f"{wrapper.__name__} launched "
-                             f"{wrapper.launches - before} times in "
-                             f"{iters} calls")
-    evs = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in evs)
-    if not iters // 2 <= count <= iters:
-        raise AssertionError(f"profiler saw {count} launches of {kernel!r} "
-                             f"in {iters} calls")
-    if count < iters:
+    all of them; a profiler that sees fewer in every one of
+    ``PROFILER_TRIES`` tries gives way to ``_events_alone_ms``."""
+    for _ in range(PROFILER_TRIES):
+        before = wrapper.launches
+        averages = _profiled(fn, iters)
+        if wrapper.launches - before != iters + 1:
+            raise AssertionError(f"{wrapper.__name__} launched "
+                                 f"{wrapper.launches - before} times in "
+                                 f"{iters + 1} calls")
+        evs = [e for e in averages if kernel in e.key]
+        count = sum(e.count for e in evs)
+        if count > iters:
+            raise AssertionError(f"profiler saw {count} launches of "
+                                 f"{kernel!r} in {iters} calls")
+        if count >= iters // 2:
+            if count < iters:
+                print(f"  the profiler saw {count} of the {iters} launches "
+                      f"of {kernel!r}; the mean is over those")
+            return sum(e.device_time_total for e in evs) / count / 1e3
         print(f"  the profiler saw {count} of the {iters} launches of "
-              f"{kernel!r}; the mean is over those")
-    return sum(e.device_time_total for e in evs) / count / 1e3
+              f"{kernel!r}")
+    return _events_alone_ms(fn, iters, f"fewer than half the launches of "
+                            f"{kernel!r} seen")
 
 
 def phase_dense_timing():
@@ -2790,22 +2919,23 @@ def _device_alone_ms(fn, iters=50):
     activity over ``iters`` back-to-back calls: each kernel's mean time
     times its launches a call, summed, so the wrapper's host time is out.
     A kernel launched less than once a call on average (a record the
-    profiler dropped aside) does not count."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_time_total <= 0 or e.count < iters // 2:
-            continue
-        total += e.device_time_total / e.count * round(e.count / iters)
-    if total <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return total / 1e3
+    profiler dropped aside) does not count.  A profiler that sees no such
+    kernel in any of ``PROFILER_TRIES`` tries (its activity buffer drops
+    records on some hosts) gives way to ``_events_alone_ms``."""
+    for _ in range(PROFILER_TRIES):
+        averages = _profiled(fn, iters)
+        total = 0.0
+        for e in averages:
+            if e.device_time_total <= 0 or e.count < iters // 2:
+                continue
+            total += e.device_time_total / e.count * round(e.count / iters)
+        if total > 0:
+            return total / 1e3
+        seen = [(e.key[:60], e.count) for e in averages
+                if e.device_time_total > 0]
+        print(f"  the profiler saw no kernel launched at least once in two "
+              f"of {iters} calls; device records (name, count): {seen}")
+    return _events_alone_ms(fn, iters, "no device time")
 
 
 def phase_large_kernels():
@@ -3463,6 +3593,14 @@ def phase_full_forward_time(loops=5, iters=32):
         pre = set(_launches(lambda: vit.preprocess(image, cfg), calls)[0])
         for name, fwd in fwds.items():
             kernels, copies = _launches(lambda: fwd(image), calls)
+            for _ in range(PROFILER_TRIES - 1):
+                # a profiler that dropped every record of K12 / K20 is
+                # read again, never taken for a forward without them
+                if not name.endswith("single") or set(kernels) - pre:
+                    break
+                print(f"  {name}: the profiler saw none of K12's / K20's "
+                      f"launches; reading it again")
+                kernels, copies = _launches(lambda: fwd(image), calls)
             n = len(kernels) + copies
             out[(batch, name)] = dict(turns=runs[name], launches=n / calls)
             print(f"forward {name} b{batch}: p50 / max ms per request "
@@ -3847,10 +3985,12 @@ def phase_per_block_kernels():
     _unmoved_heads("K8 f32 (1, 2, 1100, 64)", at.mha_pallas, q, k, v, 1000)
 
     print("parity K6 fused_mlp_chunked: ViT-L (1600, 1024) x 4096 in 2 "
-          "chunks, ViT-H (2112, 1280) x 5120 in 4")
+          "chunks, ViT-H (2112, 1280) x 5120 in 4, (1000, 1024) x 4096 in 2 "
+          "(a partial 128-row tile)")
     k6 = 0.0
     for rows, d, m, nc, seed in ((1600, 1024, 4096, 2, 168),
-                                 (2112, 1280, 5120, 4, 169)):
+                                 (2112, 1280, 5120, 4, 169),
+                                 (1000, 1024, 4096, 2, 171)):
         x, _, p = _mlp_inputs(rows, d, m, seed)
         pb = _bf16_weights(p, ("w1", "w2"))
         for act in MLP_ACTS_K3:
@@ -4789,8 +4929,7 @@ def _k4_long_parity(label, batch, n_pad, n_valid, d, heads, modes, seed):
 def phase_odd_kernels():
     """Right after the build: K4 past 256 keys at the odd-batch serves'
     shapes in both softmax modes, K10 and K26 at their shapes, each against
-    its plain version; the gates (K4 at 1032 tokens, K23 at 264 tokens
-    raise).  K10's and K26's launches here are their count in the JSON
+    its plain version; K4's gate (1032 tokens raise; K23's is phase 20's).  K10's and K26's launches here are their count in the JSON
     line: no serving path launches them.  Returns ({kernel: max-abs
     error}, {kernel: launches})."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -4802,9 +4941,6 @@ def phase_odd_kernels():
     x, _, pa = _attn_inputs(1, 1032, 128, seed=195)
     _expect_raise("K4 at 1032 tokens", lambda: _k4(
         ab.attn_block_fwd, x, pa, 2, 1032, False))
-    x, g, pa, _ = _train_inputs(1, 264, 257, 1024, 4096, seed=196)
-    _expect_raise("K23 at 264 tokens", lambda: _k23(
-        ab.attn_block_bwd, x, g, pa, 16, 257))
 
     pe.patch_embed_pallas.launches = 0
     sg.streamed_gemm.launches = 0
@@ -5090,7 +5226,8 @@ def check_wgmma_serialisation(build_log: str) -> None:
     """Raise if ptxas reported serialising the wgmma of any kernel, or if
     the log holds no ptxas report of the wgmma kernels to read."""
     lines = build_log.splitlines()
-    for kernel in ("gw_kernel", "mha_wgmma_kernel"):
+    for kernel in ("gw_kernel", "mha_wgmma_kernel", "bwd_q_kernel",
+                   "bwd_kv_kernel"):
         if not any("Compiling entry function" in ln and kernel in ln
                    for ln in lines):
             raise AssertionError(f"the build log holds no ptxas report of "
@@ -5164,6 +5301,174 @@ def phase_wgmma_kernels():
             "attn_block_stats": k1}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: K23 on wgmma + TMA, past 256 keys
+# ---------------------------------------------------------------------------
+
+# K23 past 256 keys and at the 128-row tiles' edges: (label, batch, n_pad,
+# n_valid, d, heads)
+K23_CASES = (
+    ("CLIP ViT-L/14", 2, 264, 257, 1024, 16),
+    ("ViT-B/16 @384", 2, 584, 577, 768, 12),
+    ("1024 tokens", 1, 1024, 1024, 768, 12),
+    ("127 of 200 keys", 4, 200, 127, 768, 12),
+    ("128 of 200 keys", 4, 200, 128, 768, 12),
+    ("129 of 200 keys", 4, 200, 129, 768, 12),
+    ("17 tokens", 8, 17, 17, 768, 12),
+)
+
+
+def _k23_plain_f64(x, g, pa, heads, n_valid):
+    """dx of the plain version's arithmetic (attn_block_bwd_plain: the
+    same bf16 rounding points) with every sum and product in f64: the
+    referee of phase 20's elementwise dx check."""
+    import math
+    from vit_fpga_tpu_torch.ops.common import ln_backward
+    dt = x.dtype
+    b, n, d = x.shape
+    dh = d // heads
+    scale = 1.0 / math.sqrt(dh)
+    xf = x.double()
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(xf.var(-1, unbiased=False, keepdim=True) + EPS)
+    xhat = (xf - mu) * rstd
+    xn = (xhat * pa["ln_scale"].double() + pa["ln_bias"].double()).to(dt)
+    w = pa["wqkv"].to(dt).double()
+    qkv = (xn.double() @ w + pa["bqkv"].double()).to(dt)
+    gd = g.double()
+    gw = (gd @ pa["wo"].to(dt).double().T).to(dt)
+
+    def heads_of(t):
+        return t.reshape(b, n, heads, dh).transpose(1, 2).double()
+
+    q, k, v = (heads_of(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    gh = heads_of(gw)
+    s = (q @ k.transpose(-1, -2)) * scale
+    keep = torch.arange(n, device=x.device) < n_valid
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    pc = p.to(dt).double()
+    dp = gh @ v.transpose(-1, -2)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt).double()
+    dqkv = torch.cat([
+        t.to(dt).double().transpose(1, 2).reshape(b * n, d)
+        for t in (ds @ k, ds.transpose(-1, -2) @ q, pc.transpose(-1, -2) @ gh)],
+        dim=-1)
+    dxn = (dqkv @ w.T).reshape(b, n, d)
+    dx_ln, _, _ = ln_backward(dxn, xhat, rstd, pa["ln_scale"].double())
+    return (gd + dx_ln).to(dt)
+
+
+def phase_k23_kernels():
+    """Right after phase 17's parity: K23 (its five products on
+    gemm_wgmma.cuh, its attention backward two wgmma + TMA kernels tiled
+    over 128 keys and 128 query rows) against its plain version, all seven
+    gradients, past 256 keys (CLIP ViT-L/14's (2, 264, 1024) with 16 heads
+    and 257 valid, ViT-B/16 @384's (2, 584, 768) with 577, (1, 1024, 768)
+    with all 1024) and at the tiles' edges (127, 128 and 129 valid of 200,
+    17 tokens); each launch counted past 256 keys where it has more valid
+    keys, and run twice on the same inputs, bit for bit (every sum in a
+    fixed order); loud padding rows at 584 tokens (a 3e3 spike in each,
+    zero cotangent there) that must leave every weight, bias and LN
+    gradient and the valid rows' dx unchanged; the gate (1032 tokens
+    raise).  Returns {kernel name: largest max-abs error of dx}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    worst = {"attn_block_bwd": 0.0, "attn_block_bwd_long": 0.0}
+    for i, (label, batch, n_pad, n_valid, d, heads) in enumerate(K23_CASES):
+        x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64,
+                                    seed=220 + i)
+        name = f"K23 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid}"
+        print(f"parity {name}, {heads} heads")
+        before = ab.attn_block_bwd.launches_long
+        got = _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid)
+        err = _grads_parity(name, ATTN_GRADS, got, _k23(
+            ab.attn_block_bwd_plain, x, g, pa, heads, n_valid), g,
+            referee=lambda: _k23_plain_f64(x, g, pa, heads, n_valid))
+        key = "attn_block_bwd_long" if n_valid > 256 else "attn_block_bwd"
+        worst[key] = max(worst[key], err)
+        counted = ab.attn_block_bwd.launches_long - before
+        if counted != int(n_valid > 256):
+            raise AssertionError(f"{name}: {counted} launches counted past "
+                                 f"256 keys, want {int(n_valid > 256)}")
+        again = _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid)
+        torch.cuda.synchronize()
+        moved = [n for n, a, b in zip(ATTN_GRADS, got, again)
+                 if not torch.equal(a, b)]
+        print(f"  {name} twice on the same inputs: outputs that differ "
+              f"{moved} (must be none)")
+        if moved:
+            raise AssertionError(f"{name}: {moved} differ from run to run")
+
+    batch, n_pad, n_valid, d, heads = 2, 584, 577, 768, 12
+    runs = []
+    for loud in (False, True):
+        x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64, seed=230,
+                                    loud=loud)
+        g[:, n_valid:] = 0.0
+        runs.append((x, g, _k23(ab.attn_block_bwd, x, g, pa, heads,
+                                n_valid)))
+    (_, _, quiet), (xl, gl, loud) = runs
+    name = f"K23 ViT-B/16 @384 loud padding ({batch}, {n_pad}, {d})"
+    print(f"parity {name}: spikes of 3e3 in rows {n_valid}..{n_pad - 1}, "
+          f"zero cotangent there")
+    worst["attn_block_bwd_long"] = max(
+        worst["attn_block_bwd_long"],
+        _grads_parity(name, ATTN_GRADS, loud, _k23(
+            ab.attn_block_bwd_plain, xl, gl, pa, heads, n_valid), gl,
+            referee=lambda: _k23_plain_f64(xl, gl, pa, heads, n_valid)))
+    for n, a, b in zip(ATTN_GRADS[1:], loud[1:], quiet[1:]):
+        _relnorm(f"{name} loud vs quiet {n}", a, b, LOUD_RTOL)
+    _relnorm(f"{name} loud vs quiet dx (valid rows)", loud[0][:, :n_valid],
+             quiet[0][:, :n_valid], LOUD_RTOL)
+
+    x, g, pa, _ = _train_inputs(1, 1032, 1032, 128, 64, seed=239)
+    _expect_raise("K23 at 1032 tokens", lambda: _k23(
+        ab.attn_block_bwd, x, g, pa, 2, 1032))
+    return worst
+
+
+def phase_k23_timing(batch=4, n_pad=584, n_valid=577, d=768, heads=12):
+    """K23 past 256 keys at the 384 px training step's shape: the kernel,
+    its plain version, the library yardstick (the autograd backward of LN +
+    addmm + masked scaled_dot_product_attention + addmm, bf16) and the
+    bound.  Returns a dict of times."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64, seed=240)
+    rows, dh = batch * n_pad, d // heads
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+    leaves = [x.detach().requires_grad_(True)] + [
+        pa[k].to(torch.bfloat16).detach().requires_grad_(True)
+        for k in ("ln_scale", "ln_bias", "wqkv", "bqkv", "wo", "bo")]
+
+    def lib_attn(xx, ls, lb, wqkv, bqkv, wo, bo):
+        h = F.layer_norm(xx, (d,), ls, lb, EPS).reshape(rows, d)
+        qkv = torch.addmm(bqkv, h, wqkv).view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        ao = ao.transpose(1, 2).reshape(rows, d)
+        return (torch.addmm(bo, ao, wo) + xx.reshape(rows, d)).view_as(xx)
+
+    with torch.enable_grad():
+        out = lib_attn(*leaves)
+    ms = time_cuda(lambda: _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid))
+    plain_ms = time_cuda(lambda: _k23(ab.attn_block_bwd_plain, x, g, pa,
+                                      heads, n_valid), iters=5, warmup=1)
+    lib_ms = time_cuda(lambda: torch.autograd.grad(out, leaves, g,
+                                                   retain_graph=True))
+    score = 4 * batch * heads * n_pad * n_valid * dh
+    flops = 22 * rows * d * d + 3 * score
+    nbytes = 3 * rows * d * 2 + 4 * d * d * (2 + 4) + 11 * d * 4
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"timing K23 ({batch}, {n_pad}, {d}) n_valid={n_valid}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5186,6 +5491,7 @@ def main() -> int:
 
     wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
+    errors.update(phase_k23_kernels())
     errors.update(phase_train_edges())
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
@@ -5214,6 +5520,9 @@ def main() -> int:
     launches.update(op_launches)
     phase_safe_forward()
     phase_train_step_vs_cpu()
+    launches["attn_block_bwd_long"], _ = phase_train_step_384()
+    timing["attn_block_bwd_long"] = dict(
+        phase_k23_timing(), max_abs_err=errors["attn_block_bwd_long"])
     launches.update({k: v for k, v in phase_train_fit().items()
                      if k in TRAIN_KERNELS})
     phase_train_step_time()
@@ -5294,6 +5603,8 @@ def main() -> int:
             "vit_fpga_tpu/ops/quant_block.py:850"),
         "attn_block_fwd_long": ("vit_fpga_tpu_torch/csrc/mha_wgmma.cuh",
                                 "vit_fpga_tpu/ops/attn_block.py:371"),
+        "attn_block_bwd_long": ("vit_fpga_tpu_torch/csrc/attn_bwd.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:734"),
         "patch_embed_pallas": ("vit_fpga_tpu_torch/csrc/patch_embed.cu",
                                "vit_fpga_tpu/ops/patch_embed.py:147"),
         "streamed_gemm": ("vit_fpga_tpu_torch/csrc/streamed_gemm.cu",

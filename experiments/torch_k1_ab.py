@@ -1,11 +1,12 @@
-"""K1's, K2's, K5's, K3's, K26's, K4's or K24's time at a shape, from the
-package tree found under ROOT, so that two versions of the port are compared
-in one call on one card.
+"""K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's or K6's time at a
+shape, from the package tree found under ROOT, so that two versions of the
+port are compared in one call on one card.
 
 Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
-        [--kernel k1|k2|k5|k3|k26|k4|k24] [--shape B N_PAD N_VALID D HEADS]
+        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6]
+        [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
@@ -40,7 +41,17 @@ controls, then the ViT-L/16 @224 b64 ``safe_softmax`` forward; ``--kernel
 k24`` times ``fused_mlp_bwd`` at ViT-B/16 b64's (12 800, 768) x 3072 for
 each activation, beside the autograd backward of LN + addmm + tanh-GELU +
 addmm (which saves the forward's activations), step by step, with K1, K2
-and K5 as controls, then the b64 SGD step.
+and K5 as controls, then the b64 SGD step; ``--kernel k23`` times
+``attn_block_bwd`` at ViT-B/16 b64's (64, 200, 768) with 197 valid keys
+and at ViT-B/16 @384 b8's (8, 584, 768) with 577 (a tree whose K23 refuses
+a shape skips it), each beside the autograd backward of LN + addmm + SDPA
+with the key mask + addmm, the b64 launches step by step, with K1, K2, K5
+and K24 as controls, then the b64 SGD step and the ViT-B/16 @384 b4 SGD
+step (where the tree trains it); ``--kernel k6`` times
+``fused_mlp_chunked_fwd`` (gelu_tanh) at ViT-L/16 b8's (1600, 1024) x 4096
+in 2 chunks and ViT-H/14 b8's (2112, 1280) x 5120 in 4, each beside its
+library call (LN + each chunk's addmm + tanh-GELU + addmm) and device
+alone, step by step, with K1, K2, K5 and K3 as controls.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -136,6 +147,32 @@ def time_sgd_step(g):
     return out
 
 
+def time_sgd_step_384(g, batch=4):
+    """The bf16 SGD(1e-4) step of ViT-B/16 @384 at ``batch`` (577 tokens:
+    K4 and K23 past 256 keys), five estimates of 3 steps; nothing where
+    the tree's K23 refuses the length."""
+    import torch
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.train import trainer as tr
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", image_size=384, dtype="bfloat16")
+    params, opt = tr.init_train_state(
+        cfg, tr.sgd(1e-4), params=vit.init_params(cfg, g, device="cuda"))
+    images = vit.preprocess(torch.randint(0, 256, (batch, 384, 384, 3),
+                                          generator=g, dtype=torch.uint8),
+                            cfg).float().cuda()
+    labels = torch.zeros((batch,), dtype=torch.int64, device="cuda")
+    step = tr.make_vit_train_step(cfg)
+    try:
+        step(params, opt, images, labels)
+    except ValueError as e:
+        print(f"ViT-B/16 @384 b{batch} SGD step: not trained here ({e})")
+        return {}
+    return {f"ViT-B/16 @384 b{batch} SGD step": [
+        time_cuda(lambda: step(params, opt, images, labels), iters=3,
+                  warmup=1) for _ in range(5)]}
+
+
 def device_alone_ms(fn, iters=200):
     """Device ms per call of ``fn``: torch.profiler's CUDA kernel time over
     ``iters`` back-to-back calls, each kernel's mean times its launches a
@@ -211,7 +248,8 @@ def main() -> int:
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--kernel",
-                    choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24"),
+                    choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
+                             "k23", "k6"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -308,9 +346,99 @@ def main() -> int:
                 (lambda: torch.autograd.grad(out, leaves, gy,
                                              retain_graph=True)))
 
+    def k23_run(b, n_pad, n_valid, d, heads):
+        x = randn(b, n_pad, d).to(torch.bfloat16)
+        gy = randn(b, n_pad, d).to(torch.bfloat16)
+        p = (randn(d, std=0.1, mean=1.0), randn(d, std=0.1),
+             randn(d, 3 * d, std=0.06).to(torch.bfloat16),
+             randn(3 * d, std=0.02),
+             randn(d, d, std=0.02).to(torch.bfloat16), randn(d, std=0.02))
+        rows, keep = b * n_pad, (torch.arange(n_pad, device="cuda")
+                                 < n_valid)[None, None, None]
+        leaves = [x.detach().requires_grad_(True)] + [
+            q.to(torch.bfloat16).detach().requires_grad_(True) for q in p]
+        with torch.enable_grad():
+            # LN + addmm + SDPA with the key mask + addmm + residual, bf16
+            xl, ls, lb, wqkv, bqkv, wo, bo = leaves
+            h = F.layer_norm(xl, (d,), ls, lb, 1e-6).reshape(rows, d)
+            qkv = torch.addmm(bqkv, h, wqkv).view(b, n_pad, 3, heads, 64)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+            ao = ao.transpose(1, 2).reshape(rows, d)
+            out = torch.addmm(bo, ao, wo).view_as(xl) + xl
+        return ((lambda: ab.attn_block_bwd(x, *p[:5], gy, heads, eps=1e-6,
+                                           n_valid=n_valid)),
+                (lambda: torch.autograd.grad(out, leaves, gy,
+                                             retain_graph=True)))
+
     if args.kernel == "k1":
         shape = args.shape
         runs = {f"K1 {tuple(shape)}": k1_run(*shape)}
+    elif args.kernel == "k23":
+        shape = [[64, 200, 197, 768, 12], [8, 584, 577, 768, 12]]
+        runs = {}
+        for b, n_pad, n_valid, d, heads in shape:
+            kern, lib = k23_run(b, n_pad, n_valid, d, heads)
+            label = f"K23 ({b}, {n_pad}, {d}) n_valid {n_valid}"
+            try:
+                kern()
+            except ValueError as e:
+                print(f"{label}: not taken by this tree ({e})")
+            else:
+                runs[label] = kern
+                if b == 64:
+                    steps[label] = kern
+            runs[f"library autograd ({b}, {n_pad}, {d}) n_valid "
+                 f"{n_valid}"] = lib
+        runs[f"K1 control {tuple(args.shape)}"] = k1_run(*args.shape)
+        runs[f"K2 control {tuple(args.mlp_shape)}"] = k2_run(*args.mlp_shape)
+        x, p = mlp_inputs(*args.mlp_shape)
+        runs[f"K5 control {tuple(args.mlp_shape)}"] = (
+            lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
+                                              act="gelu_tanh"))
+        runs[f"K24 control {tuple(args.mlp_shape)}"] = k24_run(
+            *args.mlp_shape, "gelu_tanh")[0]
+    elif args.kernel == "k6":
+        shape = [[1600, 1024, 4096, 2], [2112, 1280, 5120, 4]]
+        runs = {}
+        for t, d, m, nc in shape:
+            x, p = mlp_inputs(t, d, m)
+            label = f"K6 ({t}, {d}) x {m} in {nc} chunks"
+            runs[label] = (lambda x=x, p=p, nc=nc: fm.fused_mlp_chunked_fwd(
+                x, *p, eps=1e-6, act="gelu_tanh", n_chunks=nc))
+            ls, lb, w1, b1, w2, b2 = p
+            lib_p = (ls.to(torch.bfloat16), lb.to(torch.bfloat16), w1,
+                     b1.to(torch.bfloat16), w2, b2.to(torch.bfloat16))
+
+            def lib(x=x, d=d, nc=nc, mc=m // nc, p=lib_p):
+                ls, lb, w1, b1, w2, b2 = p
+                xn = F.layer_norm(x, (d,), ls, lb, 1e-6)
+                acc = x
+                for c in range(nc):
+                    cols = slice(c * mc, (c + 1) * mc)
+                    h = F.gelu(torch.addmm(b1[cols], xn, w1[:, cols]),
+                               approximate="tanh")
+                    y = h @ w2[cols]
+                    acc = acc + (y + b2 if c == nc - 1 else y)
+                return acc
+
+            runs[f"library ({t}, {d}) x {m} in {nc} chunks"] = lib
+            device[f"{label} device alone"] = runs[label]
+            device[f"library ({t}, {d}) x {m} in {nc} chunks device "
+                   f"alone"] = lib
+            steps[label] = runs[label]
+        runs[f"K1 control {tuple(args.shape)}"] = k1_run(*args.shape)
+        runs[f"K2 control {tuple(args.mlp_shape)}"] = k2_run(*args.mlp_shape)
+        x, p = mlp_inputs(*args.mlp_shape)
+        runs[f"K5 control {tuple(args.mlp_shape)}"] = (
+            lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
+                                              act="gelu_tanh"))
+        x, p = mlp_inputs(16896, 1024, 4096)
+        st = row_stats(x, 1e-6)
+        runs["K3 control (16896, 1024) x 4096"] = (
+            lambda x=x, st=st, p=p: fm.fused_mlp_chunked_stats(
+                x, st, *p, eps=1e-6, act="gelu_tanh", n_chunks=2,
+                emit_stats=True))
     elif args.kernel == "k3":
         shape = [[16896, 1024, 4096], [12800, 1024, 4096],
                  [528, 1024, 4096], [9344, 1024, 4096]]
@@ -452,8 +580,10 @@ def main() -> int:
         ms.update(time_clip_forward(g))
     if args.kernel == "k4":
         ms.update(time_safe_forward(g))
-    if args.kernel == "k24":
+    if args.kernel in ("k24", "k23"):
         ms.update(time_sgd_step(g))
+    if args.kernel == "k23":
+        ms.update(time_sgd_step_384(g))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          stdout=subprocess.PIPE, text=True).stdout.strip()

@@ -104,10 +104,22 @@ run_copy k7_k8_ring_no_v_load mha_wgmma.cuh \
   "mbar_expect_tx(full(s), MW_TILE_BYTES);" \
   "if (pv) tma_load_4d(ks + MW_TILE_BYTES, &tv, full(s), 0, key0, h, b);" \
   ""
-# K6 with its chunk loop collapsed to one chunk: no bf16 rounding of the
-# running output between chunks, i.e. K5's function
+# K6 with its chunk loop collapsed to one chunk (the chunked GEMM's chunk
+# as long as its K): no bf16 rounding of the running output between
+# chunks, i.e. K5's function
 run_copy k6_one_chunk mlp_chunk.cu \
-  "  down.n_chunks = n_chunks;" "  down.n_chunks = 1;"
+  "  down.chunk_k = m / n_chunks;" "  down.chunk_k = m;"
+# K23's key-tile kernel without the key mask: the keys past n_valid,
+# zero-filled by TMA (s = 0), get p = exp(-max) / l and so dk and dv rows
+run_copy k23_last_key_tile_unmasked attn_bwd.cu \
+  "const bool kv = valid[y & 1];" "const bool kv = true;"
+# K23's rs = sum dP p over bf16(p) instead of the f32 p
+run_copy k23_rs_from_bf16_p attn_bwd.cu \
+  "rs[rr] += p * dp[x];" "rs[rr] += bf16_round(p) * dp[x];"
+# K23's key-tile kernel dropping the last query tile from dk
+run_copy k23_dk_no_last_query_tile attn_bwd.cu \
+  "rs_issue(dkacc, pd, qh);  // dk += dS^T q" \
+  "if (j + 1 < nqt) rs_issue(dkacc, pd, qh);  // dk += dS^T q"
 # K21a normalising x with its own one-pass LN statistics instead of the
 # producer's (the parity cases feed stats that are not x's own)
 run_copy k21a_own_stats mlp_int8_stats.cu \

@@ -23,9 +23,11 @@ from vit_fpga_tpu.ops.attn_block import (attn_block_bwd_pallas,
                                          attn_block_xla as jax_attn_xla)
 from vit_fpga_tpu_torch.ops import attn_block as tab
 
-# (B, N, D, heads, n_valid): the small case, and one at head dim 64
+# (B, N, D, heads, n_valid): the small case, one at head dim 64, and one
+# past 256 keys (the card's backward takes up to 1024 tokens)
 SMALL = (2, 40, 64, 4, 33)
 DH64 = (2, 24, 128, 2, 19)
+LONG = (1, 264, 128, 2, 257)
 GRADS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo")
 BF16_TOL = 2.0 ** -6
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -161,7 +163,8 @@ def _check_grads(got, want, name):
             assert _rel(a, b) <= GRAD_RTOL[name], (n, _rel(a, b))
 
 
-@pytest.mark.parametrize("geom", [SMALL, DH64], ids=["small", "dh64"])
+@pytest.mark.parametrize("geom", [SMALL, DH64, LONG],
+                         ids=["small", "dh64", "long"])
 @pytest.mark.parametrize("dts", DTYPES, ids=["f32", "bf16"])
 def test_attn_block_bwd_plain_matches_pallas(geom, dts):
     """All seven outputs against the TPU backward kernel (per-head
@@ -181,7 +184,8 @@ def test_attn_block_bwd_plain_matches_pallas(geom, dts):
     _check_grads(got, want, name)
 
 
-@pytest.mark.parametrize("geom", [SMALL, DH64], ids=["small", "dh64"])
+@pytest.mark.parametrize("geom", [SMALL, DH64, LONG],
+                         ids=["small", "dh64", "long"])
 def test_attn_block_bwd_plain_matches_jax_vjp(geom):
     """f32: the same gradients as autodiff of the exact-softmax
     reference (the CPU path of the JAX custom_vjp)."""
@@ -262,21 +266,22 @@ def test_cuda_shape_checks_refuse_what_the_kernels_do_not_take(
         shape, heads, n_valid, dtype):
     """The checks a CUDA tensor meets before K4 / K23 launch (device
     independent, so meta tensors reach them): they raise, no fallback.
-    K23's gate stops at 256 tokens; K4's takes the key-tiled lengths up to
-    1024 (its n_valid-past-256 case passes there) and stops past them."""
+    K4's and K23's gates take the key-tiled lengths up to 1024 (the
+    n_valid-past-256 case passes there) and stop past them."""
     x = torch.empty(shape, dtype=dtype, device="meta")
-    with pytest.raises(ValueError):
-        tab._cuda_geometry(x, heads, n_valid, kernel="K23")
     if n_valid > 256:
-        assert tab._cuda_geometry(x, heads, n_valid, kernel="K4") == (
-            *shape, n_valid)
-        with pytest.raises(ValueError, match="K4 takes at most 1024"):
-            tab._cuda_geometry(
-                torch.empty((1, 1032, 128), dtype=dtype, device="meta"),
-                heads, 1032, kernel="K4")
+        for kernel in ("K4", "K23"):
+            assert tab._cuda_geometry(x, heads, n_valid, kernel=kernel) == (
+                *shape, n_valid)
+            with pytest.raises(ValueError,
+                               match=f"{kernel} takes at most 1024"):
+                tab._cuda_geometry(
+                    torch.empty((1, 1032, 128), dtype=dtype, device="meta"),
+                    heads, 1032, kernel=kernel)
     else:
-        with pytest.raises(ValueError):
-            tab._cuda_geometry(x, heads, n_valid, kernel="K4")
+        for kernel in ("K4", "K23"):
+            with pytest.raises(ValueError):
+                tab._cuda_geometry(x, heads, n_valid, kernel=kernel)
     for kernel in ("K4", "K23"):
         b, n, d, nv = tab._cuda_geometry(
             torch.empty((2, 40, 128), dtype=torch.bfloat16, device="meta"),

@@ -35,13 +35,14 @@ def test_k3_and_k26_launch_the_wgmma_gemm(name):
 
 def test_k3_no_longer_launches_the_wmma_chunk_kernel():
     """K3's down-projection is the GEMM's chunked variant (chunk_k), not
-    chunk.cuh's wmma chunk_down_kernel, which K6 alone keeps."""
+    a wmma chunk kernel; K6 runs the same two launches."""
     k3 = (_kernels.CSRC / "mlp_chunk_stats.cu").read_text()
     assert '#include "chunk.cuh"' not in k3
     assert "launch_chunk_down(" not in k3 and "launch_gemm_t<" not in k3
     assert "down.chunk_k = m / n_chunks;" in k3
     k6 = (_kernels.CSRC / "mlp_chunk.cu").read_text()
-    assert "launch_chunk_down(" in k6
+    assert "launch_chunk_down(" not in k6
+    assert "down.chunk_k = m / n_chunks;" in k6
 
 
 @pytest.mark.parametrize("name", ["attn_block.cu", "mlp_bwd.cu"])
@@ -51,6 +52,54 @@ def test_k4_and_k24_include_the_wgmma_gemm(name):
     text = (_kernels.CSRC / name).read_text()
     assert '#include "gemm_wgmma.cuh"' in text
     assert "wmma" not in text.split("#define VFT_NS")[1]
+
+
+@pytest.mark.parametrize("name", ["attn_bwd.cu", "mlp_chunk.cu"])
+def test_k23_and_k6_include_the_wgmma_gemm(name):
+    """K23 and K6 run gemm_wgmma.cuh's wgmma + TMA GEMM and no wmma."""
+    text = (_kernels.CSRC / name).read_text()
+    assert '#include "gemm_wgmma.cuh"' in text
+    assert "wmma" not in text.split("#define VFT_NS")[1]
+
+
+def test_the_wmma_bf16_gemm_and_the_chunk_header_are_gone():
+    """Nothing of the port keeps the wmma bf16 GEMM (gemm_bf16_kernel) or
+    chunk.cuh: K23 and K6, its last users, run gemm_wgmma.cuh."""
+    assert not (_kernels.CSRC / "chunk.cuh").exists()
+    assert "chunk.cuh" not in _kernels.HEADERS
+    for p in _kernels.CSRC.iterdir():
+        text = p.read_text()
+        for gone in (r"gemm_bf16_kernel", r"launch_gemm_t\b", r"chunk\.cuh",
+                     r"\bGemmArgs\b", r"\bgemm_enable\b"):
+            assert not re.search(gone, text), (p.name, gone)
+
+
+def test_k23_runs_its_products_and_attention_on_wgmma():
+    """K23's five products are gemm_wgmma.cuh launches (qkv in the
+    forward's layout, gw and dxn with B K-major, dWo and dWqkv with A
+    MN-major and split-K partials summed in order) and its attention
+    backward is two wgmma + TMA kernels over mha_wgmma.cuh's tiles."""
+    k23 = (_kernels.CSRC / "attn_bwd.cu").read_text()
+    assert '#include "mha_wgmma.cuh"' in k23
+    assert k23.count("launch_gemm_wgmma(") == 1
+    assert k23.count("launch_gemm_wgmma<GW_AK_BK, GW_EPI_BF16>(") == 1
+    assert k23.count("launch_gemm_wgmma<GW_AK_BK, GW_EPI_F32>(") == 1
+    assert k23.count("launch_gemm_wgmma<GW_AM_BN, GW_EPI_F32>(") == 2
+    assert k23.count("launch_split_sum(") == 2
+    for kernel in ("bwd_q_kernel<<<", "bwd_kv_kernel<<<"):
+        assert k23.count(kernel) == 1
+    assert not re.search(r"\battn_bwd_kernel\b|\bAttnBwdSmem\b", k23)
+    assert "AB_MAX_TOKENS = 1024" in k23
+
+
+@pytest.mark.parametrize("name", ["attn_bwd.cu", "mlp_chunk.cu",
+                                  "mha_wgmma.cuh", "hopper.cuh"])
+def test_k23_and_k6_sums_use_no_atomics(name):
+    """K23's attention backward adds dq, dk and dv in registers and its
+    weight gradients through split_sum, in a fixed order: no atomic in
+    its units or in the headers they bring."""
+    text = (_kernels.CSRC / name).read_text()
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", text)
 
 
 def test_k4_no_longer_launches_the_wmma_gemm_or_the_key_tiled_tile():

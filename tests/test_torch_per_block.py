@@ -164,9 +164,8 @@ def test_odd_batch_size_takes_the_fused_half_past_256_keys(
     the forward at batch 1: there the JAX plan reuses q slots, and CLIP
     ViT-L/14 and ViT-B/16 @384 leave the stats chain for the fused
     attention half (K4) past 256 keys.  The route, and the card's gates:
-    K4 (its key-tiled tile) takes these lengths, up to 1024 tokens; its
-    backward K23 still stops at 256 and says so.  At batch_size 2 the
-    chain stays."""
+    K4 and its backward K23 (both tiled over the keys) take these
+    lengths, up to 1024 tokens.  At batch_size 2 the chain stays."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     cfg = tvit.config(variant, image_size=size, dtype="bfloat16")
     jcfg = jvit.config(variant, image_size=size, dtype="bfloat16")
@@ -188,10 +187,10 @@ def test_odd_batch_size_takes_the_fused_half_past_256_keys(
     assert np.isfinite(out).all()
     assert [s[0] for s in fused] == [1] and not chain
     x = torch.zeros(1, tvit._n_pad(cfg), cfg.hidden_dim, dtype=torch.bfloat16)
-    assert tab._cuda_geometry(x, cfg.num_heads, n_valid, kernel="K4") == (
-        1, tvit._n_pad(cfg), cfg.hidden_dim, n_valid)
-    with pytest.raises(ValueError, match="backward K23 takes at most 256"):
-        tab._cuda_geometry(x, cfg.num_heads, n_valid, kernel="K23")
+    for kernel in ("K4", "K23"):
+        assert tab._cuda_geometry(x, cfg.num_heads, n_valid,
+                                  kernel=kernel) == (
+            1, tvit._n_pad(cfg), cfg.hidden_dim, n_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,8 @@
 //   (d) gw_kernel           out = x + bf16(ao @ Wo + bo)
 //
 // (b)-(d) are attn_half.cuh's sequence, K1's: without safe_softmax K4 is
-// row_stats followed by K1 without the next stats.  They replace the
-// wmma gemm_bf16 of common.cuh (both GEMMs) and attn.cuh's mma.sync
-// attention tiles (attn_kernel up to 256 keys, the key-tiled
-// attn_long_kernel past them), so one kernel now serves every length.
+// row_stats followed by K1 without the next stats, one attention kernel
+// at every length.
 //
 // What bounds it on the H100: at ViT-B/16 batch 64 the launch does 8 R D^2
 // + 4 B H n_pad n_valid dh = 68 GFLOP against 44 MB of compulsory traffic,

@@ -10,377 +10,472 @@
 // from run to run:
 //
 //   (a) ln_rows            two-pass (mu, rstd) of x and xn = bf16(LN(x))
-//   (b) gemm_bf16          qkv = bf16(xn @ Wqkv + bqkv)
-//   (c) gemm_bf16<TB>      gw = bf16(g @ Wo^T)
-//   (d) attn_bwd_kernel    per (image, head), see below: ao, dq, dk, dv
-//   (e) gemm_bf16<TA>      dWo = ao^T g, (f) dWqkv = xn^T dqkv  (f32, over
-//                          all B * n_pad rows in one product)
-//   (g) colsum             dbo = sum of g, dbqkv = sum of dqkv
-//   (h) gemm_bf16<TB>      dxn = dqkv @ Wqkv^T                  (f32)
-//   (i) ln_bwd + colsum    dx = bf16(g + LN backward of dxn), dls, dlb
+//   (b) GEMM               qkv = bf16(xn @ Wqkv + bqkv)
+//   (c) GEMM, B K-major    gw = bf16(g @ Wo^T)
+//   (d) bwd_q_kernel       per (128 query rows, image x head): ao, dq and
+//                          each row's softmax values, see below
+//   (e) bwd_kv_kernel      per (128 keys, image x head): dk, dv
+//   (f) GEMM, A MN-major   dWo = ao^T g, (g) dWqkv = xn^T dqkv (f32, over
+//                          all B * n_pad rows, split-K partials added in
+//                          split order by split_sum)
+//   (h) colsum             dbo = sum of g, dbqkv = sum of dqkv
+//   (i) GEMM, B K-major    dxn = dqkv @ Wqkv^T                  (f32)
+//   (j) ln_bwd + colsum    dx = bf16(g + LN backward of dxn), dls, dlb
 //
-// attn_bwd_kernel, one block of 4 warps per (head, image).  A head's P is
-// up to 256 x 256 f32, too large for shared memory beside K and V, so the
-// block makes two passes over it:
-//   pass 1, a 16-row query tile per warp: s = (q k^T) * scale (f32), keys
-//     at or past n_valid masked, p = exp(s - max) / sum (f32);
-//     ao = bf16(bf16(p) @ v); dP = gw v^T; dS = bf16(p (dP - rowsum(dP p))
-//     * scale); dq = bf16(dS @ k); each row's max, sum and rowsum are kept;
-//   pass 2, a 16-key tile per warp: the same s, dP, p and dS are recomputed
-//     tile by tile with the same fragment sums and the kept row values, and
-//     dv = bf16(sum over query tiles of bf16(p)^T gw), dk = bf16(sum of
-//     dS^T q) accumulate in registers, so no warp adds into another's sums.
+// The five products are gemm_wgmma.cuh's persistent wgmma + TMA GEMM in the
+// layouts K24 (mlp_bwd.cu) runs: the forward's for (b), the weight read
+// K-major for (c) and (i), the activation read MN-major through the
+// transpose bit for (f) and (g).
+//
+// (d) and (e) are the attention's backward on mha_wgmma.cuh's machinery,
+// FlashAttention-2's backward kept deterministic and at the rounding points
+// of the TPU kernel: q, k, v and gw are read through 4-D tensor maps over
+// the packed (B * n_pad, 3D) qkv and the (B * n_pad, D) gw (K's and V's
+// row extent n_valid, so TMA zero-fills the keys past it), 128 rows a
+// tile, into a ring of mbarrier stages filled by one producer thread; two
+// consumer warpgroups of 64 rows (setmaxnreg 240 / 24) hold the
+// score-space tiles in registers, 64 x 64 at a time (wgmma.m64n64k16 on
+// half a stage tile, f32), and feed p or dS back as the register-A
+// operand of wgmma.m64n64k16.  With s = q k^T * scale and keys at or past
+// n_valid masked (the zero-filled keys give s = 0, not -inf: sweep 1 and
+// (e) mask them explicitly; in sweeps 2 and 3 their zero k and v rows
+// already make them add nothing):
+//   (d) three sweeps over the key tiles of one block of 128 query rows:
+//       1. the row max m and l = sum exp(s - m) (mha_wgmma.cuh's exact
+//          pass 1, on 64 x 128 score tiles);
+//       2. p = exp(s - m) / l in f32, dP = gw v^T (one wgmma group with s),
+//          rs += sum dP p over the f32 p, ao += bf16(p) v;
+//       3. s and dP again, dS = bf16(p (dP - rs) scale), dq += dS k;
+//       then ao = bf16(ao), dq = bf16(dq) and each row's (m, 1/l, rs) into
+//       a small f32 scratch.  The next 64 keys' s and dP are issued before
+//       these keys' register-A product, so the two overlap.
+//   (e) one sweep over the query tiles for one block of 128 keys: s^T =
+//       k q^T and dP^T = v gw^T (A = the block's K and V tiles, B = the
+//       query tile's q and gw), p^T and dS^T from the query rows' (m, 1/l,
+//       rs), which the stage brings beside q and gw (a bulk copy), then dv
+//       += bf16(p)^T gw and dk += dS^T q, accumulated in registers over
+//       every query row; dk = bf16(dk), dv = bf16(dv), zero past n_valid.
+// Query rows past n_valid are computed, as on the TPU.  Rows past n_pad in
+// the last query tile land zero-filled (q = gw = 0) and add nothing.  No
+// token limit below 1024 (the attention half's gate).
 //
 // What bounds it on the H100: seven projection-sized products (22 R D^2
 // flops, R = B * n_pad) plus six score-space products (6 x 2 B H n_pad
-// n_valid dh), 189 GFLOP at ViT-B/16 batch 64 (0.191 ms at 989 TFLOP/s), so
-// it is bound by tensor-core operations; compulsory traffic is under
-// 100 MB.  qkv, gw, ao, dqkv and the f32 dxn round-trip through device
-// memory, the score-space products run on wmma fragments from shared
-// memory at 1 block per SM, and pass 2 recomputes s and dP; fusing and
-// wgmma are later work.
+// n_valid dh), 189 GFLOP at ViT-B/16 batch 64 (0.191 ms at 989 TFLOP/s,
+// 700 W), so it is bound by tensor-core operations; compulsory traffic is
+// under 100 MB.  qkv, gw, ao, dqkv and the f32 dxn round-trip through
+// device memory; the attention backward does eleven 128 x 128 x 64
+// products a (query tile, key tile) pair on its padded tiles (71 GFLOP at
+// ViT-B b64: 128-row tiles over 200 tokens).
 
 #define VFT_NS attn_bwd
 #include "common.cuh"
+#include "hopper.cuh"
+#include "gemm_wgmma.cuh"
+#include "mha_wgmma.cuh"
 #include "norm.cuh"
 
 namespace VFT_NS {
 
-constexpr int AB_WARPS = 4;
-constexpr int AB_THREADS = AB_WARPS * 32;
-constexpr int AB_MAX = 256;  // keys (kvp) and query rows (nq): 8 per lane in the softmax
-constexpr int AB_DH = 64;
-constexpr int AB_LDQ = AB_DH + 8;  // bf16 row of a head panel
-constexpr int AB_LDO = AB_DH + 4;  // f32 row of a 16 x 64 output staging tile
-constexpr int AB_LDT = 16 + 4;     // f32 row of a 16 x 16 pass-2 tile
-constexpr int AB_LDB = 16 + 8;     // bf16 row of a 16 x 16 pass-2 tile
+constexpr int AB_MAX_TOKENS = 1024;  // n_pad the gate takes (the attention half's)
+constexpr int AB_LONG_KEYS = 256;    // more valid keys: counted apart (*long_path)
+// The register tiles are 64 x 64, half a 128-row stage tile (8 KB down it):
+// s, dP, the register-A operand and an accumulator then fit in the 168
+// registers ptxas gives a thread of a 384-thread block.
+constexpr uint32_t AB_HALF_DESC = 64 * MW_ROW_BYTES >> 4;  // 64 rows, in descriptor units
+// A query tile's row values: m2 (row max of s * scale * log2 e), 1 / l and
+// rs, 128 floats each.
+constexpr uint32_t AB_VALS_BYTES = 3 * MW_BQ * 4;
+// (e)'s stage: the query tile's q and gw, then its row values, padded to
+// the swizzle's 1 KB period.
+constexpr uint32_t AB_KV_STAGE = 2 * MW_TILE_BYTES + 2048;  // 34 KB
+static_assert(AB_VALS_BYTES <= 2048, "the row values fit their slot");
+// 1 KB of slack for the swizzle's alignment, then (d): q, gw, the K / V
+// ring and the barriers; (e): k, v, the q / gw / row-value ring and the
+// barriers.
+constexpr size_t AB_Q_SMEM =
+    1024 + 2 * MW_TILE_BYTES + 2 * MW_STAGES * MW_TILE_BYTES + 8 * (2 * MW_STAGES + 1);
+constexpr size_t AB_KV_SMEM =
+    1024 + 2 * MW_TILE_BYTES + MW_STAGES * AB_KV_STAGE + 8 * (2 * MW_STAGES + 1);
 
-// Shared memory: K and V panels (kvp rows) and the per-row softmax values
-// (max, sum, rowsum(dP p), nq each), then per warp for pass 1 its q and gw
-// tiles (their space is the output staging tile once the products are
-// done) and two 16 x kvp f32 tiles, S (scores, then p; bf16(p) over it row
-// by row) and D (dP; dS over it).  Pass 2 reuses the pass-1 region for the
-// Q and gw panels (nq rows) and a per-warp set of 16 x 16 tiles.
-struct AttnBwdSmem {
-  int lds;
-  size_t k_off, v_off, stat_off, w_off, w_bytes, s_rel, d_rel, qp_off, gp_off, w2_off, w2_bytes,
-      bytes;
+struct BwdArgs {
+  bf16* ao;          // (B * n_pad, D)
+  bf16* dqkv;        // (B * n_pad, 3D)
+  float* vals;       // (B * H, nq_pad / 128, 3, 128) query rows' m2, 1 / l, rs
+  int heads, n_pad, n_valid, nq_pad, d;
+  float scale_log2;  // softmax scale * log2(e)
+  float scale;
 };
 
-__host__ __device__ inline AttnBwdSmem attn_bwd_smem(int kvp, int nq) {
-  AttnBwdSmem m;
-  m.lds = kvp + 4;
-  m.k_off = 0;
-  m.v_off = round128((size_t)kvp * AB_LDQ * 2);
-  m.stat_off = m.v_off + round128((size_t)kvp * AB_LDQ * 2);
-  m.w_off = m.stat_off + round128((size_t)3 * nq * 4);
-  m.s_rel = round128((size_t)2 * 16 * AB_LDQ * 2);
-  m.d_rel = m.s_rel + round128((size_t)16 * m.lds * 4);
-  m.w_bytes = m.d_rel + round128((size_t)16 * m.lds * 4);
-  m.qp_off = m.w_off;
-  m.gp_off = m.qp_off + round128((size_t)nq * AB_LDQ * 2);
-  m.w2_off = m.gp_off + round128((size_t)nq * AB_LDQ * 2);
-  m.w2_bytes = round128((size_t)16 * AB_LDO * 4);
-  const size_t pass1 = m.w_off + AB_WARPS * m.w_bytes;
-  const size_t pass2 = m.w2_off + AB_WARPS * m.w2_bytes;
-  m.bytes = pass1 > pass2 ? pass1 : pass2;
-  return m;
+// Issues a = A1 B1^T and b = A2 B2^T (64 x 64 each, both operands K-major
+// in shared memory) as one wgmma group: s and dP in (d), s^T and dP^T in
+// (e).
+__device__ __forceinline__ void pair_issue(float (&a)[32], float (&b)[32], uint64_t a1,
+                                           uint64_t b1, uint64_t a2, uint64_t b2) {
+  reg_fence(a);
+  reg_fence(b);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < MW_DH / 16; ++k) wgmma_m64n64k16_ss(a, a1 + 2 * k, b1 + 2 * k, k);
+#pragma unroll
+  for (int k = 0; k < MW_DH / 16; ++k) wgmma_m64n64k16_ss(b, a2 + 2 * k, b2 + 2 * k, k);
+  wgmma_commit();
 }
 
-// Writes a 16 x 64 f32 staging tile as bf16 rows r0 + r < rmax of dst
-// (row stride ld elements).
-__device__ __forceinline__ void store_tile_bf16(const float* os, bf16* dst, size_t ld, int r0,
-                                                int rmax, int lane) {
-  for (int c = lane; c < 16 * (AB_DH / 8); c += 32) {
-    const int r = c / (AB_DH / 8), cc = c % (AB_DH / 8);
-    if (r0 + r >= rmax) continue;
-    float f[8];
+// Issues acc += A B for 64 rows of B (4 k steps of 16; A the register
+// operand, B MN-major through the transpose bit, 2 KB further a step) as
+// one wgmma group.
+__device__ __forceinline__ void rs_issue(float (&acc)[32], uint32_t (&pa)[16], uint64_t bd) {
+  reg_fence(acc);
+  reg_fence(pa);
+  wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 8; ++t) f[t] = os[r * AB_LDO + cc * 8 + t];
-    *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + cc * 8) = pack8(f);
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_rs_t(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                         bd + 128 * kk);
+  wgmma_commit();
+}
+
+// (d)'s p = ex2(s2 - m2) * (1 / l) of a finished 64-key unit in place (f32);
+// DS: then s = p (dP - rs) scale (rs the rows' whole sums), else rs += p dP
+// (this thread's share).  Element x sits at row g + 8 ((x / 2) % 2).  A key
+// at or past n_valid needs no mask here: sweep 1 left it out of l, and TMA
+// zero-filled its k and v, so its dP is 0 and it adds 0 to rs, ao and dq.
+template <bool DS>
+__device__ __forceinline__ void bwd_probs(float (&s)[32], const float (&dp)[32], const MwRows& r,
+                                          float (&rs)[2], float sl2, float scale) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int rr = (x >> 1) & 1;
+    const float p = ex2(fmaf(s[x], sl2, -r.m2[rr])) * r.l[rr];
+    if (DS) {
+      s[x] = (p * (dp[x] - rs[rr])) * scale;
+    } else {
+      rs[rr] += p * dp[x];
+      s[x] = p;
+    }
   }
 }
 
-// qkv, dqkv: (B * n_pad, 3D) bf16, q | k | v column blocks, head h at
-// h*AB_DH; gw, ao: (B * n_pad, D) bf16.  kvp = n_valid rounded up to 16,
-// nq = n_pad rounded up to 16, both <= AB_MAX.
-__global__ void __launch_bounds__(AB_THREADS)
-    attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gw,
-                    bf16* __restrict__ ao, bf16* __restrict__ dqkv, int n_pad, int n_valid,
-                    int kvp, int nq, int d, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int CPR = AB_DH / 8;  // 16-byte chunks per head row
-  constexpr int NF = AB_DH / 16;  // fragments across the head dimension
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-  using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const AttnBwdSmem L = attn_bwd_smem(kvp, nq);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v_off);
-  float* row_m = reinterpret_cast<float*>(smem + L.stat_off);
-  float* row_l = row_m + nq;
-  float* row_rs = row_l + nq;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t ld3 = 3 * (size_t)d;
-  const size_t row0 = (size_t)b * n_pad;
-  const bf16* qbase = qkv + row0 * ld3 + h * AB_DH;  // q of head h, row 0
-  const bf16* gbase = gw + row0 * d + h * AB_DH;
-  bf16* aobase = ao + row0 * d + h * AB_DH;
-  bf16* dbase = dqkv + row0 * ld3 + h * AB_DH;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ void pack_probs(const float (&s)[32], uint32_t (&pa)[16]) {
+#pragma unroll
+  for (int x = 0; x < 16; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
+}
 
-  // Keys and values past n_valid are masked, so they are zero-filled here.
-  for (int c = tid; c < kvp * CPR; c += AB_THREADS) {
-    const int r = c / CPR, cc = c % CPR;
-    uint4 kv = zero, vv = zero;
-    if (r < n_valid) {
-      const bf16* row = qbase + (size_t)r * ld3 + cc * 8;
-      kv = *reinterpret_cast<const uint4*>(row + d);
-      vv = *reinterpret_cast<const uint4*>(row + 2 * d);
+// (d)'s sweep 2 (!DS: ao += bf16(p) v, rs += sum dP p) or 3 (DS: dq += dS
+// k) over the ntk key tiles from ring step step0, as 2 ntk units of 64
+// keys (unit u: tile u / 2, half u % 2).  Unit u's s and dP are issued
+// before unit u - 1's register-A product, and turned into p (and rs) or dS
+// in place while that product runs (mha_wgmma.cuh's pv_next pattern: pa
+// is written only once no group is in flight).  A tile's stage is released
+// once its second half's product is done.
+template <bool DS>
+__device__ __forceinline__ void bwd_sweep(float (&s)[32], float (&dp)[32], uint32_t (&pa)[16],
+                                          float (&acc)[32], const MwRows& r, float (&rs)[2],
+                                          int step0, int ntk, float sl2, float scale, uint64_t qd,
+                                          uint64_t gd, uint32_t ring, uint32_t bars) {
+  // K at ring + 2 s TILE, V after it; the register-A product's B is K
+  // (dq += dS k) or V (ao += p v).
+  auto k_desc = [&](int u) {
+    const int st = (step0 + (u >> 1)) % MW_STAGES;
+    return sw128_desc(ring + 2 * st * MW_TILE_BYTES) + (u & 1) * AB_HALF_DESC;
+  };
+  auto v_desc = [&](int u) { return k_desc(u) + (MW_TILE_BYTES >> 4); };
+  auto wait_tile = [&](int u) {
+    const int i = step0 + (u >> 1);
+    if ((u & 1) == 0) mbar_wait(bars + 8 * (i % MW_STAGES), (i / MW_STAGES) & 1);
+  };
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.0f;
+  const int units = 2 * ntk;
+  wait_tile(0);
+  pair_issue(s, dp, qd, k_desc(0), gd, v_desc(0));
+  wgmma_wait<0>();
+  reg_fence(s);
+  reg_fence(dp);
+  bwd_probs<DS>(s, dp, r, rs, sl2, scale);
+  pack_probs(s, pa);
+  for (int u = 1; u < units; ++u) {
+    wait_tile(u);
+    pair_issue(s, dp, qd, k_desc(u), gd, v_desc(u));
+    rs_issue(acc, pa, DS ? k_desc(u - 1) : v_desc(u - 1));
+    wgmma_wait<1>();  // s and dP (the older group) are done
+    reg_fence(s);
+    reg_fence(dp);
+    bwd_probs<DS>(s, dp, r, rs, sl2, scale);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(pa);
+    if ((u & 1) == 0)  // unit u - 1 ended its tile
+      mbar_arrive(bars + 8 * (MW_STAGES + (step0 + (u >> 1) - 1) % MW_STAGES));
+    pack_probs(s, pa);
+  }
+  rs_issue(acc, pa, DS ? k_desc(units - 1) : v_desc(units - 1));
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pa);
+  mbar_arrive(bars + 8 * (MW_STAGES + (step0 + ntk - 1) % MW_STAGES));
+}
+
+// One consumer thread's rows g and g + 8 of its warp's 16 (first row row0)
+// of a 64 x 64 accumulator as bf16, to dst + row * ld, rows before n_pad.
+__device__ __forceinline__ void store_rows(const float (&acc)[32], bf16* dst, size_t ld, int row0,
+                                           int n_pad, int g, int t4) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row0 + g + 8 * rr;
+    if (row >= n_pad) continue;
+    bf16* out = dst + (size_t)row * ld + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * rr], acc[4 * c + 2 * rr + 1]);
+  }
+}
+
+// (d): grid (nq_pad / 128, B * H).  tq, tk, tv: the packed qkv's q, k, v
+// (rows n_pad, n_valid, n_valid); tg: gw (rows n_pad).
+__global__ void __launch_bounds__(MW_THREADS, 1)
+    bwd_q_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                 BwdArgs p) {
+  extern __shared__ unsigned char ab_smem[];
+  const uint32_t q_s = (smem_u32(ab_smem) + 1023u) & ~1023u;
+  const uint32_t g_s = q_s + MW_TILE_BYTES;
+  const uint32_t ring = g_s + MW_TILE_BYTES;  // stage s: K at ring + 2 s TILE, V after it
+  const uint32_t bars = ring + 2 * MW_STAGES * MW_TILE_BYTES;
+  const uint32_t qbar = bars + 16 * MW_STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (MW_STAGES + s); };
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int q0 = blockIdx.x * MW_BQ;
+  const int ntk = (p.n_valid + MW_KT - 1) / MW_KT;
+
+  if (tid == 0) {
+    for (int s = 0; s < MW_STAGES; ++s) {
+      mbar_init(full(s), 1);                    // the producer's expect_tx
+      mbar_init(empty(s), 128 * MW_CONSUMERS);  // every consumer thread
     }
-    *reinterpret_cast<uint4*>(Ks + r * AB_LDQ + cc * 8) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * AB_LDQ + cc * 8) = vv;
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // ---- pass 1: one 16-row query tile per warp ----
-  {
-    unsigned char* wb = smem + L.w_off + warp * L.w_bytes;
-    bf16* Qs = reinterpret_cast<bf16*>(wb);
-    bf16* Gs = Qs + 16 * AB_LDQ;
-    float* Os = reinterpret_cast<float*>(wb);  // over Qs / Gs once they are used
-    float* S = reinterpret_cast<float*>(wb + L.s_rel);
-    float* D = reinterpret_cast<float*>(wb + L.d_rel);
-    bf16* P = reinterpret_cast<bf16*>(S);    // bf16(p), row r over S row r
-    bf16* DS = reinterpret_cast<bf16*>(D);   // dS, row r over D row r
-    const int ldp = 2 * L.lds;               // bf16 elements per P / DS row
-    for (int qt = warp; qt < nq / 16; qt += AB_WARPS) {
-      const int q0 = qt * 16;
-      for (int c = lane; c < 16 * CPR; c += 32) {
-        const int r = c / CPR, cc = c % CPR;
-        uint4 qv = zero, gv = zero;
-        if (q0 + r < n_pad) {
-          qv = *reinterpret_cast<const uint4*>(qbase + (size_t)(q0 + r) * ld3 + cc * 8);
-          gv = *reinterpret_cast<const uint4*>(gbase + (size_t)(q0 + r) * d + cc * 8);
-        }
-        *reinterpret_cast<uint4*>(Qs + r * AB_LDQ + cc * 8) = qv;
-        *reinterpret_cast<uint4*>(Gs + r * AB_LDQ + cc * 8) = gv;
+  if (warp >= 4 * MW_CONSUMERS) {
+    // Producer: q and gw once, then ring step i: K tile i of sweep 1 for i
+    // < ntk, the (K, V) tile pairs of sweeps 2 and 3 after.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 128 * MW_CONSUMERS) {
+      mbar_expect_tx(qbar, 2 * MW_TILE_BYTES);
+      tma_load_4d(q_s, &tq, qbar, 0, q0, h, b);
+      tma_load_4d(g_s, &tg, qbar, 0, q0, h, b);
+      for (int i = 0; i < 3 * ntk; ++i) {
+        const int s = i % MW_STAGES, key0 = (i % ntk) * MW_KT;
+        const bool kv = i >= ntk;
+        mbar_wait(empty(s), ((i / MW_STAGES) & 1) ^ 1);  // round 0 passes at once
+        const uint32_t ks = ring + 2 * s * MW_TILE_BYTES;
+        mbar_expect_tx(full(s), kv ? 2 * MW_TILE_BYTES : MW_TILE_BYTES);
+        tma_load_4d(ks, &tk, full(s), 0, key0, h, b);
+        if (kv) tma_load_4d(ks + MW_TILE_BYTES, &tv, full(s), 0, key0, h, b);
       }
-      __syncwarp();
-      {  // s = q k^T and dP = gw v^T (f32), one 16-key block at a time
-        FragA qa[NF], ga[NF];
-#pragma unroll
-        for (int kk = 0; kk < NF; ++kk) {
-          wmma::load_matrix_sync(qa[kk], Qs + kk * 16, AB_LDQ);
-          wmma::load_matrix_sync(ga[kk], Gs + kk * 16, AB_LDQ);
-        }
-        for (int j = 0; j < kvp / 16; ++j) {
-          FragC sacc, dacc;
-          wmma::fill_fragment(sacc, 0.0f);
-          wmma::fill_fragment(dacc, 0.0f);
-#pragma unroll
-          for (int kk = 0; kk < NF; ++kk) {
-            FragBT kb, vb;
-            wmma::load_matrix_sync(kb, Ks + (j * 16) * AB_LDQ + kk * 16, AB_LDQ);
-            wmma::load_matrix_sync(vb, Vs + (j * 16) * AB_LDQ + kk * 16, AB_LDQ);
-            wmma::mma_sync(sacc, qa[kk], kb, sacc);
-            wmma::mma_sync(dacc, ga[kk], vb, dacc);
-          }
-          wmma::store_matrix_sync(S + j * 16, sacc, L.lds, wmma::mem_row_major);
-          wmma::store_matrix_sync(D + j * 16, dacc, L.lds, wmma::mem_row_major);
-        }
-      }
-      __syncwarp();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp >> 2, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint64_t qd = sw128_desc(q_s + wg * 64 * MW_ROW_BYTES);
+    const uint64_t gd = sw128_desc(g_s + wg * 64 * MW_ROW_BYTES);
+    const float sl2 = p.scale_log2;
+    MwRows r{{-INFINITY, -INFINITY}, {0.0f, 0.0f}};
+    float rs[2] = {0.0f, 0.0f};
+    mbar_wait(qbar, 0);
 
-      // Row by row: the softmax and its backward.  All lanes read row r of
-      // S and D into registers before bf16(p) and dS are written over it.
-      for (int r = 0; r < 16; ++r) {
-        const float* srow = S + r * L.lds;
-        const float* drow = D + r * L.lds;
-        float pv[AB_MAX / 32], dv[AB_MAX / 32];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int i = 0; i < AB_MAX / 32; ++i) {
-          const int c = lane + 32 * i;
-          pv[i] = c < n_valid ? srow[c] * scale : -INFINITY;
-          dv[i] = c < kvp ? drow[c] : 0.0f;
-          mx = fmaxf(mx, pv[i]);
-        }
-        mx = warp_max(mx);
-        float sum = 0.0f;
-#pragma unroll
-        for (int i = 0; i < AB_MAX / 32; ++i) {
-          const int c = lane + 32 * i;
-          pv[i] = c < n_valid ? expf(pv[i] - mx) : 0.0f;
-          sum += pv[i];
-        }
-        sum = warp_sum(sum);
-        float rs = 0.0f;
-#pragma unroll
-        for (int i = 0; i < AB_MAX / 32; ++i) {
-          pv[i] = pv[i] / sum;
-          rs += dv[i] * pv[i];
-        }
-        rs = warp_sum(rs);
-        __syncwarp();
-        bf16* prow = P + r * ldp;
-        bf16* dsrow = DS + r * ldp;
-#pragma unroll
-        for (int i = 0; i < AB_MAX / 32; ++i) {
-          const int c = lane + 32 * i;
-          if (c < kvp) {
-            prow[c] = __float2bfloat16(pv[i]);
-            dsrow[c] = __float2bfloat16((pv[i] * (dv[i] - rs)) * scale);
-          }
-        }
-        if (lane == 0 && q0 + r < n_pad) {
-          row_m[q0 + r] = mx;
-          row_l[q0 + r] = sum;
-          row_rs[q0 + r] = rs;
-        }
+    {  // Sweep 1: the row max and sum over 128-key tiles, two a trip (the
+       // score buffers alternate); one or two tiles are left for the tail.
+      float sa[64], sb[64];
+      mbar_wait(full(0), 0);
+      qk_issue(sa, qd, sw128_desc(ring));
+      int i = 0;
+      for (; i + 2 < ntk; i += 2) {
+        stats_next(sa, sb, r, i, sl2, qd, ring, bars);
+        stats_next(sb, sa, r, i + 1, sl2, qd, ring, bars);
       }
-      __syncwarp();
+      if (i + 1 < ntk) {
+        stats_next(sa, sb, r, i, sl2, qd, ring, bars);
+        stats_last(sb, r, i + 1, p.n_valid, sl2, t4, bars);
+      } else {
+        stats_last(sa, r, i, p.n_valid, sl2, t4, bars);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) r.l[rr] = 1.0f / quad_sum(r.l[rr]);
 
-      // ao = bf16(bf16(p) @ v), then dq = bf16(dS @ k), through Os
+    const int lrow = wg * 64 + (warp & 3) * 16;  // this warp's first row in the tile
+    const size_t base = (size_t)b * p.n_pad;
+    float s[32], dp[32], acc[32];
+    uint32_t pa[16];
+    bwd_sweep<false>(s, dp, pa, acc, r, rs, ntk, ntk, sl2, p.scale, qd, gd, ring, bars);
+    store_rows(acc, p.ao + base * p.d + h * MW_DH, p.d, q0 + lrow, p.n_pad, g, t4);
 #pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const bf16* lhs = which == 0 ? P : DS;
-        const bf16* rhs = which == 0 ? Vs : Ks;
-        FragC oacc[NF];
+    for (int rr = 0; rr < 2; ++rr) rs[rr] = quad_sum(rs[rr]);
+    bwd_sweep<true>(s, dp, pa, acc, r, rs, 2 * ntk, ntk, sl2, p.scale, qd, gd, ring, bars);
+    store_rows(acc, p.dqkv + base * 3 * p.d + h * MW_DH, 3 * (size_t)p.d, q0 + lrow, p.n_pad, g,
+               t4);
+    if (t4 == 0) {
+      float* vals = p.vals + ((size_t)blockIdx.y * (p.nq_pad / MW_BQ) + blockIdx.x) * 3 * MW_BQ;
 #pragma unroll
-        for (int j = 0; j < NF; ++j) wmma::fill_fragment(oacc[j], 0.0f);
-        for (int kk = 0; kk < kvp / 16; ++kk) {
-          FragA la;
-          wmma::load_matrix_sync(la, lhs + kk * 16, ldp);
-#pragma unroll
-          for (int j = 0; j < NF; ++j) {
-            FragB rb;
-            wmma::load_matrix_sync(rb, rhs + (kk * 16) * AB_LDQ + j * 16, AB_LDQ);
-            wmma::mma_sync(oacc[j], la, rb, oacc[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NF; ++j)
-          wmma::store_matrix_sync(Os + j * 16, oacc[j], AB_LDO, wmma::mem_row_major);
-        __syncwarp();
-        if (which == 0)
-          store_tile_bf16(Os, aobase, d, q0, n_pad, lane);
-        else
-          store_tile_bf16(Os, dbase, ld3, q0, n_pad, lane);
-        __syncwarp();
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = lrow + g + 8 * rr;
+        vals[row] = r.m2[rr];
+        vals[MW_BQ + row] = r.l[rr];
+        vals[2 * MW_BQ + row] = rs[rr];
       }
     }
   }
-  __syncthreads();
+}
 
-  // ---- pass 2: one 16-key tile per warp ----
-  bf16* Qp = reinterpret_cast<bf16*>(smem + L.qp_off);
-  bf16* Gp = reinterpret_cast<bf16*>(smem + L.gp_off);
-  for (int c = tid; c < nq * CPR; c += AB_THREADS) {
-    const int r = c / CPR, cc = c % CPR;
-    uint4 qv = zero, gv = zero;
-    if (r < n_pad) {
-      qv = *reinterpret_cast<const uint4*>(qbase + (size_t)r * ld3 + cc * 8);
-      gv = *reinterpret_cast<const uint4*>(gbase + (size_t)r * d + cc * 8);
+// (e): grid (nq_pad / 128, B * H), one block per 128 keys.  The same maps
+// as (d); vals: (d)'s row values.
+__global__ void __launch_bounds__(MW_THREADS, 1)
+    bwd_kv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                  BwdArgs p) {
+  extern __shared__ unsigned char ab_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int k0 = blockIdx.x * MW_KT;
+  const size_t base = (size_t)b * p.n_pad;
+  bf16* dk = p.dqkv + base * 3 * p.d + p.d + h * MW_DH;  // dv at + D
+  if (k0 >= p.n_valid) {
+    // every key of the tile is masked: zero gradients, rows before n_pad
+    for (int c = tid; c < MW_KT * 2 * (MW_DH / 8); c += MW_THREADS) {
+      const int row = k0 + c / (2 * (MW_DH / 8)), part = (c / (MW_DH / 8)) & 1;
+      if (row < p.n_pad)
+        *reinterpret_cast<uint4*>(dk + (size_t)row * 3 * p.d + part * p.d + 8 * (c % (MW_DH / 8))) =
+            make_uint4(0u, 0u, 0u, 0u);
     }
-    *reinterpret_cast<uint4*>(Qp + r * AB_LDQ + cc * 8) = qv;
-    *reinterpret_cast<uint4*>(Gp + r * AB_LDQ + cc * 8) = gv;
+    return;
+  }
+  const uint32_t k_s = (smem_u32(ab_smem) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + MW_TILE_BYTES;
+  const uint32_t ring = v_s + MW_TILE_BYTES;  // stage s: q, gw, row values at ring + s STAGE
+  unsigned char* ring_g = ab_smem + (ring - smem_u32(ab_smem));
+  const uint32_t bars = ring + MW_STAGES * AB_KV_STAGE;
+  const uint32_t kvbar = bars + 16 * MW_STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (MW_STAGES + s); };
+  const int nqt = p.nq_pad / MW_BQ;
+
+  if (tid == 0) {
+    for (int s = 0; s < MW_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128 * MW_CONSUMERS);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  unsigned char* w2 = smem + L.w2_off + warp * L.w2_bytes;
-  float* Ss = reinterpret_cast<float*>(w2);               // 16 x AB_LDT
-  float* Dt = Ss + 16 * AB_LDT;                           // 16 x AB_LDT
-  bf16* Pt = reinterpret_cast<bf16*>(Dt + 16 * AB_LDT);   // 16 x AB_LDB, [query][key]
-  bf16* DSt = Pt + 16 * AB_LDB;                           // 16 x AB_LDB
-  float* Os = reinterpret_cast<float*>(w2);               // after the loop
-  const int er = lane >> 1;
-  const int ec = (lane & 1) * 8;
-  for (int kt = warp; kt < nq / 16; kt += AB_WARPS) {
-    const int k0 = kt * 16;
-    FragC dkacc[NF], dvacc[NF];
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::fill_fragment(dkacc[j], 0.0f);
-      wmma::fill_fragment(dvacc[j], 0.0f);
-    }
-    if (k0 < kvp) {  // key tiles past kvp are all masked: zero gradients
-      FragBT kb[NF], vb[NF];
-#pragma unroll
-      for (int kk = 0; kk < NF; ++kk) {
-        wmma::load_matrix_sync(kb[kk], Ks + k0 * AB_LDQ + kk * 16, AB_LDQ);
-        wmma::load_matrix_sync(vb[kk], Vs + k0 * AB_LDQ + kk * 16, AB_LDQ);
-      }
-      for (int q0 = 0; q0 < nq; q0 += 16) {
-        FragC sacc, dacc;
-        wmma::fill_fragment(sacc, 0.0f);
-        wmma::fill_fragment(dacc, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < NF; ++kk) {
-          FragA qa, ga;
-          wmma::load_matrix_sync(qa, Qp + q0 * AB_LDQ + kk * 16, AB_LDQ);
-          wmma::load_matrix_sync(ga, Gp + q0 * AB_LDQ + kk * 16, AB_LDQ);
-          wmma::mma_sync(sacc, qa, kb[kk], sacc);
-          wmma::mma_sync(dacc, ga, vb[kk], dacc);
-        }
-        wmma::store_matrix_sync(Ss, sacc, AB_LDT, wmma::mem_row_major);
-        wmma::store_matrix_sync(Dt, dacc, AB_LDT, wmma::mem_row_major);
-        __syncwarp();
-        const int q = q0 + er;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int key = k0 + ec + t;
-          float p = 0.0f, ds = 0.0f;
-          if (q < n_pad && key < n_valid) {
-            p = expf(Ss[er * AB_LDT + ec + t] * scale - row_m[q]) / row_l[q];
-            ds = (p * (Dt[er * AB_LDT + ec + t] - row_rs[q])) * scale;
-          }
-          Pt[er * AB_LDB + ec + t] = __float2bfloat16(p);
-          DSt[er * AB_LDB + ec + t] = __float2bfloat16(ds);
-        }
-        __syncwarp();
-        // dv += bf16(p)^T gw, dk += dS^T q over this query tile
-        FragAT pa, dsa;
-        wmma::load_matrix_sync(pa, Pt, AB_LDB);
-        wmma::load_matrix_sync(dsa, DSt, AB_LDB);
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          FragB gb, qb;
-          wmma::load_matrix_sync(gb, Gp + q0 * AB_LDQ + j * 16, AB_LDQ);
-          wmma::load_matrix_sync(qb, Qp + q0 * AB_LDQ + j * 16, AB_LDQ);
-          wmma::mma_sync(dvacc[j], pa, gb, dvacc[j]);
-          wmma::mma_sync(dkacc[j], dsa, qb, dkacc[j]);
-        }
-        __syncwarp();
+
+  if (warp >= 4 * MW_CONSUMERS) {
+    // Producer: the block's K and V tiles once, then ring step j: query
+    // tile j's q, gw and row values.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 128 * MW_CONSUMERS) {
+      mbar_expect_tx(kvbar, 2 * MW_TILE_BYTES);
+      tma_load_4d(k_s, &tk, kvbar, 0, k0, h, b);
+      tma_load_4d(v_s, &tv, kvbar, 0, k0, h, b);
+      const float* vals = p.vals + (size_t)blockIdx.y * nqt * 3 * MW_BQ;
+      for (int j = 0; j < nqt; ++j) {
+        const int s = j % MW_STAGES;
+        mbar_wait(empty(s), ((j / MW_STAGES) & 1) ^ 1);
+        const uint32_t st = ring + s * AB_KV_STAGE;
+        mbar_expect_tx(full(s), 2 * MW_TILE_BYTES + AB_VALS_BYTES);
+        tma_load_4d(st, &tq, full(s), 0, j * MW_BQ, h, b);
+        tma_load_4d(st + MW_TILE_BYTES, &tg, full(s), 0, j * MW_BQ, h, b);
+        bulk_load(st + 2 * MW_TILE_BYTES, vals + (size_t)j * 3 * MW_BQ, AB_VALS_BYTES, full(s));
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp >> 2, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint64_t kd = sw128_desc(k_s + wg * 64 * MW_ROW_BYTES);
+    const uint64_t vd = sw128_desc(v_s + wg * 64 * MW_ROW_BYTES);
+    const float sl2 = p.scale_log2, scale = p.scale;
+    const int row0 = k0 + wg * 64 + (warp & 3) * 16;  // this warp's first key
+    const bool valid[2] = {row0 + g < p.n_valid, row0 + g + 8 < p.n_valid};
+    float s[32], dp[32], dkacc[32], dvacc[32];
+    uint32_t pp[16], pd[16];
 #pragma unroll
-    for (int j = 0; j < NF; ++j)
-      wmma::store_matrix_sync(Os + j * 16, dkacc[j], AB_LDO, wmma::mem_row_major);
-    __syncwarp();
-    store_tile_bf16(Os, dbase + d, ld3, k0, n_pad, lane);
-    __syncwarp();
+    for (int x = 0; x < 32; ++x) dkacc[x] = dvacc[x] = 0.0f;
+    mbar_wait(kvbar, 0);
+    for (int j = 0; j < nqt; ++j) {
+      const int st = j % MW_STAGES;
+      mbar_wait(full(st), (j / MW_STAGES) & 1);
+      const uint64_t qd = sw128_desc(ring + st * AB_KV_STAGE);
+      const uint64_t gd = qd + (MW_TILE_BYTES >> 4);
+      const float* vals =
+          reinterpret_cast<const float*>(ring_g + st * AB_KV_STAGE + 2 * MW_TILE_BYTES);
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {  // query rows 64 half .. of the tile
+        const uint64_t qh = qd + half * AB_HALF_DESC, gh = gd + half * AB_HALF_DESC;
+        pair_issue(s, dp, kd, qh, vd, gh);
+        wgmma_wait<0>();
+        reg_fence(s);
+        reg_fence(dp);
+        // Element x: key row g + 8 ((x / 2) % 2), query 64 half + 8 (x / 4)
+        // + 2 t4 + x % 2 of the tile, whose m2, 1 / l and rs the stage holds.
 #pragma unroll
-    for (int j = 0; j < NF; ++j)
-      wmma::store_matrix_sync(Os + j * 16, dvacc[j], AB_LDO, wmma::mem_row_major);
-    __syncwarp();
-    store_tile_bf16(Os, dbase + 2 * d, ld3, k0, n_pad, lane);
-    __syncwarp();
+        for (int y = 0; y < 16; ++y) {
+          const int x = 2 * y, c = 64 * half + 8 * (y >> 1) + 2 * t4;
+          const float2 m2 = *reinterpret_cast<const float2*>(vals + c);
+          const float2 li = *reinterpret_cast<const float2*>(vals + MW_BQ + c);
+          const float2 rsv = *reinterpret_cast<const float2*>(vals + 2 * MW_BQ + c);
+          const bool kv = valid[y & 1];
+          const float p0 = kv ? ex2(fmaf(s[x], sl2, -m2.x)) * li.x : 0.0f;
+          const float p1 = kv ? ex2(fmaf(s[x + 1], sl2, -m2.y)) * li.y : 0.0f;
+          pp[y] = pack_bf16x2(p0, p1);
+          pd[y] = pack_bf16x2((p0 * (dp[x] - rsv.x)) * scale, (p1 * (dp[x + 1] - rsv.y)) * scale);
+        }
+        rs_issue(dvacc, pp, gh);  // dv += bf16(p)^T gw
+        rs_issue(dkacc, pd, qh);  // dk += dS^T q
+        wgmma_wait<0>();
+        reg_fence(dvacc);
+        reg_fence(dkacc);
+        reg_fence(pp);
+        reg_fence(pd);
+      }
+      mbar_arrive(empty(st));
+    }
+    store_rows(dkacc, dk, 3 * (size_t)p.d, row0, p.n_pad, g, t4);
+    store_rows(dvacc, dk + p.d, 3 * (size_t)p.d, row0, p.n_pad, g, t4);
   }
 }
 
 struct AttnBwdWork {
-  size_t st, xn, qkv, gw, ao, dqkv, dxn, lnpart, cspart, bytes;
+  size_t st, xn, qkv, gw, ao, dqkv, dxn, vals, parts, lnpart, cspart, bytes;
+  int splits_o, splits_qkv;  // of the weight-gradient products (f) and (g)
 };
 
 inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 
-inline AttnBwdWork attn_bwd_work(int rows, int d) {
+inline int nq_pad_of(int n_pad) { return (n_pad + MW_BQ - 1) / MW_BQ * MW_BQ; }
+
+// Splits of a weight-gradient product of `tiles` 128 x 256 tiles over nk K
+// steps: as many as fill the SMs once (at least four K steps a unit).  At
+// ViT-B b64 dWo's 18 tiles take 7 and dWqkv's 54 take 2, where
+// gemm_wgmma.cuh's four-wave gw_splits gives 30 and 10 and writes 71 MB of
+// f32 partials for each.
+inline int wgrad_splits(long long tiles, int nk, int sms) {
+  long long s = sms / tiles;
+  if (s > nk / 4) s = nk / 4;
+  return s < 1 ? 1 : (int)s;
+}
+
+// The workspace at this shape on a card of `sms` SMs.
+inline AttnBwdWork attn_bwd_work(int batch, int n_pad, int d, int sms) {
+  const int rows = batch * n_pad;
   AttnBwdWork w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -388,6 +483,10 @@ inline AttnBwdWork attn_bwd_work(int rows, int d) {
     off += align256(bytes);
     return at;
   };
+  const int nk = (rows + GW_BK - 1) / GW_BK, row_tiles = (d + GW_BM - 1) / GW_BM;
+  w.splits_o = wgrad_splits((long long)row_tiles * ((d + GW_BN - 1) / GW_BN), nk, sms);
+  w.splits_qkv = wgrad_splits((long long)row_tiles * ((3 * d + GW_BN - 1) / GW_BN), nk, sms);
+  const size_t po = (size_t)w.splits_o * d * d, pq = (size_t)w.splits_qkv * d * 3 * d;
   w.st = take((size_t)rows * 2 * sizeof(float));
   w.xn = take((size_t)rows * d * sizeof(bf16));
   w.qkv = take((size_t)rows * 3 * d * sizeof(bf16));
@@ -395,11 +494,22 @@ inline AttnBwdWork attn_bwd_work(int rows, int d) {
   w.ao = take((size_t)rows * d * sizeof(bf16));
   w.dqkv = take((size_t)rows * 3 * d * sizeof(bf16));
   w.dxn = take((size_t)rows * d * sizeof(float));
+  w.vals = take((size_t)batch * (d / MW_DH) * nq_pad_of(n_pad) * 3 * sizeof(float));
+  w.parts = take((po > pq ? po : pq) * sizeof(float));  // (f) and (g) in turn
   w.lnpart = take((size_t)ln_bwd_blocks(rows) * 2 * d * sizeof(float));
-  const size_t cs = colsum_scratch_floats(rows, 3 * d);  // the largest of the three
+  size_t cs = colsum_scratch_floats(rows, 3 * d);  // the largest of the three
+  if (cs < colsum_scratch_floats(ln_bwd_blocks(rows), 2 * d))
+    cs = colsum_scratch_floats(ln_bwd_blocks(rows), 2 * d);
   w.cspart = take(cs * sizeof(float));
   w.bytes = off;
   return w;
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace VFT_NS
@@ -408,44 +518,56 @@ using namespace VFT_NS;
 
 extern "C" {
 
-// Opts this unit's kernels in to the shared memory they use (the
-// attention block at 256 keys and rows needs 223 KB), on the current
-// device.  Called once per device before the first launch.  Returns a
-// cudaError_t.
+// Finds cuTensorMapEncodeTiled and opts this unit's kernels in to the
+// shared memory they use, on the current device.  Called once per device
+// before the first launch.  Returns a cudaError_t.
 int vft_attn_bwd_init() {
-  cudaError_t err;
-  if ((err = gemm_enable<false, false, false>()) != cudaSuccess) return err;
-  if ((err = gemm_enable<false, false, true>()) != cudaSuccess) return err;
-  if ((err = gemm_enable<false, true, false>()) != cudaSuccess) return err;
-  if ((err = ln_bwd_enable()) != cudaSuccess) return err;
-  return cudaFuncSetAttribute(attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)attn_bwd_smem(AB_MAX, AB_MAX).bytes);
+  cudaError_t err = tma_init();
+  if (err != cudaSuccess) return err;
+  if ((err = gw_enable()) != cudaSuccess) return err;
+  if ((err = gw_enable_bwd<GW_AK_BK, GW_EPI_BF16>()) != cudaSuccess) return err;
+  if ((err = gw_enable_bwd<GW_AK_BK, GW_EPI_F32>()) != cudaSuccess) return err;
+  if ((err = gw_enable_bwd<GW_AM_BN, GW_EPI_F32>()) != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)AB_Q_SMEM)) != cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)AB_KV_SMEM)) != cudaSuccess)
+    return err;
+  return ln_bwd_enable();
 }
 
-// Bytes of device workspace vft_attn_block_bwd takes at this shape.
+// Bytes of device workspace vft_attn_block_bwd takes at this shape on the
+// current device (0 if the device cannot be read).
 size_t vft_attn_bwd_workspace(int batch, int n_pad, int d) {
-  return attn_bwd_work(batch * n_pad, d).bytes;
+  int sms = 0;
+  return sm_count(&sms) == cudaSuccess ? attn_bwd_work(batch, n_pad, d, sms).bytes : 0;
 }
 
 // x, g, dx: (B * n_pad, D) bf16; ls, lb: (D,) f32; wqkv: (D, 3D) bf16;
 // bqkv: (3D,) f32; wo: (D, D) bf16.  Outputs, f32: dln (2D,) = [dls | dlb],
 // dwqkv (D, 3D), dbqkv (3D,), dwo (D, D), dbo (D,).  work:
-// vft_attn_bwd_workspace bytes.  Head dim 64, 1 <= n_valid <= n_pad <= 256,
-// B * n_pad a multiple of 8, D <= 2048.  Everything is enqueued on
-// `stream`, which belongs to the current device.  Returns a cudaError_t.
+// vft_attn_bwd_workspace bytes.  Head dim 64, 1 <= n_valid <= n_pad <=
+// 1024, B * n_pad a multiple of 8, D <= 2048; every pointer 16-byte
+// aligned.  *long_path is set to 1 when more than 256 keys are valid (the
+// same kernels; the launch checks count those launches apart) and 0
+// otherwise.  Everything is enqueued on `stream`, which belongs to the
+// current device.  Returns a cudaError_t.
 int vft_attn_block_bwd(const void* x, const void* g, const void* ls, const void* lb,
                        const void* wqkv, const void* bqkv, const void* wo, void* dx, void* dln,
                        void* dwqkv, void* dbqkv, void* dwo, void* dbo, void* work, int batch,
                        int n_pad, int d, int heads, int n_valid, float eps, float scale,
-                       void* stream) {
+                       void* stream, int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int rows = batch * n_pad;
-  const int kvp = (n_valid + 15) / 16 * 16;
-  const int nq = (n_pad + 15) / 16 * 16;
-  if (d != heads * AB_DH || n_valid < 1 || n_valid > n_pad || nq > AB_MAX || rows % 8 ||
-      d > LNB_MAX_D)
+  if (d != heads * MW_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
+      n_pad > AB_MAX_TOKENS || rows % 8 || d > LNB_MAX_D)
     return cudaErrorInvalidValue;
-  const AttnBwdWork w = attn_bwd_work(rows, d);
+  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
+  int sms = 0;
+  cudaError_t err;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const AttnBwdWork w = attn_bwd_work(batch, n_pad, d, sms);
   unsigned char* ws = static_cast<unsigned char*>(work);
   float* stats = reinterpret_cast<float*>(ws + w.st);
   bf16* xn = reinterpret_cast<bf16*>(ws + w.xn);
@@ -454,74 +576,88 @@ int vft_attn_block_bwd(const void* x, const void* g, const void* ls, const void*
   bf16* ao = reinterpret_cast<bf16*>(ws + w.ao);
   bf16* dqkv = reinterpret_cast<bf16*>(ws + w.dqkv);
   float* dxn = reinterpret_cast<float*>(ws + w.dxn);
+  float* parts = reinterpret_cast<float*>(ws + w.parts);
   float* lnpart = reinterpret_cast<float*>(ws + w.lnpart);
   float* cspart = reinterpret_cast<float*>(ws + w.cspart);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
-  cudaError_t err;
+  const bf16* wqkvb = static_cast<const bf16*>(wqkv);
 
   if ((err = launch_ln_rows(xb, static_cast<const float*>(ls), static_cast<const float*>(lb),
                             stats, xn, rows, d, eps, st)) != cudaSuccess)
     return err;
 
-  GemmArgs p{};  // qkv = bf16(xn @ Wqkv + bqkv)
-  p.A = xn;
-  p.B = static_cast<const bf16*>(wqkv);
+  GwArgs p{};  // (b) qkv = bf16(xn @ Wqkv + bqkv)
   p.bias = static_cast<const float*>(bqkv);
   p.C = qkv;
   p.M = rows;
   p.N = 3 * d;
   p.K = d;
-  if ((err = launch_gemm_t<false, false, false>(p, st)) != cudaSuccess) return err;
+  p.act = ACT_NONE;
+  if ((err = launch_gemm_wgmma(xn, wqkvb, false, p, st)) != cudaSuccess) return err;
 
-  p = GemmArgs{};  // gw = bf16(g @ Wo^T)
-  p.A = gb;
-  p.B = static_cast<const bf16*>(wo);
+  p = GwArgs{};  // (c) gw = bf16(g @ Wo^T), Wo (D, D) read K-major
   p.C = gw;
   p.M = rows;
   p.N = d;
   p.K = d;
-  if ((err = launch_gemm_t<false, false, true>(p, st)) != cudaSuccess) return err;
+  p.act = ACT_NONE;
+  if ((err = launch_gemm_wgmma<GW_AK_BK, GW_EPI_BF16>(gb, static_cast<const bf16*>(wo), false, p,
+                                                       st)) != cudaSuccess)
+    return err;
 
-  attn_bwd_kernel<<<dim3(heads, batch), AB_THREADS, attn_bwd_smem(kvp, nq).bytes, st>>>(
-      qkv, gw, ao, dqkv, n_pad, n_valid, kvp, nq, d, scale);
+  // (d), (e): q, k and v are column blocks of the packed rows (head h at h
+  // * 64 of each, row stride 3D, image stride n_pad * 3D); gw's row stride
+  // is D.
+  const long long in_b = (long long)n_pad * 3 * d;
+  CUtensorMap tq, tk, tv, tg;
+  if (!mw_encode(&tq, qkv, in_b, MW_DH, 3 * d, n_pad, heads, batch) ||
+      !mw_encode(&tk, qkv + d, in_b, MW_DH, 3 * d, n_valid, heads, batch) ||
+      !mw_encode(&tv, qkv + 2 * d, in_b, MW_DH, 3 * d, n_valid, heads, batch) ||
+      !mw_encode(&tg, gw, (long long)n_pad * d, MW_DH, d, n_pad, heads, batch))
+    return cudaErrorInvalidValue;
+  const int nq_pad = nq_pad_of(n_pad);
+  const BwdArgs a{ao,    dqkv,    reinterpret_cast<float*>(ws + w.vals), heads, n_pad, n_valid,
+                  nq_pad, d,     scale * 1.4426950408889634f, scale};
+  const dim3 grid(nq_pad / MW_BQ, batch * heads);
+  bwd_q_kernel<<<grid, MW_THREADS, AB_Q_SMEM, st>>>(tq, tk, tv, tg, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_kv_kernel<<<grid, MW_THREADS, AB_KV_SMEM, st>>>(tq, tk, tv, tg, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  *long_path = n_valid > AB_LONG_KEYS;
 
-  p = GemmArgs{};  // dWo = ao^T g
-  p.A = ao;
-  p.B = gb;
-  p.C = dwo;
-  p.c_f32 = 1;
+  p = GwArgs{};  // (f) dWo = ao^T g, ao (rows, D) read MN-major, split over rows
+  p.C32 = parts;
+  p.splits = w.splits_o;
   p.M = d;
   p.N = d;
   p.K = rows;
-  if ((err = launch_gemm_t<false, true, false>(p, st)) != cudaSuccess) return err;
+  if ((err = launch_gemm_wgmma<GW_AM_BN, GW_EPI_F32>(ao, gb, false, p, st)) != cudaSuccess ||
+      (err = launch_split_sum(parts, static_cast<float*>(dwo), (size_t)d * d, w.splits_o, st)) !=
+          cudaSuccess)
+    return err;
   if ((err = launch_colsum<bf16>(gb, static_cast<float*>(dbo), cspart, rows, d, st)) !=
       cudaSuccess)
     return err;
 
-  p = GemmArgs{};  // dWqkv = xn^T dqkv
-  p.A = xn;
-  p.B = dqkv;
-  p.C = dwqkv;
-  p.c_f32 = 1;
-  p.M = d;
+  p.splits = w.splits_qkv;  // (g) dWqkv = xn^T dqkv
   p.N = 3 * d;
-  p.K = rows;
-  if ((err = launch_gemm_t<false, true, false>(p, st)) != cudaSuccess) return err;
+  if ((err = launch_gemm_wgmma<GW_AM_BN, GW_EPI_F32>(xn, dqkv, false, p, st)) != cudaSuccess ||
+      (err = launch_split_sum(parts, static_cast<float*>(dwqkv), (size_t)d * 3 * d, w.splits_qkv,
+                              st)) != cudaSuccess)
+    return err;
   if ((err = launch_colsum<bf16>(dqkv, static_cast<float*>(dbqkv), cspart, rows, 3 * d, st)) !=
       cudaSuccess)
     return err;
 
-  p = GemmArgs{};  // dxn = dqkv @ Wqkv^T
-  p.A = dqkv;
-  p.B = static_cast<const bf16*>(wqkv);
-  p.C = dxn;
-  p.c_f32 = 1;
+  p = GwArgs{};  // (i) dxn = dqkv @ Wqkv^T, Wqkv (D, 3D) read K-major
+  p.C32 = dxn;
+  p.splits = 1;
   p.M = rows;
   p.N = d;
   p.K = 3 * d;
-  if ((err = launch_gemm_t<false, false, true>(p, st)) != cudaSuccess) return err;
+  if ((err = launch_gemm_wgmma<GW_AK_BK, GW_EPI_F32>(dqkv, wqkvb, false, p, st)) != cudaSuccess)
+    return err;
 
   if ((err = launch_ln_bwd(xb, stats, dxn, gb, static_cast<const float*>(ls),
                            static_cast<bf16*>(dx), lnpart, rows, d, st)) != cudaSuccess)

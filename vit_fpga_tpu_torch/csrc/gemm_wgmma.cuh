@@ -1,15 +1,16 @@
 // The bf16 GEMM of the stats-chain halves on Hopper's own units (K1's and
 // K4's QKV and out-projection GEMMs in attn_half.cuh, K2's two in
 // mlp_stats.cu, K5's in mlp.cu, K3's in mlp_chunk_stats.cu, K26's bf16
-// product in streamed_gemm.cu, K24's in mlp_bwd.cu: three on gw_kernel,
-// two in gf_kernel); include after common.cuh and hopper.cuh.
+// product in streamed_gemm.cu, K6's in mlp_chunk.cu, K24's in mlp_bwd.cu:
+// three on gw_kernel, two in gf_kernel; K23's five in attn_bwd.cu);
+// include after common.cuh and hopper.cuh.
 //
 //   C = epilogue(prologue(A) @ B), A (M, K) and B (K, N) bf16 row-major,
 //   C (M, N) bf16, f32 accumulation:
 //   LN prologue  xn = bf16(((f32(x) - mu) * rstd) * ls + lb), (mu, rstd)
 //                from the (M, 2) f32 stats, ls / lb per column: the order of
 //                the TPU kernels (fused_mlp.py:_mlp_stats_kernel,
-//                attn_block.py:_attn_stats_kernel) and of gemm_bf16's LN.
+//                attn_block.py:_attn_stats_kernel).
 //   epilogue     f = acc + bias (f32), apply_act(f, act), y = bf16(f); with
 //                a residual, out = bf16(f32(res) + f32(y)).
 //   chunks       (chunk_k > 0, K3's down-projection) the K loop splits into
@@ -19,7 +20,7 @@
 //                residual on the first chunk and C itself (the previous
 //                chunk's out) after it, and starts the next chunk from zero.
 //
-// The backward's products (LAYOUT, EPI template arguments; K24):
+// The backward's products (LAYOUT, EPI template arguments; K24, K23):
 //   GW_AK_BK     B stored (N, K) row-major (K-major): C = A B^T of the
 //                stored B, e.g. a data gradient dy W^T.  One TMA box of
 //                64 k x 256 n a stage, read without the transpose bit.

@@ -1,18 +1,21 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
 // (mha_wgmma.cuh: K7 / K8 and K1's attention; gemm_wgmma.cuh: K1's and
-// K2's GEMMs); include after common.cuh.
+// K2's GEMMs; attn_bwd.cu: K23's attention backward); include after
+// common.cuh.
 //
 //   mbarriers   init, expect_tx, arrive, and a bounded wait that traps
 //               after HP_SPIN_LIMIT tries instead of hanging the card
-//   TMA         2-D and 4-D tile loads completing an mbarrier's
-//               transaction bytes; the tensor maps are encoded on the host,
-//               at each launch, by cuTensorMapEncodeTiled, reached through
-//               cudaGetDriverEntryPoint so that nothing links libcuda
+//   TMA         2-D and 4-D tile loads and 1-D bulk copies completing an
+//               mbarrier's transaction bytes; the tensor maps are encoded
+//               on the host, at each launch, by cuTensorMapEncodeTiled,
+//               reached through cudaGetDriverEntryPoint so that nothing
+//               links libcuda
 //   wgmma       the shared-memory descriptor of a 128-byte-swizzled tile,
-//               fence / commit / wait, m64n128k16 (B K-major or MN-major)
-//               and m64n256k16 (either operand K-major or, through the
-//               transpose bit, MN-major) with both operands in shared memory,
-//               m64n64k16 with A in registers
+//               fence / commit / wait, m64n64k16 (both operands K-major),
+//               m64n128k16 (B K-major or MN-major) and m64n256k16 (either
+//               operand K-major or, through the transpose bit, MN-major)
+//               with both operands in shared memory, m64n64k16 with A in
+//               registers
 
 #pragma once
 
@@ -88,6 +91,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) contiguous bytes of global memory at src into
+// shared memory at dst (both 16-byte aligned), completing `bar`'s
+// transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile of 128-byte
 // rows at saddr (1 KB aligned, or offset within a row for a K step): start
 // address >> 4, leading byte offset, stride 1024 bytes between 8-row
@@ -152,6 +167,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared,
+// K-major); accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 256, f32) += A (64 x 16, shared) B (16 x 256, shared).  A is

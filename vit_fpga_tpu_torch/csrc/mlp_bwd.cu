@@ -26,9 +26,7 @@
 // read MN-major through the transpose bit on A for (f) and (g); (b) and
 // (c) share one 128 x 128 tile in gemm_wgmma.cuh's gf_kernel
 // (wgmma.m64n128k16, both accumulators in registers), the others run
-// gw_kernel's 128 x 256 tiles (wgmma.m64n256k16).  They replace five launches of common.cuh's wmma
-// GEMM (gemm_bf16_kernel with its TA / TB flags and its
-// activation-backward epilogue).
+// gw_kernel's 128 x 256 tiles (wgmma.m64n256k16).
 //
 // What bounds it on the H100: five T x D x M products, 10 T D M flops
 // (302 GFLOP at ViT-B/16 batch 64, 0.305 ms at 989 TFLOP/s), so it is

@@ -32,8 +32,7 @@
 // (a) and (b) are gemm_wgmma.cuh's GEMM (wgmma + TMA, a producer warpgroup
 // streaming A and B tiles into a 4-stage ring, two consumer warpgroups of
 // 64 rows, the LN applied to the landed A tiles, the activation in (a)'s
-// epilogue); they replace common.cuh's wmma GEMM and chunk.cuh's wmma
-// chunk_down_kernel, which K6 (mlp_chunk.cu) still runs.  The gate allows a
+// epilogue), as K6's (mlp_chunk.cu) are.  The gate allows a
 // chunk of 32 columns past a multiple of the GEMM's 64-deep K step (M a
 // multiple of 32 * n_chunks); such a boundary falls between the step's
 // second and third wgmma.m64n256k16, and the step is issued in two halves

@@ -36,9 +36,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_int8_stats.cu", "attn_int8_scores.cu", "patch_embed.cu",
            "streamed_gemm.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
-           "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "chunk.cuh",
-           "seq_attn.cuh", "mha_wgmma.cuh", "hopper.cuh", "gemm_wgmma.cuh",
-           "attn_half.cuh")
+           "stack_bf16.cuh", "stack_i8.cuh", "full.cuh", "seq_attn.cuh",
+           "mha_wgmma.cuh", "hopper.cuh", "gemm_wgmma.cuh", "attn_half.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -72,7 +71,8 @@ _SIGNATURES = {
     "vft_fused_mlp": ([_P] * 10 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "vft_attn_bwd_init": ([], ctypes.c_int),
     "vft_attn_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
-    "vft_attn_block_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _P], ctypes.c_int),
+    "vft_attn_block_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _P, ctypes.POINTER(_I)],
+                           ctypes.c_int),
     "vft_mlp_bwd_init": ([], ctypes.c_int),
     "vft_mlp_bwd_workspace": ([_I] * 3, ctypes.c_size_t),
     "vft_fused_mlp_bwd": ([_P] * 14 + [_I] * 4 + [_F, _P], ctypes.c_int),

@@ -21,7 +21,12 @@ CPU tensor:
   before the division by the row sum);
 * K23 ``attn_block_bwd`` (``csrc/attn_bwd.cu``), K4's backward: replaces
   ``_attn_bwd_kernel`` (wrapper ``attn_block_bwd_pallas``), the per-head
-  arithmetic of its non-pair branch, up to 256 tokens.
+  arithmetic of its non-pair branch, up to 1024 tokens: its five products
+  on ``csrc/gemm_wgmma.cuh``'s GEMM in the backward's layouts, and the
+  attention backward on ``csrc/mha_wgmma.cuh``'s machinery, tiled over
+  128 keys and 128 query rows (three sweeps over the keys per query tile
+  for ao, dq and each row's softmax values, one sweep over the queries per
+  key tile for dk and dv).
 
 ``attn_block`` is the differentiable half (``AttnBlockFunction``): K4
 forward, K23 backward, saving only the inputs, as the JAX ``custom_vjp``.
@@ -37,11 +42,11 @@ compulsory traffic; K23 22·R·D² + 12·B·H·n_pad·n_valid·dh (189 GFLOP,
 191 us) against under 100 MB.  Designs: K1 and K4 on wgmma + TMA (a
 producer warpgroup streaming tiles into a shared-memory ring, two consumer
 warpgroups; the LN applied to the landed A tiles, the scores and
-probabilities in registers); K23 on bf16 wmma GEMMs (transposed layouts
-for the gradients) and an attention block per (image, head) with scores
-and probabilities in shared memory; the backward sums
-every weight gradient over all rows in one transposed-A GEMM and every
-bias and LN gradient with fixed-order column sums.  qkv, the attention
+probabilities in registers); K23 on the same GEMM (B read K-major for
+the data gradients, A MN-major for the weight gradients) and the same
+attention tiles; the backward sums every weight gradient over all rows in
+split-K partials added in split order and every bias and LN gradient with
+fixed-order column sums.  qkv, the attention
 output and the backward's intermediates round-trip through device memory
 (later work: fuse them away).
 
@@ -70,11 +75,9 @@ _NEG_INF = -1e30
 # keys (one kernel at every length; the launch checks count those apart).
 # Where the JAX package keeps the chain
 # (attn_plan below), it runs K1 up to 3137 tokens (ViT-B/16 @896 px); past
-# 1024 the port's K1 raises on the card.  K4 takes the same tile and
-# limit; its backward K23 holds a head's keys in one block, up to
-# BWD_MAX_TOKENS.
+# 1024 the port's K1 raises on the card.  K4 and its backward K23 take the
+# same tiles and limit.
 LONG_MAX_TOKENS = 1024
-BWD_MAX_TOKENS = 256
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
 
@@ -287,8 +290,8 @@ attn_block_stats.launches_long = 0    # of those, with more than 256 valid keys
 
 def _cuda_geometry(x, num_heads, n_valid, *, kernel):
     """Shape checks shared by the K4 / K23 launches: (b, n, d, n_valid).
-    ``kernel`` names the launch, whose token limit applies: K4 up to
-    LONG_MAX_TOKENS, K23 up to BWD_MAX_TOKENS."""
+    ``kernel`` names the launch in the error; both take up to
+    LONG_MAX_TOKENS tokens."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -299,15 +302,13 @@ def _cuda_geometry(x, num_heads, n_valid, *, kernel):
     if d // num_heads != 64 or n_valid < 1:
         raise ValueError(f"kernel takes head dim 64 and at least one valid "
                          f"token (dh={d // num_heads}, n_valid={n_valid})")
-    limit = LONG_MAX_TOKENS if kernel == "K4" else BWD_MAX_TOKENS
-    if n > limit:
-        # The JAX plan sends CLIP ViT-L/14 (257 tokens) and ViT-B/16 @384
-        # at an odd batch to the fused half (q-slot reuse leaves the stats
-        # chain): K4 serves them; training them needs K23 past 256 keys.
+    if n > LONG_MAX_TOKENS:
+        # The JAX package runs its Pallas halves on past 1024 tokens (K1
+        # up to ViT-B/16 @896 px, the backward up to about 1024 at D 1024).
         what = ("the attention backward K23" if kernel == "K23"
                 else "the per-block attention K4")
-        raise ValueError(f"n_pad={n}: {what} takes at most {limit} tokens "
-                         f"(ROADMAP.md, section 1)")
+        raise ValueError(f"n_pad={n}: {what} takes at most "
+                         f"{LONG_MAX_TOKENS} tokens (ROADMAP.md, section 1)")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     return b, n, d, n_valid
 
@@ -433,8 +434,9 @@ def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
     output -> ``(dx, dls, dlb, dwqkv, dbqkv, dwo, dbo)``, dx in x's dtype,
     the weight, bias and LN gradients f32.  A CPU tensor runs
     :func:`attn_block_bwd_plain`; a CUDA tensor launches the kernel
-    (bf16, head dim 64, n_valid <= n_pad <= 256, B * n_pad a multiple of
-    8) or raises."""
+    (bf16, head dim 64, n_valid <= n_pad <= 1024, B * n_pad a multiple of
+    8; a launch past 256 valid keys is counted in ``launches_long`` too)
+    or raises."""
     if x.device.type == "cpu":
         return attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,
                                     num_heads, eps=eps, n_valid=n_valid)
@@ -458,6 +460,7 @@ def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
     dbqkv = torch.empty((3 * d,), dtype=f32, device=dev)
     dwo = torch.empty((d, d), dtype=f32, device=dev)
     dbo = torch.empty((d,), dtype=f32, device=dev)
+    long_path = ctypes.c_int(0)
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
         work = torch.empty((lib.vft_attn_bwd_workspace(b, n, d),),
@@ -468,13 +471,15 @@ def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
             dln.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
             dwo.data_ptr(), dbo.data_ptr(), work.data_ptr(), b, n, d,
             num_heads, n_valid, float(eps), 1.0 / math.sqrt(d // num_heads),
-            stream)
+            stream, ctypes.byref(long_path))
     _kernels.check(err, "attn_block_bwd")
     attn_block_bwd.launches += 1
+    attn_block_bwd.launches_long += long_path.value
     return dx, dln[:d], dln[d:], dwqkv, dbqkv, dwo, dbo
 
 
 attn_block_bwd.launches = 0
+attn_block_bwd.launches_long = 0      # of those, past 256 valid keys
 
 
 class AttnBlockFunction(torch.autograd.Function):

@@ -24,7 +24,8 @@ CPU tensor:
   of the big-weight geometries under ``mlp_impl="pallas"`` (ViT-L: 2
   chunks, ViT-H: 4): replaces ``_mlp_chunk_kernel`` over the chunk loop of
   ``fused_mlp_chunked_pallas``, K3 with two-pass LN statistics computed in
-  the kernel and no stats output.  ``fused_mlp_chunked``
+  the kernel and no stats output (a row pass, then K3's two launches on
+  ``csrc/gemm_wgmma.cuh``).  ``fused_mlp_chunked``
   (``FusedMLPChunkedFunction``) is its differentiable form, whose backward
   is the VJP of :func:`fused_mlp_xla`, as the JAX ``custom_vjp``.
 
@@ -39,19 +40,19 @@ CLIP ViT-L/14 batch 64 (T = 16 896, D = 1024, M = 4096): 4·T·D·M
 (283 GFLOP, 287 us), also bound by operations; K6 at ViT-L/16 batch 8
 (T = 1 600): 26.8 GFLOP, 27 us.  (989 TFLOP/s is the
 H100 SXM's dense bf16 peak at its 700 W limit.)
-Designs: K2, K3 and K5 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh``
+Designs: K2, K3, K5 and K6 on the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh``
 (a producer warpgroup streaming tiles into a shared-memory ring, two
 consumer warpgroups, the LayerNorm applied to the landed A tiles, the
 activation and residual in the epilogue; K5 first takes its two-pass
-statistics in a row pass; K3's down-projection runs the epilogue at each
-chunk boundary inside the K loop); K24 on the same GEMM in the backward's
+statistics in a row pass, K6 likewise before K3's launches; K3's and K6's
+down-projection runs the epilogue at each chunk boundary inside the K
+loop); K24 on the same GEMM in the backward's
 layouts (the weight read K-major for the data gradients, the activation
 read MN-major for the weight gradients, which split their token rows over
 the card and add the f32 partials in a fixed order), act and act' from
 their closed forms in the h GEMM's epilogue, every bias and LN gradient a
-fixed-order column sum; K6 on bf16 wmma GEMMs with f32 accumulation, the
-LayerNorm applied to the first GEMM's A tiles in shared memory.  The
-(T, M) hidden tensors round-trip through device memory (later work).
+fixed-order column sum.  The (T, M) hidden tensors round-trip through
+device memory (later work).
 
 Semantics follow the JAX kernels: f32 LayerNorm, bf16 GEMMs with f32
 accumulation, activation in f32, residual add in the input dtype.
@@ -394,7 +395,8 @@ def fused_mlp_chunked(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
 def _cuda_geometry(x, w1, multiple=32):
     """Shape checks shared by the K5 / K6 / K24 launches: (t, d, m).  K5's
     wgmma GEMMs take D and M multiples of 8 (TMA's 16-byte strides); K6's
-    wmma GEMMs, and K24's launch, multiples of 32."""
+    gate (the TPU kernel's chunk tiling) and K24's launch multiples of
+    32."""
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape

@@ -73,10 +73,12 @@ UNEXPECTED = "unexpected:"
 # ln_rows_kernel, gf_kernel (da, h and the activation backward on one
 # tile), gw_kernel in its backward layouts (<..., LAYOUT, EPI>: 1, 1 B
 # K-major to f32; 2, 1 A MN-major to f32 split-K partials),
-# gw_split_sum_kernel, colsum and ln_bwd_kernel:
-# any other attn_half::, mlp_half::, attn_block::, mlp::, mlp_chunk:: or
-# mlp_bwd:: record, such as the wmma gemm_bf16_kernel or attn_kernel /
-# attn_long_kernel they ran before, is reported as unexpected),
+# gw_split_sum_kernel, colsum and ln_bwd_kernel; K23 the same GEMM layouts
+# (and <..., 1, 0>: B K-major to bf16) around its bwd_q_kernel and
+# bwd_kv_kernel; K6 ln_rows_kernel and K3's two gw_kernel launches:
+# any other attn_half::, mlp_half::, attn_block::, mlp::, mlp_chunk::,
+# mlp_chunk_blk::, attn_bwd:: or mlp_bwd:: record, such as the wmma GEMM or
+# attention tiles they ran before, is reported as unexpected),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # int8 GEMM's template
 # argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
@@ -132,8 +134,10 @@ STAGES = (
     ("mha::seq_attn_f32_kernel", "K7 / K8 attention, f32"),
     ("mha::mha_wgmma_kernel", "K7 / K8 attention, bf16"),
     ("mlp_chunk_blk::ln_rows_kernel", "K6 (a) LN stats"),
-    ("mlp_chunk_blk::gemm_bf16_kernel<true", "K6 (b) LN + W1 GEMM + act"),
-    ("mlp_chunk_blk::chunk_down_kernel", "K6 (c) chunked W2 GEMM + residual"),
+    ("mlp_chunk_blk::gw_kernel<true", "K6 (b) LN + W1 GEMM + act"),
+    ("mlp_chunk_blk::gw_kernel<false,true",
+     "K6 (c) chunked W2 GEMM + residual"),
+    ("mlp_chunk_blk::", UNEXPECTED + " K6 kernel"),
     ("int8_gemm::", "K13 int8 GEMM"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
     ("attn_block::gw_kernel<true", "K4 (b) LN + QKV GEMM"),
@@ -146,14 +150,16 @@ STAGES = (
     ("mlp::gw_kernel<false", "K5 (c) W2 GEMM + residual"),
     ("mlp::", UNEXPECTED + " K5 kernel"),
     ("attn_bwd::ln_rows_kernel", "K23 (a) LN + xn"),
-    ("attn_bwd::gemm_bf16_kernel<false,false,false>", "K23 (b) QKV recompute"),
-    ("attn_bwd::gemm_bf16_kernel<false,false,true>",
-     "K23 (c, h) gw = g Wo^T, dxn = dqkv Wqkv^T"),
-    ("attn_bwd::attn_bwd_kernel", "K23 (d) attention backward"),
-    ("attn_bwd::gemm_bf16_kernel<false,true,false>",
-     "K23 (e, f) dWo, dWqkv"),
-    ("attn_bwd::colsum", "K23 (g) bias and LN column sums"),
-    ("attn_bwd::ln_bwd_kernel", "K23 (i) LN backward"),
+    ("attn_bwd::gw_kernel<false,false,0,0>", "K23 (b) QKV recompute"),
+    ("attn_bwd::gw_kernel<false,false,1,0>", "K23 (c) gw = g Wo^T"),
+    ("attn_bwd::bwd_q_kernel", "K23 (d) attention backward: ao, dq"),
+    ("attn_bwd::bwd_kv_kernel", "K23 (e) attention backward: dk, dv"),
+    ("attn_bwd::gw_kernel<false,false,2,1>", "K23 (f, g) dWo, dWqkv partials"),
+    ("attn_bwd::gw_split_sum_kernel", "K23 (f, g) split-K sums"),
+    ("attn_bwd::gw_kernel<false,false,1,1>", "K23 (i) dxn = dqkv Wqkv^T"),
+    ("attn_bwd::colsum", "K23 (h) bias and LN column sums"),
+    ("attn_bwd::ln_bwd_kernel", "K23 (j) LN backward"),
+    ("attn_bwd::", UNEXPECTED + " K23 kernel"),
     ("mlp_bwd::ln_rows_kernel", "K24 (a) LN + xn"),
     ("mlp_bwd::gf_kernel", "K24 (b, c) da = g W2^T, h recompute, act "
      "backward"),
