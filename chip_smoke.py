@@ -91,7 +91,12 @@ Phases, each of which raises on failure (exit code != 0):
               filter and K13 (int8_gemm) against their plain versions bit
               for bit (K25 also against filter_image_numpy) at 1080 x 1920,
               33 x 45, 1 x 1 and at (10000, 784) x 256, (10000, 256) x 10,
-              (12800, 768) x 3072, 1 x 1 x 1, right after the build; their
+              (12800, 768) x 3072, 1 x 1 x 1, and (since K13 runs on int8
+              wgmma + TMA) at its tiles' edges (M 1 and 129, N 1, 3, 10 and
+              1002 that no TMA store takes, N 8 and 128 on 128-wide tiles
+              stored by TMA, K 1, 33 and 784), the per-tensor forward's
+              (12608, 768) x 2304 and (12608, 3072) x 768, and all -128
+              operands at K 3072, right after the build; their
               times beside the plain version, torch._int_mm / F.conv2d
               yardsticks and the bound; NetCUDA 784 -> [256, 10] at batch
               10 000 against NetCPU (f32, bf16 in bands; int8 bit for bit
@@ -147,13 +152,17 @@ Phases, each of which raises on failure (exit code != 0):
               K6 (fused_mlp_chunked) against their plain versions (this
               runs first, right after the build): K9 and K7 on ViT-B/16
               @1024's packed (1, 4104, 2304) qkv with 4097 valid keys, K9
-              also at bk 512 and 1100 tokens, K7 in f32 at the per-tensor
-              path's (64, 197, 2304), K8 in bf16 and f32, loud padding keys
-              that must leave the valid rows bit for bit, the bf16 K7 / K8
-              (wgmma + TMA) at one partial tile (17, 64 tokens), at a key
-              tile's edge (127-129 valid of 200), at 224 px and (3, 12,
-              300, 64), also in norm, and into views of a loud buffer
-              whose other rows and heads must not change, the f32 K7 / K8
+              also at bk 512 and 1100 tokens and (since K9 is the online
+              mode of mha_wgmma.cuh) with keys that grow along the sequence,
+              so that the running max rises in later key blocks, at bk 128,
+              384 and 512, 512 / 513 and 1024 / 1025 valid, K7 in f32 at
+              the per-tensor path's (64, 197, 2304), K8 in bf16 and f32,
+              loud padding keys that must leave the valid rows bit for
+              bit, the bf16 K7 / K8 (wgmma + TMA) at one partial tile
+              (17, 64 tokens), at a key tile's edge (127-129 valid of
+              200), at 224 px and (3, 12, 300, 64), also in norm, and
+              into views of a loud buffer whose other rows and heads must
+              not change, the f32 K7 / K8
               (one pass, register-tiled) at 1, 63, 64, 65, 197 valid of
               200, 577 of 584 and (1, 2, 1100, 64), K6 (K3's two wgmma
               launches after a row pass) at ViT-L's and ViT-H's MLP shapes
@@ -2393,6 +2402,16 @@ def run_latency_phases(errors, timing, launches):
 # GEMM; the 1080p frame of the reference's image ring; ragged edges.
 K13_SHAPES = ((10000, 784, 256), (10000, 256, 10), (12800, 768, 3072),
               (1, 1, 1))
+# K13's wgmma tiles' edges (M past a 128-row tile; N 1, 3, 10 and 1002,
+# whose int32 rows no TMA store takes, the last on 256-wide tiles; N 8 and
+# 128 on 128-wide tiles stored by TMA; K 1 padded to 16, 33, and 784 with
+# its partial 128-deep step) and the per-tensor int8 forward's two widest
+# GEMMs.  Then all -128 operands at K 3072, where the int32 sums are
+# largest.
+K13_EDGES = ((1, 784, 256), (129, 784, 256), (129, 33, 1), (129, 1, 3),
+             (300, 784, 10), (257, 200, 1002), (129, 784, 8),
+             (300, 784, 128), (12608, 768, 2304), (12608, 3072, 768))
+K13_MINUS_128 = ((200, 3072, 8), (64, 3072, 300))
 K25_SHAPES = ((1080, 1920), (33, 45), (1, 1))
 DENSE_BATCH = 10000
 # NetCUDA against the NumPy oracle NetCPU at batch 10 000, relative to the
@@ -2440,17 +2459,25 @@ def phase_dense_kernels():
         print(f"parity K25 filter_image_device {h}x{w}: all four filters bit "
               f"for bit with the plain version and filter_image_numpy")
     gen = _gen(61)
-    for m, k, n in K13_SHAPES:
-        a, b = _int8_rand(gen, m, k), _int8_rand(gen, k, n)
+    cases = ([(m, k, n, None) for m, k, n in K13_SHAPES + K13_EDGES]
+             + [(m, k, n, -128) for m, k, n in K13_MINUS_128])
+    for m, k, n, fill in cases:
+        if fill is None:
+            a, b = _int8_rand(gen, m, k), _int8_rand(gen, k, n)
+        else:
+            a = torch.full((m, k), fill, dtype=torch.int8, device="cuda")
+            b = torch.full((k, n), fill, dtype=torch.int8, device="cuda")
         got = quant.int8_gemm(a, b)
         want = quant.int8_gemm_plain(a, b)
         torch.cuda.synchronize()
+        what = (f"K13 ({m}, {k}) x ({k}, {n})"
+                + ("" if fill is None else f" all {fill}"))
         if got.dtype != torch.int32 or not torch.equal(got, want):
             bad = int((got != want).sum())
-            raise AssertionError(f"K13 ({m}, {k}) x ({k}, {n}): {bad} "
-                                 f"elements differ from the plain version")
-        print(f"parity K13 int8_gemm ({m}, {k}) x ({k}, {n}): bit for bit "
-              f"with the plain version (|acc| max {int(want.abs().max())})")
+            raise AssertionError(f"{what}: {bad} elements differ from the "
+                                 f"plain version")
+        print(f"parity {what}: bit for bit with the plain version (|acc| "
+              f"max {int(want.abs().max())})")
     return {"filter_image_device": 0.0, "int8_gemm": 0.0}
 
 
@@ -2541,7 +2568,7 @@ def phase_dense_timing():
         bp = torch.zeros((kp, np_), dtype=torch.int8, device="cuda")
         bp[:k, :n] = b
         bp = kmajor(bp)
-        ms = _device_ms(lambda: quant.int8_gemm(a, b), "qgemm_kernel",
+        ms = _device_ms(lambda: quant.int8_gemm(a, b), "qgemm_wgmma_kernel",
                         quant.int8_gemm)
         call_ms = time_cuda(lambda: quant.int8_gemm(a, b))
         plain_ms = time_cuda(lambda: quant.int8_gemm_plain(a, b), iters=5,
@@ -3728,6 +3755,15 @@ def _seq_qkv(batch, n, d, seed, dtype=torch.bfloat16, std=1.0):
     return _randn(_gen(seed), batch, n, 3 * d, std=std).to(dtype)
 
 
+# (b, h, n, n_valid, bk) of K9's late-max cases: n_valid at the end of a
+# 128-key tile and one past it, at the per-block path's bk 128, the flash
+# impl's 512 (1025 keys: a last block of one tile) and 384 (blocks of three
+# tiles).
+K9_LATE_MAX = ((1, 4, 640, 512, 128), (1, 4, 640, 513, 128),
+               (1, 4, 1152, 1024, 512), (2, 2, 1152, 1025, 512),
+               (1, 2, 1152, 1025, 384))
+
+
 def _k9(qkv, heads, n_valid, fn, bk=128):
     """K9 (or its plain version, ``fn``) on packed qkv as the per-block
     path runs it: bq 512, bk 128, the head split and merge as views."""
@@ -3870,6 +3906,23 @@ def phase_per_block_kernels():
                    for _ in range(3))
         k9 = max(k9, _compare(
             f"K9 ({b}, {h}, {n}, 64) n_valid={nv} bk={bk}",
+            fa.flash_attention(q, k, v, nv, bk=bk),
+            fa.flash_attention_plain(q, k, v, nv, bk=bk), BF16_TOL,
+            BF16_TOL))
+    print("parity K9 with a late max: keys scaled by 0.2 .. 3 along the "
+          "sequence, so that the running max rises in later key blocks")
+    for b, h, n, nv, bk in K9_LATE_MAX:
+        g = _gen(186 + nv + bk)
+        q, k, v = (_randn(g, b, h, n, 64) for _ in range(3))
+        k = k * torch.linspace(0.2, 3.0, n, device="cuda")[None, None, :,
+                                                             None]
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        late = (q.float() @ k[:, :, :nv].float().transpose(-1, -2)
+                ).argmax(-1) >= bk
+        k9 = max(k9, _compare(
+            f"K9 late max ({b}, {h}, {n}, 64) n_valid={nv} bk={bk} "
+            f"({float(late.float().mean()):.0%} of rows peak past the first "
+            f"block)",
             fa.flash_attention(q, k, v, nv, bk=bk),
             fa.flash_attention_plain(q, k, v, nv, bk=bk), BF16_TOL,
             BF16_TOL))
@@ -5227,7 +5280,7 @@ def check_wgmma_serialisation(build_log: str) -> None:
     the log holds no ptxas report of the wgmma kernels to read."""
     lines = build_log.splitlines()
     for kernel in ("gw_kernel", "mha_wgmma_kernel", "bwd_q_kernel",
-                   "bwd_kv_kernel"):
+                   "bwd_kv_kernel", "qgemm_wgmma_kernel"):
         if not any("Compiling entry function" in ln and kernel in ln
                    for ln in lines):
             raise AssertionError(f"the build log holds no ptxas report of "

@@ -1,13 +1,13 @@
-"""K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's or K6's time at a
-shape, from the package tree found under ROOT, so that two versions of the
-port are compared in one call on one card.
+"""K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's or K9's
+time at a shape, from the package tree found under ROOT, so that two
+versions of the port are compared in one call on one card.
 
 Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
-        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6]
+        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9]
         [--shape B N_PAD N_VALID D HEADS]
-        [--mlp-shape T D M] [--one-consumer]
+        [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
 time, e.g. a ``git archive`` of another commit unpacked under ``_chip/``; its
@@ -51,7 +51,19 @@ step (where the tree trains it); ``--kernel k6`` times
 ``fused_mlp_chunked_fwd`` (gelu_tanh) at ViT-L/16 b8's (1600, 1024) x 4096
 in 2 chunks and ViT-H/14 b8's (2112, 1280) x 5120 in 4, each beside its
 library call (LN + each chunk's addmm + tanh-GELU + addmm) and device
-alone, step by step, with K1, K2, K5 and K3 as controls.
+alone, step by step, with K1, K2, K5 and K3 as controls; ``--kernel k13``
+times ``int8_gemm`` at the dense net's (10 000, 784) x 256 and (10 000,
+256) x 10, ViT-B's (12 800, 768) x 3072 and the per-tensor int8 forward's
+(12 608, 768) x 2304 and (12 608, 3072) x 768, per call and device alone,
+each beside ``torch._int_mm`` on the shape padded to what it takes, then
+the per-tensor int8 ViT-B/16 b64 forward (``make_vit_forward_int8``, 50
+K13 + 12 K7 f32) and the dense net's int8 forward at batch 10 000 on the
+card (2 K13); ``--kernel k9`` times ``flash_attention`` on ViT-B/16 @1024's
+packed (B, 4104, 2304) qkv with 4097 valid keys at bk 128, b1 and b4, and
+at (1, 12, 4104, 64) with bk 512, per call and device alone, each beside
+SDPA with the key mask, with K7 bf16 at (1, 4104, 2304) and K4 at (64,
+200, 768) as controls, then the ViT-B/16 @1024 b1 forward in bf16 (12 K9
++ 12 K5) and in dynamic int8 (12 K9 + 49 K14).
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -60,6 +72,14 @@ git-ignored ``_chip/k1_one_consumer/``) whose attention kernel
 (``csrc/mha_wgmma.cuh``) takes 64 query rows a block on one consumer
 warpgroup instead of 128 on two: Q's TMA box shrinks to 64 rows, K's and
 V's stay 128, and the ring (4 stages, 137 KB) keeps one block an SM.
+``--qgemm VARIANT`` times a copy of ROOT's package (under ROOT's
+``_chip/qgemm_VARIANT/``) whose int8 GEMM (``csrc/qgemm_wgmma.cuh``, K13)
+has another tile width, ring depth or staging of its int32 tiles (4
+stages and 2 staged 8 KB pieces a consumer warpgroup as built):
+``tile128`` / ``tile256`` 128- / 256-wide tiles at every N, ``s2_b8`` 2
+stages and the whole tile staged (8 pieces at 256 columns, 4 at 128),
+``s3_b4`` 3 stages and 4 pieces at 256 columns, ``s4_regs`` no staging
+(every output stored from the registers, as those TMA cannot take).
 """
 
 from __future__ import annotations
@@ -92,19 +112,43 @@ ONE_CONSUMER = (
 )
 
 
-def one_consumer_copy(root: Path) -> Path:
-    copy = root / "_chip" / "k1_one_consumer"
+# (file under csrc/, text, replacement) of each --qgemm variant.
+_QW = "qgemm_wgmma.cuh"
+_TILE_N = "{ return N <= 128 ? 128 : 256; }"
+QGEMM_VARIANTS = {
+    "tile128": ((_QW, _TILE_N, "{ return 128; }"),),
+    "tile256": ((_QW, _TILE_N, "{ return 256; }"),),
+    "s2_b8": ((_QW, "QW_STAGES_256 = 4;", "QW_STAGES_256 = 2;"),
+              (_QW, "QW_EPI_BUFS_256 = 2;", "QW_EPI_BUFS_256 = 8;"),
+              (_QW, "QW_EPI_BUFS_128 = 2;", "QW_EPI_BUFS_128 = 4;")),
+    "s3_b4": ((_QW, "QW_STAGES_256 = 4;", "QW_STAGES_256 = 3;"),
+              (_QW, "QW_EPI_BUFS_256 = 2;", "QW_EPI_BUFS_256 = 4;")),
+    "s4_regs": ((_QW, "QW_EPI_BUFS_256 = 2;", "QW_EPI_BUFS_256 = 1;"),
+                (_QW, "QW_EPI_BUFS_128 = 2;", "QW_EPI_BUFS_128 = 1;"),
+                (_QW, "const bool tma_store = N % 4 == 0;",
+                 "const bool tma_store = false;")),
+}
+
+
+def patched_copy(root: Path, name: str, edits) -> Path:
+    """ROOT's package copied under ROOT's ``_chip/name/`` with ``edits``
+    (file under csrc/, text, replacement) made, each text found once."""
+    copy = root / "_chip" / name
     # over an earlier copy, whose _build/ a later run reuses
     shutil.copytree(root / "vit_fpga_tpu_torch", copy / "vit_fpga_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"),
                     dirs_exist_ok=True)
-    for name, old, new in ONE_CONSUMER:
-        src = copy / "vit_fpga_tpu_torch" / "csrc" / name
+    for file, old, new in edits:
+        src = copy / "vit_fpga_tpu_torch" / "csrc" / file
         text = src.read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} not found once")
+            raise RuntimeError(f"{file}: {old!r} not found once")
         src.write_text(text.replace(old, new))
     return copy
+
+
+def one_consumer_copy(root: Path) -> Path:
+    return patched_copy(root, "k1_one_consumer", ONE_CONSUMER)
 
 
 def time_k5_paths(g):
@@ -211,6 +255,59 @@ def device_steps(fn, iters=20):
             if e.device_time_total > 0 and e.count >= iters // 2}
 
 
+def time_k13_paths(g):
+    """The paths that run K13, five estimates each: the per-tensor int8
+    ViT-B/16 b64 forward from uint8 (quantize_vit of seeded f32 weights:
+    50 K13 + 12 K7 in f32) and the dense net's int8 forward (784 -> [256,
+    10], 2 K13) on a (10 000, 784) f32 batch already on the card."""
+    import numpy as np
+    import torch
+    from vit_fpga_tpu_torch.backends.cuda import NetCUDA
+    from vit_fpga_tpu_torch.defines import ACT_IDENTITY, ACT_RELU2, random_net
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", dtype="float32")
+    fwd = quantized.make_vit_forward_int8(cfg, quantized.quantize_vit(
+        vit.init_params(cfg, g, device="cuda")))
+    img = torch.randint(0, 256, (64, 224, 224, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    out = {"per-tensor int8 ViT-B/16 b64 forward (uint8 in)":
+           [time_cuda(lambda: fwd(img), iters=5, warmup=2)
+            for _ in range(5)]}
+    net = NetCUDA(random_net(784, [256, 10], seed=0,
+                             activations=[ACT_RELU2, ACT_IDENTITY]),
+                  compute_dtype="int8")
+    x = np.random.default_rng(64).integers(0, 256, (10000, 784)) / 255.0
+    net.forward_batch(x[:8].astype(np.float32))  # quantizes the weights once
+    xt = torch.tensor(x, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        out["dense int8 forward b10000 (input on the card)"] = [
+            time_cuda(lambda: net._forward_int8(xt), iters=20, warmup=5)
+            for _ in range(5)]
+    return out
+
+
+def time_k9_paths(g):
+    """The paths that run K9, five estimates each: the ViT-B/16 @1024 b1
+    forward from uint8, bf16 (12 K9 + 12 K5) and dynamic int8
+    (quantize_vit_fast: 12 K9 + 49 K14), seeded random weights."""
+    import torch
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", image_size=1024, dtype="bfloat16")
+    params = vit.init_params(cfg, g, device="cuda")
+    img = torch.randint(0, 256, (1, 1024, 1024, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    fwd = vit.make_forward(cfg, params)
+    fq = quantized.make_forward_int8(cfg, quantized.quantize_vit_fast(params))
+    return {"ViT-B/16 @1024 b1 bf16 forward (uint8 in)":
+            [time_cuda(lambda: fwd(img), iters=5, warmup=2)
+             for _ in range(5)],
+            "ViT-B/16 @1024 b1 dynamic int8 forward (uint8 in)":
+            [time_cuda(lambda: fq(img), iters=5, warmup=2)
+             for _ in range(5)]}
+
+
 def time_safe_forward(g):
     """The bf16 ViT-L/16 @224 b64 forward with ``safe_softmax`` (the
     per-block path: 24 K4 in the safe mode and the MLP half the JAX plan
@@ -249,7 +346,7 @@ def main() -> int:
                     default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--kernel",
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
-                             "k23", "k6"),
+                             "k23", "k6", "k13", "k9"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -257,10 +354,14 @@ def main() -> int:
     ap.add_argument("--mlp-shape", type=int, nargs=3,
                     default=[12800, 768, 3072], metavar=("T", "D", "M"))
     ap.add_argument("--one-consumer", action="store_true")
+    ap.add_argument("--qgemm", choices=sorted(QGEMM_VARIANTS))
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if args.one_consumer:
         root = one_consumer_copy(root)
+    if args.qgemm:
+        root = patched_copy(root, f"qgemm_{args.qgemm}",
+                            QGEMM_VARIANTS[args.qgemm])
     sys.path.insert(0, str(root))
     import torch
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -540,6 +641,66 @@ def main() -> int:
         runs[f"K5 control {tuple(args.mlp_shape)}"] = (
             lambda x=x, p=p: fm.fused_mlp_fwd(x, *p, eps=1e-6,
                                               act="gelu_tanh"))
+    elif args.kernel == "k13":
+        from vit_fpga_tpu_torch.ops import quant
+        from vit_fpga_tpu_torch.ops.common import round_up
+        from vit_fpga_tpu_torch.ops.quant_fused import kmajor
+        shape = [[10000, 784, 256], [10000, 256, 10], [12800, 768, 3072],
+                 [12608, 768, 2304], [12608, 3072, 768]]
+        runs = {}
+
+        def int8(*s):
+            return torch.randint(-127, 128, s, generator=g,
+                                 dtype=torch.int8).cuda()
+
+        for m, k, n in shape:
+            a, b = int8(m, k), kmajor(int8(k, n))
+            kp, np_ = round_up(k, 8), round_up(n, 8)
+            ap = torch.zeros((max(m, 17), kp), dtype=torch.int8,
+                             device="cuda")
+            ap[:m, :k] = a
+            bp = torch.zeros((kp, np_), dtype=torch.int8, device="cuda")
+            bp[:k, :n] = b
+            bp = kmajor(bp)
+            label = f"({m}, {k}) x {n}"
+            kern = (lambda a=a, b=b: quant.int8_gemm(a, b))
+            lib = (lambda ap=ap, bp=bp: torch._int_mm(ap, bp))
+            runs[f"K13 {label} per call"] = kern
+            runs[f"torch._int_mm {label} padded per call"] = lib
+            device[f"K13 {label} device alone"] = kern
+            device[f"torch._int_mm {label} padded device alone"] = lib
+    elif args.kernel == "k9":
+        from vit_fpga_tpu_torch.ops import attention as at
+        from vit_fpga_tpu_torch.ops import flash_attention as fa
+        shape = [[1, 4104, 2304], [4, 4104, 2304], [1, 12, 4104, 64]]
+        runs = {}
+        keep = (torch.arange(4104, device="cuda") < 4097)[None, None, None]
+        for b in (1, 4):
+            qkv = randn(b, 4104, 2304, std=2.0).to(torch.bfloat16)
+            q, k, v = (t.contiguous() for t in at._heads(qkv, 12))
+
+            def kern(qkv=qkv):  # as the per-block path runs K9
+                o = fa.flash_attention(*at._heads(qkv, 12), 4097, bq=512,
+                                       bk=128)
+                return o.transpose(1, 2).reshape(qkv.shape[0], 4104, 768)
+
+            lib = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep))
+            label = f"({b}, 4104, 2304) n_valid 4097"
+            runs[f"K9 {label} bk 128 per call"] = kern
+            runs[f"SDPA {label} key mask per call"] = lib
+            device[f"K9 {label} bk 128 device alone"] = kern
+            device[f"SDPA {label} key mask device alone"] = lib
+            if b == 1:
+                runs[f"K7 bf16 control {label}"] = (
+                    lambda qkv=qkv: at.mha_qkv_pallas(qkv, 12, 4097))
+        q, k, v = (randn(1, 12, 4104, 64, std=2.0).to(torch.bfloat16)
+                   for _ in range(3))
+        kern = (lambda: fa.flash_attention(q, k, v, 4097))
+        runs["K9 (1, 12, 4104, 64) n_valid 4097 bk 512 per call"] = kern
+        device["K9 (1, 12, 4104, 64) n_valid 4097 bk 512 device alone"] = kern
+        runs["K4 control (64, 200, 768) n_valid 197"] = k4_run(
+            64, 200, 197, 768, 12, False)[0]
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}
@@ -567,7 +728,8 @@ def main() -> int:
 
     ms = {label: [time_cuda(fn, iters=20, warmup=5) for _ in range(5)]
           for label, fn in runs.items()}
-    ms.update({label: [device_alone_ms(fn, 200 if args.kernel == "k26"
+    ms.update({label: [device_alone_ms(fn, 200 if args.kernel in ("k26",
+                                                                  "k13")
                                        else 20) for _ in range(3)]
                for label, fn in device.items()})
     for label, fn in steps.items():  # each step alone, three estimates
@@ -580,6 +742,10 @@ def main() -> int:
         ms.update(time_clip_forward(g))
     if args.kernel == "k4":
         ms.update(time_safe_forward(g))
+    if args.kernel == "k13":
+        ms.update(time_k13_paths(g))
+    if args.kernel == "k9":
+        ms.update(time_k9_paths(g))
     if args.kernel in ("k24", "k23"):
         ms.update(time_sgd_step(g))
     if args.kernel == "k23":

@@ -190,7 +190,7 @@ def main() -> int:
         b = kmajor(torch.randint(-127, 128, (k, n), generator=g,
                                  dtype=torch.int8).cuda())
         cases[f"K13 ({m}, {k}) x {n}"] = (
-            lambda a=a, b=b: quant.int8_gemm(a, b), "qgemm_kernel")
+            lambda a=a, b=b: quant.int8_gemm(a, b), "qgemm_wgmma_kernel")
     for name, (fn, kernel) in cases.items():
         print(f"{name}: device {device_ms(fn, kernel):.4f} ms, per call back "
               f"to back {time_cuda(fn, iters=50):.4f} ms")

@@ -42,10 +42,11 @@ run_copy k19b_layer0_scales vit_stack_int8_static.cu \
 # K25 rounding half away from zero: the blur puts many pixels on a half
 run_copy k25_roundf image_filter.cu \
   "static_cast<int>(rintf(acc))" "static_cast<int>(roundf(acc))"
-# K13 without its last partial K step (the shared int8 GEMM's K loop; only
-# K13 has a ragged K: 784 = 12 x 64 + 16 in the dense net, 1 padded to 16)
-run_copy k13_no_partial_k_tile quant.cuh \
-  "const int nk = (p.K + QG_BK - 1) / QG_BK;" "const int nk = p.K / QG_BK;"
+# K13 without its last partial K step (the int8 wgmma GEMM's K-step count
+# rounded down: 784 = 6 x 128 + 16 in the dense net loses its last 16, K 16
+# (1 padded) all of it)
+run_copy k13_no_partial_k_tile qgemm_wgmma.cuh \
+  "const int nk = (p.K + QW_BK - 1) / QW_BK;" "const int nk = p.K / QW_BK;"
 # K3 adding b2 on every chunk instead of the last one only (the chunk
 # boundary's epilogue in the wgmma GEMM's K loop, which only K3 runs)
 run_copy k3_b2_every_chunk gemm_wgmma.cuh \
@@ -65,9 +66,10 @@ run_copy k12_no_cls_posb vit_full.cu \
 run_copy k20_head_no_rowquant stack_i8.cuh \
   "last ? (fin ? lfs : nullptr)" "last ? nullptr"
 # K9 without the alpha rescale of acc and l when a key block raises the
-# running max
-run_copy k9_no_alpha_rescale seq_attn.cuh \
-  "const float alpha = expf(m[rr] - mn);" "const float alpha = 1.0f;"
+# running max (the online mode of the wgmma attention, both at bk 128 and
+# at the longer blocks)
+run_copy k9_no_alpha_rescale mha_wgmma.cuh \
+  "alpha[rr] = ex2(m2[rr] - mn[rr]);" "alpha[rr] = 1.0f;"
 # K7 and K8 in bf16 with the n_valid mask one key late (the key at n_valid,
 # zero-filled by TMA, joins the softmax: 1/18 of the output at 17 keys)
 run_copy k7_k8_mask_one_late mha_wgmma.cuh \

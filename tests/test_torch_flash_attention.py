@@ -57,6 +57,42 @@ def test_flash_plain_matches_pallas(n, n_valid, bq, bk, dtype):
     _close(got, want, dtype)
 
 
+def _late_max_qkv(seed, n, dtype):
+    """(1, 2, n, 64) q, k, v whose keys grow along the sequence (k row j
+    scaled by 0.2 .. 3), so that each row's running max rises in later key
+    blocks and alpha = exp(m - m_new) rescales what the earlier blocks
+    summed."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(1, 2, n, 64)).astype(np.float32)
+               for _ in range(3))
+    k = k * np.linspace(0.2, 3.0, n, dtype=np.float32)[None, None, :, None]
+    dj = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    js = [jnp.asarray(a).astype(dj) for a in (q, k, v)]
+    ts = [torch.from_numpy(np.array(j.astype(jnp.float32)))
+          .to(getattr(torch, dtype)) for j in js]
+    return js, ts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [128, 512])
+@pytest.mark.parametrize("edge", [0, 1])
+def test_flash_plain_matches_pallas_when_the_max_rises_late(edge, bk, dtype):
+    """K9's plain version vs ``flash_attention(interpret=True)`` where the
+    row max rises in a later key block (alpha matters), with n_valid at the
+    end of a 128-key tile (edge 0: 512 keys at bk 128, 1024 at bk 512) and
+    one past it (edge 1: a last key block of one valid key)."""
+    n_valid = max(4 * 128, 2 * bk) + edge
+    n = n_valid - edge + 128
+    js, ts = _late_max_qkv(n_valid + bk, n, dtype)
+    want = jflash(*js, n_valid=n_valid, bq=128, bk=bk, interpret=True)
+    got = tflash.flash_attention(*ts, n_valid=n_valid, bq=128, bk=bk)
+    _close(got, want, dtype)
+    # the inputs do what they are for: most rows' max over the valid keys
+    # lies past the first key block
+    s = ts[0].float() @ ts[1].float()[..., :n_valid, :].transpose(-1, -2)
+    assert (s.argmax(-1) >= bk).float().mean() > 0.5
+
+
 def test_flash_block_size_is_part_of_the_function():
     """In bf16, p is rounded against the running max after each key block,
     so bk 128 and bk 512 give different outputs (each matching JAX at its

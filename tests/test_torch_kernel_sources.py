@@ -142,3 +142,41 @@ def test_no_sum_of_the_port_uses_atomics():
     for name in ("gemm_wgmma.cuh", "mlp_bwd.cu", "norm.cuh"):
         text = (_kernels.CSRC / name).read_text()
         assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", text), name
+
+
+def test_k13_runs_on_the_int8_wgmma_gemm():
+    """K13 is qgemm_wgmma.cuh's int8 wgmma + TMA GEMM: no wmma, and not
+    quant.cuh's wmma GEMM."""
+    k13 = (_kernels.CSRC / "int8_gemm.cu").read_text()
+    assert '#include "qgemm_wgmma.cuh"' in k13
+    assert '#include "quant.cuh"' not in k13
+    assert "wmma" not in k13.split("#define VFT_NS")[1]
+    assert "launch_qgemm_wgmma(" in k13
+    gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
+    assert "wmma" not in gemm
+    for piece in ("wgmma_m64n256k32_s8(", "wgmma_m64n128k32_s8(",
+                  "tma_load_2d(", "tma_store_2d(", "tma_encode_s8(",
+                  "tma_encode_s32("):
+        assert piece in gemm, piece
+
+
+def test_k9_launches_the_online_mode_of_the_wgmma_attention():
+    """K9 is mha_wgmma.cuh's kernel in its online mode, not an mma.sync
+    kernel of seq_attn.cuh."""
+    k9 = (_kernels.CSRC / "flash_attn.cu").read_text()
+    assert '#include "mha_wgmma.cuh"' in k9
+    assert '#include "seq_attn.cuh"' not in k9
+    assert "launch_mha_wgmma<MW_ONLINE>(" in k9
+    assert "mha_wgmma_enable<MW_ONLINE>()" in k9
+    assert "MW_ONLINE" in (_kernels.CSRC / "mha_wgmma.cuh").read_text()
+
+
+def test_the_mma_sync_k9_kernel_and_the_raw_int32_epilogue_are_gone():
+    """Nothing under csrc/ keeps seq_attn.cuh's bf16 kernel (seq_attn_f32_
+    kernel stays: K7 / K8 in f32) or quant.cuh's EPI_I32 epilogue."""
+    for p in _kernels.CSRC.iterdir():
+        text = p.read_text()
+        for gone in (r"\bseq_attn_kernel\b", r"\blaunch_seq_attn\b",
+                     r"\bseq_attn_enable\b", r"EPI_I32", r"\bSQ_\w+"):
+            assert not re.search(gone, text), (p.name, gone)
+    assert "seq_attn_f32_kernel" in (_kernels.CSRC / "seq_attn.cuh").read_text()

@@ -25,11 +25,33 @@ def _int8(rng, *shape):
     return rng.integers(-127, 128, shape).astype(np.int8)
 
 
-@pytest.mark.parametrize("m,k,n", [(24, 784, 10), (1, 784, 256),
-                                   (17, 256, 10), (1, 1, 1), (5, 33, 7)])
-def test_plain_int8_gemm_equals_pallas_interpret(m, k, n):
+# (m, k, n, fill): the JAX tests' shapes (their ids as they were), then the
+# edges of K13's wgmma kernel: M past a 128-row tile (1, 129), N that no TMA
+# store takes (1, 3, 10: rows of 4, 12 and 40 bytes), K of 1 (padded to 16),
+# 33 and 784 (a partial 128-deep K step), and all -128 operands at K 3072,
+# where the int32 sums are largest (128 * 128 * 3072 = 50 331 648).
+INT8_GEMM_CASES = [
+    pytest.param(24, 784, 10, None, id="24-784-10"),
+    pytest.param(1, 784, 256, None, id="1-784-256"),
+    pytest.param(17, 256, 10, None, id="17-256-10"),
+    pytest.param(1, 1, 1, None, id="1-1-1"),
+    pytest.param(5, 33, 7, None, id="5-33-7"),
+    pytest.param(129, 784, 256, None, id="129-784-256"),
+    pytest.param(129, 33, 1, None, id="129-33-1"),
+    pytest.param(129, 1, 3, None, id="129-1-3"),
+    pytest.param(3, 784, 10, None, id="3-784-10"),
+    pytest.param(9, 3072, 12, -128, id="9-3072-12-all-minus-128"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,fill", INT8_GEMM_CASES)
+def test_plain_int8_gemm_equals_pallas_interpret(m, k, n, fill):
     rng = np.random.default_rng(m * 1000 + k + n)
-    a, b = _int8(rng, m, k), _int8(rng, k, n)
+    if fill is None:
+        a, b = _int8(rng, m, k), _int8(rng, k, n)
+    else:
+        a = np.full((m, k), fill, np.int8)
+        b = np.full((k, n), fill, np.int8)
     want = np.asarray(jquant.int8_gemm_pallas(jnp.asarray(a), jnp.asarray(b),
                                               interpret=True))
     got = tquant.int8_gemm(torch.from_numpy(a), torch.from_numpy(b))

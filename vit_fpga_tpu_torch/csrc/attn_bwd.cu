@@ -303,9 +303,9 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       }
       if (i + 1 < ntk) {
         stats_next(sa, sb, r, i, sl2, qd, ring, bars);
-        stats_last(sb, r, i + 1, p.n_valid, sl2, t4, bars);
+        stats_last(sb, r, i + 1, i + 1, p.n_valid, sl2, t4, bars);
       } else {
-        stats_last(sa, r, i, p.n_valid, sl2, t4, bars);
+        stats_last(sa, r, i, i, p.n_valid, sl2, t4, bars);
       }
     }
 #pragma unroll

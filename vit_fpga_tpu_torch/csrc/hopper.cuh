@@ -1,21 +1,24 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
-// (mha_wgmma.cuh: K7 / K8 and K1's attention; gemm_wgmma.cuh: K1's and
-// K2's GEMMs; attn_bwd.cu: K23's attention backward); include after
-// common.cuh.
+// (mha_wgmma.cuh: K7 / K8, K9 and K1's attention; gemm_wgmma.cuh: K1's and
+// K2's GEMMs; attn_bwd.cu: K23's attention backward; qgemm_wgmma.cuh: K13's
+// int8 GEMM); include after common.cuh.
 //
 //   mbarriers   init, expect_tx, arrive, and a bounded wait that traps
 //               after HP_SPIN_LIMIT tries instead of hanging the card
 //   TMA         2-D and 4-D tile loads and 1-D bulk copies completing an
-//               mbarrier's transaction bytes; the tensor maps are encoded
-//               on the host, at each launch, by cuTensorMapEncodeTiled,
-//               reached through cudaGetDriverEntryPoint so that nothing
-//               links libcuda
+//               mbarrier's transaction bytes, and 2-D tile stores from
+//               shared memory in bulk groups; the tensor maps (bf16, int8,
+//               int32) are encoded on the host, at each launch, by
+//               cuTensorMapEncodeTiled, reached through
+//               cudaGetDriverEntryPoint so that nothing links libcuda
 //   wgmma       the shared-memory descriptor of a 128-byte-swizzled tile,
 //               fence / commit / wait, m64n64k16 (both operands K-major),
 //               m64n128k16 (B K-major or MN-major) and m64n256k16 (either
 //               operand K-major or, through the transpose bit, MN-major)
 //               with both operands in shared memory, m64n64k16 with A in
-//               registers
+//               registers; in int8, m64n128k32 and m64n256k32 with s32
+//               sums, both operands K-major in shared memory (8-bit wgmma
+//               has no transpose bit)
 
 #pragma once
 
@@ -101,6 +104,35 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       " [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// One box of the 2-D map at {c0, c1} from shared memory at src (written
+// by this CTA's threads, who fenced it to the async proxy first) into
+// global memory, in the thread's current bulk group; TMA leaves out the
+// elements past the map's extents.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until every bulk group of this thread has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile of 128-byte
@@ -249,6 +281,73 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[32], uint32_t a0
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d (64 x 128, s32) (+)= A (64 x 32, int8, shared, K-major) B (32 x 128,
+// int8, shared, K-major); accumulate unless scale_d is 0.  The sums are
+// exact.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256, s32) (+)= A (64 x 32, int8, shared, K-major) B (32 x 256,
+// int8, shared, K-major); accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(uint32_t (&d)[128], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
+      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "
+      "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
+        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -287,16 +386,33 @@ inline cudaError_t tma_init() {
   return cudaSuccess;
 }
 
-// A bf16 map of `rank` dimensions (dims innermost first, byte strides of
-// dims 1.., boxes of `box`), 128-byte swizzled, zero past the extents.
-inline bool tma_encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box) {
+// A map of `type` and `rank` dimensions (dims innermost first, byte strides
+// of dims 1.., boxes of `box`), 128-byte swizzled, zero past the extents
+// (a store leaves them out).
+inline bool tma_encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return tma_encoder() != nullptr &&
-         tma_encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         tma_encoder()(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool tma_encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box) {
+  return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// int8 (as bytes: zero is zero either way) and int32 maps.
+inline bool tma_encode_s8(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box) {
+  return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box);
+}
+
+inline bool tma_encode_s32(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box) {
+  return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, base, rank, dims, strides, box);
 }
 
 }  // namespace VFT_NS

@@ -83,7 +83,7 @@ int vft_mha(const void* q, const void* k, const void* v, void* o, long long in_b
             int n_valid, int is_f32, float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_f32) {
-    SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, 0, scale};
+    SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, scale};
     return launch_seq_attn_f32(p, batch, st);
   }
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;

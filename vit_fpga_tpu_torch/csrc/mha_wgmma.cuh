@@ -1,5 +1,5 @@
 // Whole-sequence attention in bf16 on Hopper's own units, head dim 64;
-// include after common.cuh and hopper.cuh.  Three modes of one kernel:
+// include after common.cuh and hopper.cuh.  Four modes of one kernel:
 //   exact     (MW_EXACT; mha.cu K7 / K8) p = bf16(e / sum e) against the
 //             row's true max, two passes over the keys;
 //   max-free  (MW_MAXFREE; attn_half.cuh, K1's attention step and K4's
@@ -8,13 +8,17 @@
 //   safe      (MW_SAFE; K4 with safe_softmax) e = exp(s * scale - max),
 //             rounded to bf16 unnormalised: the exact mode's pass 1 (the
 //             row max alone), then the max-free mode's pass.
+//   online    (MW_ONLINE; flash_attn.cu K9) the blockwise online softmax
+//             of the TPU flash kernel, p rounded to bf16 against the
+//             running max of each key block of bk keys.
 //
 // One block per (MW_BQ query rows, image x head): MW_CONSUMERS warpgroups of
 // 64 query rows each and a producer warpgroup, of which one thread issues
 // TMA loads into a ring of MW_STAGES shared-memory stages, each stage one
 // full and one empty mbarrier: the K tiles of pass 1, then the (K, V) tile
-// pairs of pass 2 (max-free: the pairs only), MW_KT keys a tile, only the
-// tiles before n_valid.  The producer gives its registers up (setmaxnreg
+// pairs of pass 2 (max-free and online at bk = MW_KT: the pairs only;
+// online at a longer bk: per key block its K tiles, then its pairs), MW_KT
+// keys a tile, only the tiles before n_valid.  The producer gives its registers up (setmaxnreg
 // 24) to the consumers (240): each of the SM's four register files holds
 // one warp of each warpgroup, 2 x 240 + 24 = 504 of its 512 registers a
 // lane.  The tensor maps (built on the host by cuTensorMapEncodeTiled) are
@@ -40,7 +44,7 @@
 //           out strides; rows >= n are not written.
 // The probabilities are normalised before they are rounded, as the TPU
 // kernels' p = dtype(e / sum e) are; a one-pass online softmax would round
-// them against a partial max (K9's function, not this one).
+// them against a partial max (K9's function, the online mode below).
 //
 // In the max-free mode each key's e = exp(clip(s * scale, -70, 80)) needs
 // no row max, so pass 2 alone runs: e = ex2(clip(s * scale, -70, 80) *
@@ -61,12 +65,32 @@
 // s is recomputed by the same wgmma sequence, so the max is the max of the
 // same bits, every e <= 1 and the row's largest is 1.  The second q k^T
 // costs a quarter of the attention's products.
+//
+// The online mode is the function of the TPU flash kernel
+// (flash_attention.py:_flash_kernel): per key block of bk keys (a multiple
+// of MW_KT; the blocks are part of the function), m_new = max(m, max_block
+// s), alpha = exp(m - m_new), p = exp(s - m_new) in f32, l = l alpha + sum
+// p over the f32 p, acc = acc alpha + bf16(p) v, and o = bf16(acc / l) at
+// the end.  All of it in the log2 domain (s2 = s * scale log2 e, p =
+// ex2(s2 - m2), alpha = ex2(m2_old - m2_new), within a few f32 ulps of exp,
+// so bf16(p) flips on rare elements only, as in the max-free mode).  At bk
+// = MW_KT (the per-block path's) a key tile is a block and one sweep runs:
+// per tile its q k^T (issued beside the previous tile's p v), the tile's
+// row max, m2 and alpha, p in place, l = l alpha + sum p; once the previous
+// p v is done, o *= alpha in registers and bf16(p) goes into the register-A
+// fragment of the tile's p v: two products a tile where the exact mode
+// runs three.  At bk > MW_KT each block first takes its max by the safe
+// mode's pass 1 confined to its tiles (starting from the running max), then
+// rescales o and l by alpha once and runs the safe mode's pass over its
+// tiles with e = ex2(s2 - m2_new); the producer streams the block's K
+// tiles, then its (K, V) pairs.  Blocks wholly past n_valid are never
+// visited: on the TPU they leave m, l and acc unchanged.
 
 #pragma once
 
 namespace VFT_NS {
 
-enum MwMode { MW_EXACT = 0, MW_MAXFREE = 1, MW_SAFE = 2 };
+enum MwMode { MW_EXACT = 0, MW_MAXFREE = 1, MW_SAFE = 2, MW_ONLINE = 3 };
 
 constexpr int MW_DH = 64;                       // head dim: one 128-byte row
 constexpr int MW_CONSUMERS = 2;                 // warpgroups of 64 query rows
@@ -87,8 +111,9 @@ struct MhaTmaArgs {
   long long out_b, out_h;  // element strides of o: image, head
   int out_r;               // and token row
   int heads, n, n_valid;   // n query rows and keys; keys >= n_valid masked
-  float scale_log2;        // softmax scale * log2(e) (exact and safe modes)
+  float scale_log2;        // softmax scale * log2(e) (exact, safe and online modes)
   float scale;             // softmax scale (max-free mode)
+  int bk;                  // key block, a multiple of MW_KT (online mode)
 };
 
 // Issues s = q k^T for the 64 x MW_KT tile as one wgmma group: 4 k steps of
@@ -174,14 +199,14 @@ __device__ __forceinline__ void stats_next(float (&s)[64], float (&nxt)[64], MwR
   fold<false, SUM>(s, r, 0, 0, sl2);
 }
 
-// Pass 1's last tile i, in flight into s.
+// Pass 1's last key tile `tile`, ring step i, in flight into s.
 template <bool SUM = true>
-__device__ __forceinline__ void stats_last(float (&s)[64], MwRows& r, int i, int n_valid,
-                                           float sl2, int t4, uint32_t bars) {
+__device__ __forceinline__ void stats_last(float (&s)[64], MwRows& r, int i, int tile,
+                                           int n_valid, float sl2, int t4, uint32_t bars) {
   wgmma_wait<0>();
   reg_fence(s);
   mbar_arrive(bars + 8 * (MW_STAGES + i % MW_STAGES));
-  fold<true, SUM>(s, r, i * MW_KT + 2 * t4, n_valid, sl2);
+  fold<true, SUM>(s, r, tile * MW_KT + 2 * t4, n_valid, sl2);
 }
 
 // p = bf16(ex2(s2 - m2) * (1 / l)) of a finished q k^T tile, packed into
@@ -289,6 +314,88 @@ __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], floa
   for (int x = 0; x < 32; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
 }
 
+// The online mode's step to a key block: the rows' running max m2 (log2
+// domain) becomes mn, and alpha = exp(m - m_new) rescales l and o.
+__device__ __forceinline__ void online_alpha(float (&m2)[2], const float (&mn)[2],
+                                             float (&alpha)[2]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    alpha[rr] = ex2(m2[rr] - mn[rr]);
+    m2[rr] = mn[rr];
+  }
+}
+
+// The online mode at bk = MW_KT, a finished q k^T tile in s (its keys from
+// key0 + the thread's columns): the tile's row max, m2 and alpha, l = l
+// alpha + sum p and p = ex2(s2 - m2) in place, f32.
+template <bool LAST>
+__device__ __forceinline__ void online_probs(float (&s)[64], float (&l)[2], float (&m2)[2],
+                                             float (&alpha)[2], int key0, int n_valid,
+                                             float sl2) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int x = 0; x < 64; ++x)
+    tmax[(x >> 1) & 1] = fmaxf(tmax[(x >> 1) & 1], score<LAST>(s, x, key0, n_valid));
+  float mn[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) mn[rr] = fmaxf(m2[rr], quad_max(tmax[rr]) * sl2);
+  online_alpha(m2, mn, alpha);
+  l[0] *= alpha[0];
+  l[1] *= alpha[1];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    const int rr = (x >> 1) & 1;
+    s[x] = ex2(fmaf(score<LAST>(s, x, key0, n_valid), sl2, -m2[rr]));
+    l[rr] += s[x];
+  }
+}
+
+// The online mode at bk = MW_KT, tile j >= 1 (ring step j), with tile j -
+// 1's p in pa and o at tile j - 1's max: pv_next's issue and wait pattern;
+// once tile j - 1's p v is done, o *= tile j's alpha, then its p goes into
+// pa.
+template <bool LAST>
+__device__ __forceinline__ void online_next(float (&s)[64], uint32_t (&pa)[32], float (&o)[32],
+                                            float (&l)[2], float (&m2)[2], int j, int n_valid,
+                                            float sl2, int t4, uint64_t qd, uint32_t ring,
+                                            uint32_t bars) {
+  const int st = j % MW_STAGES, sp = (j - 1) % MW_STAGES;
+  mbar_wait(bars + 8 * st, (j / MW_STAGES) & 1);
+  qk_issue(s, qd, sw128_desc(ring + 2 * st * MW_TILE_BYTES));
+  pv_issue(o, pa, sw128_desc(ring + (2 * sp + 1) * MW_TILE_BYTES));
+  wgmma_wait<1>();  // q k^T (the older group) is done
+  reg_fence(s);
+  float alpha[2];
+  online_probs<LAST>(s, l, m2, alpha, j * MW_KT + 2 * t4, n_valid, sl2);
+  wgmma_wait<0>();
+  reg_fence(o);
+  reg_fence(pa);
+  mbar_arrive(bars + 8 * (MW_STAGES + sp));
+#pragma unroll
+  for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
+}
+
+// Ring step i of the producer: whether it carries V (pv) and its key tile.
+// Exact and safe: pass 1's K tiles, then pass 2's pairs; max-free: pairs;
+// online: pairs at bk = MW_KT, else per key block of tpb tiles its K tiles,
+// then its pairs.
+template <int MODE>
+__device__ __forceinline__ void mw_step(int i, int ntiles, int tpb, bool& pv, int& tile) {
+  if (MODE == MW_MAXFREE || (MODE == MW_ONLINE && tpb == 1)) {
+    pv = true;
+    tile = i;
+  } else if (MODE == MW_ONLINE) {
+    const int f = i / (2 * tpb) * tpb, c = min(tpb, ntiles - f), w = i - 2 * f;
+    pv = w >= c;
+    tile = f + (pv ? w - c : w);
+  } else {
+    pv = i >= ntiles;
+    tile = pv ? i - ntiles : i;
+  }
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(MW_THREADS, 1)
     mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -304,7 +411,8 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
   const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
   const int q0 = blockIdx.x * MW_BQ;
   const int ntiles = (p.n_valid + MW_KT - 1) / MW_KT;
-  const int steps = MODE == MW_MAXFREE ? ntiles : 2 * ntiles;
+  const int tpb = MODE == MW_ONLINE ? p.bk / MW_KT : 1;  // key tiles a block
+  const int steps = MODE == MW_MAXFREE || (MODE == MW_ONLINE && tpb == 1) ? ntiles : 2 * ntiles;
 
   if (tid == 0) {
     for (int s = 0; s < MW_STAGES; ++s) {
@@ -317,18 +425,18 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
   __syncthreads();
 
   if (warp >= 4 * MW_CONSUMERS) {
-    // Producer: Q once, then ring step i = tile i of pass 1 (K) for i <
-    // ntiles, tile i - ntiles of pass 2 (K and V) after (max-free: tile i,
-    // K and V); step i uses stage i % MW_STAGES in round i / MW_STAGES.
-    constexpr bool MAXFREE = MODE == MW_MAXFREE;
+    // Producer: Q once, then ring step i (mw_step: K alone, or K and V);
+    // step i uses stage i % MW_STAGES in round i / MW_STAGES.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 128 * MW_CONSUMERS) {
       mbar_expect_tx(qbar, MW_Q_BYTES);
       tma_load_4d(q_s, &tq, qbar, 0, q0, h, b);
       for (int i = 0; i < steps; ++i) {
         const int s = i % MW_STAGES;
-        const bool pv = MAXFREE || i >= ntiles;
-        const int key0 = (MAXFREE ? i : pv ? i - ntiles : i) * MW_KT;
+        bool pv;
+        int tile;
+        mw_step<MODE>(i, ntiles, tpb, pv, tile);
+        const int key0 = tile * MW_KT;
         mbar_wait(empty(s), ((i / MW_STAGES) & 1) ^ 1);  // round 0 passes at once
         const uint32_t ks = ring + 2 * s * MW_TILE_BYTES;
         mbar_expect_tx(full(s), pv ? 2 * MW_TILE_BYTES : MW_TILE_BYTES);
@@ -345,7 +453,85 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
     uint32_t pa[32];
     float ol[2] = {1.0f, 1.0f};  // the output's row factor: one-pass 1 / l
     mbar_wait(qbar, 0);
-    if constexpr (MODE != MW_EXACT) {
+    if constexpr (MODE == MW_ONLINE) {
+      const float sl2 = p.scale_log2;
+      float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int x = 0; x < 32; ++x) o[x] = 0.0f;
+      if (tpb == 1) {
+        // One sweep, a key tile a block: tile 0's p first (alpha 0 against
+        // the empty start), then per tile j its q k^T beside tile j - 1's
+        // p v, then the last p v.
+        float alpha[2];
+        mbar_wait(full(0), 0);
+        qk_issue(sa, qd, sw128_desc(ring));
+        wgmma_wait<0>();
+        reg_fence(sa);
+        if (ntiles == 1)
+          online_probs<true>(sa, l, m2, alpha, 2 * t4, p.n_valid, sl2);
+        else
+          online_probs<false>(sa, l, m2, alpha, 0, 0, sl2);
+#pragma unroll
+        for (int x = 0; x < 32; ++x) pa[x] = pack_bf16x2(sa[2 * x], sa[2 * x + 1]);
+        for (int j = 1; j < ntiles - 1; ++j)
+          online_next<false>(sa, pa, o, l, m2, j, p.n_valid, sl2, t4, qd, ring, bars);
+        if (ntiles > 1)
+          online_next<true>(sa, pa, o, l, m2, ntiles - 1, p.n_valid, sl2, t4, qd, ring, bars);
+        const int sl = (ntiles - 1) % MW_STAGES;
+        pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(pa);
+        mbar_arrive(empty(sl));
+      } else {
+        // Per key block of c tiles from tile f at ring step `step`: its max
+        // (the safe mode's pass 1 over its tiles from the running max, one
+        // score tile at a time: o stays live across the blocks, and a second
+        // score tile beside it would pass ptxas's 168 registers a thread),
+        // alpha once, then the safe mode's pass over its tiles.
+        int step = 0;
+        for (int f = 0; f < ntiles; f += tpb) {
+          const int c = min(tpb, ntiles - f);
+          MwRows r{{m2[0], m2[1]}, {0.0f, 0.0f}};
+          for (int jj = 0; jj < c; ++jj) {
+            const int sj = (step + jj) % MW_STAGES;
+            mbar_wait(full(sj), ((step + jj) / MW_STAGES) & 1);
+            qk_issue(sa, qd, sw128_desc(ring + 2 * sj * MW_TILE_BYTES));
+            stats_last<false>(sa, r, step + jj, f + jj, p.n_valid, sl2, t4, bars);
+          }
+          float alpha[2];
+          online_alpha(m2, r.m2, alpha);  // no group is in flight: o is free
+          l[0] *= alpha[0];
+          l[1] *= alpha[1];
+#pragma unroll
+          for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];
+          const int st0 = step + c, s0 = st0 % MW_STAGES;
+          mbar_wait(full(s0), (st0 / MW_STAGES) & 1);
+          qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
+          wgmma_wait<0>();
+          reg_fence(sa);
+          if (c == 1)  // only the last block has one tile
+            mf_probs<MW_SAFE, true>(sa, pa, l, f * MW_KT + 2 * t4, p.n_valid, sl2, m2);
+          else
+            mf_probs<MW_SAFE, false>(sa, pa, l, 0, 0, sl2, m2);
+          for (int j = f + 1; j < f + c - 1; ++j)
+            mf_next<MW_SAFE, false>(sa, pa, o, l, j, st0 - f, p.n_valid, sl2, m2, t4, qd, ring,
+                                    bars);
+          if (c > 1)  // the block's last tile: masked if it is the last tile
+            mf_next<MW_SAFE, true>(sa, pa, o, l, f + c - 1, st0 - f, p.n_valid, sl2, m2, t4, qd,
+                                   ring, bars);
+          const int sl = (st0 + c - 1) % MW_STAGES;
+          pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+          wgmma_wait<0>();
+          reg_fence(o);
+          reg_fence(pa);
+          mbar_arrive(empty(sl));
+          step += 2 * c;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) ol[rr] = 1.0f / quad_sum(l[rr]);
+    } else if constexpr (MODE != MW_EXACT) {
       // Safe: pass 1 takes the row max m2 alone, over the exact mode's q k^T
       // tiles, two a trip (the score buffers alternate).
       MwRows r{{-INFINITY, -INFINITY}, {0.0f, 0.0f}};
@@ -361,9 +547,9 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         }
         if (i + 1 < ntiles) {
           stats_next<false>(sa, sb, r, i, sl2, qd, ring, bars);
-          stats_last<false>(sb, r, i + 1, p.n_valid, sl2, t4, bars);
+          stats_last<false>(sb, r, i + 1, i + 1, p.n_valid, sl2, t4, bars);
         } else {
-          stats_last<false>(sa, r, i, p.n_valid, sl2, t4, bars);
+          stats_last<false>(sa, r, i, i, p.n_valid, sl2, t4, bars);
         }
       }
       // One pass from ring step step0: tile 0's p first, then per tile j
@@ -411,9 +597,9 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       }
       if (i + 1 < ntiles) {
         stats_next(sa, sb, r, i, sl2, qd, ring, bars);
-        stats_last(sb, r, i + 1, p.n_valid, sl2, t4, bars);
+        stats_last(sb, r, i + 1, i + 1, p.n_valid, sl2, t4, bars);
       } else {
-        stats_last(sa, r, i, p.n_valid, sl2, t4, bars);
+        stats_last(sa, r, i, i, p.n_valid, sl2, t4, bars);
       }
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) r.l[rr] = 1.0f / quad_sum(r.l[rr]);
@@ -467,7 +653,9 @@ template <int MODE>
 inline cudaError_t launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                     const CUtensorMap& tv, const MhaTmaArgs& p, int batch,
                                     cudaStream_t stream) {
-  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n) return cudaErrorInvalidValue;
+  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n ||
+      (MODE == MW_ONLINE && (p.bk < MW_KT || p.bk % MW_KT)))
+    return cudaErrorInvalidValue;
   const dim3 grid((p.n + MW_BQ - 1) / MW_BQ, batch * p.heads);
   mha_wgmma_kernel<MODE><<<grid, MW_THREADS, MW_SMEM_BYTES, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();

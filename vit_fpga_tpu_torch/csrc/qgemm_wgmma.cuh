@@ -1,0 +1,330 @@
+// The int8 GEMM on Hopper's own units (int8_gemm.cu K13); include after
+// common.cuh and hopper.cuh.
+//
+//   C = A B^T, A (M, K) and B (N, K) int8, both row-major (K-major: the
+//   layout 8-bit wgmma reads, which has no transpose bit), C (M, N) int32,
+//   the sums exact in any order.
+//
+// Design (one persistent block per SM walking 128 x BN output tiles, N
+// fastest; BN 256 or 128): a producer warpgroup gives its registers up
+// (setmaxnreg 40) and one of its threads streams each tile's K steps of 128
+// (one 128-byte swizzle row of int8) by TMA into a ring of stages, each a
+// full and an empty mbarrier: the A box (128 rows) and the B box (BN
+// rows), both K-major.  K past the tensor's extent lands zero-filled, so a
+// ragged K (784 = 6 x 128 + 16) needs no padding copy; rows past M or N
+// land zero too.  Two consumer warpgroups (setmaxnreg 232) take 64 rows
+// each and issue wgmma.m64nBNk32.s32.s8.s8 on the stage, four a K step, the
+// next step waited for while the step before runs on the tensor cores.
+//
+// The epilogue is what bounds every shape the port runs: the int32 output
+// is 4 of the ~5 bytes each product moves (ViT-B's (12 800, 768) x 3072
+// writes 157 MB, 47 us at 3.35 TB/s, against 31 us of int8 products).  So
+// the stores are TMA's, off the consumers' critical path: each consumer
+// warpgroup writes its 64 rows 32 columns at a time (a 64 x 128-byte piece,
+// 128-byte swizzled as the store reads it: two wavefronts a warp) into one
+// of its EPI_BUFS staging buffers, fences it to the async proxy, and one of
+// its threads issues a TMA store of the piece (cp.async.bulk.tensor, shared
+// -> global) that nobody waits on: the thread only waits, before a buffer
+// is written again, until the store EPI_BUFS pieces back has read it, and
+// before the block exits, until all have landed.  The last pieces of a
+// tile drain while the next tile's products run.  Timed against a ring of
+// 2 or 3 stages holding the whole or half a 256-wide tile in staging, and
+// against stores from the registers, 4 stages and 2 pieces won at ViT-B's
+// shapes (PERF.md, torch_k1_ab.py --qgemm).  TMA leaves out the rows and
+// columns past M and N.  An output whose row stride is not a multiple of 16
+// bytes (N % 4 != 0: the dense net's N = 10) cannot be a TMA store; its
+// tiles are written from the accumulator registers by masked stores, an
+// epilogue of the same kernel (QwStore), not a fallback.
+//
+// The dequantizing epilogues of the other int8 kernels (K14-K22, on
+// quant.cuh's GEMM) would be further QwStore variants over the same
+// accumulator tile.
+
+#pragma once
+
+namespace VFT_NS {
+
+enum QwStore { QW_STORE_TMA = 0, QW_STORE_REGS = 1 };
+
+constexpr int QW_BM = 128;         // rows per tile: two consumer warpgroups of 64
+constexpr int QW_BK = 128;         // one 128-byte swizzle row of int8
+constexpr int QW_THREADS = 384;    // two consumer warpgroups and the producer's
+constexpr int QW_EPI_COLS = 32;    // int32 columns of a staged piece: 128 bytes
+constexpr uint32_t QW_A_BYTES = QW_BM * QW_BK;               // 16 KB
+constexpr uint32_t QW_EPI_BYTES = 64 * QW_EPI_COLS * 4;      // 8 KB a piece
+// Ring stages and staging pieces of a consumer warpgroup, by tile width.
+constexpr int QW_STAGES_256 = 4;
+constexpr int QW_EPI_BUFS_256 = 2;
+constexpr int QW_STAGES_128 = 4;
+constexpr int QW_EPI_BUFS_128 = 2;
+
+template <int BN>
+struct QwShape {
+  static constexpr int STAGES = BN == 256 ? QW_STAGES_256 : QW_STAGES_128;
+  static constexpr int EPI_BUFS = BN == 256 ? QW_EPI_BUFS_256 : QW_EPI_BUFS_128;
+  static constexpr uint32_t STAGE_BYTES = QW_A_BYTES + BN * QW_BK;  // 48 or 32 KB
+  // 1024 bytes of slack to align the ring to the swizzle's 1 KB period, the
+  // stages, the staging buffers of both consumers, then the barriers.
+  static constexpr size_t SMEM_BYTES =
+      1024 + STAGES * STAGE_BYTES + 2 * EPI_BUFS * QW_EPI_BYTES + 16 * STAGES;
+  static_assert(SMEM_BYTES <= 232448, "the shared memory a block can have");
+};
+
+struct QwArgs {
+  int* C;       // (M, N) int32; read by QW_STORE_REGS
+  int M, N, K;  // K a multiple of 16 (TMA's 16-byte row stride)
+};
+
+// Issues acc += A_stage B_stage^T over one K step of 128 as one wgmma group
+// (four k32 slices, each 32 bytes further along the swizzled rows).
+template <int BN>
+__device__ __forceinline__ void qw_issue(uint32_t (&acc)[BN / 2], uint32_t a_s, uint32_t b_s) {
+  const uint64_t da = sw128_desc(a_s), db = sw128_desc(b_s);
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < QW_BK / 32; ++kk) {
+    if constexpr (BN == 256)
+      wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk, 1);
+    else
+      wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// QW_STORE_TMA: the consumer warpgroup's 64 x BN tile, piece by piece of 32
+// columns, through its EPI_BUFS staging buffers (buf: the first, generic and
+// shared addresses) by TMA stores of the 64 x 32 box at {col, row0} of tc.
+// Thread (warp w4, lane g, t4) holds rows 16 w4 + g (+8) and the column
+// pairs 8 j + 2 t4 of each 8-column block j (acc[4 j + 2 rr + e]).  wt == 0
+// issues the stores and waits for them; piece counts this warpgroup's
+// pieces over the block's tiles (buffer piece % EPI_BUFS).
+template <int BN>
+__device__ __forceinline__ void qw_store_tma(const uint32_t (&acc)[BN / 2],
+                                             const CUtensorMap* tc, const QwArgs& p, int row0,
+                                             int n0, unsigned char* buf, uint32_t buf_s, int wg,
+                                             int wt, int& piece) {
+  constexpr int NB = QwShape<BN>::EPI_BUFS;
+  const int w4 = wt >> 5, g = (wt & 31) >> 2, t4 = wt & 3;
+#pragma unroll
+  for (int pc = 0; pc < BN / QW_EPI_COLS; ++pc) {
+    if (n0 + QW_EPI_COLS * pc >= p.N) break;
+    const int b = piece % NB;
+    // the store that read this buffer last (NB pieces back) is done with it
+    if (wt == 0) bulk_wait_read<NB - 1>();
+    named_barrier(1 + wg, 128);
+    unsigned char* dst = buf + b * QW_EPI_BYTES;
+#pragma unroll
+    for (int jj = 0; jj < QW_EPI_COLS / 8; ++jj) {
+      const int j = QW_EPI_COLS / 8 * pc + jj;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = 16 * w4 + g + 8 * rr;  // r % 8 == g
+        const int chunk = (2 * jj + (t4 >> 1)) ^ g;
+        *reinterpret_cast<uint2*>(dst + r * 128 + chunk * 16 + (t4 & 1) * 8) =
+            make_uint2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wt == 0) {
+      tma_store_2d(tc, buf_s + b * QW_EPI_BYTES, n0 + QW_EPI_COLS * pc, row0);
+      bulk_commit();
+    }
+    ++piece;
+  }
+}
+
+// QW_STORE_REGS: one consumer warp's 16 x BN rows straight from the
+// accumulator, masked at M and N (8-byte pairs where N is even).
+template <int BN>
+__device__ __forceinline__ void qw_store_regs(const uint32_t (&acc)[BN / 2], const QwArgs& p,
+                                              int row0, int n0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    if (n0 + 8 * j >= p.N) break;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + g + 8 * rr;
+      if (row >= p.M || col >= p.N) continue;
+      int* c = p.C + (size_t)row * p.N + col;
+      const int v0 = static_cast<int>(acc[4 * j + 2 * rr]);
+      const int v1 = static_cast<int>(acc[4 * j + 2 * rr + 1]);
+      if ((p.N & 1) == 0) {
+        *reinterpret_cast<int2*>(c) = make_int2(v0, v1);
+      } else {
+        c[0] = v0;
+        if (col + 1 < p.N) c[1] = v1;
+      }
+    }
+  }
+}
+
+template <int BN, int STORE>
+__global__ void __launch_bounds__(QW_THREADS, 1)
+    qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb,
+                       const __grid_constant__ CUtensorMap tc, QwArgs p) {
+  using S = QwShape<BN>;
+  extern __shared__ unsigned char qw_smem[];
+  const uint32_t base = smem_u32(qw_smem);
+  const uint32_t ring = (base + 1023u) & ~1023u;  // stage s: A at ring + s STAGE, B after it
+  constexpr int STAGES = S::STAGES;
+  const uint32_t epi = ring + STAGES * S::STAGE_BYTES;
+  const uint32_t bars = epi + 2 * S::EPI_BUFS * QW_EPI_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tiles = (p.M + QW_BM - 1) / QW_BM * n_tiles;
+  const int nk = (p.K + QW_BK - 1) / QW_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);   // the producer's expect_tx
+      mbar_init(empty(s), 8);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // Producer: ring step `it` counts the K steps of all this block's
+    // tiles; it uses stage it % STAGES in round it / STAGES.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * QW_BM, n0 = tile % n_tiles * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);  // round 0 passes at once
+          const uint32_t a_s = ring + s * S::STAGE_BYTES;
+          mbar_expect_tx(full(s), S::STAGE_BYTES);
+          tma_load_2d(a_s, &ta, full(s), kt * QW_BK, m0);
+          tma_load_2d(a_s + QW_A_BYTES, &tb, full(s), kt * QW_BK, n0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, wt = tid & 127;
+    unsigned char* buf = qw_smem + (epi - base) + wg * S::EPI_BUFS * QW_EPI_BYTES;
+    const uint32_t buf_s = epi + wg * S::EPI_BUFS * QW_EPI_BYTES;
+    // Frees stage s once this warp's wgmma groups that read it are done.
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    auto arrive = [&](int step) {
+      mbar_wait(full(step % STAGES), (step / STAGES) & 1);
+    };
+    uint32_t acc[BN / 2];
+    int it = 0, piece = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * QW_BM, n0 = tile % n_tiles * BN;
+#pragma unroll
+      for (int x = 0; x < BN / 2; ++x) acc[x] = 0u;
+      // Step kt + 1 is waited for while step kt's group, issued just
+      // before, runs on the tensor cores; step kt - 1's stage is freed
+      // first, so that two stages suffice.
+      if (nk > 0) {
+        arrive(it);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const uint32_t a_s = ring + (it % STAGES) * S::STAGE_BYTES;
+          qw_issue<BN>(acc, a_s + wg * 64 * QW_BK, a_s + QW_A_BYTES);
+          wgmma_wait<1>();  // the previous K step's group is done: free its stage
+          reg_fence(acc);
+          if (kt > 0) release((it - 1) % STAGES);
+          if (kt + 1 < nk) arrive(it + 1);
+        }
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release((it - 1) % STAGES);
+      }
+      if constexpr (STORE == QW_STORE_TMA)
+        qw_store_tma<BN>(acc, &tc, p, m0 + wg * 64, n0, buf, buf_s, wg, wt, piece);
+      else
+        qw_store_regs<BN>(acc, p, m0 + wg * 64 + (warp & 3) * 16, n0, lane);
+    }
+    if (STORE == QW_STORE_TMA && wt == 0) bulk_wait_all();  // before the block's memory goes
+  }
+}
+
+template <int BN, int STORE>
+inline cudaError_t qw_enable_one() {
+  return cudaFuncSetAttribute(qgemm_wgmma_kernel<BN, STORE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)QwShape<BN>::SMEM_BYTES);
+}
+
+// Opts the four variants in to their shared memory, on the current device.
+inline cudaError_t qgemm_wgmma_enable() {
+  cudaError_t err;
+  if ((err = qw_enable_one<256, QW_STORE_TMA>()) != cudaSuccess) return err;
+  if ((err = qw_enable_one<256, QW_STORE_REGS>()) != cudaSuccess) return err;
+  if ((err = qw_enable_one<128, QW_STORE_TMA>()) != cudaSuccess) return err;
+  return qw_enable_one<128, QW_STORE_REGS>();
+}
+
+// The tile width the launch takes: 256 columns, or 128 where N fits in
+// 128.  Timed both ways on the H100 (PERF.md), 256 won at every path shape
+// wider than 128 columns, even the dense net's (10 000, 784) x 256, where
+// its 79 tiles leave 53 SMs idle and 128-wide tiles would fill them (158);
+// 128 won at the dense net's N = 10.
+inline int qgemm_wgmma_tile_n(int N) { return N <= 128 ? 128 : 256; }
+
+template <int BN>
+inline cudaError_t qw_launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
+                             bool tma_store, const QwArgs& p, int sms, cudaStream_t stream) {
+  const long long tiles = (long long)((p.M + QW_BM - 1) / QW_BM) * ((p.N + BN - 1) / BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  constexpr size_t smem = QwShape<BN>::SMEM_BYTES;
+  if (tma_store)
+    qgemm_wgmma_kernel<BN, QW_STORE_TMA><<<grid, QW_THREADS, smem, stream>>>(ta, tb, tc, p);
+  else
+    qgemm_wgmma_kernel<BN, QW_STORE_REGS><<<grid, QW_THREADS, smem, stream>>>(ta, tb, tc, p);
+  return cudaGetLastError();
+}
+
+// C = A B^T on `stream`: a (M, K) and bt (N, K) int8 row-major, c (M, N)
+// int32; M, N >= 1, K >= 16 a multiple of 16, a, bt and c 16-byte aligned.
+inline cudaError_t launch_qgemm_wgmma(const signed char* a, const signed char* bt, int* c, int M,
+                                      int N, int K, cudaStream_t stream) {
+  if (M < 1 || N < 1 || K < 16 || K % 16) return cudaErrorInvalidValue;
+  auto misaligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (misaligned(a) || misaligned(bt) || misaligned(c)) return cudaErrorMisalignedAddress;
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int bn = qgemm_wgmma_tile_n(N);
+  // A and B: K-major boxes of 128 k x 128 rows (A) or bn rows (B); C: 64
+  // rows x 32 int32 columns, stored only where its row stride suits TMA
+  CUtensorMap ta, tb, tc;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t b_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t k_strides[1] = {(cuuint64_t)K};
+  const cuuint32_t a_box[2] = {QW_BK, QW_BM};
+  const cuuint32_t b_box[2] = {QW_BK, (cuuint32_t)bn};
+  const bool tma_store = N % 4 == 0;
+  const cuuint64_t c_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t c_strides[1] = {(cuuint64_t)N * 4};
+  const cuuint32_t c_box[2] = {QW_EPI_COLS, 64};
+  if (!tma_encode_s8(&ta, a, 2, a_dims, k_strides, a_box) ||
+      !tma_encode_s8(&tb, bt, 2, b_dims, k_strides, b_box))
+    return cudaErrorInvalidValue;
+  if (tma_store) {
+    if (!tma_encode_s32(&tc, c, 2, c_dims, c_strides, c_box)) return cudaErrorInvalidValue;
+  } else {
+    tc = ta;  // never read
+  }
+  const QwArgs p{c, M, N, K};
+  return bn == 256 ? qw_launch<256>(ta, tb, tc, tma_store, p, sms, stream)
+                   : qw_launch<128>(ta, tb, tc, tma_store, p, sms, stream);
+}
+
+}  // namespace VFT_NS

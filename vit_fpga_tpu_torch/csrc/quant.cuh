@@ -1,7 +1,7 @@
 // Int8 pieces of the int8 kernels (quant_linear.cu K14, mlp_int8.cu K15,
 // attn_int8.cu K16, mlp_int8_static.cu K17, attn_int8_static.cu K18,
-// int8_gemm.cu K13, mlp_int8_stats.cu K21a, attn_int8_stats.cu K21b,
-// attn_int8_scores.cu K22);
+// mlp_int8_stats.cu K21a, attn_int8_stats.cu K21b, attn_int8_scores.cu
+// K22; K13's raw int32 GEMM is qgemm_wgmma.cuh's);
 // include after common.cuh.
 //
 //   quant_rows_kernel<T, LN, STATIC, ST>  one warp per row of a (rows, k)
@@ -27,8 +27,6 @@
 //                    it: amax[blockIdx.x * M + m] over the block's columns.
 //         EPI_Q8     C = clip(rint(act(f) * qscale), -127, 127) as int8, the
 //                    static scale folded into the activation (qact_scaled).
-//         EPI_I32    C = acc, the raw int32 sums (int8_gemm.cu K13); no
-//                    scale, bias or activation is read.
 //       A null sa is a row scale of 1.0 (the static kernels: the input scale
 //       is folded into sb), so f = float(acc) * sb[n] + bias[n] exactly.
 //
@@ -239,7 +237,7 @@ inline cudaError_t launch_quant_amax(const float* h, const float* parts, int npa
 // free.
 // ---------------------------------------------------------------------------
 
-enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_AMAX = 2, EPI_Q8 = 3, EPI_I32 = 4 };
+enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_AMAX = 2, EPI_Q8 = 3 };
 
 constexpr int QG_BM = 128;
 constexpr int QG_BN = 128;
@@ -260,9 +258,9 @@ struct QGemmArgs {
   const float* sa;       // (M,) f32 row scales, or null for 1.0
   const signed char* B;  // (N, K) row-major int8 (the (K, N) weight, transposed)
   const float* sb;       // (N,) f32 column scales
-  const float* bias;     // (N,) f32 (unread by EPI_I32)
+  const float* bias;     // (N,) f32
   const bf16* residual;  // EPI_RESID: (M, N) bf16
-  void* C;               // (M, N): bf16, or f32 with c_f32 (always f32 for EPI_AMAX, int8 for EPI_Q8, int32 for EPI_I32)
+  void* C;               // (M, N): bf16, or f32 with c_f32 (always f32 for EPI_AMAX, int8 for EPI_Q8)
   float* amax;           // EPI_AMAX: (ceil(N / QG_BN), M) f32
   int M, N, K;
   int act;
@@ -369,18 +367,7 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
       __syncwarp();
       const int gr = m0 + wm * 64 + i * 16 + er;
       const int gc = n0 + wn * 32 + j * 16 + ec;
-      if (EPI == EPI_I32 && gr < p.M && gc < p.N) {
-        const int* src = cs + er * QG_C_LD + ec;
-        int* dst = static_cast<int*>(p.C) + (size_t)gr * p.N + gc;
-        if (gc + 8 <= p.N && p.N % 4 == 0) {
-          reinterpret_cast<int4*>(dst)[0] = reinterpret_cast<const int4*>(src)[0];
-          reinterpret_cast<int4*>(dst)[1] = reinterpret_cast<const int4*>(src)[1];
-        } else {
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            if (gc + t < p.N) dst[t] = src[t];
-        }
-      } else if (EPI != EPI_I32 && gr < p.M && gc < p.N) {
+      if (gr < p.M && gc < p.N) {
         const bool vec = gc + 8 <= p.N && p.N % 8 == 0;
         const float srow = p.sa != nullptr ? p.sa[gr] : 1.0f;
         const int* src = cs + er * QG_C_LD + ec;
@@ -482,8 +469,7 @@ inline int qgemm_col_blocks(int n) { return (n + QG_BN - 1) / QG_BN; }
 
 template <int EPI>
 inline cudaError_t launch_qgemm(const QGemmArgs& p, cudaStream_t stream) {
-  if (p.K % QG_SLAB || p.M < 1 || p.N < 1) return cudaErrorInvalidValue;
-  if (EPI != EPI_I32 && p.bias == nullptr) return cudaErrorInvalidValue;
+  if (p.K % QG_SLAB || p.M < 1 || p.N < 1 || p.bias == nullptr) return cudaErrorInvalidValue;
   if (EPI == EPI_RESID && p.residual == nullptr) return cudaErrorInvalidValue;
   if (EPI == EPI_AMAX && p.amax == nullptr) return cudaErrorInvalidValue;
   const dim3 grid(qgemm_col_blocks(p.N), (p.M + QG_BM - 1) / QG_BM);

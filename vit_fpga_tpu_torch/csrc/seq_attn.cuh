@@ -1,27 +1,12 @@
-// Attention over a whole sequence of any length, on strided q, k and v
-// (flash_attn.cu K9, mha.cu K7 / K8 in f32); include after common.cuh.
-// K7 / K8 in bf16 are mha_wgmma.cuh's kernel.
+// The softmax attention over a whole sequence in f32 (mha.cu K7 / K8 in
+// f32), on strided q, k and v; include after common.cuh.  K7 / K8 in bf16
+// and K9 are mha_wgmma.cuh's kernel.
 //
 // The operands are read by strides, so one kernel takes the packed
 // (B, N, 3D) qkv tensor (q, k and v are column blocks of one row) and the
 // (B, H, N, Dh) layout alike; the JAX wrappers' head-split transposes and
 // their padding of N are layout, not function.  Head dim 64.
 //
-//   seq_attn_kernel  K9, the blockwise online softmax of
-//       flash_attention.py, in bf16 on mma.sync m16n8k16 with f32 sums; one
-//       block of SQ_WARPS warps per (SQ_BQ query rows, image x head), each
-//       warp 16 query rows whose scores, probabilities and output stay in
-//       registers.  The keys and values stream through shared memory in
-//       SQ_KT-key tiles, double-buffered with cp.async; only the tiles
-//       before n_valid are read.  s = (q k^T) * scale in f32, keys at or
-//       past n_valid masked.  Per key block of bk keys (its boundaries are
-//       part of the function: p is rounded to bf16 against the running max
-//       after each block), m_new = max(m, max_block s), alpha = exp(m -
-//       m_new), p = exp(s - m_new), l = l alpha + sum p, acc = acc alpha +
-//       bf16(p) v; o = bf16(acc / l).  A block of one tile takes one pass;
-//       a longer block reads its tiles twice, first for its max.  Blocks
-//       wholly past n_valid are skipped: on the TPU they leave m, l and acc
-//       unchanged (alpha = 1, p = 0).
 //   seq_attn_f32_kernel  the softmax attention in f32 (K7 / K8 in f32)
 //       with true f32 fma on the CUDA cores: no TF32, no bf16 staging.  One
 //       pass over the keys with a running max and sum (in f32 the online
@@ -34,16 +19,7 @@
 
 namespace VFT_NS {
 
-constexpr int SQ_DH = 64;                // head dim
-constexpr int SQ_WARPS = 4;
-constexpr int SQ_THREADS = SQ_WARPS * 32;
-constexpr int SQ_BQ = 16 * SQ_WARPS;     // query rows per block
-constexpr int SQ_KT = 128;               // keys per streamed tile
-constexpr int SQ_LD = SQ_DH + 8;         // bf16 elements per shared row (144 bytes)
-constexpr int SQ_TILE = SQ_KT * SQ_LD;   // elements of one K (or V) tile
-
-// Q rows, then two stages of a (K, V) tile pair.
-constexpr size_t SQ_SMEM_BYTES = (size_t)(SQ_BQ * SQ_LD + 2 * 2 * SQ_TILE) * 2;
+constexpr int SF_DH = 64;  // head dim
 
 struct SeqAttnArgs {
   const void* q;
@@ -55,202 +31,8 @@ struct SeqAttnArgs {
   long long out_b, out_h;  // of o
   int out_r;
   int heads, n, n_valid;   // n query rows and keys; keys >= n_valid masked
-  int bk;                  // K9's key block, a multiple of SQ_KT (unused in f32)
   float scale;
 };
-
-__global__ void __launch_bounds__(SQ_THREADS) seq_attn_kernel(SeqAttnArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* KV = Qs + SQ_BQ * SQ_LD;  // stage s: K at KV + 2 s SQ_TILE, V after it
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * SQ_BQ;
-  const size_t in_off = (size_t)b * p.in_b + (size_t)h * p.in_h;
-  const bf16* qg = static_cast<const bf16*>(p.q) + in_off;
-  const bf16* kg = static_cast<const bf16*>(p.k) + in_off;
-  const bf16* vg = static_cast<const bf16*>(p.v) + in_off;
-
-  // The tile stream.  A key block of tpb tiles is read twice (phase 0: its
-  // statistics from K, phase 1: its output from K and V); a block of one
-  // tile is read once (phase 2).
-  const int ntiles = (p.n_valid + SQ_KT - 1) / SQ_KT;
-  const int tpb = p.bk / SQ_KT;
-  const bool one_pass = tpb == 1;
-  const int nsteps = one_pass ? ntiles : 2 * ntiles;
-  auto step_of = [&](int i, int& tile, int& phase, int& w, int& c) {
-    if (one_pass) {
-      tile = i;
-      phase = 2;
-      w = 0;
-      c = 1;
-      return;
-    }
-    const int f = (i / (2 * tpb)) * tpb;  // the block's first tile
-    c = min(tpb, ntiles - f);
-    w = i - 2 * f;
-    phase = w < c ? 0 : 1;
-    tile = f + (w < c ? w : w - c);
-  };
-  // Keys and values at or past n_valid are zero-filled (0 * p stays 0).
-  auto load = [&](int i, int s) {
-    int tile, phase, w, c;
-    step_of(i, tile, phase, w, c);
-    bf16* Ks = KV + 2 * s * SQ_TILE;
-    bf16* Vs = Ks + SQ_TILE;
-    for (int ch = tid; ch < SQ_KT * 8; ch += SQ_THREADS) {
-      const int r = ch >> 3, cc = (ch & 7) * 8;
-      const int key = tile * SQ_KT + r;
-      const bool ok = key < p.n_valid;
-      const size_t off = (size_t)(ok ? key : 0) * p.in_r + cc;
-      cp_async16(Ks + r * SQ_LD + cc, kg + off, ok);
-      if (phase != 0) cp_async16(Vs + r * SQ_LD + cc, vg + off, ok);
-    }
-  };
-
-  for (int ch = tid; ch < SQ_BQ * 8; ch += SQ_THREADS) {
-    const int r = ch >> 3, cc = (ch & 7) * 8;
-    const bool ok = q0 + r < p.n;
-    cp_async16(Qs + r * SQ_LD + cc, qg + (size_t)(ok ? q0 + r : 0) * p.in_r + cc, ok);
-  }
-  load(0, 0);
-  cp_async_commit();
-
-  unsigned qf[4][4];     // the warp's 16 x 64 query rows as A fragments
-  float acc[8][4];       // 16 x 64 output: rows g, g + 8; columns 8 n + 2 t4 (+1)
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m[2] = {-1e30f, -1e30f};  // running max of rows g, g + 8
-  float l[2] = {0.0f, 0.0f};      // running sum
-  float mb[2], lb[2];             // a two-pass flash block's max and sum
-
-  for (int i = 0; i < nsteps; ++i) {
-    if (i + 1 < nsteps) load(i + 1, (i + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * SQ_LD + kk * 16 + (lane >> 4) * 8);
-    }
-    int tile, phase, w, c;
-    step_of(i, tile, phase, w, c);
-    const bf16* Ks = KV + 2 * (i & 1) * SQ_TILE;
-    const bf16* Vs = Ks + SQ_TILE;
-
-    // s = (q k^T) * scale for the tile's SQ_KT keys: 16 tiles of 16 x 8
-    float s[16][4];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {
-        unsigned r[4];
-        ldsm_x4(r, Ks + (j * 8 + (lane & 7)) * SQ_LD + kp * 32 + (lane >> 3) * 8);
-        mma_bf16(s[j], qf[2 * kp], r[0], r[1]);
-        mma_bf16(s[j], qf[2 * kp + 1], r[2], r[3]);
-      }
-    }
-    const int key0 = tile * SQ_KT + 2 * t4;
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = key0 + j * 8 + (e & 1) < p.n_valid;
-        s[j][e] = ok ? s[j][e] * p.scale : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
-      }
-    }
-    tmax[0] = quad_max(tmax[0]);
-    tmax[1] = quad_max(tmax[1]);
-
-    if (phase == 0) {  // statistics pass: the block's max
-      if (w == 0) mb[0] = mb[1] = -INFINITY;
-      mb[0] = fmaxf(mb[0], tmax[0]);
-      mb[1] = fmaxf(mb[1], tmax[1]);
-    } else {  // output pass: p, then acc += bf16(p) v
-      const bool first = phase == 2 || w == c;
-      if (first) {  // the block's new max rescales acc and l
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const float mn = fmaxf(m[rr], phase == 2 ? tmax[rr] : mb[rr]);
-          const float alpha = expf(m[rr] - mn);
-          l[rr] *= alpha;
-          lb[rr] = 0.0f;
-          m[rr] = mn;
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            acc[n][2 * rr] *= alpha;
-            acc[n][2 * rr + 1] *= alpha;
-          }
-        }
-      }
-      float part[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - m[e >> 1]);
-          part[e >> 1] += s[j][e];
-        }
-      lb[0] += quad_sum(part[0]);
-      lb[1] += quad_sum(part[1]);
-      if (phase == 2 || w == 2 * c - 1) {  // the block's last tile: l = l alpha + sum p
-        l[0] += lb[0];
-        l[1] += lb[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {  // 16 keys a step
-        unsigned a[4];
-        a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
-          unsigned r[4];
-          ldsm_x4_t(r, Vs + (kk * 16 + (lane & 15)) * SQ_LD + dp * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp], a, r[0], r[1]);
-          mma_bf16(acc[2 * dp + 1], a, r[2], r[3]);
-        }
-      }
-    }
-    __syncthreads();  // this stage is free for the copies of step i + 2
-  }
-  cp_async_wait<0>();
-
-  bf16* og = static_cast<bf16*>(p.o) + (size_t)b * p.out_b + (size_t)h * p.out_h;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = q0 + warp * 16 + g + 8 * rr;
-    if (row >= p.n) continue;
-    bf16* orow = og + (size_t)row * p.out_r + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float a0 = acc[n][2 * rr] / l[rr], a1 = acc[n][2 * rr + 1] / l[rr];
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(a0, a1);
-    }
-  }
-}
-
-inline cudaError_t seq_attn_enable() {
-  return cudaFuncSetAttribute(seq_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)SQ_SMEM_BYTES);
-}
-
-inline cudaError_t launch_seq_attn(const SeqAttnArgs& p, int batch, cudaStream_t stream) {
-  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n || p.bk < SQ_KT || p.bk % SQ_KT)
-    return cudaErrorInvalidValue;
-  const dim3 grid((p.n + SQ_BQ - 1) / SQ_BQ, batch * p.heads);
-  seq_attn_kernel<<<grid, SQ_THREADS, SQ_SMEM_BYTES, stream>>>(p);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // The softmax attention in f32 (K7 / K8 in f32)
@@ -296,8 +78,8 @@ constexpr int SF_BQ = SF_WROWS * SF_WARPS;  // per block
 constexpr int SF_KT = 64;                   // keys per tile
 constexpr int SF_KJ = SF_KT / 8;            // keys per lane
 constexpr int SF_MIN_BLOCKS = 2;            // blocks an SM
-constexpr int SF_KLD = SQ_DH + 4;  // Q / K rows: consecutive rows 4 banks apart
-constexpr int SF_VLD = SQ_DH;      // V rows, read along the row
+constexpr int SF_KLD = SF_DH + 4;  // Q / K rows: consecutive rows 4 banks apart
+constexpr int SF_VLD = SF_DH;      // V rows, read along the row
 constexpr int SF_PLD = SF_KT + 8;  // e rows: a warp's four row groups 8 banks apart
 constexpr int SF_Q_FLOATS = SF_BQ * SF_KLD;
 constexpr int SF_K_FLOATS = SF_KT * SF_KLD;
@@ -316,7 +98,7 @@ __device__ __forceinline__ void sf_scores(float (&s)[8][SF_KJ], const float* qw,
 #pragma unroll
     for (int j = 0; j < SF_KJ; ++j) s[i][j] = 0.0f;
 #pragma unroll 2
-  for (int d = 0; d < SQ_DH; d += 4) {
+  for (int d = 0; d < SF_DH; d += 4) {
     float4 q[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) q[i] = *reinterpret_cast<const float4*>(qw + 4 * i * SF_KLD + d);

@@ -5,7 +5,8 @@ One Hopper kernel lives here, behind a wrapper that launches it on a CUDA
 tensor and runs its plain PyTorch version (same arithmetic) on a CPU
 tensor:
 
-* K9 ``flash_attention`` (``csrc/flash_attn.cu`` over ``csrc/seq_attn.cuh``):
+* K9 ``flash_attention`` (``csrc/flash_attn.cu``, the online mode of
+  ``csrc/mha_wgmma.cuh``):
   replaces ``vit_fpga_tpu/ops/flash_attention.py:_flash_kernel`` (wrapper
   ``flash_attention``).  Per key block of ``bk`` keys: ``m_new = max(m,
   max s)``, ``alpha = exp(m - m_new)``, ``p = exp(s - m_new)``, ``l = l
@@ -17,10 +18,12 @@ tensor:
 Bound on the H100 at ViT-B/16 @1024 px batch 1 (12 heads, 4097 tokens,
 head dim 64): 4 * 12 * 4097^2 * 64 = 51.6 GFLOP against 25 MB of
 compulsory traffic, bound by tensor-core operations (52 us at 989
-TFLOP/s).  Design: one block per 64 query rows of one (image, head), the
-scores, probabilities and output in mma.sync registers, the keys and values
-streamed through shared memory in 128-key cp.async tiles; the operands are
-read by strides, so the packed qkv tensor needs no head-split copy.
+TFLOP/s).  Design: one block per 128 query rows of one (image, head), two
+consumer warpgroups on wgmma (q k^T, then p v with p in registers) fed by a
+producer thread's TMA ring of 128-key K / V tiles; at bk 128 one sweep with
+the tile's softmax beside the previous tile's p v, at a longer bk each
+block's max first.  The operands are read by strides through 4-D TMA maps,
+so the packed qkv tensor needs no head-split copy.
 """
 
 from __future__ import annotations

@@ -107,7 +107,7 @@ def _check_gemm(xq: torch.Tensor, wq: torch.Tensor) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernel's cp.async)."""
+    """Contiguous, with a 16-byte aligned start (the kernel's TMA)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -118,7 +118,8 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     A CPU tensor runs :func:`int8_gemm_plain`; a CUDA tensor launches K13
     or raises.  The kernel reads ``wq`` as (N, K) k-contiguous storage: a
     :func:`~vit_fpga_tpu_torch.ops.quant_fused.kmajor` view passes without
-    a copy.  A K that is not a multiple of 16 is padded with zeros."""
+    a copy.  A K that is not a multiple of 16 (TMA's 16-byte row stride) is
+    padded with zeros."""
     _check_gemm(xq, wq)
     if xq.device.type == "cpu":
         return int8_gemm_plain(xq, wq)

@@ -130,7 +130,7 @@ STAGES = (
     ("mlp_chunk::gw_kernel<false,true", "K3 (b) chunked W2 GEMM + residual"),
     ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
     ("mlp_chunk::", UNEXPECTED + " K3 kernel"),
-    ("flash_attn::seq_attn_kernel", "K9 flash attention"),
+    ("flash_attn::mha_wgmma_kernel", "K9 flash attention, online"),
     ("mha::seq_attn_f32_kernel", "K7 / K8 attention, f32"),
     ("mha::mha_wgmma_kernel", "K7 / K8 attention, bf16"),
     ("mlp_chunk_blk::ln_rows_kernel", "K6 (a) LN stats"),
