@@ -2020,7 +2020,7 @@ def _stack_blocks(depth, d=768, m=3072, seed=100):
         w2=_randn(g, depth, m, d, std=0.02), b2=_randn(g, depth, d, std=0.02))
 
 
-def _stack_trees(depth, seed=100, static=True):
+def _stack_trees(depth, seed=100, static=True, d=768, m=3072):
     """(bf16 tree, int8 tree, static int8 tree or None without ``static``)
     of the same seeded blocks,
     laid out as the latency forwards prepare them (bf16 weights; int8
@@ -2034,7 +2034,7 @@ def _stack_trees(depth, seed=100, static=True):
     from vit_fpga_tpu_torch.ops.quant_fused import (QMAX, kmajor,
                                                     quantize_weight_colwise)
     from vit_fpga_tpu_torch.utils import calibrate
-    p = _stack_blocks(depth, seed=seed)
+    p = _stack_blocks(depth, d=d, m=m, seed=seed)
     mats = ("wqkv", "wo", "w1", "w2")
     bf = {k: (v.to(torch.bfloat16) if k in mats else v) for k, v in p.items()}
     q8 = {k: v for k, v in p.items() if k not in mats}
@@ -2045,7 +2045,6 @@ def _stack_trees(depth, seed=100, static=True):
         q8[k + "_s"] = torch.from_numpy(np.stack([s for _, s in pairs])).cuda()
     if not static:
         return bf, q8, None
-    d = p["wo"].shape[-1]
     sc = calibrate.layer_absmax_stats(p, _stack_x(4, d=d, seed=seed + 2),
                                       d // 64, EPS, "gelu_tanh",
                                       torch.bfloat16)
@@ -2132,10 +2131,76 @@ def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
               f"rows moved by max_abs={moved:.3e} (must be 0)")
         if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
             raise AssertionError(f"{name}: padding rows moved the valid rows")
+    worst["vit_layers_int8"] = max(worst["vit_layers_int8"], _k19a_edges())
     return worst
 
 
-def _stack_int8_step(x, q1, heads, n_valid):
+def _repeat_identical(label, call, n=20):
+    """``n`` back-to-back launches of ``call`` must match the first bit
+    for bit: the kernel's sums run in a fixed order, so a missing proxy
+    fence or a ring slot out of step shows here first."""
+    first = call()
+    outs = [call() for _ in range(n - 1)]
+    torch.cuda.synchronize()
+    same = sum(bool(torch.equal(o, first)) for o in outs)
+    print(f"  {label}: {same + 1} of {n} back-to-back launches bit-identical "
+          f"(must be {n})")
+    if same != n - 1 or not torch.isfinite(first.float()).all():
+        raise AssertionError(f"{label}: repeated launches disagree")
+
+
+def _k19a_edges(heads=12):
+    """K19a (int8 wgmma items of 128 rows, split-K, the attention on
+    mha_wgmma.cuh's max-free sweep) at the edges of its design: b2 and b3
+    (400 and 600 rows), 1 / 127 / 128 / 129 / 197 / 256 valid keys at
+    n_pad 256 (one or two key tiles, the last masked), quick_gelu and
+    ViT-L/16's width (D 1024, M 4096, 16 heads), each at one layer in the
+    int8 step band and deeper in norm; then 20 back-to-back b1 depth-12
+    launches bit for bit.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = 0.0
+    _, q12, _ = _stack_trees(12, seed=150, static=False)
+    q1 = {k: v[:1] for k, v in q12.items()}
+
+    def case(label, x, q1, qn, depth, heads, n_valid, act="gelu_tanh"):
+        got = vs.vit_layers_int8(x, q1, heads, eps=EPS, act=act,
+                                 n_valid=n_valid)
+        want = vs.vit_layers_int8_plain(x, q1, heads, eps=EPS, act=act,
+                                        n_valid=n_valid)
+        step = _stack_int8_step(x, q1, heads, n_valid, act)
+        err = _int8_parity(f"K19a {label} depth 1", got, want, step, x)
+        got = vs.vit_layers_int8(x, qn, heads, eps=EPS, act=act,
+                                 n_valid=n_valid)
+        want = vs.vit_layers_int8_plain(x, qn, heads, eps=EPS, act=act,
+                                        n_valid=n_valid)
+        torch.cuda.synchronize()
+        _relnorm(f"K19a {label} depth {depth}, all rows", got, want,
+                 STACK_INT8_NORM)
+        return max(err, float((got.float() - want.float()).abs().max()))
+
+    print("K19a edges: batches, key tiles, quick_gelu, ViT-L/16 width")
+    for batch in (2, 3):
+        worst = max(worst, case(f"b{batch} (rows {batch * 200})",
+                                _stack_x(batch, seed=151 + batch), q1, q12,
+                                12, heads, 197))
+    for nv in (1, 127, 128, 129, 197, 256):
+        worst = max(worst, case(f"b1 n_pad 256 n_valid {nv}",
+                                _stack_x(1, n_pad=256, seed=160 + nv), q1,
+                                q12, 12, heads, nv))
+    worst = max(worst, case("b1 quick_gelu", _stack_x(1, seed=170), q1, q12,
+                            12, heads, 197, act="quick_gelu"))
+    _, ql, _ = _stack_trees(2, seed=180, static=False, d=1024, m=4096)
+    worst = max(worst, case("ViT-L/16 width b1 (D 1024, M 4096, 16 heads)",
+                            _stack_x(1, d=1024, seed=181),
+                            {k: v[:1] for k, v in ql.items()}, ql, 2, 16,
+                            197))
+    x = _stack_x(1, seed=190)
+    _repeat_identical("K19a b1 depth 12", lambda: vs.vit_layers_int8(
+        x, q12, heads, eps=EPS, n_valid=197))
+    return worst
+
+
+def _stack_int8_step(x, q1, heads, n_valid, act="gelu_tanh"):
     """One quantization step of a one-layer K19a output, elementwise: its
     K16's (out-projection) plus its K15's (W2).  The layer's output carries
     both: K16's output is K15's residual."""
@@ -2153,8 +2218,7 @@ def _stack_int8_step(x, q1, heads, n_valid):
               w1_q=blk["w1_q"], w1_s=blk["w1_s"], b1=blk["b1"],
               w2_s=blk["w2_s"])
     return (_k16_step(x, qa, heads, n_valid)
-            + _k15_step(x1.reshape(b * n, d), qm, "gelu_tanh").reshape(
-                b, n, d))
+            + _k15_step(x1.reshape(b * n, d), qm, act).reshape(b, n, d))
 
 
 def _stack_library(x, tree, heads, n_valid, int8, static=False):
@@ -3313,7 +3377,8 @@ FULL_LOGITS_TOL = 2e-2
 FULL_INT8_LOGITS_TOL = 8e-2
 
 
-def _full_args(depth, patch=16, image=224, classes=1000, seed=120):
+def _full_args(depth, patch=16, image=224, classes=1000, seed=120, d=768,
+               m=3072, n_pad=None):
     """(K12 arguments, K20 arguments) after the images at ViT-B width:
     the blocks of _stack_trees and a seeded patch weight, posb table
     (zero tail rows), final LayerNorm and head, laid out as the port's
@@ -3321,11 +3386,11 @@ def _full_args(depth, patch=16, image=224, classes=1000, seed=120):
     weights and biases, int8 scales 1.0; the int8 patch weight k-major)."""
     from vit_fpga_tpu_torch.ops.quant_fused import (kmajor,
                                                     quantize_weight_colwise)
-    bf, q8, _ = _stack_trees(depth, seed=seed, static=False)
+    bf, q8, _ = _stack_trees(depth, seed=seed, static=False, d=d, m=m)
     g = _gen(seed + 1)
-    d, p3 = 768, 3 * patch * patch
+    p3 = 3 * patch * patch
     n = 1 + (image // patch) ** 2
-    n_pad = -(-n // 8) * 8
+    n_pad = -(-n // 8) * 8 if n_pad is None else n_pad
     cls_pad = -(-classes // 128) * 128
     wp = _randn(g, p3, d, std=0.03)
     posb = _randn(g, n_pad, d, std=0.02)
@@ -3463,6 +3528,48 @@ def phase_full_kernels(batches=(1, 4), heads=12):
         *a1[1:], heads, 14, eps=EPS))
     _expect_raise("K12 with an f32 model", lambda: vs.vit_full(
         img, a1[0].float(), *a1[1:], heads, 16, eps=EPS))
+    worst["vit_full_int8"] = max(worst["vit_full_int8"], _k20_edges(i812))
+    return worst
+
+
+def _k20_edges(i812, heads=12):
+    """K20 at the edges of K19a's new design (``_k19a_edges``): b2 and b3,
+    the position table padded to 256 rows (two query items, 59 padding
+    rows), quick_gelu and ViT-L/16's width at depth 2, each within its
+    logits band and in norm; then 20 back-to-back b1 depth-12 launches
+    bit for bit.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = 0.0
+
+    def case(label, img, args, heads, act="gelu_tanh", floor=True):
+        got = vs.vit_full_int8(img, *args, heads, 16, eps=EPS, act=act)
+        want = vs.vit_full_int8_plain(img, *args, heads, 16, eps=EPS,
+                                      act=act)
+        torch.cuda.synchronize()
+        _relnorm(f"K20 {label} logits", got, want, STACK_INT8_NORM)
+        return _full_logits(f"K20 {label} logits", got, want,
+                            FULL_INT8_LOGITS_TOL,
+                            _full_int8_floor(img, args, heads)
+                            if floor and act == "gelu_tanh" else None)
+
+    print("K20 edges: batches, a 256-row position table, quick_gelu, "
+          "ViT-L/16 width")
+    for batch in (2, 3):
+        img = _full_images(batch, seed=200)
+        worst = max(worst, case(f"b{batch} depth 1", img,
+                                _full_depth(i812, 1, 3), heads))
+        worst = max(worst, case(f"b{batch} depth 12", img, i812, heads))
+    _, i8p = _full_args(12, seed=210, n_pad=256)
+    worst = max(worst, case("b2 n_pad 256 depth 12", _full_images(2, seed=211),
+                            i8p, heads))
+    worst = max(worst, case("b1 quick_gelu depth 12", _full_images(1, seed=212),
+                            i812, heads, act="quick_gelu"))
+    _, i8l = _full_args(2, seed=220, d=1024, m=4096)
+    worst = max(worst, case("ViT-L/16 width b1 (D 1024, M 4096, 16 heads) "
+                            "depth 2", _full_images(1, seed=221), i8l, 16))
+    img = _full_images(1, seed=230)
+    _repeat_identical("K20 b1 depth 12", lambda: vs.vit_full_int8(
+        img, *i812, heads, 16, eps=EPS))
     return worst
 
 
@@ -3617,7 +3724,11 @@ def phase_full_forward_time(loops=5, iters=32):
                              for _ in range(loops))
                 runs[name].append((est[len(est) // 2], est[-1]))
         calls = 3
-        pre = set(_launches(lambda: vit.preprocess(image, cfg), calls)[0])
+        # preprocess's kernels, the union of PROFILER_TRIES reads: a read
+        # can drop records, and a kernel it dropped would count as foreign
+        pre = set()
+        for _ in range(PROFILER_TRIES):
+            pre |= set(_launches(lambda: vit.preprocess(image, cfg), calls)[0])
         for name, fwd in fwds.items():
             kernels, copies = _launches(lambda: fwd(image), calls)
             for _ in range(PROFILER_TRIES - 1):

@@ -5,7 +5,7 @@ versions of the port are compared in one call on one card.
 Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
-        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9]
+        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20]
         [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT]
 
@@ -63,7 +63,14 @@ packed (B, 4104, 2304) qkv with 4097 valid keys at bk 128, b1 and b4, and
 at (1, 12, 4104, 64) with bk 512, per call and device alone, each beside
 SDPA with the key mask, with K7 bf16 at (1, 4104, 2304) and K4 at (64,
 200, 768) as controls, then the ViT-B/16 @1024 b1 forward in bf16 (12 K9
-+ 12 K5) and in dynamic int8 (12 K9 + 49 K14).
++ 12 K5) and in dynamic int8 (12 K9 + 49 K14); ``--kernel k19a`` times
+``vit_layers_int8`` (ViT-B/16 width, depth 12, 197 valid tokens on 200
+rows) at b1 and b4, per call and device alone, beside the 12 layers as
+PyTorch calls (``chip_smoke._stack_library``), with ``vit_layers_int8_
+static`` (K19b) as the unchanged control; ``--kernel k20`` times
+``vit_full_int8`` on (B, 224, 224, 3) images the same way beside
+``chip_smoke._full_library``, with ``vit_full`` (K12) as the control.
+Both take their seeded inputs from the tree's own ``chip_smoke.py``.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -346,7 +353,7 @@ def main() -> int:
                     default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--kernel",
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
-                             "k23", "k6", "k13", "k9"),
+                             "k23", "k6", "k13", "k9", "k19a", "k20"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -701,6 +708,41 @@ def main() -> int:
         device["K9 (1, 12, 4104, 64) n_valid 4097 bk 512 device alone"] = kern
         runs["K4 control (64, 200, 768) n_valid 197"] = k4_run(
             64, 200, 197, 768, 12, False)[0]
+    elif args.kernel in ("k19a", "k20"):
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import vit_stack as vs
+        shape = [[1, 200, 197, 768, 12], [4, 200, 197, 768, 12]]
+        runs = {}
+        eps = cs.EPS
+        if args.kernel == "k19a":
+            _, q12, s12 = cs._stack_trees(12, seed=110)
+        else:
+            bf12, i812 = cs._full_args(12, seed=140)
+        for b in (1, 4):
+            label = f"b{b} depth 12"
+            if args.kernel == "k19a":
+                x = cs._stack_x(b, seed=111)
+                kern = (lambda x=x: vs.vit_layers_int8(x, q12, 12, eps=eps,
+                                                       n_valid=197))
+                lib = cs._stack_library(x, q12, 12, 197, True)
+                runs[f"K19b control {label}"] = (
+                    lambda x=x: vs.vit_layers_int8_static(
+                        x, s12, 12, eps=eps, n_valid=197))
+                name = "K19a"
+            else:
+                img = cs._full_images(b, seed=141)
+                kern = (lambda img=img: vs.vit_full_int8(img, *i812, 12, 16,
+                                                         eps=eps))
+                lib = cs._full_library(img, i812, 12, True)
+                runs[f"K12 control {label}"] = (
+                    lambda img=img: vs.vit_full(img, *bf12, 12, 16,
+                                                eps=eps))
+                name = "K20"
+            runs[f"{name} {label} per call"] = kern
+            runs[f"library {label} per call"] = lib
+            device[f"{name} {label} device alone"] = kern
+            device[f"library {label} device alone"] = lib
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}

@@ -29,9 +29,16 @@ PY
 run_copy k11_no_key_mask stack.cuh \
   "attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid," \
   "attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_pad,"
-run_copy k19a_h_one_tile_absmax stack_i8.cuh \
-  "h_quant_row(w.h, w.amax, p.amax_parts, w.q, w.sx, r, rows, m);" \
-  "h_quant_row(w.h, w.amax, 1, w.q, w.sx, r, rows, m);"
+# K19a quantizing h with one 64-column W1 tile's absmax (W2's A block
+# and the row stage after it read the first part of each row's maxima)
+run_copy k19a_h_one_tile_absmax stack_i8_wgmma.cuh \
+  "a = LqQuantA{w.h, w.amax_h, lq_h_parts(p.m), rows, p.m, true, &p.maps.h};" \
+  "a = LqQuantA{w.h, w.amax_h, 1, rows, p.m, true, &p.maps.h};"
+# K19a's out-projection quantizing its A block of ao with the first
+# head's absmax alone (the row stage after it dequantizes with all heads')
+run_copy k19a_ao_one_head_absmax stack_i8_wgmma.cuh \
+  "a = LqQuantA{w.ao, w.amax_ao, p.heads, rows, p.d, false, &p.maps.ao};" \
+  "a = LqQuantA{w.ao, w.amax_ao, 1, rows, p.d, false, &p.maps.ao};"
 # K17 without the saturation before the int8 cast of h: past +-127 it wraps
 run_copy k17_no_clamp quant.cuh \
   "q.c[t] = rint_sat(qact_scaled(f[t], p.act, p.qscale));" \
@@ -63,8 +70,8 @@ run_copy k12_no_cls_posb vit_full.cu \
   "for (int t = 0; t < 16; ++t) f[t] = r % p.n_pad == 0 ? f[t] : __fadd_rn(f[t], pb[t]);"
 # K20 with the head's row quantization skipped: the CLS rows' final
 # LayerNorm and rowquant are not run, so the head reads stale int8 rows
-run_copy k20_head_no_rowquant stack_i8.cuh \
-  "last ? (fin ? lfs : nullptr)" "last ? nullptr"
+run_copy k20_head_no_rowquant stack_i8_wgmma.cuh \
+  "g ? (last ? p.lfs : p.ls1 + ln)" "g ? (last ? nullptr : p.ls1 + ln)"
 # K9 without the alpha rescale of acc and l when a key block raises the
 # running max (the online mode of the wgmma attention, both at bk 128 and
 # at the longer blocks)

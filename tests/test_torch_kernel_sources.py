@@ -138,8 +138,10 @@ def test_the_key_tiled_attention_tile_is_gone():
 
 def test_no_sum_of_the_port_uses_atomics():
     """K24's sums run in a fixed order: no atomic in the GEMM or in its
-    launch sequence."""
-    for name in ("gemm_wgmma.cuh", "mlp_bwd.cu", "norm.cuh"):
+    launch sequence; nor in K19a's and K20's layer loop, whose split-K
+    partials are added in slice order by the row stage that follows."""
+    for name in ("gemm_wgmma.cuh", "mlp_bwd.cu", "norm.cuh",
+                 "stack_i8_wgmma.cuh"):
         text = (_kernels.CSRC / name).read_text()
         assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", text), name
 
@@ -180,3 +182,58 @@ def test_the_mma_sync_k9_kernel_and_the_raw_int32_epilogue_are_gone():
                      r"\bseq_attn_enable\b", r"EPI_I32", r"\bSQ_\w+"):
             assert not re.search(gone, text), (p.name, gone)
     assert "seq_attn_f32_kernel" in (_kernels.CSRC / "seq_attn.cuh").read_text()
+
+
+@pytest.mark.parametrize("name", ["vit_stack_int8.cu", "vit_full_int8.cu"])
+def test_k19a_and_k20_run_on_the_int8_wgmma_layer_loop(name):
+    """K19a and K20 run stack_i8_wgmma.cuh's layer loop: int8 wgmma fed by
+    TMA (qgemm_wgmma.cuh's issue), the attention on mha_wgmma.cuh's
+    max-free sweep, a layer's grid barriers after the 7 stage kinds QKV,
+    attention, out-projection, LN2 rows, W1, W2 and LN1 rows; no mma.sync
+    tile, wmma fragment or stage of the 9-stage loop."""
+    text = (_kernels.CSRC / name).read_text()
+    for header in ("stack_i8_wgmma.cuh", "hopper.cuh", "qgemm_wgmma.cuh",
+                   "mha_wgmma.cuh"):
+        assert f'#include "{header}"' in text, header
+    assert "stack_i8.cuh" not in text
+    assert "lq_layers_consumer(" in text and "lq_layers_producer(" in text
+    assert "__launch_bounds__(LQ_THREADS, 1)" in text
+    layer = (_kernels.CSRC / "stack_i8_wgmma.cuh").read_text()
+    body = text.split("#define VFT_NS")[1]
+    for src in (body, layer):
+        for gone in (r"\btile_i8\b", r"\bsplit_stage_i8\b", r"\bqkv_stage\b",
+                     r"\battn_stage\b", r"\bencoder_layers_i8\b",
+                     r"\battn_item\b", r"\brow_pass_i8\b", r"\bmma_s8\b",
+                     r"\bwmma\b", r"\bblock_max\b"):
+            assert not re.search(gone, src), gone
+    for piece in ("qw_issue<LQ_BN>(", "mf_sweep<MW_MAXFREE>(", "tma_load_2d(",
+                  "tma_load_4d(", "fence_proxy_async_global()",
+                  "fence_proxy_async()"):
+        assert piece in layer, piece
+    loop = layer[layer.index("int lq_gemm_kind("):layer.index("// Host: the tensor")]
+    # a layer's 7 kinds, and before layer 0 the first LN1 rows (K20: after
+    # its embed); no kind of a row stage that only takes an absmax
+    assert set(re.findall(r"\bLQ_T_\w+", loop)) == {
+        "LQ_T_QKV", "LQ_T_ATTN", "LQ_T_OPROJ", "LQ_T_RES_LN2", "LQ_T_W1",
+        "LQ_T_W2", "LQ_T_RES_LN1", "LQ_T_LN1", "LQ_T_EMBED"}
+    assert not (_kernels.CSRC / "stack_i8.cuh").exists()
+
+
+def test_k19a_k20_stage_names_match_the_clock_kinds():
+    """ops/vit_stack's K19A_STAGES and K20_STAGES name the stage kinds of
+    stack_i8_wgmma.cuh's enum in its order: the comment beside each kind
+    begins the name of its row (K19a: the layer kinds, K20: all)."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    layer = (_kernels.CSRC / "stack_i8_wgmma.cuh").read_text()
+    enum = layer[layer.index("enum LqStage {"):]
+    enum = enum[:enum.index("};")]
+    kinds = re.findall(r"(LQ_T_\w+)(?: = 0)?,?\s*// ([^\n]+)", enum)
+    names = [k for k, _ in kinds]
+    assert names[0] == "LQ_T_LN1" and names[-1] == "LQ_T_HEAD"
+    assert len(names) == len(set(names)) == len(vs.K20_STAGES)
+    assert names.index("LQ_T_RES_LN1") + 1 == len(vs.K19A_STAGES)
+    for i, (_, what) in enumerate(kinds):
+        what = what.strip()
+        assert vs.K20_STAGES[i].startswith(what), (i, what)
+        if i < len(vs.K19A_STAGES):
+            assert vs.K19A_STAGES[i].startswith(what), (i, what)

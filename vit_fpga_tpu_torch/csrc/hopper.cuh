@@ -18,7 +18,8 @@
 //               with both operands in shared memory, m64n64k16 with A in
 //               registers; in int8, m64n128k32 and m64n256k32 with s32
 //               sums, both operands K-major in shared memory (8-bit wgmma
-//               has no transpose bit)
+//               has no transpose bit), and m64n64k32 (the int8 encoders'
+//               64-column items)
 
 #pragma once
 
@@ -66,6 +67,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // async-proxy reads of them (wgmma's operand fetch, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy global writes before async-proxy reads
+// of them (another block's TMA loads, after a grid barrier).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Barrier `id` (1..15) over `count` threads, e.g. one warpgroup.
@@ -308,6 +315,24 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(uint32_t (&d)[64], uint64_t 
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, s32) (+)= A (64 x 32, int8, shared, K-major) B (32 x 64,
+// int8, shared, K-major); accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(uint32_t (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 256, s32) (+)= A (64 x 32, int8, shared, K-major) B (32 x 256,
 // int8, shared, K-major); accumulate unless scale_d is 0.
 __device__ __forceinline__ void wgmma_m64n256k32_s8(uint32_t (&d)[128], uint64_t da, uint64_t db,
@@ -387,14 +412,15 @@ inline cudaError_t tma_init() {
 }
 
 // A map of `type` and `rank` dimensions (dims innermost first, byte strides
-// of dims 1.., boxes of `box`), 128-byte swizzled, zero past the extents
-// (a store leaves them out).
+// of dims 1.., boxes of `box`), 128-byte swizzled (or as `swizzle` says),
+// zero past the extents (a store leaves them out).
 inline bool tma_encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return tma_encoder() != nullptr &&
          tma_encoder()(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
-                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

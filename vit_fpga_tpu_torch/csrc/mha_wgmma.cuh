@@ -314,6 +314,43 @@ __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], floa
   for (int x = 0; x < 32; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
 }
 
+// The one-pass sweep of the max-free and safe modes over ntiles key tiles,
+// the (K, V) pairs of ring steps step0 .. step0 + ntiles - 1 (stage i %
+// MW_STAGES of the ring at `ring`, whose full and empty barriers are at bars
+// + 8 s and bars + 8 (MW_STAGES + s), the empty ones counting every consumer
+// thread): tile 0's p first, then per tile j its q k^T beside tile j - 1's
+// p v, then the last p v.  Leaves o = sum bf16(e) v and this thread's share
+// of l = sum e; every stage it read is released.  Also run by the
+// persistent int8 encoders (stack_i8_wgmma.cuh) on their own ring.
+template <int MODE>
+__device__ __forceinline__ void mf_sweep(float (&sa)[64], uint32_t (&pa)[32], float (&o)[32],
+                                         float (&l)[2], int ntiles, int step0, int n_valid,
+                                         float sc, const float (&m2)[2], int t4, uint64_t qd,
+                                         uint32_t ring, uint32_t bars) {
+  l[0] = l[1] = 0.0f;
+#pragma unroll
+  for (int x = 0; x < 32; ++x) o[x] = 0.0f;
+  const int s0 = step0 % MW_STAGES;
+  mbar_wait(bars + 8 * s0, (step0 / MW_STAGES) & 1);
+  qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
+  wgmma_wait<0>();
+  reg_fence(sa);
+  if (ntiles == 1)
+    mf_probs<MODE, true>(sa, pa, l, 2 * t4, n_valid, sc, m2);
+  else
+    mf_probs<MODE, false>(sa, pa, l, 0, 0, sc, m2);
+  for (int j = 1; j < ntiles - 1; ++j)
+    mf_next<MODE, false>(sa, pa, o, l, j, step0, n_valid, sc, m2, t4, qd, ring, bars);
+  if (ntiles > 1)
+    mf_next<MODE, true>(sa, pa, o, l, ntiles - 1, step0, n_valid, sc, m2, t4, qd, ring, bars);
+  const int sl = (step0 + ntiles - 1) % MW_STAGES;
+  pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+  wgmma_wait<0>();
+  reg_fence(o);
+  reg_fence(pa);
+  mbar_arrive(bars + 8 * (MW_STAGES + sl));
+}
+
 // The online mode's step to a key block: the rows' running max m2 (log2
 // domain) becomes mn, and alpha = exp(m - m_new) rescales l and o.
 __device__ __forceinline__ void online_alpha(float (&m2)[2], const float (&mn)[2],
@@ -552,33 +589,10 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
           stats_last<false>(sa, r, i, i, p.n_valid, sl2, t4, bars);
         }
       }
-      // One pass from ring step step0: tile 0's p first, then per tile j
-      // its q k^T beside tile j - 1's p v, then the last p v.
       const int step0 = MODE == MW_SAFE ? ntiles : 0;
       const float sc = MODE == MW_SAFE ? p.scale_log2 : p.scale;
-      float l[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int x = 0; x < 32; ++x) o[x] = 0.0f;
-      const int s0 = step0 % MW_STAGES;
-      mbar_wait(full(s0), (step0 / MW_STAGES) & 1);
-      qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
-      wgmma_wait<0>();
-      reg_fence(sa);
-      if (ntiles == 1)
-        mf_probs<MODE, true>(sa, pa, l, 2 * t4, p.n_valid, sc, r.m2);
-      else
-        mf_probs<MODE, false>(sa, pa, l, 0, 0, sc, r.m2);
-      for (int j = 1; j < ntiles - 1; ++j)
-        mf_next<MODE, false>(sa, pa, o, l, j, step0, p.n_valid, sc, r.m2, t4, qd, ring, bars);
-      if (ntiles > 1)
-        mf_next<MODE, true>(sa, pa, o, l, ntiles - 1, step0, p.n_valid, sc, r.m2, t4, qd, ring,
-                            bars);
-      const int sl = (step0 + ntiles - 1) % MW_STAGES;
-      pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
-      wgmma_wait<0>();
-      reg_fence(o);
-      reg_fence(pa);
-      mbar_arrive(empty(sl));
+      float l[2];
+      mf_sweep<MODE>(sa, pa, o, l, ntiles, step0, p.n_valid, sc, r.m2, t4, qd, ring, bars);
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) ol[rr] = 1.0f / quad_sum(l[rr]);
     } else {

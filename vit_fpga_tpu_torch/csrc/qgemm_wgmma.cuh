@@ -76,7 +76,8 @@ struct QwArgs {
 };
 
 // Issues acc += A_stage B_stage^T over one K step of 128 as one wgmma group
-// (four k32 slices, each 32 bytes further along the swizzled rows).
+// (four k32 slices, each 32 bytes further along the swizzled rows); BN 256
+// or 128 (K13's tiles) or 64 (stack_i8_wgmma.cuh's items).
 template <int BN>
 __device__ __forceinline__ void qw_issue(uint32_t (&acc)[BN / 2], uint32_t a_s, uint32_t b_s) {
   const uint64_t da = sw128_desc(a_s), db = sw128_desc(b_s);
@@ -86,8 +87,10 @@ __device__ __forceinline__ void qw_issue(uint32_t (&acc)[BN / 2], uint32_t a_s, 
   for (int kk = 0; kk < QW_BK / 32; ++kk) {
     if constexpr (BN == 256)
       wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk, 1);
-    else
+    else if constexpr (BN == 128)
       wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk, 1);
+    else
+      wgmma_m64n64k32_s8(acc, da + 2 * kk, db + 2 * kk, 1);
   }
   wgmma_commit();
 }

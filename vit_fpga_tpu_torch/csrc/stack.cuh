@@ -1,5 +1,6 @@
 // Device pieces of the single-launch encoders (vit_stack.cu K11,
-// vit_stack_int8.cu K19a, vit_stack_int8_static.cu K19b); include after
+// vit_full.cu K12, vit_stack_int8_static.cu K19b; K19a and K20 take only
+// the stage clock, the launch and the scalar helpers); include after
 // common.cuh and quant.cuh.
 //
 // Both kernels are cooperative and persistent: one grid of blocks stays
@@ -20,8 +21,9 @@
 //       e = exp(clip(s, -70, 80)), ao = bf16((bf16(e) @ v) * (1 / sum(e))),
 //       or (Q8, K19b) int8 aoq = clip(rint(bf16(o * ((1 / sum(e)) *
 //       out_scale))), -127, 127).
-//   qkv_stage, split_stage_i8, row_pass_i8  the int8 encoders' QKV tiles,
-//       split-K partial tiles and token-row passes (residual, LN, int8).
+//   qkv_stage, split_stage_i8, row_pass_i8  the static int8 encoder's
+//       QKV tiles, split-K partial tiles and token-row passes (residual,
+//       LN, int8).
 //   prefetch_l2 spreads prefetch.global.L2 of a weight over the grid.
 //
 // Data one stage writes and a later one reads (after a grid barrier) is
@@ -123,19 +125,6 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
     sb += red[SK_WARPS + w];
   }
   return make_float2(sa, sb);
-}
-
-__device__ __forceinline__ float block_max(float a) {
-  __shared__ float red[SK_WARPS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  a = warp_max(a);
-  __syncthreads();
-  if (lane == 0) red[warp] = a;
-  __syncthreads();
-  float m = red[0];
-#pragma unroll
-  for (int w = 1; w < SK_WARPS; ++w) m = fmaxf(m, red[w]);
-  return m;
 }
 
 // The warp's 16 x 32 accumulators (four 16 x 8 mma tiles) into its
@@ -526,24 +515,11 @@ __device__ __forceinline__ void ldcg8i(const int* p, int* a) {
   a[4] = w.x; a[5] = w.y; a[6] = w.z; a[7] = w.w;
 }
 
-// Row quantization of this thread's 8 values (on) against the block's row
-// absmax: q[8], and the scale written to *sq by thread 0.
-__device__ __forceinline__ void quant_chunk(const float* f, bool on, signed char* q, float* sq) {
-  float amax = 0.0f;
-  if (on) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(f[t]));
-  }
-  const float qs = __fdiv_rn(fmaxf(block_max(amax), 1e-12f), 127.0f);
-  if (on) store_q8(q, f, qs);
-  if (threadIdx.x == 0) *sq = qs;
-}
-
-// One token row: tok = src, or tok + bf16(dequant(sum of nsplit int32
-// partials) + bias) with the row scale sx[row] of the GEMM's input (1.0
-// with STATIC: the scale is folded into scol); then, with ls, the one-pass
-// LN and the row's int8: xq = rowquant(xn) and sx[row] = its scale, or
-// with STATIC xq = clip(rint(xn)) (1/a_x folded into ls and lb; sx
+// One token row of the static encoder (K19b; STATIC must be true: the
+// dynamic encoders' rows are stack_i8_wgmma.cuh's): tok = src, or tok +
+// bf16(dequant(sum of nsplit int32 partials) + bias) with the row scale
+// 1.0 (the scale is folded into scol); then, with ls, the one-pass LN and
+// the row's int8 xq = clip(rint(xn)) (1/a_x folded into ls and lb; sx
 // unused).  One block per row, one 8-column chunk per thread; every load
 // is issued before the first is used.  Every thread of the block calls it.
 template <bool STATIC>
@@ -557,7 +533,8 @@ __device__ __noinline__ void row_pass_i8(const bf16* src, bf16* tok, const int* 
   const size_t off = (size_t)row * d + cc;
   float v[8], sc[8], bi[8], lsc[8], lbi[8];
   int acc[ST_MAX_SPLIT][8];
-  const float srow = part != nullptr && !STATIC ? __ldcg(sx + row) : 1.0f;
+  static_assert(STATIC, "the dynamic int8 rows are stack_i8_wgmma.cuh's lq_row");
+  const float srow = 1.0f;
   ldcg8(src + off, v);
   if (part != nullptr) {
 #pragma unroll
@@ -597,11 +574,7 @@ __device__ __noinline__ void row_pass_i8(const bf16* src, bf16* tok, const int* 
 #pragma unroll
   for (int t = 0; t < 8; ++t)
     v[t] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[t], mu), rstd), lsc[t]), lbi[t]);
-  if (STATIC) {
-    if (on) store_rint8(q + off, v);
-  } else {
-    quant_chunk(v, on, q + off, sx + row);
-  }
+  if (on) store_rint8(q + off, v);
 }
 
 // qkv = bf16(dequant(xq wqkvq)); a null sx is a row scale of 1.0 (K19b).
@@ -693,13 +666,13 @@ struct StageClock {
 };
 
 // ---------------------------------------------------------------------------
-// Launch: a cooperative grid as large as can be resident at once, or a
-// loud error (ST_TRACE_BLOCKS at most when traced).  The grid size is kept
-// per device and shared memory size.
+// Launch: a cooperative grid of `threads`-thread blocks as large as can be
+// resident at once, or a loud error (ST_TRACE_BLOCKS at most when traced).
+// The grid size is kept per device and shared memory size.
 // ---------------------------------------------------------------------------
 
 inline cudaError_t coop_launch(const void* fn, void* args, size_t smem, bool traced,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int threads = SK_THREADS) {
   static int dev_smem[64];
   static int dev_blocks[64];
   int dev = 0;
@@ -711,7 +684,7 @@ inline cudaError_t coop_launch(const void* fn, void* args, size_t smem, bool tra
     if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, SK_THREADS, smem)) != cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, threads, smem)) != cudaSuccess)
       return err;
     if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
     dev_blocks[dev] = occ * sms;
@@ -719,7 +692,7 @@ inline cudaError_t coop_launch(const void* fn, void* args, size_t smem, bool tra
   }
   const int blocks = traced && dev_blocks[dev] > ST_TRACE_BLOCKS ? ST_TRACE_BLOCKS : dev_blocks[dev];
   void* kargs[] = {args};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(SK_THREADS), kargs, smem, stream);
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), kargs, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -3,14 +3,17 @@
 //
 // Replaces vit_fpga_tpu/ops/vit_stack.py:_stack_int8_kernel (wrapper
 // vit_layers_int8_pallas), whose layer is exactly K16 then K15.  One
-// cooperative persistent grid walks the layers in a loop and separates
-// the stages with grid-wide barriers (stack.cuh):
+// cooperative persistent grid, a block of a producer and two consumer
+// warpgroups on each SM, walks the layers and separates the stages with
+// grid-wide barriers (stack_i8_wgmma.cuh):
 //
 //   (0) rows   tok = x; xq, sx = rowquant(LN1(tok))              (once)
-//   per layer: stages (a)-(i) of stack_i8.cuh (int8 QKV tiles, attention
-//              items, ao quant rows, int8 out-projection split-K, residual
-//              + LN2 + quant rows, int8 W1 + act + row max tiles, h quant
-//              rows, int8 W2 split-K, residual + next LN1 + quant rows)
+//   per layer: stages (a)-(g) of stack_i8_wgmma.cuh (int8 QKV items,
+//              attention items, int8 out-projection split-K items with ao
+//              quantised in their prologue, residual + LN2 + quant rows,
+//              int8 W1 + act + row max items, int8 W2 split-K items with h
+//              quantised in their prologue, residual + next LN1 + quant
+//              rows): 7 grid barriers
 //
 // Rounding follows quant.cuh and PR 3's kernels: the one-pass f32 LN with
 // IEEE operations in the plain version's order, s = max(absmax, 1e-12) /
@@ -21,62 +24,69 @@
 // What bounds it on the H100: at ViT-B/16 batch 1 the encoder reads
 // 84.9 MB of int8 weights and 0.33 MB of scales (25.4 us at 3.35 TB/s) and
 // does 33.5 G int8 operations (16.9 us at 1979 TOPS) plus 1.4 GFLOP of bf16
-// attention: bound by bytes.  The design spreads each weight stream over
-// all SMs in 64 x 64 tiles and split-K, and takes a row's scale (ao over
-// 12 heads, h over 3072 columns) in a row pass after a barrier.  What it
-// costs: 9 grid barriers per layer.
+// attention: bound by bytes.  At 200 rows every stage is short, so the
+// chain of 85 grid barriers and the latency of each stage's first loads
+// weigh as much as the bytes: the design streams each weight by TMA into a
+// 4-deep ring on all SMs, issues the next GEMM stage's first weight boxes
+// before each barrier, and folds the two absmax-only row stages of a
+// layer into the next GEMM's prologue.
 
 #define VFT_NS vit_stack_int8
 #include "common.cuh"
 #include "quant.cuh"
+#include "hopper.cuh"
+#include "qgemm_wgmma.cuh"
+#include "mha_wgmma.cuh"
 #include "stack.cuh"
-#include "stack_i8.cuh"
+#include "stack_i8_wgmma.cuh"
 
 using namespace VFT_NS;
 
 namespace VFT_NS {
 
-__global__ void __launch_bounds__(SK_THREADS, 2) stack_int8_kernel(StackI8Args p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(LQ_THREADS, 1) stack_int8_kernel(const __grid_constant__ LqArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  const int rows = p.batch * p.n_pad;
-  WorkI8 w;
-  work_layout_i8(p.work, rows, p.d, p.m, &w);
+  LqRing r = lq_ring(smem);
   StageClock clk{p.trace, 0};
   clk.start();
 
-  for (int r = blockIdx.x; r < rows; r += gridDim.x)
-    row_pass_i8<false>(p.x, p.tok, nullptr, 0, 0, nullptr, nullptr, p.ls1, p.lb1, w.q, w.sx, r, p.d,
-                       p.eps);
-  clk.sync(grid, T_LN1);
-  encoder_layers_i8(p, w, clk, grid, smem);
-  clk.work_done(T_RES_LN1);
+  if (!lq_consumer()) {
+    lq_producer_regs();
+    lq_layers_producer(p, r, clk, grid);
+  } else {
+    lq_consumer_regs();
+    lq_layers_consumer(p, r, clk, grid);
+  }
+  clk.work_done(LQ_T_RES_LN1);
 }
 
 }  // namespace VFT_NS
 
 extern "C" {
 
-// Opts the kernel in to the shared memory of the largest attention item,
-// on the current device.  Returns a cudaError_t.
+// Finds the driver's tensor-map encoder and opts the kernel in to its
+// shared memory, on the current device.  Returns a cudaError_t.
 int vft_vit_stack_int8_init() {
+  cudaError_t err = tma_init();
+  if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(stack_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)stack_smem_bytes(ST_MAX_KV));
+                              (int)LQ_SMEM_BYTES);
 }
 
 // Bytes of scratch vft_vit_layers_int8 needs at `rows` = B * n_pad rows.
 size_t vft_vit_stack_int8_workspace(int rows, int d, int m) {
-  return work_layout_i8(nullptr, rows, d, m, nullptr);
+  return lq_work_layout(nullptr, rows, d, m, nullptr);
 }
 
 // x, out: (B * n_pad, D) bf16; the per-layer f32 vectors stacked (L, .);
 // wqkv (L, 3D, D), wo (L, D, D), w1 (L, M, D), w2 (L, D, M) int8, each the
-// (K, N) weight stored k-contiguous; work: vft_vit_stack_int8_workspace
-// bytes.  Head dim 64, D a multiple of 64 up to 1024, M a multiple of 64,
-// 1 <= n_valid <= min(n_pad, 256).  act: ACT_GELU_TANH or ACT_QUICK_GELU.
-// trace: null, or a zeroed int64 (ST_TRACE_BLOCKS, ST_TRACE_KINDS, 2)
-// StageClock buffer.  Enqueued on `stream`, which belongs to the current
-// device.  Returns a cudaError_t.
+// (K, N) weight stored k-contiguous, 16-byte aligned; work:
+// vft_vit_stack_int8_workspace bytes.  Head dim 64, D a multiple of 64 up
+// to 2048, M a multiple of 64 up to 4096, 1 <= n_valid <= min(n_pad, 256).
+// act: ACT_GELU_TANH or ACT_QUICK_GELU.  trace: null, or a zeroed int64
+// (ST_TRACE_BLOCKS, ST_TRACE_KINDS, 2) StageClock buffer.  Enqueued on
+// `stream`, which belongs to the current device.  Returns a cudaError_t.
 int vft_vit_layers_int8(const void* x, void* out, void* work, const void* ls1, const void* lb1,
                         const void* wqkv, const void* sqkv, const void* bqkv, const void* wo,
                         const void* so, const void* bo, const void* ls2, const void* lb2,
@@ -84,29 +94,28 @@ int vft_vit_layers_int8(const void* x, void* out, void* work, const void* ls1, c
                         const void* s2, const void* b2, int batch, int n_pad, int d, int m,
                         int depth, int heads, int n_valid, int act, float eps, float scale,
                         void* trace, void* stream) {
-  if (d != heads * ST_DH || d % ST_BN || d > 8 * SK_THREADS || m % ST_BN ||
-      m > 8 * SK_THREADS * ST_H_CHUNKS || m / ST_BN > SK_THREADS || depth < 1 ||
-      n_valid < 1 || n_valid > n_pad || n_valid > ST_MAX_KV || batch < 1 ||
-      (act != ACT_GELU_TANH && act != ACT_QUICK_GELU))
+  if (d != heads * ST_DH || d % ST_DH || d > LQ_MAX_D || m % ST_DH || m < ST_DH ||
+      m > LQ_MAX_M || depth < 1 || n_valid < 1 || n_valid > n_pad || n_valid > ST_MAX_KV ||
+      batch < 1 || (act != ACT_GELU_TANH && act != ACT_QUICK_GELU))
     return cudaErrorInvalidValue;
-  StackI8Args a;
+  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
+  if (!lq_aligned(wqkv) || !lq_aligned(wo) || !lq_aligned(w1) || !lq_aligned(w2) ||
+      !lq_aligned(work))
+    return cudaErrorMisalignedAddress;
+  LqArgs a;
   a.x = static_cast<const bf16*>(x);
   a.tok = static_cast<bf16*>(out);
   a.work = static_cast<unsigned char*>(work);
   a.ls1 = static_cast<const float*>(ls1);
   a.lb1 = static_cast<const float*>(lb1);
-  a.wqkv = static_cast<const signed char*>(wqkv);
   a.sqkv = static_cast<const float*>(sqkv);
   a.bqkv = static_cast<const float*>(bqkv);
-  a.wo = static_cast<const signed char*>(wo);
   a.so = static_cast<const float*>(so);
   a.bo = static_cast<const float*>(bo);
   a.ls2 = static_cast<const float*>(ls2);
   a.lb2 = static_cast<const float*>(lb2);
-  a.w1 = static_cast<const signed char*>(w1);
   a.s1 = static_cast<const float*>(s1);
   a.b1 = static_cast<const float*>(b1);
-  a.w2 = static_cast<const signed char*>(w2);
   a.s2 = static_cast<const float*>(s2);
   a.b2 = static_cast<const float*>(b2);
   a.batch = batch;
@@ -117,13 +126,17 @@ int vft_vit_layers_int8(const void* x, void* out, void* work, const void* ls1, c
   a.heads = heads;
   a.n_valid = n_valid;
   a.act = act;
-  a.amax_parts = m / ST_BN;
   a.eps = eps;
   a.scale = scale;
   a.trace = static_cast<long long*>(trace);
-  const int kvp = (n_valid + 15) / 16 * 16;
-  return coop_launch(reinterpret_cast<const void*>(stack_int8_kernel), &a, stack_smem_bytes(kvp),
-                     trace != nullptr, reinterpret_cast<cudaStream_t>(stream));
+  a.wps = a.posb = a.lfs = a.lfb = nullptr;
+  a.p3 = 0;
+  LqWork w;
+  lq_work_layout(a.work, batch * n_pad, d, m, &w);
+  if (!lq_encode_layers(&a.maps, w, wqkv, wo, w1, w2, batch, n_pad, d, m, depth, heads, n_valid))
+    return cudaErrorInvalidValue;
+  return coop_launch(reinterpret_cast<const void*>(stack_int8_kernel), &a, LQ_SMEM_BYTES,
+                     trace != nullptr, reinterpret_cast<cudaStream_t>(stream), LQ_THREADS);
 }
 
 }  // extern "C"

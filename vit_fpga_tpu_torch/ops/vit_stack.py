@@ -21,8 +21,8 @@ CPU tensor:
   the calibrated scales folded into the arguments
   (``models/quantized.quantize_vit_static``) and the per-layer 1/a_ao and
   1/a_h read from (depth,) tables by the layer the loop is on.  No row
-  absmax: the tiles and the attention items emit int8 directly, so a
-  layer has 7 stages and barriers where K19a has 9.
+  absmax: the tiles and the attention items emit int8 directly, 7 stages
+  and barriers a layer.
 
 Two more run the whole model, image in and logits out:
 
@@ -39,7 +39,9 @@ Two more run the whole model, image in and logits out:
 
 On the card each is ONE cooperative launch: a persistent grid walks the
 layers and separates the stages with grid-wide barriers (``csrc/
-stack.cuh``).  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
+stack.cuh``; K19a and K20 on ``csrc/stack_i8_wgmma.cuh``: a producer and
+two consumer warpgroups a block, int8 wgmma fed by TMA, the attention on
+``mha_wgmma.cuh``'s max-free sweep, 7 barriers a layer).  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
 reads 169.9 MB of bf16 weights (50.7 us at 3.35 TB/s) for 34.9 GFLOP
 (35.3 us at 989 TFLOP/s); K19a 84.9 MB of int8 weights and 0.33 MB of
 scales (25.4 us) for 33.5 G int8 operations (16.9 us): both bound by
@@ -83,18 +85,22 @@ K11_STAGES = ("LN1 rows (first layer)", "QKV tiles", "attention + prefetch",
               "out-proj split-K tiles", "residual + LN2 rows",
               "W1 + act tiles", "W2 split-K tiles",
               "residual + next LN1 rows")
-K19A_STAGES = ("LN1 + quant rows (first layer)", "int8 QKV tiles",
-               "attention + prefetch", "ao quant rows",
-               "int8 out-proj split-K tiles", "residual + LN2 + quant rows",
-               "int8 W1 + act + row max tiles", "h quant rows",
-               "int8 W2 split-K tiles", "residual + next LN1 + quant rows")
+# K19a and K20 (csrc/stack_i8_wgmma.cuh, enum LqStage): 7 stages a layer,
+# ao and h quantized in the prologue of the GEMM that reads them.
+K19A_STAGES = ("LN1 + quant rows (first layer)", "int8 QKV items",
+               "attention items",
+               "int8 out-proj split-K items (ao quant prologue)",
+               "residual + LN2 + quant rows",
+               "int8 W1 + act + row max items",
+               "int8 W2 split-K items (h quant prologue)",
+               "residual + next LN1 + quant rows")
 # K12 and K20: the layers' kinds, then the embed and head stages.
 K12_STAGES = ("LN1 rows (after the embed)",) + K11_STAGES[1:7] + (
     "residual + next LN1 rows (final LN after the last layer)",
     "patch rows", "embed tiles", "head items")
-K20_STAGES = ("LN1 + quant rows (after the embed)",) + K19A_STAGES[1:9] + (
+K20_STAGES = ("LN1 + quant rows (after the embed)",) + K19A_STAGES[1:7] + (
     "residual + next LN1 + quant rows (final LN after the last layer)",
-    "patch quant rows", "int8 embed tiles", "int8 head items")
+    "patch quant rows", "int8 embed items", "int8 head items")
 K19B_STAGES = ("LN1 + rint rows (first layer)", "int8 QKV tiles",
                "attention + prefetch, int8 ao",
                "int8 out-proj split-K tiles", "residual + LN2 + rint rows",
