@@ -2020,16 +2020,18 @@ def _stack_blocks(depth, d=768, m=3072, seed=100):
         w2=_randn(g, depth, m, d, std=0.02), b2=_randn(g, depth, d, std=0.02))
 
 
-def _stack_trees(depth, seed=100, static=True, d=768, m=3072):
+def _stack_trees(depth, seed=100, static=True, d=768, m=3072,
+                 act="gelu_tanh", shrink=1.0):
     """(bf16 tree, int8 tree, static int8 tree or None without ``static``)
     of the same seeded blocks,
     laid out as the latency forwards prepare them (bf16 weights; int8
     weights as (L, K, N) views of (L, N, K) storage with f32 column
     scales).  The static tree folds scales from the port's probe
-    (calibrate.layer_absmax_stats) on seeded tokens, each layer's times
-    0.7, 1 or 1.4 in turn: the layers' scales differ (a kernel that reads
-    another layer's scale moves a branch by up to a factor of 2) and a
-    third of the layers saturate."""
+    (calibrate.layer_absmax_stats, through ``act``) on seeded tokens, each
+    layer's times 0.7, 1 or 1.4 in turn: the layers' scales differ (a
+    kernel that reads another layer's scale moves a branch by up to a
+    factor of 2) and a third of the layers saturate; all divided by
+    ``shrink``, where more of every layer saturates."""
     from vit_fpga_tpu_torch.models import quantized
     from vit_fpga_tpu_torch.ops.quant_fused import (QMAX, kmajor,
                                                     quantize_weight_colwise)
@@ -2046,9 +2048,9 @@ def _stack_trees(depth, seed=100, static=True, d=768, m=3072):
     if not static:
         return bf, q8, None
     sc = calibrate.layer_absmax_stats(p, _stack_x(4, d=d, seed=seed + 2),
-                                      d // 64, EPS, "gelu_tanh",
-                                      torch.bfloat16)
+                                      d // 64, EPS, act, torch.bfloat16)
     turns = np.asarray([0.7, 1.0, 1.4], np.float32)[np.arange(depth) % 3]
+    turns = turns / np.float32(shrink)
     s8 = quantized._fold_static_scales(
         {"blocks": q8}, {k: v * turns for k, v in sc.items()}, QMAX)["blocks"]
     return bf, q8, s8
@@ -2132,6 +2134,8 @@ def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
         if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
             raise AssertionError(f"{name}: padding rows moved the valid rows")
     worst["vit_layers_int8"] = max(worst["vit_layers_int8"], _k19a_edges())
+    worst["vit_layers_int8_static"] = max(worst["vit_layers_int8_static"],
+                                          _k19b_edges())
     return worst
 
 
@@ -2197,6 +2201,94 @@ def _k19a_edges(heads=12):
     x = _stack_x(1, seed=190)
     _repeat_identical("K19a b1 depth 12", lambda: vs.vit_layers_int8(
         x, q12, heads, eps=EPS, n_valid=197))
+    return worst
+
+
+def _k19b_clipped(x, s1, heads, n_valid, act="gelu_tanh"):
+    """The shares of layer 0's aoq and hq that saturate (|.| > 127.5 in the
+    quant domain) over the valid rows, by the plain version's steps."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.attn_block import _mha_tpu
+    from vit_fpga_tpu_torch.ops.quant_fused import _int_matmul
+    blk = {k: v[0] for k, v in s1.items()}
+    xq = qb._rint_i8(qb._ln_f32(x, blk["ln1_scale"], blk["ln1_bias"], EPS))
+    qkv = (_int_matmul(xq, blk["wqkv_q"]) * blk["wqkv_s"]
+           + blk["bqkv"]).to(x.dtype)
+    ao = _mha_tpu(qkv, heads, n_valid, out_scale=blk["inv_ao"]).float()
+    x1 = qb.attn_block_int8_static_plain(
+        x, blk["inv_ao"], blk["ln1_scale"], blk["ln1_bias"], blk["wqkv_q"],
+        blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
+        heads, eps=EPS, n_valid=n_valid)
+    xq2 = qb._rint_i8(qb._ln_f32(x1, blk["ln2_scale"], blk["ln2_bias"], EPS))
+    h = qb._apply_act_scaled(_int_matmul(xq2, blk["w1_q"]) * blk["w1_s"]
+                             + blk["b1"], act, blk["inv_ah"])
+    return (_clipped(ao[:, :n_valid], 1.0),
+            _clipped(h[:, :n_valid], 1.0))
+
+
+def _k19b_edges(heads=12):
+    """K19b (the static variant of the wgmma layer loop: int8 items of 128
+    rows, split-K with aoq and hq by TMA, the attention's int8 epilogue)
+    at the edges of its design: b2 and b3 (400 and 600 rows), 1 / 127 /
+    128 / 129 / 197 / 256 valid keys at n_pad 256, quick_gelu on its own
+    calibration and ViT-L/16's width (D 1024, M 4096, 16 heads), each at
+    one layer in the static int8 band and deeper in norm; a saturating
+    case on scales calibrated to half the range, whose clipped shares of
+    aoq and hq are printed and must be > 0; then 20 back-to-back b1
+    depth-12 launches bit for bit.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = 0.0
+    _, _, s12 = _stack_trees(12, seed=150)
+
+    def case(label, x, s1, sn, depth, heads, n_valid, act="gelu_tanh"):
+        got = vs.vit_layers_int8_static(x, s1, heads, eps=EPS, act=act,
+                                        n_valid=n_valid)
+        want = vs.vit_layers_int8_static_plain(x, s1, heads, eps=EPS,
+                                               act=act, n_valid=n_valid)
+        step = (127.0 * (s1["wo_s"][0] + s1["w2_s"][0])).expand_as(x)
+        err = _int8_parity(f"K19b {label} depth 1", got, want, step, x,
+                           mag_x=True)
+        got = vs.vit_layers_int8_static(x, sn, heads, eps=EPS, act=act,
+                                        n_valid=n_valid)
+        want = vs.vit_layers_int8_static_plain(x, sn, heads, eps=EPS,
+                                               act=act, n_valid=n_valid)
+        torch.cuda.synchronize()
+        _relnorm(f"K19b {label} depth {depth}, all rows", got, want,
+                 STACK_INT8_NORM)
+        return max(err, float((got.float() - want.float()).abs().max()))
+
+    def first(tree):
+        return {k: v[:1] for k, v in tree.items()}
+
+    print("K19b edges: batches, key tiles, quick_gelu, ViT-L/16 width, "
+          "saturation")
+    for batch in (2, 3):
+        worst = max(worst, case(f"b{batch} (rows {batch * 200})",
+                                _stack_x(batch, seed=151 + batch),
+                                first(s12), s12, 12, heads, 197))
+    for nv in (1, 127, 128, 129, 197, 256):
+        worst = max(worst, case(f"b1 n_pad 256 n_valid {nv}",
+                                _stack_x(1, n_pad=256, seed=160 + nv),
+                                first(s12), s12, 12, heads, nv))
+    _, _, sq = _stack_trees(12, seed=170, act="quick_gelu")
+    worst = max(worst, case("b1 quick_gelu", _stack_x(1, seed=171),
+                            first(sq), sq, 12, heads, 197, act="quick_gelu"))
+    _, _, sl = _stack_trees(2, seed=180, d=1024, m=4096)
+    worst = max(worst, case("ViT-L/16 width b1 (D 1024, M 4096, 16 heads)",
+                            _stack_x(1, d=1024, seed=181), first(sl), sl, 2,
+                            16, 197))
+    _, _, ss = _stack_trees(2, seed=185, shrink=SHRINK)
+    x = _stack_x(1, seed=186)
+    cao, ch = _k19b_clipped(x, first(ss), heads, 197)
+    print(f"  K19b saturating (scales / {SHRINK:g}): clipped share of layer "
+          f"0's aoq {cao:.3e}, hq {ch:.3e} (each must be > 0)")
+    if not min(cao, ch) > 0.0:
+        raise AssertionError("K19b saturating case: nothing clipped")
+    worst = max(worst, case(f"b1 saturating (scales / {SHRINK:g})", x,
+                            first(ss), ss, 2, heads, 197))
+    x = _stack_x(1, seed=190)
+    _repeat_identical("K19b b1 depth 12", lambda: vs.vit_layers_int8_static(
+        x, s12, heads, eps=EPS, n_valid=197))
     return worst
 
 
@@ -3529,6 +3621,65 @@ def phase_full_kernels(batches=(1, 4), heads=12):
     _expect_raise("K12 with an f32 model", lambda: vs.vit_full(
         img, a1[0].float(), *a1[1:], heads, 16, eps=EPS))
     worst["vit_full_int8"] = max(worst["vit_full_int8"], _k20_edges(i812))
+    worst["vit_full"] = max(worst["vit_full"], _k12_edges(bf12))
+    return worst
+
+
+# K12's edge images (grid rows, grid columns) of 16-pixel patches: 2 / 127 /
+# 128 / 129 / 197 / 256 tokens (one patch, 9 x 14, 1 x 127, 8 x 16, 14 x
+# 14, 15 x 17; a whole-model input has at least the CLS row and a patch).
+K12_EDGE_GRIDS = ((1, 1), (9, 14), (1, 127), (8, 16), (14, 14), (15, 17))
+
+
+def _k12_edges(bf12, heads=12):
+    """K12 (the bf16 variant of the wgmma layer loop: 64-column bf16 items
+    with the weights through the transpose bit, f32 split-K partials) at
+    the edges of its design: b2 and b3 at depth 1 (the bf16 band) and 12
+    (norm and the logits band), 2 / 127 / 128 / 129 / 197 / 256 tokens on
+    a 256-row position table (rectangular images), quick_gelu and
+    ViT-L/16's width at depth 2; then 20 back-to-back b1 depth-12 launches
+    bit for bit.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = 0.0
+
+    def case(label, img, args, heads, act="gelu_tanh"):
+        got = vs.vit_full(img, *args, heads, 16, eps=EPS, act=act)
+        want = vs.vit_full_plain(img, *args, heads, 16, eps=EPS, act=act)
+        torch.cuda.synchronize()
+        _relnorm(f"K12 {label} logits", got, want, STACK_BF16_NORM)
+        return _full_logits(f"K12 {label} logits", got, want)
+
+    print("K12 edges: batches, token counts on a 256-row position table, "
+          "quick_gelu, ViT-L/16 width")
+    a1 = _full_depth(bf12, 1, 2)
+    for batch in (2, 3):
+        img = _full_images(batch, seed=300)
+        got = vs.vit_full(img, *a1, heads, 16, eps=EPS)
+        want = vs.vit_full_plain(img, *a1, heads, 16, eps=EPS)
+        torch.cuda.synchronize()
+        worst = max(worst, _compare(f"K12 b{batch} depth 1 logits", got,
+                                    want, BF16_TOL, BF16_TOL))
+        worst = max(worst, case(f"b{batch} depth 12", img, bf12, heads))
+    g = _gen(310)
+    d = bf12[0].shape[1]
+    for gh, gw in K12_EDGE_GRIDS:
+        n = 1 + gh * gw
+        posb = _randn(g, 256, d, std=0.02)
+        posb[n:] = 0.0
+        img = _randn(_gen(311 + n), 1, 16 * gh, 16 * gw, 3)
+        args = (bf12[0], posb) + bf12[2:]
+        worst = max(worst, case(f"b1 {n} tokens ({16 * gh} x {16 * gw} "
+                                f"image) n_pad 256 depth 12", img, args,
+                                heads))
+    worst = max(worst, case("b1 quick_gelu depth 12",
+                            _full_images(1, seed=312), bf12, heads,
+                            act="quick_gelu"))
+    bfl, _ = _full_args(2, seed=320, d=1024, m=4096)
+    worst = max(worst, case("ViT-L/16 width b1 (D 1024, M 4096, 16 heads) "
+                            "depth 2", _full_images(1, seed=321), bfl, 16))
+    img = _full_images(1, seed=330)
+    _repeat_identical("K12 b1 depth 12", lambda: vs.vit_full(
+        img, *bf12, heads, 16, eps=EPS))
     return worst
 
 
@@ -5391,7 +5542,9 @@ def check_wgmma_serialisation(build_log: str) -> None:
     the log holds no ptxas report of the wgmma kernels to read."""
     lines = build_log.splitlines()
     for kernel in ("gw_kernel", "mha_wgmma_kernel", "bwd_q_kernel",
-                   "bwd_kv_kernel", "qgemm_wgmma_kernel"):
+                   "bwd_kv_kernel", "qgemm_wgmma_kernel", "stack_int8_kernel",
+                   "full_int8_kernel", "stack_int8_static_kernel",
+                   "8vit_full11full_kernel"):
         if not any("Compiling entry function" in ln and kernel in ln
                    for ln in lines):
             raise AssertionError(f"the build log holds no ptxas report of "

@@ -1,13 +1,14 @@
-"""K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's or K9's
-time at a shape, from the package tree found under ROOT, so that two
-versions of the port are compared in one call on one card.
+"""K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's, K9's,
+K19a's, K20's, K19b's or K12's time at a shape, from the package tree
+found under ROOT, so that two versions of the port are compared in one
+call on one card.
 
 Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
-        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20]
+        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12]
         [--shape B N_PAD N_VALID D HEADS]
-        [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT]
+        [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT] [--a-region]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
 time, e.g. a ``git archive`` of another commit unpacked under ``_chip/``; its
@@ -69,8 +70,12 @@ rows) at b1 and b4, per call and device alone, beside the 12 layers as
 PyTorch calls (``chip_smoke._stack_library``), with ``vit_layers_int8_
 static`` (K19b) as the unchanged control; ``--kernel k20`` times
 ``vit_full_int8`` on (B, 224, 224, 3) images the same way beside
-``chip_smoke._full_library``, with ``vit_full`` (K12) as the control.
-Both take their seeded inputs from the tree's own ``chip_smoke.py``.
+``chip_smoke._full_library``, with ``vit_full`` (K12) as the control;
+``--kernel k19b`` times ``vit_layers_int8_static`` the same way as k19a,
+beside ``chip_smoke._stack_library`` with per-tensor static scales, and
+``--kernel k12`` times ``vit_full`` beside ``chip_smoke._full_library`` in
+bf16, each with K11 (``vit_layers``), K19a and K20 as the controls.
+All four take their seeded inputs from the tree's own ``chip_smoke.py``.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -87,6 +92,10 @@ stages and 2 staged 8 KB pieces a consumer warpgroup as built):
 stages and the whole tile staged (8 pieces at 256 columns, 4 at 128),
 ``s3_b4`` 3 stages and 4 pieces at 256 columns, ``s4_regs`` no staging
 (every output stored from the registers, as those TMA cannot take).
+``--a-region`` times a copy of ROOT's package (under ROOT's
+``_chip/a_region/``) whose single-launch layer loop lays out the dynamic
+variant's 64 KB quantised-A region for the static and bf16 variants too
+(K19b, K12), so that they keep as little L1 as K19a and K20.
 """
 
 from __future__ import annotations
@@ -138,13 +147,15 @@ QGEMM_VARIANTS = {
 
 
 def patched_copy(root: Path, name: str, edits) -> Path:
-    """ROOT's package copied under ROOT's ``_chip/name/`` with ``edits``
-    (file under csrc/, text, replacement) made, each text found once."""
+    """ROOT's package (and its chip_smoke.py, whose inputs some kernels
+    take) copied under ROOT's ``_chip/name/`` with ``edits`` (file under
+    csrc/, text, replacement) made, each text found once."""
     copy = root / "_chip" / name
     # over an earlier copy, whose _build/ a later run reuses
     shutil.copytree(root / "vit_fpga_tpu_torch", copy / "vit_fpga_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"),
                     dirs_exist_ok=True)
+    shutil.copy2(root / "chip_smoke.py", copy / "chip_smoke.py")
     for file, old, new in edits:
         src = copy / "vit_fpga_tpu_torch" / "csrc" / file
         text = src.read_text()
@@ -152,6 +163,16 @@ def patched_copy(root: Path, name: str, edits) -> Path:
             raise RuntimeError(f"{file}: {old!r} not found once")
         src.write_text(text.replace(old, new))
     return copy
+
+
+# The single-launch layer loop (csrc/stack_wgmma.cuh) with the shared A
+# region the dynamic int8 variant quantises into laid out for every
+# variant: K19b and K12 then take 216 KB of shared memory, not 150 KB
+# (64 KB less L1).
+A_REGION = (
+    ("stack_wgmma.cuh", "(v == LQ_DYN ? LQ_A_BYTES : 0)", "LQ_A_BYTES"),
+    ("stack_wgmma.cuh", "(V == LQ_DYN ? LQ_A_BYTES : 0)", "LQ_A_BYTES"),
+)
 
 
 def one_consumer_copy(root: Path) -> Path:
@@ -353,7 +374,8 @@ def main() -> int:
                     default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--kernel",
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
-                             "k23", "k6", "k13", "k9", "k19a", "k20"),
+                             "k23", "k6", "k13", "k9", "k19a", "k20",
+                             "k19b", "k12"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -362,6 +384,7 @@ def main() -> int:
                     default=[12800, 768, 3072], metavar=("T", "D", "M"))
     ap.add_argument("--one-consumer", action="store_true")
     ap.add_argument("--qgemm", choices=sorted(QGEMM_VARIANTS))
+    ap.add_argument("--a-region", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if args.one_consumer:
@@ -369,6 +392,8 @@ def main() -> int:
     if args.qgemm:
         root = patched_copy(root, f"qgemm_{args.qgemm}",
                             QGEMM_VARIANTS[args.qgemm])
+    if args.a_region:
+        root = patched_copy(root, "a_region", A_REGION)
     sys.path.insert(0, str(root))
     import torch
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -743,6 +768,42 @@ def main() -> int:
             runs[f"library {label} per call"] = lib
             device[f"{name} {label} device alone"] = kern
             device[f"library {label} device alone"] = lib
+    elif args.kernel in ("k19b", "k12"):
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import vit_stack as vs
+        shape = [[1, 200, 197, 768, 12], [4, 200, 197, 768, 12]]
+        runs = {}
+        eps = cs.EPS
+        bf12, q12, s12 = cs._stack_trees(12, seed=110)
+        a12, i812 = cs._full_args(12, seed=140)
+        for b in (1, 4):
+            label = f"b{b} depth 12"
+            x = cs._stack_x(b, seed=111)
+            img = cs._full_images(b, seed=141)
+            calls = {
+                "K19b": lambda x=x: vs.vit_layers_int8_static(
+                    x, s12, 12, eps=eps, n_valid=197),
+                "K12": lambda img=img: vs.vit_full(img, *a12, 12, 16,
+                                                   eps=eps),
+                "K11": lambda x=x: vs.vit_layers(x, bf12, 12, eps=eps,
+                                                 n_valid=197),
+                "K19a": lambda x=x: vs.vit_layers_int8(x, q12, 12, eps=eps,
+                                                       n_valid=197),
+                "K20": lambda img=img: vs.vit_full_int8(img, *i812, 12, 16,
+                                                        eps=eps)}
+            if args.kernel == "k19b":
+                name = "K19b"
+                lib = cs._stack_library(x, s12, 12, 197, True, static=True)
+            else:
+                name = "K12"
+                lib = cs._full_library(img, a12, 12, False)
+            runs[f"{name} {label} per call"] = calls[name]
+            runs[f"library {label} per call"] = lib
+            device[f"{name} {label} device alone"] = calls[name]
+            device[f"library {label} device alone"] = lib
+            for other in ("K11", "K19a", "K20"):
+                runs[f"{other} control {label}"] = calls[other]
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}

@@ -27,25 +27,33 @@ PY
   grep -E "violations=[1-9]|Error|must be" chiprun_out/mut_$1.log | head -4
 }
 run_copy k11_no_key_mask stack.cuh \
-  "attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid," \
-  "attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_pad,"
+  "attn_item(qkv, ao, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid, kvp," \
+  "attn_item(qkv, ao, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_pad, kvp,"
 # K19a quantizing h with one 64-column W1 tile's absmax (W2's A block
 # and the row stage after it read the first part of each row's maxima)
-run_copy k19a_h_one_tile_absmax stack_i8_wgmma.cuh \
+run_copy k19a_h_one_tile_absmax stack_wgmma.cuh \
   "a = LqQuantA{w.h, w.amax_h, lq_h_parts(p.m), rows, p.m, true, &p.maps.h};" \
   "a = LqQuantA{w.h, w.amax_h, 1, rows, p.m, true, &p.maps.h};"
 # K19a's out-projection quantizing its A block of ao with the first
 # head's absmax alone (the row stage after it dequantizes with all heads')
-run_copy k19a_ao_one_head_absmax stack_i8_wgmma.cuh \
+run_copy k19a_ao_one_head_absmax stack_wgmma.cuh \
   "a = LqQuantA{w.ao, w.amax_ao, p.heads, rows, p.d, false, &p.maps.ao};" \
   "a = LqQuantA{w.ao, w.amax_ao, 1, rows, p.d, false, &p.maps.ao};"
 # K17 without the saturation before the int8 cast of h: past +-127 it wraps
 run_copy k17_no_clamp quant.cuh \
   "q.c[t] = rint_sat(qact_scaled(f[t], p.act, p.qscale));" \
   "q.c[t] = static_cast<signed char>(static_cast<int>(rintf(qact_scaled(f[t], p.act, p.qscale))));"
-# K19b reading layer 0's inv_ao / inv_ah for every layer
-run_copy k19b_layer0_scales vit_stack_int8_static.cu \
-  "__ldg(p.inv_ao + l);" "__ldg(p.inv_ao);" "__ldg(p.inv_ah + l);" "__ldg(p.inv_ah);"
+# K19b reading layer 0's inv_ao / inv_ah for every layer (the static
+# variant of the layer loop, stack_wgmma.cuh)
+run_copy k19b_layer0_scales stack_wgmma.cuh \
+  "__ldg(p.inv_ao + l)" "__ldg(p.inv_ao)" "__ldg(p.inv_ah + l)" "__ldg(p.inv_ah)"
+# K19b's attention epilogue without the +-127 clamp of the int8 aoq: past
+# the calibrated absmax it wraps
+run_copy k19b_no_ao_clamp stack_wgmma.cuh \
+  "const int q0i = static_cast<int>(fminf(fmaxf(rintf(f0), -127.0f), 127.0f));" \
+  "const int q0i = static_cast<int>(rintf(f0));" \
+  "const int q1i = static_cast<int>(fminf(fmaxf(rintf(f1), -127.0f), 127.0f));" \
+  "const int q1i = static_cast<int>(rintf(f1));"
 # K25 rounding half away from zero: the blur puts many pixels on a half
 run_copy k25_roundf image_filter.cu \
   "static_cast<int>(rintf(acc))" "static_cast<int>(roundf(acc))"
@@ -64,14 +72,22 @@ run_copy k4_long_no_partial_tile mha_wgmma.cuh \
   "const int ntiles = (p.n_valid + MW_KT - 1) / MW_KT;" \
   "const int ntiles = (MODE == MW_SAFE && p.n_valid > MW_KT ? p.n_valid - 1 : p.n_valid + MW_KT - 1) / MW_KT;"
 # K12 without the embed's posb on each image's CLS row (the CLS token and
-# its position embedding dropped)
-run_copy k12_no_cls_posb vit_full.cu \
-  "for (int t = 0; t < 16; ++t) f[t] = __fadd_rn(f[t], pb[t]);" \
-  "for (int t = 0; t < 16; ++t) f[t] = r % p.n_pad == 0 ? f[t] : __fadd_rn(f[t], pb[t]);"
+# its position embedding dropped; the bf16 variant's embed epilogue)
+run_copy k12_no_cls_posb stack_wgmma.cuh \
+  "const float2 bi = *reinterpret_cast<const float2*>(bp0 + 8 * j + cof);" \
+  "const float2 bi = V == LQ_BF16 && embed && r0 % e.n_pad == 0 ? make_float2(0.0f, 0.0f) : *reinterpret_cast<const float2*>(bp0 + 8 * j + cof);" \
+  "const float2 bi = *reinterpret_cast<const float2*>(bp1 + 8 * j + cof);" \
+  "const float2 bi = V == LQ_BF16 && embed && r1 % e.n_pad == 0 ? make_float2(0.0f, 0.0f) : *reinterpret_cast<const float2*>(bp1 + 8 * j + cof);"
+# K12's out-projection row stage summing only the first of its split-K
+# partials (the bf16 variant's (d) rows)
+run_copy k12_one_wo_partial stack_wgmma.cuh \
+  "LqRows a{p.tok, w.part, lq_layer_gemm<V>(p, l, gi).split," \
+  "LqRows a{p.tok, w.part, V == LQ_BF16 && gi == 1 ? 1 : lq_layer_gemm<V>(p, l, gi).split,"
 # K20 with the head's row quantization skipped: the CLS rows' final
 # LayerNorm and rowquant are not run, so the head reads stale int8 rows
-run_copy k20_head_no_rowquant stack_i8_wgmma.cuh \
-  "g ? (last ? p.lfs : p.ls1 + ln)" "g ? (last ? nullptr : p.ls1 + ln)"
+# (the dynamic variant only: K12's final LN stays)
+run_copy k20_head_no_rowquant stack_wgmma.cuh \
+  "g ? (last ? p.lfs : p.ls1 + ln)" "g ? (last ? (V == LQ_DYN ? nullptr : p.lfs) : p.ls1 + ln)"
 # K9 without the alpha rescale of acc and l when a key block raises the
 # running max (the online mode of the wgmma attention, both at bk 128 and
 # at the longer blocks)

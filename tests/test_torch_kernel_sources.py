@@ -138,10 +138,12 @@ def test_the_key_tiled_attention_tile_is_gone():
 
 def test_no_sum_of_the_port_uses_atomics():
     """K24's sums run in a fixed order: no atomic in the GEMM or in its
-    launch sequence; nor in K19a's and K20's layer loop, whose split-K
-    partials are added in slice order by the row stage that follows."""
+    launch sequence; nor in the layer loop of K19a, K20, K19b and K12,
+    whose split-K partials (int32, or K12's f32) are added in slice order
+    by the row stage that follows."""
     for name in ("gemm_wgmma.cuh", "mlp_bwd.cu", "norm.cuh",
-                 "stack_i8_wgmma.cuh"):
+                 "stack_wgmma.cuh", "vit_stack_int8_static.cu",
+                 "vit_full.cu"):
         text = (_kernels.CSRC / name).read_text()
         assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", text), name
 
@@ -186,19 +188,19 @@ def test_the_mma_sync_k9_kernel_and_the_raw_int32_epilogue_are_gone():
 
 @pytest.mark.parametrize("name", ["vit_stack_int8.cu", "vit_full_int8.cu"])
 def test_k19a_and_k20_run_on_the_int8_wgmma_layer_loop(name):
-    """K19a and K20 run stack_i8_wgmma.cuh's layer loop: int8 wgmma fed by
+    """K19a and K20 run stack_wgmma.cuh's layer loop: int8 wgmma fed by
     TMA (qgemm_wgmma.cuh's issue), the attention on mha_wgmma.cuh's
     max-free sweep, a layer's grid barriers after the 7 stage kinds QKV,
     attention, out-projection, LN2 rows, W1, W2 and LN1 rows; no mma.sync
     tile, wmma fragment or stage of the 9-stage loop."""
     text = (_kernels.CSRC / name).read_text()
-    for header in ("stack_i8_wgmma.cuh", "hopper.cuh", "qgemm_wgmma.cuh",
+    for header in ("stack_wgmma.cuh", "hopper.cuh", "qgemm_wgmma.cuh",
                    "mha_wgmma.cuh"):
         assert f'#include "{header}"' in text, header
     assert "stack_i8.cuh" not in text
     assert "lq_layers_consumer(" in text and "lq_layers_producer(" in text
     assert "__launch_bounds__(LQ_THREADS, 1)" in text
-    layer = (_kernels.CSRC / "stack_i8_wgmma.cuh").read_text()
+    layer = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
     body = text.split("#define VFT_NS")[1]
     for src in (body, layer):
         for gone in (r"\btile_i8\b", r"\bsplit_stage_i8\b", r"\bqkv_stage\b",
@@ -221,10 +223,10 @@ def test_k19a_and_k20_run_on_the_int8_wgmma_layer_loop(name):
 
 def test_k19a_k20_stage_names_match_the_clock_kinds():
     """ops/vit_stack's K19A_STAGES and K20_STAGES name the stage kinds of
-    stack_i8_wgmma.cuh's enum in its order: the comment beside each kind
+    stack_wgmma.cuh's enum in its order: the comment beside each kind
     begins the name of its row (K19a: the layer kinds, K20: all)."""
     from vit_fpga_tpu_torch.ops import vit_stack as vs
-    layer = (_kernels.CSRC / "stack_i8_wgmma.cuh").read_text()
+    layer = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
     enum = layer[layer.index("enum LqStage {"):]
     enum = enum[:enum.index("};")]
     kinds = re.findall(r"(LQ_T_\w+)(?: = 0)?,?\s*// ([^\n]+)", enum)
@@ -237,3 +239,85 @@ def test_k19a_k20_stage_names_match_the_clock_kinds():
         assert vs.K20_STAGES[i].startswith(what), (i, what)
         if i < len(vs.K19A_STAGES):
             assert vs.K19A_STAGES[i].startswith(what), (i, what)
+
+
+@pytest.mark.parametrize("name", ["vit_stack_int8_static.cu", "vit_full.cu"])
+def test_k19b_and_k12_run_on_the_wgmma_layer_loop(name):
+    """K19b (static int8) and K12 (bf16) run stack_wgmma.cuh's layer loop,
+    the one K19a and K20 run, in their own variant of it: TMA-fed wgmma
+    items, the attention on mha_wgmma.cuh's max-free sweep, 7 grid
+    barriers a layer; none of stack.cuh's mma.sync tiles, wmma attention
+    items or row passes, and not K11's stack_bf16.cuh."""
+    text = (_kernels.CSRC / name).read_text()
+    for header in ("stack_wgmma.cuh", "hopper.cuh", "mha_wgmma.cuh"):
+        assert f'#include "{header}"' in text, header
+    assert "lq_layers_consumer(" in text and "lq_layers_producer(" in text
+    assert "__launch_bounds__(LQ_THREADS, 1)" in text
+    variant = "LQ_STATIC" if name == "vit_stack_int8_static.cu" else "LQ_BF16"
+    assert f"lq_ring<{variant}>(smem)" in text
+    assert f"lq_encode_layers<{variant}>(" in text
+    body = text.split("#define VFT_NS")[1]
+    for gone in (r"\btile_i8\b", r"\btile_bf16\b", r"\bsplit_stage_i8\b",
+                 r"\bqkv_stage\b", r"\battn_item\b", r"\battn_stage\b",
+                 r"\brow_pass_i8\b", r"\brow_pass\b", r"\bmma_s8\b",
+                 r"stack_bf16\.cuh", r"\bencoder_layers\b", r"\bwmma\b"):
+        assert not re.search(gone, body), (name, gone)
+
+
+def test_the_layer_loop_has_a_bf16_item_and_a_static_epilogue():
+    """stack_wgmma.cuh's one GEMM site issues gemm_wgmma.cuh's gw_issue on
+    a 64-column bf16 item (B through the transpose bit) or qgemm_wgmma.cuh's
+    qw_issue, takes its K-step count from the variant, and reads the static
+    and bf16 variants' out-projection and W2 operands by TMA; the static
+    attention's int8 epilogue and W1's keep their +-127 clamps."""
+    layer = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
+    assert "gw_issue<0, GW_BK / 16, GW_AK_BN, LQ_BN>(" in layer
+    assert "qw_issue<LQ_BN>(" in layer
+    assert layer.count("lq_kstep<V>()") >= 2
+    assert "tma_a ? &p.maps.ao : nullptr" in layer
+    assert "tma_a ? &p.maps.h : nullptr" in layer
+    assert layer.count("fminf(fmaxf(rintf(f0), -127.0f), 127.0f)") == 1
+    assert "lq_pack2(rint_sat(z[4 * j]), rint_sat(z[4 * j + 1]))" in layer
+    gemm = (_kernels.CSRC / "gemm_wgmma.cuh").read_text()
+    assert "int BN = GW_BN>" in gemm
+    assert "wgmma_m64n64k16_ss<1>(" in gemm
+    hopper = (_kernels.CSRC / "hopper.cuh").read_text()
+    assert '"n"(TRANS_B));' in hopper.split("wgmma_m64n64k16_ss(")[1]
+
+
+def test_k11_keeps_its_mma_sync_layer_and_stack_cuh_loses_its_int8_tiles():
+    """K11 still runs stack_bf16.cuh's layers on stack.cuh's bf16 tiles and
+    attention items; the int8 tiles and stages of stack.cuh that K19b alone
+    called are gone, and the old header name with them."""
+    k11 = (_kernels.CSRC / "vit_stack.cu").read_text()
+    assert '#include "stack_bf16.cuh"' in k11
+    assert '#include "stack.cuh"' in k11
+    stack = (_kernels.CSRC / "stack.cuh").read_text()
+    for kept in ("tile_bf16(", "attn_item(", "prefetch_l2(", "struct StageClock",
+                 "coop_launch("):
+        assert kept in stack, kept
+    for gone in (r"\btile_i8\b", r"\bqkv_stage\b", r"\bsplit_stage_i8\b",
+                 r"\brow_pass_i8\b", r"\bQ8\b", r"\bQT_\w+"):
+        assert not re.search(gone, stack), gone
+    assert not (_kernels.CSRC / "stack_i8_wgmma.cuh").exists()
+    assert "stack_i8_wgmma.cuh" not in _kernels.HEADERS
+    for p in _kernels.CSRC.iterdir():
+        assert "stack_i8_wgmma" not in p.read_text(), p.name
+
+
+@pytest.mark.parametrize("kernel", ["K19B", "K12"])
+def test_k19b_k12_stage_names_match_the_clock_kinds(kernel):
+    """K19B_STAGES (the layer kinds) and K12_STAGES (all, with the patch,
+    embed and head stages) name the stage kinds of stack_wgmma.cuh's enum
+    in its order, as K19A_STAGES and K20_STAGES do."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    layer = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
+    enum = layer[layer.index("enum LqStage {"):]
+    enum = enum[:enum.index("};")]
+    kinds = [w.strip() for _, w in
+             re.findall(r"(LQ_T_\w+)(?: = 0)?,?\s*// ([^\n]+)", enum)]
+    stages = getattr(vs, f"{kernel}_STAGES")
+    want = len(vs.K19A_STAGES) if kernel == "K19B" else len(kinds)
+    assert len(stages) == len(set(stages)) == want
+    for i, name in enumerate(stages):
+        assert name.startswith(kinds[i]), (i, name, kinds[i])

@@ -20,7 +20,7 @@ namespace VFT_NS {
 
 constexpr int FULL_MAX_BATCH = 4;
 constexpr int HEAD_COLS = 8;     // one 16-byte bf16 (8-byte int8) weight load
-constexpr int FULL_MAX_P3 = 2 * 8 * SK_THREADS;  // two 8-column chunks a thread
+constexpr int FULL_MAX_P3 = 2 * 8 * SK_THREADS;  // the gate of the first, block-a-row gather
 
 struct Patches {
   const void* img;  // (B, H, W, 3) f32 or bf16

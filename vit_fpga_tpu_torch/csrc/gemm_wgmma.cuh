@@ -2,8 +2,9 @@
 // K4's QKV and out-projection GEMMs in attn_half.cuh, K2's two in
 // mlp_stats.cu, K5's in mlp.cu, K3's in mlp_chunk_stats.cu, K26's bf16
 // product in streamed_gemm.cu, K6's in mlp_chunk.cu, K24's in mlp_bwd.cu:
-// three on gw_kernel, two in gf_kernel; K23's five in attn_bwd.cu);
-// include after common.cuh and hopper.cuh.
+// three on gw_kernel, two in gf_kernel; K23's five in attn_bwd.cu; and
+// gw_issue alone, on 64-column items, in stack_wgmma.cuh's bf16 layer:
+// K12); include after common.cuh and hopper.cuh.
 //
 //   C = epilogue(prologue(A) @ B), A (M, K) and B (K, N) bf16 row-major,
 //   C (M, N) bf16, f32 accumulation:
@@ -227,9 +228,12 @@ __device__ __forceinline__ void gw_store_f32(const float (&acc)[GW_BN / 2], cons
 // Issues acc += A_stage B_stage over one K step of 64 as one wgmma group;
 // KK0 / KK1 take the k16 slices [KK0, KK1) of the step only (a chunk of
 // K3's down-projection that ends 32 columns into the step).  a_s is the
-// consumer's 64 rows of the A stage, b_s the B stage.
-template <int KK0 = 0, int KK1 = GW_BK / 16, int LAYOUT = GW_AK_BN>
-__device__ __forceinline__ void gw_issue(float (&acc)[GW_BN / 2], uint32_t a_s, uint32_t b_s) {
+// consumer's 64 rows of the A stage, b_s the B stage.  BN: the tile's
+// columns, 256 (this GEMM's tiles) or 64 (one B atom: the bf16 items of
+// stack_wgmma.cuh, GW_AK_BN only).
+template <int KK0 = 0, int KK1 = GW_BK / 16, int LAYOUT = GW_AK_BN, int BN = GW_BN>
+__device__ __forceinline__ void gw_issue(float (&acc)[BN / 2], uint32_t a_s, uint32_t b_s) {
+  static_assert(BN == GW_BN || (BN == 64 && LAYOUT == GW_AK_BN), "a 64-column item: one atom");
   const uint64_t da = sw128_desc(a_s);
   const uint64_t db = LAYOUT == GW_AK_BK ? sw128_desc(b_s) : sw128_desc(b_s, GW_ATOM_BYTES);
   reg_fence(acc);
@@ -238,7 +242,9 @@ __device__ __forceinline__ void gw_issue(float (&acc)[GW_BN / 2], uint32_t a_s, 
   for (int kk = KK0; kk < KK1; ++kk) {
     // K-major: 32 bytes further along the swizzled rows; MN-major: 16 rows
     // (2 KB) down
-    if constexpr (LAYOUT == GW_AK_BN)
+    if constexpr (BN == 64)
+      wgmma_m64n64k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, 1);
+    else if constexpr (LAYOUT == GW_AK_BN)
       wgmma_m64n256k16_ss<0, 1>(acc, da + 2 * kk, db + 128 * kk);
     else if constexpr (LAYOUT == GW_AK_BK)
       wgmma_m64n256k16_ss<0, 0>(acc, da + 2 * kk, db + 2 * kk);

@@ -12,8 +12,9 @@
 //               cuTensorMapEncodeTiled, reached through
 //               cudaGetDriverEntryPoint so that nothing links libcuda
 //   wgmma       the shared-memory descriptor of a 128-byte-swizzled tile,
-//               fence / commit / wait, m64n64k16 (both operands K-major),
-//               m64n128k16 (B K-major or MN-major) and m64n256k16 (either
+//               fence / commit / wait, m64n64k16 (B K-major or MN-major:
+//               the bf16 encoders' 64-column items), m64n128k16 (B
+//               K-major or MN-major) and m64n256k16 (either
 //               operand K-major or, through the transpose bit, MN-major)
 //               with both operands in shared memory, m64n64k16 with A in
 //               registers; in int8, m64n128k32 and m64n256k32 with s32
@@ -209,7 +210,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 }
 
 // d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared,
-// K-major); accumulate unless scale_d is 0.
+// K-major, or with TRANS_B MN-major: one 64-column swizzle atom);
+// accumulate unless scale_d is 0.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                    int scale_d) {
   asm volatile(
@@ -217,13 +220,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
 // d (64 x 256, f32) += A (64 x 16, shared) B (16 x 256, shared).  A is

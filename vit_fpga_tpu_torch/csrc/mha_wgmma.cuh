@@ -321,7 +321,7 @@ __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], floa
 // thread): tile 0's p first, then per tile j its q k^T beside tile j - 1's
 // p v, then the last p v.  Leaves o = sum bf16(e) v and this thread's share
 // of l = sum e; every stage it read is released.  Also run by the
-// persistent int8 encoders (stack_i8_wgmma.cuh) on their own ring.
+// persistent single-launch encoders (stack_wgmma.cuh) on their own ring.
 template <int MODE>
 __device__ __forceinline__ void mf_sweep(float (&sa)[64], uint32_t (&pa)[32], float (&o)[32],
                                          float (&l)[2], int ntiles, int step0, int n_valid,

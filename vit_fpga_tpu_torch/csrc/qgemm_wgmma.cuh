@@ -77,7 +77,7 @@ struct QwArgs {
 
 // Issues acc += A_stage B_stage^T over one K step of 128 as one wgmma group
 // (four k32 slices, each 32 bytes further along the swizzled rows); BN 256
-// or 128 (K13's tiles) or 64 (stack_i8_wgmma.cuh's items).
+// or 128 (K13's tiles) or 64 (stack_wgmma.cuh's int8 items).
 template <int BN>
 __device__ __forceinline__ void qw_issue(uint32_t (&acc)[BN / 2], uint32_t a_s, uint32_t b_s) {
   const uint64_t da = sw128_desc(a_s), db = sw128_desc(b_s);

@@ -1,29 +1,23 @@
-// Device pieces of the single-launch encoders (vit_stack.cu K11,
-// vit_full.cu K12, vit_stack_int8_static.cu K19b; K19a and K20 take only
-// the stage clock, the launch and the scalar helpers); include after
-// common.cuh and quant.cuh.
+// Device pieces of the single-launch encoders: K11's (vit_stack.cu) tiles
+// and attention items, and the stage clock, the launch and the scalar
+// helpers that every encoder takes (K19a, K19b, K20 and K12 run on
+// stack_wgmma.cuh); include after common.cuh and quant.cuh.
 //
-// Both kernels are cooperative and persistent: one grid of blocks stays
+// The encoders are cooperative and persistent: one grid of blocks stays
 // resident for the whole encoder, walks the layers in a loop and separates
 // its stages with grid-wide barriers.  A stage is a list of work items
 // (GEMM tiles, attention chunks, token rows) that the blocks take in turn.
 //
-//   tile_bf16 / tile_i8  one 64 x 64 output tile of A (M, K) times a weight
-//       over k in [k0, k0 + kn): bf16 on mma.sync m16n8k16 with f32 sums,
-//       the weight stored (K, N) row-major; int8 on mma.sync m16n8k32 with
-//       exact int32 sums, the weight stored (N, K) (k-contiguous); operand
-//       fragments by ldmatrix.  Operands arrive by cp.async.cg (through L2, never
-//       the non-coherent path) into a 4-deep ring; the caller's epilogue
-//       gets each lane's 16 results of one row.
+//   tile_bf16   one 64 x 64 output tile of A (M, K) times a weight over k
+//       in [k0, k0 + kn): bf16 on mma.sync m16n8k16 with f32 sums, the
+//       weight stored (K, N) row-major; operand fragments by ldmatrix.
+//       Operands arrive by cp.async.cg (through L2, never the non-coherent
+//       path) into a 4-deep ring; the caller's epilogue gets each lane's 16
+//       results of one row.
 //   attn_item   16-row query tiles of one (image, head) against all its keys
 //       (the softmax rows spread over every warp of the block):
 //       s = (q k^T) * scale in f32, keys at or past n_valid masked,
-//       e = exp(clip(s, -70, 80)), ao = bf16((bf16(e) @ v) * (1 / sum(e))),
-//       or (Q8, K19b) int8 aoq = clip(rint(bf16(o * ((1 / sum(e)) *
-//       out_scale))), -127, 127).
-//   qkv_stage, split_stage_i8, row_pass_i8  the static int8 encoder's
-//       QKV tiles, split-K partial tiles and token-row passes (residual,
-//       LN, int8).
+//       e = exp(clip(s, -70, 80)), ao = bf16((bf16(e) @ v) * (1 / sum(e))).
 //   prefetch_l2 spreads prefetch.global.L2 of a weight over the grid.
 //
 // Data one stage writes and a later one reads (after a grid barrier) is
@@ -44,7 +38,6 @@ constexpr int ST_BM = 64;
 constexpr int ST_BN = 64;
 constexpr int ST_STAGES = 4;          // 3 k-steps in flight per tile
 constexpr int ST_BK = 64;             // bf16 k-step (elements)
-constexpr int QT_BK = 128;            // int8 k-step (bytes)
 constexpr int ST_KQ = 16;             // K granularity: one wmma fragment
 constexpr int ST_MAX_KV = 256;        // keys per (image, head)
 constexpr int ST_DH = 64;             // head dim
@@ -59,18 +52,11 @@ constexpr int SB_LD = ST_BN + 8;
 constexpr int SA_ELEMS = ST_BM * SA_LD;
 constexpr int SB_ELEMS = ST_BK * SB_LD;
 constexpr size_t ST_GEMM_BYTES = (size_t)ST_STAGES * (SA_ELEMS + SB_ELEMS) * 2;
-// int8 ring: each operand QT_BK / 16 slabs of [64 rows][16 bytes]
-constexpr int QT_SLABS = QT_BK / 16;
-constexpr int QT_TILE = ST_BM * QT_BK;
-constexpr size_t QT_GEMM_BYTES = (size_t)ST_STAGES * 2 * QT_TILE;
 // each thread copies two 16-byte chunks of each operand per k-step
 static_assert(ST_BM * ST_BK / 8 == 2 * SK_THREADS && ST_BK * ST_BN / 8 == 2 * SK_THREADS,
               "bf16 copy plan");
-static_assert(ST_BM * QT_SLABS == 2 * SK_THREADS, "int8 copy plan");
 
 static_assert(ST_GEMM_BYTES >= (size_t)SK_WARPS * 16 * ST_C_LD * 4, "bf16 staging fits the ring");
-static_assert(QT_GEMM_BYTES >= (size_t)SK_WARPS * 16 * ST_C_LD * 4 + 2 * ST_BM * 4,
-              "int8 staging and row maxima fit the ring");
 
 // Slices of a k range of `k` (a multiple of ST_KQ) for split-K: the
 // largest s <= want that cuts it into whole fragments.
@@ -152,8 +138,8 @@ __device__ __forceinline__ void stage_acc(T* cs, const T (*acc)[4], T* f) {
 // written; N is a multiple of 64 and kn of ST_KQ (k past kn is
 // zero-filled).  The epilogue is
 // called as epi(row, col, f) with the lane's 16 results of `row`, columns
-// col .. col + 15, in a [16] array (float for bf16, int for int8); row may
-// be past M (the callee skips it).  Every thread of the block calls a tile.
+// col .. col + 15, in a [16] float array; row may be past M (the callee
+// skips it).  Every thread of the block calls a tile.
 // ---------------------------------------------------------------------------
 
 template <typename Epi>
@@ -230,80 +216,7 @@ __device__ void tile_bf16(const bf16* A, int lda, const bf16* B, int ldb, int M,
   epi(m0 + wm * 16 + (lane >> 1), n0 + wn * 32 + (lane & 1) * 16, f);
 }
 
-template <typename Epi>
-__device__ void tile_i8(const signed char* A, int lda, const signed char* B, int ldb, int M, int m0,
-                        int n0, int k0, int kn, unsigned char* smem, Epi epi) {
-  signed char* As = reinterpret_cast<signed char*>(smem);
-  signed char* Bs = As + ST_STAGES * QT_TILE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  // two 16-byte chunks of each operand per thread and k-step: row r, slab kc
-  int r[2], kc[2], soff[2];
-  bool aok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * SK_THREADS;
-    r[i] = c >> 3;
-    kc[i] = c & 7;
-    soff[i] = kc[i] * ST_BM * 16 + r[i] * 16;
-    aok[i] = m0 + r[i] < M;
-  }
-  auto load = [&](int s, int kt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = kt * QT_BK + kc[i] * 16;
-      const bool kin = k < kn;
-      const bool va = aok[i] && kin;
-      cp_async16(As + s * QT_TILE + soff[i], va ? A + (size_t)(m0 + r[i]) * lda + k0 + k : A, va);
-      cp_async16(Bs + s * QT_TILE + soff[i], kin ? B + (size_t)(n0 + r[i]) * ldb + k0 + k : B, kin);
-    }
-  };
-  int acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[j][t] = 0;
-  const int nk = (kn + QT_BK - 1) / QT_BK;
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < ST_STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  // ldmatrix row addresses in the [slab][row][16 bytes] layout: A rows
-  // wm*16 + lane%8 + 8*((lane/8)%2) in slab lane/16 of each 32-byte k
-  // step; B rows (n) wn*32 + lane%8 + 8*(lane/16) in slab (lane/8)%2
-  const int a_off = (lane >> 4) * ST_BM * 16 + (wm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * 16;
-  const int b_off = ((lane >> 3) & 1) * ST_BN * 16 + (wn * 32 + (lane & 7) + (lane >> 4) * 8) * 16;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % ST_STAGES;
-    cp_async_wait<ST_STAGES - 2>();
-    __syncthreads();
-    const int next = kt + ST_STAGES - 1;
-    if (next < nk) load(next % ST_STAGES, next);
-    cp_async_commit();
-    const signed char* as = As + s * QT_TILE + a_off;
-    const signed char* bs = Bs + s * QT_TILE + b_off;
-#pragma unroll
-    for (int kk = 0; kk < QT_SLABS / 2; ++kk) {
-      unsigned a[4], b[8];
-      ldsm_x4(a, as + kk * 2 * ST_BM * 16);
-      ldsm_x4(b, bs + kk * 2 * ST_BN * 16);
-      ldsm_x4(b + 4, bs + kk * 2 * ST_BN * 16 + 16 * 16);
-      mma_s8(acc[0], a, b[0], b[1]);
-      mma_s8(acc[1], a, b[2], b[3]);
-      mma_s8(acc[2], a, b[4], b[5]);
-      mma_s8(acc[3], a, b[6], b[7]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  int f[16];
-  stage_acc(reinterpret_cast<int*>(smem) + warp * 16 * ST_C_LD, acc, f);
-  epi(m0 + wm * 16 + (lane >> 1), n0 + wn * 32 + (lane & 1) * 16, f);
-}
-
-// Writes 16 values of a row as bf16 / f32 / int32.
+// Writes 16 values of a row as bf16 / f32.
 __device__ __forceinline__ void store16(bf16* dst, const float* f) {
   *reinterpret_cast<uint4*>(dst) = pack8(f);
   *reinterpret_cast<uint4*>(dst + 8) = pack8(f + 8);
@@ -312,11 +225,6 @@ __device__ __forceinline__ void store16(float* dst, const float* f) {
 #pragma unroll
   for (int t = 0; t < 16; t += 4)
     *reinterpret_cast<float4*>(dst + t) = make_float4(f[t], f[t + 1], f[t + 2], f[t + 3]);
-}
-__device__ __forceinline__ void store16(int* dst, const int* f) {
-#pragma unroll
-  for (int t = 0; t < 16; t += 4)
-    *reinterpret_cast<int4*>(dst + t) = make_int4(f[t], f[t + 1], f[t + 2], f[t + 3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,18 +256,15 @@ __host__ __device__ inline StAttnSmem st_attn_smem(int kvp) {
 __host__ __device__ inline size_t stack_smem_bytes(int kvp) {
   size_t b = st_attn_smem(kvp).bytes;
   if (b < ST_GEMM_BYTES) b = ST_GEMM_BYTES;
-  if (b < QT_GEMM_BYTES) b = QT_GEMM_BYTES;
   return b;
 }
 
-// qkv (B * n_pad, 3D) bf16, q | k | v; ao (B * n_pad, D) bf16, or with Q8
-// aoq (B * n_pad, D) int8 in the quant domain of out_scale.  Query rows
+// qkv (B * n_pad, 3D) bf16, q | k | v; ao (B * n_pad, D) bf16.  Query rows
 // q0 .. q0 + ST_QCHUNK - 1 (those below n_pad) of image b, head h.  Every
 // thread of the block calls it.
-template <bool Q8>
-__device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, signed char* aoq, float out_scale,
-                                       int b, int h, int q0, int n_pad, int n_valid, int kvp, int d,
-                                       float scale, unsigned char* smem) {
+__device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, int b, int h, int q0, int n_pad,
+                                       int n_valid, int kvp, int d, float scale,
+                                       unsigned char* smem) {
   constexpr int CPR = ST_DH / 8;
   constexpr int NF = ST_DH / 16;
   const StAttnSmem L = st_attn_smem(kvp);
@@ -441,7 +346,7 @@ __device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, signed char* a
     if (lane == 0) rinv[r] = 1.0f / sum;
   }
   __syncthreads();
-  if (qwarp) {  // o = bf16(e) @ v (f32), then ao = bf16(o * (1 / sum(e))) or aoq
+  if (qwarp) {  // o = bf16(e) @ v (f32), then ao = bf16(o * (1 / sum(e)))
     float* S = reinterpret_cast<float*>(wbase + L.s_rel);
     bf16* P = reinterpret_cast<bf16*>(S);
     float* rinv = reinterpret_cast<float*>(wbase + L.r_rel);
@@ -467,41 +372,33 @@ __device__ __noinline__ void attn_item(const bf16* qkv, bf16* ao, signed char* a
       const int r = c / CPR, cc = c % CPR;
       const int q = qs + r;
       if (q >= n_pad) continue;
-      const float rv = Q8 ? __fmul_rn(rinv[r], out_scale) : rinv[r];
+      const float rv = rinv[r];
       const float* src = S + r * L.lds + cc * 8;
       const size_t off = ((size_t)b * n_pad + q) * d + h * ST_DH + cc * 8;
       float f[8];
 #pragma unroll
       for (int t = 0; t < 8; ++t) f[t] = __fmul_rn(src[t], rv);
-      if (Q8) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) f[t] = bf16_round(f[t]);
-        store_rint8(aoq + off, f);
-      } else {
-        *reinterpret_cast<uint4*>(ao + off) = pack8(f);
-      }
+      *reinterpret_cast<uint4*>(ao + off) = pack8(f);
     }
   }
 }
 
 // The attention stage: items (image, head, ST_QCHUNK query rows) taken by
-// the blocks in turn.  With Q8 the items write int8 aoq (ao unused).
-template <bool Q8 = false>
+// the blocks in turn.
 __device__ void attn_stage(const bf16* qkv, bf16* ao, int batch, int heads, int n_pad, int n_valid,
-                           int d, float scale, unsigned char* smem, signed char* aoq = nullptr,
-                           float out_scale = 1.0f) {
+                           int d, float scale, unsigned char* smem) {
   const int kvp = (n_valid + 15) / 16 * 16;
   const int chunks = (n_pad + ST_QCHUNK - 1) / ST_QCHUNK;
   const int items = batch * heads * chunks;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int qc = it % chunks, bh = it / chunks;
-    attn_item<Q8>(qkv, ao, aoq, out_scale, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid,
-                  kvp, d, scale, smem);
+    attn_item(qkv, ao, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid, kvp, d, scale,
+              smem);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The int8 encoders' shared stages (K19a, K19b).
+// The int8 encoders' scalar helpers (stack_wgmma.cuh).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float dequant(int acc, float srow, float scol, float bias) {
@@ -513,103 +410,6 @@ __device__ __forceinline__ void ldcg8i(const int* p, int* a) {
   const int4 w = __ldcg(reinterpret_cast<const int4*>(p + 4));
   a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
   a[4] = w.x; a[5] = w.y; a[6] = w.z; a[7] = w.w;
-}
-
-// One token row of the static encoder (K19b; STATIC must be true: the
-// dynamic encoders' rows are stack_i8_wgmma.cuh's): tok = src, or tok +
-// bf16(dequant(sum of nsplit int32 partials) + bias) with the row scale
-// 1.0 (the scale is folded into scol); then, with ls, the one-pass LN and
-// the row's int8 xq = clip(rint(xn)) (1/a_x folded into ls and lb; sx
-// unused).  One block per row, one 8-column chunk per thread; every load
-// is issued before the first is used.  Every thread of the block calls it.
-template <bool STATIC>
-__device__ __noinline__ void row_pass_i8(const bf16* src, bf16* tok, const int* part, int nsplit,
-                                         size_t pstride, const float* scol, const float* bias,
-                                         const float* ls, const float* lb, signed char* q,
-                                         float* sx, int row, int d, float eps) {
-  const int c = threadIdx.x * 8;
-  const bool on = c < d;
-  const int cc = on ? c : 0;  // threads past d load column 0 and drop it
-  const size_t off = (size_t)row * d + cc;
-  float v[8], sc[8], bi[8], lsc[8], lbi[8];
-  int acc[ST_MAX_SPLIT][8];
-  static_assert(STATIC, "the dynamic int8 rows are stack_i8_wgmma.cuh's lq_row");
-  const float srow = 1.0f;
-  ldcg8(src + off, v);
-  if (part != nullptr) {
-#pragma unroll
-    for (int k = 0; k < ST_MAX_SPLIT; ++k)
-      if (k < nsplit) ldcg8i(part + k * pstride + off, acc[k]);
-    load8f(scol + cc, sc);
-    load8f(bias + cc, bi);
-  }
-  if (ls != nullptr) {
-    load8f(ls + cc, lsc);
-    load8f(lb + cc, lbi);
-  }
-  if (part != nullptr) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      int a = acc[0][t];
-#pragma unroll
-      for (int k = 1; k < ST_MAX_SPLIT; ++k)
-        if (k < nsplit) a += acc[k][t];
-      v[t] = bf16_round(v[t] + bf16_round(dequant(a, srow, sc[t], bi[t])));
-    }
-  }
-  if (on && (part != nullptr || src != tok)) *reinterpret_cast<uint4*>(tok + off) = pack8(v);
-  if (ls == nullptr) return;
-  float s = 0.0f, ss = 0.0f;
-  if (on) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      s += v[t];
-      ss += v[t] * v[t];
-    }
-  }
-  const float2 tot = block_sum2(s, ss);
-  const float mu = __fdiv_rn(tot.x, (float)d);
-  const float var = fmaxf(__fsub_rn(__fdiv_rn(tot.y, (float)d), __fmul_rn(mu, mu)), 0.0f);
-  const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-    v[t] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[t], mu), rstd), lsc[t]), lbi[t]);
-  if (on) store_rint8(q + off, v);
-}
-
-// qkv = bf16(dequant(xq wqkvq)); a null sx is a row scale of 1.0 (K19b).
-__device__ void qkv_stage(const signed char* A, const float* sx, const signed char* W,
-                          const float* scol, const float* bias, bf16* C, int rows, int n, int k,
-                          unsigned char* smem) {
-  const int mt = (rows + ST_BM - 1) / ST_BM;
-  const int items = mt * (n / ST_BN);
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int m0 = (it % mt) * ST_BM, n0 = (it / mt) * ST_BN;
-    tile_i8(A, k, W, k, rows, m0, n0, 0, k, smem, [&](int r, int c, int* acc) {
-      if (r >= rows) return;
-      const float srow = sx != nullptr ? __ldcg(sx + r) : 1.0f;
-      float f[16];
-#pragma unroll
-      for (int t = 0; t < 16; ++t) f[t] = dequant(acc[t], srow, scol[c + t], bias[c + t]);
-      store16(C + (size_t)r * n + c, f);
-    });
-  }
-}
-
-// part[s] (M, N) int32 = A[:, ks] W[:, ks]^T over `split` slices of k.
-__device__ void split_stage_i8(const signed char* A, const signed char* W, int* part, int rows,
-                               int n, int k, int split, unsigned char* smem) {
-  const int mt = (rows + ST_BM - 1) / ST_BM;
-  const int nt = n / ST_BN;
-  const int items = mt * nt * split;
-  const int kn = k / split;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int m0 = (it % mt) * ST_BM, n0 = ((it / mt) % nt) * ST_BN, s = it / (mt * nt);
-    int* dst = part + (size_t)s * rows * n;
-    tile_i8(A, k, W, k, rows, m0, n0, s * kn, kn, smem, [&](int r, int c, int* acc) {
-      if (r < rows) store16(dst + (size_t)r * n + c, acc);
-    });
-  }
 }
 
 // prefetch.global.L2 of [p, p + bytes), 128-byte lines spread over the grid.
@@ -640,17 +440,23 @@ __device__ __forceinline__ unsigned long long global_ns() {
 
 struct StageClock {
   long long* trace;
-  unsigned long long t;
+  // The last reading (thread 0's) lives in shared memory: a 64-bit value
+  // live across every stage of a layer loop would hold two registers that
+  // the stages need, and ptxas spilled around the barriers for it.
+  __device__ static unsigned long long& last() {
+    __shared__ unsigned long long t;
+    return t;
+  }
   __device__ void start() {
-    if (trace != nullptr && threadIdx.x == 0) t = global_ns();
+    if (trace != nullptr && threadIdx.x == 0) last() = global_ns();
   }
   __device__ void work_done(int kind) {
     if (trace == nullptr) return;
     __syncthreads();
     if (threadIdx.x == 0) {
       const unsigned long long now = global_ns();
-      trace[((size_t)blockIdx.x * ST_TRACE_KINDS + kind) * 2] += (long long)(now - t);
-      t = now;
+      trace[((size_t)blockIdx.x * ST_TRACE_KINDS + kind) * 2] += (long long)(now - last());
+      last() = now;
     }
   }
   // the end of stage `kind`: its work, then the grid barrier
@@ -659,8 +465,8 @@ struct StageClock {
     grid.sync();
     if (trace != nullptr && threadIdx.x == 0) {
       const unsigned long long now = global_ns();
-      trace[((size_t)blockIdx.x * ST_TRACE_KINDS + kind) * 2 + 1] += (long long)(now - t);
-      t = now;
+      trace[((size_t)blockIdx.x * ST_TRACE_KINDS + kind) * 2 + 1] += (long long)(now - last());
+      last() = now;
     }
   }
 };

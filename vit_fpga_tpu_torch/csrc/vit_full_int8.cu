@@ -5,7 +5,7 @@
 // Replaces vit_fpga_tpu/ops/vit_stack.py:_stack_full_int8_kernel (wrapper
 // vit_full_int8_pallas): K19a's layers with an int8 patch embed before
 // them and the final LayerNorm and an int8 head after them.  One
-// cooperative persistent grid (stack_i8_wgmma.cuh: a producer and two
+// cooperative persistent grid (stack_wgmma.cuh, LQ_DYN: a producer and two
 // consumer warpgroups a block, one ring of TMA stages) runs:
 //
 //   (p) rows   pq, sp = rowquant(bf16 patch row) for every padded token row,
@@ -14,7 +14,7 @@
 //   (e) items  tok = bf16(float(pq wpq) * (sp * wps) + posb): int8 wgmma,
 //              pq and wpq by TMA
 //   (0) rows   xq, sx = rowquant(LN1(tok))
-//   per layer: K19a's stages (a)-(g) (stack_i8_wgmma.cuh); after the last
+//   per layer: K19a's stages (a)-(g) (stack_wgmma.cuh); after the last
 //              layer each image's first (CLS) row takes the final one-pass
 //              LayerNorm and its row quantization from f32, rq, rs
 //   (h) items  logits = float(rq whq) * (rs * whs) + bh (the padded whs
@@ -37,9 +37,10 @@
 #include "quant.cuh"
 #include "hopper.cuh"
 #include "qgemm_wgmma.cuh"
+#include "gemm_wgmma.cuh"
 #include "mha_wgmma.cuh"
 #include "stack.cuh"
-#include "stack_i8_wgmma.cuh"
+#include "stack_wgmma.cuh"
 #include "full.cuh"
 
 using namespace VFT_NS;
@@ -65,7 +66,7 @@ struct FullI8Work {
 __host__ __device__ inline size_t full_work_layout_i8(unsigned char* base, int rows, int d, int m,
                                                       int p3, FullI8Work* fw) {
   LqWork w;
-  size_t off = lq_work_layout(base, rows, d, m, &w);
+  size_t off = lq_work_layout(base, rows, d, m, LQ_DYN, &w);
   bf16* tok = reinterpret_cast<bf16*>(base + off);
   off += align256((size_t)rows * d * 2);
   signed char* pq = reinterpret_cast<signed char*>(base + off);
@@ -153,10 +154,10 @@ __global__ void __launch_bounds__(LQ_THREADS, 1) full_int8_kernel(const __grid_c
   cg::grid_group grid = cg::this_grid();
   const LqArgs& p = a.s;
   const int rows = p.batch * p.n_pad, d = p.d;
-  LqRing r = lq_ring(smem);
-  StageClock clk{p.trace, 0};
+  LqRing<LQ_DYN> r = lq_ring<LQ_DYN>(smem);
+  StageClock clk{p.trace};
   clk.start();
-  if (lq_producer()) lq_prefill(lq_layer_gemm(p, 0, -1), r);
+  if (lq_producer()) lq_prefill(lq_layer_gemm<LQ_DYN>(p, 0, -1), r);
   {
     FullI8Work fw;
     full_work_layout_i8(p.work, rows, d, p.m, a.g.p3, &fw);
@@ -176,8 +177,8 @@ __global__ void __launch_bounds__(LQ_THREADS, 1) full_int8_kernel(const __grid_c
   lq_even_regs();
   clk.sync(grid, LQ_T_RES_LN1);
   {
-    const LqWork w = lq_work(p);
-    head_stage_i8(a, w.xq, w.sx);
+    const LqWork w = lq_work<LQ_DYN>(p);
+    head_stage_i8(a, static_cast<const signed char*>(w.xq), w.sx);
   }
   clk.work_done(LQ_T_HEAD);
 }
@@ -192,7 +193,7 @@ int vft_vit_full_int8_init() {
   cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(full_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)LQ_SMEM_BYTES);
+                              (int)lq_smem_bytes(LQ_DYN));
 }
 
 // Bytes of scratch vft_vit_full_int8 needs at `rows` = B * n_pad rows.
@@ -259,6 +260,7 @@ int vft_vit_full_int8(const void* img, void* logits, void* work, const void* wpq
   s.act = act;
   s.eps = eps;
   s.scale = scale;
+  s.inv_ao = s.inv_ah = nullptr;
   s.wps = static_cast<const float*>(wps);
   s.posb = static_cast<const float*>(posb);
   s.lfs = static_cast<const float*>(lfs);
@@ -270,12 +272,12 @@ int vft_vit_full_int8(const void* img, void* logits, void* work, const void* wpq
   a.bh = static_cast<const float*>(bh);
   a.logits = static_cast<float*>(logits);
   a.cls_pad = cls_pad;
-  if (!lq_encode_layers(&s.maps, fw.w, wqkv, wo, w1, w2, batch, n_pad, d, m, depth, heads,
-                        n_tok) ||
+  if (!lq_encode_layers<LQ_DYN>(&s.maps, fw.w, wqkv, wo, w1, w2, batch, n_pad, d, m, depth,
+                                heads, n_tok) ||
       !lq_encode_rows(&s.maps.pq, fw.pq, rows, p3) ||
       !lq_encode_rows(&s.maps.wp, wpq, d, p3, LQ_BN))
     return cudaErrorInvalidValue;
-  return coop_launch(reinterpret_cast<const void*>(full_int8_kernel), &a, LQ_SMEM_BYTES,
+  return coop_launch(reinterpret_cast<const void*>(full_int8_kernel), &a, lq_smem_bytes(LQ_DYN),
                      trace != nullptr, reinterpret_cast<cudaStream_t>(stream), LQ_THREADS);
 }
 

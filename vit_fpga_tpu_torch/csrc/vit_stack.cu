@@ -37,7 +37,7 @@ __global__ void __launch_bounds__(SK_THREADS, 2) stack_kernel(StackArgs p) {
   const int rows = p.batch * p.n_pad;
   Work w;
   work_layout(p.work, rows, p.d, p.m, &w);
-  StageClock clk{p.trace, 0};
+  StageClock clk{p.trace};
   clk.start();
 
   for (int r = blockIdx.x; r < rows; r += gridDim.x)

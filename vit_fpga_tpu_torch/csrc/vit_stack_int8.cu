@@ -5,10 +5,10 @@
 // vit_layers_int8_pallas), whose layer is exactly K16 then K15.  One
 // cooperative persistent grid, a block of a producer and two consumer
 // warpgroups on each SM, walks the layers and separates the stages with
-// grid-wide barriers (stack_i8_wgmma.cuh):
+// grid-wide barriers (stack_wgmma.cuh, its dynamic variant LQ_DYN):
 //
 //   (0) rows   tok = x; xq, sx = rowquant(LN1(tok))              (once)
-//   per layer: stages (a)-(g) of stack_i8_wgmma.cuh (int8 QKV items,
+//   per layer: stages (a)-(g) of stack_wgmma.cuh (int8 QKV items,
 //              attention items, int8 out-projection split-K items with ao
 //              quantised in their prologue, residual + LN2 + quant rows,
 //              int8 W1 + act + row max items, int8 W2 split-K items with h
@@ -36,9 +36,10 @@
 #include "quant.cuh"
 #include "hopper.cuh"
 #include "qgemm_wgmma.cuh"
+#include "gemm_wgmma.cuh"
 #include "mha_wgmma.cuh"
 #include "stack.cuh"
-#include "stack_i8_wgmma.cuh"
+#include "stack_wgmma.cuh"
 
 using namespace VFT_NS;
 
@@ -47,8 +48,8 @@ namespace VFT_NS {
 __global__ void __launch_bounds__(LQ_THREADS, 1) stack_int8_kernel(const __grid_constant__ LqArgs p) {
   extern __shared__ __align__(1024) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  LqRing r = lq_ring(smem);
-  StageClock clk{p.trace, 0};
+  LqRing<LQ_DYN> r = lq_ring<LQ_DYN>(smem);
+  StageClock clk{p.trace};
   clk.start();
 
   if (!lq_consumer()) {
@@ -71,12 +72,12 @@ int vft_vit_stack_int8_init() {
   cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(stack_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)LQ_SMEM_BYTES);
+                              (int)lq_smem_bytes(LQ_DYN));
 }
 
 // Bytes of scratch vft_vit_layers_int8 needs at `rows` = B * n_pad rows.
 size_t vft_vit_stack_int8_workspace(int rows, int d, int m) {
-  return lq_work_layout(nullptr, rows, d, m, nullptr);
+  return lq_work_layout(nullptr, rows, d, m, LQ_DYN, nullptr);
 }
 
 // x, out: (B * n_pad, D) bf16; the per-layer f32 vectors stacked (L, .);
@@ -129,13 +130,14 @@ int vft_vit_layers_int8(const void* x, void* out, void* work, const void* ls1, c
   a.eps = eps;
   a.scale = scale;
   a.trace = static_cast<long long*>(trace);
-  a.wps = a.posb = a.lfs = a.lfb = nullptr;
+  a.inv_ao = a.inv_ah = a.wps = a.posb = a.lfs = a.lfb = nullptr;
   a.p3 = 0;
   LqWork w;
-  lq_work_layout(a.work, batch * n_pad, d, m, &w);
-  if (!lq_encode_layers(&a.maps, w, wqkv, wo, w1, w2, batch, n_pad, d, m, depth, heads, n_valid))
+  lq_work_layout(a.work, batch * n_pad, d, m, LQ_DYN, &w);
+  if (!lq_encode_layers<LQ_DYN>(&a.maps, w, wqkv, wo, w1, w2, batch, n_pad, d, m, depth, heads,
+                                n_valid))
     return cudaErrorInvalidValue;
-  return coop_launch(reinterpret_cast<const void*>(stack_int8_kernel), &a, LQ_SMEM_BYTES,
+  return coop_launch(reinterpret_cast<const void*>(stack_int8_kernel), &a, lq_smem_bytes(LQ_DYN),
                      trace != nullptr, reinterpret_cast<cudaStream_t>(stream), LQ_THREADS);
 }
 

@@ -21,8 +21,8 @@ CPU tensor:
   the calibrated scales folded into the arguments
   (``models/quantized.quantize_vit_static``) and the per-layer 1/a_ao and
   1/a_h read from (depth,) tables by the layer the loop is on.  No row
-  absmax: the tiles and the attention items emit int8 directly, 7 stages
-  and barriers a layer.
+  absmax: the attention and W1 items emit int8 aoq and hq directly, which
+  the out-projection and W2 read by TMA; 7 stages and barriers a layer.
 
 Two more run the whole model, image in and logits out:
 
@@ -38,10 +38,13 @@ Two more run the whole model, image in and logits out:
   row-quantized inputs.
 
 On the card each is ONE cooperative launch: a persistent grid walks the
-layers and separates the stages with grid-wide barriers (``csrc/
-stack.cuh``; K19a and K20 on ``csrc/stack_i8_wgmma.cuh``: a producer and
-two consumer warpgroups a block, int8 wgmma fed by TMA, the attention on
-``mha_wgmma.cuh``'s max-free sweep, 7 barriers a layer).  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
+layers and separates the stages with grid-wide barriers.  K11 runs
+``csrc/stack.cuh``'s mma.sync tiles; K19a, K19b, K20 and K12 run one layer
+loop, ``csrc/stack_wgmma.cuh``, in its dynamic int8, static int8 and bf16
+variants: a producer and two consumer warpgroups a block, wgmma items of
+128 x 64 fed by TMA (int8, or bf16 with the weight through the transpose
+bit), the attention on ``mha_wgmma.cuh``'s max-free sweep, 7 barriers a
+layer.  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
 reads 169.9 MB of bf16 weights (50.7 us at 3.35 TB/s) for 34.9 GFLOP
 (35.3 us at 989 TFLOP/s); K19a 84.9 MB of int8 weights and 0.33 MB of
 scales (25.4 us) for 33.5 G int8 operations (16.9 us): both bound by
@@ -77,7 +80,7 @@ MAX_VALID = 256        # keys per (image, head) in the attention items
 HEAD_DIM = 64
 MAX_D = 2048           # a row pass gives each thread 8 of a row's columns
 MAX_M = 4096           # ... and 16 of h's (K19a)
-MAX_P3 = 4096          # K12 / K20: two 8-column chunks of a patch row a thread
+MAX_P3 = 4096          # K12 / K20: the patch gate (csrc/full.cuh FULL_MAX_P3)
 # The kernels' optional stage clock (csrc/stack.cuh StageClock): per block
 # and stage kind, ns of work and ns waiting in the grid barrier after it.
 TRACE_BLOCKS, TRACE_KINDS = 1024, 16
@@ -85,27 +88,33 @@ K11_STAGES = ("LN1 rows (first layer)", "QKV tiles", "attention + prefetch",
               "out-proj split-K tiles", "residual + LN2 rows",
               "W1 + act tiles", "W2 split-K tiles",
               "residual + next LN1 rows")
-# K19a and K20 (csrc/stack_i8_wgmma.cuh, enum LqStage): 7 stages a layer,
-# ao and h quantized in the prologue of the GEMM that reads them.
-K19A_STAGES = ("LN1 + quant rows (first layer)", "int8 QKV items",
+# K19a, K19b, K20 and K12 (csrc/stack_wgmma.cuh, enum LqStage): 7 stages a
+# layer; each name begins with its kind's comment in the enum.  K19a and
+# K20 quantize ao and h in the prologue of the GEMM that reads them.
+K19A_STAGES = ("LN1 rows, int8 quant (first layer)", "QKV items, int8",
                "attention items",
-               "int8 out-proj split-K items (ao quant prologue)",
-               "residual + LN2 + quant rows",
-               "int8 W1 + act + row max items",
-               "int8 W2 split-K items (h quant prologue)",
-               "residual + next LN1 + quant rows")
-# K12 and K20: the layers' kinds, then the embed and head stages.
-K12_STAGES = ("LN1 rows (after the embed)",) + K11_STAGES[1:7] + (
-    "residual + next LN1 rows (final LN after the last layer)",
-    "patch rows", "embed tiles", "head items")
-K20_STAGES = ("LN1 + quant rows (after the embed)",) + K19A_STAGES[1:7] + (
-    "residual + next LN1 + quant rows (final LN after the last layer)",
-    "patch quant rows", "int8 embed items", "int8 head items")
-K19B_STAGES = ("LN1 + rint rows (first layer)", "int8 QKV tiles",
-               "attention + prefetch, int8 ao",
-               "int8 out-proj split-K tiles", "residual + LN2 + rint rows",
-               "int8 W1 + scaled act + rint tiles", "int8 W2 split-K tiles",
-               "residual + next LN1 + rint rows")
+               "out-proj split-K items, int8 (ao quant prologue)",
+               "residual + LN2 rows, int8 quant",
+               "W1 + act items, int8, row max",
+               "W2 split-K items, int8 (h quant prologue)",
+               "residual + next LN1 rows, int8 quant")
+K19B_STAGES = ("LN1 rows, int8 rint (first layer)", "QKV items, int8",
+               "attention items, int8 aoq",
+               "out-proj split-K items, int8 (aoq by TMA)",
+               "residual + LN2 rows, int8 rint",
+               "W1 + act items, int8 scaled rint",
+               "W2 split-K items, int8 (hq by TMA)",
+               "residual + next LN1 rows, int8 rint")
+# K20 and K12: the layers' kinds, then the patch, embed and head stages.
+K20_STAGES = ("LN1 rows, int8 quant (after the embed)",) + K19A_STAGES[1:7] + (
+    "residual + next LN1 rows, int8 quant (final LN after the last layer)",
+    "patch rows, int8 quant", "embed items, int8", "head items, int8")
+K12_STAGES = ("LN1 rows (after the embed)", "QKV items, bf16",
+              "attention items", "out-proj split-K items, bf16 (f32 partials)",
+              "residual + LN2 rows", "W1 + act items, bf16",
+              "W2 split-K items, bf16 (f32 partials)",
+              "residual + next LN1 rows (final LN after the last layer)",
+              "patch rows", "embed items, bf16", "head items")
 
 
 def stack_supported(num_heads: int, d: int, mlp_dim: int, n_valid: int,

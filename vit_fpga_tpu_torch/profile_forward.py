@@ -294,10 +294,11 @@ def _latency_run(cfg, batch, int8, static, full=False):
 
 
 def _stack_stages(cfg, batch, int8, static, launches=10):
-    """The single-launch encoder's own stage clock (csrc/stack.cuh) over
-    ``launches`` launches on seeded tokens of the forward's shape, with the
-    weights as the latency forward prepares them: us per launch of each
-    stage, its critical path and its barrier, and the barrier share."""
+    """The single-launch encoder's own stage clock (csrc/stack.cuh's
+    StageClock) over ``launches`` launches on seeded tokens of the
+    forward's shape, with the weights as the latency forward prepares
+    them: us per launch of each stage, its critical path and its barrier,
+    and the barrier share."""
     from .models import quantized, vit
     from .ops import vit_stack as vs
     gen = torch.Generator()
