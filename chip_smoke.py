@@ -1476,6 +1476,69 @@ def phase_int8_loud(batch=8, n_pad=256, n_valid=197, d=768, heads=12):
     return err
 
 
+def _k15_case(label, t, d, m, seed, act="gelu_tanh", edit=None):
+    """K15 against its plain version on seeded (t, d) x m inputs, ``edit``
+    applied to (x, f32 parameters) first, in the int8 band.  Returns the
+    max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    x2, _, p = _mlp_inputs(t, d, m, seed)
+    if edit is not None:
+        edit(x2, p)
+    q = _int8_weights(p, ("w1", "w2"))
+    return _int8_parity(f"K15 {label}", _k15(qb.mlp_block_int8, x2, q, act),
+                        _k15(qb.mlp_block_int8_plain, x2, q, act),
+                        _k15_step(x2, q, act), x2)
+
+
+def _k15_last_tile(x2, p):
+    """Every row's absmax of h in W1's last column tile alone: one huge
+    bias on the last column (act(40) = 40 for each activation)."""
+    p["b1"][-1] = 40.0
+
+
+def _k15_zero_row(x2, p):
+    """Row 3 all zero through the LayerNorm and W1 (zero LN bias and b1):
+    its h is all zero, its scale the 1e-12 floor, its hq zero."""
+    x2[3] = 0.0
+    p["ln_bias"].zero_()
+    p["b1"].zero_()
+
+
+def _k15_edges():
+    """K15 (both GEMMs on qgemm_wgmma.cuh's int8 wgmma + TMA kernel, h's
+    row scale from the W1 tiles' row maxima) at the edges of its design,
+    in the int8 band: T 197 and 1 601 (ragged 128-row tiles), ViT-L/16's
+    (1600, 1024) x 4096, (600, 400) x 1552 (D and M multiples of 16, not
+    of 64: a partial column tile feeds the maxima), the absmax of every
+    row in the last (partial) column tile, an all-zero row, each
+    activation; then 20 back-to-back launches bit for bit.  Returns the
+    max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    print("K15 edges: ragged rows and columns, ViT-L width, the last "
+          "tile's absmax, a zero row, activations")
+    worst = 0.0
+    for label, t, d, m, seed, act, edit in (
+            ("T 197", 197, 768, 3072, 200, "gelu_tanh", None),
+            ("T 1601", 1601, 768, 3072, 201, "gelu_tanh", None),
+            ("ViT-L/16 (1600, 1024) x 4096", 1600, 1024, 4096, 202,
+             "gelu_tanh", None),
+            ("(600, 400) x 1552", 600, 400, 1552, 203, "gelu_tanh", None),
+            ("(600, 400) x 1552, absmax in the last column tile", 600, 400,
+             1552, 204, "gelu_tanh", _k15_last_tile),
+            ("T 197, absmax in the last column tile, relu", 197, 768, 3072,
+             205, "relu", _k15_last_tile),
+            ("T 197, an all-zero row", 197, 768, 3072, 206, "gelu_tanh",
+             _k15_zero_row),
+            ("T 197 quick_gelu", 197, 768, 3072, 207, "quick_gelu", None),
+            ("T 197 relu", 197, 768, 3072, 208, "relu", None)):
+        worst = max(worst, _k15_case(label, t, d, m, seed, act, edit))
+    x2, _, p = _mlp_inputs(1600, 768, 3072, 210)
+    q = _int8_weights(p, ("w1", "w2"))
+    _repeat_identical("K15 (1600, 768) x 3072",
+                      lambda: _k15(qb.mlp_block_int8, x2, q, "gelu_tanh"))
+    return worst
+
+
 def _bound_int8(int8_ops, bf16_flops, nbytes):
     """The least time: int8 operations at the int8 peak plus bf16 ones at
     the bf16 peak, or the bytes at the memory rate, whichever is larger."""
@@ -2136,6 +2199,7 @@ def phase_stack_kernels(batches=(1, 4), n_valid=197, heads=12):
     worst["vit_layers_int8"] = max(worst["vit_layers_int8"], _k19a_edges())
     worst["vit_layers_int8_static"] = max(worst["vit_layers_int8_static"],
                                           _k19b_edges())
+    worst["vit_layers"] = max(worst["vit_layers"], _k11_edges())
     return worst
 
 
@@ -2289,6 +2353,64 @@ def _k19b_edges(heads=12):
     x = _stack_x(1, seed=190)
     _repeat_identical("K19b b1 depth 12", lambda: vs.vit_layers_int8_static(
         x, s12, heads, eps=EPS, n_valid=197))
+    return worst
+
+
+def _bf16_stack(depth, seed, d=768, m=3072):
+    """The bf16 tree of ``_stack_trees`` alone (no int8 weights made)."""
+    p = _stack_blocks(depth, d=d, m=m, seed=seed)
+    return {k: (v.to(torch.bfloat16) if k in ("wqkv", "wo", "w1", "w2")
+                else v) for k, v in p.items()}
+
+
+def _k11_edges(heads=12):
+    """K11 (the bf16 variant of the wgmma layer loop, K12's layers without
+    its patch embed and head) at the edges of its design: 1 / 17 / 197 /
+    256 valid keys at n_pad 256 (one or two key tiles, the last masked),
+    b4 at n_pad 256 (1024 rows, eight 128-row items), quick_gelu and
+    ViT-L/16's width (D 1024, M 4096, 16 heads), each at one layer in the
+    bf16 band and deeper in norm; then 20 back-to-back b1 depth-12
+    launches bit for bit.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import vit_stack as vs
+    worst = 0.0
+    bf12 = _bf16_stack(12, seed=150)
+
+    def first(tree):
+        return {k: v[:1] for k, v in tree.items()}
+
+    def case(label, x, b1, bn, depth, heads, n_valid, act="gelu_tanh"):
+        got = vs.vit_layers(x, b1, heads, eps=EPS, act=act, n_valid=n_valid)
+        want = vs.vit_layers_plain(x, b1, heads, eps=EPS, act=act,
+                                   n_valid=n_valid)
+        torch.cuda.synchronize()
+        err = _compare(f"K11 {label} depth 1", got, want, BF16_TOL, BF16_TOL)
+        _branch(f"K11 {label} depth 1 branch", got, want, x)
+        got = vs.vit_layers(x, bn, heads, eps=EPS, act=act, n_valid=n_valid)
+        want = vs.vit_layers_plain(x, bn, heads, eps=EPS, act=act,
+                                   n_valid=n_valid)
+        torch.cuda.synchronize()
+        _relnorm(f"K11 {label} depth {depth}, all rows", got, want,
+                 STACK_BF16_NORM)
+        return max(err, float((got.float() - want.float()).abs().max()))
+
+    print("K11 edges: key tiles, b4, quick_gelu, ViT-L/16 width")
+    for nv in (1, 17, 197, 256):
+        worst = max(worst, case(f"b1 n_pad 256 n_valid {nv}",
+                                _stack_x(1, n_pad=256, seed=160 + nv),
+                                first(bf12), bf12, 12, heads, nv))
+    worst = max(worst, case("b4 n_pad 256 n_valid 256",
+                            _stack_x(4, n_pad=256, seed=165), first(bf12),
+                            bf12, 12, heads, 256))
+    worst = max(worst, case("b1 quick_gelu", _stack_x(1, seed=170),
+                            first(bf12), bf12, 12, heads, 197,
+                            act="quick_gelu"))
+    bl = _bf16_stack(2, seed=180, d=1024, m=4096)
+    worst = max(worst, case("ViT-L/16 width b1 (D 1024, M 4096, 16 heads)",
+                            _stack_x(1, d=1024, seed=181), first(bl), bl, 2,
+                            16, 197))
+    x = _stack_x(1, seed=190)
+    _repeat_identical("K11 b1 depth 12", lambda: vs.vit_layers(
+        x, bf12, heads, eps=EPS, n_valid=197))
     return worst
 
 
@@ -5544,7 +5666,7 @@ def check_wgmma_serialisation(build_log: str) -> None:
     for kernel in ("gw_kernel", "mha_wgmma_kernel", "bwd_q_kernel",
                    "bwd_kv_kernel", "qgemm_wgmma_kernel", "stack_int8_kernel",
                    "full_int8_kernel", "stack_int8_static_kernel",
-                   "8vit_full11full_kernel"):
+                   "8vit_full11full_kernel", "9vit_stack12stack_kernel"):
         if not any("Compiling entry function" in ln and kernel in ln
                    for ln in lines):
             raise AssertionError(f"the build log holds no ptxas report of "
@@ -5821,6 +5943,7 @@ def main() -> int:
         errors[name] = err
     errors["attn_block_int8"] = max(errors["attn_block_int8"],
                                     phase_int8_loud())
+    errors["mlp_block_int8"] = max(errors["mlp_block_int8"], _k15_edges())
     errors.update(phase_static_kernels(8))
     phase_parity()
     timing = phase_path_shapes()

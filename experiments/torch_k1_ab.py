@@ -1,14 +1,17 @@
 """K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's, K9's,
-K19a's, K20's, K19b's or K12's time at a shape, from the package tree
+K19a's, K20's, K19b's, K12's, K11's or K15's time at a shape, from the
+package tree
 found under ROOT, so that two versions of the port are compared in one
 call on one card.
 
 Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
-        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12]
+        [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12|
+                  k11|k15]
         [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT] [--a-region]
+        [--k15 VARIANT]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
 time, e.g. a ``git archive`` of another commit unpacked under ``_chip/``; its
@@ -74,8 +77,15 @@ static`` (K19b) as the unchanged control; ``--kernel k20`` times
 ``--kernel k19b`` times ``vit_layers_int8_static`` the same way as k19a,
 beside ``chip_smoke._stack_library`` with per-tensor static scales, and
 ``--kernel k12`` times ``vit_full`` beside ``chip_smoke._full_library`` in
-bf16, each with K11 (``vit_layers``), K19a and K20 as the controls.
-All four take their seeded inputs from the tree's own ``chip_smoke.py``.
+bf16, each with K11 (``vit_layers``), K19a and K20 as the controls;
+``--kernel k11`` times ``vit_layers`` the same way beside
+``chip_smoke._stack_library`` in bf16, with K12 and K19b as the controls.
+All five take their seeded inputs from the tree's own ``chip_smoke.py``.
+``--kernel k15`` times ``mlp_block_int8`` (gelu_tanh) at ``--mlp-shape``,
+by default ViT-B/16 b64's (12 800, 768) x 3072, per call, device alone and
+step by step, first checked against its plain version in the int8 band,
+beside its library call (F.layer_norm, the row quantization in torch ops,
+torch._int_mm, tanh-GELU), with K16 at b64 as the control.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -96,6 +106,13 @@ stages and the whole tile staged (8 pieces at 256 columns, 4 at 128),
 ``_chip/a_region/``) whose single-launch layer loop lays out the dynamic
 variant's 64 KB quantised-A region for the static and bf16 variants too
 (K19b, K12), so that they keep as little L1 as K19a and K20.
+``--k15 VARIANT`` times ``--kernel k15`` from a copy (under ROOT's
+``_chip/k15_VARIANT/``) whose K15 epilogues (``csrc/qgemm_wgmma.cuh``)
+leave out part of their work, to weigh it (its output is then wrong and
+not checked): ``noact`` without the activation of W1's h; ``rolled_k``
+with the per-row pass's four steps of four columns rolled (one copy of
+the arithmetic, the loads of each step after the one before);
+``w2_tile256`` with W2 on 256-wide tiles, as W1, instead of 128.
 """
 
 from __future__ import annotations
@@ -143,6 +160,16 @@ QGEMM_VARIANTS = {
                 (_QW, "QW_EPI_BUFS_128 = 2;", "QW_EPI_BUFS_128 = 1;"),
                 (_QW, "const bool tma_store = N % 4 == 0;",
                  "const bool tma_store = false;")),
+}
+
+
+# (file under csrc/, text, replacement) of each --k15 variant.
+K15_VARIANTS = {
+    "noact": ((_QW, "f[e] = act_rn(f[e], p.act);", ""),),
+    "rolled_k": ((_QW, "#pragma unroll\n      for (int k = 0; k < 4; ++k) {",
+                  "#pragma unroll 1\n      for (int k = 0; k < 4; ++k) {"),),
+    "w2_tile256": ((_QW, "EPI == QW_RESID ? 128 : qgemm_wgmma_tile_n(p.N);",
+                    "qgemm_wgmma_tile_n(p.N);"),),
 }
 
 
@@ -375,7 +402,7 @@ def main() -> int:
     ap.add_argument("--kernel",
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
                              "k23", "k6", "k13", "k9", "k19a", "k20",
-                             "k19b", "k12"),
+                             "k19b", "k12", "k11", "k15"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -385,6 +412,7 @@ def main() -> int:
     ap.add_argument("--one-consumer", action="store_true")
     ap.add_argument("--qgemm", choices=sorted(QGEMM_VARIANTS))
     ap.add_argument("--a-region", action="store_true")
+    ap.add_argument("--k15", choices=sorted(K15_VARIANTS))
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if args.one_consumer:
@@ -394,6 +422,8 @@ def main() -> int:
                             QGEMM_VARIANTS[args.qgemm])
     if args.a_region:
         root = patched_copy(root, "a_region", A_REGION)
+    if args.k15:
+        root = patched_copy(root, f"k15_{args.k15}", K15_VARIANTS[args.k15])
     sys.path.insert(0, str(root))
     import torch
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -768,7 +798,7 @@ def main() -> int:
             runs[f"library {label} per call"] = lib
             device[f"{name} {label} device alone"] = kern
             device[f"library {label} device alone"] = lib
-    elif args.kernel in ("k19b", "k12"):
+    elif args.kernel in ("k19b", "k12", "k11"):
         sys.path.insert(0, str(root))
         import chip_smoke as cs
         from vit_fpga_tpu_torch.ops import vit_stack as vs
@@ -795,15 +825,63 @@ def main() -> int:
             if args.kernel == "k19b":
                 name = "K19b"
                 lib = cs._stack_library(x, s12, 12, 197, True, static=True)
-            else:
+            elif args.kernel == "k12":
                 name = "K12"
                 lib = cs._full_library(img, a12, 12, False)
+            else:
+                name = "K11"
+                lib = cs._stack_library(x, bf12, 12, 197, False)
             runs[f"{name} {label} per call"] = calls[name]
             runs[f"library {label} per call"] = lib
             device[f"{name} {label} device alone"] = calls[name]
             device[f"library {label} device alone"] = lib
-            for other in ("K11", "K19a", "K20"):
+            controls = ("K12", "K19b") if name == "K11" else (
+                "K11", "K19a", "K20")
+            for other in controls:
                 runs[f"{other} control {label}"] = calls[other]
+    elif args.kernel == "k15":
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import quant_block as qb
+        from vit_fpga_tpu_torch.ops import quant_fused as qf
+        shape = list(args.mlp_shape)
+        t, d, m = shape
+        runs = {}
+        x2, _, p = cs._mlp_inputs(t, d, m, 91)
+        q = cs._int8_weights(p, ("w1", "w2"))
+        rq = qf._row_quant
+
+        def mm(aq, wq, sa, ws, b):  # (K, N) wq column-major, as _int_mm takes
+            return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+        def lib():
+            h = F.layer_norm(x2.float(), (d,), q["ln_scale"], q["ln_bias"],
+                             cs.EPS)
+            xq, sx = rq(h)
+            h = F.gelu(mm(xq, q["w1_q"], sx, q["w1_s"], q["b1"]),
+                       approximate="tanh")
+            hq, sh = rq(h)
+            return x2 + mm(hq, q["w2_q"], sh, q["w2_s"],
+                           q["b2"]).to(torch.bfloat16)
+
+        def run():
+            return cs._k15(qb.mlp_block_int8, x2, q, "gelu_tanh")
+
+        name = f"K15 ({t}, {d}) x {m}"
+        if args.k15 != "noact":
+            cs._int8_parity(name, run(),
+                            cs._k15(qb.mlp_block_int8_plain, x2, q,
+                                    "gelu_tanh"),
+                            cs._k15_step(x2, q, "gelu_tanh"), x2)
+        runs[f"{name} per call"] = run
+        device[f"{name} device alone"] = run
+        steps[name] = run
+        runs["library per call"] = lib
+        device["library device alone"] = lib
+        xa, _, pa = cs._attn_inputs(64, 200, 768, 90)
+        qa = cs._int8_weights(pa, ("wqkv", "wo"))
+        runs["K16 control (64, 200, 768)"] = (
+            lambda: cs._k16(qb.attn_block_int8, xa, qa, 12, 197))
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}

@@ -26,9 +26,22 @@ PY
   echo "mutation $1: exit $rc"
   grep -E "violations=[1-9]|Error|must be" chiprun_out/mut_$1.log | head -4
 }
-run_copy k11_no_key_mask stack.cuh \
-  "attn_item(qkv, ao, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_valid, kvp," \
-  "attn_item(qkv, ao, bh / heads, bh % heads, qc * ST_QCHUNK, n_pad, n_pad, kvp,"
+# K11 with the attention's key mask at n_pad for n_valid (the bf16 variant
+# of the layer loop without a patch embed: K11 alone): the keys past
+# n_valid, zero-filled by TMA, each add e = 1 to the row sum
+run_copy k11_no_key_mask stack_wgmma.cuh \
+  "ntiles, r.it, p.n_valid, p.scale, no_max," \
+  "ntiles, r.it, V == LQ_BF16 && p.p3 == 0 ? p.n_pad : p.n_valid, p.scale, no_max,"
+# K15 quantizing h with the first W1 column tile's absmax alone (the row
+# pass reads one of the tiles' row maxima)
+run_copy k15_h_one_tile_absmax mlp_int8.cu \
+  "up.parts, nparts, hq8," "up.parts, 1, hq8,"
+# K15's W2 epilogue without the residual: out = bf16(y)
+run_copy k15_no_residual qgemm_wgmma.cuh \
+  "pack_bf16x2(x01.x + bf16_round(f[0]), x01.y + bf16_round(f[1]))" \
+  "pack_bf16x2(bf16_round(f[0]), bf16_round(f[1]))" \
+  "pack_bf16x2(x23.x + bf16_round(f[2]), x23.y + bf16_round(f[3]))" \
+  "pack_bf16x2(bf16_round(f[2]), bf16_round(f[3]))"
 # K19a quantizing h with one 64-column W1 tile's absmax (W2's A block
 # and the row stage after it read the first part of each row's maxima)
 run_copy k19a_h_one_tile_absmax stack_wgmma.cuh \

@@ -286,30 +286,62 @@ def test_the_layer_loop_has_a_bf16_item_and_a_static_epilogue():
 
 
 def test_k11_keeps_its_mma_sync_layer_and_stack_cuh_loses_its_int8_tiles():
-    """K11 still runs stack_bf16.cuh's layers on stack.cuh's bf16 tiles and
-    attention items; the int8 tiles and stages of stack.cuh that K19b alone
-    called are gone, and the old header name with them."""
+    """K11 no longer keeps its mma.sync layer: it runs stack_wgmma.cuh's
+    layer loop in its bf16 variant, as K12 does; stack_bf16.cuh is gone
+    from disk and from the build, and stack.cuh keeps none of the mma.sync
+    tiles, wmma attention items or int8 tiles, only the stage clock, the
+    cooperative launch and the scalar helpers."""
     k11 = (_kernels.CSRC / "vit_stack.cu").read_text()
-    assert '#include "stack_bf16.cuh"' in k11
-    assert '#include "stack.cuh"' in k11
+    for header in ("stack_wgmma.cuh", "hopper.cuh", "mha_wgmma.cuh",
+                   "stack.cuh"):
+        assert f'#include "{header}"' in k11, header
+    assert "lq_ring<LQ_BF16>(smem)" in k11
+    assert "lq_encode_layers<LQ_BF16>(" in k11
+    assert "__launch_bounds__(LQ_THREADS, 1)" in k11
+    assert "stack_bf16.cuh" not in k11
+    assert not (_kernels.CSRC / "stack_bf16.cuh").exists()
+    assert "stack_bf16.cuh" not in _kernels.HEADERS
     stack = (_kernels.CSRC / "stack.cuh").read_text()
-    for kept in ("tile_bf16(", "attn_item(", "prefetch_l2(", "struct StageClock",
-                 "coop_launch("):
+    for kept in ("struct StageClock", "coop_launch(", "ST_DH", "ST_MAX_KV"):
         assert kept in stack, kept
-    for gone in (r"\btile_i8\b", r"\bqkv_stage\b", r"\bsplit_stage_i8\b",
-                 r"\brow_pass_i8\b", r"\bQ8\b", r"\bQT_\w+"):
+    for gone in (r"\btile_bf16\b", r"\battn_item\b", r"\battn_stage\b",
+                 r"\bst_attn_smem\b", r"\bstack_smem_bytes\b",
+                 r"\bprefetch_l2\b", r"\bST_BK\b", r"\bST_QCHUNK\b",
+                 r"\bmma_sync\b", r"\bwmma\b", r"\btile_i8\b",
+                 r"\bqkv_stage\b", r"\bsplit_stage_i8\b", r"\brow_pass_i8\b",
+                 r"\bQ8\b", r"\bQT_\w+"):
         assert not re.search(gone, stack), gone
-    assert not (_kernels.CSRC / "stack_i8_wgmma.cuh").exists()
-    assert "stack_i8_wgmma.cuh" not in _kernels.HEADERS
     for p in _kernels.CSRC.iterdir():
-        assert "stack_i8_wgmma" not in p.read_text(), p.name
+        text = p.read_text()
+        assert "stack_i8_wgmma" not in text, p.name
+        assert not re.search(r"\b(tile_bf16|attn_item|attn_stage)\b", text), \
+            p.name
 
 
-@pytest.mark.parametrize("kernel", ["K19B", "K12"])
+def test_k15_runs_both_gemms_on_the_int8_wgmma_gemm():
+    """K15's W1 and W2 run on qgemm_wgmma.cuh's int8 wgmma + TMA kernel
+    with its dequantizing epilogues, not quant.cuh's wmma GEMM; the
+    epilogue holds one copy of the activation, in a loop over the staged
+    pieces that stays rolled."""
+    k15 = (_kernels.CSRC / "mlp_int8.cu").read_text()
+    assert '#include "qgemm_wgmma.cuh"' in k15
+    assert "launch_qgemm<" not in k15
+    for epi in ("QW_H", "QW_RESID"):
+        assert f"launch_qgemm_epi<{epi}>(" in k15, epi
+    assert "launch_quant_amax(" in k15
+    gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
+    body = gemm[gemm.index("void qw_epilogue("):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("act_rn(") == 1
+    assert "#pragma unroll 1" in body and "pack_bf16x2(" in body
+
+
+@pytest.mark.parametrize("kernel", ["K19B", "K12", "K11"])
 def test_k19b_k12_stage_names_match_the_clock_kinds(kernel):
-    """K19B_STAGES (the layer kinds) and K12_STAGES (all, with the patch,
-    embed and head stages) name the stage kinds of stack_wgmma.cuh's enum
-    in its order, as K19A_STAGES and K20_STAGES do."""
+    """K19B_STAGES and K11_STAGES (the layer kinds) and K12_STAGES (all,
+    with the patch, embed and head stages) name the stage kinds of
+    stack_wgmma.cuh's enum in its order, as K19A_STAGES and K20_STAGES
+    do."""
     from vit_fpga_tpu_torch.ops import vit_stack as vs
     layer = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
     enum = layer[layer.index("enum LqStage {"):]
@@ -317,7 +349,7 @@ def test_k19b_k12_stage_names_match_the_clock_kinds(kernel):
     kinds = [w.strip() for _, w in
              re.findall(r"(LQ_T_\w+)(?: = 0)?,?\s*// ([^\n]+)", enum)]
     stages = getattr(vs, f"{kernel}_STAGES")
-    want = len(vs.K19A_STAGES) if kernel == "K19B" else len(kinds)
+    want = len(kinds) if kernel == "K12" else len(vs.K19A_STAGES)
     assert len(stages) == len(set(stages)) == want
     for i, name in enumerate(stages):
         assert name.startswith(kinds[i]), (i, name, kinds[i])

@@ -59,6 +59,19 @@ __device__ __forceinline__ float apply_act(float h, int act) {
   }
 }
 
+// The fma-form tanh-GELU, quick_gelu or relu in f32 with each product and
+// sum rounded on its own (no contraction into fma), as the plain versions
+// compute them (fused_mlp._act): the activation of the single-launch
+// encoders' W1 epilogue (stack_wgmma.cuh) and of K15's (qgemm_wgmma.cuh).
+__device__ __forceinline__ float act_rn(float h, int act) {
+  if (act == ACT_RELU) return fmaxf(h, 0.0f);
+  if (act == ACT_QUICK_GELU) return __fmul_rn(h, __frcp_rn(__fadd_rn(1.0f, expf(__fmul_rn(-1.702f, h)))));
+  const float h2 = __fmul_rn(h, h);
+  const float u = __fmul_rn(h, __fadd_rn(0.7978845608028654f, __fmul_rn(0.035677408136300125f, h2)));
+  const float hh = __fmul_rn(0.5f, h);
+  return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
+}
+
 // act(h) and act'(h) in the closed forms of
 // vit_fpga_tpu/ops/fused_mlp.py:_act_and_grad (erf-GELU's own derivative
 // for ACT_GELU).

@@ -34,17 +34,29 @@
 // columns past M and N.  An output whose row stride is not a multiple of 16
 // bytes (N % 4 != 0: the dense net's N = 10) cannot be a TMA store; its
 // tiles are written from the accumulator registers by masked stores, an
-// epilogue of the same kernel (QwStore), not a fallback.
+// epilogue of the same kernel (QW_STORE_REGS), not a fallback.
 //
-// The dequantizing epilogues of the other int8 kernels (K14-K22, on
-// quant.cuh's GEMM) would be further QwStore variants over the same
-// accumulator tile.
+// K15 (mlp_int8.cu) runs both of its GEMMs on this kernel, with
+// dequantizing epilogues over the same accumulator tile (QwEpi, qw_epilogue):
+// f = float(acc) * (sa[row] * sb[col]) + bias[col] in IEEE operations, in
+// the order of quant.cuh's epilogues; W1 then h = act(f) in f32 with the
+// tile's row absmax of h in parts[col tile][row]; W2 out = residual +
+// bf16(f), added in f32 and rounded once, in bf16.
+// The sums pass through the staging buffers, whose 64 rows of 128 bytes
+// serve every element size.  The other int8 kernels (K14, K16-K22) stay on
+// quant.cuh's GEMM.
 
 #pragma once
 
 namespace VFT_NS {
 
-enum QwStore { QW_STORE_TMA = 0, QW_STORE_REGS = 1 };
+// The epilogue of a launch over the consumer warpgroup's 64 x BN tile.
+enum QwEpi {
+  QW_STORE_TMA = 0,   // K13: the int32 sums, by TMA
+  QW_STORE_REGS = 1,  // K13: the int32 sums from the registers (N % 4 != 0)
+  QW_H = 2,           // K15's W1: f32 h = act(f) by TMA, the tile's row absmax to parts
+  QW_RESID = 3        // K15's W2: bf16 residual + bf16(f) by TMA
+};
 
 constexpr int QW_BM = 128;         // rows per tile: two consumer warpgroups of 64
 constexpr int QW_BK = 128;         // one 128-byte swizzle row of int8
@@ -73,6 +85,13 @@ struct QwShape {
 struct QwArgs {
   int* C;       // (M, N) int32; read by QW_STORE_REGS
   int M, N, K;  // K a multiple of 16 (TMA's 16-byte row stride)
+  // the dequantizing epilogues (K15)
+  const float* sa;       // (M,) row scales
+  const float* sb;       // (N,) column scales
+  const float* bias;     // (N,)
+  const bf16* residual;  // QW_RESID: (M, N)
+  float* parts;          // QW_H: (col tiles, M) each tile's row absmax of h
+  int act;
 };
 
 // Issues acc += A_stage B_stage^T over one K step of 128 as one wgmma group
@@ -138,6 +157,115 @@ __device__ __forceinline__ void qw_store_tma(const uint32_t (&acc)[BN / 2],
   }
 }
 
+// Piece pc (32 columns) of the consumer warpgroup's int32 sums into raw in
+// QW_STORE_TMA's staging layout, pc chosen at run time through a chain of
+// compile-time pieces, so that the caller's loop over the pieces stays
+// rolled and acc stays in registers.
+template <int BN, int P = 0>
+__device__ __forceinline__ void qw_raw_piece(const uint32_t (&acc)[BN / 2], int pc,
+                                             unsigned char* raw, int wt) {
+  if constexpr (P < BN / QW_EPI_COLS) {
+    if (pc != P) {
+      qw_raw_piece<BN, P + 1>(acc, pc, raw, wt);
+      return;
+    }
+    const int w4 = wt >> 5, g = (wt & 31) >> 2, t4 = wt & 3;
+#pragma unroll
+    for (int jj = 0; jj < QW_EPI_COLS / 8; ++jj) {
+      const int j = QW_EPI_COLS / 8 * P + jj;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<uint2*>(raw + (16 * w4 + g + 8 * rr) * 128 +
+                                  (((2 * jj + (t4 >> 1)) ^ g) << 4) + (t4 & 1) * 8) =
+            make_uint2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+    }
+  }
+}
+
+// K15's epilogues (QW_H, QW_RESID) over the consumer warpgroup's 64 x BN
+// tile at {n0, row0}, f = float(acc) * (sa[row] * sb[col]) + bias[col].
+// Computed in the registers over the unrolled tile, the 128 values a
+// thread of a 256-wide tile holds each inlined the activation's tanhf,
+// and W1 took twice as long (PERF.md).  So each 32-column piece of the
+// sums is staged in the warpgroup's first staging buffer (raw), and each
+// thread then takes 16 consecutive columns of one row (thread t: row t /
+// 2, columns 16 (t % 2) ..) in a loop over the pieces that stays rolled
+// (16 copies of the arithmetic, not 128), writing its results to the
+// second buffer, the output piece of 128-byte rows (32 f32 or 64 bf16
+// columns), stored by TMA once complete.  Each row's absmax of h over the
+// tile's valid columns goes to parts[n0 / BN][row].
+template <int BN, int EPI>
+__device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const CUtensorMap* tc,
+                                            const QwArgs& p, int row0, int n0, unsigned char* buf,
+                                            uint32_t buf_s, int wg, int wt) {
+  static_assert(QwShape<BN>::EPI_BUFS >= 2, "a raw piece and an output piece");
+  constexpr bool H = EPI == QW_H;
+  constexpr int EB = H ? 4 : 2;                // f32 h, bf16 out
+  constexpr int PPO = 128 / EB / QW_EPI_COLS;  // raw pieces an output piece
+  unsigned char* raw = buf;
+  unsigned char* out = buf + QW_EPI_BYTES;
+  const int rl = wt >> 1, half = wt & 1, row = row0 + rl, sw = rl & 7;
+  const bool rin = row < p.M;
+  const float sr = rin ? __ldg(p.sa + row) : 0.0f;
+  float rmax = 0.0f;
+#pragma unroll 1
+  for (int pc = 0; pc < BN / QW_EPI_COLS; ++pc) {
+    const int c0 = n0 + QW_EPI_COLS * pc, po = pc % PPO;
+    if (c0 >= p.N) break;
+    // the store that read the output piece last is done with it
+    if (po == 0 && wt == 0) bulk_wait_read<0>();
+    qw_raw_piece<BN>(acc, pc, raw, wt);
+    named_barrier(1 + wg, 128);
+    const int cb = c0 + 16 * half;  // N % 16 == 0: the thread's 16 columns all in or all out
+    if (rin && cb < p.N) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = cb + 4 * k;
+        const uint4 a4 =
+            *reinterpret_cast<const uint4*>(raw + rl * 128 + (((4 * half + k) ^ sw) << 4));
+        const float4 sc = __ldg(reinterpret_cast<const float4*>(p.sb + c));
+        const float4 bi = __ldg(reinterpret_cast<const float4*>(p.bias + c));
+        const int a[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
+        const float scv[4] = {sc.x, sc.y, sc.z, sc.w}, biv[4] = {bi.x, bi.y, bi.z, bi.w};
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          f[e] = __fadd_rn(__fmul_rn((float)a[e], __fmul_rn(sr, scv[e])), biv[e]);
+          if constexpr (H) {
+            f[e] = act_rn(f[e], p.act);
+            rmax = fmaxf(rmax, fabsf(f[e]));
+          }
+        }
+        // the four values' place in the output piece (128-byte swizzled rows)
+        const int off = (QW_EPI_COLS * po + 16 * half + 4 * k) * EB;
+        unsigned char* dst = out + rl * 128 + (((off >> 4) ^ sw) << 4) + (off & 15);
+        if constexpr (H) {
+          *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+        } else {
+          // x + bf16(f), added in f32 and rounded once (quant.cuh's EPI_RESID)
+          const uint2 xr =
+              __ldg(reinterpret_cast<const uint2*>(p.residual + (size_t)row * p.N + c));
+          const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.x));
+          const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.y));
+          *reinterpret_cast<uint2*>(dst) =
+              make_uint2(pack_bf16x2(x01.x + bf16_round(f[0]), x01.y + bf16_round(f[1])),
+                         pack_bf16x2(x23.x + bf16_round(f[2]), x23.y + bf16_round(f[3])));
+        }
+      }
+    }
+    fence_proxy_async();         // the output piece, before the store reads it
+    named_barrier(1 + wg, 128);  // and the raw piece is read: the next may come
+    if (wt == 0 && (po == PPO - 1 || c0 + QW_EPI_COLS >= p.N || pc + 1 == BN / QW_EPI_COLS)) {
+      tma_store_2d(tc, buf_s + QW_EPI_BYTES, c0 - QW_EPI_COLS * po, row0);
+      bulk_commit();
+    }
+  }
+  if constexpr (H) {  // the tile's row absmax of h, both halves of the row
+    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+    if (half == 0 && rin) p.parts[(size_t)(n0 / BN) * p.M + row] = rmax;
+  }
+}
+
 // QW_STORE_REGS: one consumer warp's 16 x BN rows straight from the
 // accumulator, masked at M and N (8-byte pairs where N is even).
 template <int BN>
@@ -165,7 +293,7 @@ __device__ __forceinline__ void qw_store_regs(const uint32_t (&acc)[BN / 2], con
   }
 }
 
-template <int BN, int STORE>
+template <int BN, int EPI>
 __global__ void __launch_bounds__(QW_THREADS, 1)
     qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                        const __grid_constant__ CUtensorMap tb,
@@ -247,29 +375,38 @@ __global__ void __launch_bounds__(QW_THREADS, 1)
         reg_fence(acc);
         release((it - 1) % STAGES);
       }
-      if constexpr (STORE == QW_STORE_TMA)
+      if constexpr (EPI == QW_STORE_TMA)
         qw_store_tma<BN>(acc, &tc, p, m0 + wg * 64, n0, buf, buf_s, wg, wt, piece);
-      else
+      else if constexpr (EPI == QW_STORE_REGS)
         qw_store_regs<BN>(acc, p, m0 + wg * 64 + (warp & 3) * 16, n0, lane);
+      else
+        qw_epilogue<BN, EPI>(acc, &tc, p, m0 + wg * 64, n0, buf, buf_s, wg, wt);
     }
-    if (STORE == QW_STORE_TMA && wt == 0) bulk_wait_all();  // before the block's memory goes
+    if (EPI != QW_STORE_REGS && wt == 0) bulk_wait_all();  // before the block's memory goes
   }
 }
 
-template <int BN, int STORE>
+template <int BN, int EPI>
 inline cudaError_t qw_enable_one() {
-  return cudaFuncSetAttribute(qgemm_wgmma_kernel<BN, STORE>,
+  return cudaFuncSetAttribute(qgemm_wgmma_kernel<BN, EPI>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)QwShape<BN>::SMEM_BYTES);
 }
 
-// Opts the four variants in to their shared memory, on the current device.
+// Opts K13's four variants in to their shared memory, on the current device.
 inline cudaError_t qgemm_wgmma_enable() {
   cudaError_t err;
   if ((err = qw_enable_one<256, QW_STORE_TMA>()) != cudaSuccess) return err;
   if ((err = qw_enable_one<256, QW_STORE_REGS>()) != cudaSuccess) return err;
   if ((err = qw_enable_one<128, QW_STORE_TMA>()) != cudaSuccess) return err;
   return qw_enable_one<128, QW_STORE_REGS>();
+}
+
+// Opts both tile widths of epilogue EPI in, on the current device.
+template <int EPI>
+inline cudaError_t qgemm_epi_enable() {
+  cudaError_t err = qw_enable_one<256, EPI>();
+  return err != cudaSuccess ? err : qw_enable_one<128, EPI>();
 }
 
 // The tile width the launch takes: 256 columns, or 128 where N fits in
@@ -279,55 +416,113 @@ inline cudaError_t qgemm_wgmma_enable() {
 // 128 won at the dense net's N = 10.
 inline int qgemm_wgmma_tile_n(int N) { return N <= 128 ? 128 : 256; }
 
-template <int BN>
+// Column tiles of an N-wide output: QW_H's parts a row.
+inline int qgemm_wgmma_col_tiles(int N) {
+  const int bn = qgemm_wgmma_tile_n(N);
+  return (N + bn - 1) / bn;
+}
+
+template <int BN, int EPI>
 inline cudaError_t qw_launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
-                             bool tma_store, const QwArgs& p, int sms, cudaStream_t stream) {
+                             const QwArgs& p, int sms, cudaStream_t stream) {
   const long long tiles = (long long)((p.M + QW_BM - 1) / QW_BM) * ((p.N + BN - 1) / BN);
   const int grid = (int)(tiles < sms ? tiles : sms);
   constexpr size_t smem = QwShape<BN>::SMEM_BYTES;
-  if (tma_store)
-    qgemm_wgmma_kernel<BN, QW_STORE_TMA><<<grid, QW_THREADS, smem, stream>>>(ta, tb, tc, p);
-  else
-    qgemm_wgmma_kernel<BN, QW_STORE_REGS><<<grid, QW_THREADS, smem, stream>>>(ta, tb, tc, p);
+  qgemm_wgmma_kernel<BN, EPI><<<grid, QW_THREADS, smem, stream>>>(ta, tb, tc, p);
   return cudaGetLastError();
+}
+
+template <int EPI>
+inline cudaError_t qw_launch_n(int bn, const CUtensorMap& ta, const CUtensorMap& tb,
+                               const CUtensorMap& tc, const QwArgs& p, int sms,
+                               cudaStream_t stream) {
+  return bn == 256 ? qw_launch<256, EPI>(ta, tb, tc, p, sms, stream)
+                   : qw_launch<128, EPI>(ta, tb, tc, p, sms, stream);
+}
+
+inline bool qw_misaligned(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; }
+
+// The checks every launch makes, A's and B's maps (K-major boxes of 128 k
+// x 128 rows (A) or bn rows, the tile width (B)) and the SM count.
+inline cudaError_t qw_prepare(const signed char* a, const signed char* bt, int M, int N, int K,
+                              int bn, CUtensorMap* ta, CUtensorMap* tb, int* sms) {
+  if (M < 1 || N < 1 || K < 16 || K % 16) return cudaErrorInvalidValue;
+  if (qw_misaligned(a) || qw_misaligned(bt)) return cudaErrorMisalignedAddress;
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t b_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t k_strides[1] = {(cuuint64_t)K};
+  const cuuint32_t a_box[2] = {QW_BK, QW_BM};
+  const cuuint32_t b_box[2] = {QW_BK, (cuuint32_t)bn};
+  if (!tma_encode_s8(ta, a, 2, a_dims, k_strides, a_box) ||
+      !tma_encode_s8(tb, bt, 2, b_dims, k_strides, b_box))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // C = A B^T on `stream`: a (M, K) and bt (N, K) int8 row-major, c (M, N)
 // int32; M, N >= 1, K >= 16 a multiple of 16, a, bt and c 16-byte aligned.
 inline cudaError_t launch_qgemm_wgmma(const signed char* a, const signed char* bt, int* c, int M,
                                       int N, int K, cudaStream_t stream) {
-  if (M < 1 || N < 1 || K < 16 || K % 16) return cudaErrorInvalidValue;
-  auto misaligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
-  if (misaligned(a) || misaligned(bt) || misaligned(c)) return cudaErrorMisalignedAddress;
-  int dev = 0, sms = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const int bn = qgemm_wgmma_tile_n(N);
-  // A and B: K-major boxes of 128 k x 128 rows (A) or bn rows (B); C: 64
-  // rows x 32 int32 columns, stored only where its row stride suits TMA
   CUtensorMap ta, tb, tc;
-  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t b_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
-  const cuuint64_t k_strides[1] = {(cuuint64_t)K};
-  const cuuint32_t a_box[2] = {QW_BK, QW_BM};
-  const cuuint32_t b_box[2] = {QW_BK, (cuuint32_t)bn};
+  int sms = 0;
+  const int bn = qgemm_wgmma_tile_n(N);
+  cudaError_t err = qw_prepare(a, bt, M, N, K, bn, &ta, &tb, &sms);
+  if (err != cudaSuccess) return err;
+  if (qw_misaligned(c)) return cudaErrorMisalignedAddress;
+  // C: 64 rows x 32 int32 columns, stored only where its row stride suits TMA
   const bool tma_store = N % 4 == 0;
   const cuuint64_t c_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
   const cuuint64_t c_strides[1] = {(cuuint64_t)N * 4};
   const cuuint32_t c_box[2] = {QW_EPI_COLS, 64};
-  if (!tma_encode_s8(&ta, a, 2, a_dims, k_strides, a_box) ||
-      !tma_encode_s8(&tb, bt, 2, b_dims, k_strides, b_box))
-    return cudaErrorInvalidValue;
   if (tma_store) {
     if (!tma_encode_s32(&tc, c, 2, c_dims, c_strides, c_box)) return cudaErrorInvalidValue;
   } else {
     tc = ta;  // never read
   }
-  const QwArgs p{c, M, N, K};
-  return bn == 256 ? qw_launch<256>(ta, tb, tc, tma_store, p, sms, stream)
-                   : qw_launch<128>(ta, tb, tc, tma_store, p, sms, stream);
+  QwArgs p{};
+  p.C = c;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  return tma_store ? qw_launch_n<QW_STORE_TMA>(bn, ta, tb, tc, p, sms, stream)
+                   : qw_launch_n<QW_STORE_REGS>(bn, ta, tb, tc, p, sms, stream);
+}
+
+// K15's GEMMs on `stream`: a (M, K) and bt (N, K) int8 row-major into out
+// through epilogue EPI: QW_H f32 h (M, N), QW_RESID bf16 (M, N); p carries
+// M, N, K and the epilogue's operands: sa, sb, bias, and parts of
+// qgemm_wgmma_col_tiles(N) x M floats (QW_H) or the residual (QW_RESID).
+// N and K multiples of 16, a, bt and out 16-byte aligned.
+template <int EPI>
+inline cudaError_t launch_qgemm_epi(const signed char* a, const signed char* bt, void* out,
+                                    const QwArgs& p, cudaStream_t stream) {
+  static_assert(EPI == QW_H || EPI == QW_RESID, "K15's epilogues");
+  if (p.N % 16 || p.sa == nullptr || p.sb == nullptr || p.bias == nullptr ||
+      (EPI == QW_RESID ? p.residual == nullptr : p.parts == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb, tc;
+  int sms = 0;
+  // W2's 768 columns (ViT-B) make 3 tiles of 256 a row block, 2.3 waves of
+  // 300 tiles on 132 SMs at b64: 128-wide tiles even them out (PERF.md)
+  const int bn = EPI == QW_RESID ? 128 : qgemm_wgmma_tile_n(p.N);
+  cudaError_t err = qw_prepare(a, bt, p.M, p.N, p.K, bn, &ta, &tb, &sms);
+  if (err != cudaSuccess) return err;
+  // out: 64 rows x 128 bytes a box, the staging pieces' geometry
+  if (qw_misaligned(out)) return cudaErrorMisalignedAddress;
+  const int eb = EPI == QW_H ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.M};
+  const cuuint64_t strides[1] = {(cuuint64_t)p.N * eb};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / eb), 64};
+  if (!tma_encode(&tc, EPI == QW_H ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  out, 2, dims, strides, box))
+    return cudaErrorInvalidValue;
+  return qw_launch_n<EPI>(bn, ta, tb, tc, p, sms, stream);
 }
 
 }  // namespace VFT_NS

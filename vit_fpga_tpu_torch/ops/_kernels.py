@@ -36,9 +36,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "attn_int8_stats.cu", "attn_int8_scores.cu", "patch_embed.cu",
            "streamed_gemm.cu")
 HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
-           "stack_bf16.cuh", "stack_wgmma.cuh", "full.cuh", "seq_attn.cuh",
-           "mha_wgmma.cuh", "hopper.cuh", "gemm_wgmma.cuh", "attn_half.cuh",
-           "qgemm_wgmma.cuh")
+           "stack_wgmma.cuh", "full.cuh", "seq_attn.cuh", "mha_wgmma.cuh",
+           "hopper.cuh", "gemm_wgmma.cuh", "attn_half.cuh", "qgemm_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -80,7 +79,7 @@ _SIGNATURES = {
     "vft_quant_linear_init": ([], ctypes.c_int),
     "vft_int8_linear_fused": ([_P] * 9 + [_I] * 7 + [_F, _P], ctypes.c_int),
     "vft_mlp_int8_init": ([], ctypes.c_int),
-    "vft_mlp_block_int8": ([_P] * 14 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "vft_mlp_block_int8": ([_P] * 16 + [_I] * 5 + [_F, _P], ctypes.c_int),
     "vft_attn_int8_init": ([], ctypes.c_int),
     "vft_attn_block_int8": ([_P] * 14 + [_I] * 5 + [_F, _F, _P],
                             ctypes.c_int),

@@ -12,7 +12,8 @@ CPU tensor:
   ``mlp_block_int8``).  One-pass LN -> row quant -> int8 GEMM1 ->
   dequant + bias -> fma tanh-GELU (or quick_gelu, relu) in f32 -> row
   quant of the f32 h over its whole row -> int8 GEMM2 -> dequant + bias
-  -> ``x + bf16(y)``.
+  -> ``x + bf16(y)``.  Both GEMMs run on ``csrc/qgemm_wgmma.cuh``'s int8
+  wgmma + TMA kernel (K13's) with dequantizing epilogues.
 * K16 ``attn_block_int8`` (``csrc/attn_int8.cu``): replaces
   ``_attn_int8_kernel`` (wrapper ``attn_block_int8``).  One-pass LN ->
   row quant -> int8 QKV GEMM -> ``bf16(dequant + bias)`` -> the max-free
@@ -59,12 +60,13 @@ M = 3072, 12 heads of 64, n_valid 197), set by tensor-core operations at
 1979 int8 TOPS and 989 bf16 TFLOP/s: K15 and K17 4·T·D·M = 120.8 G int8
 operations (61 us) against about 44 MB of compulsory traffic; K16 and K18
 8·T·D² = 60.4 G int8 operations (31 us) plus 7.8 GFLOP of bf16 attention
-(8 us) against about 42 MB.  Design: row passes and the shared wmma int8
-GEMM (``csrc/quant.cuh``) with dequantizing epilogues.  A dynamic row's
-scale spans blocks that run apart on Hopper (h's 3072 columns, ao's 12
-heads), so K15's GEMM1 writes f32 h with per-block row maxima that a row
-pass reduces before it quantizes, and K16's ao round-trips in bf16 before
-its row pass.  The static scale is known before the launch, so K17's
+(8 us) against about 42 MB.  Design: row passes and int8 GEMMs with
+dequantizing epilogues, K15's on ``csrc/qgemm_wgmma.cuh`` (wgmma + TMA),
+the others on the wmma GEMM of ``csrc/quant.cuh``.  A dynamic row's scale
+spans blocks that run apart on Hopper (h's 3072 columns, ao's 12 heads),
+so K15's GEMM1 writes f32 h with per-tile row maxima that a row pass
+reduces before it quantizes, and K16's ao round-trips in bf16 before its
+row pass.  The static scale is known before the launch, so K17's
 GEMM1 and K18's attention tile emit int8 directly (later work: keep the
 activations on chip, wgmma).  K21a and K21b have K15's and K16's bounds;
 K22 does 60.4 G + 7.8 G int8 operations (34 us at 1979 TOPS).
@@ -229,9 +231,30 @@ def _attn_operands(x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs,
         kernel_operand(bo, (d,), f32, dev, "bo")]
 
 
+def mlp_int8_parts(m: int) -> int:
+    """The count of K15's per-tile row maxima of h for M columns: one a
+    column tile of its int8 GEMM, 256 columns wide (128 where M fits in
+    128; ``csrc/qgemm_wgmma.cuh`` ``qgemm_wgmma_col_tiles``)."""
+    tile = 128 if m <= 128 else 256
+    return -(-m // tile)
+
+
+def _mlp_int8_scratch(t, d, m, dev):
+    """K15's scratch, in the C order: int8 xq (T, D), its f32 row scales,
+    int8 hq (T, M), its row scales, the f32 h (T, M) and h's per-tile row
+    maxima (:func:`mlp_int8_parts`, T)."""
+    f32 = torch.float32
+    return [torch.empty((t, d), dtype=torch.int8, device=dev),
+            torch.empty((t,), dtype=f32, device=dev),
+            torch.empty((t, m), dtype=torch.int8, device=dev),
+            torch.empty((t,), dtype=f32, device=dev),
+            torch.empty((t, m), dtype=f32, device=dev),
+            torch.empty((mlp_int8_parts(m), t), dtype=f32, device=dev)]
+
+
 def _mlp_scratch(t, d, m, dev):
-    """K15's and K21a's scratch: int8 rows (xq, then hq), their f32 row
-    scales, the f32 h and its per-128-column row maxima."""
+    """K21a's scratch: int8 rows (xq, then hq), their f32 row scales, the
+    f32 h and its per-128-column row maxima."""
     f32 = torch.float32
     return [torch.empty((t * max(d, m),), dtype=torch.int8, device=dev),
             torch.empty((t,), dtype=f32, device=dev),
@@ -288,12 +311,12 @@ def mlp_block_int8(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2,
     t, d, m, ops = _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q,
                                  w2s, b2)
     out = torch.empty_like(x)
-    scratch = _mlp_scratch(t, d, m, x.device)
+    scratch = _mlp_int8_scratch(t, d, m, x.device)
     with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_mlp_block_int8(
             x.data_ptr(), *_ptrs(ops), out.data_ptr(), *_ptrs(scratch), t, d,
-            m, _ACT_CODES[act], float(eps), stream)
+            m, mlp_int8_parts(m), _ACT_CODES[act], float(eps), stream)
     _kernels.check(err, "mlp_block_int8")
     mlp_block_int8.launches += 1
     return out

@@ -10,7 +10,7 @@ CPU tensor:
   ``vit_layers_pallas``).  Every layer of the bf16 encoder, each the
   per-block halves with in-kernel one-pass LN statistics: LN1 -> QKV ->
   max-free masked attention -> out-proj + residual -> LN2 -> W1 + act ->
-  W2 + residual.
+  W2 + residual; K12's layers without its patch embed and head.
 * K19a ``vit_layers_int8`` (``csrc/vit_stack_int8.cu``): replaces
   ``_stack_int8_kernel`` (wrapper ``vit_layers_int8_pallas``), whose layer
   is exactly K16 then K15: int8 weights with per-column scales, per-row
@@ -38,22 +38,21 @@ Two more run the whole model, image in and logits out:
   row-quantized inputs.
 
 On the card each is ONE cooperative launch: a persistent grid walks the
-layers and separates the stages with grid-wide barriers.  K11 runs
-``csrc/stack.cuh``'s mma.sync tiles; K19a, K19b, K20 and K12 run one layer
-loop, ``csrc/stack_wgmma.cuh``, in its dynamic int8, static int8 and bf16
-variants: a producer and two consumer warpgroups a block, wgmma items of
-128 x 64 fed by TMA (int8, or bf16 with the weight through the transpose
-bit), the attention on ``mha_wgmma.cuh``'s max-free sweep, 7 barriers a
-layer.  Bounds on the H100 at ViT-B/16 batch 1 (197 tokens): K11
-reads 169.9 MB of bf16 weights (50.7 us at 3.35 TB/s) for 34.9 GFLOP
-(35.3 us at 989 TFLOP/s); K19a 84.9 MB of int8 weights and 0.33 MB of
-scales (25.4 us) for 33.5 G int8 operations (16.9 us): both bound by
-bytes, and K19b as K19a.  At batch 4 K11's 139.6 GFLOP (141 us) makes it bound by
-operations.  K12 adds the patch weight, the padded head and posb (173.3
-MB in all, 51.7 us), K20 their int8 forms (87.3 MB, 26.1 us).  The VMEM
-planner of the JAX package (``stack_plan`` /
-``stack_fits``) is a TPU artefact; :func:`stack_supported` states what the
-CUDA kernels take instead.
+layers and separates the stages with grid-wide barriers.  All five run
+one layer loop, ``csrc/stack_wgmma.cuh``, in its dynamic int8 (K19a,
+K20), static int8 (K19b) and bf16 (K11, K12) variants: a producer and two
+consumer warpgroups a block, wgmma items of 128 x 64 fed by TMA (int8, or
+bf16 with the weight through the transpose bit), the attention on
+``mha_wgmma.cuh``'s max-free sweep, 7 barriers a layer.  Bounds on the
+H100 at ViT-B/16 batch 1 (197 tokens): K11 reads 169.9 MB of bf16
+weights (50.7 us at 3.35 TB/s) for 34.9 GFLOP (35.3 us at 989 TFLOP/s);
+K19a 84.9 MB of int8 weights and 0.33 MB of scales (25.4 us) for 33.5 G
+int8 operations (16.9 us): both bound by bytes, and K19b as K19a.  At
+batch 4 K11's 139.6 GFLOP (141 us) makes it bound by operations.  K12
+adds the patch weight, the padded head and posb (173.3 MB in all, 51.7
+us), K20 their int8 forms (87.3 MB, 26.1 us).  The VMEM planner of the
+JAX package (``stack_plan`` / ``stack_fits``) is a TPU artefact;
+:func:`stack_supported` states what the CUDA kernels take instead.
 """
 
 from __future__ import annotations
@@ -84,13 +83,15 @@ MAX_P3 = 4096          # K12 / K20: the patch gate (csrc/full.cuh FULL_MAX_P3)
 # The kernels' optional stage clock (csrc/stack.cuh StageClock): per block
 # and stage kind, ns of work and ns waiting in the grid barrier after it.
 TRACE_BLOCKS, TRACE_KINDS = 1024, 16
-K11_STAGES = ("LN1 rows (first layer)", "QKV tiles", "attention + prefetch",
-              "out-proj split-K tiles", "residual + LN2 rows",
-              "W1 + act tiles", "W2 split-K tiles",
+# K11, K19a, K19b, K20 and K12 (csrc/stack_wgmma.cuh, enum LqStage): 7
+# stages a layer; each name begins with its kind's comment in the enum.
+# K19a and K20 quantize ao and h in the prologue of the GEMM that reads
+# them.
+K11_STAGES = ("LN1 rows (first layer)", "QKV items, bf16", "attention items",
+              "out-proj split-K items, bf16 (f32 partials)",
+              "residual + LN2 rows", "W1 + act items, bf16",
+              "W2 split-K items, bf16 (f32 partials)",
               "residual + next LN1 rows")
-# K19a, K19b, K20 and K12 (csrc/stack_wgmma.cuh, enum LqStage): 7 stages a
-# layer; each name begins with its kind's comment in the enum.  K19a and
-# K20 quantize ao and h in the prologue of the GEMM that reads them.
 K19A_STAGES = ("LN1 rows, int8 quant (first layer)", "QKV items, int8",
                "attention items",
                "out-proj split-K items, int8 (ao quant prologue)",

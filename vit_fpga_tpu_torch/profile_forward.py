@@ -80,11 +80,13 @@ UNEXPECTED = "unexpected:"
 # mlp_chunk_blk::, attn_bwd:: or mlp_bwd:: record, such as the wmma GEMM or
 # attention tiles they ran before, is reported as unexpected),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
-# int8 GEMM's template
-# argument is its epilogue (0 plain, 1 residual, 2 f32 with row maxima, 3
-# int8 with the static scale), quant_rows_kernel's second one its
-# LayerNorm (0 none, 1 one-pass, 2 two-pass).  The first fragment found
-# wins.
+# wmma int8 GEMM's (qgemm_kernel) template argument is its epilogue (0
+# plain, 1 residual, 2 f32 with row maxima, 3 int8 with the static scale),
+# the wgmma one's (qgemm_wgmma_kernel, K13 and K15) its tile width and
+# epilogue (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the
+# residual; K15's W2 takes 128-wide tiles), quant_rows_kernel's second one
+# its LayerNorm (0 none, 1 one-pass, 2 two-pass).  The first fragment
+# found wins.
 STAGES = (
     ("vit_full_int8::", "K20 int8 whole model, one launch"),
     ("vit_full::", "K12 bf16 whole model, one launch"),
@@ -95,9 +97,12 @@ STAGES = (
     ("quant_linear::qgemm_kernel", "K14 (b) int8 GEMM + dequant + act"),
     ("quant_linear::", "K14 other"),
     ("mlp_int8::quant_rows_kernel", "K15 (a) LN + row quant"),
-    ("mlp_int8::qgemm_kernel<2>", "K15 (b) int8 W1 GEMM + act + row max"),
+    ("mlp_int8::qgemm_wgmma_kernel<256,2>",
+     "K15 (b) int8 W1 GEMM + act, f32 h + row max"),
+    ("mlp_int8::qgemm_wgmma_kernel<128,2>",
+     "K15 (b) int8 W1 GEMM + act, f32 h + row max"),
     ("mlp_int8::quant_amax_kernel", "K15 (c) h row quant"),
-    ("mlp_int8::qgemm_kernel<1>", "K15 (d) int8 W2 GEMM + residual"),
+    ("mlp_int8::qgemm_wgmma_kernel<128,3>", "K15 (d) int8 W2 GEMM + residual"),
     ("mlp_int8::", "K15 other"),
     ("attn_int8::quant_rows_kernel<__nv_bfloat16,1",
      "K16 (a) LN + row quant"),
