@@ -255,6 +255,24 @@ Phases, each of which raises on failure (exit code != 0):
               twice bit for bit; loud padding rows at 584 tokens that must
               leave every weight, bias and LN gradient unchanged; the gate
               (1032 tokens raise)
+ 21. int8 past 256 keys  right after phase 9's K16 checks: K16 (its
+              QKV and out-projection on qgemm_wgmma.cuh, a bf16
+              qkv epilogue and the residual one, its attention
+              mha_wgmma.cuh's max-free sweep, which streams the keys)
+              against its plain version past 256 keys at (4, 584, 768)
+              with 577 valid keys and (2, 1032, 768) with 1025, all rows
+              in the int8 band; 7 loud padding rows at 577 valid that must
+              leave the valid rows bit for bit; the gate (ViT-B/16 @1024's
+              4097 tokens, past the JAX int8 plan, and head dim 80 raise);
+              phase 16's K21a (on K15's launches) also at T 1601
+              and (600, 400) x 1552 with the absmax in the partial last
+              column tile; at the end K16's time at (16, 584, 768) beside
+              its plain version, SDPA's yardstick and the bound, then
+              ImageServer over make_forward_int8(ViT-B/16 @384) on the
+              dynamic tree answers 6 uint8 requests at batch 4 with 12 K16
+              + 12 K15 + 1 K14 launches a batch and nothing else, logits
+              against the CPU plain forward in the int8 band; the int8 and
+              bf16 @384 b16 forwards timed in turns
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -1448,9 +1466,10 @@ def phase_int8_kernels(batch, n_pad=200, n_valid=197, d=768, heads=12,
 
 
 def phase_int8_loud(batch=8, n_pad=256, n_valid=197, d=768, heads=12):
-    """K16 with 59 padding rows of huge spikes: the valid rows must equal,
-    bit for bit, the kernel's own on quiet padding rows (their keys are
-    masked), and match the plain version on the loud input."""
+    """K16 with its padding rows (59 at the default shape) of huge spikes:
+    the valid rows must equal, bit for bit, the kernel's own on quiet
+    padding rows (their keys are masked), and match the plain version on
+    the loud input."""
     from vit_fpga_tpu_torch.ops import quant_block as qb
     x, _, p = _attn_inputs(batch, n_pad, d, seed=80)
     q = _int8_weights(p, ("wqkv", "wo"))
@@ -1557,6 +1576,59 @@ def _library_ms(fn, label):
         return None
 
 
+def _k16_library(xa, qa, heads, n_valid):
+    """K16's library yardstick on (B, n_pad, D) ``xa``: F.layer_norm, the
+    row quantization in torch ops, torch._int_mm, the dequantization, SDPA
+    with the key mask, the out-projection the same way."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    batch, n_pad, d = xa.shape
+    rows, dh, bf, rq = batch * n_pad, d // heads, torch.bfloat16, qf._row_quant
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+
+    def mm(aq, wq, sa, ws, b):     # (K, N) wq column-major, as _int_mm takes
+        return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+    def run():
+        h = F.layer_norm(xa.float(), (d,), qa["ln_scale"], qa["ln_bias"], EPS)
+        xq, sx = rq(h.reshape(rows, d))
+        qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"], qa["bqkv"]).to(bf)
+        qkv = qkv.view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        aq, sa = rq(ao.transpose(1, 2).reshape(rows, d).float())
+        y = mm(aq, qa["wo_q"], sa, qa["wo_s"], qa["bo"])
+        return xa.reshape(rows, d) + y.to(bf)
+    return run
+
+
+def _k16_work(batch, n_pad, n_valid, d, heads):
+    """K16's (int8 operations, bf16 attention FLOPs, compulsory bytes): x
+    in and out, the int8 weights, the f32 vectors."""
+    rows = batch * n_pad
+    return (8 * rows * d * d,
+            4 * batch * heads * n_pad * n_valid * (d // heads),
+            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * 4)
+
+
+# The int8 halves whose device-alone times (torch.profiler, the wrapper's
+# host time out) are printed beside the per-call ones: K16 and K21a.
+DEVICE_ALONE = ("attn_block_int8", "mlp_block_int8_stats",
+                "attn_block_int8_long")
+
+
+def _device_alone_pair(name, kern, lib, lib_ran):
+    """The kernel's and its library yardstick's (where it ran) device-alone
+    ms for a DEVICE_ALONE kernel, printed; {} for the others."""
+    if name not in DEVICE_ALONE:
+        return {}
+    dev = _device_alone_ms(kern, iters=20)
+    lib_dev = _device_alone_ms(lib, iters=20) if lib_ran else None
+    print(f"  {name} device alone: kernel {dev:.4f} ms, library "
+          f"{lib_dev} ms")
+    return dict(device_ms=dev, library_device_ms=lib_dev)
+
+
 def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
                       m=3072, classes=1000):
     """Times at the int8 path's b64 shapes: each kernel, its plain
@@ -1567,28 +1639,16 @@ def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
     from vit_fpga_tpu_torch.ops import quant_block as qb
     from vit_fpga_tpu_torch.ops import quant_fused as qf
     from vit_fpga_tpu_torch.utils.timing import time_cuda
-    rows, dh, bf = batch * n_pad, d // heads, torch.bfloat16
+    rows, bf = batch * n_pad, torch.bfloat16
     rq = qf._row_quant
     xa, _, pa = _attn_inputs(batch, n_pad, d, seed=90)
     qa = _int8_weights(pa, ("wqkv", "wo"))
     x2, _, pm = _mlp_inputs(rows, d, m, seed=91)
     qm = _int8_weights(pm, ("w1", "w2"))
     xh, qh = _k14_inputs(batch, d, classes, seed=92)
-    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
 
     def mm(aq, wq, sa, ws, b):     # (K, N) wq column-major, as _int_mm takes
         return torch._int_mm(aq, wq).float() * (sa * ws) + b
-
-    def lib_attn():
-        h = F.layer_norm(xa.float(), (d,), qa["ln_scale"], qa["ln_bias"], EPS)
-        xq, sx = rq(h.reshape(rows, d))
-        qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"], qa["bqkv"]).to(bf)
-        qkv = qkv.view(batch, n_pad, 3, heads, dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
-        aq, sa = rq(ao.transpose(1, 2).reshape(rows, d).float())
-        y = mm(aq, qa["wo_q"], sa, qa["wo_s"], qa["bo"])
-        return xa.reshape(rows, d) + y.to(bf)
 
     def lib_mlp():
         h = F.layer_norm(x2.float(), (d,), qm["ln_scale"], qm["ln_bias"], EPS)
@@ -1607,9 +1667,8 @@ def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
         "attn_block_int8": (
             lambda: _k16(qb.attn_block_int8, xa, qa, heads, n_valid),
             lambda: _k16(qb.attn_block_int8_plain, xa, qa, heads, n_valid),
-            lib_attn, 8 * rows * d * d,
-            4 * batch * heads * n_pad * n_valid * dh,
-            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * vec),
+            _k16_library(xa, qa, heads, n_valid),
+            *_k16_work(batch, n_pad, n_valid, d, heads)),
         "mlp_block_int8": (
             lambda: _k15(qb.mlp_block_int8, x2, qm, "gelu_tanh"),
             lambda: _k15(qb.mlp_block_int8_plain, x2, qm, "gelu_tanh"),
@@ -1634,6 +1693,8 @@ def phase_int8_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
               f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 ops "
               f"+ {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+        out[name].update(_device_alone_pair(name, kern, lib,
+                                            lib_ms is not None))
     return out
 
 
@@ -1680,9 +1741,10 @@ INT8_SLICE_MODES = {
 }
 
 
-def phase_int8_slice(n_images=160, batch=64, mode="dynamic", others=None):
-    """ImageServer over make_forward_int8(vit_b16) answers ``n_images``
-    uint8 requests in ``mode`` (INT8_SLICE_MODES): on the
+def phase_int8_slice(n_images=160, batch=64, mode="dynamic", others=None,
+                     image_size=224):
+    """ImageServer over make_forward_int8(vit_b16 @``image_size``) answers
+    ``n_images`` uint8 requests in ``mode`` (INT8_SLICE_MODES): on the
     quantize_vit_fast tree (K16, K15, K14), on the quantize_vit_static
     tree (K18, K17, K14), or with a module switch on: the int8 stats chain
     on the dynamic tree (K21b, K21a, K14), the int8-scores attention on
@@ -1699,7 +1761,9 @@ def phase_int8_slice(n_images=160, batch=64, mode="dynamic", others=None):
     from vit_fpga_tpu_torch.runtime.serving import ImageServer
     from vit_fpga_tpu_torch.utils.log import Metrics
     label, static, halves, switch = INT8_SLICE_MODES[mode]
-    cfg = vit.config("vit_b16", dtype="bfloat16")
+    if image_size != 224:
+        label = f"{label} @{image_size}"
+    cfg = vit.config("vit_b16", image_size=image_size, dtype="bfloat16")
     params = vit.init_params(cfg, _gen(5), device="cuda")
     qparams = (quantized.quantize_vit_static(params, cfg) if static
                else quantized.quantize_vit_fast(params))
@@ -1741,7 +1805,8 @@ def phase_int8_slice(n_images=160, batch=64, mode="dynamic", others=None):
 
     cpu_fwd = _switched(quantized.make_forward_int8(
         cfg, _tree_to(qparams, "cpu"), device="cpu"), switch)
-    idx = [0, batch - 1, batch, 2 * batch - 1, 2 * batch, n_images - 1]
+    idx = sorted({i for i in (0, batch - 1, batch, 2 * batch - 1, 2 * batch,
+                              n_images - 1) if i < n_images})
     ref = cpu_fwd(images[idx]).numpy()
     got = np.stack([results[i] for i in idx])
     # the floor: the same plain versions run on the card
@@ -5064,6 +5129,35 @@ def phase_chain_kernels(batch, n_pad=200, n_valid=197, d=768, heads=12,
     return worst
 
 
+def _k21a_edges():
+    """K21a (K15's launches from the producer's stats) at the edges of
+    K15's design, on foreign stats, f32 (both emit_stats) and bf16, in the
+    int8 band: T 1601 (ragged 128-row tiles) and (600, 400) x 1552 (a
+    partial last column tile of W1) with every row's absmax of h in that
+    tile.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    print("K21a edges: ragged rows, a partial column tile holding the "
+          "absmax")
+    worst = 0.0
+    for label, t, d, m, seed, edit in (
+            ("T 1601", 1601, 768, 3072, 213, None),
+            ("(600, 400) x 1552, absmax in the last column tile", 600, 400,
+             1552, 214, _k15_last_tile)):
+        x2, st2, p = _mlp_inputs(t, d, m, seed)
+        if edit is not None:
+            edit(x2, p)
+        q = _int8_weights(p, ("w1", "w2"))
+        fs = _foreign(st2)
+        worst = max(worst, _chain_case(
+            f"K21a {label}",
+            lambda e, dt: _k21a(qb.mlp_block_int8_stats, x2, fs.to(dt), q,
+                                "gelu_tanh", e),
+            lambda e, dt: _k21a(qb.mlp_block_int8_stats_plain, x2, fs.to(dt),
+                                q, "gelu_tanh", e),
+            _k21a_step(x2, fs, q, "gelu_tanh"), x2, q["w2_q"]))
+    return worst
+
+
 def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
                        m=3072):
     """K21b, K21a and K22 at the b64 path shapes: the kernel's time, its
@@ -5168,6 +5262,8 @@ def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
               f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 ops "
               f"+ {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+        out[name].update(_device_alone_pair(name, kern, lib,
+                                            lib_ms is not None))
     return out
 
 
@@ -5908,6 +6004,98 @@ def phase_k23_timing(batch=4, n_pad=584, n_valid=577, d=768, heads=12):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: K16 past 256 keys (its attention mha_wgmma.cuh's max-free
+# sweep, its GEMMs qgemm_wgmma.cuh's), the dynamic int8 ViT-B/16 @384
+# served
+# ---------------------------------------------------------------------------
+
+# (batch, n_pad, n_valid) of K16 past 256 keys: ViT-B/16 @384's 577 tokens
+# and @512's 1025 (both inside the JAX int8 plan)
+K16_LONG_CASES = ((4, 584, 577), (2, 1032, 1025))
+K16_LONG_TIMED = (16, 584, 577)
+
+
+def phase_k16_long_kernels(d=768, heads=12):
+    """K16 past 256 keys against its plain version on the card, right after
+    the build: K16_LONG_CASES in the int8 band, all rows; 7 loud padding
+    rows at 577 valid keys of 584 that must leave the valid rows bit for
+    bit; the gate: ViT-B/16 @1024's 4097 tokens (past the JAX int8 plan)
+    and head dim 80 raise.  Returns the largest max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    worst = 0.0
+    for i, (b, n_pad, n_valid) in enumerate(K16_LONG_CASES):
+        x, _, p = _attn_inputs(b, n_pad, d, seed=260 + i)
+        q = _int8_weights(p, ("wqkv", "wo"))
+        print(f"parity K16 past 256 keys ({b}, {n_pad}, {d}), {heads} heads, "
+              f"n_valid={n_valid}")
+        worst = max(worst, _int8_parity(
+            f"K16 ({b}, {n_pad}) {n_valid} valid",
+            _k16(qb.attn_block_int8, x, q, heads, n_valid),
+            _k16(qb.attn_block_int8_plain, x, q, heads, n_valid),
+            _k16_step(x, q, heads, n_valid), x))
+    worst = max(worst, phase_int8_loud(batch=4, n_pad=584, n_valid=577))
+    x, _, p = _attn_inputs(1, 200, d, seed=262)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    _expect_raise("K16 at ViT-B/16 @1024 (1, 4104, 768), 4097 valid",
+                  lambda: _k16(qb.attn_block_int8,
+                               torch.zeros((1, 4104, d), dtype=torch.bfloat16,
+                                           device="cuda"), q, heads, 4097))
+    _expect_raise("K16 at head dim 80",
+                  lambda: _k16(qb.attn_block_int8,
+                               x[..., :720].contiguous(), q, 9, 197))
+    return worst
+
+
+def phase_k16_long_timing(d=768, heads=12):
+    """K16 at K16_LONG_TIMED (ViT-B/16 @384 b16): the kernel's time, its
+    plain version's, the library yardstick's (SDPA with the key mask) and
+    the bound.  Returns a dict of times."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    b, n_pad, n_valid = K16_LONG_TIMED
+    x, _, p = _attn_inputs(b, n_pad, d, seed=263)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    ops8, flops, nbytes = _k16_work(b, n_pad, n_valid, d, heads)
+    def kern():
+        return _k16(qb.attn_block_int8, x, q, heads, n_valid)
+
+    lib = _k16_library(x, q, heads, n_valid)
+    ms = time_cuda(kern)
+    plain_ms = time_cuda(
+        lambda: _k16(qb.attn_block_int8_plain, x, q, heads, n_valid),
+        iters=5, warmup=1)
+    lib_ms = _library_ms(lib, "attn_block_int8_long")
+    bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+    print(f"timing attn_block_int8_long ({b}, {n_pad}, {d}) {n_valid} valid: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 "
+          f"ops + {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                **_device_alone_pair("attn_block_int8_long", kern, lib,
+                                     lib_ms is not None))
+
+
+def run_k16_long_phases(errors, timing, launches):
+    """Phase 21 after the earlier slices' phases (its parity ran right
+    after the build): K16's time past 256 keys, then ImageServer over
+    make_forward_int8(ViT-B/16 @384) on the dynamic tree answers 6 uint8
+    requests at batch 4 with 12 K16 + 12 K15 + 1 K14 launches a batch
+    (every K16 one past 256 keys) and nothing else, logits against the
+    CPU plain forward in the int8 band; the int8 and bf16 @384 b16
+    forwards timed in turns.  K16's launches there are the JSON line's
+    past-256-key row."""
+    timing["attn_block_int8_long"] = dict(
+        phase_k16_long_timing(), max_abs_err=errors["attn_block_int8_long"])
+    served, fwd, bf_fwd, cfg, _ = phase_int8_slice(n_images=6, batch=4,
+                                                   image_size=384)
+    launches["attn_block_int8_long"] = served["attn_block_int8"]
+    phase_int8_forward_time({"int8 @384": fwd, "bf16 @384": bf_fwd}, cfg,
+                            batch=K16_LONG_TIMED[0])
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5934,6 +6122,8 @@ def main() -> int:
     errors.update(phase_train_edges())
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
+    errors["mlp_block_int8_stats"] = max(errors["mlp_block_int8_stats"],
+                                         _k21a_edges())
     errors.update(phase_per_block_kernels())
     errors.update(phase_large_kernels())
     errors.update(phase_stack_kernels())
@@ -5943,6 +6133,7 @@ def main() -> int:
         errors[name] = err
     errors["attn_block_int8"] = max(errors["attn_block_int8"],
                                     phase_int8_loud())
+    errors["attn_block_int8_long"] = phase_k16_long_kernels()
     errors["mlp_block_int8"] = max(errors["mlp_block_int8"], _k15_edges())
     errors.update(phase_static_kernels(8))
     phase_parity()
@@ -5981,6 +6172,7 @@ def main() -> int:
     run_per_block_phases(errors, timing, launches)
     run_chain_phases(errors, timing, launches)
     run_odd_phases(errors, timing, launches)
+    run_k16_long_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -6001,6 +6193,8 @@ def main() -> int:
                            "vit_fpga_tpu/ops/quant_block.py:86"),
         "attn_block_int8": ("vit_fpga_tpu_torch/csrc/attn_int8.cu",
                             "vit_fpga_tpu/ops/quant_block.py:226"),
+        "attn_block_int8_long": ("vit_fpga_tpu_torch/csrc/attn_int8.cu",
+                                 "vit_fpga_tpu/ops/quant_block.py:226"),
         "vit_layers": ("vit_fpga_tpu_torch/csrc/vit_stack.cu",
                        "vit_fpga_tpu/ops/vit_stack.py:93"),
         "vit_layers_int8": ("vit_fpga_tpu_torch/csrc/vit_stack_int8.cu",

@@ -1,6 +1,6 @@
 """K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's, K9's,
-K19a's, K20's, K19b's, K12's, K11's or K15's time at a shape, from the
-package tree
+K19a's, K20's, K19b's, K12's, K11's, K15's, K16's or K21a's time at a
+shape, from the package tree
 found under ROOT, so that two versions of the port are compared in one
 call on one card.
 
@@ -8,10 +8,10 @@ Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
         [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12|
-                  k11|k15]
+                  k11|k15|k16|k21a]
         [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT] [--a-region]
-        [--k15 VARIANT]
+        [--k15 VARIANT] [--k16 VARIANT]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
 time, e.g. a ``git archive`` of another commit unpacked under ``_chip/``; its
@@ -86,6 +86,22 @@ by default ViT-B/16 b64's (12 800, 768) x 3072, per call, device alone and
 step by step, first checked against its plain version in the int8 band,
 beside its library call (F.layer_norm, the row quantization in torch ops,
 torch._int_mm, tanh-GELU), with K16 at b64 as the control.
+``--kernel k16`` times ``attn_block_int8`` at ViT-B/16 b64's (64, 200,
+768) with 197 valid keys per call, device alone and step by step, and at
+ViT-B/16 @384 b16's (16, 584, 768) with 577 per call and device alone (a
+tree whose K16 refuses it skips it), on chip_smoke.py's timing inputs,
+each first checked against its plain version in the int8 band (one row in
+a hundred may be requantized, as in the int8 chain's checks) and beside
+its library call (F.layer_norm, the
+row quantization in torch ops, torch._int_mm, SDPA with the key mask),
+with K15 at b64 as the control, then the dynamic int8 ViT-B/16 b64
+forward and the @384 b16 one (where the tree serves it) from uint8;
+``--kernel k21a`` times ``mlp_block_int8_stats`` (gelu_tanh, f32 stats
+that are not x's own, emitting stats) at ``--mlp-shape`` the same way as
+``--kernel k15``, beside its library call (the LN from the stats, K15's
+torch ops, the next stats in torch ops), with K15 and K16 at b64 as the
+controls, then the b64 forward with the int8 stats chain switched on and
+the dynamic one.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -113,6 +129,14 @@ not checked): ``noact`` without the activation of W1's h; ``rolled_k``
 with the per-row pass's four steps of four columns rolled (one copy of
 the arithmetic, the loads of each step after the one before);
 ``w2_tile256`` with W2 on 256-wide tiles, as W1, instead of 128.
+``--k16 VARIANT`` times ``--kernel k16`` from a copy (under ROOT's
+``_chip/k16_VARIANT/``) whose int8 GEMM takes other tile widths:
+``qkv_tile128`` K16's QKV (the bf16 epilogue) on 128-wide tiles instead
+of 256; ``out_tile256`` K16's out-projection (the residual epilogue at K
+768) on 256-wide tiles instead of 128, K15's W2 (K 3072) unchanged;
+``qkv_noepi`` K16's QKV without its epilogue's per-row pass (the int32
+pieces staged and the output pieces stored, nothing computed: its output
+is then wrong and not checked), to weigh the epilogue.
 """
 
 from __future__ import annotations
@@ -170,6 +194,16 @@ K15_VARIANTS = {
                   "#pragma unroll 1\n      for (int k = 0; k < 4; ++k) {"),),
     "w2_tile256": ((_QW, "EPI == QW_RESID ? 128 : qgemm_wgmma_tile_n(p.N);",
                     "qgemm_wgmma_tile_n(p.N);"),),
+}
+# (file under csrc/, text, replacement) of each --k16 variant.
+K16_VARIANTS = {
+    "qkv_tile128": ((_QW, "EPI == QW_RESID ? 128 : qgemm_wgmma_tile_n(p.N);",
+                     "EPI == QW_H ? qgemm_wgmma_tile_n(p.N) : 128;"),),
+    "out_tile256": ((_QW, "EPI == QW_RESID ? 128 : qgemm_wgmma_tile_n(p.N);",
+                     "EPI == QW_RESID && p.K > 1024 ? 128 : "
+                     "qgemm_wgmma_tile_n(p.N);"),),
+    "qkv_noepi": ((_QW, "    if (rin && cb < p.N) {",
+                   "    if (EPI != QW_BF16 && rin && cb < p.N) {"),),
 }
 
 
@@ -363,6 +397,43 @@ def time_k9_paths(g):
              for _ in range(5)]}
 
 
+def time_int8_forwards(g, kernel):
+    """The dynamic int8 ViT-B/16 forwards from uint8 on seeded random
+    weights (quantize_vit_fast), five estimates of 5 calls each: at b64
+    (12 K16 + 12 K15 + K14); with ``kernel`` k16 also at @384 b16 where the
+    tree serves it; with k21a also at b64 with the int8 stats chain on
+    (12 K21b + 12 K21a + K14)."""
+    import torch
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    out = {}
+    for image, batch in ((224, 64), (384, 16)):
+        if image == 384 and kernel != "k16":
+            continue
+        cfg = vit.config("vit_b16", image_size=image, dtype="bfloat16")
+        fq = quantized.make_forward_int8(cfg, quantized.quantize_vit_fast(
+            vit.init_params(cfg, g, device="cuda")))
+        img = torch.randint(0, 256, (batch, image, image, 3), generator=g,
+                            dtype=torch.uint8).cuda()
+        label = f"ViT-B/16 @{image} b{batch} dynamic int8 forward (uint8 in)"
+        try:
+            fq(img)
+        except ValueError as e:
+            print(f"{label}: not served by this tree ({e})")
+            continue
+        out[label] = [time_cuda(lambda: fq(img), iters=5, warmup=2)
+                      for _ in range(5)]
+        if kernel == "k21a":
+            quantized._INT8_STATS_CHAIN = True
+            try:
+                out[f"ViT-B/16 @{image} b{batch} int8 stats chain forward "
+                    "(uint8 in)"] = [time_cuda(lambda: fq(img), iters=5,
+                                               warmup=2) for _ in range(5)]
+            finally:
+                quantized._INT8_STATS_CHAIN = False
+    return out
+
+
 def time_safe_forward(g):
     """The bf16 ViT-L/16 @224 b64 forward with ``safe_softmax`` (the
     per-block path: 24 K4 in the safe mode and the MLP half the JAX plan
@@ -402,7 +473,7 @@ def main() -> int:
     ap.add_argument("--kernel",
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
                              "k23", "k6", "k13", "k9", "k19a", "k20",
-                             "k19b", "k12", "k11", "k15"),
+                             "k19b", "k12", "k11", "k15", "k16", "k21a"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -413,6 +484,7 @@ def main() -> int:
     ap.add_argument("--qgemm", choices=sorted(QGEMM_VARIANTS))
     ap.add_argument("--a-region", action="store_true")
     ap.add_argument("--k15", choices=sorted(K15_VARIANTS))
+    ap.add_argument("--k16", choices=sorted(K16_VARIANTS))
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if args.one_consumer:
@@ -424,6 +496,8 @@ def main() -> int:
         root = patched_copy(root, "a_region", A_REGION)
     if args.k15:
         root = patched_copy(root, f"k15_{args.k15}", K15_VARIANTS[args.k15])
+    if args.k16:
+        root = patched_copy(root, f"k16_{args.k16}", K16_VARIANTS[args.k16])
     sys.path.insert(0, str(root))
     import torch
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -882,6 +956,114 @@ def main() -> int:
         qa = cs._int8_weights(pa, ("wqkv", "wo"))
         runs["K16 control (64, 200, 768)"] = (
             lambda: cs._k16(qb.attn_block_int8, xa, qa, 12, 197))
+    elif args.kernel in ("k16", "k21a"):
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import quant_block as qb
+        from vit_fpga_tpu_torch.ops import quant_fused as qf
+        rq = qf._row_quant
+
+        def mm(aq, wq, sa, ws, b):  # (K, N) wq column-major, as _int_mm takes
+            return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+        def k16_lib(xa, qa, n_valid, heads=12):
+            b, n_pad, d = xa.shape
+            rows = b * n_pad
+            keep = (torch.arange(n_pad, device="cuda")
+                    < n_valid)[None, None, None]
+
+            def lib():
+                h = F.layer_norm(xa.float(), (d,), qa["ln_scale"],
+                                 qa["ln_bias"], cs.EPS)
+                xq, sx = rq(h.reshape(rows, d))
+                qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"],
+                         qa["bqkv"]).to(torch.bfloat16)
+                qkv = qkv.view(b, n_pad, 3, heads, d // heads)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+                aq, sa = rq(ao.transpose(1, 2).reshape(rows, d).float())
+                y = mm(aq, qa["wo_q"], sa, qa["wo_s"], qa["bo"])
+                return xa.reshape(rows, d) + y.to(torch.bfloat16)
+            return lib
+
+        runs = {}
+        shape = []
+        if args.kernel == "k16":
+            # chip_smoke.py's timing inputs (seed 90 at b64, 263 past 256
+            # keys)
+            for b, n_pad, n_valid, seed in ((64, 200, 197, 90),
+                                            (16, 584, 577, 263)):
+                xa, _, pa = cs._attn_inputs(b, n_pad, 768, seed)
+                qa = cs._int8_weights(pa, ("wqkv", "wo"))
+                label = f"K16 ({b}, {n_pad}, 768) n_valid {n_valid}"
+                shape.append([b, n_pad, n_valid, 768, 12])
+
+                def run(xa=xa, qa=qa, n_valid=n_valid):
+                    return cs._k16(qb.attn_block_int8, xa, qa, 12, n_valid)
+                try:
+                    got = run()
+                except ValueError as e:
+                    print(f"{label}: not taken by this tree ({e})")
+                    got = None
+                if got is not None and args.k16 != "qkv_noepi":
+                    # the int8 band, one row in FLIP_ROWS requantized (ao's
+                    # absmax an ulp apart) as in the int8 chain's checks
+                    step = cs._k16_step(xa, qa, 12, n_valid)
+                    cs._int8_parity(label, got,
+                                    cs._k16(qb.attn_block_int8_plain, xa, qa,
+                                            12, n_valid), step, xa,
+                                    row_bound=cs._requant_bound(step,
+                                                                qa["wo_q"]))
+                if got is not None:
+                    runs[f"{label} per call"] = run
+                    device[f"{label} device alone"] = run
+                    if b == 64:
+                        steps[label] = run
+                lib = k16_lib(xa, qa, n_valid)
+                runs[f"library ({b}, {n_pad}) per call"] = lib
+                device[f"library ({b}, {n_pad}) device alone"] = lib
+        else:
+            t, d, m = args.mlp_shape
+            shape = [t, d, m]
+            x2, st2, p = cs._mlp_inputs(t, d, m, 91)
+            q = cs._int8_weights(p, ("w1", "w2"))
+            fs = cs._foreign(st2)
+
+            def run():
+                return cs._k21a(qb.mlp_block_int8_stats, x2, fs, q,
+                                "gelu_tanh", True)
+
+            def lib():
+                h = ((x2.float() - fs[:, :1]) * fs[:, 1:] * q["ln_scale"]
+                     + q["ln_bias"])
+                xq, sx = rq(h)
+                h = F.gelu(mm(xq, q["w1_q"], sx, q["w1_s"], q["b1"]),
+                           approximate="tanh")
+                hq, sh = rq(h)
+                out = x2 + mm(hq, q["w2_q"], sh, q["w2_s"],
+                              q["b2"]).to(torch.bfloat16)
+                return out, row_stats(out, cs.EPS)
+
+            label = f"K21a ({t}, {d}) x {m}"
+            got, _ = run()
+            want, _ = cs._k21a(qb.mlp_block_int8_stats_plain, x2, fs, q,
+                               "gelu_tanh", True)
+            step = cs._k21a_step(x2, fs, q, "gelu_tanh")
+            cs._int8_parity(label, got, want, step, x2, mag_x=True,
+                            row_bound=cs._requant_bound(step, q["w2_q"]))
+            runs[f"{label} per call"] = run
+            device[f"{label} device alone"] = run
+            steps[label] = run
+            runs["library per call"] = lib
+            device["library device alone"] = lib
+            xa, _, pa = cs._attn_inputs(64, 200, 768, 90)
+            qa = cs._int8_weights(pa, ("wqkv", "wo"))
+            runs["K16 control (64, 200, 768)"] = (
+                lambda: cs._k16(qb.attn_block_int8, xa, qa, 12, 197))
+        xm, _, pm = cs._mlp_inputs(12800, 768, 3072, 93)
+        qm = cs._int8_weights(pm, ("w1", "w2"))
+        runs["K15 control (12800, 768) x 3072"] = (
+            lambda: cs._k15(qb.mlp_block_int8, xm, qm, "gelu_tanh"))
     elif args.kernel == "k2":
         shape = args.mlp_shape
         runs = {f"K2 {tuple(shape)}": k2_run(*shape)}
@@ -927,6 +1109,8 @@ def main() -> int:
         ms.update(time_k13_paths(g))
     if args.kernel == "k9":
         ms.update(time_k9_paths(g))
+    if args.kernel in ("k16", "k21a"):
+        ms.update(time_int8_forwards(g, args.kernel))
     if args.kernel in ("k24", "k23"):
         ms.update(time_sgd_step(g))
     if args.kernel == "k23":

@@ -159,10 +159,41 @@ run_copy k23_dk_no_last_query_tile attn_bwd.cu \
   "rs_issue(dkacc, pd, qh);  // dk += dS^T q" \
   "if (j + 1 < nqt) rs_issue(dkacc, pd, qh);  // dk += dS^T q"
 # K21a normalising x with its own one-pass LN statistics instead of the
-# producer's (the parity cases feed stats that are not x's own)
+# producer's (the parity cases feed stats that are not x's own): the row
+# pass before its W1 on the int8 wgmma GEMM
 run_copy k21a_own_stats mlp_int8_stats.cu \
   "launch_quant_rows<bf16, LN_STATS, false, ST>(" \
   "launch_quant_rows<bf16, LN_ONE_PASS, false, ST>("
+# K16 quantizing ao with the first head's absmax alone: a row pass added to
+# the copy takes each row's absmax over its first 64 columns and quantizes
+# the whole row with it (the other heads' values clip at +-127)
+run_copy k16_ao_one_head_absmax attn_int8.cu \
+  "extern \"C\" {
+" \
+  "namespace {
+__global__ void one_head_quant_kernel(const bf16* ao, signed char* q, float* s, int rows, int d) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const bf16* a = ao + (size_t)row * d;
+  float amax = 0.0f;
+  for (int c = 0; c < MW_DH; ++c) amax = fmaxf(amax, fabsf(__bfloat162float(a[c])));
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  for (int c = 0; c < d; ++c) q[(size_t)row * d + c] = quant1(__bfloat162float(a[c]), sc);
+  s[row] = sc;
+}
+}  // namespace
+
+extern \"C\" {
+" \
+  "  if ((err = launch_quant_rows<bf16, LN_NONE>(aob, nullptr, nullptr, q, sc, rows, d, 0.0f, st)) !=" \
+  "  one_head_quant_kernel<<<(rows + 255) / 256, 256, 0, st>>>(aob, q, sc, rows, d);
+  if ((err = cudaGetLastError()) !="
+# K16's attention with its key mask and its K / V extent at n_pad instead of
+# n_valid past 256 keys: the padding rows' keys join every query row (phase
+# 21's 577 valid keys of 584)
+run_copy k16_key_mask_at_n_pad attn_int8.cu \
+  "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid, scale," \
+  "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid > 256 ? n_pad : n_valid, scale,"
 # K21b emitting the stats of the f32 sum x + bf16(y) instead of out's bf16
 # values: the out-projection runs once more into an f32 scratch (the qkv
 # buffer) and a one-pass stats kernel added to the copy reads that
@@ -234,8 +265,8 @@ run_copy k4_long_safe_one_tile_max mha_wgmma.cuh \
 # K4's safe mode normalising before it rounds, p = bf16(e / sum e): K7's
 # exact mode in its place (caught by phase_train_edges' flat tokens)
 run_copy k4_safe_normalise_first attn_half.cuh \
-  "launch_mha_wgmma<MODE>(tq, tk, tv, a, batch, st)" \
-  "launch_mha_wgmma<MODE == MW_SAFE ? MW_EXACT : MODE>(tq, tk, tv, a, batch, st)" \
+  "launch_mha_packed<MODE>(qkv, ao," \
+  "launch_mha_packed<MODE == MW_SAFE ? MW_EXACT : MODE>(qkv, ao," \
   "  return mha_wgmma_enable<MODE>();" \
   "  if ((err = mha_wgmma_enable<MW_EXACT>()) != cudaSuccess) return err;
   return mha_wgmma_enable<MODE>();"

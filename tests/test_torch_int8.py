@@ -21,6 +21,7 @@ from vit_fpga_tpu_torch.models import quantized as tq
 from vit_fpga_tpu_torch.models import vit as tvit
 from vit_fpga_tpu_torch.models.convert import (params_from_numpy,
                                                params_to_numpy)
+from vit_fpga_tpu_torch.ops import quant_block as tqb
 from vit_fpga_tpu_torch.runtime.serving import ImageServer
 
 TINY = dict(image_size=32, patch_size=8, hidden_dim=64, depth=2,
@@ -103,18 +104,18 @@ def test_quantize_vit_fast_equals_the_jax_tree():
     assert mine["blocks.w1_q"].shape == (2, 64, 128)
 
 
-def _jax_composition(jqp, images, jcfg):
+def _jax_composition(jqp, images, jcfg, n_pad=N_PAD):
     """The TPU branch of the JAX ``vit_forward_int8_fast`` written out:
-    the dotg embed on bf16(wq * ws), then per layer attn_block_int8 ->
-    mlp_block_int8 in interpret mode, the CLS LayerNorm and the fused
-    int8 head in interpret mode."""
+    the dotg embed on bf16(wq * ws) onto ``n_pad`` rows, then per layer
+    attn_block_int8 -> mlp_block_int8 in interpret mode, the CLS LayerNorm
+    and the fused int8 head in interpret mode."""
     n, d = jcfg.seq_len, jcfg.hidden_dim
     act = "quick_gelu" if jcfg.hidden_act == "quick_gelu" else "gelu_tanh"
     x = jvit.preprocess(jnp.asarray(images), jcfg).astype(jnp.bfloat16)
     pe = jqp["patch_embed"]
     pos, pre = jqp["pos_embed"][0], jqp["cls_token"][0]
     posb = jnp.concatenate([pre + pos[:1], pos[1:] + pe["b"],
-                            jnp.zeros((N_PAD - n, d))], axis=0)
+                            jnp.zeros((n_pad - n, d))], axis=0)
     wp = (pe["wq"].astype(jnp.float32) * pe["ws"]).astype(jnp.bfloat16)
     x = jax_embed(x, wp, posb, jcfg.patch_size, 1)
     b = x.shape[0]
@@ -125,10 +126,10 @@ def _jax_composition(jqp, images, jcfg):
             blk["wqkv_s"], blk["bqkv"], blk["wo_q"], blk["wo_s"], blk["bo"],
             jcfg.num_heads, eps=jcfg.ln_eps, n_valid=n, interpret=True)
         x = jqb.mlp_block_int8(
-            x.reshape(b * N_PAD, d), blk["ln2_scale"], blk["ln2_bias"],
+            x.reshape(b * n_pad, d), blk["ln2_scale"], blk["ln2_bias"],
             blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"], blk["w2_s"],
             blk["b2"], eps=jcfg.ln_eps, act=act, block_t=32,
-            interpret=True).reshape(b, N_PAD, d)
+            interpret=True).reshape(b, n_pad, d)
     cls = jvit._layernorm(x[:, :1], jqp["ln_f_scale"], jqp["ln_f_bias"],
                           jcfg.ln_eps)
     hd = jqp["head"]
@@ -144,6 +145,35 @@ def test_int8_forward_matches_jax_kernel_composition(hidden_act):
     want = _jax_composition(jqp, img, jcfg)
     got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
     assert got.dtype == torch.float32 and got.shape == (3, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=TIGHT * np.abs(want).max())
+
+
+def test_int8_forward_past_256_tokens_matches_jax_kernel_composition(
+        monkeypatch):
+    """A 384-px-like geometry: 577 tokens (24 x 24 patches and the CLS
+    row, ViT-B/16 @384's count) on 584 rows, head dim 64, two narrow
+    layers.  The JAX planner keeps the int8 block kernels there, and so
+    does the port: every attention half is K16 (attn_block_int8), inside
+    the gate the card applies, and the logits hold to the JAX composition
+    of the Pallas kernels as tightly as at 17 tokens."""
+    kw = dict(image_size=192, hidden_dim=128, num_heads=2, mlp_dim=256)
+    jcfg, tcfg, jqp, tqp = _pair(14, **kw)
+    assert tcfg.seq_len == 577 and jq._int8_block_fits(jcfg)
+    assert tq._int8_block_fits(tcfg)
+    shapes = []
+
+    def k16(x, *args, n_valid=None, **kwargs):
+        shapes.append((tuple(x.shape), n_valid))
+        tqb.attn_int8_geometry(*x.shape, args[-1], n_valid)
+        return tqb.attn_block_int8(x, *args, n_valid=n_valid, **kwargs)
+
+    monkeypatch.setattr(tq, "attn_block_int8", k16)
+    img = _images(15, b=2, s=192)
+    want = _jax_composition(jqp, img, jcfg, n_pad=584)
+    got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
+    assert shapes == [((2, 584, 128), 577)] * 2
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=TIGHT * np.abs(want).max())
 

@@ -353,3 +353,119 @@ def test_k19b_k12_stage_names_match_the_clock_kinds(kernel):
     assert len(stages) == len(set(stages)) == want
     for i, name in enumerate(stages):
         assert name.startswith(kinds[i]), (i, name, kinds[i])
+
+
+def test_k16_runs_on_the_int8_wgmma_gemm_and_the_wgmma_attention():
+    """K16's QKV and out-projection run on qgemm_wgmma.cuh (a bf16 qkv
+    epilogue and the residual one), its attention on mha_wgmma.cuh's
+    max-free sweep over the packed qkv; it keeps no attn.cuh tile, no
+    wmma and no 256-key bound."""
+    k16 = (_kernels.CSRC / "attn_int8.cu").read_text()
+    body = k16.split("#define VFT_NS")[1]
+    for inc in ("qgemm_wgmma.cuh", "mha_wgmma.cuh"):
+        assert f'#include "{inc}"' in k16, inc
+    assert '#include "attn.cuh"' not in k16
+    assert "wmma" not in body
+    assert "launch_mha_packed<MW_MAXFREE>(" in k16
+    assert "mha_wgmma_enable<MW_MAXFREE>()" in k16
+    for epi in ("QW_BF16", "QW_RESID"):
+        assert f"launch_qgemm_epi<{epi}>(" in k16, epi
+    assert "launch_qgemm<" not in k16 and "launch_attn(" not in k16
+    assert "ATT_MAX_KV" not in k16 and "256" not in body
+    mha = (_kernels.CSRC / "mha_wgmma.cuh").read_text()
+    assert "constexpr int MW_MAX_GRID_Y = 65535;" in mha
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    assert qb.MW_MAX_GRID_Y == 65535
+
+
+def test_k16_bf16_epilogue_shares_the_residual_epilogue_code_site():
+    """QW_BF16 is QW_RESID without the add: one branch of qw_epilogue,
+    in the same IEEE order, not a copy of the loop."""
+    gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
+    body = gemm[gemm.index("void qw_epilogue("):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("__fadd_rn(__fmul_rn((float)a[e], "
+                      "__fmul_rn(sr, scv[e])), biv[e])") == 1
+    assert "if constexpr (EPI == QW_RESID)" in body
+    assert gemm.count("void qw_epilogue(") == 1
+
+
+def test_k21a_runs_both_gemms_on_the_int8_wgmma_gemm():
+    """K21a is K15's launch sequence from the producer's stats: W1 and W2
+    on qgemm_wgmma.cuh's dequantizing epilogues, the row pass over the
+    tiles' maxima, then the stats of out."""
+    k21a = (_kernels.CSRC / "mlp_int8_stats.cu").read_text()
+    assert '#include "qgemm_wgmma.cuh"' in k21a
+    assert "wmma" not in k21a.split("#define VFT_NS")[1]
+    assert "launch_qgemm<" not in k21a
+    for epi in ("QW_H", "QW_RESID"):
+        assert f"launch_qgemm_epi<{epi}>(" in k21a, epi
+    assert "launch_quant_rows<bf16, LN_STATS, false, ST>(" in k21a
+    assert "launch_quant_amax(" in k21a and "launch_row_stats(" in k21a
+    assert "nparts != qgemm_wgmma_col_tiles(m)" in k21a
+    assert "tma_init()" in k21a
+
+
+def test_the_wmma_gemm_has_no_amax_epilogue():
+    """Nothing launches quant.cuh's wmma GEMM with per-block row maxima
+    any more (K15 and K21a take QW_H's), so it and its column-block
+    count are gone."""
+    for p in _kernels.CSRC.iterdir():
+        text = p.read_text()
+        for gone in (r"\bEPI_AMAX\b", r"\bqgemm_col_blocks\b"):
+            assert not re.search(gone, text), (p.name, gone)
+    quant = (_kernels.CSRC / "quant.cuh").read_text()
+    assert "p.amax" not in quant and "float* amax;" not in quant
+
+
+@pytest.mark.parametrize("source,entry", [
+    ("attn_int8.cu", "vft_attn_block_int8"),
+    ("mlp_int8_stats.cu", "vft_mlp_block_int8_stats")])
+def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
+    """The ctypes argument lists of K16's and K21a's C entry points follow
+    the C definitions: pointers, ints and floats in the same order."""
+    src = (_kernels.CSRC / source).read_text()
+    params = src[src.index(f"int {entry}("):]
+    params = params[params.index("(") + 1:params.index(")")]
+    kinds = []
+    for p in params.split(","):
+        p = p.strip()
+        kinds.append("P" if "*" in p else "F" if p.startswith("float")
+                     else "I")
+    argtypes, _ = _kernels._SIGNATURES[entry]
+    names = {_kernels._P: "P", _kernels._I: "I", _kernels._F: "F"}
+    assert [names[a] for a in argtypes] == kinds
+
+
+@pytest.mark.parametrize("name,stage", [
+    ("void attn_int8::quant_rows_kernel<__nv_bfloat16, 1, false, float>"
+     "(__nv_bfloat16 const*, float const*)", "K16 (a)"),
+    ("void attn_int8::qgemm_wgmma_kernel<256, 4>(CUtensorMap, CUtensorMap)",
+     "K16 (b)"),
+    ("void attn_int8::mha_wgmma_kernel<1>(CUtensorMap, MhaTmaArgs)",
+     "K16 (c)"),
+    ("void attn_int8::quant_rows_kernel<__nv_bfloat16, 0, false, float>"
+     "(__nv_bfloat16 const*)", "K16 (d)"),
+    ("void attn_int8::qgemm_wgmma_kernel<128, 3>(CUtensorMap)", "K16 (e)"),
+    ("void attn_int8::qgemm_kernel<0>(attn_int8::QGemmArgs)",
+     "unexpected: K16"),
+    ("void mlp_int8_stats::quant_rows_kernel<__nv_bfloat16, 3, false, "
+     "float>(__nv_bfloat16 const*)", "K21a (a)"),
+    ("void mlp_int8_stats::qgemm_wgmma_kernel<256, 2>(CUtensorMap)",
+     "K21a (b)"),
+    ("void mlp_int8_stats::quant_amax_kernel(float const*, int)", "K21a (c)"),
+    ("void mlp_int8_stats::qgemm_wgmma_kernel<128, 3>(CUtensorMap)",
+     "K21a (d)"),
+    ("void mlp_int8_stats::row_stats_kernel<float>(__nv_bfloat16 const*)",
+     "K21a (e)"),
+    ("void mlp_int8_stats::qgemm_kernel<2>(mlp_int8_stats::QGemmArgs)",
+     "unexpected: K21a"),
+    ("void attn_int8_stats::quant_rows_kernel<__nv_bfloat16, 0, false, "
+     "float>(__nv_bfloat16 const*)", "K21b (d)"),
+    ("void mlp_int8::qgemm_wgmma_kernel<128, 3>(CUtensorMap)", "K15 (d)")])
+def test_profile_names_the_int8_halves_launches(name, stage):
+    """profile_forward's table gives K16's and K21a's wgmma launches and
+    row passes their steps, and calls anything else of theirs (the wmma
+    GEMM they ran before) unexpected."""
+    from vit_fpga_tpu_torch import profile_forward as pf
+    assert pf._stage(name).startswith(stage)

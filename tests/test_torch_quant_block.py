@@ -1,15 +1,20 @@
 """The port's int8 block halves (ops/quant_block.py, the plain versions of
 K15 and K16) against the JAX package's Pallas kernels in interpret mode,
-on the same numpy inputs at the shapes of tests/test_quant_block.py."""
+on the same numpy inputs at the shapes of tests/test_quant_block.py (K16
+also past 256 keys), and K16's gate on the card against the JAX
+planner's."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vit_fpga_tpu.models import quantized as jq
+from vit_fpga_tpu.models import vit as jvit
 from vit_fpga_tpu.ops import quant_block as jqb
 from vit_fpga_tpu.ops.quant_fused import quantize_weight_colwise
 from vit_fpga_tpu_torch.ops import quant_block as tqb
+from vit_fpga_tpu_torch.ops.common import SUBLANE, round_up
 
 # The plain versions repeat the Pallas bodies op for op in f32 (one-pass
 # LN, row quantization, exact int32 sums, the same dequantization and
@@ -86,10 +91,15 @@ def _attn_case(seed=1, b=2, n=13, d=32):
                _mk(rng, (d,), 0.2))
 
 
-@pytest.mark.parametrize("n_valid", [13, 9, 1])
-def test_attn_block_int8_matches_pallas(n_valid):
+# (tokens, valid tokens): 13 rows, and past 256 keys, where K16's attention
+# streams its key tiles on the card (the JAX kernel pads the keys to 384)
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(13, 13, id="13"), pytest.param(13, 9, id="9"),
+    pytest.param(13, 1, id="1"), pytest.param(264, 261, id="264-261"),
+    pytest.param(264, 1, id="264-1")])
+def test_attn_block_int8_matches_pallas(n, n_valid):
     heads = 4
-    x, args = _attn_case()
+    x, args = _attn_case(n=n)
     xj, xt = _bf16_pair(x)
     want = jqb.attn_block_int8(xj, *map(jnp.asarray, args), heads,
                                n_valid=n_valid, interpret=True)
@@ -136,3 +146,38 @@ def test_int8_halves_cpu_run_plain_and_check_args():
     before = tqb.attn_block_int8.launches
     tqb.attn_block_int8(_bf16_pair(xa)[1], *map(torch.from_numpy, aargs), 4)
     assert tqb.attn_block_int8.launches == before
+
+
+# (model, image size): where the JAX int8 planner runs the block kernels
+# (ViT-B/16 up to 896 px, 3137 tokens; ViT-L/16 up to 768 px) and just past
+# it, where the JAX forward takes the per-linear route instead
+K16_GEOMETRIES = (("vit_b16", 224), ("vit_b16", 384), ("vit_b16", 896),
+                  ("vit_b16", 1024), ("vit_l16", 768), ("vit_l16", 896))
+
+
+@pytest.mark.parametrize("variant,image", K16_GEOMETRIES)
+def test_k16_gate_admits_what_the_jax_planner_runs(variant, image):
+    """K16's gate on the card (attn_int8_geometry) admits a model's tokens
+    exactly where the JAX _int8_block_fits sends its blocks to the int8
+    kernels, at the rows the port's forward pads them to, b1 and b64."""
+    jcfg = jvit.config(variant, image_size=image)
+    n_pad = round_up(jcfg.seq_len, SUBLANE)
+    for batch in (1, 64):
+        args = (batch, n_pad, jcfg.hidden_dim, jcfg.num_heads, jcfg.seq_len)
+        if jq._int8_block_fits(jcfg):
+            tqb.attn_int8_geometry(*args)
+        else:
+            with pytest.raises(ValueError, match="score slot"):
+                tqb.attn_int8_geometry(*args)
+
+
+@pytest.mark.parametrize("b,n,d,heads,n_valid,why", [
+    (4, 584, 960, 12, 577, "head dim 64"),     # dh 80 (ViT-H/14)
+    (4, 200, 768, 12, 0, "head dim 64"),       # no valid key
+    (4, 200, 768, 12, 201, "head dim 64"),     # more valid keys than rows
+    (5462, 200, 768, 12, 197, "grid"),         # batch x heads past 65535
+])
+def test_k16_gate_rejects_what_the_kernel_does_not_take(b, n, d, heads,
+                                                        n_valid, why):
+    with pytest.raises(ValueError, match=why):
+        tqb.attn_int8_geometry(b, n, d, heads, n_valid)

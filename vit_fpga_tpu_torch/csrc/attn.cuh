@@ -1,7 +1,8 @@
-// Attention tile of the int8 attention halves on mma.sync (attn_int8.cu
-// K16, attn_int8_static.cu K18, attn_int8_stats.cu K21b); include after
-// common.cuh.  K1 and K4 (attn_half.cuh) run the bf16 halves' attention in
-// mha_wgmma.cuh instead.
+// Attention tile of the int8 attention halves still on mma.sync
+// (attn_int8_static.cu K18, attn_int8_stats.cu K21b), up to ATT_MAX_KV
+// keys; include after common.cuh.  K1, K4 (attn_half.cuh) and K16
+// (attn_int8.cu) run their attention in mha_wgmma.cuh's max-free sweep
+// instead, which streams the keys.
 //
 //   attn_kernel<Q8>    per (image, head), one 16-row query tile per warp:
 //                      s = (q k^T) * scale in f32, keys at or past n_valid

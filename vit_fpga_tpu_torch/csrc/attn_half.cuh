@@ -13,7 +13,8 @@
 //   (c) gw_kernel           out = x + bf16(ao @ Wo + bo)
 //
 // (b) reads the packed qkv scratch through 4-D tensor maps, {64, rows,
-// heads, batch}: Q's row extent n_pad, K's and V's n_valid.
+// heads, batch}: Q's row extent n_pad, K's and V's n_valid
+// (mha_wgmma.cuh's launch_mha_packed).
 
 #pragma once
 
@@ -66,18 +67,10 @@ inline cudaError_t launch_attn_half(const bf16* x, const float* stats, const flo
   g.act = ACT_NONE;
   if ((err = launch_gemm_wgmma(x, wqkv, true, g, st)) != cudaSuccess) return err;
 
-  // q, k and v are column blocks of the packed rows: head h at h * 64 of
-  // each, row stride 3D, image stride n_pad * 3D.
-  const long long in_b = (long long)n_pad * 3 * d;
-  CUtensorMap tq, tk, tv;
-  if (!mw_encode(&tq, qkv, in_b, AH_DH, 3 * d, n_pad, heads, batch) ||
-      !mw_encode(&tk, qkv + d, in_b, AH_DH, 3 * d, n_valid, heads, batch) ||
-      !mw_encode(&tv, qkv + 2 * d, in_b, AH_DH, 3 * d, n_valid, heads, batch))
-    return cudaErrorInvalidValue;
-  const MhaTmaArgs a{ao,     (long long)n_pad * d, AH_DH, d, heads, n_pad, n_valid,
-                     scale * 1.4426950408889634f, scale};
   *long_path = n_valid > AH_LONG_KEYS;
-  if ((err = launch_mha_wgmma<MODE>(tq, tk, tv, a, batch, st)) != cudaSuccess) return err;
+  if ((err = launch_mha_packed<MODE>(qkv, ao, batch, n_pad, d, heads, n_valid, scale, st)) !=
+      cudaSuccess)
+    return err;
 
   GwArgs o{};
   o.bias = bo;

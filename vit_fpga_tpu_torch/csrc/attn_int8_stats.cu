@@ -2,10 +2,12 @@
 // chain's attention.
 //
 // Replaces vit_fpga_tpu/ops/quant_block.py:_attn_int8_stats_kernel (wrapper
-// attn_block_int8_stats), one Pallas kernel on the TPU.  It is K16
-// (attn_int8.cu) with the LayerNorm statistics taken from the producer half
-// and the next half's emitted.  A short sequence of launches on one stream,
-// counted as one ported kernel:
+// attn_block_int8_stats), one Pallas kernel on the TPU.  It is K16's
+// function (attn_int8.cu) with the LayerNorm statistics taken from the
+// producer half and the next half's emitted, still on K16's first design
+// (quant.cuh's wmma GEMM, attn.cuh's tile: up to 256 keys; K16 itself runs
+// on qgemm_wgmma.cuh and mha_wgmma.cuh).  A short sequence of launches on
+// one stream, counted as one ported kernel:
 //
 //   (a) quant_rows<LN_STATS>  xn = ((x - mu) * rstd) * ls + lb with (mu,
 //                        rstd) read from the incoming (B * n_pad, 2) stats

@@ -98,6 +98,9 @@ constexpr int MW_BQ = 64 * MW_CONSUMERS;        // query rows per block
 constexpr int MW_KT = 128;                      // keys per tile
 constexpr int MW_STAGES = 4;                    // ring depth
 constexpr int MW_THREADS = 128 * (MW_CONSUMERS + 1);
+// One block row a (image, head): the grid's y extent bounds batch x heads.
+// The keys stream through the ring, so no other size bounds n or n_valid.
+constexpr int MW_MAX_GRID_Y = 65535;
 constexpr uint32_t MW_ROW_BYTES = MW_DH * 2;
 constexpr uint32_t MW_TILE_BYTES = MW_KT * MW_ROW_BYTES;  // one K or V tile
 constexpr uint32_t MW_Q_BYTES = MW_BQ * MW_ROW_BYTES;
@@ -667,7 +670,8 @@ template <int MODE>
 inline cudaError_t launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                     const CUtensorMap& tv, const MhaTmaArgs& p, int batch,
                                     cudaStream_t stream) {
-  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n ||
+  if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n || batch < 1 ||
+      (long long)batch * p.heads > MW_MAX_GRID_Y ||
       (MODE == MW_ONLINE && (p.bk < MW_KT || p.bk % MW_KT)))
     return cudaErrorInvalidValue;
   const dim3 grid((p.n + MW_BQ - 1) / MW_BQ, batch * p.heads);
@@ -690,6 +694,28 @@ inline bool mw_encode(CUtensorMap* map, const void* base, long long in_b, long l
   const cuuint64_t strides[3] = {stride(in_r, rows), stride(in_h, heads), stride(in_b, batch)};
   const cuuint32_t box[4] = {(cuuint32_t)MW_DH, (cuuint32_t)MW_KT, 1, 1};
   return tma_encode_bf16(map, base, 4, dims, strides, box);
+}
+
+// The attention in MODE (any but the online mode, which takes key blocks)
+// over a packed (B * n_pad, 3D) bf16 qkv, q, k and v column blocks of each
+// row with head h at h * 64 of each (row stride 3D, image stride n_pad *
+// 3D), into ao (B * n_pad, D):
+// Q's row extent n_pad, K's and V's n_valid, so that TMA zero-fills the
+// keys past it.  Every query row is written.  Shared by attn_half.cuh (K1,
+// K4) and attn_int8.cu (K16).
+template <int MODE>
+inline cudaError_t launch_mha_packed(const bf16* qkv, bf16* ao, int batch, int n_pad, int d,
+                                     int heads, int n_valid, float scale, cudaStream_t st) {
+  static_assert(MODE != MW_ONLINE, "the online mode takes a key block");
+  const long long in_b = (long long)n_pad * 3 * d;
+  CUtensorMap tq, tk, tv;
+  if (!mw_encode(&tq, qkv, in_b, MW_DH, 3 * d, n_pad, heads, batch) ||
+      !mw_encode(&tk, qkv + d, in_b, MW_DH, 3 * d, n_valid, heads, batch) ||
+      !mw_encode(&tv, qkv + 2 * d, in_b, MW_DH, 3 * d, n_valid, heads, batch))
+    return cudaErrorInvalidValue;
+  const MhaTmaArgs a{ao,     (long long)n_pad * d, MW_DH, d, heads, n_pad, n_valid,
+                     scale * 1.4426950408889634f, scale};
+  return launch_mha_wgmma<MODE>(tq, tk, tv, a, batch, st);
 }
 
 }  // namespace VFT_NS

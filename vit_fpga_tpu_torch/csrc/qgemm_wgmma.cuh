@@ -36,15 +36,16 @@
 // tiles are written from the accumulator registers by masked stores, an
 // epilogue of the same kernel (QW_STORE_REGS), not a fallback.
 //
-// K15 (mlp_int8.cu) runs both of its GEMMs on this kernel, with
-// dequantizing epilogues over the same accumulator tile (QwEpi, qw_epilogue):
-// f = float(acc) * (sa[row] * sb[col]) + bias[col] in IEEE operations, in
-// the order of quant.cuh's epilogues; W1 then h = act(f) in f32 with the
-// tile's row absmax of h in parts[col tile][row]; W2 out = residual +
-// bf16(f), added in f32 and rounded once, in bf16.
+// K15 (mlp_int8.cu), K21a (mlp_int8_stats.cu) and K16 (attn_int8.cu) run
+// their GEMMs on this kernel, with dequantizing epilogues over the same
+// accumulator tile (QwEpi, qw_epilogue): f = float(acc) * (sa[row] *
+// sb[col]) + bias[col] in IEEE operations, in the order of quant.cuh's
+// epilogues; W1 then h = act(f) in f32 with the tile's row absmax of h in
+// parts[col tile][row]; W2 and the out-projection out = residual + bf16(f),
+// added in f32 and rounded once, in bf16; K16's QKV bf16(f).
 // The sums pass through the staging buffers, whose 64 rows of 128 bytes
-// serve every element size.  The other int8 kernels (K14, K16-K22) stay on
-// quant.cuh's GEMM.
+// serve every element size.  The other int8 kernels (K14, K17, K18, K21b,
+// K22) stay on quant.cuh's GEMM.
 
 #pragma once
 
@@ -55,7 +56,8 @@ enum QwEpi {
   QW_STORE_TMA = 0,   // K13: the int32 sums, by TMA
   QW_STORE_REGS = 1,  // K13: the int32 sums from the registers (N % 4 != 0)
   QW_H = 2,           // K15's W1: f32 h = act(f) by TMA, the tile's row absmax to parts
-  QW_RESID = 3        // K15's W2: bf16 residual + bf16(f) by TMA
+  QW_RESID = 3,       // K15's W2: bf16 residual + bf16(f) by TMA
+  QW_BF16 = 4         // K16's QKV: bf16(f) by TMA
 };
 
 constexpr int QW_BM = 128;         // rows per tile: two consumer warpgroups of 64
@@ -85,7 +87,7 @@ struct QwShape {
 struct QwArgs {
   int* C;       // (M, N) int32; read by QW_STORE_REGS
   int M, N, K;  // K a multiple of 16 (TMA's 16-byte row stride)
-  // the dequantizing epilogues (K15)
+  // the dequantizing epilogues (K15, K16, K21a)
   const float* sa;       // (M,) row scales
   const float* sb;       // (N,) column scales
   const float* bias;     // (N,)
@@ -182,8 +184,9 @@ __device__ __forceinline__ void qw_raw_piece(const uint32_t (&acc)[BN / 2], int 
   }
 }
 
-// K15's epilogues (QW_H, QW_RESID) over the consumer warpgroup's 64 x BN
-// tile at {n0, row0}, f = float(acc) * (sa[row] * sb[col]) + bias[col].
+// The dequantizing epilogues (QW_H, QW_RESID, QW_BF16) over the consumer
+// warpgroup's 64 x BN tile at {n0, row0}, f = float(acc) * (sa[row] *
+// sb[col]) + bias[col].
 // Computed in the registers over the unrolled tile, the 128 values a
 // thread of a 256-wide tile holds each inlined the activation's tanhf,
 // and W1 took twice as long (PERF.md).  So each 32-column piece of the
@@ -241,7 +244,7 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
         unsigned char* dst = out + rl * 128 + (((off >> 4) ^ sw) << 4) + (off & 15);
         if constexpr (H) {
           *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
-        } else {
+        } else if constexpr (EPI == QW_RESID) {
           // x + bf16(f), added in f32 and rounded once (quant.cuh's EPI_RESID)
           const uint2 xr =
               __ldg(reinterpret_cast<const uint2*>(p.residual + (size_t)row * p.N + c));
@@ -250,6 +253,9 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
           *reinterpret_cast<uint2*>(dst) =
               make_uint2(pack_bf16x2(x01.x + bf16_round(f[0]), x01.y + bf16_round(f[1])),
                          pack_bf16x2(x23.x + bf16_round(f[2]), x23.y + bf16_round(f[3])));
+        } else {  // bf16(f) (quant.cuh's EPI_PLAIN without an activation)
+          *reinterpret_cast<uint2*>(dst) =
+              make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
         }
       }
     }
@@ -493,17 +499,18 @@ inline cudaError_t launch_qgemm_wgmma(const signed char* a, const signed char* b
                    : qw_launch_n<QW_STORE_REGS>(bn, ta, tb, tc, p, sms, stream);
 }
 
-// K15's GEMMs on `stream`: a (M, K) and bt (N, K) int8 row-major into out
-// through epilogue EPI: QW_H f32 h (M, N), QW_RESID bf16 (M, N); p carries
-// M, N, K and the epilogue's operands: sa, sb, bias, and parts of
-// qgemm_wgmma_col_tiles(N) x M floats (QW_H) or the residual (QW_RESID).
-// N and K multiples of 16, a, bt and out 16-byte aligned.
+// The dequantizing GEMMs on `stream`: a (M, K) and bt (N, K) int8
+// row-major into out through epilogue EPI: QW_H f32 h (M, N), QW_RESID and
+// QW_BF16 bf16 (M, N); p carries M, N, K and the epilogue's operands: sa,
+// sb, bias, and parts of qgemm_wgmma_col_tiles(N) x M floats (QW_H) or the
+// residual (QW_RESID).  N and K multiples of 16, a, bt and out 16-byte
+// aligned.
 template <int EPI>
 inline cudaError_t launch_qgemm_epi(const signed char* a, const signed char* bt, void* out,
                                     const QwArgs& p, cudaStream_t stream) {
-  static_assert(EPI == QW_H || EPI == QW_RESID, "K15's epilogues");
+  static_assert(EPI == QW_H || EPI == QW_RESID || EPI == QW_BF16, "the dequantizing epilogues");
   if (p.N % 16 || p.sa == nullptr || p.sb == nullptr || p.bias == nullptr ||
-      (EPI == QW_RESID ? p.residual == nullptr : p.parts == nullptr))
+      (EPI == QW_RESID && p.residual == nullptr) || (EPI == QW_H && p.parts == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tb, tc;
   int sms = 0;

@@ -1,7 +1,8 @@
 // Int8 pieces of the int8 kernels (quant_linear.cu K14, mlp_int8.cu K15,
 // attn_int8.cu K16, mlp_int8_static.cu K17, attn_int8_static.cu K18,
 // mlp_int8_stats.cu K21a, attn_int8_stats.cu K21b, attn_int8_scores.cu
-// K22; K13's raw int32 GEMM is qgemm_wgmma.cuh's);
+// K22): the row passes serve them all; the wmma GEMM serves K14, K17,
+// K18, K21b and K22 (K13, K15, K16 and K21a run qgemm_wgmma.cuh's);
 // include after common.cuh.
 //
 //   quant_rows_kernel<T, LN, STATIC, ST>  one warp per row of a (rows, k)
@@ -15,16 +16,14 @@
 //       calibrated scale folded into the LN affine): q = clip(rint(x)),
 //       no absmax and no division.
 //   quant_amax_kernel   the same quantization of an f32 matrix whose row
-//       absmax arrives as per-column-block partials (the EPI_AMAX epilogue
-//       below), so the matrix is read once.
+//       absmax arrives as per-column-tile partials (qgemm_wgmma.cuh's QW_H
+//       epilogue: K15, K21a), so the matrix is read once.
 //   qgemm_kernel<EPI>   C = epilogue(A B^T): int8 A (M, K) and B (N, K),
 //       both k-contiguous, on nvcuda::wmma 16x16x16 signed-char fragments
 //       with exact int32 accumulation.  The epilogue dequantizes as the TPU
 //       kernels do, f = float(acc) * (sa[m] * sb[n]) + bias[n], then
 //         EPI_PLAIN  C = act(f) in bf16 or f32
 //         EPI_RESID  C = residual + bf16(f), added in bf16
-//         EPI_AMAX   C = act(f) in f32, plus each block's per-row absmax of
-//                    it: amax[blockIdx.x * M + m] over the block's columns.
 //         EPI_Q8     C = clip(rint(act(f) * qscale), -127, 127) as int8, the
 //                    static scale folded into the activation (qact_scaled).
 //       A null sa is a row scale of 1.0 (the static kernels: the input scale
@@ -237,7 +236,7 @@ inline cudaError_t launch_quant_amax(const float* h, const float* parts, int npa
 // free.
 // ---------------------------------------------------------------------------
 
-enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_AMAX = 2, EPI_Q8 = 3 };
+enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_Q8 = 3 };
 
 constexpr int QG_BM = 128;
 constexpr int QG_BN = 128;
@@ -250,7 +249,7 @@ constexpr int QG_C_LD = 16 + 4;         // int32 staging of one fragment per war
 constexpr size_t QG_SMEM = (size_t)QG_STAGES * 2 * QG_TILE;
 
 static_assert(QG_BM == QG_BN, "one chunk plan serves both operands");
-static_assert(QG_SMEM >= ((QG_THREADS / 32) * 16 * QG_C_LD + 4 * QG_BM) * sizeof(float),
+static_assert(QG_SMEM >= (QG_THREADS / 32) * 16 * QG_C_LD * sizeof(float),
               "the epilogue staging reuses the operand ring");
 
 struct QGemmArgs {
@@ -260,8 +259,7 @@ struct QGemmArgs {
   const float* sb;       // (N,) f32 column scales
   const float* bias;     // (N,) f32
   const bf16* residual;  // EPI_RESID: (M, N) bf16
-  void* C;               // (M, N): bf16, or f32 with c_f32 (always f32 for EPI_AMAX, int8 for EPI_Q8)
-  float* amax;           // EPI_AMAX: (ceil(N / QG_BN), M) f32
+  void* C;               // (M, N): bf16, or f32 with c_f32 (int8 for EPI_Q8)
   int M, N, K;
   int act;
   int c_f32;
@@ -354,11 +352,9 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
   // Epilogue, one fragment at a time: lane L owns row L/2, columns
   // 8*(L%2) .. +8 of the fragment.
   int* cs = reinterpret_cast<int*>(qg_smem) + warp * 16 * QG_C_LD;
-  float* red = reinterpret_cast<float*>(qg_smem) + (QG_THREADS / 32) * 16 * QG_C_LD;
   const int er = lane >> 1;
   const int ec = (lane & 1) * 8;
-  float rmax[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const bool c_f32 = EPI == EPI_AMAX || p.c_f32;
+  const bool c_f32 = p.c_f32;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -412,10 +408,7 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
               f[t] = r[t] + __bfloat162float(__float2bfloat16(f[t]));
           } else {
 #pragma unroll
-            for (int t = 0; t < 8; ++t) {
-              f[t] = qact(f[t], p.act);
-              if (EPI == EPI_AMAX && gc + t < p.N) rmax[i] = fmaxf(rmax[i], fabsf(f[t]));
-            }
+            for (int t = 0; t < 8; ++t) f[t] = qact(f[t], p.act);
           }
           if (c_f32) {
             float* dst = static_cast<float*>(p.C) + off;
@@ -441,22 +434,6 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
       __syncwarp();
     }
   }
-  if (EPI == EPI_AMAX) {
-    // Per-row absmax over the block's columns: the two lanes of a row,
-    // then the four column warps, through shared memory.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], 1));
-      if ((lane & 1) == 0) red[wn * QG_BM + wm * 64 + i * 16 + er] = v;
-    }
-    __syncthreads();
-    if (tid < QG_BM && m0 + tid < p.M) {
-      float v = red[tid];
-#pragma unroll
-      for (int w = 1; w < 4; ++w) v = fmaxf(v, red[w * QG_BM + tid]);
-      p.amax[(size_t)blockIdx.x * p.M + m0 + tid] = v;
-    }
-  }
 }
 
 template <int EPI>
@@ -465,14 +442,11 @@ inline cudaError_t qgemm_enable() {
                               (int)QG_SMEM);
 }
 
-inline int qgemm_col_blocks(int n) { return (n + QG_BN - 1) / QG_BN; }
-
 template <int EPI>
 inline cudaError_t launch_qgemm(const QGemmArgs& p, cudaStream_t stream) {
   if (p.K % QG_SLAB || p.M < 1 || p.N < 1 || p.bias == nullptr) return cudaErrorInvalidValue;
   if (EPI == EPI_RESID && p.residual == nullptr) return cudaErrorInvalidValue;
-  if (EPI == EPI_AMAX && p.amax == nullptr) return cudaErrorInvalidValue;
-  const dim3 grid(qgemm_col_blocks(p.N), (p.M + QG_BM - 1) / QG_BM);
+  const dim3 grid((p.N + QG_BN - 1) / QG_BN, (p.M + QG_BM - 1) / QG_BM);
   qgemm_kernel<EPI><<<grid, QG_THREADS, QG_SMEM, stream>>>(p);
   return cudaGetLastError();
 }

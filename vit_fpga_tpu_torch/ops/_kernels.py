@@ -121,7 +121,7 @@ _SIGNATURES = {
     "vft_flash_attention": ([_P] * 4 + [_L, _L, _I, _L, _L] + [_I] * 6
                             + [_F, _P], ctypes.c_int),
     "vft_mlp_int8_stats_init": ([], ctypes.c_int),
-    "vft_mlp_block_int8_stats": ([_P] * 16 + [_I] * 5 + [_F, _P],
+    "vft_mlp_block_int8_stats": ([_P] * 18 + [_I] * 6 + [_F, _P],
                                  ctypes.c_int),
     "vft_attn_int8_stats_init": ([], ctypes.c_int),
     "vft_attn_block_int8_stats": ([_P] * 16 + [_I] * 6 + [_F, _F, _P],

@@ -19,7 +19,11 @@ CPU tensor:
   row quant -> int8 QKV GEMM -> ``bf16(dequant + bias)`` -> the max-free
   masked attention of K1 (bf16 scores and PV, keys at or past ``n_valid``
   masked) -> row quant of f32(ao) over all heads -> int8 out-projection ->
-  dequant + bias -> ``x + bf16(y)``.
+  dequant + bias -> ``x + bf16(y)``.  Its GEMMs run on
+  ``csrc/qgemm_wgmma.cuh`` (a bf16 qkv epilogue, K15's residual one), its
+  attention on ``csrc/mha_wgmma.cuh``'s max-free sweep (K1's), which
+  streams the keys: the gate (:func:`attn_int8_geometry`) is the JAX
+  planner's, past 256 keys.
 * K17 ``mlp_block_int8_static`` (``csrc/mlp_int8_static.cu``): replaces
   ``_mlp_int8_static_kernel`` (wrapper ``mlp_block_int8_static``).  The
   calibrated scales are folded into the arguments
@@ -39,10 +43,12 @@ CPU tensor:
   ``_mlp_int8_stats_kernel`` (wrapper ``mlp_block_int8_stats``).  K15
   with ``xn = ((x - mu) * rstd) * ls + lb`` from the producer's (mu,
   rstd), no reduction, and the next half's stats of ``out``'s bf16 values
-  (one-pass) emitted in the dtype they came in, f32 or bf16.
+  (one-pass) emitted in the dtype they came in, f32 or bf16; K15's
+  launches and scratch.
 * K21b ``attn_block_int8_stats`` (``csrc/attn_int8_stats.cu``): replaces
-  ``_attn_int8_stats_kernel`` (wrapper ``attn_block_int8_stats``).  K16
-  with the same two changes.
+  ``_attn_int8_stats_kernel`` (wrapper ``attn_block_int8_stats``).  K16's
+  function with the same two changes, on K16's first design (the wmma
+  GEMM and ``attn.cuh``'s tile, up to 256 keys).
 * K22 ``attn_block_int8_static_scores`` (``csrc/attn_int8_scores.cu``):
   replaces ``_attn_int8s_static_kernel`` (wrapper
   ``attn_block_int8_static_scores``, loop ``_mha_loop_int8s``).  K18's
@@ -61,15 +67,15 @@ M = 3072, 12 heads of 64, n_valid 197), set by tensor-core operations at
 operations (61 us) against about 44 MB of compulsory traffic; K16 and K18
 8·T·D² = 60.4 G int8 operations (31 us) plus 7.8 GFLOP of bf16 attention
 (8 us) against about 42 MB.  Design: row passes and int8 GEMMs with
-dequantizing epilogues, K15's on ``csrc/qgemm_wgmma.cuh`` (wgmma + TMA),
-the others on the wmma GEMM of ``csrc/quant.cuh``.  A dynamic row's scale
-spans blocks that run apart on Hopper (h's 3072 columns, ao's 12 heads),
-so K15's GEMM1 writes f32 h with per-tile row maxima that a row pass
-reduces before it quantizes, and K16's ao round-trips in bf16 before its
-row pass.  The static scale is known before the launch, so K17's
-GEMM1 and K18's attention tile emit int8 directly (later work: keep the
-activations on chip, wgmma).  K21a and K21b have K15's and K16's bounds;
-K22 does 60.4 G + 7.8 G int8 operations (34 us at 1979 TOPS).
+dequantizing epilogues, K15's, K16's and K21a's on
+``csrc/qgemm_wgmma.cuh`` (wgmma + TMA), the others on the wmma GEMM of
+``csrc/quant.cuh``.  A dynamic row's scale spans blocks that run apart on
+Hopper (h's 3072 columns, ao's 12 heads), so K15's GEMM1 writes f32 h with
+per-tile row maxima that a row pass reduces before it quantizes, and
+K16's ao round-trips in bf16 before its row pass.  The static scale is
+known before the launch, so K17's GEMM1 and K18's attention tile emit
+int8 directly (later work: wgmma).  K21a and K21b have K15's and K16's
+bounds; K22 does 60.4 G + 7.8 G int8 operations (34 us at 1979 TOPS).
 
 Unlike the dynamic kernels, where ``|x / s| <= 127`` by construction, the
 static kernels' saturation is live: activations beyond the calibrated
@@ -90,7 +96,8 @@ import torch
 from ..utils.platform import tanh_plain
 from . import _kernels
 from .attn_block import _EXP_HI, _EXP_LO, _mha_tpu, attn_plan
-from .common import check_activation, kernel_operand, round_up, row_stats
+from .common import (check_activation, kernel_operand, pad_sublane,
+                     round_up, row_stats)
 from .fused_mlp import _act
 from .quant_fused import QMAX, _int_matmul, _row_quant, weight_kmajor
 
@@ -205,19 +212,60 @@ def _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2):
         kernel_operand(b2, (d,), f32, dev, "b2")]
 
 
+# gridDim.y of csrc/mha_wgmma.cuh's attention (MW_MAX_GRID_Y): one block
+# row an (image, head).
+MW_MAX_GRID_Y = 65535
+
+
+def attn_int8_geometry(b: int, n: int, d: int, num_heads: int,
+                       n_valid: int) -> None:
+    """K16's gate on the card: head dim 64, 1 <= n_valid <= n, batch x
+    heads within the attention's grid (``MW_MAX_GRID_Y``), all of which the
+    C entry point checks too, and a token count at which the JAX
+    ``attn_block_int8`` runs its kernel: it pads the n rows to the bf16
+    sublane and the keys to 128 and raises where :func:`score_slots_int8`
+    finds no score slot (the bound of ``models/quantized._int8_block_fits``:
+    ViT-B/16 up to 896 px, 3137 tokens, ViT-L/16 up to 768 px).  The Hopper
+    kernel streams the keys and has no length bound of its own.  Raises
+    ``ValueError`` outside."""
+    if (num_heads < 1 or d % num_heads or d // num_heads != 64
+            or not 1 <= n_valid <= n):
+        raise ValueError(f"K16 takes head dim 64 and 1..n valid tokens "
+                         f"(D={d}, {num_heads} heads, n={n}, "
+                         f"n_valid={n_valid})")
+    if b * num_heads > MW_MAX_GRID_Y:
+        raise ValueError(f"K16's attention grid takes batch x heads <= "
+                         f"{MW_MAX_GRID_Y} (batch {b}, {num_heads} heads)")
+    _, n_sc, _, _ = score_slots_int8(num_heads, d,
+                                     round_up(n, pad_sublane(torch.bfloat16)),
+                                     round_up(n, 128), batch=b)
+    if n_sc < 1:
+        raise ValueError(f"K16 runs where the JAX int8 attention plan does: "
+                         f"no score slot at D={d}, {num_heads} heads, {n} "
+                         f"tokens")
+
+
+def _attn_tile_geometry(b: int, n: int, d: int, num_heads: int,
+                        n_valid: int) -> None:
+    """The gate of the attention halves still on ``csrc/attn.cuh``'s tile
+    (K18, K21b, K22): head dim 64 and 1..256 valid tokens."""
+    if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
+        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
+                         f"(D={d}, {num_heads} heads, n_valid={n_valid})")
+
+
 def _attn_operands(x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs,
-                   bqkv, woq, wos, bo):
-    """An attention half's geometry on the card and its eight operands in
-    the C order: (B, n_pad, D) bf16 x, head dim 64, 1..256 valid tokens;
-    f32 LN scale and bias, k-major int8 W_qkv, its f32 column scales and
-    bias, likewise W_o.  Returns (b, n, d, n_valid, operands)."""
+                   bqkv, woq, wos, bo, gate=_attn_tile_geometry):
+    """An attention half's geometry on the card, checked by ``gate(b, n, d,
+    num_heads, n_valid)`` (K16's is :func:`attn_int8_geometry`), and its
+    eight operands in the C order: (B, n_pad, D) bf16 x; f32 LN scale and
+    bias, k-major int8 W_qkv, its f32 column scales and bias, likewise W_o.
+    Returns (b, n, d, n_valid, operands)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     b, n, d = x.shape
     n_valid = n if n_valid is None else min(n_valid, n)
-    if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
-        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
-                         f"(D={d}, {num_heads} heads, n_valid={n_valid})")
+    gate(b, n, d, num_heads, n_valid)
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     dev, f32 = x.device, torch.float32
     return b, n, d, n_valid, [
@@ -240,9 +288,9 @@ def mlp_int8_parts(m: int) -> int:
 
 
 def _mlp_int8_scratch(t, d, m, dev):
-    """K15's scratch, in the C order: int8 xq (T, D), its f32 row scales,
-    int8 hq (T, M), its row scales, the f32 h (T, M) and h's per-tile row
-    maxima (:func:`mlp_int8_parts`, T)."""
+    """K15's and K21a's scratch, in the C order: int8 xq (T, D), its f32
+    row scales, int8 hq (T, M), its row scales, the f32 h (T, M) and h's
+    per-tile row maxima (:func:`mlp_int8_parts`, T)."""
     f32 = torch.float32
     return [torch.empty((t, d), dtype=torch.int8, device=dev),
             torch.empty((t,), dtype=f32, device=dev),
@@ -252,19 +300,11 @@ def _mlp_int8_scratch(t, d, m, dev):
             torch.empty((mlp_int8_parts(m), t), dtype=f32, device=dev)]
 
 
-def _mlp_scratch(t, d, m, dev):
-    """K21a's scratch: int8 rows (xq, then hq), their f32 row scales, the
-    f32 h and its per-128-column row maxima."""
-    f32 = torch.float32
-    return [torch.empty((t * max(d, m),), dtype=torch.int8, device=dev),
-            torch.empty((t,), dtype=f32, device=dev),
-            torch.empty((t, m), dtype=f32, device=dev),
-            torch.empty((-(-m // 128), t), dtype=f32, device=dev)]
-
-
 def _attn_scratch(rows, d, dev):
-    """K16's and K21b's scratch: int8 rows (xq, then aoq), their f32 row
-    scales, the bf16 qkv and attention output."""
+    """K16's and K21b's scratch, in the C order: int8 rows (xq, then aoq),
+    their f32 row scales (sx, then sa), the bf16 qkv (rows, 3D) the QKV
+    GEMM writes and the attention reads, and the bf16 attention output
+    (rows, D) the row pass reads."""
     bf = torch.bfloat16
     return [torch.empty((rows, d), dtype=torch.int8, device=dev),
             torch.empty((rows,), dtype=torch.float32, device=dev),
@@ -360,15 +400,15 @@ def attn_block_int8(x, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq, wos, bo,
     TPU); keys there are masked.
 
     A CPU tensor runs :func:`attn_block_int8_plain`; a CUDA tensor
-    launches the K16 kernel (bf16, head dim 64, n_valid <= 256) or
-    raises."""
+    launches the K16 kernel (bf16, the geometry :func:`attn_int8_geometry`
+    admits) or raises."""
     if not _on_card(x):
         return attn_block_int8_plain(x, ln_scale, ln_bias, wqkvq, wqkvs,
                                      bqkv, woq, wos, bo, num_heads, eps=eps,
                                      n_valid=n_valid)
     b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
                                            ln_bias, wqkvq, wqkvs, bqkv, woq,
-                                           wos, bo)
+                                           wos, bo, gate=attn_int8_geometry)
     out = torch.empty_like(x)
     scratch = _attn_scratch(b * n, d, x.device)
     with torch.cuda.device(x.device):
@@ -586,14 +626,14 @@ def mlp_block_int8_stats(x, stats, ln_scale, ln_bias, w1q, w1s, b1, w2q,
     _check_stats(stats, (t, 2))
     out = torch.empty_like(x)
     st_out = torch.empty_like(stats) if emit_stats else None
-    scratch = _mlp_scratch(t, d, m, x.device)
+    scratch = _mlp_int8_scratch(t, d, m, x.device)
     with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_mlp_block_int8_stats(
             x.data_ptr(), stats.data_ptr(), *_ptrs(ops), out.data_ptr(),
             st_out.data_ptr() if emit_stats else None, *_ptrs(scratch), t, d,
-            m, _ACT_CODES[act], int(stats.dtype == torch.bfloat16),
-            float(eps), stream)
+            m, mlp_int8_parts(m), _ACT_CODES[act],
+            int(stats.dtype == torch.bfloat16), float(eps), stream)
     _kernels.check(err, "mlp_block_int8_stats")
     mlp_block_int8_stats.launches += 1
     return out, st_out

@@ -4,21 +4,28 @@ training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
         [--image 224] [--batch 64] [--steps 3]
-        [--train | --int8 [--static] | --per-tensor] [--latency | --full]
+        [--train | --int8 [--static | --chain] | --per-tensor]
+        [--latency | --full]
 
 ``--model`` takes the ViT variants, ``clip_<variant>`` (the CLIP vision
 tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
 ``deit_<variant>`` (``deit_b16``), with ``bench.py``'s prefix rules;
 ``--image`` is the square input size (224, 384, 1024: ViT-B/16 at 1024 px
 runs the per-block path, flash attention K9 and K5, or with ``--int8``
-the per-linear int8 route, K14 and K9; give ``--batch 1`` or ``4``).
+the per-linear int8 route, K14 and K9; give ``--batch 1`` or ``4``; with
+``--int8`` at 384 px the dynamic int8 blocks K16 and K15 run past 256
+keys).
 CLIP and DeiT profile
 the bf16 served forward only.  Without a mode flag it runs the family's
 ``make_forward(cfg, params, raw=True)`` (bf16,
 random weights from seed 0) on a seeded uint8 batch already on the card;
 with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
 weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
-(calibrated on the synthetic probe batch, on the card); with ``--train``
+(calibrated on the synthetic probe batch, on the card); with ``--int8
+--chain`` on the ``quantize_vit_fast`` tree with the reference's gated
+int8 stats chain switched on for the run (``models.quantized.
+_INT8_STATS_CHAIN``: 12 x [K21b, K21a] + K14; its K21b takes 256 keys at
+most, so 224 px); with ``--train``
 one SGD(1e-4) step of ``make_vit_train_step`` (bench.py's train shape) on
 a seeded normalized batch; with ``--per-tensor`` the per-tensor int8
 forward (``make_vit_forward_int8`` on ``quantize_vit`` of f32 weights: K13
@@ -65,7 +72,8 @@ UNEXPECTED = "unexpected:"
 # vit_full:: K12, vit_full_int8:: K20,
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
-# mlp_int8_static:: K17, attn_int8_static:: K18, mlp_chunk:: K3 (K1 and K2
+# mlp_int8_static:: K17, attn_int8_static:: K18, mlp_int8_stats:: K21a,
+# attn_int8_stats:: K21b, mlp_chunk:: K3 (K1 and K2
 # run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<1>
 # (max-free) at every length, K4 row_stats_kernel, gw_kernel and
 # mha_wgmma_kernel<2> (safe) or <1>, K5 ln_rows_kernel and gw_kernel, K3
@@ -78,15 +86,18 @@ UNEXPECTED = "unexpected:"
 # bwd_kv_kernel; K6 ln_rows_kernel and K3's two gw_kernel launches:
 # any other attn_half::, mlp_half::, attn_block::, mlp::, mlp_chunk::,
 # mlp_chunk_blk::, attn_bwd:: or mlp_bwd:: record, such as the wmma GEMM or
-# attention tiles they ran before, is reported as unexpected),
+# attention tiles they ran before, is reported as unexpected; so is any
+# attn_int8:: or mlp_int8_stats:: record but K16's and K21a's wgmma
+# launches and row passes),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # wmma int8 GEMM's (qgemm_kernel) template argument is its epilogue (0
-# plain, 1 residual, 2 f32 with row maxima, 3 int8 with the static scale),
-# the wgmma one's (qgemm_wgmma_kernel, K13 and K15) its tile width and
-# epilogue (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the
-# residual; K15's W2 takes 128-wide tiles), quant_rows_kernel's second one
-# its LayerNorm (0 none, 1 one-pass, 2 two-pass).  The first fragment
-# found wins.
+# plain, 1 residual, 3 int8 with the static scale), the wgmma one's
+# (qgemm_wgmma_kernel, K13, K15, K16 and K21a) its tile width and epilogue
+# (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the residual,
+# 4 bf16; the residual takes 128-wide tiles), mha_wgmma_kernel's its mode
+# (1 max-free, 2 safe), quant_rows_kernel's second one its LayerNorm (0
+# none, 1 one-pass, 2 two-pass, 3 from the producer's stats).  The first
+# fragment found wins.
 STAGES = (
     ("vit_full_int8::", "K20 int8 whole model, one launch"),
     ("vit_full::", "K12 bf16 whole model, one launch"),
@@ -106,11 +117,33 @@ STAGES = (
     ("mlp_int8::", "K15 other"),
     ("attn_int8::quant_rows_kernel<__nv_bfloat16,1",
      "K16 (a) LN + row quant"),
-    ("attn_int8::qgemm_kernel<0>", "K16 (b) int8 QKV GEMM"),
-    ("attn_int8::attn_kernel", "K16 (c) attention"),
+    ("attn_int8::qgemm_wgmma_kernel<256,4>", "K16 (b) int8 QKV GEMM, bf16"),
+    ("attn_int8::qgemm_wgmma_kernel<128,4>", "K16 (b) int8 QKV GEMM, bf16"),
+    ("attn_int8::mha_wgmma_kernel<1>", "K16 (c) attention, max-free"),
     ("attn_int8::quant_rows_kernel<__nv_bfloat16,0", "K16 (d) ao row quant"),
-    ("attn_int8::qgemm_kernel<1>", "K16 (e) int8 out-proj + residual"),
-    ("attn_int8::", "K16 other"),
+    ("attn_int8::qgemm_wgmma_kernel<128,3>",
+     "K16 (e) int8 out-proj + residual"),
+    ("attn_int8::", UNEXPECTED + " K16 kernel"),
+    ("mlp_int8_stats::quant_rows_kernel",
+     "K21a (a) LN from stats + row quant"),
+    ("mlp_int8_stats::qgemm_wgmma_kernel<256,2>",
+     "K21a (b) int8 W1 GEMM + act, f32 h + row max"),
+    ("mlp_int8_stats::qgemm_wgmma_kernel<128,2>",
+     "K21a (b) int8 W1 GEMM + act, f32 h + row max"),
+    ("mlp_int8_stats::quant_amax_kernel", "K21a (c) h row quant"),
+    ("mlp_int8_stats::qgemm_wgmma_kernel<128,3>",
+     "K21a (d) int8 W2 GEMM + residual"),
+    ("mlp_int8_stats::row_stats_kernel", "K21a (e) next stats"),
+    ("mlp_int8_stats::", UNEXPECTED + " K21a kernel"),
+    ("attn_int8_stats::quant_rows_kernel<__nv_bfloat16,3",
+     "K21b (a) LN from stats + row quant"),
+    ("attn_int8_stats::qgemm_kernel<0>", "K21b (b) int8 QKV GEMM"),
+    ("attn_int8_stats::attn_kernel", "K21b (c) attention"),
+    ("attn_int8_stats::quant_rows_kernel<__nv_bfloat16,0",
+     "K21b (d) ao row quant"),
+    ("attn_int8_stats::qgemm_kernel<1>", "K21b (e) int8 out-proj + residual"),
+    ("attn_int8_stats::row_stats_kernel", "K21b (f) next stats"),
+    ("attn_int8_stats::", "K21b other"),
     ("mlp_int8_static::quant_rows_kernel", "K17 (a) LN + rint rows"),
     ("mlp_int8_static::qgemm_kernel<3>",
      "K17 (b) int8 W1 GEMM + scaled act + rint"),
@@ -248,10 +281,17 @@ def _int8_tree(cfg, params, static):
             else quantized.quantize_vit_fast(params))
 
 
-def _serve_int8_run(cfg, batch, static):
+def _serve_int8_run(cfg, batch, static, chain=False):
     """One served int8 forward: make_forward_int8 on quantize_vit_fast (or
-    quantize_vit_static) of the seed-0 weights, a seeded uint8 batch."""
+    quantize_vit_static) of the seed-0 weights, a seeded uint8 batch; with
+    ``chain`` the int8 stats chain's switch is on for the rest of the
+    process (raises where the chain would not run)."""
     from .models import quantized, vit
+    if chain:
+        quantized._INT8_STATS_CHAIN = True
+        if not quantized._int8_stats_chain_supported(cfg, batch):
+            raise ValueError(f"the int8 stats chain does not run at "
+                             f"{cfg.seq_len} tokens, batch {batch}")
     gen = torch.Generator()
     gen.manual_seed(0)
     qparams = _int8_tree(cfg, vit.init_params(cfg, gen, device="cuda"),
@@ -394,8 +434,13 @@ def main(argv=None) -> int:
     mode.add_argument("--per-tensor", action="store_true",
                       help="profile the per-tensor int8 forward (K13, K7 "
                            "in f32)")
-    ap.add_argument("--static", action="store_true",
-                    help="with --int8: the calibrated static-scale tree")
+    int8_tree = ap.add_mutually_exclusive_group()
+    int8_tree.add_argument("--static", action="store_true",
+                           help="with --int8: the calibrated static-scale "
+                                "tree")
+    int8_tree.add_argument("--chain", action="store_true",
+                           help="with --int8: the gated int8 stats chain "
+                                "(_INT8_STATS_CHAIN on; K21b, K21a)")
     single = ap.add_mutually_exclusive_group()
     single.add_argument("--latency", action="store_true",
                         help="profile the single-launch batch-1 encoder's "
@@ -410,8 +455,11 @@ def main(argv=None) -> int:
     if args.full and args.static:
         ap.error("--full runs the dynamic int8 tree (K20), not the static "
                  "one")
-    if args.static and not args.int8:
-        ap.error("--static selects the int8 tree: give --int8 too")
+    if (args.static or args.chain) and not args.int8:
+        ap.error("--static and --chain select the int8 path: give --int8 "
+                 "too")
+    if args.chain and (args.latency or args.full):
+        ap.error("--chain runs the throughput forward's encoder")
     if args.batch is None:
         args.batch = 1 if args.latency or args.full else 64
 
@@ -432,7 +480,7 @@ def main(argv=None) -> int:
         run = _latency_run(cfg, args.batch, args.int8, args.static,
                            full=args.full)
     elif args.int8:
-        run = _serve_int8_run(cfg, args.batch, args.static)
+        run = _serve_int8_run(cfg, args.batch, args.static, args.chain)
     elif args.train:
         run = _train_run(cfg, args.batch)
     elif args.per_tensor:
@@ -441,6 +489,8 @@ def main(argv=None) -> int:
         run = _serve_run(family, cfg, args.batch)
     if args.static:
         mode += "-static"
+    if args.chain:
+        mode += "-chain"
 
     run()
     torch.cuda.synchronize()
