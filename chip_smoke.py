@@ -1612,9 +1612,12 @@ def _k16_work(batch, n_pad, n_valid, d, heads):
 
 
 # The int8 halves whose device-alone times (torch.profiler, the wrapper's
-# host time out) are printed beside the per-call ones: K16 and K21a.
+# host time out) are printed beside the per-call ones: K16, K21a, K18 and
+# K21b, the attention halves also past 256 keys.
 DEVICE_ALONE = ("attn_block_int8", "mlp_block_int8_stats",
-                "attn_block_int8_long")
+                "attn_block_int8_long", "attn_block_int8_static",
+                "attn_block_int8_stats", "attn_block_int8_static_long",
+                "attn_block_int8_stats_long")
 
 
 def _device_alone_pair(name, kern, lib, lib_ran):
@@ -2068,7 +2071,7 @@ def phase_static_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
     bytes of K16 and K15).  Returns {name: dict of times}."""
     from vit_fpga_tpu_torch.ops import quant_block as qb
     from vit_fpga_tpu_torch.utils.timing import time_cuda
-    rows, dh, vec = batch * n_pad, d // heads, 4
+    rows, vec = batch * n_pad, 4
     xa, _, pa = _attn_inputs(batch, n_pad, d, seed=140)
     aa, _, _ = _static_attn_args(xa, _int8_weights(pa, ("wqkv", "wo")),
                                  heads, n_valid)
@@ -2081,8 +2084,7 @@ def phase_static_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
             lambda: _k18(qb.attn_block_int8_static_plain, xa, aa, heads,
                          n_valid),
             _static_library(xa, aa, "attn", heads, n_valid),
-            8 * rows * d * d, 4 * batch * heads * n_pad * n_valid * dh,
-            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * vec),
+            *_k16_work(batch, n_pad, n_valid, d, heads)),
         "mlp_block_int8_static": (
             lambda: _k17(qb.mlp_block_int8_static, x2, am, "gelu_tanh"),
             lambda: _k17(qb.mlp_block_int8_static_plain, x2, am,
@@ -2103,6 +2105,8 @@ def phase_static_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
               f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 ops "
               f"+ {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+        out[name].update(_device_alone_pair(name, kern, lib,
+                                            lib_ms is not None))
     return out
 
 
@@ -4945,6 +4949,43 @@ def _stats_parity(label, got, got_st, dtype):
              STATS_ATOL)
 
 
+def _k21b_library(xa, sta, qa, heads, n_valid):
+    """K21b's library yardstick on (B, n_pad, D) ``xa`` and its f32 stats:
+    the LN from the stats, the row quantization in torch ops,
+    torch._int_mm, the dequantization, SDPA with the key mask, the
+    out-projection the same way, the next stats in torch ops."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    batch, n_pad, d = xa.shape
+    rows, dh, bf, rq = batch * n_pad, d // heads, torch.bfloat16, qf._row_quant
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+
+    def mm(aq, wq, sa, ws, b):     # (K, N) wq column-major, as _int_mm takes
+        return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+    def run():
+        h = (xa.float() - sta[..., :1]) * sta[..., 1:] * qa["ln_scale"] \
+            + qa["ln_bias"]
+        xq, sx = rq(h.reshape(rows, d))
+        qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"], qa["bqkv"]).to(bf)
+        qkv = qkv.view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        aq, sa = rq(ao.transpose(1, 2).reshape(rows, d).float())
+        out = xa.reshape(rows, d) + mm(aq, qa["wo_q"], sa, qa["wo_s"],
+                                       qa["bo"]).to(bf)
+        return out, row_stats(out, EPS)
+    return run
+
+
+def _k21b_work(batch, n_pad, n_valid, d, heads):
+    """K21b's (int8 operations, bf16 attention FLOPs, compulsory bytes):
+    K16's, and its f32 stats in and out."""
+    ops8, flops, nbytes = _k16_work(batch, n_pad, n_valid, d, heads)
+    return ops8, flops, nbytes + 2 * batch * n_pad * 2 * 4
+
+
 def _requant_bound(step, wq):
     """A requantized row's move: one step on each of its K int8 inputs,
     step * sum_k |wq[k, n]| / 127 (``wq`` the last GEMM's (K, N) weight)."""
@@ -5189,16 +5230,6 @@ def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
                                             scale=scale)
         return ao.transpose(1, 2).reshape(rows, d).float()
 
-    def lib_k21b():
-        h = (xa.float() - sta[..., :1]) * sta[..., 1:] * qa["ln_scale"] \
-            + qa["ln_bias"]
-        xq, sx = rq(h.reshape(rows, d))
-        qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"], qa["bqkv"]).to(bf)
-        aq, sa = rq(sdpa(qkv))
-        out = xa.reshape(rows, d) + mm(aq, qa["wo_q"], sa, qa["wo_s"],
-                                       qa["bo"]).to(bf)
-        return out, row_stats(out, EPS)
-
     def lib_k21a():
         h = (x2.float() - st2[:, :1]) * st2[:, 1:] * qm["ln_scale"] \
             + qm["ln_bias"]
@@ -5231,9 +5262,8 @@ def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
                           n_valid, True),
             lambda: _k21b(qb.attn_block_int8_stats_plain, xa, sta, qa,
                           heads, n_valid, True),
-            lib_k21b, 8 * rows * d * d, attn_ops,
-            2 * rows * d * 2 + stats_bytes + 4 * d * d
-            + (2 * d + 6 * d + 2 * d) * vec),
+            _k21b_library(xa, sta, qa, heads, n_valid),
+            *_k21b_work(batch, n_pad, n_valid, d, heads)),
         "mlp_block_int8_stats": (
             lambda: _k21a(qb.mlp_block_int8_stats, x2, st2, qm, "gelu_tanh",
                           True),
@@ -6096,6 +6126,190 @@ def run_k16_long_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: K18 and K21b on K16's wgmma + TMA sequence past 256 keys, and
+# the static tree and the int8 chain served at ViT-B/16 @384
+# ---------------------------------------------------------------------------
+
+LONG_HALVES = ("attn_block_int8_static_long", "attn_block_int8_stats_long")
+
+
+def _k18_k21b_loud(batch=4, n_pad=584, n_valid=577, d=768, heads=12):
+    """K18 and K21b with their padding rows (7 at 577 valid keys of 584) of
+    huge spikes: the valid rows (and K21b's stats there) must equal, bit
+    for bit, the kernels' own on quiet padding rows (their keys are
+    masked), and match the plain versions on the loud input.  Returns
+    (K18's, K21b's max-abs error)."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    x, _, p = _attn_inputs(batch, n_pad, d, seed=272)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    a, _, _ = _static_attn_args(x, q, heads, n_valid)
+    loud = x.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 100] = -1e3
+    st_q, st_l = row_stats(x, EPS), row_stats(loud, EPS)
+    valid = (slice(None), slice(0, n_valid))
+    print(f"K18 / K21b loud padding ({batch}, {n_pad}, {d}): spikes in rows "
+          f"{n_valid}..{n_pad - 1}")
+    quiet18 = _k18(qb.attn_block_int8_static, x, a, heads, n_valid)
+    noisy18 = _k18(qb.attn_block_int8_static, loud, a, heads, n_valid)
+    err18 = _int8_parity(
+        "K18 loud padding", noisy18,
+        _k18(qb.attn_block_int8_static_plain, loud, a, heads, n_valid),
+        (127.0 * a["wo_s"]).expand(batch, n_pad, d), loud, rows=valid,
+        mag_x=True)
+    quiet, sq = _k21b(qb.attn_block_int8_stats, x, st_q, q, heads, n_valid,
+                      True)
+    noisy, sn = _k21b(qb.attn_block_int8_stats, loud, st_l, q, heads,
+                      n_valid, True)
+    step = _k21b_step(loud, st_l, q, heads, n_valid)
+    err21 = _int8_parity(
+        "K21b loud padding", noisy,
+        _k21b(qb.attn_block_int8_stats_plain, loud, st_l, q, heads, n_valid,
+              True)[0], step, loud, rows=valid, mag_x=True,
+        row_bound=_requant_bound(step, q["wo_q"]))
+    for what, g, w in (("K18 out", noisy18, quiet18), ("K21b out", noisy,
+                                                       quiet),
+                       ("K21b stats", sn, sq)):
+        moved = float((g[valid].float() - w[valid].float()).abs().max())
+        print(f"  {what} valid rows, loud vs quiet padding: "
+              f"max_abs={moved:.3e} (must be 0)")
+        if moved != 0.0:
+            raise AssertionError(f"{what}: padding rows moved the valid rows")
+    return err18, err21
+
+
+def phase_k18_k21b_long_kernels(d=768, heads=12):
+    """K18 and K21b past 256 keys against their plain versions on the card,
+    right after the build: at K16_LONG_CASES K18 calibrated on its input
+    (quiet) and on half its range (saturating: the clipped shares must be
+    > 0), K21b on stats that are not x's own, f32 (both emit_stats) and
+    bf16, each in its int8 band; loud padding at 577 valid keys of 584 bit
+    for bit (``_k18_k21b_loud``); the gates: ViT-B/16 @1024's 4097 tokens
+    (past the JAX int8 plan) and head dim 80 raise.  Returns {row name:
+    largest max-abs error}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    worst = dict.fromkeys(LONG_HALVES, 0.0)
+    for i, (b, n_pad, n_valid) in enumerate(K16_LONG_CASES):
+        x, st, p = _attn_inputs(b, n_pad, d, seed=270 + i)
+        q = _int8_weights(p, ("wqkv", "wo"))
+        valid = (slice(None), slice(0, n_valid))
+        for label, shrink in (("quiet", 1.0), ("saturating", SHRINK)):
+            a, cx, cao = _static_attn_args(x, q, heads, n_valid, shrink)
+            print(f"parity K18 past 256 keys ({b}, {n_pad}, {d}), n_valid="
+                  f"{n_valid} {label}: clipped share xq {cx:.3e}, aoq "
+                  f"{cao:.3e}")
+            if shrink > 1.0 and not min(cx, cao) > 0.0:
+                raise AssertionError("K18 saturating case: nothing clipped")
+            worst[LONG_HALVES[0]] = max(worst[LONG_HALVES[0]], _int8_parity(
+                f"K18 ({b}, {n_pad}) {n_valid} valid {label}",
+                _k18(qb.attn_block_int8_static, x, a, heads, n_valid),
+                _k18(qb.attn_block_int8_static_plain, x, a, heads, n_valid),
+                (127.0 * a["wo_s"]).expand(b, n_pad, d), x, rows=valid,
+                mag_x=True))
+        fs = _foreign(st)
+        print(f"parity K21b past 256 keys ({b}, {n_pad}, {d}), n_valid="
+              f"{n_valid}, foreign stats")
+        worst[LONG_HALVES[1]] = max(worst[LONG_HALVES[1]], _chain_case(
+            f"K21b ({b}, {n_pad}) {n_valid} valid",
+            lambda e, dt: _k21b(qb.attn_block_int8_stats, x, fs.to(dt), q,
+                                heads, n_valid, e),
+            lambda e, dt: _k21b(qb.attn_block_int8_stats_plain, x,
+                                fs.to(dt), q, heads, n_valid, e),
+            _k21b_step(x, fs, q, heads, n_valid), x, q["wo_q"], rows=valid))
+    for name, err in zip(LONG_HALVES, _k18_k21b_loud(d=d, heads=heads)):
+        worst[name] = max(worst[name], err)
+    x, st, p = _attn_inputs(1, 200, d, seed=273)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    a, _, _ = _static_attn_args(x, q, heads, 197)
+    big = torch.zeros((1, 4104, d), dtype=torch.bfloat16, device="cuda")
+    big_st = torch.zeros((1, 4104, 2), device="cuda")
+    _expect_raise("K18 at ViT-B/16 @1024 (1, 4104, 768), 4097 valid",
+                  lambda: _k18(qb.attn_block_int8_static, big, a, heads,
+                               4097))
+    _expect_raise("K21b at ViT-B/16 @1024 (1, 4104, 768), 4097 valid",
+                  lambda: _k21b(qb.attn_block_int8_stats, big, big_st, q,
+                                heads, 4097, True))
+    _expect_raise("K18 at head dim 80",
+                  lambda: _k18(qb.attn_block_int8_static,
+                               x[..., :720].contiguous(), a, 9, 197))
+    _expect_raise("K21b at head dim 80",
+                  lambda: _k21b(qb.attn_block_int8_stats,
+                                x[..., :720].contiguous(), st, q, 9, 197,
+                                True))
+    return worst
+
+
+def phase_k18_k21b_long_timing(d=768, heads=12):
+    """K18 and K21b at K16_LONG_TIMED (ViT-B/16 @384 b16): each kernel's
+    time, its plain version's, its library yardstick's (SDPA with the key
+    mask), the bound and the device-alone pair.  Returns {row name: dict
+    of times}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    b, n_pad, n_valid = K16_LONG_TIMED
+    x, st, p = _attn_inputs(b, n_pad, d, seed=274)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    a, _, _ = _static_attn_args(x, q, heads, n_valid)
+    cases = {
+        LONG_HALVES[0]: (
+            lambda: _k18(qb.attn_block_int8_static, x, a, heads, n_valid),
+            lambda: _k18(qb.attn_block_int8_static_plain, x, a, heads,
+                         n_valid),
+            _static_library(x, a, "attn", heads, n_valid),
+            *_k16_work(b, n_pad, n_valid, d, heads)),
+        LONG_HALVES[1]: (
+            lambda: _k21b(qb.attn_block_int8_stats, x, st, q, heads, n_valid,
+                          True),
+            lambda: _k21b(qb.attn_block_int8_stats_plain, x, st, q, heads,
+                          n_valid, True),
+            _k21b_library(x, st, q, heads, n_valid),
+            *_k21b_work(b, n_pad, n_valid, d, heads)),
+    }
+    out = {}
+    for name, (kern, plain, lib, ops8, flops, nbytes) in cases.items():
+        ms = time_cuda(kern)
+        plain_ms = time_cuda(plain, iters=5, warmup=1)
+        lib_ms = _library_ms(lib, name)
+        bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        print(f"timing {name} ({b}, {n_pad}, {d}) {n_valid} valid: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 "
+              f"ops + {flops / 1e9:.2f} GFLOP bf16, {nbytes / 1e6:.2f} MB)")
+        out[name].update(_device_alone_pair(name, kern, lib,
+                                            lib_ms is not None))
+    return out
+
+
+def run_k18_k21b_long_phases(errors, timing, launches):
+    """Phase 22 after the earlier slices' phases (its parity ran right
+    after the build): K18's and K21b's times past 256 keys, then
+    ImageServer over make_forward_int8(ViT-B/16 @384) answers 6 uint8
+    requests at batch 4 on the static tree (12 K18 + 12 K17 + 1 K14 a
+    batch) and 6 with the int8 stats chain on (12 K21b + 12 K21a + 1 K14)
+    and nothing else, logits against the CPU plain forward in the int8
+    band; the static, chain and dynamic int8 @384 b16 forwards timed in
+    turns.  Their K18 and K21b launches are the JSON line's past-256-key
+    rows."""
+    for name, t in phase_k18_k21b_long_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    served, fwd_static, _, cfg, _ = phase_int8_slice(
+        n_images=6, batch=4, mode="static", image_size=384)
+    launches[LONG_HALVES[0]] = served["attn_block_int8_static"]
+    served, fwd_chain, _, _, fwd_int8 = phase_int8_slice(
+        n_images=6, batch=4, mode="chain", image_size=384)
+    launches[LONG_HALVES[1]] = served["attn_block_int8_stats"]
+    phase_int8_forward_time({"int8 @384": fwd_int8,
+                             "int8 static @384": fwd_static,
+                             "int8 chain @384": fwd_chain}, cfg,
+                            batch=K16_LONG_TIMED[0])
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6134,6 +6348,7 @@ def main() -> int:
     errors["attn_block_int8"] = max(errors["attn_block_int8"],
                                     phase_int8_loud())
     errors["attn_block_int8_long"] = phase_k16_long_kernels()
+    errors.update(phase_k18_k21b_long_kernels())
     errors["mlp_block_int8"] = max(errors["mlp_block_int8"], _k15_edges())
     errors.update(phase_static_kernels(8))
     phase_parity()
@@ -6173,6 +6388,7 @@ def main() -> int:
     run_chain_phases(errors, timing, launches)
     run_odd_phases(errors, timing, launches)
     run_k16_long_phases(errors, timing, launches)
+    run_k18_k21b_long_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -6235,6 +6451,12 @@ def main() -> int:
         "attn_block_int8_static_scores": (
             "vit_fpga_tpu_torch/csrc/attn_int8_scores.cu",
             "vit_fpga_tpu/ops/quant_block.py:850"),
+        "attn_block_int8_static_long": (
+            "vit_fpga_tpu_torch/csrc/attn_int8_static.cu",
+            "vit_fpga_tpu/ops/quant_block.py:729"),
+        "attn_block_int8_stats_long": (
+            "vit_fpga_tpu_torch/csrc/attn_int8_stats.cu",
+            "vit_fpga_tpu/ops/quant_block.py:457"),
         "attn_block_fwd_long": ("vit_fpga_tpu_torch/csrc/mha_wgmma.cuh",
                                 "vit_fpga_tpu/ops/attn_block.py:371"),
         "attn_block_bwd_long": ("vit_fpga_tpu_torch/csrc/attn_bwd.cu",

@@ -1,6 +1,6 @@
 """K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's, K9's,
-K19a's, K20's, K19b's, K12's, K11's, K15's, K16's or K21a's time at a
-shape, from the package tree
+K19a's, K20's, K19b's, K12's, K11's, K15's, K16's, K21a's, K18's or K21b's
+time at a shape, from the package tree
 found under ROOT, so that two versions of the port are compared in one
 call on one card.
 
@@ -8,7 +8,7 @@ Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
         [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12|
-                  k11|k15|k16|k21a]
+                  k11|k15|k16|k21a|k18|k21b]
         [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT] [--a-region]
         [--k15 VARIANT] [--k16 VARIANT]
@@ -102,6 +102,19 @@ that are not x's own, emitting stats) at ``--mlp-shape`` the same way as
 torch ops, the next stats in torch ops), with K15 and K16 at b64 as the
 controls, then the b64 forward with the int8 stats chain switched on and
 the dynamic one.
+``--kernel k18`` times ``attn_block_int8_static`` and ``--kernel k21b``
+``attn_block_int8_stats`` (f32 stats of x, emitting stats) as ``--kernel
+k16`` times K16: at (64, 200, 768) with 197 valid keys per call, device
+alone and step by step, and at (16, 584, 768) with 577 per call and device
+alone (a tree whose kernel refuses it skips it), on chip_smoke.py's timing
+inputs (K18 calibrated on its own input, as ``_static_attn_args``), each
+first checked against its plain version in the int8 band and beside its
+library call (the torch ops of ``chip_smoke._static_library`` for K18; the
+LN from the stats, the row quantization in torch ops, torch._int_mm, SDPA
+with the key mask and the next stats in torch ops for K21b), with K16 and
+K15 at b64 as the controls, then the forwards through them from uint8:
+the static int8 ViT-B/16 b64 and @384 b16 (K18), or the dynamic one and
+the int8 stats chain at both (K21b), where the tree serves them.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -398,37 +411,45 @@ def time_k9_paths(g):
 
 
 def time_int8_forwards(g, kernel):
-    """The dynamic int8 ViT-B/16 forwards from uint8 on seeded random
-    weights (quantize_vit_fast), five estimates of 5 calls each: at b64
-    (12 K16 + 12 K15 + K14); with ``kernel`` k16 also at @384 b16 where the
-    tree serves it; with k21a also at b64 with the int8 stats chain on
-    (12 K21b + 12 K21a + K14)."""
+    """The int8 ViT-B/16 forwards from uint8 on seeded random weights,
+    five estimates of 5 calls each: at b64 the dynamic one (quantize_vit_
+    fast: 12 K16 + 12 K15 + K14), with ``kernel`` k18 the static one
+    instead (quantize_vit_static: 12 K18 + 12 K17 + K14); with k16, k18
+    and k21b also at @384 b16 where the tree serves it; with k21a and k21b
+    also with the int8 stats chain on (12 K21b + 12 K21a + K14)."""
     import torch
     from vit_fpga_tpu_torch.models import quantized, vit
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     out = {}
     for image, batch in ((224, 64), (384, 16)):
-        if image == 384 and kernel != "k16":
+        if image == 384 and kernel not in ("k16", "k18", "k21b"):
             continue
         cfg = vit.config("vit_b16", image_size=image, dtype="bfloat16")
-        fq = quantized.make_forward_int8(cfg, quantized.quantize_vit_fast(
-            vit.init_params(cfg, g, device="cuda")))
+        params = vit.init_params(cfg, g, device="cuda")
+        static = kernel == "k18"
+        fq = quantized.make_forward_int8(
+            cfg, quantized.quantize_vit_static(params, cfg) if static
+            else quantized.quantize_vit_fast(params))
         img = torch.randint(0, 256, (batch, image, image, 3), generator=g,
                             dtype=torch.uint8).cuda()
-        label = f"ViT-B/16 @{image} b{batch} dynamic int8 forward (uint8 in)"
+        tree = "static" if static else "dynamic"
+        label = f"ViT-B/16 @{image} b{batch} {tree} int8 forward (uint8 in)"
         try:
             fq(img)
+            out[label] = [time_cuda(lambda: fq(img), iters=5, warmup=2)
+                          for _ in range(5)]
         except ValueError as e:
             print(f"{label}: not served by this tree ({e})")
-            continue
-        out[label] = [time_cuda(lambda: fq(img), iters=5, warmup=2)
-                      for _ in range(5)]
-        if kernel == "k21a":
+        if kernel in ("k21a", "k21b"):
+            label = (f"ViT-B/16 @{image} b{batch} int8 stats chain forward "
+                     "(uint8 in)")
             quantized._INT8_STATS_CHAIN = True
             try:
-                out[f"ViT-B/16 @{image} b{batch} int8 stats chain forward "
-                    "(uint8 in)"] = [time_cuda(lambda: fq(img), iters=5,
-                                               warmup=2) for _ in range(5)]
+                fq(img)
+                out[label] = [time_cuda(lambda: fq(img), iters=5, warmup=2)
+                              for _ in range(5)]
+            except ValueError as e:
+                print(f"{label}: not served by this tree ({e})")
             finally:
                 quantized._INT8_STATS_CHAIN = False
     return out
@@ -473,7 +494,8 @@ def main() -> int:
     ap.add_argument("--kernel",
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
                              "k23", "k6", "k13", "k9", "k19a", "k20",
-                             "k19b", "k12", "k11", "k15", "k16", "k21a"),
+                             "k19b", "k12", "k11", "k15", "k16", "k21a",
+                             "k18", "k21b"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -956,6 +978,106 @@ def main() -> int:
         qa = cs._int8_weights(pa, ("wqkv", "wo"))
         runs["K16 control (64, 200, 768)"] = (
             lambda: cs._k16(qb.attn_block_int8, xa, qa, 12, 197))
+    elif args.kernel in ("k18", "k21b"):
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import quant_block as qb
+        from vit_fpga_tpu_torch.ops import quant_fused as qf
+        rq = qf._row_quant
+
+        def mm(aq, wq, sa, ws, b):  # (K, N) wq column-major, as _int_mm takes
+            return torch._int_mm(aq, wq).float() * (sa * ws) + b
+
+        def k21b_lib(xa, sta, qa, n_valid, heads=12):
+            b, n_pad, d = xa.shape
+            rows = b * n_pad
+            keep = (torch.arange(n_pad, device="cuda")
+                    < n_valid)[None, None, None]
+
+            def lib():
+                h = ((xa.float() - sta[..., :1]) * sta[..., 1:]
+                     * qa["ln_scale"] + qa["ln_bias"])
+                xq, sx = rq(h.reshape(rows, d))
+                qkv = mm(xq, qa["wqkv_q"], sx, qa["wqkv_s"],
+                         qa["bqkv"]).to(torch.bfloat16)
+                qkv = qkv.view(b, n_pad, 3, heads, d // heads)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+                aq, sa = rq(ao.transpose(1, 2).reshape(rows, d).float())
+                out = xa.reshape(rows, d) + mm(
+                    aq, qa["wo_q"], sa, qa["wo_s"],
+                    qa["bo"]).to(torch.bfloat16)
+                return out, row_stats(out, cs.EPS)
+            return lib
+
+        runs = {}
+        shape = []
+        name = "K18" if args.kernel == "k18" else "K21b"
+        # chip_smoke.py's timing inputs (K18 seed 140 at b64, K21b 170; 274
+        # past 256 keys)
+        for b, n_pad, n_valid, seed in (
+                (64, 200, 197, 140 if args.kernel == "k18" else 170),
+                (16, 584, 577, 274)):
+            xa, sta, pa = cs._attn_inputs(b, n_pad, 768, seed)
+            qa = cs._int8_weights(pa, ("wqkv", "wo"))
+            label = f"{name} ({b}, {n_pad}, 768) n_valid {n_valid}"
+            shape.append([b, n_pad, n_valid, 768, 12])
+            valid = (slice(None), slice(0, n_valid))
+            if args.kernel == "k18":
+                a, _, _ = cs._static_attn_args(xa, qa, 12, n_valid)
+
+                def run(xa=xa, a=a, n_valid=n_valid):
+                    return cs._k18(qb.attn_block_int8_static, xa, a, 12,
+                                   n_valid)
+
+                def check(got, xa=xa, a=a, n_valid=n_valid, b=b,
+                          n_pad=n_pad, label=label, valid=valid):
+                    # the int8 band, one row in FLIP_ROWS allowed one
+                    # rounding event of its own (a flipped xq moves the
+                    # row's attention, so its whole aoq row), as for K16
+                    step = (127.0 * a["wo_s"]).expand(b, n_pad, 768)
+                    cs._int8_parity(
+                        label, got, cs._k18(qb.attn_block_int8_static_plain,
+                                            xa, a, 12, n_valid), step, xa,
+                        rows=valid, mag_x=True,
+                        row_bound=cs._requant_bound(step, a["wo_q"]))
+                lib = cs._static_library(xa, a, "attn", 12, n_valid)
+            else:
+                def run(xa=xa, sta=sta, qa=qa, n_valid=n_valid):
+                    return cs._k21b(qb.attn_block_int8_stats, xa, sta, qa, 12,
+                                    n_valid, True)
+
+                def check(got, xa=xa, sta=sta, qa=qa, n_valid=n_valid,
+                          label=label, valid=valid):
+                    step = cs._k21b_step(xa, sta, qa, 12, n_valid)
+                    cs._int8_parity(
+                        label, got[0],
+                        cs._k21b(qb.attn_block_int8_stats_plain, xa, sta, qa,
+                                 12, n_valid, True)[0], step, xa,
+                        rows=valid, mag_x=True,
+                        row_bound=cs._requant_bound(step, qa["wo_q"]))
+                lib = k21b_lib(xa, sta, qa, n_valid)
+            try:
+                got = run()
+            except ValueError as e:
+                print(f"{label}: not taken by this tree ({e})")
+                got = None
+            if got is not None:
+                check(got)
+                runs[f"{label} per call"] = run
+                device[f"{label} device alone"] = run
+                if b == 64:
+                    steps[label] = run
+            runs[f"library ({b}, {n_pad}) per call"] = lib
+            device[f"library ({b}, {n_pad}) device alone"] = lib
+        xc, _, pc = cs._attn_inputs(64, 200, 768, 90)
+        qc = cs._int8_weights(pc, ("wqkv", "wo"))
+        runs["K16 control (64, 200, 768)"] = (
+            lambda: cs._k16(qb.attn_block_int8, xc, qc, 12, 197))
+        xm, _, pm = cs._mlp_inputs(12800, 768, 3072, 93)
+        qm = cs._int8_weights(pm, ("w1", "w2"))
+        runs["K15 control (12800, 768) x 3072"] = (
+            lambda: cs._k15(qb.mlp_block_int8, xm, qm, "gelu_tanh"))
     elif args.kernel in ("k16", "k21a"):
         sys.path.insert(0, str(root))
         import chip_smoke as cs
@@ -1109,7 +1231,7 @@ def main() -> int:
         ms.update(time_k13_paths(g))
     if args.kernel == "k9":
         ms.update(time_k9_paths(g))
-    if args.kernel in ("k16", "k21a"):
+    if args.kernel in ("k16", "k21a", "k18", "k21b"):
         ms.update(time_int8_forwards(g, args.kernel))
     if args.kernel in ("k24", "k23"):
         ms.update(time_sgd_step(g))

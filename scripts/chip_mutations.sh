@@ -195,12 +195,25 @@ run_copy k16_key_mask_at_n_pad attn_int8.cu \
   "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid, scale," \
   "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid > 256 ? n_pad : n_valid, scale,"
 # K21b emitting the stats of the f32 sum x + bf16(y) instead of out's bf16
-# values: the out-projection runs once more into an f32 scratch (the qkv
-# buffer) and a one-pass stats kernel added to the copy reads that
+# values: a plain out-projection added to the copy writes that sum into an
+# f32 scratch (the qkv buffer) after the wgmma one, and a one-pass stats
+# kernel added to the copy reads it
 run_copy k21b_f32_sum_stats attn_int8_stats.cu \
   "namespace {
 " \
   "namespace {
+
+__global__ void f32_sum_kernel(const signed char* aq, const float* sa, const signed char* wo,
+                               const float* so, const float* bo, const bf16* x, float* y,
+                               int rows, int d) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * d) return;
+  const int r = (int)(i / d), c = (int)(i % d);
+  int acc = 0;
+  for (int k = 0; k < d; ++k) acc += (int)aq[(size_t)r * d + k] * (int)wo[(size_t)c * d + k];
+  const float f = __fadd_rn(__fmul_rn((float)acc, __fmul_rn(sa[r], so[c])), bo[c]);
+  y[i] = __bfloat162float(x[i]) + bf16_round(f);
+}
 
 template <typename ST>
 __global__ void f32_stats_kernel(const float* x, ST* st, int rows, int d, float eps) {
@@ -228,15 +241,30 @@ cudaError_t launch_f32_stats(const float* x, ST* st, int rows, int d, float eps,
   return cudaGetLastError();
 }
 " \
-  "  if ((err = launch_qgemm<EPI_RESID>(o, st)) != cudaSuccess) return err;
+  "  if ((err = launch_qgemm_epi<QW_RESID>(q, static_cast<const signed char*>(wo), out, o, st)) !=
+      cudaSuccess)
+    return err;
 " \
-  "  if ((err = launch_qgemm<EPI_RESID>(o, st)) != cudaSuccess) return err;
-  o.C = qkv;
-  o.c_f32 = 1;
-  if ((err = launch_qgemm<EPI_RESID>(o, st)) != cudaSuccess) return err;
+  "  if ((err = launch_qgemm_epi<QW_RESID>(q, static_cast<const signed char*>(wo), out, o, st)) !=
+      cudaSuccess)
+    return err;
+  f32_sum_kernel<<<(unsigned)(((size_t)rows * d + 255) / 256), 256, 0, st>>>(
+      q, sc, static_cast<const signed char*>(wo), o.sb, o.bias, o.residual,
+      static_cast<float*>(qkv), rows, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 " \
   "launch_row_stats(static_cast<const bf16*>(out)," \
   "launch_f32_stats(static_cast<const float*>(qkv),"
+# K21b normalising x with its own one-pass LN statistics instead of the
+# producer's (the parity cases feed stats that are not x's own): the row
+# pass before its QKV on the int8 wgmma GEMM
+run_copy k21b_own_ln_stats attn_int8_stats.cu \
+  "launch_quant_rows<bf16, LN_STATS, false, ST>(" \
+  "launch_quant_rows<bf16, LN_ONE_PASS, false, ST>("
+# K18's int8 attention output without its static scale: aoq = rint(bf16(o
+# / sum e)), the reciprocal alone (mha_wgmma.cuh's Q8 store)
+run_copy k18_out_scale_dropped mha_wgmma.cuh \
+  "const float rv = __fmul_rn(ol[rr], p.out_scale);" "const float rv = ol[rr];"
 # K22 quantising p without the 1/sum(e) factor
 run_copy k22_no_rsum attn_int8_scores.cu \
   "const float p127 = __fmul_rn(127.0f, __fdiv_rn(1.0f, sum));" \

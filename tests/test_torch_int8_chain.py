@@ -180,14 +180,19 @@ def _attn_case(seed=1, b=2, n=24, d=128):
                _mk(rng, (3 * d,), 0.2), woq, wos, _mk(rng, (d,), 0.2))
 
 
+# (rows, valid tokens): 24 padded rows, and past 256 keys, where K21b's
+# attention streams its key tiles on the card (the JAX kernel pads the keys
+# to 384)
 @pytest.mark.parametrize("emit", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_valid", [24, 17])
-def test_attn_block_int8_stats_matches_pallas(n_valid, dtype, emit):
-    """2 heads of 64 on 24 padded rows, 17 or 24 of them valid; stats
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(24, 24, id="24"), pytest.param(24, 17, id="17"),
+    pytest.param(264, 261, id="264-261"), pytest.param(264, 1, id="264-1")])
+def test_attn_block_int8_stats_matches_pallas(n, n_valid, dtype, emit):
+    """2 heads of 64 on 24 (or 264) padded rows, some of them valid; stats
     that are not x's own, f32 or bf16."""
     heads = 2
-    x, args = _attn_case()
+    x, args = _attn_case(n=n)
     xj, xt = _bf16_pair(x)
     stj, stt = _foreign_stats(np.asarray(xt.float()), dtype)
     b, n, _ = x.shape
@@ -377,16 +382,16 @@ def _interp(monkeypatch, name, **kw):
         getattr(jqb, name), interpret=True, **kw))
 
 
-def _jax_composition(jqp, images, jcfg, encoder):
+def _jax_composition(jqp, images, jcfg, encoder, n_pad=N_PAD):
     """The TPU branch of the JAX ``vit_forward_int8_fast`` written out:
-    the dotg embed on bf16(wq * ws), ``encoder(x)``, the CLS LayerNorm and
-    the fused int8 head in interpret mode."""
+    the dotg embed on bf16(wq * ws) onto ``n_pad`` rows, ``encoder(x)``,
+    the CLS LayerNorm and the fused int8 head in interpret mode."""
     n, d = jcfg.seq_len, jcfg.hidden_dim
     x = jvit.preprocess(jnp.asarray(images), jcfg).astype(jnp.bfloat16)
     pe = jqp["patch_embed"]
     pos, pre = jqp["pos_embed"][0], jqp["cls_token"][0]
     posb = jnp.concatenate([pre + pos[:1], pos[1:] + pe["b"],
-                            jnp.zeros((N_PAD - n, d))], axis=0)
+                            jnp.zeros((n_pad - n, d))], axis=0)
     wp = (pe["wq"].astype(jnp.float32) * pe["ws"]).astype(jnp.bfloat16)
     x = encoder(jax_embed(x, wp, posb, jcfg.patch_size, 1))
     cls = jvit._layernorm(x[:, :1], jqp["ln_f_scale"], jqp["ln_f_bias"],
@@ -441,6 +446,39 @@ def test_chain_forward_matches_jax_kernel_composition(monkeypatch,
                         lambda *a: calls.append(1) or real(*a))
     got = tq.make_forward_int8(tcfg, prep, device="cpu")(img)
     assert calls and got.dtype == torch.float32 and got.shape == (3, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=TIGHT * np.abs(want).max())
+
+
+def test_chain_forward_past_256_tokens_matches_jax_kernel_composition(
+        monkeypatch):
+    """A 384-px-like geometry: 577 tokens (24 x 24 patches and the CLS
+    row, ViT-B/16 @384's count) on 584 rows, head dim 64, two narrow
+    layers, the int8 stats chain switched on.  The JAX gate keeps the
+    chain there, and so does the port: every attention half is K21b
+    (attn_block_int8_stats), inside the gate the card applies, and the
+    logits hold to the JAX composition of the Pallas kernels as tightly as
+    at 17 tokens."""
+    monkeypatch.setattr(tq, "_INT8_STATS_CHAIN", True)
+    _interp(monkeypatch, "attn_block_int8_stats")
+    _interp(monkeypatch, "mlp_block_int8_stats", block_t=584)
+    jcfg, tcfg, jqp, tqp = _trees(14, False, image_size=192)
+    assert tcfg.seq_len == 577 and tq._int8_stats_chain_supported(tcfg, 2)
+    shapes = []
+
+    def k21b(x, st, *args, n_valid=None, **kwargs):
+        shapes.append((tuple(x.shape), n_valid))
+        tqb.attn_int8_stats_geometry(*x.shape, args[-1], n_valid)
+        return tqb.attn_block_int8_stats(x, st, *args, n_valid=n_valid,
+                                         **kwargs)
+
+    monkeypatch.setattr(tq, "attn_block_int8_stats", k21b)
+    img = _images(15, b=2, s=192)
+    want = _jax_composition(jqp, img, jcfg, _chain_encoder(jqp, jcfg),
+                            n_pad=584)
+    got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
+    assert shapes == [((2, 584, 128), 577)] * 2
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=TIGHT * np.abs(want).max())
 

@@ -305,11 +305,15 @@ def _attn_case(hot, seed=1, b=2, n=13, d=64, heads=4, n_valid=13):
             (xin[:, :n_valid], aoin[:, :n_valid]))
 
 
+# (tokens, valid tokens): 13 rows, and past 256 keys, where K18's attention
+# streams its key tiles on the card (the JAX kernel pads the keys to 384)
 @pytest.mark.parametrize("hot", [False, True])
-@pytest.mark.parametrize("n_valid", [13, 9])
-def test_attn_block_int8_static_matches_pallas(n_valid, hot):
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(13, 13, id="13"), pytest.param(13, 9, id="9"),
+    pytest.param(264, 261, id="264-261"), pytest.param(264, 1, id="264-1")])
+def test_attn_block_int8_static_matches_pallas(n, n_valid, hot):
     heads = 4
-    x, args, step, pre = _attn_case(hot, n_valid=n_valid)
+    x, args, step, pre = _attn_case(hot, n=n, n_valid=n_valid)
     if hot:
         assert _clipped(pre) > MIN_CLIPPED
     xj, xt = _bf16_pair(x)
@@ -490,18 +494,19 @@ def test_static_wrappers_run_plain_on_cpu_and_check_their_trees():
 # The forwards
 # ---------------------------------------------------------------------------
 
-def _jax_composition(jqp, images, jcfg):
+def _jax_composition(jqp, images, jcfg, n_pad=N_PAD):
     """The TPU branch of the JAX ``vit_forward_int8_fast`` on a static
-    tree written out: the dotg embed on bf16(wq * ws), then per layer
-    attn_block_int8_static -> mlp_block_int8_static in interpret mode,
-    the CLS LayerNorm and the fused int8 head in interpret mode."""
+    tree written out: the dotg embed on bf16(wq * ws) onto ``n_pad`` rows,
+    then per layer attn_block_int8_static -> mlp_block_int8_static in
+    interpret mode, the CLS LayerNorm and the fused int8 head in interpret
+    mode."""
     n, d = jcfg.seq_len, jcfg.hidden_dim
     act = "quick_gelu" if jcfg.hidden_act == "quick_gelu" else "gelu_tanh"
     x = jvit.preprocess(jnp.asarray(images), jcfg).astype(jnp.bfloat16)
     pe = jqp["patch_embed"]
     pos, pre = jqp["pos_embed"][0], jqp["cls_token"][0]
     posb = jnp.concatenate([pre + pos[:1], pos[1:] + pe["b"],
-                            jnp.zeros((N_PAD - n, d))], axis=0)
+                            jnp.zeros((n_pad - n, d))], axis=0)
     wp = (pe["wq"].astype(jnp.float32) * pe["ws"]).astype(jnp.bfloat16)
     x = jax_embed(x, wp, posb, jcfg.patch_size, 1)
     b = x.shape[0]
@@ -513,10 +518,10 @@ def _jax_composition(jqp, images, jcfg):
             blk["wo_s"], blk["bo"], jcfg.num_heads, eps=jcfg.ln_eps,
             n_valid=n, interpret=True)
         x = jqb.mlp_block_int8_static(
-            x.reshape(b * N_PAD, d), blk["inv_ah"], blk["ln2_scale"],
+            x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
             blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"],
             blk["w2_q"], blk["w2_s"], blk["b2"], eps=jcfg.ln_eps, act=act,
-            block_t=32, interpret=True).reshape(b, N_PAD, d)
+            block_t=32, interpret=True).reshape(b, n_pad, d)
     cls = jvit._layernorm(x[:, :1], jqp["ln_f_scale"], jqp["ln_f_bias"],
                           jcfg.ln_eps)
     hd = jqp["head"]
@@ -532,6 +537,37 @@ def test_static_forward_matches_jax_kernel_composition(hidden_act):
     want = _jax_composition(jqp, img, jcfg)
     got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
     assert got.dtype == torch.float32 and got.shape == (3, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=TIGHT * np.abs(want).max())
+
+
+def test_static_forward_past_256_tokens_matches_jax_kernel_composition(
+        monkeypatch):
+    """A 384-px-like geometry: 577 tokens (24 x 24 patches and the CLS
+    row, ViT-B/16 @384's count) on 584 rows, head dim 64, two narrow
+    layers, a static tree.  The JAX planner keeps the static block kernels
+    there, and so does the port: every attention half is K18
+    (attn_block_int8_static), inside the gate the card applies, and the
+    logits hold to the JAX composition of the Pallas kernels as tightly as
+    at 17 tokens."""
+    kw = dict(image_size=192, hidden_dim=128, num_heads=2, mlp_dim=256)
+    jcfg, tcfg, jqp, tqp = _static_pair(16, **kw)
+    assert tcfg.seq_len == 577 and jq._int8_block_fits(jcfg)
+    assert tq._int8_block_fits(tcfg)
+    shapes = []
+
+    def k18(x, *args, n_valid=None, **kwargs):
+        shapes.append((tuple(x.shape), n_valid))
+        tqb.attn_int8_static_geometry(*x.shape, args[-1], n_valid)
+        return tqb.attn_block_int8_static(x, *args, n_valid=n_valid,
+                                          **kwargs)
+
+    monkeypatch.setattr(tq, "attn_block_int8_static", k18)
+    img = _images(17, b=2, s=192)
+    want = _jax_composition(jqp, img, jcfg, n_pad=584)
+    got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
+    assert shapes == [((2, 584, 128), 577)] * 2
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=TIGHT * np.abs(want).max())
 

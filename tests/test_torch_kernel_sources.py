@@ -128,10 +128,19 @@ def test_k24_runs_every_product_on_the_wgmma_gemm():
 
 
 def test_the_key_tiled_attention_tile_is_gone():
-    """attn.cuh keeps the whole-head tile of the int8 halves only."""
-    text = (_kernels.CSRC / "attn.cuh").read_text()
-    assert "attn_long_kernel" not in text
-    assert "launch_attn_long" not in text
+    """attn.cuh, which held the key-tiled tile until K4 moved and then the
+    whole-head tile of the int8 halves, is gone with its last users (K18,
+    K21b): no file names it or its pieces, and the build does not list
+    it."""
+    assert not (_kernels.CSRC / "attn.cuh").exists()
+    assert "attn.cuh" not in _kernels.HEADERS
+    for p in _kernels.CSRC.iterdir():
+        text = p.read_text()
+        assert '#include "attn.cuh"' not in text, p.name
+        for gone in (r"\battn_long_kernel\b", r"\blaunch_attn_long\b",
+                     r"\bATT_MAX_KV\b", r"\battn_enable\b",
+                     r"\blaunch_attn\b"):
+            assert not re.search(gone, text), (p.name, gone)
     common = (_kernels.CSRC / "common.cuh").read_text()
     assert "inline cudaError_t launch_gemm(" not in common
 
@@ -418,12 +427,84 @@ def test_the_wmma_gemm_has_no_amax_epilogue():
     assert "p.amax" not in quant and "float* amax;" not in quant
 
 
+@pytest.mark.parametrize("name", ["attn_int8_static.cu",
+                                  "attn_int8_stats.cu"])
+def test_k18_and_k21b_run_on_k16s_wgmma_sequence(name):
+    """K18 and K21b run K16's units: QKV and out-projection on
+    qgemm_wgmma.cuh (the bf16 qkv epilogue and the residual one), the
+    attention on mha_wgmma.cuh's max-free sweep over the packed qkv
+    (K18 with its int8 output); no wmma GEMM, no attn.cuh tile and no
+    256-key bound."""
+    text = (_kernels.CSRC / name).read_text()
+    body = text.split("#define VFT_NS")[1]
+    for inc in ("hopper.cuh", "qgemm_wgmma.cuh", "mha_wgmma.cuh"):
+        assert f'#include "{inc}"' in text, inc
+    assert '#include "attn.cuh"' not in text and "wmma" not in body
+    for epi in ("QW_BF16", "QW_RESID"):
+        assert f"launch_qgemm_epi<{epi}>(" in text, epi
+        assert f"qgemm_epi_enable<{epi}>()" in text, epi
+    assert "launch_qgemm<" not in text and "qgemm_enable<" not in text
+    assert "ATT_MAX_KV" not in text and "256" not in body
+    assert "tma_init()" in text and "MW_MAX_GRID_Y" in text
+    if name == "attn_int8_static.cu":
+        assert "launch_mha_packed<MW_MAXFREE, true>(" in text
+        assert "mha_wgmma_enable<MW_MAXFREE, true>()" in text
+        assert "g.sa" not in text and "o.sa" not in text  # row scale 1
+        assert "LN_NONE" not in text  # no ao row pass
+    else:
+        assert "launch_mha_packed<MW_MAXFREE>(" in text
+        assert "mha_wgmma_enable<MW_MAXFREE>()" in text
+        assert "launch_quant_rows<bf16, LN_STATS, false, ST>(" in text
+        assert "launch_quant_rows<bf16, LN_NONE>(" in text
+        assert "launch_row_stats(" in text
+
+
+def test_qw_epilogue_takes_a_null_row_scale():
+    """qgemm_wgmma.cuh's dequantizing epilogues read a null sa as a row
+    scale of 1.0 (quant.cuh's convention: 1.0f * sb == sb exactly, so
+    K18's static GEMMs keep the IEEE order of the wmma GEMM's), and the
+    launch no longer refuses one."""
+    gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
+    body = gemm[gemm.index("void qw_epilogue("):]
+    body = body[:body.index("\n}\n")]
+    assert ("const float sr = !rin ? 0.0f : p.sa != nullptr ? "
+            "__ldg(p.sa + row) : 1.0f;") in body
+    launch = gemm[gemm.index("inline cudaError_t launch_qgemm_epi("):]
+    assert "p.sa == nullptr" not in launch
+    quant = (_kernels.CSRC / "quant.cuh").read_text()
+    assert "p.sa != nullptr ? p.sa[gr] : 1.0f" in quant
+
+
+def test_the_int8_attention_store_is_the_static_layer_loops():
+    """mha_wgmma.cuh's int8 output (K18) is an instantiation of the one
+    kernel (a Q8 template flag beside the mode, the bf16 modes' store
+    unchanged) and rounds as stack_wgmma.cuh's LQ_STATIC attention
+    epilogue (K19b): r = (1 / l) * out_scale, then bf16(o * r), rint, the
+    clip at +-127."""
+    mha = (_kernels.CSRC / "mha_wgmma.cuh").read_text()
+    assert "template <int MODE, bool Q8 = false>" in mha
+    assert mha.count("mha_wgmma_kernel(") == 1
+    assert "const float rv = __fmul_rn(ol[rr], p.out_scale);" in mha
+    stack = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
+    assert "const float rv = __fmul_rn(inv, ao_scale);" in stack
+    for line in (
+            "const float f0 = bf16_round(__fmul_rn(o[4 * c + 2 * rr], rv));",
+            "const int q0i = static_cast<int>(fminf(fmaxf(rintf(f0), "
+            "-127.0f), 127.0f));"):
+        assert line in mha and line in stack, line
+    assert ("__floats2bfloat162_rn(o[4 * c + 2 * rr] * ol[rr], "
+            "o[4 * c + 2 * rr + 1] * ol[rr])") in mha
+
+
 @pytest.mark.parametrize("source,entry", [
     ("attn_int8.cu", "vft_attn_block_int8"),
-    ("mlp_int8_stats.cu", "vft_mlp_block_int8_stats")])
+    ("mlp_int8_stats.cu", "vft_mlp_block_int8_stats"),
+    ("attn_int8_static.cu", "vft_attn_block_int8_static"),
+    ("attn_int8_stats.cu", "vft_attn_block_int8_stats")])
 def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
-    """The ctypes argument lists of K16's and K21a's C entry points follow
-    the C definitions: pointers, ints and floats in the same order."""
+    """The ctypes argument lists of K16's, K21a's, K18's and K21b's C entry
+    points follow the C definitions: pointers, ints and floats in the same
+    order."""
     src = (_kernels.CSRC / source).read_text()
     params = src[src.index(f"int {entry}("):]
     params = params[params.index("(") + 1:params.index(")")]
@@ -462,10 +543,41 @@ def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
      "unexpected: K21a"),
     ("void attn_int8_stats::quant_rows_kernel<__nv_bfloat16, 0, false, "
      "float>(__nv_bfloat16 const*)", "K21b (d)"),
-    ("void mlp_int8::qgemm_wgmma_kernel<128, 3>(CUtensorMap)", "K15 (d)")])
+    ("void mlp_int8::qgemm_wgmma_kernel<128, 3>(CUtensorMap)", "K15 (d)"),
+    ("void attn_int8::mha_wgmma_kernel<1, false>(CUtensorMap, MhaTmaArgs)",
+     "K16 (c)"),
+    ("void attn_int8_stats::quant_rows_kernel<__nv_bfloat16, 3, false, "
+     "__nv_bfloat16>(__nv_bfloat16 const*)", "K21b (a)"),
+    ("void attn_int8_stats::qgemm_wgmma_kernel<256, 4>(CUtensorMap)",
+     "K21b (b)"),
+    ("void attn_int8_stats::mha_wgmma_kernel<1, false>(CUtensorMap, "
+     "MhaTmaArgs)", "K21b (c)"),
+    ("void attn_int8_stats::qgemm_wgmma_kernel<128, 3>(CUtensorMap)",
+     "K21b (e)"),
+    ("void attn_int8_stats::row_stats_kernel<float>(__nv_bfloat16 const*)",
+     "K21b (f)"),
+    ("void attn_int8_stats::qgemm_kernel<0>(attn_int8_stats::QGemmArgs)",
+     "unexpected: K21b"),
+    ("void attn_int8_stats::attn_kernel(__nv_bfloat16 const*)",
+     "unexpected: K21b"),
+    ("void attn_int8_static::quant_rows_kernel<__nv_bfloat16, 1, true, "
+     "float>(__nv_bfloat16 const*)", "K18 (a)"),
+    ("void attn_int8_static::qgemm_wgmma_kernel<256, 4>(CUtensorMap)",
+     "K18 (b)"),
+    ("void attn_int8_static::mha_wgmma_kernel<1, true>(CUtensorMap, "
+     "MhaTmaArgs)", "K18 (c)"),
+    ("void attn_int8_static::qgemm_wgmma_kernel<128, 3>(CUtensorMap)",
+     "K18 (d)"),
+    ("void attn_int8_static::qgemm_kernel<1>(attn_int8_static::QGemmArgs)",
+     "unexpected: K18"),
+    ("void attn_half::mha_wgmma_kernel<1, false>(CUtensorMap, MhaTmaArgs)",
+     "K1 (b)"),
+    ("void attn_block::mha_wgmma_kernel<2, false>(CUtensorMap, MhaTmaArgs)",
+     "K4 (c) attention, safe")])
 def test_profile_names_the_int8_halves_launches(name, stage):
-    """profile_forward's table gives K16's and K21a's wgmma launches and
-    row passes their steps, and calls anything else of theirs (the wmma
-    GEMM they ran before) unexpected."""
+    """profile_forward's table gives K16's, K21a's, K21b's and K18's wgmma
+    launches and row passes their steps (the attention's name carries its
+    int8 flag beside the mode), and calls anything else of theirs (the
+    wmma GEMM and attention tile they ran before) unexpected."""
     from vit_fpga_tpu_torch import profile_forward as pf
     assert pf._stage(name).startswith(stage)

@@ -1,9 +1,13 @@
 """The port's int8 block halves (ops/quant_block.py, the plain versions of
 K15 and K16) against the JAX package's Pallas kernels in interpret mode,
 on the same numpy inputs at the shapes of tests/test_quant_block.py (K16
-also past 256 keys), and K16's gate on the card against the JAX
-planner's."""
+also past 256 keys), and the gates on the card of the int8 attention
+halves on the wgmma attention (K16, K18, K21b) against the JAX planner's
+and the JAX wrappers' own."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +16,7 @@ import torch
 from vit_fpga_tpu.models import quantized as jq
 from vit_fpga_tpu.models import vit as jvit
 from vit_fpga_tpu.ops import quant_block as jqb
+from vit_fpga_tpu.ops.attn_block import STATS_LANES
 from vit_fpga_tpu.ops.quant_fused import quantize_weight_colwise
 from vit_fpga_tpu_torch.ops import quant_block as tqb
 from vit_fpga_tpu_torch.ops.common import SUBLANE, round_up
@@ -181,3 +186,93 @@ def test_k16_gate_rejects_what_the_kernel_does_not_take(b, n, d, heads,
                                                         n_valid, why):
     with pytest.raises(ValueError, match=why):
         tqb.attn_int8_geometry(b, n, d, heads, n_valid)
+
+
+# K18 and K21b take K16's gate (K21b with the JAX wrapper's refusal of
+# q-slot reuse), each named in its errors
+K18_K21B_GATES = {"K18": tqb.attn_int8_static_geometry,
+                  "K21b": tqb.attn_int8_stats_geometry}
+
+
+def _jax_wrapper_runs(kernel, batch, n_pad, n_valid, d, heads):
+    """Whether the JAX wrapper of ``kernel`` (attn_block_int8_static or
+    attn_block_int8_stats) takes (batch, n_pad, d) tokens: traced
+    abstractly (jax.eval_shape), so only its own checks run."""
+    f32, i8, bf = jnp.float32, jnp.int8, jnp.bfloat16
+
+    def spec(*shape, dt=f32):
+        return jax.ShapeDtypeStruct(shape, dt)
+    weights = (spec(d), spec(d), spec(d, 3 * d, dt=i8), spec(3 * d),
+               spec(3 * d), spec(d, d, dt=i8), spec(d), spec(d))
+    x = spec(batch, n_pad, d, dt=bf)
+    if kernel == "K18":
+        fn, args = jqb.attn_block_int8_static, (x, spec(1, 1), *weights)
+    else:
+        fn = jqb.attn_block_int8_stats
+        args = (x, spec(batch, n_pad, STATS_LANES), *weights)
+    try:
+        jax.eval_shape(functools.partial(fn, num_heads=heads,
+                                         n_valid=n_valid, interpret=True),
+                       *args)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("kernel", sorted(K18_K21B_GATES))
+@pytest.mark.parametrize("variant,image", K16_GEOMETRIES)
+def test_k18_k21b_gates_admit_what_the_jax_kernels_run(kernel, variant,
+                                                       image):
+    """K18's and K21b's gates on the card admit a model's tokens exactly
+    where the JAX planner sends its blocks to the int8 kernels
+    (_int8_block_fits; K21b also no q-slot reuse at the batch) and where
+    the JAX wrapper itself runs (its own raise, traced abstractly), at the
+    rows the port's forward pads them to, b1, b3 and b64."""
+    gate = K18_K21B_GATES[kernel]
+    jcfg = jvit.config(variant, image_size=image)
+    d, heads, n = jcfg.hidden_dim, jcfg.num_heads, jcfg.seq_len
+    n_pad = round_up(n, SUBLANE)
+    for batch in (1, 3, 64):
+        _, n_sc, reuse_q, _ = jqb.score_slots_int8(
+            heads, d, n_pad, round_up(n_pad, 128), batch=batch)
+        planned = jq._int8_block_fits(jcfg) and not (
+            kernel == "K21b" and reuse_q)
+        runs = _jax_wrapper_runs(kernel, batch, n_pad, n, d, heads)
+        assert runs == planned == (n_sc >= 1 and not (
+            kernel == "K21b" and reuse_q)), (batch, runs, planned)
+        if runs:
+            gate(batch, n_pad, d, heads, n)
+        else:
+            with pytest.raises(ValueError, match=kernel):
+                gate(batch, n_pad, d, heads, n)
+
+
+def test_k21b_gate_rejects_the_q_slot_reuse_the_jax_wrapper_rejects():
+    """ViT-L/16 @384 at b1 and b3: the JAX int8 plan reuses the q slot,
+    so the JAX attn_block_int8_stats raises (K16 and K18 run there); so
+    does K21b's gate, naming the reuse."""
+    jcfg = jvit.config("vit_l16", image_size=384)
+    d, heads, n = jcfg.hidden_dim, jcfg.num_heads, jcfg.seq_len
+    n_pad = round_up(n, SUBLANE)
+    for batch in (1, 3):
+        assert jqb.score_slots_int8(heads, d, n_pad, round_up(n_pad, 128),
+                                    batch=batch)[2]
+        assert not _jax_wrapper_runs("K21b", batch, n_pad, n, d, heads)
+        assert _jax_wrapper_runs("K18", batch, n_pad, n, d, heads)
+        tqb.attn_int8_geometry(batch, n_pad, d, heads, n)
+        tqb.attn_int8_static_geometry(batch, n_pad, d, heads, n)
+        with pytest.raises(ValueError, match="q-slot reuse"):
+            tqb.attn_int8_stats_geometry(batch, n_pad, d, heads, n)
+
+
+@pytest.mark.parametrize("kernel", sorted(K18_K21B_GATES))
+@pytest.mark.parametrize("b,n,d,heads,n_valid,why", [
+    (4, 584, 960, 12, 577, "head dim 64"),     # dh 80 (ViT-H/14)
+    (4, 200, 768, 12, 0, "head dim 64"),       # no valid key
+    (4, 200, 768, 12, 201, "head dim 64"),     # more valid keys than rows
+    (5462, 200, 768, 12, 197, "grid"),         # batch x heads past 65535
+])
+def test_k18_k21b_gates_reject_what_the_kernels_do_not_take(
+        kernel, b, n, d, heads, n_valid, why):
+    with pytest.raises(ValueError, match=f"{kernel}.*{why}"):
+        K18_K21B_GATES[kernel](b, n, d, heads, n_valid)

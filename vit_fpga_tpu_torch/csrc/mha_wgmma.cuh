@@ -51,10 +51,10 @@
 // log2 e), 0 for keys >= n_valid (set explicitly in the last tile: TMA's
 // zero-filled keys give s = 0, e = 1), l += e in f32, p = bf16(e)
 // unnormalised, o += p v, and at the end ao = bf16(o * (1 / l)): the
-// function of attn.cuh's attn_kernel<false>.  ex2.approx and the rounding
-// of the exponent's product with log2 e put e within ~5e-6 relative of
-// expf's (at the clip's top), well inside a bf16 ulp (2^-8), so p's bf16
-// rounding flips on rare elements only.
+// function of the TPU stats-chain kernels' max-free _mha_loop.  ex2.approx
+// and the rounding of the exponent's product with log2 e put e within
+// ~5e-6 relative of expf's (at the clip's top), well inside a bf16 ulp
+// (2^-8), so p's bf16 rounding flips on rare elements only.
 //
 // The safe mode is the function of the TPU per-block kernel
 // (attn_block.py:_mha_loop with safe_softmax): e = exp(s - max) rounded to
@@ -85,6 +85,13 @@
 // tiles with e = ex2(s2 - m2_new); the producer streams the block's K
 // tiles, then its (K, V) pairs.  Blocks wholly past n_valid are never
 // visited: on the TPU they leave m, l and acc unchanged.
+//
+// The output is bf16 o * (1 / l), or with Q8 (the max-free mode of the
+// static int8 attention half, attn_int8_static.cu K18) int8 aoq =
+// clip(rint(bf16(o * ((1 / l) * out_scale))), -127, 127): the static scale
+// rides the reciprocal and ao is rounded to bf16 in the quant domain, as
+// the TPU kernel's bf16 scratch rounds it (stack_wgmma.cuh's LQ_STATIC
+// attention epilogue, in the same order).  Q8 changes the store alone.
 
 #pragma once
 
@@ -110,13 +117,14 @@ constexpr size_t MW_SMEM_BYTES =
     1024 + MW_Q_BYTES + 2 * MW_STAGES * MW_TILE_BYTES + 8 * (2 * MW_STAGES + 1);
 
 struct MhaTmaArgs {
-  void* o;
+  void* o;                 // bf16, or int8 with Q8
   long long out_b, out_h;  // element strides of o: image, head
   int out_r;               // and token row
   int heads, n, n_valid;   // n query rows and keys; keys >= n_valid masked
   float scale_log2;        // softmax scale * log2(e) (exact, safe and online modes)
   float scale;             // softmax scale (max-free mode)
   int bk;                  // key block, a multiple of MW_KT (online mode)
+  float out_scale;         // Q8: the static output scale 1/a_ao
 };
 
 // Issues s = q k^T for the 64 x MW_KT tile as one wgmma group: 4 k steps of
@@ -436,7 +444,7 @@ __device__ __forceinline__ void mw_step(int i, int ntiles, int tpb, bool& pv, in
   }
 }
 
-template <int MODE>
+template <int MODE, bool Q8 = false>
 __global__ void __launch_bounds__(MW_THREADS, 1)
     mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, MhaTmaArgs p) {
@@ -646,27 +654,49 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       mbar_arrive(empty(sl));
     }
 
-    bf16* og = static_cast<bf16*>(p.o) + (size_t)b * p.out_b + (size_t)h * p.out_h;
+    if constexpr (Q8) {
+      static_assert(MODE == MW_MAXFREE, "the static int8 attention is max-free");
+      signed char* og =
+          static_cast<signed char*>(p.o) + (size_t)b * p.out_b + (size_t)h * p.out_h;
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int row = q0 + wg * 64 + (warp & 3) * 16 + g + 8 * rr;
-      if (row >= p.n) continue;
-      bf16* orow = og + (size_t)row * p.out_r + 2 * t4;
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = q0 + wg * 64 + (warp & 3) * 16 + g + 8 * rr;
+        if (row >= p.n) continue;
+        const float rv = __fmul_rn(ol[rr], p.out_scale);
+        signed char* orow = og + (size_t)row * p.out_r + 2 * t4;
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
-            __floats2bfloat162_rn(o[4 * c + 2 * rr] * ol[rr], o[4 * c + 2 * rr + 1] * ol[rr]);
+        for (int c = 0; c < 8; ++c) {
+          const float f0 = bf16_round(__fmul_rn(o[4 * c + 2 * rr], rv));
+          const float f1 = bf16_round(__fmul_rn(o[4 * c + 2 * rr + 1], rv));
+          const int q0i = static_cast<int>(fminf(fmaxf(rintf(f0), -127.0f), 127.0f));
+          const int q1i = static_cast<int>(fminf(fmaxf(rintf(f1), -127.0f), 127.0f));
+          *reinterpret_cast<unsigned short*>(orow + 8 * c) =
+              (unsigned short)((q0i & 0xff) | ((q1i & 0xff) << 8));
+        }
+      }
+    } else {
+      bf16* og = static_cast<bf16*>(p.o) + (size_t)b * p.out_b + (size_t)h * p.out_h;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = q0 + wg * 64 + (warp & 3) * 16 + g + 8 * rr;
+        if (row >= p.n) continue;
+        bf16* orow = og + (size_t)row * p.out_r + 2 * t4;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+              __floats2bfloat162_rn(o[4 * c + 2 * rr] * ol[rr], o[4 * c + 2 * rr + 1] * ol[rr]);
+      }
     }
   }
 }
 
-template <int MODE>
+template <int MODE, bool Q8 = false>
 inline cudaError_t mha_wgmma_enable() {
-  return cudaFuncSetAttribute(mha_wgmma_kernel<MODE>,
+  return cudaFuncSetAttribute(mha_wgmma_kernel<MODE, Q8>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MW_SMEM_BYTES);
 }
 
-template <int MODE>
+template <int MODE, bool Q8 = false>
 inline cudaError_t launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                     const CUtensorMap& tv, const MhaTmaArgs& p, int batch,
                                     cudaStream_t stream) {
@@ -675,7 +705,7 @@ inline cudaError_t launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk
       (MODE == MW_ONLINE && (p.bk < MW_KT || p.bk % MW_KT)))
     return cudaErrorInvalidValue;
   const dim3 grid((p.n + MW_BQ - 1) / MW_BQ, batch * p.heads);
-  mha_wgmma_kernel<MODE><<<grid, MW_THREADS, MW_SMEM_BYTES, stream>>>(tq, tk, tv, p);
+  mha_wgmma_kernel<MODE, Q8><<<grid, MW_THREADS, MW_SMEM_BYTES, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -699,13 +729,15 @@ inline bool mw_encode(CUtensorMap* map, const void* base, long long in_b, long l
 // The attention in MODE (any but the online mode, which takes key blocks)
 // over a packed (B * n_pad, 3D) bf16 qkv, q, k and v column blocks of each
 // row with head h at h * 64 of each (row stride 3D, image stride n_pad *
-// 3D), into ao (B * n_pad, D):
+// 3D), into ao (B * n_pad, D), bf16, or with Q8 int8 aoq at out_scale:
 // Q's row extent n_pad, K's and V's n_valid, so that TMA zero-fills the
 // keys past it.  Every query row is written.  Shared by attn_half.cuh (K1,
-// K4) and attn_int8.cu (K16).
-template <int MODE>
-inline cudaError_t launch_mha_packed(const bf16* qkv, bf16* ao, int batch, int n_pad, int d,
-                                     int heads, int n_valid, float scale, cudaStream_t st) {
+// K4), attn_int8.cu (K16), attn_int8_stats.cu (K21b) and, with Q8,
+// attn_int8_static.cu (K18).
+template <int MODE, bool Q8 = false>
+inline cudaError_t launch_mha_packed(const bf16* qkv, void* ao, int batch, int n_pad, int d,
+                                     int heads, int n_valid, float scale, cudaStream_t st,
+                                     float out_scale = 1.0f) {
   static_assert(MODE != MW_ONLINE, "the online mode takes a key block");
   const long long in_b = (long long)n_pad * 3 * d;
   CUtensorMap tq, tk, tv;
@@ -714,8 +746,8 @@ inline cudaError_t launch_mha_packed(const bf16* qkv, bf16* ao, int batch, int n
       !mw_encode(&tv, qkv + 2 * d, in_b, MW_DH, 3 * d, n_valid, heads, batch))
     return cudaErrorInvalidValue;
   const MhaTmaArgs a{ao,     (long long)n_pad * d, MW_DH, d, heads, n_pad, n_valid,
-                     scale * 1.4426950408889634f, scale};
-  return launch_mha_wgmma<MODE>(tq, tk, tv, a, batch, st);
+                     scale * 1.4426950408889634f, scale, 0, out_scale};
+  return launch_mha_wgmma<MODE, Q8>(tq, tk, tv, a, batch, st);
 }
 
 }  // namespace VFT_NS

@@ -36,16 +36,18 @@
 // tiles are written from the accumulator registers by masked stores, an
 // epilogue of the same kernel (QW_STORE_REGS), not a fallback.
 //
-// K15 (mlp_int8.cu), K21a (mlp_int8_stats.cu) and K16 (attn_int8.cu) run
-// their GEMMs on this kernel, with dequantizing epilogues over the same
-// accumulator tile (QwEpi, qw_epilogue): f = float(acc) * (sa[row] *
-// sb[col]) + bias[col] in IEEE operations, in the order of quant.cuh's
-// epilogues; W1 then h = act(f) in f32 with the tile's row absmax of h in
+// K15 (mlp_int8.cu), K21a (mlp_int8_stats.cu), K16 (attn_int8.cu), K21b
+// (attn_int8_stats.cu) and K18 (attn_int8_static.cu) run their GEMMs on
+// this kernel, with dequantizing epilogues over the same accumulator tile
+// (QwEpi, qw_epilogue): f = float(acc) * (sa[row] * sb[col]) + bias[col] in
+// IEEE operations, in the order of quant.cuh's epilogues, a null sa a row
+// scale of 1.0 (K18's static scales are folded into sb: 1.0f * sb == sb
+// exactly); W1 then h = act(f) in f32 with the tile's row absmax of h in
 // parts[col tile][row]; W2 and the out-projection out = residual + bf16(f),
-// added in f32 and rounded once, in bf16; K16's QKV bf16(f).
+// added in f32 and rounded once, in bf16; the QKV bf16(f).
 // The sums pass through the staging buffers, whose 64 rows of 128 bytes
-// serve every element size.  The other int8 kernels (K14, K17, K18, K21b,
-// K22) stay on quant.cuh's GEMM.
+// serve every element size.  The other int8 kernels (K14, K17, K22) stay
+// on quant.cuh's GEMM.
 
 #pragma once
 
@@ -56,8 +58,8 @@ enum QwEpi {
   QW_STORE_TMA = 0,   // K13: the int32 sums, by TMA
   QW_STORE_REGS = 1,  // K13: the int32 sums from the registers (N % 4 != 0)
   QW_H = 2,           // K15's W1: f32 h = act(f) by TMA, the tile's row absmax to parts
-  QW_RESID = 3,       // K15's W2: bf16 residual + bf16(f) by TMA
-  QW_BF16 = 4         // K16's QKV: bf16(f) by TMA
+  QW_RESID = 3,       // W2 and the out-projections: bf16 residual + bf16(f) by TMA
+  QW_BF16 = 4         // the int8 attention halves' QKV: bf16(f) by TMA
 };
 
 constexpr int QW_BM = 128;         // rows per tile: two consumer warpgroups of 64
@@ -87,8 +89,8 @@ struct QwShape {
 struct QwArgs {
   int* C;       // (M, N) int32; read by QW_STORE_REGS
   int M, N, K;  // K a multiple of 16 (TMA's 16-byte row stride)
-  // the dequantizing epilogues (K15, K16, K21a)
-  const float* sa;       // (M,) row scales
+  // the dequantizing epilogues (K15, K16, K18, K21a, K21b)
+  const float* sa;       // (M,) row scales, or null: 1.0 (quant.cuh's convention)
   const float* sb;       // (N,) column scales
   const float* bias;     // (N,)
   const bf16* residual;  // QW_RESID: (M, N)
@@ -209,7 +211,7 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
   unsigned char* out = buf + QW_EPI_BYTES;
   const int rl = wt >> 1, half = wt & 1, row = row0 + rl, sw = rl & 7;
   const bool rin = row < p.M;
-  const float sr = rin ? __ldg(p.sa + row) : 0.0f;
+  const float sr = !rin ? 0.0f : p.sa != nullptr ? __ldg(p.sa + row) : 1.0f;
   float rmax = 0.0f;
 #pragma unroll 1
   for (int pc = 0; pc < BN / QW_EPI_COLS; ++pc) {
@@ -501,15 +503,15 @@ inline cudaError_t launch_qgemm_wgmma(const signed char* a, const signed char* b
 
 // The dequantizing GEMMs on `stream`: a (M, K) and bt (N, K) int8
 // row-major into out through epilogue EPI: QW_H f32 h (M, N), QW_RESID and
-// QW_BF16 bf16 (M, N); p carries M, N, K and the epilogue's operands: sa,
-// sb, bias, and parts of qgemm_wgmma_col_tiles(N) x M floats (QW_H) or the
-// residual (QW_RESID).  N and K multiples of 16, a, bt and out 16-byte
-// aligned.
+// QW_BF16 bf16 (M, N); p carries M, N, K and the epilogue's operands: sa
+// (null: a row scale of 1.0), sb, bias, and parts of
+// qgemm_wgmma_col_tiles(N) x M floats (QW_H) or the residual (QW_RESID).
+// N and K multiples of 16, a, bt and out 16-byte aligned.
 template <int EPI>
 inline cudaError_t launch_qgemm_epi(const signed char* a, const signed char* bt, void* out,
                                     const QwArgs& p, cudaStream_t stream) {
   static_assert(EPI == QW_H || EPI == QW_RESID || EPI == QW_BF16, "the dequantizing epilogues");
-  if (p.N % 16 || p.sa == nullptr || p.sb == nullptr || p.bias == nullptr ||
+  if (p.N % 16 || p.sb == nullptr || p.bias == nullptr ||
       (EPI == QW_RESID && p.residual == nullptr) || (EPI == QW_H && p.parts == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tb, tc;

@@ -1,9 +1,9 @@
 // Int8 pieces of the int8 kernels (quant_linear.cu K14, mlp_int8.cu K15,
 // attn_int8.cu K16, mlp_int8_static.cu K17, attn_int8_static.cu K18,
 // mlp_int8_stats.cu K21a, attn_int8_stats.cu K21b, attn_int8_scores.cu
-// K22): the row passes serve them all; the wmma GEMM serves K14, K17,
-// K18, K21b and K22 (K13, K15, K16 and K21a run qgemm_wgmma.cuh's);
-// include after common.cuh.
+// K22): the row passes serve them all; the wmma GEMM serves K14, K17 and
+// K22 (K13, K15, K16, K18, K21a and K21b run qgemm_wgmma.cuh's); include
+// after common.cuh.
 //
 //   quant_rows_kernel<T, LN, STATIC, ST>  one warp per row of a (rows, k)
 //       bf16 or f32 matrix: an optional f32 LayerNorm (LN_ONE_PASS: var =

@@ -35,7 +35,7 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "mlp_chunk.cu", "mha.cu", "flash_attn.cu", "mlp_int8_stats.cu",
            "attn_int8_stats.cu", "attn_int8_scores.cu", "patch_embed.cu",
            "streamed_gemm.cu")
-HEADERS = ("common.cuh", "attn.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
+HEADERS = ("common.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
            "stack_wgmma.cuh", "full.cuh", "seq_attn.cuh", "mha_wgmma.cuh",
            "hopper.cuh", "gemm_wgmma.cuh", "attn_half.cuh", "qgemm_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -36,9 +36,11 @@ CPU tensor:
   ``_attn_int8_static_kernel`` (wrapper ``attn_block_int8_static``).
   Folded LN -> rint/saturate -> int8 QKV -> ``bf16(acc * s' + b)`` -> the
   max-free masked attention with 1/a_ao in the post-PV reciprocal, ao
-  rounded to bf16 in the quant domain -> rint/saturate in the attention
-  tile's epilogue -> int8 out-projection -> ``acc * so' + bo`` ->
-  ``x + bf16(y)``.
+  rounded to bf16 in the quant domain -> rint/saturate in the attention's
+  epilogue -> int8 out-projection -> ``acc * so' + bo`` -> ``x + bf16(y)``.
+  K16's launches without its ao row pass: the GEMMs on
+  ``csrc/qgemm_wgmma.cuh`` at a row scale of 1, the attention
+  ``csrc/mha_wgmma.cuh``'s max-free sweep with an int8 output; K16's gate.
 * K21a ``mlp_block_int8_stats`` (``csrc/mlp_int8_stats.cu``): replaces
   ``_mlp_int8_stats_kernel`` (wrapper ``mlp_block_int8_stats``).  K15
   with ``xn = ((x - mu) * rstd) * ls + lb`` from the producer's (mu,
@@ -47,8 +49,9 @@ CPU tensor:
   launches and scratch.
 * K21b ``attn_block_int8_stats`` (``csrc/attn_int8_stats.cu``): replaces
   ``_attn_int8_stats_kernel`` (wrapper ``attn_block_int8_stats``).  K16's
-  function with the same two changes, on K16's first design (the wmma
-  GEMM and ``attn.cuh``'s tile, up to 256 keys).
+  function with the same two changes; K16's launches and scratch.  Its
+  gate (:func:`attn_int8_stats_geometry`) is K16's with the JAX wrapper's
+  refusal of q-slot reuse.
 * K22 ``attn_block_int8_static_scores`` (``csrc/attn_int8_scores.cu``):
   replaces ``_attn_int8s_static_kernel`` (wrapper
   ``attn_block_int8_static_scores``, loop ``_mha_loop_int8s``).  K18's
@@ -67,15 +70,15 @@ M = 3072, 12 heads of 64, n_valid 197), set by tensor-core operations at
 operations (61 us) against about 44 MB of compulsory traffic; K16 and K18
 8·T·D² = 60.4 G int8 operations (31 us) plus 7.8 GFLOP of bf16 attention
 (8 us) against about 42 MB.  Design: row passes and int8 GEMMs with
-dequantizing epilogues, K15's, K16's and K21a's on
-``csrc/qgemm_wgmma.cuh`` (wgmma + TMA), the others on the wmma GEMM of
-``csrc/quant.cuh``.  A dynamic row's scale spans blocks that run apart on
-Hopper (h's 3072 columns, ao's 12 heads), so K15's GEMM1 writes f32 h with
-per-tile row maxima that a row pass reduces before it quantizes, and
+dequantizing epilogues, K15's, K16's, K18's, K21a's and K21b's on
+``csrc/qgemm_wgmma.cuh`` (wgmma + TMA), K17's and K22's on the wmma GEMM
+of ``csrc/quant.cuh``.  A dynamic row's scale spans blocks that run apart
+on Hopper (h's 3072 columns, ao's 12 heads), so K15's GEMM1 writes f32 h
+with per-tile row maxima that a row pass reduces before it quantizes, and
 K16's ao round-trips in bf16 before its row pass.  The static scale is
-known before the launch, so K17's GEMM1 and K18's attention tile emit
-int8 directly (later work: wgmma).  K21a and K21b have K15's and K16's
-bounds; K22 does 60.4 G + 7.8 G int8 operations (34 us at 1979 TOPS).
+known before the launch, so K17's GEMM1 and K18's attention emit int8
+directly.  K21a and K21b have K15's and K16's bounds; K22 does 60.4 G +
+7.8 G int8 operations (34 us at 1979 TOPS).
 
 Unlike the dynamic kernels, where ``|x / s| <= 127`` by construction, the
 static kernels' saturation is live: activations beyond the calibrated
@@ -218,49 +221,77 @@ MW_MAX_GRID_Y = 65535
 
 
 def attn_int8_geometry(b: int, n: int, d: int, num_heads: int,
-                       n_valid: int) -> None:
-    """K16's gate on the card: head dim 64, 1 <= n_valid <= n, batch x
-    heads within the attention's grid (``MW_MAX_GRID_Y``), all of which the
-    C entry point checks too, and a token count at which the JAX
-    ``attn_block_int8`` runs its kernel: it pads the n rows to the bf16
-    sublane and the keys to 128 and raises where :func:`score_slots_int8`
-    finds no score slot (the bound of ``models/quantized._int8_block_fits``:
-    ViT-B/16 up to 896 px, 3137 tokens, ViT-L/16 up to 768 px).  The Hopper
-    kernel streams the keys and has no length bound of its own.  Raises
-    ``ValueError`` outside."""
+                       n_valid: int, kernel: str = "K16") -> bool:
+    """The gate on the card of the int8 attention halves on
+    ``csrc/mha_wgmma.cuh`` (K16, K18; K21b through
+    :func:`attn_int8_stats_geometry`), ``kernel`` naming the half in the
+    errors: head dim 64, 1 <= n_valid <= n, batch x heads within the
+    attention's grid (``MW_MAX_GRID_Y``), all of which the C entry points
+    check too, and a token count at which the JAX ``attn_block_int8`` and
+    ``attn_block_int8_static`` run their kernels: they pad the n rows to
+    the bf16 sublane and the keys to 128 and raise where
+    :func:`score_slots_int8` finds no score slot (the bound of
+    ``models/quantized._int8_block_fits``: ViT-B/16 up to 896 px, 3137
+    tokens, ViT-L/16 up to 768 px).  The Hopper kernels stream the keys and
+    have no length bound of their own.  Raises ``ValueError`` outside;
+    returns the plan's ``reuse_q``."""
     if (num_heads < 1 or d % num_heads or d // num_heads != 64
             or not 1 <= n_valid <= n):
-        raise ValueError(f"K16 takes head dim 64 and 1..n valid tokens "
+        raise ValueError(f"{kernel} takes head dim 64 and 1..n valid tokens "
                          f"(D={d}, {num_heads} heads, n={n}, "
                          f"n_valid={n_valid})")
     if b * num_heads > MW_MAX_GRID_Y:
-        raise ValueError(f"K16's attention grid takes batch x heads <= "
+        raise ValueError(f"{kernel}'s attention grid takes batch x heads <= "
                          f"{MW_MAX_GRID_Y} (batch {b}, {num_heads} heads)")
-    _, n_sc, _, _ = score_slots_int8(num_heads, d,
-                                     round_up(n, pad_sublane(torch.bfloat16)),
-                                     round_up(n, 128), batch=b)
+    _, n_sc, reuse_q, _ = score_slots_int8(
+        num_heads, d, round_up(n, pad_sublane(torch.bfloat16)),
+        round_up(n, 128), batch=b)
     if n_sc < 1:
-        raise ValueError(f"K16 runs where the JAX int8 attention plan does: "
-                         f"no score slot at D={d}, {num_heads} heads, {n} "
-                         f"tokens")
+        raise ValueError(f"{kernel} runs where the JAX int8 attention plan "
+                         f"does: no score slot at D={d}, {num_heads} heads, "
+                         f"{n} tokens")
+    return reuse_q
+
+
+def attn_int8_static_geometry(b: int, n: int, d: int, num_heads: int,
+                              n_valid: int) -> None:
+    """K18's gate on the card: :func:`attn_int8_geometry`, the JAX
+    ``attn_block_int8_static``'s own condition (a score slot)."""
+    attn_int8_geometry(b, n, d, num_heads, n_valid, kernel="K18")
+
+
+def attn_int8_stats_geometry(b: int, n: int, d: int, num_heads: int,
+                             n_valid: int) -> None:
+    """K21b's gate on the card: :func:`attn_int8_geometry` and the JAX
+    ``attn_block_int8_stats``'s second condition, an ao-scratch tier (no
+    q-slot reuse in the int8 attention plan at this batch), stricter than
+    K16's at some batches (ViT-L/16 @384 b3).  Raises ``ValueError``
+    outside."""
+    if attn_int8_geometry(b, n, d, num_heads, n_valid, kernel="K21b"):
+        raise ValueError(f"K21b runs where the JAX int8 stats attention "
+                         f"does: it needs an ao-scratch tier, not q-slot "
+                         f"reuse (batch {b}, D={d}, {num_heads} heads, {n} "
+                         f"tokens)")
 
 
 def _attn_tile_geometry(b: int, n: int, d: int, num_heads: int,
                         n_valid: int) -> None:
-    """The gate of the attention halves still on ``csrc/attn.cuh``'s tile
-    (K18, K21b, K22): head dim 64 and 1..256 valid tokens."""
+    """The gate of K22, the attention half still on a whole-head tile
+    (``csrc/attn_int8_scores.cu``'s ``S8_MAX_KV``): head dim 64 and 1..256
+    valid tokens."""
     if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
         raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
                          f"(D={d}, {num_heads} heads, n_valid={n_valid})")
 
 
 def _attn_operands(x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs,
-                   bqkv, woq, wos, bo, gate=_attn_tile_geometry):
+                   bqkv, woq, wos, bo, gate):
     """An attention half's geometry on the card, checked by ``gate(b, n, d,
-    num_heads, n_valid)`` (K16's is :func:`attn_int8_geometry`), and its
-    eight operands in the C order: (B, n_pad, D) bf16 x; f32 LN scale and
-    bias, k-major int8 W_qkv, its f32 column scales and bias, likewise W_o.
-    Returns (b, n, d, n_valid, operands)."""
+    num_heads, n_valid)`` (:func:`attn_int8_geometry` and its K18 and K21b
+    forms, or K22's :func:`_attn_tile_geometry`), and its eight operands
+    in the C order: (B, n_pad, D) bf16 x; f32 LN scale and bias, k-major
+    int8 W_qkv, its f32 column scales and bias, likewise W_o.  Returns (b,
+    n, d, n_valid, operands)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -544,16 +575,16 @@ def attn_block_int8_static(x, inv_ao, ln_scale, ln_bias, wqkvq, wqkvs, bqkv,
     on the TPU); keys there are masked.
 
     A CPU tensor runs :func:`attn_block_int8_static_plain`; a CUDA tensor
-    launches the K18 kernel (bf16, head dim 64, n_valid <= 256) or
-    raises."""
+    launches the K18 kernel (bf16, the geometry
+    :func:`attn_int8_static_geometry` admits) or raises."""
     if not _on_card(x):
         return attn_block_int8_static_plain(x, inv_ao, ln_scale, ln_bias,
                                             wqkvq, wqkvs, bqkv, woq, wos, bo,
                                             num_heads, eps=eps,
                                             n_valid=n_valid)
-    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
-                                           ln_bias, wqkvq, wqkvs, bqkv, woq,
-                                           wos, bo)
+    b, n, d, n_valid, ops = _attn_operands(
+        x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq,
+        wos, bo, gate=attn_int8_static_geometry)
     inv = _scalar(inv_ao, "inv_ao")
     out = torch.empty_like(x)
     q8 = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
@@ -669,15 +700,15 @@ def attn_block_int8_stats(x, stats, ln_scale, ln_bias, wqkvq, wqkvs, bqkv,
     masked.
 
     A CPU tensor runs :func:`attn_block_int8_stats_plain`; a CUDA tensor
-    launches the K21b kernel (bf16, head dim 64, n_valid <= 256) or
-    raises."""
+    launches the K21b kernel (bf16, the geometry
+    :func:`attn_int8_stats_geometry` admits) or raises."""
     if not _on_card(x):
         return attn_block_int8_stats_plain(
             x, stats, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq, wos, bo,
             num_heads, eps=eps, n_valid=n_valid, emit_stats=emit_stats)
-    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
-                                           ln_bias, wqkvq, wqkvs, bqkv, woq,
-                                           wos, bo)
+    b, n, d, n_valid, ops = _attn_operands(
+        x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs, bqkv, woq,
+        wos, bo, gate=attn_int8_stats_geometry)
     _check_stats(stats, (b, n, 2))
     out = torch.empty_like(x)
     st_out = torch.empty_like(stats) if emit_stats else None
@@ -770,9 +801,9 @@ def attn_block_int8_static_scores(x, sc_qk, pv_fold, ln_scale, ln_bias,
         return attn_block_int8_static_scores_plain(
             x, sc_qk, pv_fold, ln_scale, ln_bias, wqkvq, wqkv_qs, bqkv_qs,
             woq, wos, bo, num_heads, eps=eps, n_valid=n_valid)
-    b, n, d, n_valid, ops = _attn_operands(x, num_heads, n_valid, ln_scale,
-                                           ln_bias, wqkvq, wqkv_qs, bqkv_qs,
-                                           woq, wos, bo)
+    b, n, d, n_valid, ops = _attn_operands(
+        x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkv_qs, bqkv_qs,
+        woq, wos, bo, gate=_attn_tile_geometry)
     sdq = _scores_dequant(_scalar(sc_qk, "sc_qk"), dh)
     fold = _scalar(pv_fold, "pv_fold")
     out = torch.empty_like(x)

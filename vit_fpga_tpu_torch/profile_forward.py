@@ -13,8 +13,8 @@ tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
 ``--image`` is the square input size (224, 384, 1024: ViT-B/16 at 1024 px
 runs the per-block path, flash attention K9 and K5, or with ``--int8``
 the per-linear int8 route, K14 and K9; give ``--batch 1`` or ``4``; with
-``--int8`` at 384 px the dynamic int8 blocks K16 and K15 run past 256
-keys).
+``--int8`` at 384 px the int8 blocks run past 256 keys: K16 and K15, with
+``--static`` K18 and K17, with ``--chain`` K21b and K21a).
 CLIP and DeiT profile
 the bf16 served forward only.  Without a mode flag it runs the family's
 ``make_forward(cfg, params, raw=True)`` (bf16,
@@ -24,8 +24,7 @@ weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
 (calibrated on the synthetic probe batch, on the card); with ``--int8
 --chain`` on the ``quantize_vit_fast`` tree with the reference's gated
 int8 stats chain switched on for the run (``models.quantized.
-_INT8_STATS_CHAIN``: 12 x [K21b, K21a] + K14; its K21b takes 256 keys at
-most, so 224 px); with ``--train``
+_INT8_STATS_CHAIN``: 12 x [K21b, K21a] + K14); with ``--train``
 one SGD(1e-4) step of ``make_vit_train_step`` (bench.py's train shape) on
 a seeded normalized batch; with ``--per-tensor`` the per-tensor int8
 forward (``make_vit_forward_int8`` on ``quantize_vit`` of f32 weights: K13
@@ -87,15 +86,17 @@ UNEXPECTED = "unexpected:"
 # any other attn_half::, mlp_half::, attn_block::, mlp::, mlp_chunk::,
 # mlp_chunk_blk::, attn_bwd:: or mlp_bwd:: record, such as the wmma GEMM or
 # attention tiles they ran before, is reported as unexpected; so is any
-# attn_int8:: or mlp_int8_stats:: record but K16's and K21a's wgmma
-# launches and row passes),
+# attn_int8::, mlp_int8_stats::, attn_int8_stats:: or attn_int8_static::
+# record but K16's, K21a's, K21b's and K18's wgmma launches and row
+# passes),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
 # wmma int8 GEMM's (qgemm_kernel) template argument is its epilogue (0
 # plain, 1 residual, 3 int8 with the static scale), the wgmma one's
-# (qgemm_wgmma_kernel, K13, K15, K16 and K21a) its tile width and epilogue
-# (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the residual,
-# 4 bf16; the residual takes 128-wide tiles), mha_wgmma_kernel's its mode
-# (1 max-free, 2 safe), quant_rows_kernel's second one its LayerNorm (0
+# (qgemm_wgmma_kernel, K13, K15, K16, K18, K21a and K21b) its tile width
+# and epilogue (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the
+# residual, 4 bf16; the residual takes 128-wide tiles), mha_wgmma_kernel's
+# its mode (1 max-free, 2 safe) and whether it writes int8 (true: K18's
+# static aoq), quant_rows_kernel's second one its LayerNorm (0
 # none, 1 one-pass, 2 two-pass, 3 from the producer's stats).  The first
 # fragment found wins.
 STAGES = (
@@ -119,7 +120,7 @@ STAGES = (
      "K16 (a) LN + row quant"),
     ("attn_int8::qgemm_wgmma_kernel<256,4>", "K16 (b) int8 QKV GEMM, bf16"),
     ("attn_int8::qgemm_wgmma_kernel<128,4>", "K16 (b) int8 QKV GEMM, bf16"),
-    ("attn_int8::mha_wgmma_kernel<1>", "K16 (c) attention, max-free"),
+    ("attn_int8::mha_wgmma_kernel<1", "K16 (c) attention, max-free"),
     ("attn_int8::quant_rows_kernel<__nv_bfloat16,0", "K16 (d) ao row quant"),
     ("attn_int8::qgemm_wgmma_kernel<128,3>",
      "K16 (e) int8 out-proj + residual"),
@@ -137,26 +138,35 @@ STAGES = (
     ("mlp_int8_stats::", UNEXPECTED + " K21a kernel"),
     ("attn_int8_stats::quant_rows_kernel<__nv_bfloat16,3",
      "K21b (a) LN from stats + row quant"),
-    ("attn_int8_stats::qgemm_kernel<0>", "K21b (b) int8 QKV GEMM"),
-    ("attn_int8_stats::attn_kernel", "K21b (c) attention"),
+    ("attn_int8_stats::qgemm_wgmma_kernel<256,4>",
+     "K21b (b) int8 QKV GEMM, bf16"),
+    ("attn_int8_stats::qgemm_wgmma_kernel<128,4>",
+     "K21b (b) int8 QKV GEMM, bf16"),
+    ("attn_int8_stats::mha_wgmma_kernel<1,false>",
+     "K21b (c) attention, max-free"),
     ("attn_int8_stats::quant_rows_kernel<__nv_bfloat16,0",
      "K21b (d) ao row quant"),
-    ("attn_int8_stats::qgemm_kernel<1>", "K21b (e) int8 out-proj + residual"),
+    ("attn_int8_stats::qgemm_wgmma_kernel<128,3>",
+     "K21b (e) int8 out-proj + residual"),
     ("attn_int8_stats::row_stats_kernel", "K21b (f) next stats"),
-    ("attn_int8_stats::", "K21b other"),
+    ("attn_int8_stats::", UNEXPECTED + " K21b kernel"),
     ("mlp_int8_static::quant_rows_kernel", "K17 (a) LN + rint rows"),
     ("mlp_int8_static::qgemm_kernel<3>",
      "K17 (b) int8 W1 GEMM + scaled act + rint"),
     ("mlp_int8_static::qgemm_kernel<1>", "K17 (c) int8 W2 GEMM + residual"),
     ("mlp_int8_static::", "K17 other"),
     ("attn_int8_static::quant_rows_kernel", "K18 (a) LN + rint rows"),
-    ("attn_int8_static::qgemm_kernel<0>", "K18 (b) int8 QKV GEMM"),
-    ("attn_int8_static::attn_kernel", "K18 (c) attention, int8 ao"),
-    ("attn_int8_static::qgemm_kernel<1>",
+    ("attn_int8_static::qgemm_wgmma_kernel<256,4>",
+     "K18 (b) int8 QKV GEMM, bf16"),
+    ("attn_int8_static::qgemm_wgmma_kernel<128,4>",
+     "K18 (b) int8 QKV GEMM, bf16"),
+    ("attn_int8_static::mha_wgmma_kernel<1,true>",
+     "K18 (c) attention, max-free, int8 aoq"),
+    ("attn_int8_static::qgemm_wgmma_kernel<128,3>",
      "K18 (d) int8 out-proj + residual"),
-    ("attn_int8_static::", "K18 other"),
+    ("attn_int8_static::", UNEXPECTED + " K18 kernel"),
     ("attn_half::gw_kernel<true", "K1 (a) LN + QKV GEMM"),
-    ("attn_half::mha_wgmma_kernel<1>", "K1 (b) attention, max-free"),
+    ("attn_half::mha_wgmma_kernel<1", "K1 (b) attention, max-free"),
     ("attn_half::gw_kernel<false", "K1 (c) out-proj + residual"),
     ("attn_half::row_stats_kernel", "K1 (d) next stats"),
     ("mlp_half::gw_kernel<true", "K2 (a) LN + W1 GEMM + act"),
@@ -179,8 +189,8 @@ STAGES = (
     ("int8_gemm::", "K13 int8 GEMM"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
     ("attn_block::gw_kernel<true", "K4 (b) LN + QKV GEMM"),
-    ("attn_block::mha_wgmma_kernel<2>", "K4 (c) attention, safe"),
-    ("attn_block::mha_wgmma_kernel<1>", "K4 (c) attention, max-free"),
+    ("attn_block::mha_wgmma_kernel<2", "K4 (c) attention, safe"),
+    ("attn_block::mha_wgmma_kernel<1", "K4 (c) attention, max-free"),
     ("attn_block::gw_kernel<false", "K4 (d) out-proj + residual"),
     ("attn_block::", UNEXPECTED + " K4 kernel"),
     ("mlp::ln_rows_kernel", "K5 (a) LN stats"),
