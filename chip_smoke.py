@@ -273,6 +273,28 @@ Phases, each of which raises on failure (exit code != 0):
               + 12 K15 + 1 K14 launches a batch and nothing else, logits
               against the CPU plain forward in the int8 band; the int8 and
               bf16 @384 b16 forwards timed in turns
+ 22. static / chain past 256 keys  right after phase 21's parity: K18
+              and K21b (on K16's launches) at phase 21's shapes, quiet and
+              saturating, on foreign stats, loud padding bit for bit, the
+              gates; at the end their times at (16, 584, 768), the static
+              tree and the chain served at ViT-B/16 @384
+ 23. K17 / K22 on qgemm_wgmma.cuh  right after phase 16's parity: K17
+              (both GEMMs on qgemm_wgmma.cuh, W1 with its int8 epilogue
+              QW_Q8) at its tiles' edges ((1000, 784) x 3104, T 1601) with
+              each activation and saturating; K22 (the QKV panel by QW_Q8,
+              a V^T pass, an int8 wgmma + TMA attention in two sweeps over
+              the keys, the out-projection) past 256 keys at (4, 584, 768)
+              with 577 valid and (2, 1032, 768) with 1025, quiet and
+              saturating, FLIP_ROWS' allowance; loud padding at 577 bit
+              for bit; the gate (ViT-B/16 @896's 3137 tokens, head dim 80,
+              11 heads raise); ptxas's report must show no spill in any
+              qgemm_wgmma_kernel or K22 attention instantiation; at the end
+              K22's time at (16, 584, 768) beside its plain version, its
+              library call and the bound, then ImageServer over
+              make_forward_int8(ViT-B/16 @384) on the static tree with
+              _INT8_SCORES on answers 6 uint8 requests at batch 4 with 12
+              K22 + 12 K17 + 1 K14 launches a batch and nothing else,
+              logits against the CPU plain forward in the int8 band
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -1612,12 +1634,14 @@ def _k16_work(batch, n_pad, n_valid, d, heads):
 
 
 # The int8 halves whose device-alone times (torch.profiler, the wrapper's
-# host time out) are printed beside the per-call ones: K16, K21a, K18 and
-# K21b, the attention halves also past 256 keys.
+# host time out) are printed beside the per-call ones: K16, K21a, K18,
+# K21b, K17 and K22, the attention halves also past 256 keys.
 DEVICE_ALONE = ("attn_block_int8", "mlp_block_int8_stats",
                 "attn_block_int8_long", "attn_block_int8_static",
                 "attn_block_int8_stats", "attn_block_int8_static_long",
-                "attn_block_int8_stats_long")
+                "attn_block_int8_stats_long", "mlp_block_int8_static",
+                "attn_block_int8_static_scores",
+                "attn_block_int8_static_scores_long")
 
 
 def _device_alone_pair(name, kern, lib, lib_ran):
@@ -5064,6 +5088,44 @@ def _k22_flip(x, a, heads, n_valid):
     return (move.amax(1) * a["wo_s"])[:, None, :]
 
 
+def _k22_library(xa, a, heads, n_valid):
+    """K22's library yardstick on (B, n_pad, D) ``xa``: F.layer_norm, the
+    rint in torch ops, torch._int_mm for the panel, SDPA with the key mask
+    on the bf16 panel at sdq, the out-projection the same way."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    batch, n_pad, d = xa.shape
+    rows, dh, bf = batch * n_pad, d // heads, torch.bfloat16
+    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
+    sdq = qb._scores_dequant(a["sc_qk"], dh)
+    v_to_ao = a["pv_fold"] * 127.0
+
+    def run():
+        h = F.layer_norm(xa.float(), (d,), a["ln_scale"], a["ln_bias"],
+                         EPS).reshape(rows, d)
+        panel = qb._rint_i8(torch._int_mm(qb._rint_i8(h), a["wqkv_q"])
+                            .float() * a["wqkv_qs"] + a["bqkv_qs"])
+        qkv = panel.to(bf).view(batch, n_pad, 3, heads, dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                            scale=sdq)
+        ao = ao.transpose(1, 2).reshape(rows, d).float() * v_to_ao
+        y = torch._int_mm(qb._rint_i8(ao), a["wo_q"]).float() \
+            * a["wo_s"] + a["bo"]
+        return xa.reshape(rows, d) + y.to(bf)
+    return run
+
+
+def _k22_work(batch, n_pad, n_valid, d, heads):
+    """K22's (int8 operations, bf16 FLOPs, compulsory bytes): the QKV and
+    out-projection products and the int8 attention, x in and out, the
+    int8 weights, the f32 vectors."""
+    rows = batch * n_pad
+    return (8 * rows * d * d + 4 * batch * heads * n_pad * n_valid
+            * (d // heads), 0,
+            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * 4)
+
+
 def _k22_parity(label, x, a, heads, n_valid, rows, got=None):
     """K22 (``got``, or a fresh launch) vs its plain version: the static
     int8 band (|x|, 2 steps of 127 wos), one row in FLIP_ROWS allowed one
@@ -5211,24 +5273,16 @@ def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
     from vit_fpga_tpu_torch.ops import quant_fused as qf
     from vit_fpga_tpu_torch.ops.common import row_stats
     from vit_fpga_tpu_torch.utils.timing import time_cuda
-    rows, dh, bf, vec = batch * n_pad, d // heads, torch.bfloat16, 4
+    rows, bf, vec = batch * n_pad, torch.bfloat16, 4
     rq = qf._row_quant
     xa, sta, pa = _attn_inputs(batch, n_pad, d, seed=170)
     qa = _int8_weights(pa, ("wqkv", "wo"))
     x2, st2, pm = _mlp_inputs(rows, d, m, seed=171)
     qm = _int8_weights(pm, ("w1", "w2"))
     a22, _ = _scores_args(xa, qa, heads, n_valid)
-    keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
 
     def mm(aq, wq, sa, ws, b):     # (K, N) wq column-major, as _int_mm takes
         return torch._int_mm(aq, wq).float() * (sa * ws) + b
-
-    def sdpa(qkv, scale=None):
-        qkv = qkv.view(batch, n_pad, 3, heads, dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
-                                            scale=scale)
-        return ao.transpose(1, 2).reshape(rows, d).float()
 
     def lib_k21a():
         h = (x2.float() - st2[:, :1]) * st2[:, 1:] * qm["ln_scale"] \
@@ -5240,22 +5294,7 @@ def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
         out = x2 + mm(hq, qm["w2_q"], sh, qm["w2_s"], qm["b2"]).to(bf)
         return out, row_stats(out, EPS)
 
-    sdq = qb._scores_dequant(a22["sc_qk"], dh)
-    v_to_ao = a22["pv_fold"] * 127.0
-
-    def lib_k22():
-        h = F.layer_norm(xa.float(), (d,), a22["ln_scale"], a22["ln_bias"],
-                         EPS).reshape(rows, d)
-        xq = qb._rint_i8(h)
-        panel = qb._rint_i8(torch._int_mm(xq, a22["wqkv_q"]).float()
-                            * a22["wqkv_qs"] + a22["bqkv_qs"])
-        ao = sdpa(panel.to(bf), scale=sdq) * v_to_ao
-        y = torch._int_mm(qb._rint_i8(ao), a22["wo_q"]).float() \
-            * a22["wo_s"] + a22["bo"]
-        return xa.reshape(rows, d) + y.to(bf)
-
     stats_bytes = 2 * rows * 2 * 4          # the stats in and out, f32
-    attn_ops = 4 * batch * heads * n_pad * n_valid * dh
     cases = {
         "attn_block_int8_stats": (
             lambda: _k21b(qb.attn_block_int8_stats, xa, sta, qa, heads,
@@ -5277,8 +5316,8 @@ def phase_chain_timing(batch=64, n_pad=200, n_valid=197, d=768, heads=12,
                          n_valid),
             lambda: _k22(qb.attn_block_int8_static_scores_plain, xa, a22,
                          heads, n_valid),
-            lib_k22, 8 * rows * d * d + attn_ops, 0,
-            2 * rows * d * 2 + 4 * d * d + (2 * d + 6 * d + 2 * d) * vec),
+            _k22_library(xa, a22, heads, n_valid),
+            *_k22_work(batch, n_pad, n_valid, d, heads)),
     }
     out = {}
     for name, (kern, plain, lib, ops8, flops, nbytes) in cases.items():
@@ -5785,18 +5824,45 @@ MLP_ACTS_ALL = ("gelu", "gelu_tanh", "quick_gelu", "relu")
 WGMMA_SERIAL = ("C7513", "C7514", "C7515")
 
 
+# Kernels whose every instantiation must compile without a spill: the int8
+# GEMM (each epilogue of every unit) and K22's attention.
+NO_SPILL = ("qgemm_wgmma_kernel", "attn_s8_wgmma_kernel")
+
+
+def _spills(lines, kernel):
+    """(entry line, ptxas's spill line) of each instantiation of
+    ``kernel`` in the build log whose spill stores or loads are not 0."""
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" not in ln or kernel not in ln:
+            continue
+        spill = next((x for x in lines[i + 1:i + 6] if "spill" in x), "")
+        if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+            out.append((ln.strip(), spill.strip()))
+    return out
+
+
 def check_wgmma_serialisation(build_log: str) -> None:
-    """Raise if ptxas reported serialising the wgmma of any kernel, or if
-    the log holds no ptxas report of the wgmma kernels to read."""
+    """Raise if ptxas reported serialising the wgmma of any kernel, if a
+    NO_SPILL kernel spills (or its report shows no spill line), or if the
+    log holds no ptxas report of the wgmma kernels to read."""
     lines = build_log.splitlines()
     for kernel in ("gw_kernel", "mha_wgmma_kernel", "bwd_q_kernel",
                    "bwd_kv_kernel", "qgemm_wgmma_kernel", "stack_int8_kernel",
                    "full_int8_kernel", "stack_int8_static_kernel",
-                   "8vit_full11full_kernel", "9vit_stack12stack_kernel"):
+                   "8vit_full11full_kernel", "9vit_stack12stack_kernel",
+                   "attn_s8_wgmma_kernel"):
         if not any("Compiling entry function" in ln and kernel in ln
                    for ln in lines):
             raise AssertionError(f"the build log holds no ptxas report of "
                                  f"{kernel}")
+    for kernel in NO_SPILL:
+        bad = _spills(lines, kernel)
+        print(f"{kernel} instantiations that spill: {len(bad)} (must be 0)")
+        for entry, spill in bad[:8]:
+            print(f"  {entry}: {spill or 'no spill line'}")
+        if bad:
+            raise AssertionError(f"ptxas spilled in {kernel}")
     hits = [ln for ln in lines if any(code in ln for code in WGMMA_SERIAL)]
     print(f"wgmma serialisation notes in the build log: {len(hits)} "
           f"(must be 0)")
@@ -6310,6 +6376,168 @@ def run_k18_k21b_long_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: K17 on qgemm_wgmma.cuh's int8 epilogue (QW_Q8) and K22 on it and
+# a wgmma + TMA int8 attention, past 256 keys; the int8-scores path served
+# at ViT-B/16 @384
+# ---------------------------------------------------------------------------
+
+SCORES_LONG = "attn_block_int8_static_scores_long"
+# (label, T, D, M) of K17 at its GEMMs' tile edges: a partial last tile of
+# 128 rows, of 256 W1 columns (3104 = 12 x 256 + 32) and of 128 W2 columns
+# (784 = 6 x 128 + 16), K past the last 128-byte step (784 for W1, 3104 for
+# W2); ragged rows at ViT-B/16's widths.  D and M are multiples of 16, as
+# the int8 GEMM's TMA rows need (K2's and K5's edge D 776 is refused)
+K17_EDGES = (("(1000, 784) x 3104", 1000, 784, 3104),
+             ("T 1601", 1601, 768, 3072))
+
+
+def _k17_edges():
+    """K17 against its plain version at K17_EDGES with each activation
+    calibrated on its input (quiet), and with gelu_tanh on half the range
+    (saturating: the clipped shares must be > 0, QW_Q8 must saturate, not
+    wrap), in the static int8 band.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    worst = 0.0
+    for i, (label, t, d, m) in enumerate(K17_EDGES):
+        x2, _, p = _mlp_inputs(t, d, m, seed=280 + i)
+        q = _int8_weights(p, ("w1", "w2"))
+        for act, how, shrink in [(a, "quiet", 1.0) for a in MLP_ACTS] + [
+                ("gelu_tanh", "saturating", SHRINK)]:
+            a, cx, ch = _static_mlp_args(x2, q, act, shrink)
+            print(f"parity K17 {label} {act} {how}: clipped share xq "
+                  f"{cx:.3e}, hq {ch:.3e}")
+            if shrink > 1.0 and not min(cx, ch) > 0.0:
+                raise AssertionError("K17 saturating case: nothing clipped")
+            worst = max(worst, _int8_parity(
+                f"K17 {label} {act} {how}",
+                _k17(qb.mlp_block_int8_static, x2, a, act),
+                _k17(qb.mlp_block_int8_static_plain, x2, a, act),
+                (127.0 * a["w2_s"]).expand(t, d), x2, mag_x=True))
+    _expect_raise("K17 at D 776 (not a multiple of 16)",
+                  lambda: _k17(qb.mlp_block_int8_static,
+                               torch.zeros((8, 776), dtype=torch.bfloat16,
+                                           device="cuda"), a, "gelu_tanh"))
+    return worst
+
+
+def _k22_loud(batch=4, n_pad=584, n_valid=577, d=768, heads=12):
+    """K22 with its padding rows (7 at 577 valid keys of 584) of huge
+    spikes: the valid rows must equal, bit for bit, the kernel's own on
+    quiet padding rows (their keys are masked) and match the plain version
+    on the loud input.  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    x, _, p = _attn_inputs(batch, n_pad, d, seed=285)
+    a, _ = _scores_args(x, _int8_weights(p, ("wqkv", "wo")), heads, n_valid)
+    loud = x.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 100] = -1e3
+    valid = (slice(None), slice(0, n_valid))
+    print(f"K22 loud padding ({batch}, {n_pad}, {d}): spikes in rows "
+          f"{n_valid}..{n_pad - 1}")
+    quiet = _k22(qb.attn_block_int8_static_scores, x, a, heads, n_valid)
+    noisy = _k22(qb.attn_block_int8_static_scores, loud, a, heads, n_valid)
+    err = _k22_parity("K22 loud padding", loud, a, heads, n_valid, valid,
+                      got=noisy)
+    moved = float((noisy[valid].float() - quiet[valid].float()).abs().max())
+    print(f"  K22 out valid rows, loud vs quiet padding: max_abs="
+          f"{moved:.3e} (must be 0)")
+    if moved != 0.0:
+        raise AssertionError("K22 out: padding rows moved the valid rows")
+    return err
+
+
+def phase_k17_k22_kernels(d=768, heads=12):
+    """K17 and K22 against their plain versions on the card, right after
+    phase 16's parity: K17 at its tiles' edges (``_k17_edges``); K22 past
+    256 keys at K16_LONG_CASES (ViT-B/16 @384's 577 tokens and @512's
+    1025) calibrated on its input (quiet) and on half its range
+    (saturating: the clipped shares must be > 0), in the static int8 band
+    with FLIP_ROWS' allowance; loud padding at 577 valid keys of 584 bit
+    for bit (``_k22_loud``); the gate: ViT-B/16 @896's 3137 tokens (one
+    score slot in the JAX plan), head dim 80 and an odd head count raise.
+    Returns {row name: largest max-abs error}."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    worst = {"mlp_block_int8_static": _k17_edges(), SCORES_LONG: 0.0}
+    for i, (b, n_pad, n_valid) in enumerate(K16_LONG_CASES):
+        x, _, p = _attn_inputs(b, n_pad, d, seed=282 + i)
+        q = _int8_weights(p, ("wqkv", "wo"))
+        valid = (slice(None), slice(0, n_valid))
+        for label, shrink in (("quiet", 1.0), ("saturating", SHRINK)):
+            a, clipped = _scores_args(x, q, heads, n_valid, shrink)
+            print(f"parity K22 past 256 keys ({b}, {n_pad}, {d}), n_valid="
+                  f"{n_valid} {label}: clipped share xq {clipped[0]:.3e}, "
+                  f"qkv8 {clipped[1]:.3e}, aoq {clipped[2]:.3e}")
+            if shrink > 1.0 and not min(clipped) > 0.0:
+                raise AssertionError("K22 saturating case: nothing clipped")
+            worst[SCORES_LONG] = max(worst[SCORES_LONG], _k22_parity(
+                f"K22 ({b}, {n_pad}) {n_valid} valid {label}", x, a, heads,
+                n_valid, valid))
+    worst[SCORES_LONG] = max(worst[SCORES_LONG], _k22_loud(d=d, heads=heads))
+    x, _, p = _attn_inputs(1, 200, d, seed=284)
+    a, _ = _scores_args(x, _int8_weights(p, ("wqkv", "wo")), heads, 197)
+    _expect_raise("K22 at ViT-B/16 @896 (1, 3144, 768), 3137 valid",
+                  lambda: _k22(qb.attn_block_int8_static_scores,
+                               torch.zeros((1, 3144, d), dtype=torch.bfloat16,
+                                           device="cuda"), a, heads, 3137))
+    _expect_raise("K22 at head dim 80",
+                  lambda: _k22(qb.attn_block_int8_static_scores,
+                               x[..., :720].contiguous(), a, 9, 197))
+    _expect_raise("K22 at 11 heads (odd)",
+                  lambda: _k22(qb.attn_block_int8_static_scores,
+                               x[..., :704].contiguous(), a, 11, 197))
+    return worst
+
+
+def phase_k22_long_timing(d=768, heads=12):
+    """K22 at K16_LONG_TIMED (ViT-B/16 @384 b16, 577 valid keys of 584):
+    the kernel's time, its plain version's, its library yardstick's (SDPA
+    with the key mask on the int8 panel), the bound and the device-alone
+    pair.  Returns a dict of times."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    b, n_pad, n_valid = K16_LONG_TIMED
+    x, _, p = _attn_inputs(b, n_pad, d, seed=286)
+    a, _ = _scores_args(x, _int8_weights(p, ("wqkv", "wo")), heads, n_valid)
+    ops8, flops, nbytes = _k22_work(b, n_pad, n_valid, d, heads)
+
+    def kern():
+        return _k22(qb.attn_block_int8_static_scores, x, a, heads, n_valid)
+
+    lib = _k22_library(x, a, heads, n_valid)
+    ms = time_cuda(kern)
+    plain_ms = time_cuda(
+        lambda: _k22(qb.attn_block_int8_static_scores_plain, x, a, heads,
+                     n_valid), iters=5, warmup=1)
+    lib_ms = _library_ms(lib, SCORES_LONG)
+    bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+    print(f"timing {SCORES_LONG} ({b}, {n_pad}, {d}) {n_valid} valid: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 "
+          f"ops, {nbytes / 1e6:.2f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                **_device_alone_pair(SCORES_LONG, kern, lib,
+                                     lib_ms is not None))
+
+
+def run_k17_k22_phases(errors, timing, launches):
+    """Phase 23 after the earlier slices' phases (its parity ran right
+    after phase 16's): K22's time past 256 keys, then ImageServer over
+    make_forward_int8(ViT-B/16 @384) on the static tree with
+    ``_INT8_SCORES`` on answers 6 uint8 requests at batch 4 with 12 K22 +
+    12 K17 + 1 K14 launches a batch (every K22 one past 256 keys) and
+    nothing else, logits against the CPU plain forward in the int8 band.
+    Its K22 launches are the JSON line's past-256-key row."""
+    timing[SCORES_LONG] = dict(phase_k22_long_timing(),
+                               max_abs_err=errors[SCORES_LONG])
+    served, _, _, _, _ = phase_int8_slice(n_images=6, batch=4, mode="scores",
+                                          image_size=384)
+    launches[SCORES_LONG] = served[SCORES_KERNEL]
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6336,6 +6564,7 @@ def main() -> int:
     errors.update(phase_train_edges())
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
+    k17_k22_errors = phase_k17_k22_kernels()
     errors["mlp_block_int8_stats"] = max(errors["mlp_block_int8_stats"],
                                          _k21a_edges())
     errors.update(phase_per_block_kernels())
@@ -6351,6 +6580,10 @@ def main() -> int:
     errors.update(phase_k18_k21b_long_kernels())
     errors["mlp_block_int8"] = max(errors["mlp_block_int8"], _k15_edges())
     errors.update(phase_static_kernels(8))
+    errors["mlp_block_int8_static"] = max(
+        errors["mlp_block_int8_static"],
+        k17_k22_errors.pop("mlp_block_int8_static"))
+    errors.update(k17_k22_errors)
     phase_parity()
     timing = phase_path_shapes()
     for name, err in wgmma_errors.items():
@@ -6389,6 +6622,7 @@ def main() -> int:
     run_odd_phases(errors, timing, launches)
     run_k16_long_phases(errors, timing, launches)
     run_k18_k21b_long_phases(errors, timing, launches)
+    run_k17_k22_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -6451,6 +6685,8 @@ def main() -> int:
         "attn_block_int8_static_scores": (
             "vit_fpga_tpu_torch/csrc/attn_int8_scores.cu",
             "vit_fpga_tpu/ops/quant_block.py:850"),
+        SCORES_LONG: ("vit_fpga_tpu_torch/csrc/attn_int8_scores.cu",
+                      "vit_fpga_tpu/ops/quant_block.py:850"),
         "attn_block_int8_static_long": (
             "vit_fpga_tpu_torch/csrc/attn_int8_static.cu",
             "vit_fpga_tpu/ops/quant_block.py:729"),

@@ -1,6 +1,6 @@
 """K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's, K9's,
-K19a's, K20's, K19b's, K12's, K11's, K15's, K16's, K21a's, K18's or K21b's
-time at a shape, from the package tree
+K19a's, K20's, K19b's, K12's, K11's, K15's, K16's, K21a's, K18's, K21b's,
+K17's or K22's time at a shape, from the package tree
 found under ROOT, so that two versions of the port are compared in one
 call on one card.
 
@@ -8,7 +8,7 @@ Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
         [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12|
-                  k11|k15|k16|k21a|k18|k21b]
+                  k11|k15|k16|k21a|k18|k21b|k17|k22]
         [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT] [--a-region]
         [--k15 VARIANT] [--k16 VARIANT]
@@ -115,6 +115,19 @@ with the key mask and the next stats in torch ops for K21b), with K16 and
 K15 at b64 as the controls, then the forwards through them from uint8:
 the static int8 ViT-B/16 b64 and @384 b16 (K18), or the dynamic one and
 the int8 stats chain at both (K21b), where the tree serves them.
+``--kernel k17`` times ``mlp_block_int8_static`` (gelu_tanh) at ViT-B/16
+b64's (12 800, 768) x 3072 and ``--kernel k22``
+``attn_block_int8_static_scores`` at (64, 200, 768) with 197 valid keys
+and at (16, 584, 768) with 577 (a tree whose kernel refuses it skips it),
+on chip_smoke.py's timing inputs (calibrated on their own input, as
+``_static_mlp_args`` and ``_scores_args``), each first checked against
+its plain version in the static int8 band (K22 with FLIP_ROWS'
+allowance), per call, device alone and step by step, beside its library
+call (chip_smoke's ``_static_library``; for K22 the rint in torch ops,
+torch._int_mm and SDPA on the int8 panel), with K18 and K15 at b64 as
+the controls, then the static int8 ViT-B/16 b64 and @384 b16 forwards
+from uint8 and, with k22, the int8-scores ones (``_INT8_SCORES`` on),
+where the tree serves them.
 Prints five CUDA-event estimates of 20 launches each (``emit_stats`` on,
 seeded inputs at chip_smoke.py's scales; 5 calls of a forward or step)
 beside the card's name and power limit, and one JSON line.
@@ -414,19 +427,22 @@ def time_int8_forwards(g, kernel):
     """The int8 ViT-B/16 forwards from uint8 on seeded random weights,
     five estimates of 5 calls each: at b64 the dynamic one (quantize_vit_
     fast: 12 K16 + 12 K15 + K14), with ``kernel`` k18 the static one
-    instead (quantize_vit_static: 12 K18 + 12 K17 + K14); with k16, k18
-    and k21b also at @384 b16 where the tree serves it; with k21a and k21b
-    also with the int8 stats chain on (12 K21b + 12 K21a + K14)."""
+    instead (quantize_vit_static: 12 K18 + 12 K17 + K14), as with k17
+    and k22; with k16, k18, k21b, k17 and k22 also at @384 b16 where the
+    tree serves it; with k21a and k21b also with the int8 stats chain on
+    (12 K21b + 12 K21a + K14), with k22 the static tree with the
+    int8-scores attention on (12 K22 + 12 K17 + K14)."""
     import torch
     from vit_fpga_tpu_torch.models import quantized, vit
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     out = {}
     for image, batch in ((224, 64), (384, 16)):
-        if image == 384 and kernel not in ("k16", "k18", "k21b"):
+        if image == 384 and kernel not in ("k16", "k18", "k21b", "k17",
+                                           "k22"):
             continue
         cfg = vit.config("vit_b16", image_size=image, dtype="bfloat16")
         params = vit.init_params(cfg, g, device="cuda")
-        static = kernel == "k18"
+        static = kernel in ("k18", "k17", "k22")
         fq = quantized.make_forward_int8(
             cfg, quantized.quantize_vit_static(params, cfg) if static
             else quantized.quantize_vit_fast(params))
@@ -440,10 +456,13 @@ def time_int8_forwards(g, kernel):
                           for _ in range(5)]
         except ValueError as e:
             print(f"{label}: not served by this tree ({e})")
-        if kernel in ("k21a", "k21b"):
-            label = (f"ViT-B/16 @{image} b{batch} int8 stats chain forward "
-                     "(uint8 in)")
-            quantized._INT8_STATS_CHAIN = True
+        switch = {"k21a": "_INT8_STATS_CHAIN", "k21b": "_INT8_STATS_CHAIN",
+                  "k22": "_INT8_SCORES"}.get(kernel)
+        if switch is not None:
+            what = ("int8 stats chain" if switch == "_INT8_STATS_CHAIN"
+                    else "int8-scores")
+            label = f"ViT-B/16 @{image} b{batch} {what} forward (uint8 in)"
+            setattr(quantized, switch, True)
             try:
                 fq(img)
                 out[label] = [time_cuda(lambda: fq(img), iters=5, warmup=2)
@@ -451,7 +470,7 @@ def time_int8_forwards(g, kernel):
             except ValueError as e:
                 print(f"{label}: not served by this tree ({e})")
             finally:
-                quantized._INT8_STATS_CHAIN = False
+                setattr(quantized, switch, False)
     return out
 
 
@@ -495,7 +514,7 @@ def main() -> int:
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
                              "k23", "k6", "k13", "k9", "k19a", "k20",
                              "k19b", "k12", "k11", "k15", "k16", "k21a",
-                             "k18", "k21b"),
+                             "k18", "k21b", "k17", "k22"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -1078,6 +1097,93 @@ def main() -> int:
         qm = cs._int8_weights(pm, ("w1", "w2"))
         runs["K15 control (12800, 768) x 3072"] = (
             lambda: cs._k15(qb.mlp_block_int8, xm, qm, "gelu_tanh"))
+    elif args.kernel in ("k17", "k22"):
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import quant_block as qb
+
+        def k22_lib(xa, a, n_valid, heads=12):
+            b, n_pad, d = xa.shape
+            rows, dh, bf = b * n_pad, d // heads, torch.bfloat16
+            keep = (torch.arange(n_pad, device="cuda")
+                    < n_valid)[None, None, None]
+            sdq = qb._scores_dequant(a["sc_qk"], dh)
+
+            def lib():
+                h = F.layer_norm(xa.float(), (d,), a["ln_scale"],
+                                 a["ln_bias"], cs.EPS).reshape(rows, d)
+                panel = qb._rint_i8(torch._int_mm(qb._rint_i8(h),
+                                                  a["wqkv_q"]).float()
+                                    * a["wqkv_qs"] + a["bqkv_qs"])
+                qkv = panel.to(bf).view(b, n_pad, 3, heads, dh)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                ao = F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                    scale=sdq)
+                ao = (ao.transpose(1, 2).reshape(rows, d).float()
+                      * (a["pv_fold"] * 127.0))
+                y = (torch._int_mm(qb._rint_i8(ao), a["wo_q"]).float()
+                     * a["wo_s"] + a["bo"])
+                return xa.reshape(rows, d) + y.to(bf)
+            return lib
+
+        runs = {}
+        shape = []
+        if args.kernel == "k17":
+            # chip_smoke.py's timing inputs (phase_static_timing, seed 141)
+            x2, _, pm = cs._mlp_inputs(12800, 768, 3072, 141)
+            am, _, _ = cs._static_mlp_args(
+                x2, cs._int8_weights(pm, ("w1", "w2")), "gelu_tanh")
+            shape.append([12800, 768, 3072])
+            label = "K17 (12800, 768) x 3072"
+
+            def run():
+                return cs._k17(qb.mlp_block_int8_static, x2, am, "gelu_tanh")
+            cs._int8_parity(label, run(), cs._k17(
+                qb.mlp_block_int8_static_plain, x2, am, "gelu_tanh"),
+                (127.0 * am["w2_s"]).expand(12800, 768), x2, mag_x=True)
+            runs[f"{label} per call"] = run
+            device[f"{label} device alone"] = run
+            steps[label] = run
+            lib = cs._static_library(x2, am, "mlp")
+            runs["library per call"] = lib
+            device["library device alone"] = lib
+        else:
+            # chip_smoke.py's timing inputs (phase_chain_timing seed 170;
+            # 286 past 256 keys)
+            for b, n_pad, n_valid, seed in ((64, 200, 197, 170),
+                                            (16, 584, 577, 286)):
+                xa, _, pa = cs._attn_inputs(b, n_pad, 768, seed)
+                a, _ = cs._scores_args(
+                    xa, cs._int8_weights(pa, ("wqkv", "wo")), 12, n_valid)
+                label = f"K22 ({b}, {n_pad}, 768) n_valid {n_valid}"
+                shape.append([b, n_pad, n_valid, 768, 12])
+
+                def run(xa=xa, a=a, n_valid=n_valid):
+                    return cs._k22(qb.attn_block_int8_static_scores, xa, a,
+                                   12, n_valid)
+                try:
+                    got = run()
+                except ValueError as e:
+                    print(f"{label}: not taken by this tree ({e})")
+                    got = None
+                if got is not None:
+                    cs._k22_parity(label, xa, a, 12, n_valid,
+                                   (slice(None), slice(0, n_valid)), got=got)
+                    runs[f"{label} per call"] = run
+                    device[f"{label} device alone"] = run
+                    steps[label] = run
+                lib = k22_lib(xa, a, n_valid)
+                runs[f"library ({b}, {n_pad}) per call"] = lib
+                device[f"library ({b}, {n_pad}) device alone"] = lib
+        xc, _, pc = cs._attn_inputs(64, 200, 768, 140)
+        ac, _, _ = cs._static_attn_args(
+            xc, cs._int8_weights(pc, ("wqkv", "wo")), 12, 197)
+        runs["K18 control (64, 200, 768)"] = (
+            lambda: cs._k18(qb.attn_block_int8_static, xc, ac, 12, 197))
+        xm, _, pm = cs._mlp_inputs(12800, 768, 3072, 93)
+        qm = cs._int8_weights(pm, ("w1", "w2"))
+        runs["K15 control (12800, 768) x 3072"] = (
+            lambda: cs._k15(qb.mlp_block_int8, xm, qm, "gelu_tanh"))
     elif args.kernel in ("k16", "k21a"):
         sys.path.insert(0, str(root))
         import chip_smoke as cs
@@ -1231,7 +1337,7 @@ def main() -> int:
         ms.update(time_k13_paths(g))
     if args.kernel == "k9":
         ms.update(time_k9_paths(g))
-    if args.kernel in ("k16", "k21a", "k18", "k21b"):
+    if args.kernel in ("k16", "k21a", "k18", "k21b", "k17", "k22"):
         ms.update(time_int8_forwards(g, args.kernel))
     if args.kernel in ("k24", "k23"):
         ms.update(time_sgd_step(g))

@@ -52,10 +52,12 @@ run_copy k19a_h_one_tile_absmax stack_wgmma.cuh \
 run_copy k19a_ao_one_head_absmax stack_wgmma.cuh \
   "a = LqQuantA{w.ao, w.amax_ao, p.heads, rows, p.d, false, &p.maps.ao};" \
   "a = LqQuantA{w.ao, w.amax_ao, 1, rows, p.d, false, &p.maps.ao};"
-# K17 without the saturation before the int8 cast of h: past +-127 it wraps
-run_copy k17_no_clamp quant.cuh \
-  "q.c[t] = rint_sat(qact_scaled(f[t], p.act, p.qscale));" \
-  "q.c[t] = static_cast<signed char>(static_cast<int>(rintf(qact_scaled(f[t], p.act, p.qscale))));"
+# K17 without the saturation before the int8 cast of h: past +-127 it
+# wraps (qgemm_wgmma.cuh's QW_Q8 store where an activation runs, K17's W1;
+# K22's QKV panel, act none, keeps its clamp)
+run_copy k17_no_clamp qgemm_wgmma.cuh \
+  "q4 |= (uint32_t)(unsigned char)rint_sat(qact_scaled(f[e], p.act, p.qscale)) << (8 * e);" \
+  "q4 |= (uint32_t)(unsigned char)(p.act == ACT_NONE ? (int)rint_sat(qact_scaled(f[e], p.act, p.qscale)) : static_cast<int>(rintf(qact_scaled(f[e], p.act, p.qscale)))) << (8 * e);"
 # K19b reading layer 0's inv_ao / inv_ah for every layer (the static
 # variant of the layer loop, stack_wgmma.cuh)
 run_copy k19b_layer0_scales stack_wgmma.cuh \
@@ -265,10 +267,15 @@ run_copy k21b_own_ln_stats attn_int8_stats.cu \
 # / sum e)), the reciprocal alone (mha_wgmma.cuh's Q8 store)
 run_copy k18_out_scale_dropped mha_wgmma.cuh \
   "const float rv = __fmul_rn(ol[rr], p.out_scale);" "const float rv = ol[rr];"
-# K22 quantising p without the 1/sum(e) factor
+# K22 quantising p without the 1/sum(e) factor (the int8 attention's p127)
 run_copy k22_no_rsum attn_int8_scores.cu \
-  "const float p127 = __fmul_rn(127.0f, __fdiv_rn(1.0f, sum));" \
-  "const float p127 = 127.0f;"
+  "p127[rr] = __fmul_rn(127.0f, __fdiv_rn(1.0f, quad_sum(l[rr])));" \
+  "p127[rr] = 127.0f;"
+# K22's row sums keeping the keys past n_valid (the first sweep's last
+# tile unmasked: each zero-filled key adds e = 1 to sum(e))
+run_copy k22_keys_unmasked attn_int8_scores.cu \
+  "s8_fold<true>(s, l, i * S8_KT + 2 * t4, n_valid, sdq);" \
+  "s8_fold<false>(s, l, 0, 0, sdq);"
 # K10 reading each pixel's channels in the wrong order (BGR for RGB)
 run_copy k10_bgr patch_embed.cu \
   "const size_t koff = (size_t)py * w3 + (kin ? k % p3 : 0);" \

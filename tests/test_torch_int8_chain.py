@@ -290,10 +290,14 @@ def _scores_port(x, args, heads, n_valid):
                                              n_valid=n_valid)
 
 
-@pytest.mark.parametrize("n_valid", [13, 9])
-def test_attn_block_int8_static_scores_matches_pallas_and_ref(n_valid):
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(13, 13, id="13"), pytest.param(13, 9, id="9"),
+    # past 256 keys, where the Hopper kernel once stopped: every key but
+    # the last 128-key tile's 3 padding rows, and a single valid key
+    pytest.param(264, 261, id="264-261"), pytest.param(264, 1, id="264-1")])
+def test_attn_block_int8_static_scores_matches_pallas_and_ref(n, n_valid):
     heads = 2
-    x, args = _scores_case()
+    x, args = _scores_case(n=n)
     got = _scores_port(x, args, heads, n_valid)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     kernel = _scores_jax(x, args, heads, n_valid, functools.partial(
@@ -409,8 +413,7 @@ def _chain_encoder(jqp, jcfg):
 
 def _scores_encoder(jqp, jcfg):
     def run(x):
-        b = x.shape[0]
-        d = jcfg.hidden_dim
+        b, n_pad, d = x.shape
         act = ("quick_gelu" if jcfg.hidden_act == "quick_gelu"
                else "gelu_tanh")
         for i in range(jcfg.depth):
@@ -422,10 +425,10 @@ def _scores_encoder(jqp, jcfg):
                 jcfg.num_heads, eps=jcfg.ln_eps, n_valid=jcfg.seq_len,
                 interpret=True)
             x = jqb.mlp_block_int8_static(
-                x.reshape(b * N_PAD, d), blk["inv_ah"], blk["ln2_scale"],
+                x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
                 blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"],
                 blk["w2_q"], blk["w2_s"], blk["b2"], eps=jcfg.ln_eps,
-                act=act, block_t=32, interpret=True).reshape(b, N_PAD, d)
+                act=act, block_t=32, interpret=True).reshape(b, n_pad, d)
         return x
     return run
 
@@ -505,6 +508,37 @@ def test_int8_scores_forward_matches_jax_kernel_composition(monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
     assert len(calls) == jcfg.depth and got.shape == (3, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=TIGHT * np.abs(want).max())
+
+
+def test_int8_scores_forward_past_256_tokens_matches_jax_kernel_composition(
+        monkeypatch):
+    """A 384-px-like geometry: 577 tokens (24 x 24 patches and the CLS
+    row, ViT-B/16 @384's count) on 584 rows, head dim 64, two narrow
+    layers, a static tree with the int8-scores switch on.  The JAX wrapper
+    runs its kernel there (two score slots), and so does the port: every
+    attention half is K22 (attn_block_int8_static_scores), inside the gate
+    the card applies, and the logits hold to the JAX composition of the
+    Pallas kernels as tightly as at 17 tokens."""
+    monkeypatch.setattr(tq, "_INT8_SCORES", True)
+    jcfg, tcfg, jqp, tqp = _trees(16, True, image_size=192)
+    assert tcfg.seq_len == 577
+    shapes = []
+
+    def k22(x, *args, n_valid=None, **kwargs):
+        shapes.append((tuple(x.shape), n_valid))
+        tqb.attn_int8_scores_geometry(*x.shape, args[-1], n_valid)
+        return tqb.attn_block_int8_static_scores(x, *args, n_valid=n_valid,
+                                                 **kwargs)
+
+    monkeypatch.setattr(tq, "attn_block_int8_static_scores", k22)
+    img = _images(17, b=2, s=192)
+    want = _jax_composition(jqp, img, jcfg, _scores_encoder(jqp, jcfg),
+                            n_pad=584)
+    got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img)
+    assert shapes == [((2, 584, 128), 577)] * 2
+    assert got.shape == (2, 10) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=TIGHT * np.abs(want).max())
 

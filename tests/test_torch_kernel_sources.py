@@ -500,11 +500,13 @@ def test_the_int8_attention_store_is_the_static_layer_loops():
     ("attn_int8.cu", "vft_attn_block_int8"),
     ("mlp_int8_stats.cu", "vft_mlp_block_int8_stats"),
     ("attn_int8_static.cu", "vft_attn_block_int8_static"),
-    ("attn_int8_stats.cu", "vft_attn_block_int8_stats")])
+    ("attn_int8_stats.cu", "vft_attn_block_int8_stats"),
+    ("mlp_int8_static.cu", "vft_mlp_block_int8_static"),
+    ("attn_int8_scores.cu", "vft_attn_block_int8_scores")])
 def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
-    """The ctypes argument lists of K16's, K21a's, K18's and K21b's C entry
-    points follow the C definitions: pointers, ints and floats in the same
-    order."""
+    """The ctypes argument lists of K16's, K21a's, K18's, K21b's, K17's and
+    K22's C entry points follow the C definitions: pointers, ints and
+    floats in the same order."""
     src = (_kernels.CSRC / source).read_text()
     params = src[src.index(f"int {entry}("):]
     params = params[params.index("(") + 1:params.index(")")]
@@ -570,14 +572,120 @@ def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
      "K18 (d)"),
     ("void attn_int8_static::qgemm_kernel<1>(attn_int8_static::QGemmArgs)",
      "unexpected: K18"),
+    ("void mlp_int8_static::quant_rows_kernel<__nv_bfloat16, 1, true, "
+     "float>(__nv_bfloat16 const*)", "K17 (a)"),
+    ("void mlp_int8_static::qgemm_wgmma_kernel<256, 5>(CUtensorMap)",
+     "K17 (b)"),
+    ("void mlp_int8_static::qgemm_wgmma_kernel<128, 3>(CUtensorMap)",
+     "K17 (c)"),
+    ("void mlp_int8_static::qgemm_kernel<3>(mlp_int8_static::QGemmArgs)",
+     "unexpected: K17"),
+    ("void attn_int8_scores::quant_rows_kernel<__nv_bfloat16, 1, true, "
+     "float>(__nv_bfloat16 const*)", "K22 (a)"),
+    ("void attn_int8_scores::qgemm_wgmma_kernel<256, 5>(CUtensorMap)",
+     "K22 (b)"),
+    ("void attn_int8_scores::vt_kernel(signed char const*, signed char*)",
+     "K22 (c)"),
+    ("void attn_int8_scores::attn_s8_wgmma_kernel(CUtensorMap, "
+     "attn_int8_scores::S8Args)", "K22 (d)"),
+    ("void attn_int8_scores::qgemm_wgmma_kernel<128, 3>(CUtensorMap)",
+     "K22 (e)"),
+    ("void attn_int8_scores::attn_s8_kernel(signed char const*, int)",
+     "unexpected: K22"),
+    ("void attn_int8_scores::qgemm_kernel<3>(attn_int8_scores::QGemmArgs)",
+     "unexpected: K22"),
     ("void attn_half::mha_wgmma_kernel<1, false>(CUtensorMap, MhaTmaArgs)",
      "K1 (b)"),
     ("void attn_block::mha_wgmma_kernel<2, false>(CUtensorMap, MhaTmaArgs)",
      "K4 (c) attention, safe")])
 def test_profile_names_the_int8_halves_launches(name, stage):
-    """profile_forward's table gives K16's, K21a's, K21b's and K18's wgmma
-    launches and row passes their steps (the attention's name carries its
-    int8 flag beside the mode), and calls anything else of theirs (the
-    wmma GEMM and attention tile they ran before) unexpected."""
+    """profile_forward's table gives K16's, K21a's, K21b's, K18's, K17's
+    and K22's wgmma launches, row passes and K22's V^T pass their steps
+    (the attention's name carries its int8 flag beside the mode), and
+    calls anything else of theirs (the wmma GEMM and attention tiles they
+    ran before) unexpected."""
     from vit_fpga_tpu_torch import profile_forward as pf
     assert pf._stage(name).startswith(stage)
+
+
+@pytest.mark.parametrize("name", ["mlp_int8_static.cu", "attn_int8_scores.cu"])
+def test_k17_and_k22_run_their_gemms_on_the_int8_wgmma_gemm(name):
+    """K17's W1 and W2 and K22's QKV and out-projection run on
+    qgemm_wgmma.cuh with its int8 epilogue (QW_Q8: K17's hq, K22's int8
+    panel) and the residual one, at a row scale of 1 (no sa), not on
+    quant.cuh's wmma GEMM."""
+    text = (_kernels.CSRC / name).read_text()
+    body = text.split("#define VFT_NS")[1]
+    for inc in ("hopper.cuh", "qgemm_wgmma.cuh"):
+        assert f'#include "{inc}"' in text, inc
+    assert "wmma" not in body
+    for epi in ("QW_Q8", "QW_RESID"):
+        assert text.count(f"launch_qgemm_epi<{epi}>(") == 1, epi
+        assert f"qgemm_epi_enable<{epi}>()" in text, epi
+    assert "launch_qgemm<" not in text and "qgemm_enable<" not in text
+    assert "QGemmArgs" not in text and ".sa = " not in text
+    assert "tma_init()" in text
+    assert ("if (tma_encoder() == nullptr) return "
+            "cudaErrorInitializationError;") in text
+
+
+def test_k22_attention_is_a_wgmma_tma_kernel_past_256_keys():
+    """K22's attention is an int8 wgmma + TMA kernel that streams the keys
+    twice (the row sums, then pq and p v) through a ring: q k^T on
+    64-byte-swizzled tiles, p v on the V^T pass's tiles; expf and a true
+    division, not ex2.approx; no mma.sync, no whole-head tile and no
+    256-key bound."""
+    k22 = (_kernels.CSRC / "attn_int8_scores.cu").read_text()
+    body = k22.split("#define VFT_NS")[1]
+    for gone in (r"\bmma_s8\(", r"\bS8_MAX_KV\b", r"\battn_s8_kernel\b",
+                 r"\bS8Smem\b", r"\bex2\(", r"\b256\b"):
+        assert not re.search(gone, body), gone
+    for piece in ("wgmma_m64n128k32_s8(", "wgmma_m64n64k32_s8(",
+                  "sw64_desc(", "CU_TENSOR_MAP_SWIZZLE_64B",
+                  "CU_TENSOR_MAP_SWIZZLE_128B", "tma_load_4d(",
+                  "fence_proxy_async();", "vt_kernel<<<",
+                  "attn_s8_wgmma_kernel<<<", "expf(",
+                  "__fmul_rn(127.0f, __fdiv_rn(1.0f, quad_sum(l[rr])))",
+                  "constexpr int S8_MAX_GRID_Y = 65535;"):
+        assert piece in k22, piece
+    hopper = (_kernels.CSRC / "hopper.cuh").read_text()
+    assert "uint64_t sw64_desc(uint32_t saddr)" in hopper
+    assert "(2ull << 62)" in hopper  # layout SWIZZLE_64B
+
+
+def test_the_wmma_int8_gemm_keeps_k14s_plain_epilogue_alone():
+    """quant.cuh's wmma GEMM serves K14 alone: its int8 and residual
+    epilogues, the residual operand and the static scale went with K17
+    and K22; the static activation (qact_scaled) and rint_sat stay, in
+    common.cuh, for QW_Q8 and the static layer loop."""
+    quant = (_kernels.CSRC / "quant.cuh").read_text()
+    assert "enum { EPI_PLAIN = 0 };" in quant
+    for gone in (r"\bEPI_Q8\b", r"\bEPI_RESID\b", r"\bqscale\b",
+                 r"\bresidual\b", r"float qact_scaled\("):
+        assert not re.search(gone, quant), gone
+    users = sorted(p.name for p in _kernels.CSRC.iterdir()
+                   if "launch_qgemm<" in p.read_text() and p.suffix == ".cu")
+    assert users == ["quant_linear.cu"]
+    for p in _kernels.CSRC.iterdir():
+        text = p.read_text()
+        for gone in (r"\bEPI_Q8\b", r"\bEPI_RESID\b", r"\bmma_s8\b"):
+            assert not re.search(gone, text), (p.name, gone)
+    common = (_kernels.CSRC / "common.cuh").read_text()
+    assert "float qact_scaled(float h, int act, float s)" in common
+    assert "signed char rint_sat(float v)" in common
+
+
+def test_qw_q8_is_a_saturating_int8_epilogue_stored_by_tma():
+    """QW_Q8 is a third output kind of qw_epilogue (128 int8 columns a
+    piece) in the order of the wmma GEMM's former int8 epilogue:
+    rint_sat(qact_scaled(f, act, qscale)) on the one dequantized f, stored
+    through an int8 map."""
+    gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
+    body = gemm[gemm.index("void qw_epilogue("):]
+    body = body[:body.index("\n}\n")]
+    assert "constexpr int EB = H ? 4 : EPI == QW_Q8 ? 1 : 2;" in body
+    assert "rint_sat(qact_scaled(f[e], p.act, p.qscale))" in body
+    assert "float qscale;" in gemm and "QW_Q8 = 5" in gemm
+    launch = gemm[gemm.index("inline cudaError_t launch_qgemm_epi("):]
+    assert "EPI == QW_Q8 ? tma_encode_s8(&tc, out, 2, dims, strides, box)" \
+        in launch

@@ -195,8 +195,8 @@ K18_K21B_GATES = {"K18": tqb.attn_int8_static_geometry,
 
 
 def _jax_wrapper_runs(kernel, batch, n_pad, n_valid, d, heads):
-    """Whether the JAX wrapper of ``kernel`` (attn_block_int8_static or
-    attn_block_int8_stats) takes (batch, n_pad, d) tokens: traced
+    """Whether the JAX wrapper of ``kernel`` (attn_block_int8_static,
+    attn_block_int8_static_scores or attn_block_int8_stats) takes (batch, n_pad, d) tokens: traced
     abstractly (jax.eval_shape), so only its own checks run."""
     f32, i8, bf = jnp.float32, jnp.int8, jnp.bfloat16
 
@@ -207,6 +207,9 @@ def _jax_wrapper_runs(kernel, batch, n_pad, n_valid, d, heads):
     x = spec(batch, n_pad, d, dt=bf)
     if kernel == "K18":
         fn, args = jqb.attn_block_int8_static, (x, spec(1, 1), *weights)
+    elif kernel == "K22":
+        fn = jqb.attn_block_int8_static_scores
+        args = (x, spec(1, 1), spec(1, 1), *weights)
     else:
         fn = jqb.attn_block_int8_stats
         args = (x, spec(batch, n_pad, STATS_LANES), *weights)
@@ -276,3 +279,45 @@ def test_k18_k21b_gates_reject_what_the_kernels_do_not_take(
         kernel, b, n, d, heads, n_valid, why):
     with pytest.raises(ValueError, match=f"{kernel}.*{why}"):
         K18_K21B_GATES[kernel](b, n, d, heads, n_valid)
+
+
+# (model, image size) around the JAX int8-scores wrapper's own bound, two
+# score slots: ViT-B/16 @224, @384 (2 slots) and @512 run it, @896 (one
+# slot) raises; ViT-L/16 @384 raises at b1 to b3 and runs from b4
+K22_GEOMETRIES = (("vit_b16", 224), ("vit_b16", 384), ("vit_b16", 512),
+                  ("vit_b16", 896), ("vit_l16", 384))
+
+
+@pytest.mark.parametrize("variant,image", K22_GEOMETRIES)
+def test_k22_gate_admits_what_the_jax_wrapper_runs(variant, image):
+    """K22's gate on the card (attn_int8_scores_geometry) admits a model's
+    tokens exactly where the JAX attn_block_int8_static_scores runs (its
+    own raise, traced abstractly: n_sc >= 2 in the JAX int8 plan), at the
+    rows the port's forward pads them to, b1, b3, b4 and b64; ViT-B/16
+    @896 and ViT-L/16 @384 b1 refuse."""
+    jcfg = jvit.config(variant, image_size=image)
+    d, heads, n = jcfg.hidden_dim, jcfg.num_heads, jcfg.seq_len
+    n_pad = round_up(n, SUBLANE)
+    for batch in (1, 3, 4, 64):
+        runs = _jax_wrapper_runs("K22", batch, n_pad, n, d, heads)
+        if (variant, image) == ("vit_b16", 896) or (
+                (variant, image) == ("vit_l16", 384) and batch < 4):
+            assert not runs, batch
+        if runs:
+            tqb.attn_int8_scores_geometry(batch, n_pad, d, heads, n)
+        else:
+            with pytest.raises(ValueError, match="K22 runs where the JAX"):
+                tqb.attn_int8_scores_geometry(batch, n_pad, d, heads, n)
+
+
+@pytest.mark.parametrize("b,n,d,heads,n_valid,why", [
+    (4, 584, 960, 12, 577, "dh=64, even heads"),  # dh 80 (ViT-H/14)
+    (4, 200, 704, 11, 197, "dh=64, even heads"),  # an odd head count
+    (4, 200, 768, 12, 0, "K22 takes 1..n valid"),    # no valid key
+    (4, 200, 768, 12, 201, "K22 takes 1..n valid"),  # more keys than rows
+    (5462, 200, 768, 12, 197, "K22's attention grid"),  # batch x heads
+])
+def test_k22_gate_rejects_what_the_kernel_does_not_take(b, n, d, heads,
+                                                        n_valid, why):
+    with pytest.raises(ValueError, match=why):
+        tqb.attn_int8_scores_geometry(b, n, d, heads, n_valid)

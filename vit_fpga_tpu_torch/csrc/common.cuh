@@ -1,17 +1,18 @@
 // Shared device code for the port's kernels.
 //
-//   activations  the Act codes, act(h) and act'(h) in f32
+//   activations  the Act codes, act(h) and act'(h) in f32, and act(h) * s
+//                with a static int8 scale folded in (qact_scaled)
 //   bf16 / int8  packing, rounding and the quant domain's rint_sat
 //   reductions   quad, warp sums and maxima
 //   cp.async     16-byte global -> shared copies with zero fill
-//   fragments    ldmatrix and mma.sync by hand (bf16 and int8)
 //   row_stats    per-row one-pass LayerNorm statistics in f32:
 //                mu = mean(x), rstd = 1/sqrt(max(mean(x^2) - mu^2, 0) + eps),
 //                stored as f32 or (the int8 chain's bf16 tiles) rounded to bf16.
 //
 // The per-block and chain kernels' bf16 GEMMs run on gemm_wgmma.cuh (wgmma
-// + TMA), the int8 GEMM is quant.cuh's, and the single-launch encoders keep
-// their own tiles (stack.cuh).  Everything lives in the namespace VFT_NS, which each
+// + TMA), the int8 ones on qgemm_wgmma.cuh (K14 alone on quant.cuh's wmma
+// GEMM), and the single-launch encoders on stack_wgmma.cuh's layer loop.
+// Everything lives in the namespace VFT_NS, which each
 // translation unit defines before including this header: each gets its own
 // copy of the kernels, under a name that tells the launch sites apart in a
 // trace.
@@ -70,6 +71,27 @@ __device__ __forceinline__ float act_rn(float h, int act) {
   const float u = __fmul_rn(h, __fadd_rn(0.7978845608028654f, __fmul_rn(0.035677408136300125f, h2)));
   const float hh = __fmul_rn(0.5f, h);
   return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
+}
+
+// act(h) * s with the static scale folded into the emission constants, in
+// the order of the JAX kernels' _apply_act_scaled: gelu_tanh's 0.5 * h
+// becomes (0.5 * s) * h, quick_gelu (s * h) * sigmoid(1.702 h), relu
+// max(s * h, 0); each product and sum rounded on its own.
+__device__ __forceinline__ float qact_scaled(float h, int act, float s) {
+  switch (act) {
+    case ACT_GELU_TANH: {
+      const float h2 = __fmul_rn(h, h);
+      const float u = __fmul_rn(h, __fadd_rn(0.7978845608028654f, __fmul_rn(0.035677408136300125f, h2)));
+      const float hh = __fmul_rn(__fmul_rn(0.5f, s), h);
+      return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
+    }
+    case ACT_QUICK_GELU:
+      return __fmul_rn(__fmul_rn(s, h), __frcp_rn(__fadd_rn(1.0f, expf(__fmul_rn(-1.702f, h)))));
+    case ACT_RELU:
+      return fmaxf(__fmul_rn(s, h), 0.0f);
+    default:
+      return __fmul_rn(s, h);
+  }
 }
 
 // act(h) and act'(h) in the closed forms of
@@ -198,41 +220,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Tensor-core fragments by hand (the stack tiles, the sequence attention
-// tiles): ldmatrix from shared memory and mma.sync (wmma's own fragment
-// loads cost a third of the stack tile's time).
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d (16 x 8, f32) += a (16 x 16 bf16, row) b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d (16 x 8, s32) += a (16 x 32 s8, row) b (32 x 8 s8, col), exact
-__device__ __forceinline__ void mma_s8(int* d, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

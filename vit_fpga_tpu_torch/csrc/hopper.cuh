@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
 // (mha_wgmma.cuh: K7 / K8, K9 and K1's attention; gemm_wgmma.cuh: K1's and
 // K2's GEMMs; attn_bwd.cu: K23's attention backward; qgemm_wgmma.cuh: K13's
-// int8 GEMM); include after common.cuh.
+// int8 GEMM; attn_int8_scores.cu: K22's int8 attention); include after
+// common.cuh.
 //
 //   mbarriers   init, expect_tx, arrive, and a bounded wait that traps
 //               after HP_SPIN_LIMIT tries instead of hanging the card
@@ -11,8 +12,9 @@
 //               int32) are encoded on the host, at each launch, by
 //               cuTensorMapEncodeTiled, reached through
 //               cudaGetDriverEntryPoint so that nothing links libcuda
-//   wgmma       the shared-memory descriptor of a 128-byte-swizzled tile,
-//               fence / commit / wait, m64n64k16 (B K-major or MN-major:
+//   wgmma       the shared-memory descriptors of a 128-byte-swizzled tile
+//               and of a 64-byte-swizzled one (int8 rows of one 64-wide
+//               head), fence / commit / wait, m64n64k16 (B K-major or MN-major:
 //               the bf16 encoders' 64-column items), m64n128k16 (B
 //               K-major or MN-major) and m64n256k16 (either
 //               operand K-major or, through the transpose bit, MN-major)
@@ -154,6 +156,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo_byte
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 64-byte rows,
+// 64-byte swizzled (TMA's CU_TENSOR_MAP_SWIZZLE_64B), at saddr (512-byte
+// aligned, or 32 bytes into the rows for the second k32 step of int8):
+// stride 512 bytes between 8-row groups, layout SWIZZLE_64B.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -433,10 +444,12 @@ inline bool tma_encode_bf16(CUtensorMap* map, const void* base, int rank, const 
   return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
-// int8 (as bytes: zero is zero either way) and int32 maps.
+// int8 (as bytes: zero is zero either way; 128-byte swizzled, or as
+// `swizzle` says) and int32 maps.
 inline bool tma_encode_s8(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                          const cuuint64_t* strides, const cuuint32_t* box) {
-  return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box);
+                          const cuuint64_t* strides, const cuuint32_t* box,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box, swizzle);
 }
 
 inline bool tma_encode_s32(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,

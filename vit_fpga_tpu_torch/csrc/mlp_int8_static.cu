@@ -5,16 +5,18 @@
 // (wrapper mlp_block_int8_static), one Pallas kernel on the TPU.  The
 // calibrated scales arrive folded into the arguments
 // (models/quantized.quantize_vit_static): ls, lb carry 1/a_x, s1 carries
-// a_x, s2 carries a_h, and inv_ah = 1/a_h rides the activation.  Three
-// launches on one stream, counted as one ported kernel:
+// a_x, s2 carries a_h, and inv_ah = 1/a_h rides the activation.  K15's
+// design (mlp_int8.cu) with the static scale in place of its row passes:
+// three launches on one stream, counted as one ported kernel, both GEMMs
+// on qgemm_wgmma.cuh's int8 wgmma + TMA kernel at a row scale of 1 (a null
+// sa: 1.0f * s == s exactly):
 //
 //   (a) quant_rows<LN_ONE_PASS, STATIC>  xq = clip(rint(LN(x)), -127, 127)
-//                       (one-pass stats, _ln_f32): no absmax, no division
-//   (b) qgemm<EPI_Q8>   hq = clip(rint(act_s(float(xq w1q) * s1 + b1)))
-//                       with act_s the activation times inv_ah in the
-//                       order of _apply_act_scaled; GEMM1's epilogue emits
-//                       int8 h
-//   (c) qgemm<EPI_RESID> out = x + bf16(float(hq w2q) * s2 + b2)
+//                  (one-pass stats, _ln_f32): no absmax, no division
+//   (b) QW_Q8      hq = clip(rint(act_s(float(xq w1q) * s1 + b1))) as int8,
+//                  by TMA, with act_s the activation times inv_ah in the
+//                  order of _apply_act_scaled (qact_scaled)
+//   (c) QW_RESID   out = x + bf16(float(hq w2q) * s2 + b2), by TMA
 //
 // The clip is live: activations past the calibrated absmax saturate at
 // +-127 (rint_sat), where a bare int8 cast would wrap.
@@ -22,40 +24,47 @@
 // What bounds it on the H100: at ViT-B/16 batch 64 (T = 12 800 rows,
 // D = 768, M = 3072) 4·T·D·M = 120.8 G int8 operations (61 us at 1979
 // TOPS) against about 44 MB of compulsory traffic (13 us): bound by
-// tensor-core operations, as K15.  Against K15 (mlp_int8.cu) the static
-// scale removes the row-absmax passes: h crosses device memory once, as
-// int8 (39 MB at b64), where K15 writes f32 h (157 MB), per-block row
-// maxima and runs a separate quantization pass.
+// tensor-core operations, as K15.  Against K15 the static scale removes
+// the row-absmax passes: h crosses device memory once, as int8 (39 MB at
+// b64), where K15 writes f32 h (157 MB), per-tile row maxima and runs a
+// separate quantization pass.
 
 #define VFT_NS mlp_int8_static
 #include "common.cuh"
 #include "quant.cuh"
+#include "hopper.cuh"
+#include "qgemm_wgmma.cuh"
 
 using namespace VFT_NS;
 
 extern "C" {
 
-// Opts this unit's GEMMs in to their shared memory, on the current device.
-// Called once per device before the first launch.  Returns a cudaError_t.
+// Finds cuTensorMapEncodeTiled (tma_init) and opts the GEMM's epilogues in
+// to their shared memory, on the current device.  Called once per device
+// before the first launch.  Returns a cudaError_t.
 int vft_mlp_int8_static_init() {
-  cudaError_t err = qgemm_enable<EPI_Q8>();
+  cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
-  return qgemm_enable<EPI_RESID>();
+  if ((err = qgemm_epi_enable<QW_Q8>()) != cudaSuccess) return err;
+  return qgemm_epi_enable<QW_RESID>();
 }
 
 // x, out: (T, D) bf16; ls, lb, s2, b2: (D,) f32; w1: (M, D) int8 (the
 // (D, M) weight transposed); s1, b1: (M,) f32; w2: (D, M) int8 (the (M, D)
 // weight transposed).  Scratch: xq (T, D) and hq (T, M) int8.  act is one
 // of ACT_GELU_TANH, ACT_QUICK_GELU, ACT_RELU; inv_ah the static hidden
-// scale 1/a_h.  D and M multiples of 16.  Everything is enqueued on
-// `stream`, which belongs to the current device.  Returns a cudaError_t.
+// scale 1/a_h.  D and M multiples of 16; the tensors 16-byte aligned.
+// Everything is enqueued on `stream`, which belongs to the current device.
+// Returns a cudaError_t.
 int vft_mlp_block_int8_static(const void* x, const void* ls, const void* lb, const void* w1,
                               const void* s1, const void* b1, const void* w2, const void* s2,
                               const void* b2, void* out, void* xq, void* hq, int t, int d, int m,
                               int act, float eps, float inv_ah, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (act != ACT_GELU_TANH && act != ACT_QUICK_GELU && act != ACT_RELU)
+  if (t < 1 || d % 16 || m % 16 || d < 16 || m < 16 ||
+      (act != ACT_GELU_TANH && act != ACT_QUICK_GELU && act != ACT_RELU))
     return cudaErrorInvalidValue;
+  if (tma_encoder() == nullptr) return cudaErrorInitializationError;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   signed char* xq8 = static_cast<signed char*>(xq);
   signed char* hq8 = static_cast<signed char*>(hq);
   cudaError_t err;
@@ -64,30 +73,28 @@ int vft_mlp_block_int8_static(const void* x, const void* ls, const void* lb, con
            static_cast<const float*>(lb), xq8, nullptr, t, d, eps, st)) != cudaSuccess)
     return err;
 
-  QGemmArgs up{};
-  up.A = xq8;
-  up.B = static_cast<const signed char*>(w1);
-  up.sb = static_cast<const float*>(s1);
-  up.bias = static_cast<const float*>(b1);
-  up.C = hq8;
+  QwArgs up{};
   up.M = t;
   up.N = m;
   up.K = d;
+  up.sb = static_cast<const float*>(s1);
+  up.bias = static_cast<const float*>(b1);
   up.act = act;
   up.qscale = inv_ah;
-  if ((err = launch_qgemm<EPI_Q8>(up, st)) != cudaSuccess) return err;
+  if ((err = launch_qgemm_epi<QW_Q8>(xq8, static_cast<const signed char*>(w1), hq8, up, st)) !=
+      cudaSuccess)
+    return err;
 
-  QGemmArgs down{};
-  down.A = hq8;
-  down.B = static_cast<const signed char*>(w2);
-  down.sb = static_cast<const float*>(s2);
-  down.bias = static_cast<const float*>(b2);
-  down.residual = static_cast<const bf16*>(x);
-  down.C = out;
+  QwArgs down{};
   down.M = t;
   down.N = d;
   down.K = m;
-  if ((err = launch_qgemm<EPI_RESID>(down, st)) != cudaSuccess) return err;
+  down.sb = static_cast<const float*>(s2);
+  down.bias = static_cast<const float*>(b2);
+  down.residual = static_cast<const bf16*>(x);
+  if ((err = launch_qgemm_epi<QW_RESID>(hq8, static_cast<const signed char*>(w2), out, down,
+                                        st)) != cudaSuccess)
+    return err;
   return cudaGetLastError();
 }
 

@@ -37,17 +37,20 @@
 // epilogue of the same kernel (QW_STORE_REGS), not a fallback.
 //
 // K15 (mlp_int8.cu), K21a (mlp_int8_stats.cu), K16 (attn_int8.cu), K21b
-// (attn_int8_stats.cu) and K18 (attn_int8_static.cu) run their GEMMs on
+// (attn_int8_stats.cu), K18 (attn_int8_static.cu), K17
+// (mlp_int8_static.cu) and K22 (attn_int8_scores.cu) run their GEMMs on
 // this kernel, with dequantizing epilogues over the same accumulator tile
 // (QwEpi, qw_epilogue): f = float(acc) * (sa[row] * sb[col]) + bias[col] in
-// IEEE operations, in the order of quant.cuh's epilogues, a null sa a row
-// scale of 1.0 (K18's static scales are folded into sb: 1.0f * sb == sb
-// exactly); W1 then h = act(f) in f32 with the tile's row absmax of h in
-// parts[col tile][row]; W2 and the out-projection out = residual + bf16(f),
-// added in f32 and rounded once, in bf16; the QKV bf16(f).
-// The sums pass through the staging buffers, whose 64 rows of 128 bytes
-// serve every element size.  The other int8 kernels (K14, K17, K22) stay
-// on quant.cuh's GEMM.
+// IEEE operations, in the order of quant.cuh's epilogue, a null sa a row
+// scale of 1.0 (the static scales are folded into sb: 1.0f * sb == sb
+// exactly); K15's W1 then h = act(f) in f32 with the tile's row absmax of
+// h in parts[col tile][row]; W2 and the out-projections out = residual +
+// bf16(f), added in f32 and rounded once, in bf16; the bf16 QKV bf16(f);
+// the static int8 outputs (K17's W1 hq, K22's q | k | v panel) int8
+// clip(rint(act(f) * qscale), -127, 127) with the static scale folded into
+// the activation (qact_scaled), saturating.  The sums pass through the
+// staging buffers, whose 64 rows of 128 bytes serve every element size.
+// K14 alone stays on quant.cuh's GEMM.
 
 #pragma once
 
@@ -59,7 +62,8 @@ enum QwEpi {
   QW_STORE_REGS = 1,  // K13: the int32 sums from the registers (N % 4 != 0)
   QW_H = 2,           // K15's W1: f32 h = act(f) by TMA, the tile's row absmax to parts
   QW_RESID = 3,       // W2 and the out-projections: bf16 residual + bf16(f) by TMA
-  QW_BF16 = 4         // the int8 attention halves' QKV: bf16(f) by TMA
+  QW_BF16 = 4,        // the int8 attention halves' QKV: bf16(f) by TMA
+  QW_Q8 = 5           // the static int8 outputs: rint_sat(qact_scaled(f)) by TMA
 };
 
 constexpr int QW_BM = 128;         // rows per tile: two consumer warpgroups of 64
@@ -96,6 +100,7 @@ struct QwArgs {
   const bf16* residual;  // QW_RESID: (M, N)
   float* parts;          // QW_H: (col tiles, M) each tile's row absmax of h
   int act;
+  float qscale;          // QW_Q8: the static output scale, folded into act
 };
 
 // Issues acc += A_stage B_stage^T over one K step of 128 as one wgmma group
@@ -186,7 +191,7 @@ __device__ __forceinline__ void qw_raw_piece(const uint32_t (&acc)[BN / 2], int 
   }
 }
 
-// The dequantizing epilogues (QW_H, QW_RESID, QW_BF16) over the consumer
+// The dequantizing epilogues (QW_H, QW_RESID, QW_BF16, QW_Q8) over the consumer
 // warpgroup's 64 x BN tile at {n0, row0}, f = float(acc) * (sa[row] *
 // sb[col]) + bias[col].
 // Computed in the registers over the unrolled tile, the 128 values a
@@ -196,8 +201,8 @@ __device__ __forceinline__ void qw_raw_piece(const uint32_t (&acc)[BN / 2], int 
 // thread then takes 16 consecutive columns of one row (thread t: row t /
 // 2, columns 16 (t % 2) ..) in a loop over the pieces that stays rolled
 // (16 copies of the arithmetic, not 128), writing its results to the
-// second buffer, the output piece of 128-byte rows (32 f32 or 64 bf16
-// columns), stored by TMA once complete.  Each row's absmax of h over the
+// second buffer, the output piece of 128-byte rows (32 f32, 64 bf16 or 128
+// int8 columns), stored by TMA once complete.  Each row's absmax of h over the
 // tile's valid columns goes to parts[n0 / BN][row].
 template <int BN, int EPI>
 __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const CUtensorMap* tc,
@@ -205,7 +210,7 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
                                             uint32_t buf_s, int wg, int wt) {
   static_assert(QwShape<BN>::EPI_BUFS >= 2, "a raw piece and an output piece");
   constexpr bool H = EPI == QW_H;
-  constexpr int EB = H ? 4 : 2;                // f32 h, bf16 out
+  constexpr int EB = H ? 4 : EPI == QW_Q8 ? 1 : 2;  // f32 h, int8 hq, bf16 out
   constexpr int PPO = 128 / EB / QW_EPI_COLS;  // raw pieces an output piece
   unsigned char* raw = buf;
   unsigned char* out = buf + QW_EPI_BYTES;
@@ -222,43 +227,62 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
     qw_raw_piece<BN>(acc, pc, raw, wt);
     named_barrier(1 + wg, 128);
     const int cb = c0 + 16 * half;  // N % 16 == 0: the thread's 16 columns all in or all out
-    if (rin && cb < p.N) {
+    // four consecutive columns of the thread's 16, k of 4
+    auto four = [&](int k) {
+      const int c = cb + 4 * k;
+      const uint4 a4 =
+          *reinterpret_cast<const uint4*>(raw + rl * 128 + (((4 * half + k) ^ sw) << 4));
+      const float4 sc = __ldg(reinterpret_cast<const float4*>(p.sb + c));
+      const float4 bi = __ldg(reinterpret_cast<const float4*>(p.bias + c));
+      const int a[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
+      const float scv[4] = {sc.x, sc.y, sc.z, sc.w}, biv[4] = {bi.x, bi.y, bi.z, bi.w};
+      float f[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c = cb + 4 * k;
-        const uint4 a4 =
-            *reinterpret_cast<const uint4*>(raw + rl * 128 + (((4 * half + k) ^ sw) << 4));
-        const float4 sc = __ldg(reinterpret_cast<const float4*>(p.sb + c));
-        const float4 bi = __ldg(reinterpret_cast<const float4*>(p.bias + c));
-        const int a[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
-        const float scv[4] = {sc.x, sc.y, sc.z, sc.w}, biv[4] = {bi.x, bi.y, bi.z, bi.w};
-        float f[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          f[e] = __fadd_rn(__fmul_rn((float)a[e], __fmul_rn(sr, scv[e])), biv[e]);
-          if constexpr (H) {
-            f[e] = act_rn(f[e], p.act);
-            rmax = fmaxf(rmax, fabsf(f[e]));
-          }
-        }
-        // the four values' place in the output piece (128-byte swizzled rows)
-        const int off = (QW_EPI_COLS * po + 16 * half + 4 * k) * EB;
-        unsigned char* dst = out + rl * 128 + (((off >> 4) ^ sw) << 4) + (off & 15);
+      for (int e = 0; e < 4; ++e) {
+        f[e] = __fadd_rn(__fmul_rn((float)a[e], __fmul_rn(sr, scv[e])), biv[e]);
         if constexpr (H) {
-          *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
-        } else if constexpr (EPI == QW_RESID) {
-          // x + bf16(f), added in f32 and rounded once (quant.cuh's EPI_RESID)
-          const uint2 xr =
-              __ldg(reinterpret_cast<const uint2*>(p.residual + (size_t)row * p.N + c));
-          const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.x));
-          const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.y));
-          *reinterpret_cast<uint2*>(dst) =
-              make_uint2(pack_bf16x2(x01.x + bf16_round(f[0]), x01.y + bf16_round(f[1])),
-                         pack_bf16x2(x23.x + bf16_round(f[2]), x23.y + bf16_round(f[3])));
-        } else {  // bf16(f) (quant.cuh's EPI_PLAIN without an activation)
-          *reinterpret_cast<uint2*>(dst) =
-              make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+          f[e] = act_rn(f[e], p.act);
+          rmax = fmaxf(rmax, fabsf(f[e]));
         }
+      }
+      // the four values' place in the output piece (128-byte swizzled rows)
+      const int off = (QW_EPI_COLS * po + 16 * half + 4 * k) * EB;
+      unsigned char* dst = out + rl * 128 + (((off >> 4) ^ sw) << 4) + (off & 15);
+      if constexpr (H) {
+        *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+      } else if constexpr (EPI == QW_Q8) {
+        // clip(rint(act(f) * qscale)), in the order of the former int8
+        // epilogue of quant.cuh's GEMM: saturated at +-127, never wrapped
+        uint32_t q4 = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          q4 |= (uint32_t)(unsigned char)rint_sat(qact_scaled(f[e], p.act, p.qscale)) << (8 * e);
+        *reinterpret_cast<uint32_t*>(dst) = q4;
+      } else if constexpr (EPI == QW_RESID) {
+        // x + bf16(f), added in f32 and rounded once (quant.cuh's order)
+        const uint2 xr =
+            __ldg(reinterpret_cast<const uint2*>(p.residual + (size_t)row * p.N + c));
+        const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.x));
+        const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.y));
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(pack_bf16x2(x01.x + bf16_round(f[0]), x01.y + bf16_round(f[1])),
+                       pack_bf16x2(x23.x + bf16_round(f[2]), x23.y + bf16_round(f[3])));
+      } else {  // bf16(f) (quant.cuh's EPI_PLAIN without an activation)
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+      }
+    };
+    if (rin && cb < p.N) {
+      // QW_H rolled: unrolled, its 16 inlined activations and row maxima
+      // held enough registers beside the 256-wide tile's sums that ptxas
+      // spilled 8 bytes; QW_Q8 unrolled spills nothing and its W1 runs 6%
+      // faster than rolled (PERF.md)
+      if constexpr (H) {
+#pragma unroll 1
+        for (int k = 0; k < 4; ++k) four(k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) four(k);
       }
     }
     fence_proxy_async();         // the output piece, before the store reads it
@@ -503,14 +527,16 @@ inline cudaError_t launch_qgemm_wgmma(const signed char* a, const signed char* b
 
 // The dequantizing GEMMs on `stream`: a (M, K) and bt (N, K) int8
 // row-major into out through epilogue EPI: QW_H f32 h (M, N), QW_RESID and
-// QW_BF16 bf16 (M, N); p carries M, N, K and the epilogue's operands: sa
-// (null: a row scale of 1.0), sb, bias, and parts of
-// qgemm_wgmma_col_tiles(N) x M floats (QW_H) or the residual (QW_RESID).
-// N and K multiples of 16, a, bt and out 16-byte aligned.
+// QW_BF16 bf16 (M, N), QW_Q8 int8 (M, N); p carries M, N, K and the
+// epilogue's operands: sa (null: a row scale of 1.0), sb, bias, and parts
+// of qgemm_wgmma_col_tiles(N) x M floats (QW_H), the residual (QW_RESID)
+// or act and qscale (QW_Q8; QW_H takes act too).  N and K multiples of 16,
+// a, bt and out 16-byte aligned.
 template <int EPI>
 inline cudaError_t launch_qgemm_epi(const signed char* a, const signed char* bt, void* out,
                                     const QwArgs& p, cudaStream_t stream) {
-  static_assert(EPI == QW_H || EPI == QW_RESID || EPI == QW_BF16, "the dequantizing epilogues");
+  static_assert(EPI == QW_H || EPI == QW_RESID || EPI == QW_BF16 || EPI == QW_Q8,
+                "the dequantizing epilogues");
   if (p.N % 16 || p.sb == nullptr || p.bias == nullptr ||
       (EPI == QW_RESID && p.residual == nullptr) || (EPI == QW_H && p.parts == nullptr))
     return cudaErrorInvalidValue;
@@ -523,14 +549,16 @@ inline cudaError_t launch_qgemm_epi(const signed char* a, const signed char* bt,
   if (err != cudaSuccess) return err;
   // out: 64 rows x 128 bytes a box, the staging pieces' geometry
   if (qw_misaligned(out)) return cudaErrorMisalignedAddress;
-  const int eb = EPI == QW_H ? 4 : 2;
+  const int eb = EPI == QW_H ? 4 : EPI == QW_Q8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.M};
   const cuuint64_t strides[1] = {(cuuint64_t)p.N * eb};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / eb), 64};
-  if (!tma_encode(&tc, EPI == QW_H ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  out, 2, dims, strides, box))
-    return cudaErrorInvalidValue;
+  const bool encoded =
+      EPI == QW_Q8 ? tma_encode_s8(&tc, out, 2, dims, strides, box)
+                   : tma_encode(&tc, EPI == QW_H ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                out, 2, dims, strides, box);
+  if (!encoded) return cudaErrorInvalidValue;
   return qw_launch_n<EPI>(bn, ta, tb, tc, p, sms, stream);
 }
 

@@ -1,9 +1,9 @@
 // Int8 pieces of the int8 kernels (quant_linear.cu K14, mlp_int8.cu K15,
 // attn_int8.cu K16, mlp_int8_static.cu K17, attn_int8_static.cu K18,
 // mlp_int8_stats.cu K21a, attn_int8_stats.cu K21b, attn_int8_scores.cu
-// K22): the row passes serve them all; the wmma GEMM serves K14, K17 and
-// K22 (K13, K15, K16, K18, K21a and K21b run qgemm_wgmma.cuh's); include
-// after common.cuh.
+// K22): the row passes serve them all; the wmma GEMM serves K14 alone
+// (K13, K15-K18, K21a, K21b and K22 run qgemm_wgmma.cuh's); include after
+// common.cuh.
 //
 //   quant_rows_kernel<T, LN, STATIC, ST>  one warp per row of a (rows, k)
 //       bf16 or f32 matrix: an optional f32 LayerNorm (LN_ONE_PASS: var =
@@ -18,16 +18,15 @@
 //   quant_amax_kernel   the same quantization of an f32 matrix whose row
 //       absmax arrives as per-column-tile partials (qgemm_wgmma.cuh's QW_H
 //       epilogue: K15, K21a), so the matrix is read once.
-//   qgemm_kernel<EPI>   C = epilogue(A B^T): int8 A (M, K) and B (N, K),
-//       both k-contiguous, on nvcuda::wmma 16x16x16 signed-char fragments
-//       with exact int32 accumulation.  The epilogue dequantizes as the TPU
-//       kernels do, f = float(acc) * (sa[m] * sb[n]) + bias[n], then
-//         EPI_PLAIN  C = act(f) in bf16 or f32
-//         EPI_RESID  C = residual + bf16(f), added in bf16
-//         EPI_Q8     C = clip(rint(act(f) * qscale), -127, 127) as int8, the
-//                    static scale folded into the activation (qact_scaled).
-//       A null sa is a row scale of 1.0 (the static kernels: the input scale
-//       is folded into sb), so f = float(acc) * sb[n] + bias[n] exactly.
+//   qgemm_kernel<EPI_PLAIN>   C = act(A B^T dequantized) in bf16 or f32
+//       (K14's fused linear): int8 A (M, K) and B (N, K), both
+//       k-contiguous, on nvcuda::wmma 16x16x16 signed-char fragments with
+//       exact int32 accumulation; the epilogue dequantizes as the TPU
+//       kernels do, f = float(acc) * (sa[m] * sb[n]) + bias[n] (a null sa
+//       is a row scale of 1.0: f = float(acc) * sb[n] + bias[n] exactly),
+//       then act(f).  The static int8 epilogue's activation times its
+//       scale, qact_scaled, lives in common.cuh (qgemm_wgmma.cuh's QW_Q8,
+//       stack_wgmma.cuh's LQ_STATIC).
 //
 // Rounding follows the plain PyTorch versions (ops/quant_*.py): every
 // product, sum and quotient of the normalisation, quantization and
@@ -52,27 +51,6 @@ __device__ __forceinline__ float qact(float h, int act) {
     return __fmul_rn(h, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(u))));
   }
   return apply_act(h, act);
-}
-
-// act(h) * s with the static scale folded into the emission constants, in
-// the order of the JAX kernels' _apply_act_scaled: gelu_tanh's 0.5 * h
-// becomes (0.5 * s) * h, quick_gelu (s * h) * sigmoid(1.702 h), relu
-// max(s * h, 0); each product and sum rounded on its own.
-__device__ __forceinline__ float qact_scaled(float h, int act, float s) {
-  switch (act) {
-    case ACT_GELU_TANH: {
-      const float h2 = __fmul_rn(h, h);
-      const float u = __fmul_rn(h, __fadd_rn(0.7978845608028654f, __fmul_rn(0.035677408136300125f, h2)));
-      const float hh = __fmul_rn(__fmul_rn(0.5f, s), h);
-      return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
-    }
-    case ACT_QUICK_GELU:
-      return __fmul_rn(__fmul_rn(s, h), __frcp_rn(__fadd_rn(1.0f, expf(__fmul_rn(-1.702f, h)))));
-    case ACT_RELU:
-      return fmaxf(__fmul_rn(s, h), 0.0f);
-    default:
-      return __fmul_rn(s, h);
-  }
 }
 
 __device__ __forceinline__ signed char quant1(float v, float s) {
@@ -236,7 +214,7 @@ inline cudaError_t launch_quant_amax(const float* h, const float* parts, int npa
 // free.
 // ---------------------------------------------------------------------------
 
-enum { EPI_PLAIN = 0, EPI_RESID = 1, EPI_Q8 = 3 };
+enum { EPI_PLAIN = 0 };
 
 constexpr int QG_BM = 128;
 constexpr int QG_BN = 128;
@@ -258,12 +236,10 @@ struct QGemmArgs {
   const signed char* B;  // (N, K) row-major int8 (the (K, N) weight, transposed)
   const float* sb;       // (N,) f32 column scales
   const float* bias;     // (N,) f32
-  const bf16* residual;  // EPI_RESID: (M, N) bf16
-  void* C;               // (M, N): bf16, or f32 with c_f32 (int8 for EPI_Q8)
+  void* C;               // (M, N): bf16, or f32 with c_f32
   int M, N, K;
   int act;
   int c_f32;
-  float qscale;          // EPI_Q8: the static activation scale 1/a
 };
 
 template <int EPI>
@@ -378,56 +354,25 @@ __global__ void __launch_bounds__(QG_THREADS, 2) qgemm_kernel(QGemmArgs p) {
           }
         }
         const size_t off = (size_t)gr * p.N + gc;
-        if (EPI == EPI_Q8) {
-          union {
-            signed char c[8];
-            uint2 u;
-          } q;
 #pragma unroll
-          for (int t = 0; t < 8; ++t) q.c[t] = rint_sat(qact_scaled(f[t], p.act, p.qscale));
-          signed char* dst = static_cast<signed char*>(p.C) + off;
+        for (int t = 0; t < 8; ++t) f[t] = qact(f[t], p.act);
+        if (c_f32) {
+          float* dst = static_cast<float*>(p.C) + off;
           if (vec) {
-            *reinterpret_cast<uint2*>(dst) = q.u;
+            store8f(dst, f);
           } else {
 #pragma unroll
             for (int t = 0; t < 8; ++t)
-              if (gc + t < p.N) dst[t] = q.c[t];
+              if (gc + t < p.N) dst[t] = f[t];
           }
         } else {
-          if (EPI == EPI_RESID) {
-            float r[8];
-            if (vec) {
-              unpack8(*reinterpret_cast<const uint4*>(p.residual + off), r);
-            } else {
-#pragma unroll
-              for (int t = 0; t < 8; ++t)
-                r[t] = gc + t < p.N ? __bfloat162float(p.residual[off + t]) : 0.0f;
-            }
-#pragma unroll
-            for (int t = 0; t < 8; ++t)  // x + bf16(y), added in f32 and rounded once
-              f[t] = r[t] + __bfloat162float(__float2bfloat16(f[t]));
+          bf16* dst = static_cast<bf16*>(p.C) + off;
+          if (vec) {
+            *reinterpret_cast<uint4*>(dst) = pack8(f);
           } else {
 #pragma unroll
-            for (int t = 0; t < 8; ++t) f[t] = qact(f[t], p.act);
-          }
-          if (c_f32) {
-            float* dst = static_cast<float*>(p.C) + off;
-            if (vec) {
-              store8f(dst, f);
-            } else {
-#pragma unroll
-              for (int t = 0; t < 8; ++t)
-                if (gc + t < p.N) dst[t] = f[t];
-            }
-          } else {
-            bf16* dst = static_cast<bf16*>(p.C) + off;
-            if (vec) {
-              *reinterpret_cast<uint4*>(dst) = pack8(f);
-            } else {
-#pragma unroll
-              for (int t = 0; t < 8; ++t)
-                if (gc + t < p.N) dst[t] = __float2bfloat16(f[t]);
-            }
+            for (int t = 0; t < 8; ++t)
+              if (gc + t < p.N) dst[t] = __float2bfloat16(f[t]);
           }
         }
       }
@@ -445,7 +390,6 @@ inline cudaError_t qgemm_enable() {
 template <int EPI>
 inline cudaError_t launch_qgemm(const QGemmArgs& p, cudaStream_t stream) {
   if (p.K % QG_SLAB || p.M < 1 || p.N < 1 || p.bias == nullptr) return cudaErrorInvalidValue;
-  if (EPI == EPI_RESID && p.residual == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((p.N + QG_BN - 1) / QG_BN, (p.M + QG_BM - 1) / QG_BM);
   qgemm_kernel<EPI><<<grid, QG_THREADS, QG_SMEM, stream>>>(p);
   return cudaGetLastError();

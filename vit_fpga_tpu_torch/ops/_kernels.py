@@ -127,7 +127,7 @@ _SIGNATURES = {
     "vft_attn_block_int8_stats": ([_P] * 16 + [_I] * 6 + [_F, _F, _P],
                                   ctypes.c_int),
     "vft_attn_int8_scores_init": ([], ctypes.c_int),
-    "vft_attn_block_int8_scores": ([_P] * 12 + [_I] * 5 + [_F] * 3 + [_P],
+    "vft_attn_block_int8_scores": ([_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
                                    ctypes.c_int),
     "vft_patch_embed": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int),
     "vft_streamed_gemm_init": ([], ctypes.c_int),

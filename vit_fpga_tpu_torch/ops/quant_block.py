@@ -23,7 +23,8 @@ CPU tensor:
   ``csrc/qgemm_wgmma.cuh`` (a bf16 qkv epilogue, K15's residual one), its
   attention on ``csrc/mha_wgmma.cuh``'s max-free sweep (K1's), which
   streams the keys: the gate (:func:`attn_int8_geometry`) is the JAX
-  planner's, past 256 keys.
+  planner's, past 256 keys (K18's and K21b's are its forms; K22's,
+  :func:`attn_int8_scores_geometry`, is the JAX int8-scores wrapper's).
 * K17 ``mlp_block_int8_static`` (``csrc/mlp_int8_static.cu``): replaces
   ``_mlp_int8_static_kernel`` (wrapper ``mlp_block_int8_static``).  The
   calibrated scales are folded into the arguments
@@ -31,7 +32,9 @@ CPU tensor:
   so LN -> rint/saturate to int8 -> int8 GEMM1 -> ``acc * s1' + b1`` ->
   the activation times 1/a_h (``_apply_act_scaled``) -> rint/saturate ->
   int8 GEMM2 -> ``acc * s2' + b2`` -> ``x + bf16(y)``.  No row absmax and
-  no division: GEMM1's epilogue emits int8 h.
+  no division: GEMM1's epilogue emits int8 h.  K15's launches without its
+  h pass, both GEMMs on ``csrc/qgemm_wgmma.cuh`` at a row scale of 1 (W1
+  with its int8 epilogue).
 * K18 ``attn_block_int8_static`` (``csrc/attn_int8_static.cu``): replaces
   ``_attn_int8_static_kernel`` (wrapper ``attn_block_int8_static``).
   Folded LN -> rint/saturate -> int8 QKV -> ``bf16(acc * s' + b)`` -> the
@@ -61,8 +64,12 @@ CPU tensor:
   or past ``n_valid`` masked, e = exp(s), r = 1 / sum(e),
   pq = clip(rint(e * (127 r)), 0, 127), ao = pv * pv_fold kept in f32
   (it is already in the quant domain, magnitudes up to 127: bf16 would
-  move its rint), rint -> int8 out-projection -> ``x + bf16(y)``.  dh 64
-  and an even head count, as the JAX gate.
+  move its rint), rint -> int8 out-projection -> ``x + bf16(y)``.  The
+  GEMMs on ``csrc/qgemm_wgmma.cuh`` (the panel by its int8 epilogue), a
+  pass that transposes v's third, and an int8 wgmma + TMA attention that
+  sweeps the keys twice (the row sums, then pq and p v).  Its gate
+  (:func:`attn_int8_scores_geometry`) is the JAX wrapper's: dh 64, an
+  even head count and two score slots in the JAX plan.
 
 Bounds on the H100 at ViT-B/16 batch 64 (T = 12 800 rows, D = 768,
 M = 3072, 12 heads of 64, n_valid 197), set by tensor-core operations at
@@ -70,14 +77,13 @@ M = 3072, 12 heads of 64, n_valid 197), set by tensor-core operations at
 operations (61 us) against about 44 MB of compulsory traffic; K16 and K18
 8·T·D² = 60.4 G int8 operations (31 us) plus 7.8 GFLOP of bf16 attention
 (8 us) against about 42 MB.  Design: row passes and int8 GEMMs with
-dequantizing epilogues, K15's, K16's, K18's, K21a's and K21b's on
-``csrc/qgemm_wgmma.cuh`` (wgmma + TMA), K17's and K22's on the wmma GEMM
-of ``csrc/quant.cuh``.  A dynamic row's scale spans blocks that run apart
-on Hopper (h's 3072 columns, ao's 12 heads), so K15's GEMM1 writes f32 h
-with per-tile row maxima that a row pass reduces before it quantizes, and
-K16's ao round-trips in bf16 before its row pass.  The static scale is
-known before the launch, so K17's GEMM1 and K18's attention emit int8
-directly.  K21a and K21b have K15's and K16's bounds; K22 does 60.4 G +
+dequantizing epilogues, all on ``csrc/qgemm_wgmma.cuh`` (wgmma + TMA).
+A dynamic row's scale spans blocks that run apart on Hopper (h's 3072
+columns, ao's 12 heads), so K15's GEMM1 writes f32 h with per-tile row
+maxima that a row pass reduces before it quantizes, and K16's ao
+round-trips in bf16 before its row pass.  The static scale is known
+before the launch, so K17's GEMM1, K22's QKV and the K18 and K22
+attentions emit int8 directly.  K21a and K21b have K15's and K16's bounds; K22 does 60.4 G +
 7.8 G int8 operations (34 us at 1979 TOPS).
 
 Unlike the dynamic kernels, where ``|x / s| <= 127`` by construction, the
@@ -274,21 +280,11 @@ def attn_int8_stats_geometry(b: int, n: int, d: int, num_heads: int,
                          f"tokens)")
 
 
-def _attn_tile_geometry(b: int, n: int, d: int, num_heads: int,
-                        n_valid: int) -> None:
-    """The gate of K22, the attention half still on a whole-head tile
-    (``csrc/attn_int8_scores.cu``'s ``S8_MAX_KV``): head dim 64 and 1..256
-    valid tokens."""
-    if d % num_heads or d // num_heads != 64 or not 1 <= n_valid <= 256:
-        raise ValueError(f"kernel takes head dim 64 and 1..256 valid tokens "
-                         f"(D={d}, {num_heads} heads, n_valid={n_valid})")
-
-
 def _attn_operands(x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkvs,
                    bqkv, woq, wos, bo, gate):
     """An attention half's geometry on the card, checked by ``gate(b, n, d,
     num_heads, n_valid)`` (:func:`attn_int8_geometry` and its K18 and K21b
-    forms, or K22's :func:`_attn_tile_geometry`), and its eight operands
+    forms, or K22's :func:`attn_int8_scores_geometry`), and its eight operands
     in the C order: (B, n_pad, D) bf16 x; f32 LN scale and bias, k-major
     int8 W_qkv, its f32 column scales and bias, likewise W_o.  Returns (b,
     n, d, n_valid, operands)."""
@@ -741,6 +737,35 @@ def _scores_geometry(d: int, num_heads: int) -> int:
     return d // num_heads
 
 
+def attn_int8_scores_geometry(b: int, n: int, d: int, num_heads: int,
+                              n_valid: int) -> None:
+    """K22's gate on the card, the JAX ``attn_block_int8_static_scores``'s
+    conditions in its order: head dim 64 and an even head count
+    (:func:`_scores_geometry`, the JAX message), then 1 <= n_valid <= n and
+    batch x heads within the attention's grid (``MW_MAX_GRID_Y``), which
+    the C entry point checks too, then two score slots in the JAX int8
+    attention plan (:func:`score_slots_int8` on the n rows padded to the
+    bf16 sublane and the keys to 128, ``n_sc >= 2``: the JAX wrapper raises
+    below, where K16's gate raises only below 1; ViT-B/16 @896 and
+    ViT-L/16 @384 at b1 to b3 have one).  The Hopper kernel streams the
+    keys and has no length bound of its own.  Raises ``ValueError``
+    outside."""
+    _scores_geometry(d, num_heads)
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"K22 takes 1..n valid tokens (n={n}, "
+                         f"n_valid={n_valid})")
+    if b * num_heads > MW_MAX_GRID_Y:
+        raise ValueError(f"K22's attention grid takes batch x heads <= "
+                         f"{MW_MAX_GRID_Y} (batch {b}, {num_heads} heads)")
+    _, n_sc, _, _ = score_slots_int8(
+        num_heads, d, round_up(n, pad_sublane(torch.bfloat16)),
+        round_up(n, 128), batch=b)
+    if n_sc < 2:
+        raise ValueError(f"K22 runs where the JAX int8-scores attention "
+                         f"does: {n_sc} score slot(s), it takes 2, at "
+                         f"D={d}, {num_heads} heads, {n} tokens, batch {b}")
+
+
 def _scores_dequant(sc_qk, dh: int) -> float:
     """sc_qk * (1 / sqrt(dh)) rounded to f32 once, as the JAX kernel's
     ``sc_qk * jnp.float32(scale)``."""
@@ -793,7 +818,8 @@ def attn_block_int8_static_scores(x, sc_qk, pv_fold, ln_scale, ln_bias,
     ``ValueError`` (the JAX gate).
 
     A CPU tensor runs :func:`attn_block_int8_static_scores_plain`; a CUDA
-    tensor launches the K22 kernel (bf16, n_valid <= 256) or raises."""
+    tensor launches the K22 kernel (bf16, the geometry
+    :func:`attn_int8_scores_geometry` admits) or raises."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     dh = _scores_geometry(x.shape[-1], num_heads)
@@ -803,18 +829,21 @@ def attn_block_int8_static_scores(x, sc_qk, pv_fold, ln_scale, ln_bias,
             woq, wos, bo, num_heads, eps=eps, n_valid=n_valid)
     b, n, d, n_valid, ops = _attn_operands(
         x, num_heads, n_valid, ln_scale, ln_bias, wqkvq, wqkv_qs, bqkv_qs,
-        woq, wos, bo, gate=_attn_tile_geometry)
+        woq, wos, bo, gate=attn_int8_scores_geometry)
     sdq = _scores_dequant(_scalar(sc_qk, "sc_qk"), dh)
     fold = _scalar(pv_fold, "pv_fold")
     out = torch.empty_like(x)
     q8 = torch.empty((b * n, d), dtype=torch.int8, device=x.device)
     qkv8 = torch.empty((b * n, 3 * d), dtype=torch.int8, device=x.device)
+    # v's third transposed for the p v product, keys padded to 16 bytes
+    vt = torch.empty((b, num_heads, dh, round_up(n_valid, 16)),
+                     dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         lib, stream = _kernels.launch_target()
         err = lib.vft_attn_block_int8_scores(
             x.data_ptr(), *_ptrs(ops), out.data_ptr(), q8.data_ptr(),
-            qkv8.data_ptr(), b, n, d, num_heads, n_valid, float(eps), sdq,
-            fold, stream)
+            qkv8.data_ptr(), vt.data_ptr(), b, n, d, num_heads, n_valid,
+            float(eps), sdq, fold, stream)
     _kernels.check(err, "attn_block_int8_static_scores")
     attn_block_int8_static_scores.launches += 1
     return out

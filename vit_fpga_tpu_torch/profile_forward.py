@@ -4,7 +4,7 @@ training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
         [--image 224] [--batch 64] [--steps 3]
-        [--train | --int8 [--static | --chain] | --per-tensor]
+        [--train | --int8 [--static | --chain | --scores] | --per-tensor]
         [--latency | --full]
 
 ``--model`` takes the ViT variants, ``clip_<variant>`` (the CLIP vision
@@ -14,7 +14,8 @@ tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
 runs the per-block path, flash attention K9 and K5, or with ``--int8``
 the per-linear int8 route, K14 and K9; give ``--batch 1`` or ``4``; with
 ``--int8`` at 384 px the int8 blocks run past 256 keys: K16 and K15, with
-``--static`` K18 and K17, with ``--chain`` K21b and K21a).
+``--static`` K18 and K17, with ``--chain`` K21b and K21a, with
+``--scores`` K22 and K17).
 CLIP and DeiT profile
 the bf16 served forward only.  Without a mode flag it runs the family's
 ``make_forward(cfg, params, raw=True)`` (bf16,
@@ -24,7 +25,10 @@ weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
 (calibrated on the synthetic probe batch, on the card); with ``--int8
 --chain`` on the ``quantize_vit_fast`` tree with the reference's gated
 int8 stats chain switched on for the run (``models.quantized.
-_INT8_STATS_CHAIN``: 12 x [K21b, K21a] + K14); with ``--train``
+_INT8_STATS_CHAIN``: 12 x [K21b, K21a] + K14); with ``--int8 --scores``
+on the ``quantize_vit_static`` tree with the reference's gated int8-scores
+attention switched on (``models.quantized._INT8_SCORES``: 12 x [K22, K17]
++ K14); with ``--train``
 one SGD(1e-4) step of ``make_vit_train_step`` (bench.py's train shape) on
 a seeded normalized batch; with ``--per-tensor`` the per-tensor int8
 forward (``make_vit_forward_int8`` on ``quantize_vit`` of f32 weights: K13
@@ -72,7 +76,7 @@ UNEXPECTED = "unexpected:"
 # attn_half:: K1, mlp_half:: K2, attn_block:: K4, mlp:: K5, attn_bwd:: K23,
 # mlp_bwd:: K24, quant_linear:: K14, mlp_int8:: K15, attn_int8:: K16,
 # mlp_int8_static:: K17, attn_int8_static:: K18, mlp_int8_stats:: K21a,
-# attn_int8_stats:: K21b, mlp_chunk:: K3 (K1 and K2
+# attn_int8_stats:: K21b, attn_int8_scores:: K22, mlp_chunk:: K3 (K1 and K2
 # run gemm_wgmma.cuh's gw_kernel and K1's attention mha_wgmma_kernel<1>
 # (max-free) at every length, K4 row_stats_kernel, gw_kernel and
 # mha_wgmma_kernel<2> (safe) or <1>, K5 ln_rows_kernel and gw_kernel, K3
@@ -86,15 +90,15 @@ UNEXPECTED = "unexpected:"
 # any other attn_half::, mlp_half::, attn_block::, mlp::, mlp_chunk::,
 # mlp_chunk_blk::, attn_bwd:: or mlp_bwd:: record, such as the wmma GEMM or
 # attention tiles they ran before, is reported as unexpected; so is any
-# attn_int8::, mlp_int8_stats::, attn_int8_stats:: or attn_int8_static::
-# record but K16's, K21a's, K21b's and K18's wgmma launches and row
-# passes),
+# attn_int8::, mlp_int8_stats::, attn_int8_stats::, attn_int8_static::,
+# mlp_int8_static:: or attn_int8_scores:: record but K16's, K21a's, K21b's,
+# K18's, K17's and K22's wgmma launches, row passes and K22's V^T pass),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
-# wmma int8 GEMM's (qgemm_kernel) template argument is its epilogue (0
-# plain, 1 residual, 3 int8 with the static scale), the wgmma one's
-# (qgemm_wgmma_kernel, K13, K15, K16, K18, K21a and K21b) its tile width
-# and epilogue (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the
-# residual, 4 bf16; the residual takes 128-wide tiles), mha_wgmma_kernel's
+# wmma int8 GEMM's (qgemm_kernel, K14 alone) template argument is its
+# epilogue (0 plain), the wgmma one's (qgemm_wgmma_kernel, K13, K15-K18,
+# K21a, K21b and K22) its tile width and epilogue (csrc/qgemm_wgmma.cuh
+# QwEpi: 2 f32 h with row maxima, 3 the residual, 4 bf16, 5 int8 with the
+# static scale; the residual takes 128-wide tiles), mha_wgmma_kernel's
 # its mode (1 max-free, 2 safe) and whether it writes int8 (true: K18's
 # static aoq), quant_rows_kernel's second one its LayerNorm (0
 # none, 1 one-pass, 2 two-pass, 3 from the producer's stats).  The first
@@ -151,10 +155,24 @@ STAGES = (
     ("attn_int8_stats::row_stats_kernel", "K21b (f) next stats"),
     ("attn_int8_stats::", UNEXPECTED + " K21b kernel"),
     ("mlp_int8_static::quant_rows_kernel", "K17 (a) LN + rint rows"),
-    ("mlp_int8_static::qgemm_kernel<3>",
-     "K17 (b) int8 W1 GEMM + scaled act + rint"),
-    ("mlp_int8_static::qgemm_kernel<1>", "K17 (c) int8 W2 GEMM + residual"),
-    ("mlp_int8_static::", "K17 other"),
+    ("mlp_int8_static::qgemm_wgmma_kernel<256,5>",
+     "K17 (b) int8 W1 GEMM + scaled act + rint, int8 hq"),
+    ("mlp_int8_static::qgemm_wgmma_kernel<128,5>",
+     "K17 (b) int8 W1 GEMM + scaled act + rint, int8 hq"),
+    ("mlp_int8_static::qgemm_wgmma_kernel<128,3>",
+     "K17 (c) int8 W2 GEMM + residual"),
+    ("mlp_int8_static::", UNEXPECTED + " K17 kernel"),
+    ("attn_int8_scores::quant_rows_kernel", "K22 (a) LN + rint rows"),
+    ("attn_int8_scores::qgemm_wgmma_kernel<256,5>",
+     "K22 (b) int8 QKV GEMM + rint, int8 panel"),
+    ("attn_int8_scores::qgemm_wgmma_kernel<128,5>",
+     "K22 (b) int8 QKV GEMM + rint, int8 panel"),
+    ("attn_int8_scores::vt_kernel", "K22 (c) V^T pass"),
+    ("attn_int8_scores::attn_s8_wgmma_kernel",
+     "K22 (d) int8 attention, two sweeps"),
+    ("attn_int8_scores::qgemm_wgmma_kernel<128,3>",
+     "K22 (e) int8 out-proj + residual"),
+    ("attn_int8_scores::", UNEXPECTED + " K22 kernel"),
     ("attn_int8_static::quant_rows_kernel", "K18 (a) LN + rint rows"),
     ("attn_int8_static::qgemm_wgmma_kernel<256,4>",
      "K18 (b) int8 QKV GEMM, bf16"),
@@ -291,12 +309,16 @@ def _int8_tree(cfg, params, static):
             else quantized.quantize_vit_fast(params))
 
 
-def _serve_int8_run(cfg, batch, static, chain=False):
+def _serve_int8_run(cfg, batch, static, chain=False, scores=False):
     """One served int8 forward: make_forward_int8 on quantize_vit_fast (or
     quantize_vit_static) of the seed-0 weights, a seeded uint8 batch; with
     ``chain`` the int8 stats chain's switch is on for the rest of the
-    process (raises where the chain would not run)."""
+    process (raises where the chain would not run); with ``scores`` the
+    int8-scores attention's on the static tree."""
     from .models import quantized, vit
+    if scores:
+        quantized._INT8_SCORES = True
+        static = True
     if chain:
         quantized._INT8_STATS_CHAIN = True
         if not quantized._int8_stats_chain_supported(cfg, batch):
@@ -451,6 +473,10 @@ def main(argv=None) -> int:
     int8_tree.add_argument("--chain", action="store_true",
                            help="with --int8: the gated int8 stats chain "
                                 "(_INT8_STATS_CHAIN on; K21b, K21a)")
+    int8_tree.add_argument("--scores", action="store_true",
+                           help="with --int8: the static tree with the "
+                                "gated int8-scores attention (_INT8_SCORES "
+                                "on; K22, K17)")
     single = ap.add_mutually_exclusive_group()
     single.add_argument("--latency", action="store_true",
                         help="profile the single-launch batch-1 encoder's "
@@ -465,11 +491,12 @@ def main(argv=None) -> int:
     if args.full and args.static:
         ap.error("--full runs the dynamic int8 tree (K20), not the static "
                  "one")
-    if (args.static or args.chain) and not args.int8:
-        ap.error("--static and --chain select the int8 path: give --int8 "
-                 "too")
-    if args.chain and (args.latency or args.full):
-        ap.error("--chain runs the throughput forward's encoder")
+    if (args.static or args.chain or args.scores) and not args.int8:
+        ap.error("--static, --chain and --scores select the int8 path: "
+                 "give --int8 too")
+    if (args.chain or args.scores) and (args.latency or args.full):
+        ap.error("--chain and --scores run the throughput forward's "
+                 "encoder")
     if args.batch is None:
         args.batch = 1 if args.latency or args.full else 64
 
@@ -490,7 +517,8 @@ def main(argv=None) -> int:
         run = _latency_run(cfg, args.batch, args.int8, args.static,
                            full=args.full)
     elif args.int8:
-        run = _serve_int8_run(cfg, args.batch, args.static, args.chain)
+        run = _serve_int8_run(cfg, args.batch, args.static, args.chain,
+                              args.scores)
     elif args.train:
         run = _train_run(cfg, args.batch)
     elif args.per_tensor:
@@ -501,6 +529,8 @@ def main(argv=None) -> int:
         mode += "-static"
     if args.chain:
         mode += "-chain"
+    if args.scores:
+        mode += "-scores"
 
     run()
     torch.cuda.synchronize()
