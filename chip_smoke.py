@@ -1641,7 +1641,7 @@ DEVICE_ALONE = ("attn_block_int8", "mlp_block_int8_stats",
                 "attn_block_int8_stats", "attn_block_int8_static_long",
                 "attn_block_int8_stats_long", "mlp_block_int8_static",
                 "attn_block_int8_static_scores",
-                "attn_block_int8_static_scores_long")
+                "attn_block_int8_static_scores_long", "int8_linear_fused")
 
 
 def _device_alone_pair(name, kern, lib, lib_ran):
@@ -4787,6 +4787,7 @@ def phase_per_block_serve(n_images=6, batch=2):
     gotq, nb = _serve("int8 ViT-B/16 @1024", fq, images, batch)
     count("int8 @1024", counters, {"flash_attention": 12 * nb,
                                    "int8_linear_fused": 49 * nb})
+    launches["int8_linear_fused"] = 49 * nb
     cpu_q = quantized.make_forward_int8(cfg, _tree_to(qparams, "cpu"),
                                         device="cpu")
     _rel_to_max("int8 @1024 logits of image 0 vs the CPU plain forward",
@@ -4863,11 +4864,12 @@ def phase_per_block_serve(n_images=6, batch=2):
 
 
 def phase_per_block_time(fwd, fq, images):
-    """ms per batch of the bf16 and dynamic int8 forwards at 1024 px, b1
-    and b4, from uint8 images already on the card (CUDA events), in turns
-    (each twice, the order reversed the second time)."""
+    """ms per batch of the bf16 and dynamic int8 forwards at 1024 px, b1,
+    b2 (the serves' batch) and b4, from uint8 images already on the card
+    (CUDA events), in turns (each twice, the order reversed the second
+    time)."""
     from vit_fpga_tpu_torch.utils.timing import time_cuda
-    runs = [(f"{name} @1024 b{b}", f, b) for b in (1, 4)
+    runs = [(f"{name} @1024 b{b}", f, b) for b in (1, 2, 4)
             for name, f in (("bf16", fwd), ("int8", fq))]
     times = {label: [] for label, _, _ in runs}
     for label, f, b in runs + runs[::-1]:
@@ -4885,6 +4887,7 @@ def run_per_block_phases(errors, timing, launches):
     for name, t in phase_per_block_timing().items():
         timing[name] = dict(t, max_abs_err=errors[name])
     served, fwd, fq, images = phase_per_block_serve()
+    launches[K14_PER_LINEAR] = served.pop("int8_linear_fused")
     launches.update(served)
     phase_per_block_time(fwd, fq, images)
     print(_smi_line())
@@ -5630,14 +5633,26 @@ def phase_odd_timing():
         rows, k = b * (h // p) * (w // p), p * p * 3
         flops = 2 * rows * k * d
         nbytes = images.numel() + 4 * (k * d + d) + rows * d * dt.itemsize
-        bound_ms, bound_by = _bound_f32(flops, nbytes)
-        print(f"timing K10 {label} P{p} D{d} {dt}: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, f32 at 67 TFLOP/s)")
+        # the bound of K10's work, three bf16 products a weight on the
+        # tensor cores; beside it the f32 bound of the CUDA cores
+        bound_ms, bound_by = _bound(3 * flops, nbytes)
+        f32_ms, _ = _bound_f32(flops, nbytes)
+        dev_ms = _device_alone_ms(
+            lambda: pe.patch_embed_pallas(images, kf, bf, p, out_dtype=dt),
+            iters=20)
+        lib_dev = _device_alone_ms(lambda: (vit.patchify(images.float(), p)
+                                            @ kf + bf).to(dt), iters=20)
+        print(f"timing K10 {label} P{p} D{d} {dt}: kernel {ms:.4f} ms per "
+              f"call (the wrapper reads the split's count back), "
+              f"{dev_ms:.4f} ms device alone ({flops / dev_ms / 1e9:.1f} "
+              f"TFLOP/s of f32 products), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms per call, {lib_dev:.4f} ms device alone, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, 3 x {flops / 1e9:.1f} "
+              f"GFLOP bf16 at 989 TFLOP/s; f32 at 67 TFLOP/s: {f32_ms:.4f} "
+              f"ms)")
         out.setdefault("patch_embed_pallas", dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by))
+            bound_by=bound_by, device_ms=dev_ms))
         if i == 0:
             cfg = vit.config("vit_b16", image_size=h, dtype="bfloat16")
             kb = kf.to(torch.bfloat16)
@@ -5825,8 +5840,10 @@ WGMMA_SERIAL = ("C7513", "C7514", "C7515")
 
 
 # Kernels whose every instantiation must compile without a spill: the int8
-# GEMM (each epilogue of every unit) and K22's attention.
-NO_SPILL = ("qgemm_wgmma_kernel", "attn_s8_wgmma_kernel")
+# GEMM (each epilogue of every unit, K14's QW_ACT too), K22's attention and
+# K10's bf16 GEMM (gw_kernel in patch_embed.cu).
+NO_SPILL = ("qgemm_wgmma_kernel", "attn_s8_wgmma_kernel",
+            "11patch_embed9gw_kernel")
 
 
 def _spills(lines, kernel):
@@ -5851,7 +5868,8 @@ def check_wgmma_serialisation(build_log: str) -> None:
                    "bwd_kv_kernel", "qgemm_wgmma_kernel", "stack_int8_kernel",
                    "full_int8_kernel", "stack_int8_static_kernel",
                    "8vit_full11full_kernel", "9vit_stack12stack_kernel",
-                   "attn_s8_wgmma_kernel"):
+                   "attn_s8_wgmma_kernel", "11patch_embed9gw_kernel",
+                   "12quant_linear18qgemm_wgmma_kernel"):
         if not any("Compiling entry function" in ln and kernel in ln
                    for ln in lines):
             raise AssertionError(f"the build log holds no ptxas report of "
@@ -6538,6 +6556,218 @@ def run_k17_k22_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: K14 on qgemm_wgmma.cuh at the per-linear route's shapes, and K10
+# on the tensor cores through the exact three-piece bf16 split
+# ---------------------------------------------------------------------------
+
+K14_PER_LINEAR = "int8_linear_fused_per_linear"
+# K14 where the main path runs it: ViT-B/16 @1024 b2's per-linear route
+# (make_forward_int8, 8208 = 2 x 4104 rows, 49 launches a batch), the
+# heads, and the output row strides TMA cannot take (N % 4 != 0 in f32,
+# N % 8 != 0 in bf16: the register stores).  (label, rows, K, N, input
+# dtype, keyword arguments)
+K14_PATH_CASES = (
+    ("@1024 b2 QKV + LN", 8208, 768, 2304, torch.bfloat16,
+     dict(ln_eps=EPS)),
+    ("@1024 b2 out-projection", 8208, 768, 768, torch.bfloat16, {}),
+    ("@1024 b2 W1 + gelu_tanh", 8208, 768, 3072, torch.bfloat16,
+     dict(act="gelu_tanh")),
+    ("@1024 b2 W2", 8208, 3072, 768, torch.bfloat16, {}),
+    ("head b64 bf16", 64, 768, 1000, torch.bfloat16, {}),
+    ("head b64 f32", 64, 768, 1000, torch.bfloat16,
+     dict(out_dtype=torch.float32)),
+    ("N 1001 f32 + relu (register stores)", 200, 768, 1001, torch.bfloat16,
+     dict(act="relu", out_dtype=torch.float32)),
+    ("N 1004 bf16, f32 in + quick_gelu (register stores)", 200, 768, 1004,
+     torch.float32, dict(act="quick_gelu")),
+)
+# The timed K14 shapes: the head, the per-linear W1 (the JSON line's
+# per-linear row) and W2.
+K14_TIMED = ("head b64 bf16", "@1024 b2 W1 + gelu_tanh", "@1024 b2 W2")
+
+
+def _k14_case(label, seed):
+    """One K14_PATH_CASES case's inputs: (x, q, keyword arguments)."""
+    _, t, k, n, dt, kw = next(c for c in K14_PATH_CASES if c[0] == label)
+    x, q = _k14_inputs(t, k, n, seed)
+    if "ln_eps" in kw:
+        kw = dict(kw, ln_scale=q["ls"], ln_bias=q["lb"])
+    return x.to(dt), q, kw
+
+
+def _k14_ieee(x, q, kw):
+    """K14's arithmetic with its row scale s = absmax / 127 a true
+    division, as the kernel's (PyTorch divides a CUDA tensor by a Python
+    number through its reciprocal, so the plain version's s can sit an
+    ulp away, and with it a row's int8 values); no LayerNorm."""
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    sx = amax / torch.full_like(amax, qf.QMAX)
+    xq = torch.clamp(torch.round(xf / sx), -qf.QMAX, qf.QMAX).to(torch.int8)
+    f = qf._int_matmul(xq, q["w_q"]) * (sx * q["w_s"]) + q["b"]
+    act = kw.get("act", "none")
+    if act == "gelu_tanh":
+        f = qf._gelu_tanh_textbook(f)
+    elif act == "relu":
+        f = torch.clamp_min(f, 0.0)
+    elif act != "none":
+        raise ValueError(act)
+    return f.to(kw.get("out_dtype", torch.bfloat16))
+
+
+def phase_k14_kernels():
+    """K14 against its plain version at K14_PATH_CASES in the unchanged
+    int8 band, each with the count of elements that are not bit for bit
+    (printed); and where there is no LayerNorm (whose f32 sums run in
+    another order) and no quick_gelu (expf against torch.sigmoid), bit
+    for bit against its arithmetic with the row scale's true division
+    (``_k14_ieee``): the int8 band cannot tell the textbook tanh-GELU
+    from K15's fma form, this can.  Returns the largest max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    worst = 0.0
+    for i, (label, t, k, n, _, _) in enumerate(K14_PATH_CASES):
+        x, q, kw = _k14_case(label, 300 + i)
+        got = _k14(qf.int8_linear_fused, x, q, **kw)
+        want = _k14(qf.int8_linear_fused_plain, x, q, **kw)
+        if got.dtype != kw.get("out_dtype", torch.bfloat16) \
+                or tuple(got.shape) != (t, n):
+            raise AssertionError(f"K14 {label}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        name = f"K14 {label} ({t}, {k}) x {n}"
+        print(f"parity {name}")
+        worst = max(worst, _int8_parity(name, got, want,
+                                        _k14_step(x, q, **kw)))
+        print(f"  {name}: {int((got != want).sum())} of {got.numel()} "
+              f"elements not bit for bit")
+        if "ln_eps" not in kw and kw.get("act") != "quick_gelu":
+            moved = int((got != _k14_ieee(x, q, kw)).sum())
+            print(f"  {name} vs its arithmetic with s = absmax / 127 a true "
+                  f"division: {moved} elements not bit for bit (must be 0)")
+            if moved:
+                raise AssertionError(f"{name}: not K14's arithmetic")
+    return worst
+
+
+def _k14_library(x, q, kw):
+    """K14's library yardstick: F.layer_norm (with the LN), the row
+    quantization in torch ops, torch._int_mm, the dequantization and the
+    activation in torch ops."""
+    import torch.nn.functional as F
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    k, act = x.shape[1], kw.get("act", "none")
+    dt = kw.get("out_dtype", torch.bfloat16)
+
+    def run():
+        xf = x.float()
+        if "ln_eps" in kw:
+            xf = F.layer_norm(xf, (k,), q["ls"], q["lb"], kw["ln_eps"])
+        xq, sx = qf._row_quant(xf)
+        f = torch._int_mm(xq, q["w_q"]).float() * (sx * q["w_s"]) + q["b"]
+        if act == "gelu_tanh":
+            f = F.gelu(f, approximate="tanh")
+        elif act == "quick_gelu":
+            f = f * torch.sigmoid(1.702 * f)
+        elif act == "relu":
+            f = torch.relu(f)
+        return f.to(dt)
+    return run
+
+
+def phase_k14_timing():
+    """K14 at K14_TIMED: per call, device alone (torch.profiler, the
+    wrapper's host time out), the plain version, the library yardstick
+    per call and device alone, and the bound (int8 operations or bytes).
+    Returns {label: dict of times}."""
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    out = {}
+    for i, label in enumerate(K14_TIMED):
+        x, q, kw = _k14_case(label, 310 + i)
+        t, k = x.shape
+        n = q["w_q"].shape[1]
+        eb = 4 if kw.get("out_dtype") == torch.float32 else 2
+
+        def kern():
+            return _k14(qf.int8_linear_fused, x, q, **kw)
+        lib = _k14_library(x, q, kw)
+        ms = time_cuda(kern)
+        dev_ms = _device_alone_ms(kern, iters=20)
+        plain_ms = time_cuda(lambda: _k14(qf.int8_linear_fused_plain, x, q,
+                                          **kw), iters=5, warmup=1)
+        lib_ms = _library_ms(lib, f"K14 {label}")
+        lib_dev = (_device_alone_ms(lib, iters=20) if lib_ms is not None
+                   else None)
+        ops8 = 2 * t * k * n
+        nbytes = t * k * x.element_size() + k * n + 8 * n + t * n * eb
+        bound_ms, bound_by = _bound_int8(ops8, 0, nbytes)
+        print(f"timing K14 {label} ({t}, {k}) x {n}: kernel {ms:.4f} ms "
+              f"per call, {dev_ms:.4f} ms device alone "
+              f"({ops8 / dev_ms / 1e9:.1f} TOPS); plain {plain_ms:.4f} ms, "
+              f"library {lib_ms} ms per call, {lib_dev} ms device alone; "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {ops8 / 1e9:.2f} G int8 "
+              f"ops, {nbytes / 1e6:.2f} MB)")
+        out[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, library_device_ms=lib_dev,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def _lit_images(batch, h, w, patch, seed):
+    """uint8 images on the card that are 0 but for one pixel channel of
+    each patch, lit to a power of two (1 .. 128), at a seeded place."""
+    rng = np.random.default_rng(seed)
+    gh, gw, k = h // patch, w // patch, patch * patch * 3
+    img = np.zeros((batch, h, w, 3), np.uint8)
+    q = rng.integers(0, k, (batch, gh, gw))
+    val = (2 ** rng.integers(0, 8, (batch, gh, gw))).astype(np.uint8)
+    b, gy, gx = np.indices((batch, gh, gw))
+    img[b, gy * patch + q // (3 * patch), gx * patch + q // 3 % patch,
+        q % 3] = val
+    return torch.from_numpy(img).cuda()
+
+
+def phase_k10_exact():
+    """K10 on one lit pixel a patch, at each K10_CASES shape: every output
+    is pixel * w + bias with pixel a power of two, so the three pieces'
+    f32 sum, 2^e (lo + mid + hi) = 2^e w, is exact in any order and K10
+    equals its plain version bit for bit (a split without one of its
+    pieces does not); a weight that three normal bf16 pieces cannot hold
+    (an f32 subnormal) and D % 8 != 0 raise."""
+    from vit_fpga_tpu_torch.ops import patch_embed as pe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (label, b, h, w, p, d, dt, scales) in enumerate(K10_CASES):
+        _, kf, bf = _k10_inputs(b, h, w, p, d, 320 + i, scales)
+        images = _lit_images(b, h, w, p, 320 + i)
+        got = pe.patch_embed_pallas(images, kf, bf, p, out_dtype=dt)
+        want = pe.patch_embed_plain(images, kf, bf, p, out_dtype=dt)
+        torch.cuda.synchronize()
+        moved = int((got != want).sum())
+        print(f"  K10 {label} one lit pixel a patch: {moved} of "
+              f"{got.numel()} elements not bit for bit (must be 0)")
+        if moved or not torch.isfinite(got).all():
+            raise AssertionError(f"K10 {label}: the split GEMM is not exact")
+    images, kf, bf = _k10_inputs(1, 32, 32, 8, 64, 330, None)
+    tiny = kf.clone()
+    tiny[5, 7] = 1e-40
+    _expect_raise("K10 with an f32 subnormal weight",
+                  lambda: pe.patch_embed_pallas(images, tiny, bf, 8))
+    _expect_raise("K10 at D 60",
+                  lambda: pe.patch_embed_pallas(images, kf[:, :60].contiguous(),
+                                                bf[:60].contiguous(), 8))
+
+
+def run_k14_k10_phases(errors, timing, launches):
+    """Phase 24 after the earlier slices' phases (its parity ran right
+    after phase 23's): K14's times at the head, the per-linear W1 (the
+    JSON line's per-linear row, its launches the per-block serve's) and
+    W2."""
+    timing[K14_PER_LINEAR] = dict(phase_k14_timing()["@1024 b2 W1 + gelu_tanh"],
+                                  max_abs_err=errors[K14_PER_LINEAR])
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6565,6 +6795,8 @@ def main() -> int:
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
     k17_k22_errors = phase_k17_k22_kernels()
+    k14_per_linear_err = phase_k14_kernels()
+    phase_k10_exact()
     errors["mlp_block_int8_stats"] = max(errors["mlp_block_int8_stats"],
                                          _k21a_edges())
     errors.update(phase_per_block_kernels())
@@ -6584,6 +6816,7 @@ def main() -> int:
         errors["mlp_block_int8_static"],
         k17_k22_errors.pop("mlp_block_int8_static"))
     errors.update(k17_k22_errors)
+    errors[K14_PER_LINEAR] = k14_per_linear_err
     phase_parity()
     timing = phase_path_shapes()
     for name, err in wgmma_errors.items():
@@ -6623,6 +6856,7 @@ def main() -> int:
     run_k16_long_phases(errors, timing, launches)
     run_k18_k21b_long_phases(errors, timing, launches)
     run_k17_k22_phases(errors, timing, launches)
+    run_k14_k10_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -6639,6 +6873,8 @@ def main() -> int:
                           "vit_fpga_tpu/ops/fused_mlp.py:578"),
         "int8_linear_fused": ("vit_fpga_tpu_torch/csrc/quant_linear.cu",
                               "vit_fpga_tpu/ops/quant_fused.py:46"),
+        K14_PER_LINEAR: ("vit_fpga_tpu_torch/csrc/quant_linear.cu",
+                         "vit_fpga_tpu/ops/quant_fused.py:46"),
         "mlp_block_int8": ("vit_fpga_tpu_torch/csrc/mlp_int8.cu",
                            "vit_fpga_tpu/ops/quant_block.py:86"),
         "attn_block_int8": ("vit_fpga_tpu_torch/csrc/attn_int8.cu",

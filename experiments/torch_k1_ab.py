@@ -1,6 +1,6 @@
 """K1's, K2's, K5's, K3's, K26's, K4's, K24's, K23's, K6's, K13's, K9's,
 K19a's, K20's, K19b's, K12's, K11's, K15's, K16's, K21a's, K18's, K21b's,
-K17's or K22's time at a shape, from the package tree
+K17's, K22's, K14's or K10's time at a shape, from the package tree
 found under ROOT, so that two versions of the port are compared in one
 call on one card.
 
@@ -8,10 +8,10 @@ Run on a machine with a Hopper card, from the repository root:
 
     python3 experiments/torch_k1_ab.py [ROOT]
         [--kernel k1|k2|k5|k3|k26|k4|k24|k23|k6|k13|k9|k19a|k20|k19b|k12|
-                  k11|k15|k16|k21a|k18|k21b|k17|k22]
+                  k11|k15|k16|k21a|k18|k21b|k17|k22|k14|k10]
         [--shape B N_PAD N_VALID D HEADS]
         [--mlp-shape T D M] [--one-consumer] [--qgemm VARIANT] [--a-region]
-        [--k15 VARIANT] [--k16 VARIANT]
+        [--k15 VARIANT] [--k16 VARIANT] [--k14 VARIANT]
 
 ROOT (default: this repository) holds the ``vit_fpga_tpu_torch`` package to
 time, e.g. a ``git archive`` of another commit unpacked under ``_chip/``; its
@@ -81,6 +81,17 @@ bf16, each with K11 (``vit_layers``), K19a and K20 as the controls;
 ``--kernel k11`` times ``vit_layers`` the same way beside
 ``chip_smoke._stack_library`` in bf16, with K12 and K19b as the controls.
 All five take their seeded inputs from the tree's own ``chip_smoke.py``.
+``--kernel k14`` times ``int8_linear_fused`` at the ViT-B/16 head, (64,
+768) x 1000, and at ViT-B/16 @1024 b2's per-linear shapes, (8208, 768) x
+2304 with the LN, x 768, x 3072 with gelu_tanh and (8208, 3072) x 768,
+each per call, device alone and step by step, the head and W1 beside
+their library calls (the row quantization in torch ops, ``torch._int_mm``,
+the dequantization and activation), then the dynamic int8 ViT-B/16 @1024
+b1 and b2 forwards (the per-linear route, 49 K14 + 12 K9 a batch);
+``--kernel k10`` times
+``patch_embed_pallas`` at ViT-B/16 b64 and CLIP ViT-L/14 b64, bf16 and f32
+out, per call, device alone and step by step, beside the library call
+(``torch.matmul`` of the patchified f32 image, TF32 off, + bias);
 ``--kernel k15`` times ``mlp_block_int8`` (gelu_tanh) at ``--mlp-shape``,
 by default ViT-B/16 b64's (12 800, 768) x 3072, per call, device alone and
 step by step, first checked against its plain version in the int8 band,
@@ -163,6 +174,8 @@ of 256; ``out_tile256`` K16's out-projection (the residual epilogue at K
 ``qkv_noepi`` K16's QKV without its epilogue's per-row pass (the int32
 pieces staged and the output pieces stored, nothing computed: its output
 is then wrong and not checked), to weigh the epilogue.
+``--k14 tile256`` times ``--kernel k14`` from a copy whose K14 GEMM takes
+256-wide tiles where N > 128 (K13's widths) in place of 128 at every N.
 """
 
 from __future__ import annotations
@@ -230,6 +243,14 @@ K16_VARIANTS = {
                      "qgemm_wgmma_tile_n(p.N);"),),
     "qkv_noepi": ((_QW, "    if (rin && cb < p.N) {",
                    "    if (EPI != QW_BF16 && rin && cb < p.N) {"),),
+}
+
+
+# (file under csrc/, text, replacement) of each --k14 variant: K14's GEMM
+# on K13's tile widths (256 where N > 128) in place of 128 at every N.
+K14_VARIANTS = {
+    "tile256": ((_QW, "EPI == QW_RESID || EPI == QW_ACT ? 128",
+                 "EPI == QW_RESID ? 128"),),
 }
 
 
@@ -423,6 +444,25 @@ def time_k9_paths(g):
              for _ in range(5)]}
 
 
+def time_k14_paths(g):
+    """The path that runs K14 most, five estimates each: the dynamic int8
+    ViT-B/16 @1024 b1 and b2 (the serve's batch) forwards from uint8
+    (quantize_vit_fast of seeded weights: the per-linear route, 49 K14 +
+    12 K9 a batch)."""
+    import torch
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", image_size=1024, dtype="bfloat16")
+    fq = quantized.make_forward_int8(
+        cfg, quantized.quantize_vit_fast(vit.init_params(cfg, g,
+                                                         device="cuda")))
+    img = torch.randint(0, 256, (2, 1024, 1024, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    return {f"ViT-B/16 @1024 b{b} dynamic int8 forward (uint8 in)":
+            [time_cuda(lambda: fq(img[:b]), iters=5, warmup=2)
+             for _ in range(5)] for b in (1, 2)}
+
+
 def time_int8_forwards(g, kernel):
     """The int8 ViT-B/16 forwards from uint8 on seeded random weights,
     five estimates of 5 calls each: at b64 the dynamic one (quantize_vit_
@@ -514,7 +554,7 @@ def main() -> int:
                     choices=("k1", "k2", "k5", "k3", "k26", "k4", "k24",
                              "k23", "k6", "k13", "k9", "k19a", "k20",
                              "k19b", "k12", "k11", "k15", "k16", "k21a",
-                             "k18", "k21b", "k17", "k22"),
+                             "k18", "k21b", "k17", "k22", "k14", "k10"),
                     default="k1")
     ap.add_argument("--shape", type=int, nargs=5,
                     default=[64, 200, 197, 768, 12],
@@ -526,6 +566,7 @@ def main() -> int:
     ap.add_argument("--a-region", action="store_true")
     ap.add_argument("--k15", choices=sorted(K15_VARIANTS))
     ap.add_argument("--k16", choices=sorted(K16_VARIANTS))
+    ap.add_argument("--k14", choices=sorted(K14_VARIANTS))
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if args.one_consumer:
@@ -539,6 +580,8 @@ def main() -> int:
         root = patched_copy(root, f"k15_{args.k15}", K15_VARIANTS[args.k15])
     if args.k16:
         root = patched_copy(root, f"k16_{args.k16}", K16_VARIANTS[args.k16])
+    if args.k14:
+        root = patched_copy(root, f"k14_{args.k14}", K14_VARIANTS[args.k14])
     sys.path.insert(0, str(root))
     import torch
     from vit_fpga_tpu_torch.ops import attn_block as ab
@@ -1184,6 +1227,73 @@ def main() -> int:
         qm = cs._int8_weights(pm, ("w1", "w2"))
         runs["K15 control (12800, 768) x 3072"] = (
             lambda: cs._k15(qb.mlp_block_int8, xm, qm, "gelu_tanh"))
+    elif args.kernel == "k14":
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.ops import quant_fused as qf
+        runs, shape = {}, []
+        for i, (label, t, k, n, kw) in enumerate((
+                ("head", 64, 768, 1000, {}),
+                ("QKV + LN", 8208, 768, 2304, dict(ln_eps=1e-6)),
+                ("out-projection", 8208, 768, 768, {}),
+                ("W1 + gelu_tanh", 8208, 768, 3072, dict(act="gelu_tanh")),
+                ("W2", 8208, 3072, 768, {}))):
+            x, q = cs._k14_inputs(t, k, n, 400 + i)
+            if "ln_eps" in kw:
+                kw = dict(kw, ln_scale=q["ls"], ln_bias=q["lb"])
+            name = f"K14 {label} ({t}, {k}) x {n}"
+            shape.append([t, k, n])
+
+            def run(x=x, q=q, kw=kw):
+                return cs._k14(qf.int8_linear_fused, x, q, **kw)
+            cs._int8_parity(name, run(), cs._k14(qf.int8_linear_fused_plain,
+                                                 x, q, **kw),
+                            cs._k14_step(x, q, **kw))
+            runs[f"{name} per call"] = run
+            device[f"{name} device alone"] = run
+            steps[name] = run
+            if label in ("head", "W1 + gelu_tanh"):
+                def lib(x=x, q=q, act=kw.get("act")):
+                    xq, sx = qf._row_quant(x.float())
+                    f = (torch._int_mm(xq, q["w_q"]).float() * (sx * q["w_s"])
+                         + q["b"])
+                    if act == "gelu_tanh":
+                        f = F.gelu(f, approximate="tanh")
+                    return f.to(torch.bfloat16)
+                runs[f"library {label} per call"] = lib
+                device[f"library {label} device alone"] = lib
+    elif args.kernel == "k10":
+        sys.path.insert(0, str(root))
+        import chip_smoke as cs
+        from vit_fpga_tpu_torch.models import vit
+        from vit_fpga_tpu_torch.ops import patch_embed as pe
+        torch.backends.cuda.matmul.allow_tf32 = False
+        runs, shape = {}, []
+        for i, (label, p, d, scales) in enumerate((
+                ("ViT-B/16 b64", 16, 768, cs.IMAGENET_SCALES),
+                ("CLIP ViT-L/14 b64", 14, 1024, "clip"))):
+            images, kf, bf = cs._k10_inputs(64, 224, 224, p, d, 410 + i,
+                                            scales)
+            shape.append([64, 224, 224, p, d])
+            for dt in (torch.bfloat16, torch.float32):
+                name = f"K10 {label} {str(dt)[6:]}"
+
+                def run(images=images, kf=kf, bf=bf, p=p, dt=dt):
+                    return pe.patch_embed_pallas(images, kf, bf, p,
+                                                 out_dtype=dt)
+                got = run()
+                want = pe.patch_embed_plain(images, kf, bf, p, out_dtype=dt)
+                cs._sum_band(name, got, want, p * p * 3,
+                             cs._k10_mag(images, kf, bf, p).reshape(
+                                 got.shape), dt == torch.bfloat16)
+                runs[f"{name} per call"] = run
+                device[f"{name} device alone"] = run
+                steps[name] = run
+
+                def lib(images=images, kf=kf, bf=bf, p=p, dt=dt):
+                    return (vit.patchify(images.float(), p) @ kf + bf).to(dt)
+                runs[f"library {label} {str(dt)[6:]} per call"] = lib
+                device[f"library {label} {str(dt)[6:]} device alone"] = lib
     elif args.kernel in ("k16", "k21a"):
         sys.path.insert(0, str(root))
         import chip_smoke as cs
@@ -1337,6 +1447,8 @@ def main() -> int:
         ms.update(time_k13_paths(g))
     if args.kernel == "k9":
         ms.update(time_k9_paths(g))
+    if args.kernel == "k14":
+        ms.update(time_k14_paths(g))
     if args.kernel in ("k16", "k21a", "k18", "k21b", "k17", "k22"):
         ms.update(time_int8_forwards(g, args.kernel))
     if args.kernel in ("k24", "k23"):

@@ -276,10 +276,22 @@ run_copy k22_no_rsum attn_int8_scores.cu \
 run_copy k22_keys_unmasked attn_int8_scores.cu \
   "s8_fold<true>(s, l, i * S8_KT + 2 * t4, n_valid, sdq);" \
   "s8_fold<false>(s, l, 0, 0, sdq);"
-# K10 reading each pixel's channels in the wrong order (BGR for RGB)
+# K10's patchify reading each pixel's channels in the wrong order (BGR for
+# RGB), every patch size through the byte-wise gather
 run_copy k10_bgr patch_embed.cu \
-  "const size_t koff = (size_t)py * w3 + (kin ? k % p3 : 0);" \
-  "const size_t koff = (size_t)py * w3 + (kin ? k % p3 - (k % p3) % 3 + 2 - (k % p3) % 3 : 0);"
+  "f[t] = q < g.k ? (float)__ldg(base + (size_t)(q / p3) * w3 + q % p3) : 0.0f;" \
+  "f[t] = q < g.k ? (float)__ldg(base + (size_t)(q / p3) * w3 + q % p3 - q % 3 + 2 - q % 3) : 0.0f;" \
+  "if ((patch * 3) % 8 == 0 && " "if (false && "
+# K10's split without its lo piece (a two-piece split: hi + mid, 16 of the
+# 24 bits); phase 17's band may not see it, the one-lit-pixel case
+# (phase_k10_exact) must
+run_copy k10_no_lo_piece patch_embed.cu \
+  "pc[0][e] = lo, pc[1][e] = mid, pc[2][e] = hi;" \
+  "pc[0][e] = 0.0f, pc[1][e] = mid, pc[2][e] = hi;"
+# K14's epilogue with K15's fma-form tanh-GELU for the textbook one
+run_copy k14_fma_gelu qgemm_wgmma.cuh \
+  "for (int e = 0; e < 4; ++e) f[e] = qact(f[e], p.act);" \
+  "for (int e = 0; e < 4; ++e) f[e] = p.act == ACT_GELU_TANH_JAX ? act_rn(f[e], ACT_GELU_TANH) : qact(f[e], p.act);"
 # K26 in bf16 dropping the last 64-deep K step of the wgmma GEMM (1024 =
 # 16 x 64 at ViT-L/16 @384, the whole last step; 520 = 8 x 64 + 8): the
 # GEMM's producer and consumers both stop one step early where the launch

@@ -461,9 +461,9 @@ def test_k18_and_k21b_run_on_k16s_wgmma_sequence(name):
 
 def test_qw_epilogue_takes_a_null_row_scale():
     """qgemm_wgmma.cuh's dequantizing epilogues read a null sa as a row
-    scale of 1.0 (quant.cuh's convention: 1.0f * sb == sb exactly, so
-    K18's static GEMMs keep the IEEE order of the wmma GEMM's), and the
-    launch no longer refuses one."""
+    scale of 1.0 (1.0f * sb == sb exactly, so K18's static GEMMs keep the
+    IEEE order of their plain versions), the launch no longer refuses one,
+    and its contract says so."""
     gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
     body = gemm[gemm.index("void qw_epilogue("):]
     body = body[:body.index("\n}\n")]
@@ -471,8 +471,8 @@ def test_qw_epilogue_takes_a_null_row_scale():
             "__ldg(p.sa + row) : 1.0f;") in body
     launch = gemm[gemm.index("inline cudaError_t launch_qgemm_epi("):]
     assert "p.sa == nullptr" not in launch
-    quant = (_kernels.CSRC / "quant.cuh").read_text()
-    assert "p.sa != nullptr ? p.sa[gr] : 1.0f" in quant
+    assert "sa (null: a row scale of 1.0)" in " ".join(
+        ln.lstrip("/ ") for ln in gemm.splitlines())
 
 
 def test_the_int8_attention_store_is_the_static_layer_loops():
@@ -502,16 +502,20 @@ def test_the_int8_attention_store_is_the_static_layer_loops():
     ("attn_int8_static.cu", "vft_attn_block_int8_static"),
     ("attn_int8_stats.cu", "vft_attn_block_int8_stats"),
     ("mlp_int8_static.cu", "vft_mlp_block_int8_static"),
-    ("attn_int8_scores.cu", "vft_attn_block_int8_scores")])
+    ("attn_int8_scores.cu", "vft_attn_block_int8_scores"),
+    ("quant_linear.cu", "vft_int8_linear_fused"),
+    ("quant_linear.cu", "vft_quant_linear_init"),
+    ("patch_embed.cu", "vft_patch_embed"),
+    ("patch_embed.cu", "vft_patch_embed_init")])
 def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
-    """The ctypes argument lists of K16's, K21a's, K18's, K21b's, K17's and
-    K22's C entry points follow the C definitions: pointers, ints and
-    floats in the same order."""
+    """The ctypes argument lists of K16's, K21a's, K18's, K21b's, K17's,
+    K22's and K14's C entry points (and K10's) follow the C definitions:
+    pointers, ints and floats in the same order; an init takes none."""
     src = (_kernels.CSRC / source).read_text()
     params = src[src.index(f"int {entry}("):]
     params = params[params.index("(") + 1:params.index(")")]
     kinds = []
-    for p in params.split(","):
+    for p in params.split(",") if params.strip() else ():
         p = p.strip()
         kinds.append("P" if "*" in p else "F" if p.startswith("float")
                      else "I")
@@ -596,6 +600,14 @@ def test_int8_entry_points_match_their_ctypes_signatures(source, entry):
      "unexpected: K22"),
     ("void attn_half::mha_wgmma_kernel<1, false>(CUtensorMap, MhaTmaArgs)",
      "K1 (b)"),
+    ("void quant_linear::quant_rows_kernel<__nv_bfloat16, 2, false, float>"
+     "(__nv_bfloat16 const*)", "K14 (a)"),
+    ("void quant_linear::qgemm_wgmma_kernel<128, 6>(CUtensorMap)",
+     "K14 (b)"),
+    ("void quant_linear::qgemm_wgmma_kernel<256, 6>(CUtensorMap)",
+     "unexpected: K14"),
+    ("void quant_linear::qgemm_kernel<0>(quant_linear::QGemmArgs)",
+     "unexpected: K14"),
     ("void attn_block::mha_wgmma_kernel<2, false>(CUtensorMap, MhaTmaArgs)",
      "K4 (c) attention, safe")])
 def test_profile_names_the_int8_halves_launches(name, stage):
@@ -653,26 +665,88 @@ def test_k22_attention_is_a_wgmma_tma_kernel_past_256_keys():
     assert "(2ull << 62)" in hopper  # layout SWIZZLE_64B
 
 
-def test_the_wmma_int8_gemm_keeps_k14s_plain_epilogue_alone():
-    """quant.cuh's wmma GEMM serves K14 alone: its int8 and residual
-    epilogues, the residual operand and the static scale went with K17
-    and K22; the static activation (qact_scaled) and rint_sat stay, in
-    common.cuh, for QW_Q8 and the static layer loop."""
-    quant = (_kernels.CSRC / "quant.cuh").read_text()
-    assert "enum { EPI_PLAIN = 0 };" in quant
-    for gone in (r"\bEPI_Q8\b", r"\bEPI_RESID\b", r"\bqscale\b",
-                 r"\bresidual\b", r"float qact_scaled\("):
-        assert not re.search(gone, quant), gone
-    users = sorted(p.name for p in _kernels.CSRC.iterdir()
-                   if "launch_qgemm<" in p.read_text() and p.suffix == ".cu")
-    assert users == ["quant_linear.cu"]
+def test_k14_launches_the_int8_wgmma_gemm_with_its_act_epilogue():
+    """K14's GEMM is a qgemm_wgmma.cuh launch with the QW_ACT epilogue
+    (its shared memory opted in by its init), after quant.cuh's row pass;
+    not the wmma GEMM."""
+    k14 = (_kernels.CSRC / "quant_linear.cu").read_text()
+    for inc in ("common.cuh", "quant.cuh", "hopper.cuh", "qgemm_wgmma.cuh"):
+        assert f'#include "{inc}"' in k14, inc
+    assert k14.count("launch_qgemm_epi<QW_ACT>(") == 1
+    assert "qgemm_epi_enable<QW_ACT>()" in k14 and "tma_init()" in k14
+    assert "launch_quant_rows<" in k14
+    for gone in ("launch_qgemm<", "qgemm_enable<", "QGemmArgs", "EPI_PLAIN"):
+        assert gone not in k14, gone
+
+
+def test_no_source_names_nvcuda_wmma():
+    """The port's last wmma GEMM went with K14's move: no source under
+    csrc/ names nvcuda, a wmma:: fragment or mma.h."""
     for p in _kernels.CSRC.iterdir():
         text = p.read_text()
-        for gone in (r"\bEPI_Q8\b", r"\bEPI_RESID\b", r"\bmma_s8\b"):
+        for gone in (r"\bnvcuda\b", r"\bwmma::", r"<mma\.h>",
+                     r"namespace wmma\b"):
+            assert not re.search(gone, text), (p.name, gone)
+
+
+def test_quant_cuh_keeps_its_row_passes_alone():
+    """quant.cuh holds the int8 row passes and nothing of the wmma GEMM
+    (its kernel, opt-in, QG_ constants, arguments and EPI_PLAIN); K14's
+    textbook tanh-GELU (qact) moved to common.cuh beside the static
+    activation (qact_scaled) and rint_sat."""
+    quant = (_kernels.CSRC / "quant.cuh").read_text()
+    for kept in ("quant_rows_kernel(", "launch_quant_rows(",
+                 "quant_amax_kernel(", "launch_quant_amax("):
+        assert kept in quant, kept
+    for p in _kernels.CSRC.iterdir():
+        text = p.read_text()
+        for gone in (r"\bqgemm_kernel\b", r"\bqgemm_enable\b",
+                     r"\blaunch_qgemm\b", r"\bQG_\w+", r"\bQGemmArgs\b",
+                     r"\bEPI_PLAIN\b", r"\bEPI_Q8\b", r"\bEPI_RESID\b",
+                     r"\bmma_s8\b"):
             assert not re.search(gone, text), (p.name, gone)
     common = (_kernels.CSRC / "common.cuh").read_text()
+    assert "float qact(float h, int act)" in common
+    assert "constexpr int ACT_GELU_TANH_JAX = 5;" in common
     assert "float qact_scaled(float h, int act, float s)" in common
     assert "signed char rint_sat(float v)" in common
+
+
+def test_qw_act_takes_any_n_by_tma_or_from_the_registers():
+    """QW_ACT is qw_epilogue's K14 output: act(f) through qact (the
+    textbook tanh-GELU, not K15's act_rn), bf16 or f32 chosen at run time,
+    the sb / bias columns past a ragged N not read, and a row stride that
+    is no multiple of 16 bytes stored from the registers; 128-wide tiles
+    at every N."""
+    gemm = (_kernels.CSRC / "qgemm_wgmma.cuh").read_text()
+    assert "QW_ACT = 6" in gemm and "int y_f32, y_regs;" in gemm
+    body = gemm[gemm.index("void qw_epilogue("):]
+    body = body[:body.index("\n}\n")]
+    assert "f[e] = qact(f[e], p.act);" in body
+    assert "if (A && c >= p.N) return;" in body
+    assert "c + e < p.N ? __ldg(p.sb + c + e) : 0.0f" in body
+    launch = gemm[gemm.index("inline cudaError_t launch_qgemm_epi("):]
+    assert "q.y_regs = EPI == QW_ACT && (p.N * eb) % 16 != 0;" in launch
+    assert ("const int bn = EPI == QW_RESID || EPI == QW_ACT ? 128 : "
+            "qgemm_wgmma_tile_n(p.N);") in launch
+
+
+def test_k10_runs_the_bf16_wgmma_gemm_over_three_pieces():
+    """K10 splits the f32 weights into three bf16 planes, patchifies the
+    images into bf16 rows and runs gemm_wgmma.cuh's GEMM over the planes,
+    A read three times over (a_period); no f32 FMA tile."""
+    k10 = (_kernels.CSRC / "patch_embed.cu").read_text()
+    for inc in ("common.cuh", "hopper.cuh", "gemm_wgmma.cuh"):
+        assert f'#include "{inc}"' in k10, inc
+    for piece in ("split_kernel<<<", "patchify_kernel<true><<<",
+                  "patchify_kernel<false><<<", "p.a_period = kq;",
+                  "launch_gemm_wgmma(am, pl, false, p, st)",
+                  "launch_gemm_wgmma<GW_AK_BN, GW_EPI_F32>(am, pl, false, p, st)",
+                  "bad += !(lo == r2)", "atomicAdd(inexact, bad)"):
+        assert piece in k10, piece
+    assert "fmaf(" not in k10 and "As[BK]" not in k10
+    gemm = (_kernels.CSRC / "gemm_wgmma.cuh").read_text()
+    assert "kt * GW_BK % p.a_period" in gemm
 
 
 def test_qw_q8_is_a_saturating_int8_epilogue_stored_by_tma():

@@ -10,8 +10,8 @@
 //                stored as f32 or (the int8 chain's bf16 tiles) rounded to bf16.
 //
 // The per-block and chain kernels' bf16 GEMMs run on gemm_wgmma.cuh (wgmma
-// + TMA), the int8 ones on qgemm_wgmma.cuh (K14 alone on quant.cuh's wmma
-// GEMM), and the single-launch encoders on stack_wgmma.cuh's layer loop.
+// + TMA), the int8 ones on qgemm_wgmma.cuh, and the single-launch encoders
+// on stack_wgmma.cuh's layer loop.
 // Everything lives in the namespace VFT_NS, which each
 // translation unit defines before including this header: each gets its own
 // copy of the kernels, under a name that tells the launch sites apart in a
@@ -22,7 +22,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -34,7 +33,6 @@
 namespace VFT_NS {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 __host__ __device__ inline size_t round128(size_t x) { return (x + 127) & ~size_t(127); }
 
@@ -71,6 +69,22 @@ __device__ __forceinline__ float act_rn(float h, int act) {
   const float u = __fmul_rn(h, __fadd_rn(0.7978845608028654f, __fmul_rn(0.035677408136300125f, h2)));
   const float hh = __fmul_rn(0.5f, h);
   return __fadd_rn(hh, __fmul_rn(hh, tanhf(u)));
+}
+
+// Activation code of the fused linear's textbook tanh-GELU,
+// jax.nn.gelu(approximate=True): h * 0.5 * (1 + tanh(c * (h + 0.044715 h^3))).
+// The int8 blocks (K15) take the fma form, ACT_GELU_TANH.
+constexpr int ACT_GELU_TANH_JAX = 5;
+
+// K14's activation (qgemm_wgmma.cuh's QW_ACT): the textbook tanh-GELU with
+// each step rounded, as jax.nn.gelu's ops are, else apply_act.
+__device__ __forceinline__ float qact(float h, int act) {
+  if (act == ACT_GELU_TANH_JAX) {
+    const float h3 = __fmul_rn(__fmul_rn(h, h), h);
+    const float u = __fmul_rn(0.7978846f, __fadd_rn(h, __fmul_rn(0.044715f, h3)));
+    return __fmul_rn(h, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(u))));
+  }
+  return apply_act(h, act);
 }
 
 // act(h) * s with the static scale folded into the emission constants, in

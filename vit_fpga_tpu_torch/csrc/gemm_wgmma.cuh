@@ -2,9 +2,10 @@
 // K4's QKV and out-projection GEMMs in attn_half.cuh, K2's two in
 // mlp_stats.cu, K5's in mlp.cu, K3's in mlp_chunk_stats.cu, K26's bf16
 // product in streamed_gemm.cu, K6's in mlp_chunk.cu, K24's in mlp_bwd.cu:
-// three on gw_kernel, two in gf_kernel; K23's five in attn_bwd.cu; and
-// gw_issue alone, on 64-column items, in stack_wgmma.cuh's bf16 layer:
-// K12); include after common.cuh and hopper.cuh.
+// three on gw_kernel, two in gf_kernel; K23's five in attn_bwd.cu; K10's
+// split f32 product in patch_embed.cu; and gw_issue alone, on 64-column
+// items, in stack_wgmma.cuh's bf16 layer: K12); include after common.cuh
+// and hopper.cuh.
 //
 //   C = epilogue(prologue(A) @ B), A (M, K) and B (K, N) bf16 row-major,
 //   C (M, N) bf16, f32 accumulation:
@@ -30,14 +31,19 @@
 //                token rows.  Each consumer's 64 rows of a K step are one
 //                64 x 64 swizzle atom (one TMA box), read through wgmma's
 //                transpose bit on A; token rows past K land zero-filled.
-//   GW_EPI_F32   C32 = acc in f32, stored from the accumulator registers
-//                (eight lanes a 32-byte row segment).  p.splits > 1 splits
+//   GW_EPI_F32   C32 = acc (+ bias, with one split: K10) in f32, stored
+//                from the accumulator registers (eight lanes a 32-byte row
+//                segment).  p.splits > 1 splits
 //                the K steps of every tile into that many near-equal
 //                ranges, one work unit each, so that a product of few tiles
 //                (a weight gradient: 72 tiles for 132 SMs) fills the card;
 //                unit s writes its partial sum to C32 + s M N, and
 //                launch_split_sum adds the partials in split order (no
 //                atomics: the same bits from run to run).
+//   a_period     (K10) A (M, a_cols) is read K / a_period times over: K
+//                step kt loads A's columns from (kt * 64) % a_period, so
+//                A' = [A | A | A] multiplies a B stacked of three planes
+//                without a copy of A; the columns past a_cols land zero.
 //
 // Design (one persistent block per SM walking 128 x 256 output tiles, N
 // fastest): a producer warpgroup gives its registers up (setmaxnreg 40) and
@@ -102,6 +108,7 @@ struct GwArgs {
   int chunk_k;             // K extent of a chunk (a multiple of 32); 0: one chunk
   float* C32;              // GW_EPI_F32: (splits, M, N) f32
   int splits;              // GW_EPI_F32: K ranges a tile is split into (>= 1)
+  int a_cols, a_period;    // A (M, a_cols) read K / a_period times over; 0: A is (M, K)
 };
 
 // This thread's four 16-byte chunks of its warpgroup's 64 rows in a landed
@@ -211,16 +218,20 @@ __device__ __forceinline__ void gw_store_f32(const float (&acc)[GW_BN / 2], cons
                                              int row0, int n0, int ks, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
   float* c = p.C32 + (size_t)ks * p.M * p.N;
+  const bool bias = p.bias != nullptr;  // one split only: f = acc + bias[col]
 #pragma unroll
   for (int j = 0; j < GW_BN / 8; ++j) {
     const int col = n0 + 8 * j + 2 * t4;
     if (n0 + 8 * j >= p.N) break;  // N is a multiple of 8
+    const float2 bi =
+        bias ? __ldg(reinterpret_cast<const float2*>(p.bias + col)) : make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int row = row0 + g + 8 * rr;
-      if (row < p.M)
-        *reinterpret_cast<float2*>(c + (size_t)row * p.N + col) =
-            make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      if (row >= p.M) continue;
+      float2 v = make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      if (bias) v = make_float2(v.x + bi.x, v.y + bi.y);
+      *reinterpret_cast<float2*>(c + (size_t)row * p.N + col) = v;
     }
   }
 }
@@ -306,7 +317,8 @@ __global__ void __launch_bounds__(GW_THREADS, 1)
             tma_load_2d(a_s, &ta, full(s), m0, kt * GW_BK);
             tma_load_2d(a_s + GW_ATOM_BYTES, &ta, full(s), m0 + 64, kt * GW_BK);
           } else {
-            tma_load_2d(a_s, &ta, full(s), kt * GW_BK, m0);
+            const int ka = p.a_period > 0 ? kt * GW_BK % p.a_period : kt * GW_BK;
+            tma_load_2d(a_s, &ta, full(s), ka, m0);
           }
           if constexpr (LAYOUT == GW_AK_BK) {  // 256 rows of 64 k: one box
             tma_load_2d(a_s + GW_A_BYTES, &tb, full(s), kt * GW_BK, n0);
@@ -466,7 +478,8 @@ inline cudaError_t gw_enable() {
                               (int)GW_SMEM_BYTES);
 }
 
-// Opts one backward variant (no LN, no chunks) in to its shared memory.
+// Opts one variant without LN or chunks (the backward's products; K10's
+// two) in to its shared memory.
 template <int LAYOUT, int EPI>
 inline cudaError_t gw_enable_bwd() {
   return cudaFuncSetAttribute(gw_kernel<false, false, LAYOUT, EPI>,
@@ -488,7 +501,10 @@ inline int gw_splits(long long tiles, int nk, int sms) {
 // splits K into chunks of that many columns, a multiple of 32 dividing K.
 // LAYOUT GW_AK_BK reads B stored (N, K), GW_AM_BN A stored (K, M) (M then
 // a multiple of 8 too); EPI GW_EPI_F32 writes p.C32 (p.splits K ranges,
-// 1 <= splits <= the K steps; no bias, act or residual).
+// 1 <= splits <= the K steps; no act or residual, a bias with one split).
+// p.a_period > 0 (the forward's layout, no LN or chunks) reads A as (M,
+// p.a_cols), p.a_cols a multiple of 8 and at most a_period, a multiple of
+// 64 dividing K.
 template <int LAYOUT = GW_AK_BN, int EPI = GW_EPI_BF16>
 inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, const GwArgs& p,
                                      cudaStream_t stream) {
@@ -501,7 +517,12 @@ inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, cons
       (p.chunk_k > 0 && (!fwd || ln || p.act != ACT_NONE || p.chunk_k % 32 || p.K % p.chunk_k)) ||
       (LAYOUT == GW_AM_BN && p.M % 8) ||
       (EPI == GW_EPI_F32 && (p.C32 == nullptr || p.splits < 1 || p.splits > k_steps ||
-                             p.bias != nullptr || p.residual != nullptr || p.act != ACT_NONE)))
+                             (p.bias != nullptr && p.splits != 1) || p.residual != nullptr ||
+                             p.act != ACT_NONE)) ||
+      p.a_period < 0 ||
+      (p.a_period > 0 && (LAYOUT != GW_AK_BN || ln || p.chunk_k > 0 || p.a_period % GW_BK ||
+                          p.K % p.a_period || p.a_cols < 8 || p.a_cols % 8 ||
+                          p.a_cols > p.a_period)))
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
   if (misaligned(A) || misaligned(B) || (p.C != nullptr && misaligned(p.C)) ||
@@ -511,6 +532,7 @@ inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, cons
               (reinterpret_cast<uintptr_t>(p.stats) & 7) != 0)) ||
       (EPI == GW_EPI_F32 && misaligned(p.C32)))
     return cudaErrorMisalignedAddress;
+  const int a_k = p.a_period > 0 ? p.a_cols : p.K;  // A's columns
   int dev = 0, sms = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -521,7 +543,7 @@ inline cudaError_t launch_gemm_wgmma(const bf16* A, const bf16* B, bool ln, cons
   // boxes; B: (K, N) MN-major in 64 x 64 boxes, or (N, K) K-major in boxes
   // of 256 rows.
   const bool am = LAYOUT == GW_AM_BN, bk = LAYOUT == GW_AK_BK;
-  const cuuint64_t a_dims[2] = {(cuuint64_t)(am ? p.M : p.K), (cuuint64_t)(am ? p.K : p.M)};
+  const cuuint64_t a_dims[2] = {(cuuint64_t)(am ? p.M : a_k), (cuuint64_t)(am ? p.K : p.M)};
   const cuuint64_t a_strides[1] = {(cuuint64_t)a_dims[0] * 2};
   const cuuint32_t a_box[2] = {GW_BK, am ? 64u : (cuuint32_t)GW_BM};
   const cuuint64_t b_dims[2] = {(cuuint64_t)(bk ? p.K : p.N), (cuuint64_t)(bk ? p.N : p.K)};

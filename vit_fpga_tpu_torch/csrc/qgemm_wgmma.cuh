@@ -1,5 +1,6 @@
-// The int8 GEMM on Hopper's own units (int8_gemm.cu K13); include after
-// common.cuh and hopper.cuh.
+// The int8 GEMM on Hopper's own units (int8_gemm.cu K13, and every int8
+// GEMM of K14-K18, K21a, K21b and K22); include after common.cuh and
+// hopper.cuh.
 //
 //   C = A B^T, A (M, K) and B (N, K) int8, both row-major (K-major: the
 //   layout 8-bit wgmma reads, which has no transpose bit), C (M, N) int32,
@@ -36,21 +37,24 @@
 // tiles are written from the accumulator registers by masked stores, an
 // epilogue of the same kernel (QW_STORE_REGS), not a fallback.
 //
-// K15 (mlp_int8.cu), K21a (mlp_int8_stats.cu), K16 (attn_int8.cu), K21b
-// (attn_int8_stats.cu), K18 (attn_int8_static.cu), K17
-// (mlp_int8_static.cu) and K22 (attn_int8_scores.cu) run their GEMMs on
-// this kernel, with dequantizing epilogues over the same accumulator tile
-// (QwEpi, qw_epilogue): f = float(acc) * (sa[row] * sb[col]) + bias[col] in
-// IEEE operations, in the order of quant.cuh's epilogue, a null sa a row
-// scale of 1.0 (the static scales are folded into sb: 1.0f * sb == sb
+// K14 (quant_linear.cu), K15 (mlp_int8.cu), K21a (mlp_int8_stats.cu), K16
+// (attn_int8.cu), K21b (attn_int8_stats.cu), K18 (attn_int8_static.cu),
+// K17 (mlp_int8_static.cu) and K22 (attn_int8_scores.cu) run their GEMMs
+// on this kernel, with dequantizing epilogues over the same accumulator
+// tile (QwEpi, qw_epilogue): f = float(acc) * (sa[row] * sb[col]) +
+// bias[col] in IEEE operations, in the plain versions' order, a null sa a
+// row scale of 1.0 (the static scales are folded into sb: 1.0f * sb == sb
 // exactly); K15's W1 then h = act(f) in f32 with the tile's row absmax of
 // h in parts[col tile][row]; W2 and the out-projections out = residual +
 // bf16(f), added in f32 and rounded once, in bf16; the bf16 QKV bf16(f);
 // the static int8 outputs (K17's W1 hq, K22's q | k | v panel) int8
 // clip(rint(act(f) * qscale), -127, 127) with the static scale folded into
-// the activation (qact_scaled), saturating.  The sums pass through the
-// staging buffers, whose 64 rows of 128 bytes serve every element size.
-// K14 alone stays on quant.cuh's GEMM.
+// the activation (qact_scaled), saturating; K14's fused linear act(f) in
+// bf16 or f32 (QW_ACT), with its textbook tanh-GELU (qact), at any N: the
+// columns past a ragged N are left out by TMA, and where the output's row
+// stride is not a multiple of 16 bytes the thread's results go from the
+// registers to device memory, masked.  The sums pass through the staging
+// buffers, whose 64 rows of 128 bytes serve every element size.
 
 #pragma once
 
@@ -63,7 +67,8 @@ enum QwEpi {
   QW_H = 2,           // K15's W1: f32 h = act(f) by TMA, the tile's row absmax to parts
   QW_RESID = 3,       // W2 and the out-projections: bf16 residual + bf16(f) by TMA
   QW_BF16 = 4,        // the int8 attention halves' QKV: bf16(f) by TMA
-  QW_Q8 = 5           // the static int8 outputs: rint_sat(qact_scaled(f)) by TMA
+  QW_Q8 = 5,          // the static int8 outputs: rint_sat(qact_scaled(f)) by TMA
+  QW_ACT = 6          // K14: act(f) in bf16 or f32, by TMA or from the registers
 };
 
 constexpr int QW_BM = 128;         // rows per tile: two consumer warpgroups of 64
@@ -101,6 +106,11 @@ struct QwArgs {
   float* parts;          // QW_H: (col tiles, M) each tile's row absmax of h
   int act;
   float qscale;          // QW_Q8: the static output scale, folded into act
+  // QW_ACT: the output is f32 (else bf16); y_regs (set by the launch where
+  // the row stride is not a multiple of 16 bytes) stores it through y from
+  // the registers instead of by TMA
+  int y_f32, y_regs;
+  void* y;
 };
 
 // Issues acc += A_stage B_stage^T over one K step of 128 as one wgmma group
@@ -191,7 +201,7 @@ __device__ __forceinline__ void qw_raw_piece(const uint32_t (&acc)[BN / 2], int 
   }
 }
 
-// The dequantizing epilogues (QW_H, QW_RESID, QW_BF16, QW_Q8) over the consumer
+// The dequantizing epilogues (QW_H, QW_RESID, QW_BF16, QW_Q8, QW_ACT) over the consumer
 // warpgroup's 64 x BN tile at {n0, row0}, f = float(acc) * (sa[row] *
 // sb[col]) + bias[col].
 // Computed in the registers over the unrolled tile, the 128 values a
@@ -209,9 +219,11 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
                                             const QwArgs& p, int row0, int n0, unsigned char* buf,
                                             uint32_t buf_s, int wg, int wt) {
   static_assert(QwShape<BN>::EPI_BUFS >= 2, "a raw piece and an output piece");
-  constexpr bool H = EPI == QW_H;
+  constexpr bool H = EPI == QW_H, A = EPI == QW_ACT;
   constexpr int EB = H ? 4 : EPI == QW_Q8 ? 1 : 2;  // f32 h, int8 hq, bf16 out
-  constexpr int PPO = 128 / EB / QW_EPI_COLS;  // raw pieces an output piece
+  const int eb = A && p.y_f32 ? 4 : EB;             // QW_ACT's f32 out
+  const bool regs = A && p.y_regs;
+  const int ppo = 128 / eb / QW_EPI_COLS;  // raw pieces an output piece
   unsigned char* raw = buf;
   unsigned char* out = buf + QW_EPI_BYTES;
   const int rl = wt >> 1, half = wt & 1, row = row0 + rl, sw = rl & 7;
@@ -220,22 +232,34 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
   float rmax = 0.0f;
 #pragma unroll 1
   for (int pc = 0; pc < BN / QW_EPI_COLS; ++pc) {
-    const int c0 = n0 + QW_EPI_COLS * pc, po = pc % PPO;
+    const int c0 = n0 + QW_EPI_COLS * pc, po = pc % ppo;
     if (c0 >= p.N) break;
     // the store that read the output piece last is done with it
     if (po == 0 && wt == 0) bulk_wait_read<0>();
     qw_raw_piece<BN>(acc, pc, raw, wt);
     named_barrier(1 + wg, 128);
-    const int cb = c0 + 16 * half;  // N % 16 == 0: the thread's 16 columns all in or all out
+    // N % 16 == 0 (all but QW_ACT): the thread's 16 columns all in or all out
+    const int cb = c0 + 16 * half;
     // four consecutive columns of the thread's 16, k of 4
     auto four = [&](int k) {
       const int c = cb + 4 * k;
+      if (A && c >= p.N) return;  // QW_ACT's ragged N: nothing to compute or store
       const uint4 a4 =
           *reinterpret_cast<const uint4*>(raw + rl * 128 + (((4 * half + k) ^ sw) << 4));
-      const float4 sc = __ldg(reinterpret_cast<const float4*>(p.sb + c));
-      const float4 bi = __ldg(reinterpret_cast<const float4*>(p.bias + c));
       const int a[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
-      const float scv[4] = {sc.x, sc.y, sc.z, sc.w}, biv[4] = {bi.x, bi.y, bi.z, bi.w};
+      float scv[4], biv[4];
+      if (!A || c + 4 <= p.N) {
+        const float4 sc = __ldg(reinterpret_cast<const float4*>(p.sb + c));
+        const float4 bi = __ldg(reinterpret_cast<const float4*>(p.bias + c));
+        scv[0] = sc.x, scv[1] = sc.y, scv[2] = sc.z, scv[3] = sc.w;
+        biv[0] = bi.x, biv[1] = bi.y, biv[2] = bi.z, biv[3] = bi.w;
+      } else {  // the last columns of a ragged N
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          scv[e] = c + e < p.N ? __ldg(p.sb + c + e) : 0.0f;
+          biv[e] = c + e < p.N ? __ldg(p.bias + c + e) : 0.0f;
+        }
+      }
       float f[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -246,10 +270,29 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
         }
       }
       // the four values' place in the output piece (128-byte swizzled rows)
-      const int off = (QW_EPI_COLS * po + 16 * half + 4 * k) * EB;
+      const int off = (QW_EPI_COLS * po + 16 * half + 4 * k) * eb;
       unsigned char* dst = out + rl * 128 + (((off >> 4) ^ sw) << 4) + (off & 15);
       if constexpr (H) {
         *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+      } else if constexpr (A) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = qact(f[e], p.act);
+        if (regs) {  // masked stores of the thread's own values
+          const size_t o = (size_t)row * p.N + c;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c + e >= p.N) break;
+            if (p.y_f32)
+              static_cast<float*>(p.y)[o + e] = f[e];
+            else
+              static_cast<bf16*>(p.y)[o + e] = __float2bfloat16(f[e]);
+          }
+        } else if (p.y_f32) {
+          *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+        } else {
+          *reinterpret_cast<uint2*>(dst) =
+              make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+        }
       } else if constexpr (EPI == QW_Q8) {
         // clip(rint(act(f) * qscale)), in the order of the former int8
         // epilogue of quant.cuh's GEMM: saturated at +-127, never wrapped
@@ -267,7 +310,7 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
         *reinterpret_cast<uint2*>(dst) =
             make_uint2(pack_bf16x2(x01.x + bf16_round(f[0]), x01.y + bf16_round(f[1])),
                        pack_bf16x2(x23.x + bf16_round(f[2]), x23.y + bf16_round(f[3])));
-      } else {  // bf16(f) (quant.cuh's EPI_PLAIN without an activation)
+      } else {  // bf16(f)
         *reinterpret_cast<uint2*>(dst) =
             make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
       }
@@ -276,8 +319,9 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
       // QW_H rolled: unrolled, its 16 inlined activations and row maxima
       // held enough registers beside the 256-wide tile's sums that ptxas
       // spilled 8 bytes; QW_Q8 unrolled spills nothing and its W1 runs 6%
-      // faster than rolled (PERF.md)
-      if constexpr (H) {
+      // faster than rolled (PERF.md); QW_ACT, with QW_H's inlined
+      // activations and two output kinds, rolled as QW_H
+      if constexpr (H || A) {
 #pragma unroll 1
         for (int k = 0; k < 4; ++k) four(k);
       } else {
@@ -287,7 +331,8 @@ __device__ __forceinline__ void qw_epilogue(const uint32_t (&acc)[BN / 2], const
     }
     fence_proxy_async();         // the output piece, before the store reads it
     named_barrier(1 + wg, 128);  // and the raw piece is read: the next may come
-    if (wt == 0 && (po == PPO - 1 || c0 + QW_EPI_COLS >= p.N || pc + 1 == BN / QW_EPI_COLS)) {
+    if (!regs && wt == 0 &&
+        (po == ppo - 1 || c0 + QW_EPI_COLS >= p.N || pc + 1 == BN / QW_EPI_COLS)) {
       tma_store_2d(tc, buf_s + QW_EPI_BYTES, c0 - QW_EPI_COLS * po, row0);
       bulk_commit();
     }
@@ -527,39 +572,57 @@ inline cudaError_t launch_qgemm_wgmma(const signed char* a, const signed char* b
 
 // The dequantizing GEMMs on `stream`: a (M, K) and bt (N, K) int8
 // row-major into out through epilogue EPI: QW_H f32 h (M, N), QW_RESID and
-// QW_BF16 bf16 (M, N), QW_Q8 int8 (M, N); p carries M, N, K and the
-// epilogue's operands: sa (null: a row scale of 1.0), sb, bias, and parts
-// of qgemm_wgmma_col_tiles(N) x M floats (QW_H), the residual (QW_RESID)
-// or act and qscale (QW_Q8; QW_H takes act too).  N and K multiples of 16,
-// a, bt and out 16-byte aligned.
+// QW_BF16 bf16 (M, N), QW_Q8 int8 (M, N), QW_ACT f32 (p.y_f32) or bf16 (M,
+// N); p carries M, N, K and the epilogue's operands: sa (null: a row scale
+// of 1.0), sb, bias, and parts of qgemm_wgmma_col_tiles(N) x M floats
+// (QW_H), the residual (QW_RESID) or act and qscale (QW_Q8; QW_H and
+// QW_ACT take act too).  K a multiple of 16, N too but with QW_ACT (N >=
+// 1), a, bt and out 16-byte aligned, and with QW_ACT sb and bias too.
 template <int EPI>
 inline cudaError_t launch_qgemm_epi(const signed char* a, const signed char* bt, void* out,
                                     const QwArgs& p, cudaStream_t stream) {
-  static_assert(EPI == QW_H || EPI == QW_RESID || EPI == QW_BF16 || EPI == QW_Q8,
+  static_assert(EPI == QW_H || EPI == QW_RESID || EPI == QW_BF16 || EPI == QW_Q8 ||
+                    EPI == QW_ACT,
                 "the dequantizing epilogues");
-  if (p.N % 16 || p.sb == nullptr || p.bias == nullptr ||
+  if ((EPI != QW_ACT && p.N % 16) || p.sb == nullptr || p.bias == nullptr ||
       (EPI == QW_RESID && p.residual == nullptr) || (EPI == QW_H && p.parts == nullptr))
     return cudaErrorInvalidValue;
+  if (EPI == QW_ACT && (qw_misaligned(p.sb) || qw_misaligned(p.bias)))
+    return cudaErrorMisalignedAddress;
   CUtensorMap ta, tb, tc;
   int sms = 0;
   // W2's 768 columns (ViT-B) make 3 tiles of 256 a row block, 2.3 waves of
-  // 300 tiles on 132 SMs at b64: 128-wide tiles even them out (PERF.md)
-  const int bn = EPI == QW_RESID ? 128 : qgemm_wgmma_tile_n(p.N);
+  // 300 tiles on 132 SMs at b64: 128-wide tiles even them out (PERF.md).
+  // K14 (QW_ACT) too at every shape it runs: timed both ways on the H100,
+  // 128 won at the per-linear route's (8208, 768) x 2304 and x 3072 by
+  // 10% and 5% (the activation epilogue sets their pace, and twice the
+  // tiles spread it), at its x 768 by 22%, (8208, 3072) x 768 by 12% and
+  // the heads' (64, 768) x 1000 by 41%, and lost nowhere (PERF.md).
+  const int bn = EPI == QW_RESID || EPI == QW_ACT ? 128 : qgemm_wgmma_tile_n(p.N);
   cudaError_t err = qw_prepare(a, bt, p.M, p.N, p.K, bn, &ta, &tb, &sms);
   if (err != cudaSuccess) return err;
   // out: 64 rows x 128 bytes a box, the staging pieces' geometry
   if (qw_misaligned(out)) return cudaErrorMisalignedAddress;
-  const int eb = EPI == QW_H ? 4 : EPI == QW_Q8 ? 1 : 2;
+  const int eb = EPI == QW_H || (EPI == QW_ACT && p.y_f32) ? 4 : EPI == QW_Q8 ? 1 : 2;
+  QwArgs q = p;
+  // QW_ACT: a row stride TMA cannot take (bf16 with N % 8 != 0, f32 with N %
+  // 4 != 0) is stored from the registers
+  q.y_regs = EPI == QW_ACT && (p.N * eb) % 16 != 0;
+  q.y = out;
   const cuuint64_t dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.M};
   const cuuint64_t strides[1] = {(cuuint64_t)p.N * eb};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / eb), 64};
-  const bool encoded =
-      EPI == QW_Q8 ? tma_encode_s8(&tc, out, 2, dims, strides, box)
-                   : tma_encode(&tc, EPI == QW_H ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                out, 2, dims, strides, box);
-  if (!encoded) return cudaErrorInvalidValue;
-  return qw_launch_n<EPI>(bn, ta, tb, tc, p, sms, stream);
+  if (q.y_regs) {
+    tc = ta;  // never read
+  } else {
+    const bool encoded =
+        EPI == QW_Q8 ? tma_encode_s8(&tc, out, 2, dims, strides, box)
+                     : tma_encode(&tc, eb == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                  out, 2, dims, strides, box);
+    if (!encoded) return cudaErrorInvalidValue;
+  }
+  return qw_launch_n<EPI>(bn, ta, tb, tc, q, sms, stream);
 }
 
 }  // namespace VFT_NS

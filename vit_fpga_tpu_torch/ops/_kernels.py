@@ -129,7 +129,8 @@ _SIGNATURES = {
     "vft_attn_int8_scores_init": ([], ctypes.c_int),
     "vft_attn_block_int8_scores": ([_P] * 13 + [_I] * 5 + [_F] * 3 + [_P],
                                    ctypes.c_int),
-    "vft_patch_embed": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int),
+    "vft_patch_embed_init": ([], ctypes.c_int),
+    "vft_patch_embed": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "vft_streamed_gemm_init": ([], ctypes.c_int),
     "vft_streamed_gemm": ([_P] * 3 + [_I] * 4 + [_P], ctypes.c_int),
     "vft_error_string": ([_I], ctypes.c_char_p),
@@ -144,7 +145,8 @@ _INITS = ("vft_attn_init", "vft_mlp_init", "vft_attn_block_init",
           "vft_mlp_chunk_init", "vft_vit_full_init", "vft_vit_full_int8_init",
           "vft_mlp_chunk_blk_init", "vft_mha_init", "vft_flash_init",
           "vft_mlp_int8_stats_init", "vft_attn_int8_stats_init",
-          "vft_attn_int8_scores_init", "vft_streamed_gemm_init")
+          "vft_attn_int8_scores_init", "vft_patch_embed_init",
+          "vft_streamed_gemm_init")
 
 
 def _nvcc() -> str:

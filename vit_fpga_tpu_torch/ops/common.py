@@ -67,6 +67,12 @@ def kernel_operand(t: torch.Tensor, shape: tuple, dtype: torch.dtype,
     return t.to(dtype).contiguous()
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where its data starts 16-byte aligned (the kernels' vector
+    loads and TMA read it so), else a copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check_activation(t: torch.Tensor, shape: tuple, dtype: torch.dtype,
                      name: str) -> None:
     """An activation a kernel reads in place: exact shape, dtype, layout."""

@@ -14,7 +14,12 @@ ops/patch_embed.py).
 * :func:`patch_embed_pallas` -- the wrapper of K10 (``csrc/patch_embed.cu``,
   replaces ``vit_fpga_tpu/ops/patch_embed.py:_pe_kernel``): a CPU tensor
   runs :func:`patch_embed_plain`, a CUDA tensor launches the kernel or
-  raises.  Like the JAX package, no serving path calls it.
+  raises.  Like the JAX package, no serving path calls it.  On the card
+  the f32 products run on the tensor cores in bf16, exactly: each weight
+  is split into three bf16 pieces (:func:`split_pieces`), the images are
+  patchified into bf16 rows (:func:`patchify_padded`) and one bf16 GEMM
+  sums pixel x piece over the three planes in f32
+  (:func:`patch_embed_split_plain` is that arithmetic in plain PyTorch).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .common import aligned16
 
 
 def fold_preprocess(kernel: np.ndarray, bias: np.ndarray,
@@ -100,6 +106,8 @@ def embed_tokens_dotg(images: torch.Tensor, kernel: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+# bf16's least normal magnitude (f32's): a smaller piece is a subnormal
+_BF16_TINY = 2.0 ** -126
 
 
 def _pe_geometry(images_u8, kernel_f, bias_f, patch, out_dtype):
@@ -142,6 +150,65 @@ def patch_embed_plain(images_u8: torch.Tensor, kernel_f: torch.Tensor,
     return out.to(out_dtype).reshape(b, gh * gw, d)
 
 
+def split_pieces(kernel_f: torch.Tensor):
+    """The f32 weights as three bf16 pieces, K10's split: ``hi = bf16(w)``,
+    ``mid = bf16(w - hi)``, ``lo = bf16(w - hi - mid)``, each subtraction
+    exact in f32, so that ``hi + mid + lo == w`` wherever 24 significant
+    bits fit in three pieces of 8.  Returns ``(lo, mid, hi, exact)``,
+    ``exact`` False where a weight is not their exact sum or a nonzero
+    piece is below bf16's least normal magnitude (the kernel refuses
+    such weights; the tensor cores may flush subnormals)."""
+    w = kernel_f.float()
+    hi = w.to(torch.bfloat16)
+    r1 = w - hi.float()
+    mid = r1.to(torch.bfloat16)
+    r2 = r1 - mid.float()
+    lo = r2.to(torch.bfloat16)
+    exact = lo.float() == r2
+    for piece in (hi, mid, lo):
+        f = piece.float().abs()
+        exact &= (f == 0) | (f >= _BF16_TINY)
+    return lo, mid, hi, exact
+
+
+def patchify_padded(images_u8: torch.Tensor, patch: int) -> torch.Tensor:
+    """K10's patchify pass: uint8 (B, H, W, 3) -> (B * gh * gw, Kp) bf16
+    rows in (py, px, c) order, K = P * P * 3 padded with zero columns to
+    Kp, a multiple of 8 (the 16-byte row stride TMA reads).  Pixels are
+    exact in bf16 (0..255 take 8 significant bits)."""
+    b, h, w, _ = images_u8.shape
+    gh, gw, k = h // patch, w // patch, patch * patch * 3
+    kp = -(-k // 8) * 8
+    rows = (images_u8.reshape(b, gh, patch, gw, patch * 3)
+            .permute(0, 1, 3, 2, 4).reshape(b * gh * gw, k))
+    a = torch.zeros((b * gh * gw, kp), dtype=torch.bfloat16,
+                    device=images_u8.device)
+    a[:, :k] = rows.to(torch.bfloat16)
+    return a
+
+
+def patch_embed_split_plain(images_u8: torch.Tensor, kernel_f: torch.Tensor,
+                            bias_f: torch.Tensor, patch: int,
+                            out_dtype: torch.dtype = torch.bfloat16
+                            ) -> torch.Tensor:
+    """K10's arithmetic on the card in plain PyTorch: the patchified bf16
+    rows times each bf16 piece of the split weights, every product exact
+    in f32, summed in f32 with the small pieces first; then the bias,
+    rounded once to ``out_dtype``.  Raises where the split is not exact."""
+    b, h, w, d = _pe_geometry(images_u8, kernel_f, bias_f, patch, out_dtype)
+    lo, mid, hi, exact = split_pieces(kernel_f)
+    if not bool(exact.all()):
+        raise ValueError(f"{int((~exact).sum())} weights are not the exact "
+                         f"sum of three normal bf16 pieces")
+    k = patch * patch * 3
+    a = patchify_padded(images_u8, patch)[:, :k].float()
+    acc = a @ lo.float()
+    acc = acc + a @ mid.float()
+    acc = acc + a @ hi.float()
+    out = acc + bias_f.float()
+    return out.to(out_dtype).reshape(b, (h // patch) * (w // patch), d)
+
+
 def patch_embed_pallas(images_u8: torch.Tensor, kernel_f: torch.Tensor,
                        bias_f: torch.Tensor, patch: int,
                        out_dtype: torch.dtype = torch.bfloat16
@@ -149,8 +216,10 @@ def patch_embed_pallas(images_u8: torch.Tensor, kernel_f: torch.Tensor,
     """uint8 (B, H, W, 3) images + folded f32 (P*P*3, D) kernel and (D,)
     bias -> (B, (H/P)*(W/P), D) tokens in ``out_dtype`` (bf16 or f32),
     every sum in f32.  The JAX name is kept so that a caller ports.  A CPU
-    tensor runs :func:`patch_embed_plain`; a CUDA tensor launches K10 or
-    raises."""
+    tensor runs :func:`patch_embed_plain`; a CUDA tensor launches K10 (D a
+    multiple of 8) or raises, also where a weight is not the exact sum of
+    its three bf16 pieces (:func:`split_pieces`), which it learns by
+    reading one count back from the card after the launch."""
     if images_u8.device.type == "cpu":
         return patch_embed_plain(images_u8, kernel_f, bias_f, patch,
                                  out_dtype)
@@ -161,19 +230,33 @@ def patch_embed_pallas(images_u8: torch.Tensor, kernel_f: torch.Tensor,
     for t, name in ((kernel_f, "kernel_f"), (bias_f, "bias_f")):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, images on {dev}")
+    if d % 8:
+        raise ValueError(f"K10 needs D divisible by 8 (TMA's 16-byte rows), "
+                         f"got D={d}")
     img = images_u8.contiguous()
-    kf = kernel_f.to(torch.float32).contiguous()
-    bf = bias_f.to(torch.float32).contiguous()
+    kf = aligned16(kernel_f.to(torch.float32).contiguous())
+    bf = aligned16(bias_f.to(torch.float32).contiguous())
+    rows, k = b * (h // patch) * (w // patch), patch * patch * 3
+    kp = -(-k // 8) * 8
+    kq = -(-kp // 64) * 64                    # a plane: the GEMM's 64-deep steps
     out = torch.empty((b, (h // patch) * (w // patch), d), dtype=out_dtype,
                       device=dev)
+    planes = torch.empty((3 * kq, d), dtype=torch.bfloat16, device=dev)
+    a = torch.empty((rows, kp), dtype=torch.bfloat16, device=dev)
+    inexact = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
         err = lib.vft_patch_embed(img.data_ptr(), kf.data_ptr(),
-                                  bf.data_ptr(), out.data_ptr(), b, h, w,
-                                  patch, d, int(out_dtype == torch.bfloat16),
-                                  stream)
+                                  bf.data_ptr(), out.data_ptr(),
+                                  planes.data_ptr(), a.data_ptr(),
+                                  inexact.data_ptr(), b, h, w, patch, d,
+                                  int(out_dtype == torch.bfloat16), stream)
     _kernels.check(err, "patch_embed")
     patch_embed_pallas.launches += 1
+    bad = int(inexact.item())
+    if bad:
+        raise ValueError(f"patch_embed: {bad} weights of kernel_f are not "
+                         f"the exact sum of three normal bf16 pieces")
     return out
 
 

@@ -15,9 +15,12 @@ tensor:
 Bound on the H100 at the ViT-B/16 head (T = 64 rows, K = 768, N = 1000):
 0.1 G int8 operations against the 0.77 MB int8 weight read once, so it
 is bound by bytes (about 0.3 us at 3.35 TB/s) and in practice by launch
-latency.  Design: a row pass quantizes the activations into device
-memory, then the shared wmma int8 GEMM (``csrc/quant.cuh``) reads the
-weight transposed, (N, K) k-contiguous, and dequantizes in its epilogue.
+latency; on the per-linear int8 route at ViT-B/16 @1024 (8208 rows at b2)
+by its int8 operations.  Design: a row pass quantizes the activations
+into device memory, then the int8 wgmma + TMA GEMM of
+``csrc/qgemm_wgmma.cuh`` reads the weight transposed, (N, K)
+k-contiguous, and dequantizes and applies the activation in its
+epilogue (``QW_ACT``).
 
 The weights are int8 per output column (:func:`quantize_weight_colwise`),
 the activations int8 per row with scales computed at run time.  Every
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .common import check_activation, kernel_operand
+from .common import aligned16, check_activation, kernel_operand
 
 QMAX = 127.0
 
@@ -153,8 +156,8 @@ def int8_linear_fused(x, wq, ws, bias, act: str = "none", ln_scale=None,
     dev = x.device
     f32 = torch.float32
     wt = weight_kmajor(wq, (k, n), dev, "wq")
-    ws = kernel_operand(ws, (n,), f32, dev, "ws")
-    bias = kernel_operand(bias, (n,), f32, dev, "bias")
+    ws = aligned16(kernel_operand(ws, (n,), f32, dev, "ws"))
+    bias = aligned16(kernel_operand(bias, (n,), f32, dev, "bias"))
     ln = ln_eps > 0.0
     if ln:
         ls = kernel_operand(

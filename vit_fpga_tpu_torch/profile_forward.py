@@ -93,12 +93,13 @@ UNEXPECTED = "unexpected:"
 # attn_int8::, mlp_int8_stats::, attn_int8_stats::, attn_int8_static::,
 # mlp_int8_static:: or attn_int8_scores:: record but K16's, K21a's, K21b's,
 # K18's, K17's and K22's wgmma launches, row passes and K22's V^T pass),
-# mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.  The
-# wmma int8 GEMM's (qgemm_kernel, K14 alone) template argument is its
-# epilogue (0 plain), the wgmma one's (qgemm_wgmma_kernel, K13, K15-K18,
-# K21a, K21b and K22) its tile width and epilogue (csrc/qgemm_wgmma.cuh
-# QwEpi: 2 f32 h with row maxima, 3 the residual, 4 bf16, 5 int8 with the
-# static scale; the residual takes 128-wide tiles), mha_wgmma_kernel's
+# mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.
+# The int8 GEMM's (qgemm_wgmma_kernel, K13-K18, K21a, K21b and
+# K22) template arguments are its tile width and epilogue
+# (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the residual, 4
+# bf16, 5 int8 with the static scale, 6 K14's activation in bf16 or f32;
+# the residual takes 128-wide tiles; any other quant_linear:: record, such
+# as the wmma GEMM K14 ran before, is unexpected), mha_wgmma_kernel's
 # its mode (1 max-free, 2 safe) and whether it writes int8 (true: K18's
 # static aoq), quant_rows_kernel's second one its LayerNorm (0
 # none, 1 one-pass, 2 two-pass, 3 from the producer's stats).  The first
@@ -110,8 +111,9 @@ STAGES = (
     ("vit_stack_int8::", "K19a int8 encoder, one launch"),
     ("vit_stack::", "K11 bf16 encoder, one launch"),
     ("quant_linear::quant_rows_kernel", "K14 (a) [LN] + row quant"),
-    ("quant_linear::qgemm_kernel", "K14 (b) int8 GEMM + dequant + act"),
-    ("quant_linear::", "K14 other"),
+    ("quant_linear::qgemm_wgmma_kernel<128,6>",
+     "K14 (b) int8 GEMM + dequant + act"),
+    ("quant_linear::", f"{UNEXPECTED} K14"),
     ("mlp_int8::quant_rows_kernel", "K15 (a) LN + row quant"),
     ("mlp_int8::qgemm_wgmma_kernel<256,2>",
      "K15 (b) int8 W1 GEMM + act, f32 h + row max"),
