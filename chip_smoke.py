@@ -90,7 +90,10 @@ Phases, each of which raises on failure (exit code != 0):
  12. dense    the NetAbstract backend: K25 (filter_image_device) with each
               filter and K13 (int8_gemm) against their plain versions bit
               for bit (K25 also against filter_image_numpy) at 1080 x 1920,
-              33 x 45, 1 x 1 and at (10000, 784) x 256, (10000, 256) x 10,
+              33 x 45, 1 x 1, 2160 x 3840, 1081 x 1920 (a ragged last
+              strip), 1080 x 1921, 17 x 16, 1 x 4096, 4096 x 1 and a 1080 x
+              1920 frame at storage offset 1, each with the chunk it took
+              (16 bytes or 1), and at (10000, 784) x 256, (10000, 256) x 10,
               (12800, 768) x 3072, 1 x 1 x 1, and (since K13 runs on int8
               wgmma + TMA) at its tiles' edges (M 1 and 129, N 1, 3, 10 and
               1002 that no TMA store takes, N 8 and 128 on 128-wide tiles
@@ -98,7 +101,8 @@ Phases, each of which raises on failure (exit code != 0):
               (12608, 768) x 2304 and (12608, 3072) x 768, and all -128
               operands at K 3072, right after the build; their
               times beside the plain version, torch._int_mm / F.conv2d
-              yardsticks and the bound; NetCUDA 784 -> [256, 10] at batch
+              yardsticks and the bound (K25 at 1080p and 4K, the F.conv2d
+              yardstick per call and device alone); NetCUDA 784 -> [256, 10] at batch
               10 000 against NetCPU (f32, bf16 in bands; int8 bit for bit
               the numpy oracle with 2 K13 launches per forward), 50 SGD
               steps against NetCPU's, get_net_data round trip, int8
@@ -2783,7 +2787,11 @@ K13_EDGES = ((1, 784, 256), (129, 784, 256), (129, 33, 1), (129, 1, 3),
              (300, 784, 10), (257, 200, 1002), (129, 784, 8),
              (300, 784, 128), (12608, 768, 2304), (12608, 3072, 768))
 K13_MINUS_128 = ((200, 3072, 8), (64, 3072, 300))
-K25_SHAPES = ((1080, 1920), (33, 45), (1, 1))
+# K25: the ring's 1080p frame first (timed), 4K, a ragged last strip of
+# rows, widths off the 16-byte chunk, the thinnest frames.
+K25_SHAPES = ((1080, 1920), (33, 45), (1, 1), (2160, 3840), (1081, 1920),
+              (1080, 1921), (17, 16), (1, 4096), (4096, 1))
+K25_TIMED = ((1080, 1920), (2160, 3840))
 DENSE_BATCH = 10000
 # NetCUDA against the NumPy oracle NetCPU at batch 10 000, relative to the
 # largest output: f32 runs the same products with the sums in another
@@ -2807,17 +2815,34 @@ def _frame(rng, h, w):
     return rng.integers(0, 256, (h, w), np.uint8)
 
 
+def _k25_frames(rng):
+    """(label, numpy frame, the frame on the card) at each K25_SHAPES shape,
+    then the 1080p frame viewed at storage offset 1: contiguous, but not
+    16-byte aligned."""
+    for h, w in K25_SHAPES:
+        img = _frame(rng, h, w)
+        yield f"{h}x{w}", img, torch.from_numpy(img).cuda()
+    h, w = K25_SHAPES[0]
+    img = _frame(rng, h, w)
+    buf = torch.empty(h * w + 1, dtype=torch.uint8, device="cuda")
+    dev = buf[1:].view(h, w)
+    dev.copy_(torch.from_numpy(img))
+    yield f"{h}x{w} at storage offset 1", img, dev
+
+
 def phase_dense_kernels():
     """K25 and K13 against their plain versions on the card, bit for bit:
-    K25 with each filter at 1080 x 1920, 33 x 45 and 1 x 1, also against
-    the port's numpy oracle filter_image_numpy; K13 at the dense net's two
-    layers, ViT-B's MLP GEMM and 1 x 1 x 1.  Returns {name: max abs err}."""
+    K25 with each filter at each K25_SHAPES shape and at a 1080p frame at
+    storage offset 1, also against the port's numpy oracle
+    filter_image_numpy, with the chunk each took (16 bytes where W % 16 ==
+    0 and both frames are 16-byte aligned, else 1; both must be taken);
+    K13 at the dense net's two layers, ViT-B's MLP GEMM and 1 x 1 x 1.
+    Returns {name: max abs err}."""
     from vit_fpga_tpu_torch.ops import image_filter as imf
     from vit_fpga_tpu_torch.ops import quant
     rng = np.random.default_rng(60)
-    for h, w in K25_SHAPES:
-        img = _frame(rng, h, w)
-        dev = torch.from_numpy(img).cuda()
+    chunks = set()
+    for label, img, dev in _k25_frames(rng):
         for name in sorted(imf.FILTERS):
             got = imf.filter_image_device(dev, name)
             plain = imf.filter_image_plain(dev, name)
@@ -2825,10 +2850,15 @@ def phase_dense_kernels():
             g = got.cpu().numpy()
             if not (np.array_equal(g, plain.cpu().numpy())
                     and np.array_equal(g, imf.filter_image_numpy(img, name))):
-                raise AssertionError(f"K25 {name} at {h}x{w} differs from "
+                raise AssertionError(f"K25 {name} at {label} differs from "
                                      f"its plain version or the oracle")
-        print(f"parity K25 filter_image_device {h}x{w}: all four filters bit "
-              f"for bit with the plain version and filter_image_numpy")
+        chunk = imf.filter_chunk_bytes(dev, got)
+        chunks.add(chunk)
+        print(f"parity K25 filter_image_device {label}: all four filters bit "
+              f"for bit with the plain version and filter_image_numpy "
+              f"({chunk}-byte chunks)")
+    if chunks != {1, 16}:
+        raise AssertionError(f"K25 took only {sorted(chunks)}-byte chunks")
     gen = _gen(61)
     cases = ([(m, k, n, None) for m, k, n in K13_SHAPES + K13_EDGES]
              + [(m, k, n, -128) for m, k, n in K13_MINUS_128])
@@ -2916,13 +2946,13 @@ def _device_ms(fn, kernel, wrapper, iters=20):
 
 
 def phase_dense_timing():
-    """Times of K13 at its three path shapes and K25 at 1080p: the
-    kernel's device time (``_device_ms``) and its time per call back to
-    back (CUDA events; the wrapper's host time shows there), the plain
-    version, a library yardstick (torch._int_mm on shapes padded to what
-    it takes; F.conv2d in f32 with TF32 off, then round and clip) and the
-    bound.  Returns {name: times} at the main path's shapes (K13: the
-    dense net's first layer)."""
+    """Times of K13 at its three path shapes and K25 at K25_TIMED (1080p,
+    4K): the kernel's device time (``_device_ms``) and its time per call
+    back to back (CUDA events; the wrapper's host time shows there), the
+    plain version, a library yardstick (torch._int_mm on shapes padded to
+    what it takes; F.conv2d in f32 with TF32 off, then round and clip, per
+    call and device alone) and the bound.  Returns {name: times} at the
+    main path's shapes (K13: the dense net's first layer; K25: 1080p)."""
     import torch.nn.functional as F
     from vit_fpga_tpu_torch.ops import image_filter as imf
     from vit_fpga_tpu_torch.ops import quant
@@ -2955,35 +2985,41 @@ def phase_dense_timing():
         out.setdefault("int8_gemm", dict(ms=ms, plain_ms=plain_ms,
                                          library_ms=lib_ms, bound_ms=bound_ms,
                                          bound_by=bound_by))
-    h, w = K25_SHAPES[0]
-    img = torch.from_numpy(_frame(np.random.default_rng(63), h, w)).cuda()
-    taps = torch.from_numpy(imf.FILTERS["sharpen"])[None, None].cuda()
+    rng = np.random.default_rng(63)
+    for h, w in K25_TIMED:
+        img = torch.from_numpy(_frame(rng, h, w)).cuda()
+        taps = torch.from_numpy(imf.FILTERS["sharpen"])[None, None].cuda()
 
-    def library():
-        with torch.backends.cudnn.flags(allow_tf32=False):
-            acc = F.conv2d(img.float()[None, None], taps, padding=1)
-        return torch.clamp(torch.round(acc[0, 0]), 0, 255).to(torch.uint8)
+        def library(img=img, taps=taps):
+            with torch.backends.cudnn.flags(allow_tf32=False):
+                acc = F.conv2d(img.float()[None, None], taps, padding=1)
+            return torch.clamp(torch.round(acc[0, 0]), 0, 255).to(torch.uint8)
 
-    if not torch.equal(library(), imf.filter_image_device(img, "sharpen")):
-        raise AssertionError("the K25 yardstick computes another function")
-    ms = _device_ms(lambda: imf.filter_image_device(img, "sharpen"),
-                    "filter_kernel", imf.filter_image_device)
-    call_ms = time_cuda(lambda: imf.filter_image_device(img, "sharpen"),
-                        iters=50)
-    plain_ms = time_cuda(lambda: imf.filter_image_plain(img, "sharpen"))
-    lib_ms = _library_ms(library, "filter_image_device")
-    nbytes, flops = 2 * h * w, 2 * 9 * h * w    # 9 f32 multiply-adds a pixel
-    t_ops = flops / H100_F32_FLOPS * 1e3
-    t_mem = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_mem
-                          else (t_mem, "bytes"))
-    print(f"timing filter_image_device {h}x{w} sharpen: kernel {ms:.4f} ms "
-          f"on the card ({call_ms:.4f} ms per call), plain {plain_ms:.4f} ms, library {lib_ms} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB); "
-          f"{nbytes / ms / 1e6:.1f} GB/s")
-    out["filter_image_device"] = dict(ms=ms, plain_ms=plain_ms,
-                                      library_ms=lib_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)
+        def kern(img=img):
+            return imf.filter_image_device(img, "sharpen")
+
+        if not torch.equal(library(), kern()):
+            raise AssertionError("the K25 yardstick computes another function")
+        ms = _device_ms(kern, "filter_kernel", imf.filter_image_device)
+        call_ms = time_cuda(kern, iters=50)
+        plain_ms = time_cuda(lambda img=img: imf.filter_image_plain(img,
+                                                                    "sharpen"))
+        lib_ms = _library_ms(library, f"filter_image_device {h}x{w}")
+        lib_dev = (_device_alone_ms(library, iters=20) if lib_ms is not None
+                   else None)
+        nbytes, flops = 2 * h * w, 2 * 9 * h * w  # 9 f32 multiply-adds a pixel
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        t_mem = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_mem
+                              else (t_mem, "bytes"))
+        print(f"timing filter_image_device {h}x{w} sharpen: kernel {ms:.4f} "
+              f"ms on the card ({call_ms:.4f} ms per call), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms} ms per call, {lib_dev} ms "
+              f"device alone, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{nbytes / 1e6:.2f} MB); {nbytes / ms / 1e6:.1f} GB/s")
+        out.setdefault("filter_image_device", dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by))
     return out
 
 
@@ -6596,15 +6632,21 @@ def _k14_case(label, seed):
     return x.to(dt), q, kw
 
 
+def _true_div_scale(xf):
+    """The row scale s = absmax / 127 as a true division of two tensors
+    (PyTorch divides a CUDA tensor by a Python number through its
+    reciprocal, which can sit an ulp away)."""
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    return amax / torch.full_like(amax, qf.QMAX)
+
+
 def _k14_ieee(x, q, kw):
     """K14's arithmetic with its row scale s = absmax / 127 a true
-    division, as the kernel's (PyTorch divides a CUDA tensor by a Python
-    number through its reciprocal, so the plain version's s can sit an
-    ulp away, and with it a row's int8 values); no LayerNorm."""
+    division, as the kernel's (``_true_div_scale``); no LayerNorm."""
     from vit_fpga_tpu_torch.ops import quant_fused as qf
     xf = x.float()
-    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-    sx = amax / torch.full_like(amax, qf.QMAX)
+    sx = _true_div_scale(xf)
     xq = torch.clamp(torch.round(xf / sx), -qf.QMAX, qf.QMAX).to(torch.int8)
     f = qf._int_matmul(xq, q["w_q"]) * (sx * q["w_s"]) + q["b"]
     act = kw.get("act", "none")
@@ -6617,6 +6659,32 @@ def _k14_ieee(x, q, kw):
     return f.to(kw.get("out_dtype", torch.bfloat16))
 
 
+def phase_row_quant_scale():
+    """The plain row quantization's scale on the card (``_row_quant``, which
+    every int8 plain version shares) against ``_true_div_scale``, bit for
+    bit, with its int8 rows, on 4096 seeded rows of 768 whose absmax is
+    spread over many binades; counts the rows where a multiply by
+    1 / 127 would have moved s (there must be some)."""
+    from vit_fpga_tpu_torch.ops import quant_fused as qf
+    rng = np.random.default_rng(64)
+    x = (rng.standard_normal((4096, 768))
+         * np.exp2(rng.uniform(-20, 20, (4096, 1)))).astype(np.float32)
+    xf = torch.from_numpy(x).cuda()
+    xq, sx = qf._row_quant(xf)
+    want = _true_div_scale(xf)
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    reciprocal = int((amax * (1.0 / qf.QMAX) != want).sum())
+    moved = int((sx != want).sum())
+    wq = torch.clamp(torch.round(xf / want), -qf.QMAX, qf.QMAX).to(torch.int8)
+    print(f"  plain row quantization on the card: {moved} of {sx.numel()} "
+          f"row scales away from absmax / 127 as a true division (must be "
+          f"0; a multiply by 1 / 127 moves {reciprocal}), "
+          f"{int((xq != wq).sum())} int8 values away (must be 0)")
+    if moved or reciprocal == 0 or not torch.equal(xq, wq):
+        raise AssertionError("the plain row quantization does not divide "
+                             "as the kernels do")
+
+
 def phase_k14_kernels():
     """K14 against its plain version at K14_PATH_CASES in the unchanged
     int8 band, each with the count of elements that are not bit for bit
@@ -6626,6 +6694,7 @@ def phase_k14_kernels():
     (``_k14_ieee``): the int8 band cannot tell the textbook tanh-GELU
     from K15's fma form, this can.  Returns the largest max-abs error."""
     from vit_fpga_tpu_torch.ops import quant_fused as qf
+    phase_row_quant_scale()
     worst = 0.0
     for i, (label, t, k, n, _, _) in enumerate(K14_PATH_CASES):
         x, q, kw = _k14_case(label, 300 + i)

@@ -71,7 +71,22 @@ run_copy k19b_no_ao_clamp stack_wgmma.cuh \
   "const int q1i = static_cast<int>(rintf(f1));"
 # K25 rounding half away from zero: the blur puts many pixels on a half
 run_copy k25_roundf image_filter.cu \
-  "static_cast<int>(rintf(acc))" "static_cast<int>(roundf(acc))"
+  "__float_as_uint(__fadd_rn(fminf(fmaxf(acc, 0.0f), 255.0f), 12582912.0f))" \
+  "__float_as_uint(roundf(fminf(fmaxf(acc, 0.0f), 255.0f)) + 12582912.0f)"
+# K25 taking the byte left of a warp's 32 chunks as zero (lane 0's load
+# from memory): every 512th column of a 1080p frame reads a zero neighbour
+run_copy k25_no_left_halo image_filter.cu \
+  "left[r] = lane == 0 && row_in && x > 0 ? __ldg(row + x - 1) : 0u;" \
+  "left[r] = 0u;"
+# K25 taking 16-byte chunks at any width: rows of 45 or 1921 bytes are not
+# 16-byte aligned, and the columns past the last whole chunk are lost
+run_copy k25_vec_any_width image_filter.cu \
+  "return w % 16 == 0 && base % 16 == 0 ? 16 : 1;" \
+  "return base % 16 == 0 ? 16 : 1;"
+# K25 with its strip count rounded down: the last row of a frame of odd
+# height (1081, 17, 33) is never written, a one-row frame launches no block
+run_copy k25_last_strip image_filter.cu \
+  "const int strips = (h + ROWS - 1) / ROWS;" "const int strips = h / ROWS;"
 # K13 without its last partial K step (the int8 wgmma GEMM's K-step count
 # rounded down: 784 = 6 x 128 + 16 in the dense net loses its last 16, K 16
 # (1 padded) all of it)

@@ -25,9 +25,15 @@ def test_filters_are_the_jax_packages():
         np.testing.assert_array_equal(tif.FILTERS[name], JAX_FILTERS[name])
 
 
+# Widths about K25's 16-byte chunk and 1921, one-row and one-column frames,
+# and 1081 rows (a ragged last strip of rows on the card).
+SHAPES = [(8, 8), (33, 45), (1080, 1920), (9, 15), (9, 16), (9, 17),
+          (12, 1921), (1, 4096), (4096, 1), (1081, 1920)]
+
+
 @pytest.mark.parametrize("name", NAMES)
-@pytest.mark.parametrize("shape", [(8, 8), (33, 45), (1080, 1920)],
-                         ids=["8x8", "33x45", "1080x1920"])
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=[f"{h}x{w}" for h, w in SHAPES])
 def test_plain_filter_equals_the_jax_filters(name, shape):
     img = _frame(*shape, seed=shape[0] + len(name))
     got = tif.filter_image_device(torch.from_numpy(img), name)
@@ -60,3 +66,16 @@ def test_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         tif.filter_image_device(img.to("meta"), "blur")
     assert tif.filter_image_device.launches == 0
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_filter_takes_a_frame_at_an_odd_storage_offset(name):
+    """A contiguous frame viewed one byte into its storage (not 16-byte
+    aligned, as K25's byte-chunk route takes it on the card)."""
+    img = _frame(40, 48, seed=7)
+    buf = torch.zeros(40 * 48 + 1, dtype=torch.uint8)
+    view = buf[1:].view(40, 48)
+    view.copy_(torch.from_numpy(img))
+    assert view.storage_offset() == 1 and view.is_contiguous()
+    got = tif.filter_image_device(view, name).numpy()
+    np.testing.assert_array_equal(got, filter_image_numpy(img, name))

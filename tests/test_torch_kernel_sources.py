@@ -763,3 +763,41 @@ def test_qw_q8_is_a_saturating_int8_epilogue_stored_by_tma():
     launch = gemm[gemm.index("inline cudaError_t launch_qgemm_epi("):]
     assert "EPI == QW_Q8 ? tma_encode_s8(&tc, out, 2, dims, strides, box)" \
         in launch
+
+
+def test_k25_moves_16_bytes_a_thread_and_no_longer_stages_bytes():
+    """K25 loads each row of its strip as one 16-byte read-only load and
+    stores each output row with one 16-byte streaming store (uint4), takes
+    the bytes beside its chunk from its neighbour lanes, and no longer
+    stages the frame byte by byte through shared memory with a divide by
+    the halo width."""
+    src = (_kernels.CSRC / "image_filter.cu").read_text()
+    assert "__ldg(reinterpret_cast<const uint4*>(p))" in src
+    assert "__stcs(reinterpret_cast<uint4*>(p)" in src
+    assert "__shfl_up_sync(" in src and "__shfl_down_sync(" in src
+    for gone in ("__shared__", "HALO_W", "__syncthreads", "roundf("):
+        assert gone not in src, gone
+    assert not re.search(r"[/%] *HALO", src)
+
+
+@pytest.mark.parametrize("entry", ["vft_image_filter",
+                                   "vft_image_filter_chunk"])
+def test_k25_entry_points_match_their_ctypes_signatures(entry):
+    """vft_image_filter keeps its C signature (in, out, taps, h, w,
+    stream) and the ctypes argument list of ops/_kernels.py; so does the
+    chunk query beside it."""
+    import ctypes
+    src = (_kernels.CSRC / "image_filter.cu").read_text()
+    params = src[src.index(f"int {entry}("):]
+    params = params[params.index("(") + 1:params.index(")")]
+    kinds = ["P" if "*" in p else "F" if p.strip().startswith("float")
+             else "I" for p in params.split(",")]
+    argtypes, restype = _kernels._SIGNATURES[entry]
+    names = {_kernels._P: "P", _kernels._I: "I", _kernels._F: "F",
+             ctypes.POINTER(_kernels._F): "P"}
+    assert [names[a] for a in argtypes] == kinds
+    assert restype is ctypes.c_int
+    if entry == "vft_image_filter":
+        assert params.split() == ["const", "void*", "in,", "void*", "out,",
+                                  "const", "float*", "taps,", "int", "h,",
+                                  "int", "w,", "void*", "stream"]

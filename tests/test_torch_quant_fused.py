@@ -148,3 +148,20 @@ def test_row_quant_rounds_half_to_even_and_never_reaches_minus_128():
     assert xq.tolist() == [[127, -127, 0, 2, 2, 0, -2, 3]]
     xq, _ = tqf._row_quant(torch.zeros((2, 8)))           # 1e-12 floor
     assert int(xq.abs().max()) == 0
+
+
+def test_row_quant_divides_as_numpy_on_rows_where_the_reciprocal_differs():
+    """_row_quant's s = absmax / 127 and its int8 rows equal numpy's true
+    division bit for bit, on seeded rows chosen so that some absmax * (1 /
+    127) is an ulp away from absmax / 127 (the kernels divide truly)."""
+    rng = np.random.default_rng(26)
+    x = (rng.standard_normal((512, 64))
+         * np.exp2(rng.uniform(-20, 20, (512, 1)))).astype(np.float32)
+    absmax = np.maximum(np.abs(x).max(-1, keepdims=True), np.float32(1e-12))
+    s = (absmax / np.float32(127.0)).astype(np.float32)
+    assert (absmax * np.float32(1.0 / 127.0) != s).any()
+    want = np.clip(np.rint(x / s), -127, 127).astype(np.int8)
+    xq, sx = tqf._row_quant(torch.from_numpy(x))
+    assert sx.dtype == torch.float32
+    np.testing.assert_array_equal(sx.numpy(), s)
+    np.testing.assert_array_equal(xq.numpy(), want)

@@ -103,6 +103,7 @@ _SIGNATURES = {
                                    ctypes.c_int),
     "vft_image_filter": ([_P, _P, ctypes.POINTER(_F), _I, _I, _P],
                          ctypes.c_int),
+    "vft_image_filter_chunk": ([_P, _P, _I], ctypes.c_int),
     "vft_int8_gemm_init": ([], ctypes.c_int),
     "vft_int8_gemm": ([_P] * 3 + [_I] * 3 + [_P], ctypes.c_int),
     "vft_vit_full_init": ([], ctypes.c_int),

@@ -17,7 +17,10 @@ K25 (``csrc/image_filter.cu``) replaces
 filters is a small integer or a multiple of 1/16, so the f32 sums are
 exact in any order and the kernel equals the oracle bit for bit.  The
 JAX package's VMEM gate (``fits_vmem``) and its XLA fallback are TPU
-matters: a frame of any H x W goes to the kernel.
+matters: a frame of any H x W goes to the kernel.  Each of its threads
+takes a chunk of 16 columns (one 16-byte load a row) where W is a
+multiple of 16 and both frames are 16-byte aligned, and of one column
+otherwise (:func:`filter_chunk_bytes`): one kernel, two widths of chunk.
 """
 
 from __future__ import annotations
@@ -103,3 +106,14 @@ def filter_image_device(img: torch.Tensor, name: str) -> torch.Tensor:
 
 
 filter_image_device.launches = 0
+
+
+def filter_chunk_bytes(img: torch.Tensor, out: torch.Tensor) -> int:
+    """The columns a K25 thread takes for the CUDA frames ``img`` -> ``out``
+    (the kernel's own rule): 16 where the width is a multiple of 16 and
+    both frames are 16-byte aligned, else 1.  Launches nothing."""
+    if img.device.type != "cuda" or out.device.type != "cuda":
+        raise ValueError("K25's chunk is a question about CUDA frames")
+    return _kernels.load().vft_image_filter_chunk(img.data_ptr(),
+                                                  out.data_ptr(),
+                                                  img.shape[1])

@@ -58,9 +58,12 @@ def quantize_weight_colwise(w) -> tuple[np.ndarray, np.ndarray]:
 
 def _row_quant(xf: torch.Tensor):
     """f32 rows -> (int8 rows, f32 scales (..., 1)): symmetric absmax per
-    row, ``clip(rint(x / s), -127, 127)`` (round half to even)."""
+    row, ``clip(rint(x / s), -127, 127)`` (round half to even).  s =
+    absmax / 127 divides by a tensor: PyTorch's CUDA kernels divide by a
+    Python number through its reciprocal, an ulp away from the kernels'
+    true division for some rows."""
     absmax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-    sx = absmax / QMAX
+    sx = absmax / torch.full_like(absmax, QMAX)
     xq = torch.clamp(torch.round(xf / sx), -QMAX, QMAX).to(torch.int8)
     return xq, sx
 
