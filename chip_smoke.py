@@ -3380,11 +3380,11 @@ def phase_large_kernels():
     columns a chunk), (200, 128) x 128 with 4 (32: two boundaries in one
     step) and CLIP-L/14 b1's (264, 1024) x 1152 with 4 (288); K1 at
     CLIP-L/14's (4, 264, 1024) with 257
-    valid tokens, ViT-L/16 @384's (2, 584, 1024) with 577 and (1, 1024,
-    768) with 1024, a loud-padding case past 256 keys and a peaked-scores
-    case; then the gates: K3 with 3 chunks and K1 at 1032 tokens raise.
-    Returns {kernel name: max-abs error}."""
-    from vit_fpga_tpu_torch.ops import attn_block as ab
+    valid tokens, ViT-L/16 @384's (2, 584, 1024) with 577, (1, 1024,
+    768) with 1024 and (1, 1032, 128) with 1032 (the JAX plan's two score
+    slots; a gate check before K1 took the JAX gate), a loud-padding case
+    past 256 keys and a peaked-scores case; then the gate: K3 with 3
+    chunks raises.  Returns {kernel name: max-abs error}."""
     from vit_fpga_tpu_torch.ops import fused_mlp as fm
     print("parity K3 fused_mlp_chunked_stats")
     k3 = max(_k3_parity(200, 128, 512, seed=130),
@@ -3396,13 +3396,11 @@ def phase_large_kernels():
                              extra=("loud", "peaked")),
              _k1_long_parity(2, 584, 577, 1024, 16, seed=133,
                              extra=("loud",)),
-             _k1_long_parity(1, 1024, 1024, 768, 12, seed=134))
+             _k1_long_parity(1, 1024, 1024, 768, 12, seed=134),
+             _k1_long_parity(1, 1032, 1032, 128, 2, seed=136))
     x, st, p = _mlp_inputs(64, 128, 384, seed=135)
     _expect_raise("K3 n_chunks=3", lambda: _k3_call(
         fm.fused_mlp_chunked_stats, x, st, p, "gelu_tanh", 3, True))
-    x, st, p = _attn_inputs(1, 1032, 128, seed=136)
-    _expect_raise("K1 at 1032 tokens", lambda: _attn_call(
-        ab.attn_block_stats, x, st, p, 2, 1032, True))
     return {"fused_mlp_chunked_stats": k3, "attn_block_stats_long": k1}
 
 
@@ -3477,10 +3475,20 @@ def _attn_library(x, p, heads, n_valid):
     return library
 
 
-def _time_k1(batch, n_pad, n_valid, d, heads, seed, label):
+def _alone_pair(label, kern, lib):
+    """Device ms per call of the kernel call ``kern`` and its library
+    yardstick ``lib`` (``_device_alone_ms``), printed; returns both."""
+    dev_ms = _device_alone_ms(kern, iters=20)
+    lib_dev_ms = _device_alone_ms(lib, iters=20)
+    print(f"  {label}: kernel {dev_ms:.4f} ms device alone, library "
+          f"{lib_dev_ms:.4f} ms device alone")
+    return dict(device_ms=dev_ms, library_device_ms=lib_dev_ms)
+
+
+def _time_k1(batch, n_pad, n_valid, d, heads, seed, label, alone=False):
     """K1 at (batch, n_pad, d): kernel, plain version, the library
     yardstick (LN + addmm + scaled_dot_product_attention + addmm, bf16)
-    and the bound."""
+    and the bound; with ``alone`` also each call's device time alone."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     x, st, p = _attn_inputs(batch, n_pad, d, seed)
@@ -3503,6 +3511,10 @@ def _time_k1(batch, n_pad, n_valid, d, heads, seed, label):
           f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
           f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
           f"ms ({bound_by})")
+    if alone:
+        t.update(_alone_pair(f"K1 {label}", lambda: _attn_call(
+            ab.attn_block_stats, x, st, pb, heads, n_valid, True),
+            _attn_library(x, pb, heads, n_valid)))
     return t
 
 
@@ -5570,18 +5582,17 @@ def _k4_long_parity(label, batch, n_pad, n_valid, d, heads, modes, seed):
 def phase_odd_kernels():
     """Right after the build: K4 past 256 keys at the odd-batch serves'
     shapes in both softmax modes, K10 and K26 at their shapes, each against
-    its plain version; K4's gate (1032 tokens raise; K23's is phase 20's).  K10's and K26's launches here are their count in the JSON
+    its plain version; K4 at (1, 1032, 128) with 1032 valid in both modes
+    (a gate check before K4 took the JAX gate; phase 25 checks the new
+    gate).  K10's and K26's launches here are their count in the JSON
     line: no serving path launches them.  Returns ({kernel: max-abs
     error}, {kernel: launches})."""
-    from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.ops import patch_embed as pe
     from vit_fpga_tpu_torch.ops import streamed_gemm as sg
     torch.backends.cuda.matmul.allow_tf32 = False
     k4 = max(_k4_long_parity(*case, seed=190 + i)
-             for i, case in enumerate(K4_LONG_CASES))
-    x, _, pa = _attn_inputs(1, 1032, 128, seed=195)
-    _expect_raise("K4 at 1032 tokens", lambda: _k4(
-        ab.attn_block_fwd, x, pa, 2, 1032, False))
+             for i, case in enumerate(K4_LONG_CASES + (
+                 ("1032 tokens", 1, 1032, 1032, 128, 2, (True, False)),)))
 
     pe.patch_embed_pallas.launches = 0
     sg.streamed_gemm.launches = 0
@@ -5611,11 +5622,13 @@ def phase_odd_kernels():
              "streamed_gemm": k26}, launches)
 
 
-def _time_k4_long(label, batch, n_pad, n_valid, d, heads, safe, seed):
+def _time_k4_long(label, batch, n_pad, n_valid, d, heads, safe, seed,
+                  alone=False):
     """K4 past 256 keys: kernel, plain version, the library yardstick (LN
     + addmm + masked scaled_dot_product_attention + addmm, bf16) and the
     bound (the function's operations: one QK^T, whatever the exact mode's
-    second sweep costs the kernel)."""
+    second sweep costs the kernel); with ``alone`` also each call's device
+    time alone."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.utils.timing import time_cuda
     x, _, pa = _attn_inputs(batch, n_pad, d, seed)
@@ -5633,8 +5646,14 @@ def _time_k4_long(label, batch, n_pad, n_valid, d, heads, safe, seed):
           f"safe_softmax={safe}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=bound_ms, bound_by=bound_by)
+    if alone:
+        t.update(_alone_pair(
+            f"K4 {label} safe_softmax={safe}",
+            lambda: _k4(ab.attn_block_fwd, x, pa, heads, n_valid, safe),
+            _attn_library(x, pa, heads, n_valid)))
+    return t
 
 
 def phase_odd_timing():
@@ -6000,6 +6019,10 @@ K23_CASES = (
     ("128 of 200 keys", 4, 200, 128, 768, 12),
     ("129 of 200 keys", 4, 200, 129, 768, 12),
     ("17 tokens", 8, 17, 17, 768, 12),
+    # 1032 tokens, where a gate check stood before K23 took any length (at
+    # 768 wide: at 128 the LN branch of dx is 1% of g, under dx's bf16
+    # rounding, and the plain version alone reads 0.56% off f64 there)
+    ("1032 tokens", 1, 1032, 1032, 768, 12),
 )
 
 
@@ -6045,6 +6068,36 @@ def _k23_plain_f64(x, g, pa, heads, n_valid):
     return (gd + dx_ln).to(dt)
 
 
+def _k23_case(label, batch, n_pad, n_valid, d, heads, seed):
+    """K23 against its plain version at one shape, all seven gradients
+    (an element of dx outside the band must lie inside the band of the
+    plain arithmetic with f64 sums), the launch counted past 256 keys
+    where it has more valid keys, and run twice on the same inputs, bit
+    for bit.  Returns the max-abs error of dx."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64, seed=seed)
+    name = f"K23 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid}"
+    print(f"parity {name}, {heads} heads")
+    before = ab.attn_block_bwd.launches_long
+    got = _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid)
+    err = _grads_parity(name, ATTN_GRADS, got, _k23(
+        ab.attn_block_bwd_plain, x, g, pa, heads, n_valid), g,
+        referee=lambda: _k23_plain_f64(x, g, pa, heads, n_valid))
+    counted = ab.attn_block_bwd.launches_long - before
+    if counted != int(n_valid > 256):
+        raise AssertionError(f"{name}: {counted} launches counted past "
+                             f"256 keys, want {int(n_valid > 256)}")
+    again = _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid)
+    torch.cuda.synchronize()
+    moved = [n for n, a, b in zip(ATTN_GRADS, got, again)
+             if not torch.equal(a, b)]
+    print(f"  {name} twice on the same inputs: outputs that differ "
+          f"{moved} (must be none)")
+    if moved:
+        raise AssertionError(f"{name}: {moved} differ from run to run")
+    return err
+
+
 def phase_k23_kernels():
     """Right after phase 17's parity: K23 (its five products on
     gemm_wgmma.cuh, its attention backward two wgmma + TMA kernels tiled
@@ -6056,34 +6109,15 @@ def phase_k23_kernels():
     keys, and run twice on the same inputs, bit for bit (every sum in a
     fixed order); loud padding rows at 584 tokens (a 3e3 spike in each,
     zero cotangent there) that must leave every weight, bias and LN
-    gradient and the valid rows' dx unchanged; the gate (1032 tokens
-    raise).  Returns {kernel name: largest max-abs error of dx}."""
+    gradient and the valid rows' dx unchanged; (1, 1032, 768) with 1032
+    valid (a gate check before K23 took any length).  Returns {kernel
+    name: largest max-abs error of dx}."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
     worst = {"attn_block_bwd": 0.0, "attn_block_bwd_long": 0.0}
     for i, (label, batch, n_pad, n_valid, d, heads) in enumerate(K23_CASES):
-        x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64,
-                                    seed=220 + i)
-        name = f"K23 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid}"
-        print(f"parity {name}, {heads} heads")
-        before = ab.attn_block_bwd.launches_long
-        got = _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid)
-        err = _grads_parity(name, ATTN_GRADS, got, _k23(
-            ab.attn_block_bwd_plain, x, g, pa, heads, n_valid), g,
-            referee=lambda: _k23_plain_f64(x, g, pa, heads, n_valid))
+        err = _k23_case(label, batch, n_pad, n_valid, d, heads, 220 + i)
         key = "attn_block_bwd_long" if n_valid > 256 else "attn_block_bwd"
         worst[key] = max(worst[key], err)
-        counted = ab.attn_block_bwd.launches_long - before
-        if counted != int(n_valid > 256):
-            raise AssertionError(f"{name}: {counted} launches counted past "
-                                 f"256 keys, want {int(n_valid > 256)}")
-        again = _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid)
-        torch.cuda.synchronize()
-        moved = [n for n, a, b in zip(ATTN_GRADS, got, again)
-                 if not torch.equal(a, b)]
-        print(f"  {name} twice on the same inputs: outputs that differ "
-              f"{moved} (must be none)")
-        if moved:
-            raise AssertionError(f"{name}: {moved} differ from run to run")
 
     batch, n_pad, n_valid, d, heads = 2, 584, 577, 768, 12
     runs = []
@@ -6106,22 +6140,20 @@ def phase_k23_kernels():
         _relnorm(f"{name} loud vs quiet {n}", a, b, LOUD_RTOL)
     _relnorm(f"{name} loud vs quiet dx (valid rows)", loud[0][:, :n_valid],
              quiet[0][:, :n_valid], LOUD_RTOL)
-
-    x, g, pa, _ = _train_inputs(1, 1032, 1032, 128, 64, seed=239)
-    _expect_raise("K23 at 1032 tokens", lambda: _k23(
-        ab.attn_block_bwd, x, g, pa, 2, 1032))
     return worst
 
 
-def phase_k23_timing(batch=4, n_pad=584, n_valid=577, d=768, heads=12):
-    """K23 past 256 keys at the 384 px training step's shape: the kernel,
-    its plain version, the library yardstick (the autograd backward of LN +
-    addmm + masked scaled_dot_product_attention + addmm, bf16) and the
-    bound.  Returns a dict of times."""
+def phase_k23_timing(batch=4, n_pad=584, n_valid=577, d=768, heads=12,
+                     seed=240, alone=False):
+    """K23 past 256 keys at the 384 px training step's shape (or the one
+    given): the kernel, its plain version, the library yardstick (the
+    autograd backward of LN + addmm + masked scaled_dot_product_attention
+    + addmm, bf16) and the bound; with ``alone`` also each call's device
+    time alone.  Returns a dict of times."""
     import torch.nn.functional as F
     from vit_fpga_tpu_torch.ops import attn_block as ab
     from vit_fpga_tpu_torch.utils.timing import time_cuda
-    x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64, seed=240)
+    x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64, seed=seed)
     rows, dh = batch * n_pad, d // heads
     keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
     leaves = [x.detach().requires_grad_(True)] + [
@@ -6150,8 +6182,14 @@ def phase_k23_timing(batch=4, n_pad=584, n_valid=577, d=768, heads=12):
     print(f"timing K23 ({batch}, {n_pad}, {d}) n_valid={n_valid}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=bound_ms, bound_by=bound_by)
+    if alone:
+        t.update(_alone_pair(
+            f"K23 ({batch}, {n_pad}, {d})",
+            lambda: _k23(ab.attn_block_bwd, x, g, pa, heads, n_valid),
+            lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -6837,6 +6875,282 @@ def run_k14_k10_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the bf16 attention halves past 1024 tokens: K1 and K4 at the
+# JAX wrappers' gates (up to ViT-B/16 @896's 3137 tokens), K23 where the
+# JAX _bwd_fits keeps the Pallas backward and the autograd route past it;
+# the static int8 tree's *_ref blocks and non-S x S input
+# ---------------------------------------------------------------------------
+
+# (label, batch, n_pad, n_valid, d, heads, extra) of K1 past 1024 tokens
+K1_PAST_1024 = (
+    ("ViT-B/16 @512 b2", 2, 1032, 1025, 768, 12, ("loud",)),
+    ("ViT-B/16 @896 b1", 1, 3144, 3137, 768, 12, ("loud",)),
+)
+# (label, batch, n_pad, n_valid, d, heads) of K23 past 1024 tokens: inside
+# _bwd_fits at @512 and @640, and one direct call past it (@768)
+K23_PAST_1024 = (
+    ("ViT-B/16 @512 b2", 2, 1032, 1025, 768, 12),
+    ("ViT-B/16 @640 b2", 2, 1608, 1601, 768, 12),
+    ("ViT-B/16 @768 b1, called directly", 1, 2312, 2305, 768, 12),
+)
+PAST_1024_ROWS = ("attn_block_stats_1032", "attn_block_stats_3144",
+                  "attn_block_fwd_3144", "attn_block_bwd_1032",
+                  "attn_block_bwd_1608")
+
+
+def phase_past_1024_kernels():
+    """Right after phase 20's K23 parity: K1 past 1024 tokens at ViT-B/16
+    @512 b2's (2, 1032, 768) and @896 b1's (1, 3144, 768) against its
+    plain version, both values of emit_stats, loud padding bit for bit,
+    each launch counted past 256 keys; K4 at (1, 3144, 768) in both
+    softmax modes (loud padding, the exact mode's wide scores); K23 at
+    K23_PAST_1024's shapes; then the new gates: K1 and K4 at ViT-B/16
+    @1024's (1, 4104, 768) (the JAX plan has no score slot), K1 at CLIP
+    ViT-L/14 b1's (1, 264, 1024) (q-slot reuse) and at (1, 1608, 128) (the
+    q-reuse tier) raise.  Returns {JSON row: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errors = {}
+    for i, (label, b, n_pad, n_valid, d, heads, extra) in enumerate(
+            K1_PAST_1024):
+        before = ab.attn_block_stats.launches_long
+        errors[f"attn_block_stats_{n_pad}"] = _k1_long_parity(
+            b, n_pad, n_valid, d, heads, seed=400 + i, extra=extra)
+        counted = ab.attn_block_stats.launches_long - before
+        print(f"  K1 {label}: {counted} launches counted past 256 keys")
+        if counted < 2:
+            raise AssertionError(f"K1 {label}: {counted} launches counted "
+                                 f"past 256 keys")
+    errors["attn_block_fwd_3144"] = _k4_long_parity(
+        "ViT-B/16 @896 b1", 1, 3144, 3137, 768, 12, (True, False), seed=410)
+    for i, (label, b, n_pad, n_valid, d, heads) in enumerate(K23_PAST_1024):
+        err = _k23_case(label, b, n_pad, n_valid, d, heads, seed=420 + i)
+        errors[f"attn_block_bwd_{n_pad}"] = err
+        fits = ab._bwd_fits(heads, d, n_pad, -(-n_pad // 128) * 128, 2)
+        print(f"  K23 {label}: the JAX _bwd_fits is {fits} at this shape")
+    for label, b, n, d, heads in (
+            ("K1 at ViT-B/16 @1024 (4104 tokens)", 1, 4104, 768, 12),
+            ("K1 at CLIP ViT-L/14 b1 (q-slot reuse)", 1, 264, 1024, 16),
+            ("K1 at (1, 1608, 128) (the q-reuse tier)", 1, 1608, 128, 2)):
+        x, st, p = _attn_inputs(b, n, d, seed=430)
+        _expect_raise(label, lambda: _attn_call(
+            ab.attn_block_stats, x, st, _bf16_weights(p, ("wqkv", "wo")),
+            heads, n - 7, True))
+    x, _, pa = _attn_inputs(1, 4104, 768, seed=431)
+    _expect_raise("K4 at ViT-B/16 @1024 (4104 tokens)", lambda: _k4(
+        ab.attn_block_fwd, x, pa, 12, 4097, False))
+    return errors
+
+
+def _forward_vs_cpu(label, cfg, params, images, want_launches, long_name,
+                    long):
+    """``vit.make_forward(cfg)`` on the card with the counts set to 0 just
+    before it: exactly ``want_launches`` and ``long`` of ``long_name``'s
+    launches past 256 keys; the logits against the CPU forward of the same
+    weights within LOGITS_BAND of the largest, top-1 equal.  Returns the
+    card's forward and its launches."""
+    from vit_fpga_tpu_torch.models import vit
+    fwd = vit.make_forward(cfg, params)
+    counters = _zero_counters()
+    got = fwd(images).float().cpu().numpy()
+    torch.cuda.synchronize()
+    launches = _check_launches(label, counters, want_launches)
+    got_long = counters[long_name].launches_long
+    print(f"  {label} launches: { {k: v for k, v in launches.items() if v} }"
+          f", {got_long} of {long_name}'s past 256 keys")
+    if got_long != long:
+        raise AssertionError(f"{label}: {got_long} {long_name} launches past "
+                             f"256 keys, want {long}")
+    want = vit.make_forward(cfg, _tree_to(params, "cpu"), device="cpu")(
+        images).float().numpy()
+    _rel_to_max(f"{label} logits vs the CPU forward", got, want, LOGITS_BAND)
+    if not np.array_equal(got.argmax(1), want.argmax(1)):
+        raise AssertionError(f"{label}: top-1 differs from the CPU forward")
+    return fwd, launches
+
+
+def _chain_want(cfg, batch):
+    """The stats chain's launches of a forward at ``batch``: depth K1 and
+    depth of the MLP half the chain's plan takes (K2 or K3)."""
+    from vit_fpga_tpu_torch.models import vit
+    plan = vit._stats_chain_mlp_plan(cfg, batch * vit._n_pad(cfg))
+    mlp = "fused_mlp_stats" if plan == "k2" else "fused_mlp_chunked_stats"
+    return {"attn_block_stats": cfg.depth, mlp: cfg.depth}
+
+
+def phase_past_1024_serve(depth=6):
+    """The bf16 main path past 1024 tokens, each run with the counts set to
+    0 just before it: make_forward at ViT-B/16 @512 b4 and @896 b1 (the
+    stats chain: ``depth`` K1, all past 256 keys, and ``depth`` K2), and
+    ``safe_softmax`` at @896 b1, depth 2 (K4 and K5), each against the CPU
+    forward; preprocess of a (2, 256, 320, 3) uint8 batch (resized to 224)
+    against the CPU.  Returns ({JSON row: launches}, {image size:
+    config}) for the timing."""
+    import dataclasses
+
+    from vit_fpga_tpu_torch.models import vit
+    launches, cfgs = {}, {}
+    for image, batch, row in ((512, 4, "attn_block_stats_1032"),
+                              (896, 1, "attn_block_stats_3144")):
+        cfg = vit.config("vit_b16", image_size=image, dtype="bfloat16",
+                         depth=depth)
+        params = vit.init_params(cfg, _gen(440 + image), device="cuda")
+        images = np.random.default_rng(image).integers(
+            0, 256, (batch, image, image, 3), np.uint8)
+        label = f"ViT-B/16 @{image} b{batch} depth {depth}"
+        _, got = _forward_vs_cpu(label, cfg, params, images,
+                                 _chain_want(cfg, batch),
+                                 "attn_block_stats", depth)
+        launches[row] = got["attn_block_stats"]
+        cfgs[image] = cfg
+    cfg = vit.config("vit_b16", image_size=896, dtype="bfloat16", depth=2,
+                     safe_softmax=True)
+    params = vit.init_params(cfg, _gen(450), device="cuda")
+    images = np.random.default_rng(450).integers(0, 256, (1, 896, 896, 3),
+                                                 np.uint8)
+    _, got = _forward_vs_cpu("ViT-B/16 @896 b1 safe_softmax depth 2", cfg,
+                             params, images, {"attn_block_fwd": 2,
+                                              "fused_mlp_fwd": 2},
+                             "attn_block_fwd", 2)
+    launches["attn_block_fwd_3144"] = got["attn_block_fwd"]
+
+    pcfg = dataclasses.replace(vit.config("vit_b16", dtype="bfloat16"),
+                               dtype="float32")
+    raw = np.random.default_rng(451).integers(0, 256, (2, 256, 320, 3),
+                                              np.uint8)
+    got = vit.preprocess(torch.from_numpy(raw).cuda(), pcfg).cpu()
+    want = vit.preprocess(torch.from_numpy(raw), pcfg)
+    if got.shape != (2, 224, 224, 3):
+        raise AssertionError(f"preprocess 256 x 320: shape {got.shape}")
+    _compare("preprocess (2, 256, 320, 3) -> 224 f32, card vs CPU", got,
+             want, 1e-5, 1e-5)
+    got = vit.preprocess(torch.from_numpy(raw).cuda(),
+                         vit.config("vit_b16", dtype="bfloat16")).cpu()
+    if got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all():
+        raise AssertionError("preprocess 256 x 320 bf16: not finite bf16")
+    return launches, cfgs
+
+
+def phase_past_1024_train(lr=0.1):
+    """Training past 1024 tokens, one SGD step each on the card against
+    the CPU plain step from the same weights and data: ViT-B/16 @512 b2
+    depth 2 and @640 b2 depth 12, where the JAX _bwd_fits keeps the Pallas
+    backward (K23 at every layer, counted past 256 keys), and @768 b1
+    depth 6 past it (K4 forward, the autograd backward of attn_block_xla:
+    0 K23).  Returns {JSON row: K23 launches}."""
+    from vit_fpga_tpu_torch.models import vit
+    out = {}
+    for image, batch, depth, k23 in ((512, 2, 2, True), (640, 2, 12, True),
+                                     (768, 1, 6, False)):
+        cfg = vit.config("vit_b16", image_size=image, dtype="bfloat16",
+                         depth=depth)
+        launches, (k4_long, k23_long), *_ = _step_vs_cpu(cfg, batch, lr,
+                                                         seed=460 + image)
+        print(f"  train step {image} px b{batch} depth {depth} launches: "
+              f"{launches}; past 256 keys: K4 {k4_long}, K23 {k23_long}")
+        want = {k: depth for k in TRAIN_KERNELS}
+        if not k23:
+            want["attn_block_bwd"] = 0
+        for name, n in launches.items():
+            if n != want.get(name, 0):
+                raise AssertionError(f"{image} px step: {name} launched {n} "
+                                     f"times, want {want.get(name, 0)}")
+        if k4_long != depth or k23_long != (depth if k23 else 0):
+            raise AssertionError(f"{image} px step: K4 / K23 launches past "
+                                 f"256 keys {k4_long} / {k23_long}")
+        out[image] = launches["attn_block_bwd"]
+    return {"attn_block_bwd_1032": out[512], "attn_block_bwd_1608": out[640]}
+
+
+def phase_static_ref_1024(depth=2):
+    """The calibrated static tree at ViT-B/16 @1024 b1, depth ``depth``,
+    where the int8 block kernels do not fit: the JAX ``*_ref`` blocks,
+    plain torch on the card (0 K18 / K17, 1 K14 for the head), against the
+    CPU forward of the same tree within INT8_LOGITS_BAND, top-1 equal."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    cfg = vit.config("vit_b16", image_size=1024, dtype="bfloat16",
+                     depth=depth)
+    params = vit.init_params(cfg, _gen(470), device="cuda")
+    qparams = quantized.quantize_vit_static(params, cfg)
+    images = np.random.default_rng(470).integers(0, 256, (1, 1024, 1024, 3),
+                                                 np.uint8)
+    counters = _zero_counters()
+    got = quantized.make_forward_int8(cfg, qparams)(images).float().cpu()
+    torch.cuda.synchronize()
+    _check_launches("static tree @1024 b1", counters,
+                    {"int8_linear_fused": 1})
+    want = quantized.make_forward_int8(cfg, _tree_to(qparams, "cpu"),
+                                       device="cpu")(images).float()
+    _rel_to_max(f"static tree @1024 b1 depth {depth} (the *_ref blocks) "
+                f"logits vs the CPU forward", got.numpy(), want.numpy(),
+                INT8_LOGITS_BAND)
+    if not torch.equal(got.argmax(1), want.argmax(1)):
+        raise AssertionError("static tree @1024: top-1 differs from the CPU")
+
+
+def phase_past_1024_timing():
+    """K1 at (16, 1032, 768) and (4, 3144, 768), K4 at (1, 3144, 768) in
+    both softmax modes, K23 at (2, 1032, 768) and (2, 1608, 768): each per
+    call and device alone beside its plain version, its library yardstick
+    and the bound.  Returns {JSON row: times}."""
+    out = {}
+    out["attn_block_stats_1032"] = _time_k1(16, 1032, 1025, 768, 12, 480,
+                                            "ViT-B/16 @512 b16", alone=True)
+    out["attn_block_stats_3144"] = _time_k1(4, 3144, 3137, 768, 12, 481,
+                                            "ViT-B/16 @896 b4", alone=True)
+    for safe in (True, False):
+        t = _time_k4_long("ViT-B/16 @896 b1", 1, 3144, 3137, 768, 12, safe,
+                          482, alone=True)
+        out.setdefault("attn_block_fwd_3144", t)
+    out["attn_block_bwd_1032"] = phase_k23_timing(2, 1032, 1025, seed=483,
+                                                  alone=True)
+    out["attn_block_bwd_1608"] = phase_k23_timing(2, 1608, 1601, seed=484,
+                                                  alone=True)
+    return out
+
+
+def phase_past_1024_forward_time(cfgs):
+    """The bf16 ViT-B/16 @512 b16 and @896 b4 forwards at full depth: ms
+    per batch and img/s, in turns (each twice, the order reversed)."""
+    import dataclasses
+
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    runs = {}
+    for image, batch in ((512, 16), (896, 4)):
+        cfg = dataclasses.replace(cfgs[image], depth=12)
+        fwd = vit.make_forward(cfg, vit.init_params(cfg, _gen(490 + image),
+                                                    device="cuda"))
+        img = torch.from_numpy(np.random.default_rng(image).integers(
+            0, 256, (batch, image, image, 3), np.uint8)).cuda()
+        runs[f"ViT-B/16 @{image} b{batch}"] = (fwd, img)
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        fwd, img = runs[name]
+        times[name].append(time_cuda(lambda: fwd(img), iters=5, warmup=2))
+    for name, ms in times.items():
+        b = runs[name][1].shape[0]
+        print(f"forward {name} bf16: " + " / ".join(f"{t:.3f}" for t in ms)
+              + " ms per batch, " + " / ".join(f"{b / t * 1e3:.1f}"
+                                               for t in ms) + " img/s")
+    return times
+
+
+def run_past_1024_phases(errors, timing, launches):
+    """Phase 25 after the earlier slices' phases (its parity ran right
+    after phase 20's): the served and trained paths past 1024 tokens, the
+    static tree at 1024 px, the times; the JSON rows PAST_1024_ROWS."""
+    serve_launches, cfgs = phase_past_1024_serve()
+    launches.update(serve_launches)
+    launches.update(phase_past_1024_train())
+    phase_static_ref_1024()
+    for name, t in phase_past_1024_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    phase_past_1024_forward_time(cfgs)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6860,6 +7174,7 @@ def main() -> int:
     wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
     errors.update(phase_k23_kernels())
+    errors.update(phase_past_1024_kernels())
     errors.update(phase_train_edges())
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
@@ -6926,6 +7241,7 @@ def main() -> int:
     run_k18_k21b_long_phases(errors, timing, launches)
     run_k17_k22_phases(errors, timing, launches)
     run_k14_k10_phases(errors, timing, launches)
+    run_past_1024_phases(errors, timing, launches)
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
@@ -7006,6 +7322,16 @@ def main() -> int:
                                "vit_fpga_tpu/ops/patch_embed.py:147"),
         "streamed_gemm": ("vit_fpga_tpu_torch/csrc/streamed_gemm.cu",
                           "vit_fpga_tpu/ops/streamed_gemm.py:32"),
+        "attn_block_stats_1032": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
+                                  "vit_fpga_tpu/ops/attn_block.py:550"),
+        "attn_block_stats_3144": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
+                                  "vit_fpga_tpu/ops/attn_block.py:550"),
+        "attn_block_fwd_3144": ("vit_fpga_tpu_torch/csrc/attn_block.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:371"),
+        "attn_block_bwd_1032": ("vit_fpga_tpu_torch/csrc/attn_bwd.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:734"),
+        "attn_block_bwd_1608": ("vit_fpga_tpu_torch/csrc/attn_bwd.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:734"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -353,5 +353,14 @@ run_copy k1_no_last_tile_mask mha_wgmma.cuh \
 # of 8 at K 776)
 run_copy k1_k2_gemm_skip_k_step gemm_wgmma.cuh \
   "const int nk = (p.K + GW_BK - 1) / GW_BK;" "const int nk = (p.K + GW_BK - 1) / GW_BK - 1;"
+# mha_wgmma.cuh's attention sweeping 8 key tiles at most (1024 keys): K1,
+# K4, K16, K18, K21b and K7 / K8 past 1024 tokens lose their last keys
+run_copy mha_sweep_8_key_tiles mha_wgmma.cuh \
+  "const int ntiles = (p.n_valid + MW_KT - 1) / MW_KT;" \
+  "const int ntiles = min(8, (p.n_valid + MW_KT - 1) / MW_KT);"
+# K23's (e) sweeping 8 query tiles at most (1024 query rows): dk and dv
+# past 1024 tokens lose the query rows after them
+run_copy k23_kv_sweep_8_query_tiles attn_bwd.cu \
+  "for (int j = 0; j < nqt; ++j) {" "for (int j = 0; j < min(nqt, 8); ++j) {"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

@@ -23,11 +23,16 @@ from vit_fpga_tpu.ops.attn_block import (attn_block_bwd_pallas,
                                          attn_block_xla as jax_attn_xla)
 from vit_fpga_tpu_torch.ops import attn_block as tab
 
-# (B, N, D, heads, n_valid): the small case, one at head dim 64, and one
-# past 256 keys (the card's backward takes up to 1024 tokens)
+# (B, N, D, heads, n_valid): the small case, one at head dim 64, one past
+# 256 keys, and ViT-B/16 @640's 1601 tokens on 1608 rows (where the JAX
+# _bwd_fits still keeps the Pallas backward at D 768)
 SMALL = (2, 40, 64, 4, 33)
 DH64 = (2, 24, 128, 2, 19)
 LONG = (1, 264, 128, 2, 257)
+LONG1608 = (1, 1608, 128, 2, 1601)
+# ViT-L/16 @576: 1297 tokens on 1304 rows at D 1024, 16 heads, where
+# _bwd_fits is false and the JAX package takes the XLA VJP
+L16_576 = (1, 1304, 1024, 16, 1297)
 GRADS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo")
 BF16_TOL = 2.0 ** -6
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -163,8 +168,8 @@ def _check_grads(got, want, name):
             assert _rel(a, b) <= GRAD_RTOL[name], (n, _rel(a, b))
 
 
-@pytest.mark.parametrize("geom", [SMALL, DH64, LONG],
-                         ids=["small", "dh64", "long"])
+@pytest.mark.parametrize("geom", [SMALL, DH64, LONG, LONG1608],
+                         ids=["small", "dh64", "long", "1608"])
 @pytest.mark.parametrize("dts", DTYPES, ids=["f32", "bf16"])
 def test_attn_block_bwd_plain_matches_pallas(geom, dts):
     """All seven outputs against the TPU backward kernel (per-head
@@ -223,6 +228,34 @@ def test_autograd_through_attn_block_equals_plain_backward(dtype):
     torch.testing.assert_close(out.detach(), fwd, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("geom,route", [(SMALL, "k23"), (L16_576, "xla")],
+                         ids=["fits", "past_bwd_fits"])
+def test_backward_routes_by_bwd_fits(geom, route, monkeypatch):
+    """attn_block's backward takes the JAX _attn_block_bwd's route by the
+    copied _bwd_fits: K23 (its plain version here) where it holds, else
+    autograd of attn_block_xla over a recompute (the JAX package's XLA VJP
+    at those geometries).  f32, both against jax.vjp of the JAX
+    attn_block_xla."""
+    b, n, d, nh, nv = geom
+    assert tab._bwd_fits(nh, d, n, -(-n // 128) * 128, 4) == (route == "k23")
+    calls = []
+    bwd = tab.attn_block_bwd
+    monkeypatch.setattr(tab, "attn_block_bwd",
+                        lambda *a, **k: calls.append(1) or bwd(*a, **k))
+    p = _inputs(6, geom)
+    prims = [jnp.asarray(p[k]) for k in ("x",) + _ARGS]
+    with _reference_precision("float32"):
+        _, vjp = jax.vjp(lambda *a: jax_attn_xla(*a, num_heads=nh, eps=1e-6,
+                                                 n_valid=nv), *prims)
+        want = vjp(jnp.asarray(p["g"]))
+    leaves = [torch.from_numpy(p[k]).requires_grad_(True)
+              for k in ("x",) + _ARGS]
+    out = tab.attn_block(*leaves, nh, 1e-6, nv, True)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(p["g"]))
+    assert len(calls) == (1 if route == "k23" else 0)
+    _check_grads(got, want, "float32")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_loud_padding_leaves_weight_grads_unchanged(dtype):
     """Huge spikes in x's rows at or past n_valid, zero g there: keys
@@ -266,18 +299,23 @@ def test_cuda_shape_checks_refuse_what_the_kernels_do_not_take(
         shape, heads, n_valid, dtype):
     """The checks a CUDA tensor meets before K4 / K23 launch (device
     independent, so meta tensors reach them): they raise, no fallback.
-    K4's and K23's gates take the key-tiled lengths up to 1024 (the
-    n_valid-past-256 case passes there) and stop past them."""
+    K4's gate is the JAX attn_block_pallas plan's (the n_valid-past-256
+    case passes there, and so does 1032 tokens) and stops where the plan
+    has no score slot (ViT-B/16 @1024's 4104 rows); K23 takes any
+    length."""
     x = torch.empty(shape, dtype=dtype, device="meta")
     if n_valid > 256:
         for kernel in ("K4", "K23"):
             assert tab._cuda_geometry(x, heads, n_valid, kernel=kernel) == (
                 *shape, n_valid)
-            with pytest.raises(ValueError,
-                               match=f"{kernel} takes at most 1024"):
-                tab._cuda_geometry(
-                    torch.empty((1, 1032, 128), dtype=dtype, device="meta"),
-                    heads, 1032, kernel=kernel)
+            assert tab._cuda_geometry(
+                torch.empty((1, 1032, 128), dtype=dtype, device="meta"),
+                heads, 1032, kernel=kernel) == (1, 1032, 128, 1032)
+        long = torch.empty((1, 4104, 768), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="K4 takes the JAX"):
+            tab._cuda_geometry(long, 12, 4097, kernel="K4")
+        assert tab._cuda_geometry(long, 12, 4097, kernel="K23") == (
+            1, 4104, 768, 4097)
     else:
         for kernel in ("K4", "K23"):
             with pytest.raises(ValueError):

@@ -341,6 +341,27 @@ def test_attn_block_int8_static_scores_saturates_and_masks():
     assert torch.equal(noisy[:, :n_valid], quiet[:, :n_valid])
 
 
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(13, 9, id="9"), pytest.param(264, 261, id="264-261")])
+def test_attn_block_int8s_static_ref_matches_jax(n, n_valid):
+    """The port's attn_block_int8s_static_ref (the static tree's int8-scores
+    attention past the block kernels' geometry) against the JAX one: every
+    integer step agrees (SCORES_ATOL)."""
+    heads = 2
+    x, args = _scores_case(n=n)
+    xt = _bf16_pair(x)[1]
+    targs = [float(a) if np.ndim(a) == 0 else torch.from_numpy(a)
+             for a in args]
+    got = tqb.attn_block_int8s_static_ref(xt, *targs, heads, n_valid=n_valid)
+    want = _scores_jax(x, args, heads, n_valid,
+                       jqb.attn_block_int8s_static_ref)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    np.testing.assert_allclose(
+        got[:, :n_valid].float().numpy(),
+        np.asarray(want[:, :n_valid].astype(jnp.float32)), rtol=0,
+        atol=SCORES_ATOL)
+
+
 def test_int8_scores_gate_refuses_other_geometries():
     """The JAX gate: dh 64 and an even head count, else ValueError."""
     x, args = _scores_case()

@@ -328,6 +328,42 @@ def test_attn_block_int8_static_matches_pallas(n, n_valid, hot):
 
 
 # ---------------------------------------------------------------------------
+# The JAX *_ref blocks, which the static tree runs where the block kernels
+# do not fit (ViT-B/16 at 1024 px): plain torch against the JAX functions
+# on the same folded arguments, in the int8 band of the kernels above
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu", "relu"])
+def test_mlp_block_int8_static_ref_matches_jax(act, hot):
+    x, args, step, _ = _mlp_case(act, hot)
+    xj, xt = _bf16_pair(x)
+    want = jqb.mlp_block_int8_static_ref(xj, *map(jnp.asarray, args),
+                                         act=act)
+    got = tqb.mlp_block_int8_static_ref(xt, float(args[0]),
+                                        *map(torch.from_numpy, args[1:]),
+                                        act=act)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _within_steps(got, want, step)
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(13, 9, id="9"), pytest.param(264, 261, id="264-261")])
+def test_attn_block_int8_static_ref_matches_jax(n, n_valid, hot):
+    heads = 4
+    x, args, step, _ = _attn_case(hot, n=n, n_valid=n_valid)
+    xj, xt = _bf16_pair(x)
+    want = jqb.attn_block_int8_static_ref(xj, *map(jnp.asarray, args),
+                                          heads, n_valid=n_valid)
+    got = tqb.attn_block_int8_static_ref(xt, float(args[0]),
+                                         *map(torch.from_numpy, args[1:]),
+                                         heads, n_valid=n_valid)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _within_steps(got[:, :n_valid], want[:, :n_valid], step)
+
+
+# ---------------------------------------------------------------------------
 # K19b plain version
 # ---------------------------------------------------------------------------
 

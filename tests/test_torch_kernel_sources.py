@@ -89,7 +89,8 @@ def test_k23_runs_its_products_and_attention_on_wgmma():
     for kernel in ("bwd_q_kernel<<<", "bwd_kv_kernel<<<"):
         assert k23.count(kernel) == 1
     assert not re.search(r"\battn_bwd_kernel\b|\bAttnBwdSmem\b", k23)
-    assert "AB_MAX_TOKENS = 1024" in k23
+    # no token cap: the backward routes by the JAX _bwd_fits before it
+    assert "AB_MAX_TOKENS" not in k23 and "n_pad > " not in k23
 
 
 @pytest.mark.parametrize("name", ["attn_bwd.cu", "mlp_chunk.cu",
@@ -801,3 +802,14 @@ def test_k25_entry_points_match_their_ctypes_signatures(entry):
         assert params.split() == ["const", "void*", "in,", "void*", "out,",
                                   "const", "float*", "taps,", "int", "h,",
                                   "int", "w,", "void*", "stream"]
+
+
+def test_no_token_cap_in_the_attention_halves():
+    """K1, K4 and K23 take the JAX gates (ops/attn_block.attn_stats_fits,
+    attn_block_fits, _bwd_fits), not a fixed token count: no source or
+    module of the port names the old 1024-token caps."""
+    root = _kernels.CSRC.parent
+    for p in list(_kernels.CSRC.iterdir()) + list(root.rglob("*.py")):
+        text = p.read_text()
+        for cap in ("LONG_MAX_TOKENS", "AH_MAX_TOKENS", "AB_MAX_TOKENS"):
+            assert cap not in text, (p.name, cap)

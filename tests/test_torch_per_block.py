@@ -244,13 +244,34 @@ def test_vit_b16_1024_int8_matches_jax(monkeypatch):
     np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
 
 
-def test_static_tree_past_the_block_kernels_raises():
-    """A static tree where the int8 block kernels do not fit would take
-    the JAX ``*_ref`` route, which is not ported."""
-    cfg = tvit.config("vit_b16", image_size=1024, depth=1)
-    with pytest.raises(NotImplementedError, match="_ref"):
-        tq._qblock_static(torch.zeros(1, 8, 768, dtype=torch.bfloat16),
-                          {}, cfg, 4097)
+@pytest.mark.parametrize("scores", [False, True],
+                         ids=["static", "int8_scores"])
+def test_static_tree_past_the_block_kernels_matches_jax(monkeypatch, scores):
+    """A calibrated static tree at 1024 px, depth 1, b1, where the int8
+    block kernels do not fit: the JAX ``*_ref`` blocks (the int8-scores
+    attention's with the switch on), each run once, against the JAX CPU
+    forward (its ``*_ref`` route) in the int8 band, top-1 equal.  The JAX
+    tree (calibrated on one image) is handed to the port leaf for leaf."""
+    kw = dict(tvit.VARIANTS["vit_b16"], depth=1)
+    jcfg, tcfg, jp, _ = _pair(25, image_size=1024, **kw)
+    assert not tq._int8_block_fits(tcfg)
+    probe = jvit.preprocess(jnp.asarray(_images(26, 1, 1024)), jcfg)
+    jqp = jq.quantize_vit_static(jp, jcfg, images=probe)
+    tqp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jqp),
+                            device="cpu")
+    monkeypatch.setattr(jq, "_INT8_SCORES", scores)
+    monkeypatch.setattr(tq, "_INT8_SCORES", scores)
+    attn = ("attn_block_int8s_static_ref" if scores
+            else "attn_block_int8_static_ref")
+    calls = {name: _spy(monkeypatch, tq, name)
+             for name in (attn, "mlp_block_int8_static_ref")}
+    img = _images(27, 1, 1024)
+    want = np.asarray(jq.vit_forward_int8_raw(jqp, jnp.asarray(img), jcfg))
+    got = tq.make_forward_int8(tcfg, tqp, device="cpu")(img).numpy()
+    assert {k: len(v) for k, v in calls.items()} == {
+        attn: 1, "mlp_block_int8_static_ref": 1}
+    assert _rel(got, want) < INT8_BAND
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
 
 
 # ---------------------------------------------------------------------------

@@ -66,14 +66,25 @@ def test_patchify_and_embed_match_jax():
 
 
 def test_preprocess_matches_jax_and_rejects_other_sizes():
+    """S x S input is normalised as the JAX preprocess; other sizes are
+    resized to S x S first, as the JAX preprocess does (the band of
+    tests/test_torch_resize.py: two ulps of the largest coordinate over
+    the std); what is not (B, h, w, 3) is refused."""
     jcfg, tcfg, _, _ = _pair(0, dtype="float32", **TINY)
     img = _images(1, 2, 32)
     np.testing.assert_allclose(
         tvit.preprocess(torch.from_numpy(img), tcfg).numpy(),
         np.asarray(jvit.preprocess(jnp.asarray(img), jcfg)),
         rtol=1e-6, atol=1e-6)
+    other = _images(1, 2, 40)
+    got = tvit.preprocess(torch.from_numpy(other), tcfg).numpy()
+    want = np.asarray(jvit.preprocess(jnp.asarray(other), jcfg))
+    assert got.shape == want.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 * 40 * 2.0 ** -24 / min(tcfg.std))
     with pytest.raises(ValueError):
-        tvit.preprocess(torch.from_numpy(_images(1, 2, 40)), tcfg)
+        tvit.preprocess(torch.from_numpy(_images(1, 2, 40)[..., :2].copy()),
+                        tcfg)
 
 
 def test_encoder_chain_matches_jax_chain_reference():

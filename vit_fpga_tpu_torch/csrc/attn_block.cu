@@ -53,7 +53,9 @@ int vft_attn_block_init() {
 // x, out: (B * n_pad, D) bf16; ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16;
 // bqkv: (3D,) f32; wo: (D, D) bf16.  Scratch: stats (B * n_pad, 2) f32,
 // qkv (B * n_pad, 3D) and ao (B * n_pad, D) bf16; every pointer 16-byte
-// aligned.  Head dim 64, 1 <= n_valid <= n_pad <= 1024.  safe selects the
+// aligned.  Head dim 64, 1 <= n_valid <= n_pad, batch x heads <=
+// MW_MAX_GRID_Y; any n_pad (the wrapper takes the JAX attn_block_pallas
+// geometry, up to 3137 tokens at ViT-B/16).  safe selects the
 // max-subtract softmax.  *long_path is set to 1 when more than 256 keys
 // are valid (the same kernels; the launch checks count those launches
 // apart) and 0 otherwise.  Everything is enqueued on `stream`, which
@@ -64,7 +66,7 @@ int vft_attn_block_fwd(const void* x, const void* ls, const void* lb, const void
                        int safe, float eps, float scale, void* stream, int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d != heads * AH_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      n_pad > AH_MAX_TOKENS)
+      (long long)batch * heads > MW_MAX_GRID_Y)
     return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
   float* stf = static_cast<float*>(stats);

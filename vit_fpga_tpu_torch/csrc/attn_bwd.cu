@@ -57,7 +57,13 @@
 //       every query row; dk = bf16(dk), dv = bf16(dv), zero past n_valid.
 // Query rows past n_valid are computed, as on the TPU.  Rows past n_pad in
 // the last query tile land zero-filled (q = gw = 0) and add nothing.  No
-// token limit below 1024 (the attention half's gate).
+// token limit: both kernels stream their tiles, (d)'s grid has nq_pad /
+// 128 columns and (e) sweeps that many query tiles, the row values take
+// (B H, nq_pad / 128, 3, 128) floats and every row count of the products
+// is B n_pad; only batch x heads <= MW_MAX_GRID_Y (the grids' rows)
+// bounds the launch.  The JAX package runs its Pallas backward where
+// _bwd_fits holds (ViT-B/16 up to 640 px, 1608 tokens), the wrapper's
+// route too.
 //
 // What bounds it on the H100: seven projection-sized products (22 R D^2
 // flops, R = B * n_pad) plus six score-space products (6 x 2 B H n_pad
@@ -77,7 +83,6 @@
 
 namespace VFT_NS {
 
-constexpr int AB_MAX_TOKENS = 1024;  // n_pad the gate takes (the attention half's)
 constexpr int AB_LONG_KEYS = 256;    // more valid keys: counted apart (*long_path)
 // The register tiles are 64 x 64, half a 128-row stage tile (8 KB down it):
 // s, dP, the register-A operand and an accumulator then fit in the 168
@@ -547,8 +552,9 @@ size_t vft_attn_bwd_workspace(int batch, int n_pad, int d) {
 // x, g, dx: (B * n_pad, D) bf16; ls, lb: (D,) f32; wqkv: (D, 3D) bf16;
 // bqkv: (3D,) f32; wo: (D, D) bf16.  Outputs, f32: dln (2D,) = [dls | dlb],
 // dwqkv (D, 3D), dbqkv (3D,), dwo (D, D), dbo (D,).  work:
-// vft_attn_bwd_workspace bytes.  Head dim 64, 1 <= n_valid <= n_pad <=
-// 1024, B * n_pad a multiple of 8, D <= 2048; every pointer 16-byte
+// vft_attn_bwd_workspace bytes.  Head dim 64, 1 <= n_valid <= n_pad,
+// batch x heads <= MW_MAX_GRID_Y, B * n_pad a multiple of 8, D <= 2048
+// (LNB_MAX_D); every pointer 16-byte
 // aligned.  *long_path is set to 1 when more than 256 keys are valid (the
 // same kernels; the launch checks count those launches apart) and 0
 // otherwise.  Everything is enqueued on `stream`, which belongs to the
@@ -561,7 +567,7 @@ int vft_attn_block_bwd(const void* x, const void* g, const void* ls, const void*
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int rows = batch * n_pad;
   if (d != heads * MW_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      n_pad > AB_MAX_TOKENS || rows % 8 || d > LNB_MAX_D)
+      (long long)batch * heads > MW_MAX_GRID_Y || rows % 8 || d > LNB_MAX_D)
     return cudaErrorInvalidValue;
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   int sms = 0;

@@ -4,12 +4,13 @@
 //
 //   (a) gw_kernel<LN>       qkv = bf16(LN(x; mu, rstd, ls, lb) @ Wqkv + bqkv)
 //   (b) mha_wgmma_kernel    per (128 query rows, image x head), keys at or
-//                           past n_valid masked, over 128-key tiles for
-//                           every length the gate takes (up to 1024
-//                           tokens): MODE MW_MAXFREE e = exp(clip(s * scale,
-//                           -70, 80)) in one pass, or MW_SAFE e = exp(s *
-//                           scale - max) after a pass for the row max; ao =
-//                           bf16((bf16(e) @ v) * (1 / sum(e)))
+//                           past n_valid masked, streamed in 128-key tiles
+//                           at any length (the wrappers take the JAX
+//                           planner's geometry, up to 3137 tokens at
+//                           ViT-B/16): MODE MW_MAXFREE e = exp(clip(s *
+//                           scale, -70, 80)) in one pass, or MW_SAFE e =
+//                           exp(s * scale - max) after a pass for the row
+//                           max; ao = bf16((bf16(e) @ v) * (1 / sum(e)))
 //   (c) gw_kernel           out = x + bf16(ao @ Wo + bo)
 //
 // (b) reads the packed qkv scratch through 4-D tensor maps, {64, rows,
@@ -22,7 +23,6 @@ namespace VFT_NS {
 
 constexpr int AH_DH = 64;            // head dim
 constexpr int AH_LONG_KEYS = 256;    // more valid keys: counted apart (*long_path)
-constexpr int AH_MAX_TOKENS = 1024;  // n_pad the gate takes
 
 // Finds the driver's tensor-map encoder and opts the GEMM and the attention
 // in MODE in to their shared memory, on the current device.
@@ -37,7 +37,9 @@ inline cudaError_t attn_half_enable() {
 // x, out: (B * n_pad, D) bf16; stats: (B * n_pad, 2) f32; ls, lb, bo: (D,)
 // f32; wqkv: (D, 3D) bf16; bqkv: (3D,) f32; wo: (D, D) bf16; qkv (B *
 // n_pad, 3D) and ao (B * n_pad, D) bf16 scratch; every pointer 16-byte
-// aligned.  Head dim 64, 1 <= n_valid <= n_pad <= 1024.  *long_path is set
+// aligned.  Head dim 64, 1 <= n_valid <= n_pad, batch x heads <=
+// MW_MAX_GRID_Y (the attention's grid rows); the keys stream through the
+// ring, so no bound on n_pad is set here.  *long_path is set
 // to 1 when more than 256 keys are valid (the same kernels; the launch
 // checks count those launches apart) and 0 otherwise.  Enqueues (a)-(c) on
 // `st`.
@@ -49,7 +51,7 @@ inline cudaError_t launch_attn_half(const bf16* x, const float* stats, const flo
                                     float scale, cudaStream_t st, int* long_path) {
   static_assert(MODE == MW_MAXFREE || MODE == MW_SAFE, "the attention half's two softmaxes");
   if (d != heads * AH_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      n_pad > AH_MAX_TOKENS)
+      (long long)batch * heads > MW_MAX_GRID_Y)
     return cudaErrorInvalidValue;
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   const int rows = batch * n_pad;

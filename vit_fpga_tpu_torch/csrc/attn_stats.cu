@@ -9,8 +9,10 @@
 //                          max-free softmax in one pass over 128-key tiles:
 //                          s = q k^T in f32, e = exp(clip(s * scale, -70,
 //                          80)) with keys at or past n_valid masked to 0,
-//                          ao = bf16((bf16(e) @ v) * (1 / sum(e))), for
-//                          every length the gate takes (up to 1024 tokens)
+//                          ao = bf16((bf16(e) @ v) * (1 / sum(e))), the
+//                          keys streamed at any length (the wrapper takes
+//                          the JAX attn_block_stats_pallas geometry: up to
+//                          3137 tokens, ViT-B/16 @896 px)
 //   (c) gw_kernel          out = x + bf16(ao @ Wo + bo)
 //   (d) row_stats          next (mu, rstd) of out, only when asked for
 //
@@ -56,7 +58,8 @@ int vft_attn_init() { return attn_half_enable<MW_MAXFREE>(); }
 // x, out: (B * n_pad, D) bf16; stats, stats_out: (B * n_pad, 2) f32;
 // ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16; bqkv: (3D,) f32; wo: (D, D) bf16;
 // qkv (B * n_pad, 3D) and ao (B * n_pad, D) are bf16 scratch; every
-// pointer 16-byte aligned.  Head dim 64, 1 <= n_valid <= n_pad <= 1024.
+// pointer 16-byte aligned.  Head dim 64, 1 <= n_valid <= n_pad, batch x
+// heads <= MW_MAX_GRID_Y.
 // stats_out may be null (no next stats).  *long_path is set to 1 when more
 // than 256 keys are valid (the same kernel; the launch checks count those
 // launches apart) and 0 otherwise.  Everything is enqueued on `stream`,

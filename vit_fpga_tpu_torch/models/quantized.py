@@ -48,8 +48,10 @@ kernels on a CUDA device and their plain versions on the
 CPU.  Where the JAX int8 planners do not fit the block kernels
 (``_int8_block_fits``: ViT-B/16 at 1024 px) a dynamic tree takes the
 per-linear route, four K14 launches around ``mha_qkv`` (K9 from 1024
-tokens); a static tree raises there (the JAX ``*_ref`` route is not
-ported).  The CLIP towers' int8 forwards are not ported yet.
+tokens); a static tree there runs the JAX ``*_ref`` blocks, plain torch
+(``ops/quant_block.attn_block_int8_static_ref``,
+``attn_block_int8s_static_ref``, ``mlp_block_int8_static_ref``).  The
+CLIP towers' int8 forwards are not ported yet.
 
 The per-tensor family (``quantize_vit``, ``vit_forward_int8``,
 ``make_vit_forward_int8``) is the JAX package's bit-exact datapath:
@@ -73,10 +75,14 @@ from ..ops.common import pad_sublane, round_up, row_stats
 from ..ops.patch_embed import embed_tokens_dotg
 from ..ops.attention import mha_qkv
 from ..ops.quant_block import (attn_block_int8, attn_block_int8_static,
+                               attn_block_int8_static_ref,
                                attn_block_int8_static_scores,
-                               attn_block_int8_stats, mlp_block_int8,
-                               mlp_block_int8_static, mlp_block_int8_stats,
-                               mlp_plan_int8, score_slots_int8)
+                               attn_block_int8_stats,
+                               attn_block_int8s_static_ref, mlp_block_int8,
+                               mlp_block_int8_static,
+                               mlp_block_int8_static_ref,
+                               mlp_block_int8_stats, mlp_plan_int8,
+                               score_slots_int8)
 from ..ops.quant_fused import (int8_linear_fused, kmajor,
                                QMAX, quantize_weight_colwise)
 from ..ops.vit_stack import (full_supported, stack_supported, vit_full_int8,
@@ -489,15 +495,12 @@ def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
                    n_valid: int) -> torch.Tensor:
     """One calibrated static-scale block on padded (B, n_pad, D) bf16
     tokens: K18 -> K17, or K22 -> K17 where :func:`_int8_scores_ok`.
-    Where :func:`_int8_block_fits` is False the JAX package runs its
-    ``*_ref`` functions, which are not ported: raises."""
+    Where :func:`_int8_block_fits` is False (ViT-B/16 at 1024 px), the JAX
+    package's ``*_ref`` functions, plain torch on either device."""
     b, n_pad, d = x.shape
     act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
     if not _int8_block_fits(cfg):
-        raise NotImplementedError(
-            "the static int8 tree past the block kernels' geometry runs the "
-            "JAX package's attn_block_int8_static_ref / "
-            "mlp_block_int8_static_ref route, which is not ported")
+        return _qblock_static_ref(x, blk, cfg, n_valid, act)
     if _int8_scores_ok(blk, cfg):
         x = attn_block_int8_static_scores(
             x, blk["sc_qk"], blk["pv_fold"], blk["ln1_scale"],
@@ -511,6 +514,32 @@ def _qblock_static(x: torch.Tensor, blk: Params, cfg: vit_mod.ViTConfig,
             blk["wo_s"], blk["bo"], cfg.num_heads, eps=cfg.ln_eps,
             n_valid=n_valid)
     y = mlp_block_int8_static(
+        x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
+        blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"],
+        blk["w2_s"], blk["b2"], eps=cfg.ln_eps, act=act)
+    return y.reshape(b, n_pad, d)
+
+
+def _qblock_static_ref(x: torch.Tensor, blk: Params,
+                       cfg: vit_mod.ViTConfig, n_valid: int,
+                       act: str) -> torch.Tensor:
+    """The JAX ``_qblock_static``'s ``*_ref`` branch: the int8-scores
+    attention reference where :func:`_int8_scores_ok`, else the static one,
+    then the static MLP reference."""
+    b, n_pad, d = x.shape
+    if _int8_scores_ok(blk, cfg):
+        x = attn_block_int8s_static_ref(
+            x, blk["sc_qk"], blk["pv_fold"], blk["ln1_scale"],
+            blk["ln1_bias"], blk["wqkv_q"], blk["wqkv_qs"], blk["bqkv_qs"],
+            blk["wo_q"], blk["wo_s"], blk["bo"], cfg.num_heads,
+            eps=cfg.ln_eps, n_valid=n_valid)
+    else:
+        x = attn_block_int8_static_ref(
+            x, blk["inv_ao"], blk["ln1_scale"], blk["ln1_bias"],
+            blk["wqkv_q"], blk["wqkv_s"], blk["bqkv"], blk["wo_q"],
+            blk["wo_s"], blk["bo"], cfg.num_heads, eps=cfg.ln_eps,
+            n_valid=n_valid)
+    y = mlp_block_int8_static_ref(
         x.reshape(b * n_pad, d), blk["inv_ah"], blk["ln2_scale"],
         blk["ln2_bias"], blk["w1_q"], blk["w1_s"], blk["b1"], blk["w2_q"],
         blk["w2_s"], blk["b2"], eps=cfg.ln_eps, act=act)

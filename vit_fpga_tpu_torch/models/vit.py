@@ -15,8 +15,9 @@ leading depth axis, linear weights as (in, out).  The forward is
      leaves the chain (``_stats_chain_supported``: ``safe_softmax``,
      ``remat``, an explicit attention or MLP impl, or an attention plan
      with no score slot or with q-slot reuse, e.g. ViT-B/16 at 1024 px):
-     the fused half [attn_block: K4 fwd, K23 bwd] where ``attn_plan`` fits
-     it, else LN -> QKV GEMM -> ``ops/attention.mha_qkv`` (flash attention
+     the fused half [attn_block: K4 fwd; K23 bwd where the JAX
+     ``_bwd_fits`` holds, else autograd of ``attn_block_xla``] where
+     ``attn_plan`` fits it, else LN -> QKV GEMM -> ``ops/attention.mha_qkv`` (flash attention
      K9 from 1024 tokens, else K7) -> out-proj; then fused_mlp (K5 fwd, K24
      bwd), fused_mlp_chunked (K6) or the plain torch MLP, by the JAX rules
   -> LayerNorm of the prefix row -> f32 head
@@ -43,8 +44,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..ops.attention import mha_qkv
-from ..ops.attn_block import (attn_block, attn_block_stats, attn_block_xla,
-                              attn_plan)
+from ..ops.attn_block import (attn_block, attn_block_fits, attn_block_stats,
+                              attn_block_xla, attn_stats_fits)
 from ..ops.common import pad_sublane, round_up, row_stats
 from ..ops.fused_mlp import (MLP_BIG_ROWS, fused_mlp, fused_mlp_chunked,
                               fused_mlp_chunked_stats, fused_mlp_stats,
@@ -238,16 +239,98 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def preprocess(images_u8: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """uint8 (B, S, S, 3) -> normalized compute-dtype (B, S, S, 3).
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
 
-    Only S x S input is taken; the JAX package's bilinear resize of other
-    sizes is not ported yet."""
-    s = cfg.image_size
-    if tuple(images_u8.shape[1:]) != (s, s, 3):
-        raise ValueError(f"preprocess takes (B, {s}, {s}, 3) images, got "
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel, a = -0.5, on x >= 0."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+_RESIZE_KERNELS = {"bilinear": _triangle, "cubic": _keys_cubic}
+
+
+def _resize_weights(in_size: int, out_size: int, kernel,
+                    device) -> torch.Tensor:
+    """(in_size, out_size) f32 weights of one resized dimension: the
+    algorithm of ``jax.image``'s ``compute_weight_mat`` at translation 0
+    with antialiasing (the kernel widened by 1 / scale when downsampling),
+    op for op in f32."""
+    f32 = torch.float32
+    scale = np.float32(out_size / in_size)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = float(max(inv_scale, np.float32(1.0)))
+    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) \
+        * float(inv_scale) - 0.5
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32,
+                                          device=device)[:, None]).abs() \
+        / kernel_scale
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
+    """``jax.image.resize(x, shape, method)`` (antialiased, the JAX
+    default) for "bilinear" and "cubic", in f32: each dimension whose size
+    changes is contracted with its weight matrix (separable), in true f32
+    on the card (``Precision.HIGHEST``)."""
+    if method not in _RESIZE_KERNELS:
+        raise ValueError(f"unknown resize method {method!r}")
+    shape = tuple(shape)
+    if len(shape) != x.dim():
+        raise ValueError(f"shape {shape} does not match x {tuple(x.shape)}")
+    out = x.float()
+    with true_f32():
+        for dim, (m, n) in enumerate(zip(x.shape, shape)):
+            if m != n:
+                w = _resize_weights(m, n, _RESIZE_KERNELS[method], x.device)
+                out = torch.tensordot(out, w, dims=([dim], [0])).movedim(
+                    -1, dim)
+    return out
+
+
+def interpolate_pos_embed(params: Params, old_image_size: int,
+                          new_image_size: int, patch_size: int) -> Params:
+    """The JAX ``interpolate_pos_embed``: the learned position grid
+    resized with "cubic" (:func:`resize`) so that a checkpoint trained at
+    one resolution serves at another; the prefix rows carried over
+    unchanged."""
+    if old_image_size == new_image_size:
+        return params
+    old_g = old_image_size // patch_size
+    new_g = new_image_size // patch_size
+    pos = params["pos_embed"]          # (1, old_g^2 + npre, D)
+    d = pos.shape[-1]
+    npre = params["cls_token"].shape[1]
+    grid = pos[:, npre:].reshape(1, old_g, old_g, d).float()
+    grid = resize(grid, (1, new_g, new_g, d), "cubic")
+    out = dict(params)
+    out["pos_embed"] = torch.cat(
+        [pos[:, :npre], grid.reshape(1, new_g * new_g, d).to(pos.dtype)],
+        dim=1)
+    return out
+
+
+def preprocess(images_u8: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """uint8 (B, h, w, 3) -> normalized compute-dtype (B, S, S, 3): other
+    sizes than S x S resized to it ("bilinear", :func:`resize`) after the
+    scaling to [0, 1] and before the normalisation, as the JAX
+    ``preprocess``."""
+    if images_u8.dim() != 4 or images_u8.shape[-1] != 3:
+        raise ValueError(f"preprocess takes (B, h, w, 3) images, got "
                          f"{tuple(images_u8.shape)}")
     x = images_u8.float() / 255.0
+    s = cfg.image_size
+    if tuple(x.shape[1:3]) != (s, s):
+        x = resize(x, (x.shape[0], s, s, 3), "bilinear")
     mean = torch.tensor(cfg.mean, dtype=torch.float32, device=x.device)
     std = torch.tensor(cfg.std, dtype=torch.float32, device=x.device)
     return ((x - mean) / std).to(cfg.compute_dtype)
@@ -343,23 +426,20 @@ def _itemsize(cfg: ViTConfig) -> int:
     return 2 if cfg.dtype == "bfloat16" else 4
 
 
-def _attn_plan(cfg: ViTConfig, batch: int = 1):
-    """The JAX package's attention plan for this geometry (token rows
-    padded to 8, keys to 128)."""
-    return attn_plan(cfg.num_heads, cfg.hidden_dim, _n_pad(cfg),
-                     round_up(cfg.seq_len, 128), _itemsize(cfg), batch=batch)
-
-
 def _attn_block_fits(cfg: ViTConfig) -> bool:
     """Whether the JAX package runs the fused attention half (K4) under
-    "pallas" (the JAX ``_attn_block_fits``): its plan has a score slot."""
-    return _attn_plan(cfg).n_sc >= 1
+    "pallas" (the JAX ``_attn_block_fits``): K4's own gate,
+    :func:`~vit_fpga_tpu_torch.ops.attn_block.attn_block_fits`."""
+    return attn_block_fits(1, cfg.seq_len, cfg.hidden_dim, cfg.num_heads,
+                           _itemsize(cfg))
 
 
 def _stats_chain_supported(cfg: ViTConfig, batch: int) -> bool:
     """The JAX ``_stats_chain_supported`` as on a TPU: no exact softmax,
     no remat, attention and MLP impls "auto" or "pallas", an attention plan
-    with a score slot and no q-slot reuse at this batch, and an MLP plan
+    with a score slot and no q-slot reuse at this batch (K1's own gate,
+    :func:`~vit_fpga_tpu_torch.ops.attn_block.attn_stats_fits`), and an MLP
+    plan
     (:func:`_stats_chain_mlp_plan`).  So ViT-B/16 leaves the chain at
     1024 px (no slot: the per-block path with flash attention), and CLIP
     ViT-L/14 at an odd batch (q-slot reuse: the per-block kernels)."""
@@ -367,8 +447,8 @@ def _stats_chain_supported(cfg: ViTConfig, batch: int) -> bool:
             or cfg.attn_impl not in ("auto", "pallas")
             or cfg.mlp_impl not in ("auto", "pallas")):
         return False
-    plan = _attn_plan(cfg, batch)
-    if plan.n_sc < 1 or plan.reuse_q:
+    if not attn_stats_fits(batch, cfg.seq_len, cfg.hidden_dim,
+                           cfg.num_heads, _itemsize(cfg)):
         return False
     return _stats_chain_mlp_plan(cfg, batch * _n_pad(cfg)) is not None
 

@@ -7,21 +7,23 @@ CPU tensor:
 
 * K1 ``attn_block_stats`` (``csrc/attn_stats.cu``), the stats-chain half
   that serving runs: replaces ``vit_fpga_tpu/ops/attn_block.py:
-  _attn_stats_kernel`` (with its ``_mha_loop``), up to 1024 tokens: the
-  wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (LN prologue, bias and
-  residual epilogues) and the max-free one-pass mode of
+  _attn_stats_kernel`` (with its ``_mha_loop``), wherever the JAX wrapper
+  admits the geometry (:func:`attn_stats_fits`: up to ViT-B/16 @896 px's
+  3137 tokens): the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (LN
+  prologue, bias and residual epilogues) and the max-free one-pass mode of
   ``csrc/mha_wgmma.cuh``'s attention, one kernel at every length;
 * K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
   replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
   one-pass LN statistics computed in the kernel and the exact
-  (``safe_softmax``) or max-free softmax, up to 1024 tokens: K1's launch
+  (``safe_softmax``) or max-free softmax, wherever the JAX wrapper admits
+  the geometry (:func:`attn_block_fits`): K1's launch
   sequence (``csrc/attn_half.cuh``) after a row pass, the attention in
   ``csrc/mha_wgmma.cuh``'s max-free mode or its safe mode, which sweeps
   the keys twice (the row max first, then ``exp(s - max)`` rounded to bf16
   before the division by the row sum);
 * K23 ``attn_block_bwd`` (``csrc/attn_bwd.cu``), K4's backward: replaces
   ``_attn_bwd_kernel`` (wrapper ``attn_block_bwd_pallas``), the per-head
-  arithmetic of its non-pair branch, up to 1024 tokens: its five products
+  arithmetic of its non-pair branch, at any length: its five products
   on ``csrc/gemm_wgmma.cuh``'s GEMM in the backward's layouts, and the
   attention backward on ``csrc/mha_wgmma.cuh``'s machinery, tiled over
   128 keys and 128 query rows (three sweeps over the keys per query tile
@@ -29,7 +31,10 @@ CPU tensor:
   key tile for dk and dv).
 
 ``attn_block`` is the differentiable half (``AttnBlockFunction``): K4
-forward, K23 backward, saving only the inputs, as the JAX ``custom_vjp``.
+forward, saving only the inputs, as the JAX ``custom_vjp``; its backward
+routes as the JAX ``_attn_block_bwd`` does, by the copied ``_bwd_fits``:
+K23 where it holds, else the autograd gradient of :func:`attn_block_xla`
+over a recompute (the JAX package's XLA VJP at those geometries).
 
 ``attn_plan`` is the JAX package's VMEM tier planner, copied: the port
 reads it only to decide which function the JAX package computes (the
@@ -70,14 +75,6 @@ from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
                      round_up, row_stats)
 
 _NEG_INF = -1e30
-# K1 and K4 take up to LONG_MAX_TOKENS tokens (csrc/attn_half.cuh
-# AH_MAX_TOKENS); their C entries report a launch with more than 256 valid
-# keys (one kernel at every length; the launch checks count those apart).
-# Where the JAX package keeps the chain
-# (attn_plan below), it runs K1 up to 3137 tokens (ViT-B/16 @896 px); past
-# 1024 the port's K1 raises on the card.  K4 and its backward K23 take the
-# same tiles and limit.
-LONG_MAX_TOKENS = 1024
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
 
@@ -143,6 +140,41 @@ def attn_plan(n_heads: int, d: int, n_pad: int, kv_pad: int,
         return AttnPlan(1, min(n_heads, (big - fixed(1)) // slot), False,
                         _BIG_VMEM_BYTES)
     return AttnPlan(1, 0, True, 0)
+
+
+def _plan_of(b: int, n: int, d: int, num_heads: int, itemsize: int):
+    """The JAX wrappers' plan for x (b, n, d): tokens padded to 8, keys to
+    128."""
+    return attn_plan(num_heads, d, round_up(n, 8), round_up(n, 128),
+                     itemsize, batch=b)
+
+
+def attn_stats_fits(b: int, n: int, d: int, num_heads: int,
+                    itemsize: int = 2) -> bool:
+    """The JAX ``attn_block_stats_pallas`` gate: its plan has a score slot
+    and no q-slot reuse (an ao-scratch tier).  K1 launches where it holds
+    (ViT-B/16 up to 896 px, 3137 tokens), and raises elsewhere."""
+    plan = _plan_of(b, n, d, num_heads, itemsize)
+    return plan.n_sc >= 1 and not plan.reuse_q
+
+
+def attn_block_fits(b: int, n: int, d: int, num_heads: int,
+                    itemsize: int = 2) -> bool:
+    """The JAX ``attn_block_pallas`` gate: its plan has a score slot.  K4
+    launches where it holds, and raises elsewhere."""
+    return _plan_of(b, n, d, num_heads, itemsize).n_sc >= 1
+
+
+def _bwd_fits(n_heads: int, d: int, n_pad: int, kv_pad: int,
+              itemsize: int) -> bool:
+    """The JAX ``_bwd_fits`` (``vit_fpga_tpu/ops/attn_block.py:724-732``),
+    arithmetic for arithmetic: whether the JAX ``_attn_block_bwd`` runs its
+    Pallas backward (K23 here) or the XLA VJP of ``attn_block_xla``."""
+    resident = (4 * d * d * itemsize          # wqkv + wo
+                + 4 * d * d * 4               # dwqkv + dwo (f32)
+                + 2 * kv_pad * 3 * d * itemsize   # qkv + dqkv panels
+                + 6 * n_pad * d * itemsize)   # x/g/dx tiles + ao
+    return resident + 2 * n_pad * kv_pad * 4 <= 64 * 1024 * 1024
 
 
 def _mha_tpu(qkv: torch.Tensor, num_heads: int, n_valid: int,
@@ -231,7 +263,8 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     Query rows at or past ``n_valid`` are computed (garbage, as on the
     TPU); keys there are masked.  A CPU tensor runs
     :func:`attn_block_stats_plain`; a CUDA tensor launches the kernel
-    (bf16, head dim 64, 1 <= n_valid <= n_pad <= 1024) or raises."""
+    (bf16, head dim 64, 1 <= n_valid <= n_pad, the geometry
+    :func:`attn_stats_fits` admits) or raises."""
     if x.device.type == "cpu":
         return attn_block_stats_plain(x, stats, ln_scale, ln_bias, wqkv,
                                       bqkv, wo, bo, num_heads, eps=eps,
@@ -246,11 +279,17 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     if d % num_heads:
         raise ValueError(f"D={d} not divisible by {num_heads} heads")
     dh = d // num_heads
-    if dh != 64 or not 1 <= n_valid <= n <= LONG_MAX_TOKENS:
+    if dh != 64 or not 1 <= n_valid <= n:
         raise ValueError(f"kernel takes head dim 64 and 1 <= n_valid <= "
-                         f"n_pad <= {LONG_MAX_TOKENS} (dh={dh}, "
-                         f"n_valid={n_valid}, n_pad={n})")
+                         f"n_pad (dh={dh}, n_valid={n_valid}, n_pad={n})")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
+    if not attn_stats_fits(b, n, d, num_heads, x.element_size()):
+        plan = _plan_of(b, n, d, num_heads, x.element_size())
+        raise ValueError(
+            f"K1 takes the JAX attn_block_stats_pallas geometry: attn_plan "
+            f"needs a score slot and no q-slot reuse (n_sc={plan.n_sc}, "
+            f"reuse_q={plan.reuse_q} at B={b}, n_pad={n}, D={d}, "
+            f"{num_heads} heads)")
     check_activation(stats, (b, n, 2), torch.float32, "stats")
     dev = x.device
     f32, bf = torch.float32, torch.bfloat16
@@ -290,8 +329,9 @@ attn_block_stats.launches_long = 0    # of those, with more than 256 valid keys
 
 def _cuda_geometry(x, num_heads, n_valid, *, kernel):
     """Shape checks shared by the K4 / K23 launches: (b, n, d, n_valid).
-    ``kernel`` names the launch in the error; both take up to
-    LONG_MAX_TOKENS tokens."""
+    ``kernel`` names the launch in the error.  K4 takes the geometry
+    :func:`attn_block_fits` admits (the JAX ``attn_block_pallas`` gate);
+    K23 any length (the backward routes by :func:`_bwd_fits` before it)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, n_pad, D), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -302,14 +342,13 @@ def _cuda_geometry(x, num_heads, n_valid, *, kernel):
     if d // num_heads != 64 or n_valid < 1:
         raise ValueError(f"kernel takes head dim 64 and at least one valid "
                          f"token (dh={d // num_heads}, n_valid={n_valid})")
-    if n > LONG_MAX_TOKENS:
-        # The JAX package runs its Pallas halves on past 1024 tokens (K1
-        # up to ViT-B/16 @896 px, the backward up to about 1024 at D 1024).
-        what = ("the attention backward K23" if kernel == "K23"
-                else "the per-block attention K4")
-        raise ValueError(f"n_pad={n}: {what} takes at most "
-                         f"{LONG_MAX_TOKENS} tokens (ROADMAP.md, section 1)")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
+    if kernel == "K4" and not attn_block_fits(b, n, d, num_heads,
+                                              x.element_size()):
+        raise ValueError(
+            f"K4 takes the JAX attn_block_pallas geometry: attn_plan needs "
+            f"a score slot (n_sc=0 at B={b}, n_pad={n}, D={d}, {num_heads} "
+            f"heads; the unfused half with flash attention runs there)")
     return b, n, d, n_valid
 
 
@@ -334,8 +373,9 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
     """Per-block attention half (K4): x (B, N, D) -> x + OutProj(MHA(QKV(
     LN(x)))).  Query rows at or past ``n_valid`` are computed, keys there
     masked.  A CPU tensor runs :func:`attn_block_fwd_plain`; a CUDA tensor
-    launches the kernel (bf16, head dim 64, n_pad <= 1024; a launch past
-    256 valid keys is counted in ``launches_long`` too) or raises."""
+    launches the kernel (bf16, head dim 64, the geometry
+    :func:`attn_block_fits` admits; a launch past 256 valid keys is counted
+    in ``launches_long`` too) or raises."""
     if not residual:
         raise NotImplementedError(
             "residual=False (the tensor-parallel partial) comes with the "
@@ -434,9 +474,10 @@ def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
     output -> ``(dx, dls, dlb, dwqkv, dbqkv, dwo, dbo)``, dx in x's dtype,
     the weight, bias and LN gradients f32.  A CPU tensor runs
     :func:`attn_block_bwd_plain`; a CUDA tensor launches the kernel
-    (bf16, head dim 64, n_valid <= n_pad <= 1024, B * n_pad a multiple of
-    8; a launch past 256 valid keys is counted in ``launches_long`` too)
-    or raises."""
+    (bf16, head dim 64, any n_valid <= n_pad, B * n_pad a multiple of 8;
+    a launch past 256 valid keys is counted in ``launches_long`` too) or
+    raises.  :class:`AttnBlockFunction` calls it where :func:`_bwd_fits`
+    holds."""
     if x.device.type == "cpu":
         return attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,
                                     num_heads, eps=eps, n_valid=n_valid)
@@ -482,8 +523,22 @@ attn_block_bwd.launches = 0
 attn_block_bwd.launches_long = 0      # of those, past 256 valid keys
 
 
+def attn_block_xla_vjp(prims, g, num_heads: int, eps: float,
+                       n_valid: int | None):
+    """The gradients of :func:`attn_block_xla` at the primals ``prims``
+    (x, ln_scale, ln_bias, wqkv, bqkv, wo, bo) for the cotangent ``g``, by
+    autograd over a recompute: the JAX ``_attn_block_bwd``'s ``jax.vjp``
+    route, each gradient in its primal's dtype."""
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True) for p in prims]
+        out = attn_block_xla(*leaves, num_heads, eps=eps, n_valid=n_valid)
+        return torch.autograd.grad(out, leaves, g)
+
+
 class AttnBlockFunction(torch.autograd.Function):
-    """K4 forward, K23 backward.  Saves only the inputs and recomputes in
+    """K4 forward; the backward as the JAX ``_attn_block_bwd`` routes it:
+    K23 (its plain version on the CPU) where :func:`_bwd_fits` holds, else
+    :func:`attn_block_xla_vjp`.  Saves only the inputs and recomputes in
     the backward (the JAX ``custom_vjp``'s residuals); each gradient comes
     back in its primal's dtype."""
 
@@ -501,8 +556,13 @@ class AttnBlockFunction(torch.autograd.Function):
         prims = ctx.saved_tensors
         x, ls, lb, wqkv, bqkv, wo, _ = prims
         num_heads, eps, n_valid = ctx.hyper
-        grads = attn_block_bwd(x, ls, lb, wqkv, bqkv, wo,
-                               g.to(x.dtype).contiguous(), num_heads,
+        g = g.to(x.dtype).contiguous()
+        n, d = x.shape[1], x.shape[2]
+        if not _bwd_fits(num_heads, d, round_up(n, 8), round_up(n, 128),
+                         x.element_size()):
+            return tuple(attn_block_xla_vjp(prims, g, num_heads, eps,
+                                            n_valid)) + (None,) * 4
+        grads = attn_block_bwd(x, ls, lb, wqkv, bqkv, wo, g, num_heads,
                                eps=eps, n_valid=n_valid)
         return tuple(gr.to(p.dtype) for gr, p in zip(grads, prims)) + (
             None, None, None, None)
@@ -512,7 +572,9 @@ def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
                eps: float, n_valid: int | None = None,
                safe_softmax: bool = False):
     """Differentiable attention half (counterpart of the JAX
-    ``attn_block``): K4 forward, K23 backward on the card, their plain
-    versions on the CPU."""
+    ``attn_block``): K4 forward, and K23 backward where :func:`_bwd_fits`
+    holds, on the card; their plain versions on the CPU; past
+    :func:`_bwd_fits` the autograd gradient of :func:`attn_block_xla` on
+    either device."""
     return AttnBlockFunction.apply(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                                    num_heads, eps, n_valid, safe_softmax)

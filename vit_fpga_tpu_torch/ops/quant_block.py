@@ -92,7 +92,11 @@ absmax clip at +-127 (``_rint_i8``).
 
 The plain versions copy the Pallas bodies (one-pass LN, the fma GELU,
 the max-free softmax, the static kernels' bf16 ao), not the JAX ``*_ref``
-functions (two-pass LN, exact softmax, f32 ao).
+functions (two-pass LN, exact softmax, f32 ao).  Those are ported too, as
+plain torch on either device (``attn_block_int8_static_ref``,
+``attn_block_int8s_static_ref``, ``mlp_block_int8_static_ref``): the JAX
+package runs them, compiled by XLA, for a static tree where its block
+kernels do not fit (ViT-B/16 at 1024 px).
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ import torch
 
 from ..utils.platform import tanh_plain
 from . import _kernels
+from .attention import mha_qkv_xla
 from .attn_block import _EXP_HI, _EXP_LO, _mha_tpu, attn_plan
 from .common import (check_activation, kernel_operand, pad_sublane,
                      round_up, row_stats)
@@ -850,3 +855,88 @@ def attn_block_int8_static_scores(x, sc_qk, pv_fold, ln_scale, ln_bias,
 
 
 attn_block_int8_static_scores.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The static tree past the block kernels' geometry: the JAX ``*_ref``
+# functions (jnp, which XLA compiles; no Pallas), where the JAX package's
+# _int8_block_fits is False (ViT-B/16 at 1024 px).  Plain torch on either
+# device, as the JAX package runs them on the TPU: two-pass f32 LN, rint
+# to int8, exact int8 products (_int_matmul), mha_qkv_xla's attention.
+# ---------------------------------------------------------------------------
+
+def _ln_two_pass(x, ln_scale, ln_bias, eps):
+    """The ``*_ref`` functions' f32 LayerNorm: jnp.var's two-pass
+    variance, then ((x - mu) * rstd) * scale + bias."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * ln_scale.float()
+            + ln_bias.float())
+
+
+def _f32_scalar(v) -> float:
+    """A per-layer scale as the JAX ``jnp.float32(v)``: rounded to f32."""
+    return float(np.float32(float(v)))
+
+
+def mlp_block_int8_static_ref(x, inv_ah, ln_scale, ln_bias, w1q, w1s, b1,
+                              w2q, w2s, b2, eps: float = 1e-6,
+                              act: str = "gelu_tanh"):
+    """The JAX ``mlp_block_int8_static_ref``: x (T, D) -> x + bf16(y) with
+    the folded args of :func:`mlp_block_int8_static`."""
+    xq = _rint_i8(_ln_two_pass(x, ln_scale, ln_bias, eps))
+    h = _int_matmul(xq, w1q) * w1s.float() + b1.float()
+    hq = _rint_i8(_apply_act_scaled(h, act, _f32_scalar(inv_ah)))
+    y = _int_matmul(hq, w2q) * w2s.float() + b2.float()
+    return x + y.to(x.dtype)
+
+
+def attn_block_int8_static_ref(x, inv_ao, ln_scale, ln_bias, wqkvq, wqkvs,
+                               bqkv, woq, wos, bo, num_heads: int,
+                               eps: float = 1e-6,
+                               n_valid: int | None = None):
+    """The JAX ``attn_block_int8_static_ref``: the folded args of
+    :func:`attn_block_int8_static`; the attention output quantized with
+    the static scale, everything else f32 (the exact softmax of
+    ``mha_qkv_xla``)."""
+    b, n, d = x.shape
+    xq = _rint_i8(_ln_two_pass(x, ln_scale, ln_bias, eps))
+    qkv = (_int_matmul(xq.reshape(b * n, d), wqkvq) * wqkvs.float()
+           + bqkv.float()).to(x.dtype).reshape(b, n, 3 * d)
+    o = mha_qkv_xla(qkv, num_heads, n_valid=n_valid).float()
+    oq = _rint_i8(o.reshape(b * n, d) * _f32_scalar(inv_ao))
+    y = _int_matmul(oq, woq) * wos.float() + bo.float()
+    return x + y.reshape(b, n, d).to(x.dtype)
+
+
+def attn_block_int8s_static_ref(x, sc_qk, pv_fold, ln_scale, ln_bias,
+                                wqkvq, wqkv_qs, bqkv_qs, woq, wos, bo,
+                                num_heads: int, eps: float = 1e-6,
+                                n_valid: int | None = None):
+    """The JAX ``attn_block_int8s_static_ref``: the folded args of
+    :func:`attn_block_int8_static_scores`; the int8 panel, the scalar
+    score dequant, the probabilities normalised and then quantized at the
+    fixed 127 scale, int8 products throughout."""
+    b, n, d = x.shape
+    dh = d // num_heads
+    xq = _rint_i8(_ln_two_pass(x, ln_scale, ln_bias, eps))
+    qkv = _rint_i8(_int_matmul(xq.reshape(b * n, d), wqkvq)
+                   * wqkv_qs.float() + bqkv_qs.float()).reshape(b, n, 3 * d)
+
+    def heads(t):
+        return t.reshape(b, n, num_heads, dh).transpose(1, 2)
+
+    q, k, v = (heads(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    s = _int_matmul(q, k.transpose(-1, -2)) * _scores_dequant(sc_qk, dh)
+    s = s.clamp(_EXP_LO, _EXP_HI)
+    if n_valid is not None and n_valid < n:
+        keep = torch.arange(n, device=x.device) < n_valid
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    e = torch.exp(s)
+    r = 1.0 / e.sum(-1, keepdim=True)
+    pq = torch.clamp(torch.round(e * (127.0 * r)), 0.0, QMAX).to(torch.int8)
+    ao = _int_matmul(pq, v) * _f32_scalar(pv_fold)
+    aoq = _rint_i8(ao.transpose(1, 2).reshape(b * n, d))
+    y = _int_matmul(aoq, woq) * wos.float() + bo.float()
+    return x + y.reshape(b, n, d).to(x.dtype)

@@ -10,9 +10,14 @@ training step.
 ``--model`` takes the ViT variants, ``clip_<variant>`` (the CLIP vision
 tower, projection 768: ``clip_vit_l14``, ``clip_vit_b16``) and
 ``deit_<variant>`` (``deit_b16``), with ``bench.py``'s prefix rules;
-``--image`` is the square input size (224, 384, 1024: ViT-B/16 at 1024 px
-runs the per-block path, flash attention K9 and K5, or with ``--int8``
-the per-linear int8 route, K14 and K9; give ``--batch 1`` or ``4``; with
+``--image`` is the square input size (224, 384, 512 ... 896: ViT-B/16's
+bf16 chain past 1024 tokens, K1 and K2, give ``--batch 16`` or ``4``;
+with ``--train`` at 640 px K4, K5, K24 and K23 (the JAX ``_bwd_fits``
+holds up to 640 px), at 768 or 896 px K4, K5, K24 and the autograd
+backward of the attention half, give ``--batch 2`` or ``1``; 1024: ViT-B/16
+at 1024 px runs the per-block path, flash attention K9 and K5, or with
+``--int8`` the per-linear int8 route, K14 and K9; give ``--batch 1`` or
+``4``; with
 ``--int8`` at 384 px the int8 blocks run past 256 keys: K16 and K15, with
 ``--static`` K18 and K17, with ``--chain`` K21b and K21a, with
 ``--scores`` K22 and K17).
