@@ -299,6 +299,18 @@ Phases, each of which raises on failure (exit code != 0):
               _INT8_SCORES on answers 6 uint8 requests at batch 4 with 12
               K22 + 12 K17 + 1 K14 launches a batch and nothing else,
               logits against the CPU plain forward in the int8 band
+ 26. lifecycle  right after the build: device_prefetch's batches each
+              whole the moment they arrive (3 pinned 256 MB batches), and
+              the default-config gradient at ViT-B/16 b8 (the stats chain
+              and its VJP) against the CPU's, 12 K1 + 12 K2 and no K23 /
+              K24; at the end an HF ViT-B/16 checkpoint (1000 classes)
+              through import_hf_vit and make_forward b64 against the CPU
+              (equal top-1) and reloaded from .npz bit for bit; Trainer b16
+              fed by HostLoader + device_prefetch, saved after step 2 and
+              resumed, losses and params bit for bit; CLIP ViT-L/14 int8
+              b64 dynamic / static and CLIP ViT-B/16 int8 latency b1 / b4
+              against the CPU; CLIP training (2 SGD steps, the full text
+              tower) against the CPU; cli serve / calibrate; their times
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -7151,6 +7163,561 @@ def run_past_1024_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the model lifecycle -- an HF checkpoint imported and served, the
+# stats chain's gradient, training fed by the data pipeline and resumed from
+# a saved state, CLIP's int8 towers and contrastive training, cli serve /
+# calibrate
+# ---------------------------------------------------------------------------
+
+class _HFStandIn:
+    """What ``utils/checkpoint.import_hf_vit`` reads of a transformers
+    ``ViTForImageClassification``: its ``config`` and ``state_dict()``
+    (the card's machine has no transformers)."""
+
+    def __init__(self, sd, **config):
+        import types
+        self.config = types.SimpleNamespace(**config)
+        self._sd = sd
+
+    def state_dict(self):
+        return {k: torch.from_numpy(v) for k, v in self._sd.items()}
+
+
+def _hf_vit(seed, image=224, patch=16, hidden=768, depth=12, heads=12,
+            mlp=3072, classes=1000):
+    """A seeded ViT-B/16 checkpoint under ``ViTForImageClassification``'s
+    key names (numpy f32): weights 0.02 normal, LN scales 1 + 0.1 normal."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, std=0.02, mean=0.0):
+        return (rng.standard_normal(shape, dtype=np.float32) * std
+                + np.float32(mean))
+
+    n = (image // patch) ** 2 + 1
+    sd = {"vit.embeddings.cls_token": w(1, 1, hidden),
+          "vit.embeddings.position_embeddings": w(1, n, hidden),
+          "vit.embeddings.patch_embeddings.projection.weight":
+              w(hidden, 3, patch, patch),
+          "vit.embeddings.patch_embeddings.projection.bias": w(hidden)}
+    for i in range(depth):
+        p = f"vit.encoder.layer.{i}."
+        for name, (o, k) in (("attention.attention.query", (hidden, hidden)),
+                             ("attention.attention.key", (hidden, hidden)),
+                             ("attention.attention.value", (hidden, hidden)),
+                             ("attention.output.dense", (hidden, hidden)),
+                             ("intermediate.dense", (mlp, hidden)),
+                             ("output.dense", (hidden, mlp))):
+            sd[p + name + ".weight"] = w(o, k)
+            sd[p + name + ".bias"] = w(o)
+        for ln in ("layernorm_before", "layernorm_after"):
+            sd[p + ln + ".weight"] = w(hidden, std=0.1, mean=1.0)
+            sd[p + ln + ".bias"] = w(hidden, std=0.1)
+    sd["vit.layernorm.weight"] = w(hidden, std=0.1, mean=1.0)
+    sd["vit.layernorm.bias"] = w(hidden, std=0.1)
+    sd["classifier.weight"] = w(classes, hidden)
+    sd["classifier.bias"] = w(classes)
+    return _HFStandIn(sd, image_size=image, patch_size=patch,
+                      hidden_size=hidden, num_hidden_layers=depth,
+                      num_attention_heads=heads, intermediate_size=mlp,
+                      layer_norm_eps=1e-12, hidden_act="gelu")
+
+
+def _top1(label, got, want):
+    """Top-1 against the CPU: equal on every row whose two largest CPU
+    logits lie further apart than twice the largest |card - CPU| (no
+    rounding within that error can flip them).  A row closer than that
+    is a near tie of the seeded weights: its pick is printed with its
+    margin and is not required to agree."""
+    err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    clear = margin > 2 * err
+    same = got.argmax(1) == want.argmax(1)
+    print(f"  {label} top-1: equal on {int(same.sum())}/{len(same)} rows "
+          f"({int(clear.sum())} with a margin above 2 x {err:.3e})")
+    for r in np.flatnonzero(~same):
+        print(f"    row {r}: card {int(got[r].argmax())}, CPU "
+              f"{int(want[r].argmax())}, CPU margin {margin[r]:.3e}")
+    if not same[clear].all():
+        raise AssertionError(f"{label}: top-1 disagrees with the CPU")
+
+
+def _spread_rows(batch, n):
+    """``n`` row indices spread over a batch, its first and last row
+    among them: a fault in a later tile or image shows."""
+    return np.unique(np.linspace(0, batch - 1, n).round().astype(int))
+
+
+def phase_hf_import(batch=64, n_check=8, dev="cuda", geometry=None):
+    """An HF ViT-B/16 checkpoint (1000 classes) through ``import_hf_vit``
+    (the config from its geometry, the softmax window calibrated on the
+    card) and ``make_forward`` at b64: 12 K1 + 12 K2 launches, the logits
+    of ``n_check`` images spread over the batch against the CPU forward in
+    LOGITS_BAND with equal top-1 where no rounding can flip it; a ``save_params`` -> ``load_params`` round trip
+    serves the same logits bit for bit."""
+    import os
+    import tempfile
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.models.convert import params_from_numpy
+    from vit_fpga_tpu_torch.utils import checkpoint as ck
+    t0 = time.perf_counter()
+    params_np, cfg = ck.import_hf_vit(_hf_vit(30, **(geometry or {})),
+                                      device=dev)
+    print(f"hf import: ViT {cfg.hidden_dim} x {cfg.depth}, "
+          f"{cfg.num_classes} classes, act {cfg.hidden_act}, eps "
+          f"{cfg.ln_eps:g}, safe_softmax {cfg.safe_softmax} "
+          f"({time.perf_counter() - t0:.1f} s with the calibration probe)")
+    if cfg.safe_softmax or cfg.hidden_act != "gelu":
+        raise AssertionError("the seeded checkpoint must import cold, gelu")
+    images = np.random.default_rng(30).integers(
+        0, 256, (batch, cfg.image_size, cfg.image_size, 3), np.uint8)
+    fwd = vit.make_forward(cfg, params_from_numpy(params_np, device=dev),
+                           device=dev)
+    fwd(images)
+    counters = _zero_counters()
+    got = fwd(images).cpu().numpy()
+    _check_launches("hf import b64", counters,
+                    {"attn_block_stats": cfg.depth,
+                     "fused_mlp_stats": cfg.depth})
+    if not np.isfinite(got).all():
+        raise AssertionError("hf import: a logit is not finite")
+    rows = _spread_rows(batch, n_check)
+    want = vit.make_forward(cfg, params_from_numpy(params_np, device="cpu"),
+                            device="cpu")(images[rows]).numpy()
+    _rel_to_max(f"hf import b{batch}, rows {rows.tolist()} vs CPU",
+                got[rows], want, LOGITS_BAND)
+    _top1("hf import", got[rows], want)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vit_b16.npz")
+        ck.save_params(path, params_np)
+        again = vit.make_forward(
+            cfg, params_from_numpy(ck.load_params(path), device=dev),
+            device=dev)(images).cpu().numpy()
+    print(f"  save_params -> load_params -> serve: logits bit for bit "
+          f"{np.array_equal(again, got)}")
+    if not np.array_equal(again, got):
+        raise AssertionError("the reloaded checkpoint serves other logits")
+
+
+def _grads_vs(label, got, want, names, band):
+    worst, at = 0.0, ""
+    for n, a, b in zip(names, got, want):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        if not rel <= band or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: gradient {n} off by {rel:.3e} "
+                                 f"(band {band})")
+        if rel > worst:
+            worst, at = rel, n
+    print(f"  {label}: {len(names)} gradients within {band} in relative "
+          f"norm, the worst {worst:.3e} ({at})")
+
+
+def phase_chain_grad(batch=8, dev="cuda", cfg=None):
+    """The gradient of the default-config forward (the stats chain, its
+    VJP: ``vit.StatsChainFunction``) at ViT-B/16 b8, on the card and on
+    the CPU from the same weights and data: the loss in STEP_LOSS_BAND,
+    every gradient in STEP_BAND; the card's run launches 12 K1 + 12 K2
+    and no K23 / K24 (nor K4 / K5)."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.train import trainer as tr
+    cfg = cfg or vit.config("vit_b16", dtype="bfloat16")
+    if not vit._stats_chain_supported(cfg, batch):
+        raise AssertionError("the default config must take the chain")
+    base = vit.init_params(cfg, _gen(31), device="cpu")
+    images, labels = _train_batch(cfg, batch, seed=31)
+    res = {}
+    for d in (dev, "cpu"):
+        params = _tree_to(base, d)
+        leaves = tr.param_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        loss, _ = tr.vit_loss(params, images.to(d), labels.to(d), cfg)
+        loss.backward()
+        if d == dev:
+            _check_launches("chain gradient", counters,
+                            {"attn_block_stats": cfg.depth,
+                             "fused_mlp_stats": cfg.depth})
+        res[d] = (float(loss.detach()),
+                  [p.grad.float().cpu() for p in leaves])
+        print(f"chain gradient b{batch} on {d}: loss {res[d][0]:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    (lc, gc), (lh, gh) = res[dev], res["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    print(f"  loss card vs CPU: rel {rel:.3e} (band {STEP_LOSS_BAND})")
+    if not rel <= STEP_LOSS_BAND:
+        raise AssertionError("the chain's loss disagrees with the CPU")
+    _grads_vs("chain gradient card vs CPU", gc, gh, _leaf_names(base),
+              STEP_BAND)
+
+
+def phase_prefetch_race(n=64 << 20, batches=3, dev="cuda"):
+    """``device_prefetch`` hands a batch over only after its copy: 256 MB
+    pinned batches (a copy of some 10 ms) are each checked on the
+    consuming stream the moment they arrive, so a batch yielded before its
+    event is waited on shows up unfilled."""
+    from vit_fpga_tpu_torch.runtime.data import device_prefetch
+    host = [(torch.full((n,), i + 1, dtype=torch.int32).pin_memory(),)
+            for i in range(batches)]
+    t0 = time.perf_counter()
+    for i, (t,) in enumerate(device_prefetch(host, prefetch=1, device=dev)):
+        ok = bool((t == i + 1).all())
+        if not ok:
+            raise AssertionError(f"device_prefetch: batch {i} was handed "
+                                 f"over before its copy finished")
+    print(f"prefetch: {batches} batches of {n * 4 >> 20} MiB each whole "
+          f"on arrival ({time.perf_counter() - t0:.2f} s)")
+
+
+def _normalized(batches, cfg):
+    """(images, labels) batches with their uint8 images normalized on the
+    device they lie on (``vit.preprocess``), as a Trainer's caller does."""
+    from vit_fpga_tpu_torch.models import vit
+    return ((vit.preprocess(i, cfg), lb) for i, lb in batches)
+
+
+def _pipeline_batches(cfg, batch, steps, seed, workers=2):
+    from vit_fpga_tpu_torch.runtime.data import HostLoader, synthetic_source
+    loader = HostLoader(synthetic_source(batch * steps, cfg.image_size,
+                                         cfg.num_classes, seed=seed),
+                        batch_size=batch, workers=workers)
+    return list(loader)
+
+
+def phase_train_resume(batch=16, steps=4, dev="cuda", cfg=None):
+    """Trainer (AdamW) at ViT-B/16 b16 fed by HostLoader + device_prefetch
+    for ``steps`` steps (12 K4 + 12 K5 + 12 K23 + 12 K24 a step); then a
+    second run saves after step 2 (``Trainer.state`` ->
+    ``save_train_state``), restores into a new Trainer
+    (``load_train_state`` -> ``Trainer(params=, opt_state=)``) and takes
+    the rest: its losses and final parameters bit for bit those of the
+    straight run (K4, K5, K23 and K24 sum in a fixed order: no atomics)."""
+    import os
+    import tempfile
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.runtime.data import device_prefetch
+    from vit_fpga_tpu_torch.train import trainer as tr
+    from vit_fpga_tpu_torch.utils import checkpoint as ck
+    cfg = cfg or vit.config("vit_b16", dtype="bfloat16")
+    host = _pipeline_batches(cfg, batch, steps, seed=32)
+    half = steps // 2
+
+    def fresh():
+        return tr.Trainer(cfg, learning_rate=TRAIN_LR, device=dev,
+                          params=vit.init_params(cfg, _gen(32), device=dev))
+
+    counters = _zero_counters()
+    straight = fresh()
+    want = [h["loss"] for h in straight.fit(_normalized(
+        device_prefetch(host, prefetch=2, device=dev), cfg))]
+    _check_launches(f"train {steps} steps fed by the pipeline", counters,
+                    {k: cfg.depth * steps for k in TRAIN_KERNELS})
+    first = fresh()
+    got = [h["loss"] for h in first.fit(_normalized(
+        device_prefetch(host[:half], prefetch=2, device=dev), cfg))]
+    state = first.state()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        ck.save_train_state(path, state)
+        restored = ck.load_train_state(path, like=state)
+    second = tr.Trainer(cfg, learning_rate=TRAIN_LR, device=dev,
+                        params=restored["params"],
+                        opt_state=restored["opt_state"])
+    got += [h["loss"] for h in second.fit(_normalized(
+        device_prefetch(host[half:], prefetch=2, device=dev), cfg))]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tr.param_leaves(second.canonical_params()),
+        tr.param_leaves(straight.canonical_params())))
+    print(f"train b{batch} through HostLoader + device_prefetch: losses "
+          + " ".join(f"{v:.6f}" for v in want))
+    print(f"  saved at step {restored['step']} and resumed: losses "
+          + " ".join(f"{v:.6f}" for v in got)
+          + f"; bit for bit {got == want}, params bit for bit {same_params}")
+    if got != want or not same_params or not all(np.isfinite(want)):
+        raise AssertionError("the resumed Trainer did not continue exactly")
+    if dev != "cuda":
+        return
+    on_card = [(torch.from_numpy(i).to(dev), torch.from_numpy(lb).to(dev))
+               for i, lb in host]
+    for name in ("pipeline", "on card"):
+        trainer = fresh()
+        trainer.fit(_normalized(on_card[:1], cfg))    # warm-up step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(_normalized(
+            device_prefetch(host, prefetch=2, device=dev)
+            if name == "pipeline" else on_card, cfg))
+        torch.cuda.synchronize()
+        print(f"  Trainer.fit b{batch} {name}: "
+              f"{(time.perf_counter() - t0) / steps * 1e3:.2f} ms/step over "
+              f"{steps} steps")
+
+
+def phase_clip_int8(batch=64, n_check=4, dev="cuda", cfg=None, cfg_b=None):
+    """CLIP ViT-L/14 @224 int8 at b64 (257 tokens on 264 rows,
+    quick-GELU): the dynamic tree (24 K16 + 24 K15 a batch) and the static
+    tree calibrated on the card (24 K18 + 24 K17), ``n_check`` rows of
+    each, spread over the batch (the last M tile and image among them),
+    against the CPU plain forward in INT8_LOGITS_BAND; CLIP ViT-B/16
+    through ``clip_forward_int8_latency`` at b1 and b4, one K19a (dynamic)
+    or K19b (static) launch a call, against the CPU.  Returns the forwards
+    and inputs the timing phase reads."""
+    from vit_fpga_tpu_torch.models import clip
+    from vit_fpga_tpu_torch.models import quantized as q
+    cfg = cfg or clip.clip_vision_config("vit_l14", dtype="bfloat16")
+    params = clip.init_params(cfg, generator=_gen(33), device=dev)
+    rng = np.random.default_rng(33)
+    images = rng.integers(0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+                          np.uint8)
+    kernels = {"dynamic": ("attn_block_int8", "mlp_block_int8"),
+               "static": ("attn_block_int8_static", "mlp_block_int8_static")}
+    trees = {"dynamic": q.quantize_clip_vision_fast(params),
+             "static": q.quantize_clip_vision_static(params, cfg)}
+    out = {"l14": {}, "b16": {}, "images": images}
+    rows = _spread_rows(batch, n_check)
+    for mode, tree in trees.items():
+        fwd = q.make_forward_int8(cfg, tree, clip=True, device=dev)
+        fwd(images)
+        counters = _zero_counters()
+        got = fwd(images).cpu().numpy()
+        _check_launches(f"CLIP ViT-L/14 int8 {mode} b{batch}", counters,
+                        {k: cfg.depth for k in kernels[mode]})
+        if not np.isfinite(got).all():
+            raise AssertionError(f"CLIP ViT-L/14 int8 {mode}: an embedding "
+                                 "is not finite")
+        want = q.make_forward_int8(cfg, _tree_to(tree, "cpu"), clip=True,
+                                   device="cpu")(images[rows]).numpy()
+        _rel_to_max(f"CLIP ViT-L/14 int8 {mode} b{batch}, rows "
+                    f"{rows.tolist()} vs CPU", got[rows], want,
+                    INT8_LOGITS_BAND)
+        out["l14"][mode] = fwd
+    cfg_b = cfg_b or clip.clip_vision_config("vit_b16", dtype="bfloat16")
+    pb = clip.init_params(cfg_b, generator=_gen(34), device=dev)
+    for mode, tree in (("dynamic", q.quantize_clip_vision_fast(pb)),
+                       ("static", q.quantize_clip_vision_static(pb, cfg_b))):
+        kern = "vit_layers_int8" if mode == "dynamic" else \
+            "vit_layers_int8_static"
+        fwd = q.make_clip_forward_int8_latency(cfg_b, tree, device=dev)
+        cpu = q.make_clip_forward_int8_latency(cfg_b, _tree_to(tree, "cpu"),
+                                               device="cpu")
+        for b in (1, 4):
+            imgs = rng.integers(0, 256, (b, cfg_b.image_size,
+                                         cfg_b.image_size, 3), np.uint8)
+            fwd(imgs)
+            counters = _zero_counters()
+            got = fwd(imgs).cpu().numpy()
+            _check_launches(f"CLIP ViT-B/16 int8 latency {mode} b{b}",
+                            counters, {kern: 1})
+            _rel_to_max(f"CLIP ViT-B/16 int8 latency {mode} b{b} vs CPU",
+                        got, cpu(imgs).numpy(), INT8_LOGITS_BAND)
+            out["b16"][(mode, b)] = (fwd, imgs)
+    return out
+
+
+def _clip_text_ids(batch, ctx, vocab, rng):
+    ids = rng.integers(1, vocab - 1, (batch, ctx))
+    ends = rng.integers(ctx // 4, ctx, batch)
+    ids[np.arange(batch), ends] = vocab - 1          # EOT, the largest id
+    ids[np.arange(ctx)[None, :] > ends[:, None]] = 0
+    return torch.from_numpy(ids)
+
+
+def phase_clip_train(batch=16, steps=2, lr=1e-2, dev="cuda", vcfg=None,
+                     tcfg=None):
+    """``make_clip_train_step``: CLIP ViT-B/16 vision (default config: the
+    stats chain and its VJP) with the full text tower (width 512, 8 heads,
+    12 layers, context 77) at b16, ``steps`` SGD steps on the card and on
+    the CPU from the same weights and data: each step's loss in
+    STEP_LOSS_BAND, the first step's gradients in STEP_BAND; 12 K1 + 12 K2
+    launches a step on the card and no K23 / K24."""
+    from vit_fpga_tpu_torch.models import clip, vit
+    from vit_fpga_tpu_torch.train import trainer as tr
+    vcfg = vcfg or clip.clip_vision_config("vit_b16", dtype="bfloat16")
+    tcfg = tcfg or clip.CLIPTextConfig()
+    base = {"vision": clip.init_params(vcfg, generator=_gen(35),
+                                       device="cpu"),
+            "text": clip.init_text_params(tcfg, _gen(36), device="cpu"),
+            "logit_scale": torch.tensor(np.log(1 / 0.07),
+                                        dtype=torch.float32)}
+    rng = np.random.default_rng(35)
+    images = vit.preprocess(torch.from_numpy(rng.integers(
+        0, 256, (batch, vcfg.image_size, vcfg.image_size, 3), np.uint8)),
+        vcfg).float()
+    ids = _clip_text_ids(batch, tcfg.max_positions, tcfg.vocab_size, rng)
+    res = {}
+    for d in (dev, "cpu"):
+        params = _tree_to(base, d)
+        step = clip.make_clip_train_step(vcfg, tcfg, tr.sgd(lr))
+        opt, losses = None, []
+        counters = _zero_counters()
+        t0 = time.perf_counter()
+        for s in range(steps):
+            params, opt, loss = step(params, opt, images.to(d), ids.to(d))
+            losses.append(float(loss))
+            if s == 0:
+                grads = [p.grad.float().cpu()
+                         for p in tr.param_leaves(params)]
+        if d == dev:
+            _check_launches(f"CLIP train {steps} steps", counters,
+                            {"attn_block_stats": vcfg.depth * steps,
+                             "fused_mlp_stats": vcfg.depth * steps})
+        res[d] = (losses, grads)
+        print(f"CLIP train b{batch} sgd({lr}) on {d}: losses "
+              + " ".join(f"{v:.6f}" for v in losses)
+              + f" ({time.perf_counter() - t0:.1f} s)")
+    for s, (a, b) in enumerate(zip(res[dev][0], res["cpu"][0])):
+        rel = abs(a - b) / abs(b)
+        print(f"  step {s} loss card vs CPU: rel {rel:.3e} "
+              f"(band {STEP_LOSS_BAND})")
+        if not rel <= STEP_LOSS_BAND:
+            raise AssertionError("CLIP training disagrees with the CPU")
+    _grads_vs("CLIP step-0 gradients card vs CPU", res[dev][1], res["cpu"][1],
+              _leaf_names(base), STEP_BAND)
+
+
+def phase_cli(dev="cuda"):
+    """``cli.main(["serve", "model=vit_b16", "batch=64", "images=128"])``
+    and ``cli.main(["calibrate"])`` on the card, exit code 0 each; serve
+    launches 12 K1 + 12 K2 a batch (its warm-up batch included) and
+    nothing else, calibrate no kernel (its probe is plain torch).  Returns
+    serve's images per second."""
+    import io
+    import re
+    from vit_fpga_tpu_torch import cli
+    extra = [] if dev == "cuda" else ["device=cpu", "image=32",
+                                      "model=vit_ti16"]
+    out = {}
+    for argv in (["serve", "model=vit_b16", "batch=64", "images=128"],
+                 ["calibrate"]):
+        buf = io.StringIO()
+        counters = _zero_counters()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + extra)
+        text = buf.getvalue()
+        print(f"cli {' '.join(argv)}: exit {rc}")
+        print("  " + text.strip().replace("\n", "\n  "))
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} exited {rc}")
+        if argv[0] == "serve":
+            m = re.search(r"\(([0-9.]+) img/s\), (\d+) batches", text)
+            batches = int(m.group(2)) + 1          # and the warm-up batch
+            _check_launches("cli serve", counters,
+                            {"attn_block_stats": 12 * batches,
+                             "fused_mlp_stats": 12 * batches})
+            out["img_s"] = float(m.group(1))
+            out["jpeg"] = "jpeg requests" in text
+        else:
+            _check_launches("cli calibrate", counters, {})
+    return out
+
+
+def _step_ms(step, iters=5):
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_cuda(step, iters=iters, warmup=1)
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def phase_lifecycle_timing(clip_out, cli_out, batch=16, fit_batch=64,
+                           fit_steps=6):
+    """The times of the new paths, the card's own (device alone from
+    torch.profiler where a forward is timed): CLIP ViT-L/14 int8 b64
+    (dynamic, static), CLIP ViT-B/16 int8 latency b1 / b4, the
+    default-config SGD step (the chain and its VJP) against the
+    safe_softmax per-block step (K4 / K5, K23 / K24) at ViT-B/16 b16 with
+    their peak memory, ``Trainer.fit`` fed by the pipeline against batches
+    already on the card at b64, and ``cli serve``'s images per second."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.runtime.data import device_prefetch
+    from vit_fpga_tpu_torch.train import trainer as tr
+    smi = _smi_line()
+    images = torch.from_numpy(clip_out["images"]).cuda()
+    for mode, fwd in clip_out["l14"].items():
+        ms = _device_alone_ms(lambda: fwd(images), iters=10)
+        print(f"time CLIP ViT-L/14 int8 {mode} b{images.shape[0]}: {ms:.3f} "
+              f"ms device alone, {images.shape[0] / ms * 1e3:.0f} img/s "
+              f"[{smi}]")
+    for (mode, b), (fwd, imgs) in clip_out["b16"].items():
+        dev_imgs = torch.from_numpy(imgs).cuda()
+        ms = _device_alone_ms(lambda: fwd(dev_imgs), iters=50)
+        print(f"time CLIP ViT-B/16 int8 latency {mode} b{b}: {ms:.4f} ms "
+              f"device alone [{smi}]")
+
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    images, labels = _train_batch(cfg, batch, seed=37)
+    images, labels = images.cuda(), labels.cuda()
+    for name, safe in (("default config (chain + VJP)", False),
+                       ("safe_softmax (K4/K5, K23/K24)", True)):
+        c = dataclasses.replace(cfg, safe_softmax=safe)
+        params, opt = tr.init_train_state(
+            c, tr.sgd(1e-4), params=vit.init_params(c, _gen(37),
+                                                    device="cuda"))
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss, _ = tr.vit_loss(params, images, labels, c)
+            loss.backward()
+            opt.step()
+
+        ms, peak = _step_ms(step)
+        print(f"time SGD step b{batch} {name}: {ms:.3f} ms/step, peak "
+              f"{peak:.0f} MiB [{smi}]")
+
+    host = _pipeline_batches(cfg, fit_batch, fit_steps + 1, seed=38,
+                             workers=4)
+    on_card = [(torch.from_numpy(i).cuda(), torch.from_numpy(lb).cuda())
+               for i, lb in host]
+    for name in ("pipeline", "on card", "pipeline", "on card"):
+        trainer = tr.Trainer(cfg, learning_rate=TRAIN_LR, device="cuda",
+                             params=vit.init_params(cfg, _gen(38),
+                                                    device="cuda"))
+        trainer.fit(_normalized(on_card[:1], cfg))    # warm-up step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "pipeline":
+            from vit_fpga_tpu_torch.runtime.data import (HostLoader,
+                                                         synthetic_source)
+            src = HostLoader(synthetic_source(
+                fit_batch * fit_steps, cfg.image_size, cfg.num_classes,
+                seed=38), batch_size=fit_batch, workers=4)
+            trainer.fit(_normalized(
+                device_prefetch(src, prefetch=2, device="cuda"), cfg))
+        else:
+            trainer.fit(_normalized(on_card[1:], cfg))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / fit_steps * 1e3
+        print(f"time Trainer.fit b{fit_batch} {name}: {ms:.2f} ms/step over "
+              f"{fit_steps} steps [{smi}]")
+    print(f"time cli serve vit_b16 b64: {cli_out['img_s']:.1f} img/s "
+          f"({'jpeg' if cli_out['jpeg'] else 'raw'} requests, 128) [{smi}]")
+    from vit_fpga_tpu_torch import cli
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", "model=vit_b16", "batch=64", "images=2048"])
+    if rc != 0:
+        raise AssertionError(f"cli serve exited {rc}")
+    print(f"time cli serve vit_b16 b64, 2048 requests: "
+          f"{buf.getvalue().strip().splitlines()[-1]} [{smi}]")
+
+
+def run_lifecycle_phases():
+    """Phase 26 after the earlier slices' phases (the chain gradient and
+    the prefetch check ran right after the build): the HF import, train and
+    resume, the CLIP int8 towers, CLIP training, the cli, the times."""
+    phase_hf_import()
+    phase_train_resume()
+    clip_out = phase_clip_int8()
+    phase_clip_train()
+    cli_out = phase_cli()
+    phase_lifecycle_timing(clip_out, cli_out)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -7171,6 +7738,8 @@ def main() -> int:
     print(_kernels.build_log)
     check_wgmma_serialisation(_kernels.build_log)
 
+    phase_prefetch_race()
+    phase_chain_grad()
     wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
     errors.update(phase_k23_kernels())
@@ -7242,6 +7811,7 @@ def main() -> int:
     run_k17_k22_phases(errors, timing, launches)
     run_k14_k10_phases(errors, timing, launches)
     run_past_1024_phases(errors, timing, launches)
+    run_lifecycle_phases()
 
     sources = {
         "attn_block_stats": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",

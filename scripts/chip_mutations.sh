@@ -7,12 +7,16 @@ set -u
 ONLY="$*"
 mkdir -p chiprun_out
 run_copy() {  # name file old new [old new ...]
+  # file: under vit_fpga_tpu_torch/csrc, or under vit_fpga_tpu_torch where
+  # it names a directory (models/vit.py)
   if [ -n "$ONLY" ] && [[ " $ONLY " != *" $1 "* ]]; then return; fi
   local dst=_chip/mut_$1
+  local target="$dst/vit_fpga_tpu_torch/csrc/$2"
+  [[ "$2" == */* ]] && target="$dst/vit_fpga_tpu_torch/$2"
   rm -rf "$dst"; mkdir -p "$dst"
   cp -r vit_fpga_tpu_torch chip_smoke.py "$dst"/
   rm -rf "$dst/vit_fpga_tpu_torch/_build"
-  python3 - "$dst/vit_fpga_tpu_torch/csrc/$2" "${@:3}" <<'PY'
+  python3 - "$target" "${@:3}" <<'PY'
 import sys
 p, edits = sys.argv[1], sys.argv[2:]
 s = open(p).read()
@@ -362,5 +366,15 @@ run_copy mha_sweep_8_key_tiles mha_wgmma.cuh \
 # past 1024 tokens lose the query rows after them
 run_copy k23_kv_sweep_8_query_tiles attn_bwd.cu \
   "for (int j = 0; j < nqt; ++j) {" "for (int j = 0; j < min(nqt, 8); ++j) {"
+# The stats chain's backward (vit.StatsChainFunction) returning no gradient
+# for the tokens: the embed, CLS and position table get none (caught right
+# after the build by phase 26's chain gradient)
+run_copy chain_vjp_no_dx models/vit.py \
+  "return (dx, None, None, None, None, *dblocks)" \
+  "return (None, None, None, None, None, *dblocks)"
+# device_prefetch handing a batch over without waiting on its copy's event
+# (caught right after the build by phase 26's prefetch check)
+run_copy prefetch_no_wait runtime/data.py \
+  "consumer.wait_event(ready)" "pass"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

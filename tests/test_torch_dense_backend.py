@@ -390,8 +390,8 @@ def test_cli_demo_and_parity_on_the_cpu(capsys):
     assert "int8 device vs int8 oracle: bit-exact=True" in out
     rel = float(out.split("f32 device vs oracle: max rel err ")[1].split()[0])
     assert rel < 1e-5
-    assert cli.main(["serve"]) == 2
-    assert "ROADMAP item 9" in capsys.readouterr().err
+    assert cli.main(["export"]) == 2
+    assert "ROADMAP item 7" in capsys.readouterr().err
     assert cli.main([]) == 2
 
 

@@ -1,5 +1,6 @@
-"""The port imports torch and numpy, never jax, jaxlib, optax or the JAX
-package (vit_fpga_tpu), and it never drops to the CPU quietly."""
+"""The port imports torch and numpy, never jax, jaxlib, optax, orbax,
+transformers or the JAX package (vit_fpga_tpu), and it never drops to the
+CPU quietly."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "optax", "vit_fpga_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "transformers",
+             "vit_fpga_tpu"}
 INT8_MODULES = ("vit_fpga_tpu_torch.models.quantized",
                 "vit_fpga_tpu_torch.ops.quant_fused",
                 "vit_fpga_tpu_torch.ops.quant_block")
@@ -41,7 +43,13 @@ PER_BLOCK_MODULES = ("vit_fpga_tpu_torch.ops.attention",
 # the ops no model path calls: K10 (uint8 patch embed) and K26 (streamed GEMM)
 OP_MODULES = ("vit_fpga_tpu_torch.ops.patch_embed",
               "vit_fpga_tpu_torch.ops.streamed_gemm")
-ALL_MODULES = (INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
+# the model lifecycle: checkpoints and HF import, the data pipeline, the
+# dense model family and the training example
+LIFECYCLE_MODULES = ("vit_fpga_tpu_torch.utils.checkpoint",
+                     "vit_fpga_tpu_torch.runtime.data",
+                     "vit_fpga_tpu_torch.models.mlp",
+                     "vit_fpga_tpu_torch.examples.train_vit")
+ALL_MODULES = (LIFECYCLE_MODULES + INT8_MODULES + LATENCY_MODULES + STATIC_MODULES + DENSE_MODULES
                + FAMILY_MODULES + PER_BLOCK_MODULES + OP_MODULES)
 
 
@@ -85,7 +93,8 @@ def test_importing_the_port_loads_no_jax():
             + ", ".join(ALL_MODULES)
             + "; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'optax', 'vit_fpga_tpu')); print(bad)")
+            "('jax', 'jaxlib', 'optax', 'orbax', 'transformers', "
+            "'vit_fpga_tpu')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

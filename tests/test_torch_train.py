@@ -255,13 +255,24 @@ def test_remat_gives_the_same_gradients():
 
 
 def test_stats_chain_refuses_gradients():
+    """The chain no longer refuses a gradient: the default config's loss
+    differentiates through its VJP (models/vit.StatsChainFunction), and in
+    f32 the gradient agrees with the safe_softmax per-block route's
+    (plain K4 / K23, K5 / K24), the same function inside the max-free
+    window, to f32 rounding (2e-4 in relative norm)."""
     kw = dict(TINY, dtype="float32")
-    cfg = tvit.ViTConfig(**kw)
-    params, _ = ttrain.init_train_state(
-        cfg, ttrain.sgd(0.1),
-        params=params_from_numpy(_np_params(jvit.ViTConfig(**kw), 8),
-                                 device="cpu"))
-    images, labels = _data(9)
-    with pytest.raises(NotImplementedError):
-        ttrain.vit_loss(params, torch.from_numpy(images),
-                        torch.from_numpy(labels).long(), cfg)
+    grads = {}
+    for safe in (False, True):
+        cfg = tvit.ViTConfig(**kw, safe_softmax=safe)
+        assert tvit._stats_chain_supported(cfg, B) is not safe
+        params, _ = ttrain.init_train_state(
+            cfg, ttrain.sgd(0.1),
+            params=params_from_numpy(_np_params(jvit.ViTConfig(**kw), 8),
+                                     device="cpu"))
+        images, labels = _data(9)
+        loss, _ = ttrain.vit_loss(params, torch.from_numpy(images),
+                                  torch.from_numpy(labels).long(), cfg)
+        loss.backward()
+        grads[safe] = [p.grad.numpy() for p in ttrain.param_leaves(params)]
+    for a, b in zip(grads[False], grads[True]):
+        assert np.linalg.norm(a - b) <= 2e-4 * max(np.linalg.norm(b), 1e-12)

@@ -28,9 +28,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import activations as act
 from ..abstract import NetAbstract
 from ..defines import DATA_TYPE, RING_DEPTH, ImageSet, NetData, NetSets
+from ..models.mlp import forward_layers, to_net_data
 from ..ops.image_filter import FILTERS, filter_image_device
 from ..runtime.engine import Engine
 from ..runtime.perf import PerfTimer
@@ -40,19 +40,6 @@ from ..utils.platform import resolve_device, true_f32
 _uid = itertools.count()
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.float32}
-
-
-def _forward_fn(params, x, *, acts: Tuple[int, ...],
-                compute_dtype: torch.dtype) -> torch.Tensor:
-    """Dense forward over the layer list [(W, b), ...], in
-    ``compute_dtype``; f32 out.  In f32 the products run in true f32 (TF32
-    off), as the JAX package forces ``Precision.HIGHEST``."""
-    with true_f32():
-        h = x.to(compute_dtype)
-        for (w, b), code in zip(params, acts):
-            h = torch.matmul(h, w.to(compute_dtype)) + b.to(compute_dtype)
-            h = act.apply_torch(code, h)
-        return h.float()
 
 
 def _sgd_steps(params, X, Y, *, acts, compute_dtype, iterations: int,
@@ -70,8 +57,8 @@ def _sgd_steps(params, X, Y, *, acts, compute_dtype, iterations: int,
     for _ in range(iterations):
         leaves = [t.requires_grad_(True) for t in flat]
         with true_f32():
-            out = _forward_fn(list(zip(leaves[::2], leaves[1::2])), X,
-                              acts=acts, compute_dtype=compute_dtype)
+            out = forward_layers(list(zip(leaves[::2], leaves[1::2])), X,
+                                 acts=acts, compute_dtype=compute_dtype)
             d = out - Y
             loss = torch.mean(d * d)
             grads = torch.autograd.grad(loss, leaves)
@@ -151,8 +138,9 @@ class NetCUDA(NetAbstract):
             if self._compute_mode == "int8":
                 out = self._forward_int8(xt)
             else:
-                out = _forward_fn(self._params_on_device(), xt,
-                                  acts=self._acts, compute_dtype=self._dtype)
+                out = forward_layers(self._params_on_device(), xt,
+                                     acts=self._acts,
+                                     compute_dtype=self._dtype)
         out = out.cpu().numpy()
         return out[0] if squeeze else out
 
@@ -213,12 +201,9 @@ class NetCUDA(NetAbstract):
 
     def get_net_data(self) -> NetData:
         self._sync_host_params()
-        return NetData(
-            n_ins=self._n_ins, n_layers=len(self._n_p_l),
-            n_p_l=list(self._n_p_l),
-            params=[np.ascontiguousarray(w.T) for w, _ in self._host_params],
-            bias=[np.array(b) for _, b in self._host_params],
-            activations=list(self._acts)).validate()
+        return to_net_data({"layers": [{"w": w, "b": b}
+                                       for w, b in self._host_params]},
+                           self._n_ins, self._acts)
 
     def print_inner_vals(self) -> None:
         self._sync_host_params()

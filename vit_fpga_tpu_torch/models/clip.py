@@ -15,15 +15,24 @@ one launch (K11).
 
 The text tower has no Pallas kernel in the JAX package (causal einsum
 attention over at most 77 tokens): here it is plain PyTorch, f32.
-Contrastive training and the HuggingFace importers are not ported.
+
+Contrastive training (:func:`contrastive_loss`,
+:func:`make_clip_train_step`) and the HuggingFace importers
+(:func:`from_hf_clip_state_dict`, :func:`from_hf_clip_model`,
+:func:`from_hf_clip_text_state_dict`) are the JAX package's.  The train
+step keeps the vision config's softmax mode, as the JAX step does, so a
+default config differentiates the stats chain through its VJP
+(``vit.StatsChainFunction``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import vit as vit_mod
 from ..ops.patch_embed import embed_tokens_dotg
@@ -256,3 +265,163 @@ def text_forward(params: Params, input_ids: torch.Tensor,
         eot = torch.argmax(ids, dim=-1)
         pooled = x[torch.arange(b, device=x.device), eot]
         return pooled.float() @ params["proj"]
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace import (CLIPVisionModel / CLIPModel)
+# ---------------------------------------------------------------------------
+
+def _hf_getter(sd):
+    from ..utils.checkpoint import _to_numpy
+    return lambda n: np.asarray(_to_numpy(sd[n]), dtype=np.float32)
+
+
+def _hf_layers(g, lyr: str, depth: int) -> Params:
+    """A CLIP encoder's layers (``{lyr}`` formatted with the layer index)
+    stacked in the port's layout."""
+    t = np.transpose
+
+    def stack(fmt, transform=None):
+        return np.stack([
+            (transform(g(fmt.format(i=i))) if transform
+             else g(fmt.format(i=i))) for i in range(depth)])
+
+    wq = stack(lyr + "self_attn.q_proj.weight", t)
+    wk = stack(lyr + "self_attn.k_proj.weight", t)
+    wv = stack(lyr + "self_attn.v_proj.weight", t)
+    bq = stack(lyr + "self_attn.q_proj.bias")
+    bk = stack(lyr + "self_attn.k_proj.bias")
+    bv = stack(lyr + "self_attn.v_proj.bias")
+    return {
+        "ln1_scale": stack(lyr + "layer_norm1.weight"),
+        "ln1_bias": stack(lyr + "layer_norm1.bias"),
+        "wqkv": np.concatenate([wq, wk, wv], axis=2),
+        "bqkv": np.concatenate([bq, bk, bv], axis=1),
+        "wo": stack(lyr + "self_attn.out_proj.weight", t),
+        "bo": stack(lyr + "self_attn.out_proj.bias"),
+        "ln2_scale": stack(lyr + "layer_norm2.weight"),
+        "ln2_bias": stack(lyr + "layer_norm2.bias"),
+        "w1": stack(lyr + "mlp.fc1.weight", t),
+        "b1": stack(lyr + "mlp.fc1.bias"),
+        "w2": stack(lyr + "mlp.fc2.weight", t),
+        "b2": stack(lyr + "mlp.fc2.bias"),
+    }
+
+
+def from_hf_clip_state_dict(sd: Mapping[str, Any], depth: int,
+                            prefix: str = "vision_model.") -> Params:
+    """A HF ``CLIPVisionModel`` / ``CLIPModel`` state dict's vision tower
+    in the port's layout, numpy f32 (the JAX importer's tree, array for
+    array): a zero patch bias, HF's ``pre_layrnorm`` as ``ln_pre``, and
+    ``visual_projection`` transposed into ``proj`` (the identity without
+    one)."""
+    g = _hf_getter(sd)
+    conv_w = g(f"{prefix}embeddings.patch_embedding.weight")  # (D,3,P,P)
+    d_model = conv_w.shape[0]
+    params: Params = {
+        "patch_embed": {
+            "kernel": conv_w.transpose(2, 3, 1, 0).reshape(-1, d_model),
+            "bias": np.zeros((d_model,), np.float32),  # CLIP conv: no bias
+        },
+        "cls_token": g(f"{prefix}embeddings.class_embedding").reshape(
+            1, 1, d_model),
+        "pos_embed": g(f"{prefix}embeddings.position_embedding.weight")[
+            None, :, :],
+        "ln_pre_scale": g(f"{prefix}pre_layrnorm.weight"),
+        "ln_pre_bias": g(f"{prefix}pre_layrnorm.bias"),
+        "blocks": _hf_layers(g, f"{prefix}encoder.layers.{{i}}.", depth),
+        "ln_f_scale": g(f"{prefix}post_layernorm.weight"),
+        "ln_f_bias": g(f"{prefix}post_layernorm.bias"),
+    }
+    if "visual_projection.weight" in sd:
+        params["proj"] = g("visual_projection.weight").T
+    else:
+        params["proj"] = np.eye(d_model, dtype=np.float32)
+    return params
+
+
+def from_hf_clip_model(model) -> Params:
+    """The vision tower of a live HF ``CLIPModel`` or
+    ``CLIPVisionModel`` (``config`` and ``state_dict()`` only)."""
+    from ..utils.checkpoint import hf_state_dict
+    cfg = getattr(model.config, "vision_config", model.config)
+    return from_hf_clip_state_dict(hf_state_dict(model),
+                                   depth=cfg.num_hidden_layers)
+
+
+def from_hf_clip_text_state_dict(sd: Mapping[str, Any], depth: int,
+                                 prefix: str = "text_model.") -> Params:
+    """A HF CLIP state dict's text tower in the port's layout, numpy f32
+    (the JAX importer's tree): ``text_projection`` transposed into
+    ``proj`` (the identity without one)."""
+    g = _hf_getter(sd)
+    blocks = _hf_layers(g, f"{prefix}encoder.layers.{{i}}.", depth)
+    d_model = blocks["wqkv"].shape[1]
+    params: Params = {
+        "token_embed": g(f"{prefix}embeddings.token_embedding.weight"),
+        "pos_embed": g(f"{prefix}embeddings.position_embedding.weight"),
+        "blocks": blocks,
+        "ln_f_scale": g(f"{prefix}final_layer_norm.weight"),
+        "ln_f_bias": g(f"{prefix}final_layer_norm.bias"),
+    }
+    if "text_projection.weight" in sd:
+        params["proj"] = g("text_projection.weight").T
+    else:
+        params["proj"] = np.eye(d_model, dtype=np.float32)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Contrastive training (the CLIP objective)
+# ---------------------------------------------------------------------------
+
+def contrastive_loss(image_emb: torch.Tensor, text_emb: torch.Tensor,
+                     logit_scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric InfoNCE over the in-batch similarity matrix, f32."""
+    with true_f32():
+        ie = image_emb / torch.linalg.norm(image_emb, dim=-1, keepdim=True)
+        te = text_emb / torch.linalg.norm(text_emb, dim=-1, keepdim=True)
+        logits = torch.exp(logit_scale) * ie @ te.T
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        li = -F.log_softmax(logits, dim=-1).gather(
+            -1, labels[:, None]).mean()
+        lt = -F.log_softmax(logits.T, dim=-1).gather(
+            -1, labels[:, None]).mean()
+        return 0.5 * (li + lt)
+
+
+def clip_loss(params: Params, images: torch.Tensor, input_ids: torch.Tensor,
+              vision_cfg: vit_mod.ViTConfig,
+              text_cfg: CLIPTextConfig) -> torch.Tensor:
+    """The contrastive loss of ``{vision, text, logit_scale}`` params on
+    normalized images and token ids (the JAX step's ``loss_fn``)."""
+    ie = forward(params["vision"], images, vision_cfg)
+    te = text_forward(params["text"], input_ids, text_cfg)
+    return contrastive_loss(ie, te, params["logit_scale"])
+
+
+def make_clip_train_step(vision_cfg: vit_mod.ViTConfig,
+                         text_cfg: CLIPTextConfig, optimizer) -> Callable:
+    """The contrastive step over ``{vision, text, logit_scale}`` params:
+    ``step(params, opt, images, input_ids) -> (params, opt, loss)``.
+    ``optimizer`` is a factory of ``train/trainer.py`` (``sgd``,
+    ``adamw``); pass ``opt=None`` on the first call and the step marks the
+    params as requiring gradients and builds the optimizer over their
+    leaves (``trainer.param_leaves``), then updates them in place.  The
+    vision config's softmax mode is kept, as in the JAX step."""
+    from ..train.trainer import param_leaves
+
+    def step(params: Params, opt, images: torch.Tensor,
+             input_ids: torch.Tensor):
+        if opt is None:
+            leaves = param_leaves(params)
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+            opt = optimizer(leaves)
+        opt.zero_grad(set_to_none=True)
+        loss = clip_loss(params, images, input_ids, vision_cfg, text_cfg)
+        loss.backward()
+        opt.step()
+        return params, opt, loss.detach()
+
+    return step

@@ -2,7 +2,7 @@
 nested dicts of numpy arrays, becomes the port's tree in the same layout
 (NHWC images, patch kernel (P*P*3, D) in (py, px, c) order, blocks stacked
 on depth, linear weights (in, out)), and back; and an optax AdamW state,
-handed over the same way, becomes a torch AdamW state; and the JAX
+handed over the same way, becomes a torch AdamW state and back; and the JAX
 package's dense ``NetData`` becomes the port's."""
 
 from __future__ import annotations
@@ -81,6 +81,40 @@ def adamw_state_from_optax(mu: Mapping[str, Any], nu: Mapping[str, Any],
                 "exp_avg": like(m[k]), "exp_avg_sq": like(n[k])}
 
     walk(mu, nu, params)
+
+
+def adamw_state_to_optax(params: Mapping[str, Any],
+                         optimizer: torch.optim.Optimizer) -> dict:
+    """The inverse of :func:`adamw_state_from_optax`: ``optimizer``'s
+    state over the tensors of ``params`` as optax's AdamW layout, ``{"mu":
+    tree, "nu": tree, "count": int}`` of numpy f32 moments shaped as
+    ``params`` (zeros and a count of 0 before the first step)."""
+    held = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    steps = set()
+
+    def walk(p, key):
+        out = {}
+        for k, leaf in p.items():
+            if isinstance(leaf, Mapping):
+                out[k] = walk(leaf, key)
+                continue
+            if id(leaf) not in held:
+                raise ValueError(f"parameter {k!r} is not in the optimizer")
+            st = optimizer.state.get(leaf)
+            if st:
+                steps.add(int(st["step"]))
+                out[k] = st[key].detach().float().cpu().numpy()
+            else:
+                steps.add(0)
+                out[k] = np.zeros(tuple(leaf.shape), np.float32)
+        return out
+
+    state = {"mu": walk(params, "exp_avg"), "nu": walk(params, "exp_avg_sq")}
+    if len(steps) > 1:
+        raise ValueError(f"the parameters have taken different step counts "
+                         f"{sorted(steps)}")
+    state["count"] = steps.pop() if steps else 0
+    return state
 
 
 def net_data_from_numpy(data) -> NetData:

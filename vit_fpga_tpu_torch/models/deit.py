@@ -5,13 +5,15 @@ whose classifier is the mean of two linear heads, one per prefix token.
 The encoder is :mod:`models.vit`'s with ``num_prefix_tokens=2``: the
 prefix rows ride the folded posb table of the dotg embed, and the kernels
 run unchanged (DeiT-B/16 at 224 px: 198 tokens on 200 rows, K1 with K2).
-The HuggingFace importer is not ported.
+The HuggingFace importer (:func:`from_hf_deit_state_dict`,
+:func:`from_hf_deit_model`) is the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from . import vit
@@ -91,3 +93,39 @@ def make_forward(cfg: vit.ViTConfig, params: Params, raw: bool = True,
     ``device`` (CUDA unless ``"cpu"``), as ``vit.make_forward``."""
     return vit.serving_fn(cfg, params, forward_raw if raw else forward,
                           device)
+
+
+def from_hf_deit_state_dict(sd: Mapping[str, Any], depth: int) -> Params:
+    """A HF ``DeiTForImageClassificationWithTeacher`` (dual heads),
+    ``DeiTForImageClassification`` (one CLS head) or bare ``DeiTModel``
+    state dict in the stacked layout, numpy f32: the JAX importer's tree,
+    array for array."""
+    from ..utils.checkpoint import _to_numpy, from_hf_vit_state_dict
+    g = lambda name: np.asarray(_to_numpy(sd[name]),  # noqa: E731
+                                dtype=np.float32)
+    sd = dict(sd)
+    prefix = "deit." if any(k.startswith("deit.") for k in sd) else ""
+    # the ViT importer reads the layers DeiT shares under "vit."
+    base = {k.replace("deit.", "vit.", 1) if prefix else "vit." + k: v
+            for k, v in sd.items()}
+    params = from_hf_vit_state_dict(base, depth=depth)
+    cls = g(f"{prefix}embeddings.cls_token")
+    dist = g(f"{prefix}embeddings.distillation_token")
+    params["cls_token"] = np.concatenate([cls, dist], axis=1)  # (1, 2, D)
+    if "cls_classifier.weight" in sd:      # WithTeacher: dual heads
+        params["head"] = {"kernel": g("cls_classifier.weight").T,
+                          "bias": g("cls_classifier.bias")}
+        params["head_dist"] = {
+            "kernel": g("distillation_classifier.weight").T,
+            "bias": g("distillation_classifier.bias")}
+    # DeiTForImageClassification keeps its single CLS head ('classifier.*',
+    # already imported); forward() then uses the CLS row only.
+    return params
+
+
+def from_hf_deit_model(model) -> Params:
+    """Params of a live HF DeiT module (``config`` and ``state_dict()``
+    only)."""
+    from ..utils.checkpoint import hf_state_dict
+    return from_hf_deit_state_dict(hf_state_dict(model),
+                                   depth=model.config.num_hidden_layers)

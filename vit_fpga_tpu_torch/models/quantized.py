@@ -51,7 +51,11 @@ per-linear route, four K14 launches around ``mha_qkv`` (K9 from 1024
 tokens); a static tree there runs the JAX ``*_ref`` blocks, plain torch
 (``ops/quant_block.attn_block_int8_static_ref``,
 ``attn_block_int8s_static_ref``, ``mlp_block_int8_static_ref``).  The
-CLIP towers' int8 forwards are not ported yet.
+CLIP vision tower's int8 forwards (``quantize_clip_vision_fast`` /
+``_static``, ``clip_forward_int8_fast``, ``clip_forward_int8_latency``,
+``make_forward_int8(..., clip=True)``) are these with CLIP's parts: the
+embed without tail rows, ``ln_pre``, padding after it, the final LN of
+the CLS row and the f32 projection.
 
 The per-tensor family (``quantize_vit``, ``vit_forward_int8``,
 ``make_vit_forward_int8``) is the JAX package's bit-exact datapath:
@@ -611,18 +615,23 @@ def vit_forward_int8_raw(qparams: Params, images_u8: torch.Tensor,
 
 
 def make_forward_int8(cfg: vit_mod.ViTConfig, qparams: Params,
-                      raw: bool = True,
-                      device=None) -> Callable[[Any], torch.Tensor]:
-    """Counterpart of the JAX ``jit_forward_int8(cfg, raw)`` partially
-    applied with the tree: returns ``fn(images) -> logits`` that runs under
-    ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``).  The
-    tree must already live there; numpy input is copied there."""
+                      raw: bool = True, device=None,
+                      clip: bool = False) -> Callable[[Any], torch.Tensor]:
+    """Counterpart of the JAX ``jit_forward_int8(cfg, raw, clip)``
+    partially applied with the tree: returns ``fn(images) -> logits`` (or
+    CLIP embeddings with ``clip``, a ``quantize_clip_vision_*`` tree)
+    that runs under ``torch.inference_mode`` on ``device`` (CUDA unless
+    ``"cpu"``).  The tree must already live there; numpy input is copied
+    there."""
     dev = resolve_device(device)
     for leaf in (qparams["pos_embed"], qparams["blocks"]["wqkv_q"]):
         if leaf.device.type != dev.type:
             raise ValueError(f"params are on {leaf.device}, forward on {dev}")
     prepped = prepare_int8(qparams, cfg)
-    fn = vit_forward_int8_raw if raw else vit_forward_int8_fast
+    if clip:
+        fn = clip_forward_int8_raw if raw else clip_forward_int8_fast
+    else:
+        fn = vit_forward_int8_raw if raw else vit_forward_int8_fast
 
     def run(images) -> torch.Tensor:
         if isinstance(images, np.ndarray):
@@ -631,6 +640,87 @@ def make_forward_int8(cfg: vit_mod.ViTConfig, qparams: Params,
             return fn(prepped, images.to(dev), cfg)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# CLIP vision tower int8: the ViT int8 blocks with CLIP's parts (the embed
+# without tail rows, ln_pre, padding after it, the final LN of the CLS row
+# and the f32 projection)
+# ---------------------------------------------------------------------------
+
+def quantize_clip_vision_fast(params: Params) -> Params:
+    """Per-output-column int8 weights for a CLIP vision tower
+    (models/clip.py layout: the ViT tree, ``ln_pre_*`` and ``proj``,
+    which stay f32)."""
+    out = quantize_vit_fast(params)
+    for k in ("ln_pre_scale", "ln_pre_bias", "proj"):
+        out[k] = params[k]
+    return out
+
+
+def quantize_clip_vision_static(params: Params, cfg: vit_mod.ViTConfig,
+                                images: Optional[torch.Tensor] = None,
+                                margin: float = 1.0) -> Params:
+    """:func:`quantize_clip_vision_fast` with calibrated static activation
+    scales folded in (the probe applies ``ln_pre``, as the JAX one)."""
+    from ..utils.calibrate import static_activation_scales
+    sc = static_activation_scales(params, cfg, images, margin)
+    return _fold_static_scales(quantize_clip_vision_fast(params), sc, QMAX)
+
+
+def _clip_embed(qparams: Params, images: torch.Tensor,
+                cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """The CLIP int8 embed: the dotg embed on bf16(wq * ws) with the
+    posb table's n rows (no tail rows), ``ln_pre``, then zero padding to
+    n_pad rows."""
+    n = cfg.seq_len
+    if _PREPARED in qparams:
+        wp, posb = qparams["_embed"]
+    else:
+        pe = qparams["patch_embed"]
+        wp = (pe["wq"].float() * pe["ws"].float()).to(torch.bfloat16)
+        posb = vit_mod._cls_first_posb(
+            qparams["pos_embed"][0].float(), pe["b"].float(),
+            qparams["cls_token"][0].float(), 1, n)
+    x = embed_tokens_dotg(images.to(torch.bfloat16), wp, posb[:n],
+                          cfg.patch_size, 1)
+    x = vit_mod._layernorm(x, qparams["ln_pre_scale"],
+                           qparams["ln_pre_bias"], cfg.ln_eps)
+    n_pad = round_up(n, pad_sublane(torch.bfloat16))
+    return torch.nn.functional.pad(x, (0, 0, 0, n_pad - n))
+
+
+def _clip_project(qparams: Params, x: torch.Tensor,
+                  cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    pooled = vit_mod._layernorm(x[:, :1], qparams["ln_f_scale"],
+                                qparams["ln_f_bias"], cfg.ln_eps)[:, 0]
+    return pooled.float() @ qparams["proj"]
+
+
+def clip_forward_int8_fast(qparams: Params, images: torch.Tensor,
+                           cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """The int8 CLIP image encoder: normalized images -> f32 embeddings.
+    The encoder is the int8 stats chain where
+    :func:`_int8_stats_chain_supported`, else depth x
+    :func:`_qblock_fast` (K16 -> K15, or K18 -> K17 on a static tree).
+    ``qparams`` is a ``quantize_clip_vision_*`` tree or one
+    :func:`prepare_int8` prepared."""
+    prep = prepare_int8(qparams, cfg)
+    x = _clip_embed(prep, images, cfg)
+    n = cfg.seq_len
+    if _int8_stats_chain_supported(cfg, x.shape[0]):
+        x = _encoder_int8_stats_chain(x, prep["_layers"], cfg, n)
+    else:
+        for blk in prep["_layers"]:
+            x = _qblock_fast(x, blk, cfg, n)
+    return _clip_project(prep, x, cfg)
+
+
+def clip_forward_int8_raw(qparams: Params, images_u8: torch.Tensor,
+                          cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """Raw uint8 images -> CLIP embeddings through the int8 engine."""
+    return clip_forward_int8_fast(qparams,
+                                  vit_mod.preprocess(images_u8, cfg), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -825,5 +915,69 @@ def make_forward_int8_latency(cfg: vit_mod.ViTConfig, qparams: Params,
             if raw:
                 images = vit_mod.preprocess(images, cfg)
             return fwd(prepped, images, cfg)
+
+    return run
+
+
+def clip_int8_latency_supported(cfg: vit_mod.ViTConfig, batch: int) -> bool:
+    """Gate of :func:`clip_forward_int8_latency`: the ViT one,
+    :func:`int8_latency_supported` (CLIP ViT-L/14 at 224 px, 257 tokens,
+    is past it)."""
+    return int8_latency_supported(cfg, batch)
+
+
+def prep_clip_int8_latency(qparams: Params,
+                           cfg: vit_mod.ViTConfig) -> Params:
+    """One-time fold for :func:`clip_forward_int8_latency`: the embed's
+    bf16 weight and posb table (:func:`prepare_int8`'s) and the stacked
+    int8 weights as k-major views for K19a / K19b."""
+    if "_stack" in qparams:
+        return qparams
+    prep = prepare_int8(qparams, cfg)
+    return dict(prep, _stack={k: (kmajor(v) if k.endswith("_q") else v)
+                              for k, v in qparams["blocks"].items()})
+
+
+def clip_forward_int8_latency(qparams: Params, images: torch.Tensor,
+                              cfg: vit_mod.ViTConfig) -> torch.Tensor:
+    """Small-batch int8 CLIP image encoder: the embed and ``ln_pre``
+    (:func:`_clip_embed`, CLS first, padded), the whole encoder in one
+    launch (K19a ``ops/vit_stack.vit_layers_int8``, or K19b
+    ``vit_layers_int8_static`` on a static tree), the final LN of the CLS
+    row and the f32 projection.  On the card it raises outside
+    :func:`clip_int8_latency_supported`; there is no fallback."""
+    if (images.device.type == "cuda"
+            and not clip_int8_latency_supported(cfg, images.shape[0])):
+        raise NotImplementedError(
+            f"clip_forward_int8_latency on the card takes batch <= 4 and a "
+            f"geometry K19a takes (clip_int8_latency_supported); got batch "
+            f"{images.shape[0]} at {cfg.seq_len} tokens")
+    prep = prep_clip_int8_latency(qparams, cfg)
+    x = _clip_embed(prep, images, cfg)
+    act = "quick_gelu" if cfg.hidden_act == "quick_gelu" else "gelu_tanh"
+    layers = (vit_layers_int8_static if "inv_ao" in prep["_stack"]
+              else vit_layers_int8)
+    toks = layers(x, prep["_stack"], cfg.num_heads, eps=cfg.ln_eps, act=act,
+                  n_valid=cfg.seq_len)
+    return _clip_project(prep, toks, cfg)
+
+
+def make_clip_forward_int8_latency(cfg: vit_mod.ViTConfig, qparams: Params,
+                                   raw: bool = True, device=None
+                                   ) -> Callable[[Any], torch.Tensor]:
+    """``fn(images) -> embeddings`` through
+    :func:`clip_forward_int8_latency` under ``torch.inference_mode`` on
+    ``device`` (CUDA unless ``"cpu"``), the fold made once here."""
+    dev = resolve_device(device)
+    prepped = prep_clip_int8_latency(qparams, cfg)
+
+    def run(images) -> torch.Tensor:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
+        with torch.inference_mode():
+            images = images.to(dev)
+            if raw:
+                images = vit_mod.preprocess(images, cfg)
+            return clip_forward_int8_latency(prepped, images, cfg)
 
     return run

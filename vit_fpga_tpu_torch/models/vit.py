@@ -1,6 +1,8 @@
 """Vision Transformer on PyTorch (counterpart of the JAX package's
-models/vit.py): the serving forward through the stats-chain encoder, and
-the per-block encoder that training and ``safe_softmax`` configs take.
+models/vit.py): the serving forward through the stats-chain encoder (which
+differentiates through :class:`StatsChainFunction`, the JAX custom VJP),
+and the per-block encoder that ``safe_softmax`` configs, and so the
+Trainer, take.
 
 Parameters keep the JAX layout (``init_params``): NHWC images, the patch
 kernel as (P*P*3, D) in (py, px, c) order, per-block arrays stacked on a
@@ -548,19 +550,12 @@ def _encoder_blocks(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
     return x
 
 
-def _encoder_stats_chain(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
-                         n_valid: int, plan=None) -> torch.Tensor:
-    """The serving encoder: each half consumes the previous half's
+def _stats_chain_run(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
+                     n_valid: int, plan=None) -> torch.Tensor:
+    """The chain's kernels: each half consumes the previous half's
     LayerNorm (mu, rstd) and emits the next half's.  ``plan`` is
     :func:`_stats_chain_mlp_plan`'s (computed here when None): the MLP
-    half is K2 for ``"k2"``, K3 with ``plan`` chunks for an int.  Its
-    kernels have no backward, so it refuses to run where a gradient is
-    wanted."""
-    if torch.is_grad_enabled() and any(v.requires_grad
-                                       for v in blocks.values()):
-        raise NotImplementedError(
-            "the stats chain has no backward; set safe_softmax or remat "
-            "to train through the per-block kernels")
+    half is K2 for ``"k2"``, K3 with ``plan`` chunks for an int."""
     b, n_pad, d = x.shape
     if plan is None:
         plan = _stats_chain_mlp_plan(cfg, b * n_pad)
@@ -589,10 +584,67 @@ def _encoder_stats_chain(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
     return x
 
 
+class StatsChainFunction(torch.autograd.Function):
+    """The chain's kernels forward; the backward is the JAX
+    ``_encoder_stats_chain_bwd``: autograd of :func:`_encoder_chain_xla`
+    (two-pass LayerNorm, the exact softmax with keys at or past
+    ``n_valid`` masked) recomputed from the saved ``x`` and block tensors.
+    Within the max-free softmax's clip window the forward computes that
+    same function.  The recompute keeps every layer's scores alive at
+    once, as the JAX VJP does.  The stacked block tensors are
+    unbound once, so each gets one stacked gradient."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, n_valid, plan, keys, *tensors):
+        ctx.save_for_backward(x, *tensors)
+        ctx.hyper = (cfg, n_valid, keys)
+        return _stats_chain_run(dict(zip(keys, tensors)), x, cfg, n_valid,
+                                plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        cfg, n_valid, keys = ctx.hyper
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            xl = x.detach().requires_grad_(needs[0])
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(tensors, needs[5:])]
+            out = _encoder_chain_xla(
+                {k: v.unbind(0) for k, v in zip(keys, leaves)}, xl, cfg,
+                n_valid)
+            wrt = [t for t in [xl] + leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g.to(out.dtype),
+                                             allow_unused=True))
+        dx, *dblocks = [next(grads) if t.requires_grad else None
+                        for t in [xl] + leaves]
+        return (dx, None, None, None, None, *dblocks)
+
+
+def _encoder_stats_chain(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
+                         n_valid: int, plan=None) -> torch.Tensor:
+    """The serving encoder (:func:`_stats_chain_run`).  Where a gradient
+    is wanted it runs as :class:`StatsChainFunction`, the JAX
+    ``custom_vjp``: the same kernels forward, the gradient of
+    :func:`_encoder_chain_xla` backward."""
+    keys = tuple(blocks)
+    tensors = tuple(blocks[k] for k in keys)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in tensors)):
+        return StatsChainFunction.apply(x, cfg, n_valid, plan, keys,
+                                        *tensors)
+    return _stats_chain_run(blocks, x, cfg, n_valid, plan)
+
+
 def _encoder_chain_xla(blocks: Params, x: torch.Tensor, cfg: ViTConfig,
                        n_valid: int) -> torch.Tensor:
     """Reference of the chained encoder: two-pass LayerNorm in each half
-    and the exact softmax."""
+    and the exact softmax (the function the JAX ``custom_vjp``
+    differentiates).  Its activation is :func:`_hidden_act`'s, as the
+    chain's kernels run it: "gelu" is tanh-GELU in bf16 and erf-GELU in
+    f32, where the JAX ``_chain_act`` takes tanh at every dtype (the f32
+    "gelu" divergence of ROADMAP.md, section 3).  ``blocks`` maps each
+    name to a stacked tensor or to a sequence of per-layer tensors."""
     b, n_pad, d = x.shape
     act = _hidden_act(cfg)
     for i in range(cfg.depth):

@@ -8,7 +8,8 @@ train/trainer.py), single device.
     are plain PyTorch under autograd, as the JAX package leaves them to
     XLA.
   * :class:`Trainer`: a minimal loop around it with AdamW, the
-    ``optax.adamw`` rule (decay on every parameter).
+    ``optax.adamw`` rule (decay on every parameter), resumable from a
+    saved state (``Trainer.state``, ``utils/checkpoint``).
 
 bf16 compute with f32 params and f32 optimizer state.  optax's
 ``GradientTransformation`` becomes a factory (:func:`sgd`, :func:`adamw`)
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import vit
+from ..models.convert import adamw_state_from_optax, adamw_state_to_optax
 from ..utils.platform import resolve_device
 
 Params = Dict[str, Any]
@@ -126,11 +128,20 @@ def _on(a, device) -> torch.Tensor:
 
 class Trainer:
     """Minimal training loop for ViT classification on one device, with
-    AdamW (``optax.adamw(learning_rate, weight_decay=weight_decay)``)."""
+    AdamW (``optax.adamw(learning_rate, weight_decay=weight_decay)``).
+
+    A restored state resumes it: ``params`` (a tree of tensors on the
+    device) and ``opt_state``, the AdamW moments in optax's layout
+    ``{"mu", "nu", "count"}`` (``utils/checkpoint.load_train_state``;
+    :meth:`state` writes it).  ``fit`` takes (images, labels) batches and
+    hands the images to the loss as they are, as the JAX ``fit`` does: a
+    caller fed by ``runtime/data.HostLoader``'s uint8 batches normalizes
+    them (``vit.preprocess``) where it makes them."""
 
     def __init__(self, cfg: vit.ViTConfig, learning_rate: float = 3e-4,
                  weight_decay: float = 0.05, mesh=None, seed: int = 0,
-                 params: Optional[Params] = None, device=None):
+                 params: Optional[Params] = None, device=None,
+                 opt_state: Optional[Dict[str, Any]] = None):
         if mesh is not None:
             raise NotImplementedError("sharded training comes with the "
                                       "multi-device port")
@@ -139,8 +150,26 @@ class Trainer:
         self.params, self.optimizer = init_train_state(
             cfg, adamw(learning_rate, weight_decay=weight_decay), seed=seed,
             device=self.device, params=params)
+        if opt_state is not None:
+            adamw_state_from_optax(opt_state["mu"], opt_state["nu"],
+                                   int(opt_state["count"]), self.params,
+                                   self.optimizer)
         self._step = make_vit_train_step(cfg)
         self.history = []
+
+    def canonical_params(self) -> Params:
+        """Parameters in the models/vit.py layout (for checkpoint IO):
+        the params themselves, as there is no mesh."""
+        return self.params
+
+    def state(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """``{"params", "opt_state", "step"}`` for
+        ``utils/checkpoint.save_train_state``: the params, the AdamW
+        moments in optax's layout, and ``step`` (the optimizer's step
+        count unless given)."""
+        opt = adamw_state_to_optax(self.params, self.optimizer)
+        return {"params": self.canonical_params(), "opt_state": opt,
+                "step": opt["count"] if step is None else step}
 
     def fit(self, batches: Iterable[Tuple[Any, Any]], log_every: int = 0):
         for i, (images, labels) in enumerate(batches):
