@@ -267,7 +267,7 @@ Phases, each of which raises on failure (exit code != 0):
               with 577 valid keys and (2, 1032, 768) with 1025, all rows
               in the int8 band; 7 loud padding rows at 577 valid that must
               leave the valid rows bit for bit; the gate (ViT-B/16 @1024's
-              4097 tokens, past the JAX int8 plan, and head dim 80 raise);
+              4097 tokens, past the JAX int8 plan, and head dim 96 raise);
               phase 16's K21a (on K15's launches) also at T 1601
               and (600, 400) x 1552 with the absmax in the partial last
               column tile; at the end K16's time at (16, 584, 768) beside
@@ -311,6 +311,23 @@ Phases, each of which raises on failure (exit code != 0):
               b64 dynamic / static and CLIP ViT-B/16 int8 latency b1 / b4
               against the CPU; CLIP training (2 SGD steps, the full text
               tower) against the CPU; cli serve / calibrate; their times
+ 27. ViT-H/14  right after the build: K4, K23, K16 and K18 at head dim 80
+              (mha_wgmma.cuh's two boxes a row) against their plain
+              versions at ViT-H/14's shapes, each beside the same kernel at
+              20 heads of 64 on the same inputs: K4 (64 / 1, 264, 1280)
+              both modes, loud padding, wide scores; K23 (8, 264, 1280);
+              K16 and K18 (64, 264, 1280) quiet and saturating, loud
+              padding at b4; K4 and K23 at (1, 40, 160) and (2, 136, 160);
+              K15 and K17 at (16 896, 1280) x 5120; head dim 96 raises at
+              the four, 80 at K1; at the end ImageServer over make_forward
+              (ViT-H/14 @224, depth 32) answers 128 uint8 requests at b64,
+              32 K4 a batch and nothing else; make_forward_int8 on the
+              dynamic and static trees at depth 32 (32 K16 + 32 K15 + 1
+              K14, 32 K18 + 32 K17 + 1 K14); each forward at depth 4 b64
+              against the CPU on 4 rows; the four kernels' times at dh 80
+              and 64; the three b64 forwards in turns; Trainer (AdamW) 3
+              steps at b8, depth 32 (32 K4 + 32 K23 a step), and one SGD
+              step at depth 2 b4 against the CPU
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -3351,11 +3368,15 @@ def _k1_long_parity(batch, n_pad, n_valid, d, heads, seed, extra=()):
     return worst
 
 
-def _expect_raise(label, fn, exc=ValueError):
+def _expect_raise(label, fn, exc=ValueError, match=None):
+    """``fn()`` must raise ``exc`` (whose text holds ``match`` if given)."""
     try:
         fn()
     except exc as e:
         print(f"  {label} raises: {e}")
+        if match is not None and match not in str(e):
+            raise AssertionError(f"{label} raised, but not with "
+                                 f"{match!r}") from e
         return
     raise AssertionError(f"{label} ran outside the kernel's gate")
 
@@ -4175,6 +4196,14 @@ def phase_full_forward_time(loops=5, iters=32):
             # now and then.  The separate path's embed, LN and head add
             # GEMM and reduction kernels that preprocess never runs.
             extra = {k for k in kernels if k not in pre}
+            for _ in range(PROFILER_TRIES if name.endswith("single") else 0):
+                # preprocess's reads may all have dropped a kernel's
+                # records: read it again before taking one for foreign
+                if all("vit_full" in k for k in extra):
+                    break
+                pre |= set(_launches(lambda: vit.preprocess(image, cfg),
+                                     calls)[0])
+                extra = {k for k in kernels if k not in pre}
             if name.endswith("single") and (
                     not extra or any("vit_full" not in k for k in extra)):
                 raise AssertionError(
@@ -6080,14 +6109,17 @@ def _k23_plain_f64(x, g, pa, heads, n_valid):
     return (gd + dx_ln).to(dt)
 
 
-def _k23_case(label, batch, n_pad, n_valid, d, heads, seed):
+def _k23_case(label, batch, n_pad, n_valid, d, heads, seed, widen=False):
     """K23 against its plain version at one shape, all seven gradients
     (an element of dx outside the band must lie inside the band of the
     plain arithmetic with f64 sums), the launch counted past 256 keys
     where it has more valid keys, and run twice on the same inputs, bit
-    for bit.  Returns the max-abs error of dx."""
+    for bit; ``widen``: the weights of ``_widened``.  Returns the max-abs
+    error of dx."""
     from vit_fpga_tpu_torch.ops import attn_block as ab
     x, g, pa, _ = _train_inputs(batch, n_pad, n_valid, d, 64, seed=seed)
+    if widen:
+        pa = _widened(pa, d)
     name = f"K23 {label} ({batch}, {n_pad}, {d}) n_valid={n_valid}"
     print(f"parity {name}, {heads} heads")
     before = ab.attn_block_bwd.launches_long
@@ -6221,7 +6253,8 @@ def phase_k16_long_kernels(d=768, heads=12):
     the build: K16_LONG_CASES in the int8 band, all rows; 7 loud padding
     rows at 577 valid keys of 584 that must leave the valid rows bit for
     bit; the gate: ViT-B/16 @1024's 4097 tokens (past the JAX int8 plan)
-    and head dim 80 raise.  Returns the largest max-abs error."""
+    and head dim 96 (K16 takes 64 and 80) raise.  Returns the largest
+    max-abs error."""
     from vit_fpga_tpu_torch.ops import quant_block as qb
     worst = 0.0
     for i, (b, n_pad, n_valid) in enumerate(K16_LONG_CASES):
@@ -6241,9 +6274,9 @@ def phase_k16_long_kernels(d=768, heads=12):
                   lambda: _k16(qb.attn_block_int8,
                                torch.zeros((1, 4104, d), dtype=torch.bfloat16,
                                            device="cuda"), q, heads, 4097))
-    _expect_raise("K16 at head dim 80",
+    _expect_raise("K16 at head dim 96",
                   lambda: _k16(qb.attn_block_int8,
-                               x[..., :720].contiguous(), q, 9, 197))
+                               x[..., :576].contiguous(), q, 6, 197))
     return worst
 
 
@@ -6358,8 +6391,8 @@ def phase_k18_k21b_long_kernels(d=768, heads=12):
     > 0), K21b on stats that are not x's own, f32 (both emit_stats) and
     bf16, each in its int8 band; loud padding at 577 valid keys of 584 bit
     for bit (``_k18_k21b_loud``); the gates: ViT-B/16 @1024's 4097 tokens
-    (past the JAX int8 plan) and head dim 80 raise.  Returns {row name:
-    largest max-abs error}."""
+    (past the JAX int8 plan), K18 at head dim 96 and K21b at head dim 80
+    raise.  Returns {row name: largest max-abs error}."""
     from vit_fpga_tpu_torch.ops import quant_block as qb
     worst = dict.fromkeys(LONG_HALVES, 0.0)
     for i, (b, n_pad, n_valid) in enumerate(K16_LONG_CASES):
@@ -6402,9 +6435,9 @@ def phase_k18_k21b_long_kernels(d=768, heads=12):
     _expect_raise("K21b at ViT-B/16 @1024 (1, 4104, 768), 4097 valid",
                   lambda: _k21b(qb.attn_block_int8_stats, big, big_st, q,
                                 heads, 4097, True))
-    _expect_raise("K18 at head dim 80",
+    _expect_raise("K18 at head dim 96",
                   lambda: _k18(qb.attn_block_int8_static,
-                               x[..., :720].contiguous(), a, 9, 197))
+                               x[..., :576].contiguous(), a, 6, 197))
     _expect_raise("K21b at head dim 80",
                   lambda: _k21b(qb.attn_block_int8_stats,
                                 x[..., :720].contiguous(), st, q, 9, 197,
@@ -7718,6 +7751,483 @@ def run_lifecycle_phases():
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: ViT-H/14 on the card -- head dim 80 in the bf16 and int8
+# attention halves (K4, K23, K16, K18), each held beside the same kernel at
+# head dim 64 on the same inputs; the model served in bf16 and int8 and
+# trained
+# ---------------------------------------------------------------------------
+
+# ViT-H/14 @224: 257 tokens on 264 rows, D 1280, M 5120, 16 heads of 80
+VIT_H = dict(n_pad=264, n_valid=257, d=1280, m=5120)
+# head counts at D 1280 on the same inputs: 16 of 80 (ViT-H/14) and 20 of
+# 64, so that a fault of the 80-wide tiles alone shows beside a pass
+VIT_H_HEADS = (16, 20)
+# (label, batch, n_pad, n_valid, d, heads) at head dim 80: one key tile,
+# and a last key tile of one key
+DH80_SMALL = (("one key tile", 1, 40, 33, 160, 2),
+              ("129 keys", 2, 136, 129, 160, 2))
+DH80_ROWS = ("attn_block_fwd_dh80", "attn_block_bwd_dh80",
+             "attn_block_int8_dh80", "attn_block_int8_static_dh80")
+
+
+def _dh(d, heads):
+    return f"dh {d // heads}"
+
+
+def _widened(pa, d):
+    """``_attn_inputs``' weights at a width other than 768 scaled by
+    sqrt(768 / d), so that q, k, v, the branch and the gradients stand
+    against x and g as at D 768, where the bands were set: at D 160
+    unscaled BRANCH_TOL reads a bf16 ulp flip of out as 1e-2 itself; at D
+    1280 unscaled |dx| reaches 20 and the f64 referee of K23's dx finds the
+    plain version itself outside its band on 104-140 of 2.7M elements, and
+    11-28 whole rows of 16 896 leave the int8 halves' band, at head dim 64
+    exactly as at 80 on the same inputs; scaled, none at either."""
+    s = (768 / d) ** 0.5
+    return dict(pa, wqkv=pa["wqkv"] * s, wo=pa["wo"] * s)
+
+
+def _int8_vit_h_loud(kernel, x, q, heads, n_valid):
+    """K16 or K18 (``kernel``) with its padding rows of huge spikes (7 at
+    ViT-H/14's 257 valid of 264): the valid rows must equal the kernel's
+    own on quiet padding rows bit for bit and match the plain version on
+    the loud input in the int8 band (K16 with a requantized row's
+    allowance, as in phase 16).  Returns the max-abs error."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    b, n_pad, d = x.shape
+    loud = x.clone()
+    loud[:, n_valid:] = 0.0
+    loud[:, n_valid:, 3] = 3e3
+    loud[:, n_valid:, 100] = -1e3
+    valid = (slice(None), slice(0, n_valid))
+    if kernel == "K16":
+        def call(fn, xx):
+            return _k16(fn, xx, q, heads, n_valid)
+        fns = (qb.attn_block_int8, qb.attn_block_int8_plain)
+        step = _k16_step(loud, q, heads, n_valid)
+        kw = dict(row_bound=_requant_bound(step, q["wo_q"]))
+    else:
+        a, _, _ = _static_attn_args(x, q, heads, n_valid)
+
+        def call(fn, xx):
+            return _k18(fn, xx, a, heads, n_valid)
+        fns = (qb.attn_block_int8_static, qb.attn_block_int8_static_plain)
+        step = (127.0 * a["wo_s"]).expand(b, n_pad, d)
+        kw = dict(mag_x=True)
+    quiet_out, loud_out = call(fns[0], x), call(fns[0], loud)
+    label = f"{kernel} loud padding ({b}, {n_pad}, {d}) {_dh(d, heads)}"
+    err = _int8_parity(label, loud_out, call(fns[1], loud), step, loud,
+                       rows=valid, **kw)
+    moved = float((loud_out[valid].float() - quiet_out[valid].float())
+                  .abs().max())
+    print(f"  {label} valid rows, loud vs quiet padding: max_abs="
+          f"{moved:.3e} (must be 0)")
+    if moved != 0.0:
+        raise AssertionError(f"{kernel}: padding rows moved the valid rows")
+    return err
+
+
+def phase_vit_h14_kernels():
+    """Right after the build: K4, K23, K16 and K18 at head dim 80 against
+    their plain versions on the card, at ViT-H/14's shapes each beside the
+    same kernel at 20 heads of 64 on the same inputs: K4 at (64, 264,
+    1280) and (1, 264, 1280) with 257 valid, both softmax modes (loud
+    padding bit for bit, the wide scores); K23 at (8, 264, 1280), all
+    seven gradients, twice bit for bit; K16 and K18 (quiet and saturating)
+    at (64, 264, 1280), with 7 loud padding rows at b4; K4 and K23 also at
+    DH80_SMALL; K15 and K17 at ViT-H/14 b64's (16 896, 1280) x 5120, their
+    first run at that width; the gates: head dim 96 raises at K4, K23, K16
+    and K18, head dim 80 at K1.  Returns {JSON row: largest max-abs error
+    of its dh-80 runs}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_pad, n_valid, d, m = (VIT_H[k] for k in ("n_pad", "n_valid", "d", "m"))
+    worst = dict.fromkeys(DH80_ROWS, 0.0)
+
+    def keep(row, dh, err):
+        if dh == 80:
+            worst[row] = max(worst[row], err)
+
+    for i, b in enumerate((64, 1)):
+        for heads in VIT_H_HEADS:
+            keep("attn_block_fwd_dh80", d // heads, _k4_long_parity(
+                f"ViT-H/14 @224 b{b} {_dh(d, heads)}", b, n_pad, n_valid, d,
+                heads, (True, False), seed=500 + i))
+    for j, (label, b, n, nv, dd, heads) in enumerate(DH80_SMALL):
+        x, _, pa = _attn_inputs(b, n, dd, seed=505 + j)
+        pa = _widened(pa, dd)
+        for safe in (True, False):
+            name = (f"K4 {label} ({b}, {n}, {dd}) {_dh(dd, heads)} "
+                    f"n_valid={nv} safe_softmax={safe}")
+            got = _k4(ab.attn_block_fwd, x, pa, heads, nv, safe)
+            want = _k4(ab.attn_block_fwd_plain, x, pa, heads, nv, safe)
+            torch.cuda.synchronize()
+            keep("attn_block_fwd_dh80", 80, _compare(
+                f"{name} out", got, want, BF16_TOL, BF16_TOL))
+            _branch(f"{name} branch", got, want, x)
+
+    for heads in VIT_H_HEADS:
+        keep("attn_block_bwd_dh80", d // heads, _k23_case(
+            f"ViT-H/14 @224 b8 {_dh(d, heads)}", 8, n_pad, n_valid, d,
+            heads, seed=510, widen=True))
+    for j, (label, b, n, nv, dd, heads) in enumerate(DH80_SMALL):
+        keep("attn_block_bwd_dh80", 80, _k23_case(
+            f"{label} {_dh(dd, heads)}", b, n, nv, dd, heads, seed=511 + j,
+            widen=True))
+
+    x, _, p = _attn_inputs(64, n_pad, d, seed=520)
+    q = _int8_weights(_widened(p, d), ("wqkv", "wo"))
+    valid = (slice(None), slice(0, n_valid))
+    for heads in VIT_H_HEADS:
+        name = f"K16 ViT-H/14 @224 b64 {_dh(d, heads)}"
+        print(f"parity {name} (64, {n_pad}, {d}), {heads} heads, "
+              f"n_valid={n_valid}")
+        step = _k16_step(x, q, heads, n_valid)
+        keep("attn_block_int8_dh80", d // heads, _int8_parity(
+            name, _k16(qb.attn_block_int8, x, q, heads, n_valid),
+            _k16(qb.attn_block_int8_plain, x, q, heads, n_valid), step, x,
+            row_bound=_requant_bound(step, q["wo_q"])))
+        for label, shrink in (("quiet", 1.0), ("saturating", SHRINK)):
+            a, cx, cao = _static_attn_args(x, q, heads, n_valid, shrink)
+            name = f"K18 ViT-H/14 @224 b64 {_dh(d, heads)} {label}"
+            print(f"parity {name}: clipped share xq {cx:.3e}, aoq {cao:.3e}")
+            if shrink > 1.0 and not min(cx, cao) > 0.0:
+                raise AssertionError(f"{name}: nothing clipped")
+            keep("attn_block_int8_static_dh80", d // heads, _int8_parity(
+                name, _k18(qb.attn_block_int8_static, x, a, heads, n_valid),
+                _k18(qb.attn_block_int8_static_plain, x, a, heads, n_valid),
+                (127.0 * a["wo_s"]).expand(64, n_pad, d), x, rows=valid,
+                mag_x=True))
+    for kernel, row in (("K16", "attn_block_int8_dh80"),
+                        ("K18", "attn_block_int8_static_dh80")):
+        keep(row, 80, _int8_vit_h_loud(kernel, x[:4].contiguous(), q, 16,
+                                       n_valid))
+
+    t = 64 * n_pad
+    _k15_case(f"ViT-H/14 @224 b64 ({t}, {d}) x {m}", t, d, m, seed=530)
+    x2, _, p = _mlp_inputs(t, d, m, seed=531)
+    q = _int8_weights(p, ("w1", "w2"))
+    for label, shrink in (("quiet", 1.0), ("saturating", SHRINK)):
+        a, cx, ch = _static_mlp_args(x2, q, "gelu_tanh", shrink)
+        name = f"K17 ViT-H/14 @224 b64 ({t}, {d}) x {m} {label}"
+        print(f"parity {name}: clipped share xq {cx:.3e}, hq {ch:.3e}")
+        if shrink > 1.0 and not min(cx, ch) > 0.0:
+            raise AssertionError(f"{name}: nothing clipped")
+        _int8_parity(name, _k17(qb.mlp_block_int8_static, x2, a,
+                                "gelu_tanh"),
+                     _k17(qb.mlp_block_int8_static_plain, x2, a, "gelu_tanh"),
+                     (127.0 * a["w2_s"]).expand(t, d), x2, mag_x=True)
+    del x2, q, a
+
+    x96, _, p96 = _attn_inputs(1, 200, 1152, seed=540)   # 12 heads of 96
+    q96 = _int8_weights(p96, ("wqkv", "wo"))
+    a96, _, _ = _static_attn_args(x96, q96, 12, 197)
+    for label, call in (
+            ("K4", lambda: _k4(ab.attn_block_fwd, x96, p96, 12, 197, False)),
+            ("K23", lambda: _k23(ab.attn_block_bwd, x96, x96, p96, 12, 197)),
+            ("K16", lambda: _k16(qb.attn_block_int8, x96, q96, 12, 197)),
+            ("K18", lambda: _k18(qb.attn_block_int8_static, x96, a96, 12,
+                                 197))):
+        _expect_raise(f"{label} at head dim 96", call,
+                      match=f"{label} takes head dim 64 or 80")
+    xh, sth, ph = _attn_inputs(1, n_pad, d, seed=541)
+    _expect_raise("K1 at head dim 80 (ViT-H/14 b1)", lambda: _attn_call(
+        ab.attn_block_stats, xh, sth, _bf16_weights(ph, ("wqkv", "wo")), 16,
+        n_valid, True), match="K1 takes head dim 64")
+    return worst
+
+
+def _vit_h_want(cfg, batch, int8=None):
+    """The counted launches of one ViT-H/14 forward at ``batch``: bf16
+    depth K4 (the stats chain's plan is None: 4 MLP chunks) and the MLP
+    _mlp_route gives (the plain torch MLP, nothing counted); int8
+    ("dynamic" or "static") depth of each int8 half and one K14 (the
+    head)."""
+    from vit_fpga_tpu_torch.models import vit
+    rows = batch * vit._n_pad(cfg)
+    if int8 is not None:
+        attn, mlp = INT8_SLICE_MODES[int8][2]
+        return {attn: cfg.depth, mlp: cfg.depth, "int8_linear_fused": 1}
+    if vit._stats_chain_mlp_plan(cfg, rows) is not None:
+        raise AssertionError("ViT-H/14 took the stats chain")
+    want = {"attn_block_fwd": cfg.depth}
+    impl, n_chunks = vit._mlp_route(cfg, rows)
+    print(f"  ViT-H/14 b{batch}: the MLP route {impl}, {n_chunks} chunks")
+    if impl == "pallas":
+        want["fused_mlp_fwd" if n_chunks == 1 else "fused_mlp_chunked"] = \
+            cfg.depth
+    return want
+
+
+def _counted(label, fwd, images, want):
+    """``fwd(images)`` with the counts set to 0 just before it: exactly
+    ``want``; K4's launches (if any) all past 256 keys.  Returns (logits
+    on the host, the launches)."""
+    counters = _zero_counters()
+    got = fwd(images).float().cpu().numpy()
+    torch.cuda.synchronize()
+    launches = _check_launches(label, counters, want)
+    long = counters["attn_block_fwd"].launches_long
+    print(f"  {label} launches: { {k: v for k, v in launches.items() if v} }"
+          f", K4 past 256 keys {long}")
+    if long != want.get("attn_block_fwd", 0):
+        raise AssertionError(f"{label}: {long} K4 launches past 256 keys")
+    if got.shape != (len(images), 1000) or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: logits not finite of shape "
+                             f"({len(images)}, 1000)")
+    return got, launches
+
+
+def phase_vit_h14_serve(n_requests=128, batch=64, depth_cpu=4, n_check=4):
+    """ViT-H/14 @224 on the card.  Full depth (32): ImageServer over
+    make_forward (bf16) answers ``n_requests`` uint8 requests at b64, per
+    batch exactly 32 K4 (each past 256 keys) and nothing else counted;
+    make_forward_int8 on the dynamic tree (quantize_vit_fast) and on the
+    static one (quantize_vit_static) one b64 batch each, 32 K16 + 32 K15
+    + 1 K14 and 32 K18 + 32 K17 + 1 K14.  Depth ``depth_cpu`` (full width,
+    its own weights): each forward at b64 on the card against the CPU
+    forward of ``n_check`` of its images (bf16 in LOGITS_BAND, int8 in
+    INT8_LOGITS_BAND, top-1 stated).  Returns ({JSON row: launches},
+    {name: (forward, images)} at full depth for the timing, the
+    full-depth parameters)."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    cfg = vit.config("vit_h14", dtype="bfloat16")
+    rng = np.random.default_rng(550)
+    images = rng.integers(0, 256, (n_requests, cfg.image_size,
+                                   cfg.image_size, 3), np.uint8)
+    t0 = time.perf_counter()
+    params = vit.init_params(cfg, _gen(550), device="cuda")
+    print(f"ViT-H/14 @224 depth {cfg.depth}: parameters made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fwd = vit.make_forward(cfg, params, raw=True)
+    fwd(images[:batch])
+    torch.cuda.synchronize()
+    want = _vit_h_want(cfg, batch)
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    with ImageServer(fwd, image_size=cfg.image_size,
+                     batch_size=batch) as server:
+        results = [f.result(timeout=600) for f in
+                   [server.submit_raw(img) for img in images]]
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"ViT-H/14 bf16 serve: {len(results)}/{n_requests} answered in "
+          f"{server.batches} batches, {wall:.3f} s, "
+          f"{n_requests / wall:.1f} img/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if len(results) != n_requests or server.served != n_requests:
+        raise AssertionError("ViT-H/14: not every request was answered")
+    for r in results:
+        if r.shape != (cfg.num_classes,) or not np.isfinite(r).all():
+            raise AssertionError(f"ViT-H/14: bad logits row {r.shape}")
+    for name, n in launches.items():
+        if n != want.get(name, 0) * server.batches:
+            raise AssertionError(f"ViT-H/14 serve: {name} launched {n} "
+                                 f"times in {server.batches} batches")
+    if counters["attn_block_fwd"].launches_long != launches["attn_block_fwd"]:
+        raise AssertionError("ViT-H/14 serve: K4 launches not all past 256 "
+                             "keys")
+    rows = {"attn_block_fwd_dh80": launches["attn_block_fwd"]}
+    fwds = {"bf16": (fwd, images[:batch])}
+    for mode, row in (("dynamic", "attn_block_int8_dh80"),
+                      ("static", "attn_block_int8_static_dh80")):
+        t0 = time.perf_counter()
+        qp = (quantized.quantize_vit_static(params, cfg) if mode == "static"
+              else quantized.quantize_vit_fast(params))
+        f8 = quantized.make_forward_int8(cfg, qp, raw=True)
+        print(f"ViT-H/14 int8 {mode} tree made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        f8(images[:batch])
+        _, got = _counted(f"ViT-H/14 int8 {mode} b{batch}", f8,
+                          images[:batch], _vit_h_want(cfg, batch, mode))
+        rows[row] = got[INT8_SLICE_MODES[mode][2][0]]
+        fwds[mode] = (f8, images[:batch])
+
+    cfg4 = vit.config("vit_h14", dtype="bfloat16", depth=depth_cpu)
+    p4 = vit.init_params(cfg4, _gen(551), device="cuda")
+    idx = np.linspace(0, batch - 1, n_check).astype(int)
+    for mode in ("bf16", "dynamic", "static"):
+        label = f"ViT-H/14 {mode} depth {depth_cpu} b{batch}"
+        if mode == "bf16":
+            tree, make = p4, vit.make_forward
+            want, band = _vit_h_want(cfg4, batch), LOGITS_BAND
+        else:
+            tree = (quantized.quantize_vit_static(p4, cfg4)
+                    if mode == "static" else quantized.quantize_vit_fast(p4))
+            make = quantized.make_forward_int8
+            want, band = _vit_h_want(cfg4, batch, mode), INT8_LOGITS_BAND
+        got, _ = _counted(label, make(cfg4, tree), images[:batch], want)
+        t0 = time.perf_counter()
+        ref = make(cfg4, _tree_to(tree, "cpu"), device="cpu")(
+            images[idx]).float().numpy()
+        print(f"  {label}: the CPU forward of images {list(idx)} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        _rel_to_max(f"{label} logits of images {list(idx)} vs the CPU "
+                    f"forward", got[idx], ref, band)
+        agree = int((got[idx].argmax(1) == ref.argmax(1)).sum())
+        print(f"  {label}: top-1 agrees with the CPU on {agree}/{n_check} "
+              f"(stated)")
+    return rows, fwds, params
+
+
+def phase_vit_h14_train(params, batch=8, steps=3, depth_cpu=2, lr=0.1):
+    """ViT-H/14 @224 trained on the card: Trainer (AdamW, lr TRAIN_LR)
+    takes ``steps`` steps at full width and depth (``params``) on one batch
+    of ``batch``, each step 32 K4 (all past 256 keys) and 32 K23 and
+    nothing else counted (the MLP the plain torch one), every loss finite;
+    then one SGD step at depth ``depth_cpu`` b4 on the card against the
+    CPU plain step (the loss, every gradient and updated parameter).
+    Returns K23's launches in the Trainer's run."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.train import trainer as tr
+    cfg = vit.config("vit_h14", dtype="bfloat16")
+    trainer = tr.Trainer(cfg, learning_rate=TRAIN_LR, params=params)
+    images, labels = _train_batch(cfg, batch, seed=560)
+    images, labels = images.cuda(), labels.cuda()
+    counters = _zero_counters()
+    counters["attn_block_bwd"].launches_long = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit([(images, labels)] * steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [h["loss"] for h in hist]
+    print(f"ViT-H/14 Trainer: {steps} AdamW steps at b{batch}, {wall:.2f} s; "
+          f"losses " + " ".join(f"{v:.4f}" for v in losses) + "; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("ViT-H/14 training loss not finite")
+    for name, n in launches.items():
+        want = cfg.depth * steps if name in ("attn_block_fwd",
+                                             "attn_block_bwd") else 0
+        if n != want:
+            raise AssertionError(f"ViT-H/14 Trainer: {name} launched {n} "
+                                 f"times in {steps} steps, want {want}")
+    long = (counters["attn_block_fwd"].launches_long,
+            counters["attn_block_bwd"].launches_long)
+    if long != (cfg.depth * steps,) * 2:
+        raise AssertionError(f"ViT-H/14 Trainer: K4 / K23 launches past 256 "
+                             f"keys {long}")
+    cfg2 = vit.config("vit_h14", dtype="bfloat16", depth=depth_cpu)
+    got, _, *_ = _step_vs_cpu(cfg2, 4, lr, seed=561)
+    print(f"  ViT-H/14 depth {depth_cpu} SGD step launches: "
+          f"{ {k: v for k, v in got.items() if v} }")
+    for name, n in got.items():
+        want = depth_cpu if name in ("attn_block_fwd", "attn_block_bwd") else 0
+        if n != want:
+            raise AssertionError(f"ViT-H/14 step: {name} launched {n} times, "
+                                 f"want {want}")
+    return launches["attn_block_bwd"]
+
+
+def _time_int8_half(name, kind, batch, n_pad, n_valid, d, heads, seed):
+    """K16 (``kind`` "dynamic") or K18 ("static") at one shape: the
+    kernel's time, its plain version's, its library yardstick's (SDPA with
+    the key mask) and the bound, device alone too.  Returns a dict of
+    times."""
+    from vit_fpga_tpu_torch.ops import quant_block as qb
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    x, _, p = _attn_inputs(batch, n_pad, d, seed=seed)
+    q = _int8_weights(p, ("wqkv", "wo"))
+    if kind == "dynamic":
+        def kern():
+            return _k16(qb.attn_block_int8, x, q, heads, n_valid)
+
+        def plain():
+            return _k16(qb.attn_block_int8_plain, x, q, heads, n_valid)
+        lib = _k16_library(x, q, heads, n_valid)
+    else:
+        a, _, _ = _static_attn_args(x, q, heads, n_valid)
+
+        def kern():
+            return _k18(qb.attn_block_int8_static, x, a, heads, n_valid)
+
+        def plain():
+            return _k18(qb.attn_block_int8_static_plain, x, a, heads, n_valid)
+        lib = _static_library(x, a, "attn", heads, n_valid)
+    ops8, flops, nbytes = _k16_work(batch, n_pad, n_valid, d, heads)
+    ms = time_cuda(kern)
+    plain_ms = time_cuda(plain, iters=5, warmup=1)
+    lib_ms = _library_ms(lib, name)
+    bound_ms, bound_by = _bound_int8(ops8, flops, nbytes)
+    print(f"timing {name} ({batch}, {n_pad}, {d}) {_dh(d, heads)} {n_valid} "
+          f"valid: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{lib_ms} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{ops8 / 1e9:.2f} G int8 ops + {flops / 1e9:.2f} GFLOP bf16, "
+          f"{nbytes / 1e6:.2f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                **_device_alone_pair(name, kern, lib, lib_ms is not None))
+
+
+def phase_vit_h14_timing():
+    """K4 (both softmax modes) and K16 / K18 at ViT-H/14 b64's (64, 264,
+    1280), K23 at the Trainer's (8, 264, 1280): each at 16 heads of 80
+    (the JSON rows DH80_ROWS; K4's row its max-free mode, the one serving
+    and training run) and, on the same shapes, at 20 heads of 64 beside
+    it, per call and device alone against the plain version, the library
+    yardstick and the bound.  Returns {JSON row: times}."""
+    n_pad, n_valid, d = (VIT_H[k] for k in ("n_pad", "n_valid", "d"))
+    out = {}
+    for heads in VIT_H_HEADS:
+        label = f"ViT-H/14 @224 b64 {_dh(d, heads)}"
+        for safe in (True, False):
+            t = _time_k4_long(label, 64, n_pad, n_valid, d, heads, safe, 570,
+                              alone=True)
+            if heads == 16 and not safe:
+                out["attn_block_fwd_dh80"] = t
+        t = phase_k23_timing(8, n_pad, n_valid, d, heads, seed=571,
+                             alone=True)
+        if heads == 16:
+            out["attn_block_bwd_dh80"] = t
+        for kind, row in (("dynamic", "attn_block_int8_dh80"),
+                          ("static", "attn_block_int8_static_dh80")):
+            t = _time_int8_half(f"{row} ({label})", kind, 64, n_pad, n_valid,
+                                d, heads, seed=572)
+            if heads == 16:
+                out[row] = t
+    return out
+
+
+def phase_vit_h14_forward_time(fwds, iters=5):
+    """The ViT-H/14 @224 b64 forwards at full depth, bf16, dynamic and
+    static int8: ms per batch and img/s, in turns (each twice, the order
+    reversed)."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    smi = _smi_line()
+    runs = {k: (f, torch.from_numpy(img).cuda()) for k, (f, img) in
+            fwds.items()}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        f, img = runs[name]
+        times[name].append(time_cuda(lambda: f(img), iters=iters, warmup=1))
+    for name, ms in times.items():
+        b = runs[name][1].shape[0]
+        print(f"forward ViT-H/14 @224 b{b} {name}: "
+              + " / ".join(f"{t:.3f}" for t in ms) + " ms per batch, "
+              + " / ".join(f"{b / t * 1e3:.1f}" for t in ms)
+              + f" img/s [{smi}]")
+    return times
+
+
+def run_vit_h14_phases(errors, timing, launches):
+    """Phase 27 after the earlier slices' phases (its parity ran right
+    after the build): ViT-H/14 served in bf16 and int8 and trained, the
+    times of K4, K23, K16 and K18 at head dim 80, the forwards' times; the
+    JSON rows DH80_ROWS."""
+    rows, fwds, params = phase_vit_h14_serve()
+    launches.update(rows)
+    for name, t in phase_vit_h14_timing().items():
+        timing[name] = dict(t, max_abs_err=errors[name])
+    phase_vit_h14_forward_time(fwds)
+    del fwds
+    launches["attn_block_bwd_dh80"] = phase_vit_h14_train(params)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -7738,12 +8248,14 @@ def main() -> int:
     print(_kernels.build_log)
     check_wgmma_serialisation(_kernels.build_log)
 
+    errors_h = phase_vit_h14_kernels()
     phase_prefetch_race()
     phase_chain_grad()
     wgmma_errors = phase_wgmma_kernels()
     errors, op_launches = phase_odd_kernels()
     errors.update(phase_k23_kernels())
     errors.update(phase_past_1024_kernels())
+    errors.update(errors_h)
     errors.update(phase_train_edges())
     errors["fused_mlp_fwd"] = wgmma_errors.pop("fused_mlp_fwd")
     errors.update(phase_chain_kernels(8))
@@ -7811,6 +8323,7 @@ def main() -> int:
     run_k17_k22_phases(errors, timing, launches)
     run_k14_k10_phases(errors, timing, launches)
     run_past_1024_phases(errors, timing, launches)
+    run_vit_h14_phases(errors, timing, launches)
     run_lifecycle_phases()
 
     sources = {
@@ -7902,6 +8415,15 @@ def main() -> int:
                                 "vit_fpga_tpu/ops/attn_block.py:734"),
         "attn_block_bwd_1608": ("vit_fpga_tpu_torch/csrc/attn_bwd.cu",
                                 "vit_fpga_tpu/ops/attn_block.py:734"),
+        "attn_block_fwd_dh80": ("vit_fpga_tpu_torch/csrc/attn_block.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:371"),
+        "attn_block_bwd_dh80": ("vit_fpga_tpu_torch/csrc/attn_bwd.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:734"),
+        "attn_block_int8_dh80": ("vit_fpga_tpu_torch/csrc/attn_int8.cu",
+                                 "vit_fpga_tpu/ops/quant_block.py:226"),
+        "attn_block_int8_static_dh80": (
+            "vit_fpga_tpu_torch/csrc/attn_int8_static.cu",
+            "vit_fpga_tpu/ops/quant_block.py:729"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

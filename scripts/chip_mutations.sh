@@ -159,9 +159,9 @@ extern \"C\" {
 # The bf16 K7 / K8 ring without the V tiles of pass 2: the producer loads
 # and expects K alone, so p v reads whatever the V slots held before
 run_copy k7_k8_ring_no_v_load mha_wgmma.cuh \
-  "mbar_expect_tx(full(s), pv ? 2 * MW_TILE_BYTES : MW_TILE_BYTES);" \
-  "mbar_expect_tx(full(s), MW_TILE_BYTES);" \
-  "if (pv) tma_load_4d(ks + MW_TILE_BYTES, &tv, full(s), 0, key0, h, b);" \
+  "mbar_expect_tx(full(s), pv ? 2 * Dim::TILE : Dim::TILE);" \
+  "mbar_expect_tx(full(s), Dim::TILE);" \
+  "if (pv) mw_load<DH>(ks + Dim::TILE, &m.v, &m.v1, full(s), key0, h, b);" \
   ""
 # K6 with its chunk loop collapsed to one chunk (the chunked GEMM's chunk
 # as long as its K): no bf16 rounding of the running output between
@@ -177,8 +177,8 @@ run_copy k23_rs_from_bf16_p attn_bwd.cu \
   "rs[rr] += p * dp[x];" "rs[rr] += bf16_round(p) * dp[x];"
 # K23's key-tile kernel dropping the last query tile from dk
 run_copy k23_dk_no_last_query_tile attn_bwd.cu \
-  "rs_issue(dkacc, pd, qh);  // dk += dS^T q" \
-  "if (j + 1 < nqt) rs_issue(dkacc, pd, qh);  // dk += dS^T q"
+  "rs_issue<DH, QW / 16>(dkacc, pd, qh);  // dk += dS^T q" \
+  "if (j + 1 < nqt) rs_issue<DH, QW / 16>(dkacc, pd, qh);  // dk += dS^T q"
 # K21a normalising x with its own one-pass LN statistics instead of the
 # producer's (the parity cases feed stats that are not x's own): the row
 # pass before its W1 on the int8 wgmma GEMM
@@ -213,8 +213,8 @@ extern \"C\" {
 # n_valid past 256 keys: the padding rows' keys join every query row (phase
 # 21's 577 valid keys of 584)
 run_copy k16_key_mask_at_n_pad attn_int8.cu \
-  "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid, scale," \
-  "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid > 256 ? n_pad : n_valid, scale,"
+  "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid," \
+  "launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid > 256 ? n_pad : n_valid,"
 # K21b emitting the stats of the f32 sum x + bf16(y) instead of out's bf16
 # values: a plain out-projection added to the copy writes that sum into an
 # f32 scratch (the qkv buffer) after the wgmma one, and a one-pass stats
@@ -331,8 +331,8 @@ run_copy k4_long_safe_one_tile_max mha_wgmma.cuh \
 # K4's safe mode normalising before it rounds, p = bf16(e / sum e): K7's
 # exact mode in its place (caught by phase_train_edges' flat tokens)
 run_copy k4_safe_normalise_first attn_half.cuh \
-  "launch_mha_packed<MODE>(qkv, ao," \
-  "launch_mha_packed<MODE == MW_SAFE ? MW_EXACT : MODE>(qkv, ao," \
+  "launch_mha_packed<MODE, false, DH>(qkv, ao," \
+  "launch_mha_packed<MODE == MW_SAFE && DH == 64 ? MW_EXACT : MODE, false, DH>(qkv, ao," \
   "  return mha_wgmma_enable<MODE>();" \
   "  if ((err = mha_wgmma_enable<MW_EXACT>()) != cudaSuccess) return err;
   return mha_wgmma_enable<MODE>();"
@@ -376,5 +376,16 @@ run_copy chain_vjp_no_dx models/vit.py \
 # (caught right after the build by phase 26's prefetch check)
 run_copy prefetch_no_wait runtime/data.py \
   "consumer.wait_event(ready)" "pass"
+# The attention core reading 64 columns of an 80-column head: q k^T without
+# the second box's k16 step (columns 64..79), at every head-dim-80 launch
+# of K4, K16 and K18 (caught right after the build by phase 27)
+run_copy dh80_qk_first_64_columns mha_wgmma.cuh \
+  "  if constexpr (DH == 80) wgmma_m64n128k16_ss(s, qd.d1, kd.d1, 1);
+" ""
+# K4 launched with the softmax scale of head dim 64, 1 / sqrt(64), at any
+# head dim (caught right after the build by phase 27 at head dim 80)
+run_copy dh80_scale_of_64 ops/attn_block.py \
+  "            1.0 / math.sqrt(d // num_heads), stream, ctypes.byref(long_path))" \
+  "            1.0 / math.sqrt(64), stream, ctypes.byref(long_path))"
 [ -n "$ONLY" ] && exit 0
 mkdir -p _chip/alone && cp chip_smoke.py _chip/alone/ && (cd _chip/alone && python3 chip_smoke.py > ../../chiprun_out/alone.log 2>&1; echo "chip_smoke.py alone: exit $?"; tail -1 ../../chiprun_out/alone.log)

@@ -86,7 +86,7 @@ def test_k23_runs_its_products_and_attention_on_wgmma():
     assert k23.count("launch_gemm_wgmma<GW_AK_BK, GW_EPI_F32>(") == 1
     assert k23.count("launch_gemm_wgmma<GW_AM_BN, GW_EPI_F32>(") == 2
     assert k23.count("launch_split_sum(") == 2
-    for kernel in ("bwd_q_kernel<<<", "bwd_kv_kernel<<<"):
+    for kernel in ("bwd_q_kernel<DH><<<", "bwd_kv_kernel<DH><<<"):
         assert k23.count(kernel) == 1
     assert not re.search(r"\battn_bwd_kernel\b|\bAttnBwdSmem\b", k23)
     # no token cap: the backward routes by the JAX _bwd_fits before it
@@ -483,7 +483,7 @@ def test_the_int8_attention_store_is_the_static_layer_loops():
     epilogue (K19b): r = (1 / l) * out_scale, then bf16(o * r), rint, the
     clip at +-127."""
     mha = (_kernels.CSRC / "mha_wgmma.cuh").read_text()
-    assert "template <int MODE, bool Q8 = false>" in mha
+    assert "template <int MODE, bool Q8 = false, int DH = 64>" in mha
     assert mha.count("mha_wgmma_kernel(") == 1
     assert "const float rv = __fmul_rn(ol[rr], p.out_scale);" in mha
     stack = (_kernels.CSRC / "stack_wgmma.cuh").read_text()
@@ -813,3 +813,34 @@ def test_no_token_cap_in_the_attention_halves():
         text = p.read_text()
         for cap in ("LONG_MAX_TOKENS", "AH_MAX_TOKENS", "AB_MAX_TOKENS"):
             assert cap not in text, (p.name, cap)
+
+
+def test_the_attention_core_takes_head_dim_80_where_vit_h14_runs():
+    """mha_wgmma.cuh's head dim is a template parameter (64, or 80 as a
+    64-column box 128-byte swizzled and a 16-column one 32-byte swizzled,
+    whose p v step is m64n16k16), instantiated at 80 only for the kernels
+    on ViT-H/14's path: K4's two softmax modes, K16, K18 (its int8 store)
+    and K23's two attention-backward kernels; K1, K7 / K8, K9 and K21b
+    keep head dim 64 (no template argument 80 in their sources)."""
+    mha = (_kernels.CSRC / "mha_wgmma.cuh").read_text()
+    hop = (_kernels.CSRC / "hopper.cuh").read_text()
+    assert "static_assert(DH == 64 || DH == 80" in mha
+    assert "CU_TENSOR_MAP_SWIZZLE_32B" in mha and "sw32_desc(" in mha
+    assert "m64n16k16.f32.bf16.bf16" in hop and "(3ull << 62)" in hop
+    for src, insts in (
+            ("attn_block.cu", ("mha_wgmma_enable<MW_MAXFREE, false, 80>",
+                               "mha_wgmma_enable<MW_SAFE, false, 80>",
+                               "launch_attn_half<MW_SAFE, 80>",
+                               "launch_attn_half<MW_MAXFREE, 80>")),
+            ("attn_int8.cu", ("mha_wgmma_enable<MW_MAXFREE, false, 80>",
+                              "launch_mha_packed<MW_MAXFREE, false, 80>")),
+            ("attn_int8_static.cu", ("mha_wgmma_enable<MW_MAXFREE, true, 80>",
+                                     "launch_mha_packed<MW_MAXFREE, true, 80>")),
+            ("attn_bwd.cu", ("bwd_enable<80>", "launch_attn_bwd_core<80>"))):
+        text = (_kernels.CSRC / src).read_text()
+        for inst in insts:
+            assert inst in text, (src, inst)
+    for src in ("attn_stats.cu", "mha.cu", "flash_attn.cu",
+                "attn_int8_stats.cu"):
+        text = (_kernels.CSRC / src).read_text()
+        assert not re.search(r"[<,]\s*80\s*>", text), src

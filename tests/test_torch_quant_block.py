@@ -177,7 +177,7 @@ def test_k16_gate_admits_what_the_jax_planner_runs(variant, image):
 
 
 @pytest.mark.parametrize("b,n,d,heads,n_valid,why", [
-    (4, 584, 960, 12, 577, "head dim 64"),     # dh 80 (ViT-H/14)
+    (4, 584, 1152, 12, 577, "head dim 64 or 80"),  # dh 96
     (4, 200, 768, 12, 0, "head dim 64"),       # no valid key
     (4, 200, 768, 12, 201, "head dim 64"),     # more valid keys than rows
     (5462, 200, 768, 12, 197, "grid"),         # batch x heads past 65535
@@ -186,6 +186,41 @@ def test_k16_gate_rejects_what_the_kernel_does_not_take(b, n, d, heads,
                                                         n_valid, why):
     with pytest.raises(ValueError, match=why):
         tqb.attn_int8_geometry(b, n, d, heads, n_valid)
+
+
+# ViT-H/14 (D 1280, 16 heads of 80) at 224 and 336 px, where the JAX
+# planner runs the int8 block kernels
+VIT_H14_IMAGES = (224, 336)
+
+
+@pytest.mark.parametrize("kernel", ["K16", "K18"])
+@pytest.mark.parametrize("image", VIT_H14_IMAGES)
+def test_k16_k18_gates_admit_vit_h14(kernel, image):
+    """K16's and K18's gates take head dim 80: ViT-H/14's tokens at the
+    rows the port pads them to, b1 and b64, where the JAX planner sends
+    its blocks to the int8 kernels and (K18) the JAX wrapper itself runs
+    (its own checks, traced abstractly)."""
+    jcfg = jvit.config("vit_h14", image_size=image)
+    d, heads, n = jcfg.hidden_dim, jcfg.num_heads, jcfg.seq_len
+    assert d // heads == 80 and jq._int8_block_fits(jcfg)
+    n_pad = round_up(n, SUBLANE)
+    gate = (tqb.attn_int8_geometry if kernel == "K16"
+            else tqb.attn_int8_static_geometry)
+    for batch in (1, 64):
+        if kernel == "K18":
+            assert _jax_wrapper_runs("K18", batch, n_pad, n, d, heads)
+        gate(batch, n_pad, d, heads, n)
+
+
+@pytest.mark.parametrize("image", VIT_H14_IMAGES)
+def test_k21b_gate_refuses_vit_h14(image):
+    """K21b (the int8 stats chain, off by default) stays at head dim 64:
+    its gate refuses ViT-H/14 by name."""
+    jcfg = jvit.config("vit_h14", image_size=image)
+    n_pad = round_up(jcfg.seq_len, SUBLANE)
+    with pytest.raises(ValueError, match="K21b takes head dim 64 and"):
+        tqb.attn_int8_stats_geometry(1, n_pad, jcfg.hidden_dim,
+                                     jcfg.num_heads, jcfg.seq_len)
 
 
 # K18 and K21b take K16's gate (K21b with the JAX wrapper's refusal of
@@ -270,7 +305,7 @@ def test_k21b_gate_rejects_the_q_slot_reuse_the_jax_wrapper_rejects():
 
 @pytest.mark.parametrize("kernel", sorted(K18_K21B_GATES))
 @pytest.mark.parametrize("b,n,d,heads,n_valid,why", [
-    (4, 584, 960, 12, 577, "head dim 64"),     # dh 80 (ViT-H/14)
+    (4, 584, 1152, 12, 577, "head dim 64"),    # dh 96
     (4, 200, 768, 12, 0, "head dim 64"),       # no valid key
     (4, 200, 768, 12, 201, "head dim 64"),     # more valid keys than rows
     (5462, 200, 768, 12, 197, "grid"),         # batch x heads past 65535

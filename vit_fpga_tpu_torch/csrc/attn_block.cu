@@ -19,7 +19,8 @@
 //
 // (b)-(d) are attn_half.cuh's sequence, K1's: without safe_softmax K4 is
 // row_stats followed by K1 without the next stats, one attention kernel
-// at every length.
+// at every length.  Head dim 64 or 80 (ViT-H/14): the GEMMs take any D, the
+// attention core's tiles take either (mha_wgmma.cuh's MwDim).
 //
 // What bounds it on the H100: at ViT-B/16 batch 64 the launch does 8 R D^2
 // + 4 B H n_pad n_valid dh = 68 GFLOP against 44 MB of compulsory traffic,
@@ -47,14 +48,16 @@ extern "C" {
 int vft_attn_block_init() {
   cudaError_t err = attn_half_enable<MW_MAXFREE>();
   if (err != cudaSuccess) return err;
-  return mha_wgmma_enable<MW_SAFE>();
+  if ((err = mha_wgmma_enable<MW_SAFE>()) != cudaSuccess) return err;
+  if ((err = mha_wgmma_enable<MW_MAXFREE, false, 80>()) != cudaSuccess) return err;
+  return mha_wgmma_enable<MW_SAFE, false, 80>();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16;
 // bqkv: (3D,) f32; wo: (D, D) bf16.  Scratch: stats (B * n_pad, 2) f32,
 // qkv (B * n_pad, 3D) and ao (B * n_pad, D) bf16; every pointer 16-byte
-// aligned.  Head dim 64, 1 <= n_valid <= n_pad, batch x heads <=
-// MW_MAX_GRID_Y; any n_pad (the wrapper takes the JAX attn_block_pallas
+// aligned.  Head dim D / heads 64 or 80, 1 <= n_valid <= n_pad, batch x
+// heads <= MW_MAX_GRID_Y; any n_pad (the wrapper takes the JAX attn_block_pallas
 // geometry, up to 3137 tokens at ViT-B/16).  safe selects the
 // max-subtract softmax.  *long_path is set to 1 when more than 256 keys
 // are valid (the same kernels; the launch checks count those launches
@@ -65,14 +68,16 @@ int vft_attn_block_fwd(const void* x, const void* ls, const void* lb, const void
                        void* qkv, void* ao, int batch, int n_pad, int d, int heads, int n_valid,
                        int safe, float eps, float scale, void* stream, int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (d != heads * AH_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      (long long)batch * heads > MW_MAX_GRID_Y)
+  if (heads < 1 || d % heads || (d / heads != 64 && d / heads != 80) || batch < 1 ||
+      n_valid < 1 || n_valid > n_pad || (long long)batch * heads > MW_MAX_GRID_Y)
     return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
   float* stf = static_cast<float*>(stats);
   cudaError_t err;
   if ((err = launch_row_stats(xb, stf, batch * n_pad, d, eps, st)) != cudaSuccess) return err;
-  const auto half = safe ? launch_attn_half<MW_SAFE> : launch_attn_half<MW_MAXFREE>;
+  const auto half = d / heads == 80
+                        ? (safe ? launch_attn_half<MW_SAFE, 80> : launch_attn_half<MW_MAXFREE, 80>)
+                        : (safe ? launch_attn_half<MW_SAFE> : launch_attn_half<MW_MAXFREE>);
   if ((err = half(xb, stf, static_cast<const float*>(ls), static_cast<const float*>(lb),
                   static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv),
                   static_cast<const bf16*>(wo), static_cast<const float*>(bo),

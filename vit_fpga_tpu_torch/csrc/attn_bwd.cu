@@ -65,6 +65,17 @@
 // _bwd_fits holds (ViT-B/16 up to 640 px, 1608 tokens), the wrapper's
 // route too.
 //
+// Head dim 64 or 80 (DH, ViT-H/14's 1280 / 16): the tiles take the core's
+// two boxes at 80 (mha_wgmma.cuh's MwDim: columns 0..63 128-byte swizzled,
+// 64..79 32-byte swizzled), each product over dh takes the second box's
+// k16 step, and each product into dh columns (ao, dq, dk, dv) its
+// m64n16k16 into acc[32..39].  At 80, (e) would hold dk and dv (40 floats
+// each) beside 64 x 64 s and dP tiles and their bf16 operands: 176
+// registers a thread against ptxas's 168, so (e) walks each query tile in
+// four 32-row sub-tiles (AbDim::QW; s^T and dP^T 64 x 32 by
+// wgmma.m64n32k16, 128 registers); at 64 it keeps its two 64-row halves.
+// (d) at 80 holds 40-float accumulators beside its 64 x 64 tiles (120).
+//
 // What bounds it on the H100: seven projection-sized products (22 R D^2
 // flops, R = B * n_pad) plus six score-space products (6 x 2 B H n_pad
 // n_valid dh), 189 GFLOP at ViT-B/16 batch 64 (0.191 ms at 989 TFLOP/s,
@@ -84,24 +95,35 @@
 namespace VFT_NS {
 
 constexpr int AB_LONG_KEYS = 256;    // more valid keys: counted apart (*long_path)
-// The register tiles are 64 x 64, half a 128-row stage tile (8 KB down it):
-// s, dP, the register-A operand and an accumulator then fit in the 168
-// registers ptxas gives a thread of a 384-thread block.
-constexpr uint32_t AB_HALF_DESC = 64 * MW_ROW_BYTES >> 4;  // 64 rows, in descriptor units
 // A query tile's row values: m2 (row max of s * scale * log2 e), 1 / l and
 // rs, 128 floats each.
 constexpr uint32_t AB_VALS_BYTES = 3 * MW_BQ * 4;
-// (e)'s stage: the query tile's q and gw, then its row values, padded to
-// the swizzle's 1 KB period.
-constexpr uint32_t AB_KV_STAGE = 2 * MW_TILE_BYTES + 2048;  // 34 KB
 static_assert(AB_VALS_BYTES <= 2048, "the row values fit their slot");
-// 1 KB of slack for the swizzle's alignment, then (d): q, gw, the K / V
-// ring and the barriers; (e): k, v, the q / gw / row-value ring and the
-// barriers.
-constexpr size_t AB_Q_SMEM =
-    1024 + 2 * MW_TILE_BYTES + 2 * MW_STAGES * MW_TILE_BYTES + 8 * (2 * MW_STAGES + 1);
-constexpr size_t AB_KV_SMEM =
-    1024 + 2 * MW_TILE_BYTES + MW_STAGES * AB_KV_STAGE + 8 * (2 * MW_STAGES + 1);
+
+// The register tiles are 64 x 64 in (d) and 64 x QW in (e), a part of a
+// 128-row stage tile: s, dP, the register-A operands and the accumulators
+// then fit in the 168 registers ptxas gives a thread of a 384-thread block.
+template <int DH>
+struct AbDim {
+  static constexpr uint32_t TILE = MwDim<DH>::TILE;
+  static constexpr int QW = DH == 64 ? 64 : 32;  // (e)'s query rows a sub-tile
+  // (e)'s stage: the query tile's q and gw, then its row values, padded to
+  // the swizzle's 1 KB period (34 KB at DH 64, 42 KB at 80).
+  static constexpr uint32_t KV_STAGE = 2 * TILE + 2048;
+  // 1 KB of slack for the swizzle's alignment, then (d): q, gw, the K / V
+  // ring and the barriers; (e): k, v, the q / gw / row-value ring and the
+  // barriers.
+  static constexpr size_t Q_SMEM =
+      1024 + 2 * TILE + 2 * MW_STAGES * TILE + 8 * (2 * MW_STAGES + 1);
+  static constexpr size_t KV_SMEM =
+      1024 + 2 * TILE + MW_STAGES * KV_STAGE + 8 * (2 * MW_STAGES + 1);
+};
+
+// The maps of (d) and (e): the packed qkv's q, k, v (rows n_pad, n_valid,
+// n_valid) and gw (rows n_pad), and at DH 80 their columns 64..79.
+struct AbMaps {
+  CUtensorMap q, k, v, g, q1, k1, v1, g1;
+};
 
 struct BwdArgs {
   bf16* ao;          // (B * n_pad, D)
@@ -112,32 +134,56 @@ struct BwdArgs {
   float scale;
 };
 
-// Issues a = A1 B1^T and b = A2 B2^T (64 x 64 each, both operands K-major
+// One k16 step of d (64 x N, f32) (+)= A B^T, both K-major in shared
+// memory.
+template <int N>
+__device__ __forceinline__ void ss_step(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, da, db, acc);
+  else
+    wgmma_m64n32k16_ss(d, da, db, acc);
+}
+
+// a = A B^T over dh: the first box's 4 k16 steps, at DH 80 the second's.
+template <int DH, int N>
+__device__ __forceinline__ void ss_dh(float (&d)[N / 2], MwDesc a, MwDesc b) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ss_step<N>(d, a.d0 + 2 * k, b.d0 + 2 * k, k);
+  if constexpr (DH == 80) ss_step<N>(d, a.d1, b.d1, 1);
+}
+
+// Issues a = A1 B1^T and b = A2 B2^T (64 x N each, both operands K-major
 // in shared memory) as one wgmma group: s and dP in (d), s^T and dP^T in
 // (e).
-__device__ __forceinline__ void pair_issue(float (&a)[32], float (&b)[32], uint64_t a1,
-                                           uint64_t b1, uint64_t a2, uint64_t b2) {
+template <int DH, int N>
+__device__ __forceinline__ void pair_issue(float (&a)[N / 2], float (&b)[N / 2], MwDesc a1,
+                                           MwDesc b1, MwDesc a2, MwDesc b2) {
   reg_fence(a);
   reg_fence(b);
   wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < MW_DH / 16; ++k) wgmma_m64n64k16_ss(a, a1 + 2 * k, b1 + 2 * k, k);
-#pragma unroll
-  for (int k = 0; k < MW_DH / 16; ++k) wgmma_m64n64k16_ss(b, a2 + 2 * k, b2 + 2 * k, k);
+  ss_dh<DH, N>(a, a1, b1);
+  ss_dh<DH, N>(b, a2, b2);
   wgmma_commit();
 }
 
-// Issues acc += A B for 64 rows of B (4 k steps of 16; A the register
-// operand, B MN-major through the transpose bit, 2 KB further a step) as
-// one wgmma group.
-__device__ __forceinline__ void rs_issue(float (&acc)[32], uint32_t (&pa)[16], uint64_t bd) {
+// Issues acc += A B for 16 KS rows of B (KS k steps of 16; A the register
+// operand, B MN-major through the transpose bit, 16 rows further a step)
+// as one wgmma group: B's first box into acc[0..31], at DH 80 its second
+// into acc[32..39].
+template <int DH, int KS>
+__device__ __forceinline__ void rs_issue(float (&acc)[DH / 2], uint32_t (&pa)[4 * KS],
+                                         MwDesc bd) {
   reg_fence(acc);
   reg_fence(pa);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n64k16_rs_t(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                         bd + 128 * kk);
+  for (int kk = 0; kk < KS; ++kk) {
+    const MwDesc b = mw_rows<DH>(bd, 16 * kk);
+    wgmma_m64n64k16_rs_t(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], b.d0);
+    if constexpr (DH == 80)
+      wgmma_m64n16k16_rs_t_hi(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                              b.d1);
+  }
   wgmma_commit();
 }
 
@@ -162,9 +208,10 @@ __device__ __forceinline__ void bwd_probs(float (&s)[32], const float (&dp)[32],
   }
 }
 
-__device__ __forceinline__ void pack_probs(const float (&s)[32], uint32_t (&pa)[16]) {
+template <int N>
+__device__ __forceinline__ void pack_probs(const float (&s)[N], uint32_t (&pa)[N / 2]) {
 #pragma unroll
-  for (int x = 0; x < 16; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
+  for (int x = 0; x < N / 2; ++x) pa[x] = pack_bf16x2(s[2 * x], s[2 * x + 1]);
 }
 
 // (d)'s sweep 2 (!DS: ao += bf16(p) v, rs += sum dP p) or 3 (DS: dq += dS
@@ -174,27 +221,28 @@ __device__ __forceinline__ void pack_probs(const float (&s)[32], uint32_t (&pa)[
 // in place while that product runs (mha_wgmma.cuh's pv_next pattern: pa
 // is written only once no group is in flight).  A tile's stage is released
 // once its second half's product is done.
-template <bool DS>
+template <bool DS, int DH>
 __device__ __forceinline__ void bwd_sweep(float (&s)[32], float (&dp)[32], uint32_t (&pa)[16],
-                                          float (&acc)[32], const MwRows& r, float (&rs)[2],
-                                          int step0, int ntk, float sl2, float scale, uint64_t qd,
-                                          uint64_t gd, uint32_t ring, uint32_t bars) {
+                                          float (&acc)[DH / 2], const MwRows& r, float (&rs)[2],
+                                          int step0, int ntk, float sl2, float scale, MwDesc qd,
+                                          MwDesc gd, uint32_t ring, uint32_t bars) {
   // K at ring + 2 s TILE, V after it; the register-A product's B is K
   // (dq += dS k) or V (ao += p v).
   auto k_desc = [&](int u) {
-    const int st = (step0 + (u >> 1)) % MW_STAGES;
-    return sw128_desc(ring + 2 * st * MW_TILE_BYTES) + (u & 1) * AB_HALF_DESC;
+    return mw_rows<DH>(mw_k<DH>(ring, (step0 + (u >> 1)) % MW_STAGES), (u & 1) * 64);
   };
-  auto v_desc = [&](int u) { return k_desc(u) + (MW_TILE_BYTES >> 4); };
+  auto v_desc = [&](int u) {
+    return mw_rows<DH>(mw_v<DH>(ring, (step0 + (u >> 1)) % MW_STAGES), (u & 1) * 64);
+  };
   auto wait_tile = [&](int u) {
     const int i = step0 + (u >> 1);
     if ((u & 1) == 0) mbar_wait(bars + 8 * (i % MW_STAGES), (i / MW_STAGES) & 1);
   };
 #pragma unroll
-  for (int x = 0; x < 32; ++x) acc[x] = 0.0f;
+  for (int x = 0; x < DH / 2; ++x) acc[x] = 0.0f;
   const int units = 2 * ntk;
   wait_tile(0);
-  pair_issue(s, dp, qd, k_desc(0), gd, v_desc(0));
+  pair_issue<DH, 64>(s, dp, qd, k_desc(0), gd, v_desc(0));
   wgmma_wait<0>();
   reg_fence(s);
   reg_fence(dp);
@@ -202,8 +250,8 @@ __device__ __forceinline__ void bwd_sweep(float (&s)[32], float (&dp)[32], uint3
   pack_probs(s, pa);
   for (int u = 1; u < units; ++u) {
     wait_tile(u);
-    pair_issue(s, dp, qd, k_desc(u), gd, v_desc(u));
-    rs_issue(acc, pa, DS ? k_desc(u - 1) : v_desc(u - 1));
+    pair_issue<DH, 64>(s, dp, qd, k_desc(u), gd, v_desc(u));
+    rs_issue<DH, 4>(acc, pa, DS ? k_desc(u - 1) : v_desc(u - 1));
     wgmma_wait<1>();  // s and dP (the older group) are done
     reg_fence(s);
     reg_fence(dp);
@@ -215,7 +263,7 @@ __device__ __forceinline__ void bwd_sweep(float (&s)[32], float (&dp)[32], uint3
       mbar_arrive(bars + 8 * (MW_STAGES + (step0 + (u >> 1) - 1) % MW_STAGES));
     pack_probs(s, pa);
   }
-  rs_issue(acc, pa, DS ? k_desc(units - 1) : v_desc(units - 1));
+  rs_issue<DH, 4>(acc, pa, DS ? k_desc(units - 1) : v_desc(units - 1));
   wgmma_wait<0>();
   reg_fence(acc);
   reg_fence(pa);
@@ -223,32 +271,32 @@ __device__ __forceinline__ void bwd_sweep(float (&s)[32], float (&dp)[32], uint3
 }
 
 // One consumer thread's rows g and g + 8 of its warp's 16 (first row row0)
-// of a 64 x 64 accumulator as bf16, to dst + row * ld, rows before n_pad.
-__device__ __forceinline__ void store_rows(const float (&acc)[32], bf16* dst, size_t ld, int row0,
-                                           int n_pad, int g, int t4) {
+// of a 64 x DH accumulator as bf16, to dst + row * ld, rows before n_pad.
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* dst, size_t ld,
+                                           int row0, int n_pad, int g, int t4) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = row0 + g + 8 * rr;
     if (row >= n_pad) continue;
     bf16* out = dst + (size_t)row * ld + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int c = 0; c < DH / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
           __floats2bfloat162_rn(acc[4 * c + 2 * rr], acc[4 * c + 2 * rr + 1]);
   }
 }
 
-// (d): grid (nq_pad / 128, B * H).  tq, tk, tv: the packed qkv's q, k, v
-// (rows n_pad, n_valid, n_valid); tg: gw (rows n_pad).
+// (d): grid (nq_pad / 128, B * H).
+template <int DH>
 __global__ void __launch_bounds__(MW_THREADS, 1)
-    bwd_q_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
-                 BwdArgs p) {
+    bwd_q_kernel(const __grid_constant__ AbMaps m, BwdArgs p) {
+  constexpr uint32_t TILE = AbDim<DH>::TILE;
   extern __shared__ unsigned char ab_smem[];
   const uint32_t q_s = (smem_u32(ab_smem) + 1023u) & ~1023u;
-  const uint32_t g_s = q_s + MW_TILE_BYTES;
-  const uint32_t ring = g_s + MW_TILE_BYTES;  // stage s: K at ring + 2 s TILE, V after it
-  const uint32_t bars = ring + 2 * MW_STAGES * MW_TILE_BYTES;
+  const uint32_t g_s = q_s + TILE;
+  const uint32_t ring = g_s + TILE;  // stage s: K at ring + 2 s TILE, V after it
+  const uint32_t bars = ring + 2 * MW_STAGES * TILE;
   const uint32_t qbar = bars + 16 * MW_STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (MW_STAGES + s); };
@@ -272,25 +320,25 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
     // < ntk, the (K, V) tile pairs of sweeps 2 and 3 after.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 128 * MW_CONSUMERS) {
-      mbar_expect_tx(qbar, 2 * MW_TILE_BYTES);
-      tma_load_4d(q_s, &tq, qbar, 0, q0, h, b);
-      tma_load_4d(g_s, &tg, qbar, 0, q0, h, b);
+      mbar_expect_tx(qbar, 2 * TILE);
+      mw_load<DH>(q_s, &m.q, &m.q1, qbar, q0, h, b);
+      mw_load<DH>(g_s, &m.g, &m.g1, qbar, q0, h, b);
       for (int i = 0; i < 3 * ntk; ++i) {
         const int s = i % MW_STAGES, key0 = (i % ntk) * MW_KT;
         const bool kv = i >= ntk;
         mbar_wait(empty(s), ((i / MW_STAGES) & 1) ^ 1);  // round 0 passes at once
-        const uint32_t ks = ring + 2 * s * MW_TILE_BYTES;
-        mbar_expect_tx(full(s), kv ? 2 * MW_TILE_BYTES : MW_TILE_BYTES);
-        tma_load_4d(ks, &tk, full(s), 0, key0, h, b);
-        if (kv) tma_load_4d(ks + MW_TILE_BYTES, &tv, full(s), 0, key0, h, b);
+        const uint32_t ks = ring + 2 * s * TILE;
+        mbar_expect_tx(full(s), kv ? 2 * TILE : TILE);
+        mw_load<DH>(ks, &m.k, &m.k1, full(s), key0, h, b);
+        if (kv) mw_load<DH>(ks + TILE, &m.v, &m.v1, full(s), key0, h, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wg = warp >> 2, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const uint64_t qd = sw128_desc(q_s + wg * 64 * MW_ROW_BYTES);
-    const uint64_t gd = sw128_desc(g_s + wg * 64 * MW_ROW_BYTES);
+    const MwDesc qd = mw_tile<DH>(q_s, wg * 64);
+    const MwDesc gd = mw_tile<DH>(g_s, wg * 64);
     const float sl2 = p.scale_log2;
     MwRows r{{-INFINITY, -INFINITY}, {0.0f, 0.0f}};
     float rs[2] = {0.0f, 0.0f};
@@ -300,14 +348,14 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
        // score buffers alternate); one or two tiles are left for the tail.
       float sa[64], sb[64];
       mbar_wait(full(0), 0);
-      qk_issue(sa, qd, sw128_desc(ring));
+      qk_issue<DH>(sa, qd, mw_k<DH>(ring, 0));
       int i = 0;
       for (; i + 2 < ntk; i += 2) {
-        stats_next(sa, sb, r, i, sl2, qd, ring, bars);
-        stats_next(sb, sa, r, i + 1, sl2, qd, ring, bars);
+        stats_next<true, DH>(sa, sb, r, i, sl2, qd, ring, bars);
+        stats_next<true, DH>(sb, sa, r, i + 1, sl2, qd, ring, bars);
       }
       if (i + 1 < ntk) {
-        stats_next(sa, sb, r, i, sl2, qd, ring, bars);
+        stats_next<true, DH>(sa, sb, r, i, sl2, qd, ring, bars);
         stats_last(sb, r, i + 1, i + 1, p.n_valid, sl2, t4, bars);
       } else {
         stats_last(sa, r, i, i, p.n_valid, sl2, t4, bars);
@@ -318,15 +366,15 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
 
     const int lrow = wg * 64 + (warp & 3) * 16;  // this warp's first row in the tile
     const size_t base = (size_t)b * p.n_pad;
-    float s[32], dp[32], acc[32];
+    float s[32], dp[32], acc[DH / 2];
     uint32_t pa[16];
-    bwd_sweep<false>(s, dp, pa, acc, r, rs, ntk, ntk, sl2, p.scale, qd, gd, ring, bars);
-    store_rows(acc, p.ao + base * p.d + h * MW_DH, p.d, q0 + lrow, p.n_pad, g, t4);
+    bwd_sweep<false, DH>(s, dp, pa, acc, r, rs, ntk, ntk, sl2, p.scale, qd, gd, ring, bars);
+    store_rows<DH>(acc, p.ao + base * p.d + h * DH, p.d, q0 + lrow, p.n_pad, g, t4);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) rs[rr] = quad_sum(rs[rr]);
-    bwd_sweep<true>(s, dp, pa, acc, r, rs, 2 * ntk, ntk, sl2, p.scale, qd, gd, ring, bars);
-    store_rows(acc, p.dqkv + base * 3 * p.d + h * MW_DH, 3 * (size_t)p.d, q0 + lrow, p.n_pad, g,
-               t4);
+    bwd_sweep<true, DH>(s, dp, pa, acc, r, rs, 2 * ntk, ntk, sl2, p.scale, qd, gd, ring, bars);
+    store_rows<DH>(acc, p.dqkv + base * 3 * p.d + h * DH, 3 * (size_t)p.d, q0 + lrow, p.n_pad, g,
+                   t4);
     if (t4 == 0) {
       float* vals = p.vals + ((size_t)blockIdx.y * (p.nq_pad / MW_BQ) + blockIdx.x) * 3 * MW_BQ;
 #pragma unroll
@@ -342,31 +390,32 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
 
 // (e): grid (nq_pad / 128, B * H), one block per 128 keys.  The same maps
 // as (d); vals: (d)'s row values.
+template <int DH>
 __global__ void __launch_bounds__(MW_THREADS, 1)
-    bwd_kv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
-                  BwdArgs p) {
+    bwd_kv_kernel(const __grid_constant__ AbMaps m, BwdArgs p) {
+  constexpr uint32_t TILE = AbDim<DH>::TILE, STAGE = AbDim<DH>::KV_STAGE;
+  constexpr int QW = AbDim<DH>::QW;
   extern __shared__ unsigned char ab_smem[];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
   const int k0 = blockIdx.x * MW_KT;
   const size_t base = (size_t)b * p.n_pad;
-  bf16* dk = p.dqkv + base * 3 * p.d + p.d + h * MW_DH;  // dv at + D
+  bf16* dk = p.dqkv + base * 3 * p.d + p.d + h * DH;  // dv at + D
   if (k0 >= p.n_valid) {
     // every key of the tile is masked: zero gradients, rows before n_pad
-    for (int c = tid; c < MW_KT * 2 * (MW_DH / 8); c += MW_THREADS) {
-      const int row = k0 + c / (2 * (MW_DH / 8)), part = (c / (MW_DH / 8)) & 1;
+    for (int c = tid; c < MW_KT * 2 * (DH / 8); c += MW_THREADS) {
+      const int row = k0 + c / (2 * (DH / 8)), part = (c / (DH / 8)) & 1;
       if (row < p.n_pad)
-        *reinterpret_cast<uint4*>(dk + (size_t)row * 3 * p.d + part * p.d + 8 * (c % (MW_DH / 8))) =
+        *reinterpret_cast<uint4*>(dk + (size_t)row * 3 * p.d + part * p.d + 8 * (c % (DH / 8))) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
   const uint32_t k_s = (smem_u32(ab_smem) + 1023u) & ~1023u;
-  const uint32_t v_s = k_s + MW_TILE_BYTES;
-  const uint32_t ring = v_s + MW_TILE_BYTES;  // stage s: q, gw, row values at ring + s STAGE
+  const uint32_t v_s = k_s + TILE;
+  const uint32_t ring = v_s + TILE;  // stage s: q, gw, row values at ring + s STAGE
   unsigned char* ring_g = ab_smem + (ring - smem_u32(ab_smem));
-  const uint32_t bars = ring + MW_STAGES * AB_KV_STAGE;
+  const uint32_t bars = ring + MW_STAGES * STAGE;
   const uint32_t kvbar = bars + 16 * MW_STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (MW_STAGES + s); };
@@ -387,53 +436,51 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
     // tile j's q, gw and row values.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 128 * MW_CONSUMERS) {
-      mbar_expect_tx(kvbar, 2 * MW_TILE_BYTES);
-      tma_load_4d(k_s, &tk, kvbar, 0, k0, h, b);
-      tma_load_4d(v_s, &tv, kvbar, 0, k0, h, b);
+      mbar_expect_tx(kvbar, 2 * TILE);
+      mw_load<DH>(k_s, &m.k, &m.k1, kvbar, k0, h, b);
+      mw_load<DH>(v_s, &m.v, &m.v1, kvbar, k0, h, b);
       const float* vals = p.vals + (size_t)blockIdx.y * nqt * 3 * MW_BQ;
       for (int j = 0; j < nqt; ++j) {
         const int s = j % MW_STAGES;
         mbar_wait(empty(s), ((j / MW_STAGES) & 1) ^ 1);
-        const uint32_t st = ring + s * AB_KV_STAGE;
-        mbar_expect_tx(full(s), 2 * MW_TILE_BYTES + AB_VALS_BYTES);
-        tma_load_4d(st, &tq, full(s), 0, j * MW_BQ, h, b);
-        tma_load_4d(st + MW_TILE_BYTES, &tg, full(s), 0, j * MW_BQ, h, b);
-        bulk_load(st + 2 * MW_TILE_BYTES, vals + (size_t)j * 3 * MW_BQ, AB_VALS_BYTES, full(s));
+        const uint32_t st = ring + s * STAGE;
+        mbar_expect_tx(full(s), 2 * TILE + AB_VALS_BYTES);
+        mw_load<DH>(st, &m.q, &m.q1, full(s), j * MW_BQ, h, b);
+        mw_load<DH>(st + TILE, &m.g, &m.g1, full(s), j * MW_BQ, h, b);
+        bulk_load(st + 2 * TILE, vals + (size_t)j * 3 * MW_BQ, AB_VALS_BYTES, full(s));
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wg = warp >> 2, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const uint64_t kd = sw128_desc(k_s + wg * 64 * MW_ROW_BYTES);
-    const uint64_t vd = sw128_desc(v_s + wg * 64 * MW_ROW_BYTES);
+    const MwDesc kd = mw_tile<DH>(k_s, wg * 64);
+    const MwDesc vd = mw_tile<DH>(v_s, wg * 64);
     const float sl2 = p.scale_log2, scale = p.scale;
     const int row0 = k0 + wg * 64 + (warp & 3) * 16;  // this warp's first key
     const bool valid[2] = {row0 + g < p.n_valid, row0 + g + 8 < p.n_valid};
-    float s[32], dp[32], dkacc[32], dvacc[32];
-    uint32_t pp[16], pd[16];
+    float s[QW / 2], dp[QW / 2], dkacc[DH / 2], dvacc[DH / 2];
+    uint32_t pp[QW / 4], pd[QW / 4];
 #pragma unroll
-    for (int x = 0; x < 32; ++x) dkacc[x] = dvacc[x] = 0.0f;
+    for (int x = 0; x < DH / 2; ++x) dkacc[x] = dvacc[x] = 0.0f;
     mbar_wait(kvbar, 0);
     for (int j = 0; j < nqt; ++j) {
       const int st = j % MW_STAGES;
       mbar_wait(full(st), (j / MW_STAGES) & 1);
-      const uint64_t qd = sw128_desc(ring + st * AB_KV_STAGE);
-      const uint64_t gd = qd + (MW_TILE_BYTES >> 4);
-      const float* vals =
-          reinterpret_cast<const float*>(ring_g + st * AB_KV_STAGE + 2 * MW_TILE_BYTES);
+      const uint32_t qs = ring + st * STAGE;
+      const float* vals = reinterpret_cast<const float*>(ring_g + st * STAGE + 2 * TILE);
 #pragma unroll 1
-      for (int half = 0; half < 2; ++half) {  // query rows 64 half .. of the tile
-        const uint64_t qh = qd + half * AB_HALF_DESC, gh = gd + half * AB_HALF_DESC;
-        pair_issue(s, dp, kd, qh, vd, gh);
+      for (int sub = 0; sub < MW_BQ / QW; ++sub) {  // query rows QW sub .. of the tile
+        const MwDesc qh = mw_tile<DH>(qs, QW * sub), gh = mw_tile<DH>(qs + TILE, QW * sub);
+        pair_issue<DH, QW>(s, dp, kd, qh, vd, gh);
         wgmma_wait<0>();
         reg_fence(s);
         reg_fence(dp);
-        // Element x: key row g + 8 ((x / 2) % 2), query 64 half + 8 (x / 4)
+        // Element x: key row g + 8 ((x / 2) % 2), query QW sub + 8 (x / 4)
         // + 2 t4 + x % 2 of the tile, whose m2, 1 / l and rs the stage holds.
 #pragma unroll
-        for (int y = 0; y < 16; ++y) {
-          const int x = 2 * y, c = 64 * half + 8 * (y >> 1) + 2 * t4;
+        for (int y = 0; y < QW / 4; ++y) {
+          const int x = 2 * y, c = QW * sub + 8 * (y >> 1) + 2 * t4;
           const float2 m2 = *reinterpret_cast<const float2*>(vals + c);
           const float2 li = *reinterpret_cast<const float2*>(vals + MW_BQ + c);
           const float2 rsv = *reinterpret_cast<const float2*>(vals + 2 * MW_BQ + c);
@@ -443,8 +490,8 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
           pp[y] = pack_bf16x2(p0, p1);
           pd[y] = pack_bf16x2((p0 * (dp[x] - rsv.x)) * scale, (p1 * (dp[x + 1] - rsv.y)) * scale);
         }
-        rs_issue(dvacc, pp, gh);  // dv += bf16(p)^T gw
-        rs_issue(dkacc, pd, qh);  // dk += dS^T q
+        rs_issue<DH, QW / 16>(dvacc, pp, gh);  // dv += bf16(p)^T gw
+        rs_issue<DH, QW / 16>(dkacc, pd, qh);  // dk += dS^T q
         wgmma_wait<0>();
         reg_fence(dvacc);
         reg_fence(dkacc);
@@ -453,8 +500,8 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       }
       mbar_arrive(empty(st));
     }
-    store_rows(dkacc, dk, 3 * (size_t)p.d, row0, p.n_pad, g, t4);
-    store_rows(dvacc, dk + p.d, 3 * (size_t)p.d, row0, p.n_pad, g, t4);
+    store_rows<DH>(dkacc, dk, 3 * (size_t)p.d, row0, p.n_pad, g, t4);
+    store_rows<DH>(dvacc, dk + p.d, 3 * (size_t)p.d, row0, p.n_pad, g, t4);
   }
 }
 
@@ -499,7 +546,8 @@ inline AttnBwdWork attn_bwd_work(int batch, int n_pad, int d, int sms) {
   w.ao = take((size_t)rows * d * sizeof(bf16));
   w.dqkv = take((size_t)rows * 3 * d * sizeof(bf16));
   w.dxn = take((size_t)rows * d * sizeof(float));
-  w.vals = take((size_t)batch * (d / MW_DH) * nq_pad_of(n_pad) * 3 * sizeof(float));
+  // heads <= D / 64 at either head dim
+  w.vals = take((size_t)batch * (d / 64) * nq_pad_of(n_pad) * 3 * sizeof(float));
   w.parts = take((po > pq ? po : pq) * sizeof(float));  // (f) and (g) in turn
   w.lnpart = take((size_t)ln_bwd_blocks(rows) * 2 * d * sizeof(float));
   size_t cs = colsum_scratch_floats(rows, 3 * d);  // the largest of the three
@@ -515,6 +563,36 @@ inline cudaError_t sm_count(int* sms) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <int DH>
+inline cudaError_t bwd_enable() {
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_q_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)AbDim<DH>::Q_SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(bwd_kv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)AbDim<DH>::KV_SMEM);
+}
+
+// (d) then (e) at head dim DH over the packed qkv and gw.
+template <int DH>
+inline cudaError_t launch_attn_bwd_core(const bf16* qkv, const bf16* gw, const BwdArgs& a,
+                                        int batch, cudaStream_t st) {
+  const long long in_b = (long long)a.n_pad * 3 * a.d;
+  AbMaps m;
+  if (!mw_encode_dh<DH>(&m.q, &m.q1, qkv, in_b, DH, 3 * a.d, a.n_pad, a.heads, batch) ||
+      !mw_encode_dh<DH>(&m.k, &m.k1, qkv + a.d, in_b, DH, 3 * a.d, a.n_valid, a.heads, batch) ||
+      !mw_encode_dh<DH>(&m.v, &m.v1, qkv + 2 * a.d, in_b, DH, 3 * a.d, a.n_valid, a.heads,
+                        batch) ||
+      !mw_encode_dh<DH>(&m.g, &m.g1, gw, (long long)a.n_pad * a.d, DH, a.d, a.n_pad, a.heads,
+                        batch))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.nq_pad / MW_BQ, batch * a.heads);
+  bwd_q_kernel<DH><<<grid, MW_THREADS, AbDim<DH>::Q_SMEM, st>>>(m, a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_kv_kernel<DH><<<grid, MW_THREADS, AbDim<DH>::KV_SMEM, st>>>(m, a);
+  return cudaGetLastError();
 }
 
 }  // namespace VFT_NS
@@ -533,11 +611,7 @@ int vft_attn_bwd_init() {
   if ((err = gw_enable_bwd<GW_AK_BK, GW_EPI_BF16>()) != cudaSuccess) return err;
   if ((err = gw_enable_bwd<GW_AK_BK, GW_EPI_F32>()) != cudaSuccess) return err;
   if ((err = gw_enable_bwd<GW_AM_BN, GW_EPI_F32>()) != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)AB_Q_SMEM)) != cudaSuccess)
-    return err;
-  if ((err = cudaFuncSetAttribute(bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)AB_KV_SMEM)) != cudaSuccess)
+  if ((err = bwd_enable<64>()) != cudaSuccess || (err = bwd_enable<80>()) != cudaSuccess)
     return err;
   return ln_bwd_enable();
 }
@@ -552,7 +626,7 @@ size_t vft_attn_bwd_workspace(int batch, int n_pad, int d) {
 // x, g, dx: (B * n_pad, D) bf16; ls, lb: (D,) f32; wqkv: (D, 3D) bf16;
 // bqkv: (3D,) f32; wo: (D, D) bf16.  Outputs, f32: dln (2D,) = [dls | dlb],
 // dwqkv (D, 3D), dbqkv (3D,), dwo (D, D), dbo (D,).  work:
-// vft_attn_bwd_workspace bytes.  Head dim 64, 1 <= n_valid <= n_pad,
+// vft_attn_bwd_workspace bytes.  Head dim 64 or 80, 1 <= n_valid <= n_pad,
 // batch x heads <= MW_MAX_GRID_Y, B * n_pad a multiple of 8, D <= 2048
 // (LNB_MAX_D); every pointer 16-byte
 // aligned.  *long_path is set to 1 when more than 256 keys are valid (the
@@ -566,8 +640,9 @@ int vft_attn_block_bwd(const void* x, const void* g, const void* ls, const void*
                        void* stream, int* long_path) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int rows = batch * n_pad;
-  if (d != heads * MW_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      (long long)batch * heads > MW_MAX_GRID_Y || rows % 8 || d > LNB_MAX_D)
+  if (heads < 1 || d % heads || (d / heads != 64 && d / heads != 80) || batch < 1 ||
+      n_valid < 1 || n_valid > n_pad || (long long)batch * heads > MW_MAX_GRID_Y || rows % 8 ||
+      d > LNB_MAX_D)
     return cudaErrorInvalidValue;
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   int sms = 0;
@@ -613,23 +688,13 @@ int vft_attn_block_bwd(const void* x, const void* g, const void* ls, const void*
     return err;
 
   // (d), (e): q, k and v are column blocks of the packed rows (head h at h
-  // * 64 of each, row stride 3D, image stride n_pad * 3D); gw's row stride
+  // * dh of each, row stride 3D, image stride n_pad * 3D); gw's row stride
   // is D.
-  const long long in_b = (long long)n_pad * 3 * d;
-  CUtensorMap tq, tk, tv, tg;
-  if (!mw_encode(&tq, qkv, in_b, MW_DH, 3 * d, n_pad, heads, batch) ||
-      !mw_encode(&tk, qkv + d, in_b, MW_DH, 3 * d, n_valid, heads, batch) ||
-      !mw_encode(&tv, qkv + 2 * d, in_b, MW_DH, 3 * d, n_valid, heads, batch) ||
-      !mw_encode(&tg, gw, (long long)n_pad * d, MW_DH, d, n_pad, heads, batch))
-    return cudaErrorInvalidValue;
-  const int nq_pad = nq_pad_of(n_pad);
   const BwdArgs a{ao,    dqkv,    reinterpret_cast<float*>(ws + w.vals), heads, n_pad, n_valid,
-                  nq_pad, d,     scale * 1.4426950408889634f, scale};
-  const dim3 grid(nq_pad / MW_BQ, batch * heads);
-  bwd_q_kernel<<<grid, MW_THREADS, AB_Q_SMEM, st>>>(tq, tk, tv, tg, a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_kv_kernel<<<grid, MW_THREADS, AB_KV_SMEM, st>>>(tq, tk, tv, tg, a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+                  nq_pad_of(n_pad), d, scale * 1.4426950408889634f, scale};
+  err = d / heads == 80 ? launch_attn_bwd_core<80>(qkv, gw, a, batch, st)
+                        : launch_attn_bwd_core<64>(qkv, gw, a, batch, st);
+  if (err != cudaSuccess) return err;
   *long_path = n_valid > AB_LONG_KEYS;
 
   p = GwArgs{};  // (f) dWo = ao^T g, ao (rows, D) read MN-major, split over rows

@@ -12,6 +12,7 @@
 //                   sx = absmax / 127, xq = clip(rint(xn / sx))
 //   (b) QW_BF16     qkv = bf16(float(xq wqkvq) * (sx * wqkvs) + bqkv), by TMA
 //   (c) MW_MAXFREE  per (128 query rows, image x head) over 128-key tiles,
+//                   at head dim 64 or 80 (ViT-H/14; mha_wgmma.cuh's MwDim),
 //                   s = (q k^T) * scale in f32, keys at or past n_valid
 //                   masked (TMA zero-fills them, the last tile sets e = 0),
 //                   e = exp(clip(s, -70, 80)), ao = bf16((bf16(e) @ v) *
@@ -57,14 +58,15 @@ int vft_attn_int8_init() {
   if (err != cudaSuccess) return err;
   if ((err = qgemm_epi_enable<QW_BF16>()) != cudaSuccess) return err;
   if ((err = qgemm_epi_enable<QW_RESID>()) != cudaSuccess) return err;
-  return mha_wgmma_enable<MW_MAXFREE>();
+  if ((err = mha_wgmma_enable<MW_MAXFREE>()) != cudaSuccess) return err;
+  return mha_wgmma_enable<MW_MAXFREE, false, 80>();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, so, bo: (D,) f32; wqkv: (3D, D) int8
 // (the (D, 3D) weight transposed); sqkv, bqkv: (3D,) f32; wo: (D, D) int8
 // (transposed).  Scratch: q8 (B * n_pad, D) int8 (xq, then aoq), s
 // (B * n_pad,) f32 (sx, then sa), qkv (B * n_pad, 3D) and ao (B * n_pad, D)
-// bf16; every tensor 16-byte aligned.  Head dim 64, 1 <= n_valid <= n_pad,
+// bf16; every tensor 16-byte aligned.  Head dim 64 or 80, 1 <= n_valid <= n_pad,
 // batch x heads <= MW_MAX_GRID_Y.  Everything is enqueued on `stream`,
 // which belongs to the current device.  Returns a cudaError_t.
 int vft_attn_block_int8(const void* x, const void* ls, const void* lb, const void* wqkv,
@@ -72,8 +74,8 @@ int vft_attn_block_int8(const void* x, const void* ls, const void* lb, const voi
                         const void* bo, void* out, void* q8, void* s, void* qkv, void* ao,
                         int batch, int n_pad, int d, int heads, int n_valid, float eps,
                         float scale, void* stream) {
-  if (heads < 1 || d != heads * MW_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      (long long)batch * heads > MW_MAX_GRID_Y)
+  if (heads < 1 || d % heads || (d / heads != 64 && d / heads != 80) || batch < 1 ||
+      n_valid < 1 || n_valid > n_pad || (long long)batch * heads > MW_MAX_GRID_Y)
     return cudaErrorInvalidValue;
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -100,8 +102,11 @@ int vft_attn_block_int8(const void* x, const void* ls, const void* lb, const voi
       cudaSuccess)
     return err;
 
-  if ((err = launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid, scale,
-                                           st)) != cudaSuccess)
+  err = d / heads == 80 ? launch_mha_packed<MW_MAXFREE, false, 80>(qkvb, aob, batch, n_pad, d,
+                                                                    heads, n_valid, scale, st)
+                        : launch_mha_packed<MW_MAXFREE>(qkvb, aob, batch, n_pad, d, heads, n_valid,
+                                                        scale, st);
+  if (err != cudaSuccess)
     return err;
 
   if ((err = launch_quant_rows<bf16, LN_NONE>(aob, nullptr, nullptr, q, sc, rows, d, 0.0f, st)) !=

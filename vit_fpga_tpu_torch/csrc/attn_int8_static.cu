@@ -20,7 +20,8 @@
 //                   e = 0), e = exp(clip(s, -70, 80)), r = (1 / sum(e)) *
 //                   out_scale, aoq = clip(rint(bf16((bf16(e) @ v) * r))): ao
 //                   is rounded to bf16 in the quant domain, as the TPU
-//                   kernel's bf16 scratch does, and emitted as int8
+//                   kernel's bf16 scratch does, and emitted as int8; at
+//                   head dim 64 or 80 (ViT-H/14; mha_wgmma.cuh's MwDim)
 //   (d) QW_RESID    out = x + bf16(float(aoq woq) * so + bo), by TMA, the row
 //                   scale 1.0
 //
@@ -55,14 +56,15 @@ int vft_attn_int8_static_init() {
   if (err != cudaSuccess) return err;
   if ((err = qgemm_epi_enable<QW_BF16>()) != cudaSuccess) return err;
   if ((err = qgemm_epi_enable<QW_RESID>()) != cudaSuccess) return err;
-  return mha_wgmma_enable<MW_MAXFREE, true>();
+  if ((err = mha_wgmma_enable<MW_MAXFREE, true>()) != cudaSuccess) return err;
+  return mha_wgmma_enable<MW_MAXFREE, true, 80>();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, so, bo: (D,) f32; wqkv: (3D, D) int8
 // (the (D, 3D) weight transposed); sqkv, bqkv: (3D,) f32; wo: (D, D) int8
 // (transposed).  Scratch: q8 (B * n_pad, D) int8 (xq, then aoq), qkv
-// (B * n_pad, 3D) bf16; every tensor 16-byte aligned.  Head dim 64,
-// 1 <= n_valid <= n_pad, batch x heads <= MW_MAX_GRID_Y; out_scale the
+// (B * n_pad, 3D) bf16; every tensor 16-byte aligned.  Head dim 64 or
+// 80, 1 <= n_valid <= n_pad, batch x heads <= MW_MAX_GRID_Y; out_scale the
 // static attention-output scale 1/a_ao.  Everything is enqueued on
 // `stream`, which belongs to the current device.  Returns a cudaError_t.
 int vft_attn_block_int8_static(const void* x, const void* ls, const void* lb, const void* wqkv,
@@ -70,8 +72,8 @@ int vft_attn_block_int8_static(const void* x, const void* ls, const void* lb, co
                                const void* bo, void* out, void* q8, void* qkv, int batch,
                                int n_pad, int d, int heads, int n_valid, float eps, float scale,
                                float out_scale, void* stream) {
-  if (heads < 1 || d != heads * MW_DH || batch < 1 || n_valid < 1 || n_valid > n_pad ||
-      (long long)batch * heads > MW_MAX_GRID_Y)
+  if (heads < 1 || d % heads || (d / heads != 64 && d / heads != 80) || batch < 1 ||
+      n_valid < 1 || n_valid > n_pad || (long long)batch * heads > MW_MAX_GRID_Y)
     return cudaErrorInvalidValue;
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -94,8 +96,12 @@ int vft_attn_block_int8_static(const void* x, const void* ls, const void* lb, co
       cudaSuccess)
     return err;
 
-  if ((err = launch_mha_packed<MW_MAXFREE, true>(qkvb, q, batch, n_pad, d, heads, n_valid, scale,
-                                                 st, out_scale)) != cudaSuccess)
+  err = d / heads == 80
+            ? launch_mha_packed<MW_MAXFREE, true, 80>(qkvb, q, batch, n_pad, d, heads, n_valid,
+                                                      scale, st, out_scale)
+            : launch_mha_packed<MW_MAXFREE, true>(qkvb, q, batch, n_pad, d, heads, n_valid, scale,
+                                                  st, out_scale);
+  if (err != cudaSuccess)
     return err;
 
   QwArgs o{};

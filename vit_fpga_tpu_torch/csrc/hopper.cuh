@@ -12,14 +12,16 @@
 //               int32) are encoded on the host, at each launch, by
 //               cuTensorMapEncodeTiled, reached through
 //               cudaGetDriverEntryPoint so that nothing links libcuda
-//   wgmma       the shared-memory descriptors of a 128-byte-swizzled tile
-//               and of a 64-byte-swizzled one (int8 rows of one 64-wide
-//               head), fence / commit / wait, m64n64k16 (B K-major or MN-major:
-//               the bf16 encoders' 64-column items), m64n128k16 (B
-//               K-major or MN-major) and m64n256k16 (either
-//               operand K-major or, through the transpose bit, MN-major)
-//               with both operands in shared memory, m64n64k16 with A in
-//               registers; in int8, m64n128k32 and m64n256k32 with s32
+//   wgmma       the shared-memory descriptors of a 128-byte-swizzled tile,
+//               a 64-byte-swizzled one (int8 rows of one 64-wide head) and
+//               a 32-byte-swizzled one (the 16 columns of an 80-wide head
+//               past its first 64), fence / commit / wait, m64n32k16 and
+//               m64n64k16 (B K-major or MN-major: the bf16 encoders'
+//               64-column items), m64n128k16 (B K-major or MN-major) and
+//               m64n256k16 (either operand K-major or, through the
+//               transpose bit, MN-major) with both operands in shared
+//               memory, m64n64k16 and m64n16k16 with A in registers; in
+//               int8, m64n128k32 and m64n256k32 with s32
 //               sums, both operands K-major in shared memory (8-bit wgmma
 //               has no transpose bit), and m64n64k32 (the int8 encoders'
 //               64-column items)
@@ -167,6 +169,17 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
          (2ull << 62);
 }
 
+// wgmma shared-memory descriptor of a tile of 32-byte rows (16 bf16
+// columns), 32-byte swizzled (TMA's CU_TENSOR_MAP_SWIZZLE_32B), at saddr
+// (256-byte aligned): stride 256 bytes between 8-row groups, layout
+// SWIZZLE_32B.  Read K-major, a row is one k16 step; read MN-major through
+// the transpose bit, the 16 columns are one swizzle atom and 16 rows (512
+// bytes, 32 in the descriptor's units) one k16 step.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) |
+         (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -240,6 +253,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
+// d (64 x 32, f32) (+)= A (64 x 16, shared, K-major) B (16 x 32, shared,
+// K-major); accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 256, f32) += A (64 x 16, shared) B (16 x 256, shared).  A is
 // K-major (TRANS_A 0) or MN-major (1: 64 rows, one swizzle atom wide); B
 // K-major (TRANS_B 0: 256 rows of 128 bytes) or MN-major (1: four 64-column
@@ -285,9 +313,12 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da
 
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers, the m16n8k16 A
 // fragment of each warp's 16 rows) B (16 x 64, shared, MN-major: the
-// transpose bit).
-__device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[32], uint32_t a0, uint32_t a1,
+// transpose bit).  d is the first 32 floats of an accumulator of N (an
+// 80-wide head's o keeps its last 16 columns in d[32..39]).
+template <int N>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[N], uint32_t a0, uint32_t a1,
                                                      uint32_t a2, uint32_t a3, uint64_t db) {
+  static_assert(N >= 32, "a 64-column accumulator");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -385,6 +416,22 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(uint32_t (&d)[128], uint64_t
         "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
         "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32..39] (64 x 16, f32) += A (64 x 16, bf16 in registers, as
+// wgmma_m64n64k16_rs_t's) B (16 x 16, shared, MN-major through the
+// transpose bit): the columns 64..79 of an 80-wide head, whose fragment
+// continues the 64-column one's (element 32 + x at column 64 + 8 (x / 4) +
+// 2 t4 + x % 2).
+__device__ __forceinline__ void wgmma_m64n16k16_rs_t_hi(float (&d)[40], uint32_t a0, uint32_t a1,
+                                                        uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ float ex2(float x) {

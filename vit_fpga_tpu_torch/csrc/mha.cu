@@ -88,13 +88,13 @@ int vft_mha(const void* q, const void* k, const void* v, void* o, long long in_b
   }
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   if (n < 1 || n_valid < 1 || n_valid > n || batch < 1 || heads < 1) return cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  if (!mw_encode(&tq, q, in_b, in_h, in_r, n, heads, batch) ||
-      !mw_encode(&tk, k, in_b, in_h, in_r, n_valid, heads, batch) ||
-      !mw_encode(&tv, v, in_b, in_h, in_r, n_valid, heads, batch))
+  MwMaps m;
+  if (!mw_encode(&m.q, q, in_b, in_h, in_r, n, heads, batch) ||
+      !mw_encode(&m.k, k, in_b, in_h, in_r, n_valid, heads, batch) ||
+      !mw_encode(&m.v, v, in_b, in_h, in_r, n_valid, heads, batch))
     return cudaErrorInvalidValue;
   MhaTmaArgs p{o, out_b, out_h, out_r, heads, n, n_valid, scale * 1.4426950408889634f, scale};
-  return launch_mha_wgmma<MW_EXACT>(tq, tk, tv, p, batch, st);
+  return launch_mha_wgmma<MW_EXACT>(m, p, batch, st);
 }
 
 }  // extern "C"

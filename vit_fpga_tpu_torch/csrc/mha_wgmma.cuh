@@ -1,5 +1,6 @@
-// Whole-sequence attention in bf16 on Hopper's own units, head dim 64;
-// include after common.cuh and hopper.cuh.  Four modes of one kernel:
+// Whole-sequence attention in bf16 on Hopper's own units, head dim 64 (all
+// four modes) or 80 (the max-free and safe modes); include after common.cuh
+// and hopper.cuh.  Four modes of one kernel:
 //   exact     (MW_EXACT; mha.cu K7 / K8) p = bf16(e / sum e) against the
 //             row's true max, two passes over the keys;
 //   max-free  (MW_MAXFREE; attn_half.cuh, K1's attention step and K4's
@@ -26,6 +27,16 @@
 // packed (B, N, 3D) qkv tensor and (B, H, N, 64) read alike; K's and V's
 // row extent is n_valid, so TMA zero-fills the keys past it, and Q's is n.
 // Rows are 128 bytes and land 128-byte swizzled, the layout wgmma reads.
+//
+// Head dim 80 (DH, a template parameter; ViT-H/14's 1280 / 16): a row is
+// 160 bytes, wider than the 128-byte swizzle atom, so each Q, K and V tile
+// lands as two boxes from two maps over the same operand: columns 0..63 as
+// above, then columns 64..79, 32-byte rows 32-byte swizzled (MwDim's
+// BOX0 bytes further).  q k^T takes the first box's 4 k16 steps and the
+// second box's one; p v runs m64n64k16 on the first box and m64n16k16 on
+// the second, whose accumulator continues o's fragment (o[32..39]: columns
+// 64..79), so the store is the same loop over DH / 8 column groups.  No
+// column of zeros is read or multiplied.
 //
 // Each consumer warpgroup, for its 64 rows, in the exact mode:
 //   pass 1  s = q k^T by wgmma.m64n128k16 (A = Q and B = the K tile, both
@@ -99,7 +110,7 @@ namespace VFT_NS {
 
 enum MwMode { MW_EXACT = 0, MW_MAXFREE = 1, MW_SAFE = 2, MW_ONLINE = 3 };
 
-constexpr int MW_DH = 64;                       // head dim: one 128-byte row
+constexpr int MW_DH = 64;                       // head dim of the exact and online modes
 constexpr int MW_CONSUMERS = 2;                 // warpgroups of 64 query rows
 constexpr int MW_BQ = 64 * MW_CONSUMERS;        // query rows per block
 constexpr int MW_KT = 128;                      // keys per tile
@@ -116,6 +127,66 @@ constexpr uint32_t MW_Q_BYTES = MW_BQ * MW_ROW_BYTES;
 constexpr size_t MW_SMEM_BYTES =
     1024 + MW_Q_BYTES + 2 * MW_STAGES * MW_TILE_BYTES + 8 * (2 * MW_STAGES + 1);
 
+// A head dim's tiles: the 64-column box (128-byte rows, 128-byte swizzled)
+// and, at DH 80, the 16-column box after it (32-byte rows, 32-byte
+// swizzled).  Q (MW_BQ rows) and a K or V tile (MW_KT rows) are alike.
+template <int DH>
+struct MwDim {
+  static_assert(DH == 64 || DH == 80, "head dim 64 or 80");
+  static constexpr int C1 = DH - 64;                            // second box's columns
+  static constexpr uint32_t BOX0 = MW_KT * MW_ROW_BYTES;
+  static constexpr uint32_t TILE = BOX0 + MW_KT * C1 * 2;       // one Q, K or V tile
+  static constexpr size_t SMEM = 1024 + TILE + 2 * MW_STAGES * TILE + 8 * (2 * MW_STAGES + 1);
+};
+static_assert(MwDim<64>::TILE == MW_TILE_BYTES && MW_KT == MW_BQ, "one tile shape");
+
+// The wgmma descriptors of an operand's rows: d0 its 64-column box
+// (128-byte swizzled), d1 its 16-column box (32-byte swizzled; DH 80 only).
+struct MwDesc {
+  uint64_t d0, d1;
+  __device__ __forceinline__ MwDesc(uint64_t a, uint64_t b = 0) : d0(a), d1(b) {}
+};
+
+// The descriptors of a tile at t (its first box; the second BOX0 bytes
+// on), from row `row` on.
+template <int DH>
+__device__ __forceinline__ MwDesc mw_tile(uint32_t t, int row = 0) {
+  return MwDesc(sw128_desc(t + row * MW_ROW_BYTES),
+                sw32_desc(t + MwDim<DH>::BOX0 + row * MwDim<DH>::C1 * 2));
+}
+
+// d moved down `rows` rows (a multiple of 8), in the descriptors' 16-byte
+// units.
+template <int DH>
+__device__ __forceinline__ MwDesc mw_rows(MwDesc d, int rows) {
+  return MwDesc(d.d0 + rows * (MW_ROW_BYTES >> 4), d.d1 + rows * (MwDim<DH>::C1 * 2 >> 4));
+}
+
+// Stage st of a ring of (K, V) tile pairs at `ring`: K's and V's descriptors.
+template <int DH>
+__device__ __forceinline__ MwDesc mw_k(uint32_t ring, int st) {
+  return mw_tile<DH>(ring + 2 * st * MwDim<DH>::TILE);
+}
+template <int DH>
+__device__ __forceinline__ MwDesc mw_v(uint32_t ring, int st) {
+  return mw_tile<DH>(ring + (2 * st + 1) * MwDim<DH>::TILE);
+}
+
+// The maps of Q, K and V, box by box: q, k, v ({64, rows, heads, batch}),
+// and at DH 80 q1, k1, v1 over columns 64..79 (unset and unread at 64).
+struct MwMaps {
+  CUtensorMap q, k, v, q1, k1, v1;
+};
+
+// Loads one tile of `rows` rows from row r0 (image b, head h) into t: its
+// boxes from m and (DH 80) m1, completing `bar`'s transaction bytes.
+template <int DH>
+__device__ __forceinline__ void mw_load(uint32_t t, const CUtensorMap* m, const CUtensorMap* m1,
+                                        uint32_t bar, int r0, int h, int b) {
+  tma_load_4d(t, m, bar, 0, r0, h, b);
+  if constexpr (DH == 80) tma_load_4d(t + MwDim<DH>::BOX0, m1, bar, 0, r0, h, b);
+}
+
 struct MhaTmaArgs {
   void* o;                 // bf16, or int8 with Q8
   long long out_b, out_h;  // element strides of o: image, head
@@ -128,25 +199,34 @@ struct MhaTmaArgs {
 };
 
 // Issues s = q k^T for the 64 x MW_KT tile as one wgmma group: 4 k steps of
-// 16 over dh, each 32 bytes further along the swizzled rows.
-__device__ __forceinline__ void qk_issue(float (&s)[64], uint64_t qd, uint64_t kd) {
+// 16 over the first box, each 32 bytes further along the swizzled rows,
+// and at DH 80 the second box's one.
+template <int DH = 64>
+__device__ __forceinline__ void qk_issue(float (&s)[64], MwDesc qd, MwDesc kd) {
   reg_fence(s);
   wgmma_fence();
 #pragma unroll
-  for (int k = 0; k < MW_DH / 16; ++k) wgmma_m64n128k16_ss(s, qd + 2 * k, kd + 2 * k, k);
+  for (int k = 0; k < 4; ++k) wgmma_m64n128k16_ss(s, qd.d0 + 2 * k, kd.d0 + 2 * k, k);
+  if constexpr (DH == 80) wgmma_m64n128k16_ss(s, qd.d1, kd.d1, 1);
   wgmma_commit();
 }
 
 // Issues o += p v for the tile as one wgmma group: 8 k steps of 16 keys,
-// each 2 KB further into the V tile (vd + 128 in the descriptor's units).
-__device__ __forceinline__ void pv_issue(float (&o)[32], uint32_t (&pa)[32], uint64_t vd) {
+// each 16 rows further into the V tile (mw_rows), on the first box into
+// o[0..31] and at DH 80 on the second into o[32..39].
+template <int DH = 64>
+__device__ __forceinline__ void pv_issue(float (&o)[DH / 2], uint32_t (&pa)[32], MwDesc vd) {
   reg_fence(o);
   reg_fence(pa);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < MW_KT / 16; ++kk)
-    wgmma_m64n64k16_rs_t(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                         vd + 128 * kk);
+  for (int kk = 0; kk < MW_KT / 16; ++kk) {
+    const MwDesc v = mw_rows<DH>(vd, 16 * kk);
+    wgmma_m64n64k16_rs_t(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], v.d0);
+    if constexpr (DH == 80)
+      wgmma_m64n16k16_rs_t_hi(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                              v.d1);
+  }
   wgmma_commit();
 }
 
@@ -197,13 +277,12 @@ __device__ __forceinline__ void fold(const float (&s)[64], MwRows& r, int key0, 
 // Pass 1, tile i (not the last), whose q k^T is in flight into s: waits for
 // tile i + 1's K and issues its q k^T into nxt, then folds tile i into the
 // running max and (SUM) sum while that runs on the tensor cores.
-template <bool SUM = true>
+template <bool SUM = true, int DH = 64>
 __device__ __forceinline__ void stats_next(float (&s)[64], float (&nxt)[64], MwRows& r, int i,
-                                           float sl2, uint64_t qd, uint32_t ring,
-                                           uint32_t bars) {
+                                           float sl2, MwDesc qd, uint32_t ring, uint32_t bars) {
   const int sn = (i + 1) % MW_STAGES;
   mbar_wait(bars + 8 * sn, ((i + 1) / MW_STAGES) & 1);
-  qk_issue(nxt, qd, sw128_desc(ring + 2 * sn * MW_TILE_BYTES));
+  qk_issue<DH>(nxt, qd, mw_k<DH>(ring, sn));
   wgmma_wait<1>();
   reg_fence(s);
   mbar_arrive(bars + 8 * (MW_STAGES + i % MW_STAGES));
@@ -245,12 +324,12 @@ __device__ __forceinline__ void probs(const float (&s)[64], uint32_t (&pa)[32], 
 template <bool LAST>
 __device__ __forceinline__ void pv_next(float (&s)[64], uint32_t (&pa)[32], float (&o)[32],
                                         const MwRows& r, int j, int ntiles, int n_valid,
-                                        float sl2, int t4, uint64_t qd, uint32_t ring,
+                                        float sl2, int t4, MwDesc qd, uint32_t ring,
                                         uint32_t bars) {
   const int i = ntiles + j, st = i % MW_STAGES, sp = (i - 1) % MW_STAGES;
   mbar_wait(bars + 8 * st, (i / MW_STAGES) & 1);
-  qk_issue(s, qd, sw128_desc(ring + 2 * st * MW_TILE_BYTES));
-  pv_issue(o, pa, sw128_desc(ring + (2 * sp + 1) * MW_TILE_BYTES));
+  qk_issue(s, qd, mw_k<64>(ring, st));
+  pv_issue(o, pa, mw_v<64>(ring, sp));
   wgmma_wait<1>();  // q k^T (the older group) is done
   reg_fence(s);
   const int key0 = j * MW_KT + 2 * t4;
@@ -300,15 +379,15 @@ __device__ __forceinline__ void mf_probs(const float (&s)[64], uint32_t (&pa)[32
 // One-pass modes, tile j >= 1 of the pass that starts at ring step step0
 // (max-free 0, safe ntiles), with tile j - 1's p in pa: pv_next's issue and
 // wait pattern, e and l in place of the normalised probabilities.
-template <int MODE, bool LAST>
-__device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], float (&o)[32],
+template <int MODE, bool LAST, int DH = 64>
+__device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], float (&o)[DH / 2],
                                         float (&l)[2], int j, int step0, int n_valid, float scale,
-                                        const float (&m2)[2], int t4, uint64_t qd, uint32_t ring,
+                                        const float (&m2)[2], int t4, MwDesc qd, uint32_t ring,
                                         uint32_t bars) {
   const int i = step0 + j, st = i % MW_STAGES, sp = (i - 1) % MW_STAGES;
   mbar_wait(bars + 8 * st, (i / MW_STAGES) & 1);
-  qk_issue(s, qd, sw128_desc(ring + 2 * st * MW_TILE_BYTES));
-  pv_issue(o, pa, sw128_desc(ring + (2 * sp + 1) * MW_TILE_BYTES));
+  qk_issue<DH>(s, qd, mw_k<DH>(ring, st));
+  pv_issue<DH>(o, pa, mw_v<DH>(ring, sp));
   wgmma_wait<1>();  // q k^T (the older group) is done
   reg_fence(s);
   const int key0 = j * MW_KT + 2 * t4;
@@ -332,18 +411,19 @@ __device__ __forceinline__ void mf_next(float (&s)[64], uint32_t (&pa)[32], floa
 // thread): tile 0's p first, then per tile j its q k^T beside tile j - 1's
 // p v, then the last p v.  Leaves o = sum bf16(e) v and this thread's share
 // of l = sum e; every stage it read is released.  Also run by the
-// persistent single-launch encoders (stack_wgmma.cuh) on their own ring.
-template <int MODE>
-__device__ __forceinline__ void mf_sweep(float (&sa)[64], uint32_t (&pa)[32], float (&o)[32],
+// persistent single-launch encoders (stack_wgmma.cuh) on their own ring,
+// at head dim 64.
+template <int MODE, int DH = 64>
+__device__ __forceinline__ void mf_sweep(float (&sa)[64], uint32_t (&pa)[32], float (&o)[DH / 2],
                                          float (&l)[2], int ntiles, int step0, int n_valid,
-                                         float sc, const float (&m2)[2], int t4, uint64_t qd,
+                                         float sc, const float (&m2)[2], int t4, MwDesc qd,
                                          uint32_t ring, uint32_t bars) {
   l[0] = l[1] = 0.0f;
 #pragma unroll
-  for (int x = 0; x < 32; ++x) o[x] = 0.0f;
+  for (int x = 0; x < DH / 2; ++x) o[x] = 0.0f;
   const int s0 = step0 % MW_STAGES;
   mbar_wait(bars + 8 * s0, (step0 / MW_STAGES) & 1);
-  qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
+  qk_issue<DH>(sa, qd, mw_k<DH>(ring, s0));
   wgmma_wait<0>();
   reg_fence(sa);
   if (ntiles == 1)
@@ -351,11 +431,12 @@ __device__ __forceinline__ void mf_sweep(float (&sa)[64], uint32_t (&pa)[32], fl
   else
     mf_probs<MODE, false>(sa, pa, l, 0, 0, sc, m2);
   for (int j = 1; j < ntiles - 1; ++j)
-    mf_next<MODE, false>(sa, pa, o, l, j, step0, n_valid, sc, m2, t4, qd, ring, bars);
+    mf_next<MODE, false, DH>(sa, pa, o, l, j, step0, n_valid, sc, m2, t4, qd, ring, bars);
   if (ntiles > 1)
-    mf_next<MODE, true>(sa, pa, o, l, ntiles - 1, step0, n_valid, sc, m2, t4, qd, ring, bars);
+    mf_next<MODE, true, DH>(sa, pa, o, l, ntiles - 1, step0, n_valid, sc, m2, t4, qd, ring,
+                            bars);
   const int sl = (step0 + ntiles - 1) % MW_STAGES;
-  pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+  pv_issue<DH>(o, pa, mw_v<DH>(ring, sl));
   wgmma_wait<0>();
   reg_fence(o);
   reg_fence(pa);
@@ -405,12 +486,12 @@ __device__ __forceinline__ void online_probs(float (&s)[64], float (&l)[2], floa
 template <bool LAST>
 __device__ __forceinline__ void online_next(float (&s)[64], uint32_t (&pa)[32], float (&o)[32],
                                             float (&l)[2], float (&m2)[2], int j, int n_valid,
-                                            float sl2, int t4, uint64_t qd, uint32_t ring,
+                                            float sl2, int t4, MwDesc qd, uint32_t ring,
                                             uint32_t bars) {
   const int st = j % MW_STAGES, sp = (j - 1) % MW_STAGES;
   mbar_wait(bars + 8 * st, (j / MW_STAGES) & 1);
-  qk_issue(s, qd, sw128_desc(ring + 2 * st * MW_TILE_BYTES));
-  pv_issue(o, pa, sw128_desc(ring + (2 * sp + 1) * MW_TILE_BYTES));
+  qk_issue(s, qd, mw_k<64>(ring, st));
+  pv_issue(o, pa, mw_v<64>(ring, sp));
   wgmma_wait<1>();  // q k^T (the older group) is done
   reg_fence(s);
   float alpha[2];
@@ -444,14 +525,16 @@ __device__ __forceinline__ void mw_step(int i, int ntiles, int tpb, bool& pv, in
   }
 }
 
-template <int MODE, bool Q8 = false>
+template <int MODE, bool Q8 = false, int DH = 64>
 __global__ void __launch_bounds__(MW_THREADS, 1)
-    mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, MhaTmaArgs p) {
+    mha_wgmma_kernel(const __grid_constant__ MwMaps m, MhaTmaArgs p) {
+  static_assert(DH == 64 || MODE == MW_MAXFREE || MODE == MW_SAFE,
+                "head dim 80 in the max-free and safe modes");
+  using Dim = MwDim<DH>;
   extern __shared__ unsigned char mw_smem[];
   const uint32_t q_s = (smem_u32(mw_smem) + 1023u) & ~1023u;
-  const uint32_t ring = q_s + MW_Q_BYTES;  // stage s: K at ring + 2 s TILE, V after it
-  const uint32_t bars = ring + 2 * MW_STAGES * MW_TILE_BYTES;
+  const uint32_t ring = q_s + Dim::TILE;  // stage s: K at ring + 2 s TILE, V after it
+  const uint32_t bars = ring + 2 * MW_STAGES * Dim::TILE;
   const uint32_t qbar = bars + 16 * MW_STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (MW_STAGES + s); };
@@ -477,8 +560,8 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
     // step i uses stage i % MW_STAGES in round i / MW_STAGES.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 128 * MW_CONSUMERS) {
-      mbar_expect_tx(qbar, MW_Q_BYTES);
-      tma_load_4d(q_s, &tq, qbar, 0, q0, h, b);
+      mbar_expect_tx(qbar, Dim::TILE);
+      mw_load<DH>(q_s, &m.q, &m.q1, qbar, q0, h, b);
       for (int i = 0; i < steps; ++i) {
         const int s = i % MW_STAGES;
         bool pv;
@@ -486,18 +569,18 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         mw_step<MODE>(i, ntiles, tpb, pv, tile);
         const int key0 = tile * MW_KT;
         mbar_wait(empty(s), ((i / MW_STAGES) & 1) ^ 1);  // round 0 passes at once
-        const uint32_t ks = ring + 2 * s * MW_TILE_BYTES;
-        mbar_expect_tx(full(s), pv ? 2 * MW_TILE_BYTES : MW_TILE_BYTES);
-        tma_load_4d(ks, &tk, full(s), 0, key0, h, b);
-        if (pv) tma_load_4d(ks + MW_TILE_BYTES, &tv, full(s), 0, key0, h, b);
+        const uint32_t ks = ring + 2 * s * Dim::TILE;
+        mbar_expect_tx(full(s), pv ? 2 * Dim::TILE : Dim::TILE);
+        mw_load<DH>(ks, &m.k, &m.k1, full(s), key0, h, b);
+        if (pv) mw_load<DH>(ks + Dim::TILE, &m.v, &m.v1, full(s), key0, h, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wg = warp >> 2, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const uint64_t qd = sw128_desc(q_s + wg * 64 * MW_ROW_BYTES);
-    float sa[64], o[32];
+    const MwDesc qd = mw_tile<DH>(q_s, wg * 64);
+    float sa[64], o[DH / 2];  // o: columns 0..63, then (DH 80) 64..79
     uint32_t pa[32];
     float ol[2] = {1.0f, 1.0f};  // the output's row factor: one-pass 1 / l
     mbar_wait(qbar, 0);
@@ -512,7 +595,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         // p v, then the last p v.
         float alpha[2];
         mbar_wait(full(0), 0);
-        qk_issue(sa, qd, sw128_desc(ring));
+        qk_issue(sa, qd, mw_k<64>(ring, 0));
         wgmma_wait<0>();
         reg_fence(sa);
         if (ntiles == 1)
@@ -526,7 +609,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         if (ntiles > 1)
           online_next<true>(sa, pa, o, l, m2, ntiles - 1, p.n_valid, sl2, t4, qd, ring, bars);
         const int sl = (ntiles - 1) % MW_STAGES;
-        pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+        pv_issue(o, pa, mw_v<64>(ring, sl));
         wgmma_wait<0>();
         reg_fence(o);
         reg_fence(pa);
@@ -544,7 +627,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
           for (int jj = 0; jj < c; ++jj) {
             const int sj = (step + jj) % MW_STAGES;
             mbar_wait(full(sj), ((step + jj) / MW_STAGES) & 1);
-            qk_issue(sa, qd, sw128_desc(ring + 2 * sj * MW_TILE_BYTES));
+            qk_issue(sa, qd, mw_k<64>(ring, sj));
             stats_last<false>(sa, r, step + jj, f + jj, p.n_valid, sl2, t4, bars);
           }
           float alpha[2];
@@ -555,7 +638,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
           for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];
           const int st0 = step + c, s0 = st0 % MW_STAGES;
           mbar_wait(full(s0), (st0 / MW_STAGES) & 1);
-          qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
+          qk_issue(sa, qd, mw_k<64>(ring, s0));
           wgmma_wait<0>();
           reg_fence(sa);
           if (c == 1)  // only the last block has one tile
@@ -569,7 +652,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
             mf_next<MW_SAFE, true>(sa, pa, o, l, f + c - 1, st0 - f, p.n_valid, sl2, m2, t4, qd,
                                    ring, bars);
           const int sl = (st0 + c - 1) % MW_STAGES;
-          pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+          pv_issue(o, pa, mw_v<64>(ring, sl));
           wgmma_wait<0>();
           reg_fence(o);
           reg_fence(pa);
@@ -587,14 +670,14 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         const float sl2 = p.scale_log2;
         float sb[64];
         mbar_wait(full(0), 0);
-        qk_issue(sa, qd, sw128_desc(ring));
+        qk_issue<DH>(sa, qd, mw_k<DH>(ring, 0));
         int i = 0;
         for (; i + 2 < ntiles; i += 2) {
-          stats_next<false>(sa, sb, r, i, sl2, qd, ring, bars);
-          stats_next<false>(sb, sa, r, i + 1, sl2, qd, ring, bars);
+          stats_next<false, DH>(sa, sb, r, i, sl2, qd, ring, bars);
+          stats_next<false, DH>(sb, sa, r, i + 1, sl2, qd, ring, bars);
         }
         if (i + 1 < ntiles) {
-          stats_next<false>(sa, sb, r, i, sl2, qd, ring, bars);
+          stats_next<false, DH>(sa, sb, r, i, sl2, qd, ring, bars);
           stats_last<false>(sb, r, i + 1, i + 1, p.n_valid, sl2, t4, bars);
         } else {
           stats_last<false>(sa, r, i, i, p.n_valid, sl2, t4, bars);
@@ -603,7 +686,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       const int step0 = MODE == MW_SAFE ? ntiles : 0;
       const float sc = MODE == MW_SAFE ? p.scale_log2 : p.scale;
       float l[2];
-      mf_sweep<MODE>(sa, pa, o, l, ntiles, step0, p.n_valid, sc, r.m2, t4, qd, ring, bars);
+      mf_sweep<MODE, DH>(sa, pa, o, l, ntiles, step0, p.n_valid, sc, r.m2, t4, qd, ring, bars);
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) ol[rr] = 1.0f / quad_sum(l[rr]);
     } else {
@@ -614,7 +697,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       // Pass 1: the row max and sum, two tiles a trip (the score buffers
       // alternate); one or two tiles are left for the tail.
       mbar_wait(full(0), 0);
-      qk_issue(sa, qd, sw128_desc(ring));
+      qk_issue(sa, qd, mw_k<64>(ring, 0));
       int i = 0;
       for (; i + 2 < ntiles; i += 2) {
         stats_next(sa, sb, r, i, sl2, qd, ring, bars);
@@ -635,7 +718,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       for (int x = 0; x < 32; ++x) o[x] = 0.0f;
       const int s0 = ntiles % MW_STAGES;
       mbar_wait(full(s0), (ntiles / MW_STAGES) & 1);
-      qk_issue(sa, qd, sw128_desc(ring + 2 * s0 * MW_TILE_BYTES));
+      qk_issue(sa, qd, mw_k<64>(ring, s0));
       wgmma_wait<0>();
       reg_fence(sa);
       if (ntiles == 1)
@@ -647,7 +730,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
       if (ntiles > 1)
         pv_next<true>(sa, pa, o, r, ntiles - 1, ntiles, p.n_valid, sl2, t4, qd, ring, bars);
       const int sl = (2 * ntiles - 1) % MW_STAGES;
-      pv_issue(o, pa, sw128_desc(ring + (2 * sl + 1) * MW_TILE_BYTES));
+      pv_issue(o, pa, mw_v<64>(ring, sl));
       wgmma_wait<0>();
       reg_fence(o);
       reg_fence(pa);
@@ -665,7 +748,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         const float rv = __fmul_rn(ol[rr], p.out_scale);
         signed char* orow = og + (size_t)row * p.out_r + 2 * t4;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+        for (int c = 0; c < DH / 8; ++c) {
           const float f0 = bf16_round(__fmul_rn(o[4 * c + 2 * rr], rv));
           const float f1 = bf16_round(__fmul_rn(o[4 * c + 2 * rr + 1], rv));
           const int q0i = static_cast<int>(fminf(fmaxf(rintf(f0), -127.0f), 127.0f));
@@ -682,7 +765,7 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
         if (row >= p.n) continue;
         bf16* orow = og + (size_t)row * p.out_r + 2 * t4;
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+        for (int c = 0; c < DH / 8; ++c)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
               __floats2bfloat162_rn(o[4 * c + 2 * rr] * ol[rr], o[4 * c + 2 * rr + 1] * ol[rr]);
       }
@@ -690,64 +773,76 @@ __global__ void __launch_bounds__(MW_THREADS, 1)
   }
 }
 
-template <int MODE, bool Q8 = false>
+template <int MODE, bool Q8 = false, int DH = 64>
 inline cudaError_t mha_wgmma_enable() {
-  return cudaFuncSetAttribute(mha_wgmma_kernel<MODE, Q8>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MW_SMEM_BYTES);
+  return cudaFuncSetAttribute(mha_wgmma_kernel<MODE, Q8, DH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)MwDim<DH>::SMEM);
 }
 
-template <int MODE, bool Q8 = false>
-inline cudaError_t launch_mha_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
-                                    const CUtensorMap& tv, const MhaTmaArgs& p, int batch,
+template <int MODE, bool Q8 = false, int DH = 64>
+inline cudaError_t launch_mha_wgmma(const MwMaps& m, const MhaTmaArgs& p, int batch,
                                     cudaStream_t stream) {
   if (p.n < 1 || p.n_valid < 1 || p.n_valid > p.n || batch < 1 ||
       (long long)batch * p.heads > MW_MAX_GRID_Y ||
       (MODE == MW_ONLINE && (p.bk < MW_KT || p.bk % MW_KT)))
     return cudaErrorInvalidValue;
   const dim3 grid((p.n + MW_BQ - 1) / MW_BQ, batch * p.heads);
-  mha_wgmma_kernel<MODE, Q8><<<grid, MW_THREADS, MW_SMEM_BYTES, stream>>>(tq, tk, tv, p);
+  mha_wgmma_kernel<MODE, Q8, DH><<<grid, MW_THREADS, MwDim<DH>::SMEM, stream>>>(m, p);
   return cudaGetLastError();
 }
 
-// The 4-D map {64, rows, heads, batch} of a bf16 operand with element
-// strides in_r, in_h, in_b; boxes of one 64 x MW_KT tile (= MW_BQ rows of
-// Q), 128-byte swizzled, zero past `rows`.
+// The 4-D map {cols, rows, heads, batch} of a bf16 operand with element
+// strides in_r, in_h, in_b; boxes of one cols x MW_KT tile (= MW_BQ rows of
+// Q), zero past `rows`: 64 columns 128-byte swizzled, or the 16 columns
+// 64..79 of an 80-wide head (base 64 elements on) 32-byte swizzled.
 inline bool mw_encode(CUtensorMap* map, const void* base, long long in_b, long long in_h,
-                      int in_r, int rows, int heads, int batch) {
-  static_assert(MW_KT == MW_BQ, "one box shape serves Q, K and V");
+                      int in_r, int rows, int heads, int batch, int cols = 64) {
   // A dimension of extent 1 is never stepped; give it a legal stride.
   auto stride = [](long long st, int extent) {
     return (cuuint64_t)(extent == 1 ? 16 : st * 2);
   };
-  const cuuint64_t dims[4] = {(cuuint64_t)MW_DH, (cuuint64_t)rows, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {stride(in_r, rows), stride(in_h, heads), stride(in_b, batch)};
-  const cuuint32_t box[4] = {(cuuint32_t)MW_DH, (cuuint32_t)MW_KT, 1, 1};
-  return tma_encode_bf16(map, base, 4, dims, strides, box);
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)MW_KT, 1, 1};
+  return (cols == 64 || cols == 16) &&
+         tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box,
+                    cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// An operand's maps at head dim DH: columns 0..63 into *m0 and (DH 80)
+// columns 64..79 into *m1.
+template <int DH>
+inline bool mw_encode_dh(CUtensorMap* m0, CUtensorMap* m1, const bf16* base, long long in_b,
+                         long long in_h, int in_r, int rows, int heads, int batch) {
+  if (!mw_encode(m0, base, in_b, in_h, in_r, rows, heads, batch)) return false;
+  return DH == 64 || mw_encode(m1, base + 64, in_b, in_h, in_r, rows, heads, batch, 16);
 }
 
 // The attention in MODE (any but the online mode, which takes key blocks)
-// over a packed (B * n_pad, 3D) bf16 qkv, q, k and v column blocks of each
-// row with head h at h * 64 of each (row stride 3D, image stride n_pad *
-// 3D), into ao (B * n_pad, D), bf16, or with Q8 int8 aoq at out_scale:
-// Q's row extent n_pad, K's and V's n_valid, so that TMA zero-fills the
-// keys past it.  Every query row is written.  Shared by attn_half.cuh (K1,
-// K4), attn_int8.cu (K16), attn_int8_stats.cu (K21b) and, with Q8,
-// attn_int8_static.cu (K18).
-template <int MODE, bool Q8 = false>
+// at head dim DH over a packed (B * n_pad, 3D) bf16 qkv, q, k and v column
+// blocks of each row with head h at h * DH of each (row stride 3D, image
+// stride n_pad * 3D), into ao (B * n_pad, D), bf16, or with Q8 int8 aoq at
+// out_scale: Q's row extent n_pad, K's and V's n_valid, so that TMA
+// zero-fills the keys past it.  Every query row is written.  Shared by attn_half.cuh (K1 at DH 64, K4 at 64 and
+// 80), attn_int8.cu (K16, 64 and 80), attn_int8_stats.cu (K21b, 64) and,
+// with Q8, attn_int8_static.cu (K18, 64 and 80).
+template <int MODE, bool Q8 = false, int DH = 64>
 inline cudaError_t launch_mha_packed(const bf16* qkv, void* ao, int batch, int n_pad, int d,
                                      int heads, int n_valid, float scale, cudaStream_t st,
                                      float out_scale = 1.0f) {
   static_assert(MODE != MW_ONLINE, "the online mode takes a key block");
+  if (d != heads * DH) return cudaErrorInvalidValue;
   const long long in_b = (long long)n_pad * 3 * d;
-  CUtensorMap tq, tk, tv;
-  if (!mw_encode(&tq, qkv, in_b, MW_DH, 3 * d, n_pad, heads, batch) ||
-      !mw_encode(&tk, qkv + d, in_b, MW_DH, 3 * d, n_valid, heads, batch) ||
-      !mw_encode(&tv, qkv + 2 * d, in_b, MW_DH, 3 * d, n_valid, heads, batch))
+  MwMaps m;
+  if (!mw_encode_dh<DH>(&m.q, &m.q1, qkv, in_b, DH, 3 * d, n_pad, heads, batch) ||
+      !mw_encode_dh<DH>(&m.k, &m.k1, qkv + d, in_b, DH, 3 * d, n_valid, heads, batch) ||
+      !mw_encode_dh<DH>(&m.v, &m.v1, qkv + 2 * d, in_b, DH, 3 * d, n_valid, heads, batch))
     return cudaErrorInvalidValue;
-  const MhaTmaArgs a{ao,     (long long)n_pad * d, MW_DH, d, heads, n_pad, n_valid,
+  const MhaTmaArgs a{ao,     (long long)n_pad * d, DH, d, heads, n_pad, n_valid,
                      scale * 1.4426950408889634f, scale, 0, out_scale};
-  return launch_mha_wgmma<MODE, Q8>(tq, tk, tv, a, batch, st);
+  return launch_mha_wgmma<MODE, Q8, DH>(m, a, batch, st);
 }
 
 }  // namespace VFT_NS

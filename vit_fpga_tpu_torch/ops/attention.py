@@ -132,7 +132,7 @@ def mha_qkv_pallas(qkv: torch.Tensor, num_heads: int,
                          f"n_valid >= 1")
     q, k, v = _heads(qkv, num_heads)
     check_operands(q, k, v, (torch.bfloat16, torch.float32),
-                   "mha_qkv_pallas")
+                   "K7 mha_qkv_pallas")
     out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     launch_strided("K7 mha_qkv_pallas", "vft_mha", q, k, v,
                    out.reshape(b, n, num_heads, -1).transpose(1, 2), n_valid,
@@ -161,7 +161,8 @@ def mha_pallas(q, k, v, n_valid: int | None = None) -> torch.Tensor:
         return mha_pallas_plain(q, k, v, n_valid)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    check_operands(q, k, v, (torch.bfloat16, torch.float32), "mha_pallas")
+    check_operands(q, k, v, (torch.bfloat16, torch.float32),
+                   "K8 mha_pallas")
     if n_valid < 1:
         raise ValueError("mha_pallas takes n_valid >= 1")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)

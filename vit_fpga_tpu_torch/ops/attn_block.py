@@ -12,7 +12,8 @@ CPU tensor:
   3137 tokens): the wgmma + TMA GEMM of ``csrc/gemm_wgmma.cuh`` (LN
   prologue, bias and residual epilogues) and the max-free one-pass mode of
   ``csrc/mha_wgmma.cuh``'s attention, one kernel at every length;
-* K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half:
+* K4 ``attn_block_fwd`` (``csrc/attn_block.cu``), the per-block half at
+  head dim 64 or 80 (ViT-H/14; K1 takes 64):
   replaces ``_attn_block_kernel`` (wrapper ``attn_block_pallas``), K1 with
   one-pass LN statistics computed in the kernel and the exact
   (``safe_softmax``) or max-free softmax, wherever the JAX wrapper admits
@@ -75,6 +76,9 @@ from .common import (check_activation, kernel_operand, ln_backward, ln_parts,
                      round_up, row_stats)
 
 _NEG_INF = -1e30
+# head dims K4 and K23 take on the card (csrc/mha_wgmma.cuh's MwDim; 80 is
+# ViT-H/14's); K1 takes 64
+_CARD_HEAD_DIMS = (64, 80)
 # max-free softmax clip window (as the JAX kernels)
 _EXP_LO, _EXP_HI = -70.0, 80.0
 
@@ -280,8 +284,8 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
         raise ValueError(f"D={d} not divisible by {num_heads} heads")
     dh = d // num_heads
     if dh != 64 or not 1 <= n_valid <= n:
-        raise ValueError(f"kernel takes head dim 64 and 1 <= n_valid <= "
-                         f"n_pad (dh={dh}, n_valid={n_valid}, n_pad={n})")
+        raise ValueError(f"K1 takes head dim 64 and 1 <= n_valid <= n_pad "
+                         f"(dh={dh}, n_valid={n_valid}, n_pad={n})")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     if not attn_stats_fits(b, n, d, num_heads, x.element_size()):
         plan = _plan_of(b, n, d, num_heads, x.element_size())
@@ -339,9 +343,10 @@ def _cuda_geometry(x, num_heads, n_valid, *, kernel):
     if d % num_heads or d % 32:
         raise ValueError(f"kernel needs D divisible by 32 and by {num_heads} "
                          f"heads (D={d})")
-    if d // num_heads != 64 or n_valid < 1:
-        raise ValueError(f"kernel takes head dim 64 and at least one valid "
-                         f"token (dh={d // num_heads}, n_valid={n_valid})")
+    if d // num_heads not in _CARD_HEAD_DIMS or n_valid < 1:
+        raise ValueError(f"{kernel} takes head dim 64 or 80 and at least one "
+                         f"valid token (dh={d // num_heads}, "
+                         f"n_valid={n_valid})")
     check_activation(x, (b, n, d), torch.bfloat16, "x")
     if kernel == "K4" and not attn_block_fits(b, n, d, num_heads,
                                               x.element_size()):
@@ -373,7 +378,7 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
     """Per-block attention half (K4): x (B, N, D) -> x + OutProj(MHA(QKV(
     LN(x)))).  Query rows at or past ``n_valid`` are computed, keys there
     masked.  A CPU tensor runs :func:`attn_block_fwd_plain`; a CUDA tensor
-    launches the kernel (bf16, head dim 64, the geometry
+    launches the kernel (bf16, head dim 64 or 80, the geometry
     :func:`attn_block_fits` admits; a launch past 256 valid keys is counted
     in ``launches_long`` too) or raises."""
     if not residual:
@@ -474,9 +479,9 @@ def attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, g, num_heads: int,
     output -> ``(dx, dls, dlb, dwqkv, dbqkv, dwo, dbo)``, dx in x's dtype,
     the weight, bias and LN gradients f32.  A CPU tensor runs
     :func:`attn_block_bwd_plain`; a CUDA tensor launches the kernel
-    (bf16, head dim 64, any n_valid <= n_pad, B * n_pad a multiple of 8;
-    a launch past 256 valid keys is counted in ``launches_long`` too) or
-    raises.  :class:`AttnBlockFunction` calls it where :func:`_bwd_fits`
+    (bf16, head dim 64 or 80, any n_valid <= n_pad, B * n_pad a multiple
+    of 8; a launch past 256 valid keys is counted in ``launches_long`` too)
+    or raises.  :class:`AttnBlockFunction` calls it where :func:`_bwd_fits`
     holds."""
     if x.device.type == "cpu":
         return attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,

@@ -139,7 +139,7 @@ def flash_attention(q, k, v, n_valid: int | None = None, bq: int = 512,
         return flash_attention_plain(q, k, v, n_valid, bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    check_operands(q, k, v, (torch.bfloat16,), "flash_attention")
+    check_operands(q, k, v, (torch.bfloat16,), "K9 flash_attention")
     bk = min(bk, round_up(n, LANE))
     if bk % _KEY_TILE or not 1 <= n_valid:
         raise ValueError(f"flash_attention kernel takes bk a multiple of "

@@ -229,6 +229,10 @@ def _mlp_operands(x, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2):
 # gridDim.y of csrc/mha_wgmma.cuh's attention (MW_MAX_GRID_Y): one block
 # row an (image, head).
 MW_MAX_GRID_Y = 65535
+# The head dims each int8 attention half takes on the card: the attention
+# core's tiles take 64 and 80 (ViT-H/14); K21b, off the default path, stays
+# at 64.
+_CARD_HEAD_DIMS = {"K16": (64, 80), "K18": (64, 80), "K21b": (64,)}
 
 
 def attn_int8_geometry(b: int, n: int, d: int, num_heads: int,
@@ -236,7 +240,8 @@ def attn_int8_geometry(b: int, n: int, d: int, num_heads: int,
     """The gate on the card of the int8 attention halves on
     ``csrc/mha_wgmma.cuh`` (K16, K18; K21b through
     :func:`attn_int8_stats_geometry`), ``kernel`` naming the half in the
-    errors: head dim 64, 1 <= n_valid <= n, batch x heads within the
+    errors: head dim 64 or 80 (K21b 64: ``_CARD_HEAD_DIMS``), 1 <= n_valid
+    <= n, batch x heads within the
     attention's grid (``MW_MAX_GRID_Y``), all of which the C entry points
     check too, and a token count at which the JAX ``attn_block_int8`` and
     ``attn_block_int8_static`` run their kernels: they pad the n rows to
@@ -246,10 +251,12 @@ def attn_int8_geometry(b: int, n: int, d: int, num_heads: int,
     tokens, ViT-L/16 up to 768 px).  The Hopper kernels stream the keys and
     have no length bound of their own.  Raises ``ValueError`` outside;
     returns the plan's ``reuse_q``."""
-    if (num_heads < 1 or d % num_heads or d // num_heads != 64
+    dims = _CARD_HEAD_DIMS[kernel]
+    if (num_heads < 1 or d % num_heads or d // num_heads not in dims
             or not 1 <= n_valid <= n):
-        raise ValueError(f"{kernel} takes head dim 64 and 1..n valid tokens "
-                         f"(D={d}, {num_heads} heads, n={n}, "
+        raise ValueError(f"{kernel} takes head dim "
+                         f"{' or '.join(map(str, dims))} and 1..n valid "
+                         f"tokens (D={d}, {num_heads} heads, n={n}, "
                          f"n_valid={n_valid})")
     if b * num_heads > MW_MAX_GRID_Y:
         raise ValueError(f"{kernel}'s attention grid takes batch x heads <= "
@@ -737,7 +744,8 @@ def _scores_geometry(d: int, num_heads: int) -> int:
     """The JAX gate of the int8-scores half: head dim 64 and an even head
     count (the TPU kernel's pair-packed geometry).  Returns dh."""
     if d % num_heads or d // num_heads != 64 or num_heads % 2:
-        raise ValueError(f"int8-scores path requires dh=64, even heads "
+        raise ValueError(f"K22 (the int8-scores path) requires dh=64, "
+                         f"even heads "
                          f"(D={d}, {num_heads} heads)")
     return d // num_heads
 

@@ -241,7 +241,8 @@ def _cuda_geometry(x, num_heads, n_valid, mlp_dim):
     n_valid = n if n_valid is None else min(n_valid, n)
     if not stack_supported(num_heads, d, mlp_dim, n_valid, b):
         raise ValueError(
-            f"the stack kernels take head dim {HEAD_DIM}, D <= {MAX_D}, M a "
+            f"the stack kernels (K11, K19a, K19b) take head dim {HEAD_DIM}, "
+            f"D <= {MAX_D}, M a "
             f"multiple of 64 up to {MAX_M}, 1..{MAX_VALID} valid tokens and "
             f"batch 1..{MAX_BATCH} (B={b}, D={d}, {num_heads} heads, M={mlp_dim}, "
             f"n_valid={n_valid})")
@@ -564,7 +565,8 @@ def _full_geometry(images, num_heads, posb, mlp_dim, patch):
     n_pad, d = posb.shape
     if not full_supported(num_heads, d, mlp_dim, n, b, patch):
         raise ValueError(
-            f"the whole-model kernels take what the stack kernels take "
+            f"the whole-model kernels (K12, K20) take what the stack "
+            f"kernels take "
             f"(head dim {HEAD_DIM}, D <= {MAX_D}, M a multiple of 64 up to "
             f"{MAX_M}, 1..{MAX_VALID} tokens, batch 1..{MAX_BATCH}) and "
             f"3 patch^2 a multiple of 16 up to {MAX_P3} (B={b}, D={d}, "
