@@ -328,6 +328,30 @@ Phases, each of which raises on failure (exit code != 0):
               and 64; the three b64 forwards in turns; Trainer (AdamW) 3
               steps at b8, depth 32 (32 K4 + 32 K23 a step), and one SGD
               step at depth 2 b4 against the CPU
+ 28. f32      after phase 27: K1, K2 / K3, K4 and K9 in their true-f32
+              modes (FMA on the CUDA cores) against their plain versions
+              with TF32 off, each element within K26's f32 sum band carried
+              through the stages (outside it, within that band of the same
+              arithmetic in f64): K1 at ViT-B/16 b64, hot logits (scores
+              past 80, where the max-free and exact softmaxes part),
+              @640's 1601 tokens and ViT-S/16 b64 with its stats; K3 at
+              (12 800, 768) x 3072 in 2 chunks and each activation in 4;
+              K2 at ViT-S/16 b64 and each activation; K4 at b1 / b3 both
+              modes, b64 safe, hot logits, ViT-L/16 and ViT-H/14 (head dim
+              80); K9 at ViT-B/16 @1024 and @896; loud padding bit for
+              bit; the gates (K1 at @768 and K4 at @896 raise, K5, K6,
+              K23, K24 and K9 at head dim 80 raise naming themselves);
+              then ImageServer over make_forward(vit_b16, float32) answers
+              160 uint8 requests with 12 K1 + 12 K3 in f32 a batch and no
+              bf16 launch, logits against the CPU f32 forward in
+              F32_LOGITS_BAND; ViT-B/16 b1 (12 K4), @1024 b1 depth 2 (2
+              K9), the per-tensor int8 forward @1024 b1 depth 2 (2 K9 + 10
+              K13), ViT-H/14 depth 2 b2 (2 K4 at head dim 80) and ViT-S/16
+              depth 2 b64 (2 K1 + 2 K2), each against the CPU; the f32
+              kernels' times beside the bf16 kernel at the same shape
+              (device alone, in turns), the plain version, the f32
+              library call and the bound at 67 TFLOP/s; the b64 forward in
+              f32 and bf16 in turns
 Then one JSON line per the kernels, and the device line last.
 """
 
@@ -463,10 +487,10 @@ def _compare(name, got, want, rtol, atol, mag=None):
 # Kernel inputs at a given shape (seeded, on the card)
 # ---------------------------------------------------------------------------
 
-def _attn_inputs(batch, n_pad, d, seed):
+def _attn_inputs(batch, n_pad, d, seed, dtype=torch.bfloat16):
     from vit_fpga_tpu_torch.ops.common import row_stats
     g = _gen(seed)
-    x = _randn(g, batch, n_pad, d).to(torch.bfloat16)
+    x = _randn(g, batch, n_pad, d).to(dtype)
     p = dict(ln_scale=_randn(g, d, std=0.1, mean=1.0),
              ln_bias=_randn(g, d, std=0.1),
              wqkv=_randn(g, d, 3 * d, std=0.06),
@@ -476,10 +500,10 @@ def _attn_inputs(batch, n_pad, d, seed):
     return x, row_stats(x, EPS), p
 
 
-def _mlp_inputs(rows, d, m, seed):
+def _mlp_inputs(rows, d, m, seed, dtype=torch.bfloat16):
     from vit_fpga_tpu_torch.ops.common import row_stats
     g = _gen(seed)
-    x = _randn(g, rows, d).to(torch.bfloat16)
+    x = _randn(g, rows, d).to(dtype)
     p = dict(ln_scale=_randn(g, d, std=0.1, mean=1.0),
              ln_bias=_randn(g, d, std=0.1),
              w1=_randn(g, d, m, std=d ** -0.5),
@@ -3486,12 +3510,13 @@ def _time_k3(rows, d, m, seed, label):
 
 
 def _attn_library(x, p, heads, n_valid):
-    """The attention half's library yardstick on x (B, n_pad, D) and bf16
-    weights ``p``: LN + addmm + scaled_dot_product_attention with the key
-    mask + addmm + residual, bf16."""
+    """The attention half's library yardstick on x (B, n_pad, D) and
+    weights ``p`` in x's dtype (bf16, or f32 with TF32 off by the caller):
+    LN + addmm + scaled_dot_product_attention with the key mask + addmm +
+    residual."""
     import torch.nn.functional as F
     batch, n_pad, d = x.shape
-    rows, dh, bf = batch * n_pad, d // heads, torch.bfloat16
+    rows, dh, bf = batch * n_pad, d // heads, x.dtype
     ls, lb = p["ln_scale"].to(bf), p["ln_bias"].to(bf)
     bq, bo = p["bqkv"].to(bf), p["bo"].to(bf)
     keep = (torch.arange(n_pad, device="cuda") < n_valid)[None, None, None]
@@ -4640,7 +4665,7 @@ def phase_per_block_kernels():
 
     q32 = torch.zeros(1, 1, 256, 64, device="cuda")
     qb = q32.to(torch.bfloat16)
-    _expect_raise("K9 f32", lambda: fa.flash_attention(q32, q32, q32))
+    _expect_raise("K9 f16", lambda: fa.flash_attention(*(q32.half(),) * 3))
     _expect_raise("K9 bk=192", lambda: fa.flash_attention(qb, qb, qb, bk=192))
     q80 = torch.zeros(1, 1, 256, 80, dtype=torch.bfloat16, device="cuda")
     _expect_raise("K9 head dim 80", lambda: fa.flash_attention(q80, q80, q80))
@@ -8228,6 +8253,794 @@ def run_vit_h14_phases(errors, timing, launches):
     print(_smi_line())
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: f32 serving (K1, K2 / K3, K4 and K9 in true f32 on the CUDA cores)
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24
+# Scores of the hot-logit cases: q and k columns of Wqkv scaled up so that
+# most scores lie past the max-free clip window [-70, 80], where the
+# max-free softmax and the exact one part.
+HOT = 6.0
+# The f32 forwards on the card against the port's CPU f32 forward, relative
+# to the largest logit: the same function, every rounding point the same
+# in f32 (the kernels round nothing to a narrower type), only the order of
+# the sums differs; that moves the logits by about 1e-6 of the largest,
+# and a wrong mask, softmax or chunk boundary by whole percents.  1e-4
+# leaves some 50 times the measured 1.4-1.9e-6, and lies below where TF32
+# leaking into the route's torch ops (the embed, the head, K4's plain MLP:
+# operands rounded to 10 bits) would move them.
+F32_LOGITS_BAND = 1e-4
+# The JSON rows of this phase: (name, source, TPU kernel).
+F32_ROWS = {
+    "attn_block_stats_f32": ("vit_fpga_tpu_torch/csrc/attn_stats.cu",
+                             "vit_fpga_tpu/ops/attn_block.py:550"),
+    "fused_mlp_chunked_stats_f32": (
+        "vit_fpga_tpu_torch/csrc/mlp_chunk_stats.cu",
+        "vit_fpga_tpu/ops/fused_mlp.py:305"),
+    "fused_mlp_stats_f32": ("vit_fpga_tpu_torch/csrc/mlp_chunk_stats.cu",
+                            "vit_fpga_tpu/ops/fused_mlp.py:225"),
+    "attn_block_fwd_f32": ("vit_fpga_tpu_torch/csrc/attn_block.cu",
+                           "vit_fpga_tpu/ops/attn_block.py:371"),
+    "attn_block_fwd_f32_dh80": ("vit_fpga_tpu_torch/csrc/attn_block.cu",
+                                "vit_fpga_tpu/ops/attn_block.py:371"),
+    "flash_attention_f32": ("vit_fpga_tpu_torch/csrc/flash_attn.cu",
+                            "vit_fpga_tpu/ops/flash_attention.py:29"),
+}
+
+
+def _serr(k, mag):
+    """The f32 sum band of K26: 2 sqrt(k) 2^-24 sum|terms|."""
+    return 2.0 * k ** 0.5 * U32 * mag
+
+
+def _carry(err, w):
+    """An input error ``err`` carried through the product with ``w`` (the
+    last axis of err against the first of w), as independent roundings
+    add: sqrt(err^2 @ w^2).  K26's band is itself of that kind (2 sqrt(k)
+    ulps of the magnitude, where k ulps would be the worst case); carried
+    through the next sum by |err| @ |w| instead, three products in a row
+    would widen the band by the square roots of their depths, some 10^4
+    at ViT-B/16, and hide a wrong kernel."""
+    return torch.sqrt((err * err) @ (w * w))
+
+
+def _f32_attn_inputs(batch, n_pad, d, seed, hot=False):
+    """``_attn_inputs`` in f32 (``_widened`` off D 768); ``hot`` scales
+    the q and k columns of Wqkv by HOT."""
+    x, st, p = _attn_inputs(batch, n_pad, d, seed, torch.float32)
+    if d != 768:
+        p = _widened(p, d)
+    if hot:
+        p["wqkv"] = p["wqkv"].clone()
+        p["wqkv"][:, :2 * d] *= HOT
+    return x, st, p
+
+
+def _ln_f64(x, st, p):
+    """The LayerNorm from (mu, rstd) in f64, with its error magnitude:
+    ``st`` given (K1, K2 / K3: the kernel reads the same stats) or None
+    (K4: one-pass stats of x taken in the kernel, their f32 sums' error
+    carried into xn)."""
+    xd = x.double()
+    ls, lb = p["ln_scale"].double(), p["ln_bias"].double()
+    d = x.shape[-1]
+    if st is None:
+        mu = xd.mean(-1, keepdim=True)
+        msq = (xd * xd).mean(-1, keepdim=True)
+        rstd = torch.rsqrt((msq - mu * mu).clamp_min(0.0) + EPS)
+    else:
+        mu, rstd = st[..., 0:1].double(), st[..., 1:2].double()
+    xc = xd - mu
+    xn = xc * rstd * ls + lb
+    err = 4 * U32 * ((xc.abs() + mu.abs()) * rstd * ls.abs() + lb.abs())
+    if st is None:
+        e_mu = _serr(d, xd.abs().mean(-1, keepdim=True))
+        e_var = _serr(d, msq) + 2 * mu.abs() * e_mu
+        e_rstd = 0.5 * rstd ** 3 * e_var + U32 * rstd
+        err = err + (rstd * e_mu + xc.abs() * e_rstd) * ls.abs()
+    return xd, xn, err
+
+
+def _softmax_f64(s, e_s, n_valid, mode):
+    """e and its error from scores ``s`` and their error ``e_s`` (f64,
+    (..., N, N)), keys at or past n_valid masked: "maxfree" exp(clip(s,
+    -70, 80)) (no error where the clip holds s), "safe" exp(s - max)."""
+    keep = torch.arange(s.shape[-1], device=s.device) < n_valid
+    if mode == "maxfree":
+        e = torch.exp(s.clamp(-70.0, 80.0))
+        inside = ((s > -70.0) & (s < 80.0)).double()
+        e_e = e * e_s * inside + U32 * e
+    else:
+        sm = s.masked_fill(~keep, -float("inf"))
+        m, i = sm.max(-1, keepdim=True)
+        e = torch.exp(sm - m)
+        e_e = e * (e_s + e_s.gather(-1, i)) + U32 * e
+    keep = keep.double()
+    return e * keep, e_e * keep
+
+
+def _attend_f64(e, e_e, v, e_v, n_valid):
+    """(e v) / sum e and its error (f64)."""
+    l = e.sum(-1, keepdim=True)
+    e_l = (e_e * e_e).sum(-1, keepdim=True).sqrt() + _serr(n_valid, l)
+    pv = e @ v
+    e_pv = (torch.sqrt(_carry(e_e, v) ** 2 + _carry(e, e_v) ** 2)
+            + _serr(n_valid, e @ v.abs()))
+    o = pv / l
+    return o, e_pv / l + pv.abs() * e_l / (l * l) + 2 * U32 * o.abs()
+
+
+def _attn_half_f64(x, st, p, heads, n_valid, safe):
+    """The f32 attention half's arithmetic (the plain version's: LN, QKV,
+    q scaled, the max-free or exact softmax, e v times 1 / sum e, the
+    out-projection and residual) in f64: (out, band), where band is the
+    f32 sum band of K26 carried through every stage to out, first order.
+    ``st`` None: the stats taken from x (K4)."""
+    b, n, d = x.shape
+    dh = d // heads
+    scale = 1.0 / dh ** 0.5
+    xd, xn, e_xn = _ln_f64(x, st, p)
+    wq, wo = p["wqkv"].double(), p["wo"].double()
+    bq, bo = p["bqkv"].double(), p["bo"].double()
+    qkv = xn @ wq + bq
+    e_qkv = _serr(d + 1, xn.abs() @ wq.abs() + bq.abs()) + _carry(e_xn, wq)
+
+    def split(t):
+        return t.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+
+    q, k, v = split(qkv)
+    eq, ek, ev = split(e_qkv)
+    q, eq = q * scale, eq * scale + U32 * (q * scale).abs()
+    s = q @ k.transpose(-1, -2)
+    e_s = (_serr(dh, q.abs() @ k.abs().transpose(-1, -2))
+           + torch.sqrt(_carry(eq, k.transpose(-1, -2)) ** 2
+                        + _carry(ek, q.transpose(-1, -2)).transpose(-1, -2)
+                        ** 2))
+    e, e_e = _softmax_f64(s, e_s, n_valid, "safe" if safe else "maxfree")
+    ao, e_ao = _attend_f64(e, e_e, v, ev, n_valid)
+    ao = ao.transpose(1, 2).reshape(b, n, d)
+    e_ao = e_ao.transpose(1, 2).reshape(b, n, d)
+    out = xd + (ao @ wo + bo)
+    band = (_serr(d + 2, xd.abs() + ao.abs() @ wo.abs() + bo.abs())
+            + _carry(e_ao, wo))
+    return out, band
+
+
+def _mlp_half_f64(x, st, p, act):
+    """The f32 MLP half's arithmetic in f64 (chunk boundaries change only
+    the order of the sum): (out, band) as :func:`_attn_half_f64`'s; the
+    activation's error is its input's times 1.2 (every activation's slope
+    stays below it) plus 16 ulps of its input."""
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    d, m = p["w1"].shape
+    xd, xn, e_xn = _ln_f64(x, st, p)
+    w1, w2 = p["w1"].double(), p["w2"].double()
+    b1, b2 = p["b1"].double(), p["b2"].double()
+    hp = xn @ w1 + b1
+    e_hp = _serr(d + 1, xn.abs() @ w1.abs() + b1.abs()) + _carry(e_xn, w1)
+    h = fm._act(hp, act)
+    e_h = 1.2 * e_hp + 16 * U32 * hp.abs()
+    out = xd + (h @ w2 + b2)
+    band = (_serr(m + 2, xd.abs() + h.abs() @ w2.abs() + b2.abs())
+            + _carry(e_h, w2))
+    return out, band
+
+
+def _flash_f64(qkv, heads, n_valid):
+    """K9's function on packed qkv in f64 (the exact softmax, the scale
+    after the products): (o (B, N, D), band)."""
+    from vit_fpga_tpu_torch.ops import attention as at
+    b, n, d3 = qkv.shape
+    q, k, v = (t.double() for t in at._heads(qkv, heads))
+    dh = q.shape[-1]
+    scale = 1.0 / dh ** 0.5
+    s = (q @ k.transpose(-1, -2)) * scale
+    e_s = (_serr(dh, q.abs() @ k.abs().transpose(-1, -2)) * scale
+           + U32 * s.abs())
+    e, e_e = _softmax_f64(s, e_s, n_valid, "safe")
+    o, e_o = _attend_f64(e, e_e, v, torch.zeros_like(v), n_valid)
+    return (o.transpose(1, 2).reshape(b, n, d3 // 3),
+            e_o.transpose(1, 2).reshape(b, n, d3 // 3))
+
+
+def _f32_gate(label, got, want, ref):
+    """An f32 kernel against its plain version on the card: |a - b| <=
+    F32_SUM_ATOL (1 + |b|) + band, ``ref`` = (the arithmetic in f64, the
+    band: K26's sum band carried through the stages).  An element outside
+    it must lie inside the same bound around the f64 value (the referee);
+    the plain version's own count there is printed.  Returns max |a-b|."""
+    torch.cuda.synchronize()
+    r64, band = ref
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    tol = F32_SUM_ATOL * (1 + w.abs()) + band
+    out = diff > tol
+    max_abs = float(diff.max())
+    print(f"  {label}: max_abs={max_abs:.3e}, max |a-b| / bound "
+          f"{float((diff / tol).max()):.3e}, {int(out.sum())} of "
+          f"{out.numel()} outside 1e-5 (1+|b|) + the carried f32 sum band")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    if out.any():
+        tol_r = F32_SUM_ATOL * (1 + r64.abs()) + band
+        still = int((out & ((g - r64).abs() > tol_r)).sum())
+        own = int(((w - r64).abs() > tol_r).sum())
+        print(f"  {label}: against the f64 arithmetic {still} of those "
+              f"outside it (must be 0; the plain version's own: {own})")
+        if still:
+            raise AssertionError(f"{label}: kernel disagrees with its plain "
+                                 f"version")
+    return max_abs
+
+
+def _f32_stats(label, got_out, got_st, want_st):
+    """The emitted stats: those of the kernel's own f32 output (the same
+    one-pass function, sums in another order) and the plain version's."""
+    from vit_fpga_tpu_torch.ops.common import row_stats
+    own = row_stats(got_out, EPS)
+    _compare(f"{label} stats vs its own output's", got_st, own, STATS_RTOL,
+             STATS_ATOL)
+    _compare(f"{label} stats vs the plain version's", got_st, want_st,
+             STATS_RTOL, STATS_ATOL)
+
+
+def _f32_k1_case(label, batch, n_pad, n_valid, d, heads, seed, hot=False):
+    """K1 f32 against its plain version and the f64 arithmetic: out and
+    the emitted stats; the hot case must have scores past the clip and
+    must part from the exact softmax."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.utils.platform import true_f32
+    x, st, p = _f32_attn_inputs(batch, n_pad, d, seed, hot)
+    name = f"K1 f32 {label} ({batch}, {n_pad}, {d}) {heads} heads " \
+           f"n_valid={n_valid}"
+    before = ab.attn_block_stats.launches_f32
+    got, got_st = _attn_call(ab.attn_block_stats, x, st, p, heads, n_valid,
+                             True)
+    if ab.attn_block_stats.launches_f32 != before + 1:
+        raise AssertionError(f"{name}: no f32 launch counted")
+    with true_f32():
+        want, want_st = _attn_call(ab.attn_block_stats_plain, x, st, p,
+                                   heads, n_valid, True)
+        ref = _attn_half_f64(x, st, p, heads, n_valid, False)
+    err = _f32_gate(name, got, want, ref)
+    _f32_stats(name, got, got_st, want_st)
+    if hot:
+        _f32_hot(name, got, x, st, p, heads, n_valid, ref)
+    return err
+
+
+def _f32_hot(name, got, x, st, p, heads, n_valid, ref):
+    """The hot-logit case discriminates: some scores lie past 80 and the
+    kernel stands far nearer the max-free arithmetic than the exact
+    softmax's."""
+    with torch.no_grad():
+        _, band = ref
+        exact, _ = _attn_half_f64(x, st, p, heads, n_valid, True)
+        d = x.shape[-1]
+        xn = _ln_f64(x, st, p)[1]
+        qk = (xn @ p["wqkv"].double()[:, :2 * d]).reshape(
+            *x.shape[:2], 2, heads, d // heads)
+        s = (qk[:, :, 0].transpose(1, 2) * (heads / d) ** 0.5) @ \
+            qk[:, :, 1].permute(0, 2, 3, 1)
+        past = float((s[..., :n_valid] > 80.0).double().mean())
+        apart = float((exact - ref[0]).abs().max())
+        off = float((got.double() - exact).abs().max())
+    print(f"  {name}: {past:.2%} of the valid scores past 80; the exact "
+          f"softmax's out lies {apart:.3e} from the max-free one, the "
+          f"kernel {off:.3e} from the exact one")
+    if not past > 0 or not off > 100 * float(band.max()):
+        raise AssertionError(f"{name}: the hot case does not separate the "
+                             f"two softmaxes")
+
+
+def _f32_k4_case(label, batch, n_pad, n_valid, d, heads, seed, safe,
+                 hot=False):
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.utils.platform import true_f32
+    x, st, p = _f32_attn_inputs(batch, n_pad, d, seed, hot)
+    mode = "safe" if safe else "max-free"
+    name = (f"K4 f32 {mode} {label} ({batch}, {n_pad}, {d}) {heads} heads "
+            f"n_valid={n_valid}")
+    before = (ab.attn_block_fwd.launches_f32, ab.attn_block_fwd.launches_long)
+    got = _k4(ab.attn_block_fwd, x, p, heads, n_valid, safe)
+    after = (ab.attn_block_fwd.launches_f32, ab.attn_block_fwd.launches_long)
+    if after != (before[0] + 1, before[1] + int(n_valid > 256)):
+        raise AssertionError(f"{name}: counted {after} after {before}")
+    with true_f32():
+        want = _k4(ab.attn_block_fwd_plain, x, p, heads, n_valid, safe)
+        ref = _attn_half_f64(x, None, p, heads, n_valid, safe)
+    err = _f32_gate(name, got, want, ref)
+    if hot and not safe:
+        _f32_hot(name, got, x, None, p, heads, n_valid, ref)
+    return err
+
+
+def _f32_loud(name, call, x, n_valid):
+    """Padding rows of x times 1e4: the valid rows must come back bit for
+    bit (their keys are masked, every row is its own)."""
+    loud = x.clone()
+    loud[:, n_valid:] *= 1e4
+    quiet, noisy = call(x), call(loud)
+    torch.cuda.synchronize()
+    moved = float((noisy[:, :n_valid] - quiet[:, :n_valid]).abs().max())
+    print(f"  {name} loud padding rows: valid rows moved by {moved:.3e} "
+          f"(must be 0)")
+    if moved != 0.0 or not torch.isfinite(noisy[:, :n_valid]).all():
+        raise AssertionError(f"{name}: padding rows moved the valid rows")
+
+
+def _f32_mlp_case(label, rows, d, m, seed, act, n_chunks):
+    """K3 (n_chunks > 1) or K2 in f32 against the plain version and the
+    f64 arithmetic, with the emitted stats."""
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.utils.platform import true_f32
+    x, st, p = _mlp_inputs(rows, d, m, seed, torch.float32)
+    kern = "K3" if n_chunks > 1 else "K2"
+    name = f"{kern} f32 {label} ({rows}, {d}) x {m} {act}" + (
+        f" n_chunks={n_chunks}" if n_chunks > 1 else "")
+    if n_chunks > 1:
+        fn = fm.fused_mlp_chunked_stats
+        plain = fm.fused_mlp_chunked_stats_plain
+        kw = dict(n_chunks=n_chunks)
+    else:
+        fn, plain, kw = fm.fused_mlp_stats, fm.fused_mlp_stats_plain, {}
+    before = fn.launches_f32
+    got, got_st = fn(x, st, p["ln_scale"], p["ln_bias"], p["w1"], p["b1"],
+                     p["w2"], p["b2"], eps=EPS, act=act, **kw)
+    if fn.launches_f32 != before + 1:
+        raise AssertionError(f"{name}: no f32 launch counted")
+    with true_f32():
+        want, want_st = plain(x, st, p["ln_scale"], p["ln_bias"], p["w1"],
+                              p["b1"], p["w2"], p["b2"], eps=EPS, act=act,
+                              **kw)
+        ref = _mlp_half_f64(x, st, p, act)
+    err = _f32_gate(name, got, want, ref)
+    _f32_stats(name, got, got_st, want_st)
+    return err
+
+
+def _f32_k9_case(label, n, n_valid, seed):
+    """K9 f32 on ViT-B/16's packed qkv (1, n, 2304), 12 heads, against
+    its plain version (bk 128) and the f64 arithmetic; loud padding keys
+    must leave the valid rows bit for bit."""
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
+    from vit_fpga_tpu_torch.utils.platform import true_f32
+    qkv = _seq_qkv(1, n, 768, seed, dtype=torch.float32, std=1.0)
+    name = f"K9 f32 {label} (1, {n}, 2304) n_valid={n_valid}"
+    before = fa.flash_attention.launches_f32
+    got = _k9(qkv, 12, n_valid, fa.flash_attention)
+    if fa.flash_attention.launches_f32 != before + 1:
+        raise AssertionError(f"{name}: no f32 launch counted")
+    with true_f32():
+        want = _k9(qkv, 12, n_valid, fa.flash_attention_plain)
+        ref = _flash_f64(qkv, 12, n_valid)
+    err = _f32_gate(name, got, want, ref)
+    if n_valid < n:
+        _unmoved(name, lambda t: _k9(t, 12, n_valid, fa.flash_attention),
+                 qkv, n_valid)
+    return err
+
+
+def phase_f32_kernels():
+    """K1, K2 / K3, K4 and K9 in f32 against their plain versions on the
+    card (TF32 off) at the f32 serves' shapes, each element within K26's
+    f32 sum band carried through the stages or, outside it, within that
+    band of the same arithmetic in f64: K1 at ViT-B/16 b64, b8 hot logits
+    (scores past 80), @640's 1601 tokens and ViT-S/16 b64, its emitted
+    stats; K3 at ViT-B/16 b64 (2 chunks, erf-GELU) and each activation in
+    4 chunks; K2 at ViT-S/16 b64 and each activation; K4 at b1 / b3 both
+    modes, b64 safe, hot logits both modes, ViT-L/16 and ViT-H/14 (head
+    dim 80) both modes; K9 at ViT-B/16 @1024 and @896 b1; loud padding
+    bit for bit; the f32 gates.  Returns {JSON row: max-abs error}."""
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    print("phase 28: the f32 kernels against their plain versions")
+    errs = dict.fromkeys(F32_ROWS, 0.0)
+
+    def put(row, err):
+        errs[row] = max(errs[row], err)
+
+    put("attn_block_stats_f32", _f32_k1_case("ViT-B/16 b64", 64, 200, 197,
+                                             768, 12, 600))
+    put("attn_block_stats_f32", _f32_k1_case("hot logits", 8, 200, 197, 768,
+                                             12, 601, hot=True))
+    put("attn_block_stats_f32", _f32_k1_case("@640", 2, 1608, 1601, 768, 12,
+                                             602))
+    put("attn_block_stats_f32", _f32_k1_case("ViT-S/16 b64", 64, 200, 197,
+                                             384, 6, 603))
+    x, st, p = _f32_attn_inputs(8, 200, 768, 604)
+    _f32_loud("K1 f32 (8, 200, 768)", lambda t: _attn_call(
+        ab.attn_block_stats, t, st, p, 12, 197, False)[0], x, 197)
+
+    put("fused_mlp_chunked_stats_f32", _f32_mlp_case(
+        "ViT-B/16 b64", 12800, 768, 3072, 610, "gelu", 2))
+    for act in MLP_ACTS_ALL:
+        put("fused_mlp_chunked_stats_f32", _f32_mlp_case(
+            "4 chunks", 1000, 256, 1024, 611, act, 4))
+        put("fused_mlp_stats_f32", _f32_mlp_case("", 1000, 256, 1024, 612,
+                                                 act, 1))
+    put("fused_mlp_stats_f32", _f32_mlp_case("ViT-S/16 b64", 12800, 384,
+                                             1536, 613, "gelu", 1))
+
+    for batch in (1, 3):
+        for safe in (False, True):
+            put("attn_block_fwd_f32", _f32_k4_case(
+                "ViT-B/16", batch, 200, 197, 768, 12, 620 + batch, safe))
+    put("attn_block_fwd_f32", _f32_k4_case("ViT-B/16 b64", 64, 200, 197,
+                                           768, 12, 624, True))
+    for safe in (False, True):
+        put("attn_block_fwd_f32", _f32_k4_case(
+            "hot logits", 4, 200, 197, 768, 12, 625, safe, hot=True))
+        put("attn_block_fwd_f32", _f32_k4_case(
+            "ViT-L/16", 2, 200, 197, 1024, 16, 626, safe))
+        put("attn_block_fwd_f32_dh80", _f32_k4_case(
+            "ViT-H/14", 2, 264, 257, 1280, 16, 627, safe))
+    put("attn_block_fwd_f32_dh80", _f32_k4_case(
+        "ViT-H/14 hot logits", 2, 264, 257, 1280, 16, 628, False, hot=True))
+    x, _, p = _f32_attn_inputs(4, 200, 768, 629)
+    for safe in (False, True):
+        _f32_loud(f"K4 f32 safe={safe} (4, 200, 768)",
+                  lambda t, s=safe: _k4(ab.attn_block_fwd, t, p, 12, 197, s),
+                  x, 197)
+
+    put("flash_attention_f32", _f32_k9_case("ViT-B/16 @1024", 4104, 4097,
+                                            630))
+    put("flash_attention_f32", _f32_k9_case("ViT-B/16 @896", 3144, 3137,
+                                            631))
+
+    # the f32 gates: the JAX plans at itemsize 4, and the f32 modes not
+    # ported yet, each raising with its kernel's name
+    xl, stl, pl = _f32_attn_inputs(1, 2312, 768, 632)
+    _expect_raise("K1 f32 at ViT-B/16 @768 (2312 rows)", lambda: _attn_call(
+        ab.attn_block_stats, xl, stl, pl, 12, 2305, False))
+    xl, _, pl = _f32_attn_inputs(1, 3144, 768, 633)
+    _expect_raise("K4 f32 at ViT-B/16 @896 (3144 rows)", lambda: _k4(
+        ab.attn_block_fwd, xl, pl, 12, 3137, False))
+    q80 = torch.zeros(1, 1, 256, 80, device="cuda")
+    _expect_raise("K9 f32 head dim 80", lambda: fa.flash_attention(
+        q80, q80, q80), match="K9")
+    x2, st2, pm = _mlp_inputs(64, 256, 1024, 634, torch.float32)
+    _expect_raise("K5 f32", lambda: _k5(fm.fused_mlp_fwd, x2, pm, "relu"),
+                  match="K5")
+    _expect_raise("K6 f32", lambda: _k6_call(fm.fused_mlp_chunked_fwd, x2,
+                                             pm, "relu", 2),
+                  match="K6")
+    _expect_raise("K24 f32", lambda: _k24(fm.fused_mlp_bwd, x2, x2, pm,
+                                          "relu"), match="K24")
+    xa, _, pa = _f32_attn_inputs(1, 200, 768, 635)
+    _expect_raise("K23 f32", lambda: _k23(ab.attn_block_bwd, xa, xa, pa, 12,
+                                          197), match="K23")
+    return errs
+
+
+def _f32_cpu_check(label, cfg, params, images, got, band=F32_LOGITS_BAND,
+                   make=None):
+    """The CPU forward of ``images`` (the port's f32 plain path) against
+    the card's logits ``got``: within ``band`` of the largest logit."""
+    from vit_fpga_tpu_torch.models import vit
+    make = make or vit.make_forward
+    t0 = time.perf_counter()
+    ref = make(cfg, _tree_to(params, "cpu"), device="cpu")(images)
+    ref = ref.float().numpy()
+    print(f"  {label}: the CPU forward of {len(images)} images in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _rel_to_max(f"{label} logits vs the CPU f32 forward", got, ref, band)
+    agree = int((got.argmax(1) == ref.argmax(1)).sum())
+    print(f"  {label}: top-1 agrees with the CPU on {agree}/{len(images)} "
+          f"(stated)")
+
+
+def _f32_counted(label, fwd, images, want, long=0):
+    """``fwd(images)`` with the counts set to 0 just before it: exactly
+    ``want``, every launch of K1, K2, K3, K4 and K9 in f32 (no bf16 kernel
+    launched), K1's / K4's past 256 keys ``long``.  Returns (logits on the
+    host, launches)."""
+    counters = _zero_counters()
+    f32_names = ("attn_block_stats", "fused_mlp_stats",
+                 "fused_mlp_chunked_stats", "attn_block_fwd",
+                 "flash_attention")
+    for k in f32_names:
+        counters[k].launches_f32 = 0
+    got = fwd(images).float().cpu().numpy()
+    torch.cuda.synchronize()
+    launches = _check_launches(label, counters, want)
+    for k in f32_names:
+        if counters[k].launches_f32 != launches[k]:
+            raise AssertionError(f"{label}: {k} launched {launches[k]} "
+                                 f"times, {counters[k].launches_f32} in f32")
+    got_long = (counters["attn_block_stats"].launches_long
+                + counters["attn_block_fwd"].launches_long)
+    print(f"  {label} launches (all f32): "
+          f"{ {k: v for k, v in launches.items() if v} }, past 256 keys "
+          f"{got_long}")
+    if got_long != long:
+        raise AssertionError(f"{label}: {got_long} launches past 256 keys, "
+                             f"want {long}")
+    if not np.isfinite(got).all() or got.shape[0] != len(images):
+        raise AssertionError(f"{label}: logits not finite")
+    return got, launches
+
+
+def phase_f32_serve(n_requests=160, batch=64, n_check=4):
+    """The f32 serves through the normal entry points, each with exact
+    launch counts and no bf16 kernel launch: ImageServer over
+    make_forward(vit_b16, float32) answers ``n_requests`` uint8 requests
+    (2 full batches of 64 and a partial flush), 12 K1 + 12 K3 in f32 a
+    batch, logits of ``n_check`` images against the CPU f32 forward at
+    full depth; ViT-B/16 b1 (12 K4 f32, the plain MLP) at full depth;
+    ViT-B/16 @1024 b1 and the per-tensor int8 forward @1024 b1 at depth 2
+    (2 K9 f32; + 10 K13); ViT-H/14 at depth 2 b2 (2 K4 f32 at head dim 80,
+    past 256 keys); ViT-S/16 b64 at depth 2 (2 K1 + 2 K2 f32).  Returns
+    ({JSON row: launches}, the b64 forward and its images)."""
+    from vit_fpga_tpu_torch.models import quantized, vit
+    from vit_fpga_tpu_torch.runtime.serving import ImageServer
+    rows = dict.fromkeys(F32_ROWS, 0)
+    rng = np.random.default_rng(640)
+    cfg = vit.config("vit_b16", dtype="float32")
+    images = rng.integers(0, 256, (n_requests, 224, 224, 3), np.uint8)
+    params = vit.init_params(cfg, _gen(640), device="cuda")
+    fwd = vit.make_forward(cfg, params)
+    fwd(images[:batch])
+    torch.cuda.synchronize()
+    want = {"attn_block_stats": 12, "fused_mlp_chunked_stats": 12}
+    got, _ = _f32_counted(f"ViT-B/16 f32 b{batch}", fwd, images[:batch],
+                          want)
+    idx = np.linspace(0, batch - 1, n_check).astype(int)
+    _f32_cpu_check(f"ViT-B/16 f32 b{batch} (depth 12)", cfg, params,
+                   images[idx], got[idx])
+    counters = _zero_counters()
+    for k in ("attn_block_stats", "fused_mlp_chunked_stats"):
+        counters[k].launches_f32 = 0
+    t0 = time.perf_counter()
+    with ImageServer(fwd, image_size=224, batch_size=batch) as server:
+        results = [f.result(timeout=600) for f in
+                   [server.submit_raw(img) for img in images]]
+    wall = time.perf_counter() - t0
+    launches = _check_launches("ViT-B/16 f32 serve", counters,
+                               {k: 12 * server.batches for k in want})
+    print(f"ViT-B/16 f32 serve: {len(results)}/{n_requests} answered in "
+          f"{server.batches} batches, {wall:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if (len(results) != n_requests or server.served != n_requests
+            or any(counters[k].launches_f32 != launches[k] for k in want)):
+        raise AssertionError("ViT-B/16 f32 serve: requests unanswered or a "
+                             "bf16 launch")
+    for r in results:
+        if r.shape != (1000,) or not np.isfinite(r).all():
+            raise AssertionError(f"ViT-B/16 f32 serve: bad row {r.shape}")
+    np.testing.assert_allclose(np.stack(results[:batch]), got, rtol=0,
+                               atol=F32_LOGITS_BAND * np.abs(got).max())
+    rows["attn_block_stats_f32"] += launches["attn_block_stats"]
+    rows["fused_mlp_chunked_stats_f32"] += launches["fused_mlp_chunked_stats"]
+
+    got1, l1 = _f32_counted("ViT-B/16 f32 b1", fwd, images[:1],
+                            {"attn_block_fwd": 12})
+    _f32_cpu_check("ViT-B/16 f32 b1 (depth 12)", cfg, params, images[:1],
+                   got1)
+    rows["attn_block_fwd_f32"] += l1["attn_block_fwd"]
+    del fwd, params
+
+    c1024 = vit.config("vit_b16", image_size=1024, dtype="float32", depth=2)
+    p1024 = vit.init_params(c1024, _gen(641), device="cuda")
+    img1024 = rng.integers(0, 256, (1, 1024, 1024, 3), np.uint8)
+    f1024 = vit.make_forward(c1024, p1024)
+    f1024(img1024)
+    got, l9 = _f32_counted("ViT-B/16 @1024 f32 b1 depth 2", f1024, img1024,
+                           {"flash_attention": 2})
+    _f32_cpu_check("ViT-B/16 @1024 f32 b1 (depth 2)", c1024, p1024, img1024,
+                   got)
+    rows["flash_attention_f32"] += l9["flash_attention"]
+    qt = quantized.quantize_vit(p1024)
+    fq = quantized.make_vit_forward_int8(c1024, qt)
+    fq(img1024)
+    got, l9 = _f32_counted("per-tensor int8 @1024 b1 depth 2", fq, img1024,
+                           {"flash_attention": 2, "int8_gemm": 10})
+    _f32_cpu_check("per-tensor int8 @1024 b1 (depth 2)", c1024, qt, img1024,
+                   got, PER_TENSOR_BAND, quantized.make_vit_forward_int8)
+    rows["flash_attention_f32"] += l9["flash_attention"]
+    del f1024, fq, p1024, qt
+
+    ch = vit.config("vit_h14", dtype="float32", depth=2)
+    ph = vit.init_params(ch, _gen(642), device="cuda")
+    imgh = rng.integers(0, 256, (2, 224, 224, 3), np.uint8)
+    fh = vit.make_forward(ch, ph)
+    fh(imgh)
+    got, lh = _f32_counted("ViT-H/14 f32 b2 depth 2", fh, imgh,
+                           {"attn_block_fwd": 2}, long=2)
+    _f32_cpu_check("ViT-H/14 f32 b2 (depth 2)", ch, ph, imgh, got)
+    rows["attn_block_fwd_f32_dh80"] += lh["attn_block_fwd"]
+    del fh, ph
+
+    cs = vit.config("vit_s16", dtype="float32", depth=2)
+    ps = vit.init_params(cs, _gen(643), device="cuda")
+    fs = vit.make_forward(cs, ps)
+    fs(images[:batch])
+    got, ls_ = _f32_counted(f"ViT-S/16 f32 b{batch} depth 2", fs,
+                            images[:batch],
+                            {"attn_block_stats": 2, "fused_mlp_stats": 2})
+    _f32_cpu_check(f"ViT-S/16 f32 b{batch} (depth 2)", cs, ps, images[idx],
+                   got[idx])
+    rows["attn_block_stats_f32"] += ls_["attn_block_stats"]
+    rows["fused_mlp_stats_f32"] += ls_["fused_mlp_stats"]
+    return rows, images[:batch]
+
+
+def _f32_mlp_library(x, p):
+    """LN + addmm + erf-GELU + addmm + residual in f32."""
+    import torch.nn.functional as F
+    d = x.shape[1]
+
+    def library():
+        xn = F.layer_norm(x, (d,), p["ln_scale"], p["ln_bias"], EPS)
+        h = F.gelu(torch.addmm(p["b1"], xn, p["w1"]))
+        return torch.addmm(p["b2"], h, p["w2"]) + x
+
+    return library
+
+
+def _f32_timed(row, label, kern, bf16_kern, plain, library, flops, nbytes):
+    """One f32 kernel's time: CUDA events per call, device alone in turns
+    with the bf16 kernel at the same shape (f32, bf16, bf16, f32), the
+    plain version, the library yardstick device alone, the bound at 67
+    TFLOP/s."""
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    ms = time_cuda(kern, iters=10)
+    alone = {"f32": [], "bf16": []}
+    for which in ("f32", "bf16", "bf16", "f32"):
+        alone[which].append(_device_alone_ms(
+            kern if which == "f32" else bf16_kern, iters=10))
+    plain_ms = time_cuda(plain, iters=2, warmup=1)
+    lib_ms = _library_ms(library, label)
+    lib_alone = (None if lib_ms is None
+                 else _device_alone_ms(library, iters=10))
+    bound_ms, bound_by = _bound_f32(flops, nbytes)
+    print(f"timing {row} {label}: kernel {ms:.4f} ms a call "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), device alone f32 "
+          + " / ".join(f"{t:.4f}" for t in alone["f32"]) + ", bf16 "
+          + " / ".join(f"{t:.4f}" for t in alone["bf16"])
+          + f"; plain {plain_ms:.4f} ms, library {lib_ms} ms a call "
+          f"({lib_alone} device alone), bound {bound_ms:.4f} ms "
+          f"({bound_by}) [{_smi_line()}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=min(alone["f32"]), bf16_device_ms=min(alone["bf16"]),
+                library_device_ms=lib_alone)
+
+
+def _attn_work(batch, n_pad, n_valid, d, heads, item):
+    rows, dh = batch * n_pad, d // heads
+    flops = 2 * rows * d * 4 * d + 4 * batch * heads * n_pad * n_valid * dh
+    nbytes = (2 * rows * d * item + 2 * rows * 2 * 4 + 4 * d * d * item
+              + 6 * d * 4)
+    return flops, nbytes
+
+
+def phase_f32_timing():
+    """Each f32 kernel at its serving shape beside the bf16 kernel at the
+    same shape (device alone, in turns), its plain version, its library
+    yardstick in f32 with TF32 off, and the bound at 67 TFLOP/s: K1 at
+    ViT-B/16 b64, K3 at (12 800, 768) x 3072 in 2 chunks, K2 at ViT-S/16
+    b64's (12 800, 384) x 1536, K4 at ViT-B/16 b64 (max-free) and at
+    ViT-H/14 b64 (head dim 80), K9 at ViT-B/16 @1024 b1.  Returns {JSON
+    row: timing}."""
+    import torch.nn.functional as F
+
+    from vit_fpga_tpu_torch.ops import attention as at
+    from vit_fpga_tpu_torch.ops import attn_block as ab
+    from vit_fpga_tpu_torch.ops import flash_attention as fa
+    from vit_fpga_tpu_torch.ops import fused_mlp as fm
+    from vit_fpga_tpu_torch.utils.platform import true_f32
+    out = {}
+    with true_f32():
+        x, st, p = _f32_attn_inputs(64, 200, 768, 650)
+        xb, pb = x.bfloat16(), _bf16_weights(p, ("wqkv", "wo"))
+        out["attn_block_stats_f32"] = _f32_timed(
+            "attn_block_stats_f32", "(64, 200, 768)",
+            lambda: _attn_call(ab.attn_block_stats, x, st, p, 12, 197, True),
+            lambda: _attn_call(ab.attn_block_stats, xb, st, pb, 12, 197,
+                               True),
+            lambda: _attn_call(ab.attn_block_stats_plain, x, st, p, 12, 197,
+                               True),
+            _attn_library(x, p, 12, 197),
+            *_attn_work(64, 200, 197, 768, 12, 4))
+        out["attn_block_fwd_f32"] = _f32_timed(
+            "attn_block_fwd_f32", "(64, 200, 768) max-free",
+            lambda: _k4(ab.attn_block_fwd, x, p, 12, 197, False),
+            lambda: _k4(ab.attn_block_fwd, xb, pb, 12, 197, False),
+            lambda: _k4(ab.attn_block_fwd_plain, x, p, 12, 197, False),
+            _attn_library(x, p, 12, 197),
+            *_attn_work(64, 200, 197, 768, 12, 4))
+        del x, xb
+        x, _, p = _f32_attn_inputs(64, 264, 1280, 651)
+        xb, pb = x.bfloat16(), _bf16_weights(p, ("wqkv", "wo"))
+        out["attn_block_fwd_f32_dh80"] = _f32_timed(
+            "attn_block_fwd_f32_dh80", "ViT-H/14 (64, 264, 1280) max-free",
+            lambda: _k4(ab.attn_block_fwd, x, p, 16, 257, False),
+            lambda: _k4(ab.attn_block_fwd, xb, pb, 16, 257, False),
+            lambda: _k4(ab.attn_block_fwd_plain, x, p, 16, 257, False),
+            _attn_library(x, p, 16, 257),
+            *_attn_work(64, 264, 257, 1280, 16, 4))
+        del x, xb
+        for row, d, m, n_chunks, seed in (
+                ("fused_mlp_chunked_stats_f32", 768, 3072, 2, 652),
+                ("fused_mlp_stats_f32", 384, 1536, 1, 653)):
+            x, st, p = _mlp_inputs(12800, d, m, seed, torch.float32)
+            xb, pb = x.bfloat16(), _bf16_weights(p, ("w1", "w2"))
+            fn = (fm.fused_mlp_chunked_stats if n_chunks > 1
+                  else fm.fused_mlp_stats)
+            plain = (fm.fused_mlp_chunked_stats_plain if n_chunks > 1
+                     else fm.fused_mlp_stats_plain)
+            kw = dict(n_chunks=n_chunks) if n_chunks > 1 else {}
+
+            def call(f, xx, pp, kw=kw):
+                return f(xx, st, pp["ln_scale"], pp["ln_bias"], pp["w1"],
+                         pp["b1"], pp["w2"], pp["b2"], eps=EPS, act="gelu",
+                         **kw)
+
+            out[row] = _f32_timed(
+                row, f"(12800, {d}) x {m}",
+                lambda f=fn: call(f, x, p), lambda f=fn: call(f, xb, pb),
+                lambda f=plain: call(f, x, p), _f32_mlp_library(x, p),
+                4 * 12800 * d * m,
+                2 * 12800 * d * 4 + 12800 * 4 * 4 + 2 * d * m * 4)
+            del x, xb
+        qkv = _seq_qkv(1, 4104, 768, 654, dtype=torch.float32)
+        qb = qkv.bfloat16()
+        q, k, v = at._heads(qkv, 12)
+        keep = (torch.arange(4104, device="cuda") < 4097)[None, None, None]
+        out["flash_attention_f32"] = _f32_timed(
+            "flash_attention_f32", "ViT-B/16 @1024 (1, 4104, 2304)",
+            lambda: _k9(qkv, 12, 4097, fa.flash_attention),
+            lambda: _k9(qb, 12, 4097, fa.flash_attention),
+            lambda: _k9(qkv, 12, 4097, fa.flash_attention_plain),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+            4 * 12 * 4104 * 4097 * 64, 4 * 4104 * 768 * 4)
+    return out
+
+
+def phase_f32_forward_time(fwd32, images, iters=5):
+    """The ViT-B/16 b64 forward in f32 and in bf16 (same weights cast by
+    make_forward), in turns: ms per batch and img/s."""
+    from vit_fpga_tpu_torch.models import vit
+    from vit_fpga_tpu_torch.utils.timing import time_cuda
+    cfg = vit.config("vit_b16", dtype="bfloat16")
+    fwd16 = vit.make_forward(cfg, vit.init_params(cfg, _gen(640),
+                                                  device="cuda"))
+    img = torch.from_numpy(images).cuda()
+    runs = {"f32": fwd32, "bf16": fwd16}
+    times = {k: [] for k in runs}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        times[name].append(time_cuda(lambda: runs[name](img), iters=iters,
+                                     warmup=1))
+    smi = _smi_line()
+    for name, ms in times.items():
+        print(f"forward ViT-B/16 @224 b{len(images)} {name}: "
+              + " / ".join(f"{t:.3f}" for t in ms) + " ms per batch, "
+              + " / ".join(f"{len(images) / t * 1e3:.1f}" for t in ms)
+              + f" img/s [{smi}]")
+    return times
+
+
+def run_f32_phases(errors, timing, launches):
+    """Phase 28 after the earlier slices' phases: the f32 kernels against
+    their plain versions, the f32 serves with exact launch counts, the
+    times, the b64 forward in f32 and bf16; the JSON rows F32_ROWS."""
+    from vit_fpga_tpu_torch.models import vit
+    errs = phase_f32_kernels()
+    rows, images = phase_f32_serve()
+    launches.update(rows)
+    for name, t in phase_f32_timing().items():
+        timing[name] = dict(t, max_abs_err=errs[name])
+    errors.update(errs)
+    cfg = vit.config("vit_b16", dtype="float32")
+    fwd = vit.make_forward(cfg, vit.init_params(cfg, _gen(640),
+                                                device="cuda"))
+    phase_f32_forward_time(fwd, images)
+    print(_smi_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -8324,6 +9137,7 @@ def main() -> int:
     run_k14_k10_phases(errors, timing, launches)
     run_past_1024_phases(errors, timing, launches)
     run_vit_h14_phases(errors, timing, launches)
+    run_f32_phases(errors, timing, launches)
     run_lifecycle_phases()
 
     sources = {
@@ -8425,6 +9239,7 @@ def main() -> int:
             "vit_fpga_tpu_torch/csrc/attn_int8_static.cu",
             "vit_fpga_tpu/ops/quant_block.py:729"),
     }
+    sources.update(F32_ROWS)
     kernels = []
     for name, (src, replaces) in sources.items():
         t = timing[name]

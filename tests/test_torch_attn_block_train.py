@@ -302,9 +302,15 @@ def test_cuda_shape_checks_refuse_what_the_kernels_do_not_take(
     K4's gate is the JAX attn_block_pallas plan's (the n_valid-past-256
     case passes there, and so does 1032 tokens) and stops where the plan
     has no score slot (ViT-B/16 @1024's 4104 rows); K23 takes any
-    length."""
+    length.  f32 activations: K4 takes them (its true-f32 mode), K23
+    refuses them, naming itself (f32 training is not ported)."""
     x = torch.empty(shape, dtype=dtype, device="meta")
-    if n_valid > 256:
+    if dtype == torch.float32:
+        assert tab._cuda_geometry(x, heads, n_valid, kernel="K4") == (
+            *shape, n_valid)
+        with pytest.raises(ValueError, match="K23"):
+            tab._cuda_geometry(x, heads, n_valid, kernel="K23")
+    elif n_valid > 256:
         for kernel in ("K4", "K23"):
             assert tab._cuda_geometry(x, heads, n_valid, kernel=kernel) == (
                 *shape, n_valid)

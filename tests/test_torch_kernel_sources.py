@@ -175,12 +175,16 @@ def test_k13_runs_on_the_int8_wgmma_gemm():
 
 
 def test_k9_launches_the_online_mode_of_the_wgmma_attention():
-    """K9 is mha_wgmma.cuh's kernel in its online mode, not an mma.sync
-    kernel of seq_attn.cuh."""
+    """K9 in bf16 is mha_wgmma.cuh's kernel in its online mode, not an
+    mma.sync kernel of seq_attn.cuh; seq_attn.cuh's f32 kernel is K9's f32
+    entry alone (vft_flash_attention_f32)."""
     k9 = (_kernels.CSRC / "flash_attn.cu").read_text()
     assert '#include "mha_wgmma.cuh"' in k9
-    assert '#include "seq_attn.cuh"' not in k9
-    assert "launch_mha_wgmma<MW_ONLINE>(" in k9
+    bf16 = _body(k9, "vft_flash_attention")
+    assert "seq_attn" not in bf16
+    assert "launch_mha_wgmma<MW_ONLINE>(" in bf16
+    assert "launch_seq_attn_f32<64, SF_ONLINE>(" in _body(
+        k9, "vft_flash_attention_f32")
     assert "mha_wgmma_enable<MW_ONLINE>()" in k9
     assert "MW_ONLINE" in (_kernels.CSRC / "mha_wgmma.cuh").read_text()
 
@@ -844,3 +848,106 @@ def test_the_attention_core_takes_head_dim_80_where_vit_h14_runs():
                 "attn_int8_stats.cu"):
         text = (_kernels.CSRC / src).read_text()
         assert not re.search(r"[<,]\s*80\s*>", text), src
+
+
+def _strip_comments(text):
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def _body(text, entry):
+    """The brace-matched body of the C function ``int entry(...)``."""
+    start = text.index("{", text.index(f"int {entry}("))
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+    raise AssertionError(f"{entry}: unbalanced braces")
+
+
+F32_ENTRIES = (("attn_stats.cu", "vft_attn_block_stats_f32"),
+               ("mlp_chunk_stats.cu", "vft_fused_mlp_stats_f32"),
+               ("attn_block.cu", "vft_attn_block_fwd_f32"),
+               ("flash_attn.cu", "vft_flash_attention_f32"))
+F32_HEADERS = ("gemm_f32.cuh", "seq_attn.cuh", "attn_half_f32.cuh")
+# a TF32 path, any tensor-core product (mma.sync, wmma, wgmma) or a bf16
+# staging type
+NOT_TRUE_F32 = re.compile(r"tf32|mma|bf16|bfloat16|half2|__half\b|fp16",
+                          re.I)
+
+
+@pytest.mark.parametrize("source,entry", F32_ENTRIES)
+def test_f32_entry_points_run_true_f32_on_the_cuda_cores(source, entry):
+    """The f32 modes of K1, K2 / K3, K4 and K9 launch only the f32 pieces
+    (gemm_f32.cuh's GEMM, seq_attn.cuh's attention, attn_half_f32.cuh's
+    sequence, the f32 row stats), and neither their bodies nor those
+    headers (comments aside) name a TF32 path, a tensor-core product or a
+    bf16 staging type, so no quiet TF32 or bf16 route can creep in."""
+    body = _strip_comments(_body((_kernels.CSRC / source).read_text(),
+                                 entry))
+    assert not NOT_TRUE_F32.search(body), NOT_TRUE_F32.search(body)
+    launched = set(re.findall(r"\b(launch_\w+)\s*[<(]", body))
+    assert launched, entry
+    assert launched <= {"launch_gemm_f32", "launch_seq_attn_f32",
+                        "launch_attn_half_f32", "launch_row_stats_f32"}, \
+        launched
+    assert "const float*" in body or "SeqAttnArgs" in body
+    for name in F32_HEADERS:
+        code = _strip_comments((_kernels.CSRC / name).read_text())
+        assert not NOT_TRUE_F32.search(code), (name,
+                                               NOT_TRUE_F32.search(code))
+        assert "#include" not in code, name
+        assert "fmaf(" in code or name == "attn_half_f32.cuh", name
+
+
+@pytest.mark.parametrize("source,entry", F32_ENTRIES)
+def test_f32_entry_points_match_their_ctypes_signatures(source, entry):
+    """The ctypes argument lists of the f32 entry points follow the C
+    definitions: pointers, ints, long longs and floats in order."""
+    src = (_kernels.CSRC / source).read_text()
+    params = src[src.index(f"int {entry}("):]
+    params = params[params.index("(") + 1:params.index(")")]
+    kinds = []
+    for p in params.split(","):
+        p = p.strip()
+        kinds.append("P" if "*" in p else "F" if p.startswith("float")
+                     else "L" if p.startswith("long long") else "I")
+    argtypes, _ = _kernels._SIGNATURES[entry]
+    names = {_kernels._P: "P", _kernels._I: "I", _kernels._F: "F",
+             _kernels._L: "L"}
+    got = ["P" if a not in names else names[a] for a in argtypes]
+    assert got == kinds
+
+
+@pytest.mark.parametrize("name,stage", [
+    ("void attn_half::gemm_f32_kernel<1, 1, 8>(attn_half::FgArgs)",
+     "K1 f32 (a)"),
+    ("void attn_half::seq_attn_f32_kernel<64, 1>(attn_half::SeqAttnArgs)",
+     "K1 f32 (b)"),
+    ("void attn_half::gemm_f32_kernel<0, 3, 8>(attn_half::FgArgs)",
+     "K1 f32 (c)"),
+    ("void attn_half::row_stats_f32_kernel(float const*, float*, int, int, "
+     "float)", "K1 f32 (d)"),
+    ("void mlp_chunk::gemm_f32_kernel<1, 2, 8>(mlp_chunk::FgArgs)",
+     "K2 / K3 f32 (a)"),
+    ("void mlp_chunk::gemm_f32_kernel<0, 3, 8>(mlp_chunk::FgArgs)",
+     "K2 / K3 f32 (b)"),
+    ("void attn_block::row_stats_f32_kernel(float const*)", "K4 f32 (a)"),
+    ("void attn_block::gemm_f32_kernel<1, 1, 4>(attn_block::FgArgs)",
+     "K4 f32 (b)"),
+    ("void attn_block::seq_attn_f32_kernel<80, 0>(attn_block::SeqAttnArgs)",
+     "K4 f32 (c) attention, safe"),
+    ("void attn_block::seq_attn_f32_kernel<64, 1>(attn_block::SeqAttnArgs)",
+     "K4 f32 (c) attention, max-free"),
+    ("void attn_block::gemm_f32_kernel<0, 3, 4>(attn_block::FgArgs)",
+     "K4 f32 (d)"),
+    ("void flash_attn::seq_attn_f32_kernel<64, 0>(flash_attn::SeqAttnArgs)",
+     "K9 flash attention, f32"),
+    ("void mha::seq_attn_f32_kernel<64, 0>(mha::SeqAttnArgs)",
+     "K7 / K8 attention, f32")])
+def test_profile_names_the_f32_launches(name, stage):
+    """profile_forward's table gives each f32 launch of K1, K2 / K3, K4
+    and K9 its step; none falls into the torch ops."""
+    from vit_fpga_tpu_torch import profile_forward as pf
+    assert pf._stage(name).startswith(stage)

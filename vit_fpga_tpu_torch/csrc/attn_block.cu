@@ -30,6 +30,12 @@
 // output round-trip through device memory.  The safe mode computes q k^T
 // twice (the row max, then e against it, both from the same bits): 2 B H
 // n_pad n_valid dh more flops, 3 GFLOP (4%) at ViT-B/16 b64.
+//
+// In f32 (vft_attn_block_fwd_f32) the same steps run in true f32 fma on
+// the CUDA cores: (a) row_stats_f32, (b)-(d) attn_half_f32.cuh's sequence
+// (gemm_f32.cuh's GEMMs, seq_attn.cuh's SF_HALF_MAXFREE or SF_ONLINE
+// attention, head dim 64 or 80).  Bound there: 68 GFLOP at 67 TFLOP/s
+// (1.02 ms) at ViT-B/16 b64; 244 GFLOP (3.6 ms) at ViT-H/14 b64.
 
 #define VFT_NS attn_block
 #include "common.cuh"
@@ -37,6 +43,9 @@
 #include "gemm_wgmma.cuh"
 #include "mha_wgmma.cuh"
 #include "attn_half.cuh"
+#include "gemm_f32.cuh"
+#include "seq_attn.cuh"
+#include "attn_half_f32.cuh"
 
 using namespace VFT_NS;
 
@@ -50,7 +59,11 @@ int vft_attn_block_init() {
   if (err != cudaSuccess) return err;
   if ((err = mha_wgmma_enable<MW_SAFE>()) != cudaSuccess) return err;
   if ((err = mha_wgmma_enable<MW_MAXFREE, false, 80>()) != cudaSuccess) return err;
-  return mha_wgmma_enable<MW_SAFE, false, 80>();
+  if ((err = mha_wgmma_enable<MW_SAFE, false, 80>()) != cudaSuccess) return err;
+  if ((err = seq_attn_f32_enable<64, SF_HALF_MAXFREE>()) != cudaSuccess) return err;
+  if ((err = seq_attn_f32_enable<64, SF_ONLINE>()) != cudaSuccess) return err;
+  if ((err = seq_attn_f32_enable<80, SF_HALF_MAXFREE>()) != cudaSuccess) return err;
+  return seq_attn_f32_enable<80, SF_ONLINE>();
 }
 
 // x, out: (B * n_pad, D) bf16; ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16;
@@ -83,6 +96,35 @@ int vft_attn_block_fwd(const void* x, const void* ls, const void* lb, const void
                   static_cast<const bf16*>(wo), static_cast<const float*>(bo),
                   static_cast<bf16*>(out), static_cast<bf16*>(qkv), static_cast<bf16*>(ao), batch,
                   n_pad, d, heads, n_valid, scale, st, long_path)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+// The f32 mode: the same arguments, every tensor f32 (x, out, wqkv, wo, the
+// stats / qkv / ao scratch), D a multiple of 4: row_stats_f32 over x, then
+// attn_half_f32.cuh's sequence, true f32 fma on the CUDA cores.
+int vft_attn_block_fwd_f32(const void* x, const void* ls, const void* lb, const void* wqkv,
+                           const void* bqkv, const void* wo, const void* bo, void* out,
+                           void* stats, void* qkv, void* ao, int batch, int n_pad, int d,
+                           int heads, int n_valid, int safe, float eps, float scale, void* stream,
+                           int* long_path) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (heads < 1 || d % heads || (d / heads != 64 && d / heads != 80) || batch < 1 ||
+      n_valid < 1 || n_valid > n_pad)
+    return cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  float* stf = static_cast<float*>(stats);
+  cudaError_t err;
+  if ((err = launch_row_stats_f32(xf, stf, batch * n_pad, d, eps, st)) != cudaSuccess) return err;
+  const auto half =
+      d / heads == 80
+          ? (safe ? launch_attn_half_f32<80, SF_ONLINE> : launch_attn_half_f32<80, SF_HALF_MAXFREE>)
+          : (safe ? launch_attn_half_f32<64, SF_ONLINE> : launch_attn_half_f32<64, SF_HALF_MAXFREE>);
+  if ((err = half(xf, stf, static_cast<const float*>(ls), static_cast<const float*>(lb),
+                  static_cast<const float*>(wqkv), static_cast<const float*>(bqkv),
+                  static_cast<const float*>(wo), static_cast<const float*>(bo),
+                  static_cast<float*>(out), static_cast<float*>(qkv), static_cast<float*>(ao),
+                  batch, n_pad, d, heads, n_valid, scale, st, long_path)) != cudaSuccess)
     return err;
   return cudaGetLastError();
 }

@@ -16,6 +16,12 @@
 //   (c) gw_kernel          out = x + bf16(ao @ Wo + bo)
 //   (d) row_stats          next (mu, rstd) of out, only when asked for
 //
+// In f32 (vft_attn_block_stats_f32) the same four steps run as
+// attn_half_f32.cuh's sequence, true f32 fma on the CUDA cores: the LN +
+// QKV GEMM and the out-projection on gemm_f32.cuh, the max-free attention
+// seq_attn.cuh's SF_HALF_MAXFREE mode, the stats row_stats_f32 over out.
+// Bound there: 68 GFLOP at 67 TFLOP/s (1.02 ms) at ViT-B/16 b64.
+//
 // (a)-(c) are attn_half.cuh's sequence, shared with K4 (attn_block.cu):
 // (a) and (c) gemm_wgmma.cuh's GEMM, (b) mha_wgmma.cuh's kernel (K7 / K8's
 // ring, one pass instead of two); both are wgmma + TMA with a producer
@@ -43,6 +49,9 @@
 #include "gemm_wgmma.cuh"
 #include "mha_wgmma.cuh"
 #include "attn_half.cuh"
+#include "gemm_f32.cuh"
+#include "seq_attn.cuh"
+#include "attn_half_f32.cuh"
 
 using namespace VFT_NS;
 
@@ -53,7 +62,11 @@ const char* vft_error_string(int err) { return cudaGetErrorString(static_cast<cu
 // Finds the driver's tensor-map encoder and opts this unit's kernels in to
 // the shared memory they use, on the current device.  Called once per
 // device before the first launch.  Returns a cudaError_t.
-int vft_attn_init() { return attn_half_enable<MW_MAXFREE>(); }
+int vft_attn_init() {
+  cudaError_t err = attn_half_enable<MW_MAXFREE>();
+  if (err != cudaSuccess) return err;
+  return seq_attn_f32_enable<64, SF_HALF_MAXFREE>();
+}
 
 // x, out: (B * n_pad, D) bf16; stats, stats_out: (B * n_pad, 2) f32;
 // ls, lb, bo: (D,) f32; wqkv: (D, 3D) bf16; bqkv: (3D,) f32; wo: (D, D) bf16;
@@ -81,6 +94,31 @@ int vft_attn_block_stats(const void* x, const void* stats, const void* ls, const
   if (stats_out != nullptr &&
       (err = launch_row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats_out),
                               batch * n_pad, d, eps, st)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+// The f32 mode (attn_half_f32.cuh): the same arguments, every tensor f32
+// (x, out, wqkv, wo and the qkv / ao scratch included), D a multiple of 4;
+// true f32 fma on the CUDA cores.  stats_out, when asked for, holds the
+// one-pass stats of out's own f32 values.
+int vft_attn_block_stats_f32(const void* x, const void* stats, const void* ls, const void* lb,
+                             const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                             void* out, void* stats_out, void* qkv, void* ao, int batch,
+                             int n_pad, int d, int heads, int n_valid, float eps, float scale,
+                             void* stream, int* long_path) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_attn_half_f32<64, SF_HALF_MAXFREE>(
+      static_cast<const float*>(x), static_cast<const float*>(stats),
+      static_cast<const float*>(ls), static_cast<const float*>(lb),
+      static_cast<const float*>(wqkv), static_cast<const float*>(bqkv),
+      static_cast<const float*>(wo), static_cast<const float*>(bo), static_cast<float*>(out),
+      static_cast<float*>(qkv), static_cast<float*>(ao), batch, n_pad, d, heads, n_valid, scale,
+      st, long_path);
+  if (err != cudaSuccess) return err;
+  if (stats_out != nullptr &&
+      (err = launch_row_stats_f32(static_cast<const float*>(out), static_cast<float*>(stats_out),
+                                  batch * n_pad, d, eps, st)) != cudaSuccess)
     return err;
   return cudaGetLastError();
 }

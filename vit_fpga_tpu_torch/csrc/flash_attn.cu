@@ -23,11 +23,17 @@
 // exponential per score, the softmax of one tile running beside the
 // previous tile's p v; at bk 512 each block's q k^T runs twice (its max
 // first), as the function's block max needs.
+//
+// In f32 (vft_flash_attention_f32, ViT-B/16 @896 and @1024 f32 and the
+// per-tensor int8 forward at 1024 px): seq_attn.cuh's SF_ONLINE mode, true
+// f32 fma on the CUDA cores, one pass over 64-key tiles with a running max
+// and sum.  Bound there: 51.6 GFLOP at 67 TFLOP/s, 0.77 ms at @1024 b1.
 
 #define VFT_NS flash_attn
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mha_wgmma.cuh"
+#include "seq_attn.cuh"
 
 using namespace VFT_NS;
 
@@ -39,7 +45,8 @@ extern "C" {
 int vft_flash_init() {
   cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
-  return mha_wgmma_enable<MW_ONLINE>();
+  if ((err = mha_wgmma_enable<MW_ONLINE>()) != cudaSuccess) return err;
+  return seq_attn_f32_enable<64, SF_ONLINE>();
 }
 
 // q, k, v: bf16, element (b, h, r, c) at b * in_b + h * in_h + r * in_r + c
@@ -61,6 +68,19 @@ int vft_flash_attention(const void* q, const void* k, const void* v, void* o, lo
   const MhaTmaArgs p{o, out_b, out_h, out_r, heads, n, n_valid, scale * 1.4426950408889634f,
                      scale, bk};
   return launch_mha_wgmma<MW_ONLINE>(m, p, batch, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The f32 mode: q, k, v and o f32 with the same strides (multiples of 4
+// elements, base addresses 16-byte aligned); seq_attn.cuh's SF_ONLINE mode,
+// true f32 fma on the CUDA cores.  In f32 the key blocks change only the
+// order of the rounding (p is not rounded), so the kernel takes no bk: its
+// own 64-key tiles carry the running max.  Returns a cudaError_t.
+int vft_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                            long long in_b, long long in_h, int in_r, long long out_b,
+                            long long out_h, int out_r, int batch, int heads, int n, int n_valid,
+                            float scale, void* stream) {
+  const SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, scale};
+  return launch_seq_attn_f32<64, SF_ONLINE>(p, batch, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -70,7 +70,7 @@ int vft_mha_init() {
   cudaError_t err = tma_init();
   if (err != cudaSuccess) return err;
   if ((err = mha_wgmma_enable<MW_EXACT>()) != cudaSuccess) return err;
-  return seq_attn_f32_enable();
+  return seq_attn_f32_enable<64, SF_ONLINE>();
 }
 
 // q, k, v: bf16 (f32 when is_f32), element (b, h, r, c) at b * in_b +
@@ -84,7 +84,7 @@ int vft_mha(const void* q, const void* k, const void* v, void* o, long long in_b
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_f32) {
     SeqAttnArgs p{q, k, v, o, in_b, in_h, in_r, out_b, out_h, out_r, heads, n, n_valid, scale};
-    return launch_seq_attn_f32(p, batch, st);
+    return launch_seq_attn_f32<64, SF_ONLINE>(p, batch, st);
   }
   if (tma_encoder() == nullptr) return cudaErrorInitializationError;
   if (n < 1 || n_valid < 1 || n_valid > n || batch < 1 || heads < 1) return cudaErrorInvalidValue;

@@ -55,11 +55,28 @@
 // what stands between K3 and its bound.
 //
 // Every pointer must be 16-byte aligned (TMA), stats 8-byte.
+//
+// The f32 mode, vft_fused_mlp_stats_f32, is K2's and K3's f32 launch alike
+// (K2's wrapper calls it with one chunk): true f32 fma on the CUDA cores,
+// gemm_f32.cuh's GEMM for both products and row_stats_f32 for the stats.
+//   (a) gemm_f32_kernel<FG_PRO_LN, FG_EPI_BIAS_ACT>
+//           h = act(LN(x; mu, rstd, ls, lb) @ W1 + b1), (T, M) f32
+//   (b) gemm_f32_kernel<FG_PRO_NONE, FG_EPI_BIAS_RESID>, one launch a
+//           chunk over its M / n_chunks columns of h (rows M apart) and rows
+//           of W2: out = x + y_0, then out = out + y_c in place,
+//           b2 riding the last chunk (in f32 the chunk boundaries change
+//           only the order of the sum; they are kept so that the function
+//           is the plain version's to the rounding)
+//   (c) row_stats_f32   next (mu, rstd) of out's own f32 values
+// Bound there: 4 T D M flop at 67 TFLOP/s, 1.80 ms at ViT-B/16 b64 (T 12 800,
+// D 768, M 3072), against about 88 MB of compulsory traffic; the (T, M) f32
+// hidden tensor (157 MB there) round-trips through device memory.
 
 #define VFT_NS mlp_chunk
 #include "common.cuh"
 #include "hopper.cuh"
 #include "gemm_wgmma.cuh"
+#include "gemm_f32.cuh"
 
 using namespace VFT_NS;
 
@@ -121,6 +138,60 @@ int vft_fused_mlp_chunked_stats(const void* x, const void* stats, const void* ls
   if (stats_out != nullptr &&
       (err = launch_row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats_out), t,
                               d, eps, st)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+// x, out: (T, D) f32; stats, stats_out: (T, 2) f32; ls, lb, b2: (D,) f32;
+// w1: (D, M) f32; b1: (M,) f32; w2: (M, D) f32; h: (T, M) f32 scratch.
+// n_chunks is 1, 2 or 4; D % 4 == 0 and M % (4 * n_chunks) == 0.  act is
+// one of the Act codes in common.cuh.  stats_out may be null.  Everything
+// is enqueued on `stream`, which belongs to the current device.  Returns a
+// cudaError_t.
+int vft_fused_mlp_stats_f32(const void* x, const void* stats, const void* ls, const void* lb,
+                            const void* w1, const void* b1, const void* w2, const void* b2,
+                            void* out, void* stats_out, void* h, int t, int d, int m,
+                            int n_chunks, int act, float eps, void* stream) {
+  if ((n_chunks != 1 && n_chunks != 2 && n_chunks != 4) || d % 4 || m % (4 * n_chunks))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+
+  FgArgs up{};
+  up.A = static_cast<const float*>(x);
+  up.B = static_cast<const float*>(w1);
+  up.C = static_cast<float*>(h);
+  up.M = t;
+  up.N = m;
+  up.K = d;
+  up.stats = static_cast<const float*>(stats);
+  up.ls = static_cast<const float*>(ls);
+  up.lb = static_cast<const float*>(lb);
+  up.bias = static_cast<const float*>(b1);
+  up.act = act;
+  if ((err = launch_gemm_f32<FG_PRO_LN, FG_EPI_BIAS_ACT>(up, st)) != cudaSuccess) return err;
+
+  // the chunks in order, each over its M / n_chunks columns of h and rows
+  // of W2 into the running output (x first, then out itself), b2 riding
+  // the last
+  const int mc = m / n_chunks;
+  for (int c = 0; c < n_chunks; ++c) {
+    FgArgs down{};
+    down.A = static_cast<const float*>(h) + (size_t)c * mc;
+    down.lda = m;
+    down.B = static_cast<const float*>(w2) + (size_t)c * mc * d;
+    down.C = static_cast<float*>(out);
+    down.M = t;
+    down.N = d;
+    down.K = mc;
+    down.bias = c == n_chunks - 1 ? static_cast<const float*>(b2) : nullptr;
+    down.resid = c == 0 ? static_cast<const float*>(x) : static_cast<const float*>(out);
+    if ((err = launch_gemm_f32<FG_PRO_NONE, FG_EPI_BIAS_RESID>(down, st)) != cudaSuccess) return err;
+  }
+
+  if (stats_out != nullptr &&
+      (err = launch_row_stats_f32(static_cast<const float*>(out),
+                                  static_cast<float*>(stats_out), t, d, eps, st)) != cudaSuccess)
     return err;
   return cudaGetLastError();
 }

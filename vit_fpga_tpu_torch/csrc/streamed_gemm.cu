@@ -14,11 +14,15 @@
 //         wgmma.m64n256k16 on each landed stage.  The same weight stream as
 //         the TPU's, four stages deep instead of two, in place of
 //         128 x 128 mma.sync tiles fed by a two-slot cp.async ring.
-//   f32:  a 64 x 64 tile, each of 256 threads 4 x 4 outputs by FMA on the
-//         CUDA cores (no TF32: it would round the operands to 10 bits);
-//         16-deep K tiles of x and W through two shared-memory slots with
-//         cp.async (one commit group per tile, zero-fill past K, T and N),
-//         the copy of tile k + 1 in flight while the block computes tile k.
+//   f32:  gemm_f32.cuh's GEMM (no prologue, a plain store), shared with the
+//         f32 attention and MLP halves: 256 threads a block by FMA on the
+//         CUDA cores (no TF32: it would round the operands to 10 bits), a
+//         128 x 128 tile (8 x 8 outputs a thread) where those tiles give
+//         every SM a block, else 64 x 64 (4 x 4 a thread: the (256, 1024)
+//         x (1024, 512) case takes 32 blocks, not 8); 16-deep K slices of
+//         x and W through two shared-memory slots, the loads of slice k + 1
+//         in flight while the block computes slice k (zero-fill past K, T
+//         and N).
 //
 // What bounds it on the H100: at (584, 1024) x (1024, 4096) bf16 (the
 // ViT-L/16 @384 b1 MLP up-projection) 4.9 GFLOP at 989 TFLOP/s, 5.0 us,
@@ -41,79 +45,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "gemm_wgmma.cuh"
-
-namespace VFT_NS {
-
-// ---- f32 -----------------------------------------------------------------
-constexpr int HF_M = 64, HF_N = 64, HF_K = 16;
-constexpr int HF_LDA = HF_K + 4;  // floats per A row in shared memory
-constexpr int HF_LDB = HF_N + 4;  // per B (k) row
-
-__global__ void __launch_bounds__(256)
-    gemm_f32_streamed(const float* __restrict__ x, const float* __restrict__ w,
-                      float* __restrict__ out, int T, int K, int N) {
-  __shared__ __align__(16) float As[2][HF_M * HF_LDA];
-  __shared__ __align__(16) float Bs[2][HF_K * HF_LDB];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * HF_M, n0 = blockIdx.x * HF_N;
-  // one 16-byte chunk of each operand per thread and K tile: A row tid / 4,
-  // k (tid % 4) * 4; B k row tid / 16, column (tid % 16) * 4
-  const int ar = tid >> 2, ak = (tid & 3) * 4;
-  const int bk = tid >> 4, bn = (tid & 15) * 4;
-  auto load = [&](int kt, int s) {
-    const int k0 = kt * HF_K;
-    const bool va = m0 + ar < T && k0 + ak < K;
-    cp_async16(&As[s][ar * HF_LDA + ak], va ? x + (size_t)(m0 + ar) * K + k0 + ak : x, va);
-    const bool vb = k0 + bk < K && n0 + bn < N;
-    cp_async16(&Bs[s][bk * HF_LDB + bn], vb ? w + (size_t)(k0 + bk) * N + n0 + bn : w, vb);
-  };
-  // this thread's outputs: rows ty + 16 i, columns tx + 16 j (conflict-free
-  // shared reads: a warp reads two A rows and 16 neighbouring B columns)
-  const int tx = tid & 15, ty = tid >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const int nk = (K + HF_K - 1) / HF_K;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* as = As[kt & 1];
-    const float* bs = Bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < HF_K; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[(ty + 16 * i) * HF_LDA + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[kk * HF_LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) out[(size_t)row * N + col] = acc[i][j];
-    }
-  }
-}
-
-}  // namespace VFT_NS
+#include "gemm_f32.cuh"
 
 using namespace VFT_NS;
 
@@ -147,11 +79,14 @@ int vft_streamed_gemm(const void* x, const void* w, void* out, int T, int K, int
     return launch_gemm_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w), false, p,
                              st);
   }
-  const dim3 grid((N + HF_N - 1) / HF_N, (T + HF_M - 1) / HF_M);
-  gemm_f32_streamed<<<grid, 256, 0, st>>>(static_cast<const float*>(x),
-                                          static_cast<const float*>(w),
-                                          static_cast<float*>(out), T, K, N);
-  return cudaGetLastError();
+  FgArgs f{};
+  f.A = static_cast<const float*>(x);
+  f.B = static_cast<const float*>(w);
+  f.C = static_cast<float*>(out);
+  f.M = T;
+  f.N = N;
+  f.K = K;
+  return launch_gemm_f32<FG_PRO_NONE, FG_EPI_STORE>(f, st);
 }
 
 }  // extern "C"

@@ -748,12 +748,12 @@ def serving_fn(cfg: ViTConfig, params: Params, fn: Callable, device=None
     ``torch.inference_mode`` on ``device`` (CUDA unless ``"cpu"``), the
     weight matrices cast once (:func:`_prepare_params`): the body of every
     model family's ``make_forward``.  The params must already live there;
-    numpy input is copied there."""
+    numpy input is copied there.  bf16 and f32 both serve on the card: in
+    f32 the chain's K1 and K2 / K3, the per-block K4 and K7 / K9 run their
+    true-f32 modes; a route whose f32 kernel is not ported (K5 under a
+    1-chunk non-erf MLP, K6 under ``mlp_impl="pallas"``) raises, naming
+    it."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and cfg.compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the Hopper kernels take bfloat16; f32 on the card is not ported "
-            "yet (run f32 with device='cpu')")
     for leaf in (params["pos_embed"], params["blocks"]["wqkv"]):
         if leaf.device.type != dev.type:
             raise ValueError(f"params are on {leaf.device}, forward on {dev}")
@@ -917,6 +917,11 @@ def forward_latency_logits(params: Params, images: torch.Tensor,
     :func:`full_latency_supported` (the card's gate on a CUDA tensor);
     there is no fallback to :func:`forward_latency`."""
     on_card = images.device.type == "cuda"
+    if on_card and cfg.dtype != "bfloat16":
+        raise NotImplementedError(
+            "K12 vit_full takes bf16 on the card; its f32 mode (which the "
+            "JAX gate admits at ViT-B/16 b1-2 and ViT-S/16 b1-4) is not "
+            "ported yet")
     if not full_latency_supported(cfg, images.shape[0], card=on_card):
         raise NotImplementedError(
             f"forward_latency_logits takes one prefix token, a head and a "
@@ -944,8 +949,9 @@ def make_forward_latency(cfg: ViTConfig, params: Params, raw: bool = True,
     dev = resolve_device(device)
     if dev.type == "cuda" and cfg.compute_dtype != torch.bfloat16:
         raise NotImplementedError(
-            "the Hopper kernels take bfloat16; f32 on the card is not ported "
-            "yet (run f32 with device='cpu')")
+            "the latency forwards take bfloat16 on the card: K11 is bf16 in "
+            "the JAX gate too, and K12's f32 mode is not ported yet (serve "
+            "f32 through make_forward, or run it with device='cpu')")
     for leaf in (params["pos_embed"], params["blocks"]["wqkv"]):
         if leaf.device.type != dev.type:
             raise ValueError(f"params are on {leaf.device}, forward on {dev}")

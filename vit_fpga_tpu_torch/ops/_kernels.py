@@ -37,7 +37,8 @@ SOURCES = ("attn_stats.cu", "mlp_stats.cu", "attn_block.cu", "mlp.cu",
            "streamed_gemm.cu")
 HEADERS = ("common.cuh", "norm.cuh", "quant.cuh", "stack.cuh",
            "stack_wgmma.cuh", "full.cuh", "seq_attn.cuh", "mha_wgmma.cuh",
-           "hopper.cuh", "gemm_wgmma.cuh", "attn_half.cuh", "qgemm_wgmma.cuh")
+           "hopper.cuh", "gemm_wgmma.cuh", "attn_half.cuh", "qgemm_wgmma.cuh",
+           "gemm_f32.cuh", "attn_half_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvit_kernels.so"
@@ -58,15 +59,23 @@ _SIGNATURES = {
     "vft_attn_block_stats": (
         [_P] * 12 + [_I] * 5 + [_F, _F, _P, ctypes.POINTER(_I)],
         ctypes.c_int),
+    "vft_attn_block_stats_f32": (
+        [_P] * 12 + [_I] * 5 + [_F, _F, _P, ctypes.POINTER(_I)],
+        ctypes.c_int),
     "vft_mlp_init": ([], ctypes.c_int),
     "vft_fused_mlp_stats": (
         [_P] * 11 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "vft_mlp_chunk_init": ([], ctypes.c_int),
     "vft_fused_mlp_chunked_stats": (
         [_P] * 11 + [_I] * 5 + [_F, _P], ctypes.c_int),
+    "vft_fused_mlp_stats_f32": (
+        [_P] * 11 + [_I] * 5 + [_F, _P], ctypes.c_int),
     "vft_attn_block_init": ([], ctypes.c_int),
     "vft_attn_block_fwd": ([_P] * 11 + [_I] * 6 + [_F, _F, _P, ctypes.POINTER(_I)],
                            ctypes.c_int),
+    "vft_attn_block_fwd_f32": ([_P] * 11 + [_I] * 6
+                               + [_F, _F, _P, ctypes.POINTER(_I)],
+                               ctypes.c_int),
     "vft_fused_mlp_init": ([], ctypes.c_int),
     "vft_fused_mlp": ([_P] * 10 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "vft_attn_bwd_init": ([], ctypes.c_int),
@@ -121,6 +130,8 @@ _SIGNATURES = {
     "vft_flash_init": ([], ctypes.c_int),
     "vft_flash_attention": ([_P] * 4 + [_L, _L, _I, _L, _L] + [_I] * 6
                             + [_F, _P], ctypes.c_int),
+    "vft_flash_attention_f32": ([_P] * 4 + [_L, _L, _I, _L, _L] + [_I] * 5
+                                + [_F, _P], ctypes.c_int),
     "vft_mlp_int8_stats_init": ([], ctypes.c_int),
     "vft_mlp_block_int8_stats": ([_P] * 18 + [_I] * 6 + [_F, _P],
                                  ctypes.c_int),

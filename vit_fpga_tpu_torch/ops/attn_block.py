@@ -56,6 +56,15 @@ fixed-order column sums.  qkv, the attention
 output and the backward's intermediates round-trip through device memory
 (later work: fuse them away).
 
+K1 and K4 also run in f32 (the f32 forward of ``make_forward``): true
+f32 fma on the CUDA cores, no TF32 and no tensor-core instruction
+(``csrc/attn_half_f32.cuh``: the LN + QKV GEMM and the out-projection on
+``csrc/gemm_f32.cuh``, the attention ``csrc/seq_attn.cuh``'s max-free or
+safe half mode, q scaled first as the JAX kernels do in f32).  Bound at
+ViT-B/16 b64: 68 GFLOP at 67 TFLOP/s, 1.02 ms.  K23 takes bf16 only (f32
+training is not ported yet) and raises a ValueError on f32, naming
+itself.
+
 The max-free softmax, ``exp(clip(s, -70, 80))`` with keys at or past
 ``n_valid`` masked, equals the exact softmax of
 :func:`vit_fpga_tpu_torch.ops.attention.mha_qkv_xla` while every logit
@@ -181,6 +190,23 @@ def _bwd_fits(n_heads: int, d: int, n_pad: int, kv_pad: int,
     return resident + 2 * n_pad * kv_pad * 4 <= 64 * 1024 * 1024
 
 
+def _card_dtype(x: torch.Tensor, kernel: str) -> torch.dtype:
+    """The dtype a half's card launch runs in: bf16, or true f32 on the
+    CUDA cores; anything else raises, naming ``kernel``."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel} takes bf16 or f32 on the card, got "
+                         f"{x.dtype}")
+    return x.dtype
+
+
+def _count(wrapper, dt: torch.dtype, long_path: int) -> None:
+    """One launch of ``wrapper``: ``launches``, ``launches_long`` (past 256
+    valid keys) and ``launches_f32`` (in f32)."""
+    wrapper.launches += 1
+    wrapper.launches_long += long_path
+    wrapper.launches_f32 += int(dt == torch.float32)
+
+
 def _mha_tpu(qkv: torch.Tensor, num_heads: int, n_valid: int,
              safe_softmax: bool = False, out_scale=None) -> torch.Tensor:
     """The JAX kernels' ``_mha_loop`` arithmetic on (B, N, 3D) qkv:
@@ -267,8 +293,10 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     Query rows at or past ``n_valid`` are computed (garbage, as on the
     TPU); keys there are masked.  A CPU tensor runs
     :func:`attn_block_stats_plain`; a CUDA tensor launches the kernel
-    (bf16, head dim 64, 1 <= n_valid <= n_pad, the geometry
-    :func:`attn_stats_fits` admits) or raises."""
+    (bf16, or f32 on the CUDA cores; head dim 64, 1 <= n_valid <= n_pad,
+    the geometry :func:`attn_stats_fits` admits at the dtype's itemsize)
+    or raises.  Launches past 256 valid keys are also counted in
+    ``launches_long``, f32 ones in ``launches_f32``."""
     if x.device.type == "cpu":
         return attn_block_stats_plain(x, stats, ln_scale, ln_bias, wqkv,
                                       bqkv, wo, bo, num_heads, eps=eps,
@@ -286,7 +314,8 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     if dh != 64 or not 1 <= n_valid <= n:
         raise ValueError(f"K1 takes head dim 64 and 1 <= n_valid <= n_pad "
                          f"(dh={dh}, n_valid={n_valid}, n_pad={n})")
-    check_activation(x, (b, n, d), torch.bfloat16, "x")
+    dt = _card_dtype(x, "K1 attn_block_stats")
+    check_activation(x, (b, n, d), dt, "x")
     if not attn_stats_fits(b, n, d, num_heads, x.element_size()):
         plan = _plan_of(b, n, d, num_heads, x.element_size())
         raise ValueError(
@@ -296,35 +325,37 @@ def attn_block_stats(x, stats, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
             f"{num_heads} heads)")
     check_activation(stats, (b, n, 2), torch.float32, "stats")
     dev = x.device
-    f32, bf = torch.float32, torch.bfloat16
+    f32 = torch.float32
     ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
     lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    wqkv = kernel_operand(wqkv, (d, 3 * d), bf, dev, "wqkv")
+    wqkv = kernel_operand(wqkv, (d, 3 * d), dt, dev, "wqkv")
     bqkv = kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv")
-    wo = kernel_operand(wo, (d, d), bf, dev, "wo")
+    wo = kernel_operand(wo, (d, d), dt, dev, "wo")
     bo = kernel_operand(bo, (d,), f32, dev, "bo")
     out = torch.empty_like(x)
     st_out = (torch.empty((b, n, 2), dtype=f32, device=dev) if emit_stats
               else None)
-    qkv = torch.empty((b * n, 3 * d), dtype=bf, device=dev)
-    ao = torch.empty((b * n, d), dtype=bf, device=dev)
+    qkv = torch.empty((b * n, 3 * d), dtype=dt, device=dev)
+    ao = torch.empty((b * n, d), dtype=dt, device=dev)
     long_path = ctypes.c_int(0)
+    entry = ("vft_attn_block_stats_f32" if dt == f32
+             else "vft_attn_block_stats")
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
-        err = lib.vft_attn_block_stats(
+        err = getattr(lib, entry)(
             x.data_ptr(), stats.data_ptr(), ls.data_ptr(), lb.data_ptr(),
             wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
             out.data_ptr(), st_out.data_ptr() if emit_stats else None,
             qkv.data_ptr(), ao.data_ptr(), b, n, d, num_heads, n_valid,
             float(eps), 1.0 / math.sqrt(dh), stream, ctypes.byref(long_path))
-    _kernels.check(err, "attn_block_stats")
-    attn_block_stats.launches += 1
-    attn_block_stats.launches_long += long_path.value
+    _kernels.check(err, entry)
+    _count(attn_block_stats, dt, long_path.value)
     return out, st_out
 
 
 attn_block_stats.launches = 0
 attn_block_stats.launches_long = 0    # of those, with more than 256 valid keys
+attn_block_stats.launches_f32 = 0     # of those, in f32
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +378,11 @@ def _cuda_geometry(x, num_heads, n_valid, *, kernel):
         raise ValueError(f"{kernel} takes head dim 64 or 80 and at least one "
                          f"valid token (dh={d // num_heads}, "
                          f"n_valid={n_valid})")
-    check_activation(x, (b, n, d), torch.bfloat16, "x")
+    if kernel == "K23" and x.dtype != torch.bfloat16:
+        raise ValueError(
+            f"K23 attn_block_bwd takes bf16 on the card; its f32 mode (f32 "
+            f"training) is not ported yet (got {x.dtype})")
+    check_activation(x, (b, n, d), _card_dtype(x, kernel), "x")
     if kernel == "K4" and not attn_block_fits(b, n, d, num_heads,
                                               x.element_size()):
         raise ValueError(
@@ -378,9 +413,10 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
     """Per-block attention half (K4): x (B, N, D) -> x + OutProj(MHA(QKV(
     LN(x)))).  Query rows at or past ``n_valid`` are computed, keys there
     masked.  A CPU tensor runs :func:`attn_block_fwd_plain`; a CUDA tensor
-    launches the kernel (bf16, head dim 64 or 80, the geometry
-    :func:`attn_block_fits` admits; a launch past 256 valid keys is counted
-    in ``launches_long`` too) or raises."""
+    launches the kernel (bf16, or f32 on the CUDA cores; head dim 64 or
+    80, the geometry :func:`attn_block_fits` admits at the dtype's
+    itemsize; a launch past 256 valid keys is counted in ``launches_long``
+    too, an f32 one in ``launches_f32``) or raises."""
     if not residual:
         raise NotImplementedError(
             "residual=False (the tensor-parallel partial) comes with the "
@@ -393,34 +429,36 @@ def attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads: int,
         raise ValueError(f"unsupported device {x.device}")
     b, n, d, n_valid = _cuda_geometry(x, num_heads, n_valid, kernel="K4")
     dev = x.device
-    f32, bf = torch.float32, torch.bfloat16
+    dt = x.dtype
+    f32 = torch.float32
     ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
     lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    wqkv = kernel_operand(wqkv, (d, 3 * d), bf, dev, "wqkv")
+    wqkv = kernel_operand(wqkv, (d, 3 * d), dt, dev, "wqkv")
     bqkv = kernel_operand(bqkv, (3 * d,), f32, dev, "bqkv")
-    wo = kernel_operand(wo, (d, d), bf, dev, "wo")
+    wo = kernel_operand(wo, (d, d), dt, dev, "wo")
     bo = kernel_operand(bo, (d,), f32, dev, "bo")
     out = torch.empty_like(x)
     long_path = ctypes.c_int(0)
     stats = torch.empty((b * n, 2), dtype=f32, device=dev)
-    qkv = torch.empty((b * n, 3 * d), dtype=bf, device=dev)
-    ao = torch.empty((b * n, d), dtype=bf, device=dev)
+    qkv = torch.empty((b * n, 3 * d), dtype=dt, device=dev)
+    ao = torch.empty((b * n, d), dtype=dt, device=dev)
+    entry = "vft_attn_block_fwd_f32" if dt == f32 else "vft_attn_block_fwd"
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
-        err = lib.vft_attn_block_fwd(
+        err = getattr(lib, entry)(
             x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wqkv.data_ptr(),
             bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
             stats.data_ptr(), qkv.data_ptr(), ao.data_ptr(), b, n, d,
             num_heads, n_valid, int(safe_softmax), float(eps),
             1.0 / math.sqrt(d // num_heads), stream, ctypes.byref(long_path))
-    _kernels.check(err, "attn_block_fwd")
-    attn_block_fwd.launches += 1
-    attn_block_fwd.launches_long += long_path.value
+    _kernels.check(err, entry)
+    _count(attn_block_fwd, dt, long_path.value)
     return out
 
 
 attn_block_fwd.launches = 0
 attn_block_fwd.launches_long = 0      # of those, past 256 valid keys
+attn_block_fwd.launches_f32 = 0       # of those, in f32
 
 
 def attn_block_bwd_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo, g,

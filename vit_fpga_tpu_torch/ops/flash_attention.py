@@ -24,6 +24,13 @@ producer thread's TMA ring of 128-key K / V tiles; at bk 128 one sweep with
 the tile's softmax beside the previous tile's p v, at a longer bk each
 block's max first.  The operands are read by strides through 4-D TMA maps,
 so the packed qkv tensor needs no head-split copy.
+
+In f32 (ViT-B/16 @896 and @1024 in f32, the per-tensor int8 forward at
+1024 px) K9 is ``vft_flash_attention_f32``: ``csrc/seq_attn.cuh``'s online
+mode, true f32 fma on the CUDA cores, one pass over 64-key tiles with a
+running max and sum.  In f32 ``dtype(p)`` is the identity, so ``bk``
+changes only the order of the rounding, and the kernel takes none.  Bound
+at @1024 b1: 51.6 GFLOP at 67 TFLOP/s, 0.77 ms.
 """
 
 from __future__ import annotations
@@ -104,10 +111,10 @@ def check_operands(q, k, v, dtypes, what: str):
 
 def launch_strided(what: str, entry: str, q, k, v, out, n_valid: int,
                    *extra):
-    """Launches ``entry`` (``vft_flash_attention`` or ``vft_mha``) on
-    (B, H, N, 64) q, k, v and out views with their strides; ``extra`` is
-    the entry's argument before the scale (bk, or is_f32).  ``what`` names
-    the kernel in the errors."""
+    """Launches ``entry`` (``vft_flash_attention``, its f32 twin or
+    ``vft_mha``) on (B, H, N, 64) q, k, v and out views with their strides;
+    ``extra`` is the entry's argument before the scale (bk, is_f32, or
+    none).  ``what`` names the kernel in the errors."""
     b, h, n, dh = q.shape
     in_st = _strides(q, "q", what)
     if (_strides(k, "k", what) != in_st
@@ -132,14 +139,17 @@ def flash_attention(q, k, v, n_valid: int | None = None, bq: int = 512,
     head dim is contiguous (the packed qkv tensor's column blocks).
 
     A CPU tensor runs :func:`flash_attention_plain`; a CUDA tensor
-    launches K9 (bf16, head dim 64, bk a multiple of 128) or raises."""
+    launches K9 (bf16, or f32 on the CUDA cores; head dim 64, bk a multiple
+    of 128; an f32 launch is also counted in ``launches_f32``) or
+    raises."""
     b, h, n, dh = q.shape
     n_valid = n if n_valid is None else min(n_valid, n)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, n_valid, bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    check_operands(q, k, v, (torch.bfloat16,), "K9 flash_attention")
+    check_operands(q, k, v, (torch.bfloat16, torch.float32),
+                   "K9 flash_attention")
     bk = min(bk, round_up(n, LANE))
     if bk % _KEY_TILE or not 1 <= n_valid:
         raise ValueError(f"flash_attention kernel takes bk a multiple of "
@@ -147,10 +157,16 @@ def flash_attention(q, k, v, n_valid: int | None = None, bq: int = 512,
                          f"n_valid={n_valid})")
     out = torch.empty((b, n, h, dh), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    launch_strided("K9 flash_attention", "vft_flash_attention", q, k, v,
-                   out, n_valid, bk)
+    if q.dtype == torch.float32:
+        launch_strided("K9 flash_attention", "vft_flash_attention_f32", q, k,
+                       v, out, n_valid)
+    else:
+        launch_strided("K9 flash_attention", "vft_flash_attention", q, k, v,
+                       out, n_valid, bk)
     flash_attention.launches += 1
+    flash_attention.launches_f32 += int(q.dtype == torch.float32)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0      # of those, in f32

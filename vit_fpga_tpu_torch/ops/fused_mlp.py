@@ -56,6 +56,16 @@ device memory (later work).
 
 Semantics follow the JAX kernels: f32 LayerNorm, bf16 GEMMs with f32
 accumulation, activation in f32, residual add in the input dtype.
+
+K2 and K3 also run in f32 (the f32 forward's stats chain), as one launch
+``vft_fused_mlp_stats_f32`` (``csrc/mlp_chunk_stats.cu``): true f32 fma on
+the CUDA cores, no TF32 and no tensor-core instruction, both products on
+``csrc/gemm_f32.cuh`` (the LN applied as x lands, bias and activation in
+the up-projection's epilogue, the residual added at each of K3's chunk
+boundaries), the next stats from the output's own f32 values.  Bound at
+ViT-B/16 b64: 4·T·D·M = 242 GFLOP at 67 TFLOP/s, 3.6 ms.  K5, K6 and K24
+take bf16 only and raise a ValueError on f32, naming themselves (their
+f32 modes are not ported yet).
 """
 
 from __future__ import annotations
@@ -124,11 +134,13 @@ def fused_mlp_stats_plain(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
 
 
 def _launch_stats_half(entry, multiple, x, stats, ln_scale, ln_bias, w1, b1,
-                       w2, b2, eps, act, emit_stats, *gate):
-    """Checks and launches the stats-chain MLP half ``entry`` of the
-    library (K2 ``vft_fused_mlp_stats``, D and M multiples of 8, or K3
-    ``vft_fused_mlp_chunked_stats`` with ``gate`` = (n_chunks,), of 32) on
-    CUDA tensors: (out, next stats or None)."""
+                       w2, b2, eps, act, emit_stats, n_chunks=1):
+    """Checks and launches the stats-chain MLP half on CUDA tensors: (out,
+    next stats or None).  bf16 runs ``entry`` of the library (K2
+    ``vft_fused_mlp_stats``, D and M multiples of 8, or K3
+    ``vft_fused_mlp_chunked_stats`` with its ``n_chunks``, of 32); f32
+    runs ``vft_fused_mlp_stats_f32``, K2's (one chunk) and K3's f32 launch
+    alike (true f32 fma on the CUDA cores)."""
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
@@ -136,20 +148,28 @@ def _launch_stats_half(entry, multiple, x, stats, ln_scale, ln_bias, w1, b1,
     if d % multiple or m % multiple:
         raise ValueError(f"{entry} needs D and M divisible by {multiple} "
                          f"(D={d}, M={m})")
-    check_activation(x, (t, d), torch.bfloat16, "x")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{entry} takes bf16 or f32 on the card, got "
+                         f"{x.dtype}")
+    dt = x.dtype
+    check_activation(x, (t, d), dt, "x")
     check_activation(stats, (t, 2), torch.float32, "stats")
     dev = x.device
-    f32, bf = torch.float32, torch.bfloat16
+    f32 = torch.float32
     ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
     lb = kernel_operand(ln_bias, (d,), f32, dev, "ln_bias")
-    w1 = kernel_operand(w1, (d, m), bf, dev, "w1")
+    w1 = kernel_operand(w1, (d, m), dt, dev, "w1")
     b1 = kernel_operand(b1, (m,), f32, dev, "b1")
-    w2 = kernel_operand(w2, (m, d), bf, dev, "w2")
+    w2 = kernel_operand(w2, (m, d), dt, dev, "w2")
     b2 = kernel_operand(b2, (d,), f32, dev, "b2")
     out = torch.empty_like(x)
     st_out = (torch.empty((t, 2), dtype=f32, device=dev) if emit_stats
               else None)
-    hidden = torch.empty((t, m), dtype=bf, device=dev)
+    hidden = torch.empty((t, m), dtype=dt, device=dev)
+    if dt == f32:
+        entry, gate = "vft_fused_mlp_stats_f32", (n_chunks,)
+    else:
+        gate = (n_chunks,) if n_chunks > 1 else ()
     with torch.cuda.device(dev):
         lib, stream = _kernels.launch_target()
         err = getattr(lib, entry)(
@@ -169,7 +189,8 @@ def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     (out (T, D), next stats (T, 2) f32 or None).
 
     A CPU tensor runs :func:`fused_mlp_stats_plain`; a CUDA tensor
-    launches the kernel (bf16, D and M multiples of 8) or raises."""
+    launches the kernel (bf16, or f32 on the CUDA cores; D and M multiples
+    of 8; an f32 launch is also counted in ``launches_f32``) or raises."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
     if x.device.type == "cpu":
@@ -181,10 +202,12 @@ def fused_mlp_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     res = _launch_stats_half("vft_fused_mlp_stats", 8, x, stats, ln_scale,
                              ln_bias, w1, b1, w2, b2, eps, act, emit_stats)
     fused_mlp_stats.launches += 1
+    fused_mlp_stats.launches_f32 += int(x.dtype == torch.float32)
     return res
 
 
 fused_mlp_stats.launches = 0
+fused_mlp_stats.launches_f32 = 0      # of those, in f32
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +277,9 @@ def fused_mlp_chunked_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
     None).
 
     A CPU tensor runs :func:`fused_mlp_chunked_stats_plain`; a CUDA tensor
-    launches the kernel (bf16, D and M multiples of 32, n_chunks 2 or 4,
-    M a multiple of 32 * n_chunks) or raises."""
+    launches the kernel (bf16, or f32 on the CUDA cores; D and M multiples
+    of 32, n_chunks 2 or 4, M a multiple of 32 * n_chunks; an f32 launch
+    is also counted in ``launches_f32``) or raises."""
     if act not in _ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
     if x.device.type == "cpu":
@@ -272,10 +296,12 @@ def fused_mlp_chunked_stats(x, stats, ln_scale, ln_bias, w1, b1, w2, b2,
                              ln_scale, ln_bias, w1, b1, w2, b2, eps, act,
                              emit_stats, n_chunks)
     fused_mlp_chunked_stats.launches += 1
+    fused_mlp_chunked_stats.launches_f32 += int(x.dtype == torch.float32)
     return res
 
 
 fused_mlp_chunked_stats.launches = 0
+fused_mlp_chunked_stats.launches_f32 = 0   # of those, in f32
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +351,7 @@ def fused_mlp_chunked_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                        eps=eps, act=act, n_chunks=n_chunks)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    t, d, m = _cuda_geometry(x, w1)
+    t, d, m = _cuda_geometry(x, w1, kernel="K6 fused_mlp_chunked_fwd")
     if n_chunks not in (2, 4) or m % (32 * n_chunks):
         raise ValueError(f"kernel takes n_chunks 2 or 4 and M a multiple of "
                          f"32 * n_chunks (M={m}, n_chunks={n_chunks})")
@@ -392,11 +418,16 @@ def fused_mlp_chunked(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
 # K5 (per-block forward) and K24 (its backward)
 # ---------------------------------------------------------------------------
 
-def _cuda_geometry(x, w1, multiple=32):
+def _cuda_geometry(x, w1, multiple=32, kernel="K5 / K6 / K24"):
     """Shape checks shared by the K5 / K6 / K24 launches: (t, d, m).  K5's
     wgmma GEMMs take D and M multiples of 8 (TMA's 16-byte strides); K6's
     gate (the TPU kernel's chunk tiling) and K24's launch multiples of
-    32."""
+    32.  All three take bf16: their f32 modes are not ported yet, and an
+    f32 tensor raises naming ``kernel``."""
+    if x.dtype == torch.float32:
+        raise ValueError(
+            f"{kernel} takes bf16 on the card; its f32 mode is not ported "
+            f"yet (ROADMAP.md, section 1 item 2c)")
     if x.dim() != 2:
         raise ValueError(f"x must be (T, D), got {tuple(x.shape)}")
     t, d = x.shape
@@ -424,7 +455,7 @@ def fused_mlp_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6,
                              act=act)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    t, d, m = _cuda_geometry(x, w1, 8)
+    t, d, m = _cuda_geometry(x, w1, 8, kernel="K5 fused_mlp_fwd")
     dev = x.device
     f32, bf = torch.float32, torch.bfloat16
     ls = kernel_operand(ln_scale, (d,), f32, dev, "ln_scale")
@@ -509,7 +540,7 @@ def fused_mlp_bwd(x, ln_scale, ln_bias, w1, b1, w2, g, eps: float = 1e-6,
                                    eps=eps, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    t, d, m = _cuda_geometry(x, w1)
+    t, d, m = _cuda_geometry(x, w1, kernel="K24 fused_mlp_bwd")
     if t % 8 or d > 2048:
         raise ValueError(f"backward kernel takes T a multiple of 8 and "
                          f"D <= 2048 (T={t}, D={d})")

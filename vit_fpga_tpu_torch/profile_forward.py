@@ -3,7 +3,7 @@ or calibrated static int8, throughput or batch-1 latency), or one
 training step.
 
     python -m vit_fpga_tpu_torch.profile_forward [--model vit_b16]
-        [--image 224] [--batch 64] [--steps 3]
+        [--image 224] [--batch 64] [--steps 3] [--dtype float32]
         [--train | --int8 [--static | --chain | --scores] | --per-tensor]
         [--latency | --full]
 
@@ -21,9 +21,12 @@ at 1024 px runs the per-block path, flash attention K9 and K5, or with
 ``--int8`` at 384 px the int8 blocks run past 256 keys: K16 and K15, with
 ``--static`` K18 and K17, with ``--chain`` K21b and K21a, with
 ``--scores`` K22 and K17).
-CLIP and DeiT profile
-the bf16 served forward only.  Without a mode flag it runs the family's
-``make_forward(cfg, params, raw=True)`` (bf16,
+CLIP and DeiT profile the served forward only.  ``--dtype float32`` (the
+JAX ``bench.py``'s ``dtype=float32``) profiles the served forward in f32:
+the f32 modes of K1 and K2 / K3 (the chain), K4 and K9 (the per-block
+path), true f32 on the CUDA cores; the other modes take bfloat16, their
+own dtype.  Without a mode flag it runs the family's
+``make_forward(cfg, params, raw=True)`` (bf16, or f32 with ``--dtype``;
 random weights from seed 0) on a seeded uint8 batch already on the card;
 with ``--int8`` ``make_forward_int8`` on ``quantize_vit_fast`` of the same
 weights, with ``--int8 --static`` on ``quantize_vit_static`` of them
@@ -99,6 +102,12 @@ UNEXPECTED = "unexpected:"
 # mlp_int8_static:: or attn_int8_scores:: record but K16's, K21a's, K21b's,
 # K18's, K17's and K22's wgmma launches, row passes and K22's V^T pass),
 # mlp_chunk_blk:: K6, mha:: K7 / K8, flash_attn:: K9, int8_gemm:: K13.
+# In f32 K1, K2 / K3 and K4 run gemm_f32_kernel<PRO, EPI, TM> (csrc/
+# gemm_f32.cuh: PRO 1 the LayerNorm prologue; EPI 1 bias, 2 bias + act, 3
+# bias + residual, one launch a K3 chunk; TM 8 or 4, the 128- or 64-wide
+# tile), seq_attn_f32_kernel<DH, MODE> (csrc/seq_attn.cuh: MODE 0 online,
+# K7 / K8 / K9 and K4's safe softmax; 1 the halves' max-free one) and
+# row_stats_f32_kernel.
 # The int8 GEMM's (qgemm_wgmma_kernel, K13-K18, K21a, K21b and
 # K22) template arguments are its tile width and epilogue
 # (csrc/qgemm_wgmma.cuh QwEpi: 2 f32 h with row maxima, 3 the residual, 4
@@ -190,6 +199,10 @@ STAGES = (
     ("attn_int8_static::qgemm_wgmma_kernel<128,3>",
      "K18 (d) int8 out-proj + residual"),
     ("attn_int8_static::", UNEXPECTED + " K18 kernel"),
+    ("attn_half::gemm_f32_kernel<1,1,", "K1 f32 (a) LN + QKV GEMM"),
+    ("attn_half::seq_attn_f32_kernel<64,1>", "K1 f32 (b) attention, max-free"),
+    ("attn_half::gemm_f32_kernel<0,3,", "K1 f32 (c) out-proj + residual"),
+    ("attn_half::row_stats_f32_kernel", "K1 f32 (d) next stats"),
     ("attn_half::gw_kernel<true", "K1 (a) LN + QKV GEMM"),
     ("attn_half::mha_wgmma_kernel<1", "K1 (b) attention, max-free"),
     ("attn_half::gw_kernel<false", "K1 (c) out-proj + residual"),
@@ -199,11 +212,16 @@ STAGES = (
     ("mlp_half::row_stats_kernel", "K2 (c) next stats"),
     ("attn_half::", UNEXPECTED + " K1 kernel"),
     ("mlp_half::", UNEXPECTED + " K2 kernel"),
+    ("mlp_chunk::gemm_f32_kernel<1,2,", "K2 / K3 f32 (a) LN + W1 GEMM + act"),
+    ("mlp_chunk::gemm_f32_kernel<0,3,",
+     "K2 / K3 f32 (b) W2 GEMM + residual, a launch a chunk"),
+    ("mlp_chunk::row_stats_f32_kernel", "K2 / K3 f32 (c) next stats"),
     ("mlp_chunk::gw_kernel<true", "K3 (a) LN + W1 GEMM + act"),
     ("mlp_chunk::gw_kernel<false,true", "K3 (b) chunked W2 GEMM + residual"),
     ("mlp_chunk::row_stats_kernel", "K3 (c) next stats"),
     ("mlp_chunk::", UNEXPECTED + " K3 kernel"),
     ("flash_attn::mha_wgmma_kernel", "K9 flash attention, online"),
+    ("flash_attn::seq_attn_f32_kernel", "K9 flash attention, f32"),
     ("mha::seq_attn_f32_kernel", "K7 / K8 attention, f32"),
     ("mha::mha_wgmma_kernel", "K7 / K8 attention, bf16"),
     ("mlp_chunk_blk::ln_rows_kernel", "K6 (a) LN stats"),
@@ -212,6 +230,15 @@ STAGES = (
      "K6 (c) chunked W2 GEMM + residual"),
     ("mlp_chunk_blk::", UNEXPECTED + " K6 kernel"),
     ("int8_gemm::", "K13 int8 GEMM"),
+    ("attn_block::row_stats_f32_kernel", "K4 f32 (a) LN stats"),
+    ("attn_block::gemm_f32_kernel<1,1,", "K4 f32 (b) LN + QKV GEMM"),
+    ("attn_block::seq_attn_f32_kernel<64,0>", "K4 f32 (c) attention, safe"),
+    ("attn_block::seq_attn_f32_kernel<80,0>", "K4 f32 (c) attention, safe"),
+    ("attn_block::seq_attn_f32_kernel<64,1>",
+     "K4 f32 (c) attention, max-free"),
+    ("attn_block::seq_attn_f32_kernel<80,1>",
+     "K4 f32 (c) attention, max-free"),
+    ("attn_block::gemm_f32_kernel<0,3,", "K4 f32 (d) out-proj + residual"),
     ("attn_block::row_stats_kernel", "K4 (a) LN stats"),
     ("attn_block::gw_kernel<true", "K4 (b) LN + QKV GEMM"),
     ("attn_block::mha_wgmma_kernel<2", "K4 (c) attention, safe"),
@@ -282,18 +309,18 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _model(name: str, image: int):
-    """(family module, config) for ``--model`` / ``--image``, with
-    bench.py's prefix rules: ``clip_<variant>`` is the CLIP vision tower
-    of that ViT variant, ``deit_*`` a DeiT variant, else a ViT variant."""
+def _model(name: str, image: int, dtype: str = "bfloat16"):
+    """(family module, config) for ``--model`` / ``--image`` /
+    ``--dtype``, with bench.py's prefix rules: ``clip_<variant>`` is the
+    CLIP vision tower of that ViT variant, ``deit_*`` a DeiT variant, else
+    a ViT variant."""
     from .models import clip, deit, vit
     if name.startswith("clip_"):
         return clip, clip.clip_vision_config(name.removeprefix("clip_"),
-                                             image_size=image,
-                                             dtype="bfloat16")
+                                             image_size=image, dtype=dtype)
     if name.startswith("deit_"):
-        return deit, deit.config(name, image_size=image, dtype="bfloat16")
-    return vit, vit.config(name, image_size=image, dtype="bfloat16")
+        return deit, deit.config(name, image_size=image, dtype=dtype)
+    return vit, vit.config(name, image_size=image, dtype=dtype)
 
 
 def _serve_run(family, cfg, batch):
@@ -464,6 +491,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None,
                     help="64, or 1 with --latency")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="the served forward's compute dtype (float32: "
+                         "true f32 on the CUDA cores)")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
                       help="profile one SGD training step instead of the "
@@ -504,6 +535,12 @@ def main(argv=None) -> int:
     if (args.chain or args.scores) and (args.latency or args.full):
         ap.error("--chain and --scores run the throughput forward's "
                  "encoder")
+    if args.dtype == "float32" and (args.train or args.int8
+                                    or args.per_tensor or args.latency
+                                    or args.full):
+        ap.error("--dtype float32 profiles the served forward (f32 "
+                 "training, K12's f32 mode and the latency forwards are "
+                 "not on the card)")
     if args.batch is None:
         args.batch = 1 if args.latency or args.full else 64
 
@@ -511,10 +548,10 @@ def main(argv=None) -> int:
     from .utils.platform import require_hopper
     from .utils.timing import time_cuda
 
-    family, cfg = _model(args.model, args.image)
+    family, cfg = _model(args.model, args.image, args.dtype)
     if family is not vit and (args.train or args.int8 or args.latency
                               or args.full or args.per_tensor):
-        ap.error("CLIP and DeiT profile the bf16 served forward only")
+        ap.error("CLIP and DeiT profile the served forward only")
     kind = require_hopper()
     mode = ("train" if args.train else "serve-int8" if args.int8
             else "per-tensor-int8" if args.per_tensor else "serve")
@@ -567,7 +604,7 @@ def main(argv=None) -> int:
             torch_ops[name[:90]] += (e - s) / 1e3 / args.steps
     result = {
         "device": kind, "model": args.model, "image": args.image,
-        "batch": args.batch,
+        "batch": args.batch, "dtype": args.dtype,
         "mode": mode,
         "step_ms": step_ms, "img_per_s": args.batch / step_ms * 1e3,
         "peak_mem_mb": peak_mb,
@@ -603,7 +640,7 @@ def main(argv=None) -> int:
 
     what = "train step" if args.train else "batch"
     dtype = ("int8" if args.int8 else "per-tensor int8" if args.per_tensor
-             else "bf16")
+             else "f32" if args.dtype == "float32" else "bf16")
     print(f"{args.model} @{args.image} {dtype} "
           f"b{args.batch} "
           f"{mode} on {kind}: {step_ms:.4f} ms per "
